@@ -8,25 +8,49 @@ Run it from the root of a checkout.  It needs one CUDA card, ``nvcc`` and
 nothing of JAX.  Phases, each fatal (an exception or a failed check exits
 non-zero):
 
-1. build   -- compile ``src/repro_torch/csrc/arena.cu`` (nvcc, sm_90a)
-              and print the build seconds, the card's name and power limit;
+1. build   -- compile ``src/repro_torch/csrc/arena.cu`` and
+              ``flash_attention.cu`` (nvcc, sm_90a, both started together)
+              and print the build seconds of each, the card's name and
+              power limit;
 2. kernels -- hold each arena kernel against its plain PyTorch version on
               the card: awkward offsets and lengths (0, 1, 3, 4097 and
               150,528, the largest tensor of the DARTS cell), f32 and u8;
               write/read/accum and the exact chain ops bit-equal, the
               transcendental chain ops allclose; n == 0 launches nothing;
-3. main    -- plan every paper graph and full network with SERENITY and
+3. flash   -- hold the flash-attention kernel against its plain PyTorch
+              version (``impl="torch"``) and the oracle (``impl="ref"``) on
+              the card: bf16 and f32, every (D, Dv) the wrapper takes
+              (16/16, 64/64, 128/128, 192/128), GQA groups 1 and 4, decode
+              over caches of 1/127/1056/4097 keys, causal prefill of
+              1/33/1024 tokens, a sliding window, non-causal attention (with
+              a window, and against a partly filled cache), and a cache
+              whose tail beyond kv_len holds garbage that must not leak;
+              f32 within rtol 1e-5 + atol 1e-5, bf16 within one bf16 ulp of
+              the output + 1e-5;
+4. main    -- plan every paper graph and full network with SERENITY and
               execute it in one arena on the card, slice-per-node and fused:
               realized == planned bytes, slice path bit-equal to
               ``run_reference`` on the card, fused path bit-equal where every
               fused chain is exact (else allclose), the planner's known
               integers, a uint8 pack/unpack round trip, and each of the four
               kernels launched > 0 times over the run;
-4. timing  -- microseconds per ``execute`` of the two full networks, and per
-              kernel at the launches the main path made: the kernel, its
-              bound (bytes moved / 3.35 TB/s), its plain version and the one
-              torch call that computes the same (a yardstick, never called
-              by the port).
+5. serve   -- the serving path: ``llama3.2-1b`` at its published width
+              (random weights from a seed) behind ``run_server``, 4 requests
+              of 1024 prompt tokens and 32 generated ones under the CLI's
+              default budget: the decode plan's integers, 4 served and 128
+              tokens, tokens bit-equal to a prefill + decode loop that keeps
+              the cache as plain tensors, the first decode steps' logits of
+              the kernel allclose to the plain version's, the launches of
+              the flash kernel and the u8 arena write/read over the run, and
+              one prefilled cache packed and unpacked at the served plan by
+              the u8 kernels bit-equal to their plain versions;
+6. timing  -- microseconds per ``execute`` of the two full networks, and per
+              kernel at the launches the main paths made: the kernel, its
+              bound, its plain version and the one torch call that computes
+              the same (a yardstick, never called by the port); serving's
+              prefill ms per request, ms per decode token, the device's busy
+              time and idle share over one decode step and its launches,
+              and the u8 arena write/read at the served leaves' sizes.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
@@ -40,6 +64,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -49,6 +74,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
+BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak, same sheet
 SIZES = (0, 1, 3, 4097, 150528)    # 150,528 f32 = 28x28x48x4 B: DARTS fmap
 CHAIN_RTOL, CHAIN_ATOL = 1e-5, 1e-6  # expf/tanhf vs torch's eager kernels
 SEED = 0
@@ -59,7 +85,15 @@ REPLACES = {
     "read": "src/repro/kernels/arena/kernel.py:89",
     "accum": "src/repro/kernels/arena/kernel.py:77",
     "chain_write": "src/repro/kernels/arena/kernel.py:100",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:109",
 }
+FA_RTOL32 = FA_ATOL32 = 1e-5       # f32: sums in another order
+FA_ATOL16 = 1e-5                   # bf16: + one ulp of the output
+# serving: llama3.2-1b at full width, the decode plan's known integers
+ARCH, PROMPT, GEN, N_REQ = "llama3.2-1b", 1024, 32, 4
+PLAN_INTS = {"arena_bytes": 35_124_228, "resident_extent": 34_603_012,
+             "transient_bytes": 521_216, "n_buffers": 53}
+LOGIT_STEPS, LOGIT_ATOL = 8, 5e-2  # bf16 logits of 16 layers, |logit| ~ 1
 
 
 class SmokeFailure(RuntimeError):
@@ -163,7 +197,96 @@ def phase_kernels(dev, rng, err):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the main path
+# Phase 3: the flash-attention kernel against its plain versions
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulp(x):
+    """One bf16 ulp of each element of ``x`` (f32): 2^(e - 8) for
+    x = m * 2^e, 0.5 <= m < 1."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def fa_err(got, want):
+    """(max abs err, within tolerance) of two outputs of one dtype."""
+    a, b = got.float(), want.float()
+    diff = (a - b).abs()
+    if got.dtype == torch.float32:
+        ok = bool((diff <= FA_ATOL32 + FA_RTOL32 * b.abs()).all())
+    else:
+        ok = bool((diff <= bf16_ulp(torch.maximum(a.abs(), b.abs()))
+                   + FA_ATOL16).all())
+    return float(diff.max()) if diff.numel() else 0.0, ok
+
+
+def phase_flash(dev, err):
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    KV = 8
+    cases = []
+    for kv in (1, 127, 1056, 4097):        # decode: one query at kv_len - 1
+        cases.append(("decode", 1, kv, dict(q_start=kv - 1, kv_len=kv)))
+    for n in (1, 33, 1024):                # causal prefill
+        cases.append(("prefill", n, n, dict()))
+    cases.append(("window", 100, 100, dict(window=17)))
+    cases.append(("tail", 1, 1056, dict(q_start=499, kv_len=500)))
+    cases.append(("noncausal", 33, 100, dict(causal=False)))
+    cases.append(("noncausal window", 64, 64, dict(causal=False, window=9)))
+    cases.append(("noncausal tail", 5, 1056, dict(causal=False, q_start=3,
+                                                  kv_len=700)))
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for D, Dv in FK.HEAD_DIMS:        # every (D, Dv) the wrapper takes
+            for G in (1, 4):
+                H = KV * G
+                for name, sq, skv, kw in cases:
+                    q = torch.randn(1, sq, H, D, device=dev,
+                                    generator=gen).to(dtype)
+                    k = torch.randn(1, skv, KV, D, device=dev,
+                                    generator=gen).to(dtype)
+                    v = torch.randn(1, skv, KV, Dv, device=dev,
+                                    generator=gen).to(dtype)
+                    got = FK.flash_attention_cuda(
+                        q, k, v, causal=kw.get("causal", True),
+                        window=kw.get("window"),
+                        q_start=kw.get("q_start", 0),
+                        kv_len=kw.get("kv_len", skv))
+                    line = []
+                    for impl in ("torch", "ref"):
+                        want = flash_attention(q, k, v, impl=impl, **kw)
+                        e, ok = fa_err(got, want)
+                        check(ok, f"flash {name} {dtype} D={D} Dv={Dv} "
+                                  f"G={G} vs {impl}: max abs err {e}")
+                        err["flash_attention"] = max(err["flash_attention"],
+                                                     e)
+                        key = (str(dtype).split(".")[1], impl)
+                        worst[key] = max(worst.get(key, 0.0), e)
+                        line.append(f"{impl} {e:.3e}")
+                    if name.endswith("tail"):
+                        # finite garbage beyond kv_len must not leak
+                        k[:, kw["kv_len"]:] = 1e4
+                        v[:, kw["kv_len"]:] = -1e4
+                        dirty = FK.flash_attention_cuda(
+                            q, k, v, causal=kw.get("causal", True),
+                            window=None, q_start=kw["q_start"],
+                            kv_len=kw["kv_len"])
+                        check(torch.equal(dirty, got),
+                              f"flash {name} {dtype} D={D} Dv={Dv} G={G}: "
+                              f"garbage beyond kv_len leaked")
+                    say(f"flash: {name} Sq {sq} Skv {skv} {kw} "
+                        f"{str(dtype).split('.')[1]} D {D} Dv {Dv} G {G}: "
+                        f"max abs err vs {', '.join(line)}")
+    torch.cuda.synchronize()
+    say(f"flash: every case within tolerance (f32 rtol {FA_RTOL32} + atol "
+        f"{FA_ATOL32}; bf16 one ulp of the output + {FA_ATOL16}); worst "
+        + ", ".join(f"{d} vs {i} {e:.3e}" for (d, i), e in worst.items()))
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path
 # ---------------------------------------------------------------------------
 
 
@@ -258,23 +381,191 @@ def phase_main(rng):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: timings
+# Phase 5: serving llama3.2-1b at full width
 # ---------------------------------------------------------------------------
 
 
-def device_us(work) -> float:
-    """Microseconds the card spent running kernels (and copies) during
-    ``work()``, summed from a ``torch.profiler`` trace of its activity."""
+def reset_all():
+    from repro_torch.kernels.arena import reset_launches as arena_reset
+    from repro_torch.kernels.flash_attention import reset_launches as fa_reset
+    arena_reset()
+    fa_reset()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels.arena import LAUNCHES as AL
+    from repro_torch.kernels.flash_attention import LAUNCHES as FL
+    return {**AL, **FL}
+
+
+def direct_decode(model, params, prompt, n_steps, dev, *, impl="auto",
+                  forced=None):
+    """Prefill + ``n_steps`` greedy decode steps with the cache kept as
+    plain tensors (no arena); returns (tokens, per-step logits).  With
+    ``forced``, step s feeds token ``forced[s]`` instead of its own."""
+    smax = PROMPT + GEN
+    cache = model.init_cache(1, smax, dev)
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+    logits, cache = model.prefill_fn(params, cache, {"tokens": tokens},
+                                     impl=impl)
+    toks, outs = [int(torch.argmax(logits, -1)[0])], [logits]
+    for s in range(n_steps):
+        tok = toks[-1] if forced is None else forced[s]
+        t = torch.full((1, 1), tok, dtype=torch.long, device=dev)
+        logits, cache = model.decode_fn(params, cache, t, PROMPT + s,
+                                        impl=impl)
+        toks.append(int(torch.argmax(logits, -1)[0]))
+        outs.append(logits)
+    return toks, outs
+
+
+def check_served_packing(model, params, plan, req, dev):
+    """The u8 arena kernels at the served sizes: one request's prefilled
+    cache packed into an arena of the plan's resident extent (random bytes
+    to start with) by the kernels and by their plain versions must give the
+    same arena, with each leaf's bytes at its planned offset; unpacking it
+    both ways must give the leaves back, bit for bit."""
+    from repro_torch.core.executor import pack_buffers, unpack_buffer
+    from repro_torch.models.params import tree_leaves
+
+    cache = model.init_cache(1, PROMPT + GEN, dev)
+    tokens = torch.as_tensor(req.prompt, dtype=torch.long, device=dev)[None]
+    _, cache = model.prefill_fn(params, cache, {"tokens": tokens})
+    leaves = dict(enumerate(tree_leaves(cache)))
+    apl = plan["plan"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    start = torch.randint(0, 256, (plan["resident_extent"],),
+                          dtype=torch.uint8, device=dev, generator=gen)
+    packed = {impl: pack_buffers(apl, leaves, arena=start.clone(), impl=impl,
+                                 device=dev) for impl in ("cuda", "torch")}
+    torch.cuda.synchronize()
+    check(torch.equal(packed["cuda"], packed["torch"]),
+          "served cache: the u8 write kernel's arena differs from the plain "
+          "version's")
+    spans = []
+    for i, leaf in leaves.items():
+        raw = leaf.reshape(-1).view(torch.uint8)
+        o, n = apl.offset_of(i), raw.numel()
+        spans.append((o, n))
+        check(torch.equal(packed["cuda"][o:o + n], raw),
+              f"served cache leaf {i}: bytes not at planned offset {o}")
+        backs = {impl: unpack_buffer(packed["cuda"], apl, i, leaf.shape,
+                                     leaf.dtype, impl=impl)
+                 for impl in ("cuda", "torch")}
+        for impl, back in backs.items():
+            check(back.dtype == leaf.dtype and torch.equal(
+                back.reshape(-1).view(torch.uint8), raw),
+                f"served cache leaf {i}: unpacked by {impl} != the leaf")
+    torch.cuda.synchronize()
+    say(f"serve: one prefilled cache packed into {plan['resident_extent']} "
+        f"B by the u8 write kernel and by its plain version: arenas "
+        f"bit-equal, leaves (offset, bytes) {spans} at their planned "
+        f"offsets; unpacked by the u8 read kernel and by its plain version: "
+        f"bit-equal to the leaves")
+    return spans
+
+
+def phase_serve(dev):
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve as S
+    from repro_torch.models.params import leaf_count, tree_leaves
+    from repro_torch.models.zoo import build_model
+
+    cfg = configs.get(ARCH)
+    model = build_model(cfg)
+    smax = PROMPT + GEN
+    plan = S.plan_decode_arena(model, 1, smax)
+    got = {k: plan[k] for k in PLAN_INTS}
+    check(got == PLAN_INTS, f"decode plan {got} != reference {PLAN_INTS}")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    check(n_params == leaf_count(model.defs),
+          f"{n_params} parameters made, {leaf_count(model.defs)} defined")
+    say(f"serve: {ARCH} at full width, {n_params} parameters in bf16 "
+        f"({cfg.param_count()} without the norm scales) made on the card "
+        f"in {time.perf_counter() - t0:.3f} s; decode plan {got}, policy "
+        f"{plan['policy']} (the reference's integers)")
+
+    budget = 4 * plan["arena_bytes"]      # the CLI's default budget
+    reqs = S.synth_requests(N_REQ, PROMPT, GEN, cfg.vocab_size, SEED + 1)
+    reset_all()
+    m = S.run_server(model, params, reqs, smax=smax, budget_bytes=budget,
+                     warm=2)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    say(f"serve: {m['n_served']}/{m['n_requests']} served, "
+        f"{m['n_rejected']} rejected, {m['n_tokens']} tokens in "
+        f"{m['wall_s']:.2f} s over {m['steps']} ticks, concurrency "
+        f"{m['max_concurrent']} under {budget} B; launches over the run "
+        f"{launches}")
+    check(m["n_served"] == N_REQ and m["n_rejected"] == 0
+          and m["n_tokens"] == N_REQ * GEN,
+          f"served {m['n_served']}, rejected {m['n_rejected']}, "
+          f"{m['n_tokens']} tokens")
+    # per request: prefill 16 layers, then GEN - 1 decode steps of 16; each
+    # prefill packs k and v once, each decode step unpacks and packs them
+    steps = N_REQ * (GEN - 1)
+    want = {"flash_attention": N_REQ * cfg.n_layers * GEN,
+            "write": 2 * (N_REQ + steps), "read": 2 * steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"{k} launched {launches[k]} times, the "
+                                f"serving path needs {n}")
+    spans = check_served_packing(model, params, plan, reqs[0], dev)
+
+    for r in reqs:
+        toks, _ = direct_decode(model, params, r.prompt, GEN - 1, dev)
+        check(toks == list(r.tokens),
+              f"request {r.rid}: server tokens differ from the arena-free "
+              f"loop")
+    toks, auto = direct_decode(model, params, reqs[0].prompt, LOGIT_STEPS,
+                               dev)
+    _, plain = direct_decode(model, params, reqs[0].prompt, LOGIT_STEPS, dev,
+                             impl="torch", forced=toks[:LOGIT_STEPS])
+    e = max(float((a - b).abs().max()) for a, b in zip(auto, plain))
+    peak = max(float(a.abs().max()) for a in auto)
+    check(all(bool(torch.isfinite(a).all()) and a.shape == (1, cfg.vocab_size)
+              for a in auto), "logits not finite or of the wrong shape")
+    check(e <= LOGIT_ATOL, f"logits of the kernel vs the plain attention: "
+                           f"max abs err {e} > {LOGIT_ATOL}")
+    say(f"serve: tokens of all {N_REQ} requests bit-equal to the arena-free "
+        f"prefill + decode loop; prefill + {LOGIT_STEPS} decode steps' "
+        f"logits, kernel vs plain attention: max abs err {e:.3e} (atol "
+        f"{LOGIT_ATOL}; max |logit| {peak:.3f})")
+    return model, params, plan, reqs, launches, spans
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: timings
+# ---------------------------------------------------------------------------
+
+
+def device_profile(work) -> tuple[float, int, dict]:
+    """(microseconds, activities, {name: [us, count]}) of the card during
+    ``work()``: the kernels and copies of a ``torch.profiler`` trace,
+    summed and counted, in all and by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         work()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in evs:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us()
+        acc[1] += 1
+    us = sum(t for t, _ in by_name.values())
     check(us > 0, "the profiler saw no device activity")
-    return us
+    return us, len(evs), by_name
+
+
+def device_us(work) -> float:
+    """Microseconds the card spent running kernels (and copies) during
+    ``work()``."""
+    return device_profile(work)[0]
 
 
 def time_execute(rt, p, inputs, fuse, reps=20):
@@ -435,8 +726,176 @@ def phase_timing(plans, inputs, launches, err, card):
     return rows
 
 
+def fa_bound(q, k, v, kw) -> tuple[float, float]:
+    """(bytes ms, operations ms) the card needs at least for one attention
+    call: q, k and v read once for the kv_len live keys, the output written
+    once, over 3.35 TB/s; 2*2*H*D flops per live (query, key) pair over the
+    bf16 tensor-core peak."""
+    B, Sq, H, D = q.shape
+    n, qs = kw["kv_len"], kw["q_start"]
+    live = sum(min(n, qs + i + 1) for i in range(Sq))     # causal pairs
+    esz = q.element_size()
+    nbytes = esz * (2 * q.numel() + 2 * B * n * k.shape[2] * D)
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            4 * B * H * D * live / BF16_FLOP_PER_S * 1e3)
+
+
+def time_served_packing(plan, spans, by_name, card, dev):
+    """The u8 arena write/read at the served cache leaves' offsets and
+    sizes: their device us in the decode token's trace, and replayed
+    against their bound, their plain versions and one torch copy."""
+    from repro_torch.kernels.arena import kernel as K
+    from repro_torch.kernels.arena import ref as R
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    arena = torch.randint(0, 256, (plan["resident_extent"],),
+                          dtype=torch.uint8, device=dev, generator=gen)
+    xs = [torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                        generator=gen) for _, n in spans]
+    impls = {
+        "write": ([(arena, x, o) for x, (o, _) in zip(xs, spans)],
+                  K.arena_write_cuda, R.arena_write_torch,
+                  lambda a, x, o: a[o:o + x.shape[0]].copy_(x)),
+        "read": ([(arena, o, n) for o, n in spans],
+                 K.arena_read_cuda, R.arena_read_torch,
+                 lambda a, o, n: a[o:o + n].clone()),
+    }
+    for name, (args, kern, plain, lib) in impls.items():
+        traced = [v for k, v in by_name.items()
+                  if f"{name}_kernel<unsigned char" in k]
+        t_us, t_n = sum(v[0] for v in traced), sum(v[1] for v in traced)
+        ms = time_replay(args, kern)[0]
+        plain_ms, lib_ms = time_replay(args, plain)[0], \
+            time_replay(args, lib)[0]
+        mean_n = sum(n for _, n in spans) / len(spans)
+        bound_ms = 2 * mean_n / HBM_BYTES_PER_S * 1e3
+        say(f"timing: serve u8 arena {name} at the served leaves "
+            f"{spans}: in the decode token's trace {t_n} launches, "
+            f"{t_us:.1f} us in all; replayed, device us per launch: kernel "
+            f"{ms * 1e3:.2f}, bound {bound_ms * 1e3:.2f} (bytes, "
+            f"{2 * mean_n:.0f} B), plain {plain_ms * 1e3:.2f}, torch call "
+            f"{lib_ms * 1e3:.2f} [{card}]")
+
+
+def phase_serve_timing(model, params, plan, reqs, spans, launches, err,
+                       card, dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg, smax = model.cfg, PROMPT + GEN
+    prefill = make_prefill_step(model)
+    batch = {"tokens": torch.as_tensor(reqs[0].prompt, dtype=torch.long,
+                                       device=dev)[None]}
+    ms = []
+    for _ in range(4):
+        cache = model.init_cache(1, smax, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, cache, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(ms[1:])
+
+    # decode through the server: one request in flight, one token a tick
+    pool = S.make_pool(4 * plan["arena_bytes"])
+    server = S.DecodeServer(model, params, pool, smax=smax)
+    server.submit(S.Request(rid=0, prompt=reqs[0].prompt, max_new=GEN))
+    server.step()                  # admit + prefill + the first decode
+    ms = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    tok_ms = statistics.median(ms)
+    reset_all()
+    busy_us, n_dev, by_name = device_profile(server.step)
+    per_tok = all_launches()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    say(f"timing: serve {ARCH}: prefill {prefill_ms:.2f} ms per request of "
+        f"{PROMPT} tokens (median of 3, host clock); decode {tok_ms:.3f} ms "
+        f"per token (median of 8 ticks, min {min(ms):.3f}, one request in "
+        f"flight, host clock); device busy {busy_us:.1f} us per token, idle "
+        f"share {1 - busy_us / (tok_ms * 1e3):.4f}; {n_dev} device "
+        f"activities per token, of them the port's kernels {per_tok} "
+        f"[{card}]")
+    say("timing: serve decode token, device us by kernel (count): "
+        + "; ".join(f"{name[:60]} {t:.1f} ({n})" for name, (t, n) in top))
+    time_served_packing(plan, spans, by_name, card, dev)
+
+    # the flash kernel at the serving path's shapes
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).bfloat16()
+
+    dec = (rnd(1, 1, H, D), rnd(1, smax, KV, D), rnd(1, smax, KV, D))
+    pre = (rnd(1, PROMPT, H, D), rnd(1, PROMPT, KV, D), rnd(1, PROMPT, KV, D))
+    impls = {
+        "kernel": lambda q, k, v, kw: FK.flash_attention_cuda(
+            q, k, v, causal=True, window=None, **kw),
+        "plain": lambda q, k, v, kw: flash_attention(q, k, v, impl="torch",
+                                                     **kw),
+        "sdpa": lambda q, k, v, kw: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :kw["kv_len"]].transpose(1, 2),
+            v[:, :kw["kv_len"]].transpose(1, 2), is_causal=q.shape[1] > 1,
+            enable_gqa=True),
+    }
+    shapes = {"decode": (*dec, dict(q_start=smax - 1, kv_len=smax)),
+              "prefill": (*pre, dict(q_start=0, kv_len=PROMPT))}
+    for name, args in shapes.items():
+        t = {i: time_replay([args], fn) for i, fn in impls.items()}
+        b_ms, o_ms = fa_bound(*args)
+        e = float((impls["kernel"](*args).float()
+                   - impls["sdpa"](*args).transpose(1, 2).float())
+                  .abs().max())
+        q = args[0]
+        say(f"timing: flash_attention {name} (B 1, Sq {q.shape[1]}, Skv "
+            f"{args[1].shape[1]}, H {H}, KV {KV}, D {D}, bf16, "
+            f"{args[3]}): device us per launch: kernel "
+            f"{t['kernel'][0] * 1e3:.2f}, bound {max(b_ms, o_ms) * 1e3:.3f} "
+            f"({'bytes' if b_ms >= o_ms else 'operations'}), plain "
+            f"{t['plain'][0] * 1e3:.2f}, sdpa {t['sdpa'][0] * 1e3:.2f}; "
+            f"host-clock us per call: kernel {t['kernel'][1] * 1e3:.2f}, "
+            f"plain {t['plain'][1] * 1e3:.2f}, sdpa "
+            f"{t['sdpa'][1] * 1e3:.2f}; kernel vs sdpa max abs err {e:.3e} "
+            f"[{card}]")
+
+    # the serving run's launch mix: each request runs one prefill per layer
+    # and one decode per layer at t = PROMPT .. PROMPT + GEN - 2, so every
+    # shape below stands for N_REQ * n_layers launches
+    mix = [shapes["prefill"]] + [(*dec, dict(q_start=t, kv_len=t + 1))
+                                 for t in range(PROMPT, PROMPT + GEN - 1)]
+    t = {i: time_replay(mix, fn, reps=3)[0] for i, fn in impls.items()}
+    bounds = [fa_bound(*a) for a in mix]
+    bound_ms = sum(max(b) for b in bounds) / len(mix)
+    by = "bytes" if sum(b for b, _ in bounds) >= sum(o for _, o in bounds) \
+        else "operations"
+    say(f"timing: flash_attention over the serving run's launch mix "
+        f"({len(mix)} shapes, {N_REQ * cfg.n_layers} launches each): device "
+        f"us per launch: kernel {t['kernel'] * 1e3:.2f}, bound "
+        f"{bound_ms * 1e3:.3f} ({by}), plain {t['plain'] * 1e3:.2f}, sdpa "
+        f"{t['sdpa'] * 1e3:.2f} [{card}]")
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces=REPLACES["flash_attention"],
+        launches=launches["flash_attention"],
+        max_abs_err=err["flash_attention"], ms=t["kernel"],
+        plain_ms=t["plain"], bound_ms=bound_ms, bound_by=by,
+        library_ms=t["sdpa"])
+
+
 def main() -> int:
-    if not (SRC / "repro_torch" / "csrc" / "arena.cu").is_file():
+    csrc = SRC / "repro_torch" / "csrc"
+    if not all((csrc / f).is_file() for f in ("arena.cu",
+                                              "flash_attention.cu")):
         say("FAIL: src/repro_torch not found beside chip_smoke.py; run it "
             "from the root of a checkout")
         return 2
@@ -451,18 +910,30 @@ def main() -> int:
     card = card_line()
 
     from repro_torch.kernels.arena import kernel as K
-    t0 = time.perf_counter()
-    lib = K.build()
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    def timed_build(mod):
+        t0 = time.perf_counter()
+        return mod.build(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as ex:      # one nvcc per source, together
+        builds = [ex.submit(timed_build, mod) for mod in (K, FK)]
+        for fut in builds:
+            lib, sec = fut.result()
+            say(f"build: {lib.relative_to(ROOT)} in {sec:.1f} s")
     K._library()
-    say(f"build: {lib.relative_to(ROOT)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    FK._library()
     say(f"card: {card}")
 
     rng = np.random.default_rng(SEED)
     err = {k: 0.0 for k in REPLACES}
     phase_kernels(dev, rng, err)
+    phase_flash(dev, err)
     plans, inputs, launches, _ = phase_main(rng)
+    model, params, plan, reqs, serve_launches, spans = phase_serve(dev)
     rows = phase_timing(plans, inputs, launches, err, card)
+    rows.append(phase_serve_timing(model, params, plan, reqs, spans,
+                                   serve_launches, err, card, dev))
 
     print(json.dumps({"kernels": rows}))
     print(card)

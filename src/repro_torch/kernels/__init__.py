@@ -1,6 +1,11 @@
 """Hand-written CUDA kernels for Hopper, one package each:
 
-  arena  -- the four arena slice ops of the executor (csrc/arena.cu)
+  arena            -- the four arena slice ops of the executor
+                      (csrc/arena.cu)
+  flash_attention  -- GQA forward attention with an online softmax
+                      (csrc/flash_attention.cu)
+
+``_build`` compiles each ``csrc/*.cu`` with nvcc into its own library.
 
 Each package keeps beside its kernels a plain PyTorch version of the same
 function (used for CPU tensors and as the reference the kernels are held

@@ -1,11 +1,11 @@
 """CUDA arena kernels for Hopper: build, bind, launch.
 
 The kernels live in ``repro_torch/csrc/arena.cu`` (one file, plain C
-interface).  The first call that needs them compiles that file with
-``nvcc -gencode arch=compute_90a,code=sm_90a`` into ``build/repro_torch/
-<source hash>/libarena.so`` at the root of the checkout and loads it with
-``ctypes``; later calls (and later processes) reuse the library while the
-source is unchanged.  Nothing is built when this module is imported.
+interface).  The first call that needs them compiles that file into
+``build/repro_torch/<source hash>/libarena.so`` at the root of the checkout
+(:mod:`repro_torch.kernels._build`) and loads it with ``ctypes``; later
+calls (and later processes) reuse the library while the source is
+unchanged.  Nothing is built when this module is imported.
 
 Each wrapper takes CUDA tensors only, checks device, dtype, contiguity and
 bounds, launches on PyTorch's current stream and raises if the launch was
@@ -24,35 +24,25 @@ These replace the Pallas kernels of ``repro/kernels/arena/kernel.py``
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import (  # noqa: F401  (re-exported)
+    KernelBuildError,
+    KernelLaunchError,
+)
 from repro_torch.kernels.arena.elemwise import MAX_CHAIN, chain_codes
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "arena.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"write": 0, "read": 0, "accum": 0, "chain_write": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.uint8: "u8"}
 _lib = None
 _lib_lock = threading.Lock()
-
-
-class KernelBuildError(RuntimeError):
-    pass
-
-
-class KernelLaunchError(RuntimeError):
-    pass
 
 
 class _ChainOps(ctypes.Structure):
@@ -65,36 +55,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise KernelBuildError("nvcc not found (on PATH or under $CUDA_HOME); "
-                           "the arena kernels cannot be built")
-
-
 def build() -> Path:
     """Compile ``csrc/arena.cu`` unless a library of this source exists;
-    returns the library's path."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_ROOT / tag[:16] / "libarena.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"libarena.so.tmp.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}")
-    os.replace(tmp, out)     # atomic publish, safe across processes
-    return out
+    returns the library's path (see :mod:`repro_torch.kernels._build`)."""
+    return _build.build(SOURCE, "arena")
 
 
 def _library() -> ctypes.CDLL:
@@ -140,12 +104,6 @@ def _check(arena, offset: int, n: int, dtypes, x=None) -> None:
             raise ValueError("x must not share storage with the arena")
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err:
-        raise KernelLaunchError(f"{what}: launch failed with CUDA error "
-                                f"{err}")
-
-
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -157,8 +115,8 @@ def arena_write_cuda(arena, x, offset: int):
     if n == 0:
         return arena
     fn = getattr(_library(), f"repro_arena_write_{_SUFFIX[arena.dtype]}")
-    _raise_on(fn(arena.data_ptr(), x.data_ptr(), offset, n, _stream(arena)),
-              "arena_write")
+    _build.raise_on(fn(arena.data_ptr(), x.data_ptr(), offset, n,
+                       _stream(arena)), "arena_write")
     LAUNCHES["write"] += 1
     return arena
 
@@ -170,8 +128,8 @@ def arena_read_cuda(arena, offset: int, n: int):
     if n == 0:
         return out
     fn = getattr(_library(), f"repro_arena_read_{_SUFFIX[arena.dtype]}")
-    _raise_on(fn(arena.data_ptr(), out.data_ptr(), offset, n, _stream(arena)),
-              "arena_read")
+    _build.raise_on(fn(arena.data_ptr(), out.data_ptr(), offset, n,
+                       _stream(arena)), "arena_read")
     LAUNCHES["read"] += 1
     return out
 
@@ -182,7 +140,7 @@ def arena_accum_cuda(arena, x, offset: int):
     _check(arena, offset, n, (torch.float32,), x)
     if n == 0:
         return arena
-    _raise_on(_library().repro_arena_accum_f32(
+    _build.raise_on(_library().repro_arena_accum_f32(
         arena.data_ptr(), x.data_ptr(), offset, n, _stream(arena)),
         "arena_accum")
     LAUNCHES["accum"] += 1
@@ -198,7 +156,7 @@ def arena_chain_write_cuda(arena, x, offset: int, ops=()):
     if n == 0:
         return arena
     chain = _ChainOps(len(codes), (ctypes.c_int * MAX_CHAIN)(*codes))
-    _raise_on(_library().repro_arena_chain_write_f32(
+    _build.raise_on(_library().repro_arena_chain_write_f32(
         arena.data_ptr(), x.data_ptr(), offset, n, chain, _stream(arena)),
         "arena_chain_write")
     LAUNCHES["chain_write"] += 1

@@ -1,0 +1,890 @@
+"""Multi-tenant serving on the card: request queue + budgeted arena pool +
+continuous-batching serial decode.
+
+    python -m repro_torch.launch.serve --arch llama3.2-1b --requests 4 \
+        --prompt-len 1024 --gen 32                        # on the card
+    python -m repro_torch.launch.serve --arch llama3.2-1b --smoke \
+        --requests 6 --prompt-len 8 --gen 4 --device cpu  # on the CPU
+
+The PyTorch counterpart of ``repro.launch.serve``.  Every request's decode
+state is arena-planned by SERENITY: the KV caches pinned resident at the
+bottom of the plan (:func:`repro_torch.core.allocator.plan_arena_regions`),
+the per-step transients (embed/attn/MLP activations, logits) stacked
+above; the request then *leases* that plan from a budgeted
+:class:`repro_torch.runtime.pool.ArenaPool`, which admits, queues FIFO or
+rejects it against one device byte budget.
+
+The decode loop is continuously batched: each server step advances every
+admitted request by one token, and between steps each request's KV state
+lives *packed in its leased uint8 arena at the planned byte offsets*
+(``pack_buffers``/``unpack_buffer``, i.e. the u8 arena kernels on the
+card).  A step unpacks the state, runs prefill or decode (attention
+through the CUDA flash-attention kernel on the card) and packs the state
+back.  One step mode is ported:
+
+  ``serial``  one bsz=1 decode reused for every active request, executed
+              back-to-back -- transients of distinct requests are never
+              live together, matching the pool's ``overlap='serial'``
+              admission accounting.
+
+``step_mode="vmap"`` (all active requests in one batched step) and the
+sharded fleet (``fleet_planner_for_model``, ``run_fleet``, ``--fleet``,
+``--mesh``) wait for a later slice (ROADMAP A4).  Entry points run on the
+card unless the caller passes ``device='cpu'``, and raise without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+import repro_torch.configs as configs
+from repro_torch.core import Graph, PlanConfig, pin_transients, plan
+from repro_torch.core.allocator import resident_bytes
+from repro_torch.core.executor import (
+    pack_buffers,
+    resolve_device,
+    unpack_buffer,
+)
+from repro_torch.core.plancache import default_cache
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models.params import (
+    is_def,
+    tree_flatten,
+    tree_leaves,
+    tree_unflatten,
+)
+from repro_torch.models.zoo import build_model
+from repro_torch.runtime.chaos import ChaosController, TransientExecutorError
+from repro_torch.runtime.pool import ArenaPool
+
+#: Pareto request classes decode admission serves (DESIGN.md §12): a
+#: ``memory`` request leases the tight regions plan (transients time-share
+#: their bytes -- maximum co-residency under the budget), a ``latency``
+#: request the same layout with every transient pinned always-live
+#: (:func:`~repro_torch.core.allocator.pin_transients`) -- it pays more
+#: bytes so its step never waits on buffer reuse inside a shared arena.
+REQUEST_CLASSES = ("memory", "latency")
+
+
+def _align4(n: int) -> int:
+    return -(-int(n) // 4) * 4
+
+
+def decode_state_graph(model, bsz: int, smax: int) -> tuple[Graph, int]:
+    """The serve-schedule dataflow graph for one request's decode step.
+
+    Nodes 0..C-1 are the persistent KV-cache buffers (graph outputs: state
+    that survives between steps); above them the per-step transient chain
+    -- embedding activation, per-layer attention + MLP activations, logits,
+    sampled token -- each consumed by the next, so the arena planner can
+    time-share their bytes.  Returns ``(graph, n_cache_leaves)``; cache
+    node ids equal the (``jax.tree``-ordered) leaf order of
+    ``make_cache_defs``, which is what ``pack_decode_state`` relies on.
+    """
+    leaves = tree_leaves(model.make_cache_defs(bsz, smax), is_leaf=is_def)
+    specs = []
+    for i, d in enumerate(leaves):
+        nbytes = _align4(int(np.prod(d.shape)) * d.dtype.itemsize)
+        specs.append(dict(name=f"cache{i}", op="cache", size_bytes=nbytes,
+                          preds=[]))
+    cfg = model.cfg
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    prev = None
+
+    def chain(name, op, nbytes):
+        nonlocal prev
+        specs.append(dict(name=name, op=op, size_bytes=_align4(nbytes),
+                          preds=[] if prev is None else [prev]))
+        prev = len(specs) - 1
+
+    chain("embed_out", "act", bsz * D * 4)
+    for li in range(cfg.n_layers):
+        chain(f"l{li}.attn", "act", bsz * D * 4)
+        chain(f"l{li}.mlp", "act", bsz * F * 4)
+        chain(f"l{li}.out", "act", bsz * D * 4)
+    chain("logits", "act", bsz * V * 4)
+    chain("token", "act", bsz * 4)
+    return Graph.build(specs, name="decode_state"), len(leaves)
+
+
+def plan_decode_arena(model, bsz: int, smax: int) -> dict:
+    """Arena-plan one request's decode state with the SERENITY allocator.
+
+    The KV caches are pinned resident at the bottom of the arena (they
+    persist between steps, so their bytes can never be time-shared) and the
+    per-step transients are planned above them
+    (:func:`~repro_torch.core.allocator.plan_arena_regions`).  The plan is
+    memoized in the port's content-addressed plan cache.
+    """
+    g, n_cache = decode_state_graph(model, bsz, smax)
+    pc = default_cache()
+    cache_opts = ("serve.plan_decode_arena", 3)   # 3: PlanConfig-planned
+    out = pc.get(g, cache_opts)
+    if out is None:
+        # resident: the KV caches and the sampled token -- everything the
+        # request carries between steps (the token node also keeps the
+        # logits buffer transient: it is the logits' consumer).  The Kahn
+        # scheduler is deliberate: decode state is dozens of *isolated*
+        # persistent buffers, which the exact DP models as an exponential
+        # bitmask space with nothing to gain over the greedy order.
+        cfg = PlanConfig(
+            rewrite=False, inplace=False, scheduler="kahn",
+            resident=(*range(n_cache), len(g) - 1),
+            compute_baselines=False)
+        res = plan(g, cfg, cache=pc)
+        apl = res.arena
+        naive = sum(g.sizes)
+        pers, extent = resident_bytes(apl)
+        out = {"arena_bytes": apl.arena_bytes, "naive_bytes": naive,
+               "peak_bytes": apl.peak_bytes, "policy": apl.policy,
+               "frag_ratio": apl.frag_ratio,
+               "persistent_bytes": pers, "resident_extent": extent,
+               "transient_bytes": apl.arena_bytes - extent,
+               "n_buffers": len(g), "n_cache": n_cache, "plan": apl,
+               "graph": g, "order": res.order}
+        pc.put(g, cache_opts, out)
+    return out
+
+
+def pack_decode_state(plan: dict, cache, arena=None):
+    """Pack a decode-state tree into (the resident region of) an arena.
+
+    The cache leaves land at their planned byte offsets through the u8
+    arena-write kernel; the uint8 buffer covers the plan's resident extent
+    (the transient region above it exists only during a step and is never
+    materialized per request).  Pass ``arena`` to reuse a leased buffer,
+    which is written in place; otherwise one is allocated on the leaves'
+    device.
+    """
+    leaves = tree_leaves(cache)
+    if arena is None:
+        arena = torch.zeros(plan["resident_extent"], dtype=torch.uint8,
+                            device=leaves[0].device)
+    return pack_buffers(plan["plan"], dict(enumerate(leaves)), arena=arena,
+                        device=arena.device)
+
+
+def unpack_decode_state(plan: dict, arena, defs_like):
+    """Rebuild the decode-state tree from its planned arena offsets (fresh
+    tensors on the arena's device, read by the u8 arena-read kernel).
+    ``defs_like`` is any tree of leaves with ``shape`` and ``dtype``
+    (``ParamDef``s or tensors)."""
+    leaves, treedef = tree_flatten(defs_like, is_leaf=is_def)
+    apl = plan["plan"]
+    rebuilt = [unpack_buffer(arena, apl, i, leaf.shape, leaf.dtype)
+               for i, leaf in enumerate(leaves)]
+    return tree_unflatten(treedef, rebuilt)
+
+
+def realize_decode_state(plan: dict, cache):
+    """Initialize the decode state through the planned arena.
+
+    Packs the initial cache leaves into one uint8 arena buffer at their
+    planned byte offsets and rebuilds the cache tree from slices of it, so
+    the state the decode loop starts from is materialized at the plan's
+    offsets.  Returns (arena, rebuilt_cache).
+    """
+    arena = pack_decode_state(plan, cache)
+    return arena, unpack_decode_state(plan, arena, cache)
+
+
+# ---------------------------------------------------------------------------
+# Request-queue server with continuous batching
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request moving through submit -> admit -> decode."""
+
+    rid: int
+    prompt: np.ndarray               # (P,) int32 token ids
+    max_new: int
+    klass: str | None = None         # Pareto request class (REQUEST_CLASSES;
+                                     # None = classless base-plan admission)
+    priority: int = 0                # higher = preempted later
+    tenant: str | None = None        # quota bucket (ArenaPool.tenant_quotas)
+    submit_s: float = 0.0
+    admit_s: float = 0.0
+    done_s: float = 0.0
+    tokens: list = dataclasses.field(default_factory=list)
+    rejected: bool = False
+    reject_code: str = ""            # machine-readable cause (Ticket.reason_code)
+    reject_reason: str = ""
+    preemptions: int = 0             # times this request was spilled
+    # runtime state while admitted
+    lease: object = None
+    arena: object = None             # leased uint8 buffer holding the KV state
+    spill: object = None             # SpilledLease while preempted
+    t: int = 0                       # decode position (cache_len)
+    last_tok: int = 0
+
+    @property
+    def latency_s(self) -> float:
+        return self.done_s - self.submit_s
+
+
+@dataclasses.dataclass
+class TickWatchdog:
+    """Per-tick deadline + stall escalation for the serving loop.
+
+    Two concerns (DESIGN.md §13): a *deadline* -- ticks slower than
+    ``step_deadline_s`` are counted (``deadline_misses``) -- and a *stall* --
+    ``stall_ticks`` consecutive ticks with no observable progress (no
+    token, no admission, no release, no queue movement) escalate instead
+    of silently spinning: :meth:`observe` returns ``True`` and the server
+    raises :class:`ServingStallError` carrying the structured queue
+    diagnostics.
+    """
+
+    step_deadline_s: float | None = None
+    stall_ticks: int = 64            # > the max readmit backoff (2^5 ticks)
+    ticks: int = 0
+    deadline_misses: int = 0
+    slowest_tick_s: float = 0.0
+    stagnant_ticks: int = 0          # consecutive no-progress ticks
+    escalations: int = 0
+
+    def observe(self, dt: float, progressed: bool) -> bool:
+        """Record one tick; True when stall escalation is due."""
+        self.ticks += 1
+        self.slowest_tick_s = max(self.slowest_tick_s, dt)
+        if self.step_deadline_s is not None and dt > self.step_deadline_s:
+            self.deadline_misses += 1
+        self.stagnant_ticks = 0 if progressed else self.stagnant_ticks + 1
+        if self.stagnant_ticks >= self.stall_ticks:
+            self.escalations += 1
+            self.stagnant_ticks = 0
+            return True
+        return False
+
+    def as_dict(self) -> dict:
+        return {"ticks": self.ticks,
+                "deadline_misses": self.deadline_misses,
+                "slowest_tick_s": self.slowest_tick_s,
+                "escalations": self.escalations}
+
+
+class ServingStallError(RuntimeError):
+    """The decode loop provably cannot make progress.
+
+    ``report`` is the structured diagnostics dict: every queued request's
+    rid/class/priority/tenant and its per-request ``_fits`` failure
+    reason, plus the pool's reserved/budget bytes at escalation time.
+    """
+
+    def __init__(self, message: str, report: dict):
+        super().__init__(message)
+        self.report = report
+
+
+class DecodeServer:
+    """Continuous-batching decode server over a budgeted arena pool.
+
+    Each :meth:`step` (one scheduler tick):
+
+      1. admits queued requests the pool now has bytes for (prefill fills
+         their KV cache, which is packed into the leased arena),
+      2. advances every admitted request by one decode token -- the *batch*
+         is the admitted set, re-formed every tick as requests finish,
+      3. releases finished requests' leases (their warm buffers go to the
+         pool LRU; the freed bytes admit the queue head).
+
+    Between ticks every request's KV state lives packed in its leased
+    arena buffer at the planned byte offsets.
+
+    Robustness layer (DESIGN.md §13), as in ``repro``: a mid-run
+    :meth:`set_budget` shrink (or an injected admission fault) triggers the
+    graceful-degradation ladder -- (1) re-plan a ``latency``-class request
+    at its memory-optimal Pareto point, (2) pin batch buckets to the exact
+    batch and drop padding scratch (a no-op in serial mode, counted as in
+    ``repro``), (3) preempt the lowest-priority lease (spill its packed KV
+    state to host, re-admit later with bounded retry + exponential
+    backoff).  A :class:`TickWatchdog` escalates stalls with structured
+    queue diagnostics, and a ``chaos=``
+    :class:`~repro_torch.runtime.chaos.ChaosController` drives
+    deterministic fault injection through the hooks.
+
+    ``params`` must live on ``device`` (``None``: the card).
+    """
+
+    def __init__(self, model, params, pool: ArenaPool, *, smax: int,
+                 rules=None, step_mode: str = "serial",
+                 chaos: ChaosController | None = None,
+                 step_deadline_s: float | None = None,
+                 stall_ticks: int = 64,
+                 max_readmit_attempts: int = 5,
+                 max_transient_retries: int = 3,
+                 device=None):
+        if step_mode == "vmap":
+            raise NotImplementedError(
+                "step_mode='vmap' (one batched step for every active "
+                "request) is not ported yet (ROADMAP A4); use 'serial'")
+        if step_mode != "serial":
+            raise ValueError(f"unknown step_mode {step_mode!r}")
+        self.device = resolve_device(device)
+        leaf = tree_leaves(params)[0]
+        if leaf.device != self.device:
+            raise ValueError(f"params live on {leaf.device}, the server "
+                             f"runs on {self.device}")
+        self.model = model
+        self.params = params
+        self.pool = pool
+        self.smax = smax
+        self.step_mode = step_mode
+        self.rules = rules
+        self._prefill = make_prefill_step(model, rules)
+        self._decode = make_decode_step(model, rules)
+        self._plan = plan_decode_arena(model, 1, smax)
+        # register our regions plan with the pool once; submits reuse the
+        # key (no per-request graph re-fingerprinting)
+        self._key, _ = pool.plan(self._plan["graph"], self._plan["order"],
+                                 plan=self._plan["plan"])
+        # the decode state's Pareto request classes (DESIGN.md §12): both
+        # keep the regions layout (identical offsets, so pack/unpack and
+        # the steps are class-agnostic) but charge admission differently
+        # -- 'latency' pins its transients always-live
+        pool.register_pareto(self._key, {
+            "memory": self._plan["plan"],
+            "latency": pin_transients(self._plan["plan"]),
+        })
+        self._tickets: dict[int, Request] = {}
+        self.active: list[Request] = []
+        self.done: list[Request] = []
+        # robustness state (DESIGN.md §13)
+        self.chaos = chaos
+        if chaos is not None:
+            if pool.admission_hook is not None:
+                raise ValueError(
+                    "chaos= takes ownership of pool.admission_hook, but "
+                    "the pool already has one installed; construct the "
+                    "pool without admission_hook= or inject admission "
+                    "faults through the chaos FaultPlan instead")
+            pool.admission_hook = chaos.admission_should_fail
+        self.max_readmit_attempts = max_readmit_attempts
+        self.max_transient_retries = max_transient_retries
+        self.watchdog = TickWatchdog(step_deadline_s=step_deadline_s,
+                                     stall_ticks=stall_ticks)
+        self._tick = 0
+        self._spilled: list[Request] = []       # preempted, awaiting readmit
+        self._exact_buckets = False             # ladder rung 2 latch
+        self.ladder = {"replan": 0, "shrink_buckets": 0, "preempt": 0}
+        self.transient_errors = 0
+        self._transient_streak = 0
+        self._last_tick_s = 0.0
+        self.min_budget_bytes = pool.budget_bytes
+        self.max_over_budget_bytes = 0
+        self.last_stall: dict | None = None
+
+    # -- admission ---------------------------------------------------------
+
+    def warm(self, n_buffers: int = 1) -> None:
+        """Startup warming: pre-plan + pre-allocate arenas for this shape."""
+        for _ in range(n_buffers):
+            self.pool.warm(self._plan["graph"], key=self._key)
+
+    def submit(self, req: Request) -> None:
+        req.submit_s = time.perf_counter()
+        # the pool holds *our* regions plan under self._key, so lease
+        # buffers, admission accounting and the state pack/unpack all
+        # address one set of offsets; a classed request leases its
+        # registered Pareto-point plan instead (same offsets, different
+        # admission charge)
+        ticket = self.pool.submit(self._plan["graph"], key=self._key,
+                                  klass=req.klass, priority=req.priority,
+                                  tenant=req.tenant)
+        if ticket.rejected:
+            self._finish_rejected(req, ticket)
+            return
+        self._tickets[ticket.rid] = req
+
+    def _finish_rejected(self, req: Request, ticket) -> None:
+        req.rejected = True
+        req.reject_code = ticket.reason_code
+        req.reject_reason = ticket.reason
+        req.done_s = time.perf_counter()
+        req.spill = None
+        self.done.append(req)
+
+    def _collect_rejected(self) -> None:
+        """Retire queued requests a budget-shrink sweep rejected."""
+        for ticket in self.pool.poll_rejected():
+            req = self._tickets.pop(ticket.rid, None)
+            if req is not None:
+                self._finish_rejected(req, ticket)
+
+    def _start(self, ticket) -> None:
+        req = self._tickets.pop(ticket.rid)
+        req.admit_s = time.perf_counter()
+        req.lease = ticket.lease
+        if req.spill is not None:
+            # re-admission of a preempted request: its packed KV state is
+            # self-contained (plan offsets are buffer-relative), so the
+            # restore is one host->device byte copy -- no re-prefill, and
+            # req.t / tokens continue exactly where the spill left off
+            sp, req.spill = req.spill, None
+            ticket.lease.buffer = None
+            req.arena = torch.from_numpy(np.asarray(sp.host_state)).to(
+                self.device)
+            req.klass = sp.klass or req.klass   # a downgrade sticks
+            self.active.append(req)
+            return
+        P = len(req.prompt)
+        cache = self.model.init_cache(1, self.smax, self.device)
+        batch = {"tokens": torch.as_tensor(
+            np.asarray(req.prompt), dtype=torch.long,
+            device=self.device)[None]}
+        logits, cache = self._prefill(self.params, cache, batch)
+        req.last_tok = int(torch.argmax(logits, -1)[0])
+        req.tokens.append(req.last_tok)
+        req.t = P
+        req.arena = pack_decode_state(self._plan, cache,
+                                      arena=ticket.lease.buffer)
+        ticket.lease.buffer = None    # ownership moved to the request
+        self.active.append(req)
+
+    # -- degradation ladder (DESIGN.md §13) ---------------------------------
+
+    def set_budget(self, nbytes: int) -> None:
+        """Shrink/grow the pool budget mid-run and enforce it.
+
+        A shrink that leaves the admitted set over budget walks the
+        degradation ladder (:meth:`_degrade_once`) until the members fit
+        again -- the pool itself never evicts, so this is where preemption
+        happens.
+        """
+        over = self.pool.set_budget(nbytes)
+        self.min_budget_bytes = min(self.min_budget_bytes,
+                                    self.pool.budget_bytes)
+        while over > 0:
+            if not self._degrade_once():
+                break                 # nothing left to shed (no members)
+            over = self.pool.reserved_bytes - self.pool.budget_bytes
+
+    def _preempt_request(self, req: Request,
+                         downgrade_to: str | None = None) -> None:
+        """Spill an active request's lease; it rejoins via readmit."""
+        sp = self.pool.preempt(req.lease, state=req.arena)
+        req.lease = None
+        req.arena = None
+        req.preemptions += 1
+        if downgrade_to is not None and sp.klass != downgrade_to:
+            self.pool.downgrade(sp, downgrade_to)
+            req.klass = downgrade_to
+        sp.next_tick = self._tick + 1   # first readmit try next tick
+        req.spill = sp
+        self.active.remove(req)
+        self._spilled.append(req)
+
+    def _degrade_once(self) -> bool:
+        """One ladder rung; True when it took one.
+
+        Rung 1: re-plan a ``latency``-class request at its memory-optimal
+        Pareto point (preempt + downgrade + readmit -- the classes share
+        offsets, so only the admission charge changes).  Rung 2: pin
+        batched decode to exact-size buckets and drop any padding scratch
+        (counted once; serial decode holds no scratch).  Rung 3: preempt
+        the lowest-priority lease outright.
+        """
+        # admitted-but-unpolled tickets (an external set_budget between
+        # poll and _start) hold leases none of the rungs below can see:
+        # absorb them into the active set first so their bytes are
+        # sheddable rather than silently left over budget
+        for ticket in self.pool.poll():
+            self._start(ticket)
+        lat = [r for r in self.active if r.klass == "latency"
+               and r.lease is not None]
+        if lat and "memory" in self.pool.pareto_classes(self._key):
+            victim = min(lat, key=lambda r: (r.priority, -r.rid))
+            self._preempt_request(victim, downgrade_to="memory")
+            self.ladder["replan"] += 1
+            return True
+        if not self._exact_buckets:
+            # serial decode has no buckets and holds no scratch: the rung
+            # sheds nothing, but is taken once, as in repro, so that the
+            # ladder walks the same rungs
+            self._exact_buckets = True
+            self.ladder["shrink_buckets"] += 1
+            return True
+        owned = [r for r in self.active if r.lease is not None]
+        if not owned:
+            return False
+        # same ordering as ArenaPool.preempt_candidate: lowest priority
+        # first, youngest lease among ties
+        victim = min(owned, key=lambda r: (r.priority, -r.lease.rid))
+        self._preempt_request(victim)
+        self.ladder["preempt"] += 1
+        return True
+
+    def _retry_spilled(self) -> None:
+        """Drive due re-admissions: bounded retry, exponential backoff."""
+        still = []
+        for req in self._spilled:
+            sp = req.spill
+            if not sp.due(self._tick):
+                still.append(req)
+                continue
+            ticket = self.pool.readmit(sp)
+            if ticket.rejected:
+                self._finish_rejected(req, ticket)
+            elif ticket.admitted:
+                self._tickets[ticket.rid] = req   # restored by _start
+            else:
+                sp.backoff(self._tick)
+                if sp.attempts >= self.max_readmit_attempts:
+                    ticket.reason_code = "readmit_exhausted"
+                    ticket.reason = (
+                        f"re-admission failed after {sp.attempts} attempts "
+                        f"(pool reserved {self.pool.reserved_bytes} of "
+                        f"{self.pool.budget_bytes} budget bytes)")
+                    ticket.rejected = True
+                    self._finish_rejected(req, ticket)
+                else:
+                    still.append(req)
+        self._spilled = still
+
+    # -- decode ------------------------------------------------------------
+
+    def _cache_defs(self):
+        return self.model.make_cache_defs(1, self.smax)
+
+    def _step_serial(self) -> None:
+        for req in self.active:
+            cache = unpack_decode_state(self._plan, req.arena,
+                                        self._cache_defs())
+            tok = torch.full((1, 1), req.last_tok, dtype=torch.long,
+                             device=self.device)
+            logits, cache = self._decode(self.params, cache, tok, req.t)
+            req.last_tok = int(torch.argmax(logits, -1)[0])
+            req.tokens.append(req.last_tok)
+            req.t += 1
+            req.arena = pack_decode_state(self._plan, cache, arena=req.arena)
+
+    def step(self) -> int:
+        """One scheduler tick; returns the number of active requests.
+
+        Tick order: arm this tick's chaos faults, admit (poll + start),
+        apply injected budget shrinks (which may walk the ladder), retry
+        spilled re-admissions, then decode -- guarded by the transient-
+        error bounded retry -- and finally retire finished requests and
+        record the budget-invariant trace.
+        """
+        self._tick += 1
+        t_tick = time.perf_counter()
+        shrinks = ()
+        if self.chaos is not None:
+            shrinks = self.chaos.begin_tick(self._tick)
+        self.pool.kick()              # retry after transient faults
+        self._collect_rejected()
+        for ticket in self.pool.poll():
+            self._start(ticket)
+        for spec in shrinks:
+            if spec.kind == "budget_shrink":
+                self.set_budget(max(1, int(self.pool.budget_bytes
+                                           * spec.factor)))
+        self._collect_rejected()
+        self._retry_spilled()
+        for ticket in self.pool.poll():
+            self._start(ticket)
+        if self.active:
+            try:
+                if self.chaos is not None:
+                    self.chaos.maybe_executor_error()
+                self._step_serial()
+                self._transient_streak = 0
+            except TransientExecutorError:
+                # request state untouched: skip the decode phase this tick
+                # and retry next tick, up to the bounded retry limit
+                self.transient_errors += 1
+                self._transient_streak += 1
+                if self._transient_streak > self.max_transient_retries:
+                    raise
+        still = []
+        for req in self.active:
+            if len(req.tokens) >= req.max_new:
+                req.done_s = time.perf_counter()
+                req.lease.buffer = req.arena   # warm buffer back to the pool
+                req.arena = None
+                self.pool.release(req.lease)
+                self.done.append(req)
+            else:
+                still.append(req)
+        self.active = still
+        # budget-invariant trace: realized arena bytes vs the instantaneous
+        # (possibly shrunk) budget -- the chaos suite asserts this never
+        # goes positive once the ladder has run
+        self.max_over_budget_bytes = max(
+            self.max_over_budget_bytes,
+            self.pool.reserved_bytes - self.pool.budget_bytes)
+        self._last_tick_s = time.perf_counter() - t_tick
+        return len(self.active)
+
+    # -- stall diagnostics (DESIGN.md §13) ----------------------------------
+
+    def _progress_sig(self) -> tuple:
+        """Observable state; two equal signatures = a tick did nothing.
+
+        Spill backoff state is part of the signature: a failed readmit
+        attempt re-arms the backoff (``attempts``/``next_tick`` move), and
+        that is observable work even when nothing else changed.
+        """
+        return (len(self.done),
+                sum(len(r.tokens) for r in self.active),
+                len(self.active), len(self._spilled), len(self._tickets),
+                self.pool.queue_len, self.pool.stats.admitted,
+                self.pool.budget_bytes,
+                tuple(sorted((r.rid, r.spill.attempts, r.spill.next_tick)
+                             for r in self._spilled)))
+
+    def _backoff_pending(self) -> bool:
+        """True while a spilled re-admission is waiting out its exponential
+        backoff window -- that wait is scheduled future work, not
+        stagnation, so it must not count toward watchdog escalation."""
+        return any(r.spill is not None and r.spill.next_tick > self._tick
+                   for r in self._spilled)
+
+    def _stall_report(self) -> dict:
+        """Structured queue diagnostics: every waiting request's identity
+        and its current ``_fits`` failure reason."""
+        return {
+            "tick": self._tick,
+            "queued": self.pool.queue_report(),
+            "waiting_rids": sorted(self._tickets),
+            "spilled": [{"rid": r.rid, "attempts": r.spill.attempts,
+                         "next_tick": r.spill.next_tick,
+                         "klass": r.spill.klass}
+                        for r in self._spilled],
+            "reserved_bytes": self.pool.reserved_bytes,
+            "budget_bytes": self.pool.budget_bytes,
+            "scratch_bytes": self.pool.scratch_bytes,
+            "watchdog": self.watchdog.as_dict(),
+        }
+
+    def _raise_stall(self) -> None:
+        report = self._stall_report()
+        self.last_stall = report
+        queued = ", ".join(
+            f"rid={q['rid']} klass={q['klass']} prio={q['priority']} "
+            f"({q['why']})" for q in report["queued"]) or "none"
+        raise ServingStallError(
+            f"serving stalled at tick {report['tick']}: "
+            f"{len(report['waiting_rids'])} request(s) waiting, "
+            f"{len(report['spilled'])} spilled, none active; pool reserved "
+            f"{report['reserved_bytes']} of {report['budget_bytes']} budget "
+            f"bytes; queued: [{queued}]", report)
+
+    def run(self, requests: Sequence[Request], *,
+            max_steps: int = 100_000) -> dict:
+        """Drive all ``requests`` to completion; returns serving metrics."""
+        t0 = time.perf_counter()
+        for r in requests:
+            self.submit(r)
+        steps = 0
+        while (self.active or self._tickets or self._spilled) \
+                and steps < max_steps:
+            sig = self._progress_sig()
+            self.step()
+            steps += 1
+            progressed = self._progress_sig() != sig \
+                or self._backoff_pending()
+            if self.watchdog.observe(self._last_tick_s, progressed):
+                self._raise_stall()
+            if not progressed and not self.active and self._tickets \
+                    and not self._spilled and not self.pool.leases \
+                    and not self.pool.pending_admissions \
+                    and self.chaos is None:
+                # nothing active, nothing held, pending or spilled, no
+                # fault injection that could explain it, and the queue did
+                # not move: it can never drain (an admission bug) -- fail
+                # loudly now instead of waiting out the watchdog
+                self._raise_stall()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        served = [r for r in self.done if not r.rejected]
+        lat = sorted(r.latency_s for r in served)
+        if lat:
+            p50_ms = 1e3 * float(np.percentile(lat, 50))
+            p99_ms = 1e3 * float(np.percentile(lat, 99))
+        else:
+            # an all-rejected run has no latencies: report NaN, never a
+            # vacuous 0.0 that would pass any latency SLO silently
+            p50_ms = p99_ms = float("nan")
+        n_tok = sum(len(r.tokens) for r in served)
+        st = self.pool.stats
+        ps = self.pool.preemption_stats
+        reject_codes: dict[str, int] = {}
+        for r in self.done:
+            if r.rejected:
+                code = r.reject_code or "submit"
+                reject_codes[code] = reject_codes.get(code, 0) + 1
+        return {
+            "n_requests": len(requests),
+            "n_served": len(served),
+            "n_rejected": sum(r.rejected for r in self.done),
+            "n_tokens": n_tok,
+            "wall_s": wall,
+            "tok_per_s": n_tok / max(wall, 1e-9),
+            "p50_ms": p50_ms,
+            "p99_ms": p99_ms,
+            "steps": steps,
+            "max_concurrent": st.max_concurrent,
+            "peak_reserved_bytes": st.peak_reserved_bytes,
+            "budget_bytes": self.pool.budget_bytes,
+            "warm_hits": st.warm_hits,
+            "plan_hits": st.plan_hits,
+            "arena_bytes": self._plan["arena_bytes"],
+            "persistent_bytes": self._plan["persistent_bytes"],
+            "transient_bytes": self._plan["transient_bytes"],
+            "admitted_by_class": dict(st.admitted_by_class),
+            # robustness block (DESIGN.md §13)
+            "reject_codes": reject_codes,
+            "n_preempted": ps.preemptions,
+            "spill_bytes": ps.spilled_bytes,
+            "n_readmitted": ps.readmitted,
+            "readmit_attempts": ps.readmit_attempts,
+            "admission_faults": ps.admission_faults,
+            "budget_shrinks": ps.budget_shrinks,
+            "min_budget_bytes": self.min_budget_bytes,
+            "max_over_budget_bytes": self.max_over_budget_bytes,
+            "transient_errors": self.transient_errors,
+            "ladder": dict(self.ladder),
+            "watchdog": self.watchdog.as_dict(),
+            "stall": self.last_stall,
+        }
+
+
+def make_pool(budget_bytes: int, *, pooled: bool = True, max_warm: int = 4,
+              tenant_quotas: dict[str, int] | None = None,
+              device=None) -> ArenaPool:
+    """Pool whose lease buffers are uint8 tensors on ``device`` (``None``:
+    the card).  ``pooled=False`` is the naive one-arena-per-request
+    admission baseline (``overlap='none'``)."""
+    dev = resolve_device(device)
+    return ArenaPool(
+        budget_bytes,
+        overlap="serial" if pooled else "none",
+        max_warm=max_warm,
+        alloc_fn=lambda n: torch.zeros(n, dtype=torch.uint8, device=dev),
+        tenant_quotas=tenant_quotas,
+    )
+
+
+def run_server(model, params, requests, *, smax: int, budget_bytes: int,
+               step_mode: str = "serial", pooled: bool = True,
+               rules=None, warm: int = 0,
+               chaos: ChaosController | None = None,
+               tenant_quotas: dict[str, int] | None = None,
+               device=None, **server_kwargs) -> dict:
+    """Build a pool + server on ``device`` (``None``: the card), serve
+    ``requests``, return metrics."""
+    pool = make_pool(budget_bytes, pooled=pooled,
+                     tenant_quotas=tenant_quotas, device=device)
+    server = DecodeServer(model, params, pool, smax=smax, rules=rules,
+                          step_mode=step_mode, chaos=chaos, device=device,
+                          **server_kwargs)
+    if warm:
+        server.warm(warm)
+    return server.run(requests)
+
+
+def synth_requests(n: int, prompt_len: int, gen: int, vocab: int,
+                   seed: int = 0,
+                   latency_frac: float = 0.0,
+                   priorities: Sequence[int] | None = None,
+                   tenants: Sequence[str] | None = None) -> list[Request]:
+    """Synthesize ``n`` requests; ``latency_frac`` > 0 tags that fraction
+    as the ``latency`` Pareto class and the rest ``memory`` (0.0 keeps
+    every request classless -- base-plan admission).  ``priorities`` /
+    ``tenants`` are cycled over the requests when given.  The same seed
+    gives ``repro``'s requests.
+    """
+    if not 0.0 <= latency_frac <= 1.0:
+        raise ValueError(f"latency_frac must be in [0, 1], got {latency_frac}")
+    rng = np.random.default_rng(seed)
+    n_lat = round(n * latency_frac)
+    reqs = []
+    for i in range(n):
+        klass = None if latency_frac == 0.0 else \
+            ("latency" if i < n_lat else "memory")
+        reqs.append(Request(
+            rid=i,
+            prompt=rng.integers(0, vocab, prompt_len).astype(np.int32),
+            max_new=gen, klass=klass,
+            priority=priorities[i % len(priorities)] if priorities else 0,
+            tenant=tenants[i % len(tenants)] if tenants else None))
+    return reqs
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    choices=configs.ARCH_NAMES)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--budget-mb", type=float, default=0.0,
+                    help="global arena budget; 0 = 4x one request's arena")
+    ap.add_argument("--no-pool", action="store_true",
+                    help="naive one-arena-per-request admission baseline")
+    ap.add_argument("--warm", type=int, default=2,
+                    help="arenas to pre-plan/pre-allocate at startup")
+    ap.add_argument("--latency-frac", type=float, default=0.0,
+                    help="fraction of requests admitted as the "
+                         "latency-sensitive Pareto class (pinned "
+                         "transients); the rest memory-starved")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    args = ap.parse_args()
+
+    dev = resolve_device(args.device)
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    model = build_model(cfg)
+    smax = args.prompt_len + args.gen
+
+    plan = plan_decode_arena(model, 1, smax)
+    pc_stats = default_cache().stats
+    print(f"[serve] decode-state arena/request: "
+          f"{plan['arena_bytes']/1e6:.2f} MB "
+          f"({plan['persistent_bytes']/1e6:.2f} MB KV state + "
+          f"{plan['transient_bytes']/1e6:.2f} MB step transients, "
+          f"policy={plan['policy']}, naive sum "
+          f"{plan['naive_bytes']/1e6:.2f} MB; plan cache "
+          f"hits={pc_stats.hits} misses={pc_stats.misses})")
+
+    budget = int(args.budget_mb * 1e6) if args.budget_mb else \
+        4 * plan["arena_bytes"]
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model.init(gen, dev)
+    reqs = synth_requests(args.requests, args.prompt_len, args.gen,
+                          cfg.vocab_size, args.seed + 1,
+                          latency_frac=args.latency_frac)
+    metrics = run_server(model, params, reqs, smax=smax,
+                         budget_bytes=budget, pooled=not args.no_pool,
+                         warm=args.warm, device=dev)
+    print(f"[serve] {metrics['n_served']}/{metrics['n_requests']} requests "
+          f"({metrics['n_rejected']} rejected), {metrics['n_tokens']} tokens "
+          f"in {metrics['wall_s']:.2f} s "
+          f"({metrics['tok_per_s']:.1f} tok/s) on {dev}")
+    print(f"[serve] latency p50 {metrics['p50_ms']:.0f} ms / "
+          f"p99 {metrics['p99_ms']:.0f} ms; concurrency "
+          f"{metrics['max_concurrent']} under "
+          f"{metrics['budget_bytes']/1e6:.2f} MB budget "
+          f"(peak reserved {metrics['peak_reserved_bytes']/1e6:.2f} MB; "
+          f"warm hits {metrics['warm_hits']})")
+    if metrics["admitted_by_class"]:
+        by = metrics["admitted_by_class"]
+        print("[serve] admitted by Pareto class: "
+              + ", ".join(f"{k}={by[k]}" for k in sorted(by)))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,172 @@
+"""Parameter definitions and the pytree helpers of the port.
+
+Every module describes its parameters as a tree (nested dicts and lists)
+of :class:`ParamDef` (shape + per-dimension *logical* axis names +
+initializer + torch dtype), as ``repro.models.params`` does.  From one
+definition tree:
+
+  * ``init_params``       -- tensors drawn from a ``torch.Generator`` on a
+                             device (the weights are random and seeded);
+  * ``params_from_numpy`` -- the same tree filled from ``repro``'s
+                             parameter pytree as numpy arrays (the parity
+                             tests carry JAX-initialized weights across).
+
+``param_pspecs`` and ``abstract_params`` wait for the sharding port
+(ROADMAP A8).
+
+The tree helpers flatten dicts in **sorted-key order, as ``jax.tree``
+does**: ``launch/serve.py:decode_state_graph`` numbers the decode state's
+cache nodes by that leaf order, so any other order would give other arena
+offsets than ``repro``'s.  ``None`` is an empty subtree, as in JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    logical: tuple[Any, ...]            # one logical name (or None) per dim
+    init: str = "normal"                # normal | zeros | ones | embed
+    dtype: torch.dtype = torch.bfloat16
+    scale_axis: int = 0                 # fan-in axis for init scaling
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes "
+                             f"{self.logical} differ in length")
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+# ------------------------------------------------------------ tree helpers
+
+_LEAF = object()
+
+
+def tree_flatten(tree, is_leaf: Callable | None = None):
+    """``(leaves, treedef)`` in ``jax.tree`` order: dict keys sorted, lists
+    and tuples in order, ``None`` an empty node."""
+    leaves = []
+
+    def rec(t):
+        if is_leaf is not None and is_leaf(t):
+            leaves.append(t)
+            return _LEAF
+        if isinstance(t, dict):
+            keys = sorted(t)
+            return (dict, keys, [rec(t[k]) for k in keys])
+        if isinstance(t, (list, tuple)):
+            return (type(t), None, [rec(c) for c in t])
+        if t is None:
+            return (None, None, [])
+        leaves.append(t)
+        return _LEAF
+
+    return leaves, rec(tree)
+
+
+def tree_unflatten(treedef, leaves):
+    it = iter(leaves)
+
+    def rec(d):
+        if d is _LEAF:
+            return next(it)
+        kind, keys, kids = d
+        if kind is dict:
+            return {k: rec(c) for k, c in zip(keys, kids)}
+        if kind is None:
+            return None
+        return kind(rec(c) for c in kids)
+
+    return rec(treedef)
+
+
+def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
+    return tree_flatten(tree, is_leaf)[0]
+
+
+def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of each
+    tree in ``rest``, which must have the same structure)."""
+    leaves, treedef = tree_flatten(tree, is_leaf)
+    others = [tree_flatten(r, is_leaf)[0] for r in rest]
+    for o in others:
+        if len(o) != len(leaves):
+            raise ValueError(f"tree_map: trees have {len(leaves)} and "
+                             f"{len(o)} leaves")
+    return tree_unflatten(treedef,
+                          [fn(*xs) for xs in zip(leaves, *others)])
+
+
+# ------------------------------------------------------------ parameters
+
+def _init_leaf(d: ParamDef, generator: torch.Generator, device):
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
+    fan_in = d.shape[d.scale_axis] if d.shape else 1
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    if d.init == "embed":
+        std = 0.02          # GPT-style: keeps tied-logit scales sane
+    x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.mul_(std).to(d.dtype)
+
+
+def init_params(defs, generator: torch.Generator, device=None):
+    """Materialize ``defs`` on ``device``, drawing every normal leaf from
+    ``generator`` in leaf order (the generator must live on ``device``)."""
+    leaves, treedef = tree_flatten(defs, is_leaf=is_def)
+    return tree_unflatten(treedef,
+                          [_init_leaf(d, generator, device) for d in leaves])
+
+
+def params_from_numpy(defs, tree, device=None):
+    """Fill ``defs`` from a tree of numpy arrays of the same structure
+    (``repro``'s parameter pytree after ``np.asarray``), each leaf cast to
+    its ``ParamDef`` dtype.  Floating leaves travel as float32, which
+    holds bfloat16 exactly."""
+    def leaf(d: ParamDef, a):
+        a = np.asarray(a)
+        if a.shape != tuple(d.shape):
+            raise ValueError(f"leaf of shape {a.shape}, defined {d.shape}")
+        if d.dtype.is_floating_point:
+            a = np.asarray(a, dtype=np.float32)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=device, dtype=d.dtype)
+
+    d_leaves, treedef = tree_flatten(defs, is_leaf=is_def)
+    a_leaves = tree_leaves(tree)
+    if len(a_leaves) != len(d_leaves):
+        raise ValueError(f"{len(a_leaves)} arrays for {len(d_leaves)} "
+                         f"parameter definitions")
+    return tree_unflatten(treedef,
+                          [leaf(d, a) for d, a in zip(d_leaves, a_leaves)])
+
+
+def stack_defs(defs, n: int):
+    """Add a leading layer axis of size ``n`` to every ParamDef."""
+    def st(d: ParamDef) -> ParamDef:
+        return ParamDef(
+            shape=(n, *d.shape),
+            logical=(None, *d.logical),
+            init=d.init,
+            dtype=d.dtype,
+            scale_axis=d.scale_axis + 1,
+        )
+    return tree_map(st, defs, is_leaf=is_def)
+
+
+def leaf_count(defs) -> int:
+    return sum(math.prod(d.shape) for d in tree_leaves(defs, is_leaf=is_def))

@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 import repro.kernels.arena as ja  # noqa: E402
 from repro.kernels.arena import ref as jref  # noqa: E402
 from repro.kernels.arena.elemwise import ELEMWISE_FNS as JAX_FNS  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import arena as ta  # noqa: E402
 from repro_torch.kernels.arena import kernel as tk  # noqa: E402
 from repro_torch.kernels.arena.elemwise import (  # noqa: E402
@@ -137,6 +138,6 @@ def test_dispatch_picks_plain_on_cpu_and_never_falls_back():
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
-    monkeypatch.setattr(tk, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
     with pytest.raises(tk.KernelBuildError, match="nvcc not found"):
         tk.build()

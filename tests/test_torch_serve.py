@@ -1,0 +1,185 @@
+"""The port's decode-arena server against ``repro``'s, on the CPU.
+
+  * ``decode_state_graph`` / ``plan_decode_arena`` give integer-equal plans
+    (arena, resident extent, transients, order, every ``offset_of``) for
+    the smoke config at a few ``smax`` and for the full ``llama3.2-1b``
+    config at ``smax`` 1056 (planning only, no parameters);
+  * the packed decode state is byte-equal to ``repro``'s and round-trips
+    bit-equal;
+  * ``run_server(device="cpu")`` serves the same requests with the same
+    (JAX-initialized, bf16) parameters as ``repro``'s ``run_server``:
+    equal tokens per request and equal integer metrics, under a budget
+    that queues;
+  * a mid-run budget shrink preempts, spills and re-admits; the surviving
+    tokens are bit-equal to the fault-free run of the port, and the ladder
+    takes the same decisions as ``repro``'s;
+  * ``step_mode="vmap"`` and the card's default without CUDA raise.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import repro.configs as jconfigs  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro.models.zoo import build_model as jax_build  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
+from repro_torch.core import plan_shared_arena  # noqa: E402
+from repro_torch.core.executor import ExecutorError  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models.params import params_from_numpy  # noqa: E402
+from repro_torch.models.zoo import build_model  # noqa: E402
+from repro_torch.runtime import (  # noqa: E402
+    ChaosController,
+    FaultPlan,
+    FaultSpec,
+)
+
+ARCH = "llama3.2-1b"
+METRICS = ("n_requests", "n_served", "n_rejected", "n_tokens",
+           "max_concurrent", "peak_reserved_bytes", "budget_bytes",
+           "warm_hits", "plan_hits", "steps", "arena_bytes",
+           "persistent_bytes", "transient_bytes", "n_preempted")
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    jm = jax_build(jconfigs.smoke(ARCH))
+    tm = build_model(tconfigs.smoke(ARCH))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(
+        tm.defs, jax.tree.map(lambda a: np.asarray(a, np.float32), jp),
+        "cpu")
+    return jm, tm, jp, tp
+
+
+def _assert_plans_equal(jp, tp):
+    for k in ("arena_bytes", "naive_bytes", "peak_bytes", "policy",
+              "persistent_bytes", "resident_extent", "transient_bytes",
+              "n_buffers", "n_cache", "order"):
+        assert jp[k] == tp[k], k
+    n = jp["n_buffers"]
+    assert [jp["plan"].offset_of(i) for i in range(n)] == \
+        [tp["plan"].offset_of(i) for i in range(n)]
+    assert list(jp["graph"].sizes) == list(tp["graph"].sizes)
+
+
+@pytest.mark.parametrize("smax", [12, 40, 97])
+def test_decode_plans_equal_smoke(smoke, smax):
+    jm, tm, _, _ = smoke
+    _assert_plans_equal(jserve.plan_decode_arena(jm, 1, smax),
+                        tserve.plan_decode_arena(tm, 1, smax))
+
+
+def test_decode_plan_equal_full_llama_at_1056():
+    jp = jserve.plan_decode_arena(jax_build(jconfigs.get(ARCH)), 1, 1056)
+    tp = tserve.plan_decode_arena(build_model(tconfigs.get(ARCH)), 1, 1056)
+    _assert_plans_equal(jp, tp)
+    assert (tp["arena_bytes"], tp["resident_extent"], tp["transient_bytes"],
+            tp["n_buffers"]) == (35_124_228, 34_603_012, 521_216, 53)
+
+
+def test_packed_state_equals_repro_and_round_trips(smoke):
+    jm, tm, _, _ = smoke
+    smax = 12
+    rng = np.random.default_rng(0)
+    shape = (2, 1, smax, 2, 16)
+    ks, vs = (rng.standard_normal(shape).astype(np.float32)
+              for _ in range(2))
+    jplan = jserve.plan_decode_arena(jm, 1, smax)
+    tplan = tserve.plan_decode_arena(tm, 1, smax)
+    jcache = {"dense": {"k": jnp.asarray(ks, jnp.bfloat16),
+                        "v": jnp.asarray(vs, jnp.bfloat16)}}
+    tcache = {"dense": {"k": torch.from_numpy(ks).bfloat16(),
+                        "v": torch.from_numpy(vs).bfloat16()}}
+    want = np.asarray(jserve.pack_decode_state(jplan, jcache))
+    arena = tserve.pack_decode_state(tplan, tcache)
+    assert arena.dtype == torch.uint8
+    np.testing.assert_array_equal(arena.numpy(), want)
+    back = tserve.unpack_decode_state(tplan, arena, tm.make_cache_defs(1,
+                                                                       smax))
+    for leaf in ("k", "v"):
+        assert torch.equal(back["dense"][leaf], tcache["dense"][leaf])
+    arena2, rebuilt = tserve.realize_decode_state(tplan, tcache)
+    assert torch.equal(arena2, arena)
+    assert torch.equal(rebuilt["dense"]["v"], tcache["dense"]["v"])
+    # a leased buffer is written in place
+    buf = torch.zeros(tplan["resident_extent"], dtype=torch.uint8)
+    assert tserve.pack_decode_state(tplan, tcache, arena=buf) is buf
+    assert torch.equal(buf, arena)
+
+
+@pytest.mark.parametrize("pooled", [True, False])
+def test_server_matches_repro(smoke, pooled):
+    jm, tm, jp, tp = smoke
+    P, GEN = 8, 4
+    smax = P + GEN
+    budget = 12_000          # three of the six requests fit at a time
+    kw = dict(smax=smax, budget_bytes=budget, pooled=pooled, warm=2)
+    jreqs = jserve.synth_requests(6, P, GEN, 512, seed=1)
+    treqs = tserve.synth_requests(6, P, GEN, 512, seed=1)
+    jm_ = jserve.run_server(jm, jp, jreqs, **kw)
+    tm_ = tserve.run_server(tm, tp, treqs, device="cpu", **kw)
+    assert tm_["max_concurrent"] < 6        # the budget queued
+    for k in METRICS:
+        assert tm_[k] == jm_[k], k
+    for a, b in zip(jreqs, treqs):
+        assert (a.rid, a.rejected) == (b.rid, b.rejected)
+        assert list(a.tokens) == list(b.tokens), a.rid
+
+
+def _serve(srv, model, params, chaos=None, **kw):
+    P, GEN = 4, 8
+    smax = P + GEN
+    plan = srv.plan_decode_arena(model, 1, smax)
+    budget = plan_shared_arena([plan["plan"]] * 3).arena_bytes
+    reqs = srv.synth_requests(4, P, GEN, 512, seed=3, latency_frac=0.5,
+                              priorities=(0, 1))
+    m = srv.run_server(model, params, reqs, smax=smax, budget_bytes=budget,
+                       warm=1, chaos=chaos, **kw)
+    return reqs, m
+
+
+def _shrink():
+    return ChaosController(FaultPlan([FaultSpec("budget_shrink", 2, 0.5)]))
+
+
+def test_budget_shrink_preempts_readmits_and_keeps_tokens(smoke):
+    jm, tm, jp, tp = smoke
+    base_reqs, _ = _serve(tserve, tm, tp, device="cpu")
+    reqs, m = _serve(tserve, tm, tp, chaos=_shrink(), device="cpu")
+    assert m["budget_shrinks"] == 1 and m["n_preempted"] >= 1
+    assert m["spill_bytes"] > 0 and m["n_readmitted"] >= 1
+    assert m["max_over_budget_bytes"] <= 0
+    assert m["n_served"] + m["n_rejected"] == len(reqs)
+    base = {r.rid: list(r.tokens) for r in base_reqs if not r.rejected}
+    served = [r for r in reqs if not r.rejected]
+    assert any(r.preemptions for r in served)
+    for r in served:
+        assert list(r.tokens) == base[r.rid]
+    # the ladder took the same decisions as repro's
+    jreqs, jm_ = _serve(jserve, jm, jp, chaos=_shrink())
+    for k in METRICS + ("n_readmitted", "spill_bytes", "ladder",
+                        "reject_codes", "min_budget_bytes"):
+        assert m[k] == jm_[k], k
+    for a, b in zip(jreqs, reqs):
+        assert (a.rejected, a.preemptions, list(a.tokens)) == \
+            (b.rejected, b.preemptions, list(b.tokens))
+
+
+def test_vmap_and_missing_card_raise(smoke):
+    _, tm, _, tp = smoke
+    reqs = tserve.synth_requests(1, 4, 2, 512)
+    with pytest.raises(NotImplementedError, match="A4"):
+        tserve.run_server(tm, tp, reqs, smax=6, budget_bytes=10**6,
+                          step_mode="vmap", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(ExecutorError, match="CUDA"):
+            tserve.run_server(tm, tp, reqs, smax=6, budget_bytes=10**6)
+        with pytest.raises(ExecutorError, match="CUDA"):
+            tserve.make_pool(10**6)

@@ -1,8 +1,10 @@
 """``repro_torch`` stands alone: no JAX, no networkx, nothing of ``repro``.
 
 A subprocess with ``jax`` and ``networkx`` made unimportable imports the
-port, plans a cell and executes it on the CPU; a scan of the port's sources
-and of ``chip_smoke.py`` finds no import of ``jax`` or of ``repro``.
+port, plans a cell and executes it on the CPU, then builds the smoke
+``llama3.2-1b`` and serves one request through the decode-arena server on
+the CPU; a scan of the port's sources and of ``chip_smoke.py`` finds no
+import of ``jax`` or of ``repro``.
 """
 
 import ast
@@ -31,6 +33,16 @@ p = rt.plan(randwire_graph(seed=100), rt.PlanConfig())
 res = rt.execute(p.graph, None, p.arena, order=p.order, fuse=True,
                  device="cpu")
 assert res.realized_matches_plan
+import torch
+import repro_torch.configs as configs
+from repro_torch.launch.serve import run_server, synth_requests
+from repro_torch.models import build_model
+model = build_model(configs.smoke("llama3.2-1b"))
+params = model.init(torch.Generator().manual_seed(0), "cpu")
+reqs = synth_requests(1, 6, 3, model.cfg.vocab_size)
+m = run_server(model, params, reqs, smax=9, budget_bytes=10**6,
+               device="cpu")
+assert m["n_served"] == 1 and len(reqs[0].tokens) == 3, m
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "networkx", "repro")
              and sys.modules[m] is not None)
