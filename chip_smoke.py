@@ -8,10 +8,10 @@ Run it from the root of a checkout.  It needs one CUDA card, ``nvcc`` and
 nothing of JAX.  Phases, each fatal (an exception or a failed check exits
 non-zero):
 
-1. build   -- compile ``src/repro_torch/csrc/arena.cu`` and
-              ``flash_attention.cu`` (nvcc, sm_90a, both started together)
-              and print the build seconds of each, the card's name and
-              power limit;
+1. build   -- compile ``src/repro_torch/csrc/arena.cu``,
+              ``flash_attention.cu``, ``wkv6.cu`` and ``rglru.cu`` (nvcc,
+              sm_90a, all four started together) and print the build
+              seconds of each, the card's name and power limit;
 2. kernels -- hold each arena kernel against its plain PyTorch version on
               the card: awkward offsets and lengths (0, 1, 3, 4097 and
               150,528, the largest tensor of the DARTS cell), f32 and u8;
@@ -20,41 +20,64 @@ non-zero):
 3. flash   -- hold the flash-attention kernel against its plain PyTorch
               version (``impl="torch"``) and the oracle (``impl="ref"``) on
               the card: bf16 and f32, every (D, Dv) the wrapper takes
-              (16/16, 64/64, 128/128, 192/128), GQA groups 1 and 4, decode
-              over caches of 1/127/1056/4097 keys, causal prefill of
+              (16/16, 64/64, 128/128, 192/128, 256/256), GQA groups 1 and 4,
+              decode over caches of 1/127/1056/4097 keys, causal prefill of
               1/33/1024 tokens, a sliding window, non-causal attention (with
               a window, and against a partly filled cache), and a cache
               whose tail beyond kv_len holds garbage that must not leak;
-              f32 within rtol 1e-5 + atol 1e-5, bf16 within one bf16 ulp of
-              the output + 1e-5;
-4. main    -- plan every paper graph and full network with SERENITY and
+              then recurrentgemma-2b's multi-query shape (D 256, G 10,
+              KV 1, window 2048): decode over 2592 keys, causal prefill of
+              2560, a garbage tail; f32 within rtol 1e-5 + atol 1e-5, bf16
+              within one bf16 ulp of the output + 1e-5;
+4. wkv6    -- hold the WKV-6 kernel against its plain version on the card:
+              bf16 and f32, N 16/32/64, T 1/7/256/1000/1024, with and
+              without an initial state: outputs within the flash phase's
+              tolerances plus the rounding bound of two f32 sums of N + 1
+              terms (2 (N + 1) 2^-24 times the terms' magnitudes), final
+              states bit-equal; a split run (T/2 + T/2,
+              the state threaded) and an in-place state equal the whole
+              run bit for bit;
+5. rglru   -- the same for the RG-LRU kernel: gx bf16 and f32, D 16 and
+              2560, T 1/5/2560, with and without h0: h within the same
+              tolerances, hT within rtol 1e-5 + atol 1e-5 (the bit-equal
+              share is printed), split and in-place runs bit-equal;
+6. main    -- plan every paper graph and full network with SERENITY and
               execute it in one arena on the card, slice-per-node and fused:
               realized == planned bytes, slice path bit-equal to
               ``run_reference`` on the card, fused path bit-equal where every
               fused chain is exact (else allclose), the planner's known
               integers, a uint8 pack/unpack round trip, and each of the four
               kernels launched > 0 times over the run;
-5. serve   -- the serving path: ``llama3.2-1b`` at its published width
-              (random weights from a seed) behind ``run_server``, 4 requests
-              of 1024 prompt tokens and 32 generated ones under the CLI's
-              default budget: the decode plan's integers, 4 served and 128
-              tokens, tokens bit-equal to a prefill + decode loop that keeps
-              the cache as plain tensors, the first decode steps' logits of
-              the kernel allclose to the plain version's, the launches of
-              the flash kernel and the u8 arena write/read over the run, and
+7. serve   -- the serving path, once per model at its published width
+              (random weights from a seed; for ``rwkv6-7b`` and
+              ``recurrentgemma-2b`` the recurrent mixing leaves, zeros or
+              ones at init, filled with seeded values so that the carried
+              state matters, which is checked) behind ``run_server``, 4
+              requests of 32 generated tokens under the CLI's default
+              budget: ``llama3.2-1b`` and ``rwkv6-7b`` with 1024 prompt
+              tokens, ``recurrentgemma-2b`` with 2560 (longer than its
+              2048-key window): the decode plan's integers, 4 served and
+              128 tokens, tokens bit-equal to a prefill + decode loop that
+              keeps the cache as plain tensors, the first decode steps'
+              logits of the kernels allclose to the plain versions' (in
+              f32, and in bf16 as served), every
+              kernel's launches over the run exactly the path's count, and
               one prefilled cache packed and unpacked at the served plan by
               the u8 kernels bit-equal to their plain versions;
-6. timing  -- microseconds per ``execute`` of the two full networks, and per
+8. timing  -- microseconds per ``execute`` of the two full networks, and per
               kernel at the launches the main paths made: the kernel, its
               bound, its plain version and the one torch call that computes
-              the same (a yardstick, never called by the port); serving's
-              prefill ms per request, ms per decode token, the device's busy
-              time and idle share over one decode step and its launches,
-              and the u8 arena write/read at the served leaves' sizes.
+              the same (a yardstick, never called by the port); for each
+              served model its prefill ms per request, ms per decode token,
+              the device's busy time and idle share over one decode step and
+              its launches, the u8 arena write/read at the served leaves'
+              sizes, and its recurrence or attention kernel at decode and
+              prefill shapes.
 
-The second-to-last line is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
-checkout, it exits non-zero before printing either.
+The kernels JSON (one entry per kernel) is printed third from last, the
+card's name and power limit second from last, and ``{"ok": true,
+"device": {...}}`` last.  Without CUDA, or outside a checkout, it exits
+non-zero before printing any of them.
 """
 
 from __future__ import annotations
@@ -75,6 +98,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak, same sheet
+F32_FLOP_PER_S = 67e12             # f32 outside the tensor cores, same sheet
 SIZES = (0, 1, 3, 4097, 150528)    # 150,528 f32 = 28x28x48x4 B: DARTS fmap
 CHAIN_RTOL, CHAIN_ATOL = 1e-5, 1e-6  # expf/tanhf vs torch's eager kernels
 SEED = 0
@@ -86,14 +110,38 @@ REPLACES = {
     "accum": "src/repro/kernels/arena/kernel.py:77",
     "chain_write": "src/repro/kernels/arena/kernel.py:100",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:109",
+    "wkv6": "src/repro/kernels/rwkv6/kernel.py:63",
+    "rglru": "src/repro/kernels/rglru/kernel.py:49",
 }
 FA_RTOL32 = FA_ATOL32 = 1e-5       # f32: sums in another order
 FA_ATOL16 = 1e-5                   # bf16: + one ulp of the output
-# serving: llama3.2-1b at full width, the decode plan's known integers
-ARCH, PROMPT, GEN, N_REQ = "llama3.2-1b", 1024, 32, 4
-PLAN_INTS = {"arena_bytes": 35_124_228, "resident_extent": 34_603_012,
-             "transient_bytes": 521_216, "n_buffers": 53}
-LOGIT_STEPS, LOGIT_ATOL = 8, 5e-2  # bf16 logits of 16 layers, |logit| ~ 1
+# recurrentgemma-2b's attention: multi-query, head dim 256, local window
+MQA_H, MQA_D, MQA_WINDOW = 10, 256, 2048
+# serving, each model at its published width: 4 requests of GEN tokens,
+# the decode plan's known integers (from the JAX package), and the atol of
+# the kernels' logits against the plain versions' over prefill and
+# LOGIT_STEPS decode steps (|logit| up to ~5).  With params and cache in
+# f32 the two differ by sums taken in another order: LOGIT_ATOL32 for
+# all.  In bf16, as served, they differ where a rounding flips; the
+# recurrent models carry each flip through their state for the whole
+# prompt (rwkv6-7b: 0.217 at max |logit| 4.97 on the card, while the f32
+# runs agree to 5e-5), so their bf16 atol is wider.
+GEN, N_REQ, LOGIT_STEPS, LOGIT_ATOL32 = 32, 4, 8, 2e-3
+SERVES = {
+    "llama3.2-1b": dict(
+        prompt=1024, logit_atol=5e-2,
+        plan={"arena_bytes": 35_124_228, "resident_extent": 34_603_012,
+              "transient_bytes": 521_216, "n_buffers": 53}),
+    "rwkv6-7b": dict(
+        prompt=1024, logit_atol=5e-1,
+        plan={"arena_bytes": 34_357_252, "resident_extent": 34_078_724,
+              "transient_bytes": 278_528, "n_buffers": 102}),
+    "recurrentgemma-2b": dict(
+        prompt=2560, logit_atol=5e-1,
+        plan={"arena_bytes": 22_728_708, "resident_extent": 21_694_468,
+              "transient_bytes": 1_034_240, "n_buffers": 89}),
+}
+RG_RTOL = RG_ATOL = 1e-5           # rglru f32: exp of two libraries
 
 
 class SmokeFailure(RuntimeError):
@@ -225,7 +273,38 @@ def phase_flash(dev, err):
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    KV = 8
+    worst = {}
+
+    def run(name, dtype, D, Dv, KV, G, sq, skv, kw):
+        q = torch.randn(1, sq, KV * G, D, device=dev, generator=gen).to(dtype)
+        k = torch.randn(1, skv, KV, D, device=dev, generator=gen).to(dtype)
+        v = torch.randn(1, skv, KV, Dv, device=dev, generator=gen).to(dtype)
+        args = dict(causal=kw.get("causal", True), window=kw.get("window"),
+                    q_start=kw.get("q_start", 0),
+                    kv_len=kw.get("kv_len", skv))
+        got = FK.flash_attention_cuda(q, k, v, **args)
+        line = []
+        for impl in ("torch", "ref"):
+            want = flash_attention(q, k, v, impl=impl, **kw)
+            e, ok = fa_err(got, want)
+            check(ok, f"flash {name} {dtype} D={D} Dv={Dv} G={G} KV={KV} "
+                      f"vs {impl}: max abs err {e}")
+            err["flash_attention"] = max(err["flash_attention"], e)
+            key = (str(dtype).split(".")[1], impl)
+            worst[key] = max(worst.get(key, 0.0), e)
+            line.append(f"{impl} {e:.3e}")
+        if name.endswith("tail"):
+            # finite garbage beyond kv_len must not leak
+            k[:, kw["kv_len"]:] = 1e4
+            v[:, kw["kv_len"]:] = -1e4
+            dirty = FK.flash_attention_cuda(q, k, v, **args)
+            check(torch.equal(dirty, got),
+                  f"flash {name} {dtype} D={D} Dv={Dv} G={G}: garbage "
+                  f"beyond kv_len leaked")
+        say(f"flash: {name} Sq {sq} Skv {skv} {kw} "
+            f"{str(dtype).split('.')[1]} D {D} Dv {Dv} G {G} KV {KV}: "
+            f"max abs err vs {', '.join(line)}")
+
     cases = []
     for kv in (1, 127, 1056, 4097):        # decode: one query at kv_len - 1
         cases.append(("decode", 1, kv, dict(q_start=kv - 1, kv_len=kv)))
@@ -237,48 +316,21 @@ def phase_flash(dev, err):
     cases.append(("noncausal window", 64, 64, dict(causal=False, window=9)))
     cases.append(("noncausal tail", 5, 1056, dict(causal=False, q_start=3,
                                                   kv_len=700)))
-    worst = {}
+    # recurrentgemma-2b's served attention: one KV head for 10 query heads,
+    # D 256, window 2048, the cache of smax 2592 and the prompt of 2560
+    w = MQA_WINDOW
+    mqa = [("mqa decode", 1, 2592, dict(q_start=2591, kv_len=2592,
+                                        window=w)),
+           ("mqa prefill", 2560, 2560, dict(window=w)),
+           ("mqa decode tail", 1, 2592, dict(q_start=2199, kv_len=2200,
+                                             window=w))]
     for dtype in (torch.float32, torch.bfloat16):
         for D, Dv in FK.HEAD_DIMS:        # every (D, Dv) the wrapper takes
             for G in (1, 4):
-                H = KV * G
                 for name, sq, skv, kw in cases:
-                    q = torch.randn(1, sq, H, D, device=dev,
-                                    generator=gen).to(dtype)
-                    k = torch.randn(1, skv, KV, D, device=dev,
-                                    generator=gen).to(dtype)
-                    v = torch.randn(1, skv, KV, Dv, device=dev,
-                                    generator=gen).to(dtype)
-                    got = FK.flash_attention_cuda(
-                        q, k, v, causal=kw.get("causal", True),
-                        window=kw.get("window"),
-                        q_start=kw.get("q_start", 0),
-                        kv_len=kw.get("kv_len", skv))
-                    line = []
-                    for impl in ("torch", "ref"):
-                        want = flash_attention(q, k, v, impl=impl, **kw)
-                        e, ok = fa_err(got, want)
-                        check(ok, f"flash {name} {dtype} D={D} Dv={Dv} "
-                                  f"G={G} vs {impl}: max abs err {e}")
-                        err["flash_attention"] = max(err["flash_attention"],
-                                                     e)
-                        key = (str(dtype).split(".")[1], impl)
-                        worst[key] = max(worst.get(key, 0.0), e)
-                        line.append(f"{impl} {e:.3e}")
-                    if name.endswith("tail"):
-                        # finite garbage beyond kv_len must not leak
-                        k[:, kw["kv_len"]:] = 1e4
-                        v[:, kw["kv_len"]:] = -1e4
-                        dirty = FK.flash_attention_cuda(
-                            q, k, v, causal=kw.get("causal", True),
-                            window=None, q_start=kw["q_start"],
-                            kv_len=kw["kv_len"])
-                        check(torch.equal(dirty, got),
-                              f"flash {name} {dtype} D={D} Dv={Dv} G={G}: "
-                              f"garbage beyond kv_len leaked")
-                    say(f"flash: {name} Sq {sq} Skv {skv} {kw} "
-                        f"{str(dtype).split('.')[1]} D {D} Dv {Dv} G {G}: "
-                        f"max abs err vs {', '.join(line)}")
+                    run(name, dtype, D, Dv, 8, G, sq, skv, kw)
+        for name, sq, skv, kw in mqa:
+            run(name, dtype, MQA_D, MQA_D, 1, MQA_H, sq, skv, kw)
     torch.cuda.synchronize()
     say(f"flash: every case within tolerance (f32 rtol {FA_RTOL32} + atol "
         f"{FA_ATOL32}; bf16 one ulp of the output + {FA_ATOL16}); worst "
@@ -286,7 +338,137 @@ def phase_flash(dev, err):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phases 4 and 5: the recurrence kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def wkv6_err(got, want, mag, N):
+    """(max abs err, within tolerance) of two WKV-6 outputs: the flash
+    phase's tolerance plus the error bound of two f32 sums of N + 1 terms
+    taken in different orders, 2 (N + 1) 2^-24 times the sum of the terms'
+    magnitudes (``mag``): an output that cancels to near 0 keeps the
+    rounding of its large terms."""
+    a, b = got.float(), want.float()
+    diff = (a - b).abs()
+    slack = 2 * (N + 1) * 2.0 ** -24 * mag.float()
+    if got.dtype == torch.float32:
+        allowed = FA_ATOL32 + FA_RTOL32 * b.abs() + slack
+    else:
+        allowed = bf16_ulp(torch.maximum(a.abs(), b.abs())) + FA_ATOL16 \
+            + slack
+    share = float((diff / allowed).max())
+    return float(diff.max()), share <= 1.0, share
+
+
+def phase_wkv6(dev, err):
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    n, worst_share = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for N in WK.HEAD_SIZES:
+            H = 4096 // N if N == 64 else 4     # rwkv6-7b: 64 heads of 64
+            for T in (1, 7, 256, 1000, 1024):
+                for with_s0 in (False, True):
+                    r, k, v = (rnd(1, T, H, N).to(dtype) for _ in range(3))
+                    w = torch.exp(-torch.exp(rnd(1, T, H, N))).to(dtype)
+                    u = (0.5 * rnd(H, N)).to(dtype)
+                    s0 = rnd(1, H, N, N) if with_s0 else None
+                    o, sT = WK.wkv6_cuda(r, k, v, w, u, initial_state=s0)
+                    ow, sw = wkv6_ref(r, k, v, w, u, s0)
+                    # a bound on the summands of each output: the same
+                    # recurrence on |r|, |k|, |v|, |u|, |s0| (w > 0)
+                    mag = wkv6_ref(r.abs(), k.abs(), v.abs(), w, u.abs(),
+                                   None if s0 is None else s0.abs())[0]
+                    e, ok, share = wkv6_err(o, ow, mag, N)
+                    worst_share = max(worst_share, share)
+                    what = f"wkv6 {dtype} N={N} H={H} T={T} s0={with_s0}"
+                    check(ok, f"{what}: output max abs err {e}")
+                    check(torch.equal(sT, sw), f"{what}: final state not "
+                          f"bit-equal (max abs err "
+                          f"{float((sT - sw).abs().max())})")
+                    err["wkv6"] = max(err["wkv6"], e)
+                    if T > 1:           # the state threaded across two runs
+                        h = T // 2
+                        o1, s1 = WK.wkv6_cuda(r[:, :h].contiguous(),
+                                              k[:, :h].contiguous(),
+                                              v[:, :h].contiguous(),
+                                              w[:, :h].contiguous(), u,
+                                              initial_state=s0)
+                        o2, s2 = WK.wkv6_cuda(r[:, h:].contiguous(),
+                                              k[:, h:].contiguous(),
+                                              v[:, h:].contiguous(),
+                                              w[:, h:].contiguous(), u,
+                                              initial_state=s1,
+                                              state_out=s1)
+                        check(s2 is s1 and torch.equal(s2, sT)
+                              and torch.equal(torch.cat([o1, o2], 1), o),
+                              f"{what}: the split run differs")
+                    n += 1
+    torch.cuda.synchronize()
+    say(f"wkv6: {n} cases (f32/bf16, N {WK.HEAD_SIZES}, T 1..1024, with and "
+        f"without s0): outputs within tolerance of the plain version, worst "
+        f"{err['wkv6']:.3e}, at most {worst_share:.3f} of the allowed error; "
+        f"final states bit-equal; split runs with the "
+        f"state threaded in place bit-equal to the whole run")
+
+
+def phase_rglru(dev, err):
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru.ref import rglru_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    n = n_equal = 0
+    worst_hT = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (16, 2560):
+            B = 2 if D == 16 else 1
+            for T in (1, 5, 2560):
+                for with_h0 in (False, True):
+                    la = -0.5 * torch.exp(torch.randn(B, T, D, device=dev,
+                                                      generator=gen))
+                    gx = torch.randn(B, T, D, device=dev,
+                                     generator=gen).to(dtype)
+                    h0 = torch.randn(B, D, device=dev, generator=gen) \
+                        if with_h0 else None
+                    h, hT = RK.rglru_cuda(la, gx, h0)
+                    hw, hTw = rglru_ref(la, gx, h0)
+                    e, ok = fa_err(h, hw)
+                    eT = float((hT - hTw).abs().max())
+                    what = f"rglru {dtype} B={B} D={D} T={T} h0={with_h0}"
+                    check(ok, f"{what}: h max abs err {e}")
+                    check(torch.allclose(hT, hTw, rtol=RG_RTOL,
+                                         atol=RG_ATOL),
+                          f"{what}: hT max abs err {eT}")
+                    err["rglru"] = max(err["rglru"], e, eT)
+                    worst_hT = max(worst_hT, eT)
+                    n_equal += int(torch.equal(h, hw)
+                                   and torch.equal(hT, hTw))
+                    if T > 1:           # the carry threaded across two runs
+                        c = T // 2
+                        h1, s1 = RK.rglru_cuda(la[:, :c].contiguous(),
+                                               gx[:, :c].contiguous(), h0)
+                        h2, s2 = RK.rglru_cuda(la[:, c:].contiguous(),
+                                               gx[:, c:].contiguous(), s1,
+                                               state_out=s1)
+                        check(s2 is s1 and torch.equal(s2, hT)
+                              and torch.equal(torch.cat([h1, h2], 1), h),
+                              f"{what}: the split run differs")
+                    n += 1
+    torch.cuda.synchronize()
+    say(f"rglru: {n} cases (gx f32/bf16, D 16/2560, T 1/5/2560, with and "
+        f"without h0): h within tolerance, hT within rtol {RG_RTOL} + atol "
+        f"{RG_ATOL} (worst {worst_hT:.3e}); {n_equal} of {n} bit-equal to "
+        f"the plain version; split runs bit-equal to the whole run")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the main path
 # ---------------------------------------------------------------------------
 
 
@@ -381,30 +563,97 @@ def phase_main(rng):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: serving llama3.2-1b at full width
+# Phase 7: serving each model at full width
 # ---------------------------------------------------------------------------
 
 
+KERNEL_MODULES = ("arena", "flash_attention", "rwkv6", "rglru")
+
+
 def reset_all():
-    from repro_torch.kernels.arena import reset_launches as arena_reset
-    from repro_torch.kernels.flash_attention import reset_launches as fa_reset
-    arena_reset()
-    fa_reset()
+    import importlib
+    for m in KERNEL_MODULES:
+        importlib.import_module(f"repro_torch.kernels.{m}").reset_launches()
 
 
 def all_launches() -> dict:
-    from repro_torch.kernels.arena import LAUNCHES as AL
-    from repro_torch.kernels.flash_attention import LAUNCHES as FL
-    return {**AL, **FL}
+    import importlib
+    out = {}
+    for m in KERNEL_MODULES:
+        out.update(importlib.import_module(f"repro_torch.kernels.{m}")
+                   .LAUNCHES)
+    return out
+
+
+def path_launches(cfg, n_cache: int) -> dict:
+    """Every kernel's launches over the serving run: each request runs one
+    prefill and GEN - 1 decode steps; every forward runs one attention or
+    recurrence kernel per layer of its kind; each prefill packs the
+    ``n_cache`` state leaves once, each decode step unpacks and packs
+    them."""
+    if cfg.attn_free:
+        kinds = ["wkv6"] * cfg.n_layers
+    elif cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        kinds = ["rglru" if pat[i % len(pat)] == "rec" else "flash_attention"
+                 for i in range(cfg.n_layers)]
+    else:
+        kinds = ["flash_attention"] * cfg.n_layers
+    want = {k: 0 for k in all_launches()}
+    for k in kinds:
+        want[k] += N_REQ * GEN
+    steps = N_REQ * (GEN - 1)
+    want["write"] = n_cache * (N_REQ + steps)
+    want["read"] = n_cache * steps
+    return want
+
+
+def live_leaves(cfg, params, dev):
+    """Fill the recurrent mixing leaves, which the init leaves at zeros or
+    ones (so that the token shift, the bonus, the convolution and every
+    RG-LRU carry do nothing), with seeded values, in place:
+    RWKV-6 mu_x, mu, mu_k, mu_r ~ U(0, 1); lora_b, wb ~ N(0, 0.02^2); w0
+    evenly spaced over [-6, -1] across channels; u ~ N(0, 0.5^2).
+    Griffin conv_w ~ N(0, 0.5^2); conv_b ~ N(0, 0.1^2); lam such that
+    exp(-8 softplus(lam)) ~ U(0.9, 0.999).  (The CPU tests draw the same
+    recipe with numpy.)"""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def rand(t):
+        return torch.rand(t.shape, device=dev, generator=gen)
+
+    def normal(t, std):
+        return std * torch.randn(t.shape, device=dev, generator=gen)
+
+    if cfg.attn_free:
+        tm, cm = params["blocks"]["tmix"], params["blocks"]["cmix"]
+        for t in (tm["mu_x"], tm["mu"], cm["mu_k"], cm["mu_r"]):
+            t.copy_(rand(t))
+        for t in (tm["lora_b"], tm["wb"]):
+            t.copy_(normal(t, 0.02))
+        tm["w0"].copy_(torch.linspace(-6.0, -1.0, cfg.d_model, device=dev)
+                       .expand(tm["w0"].shape))
+        tm["u"].copy_(normal(tm["u"], 0.5))
+    elif cfg.family == "hybrid":
+        for r in [params["groups"]["rec"]["rec"]] + \
+                [t["rec"] for t in params["tail"] if "rec" in t]:
+            r["conv_w"].copy_(normal(r["conv_w"], 0.5))
+            r["conv_b"].copy_(normal(r["conv_b"], 0.1))
+            a = 0.9 + 0.099 * rand(r["lam"])
+            r["lam"].copy_(torch.log(torch.expm1(-torch.log(a) / 8.0)))
 
 
 def direct_decode(model, params, prompt, n_steps, dev, *, impl="auto",
-                  forced=None):
+                  forced=None, dtype=None):
     """Prefill + ``n_steps`` greedy decode steps with the cache kept as
     plain tensors (no arena); returns (tokens, per-step logits).  With
-    ``forced``, step s feeds token ``forced[s]`` instead of its own."""
-    smax = PROMPT + GEN
-    cache = model.init_cache(1, smax, dev)
+    ``forced``, step s feeds token ``forced[s]`` instead of its own; with
+    ``dtype``, the cache is kept in that dtype."""
+    from repro_torch.models.params import tree_map
+    P = len(prompt)
+    cache = model.init_cache(1, P + GEN, dev)
+    if dtype is not None:
+        cache = tree_map(lambda t: t.to(dtype), cache)
     tokens = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
     logits, cache = model.prefill_fn(params, cache, {"tokens": tokens},
                                      impl=impl)
@@ -412,11 +661,66 @@ def direct_decode(model, params, prompt, n_steps, dev, *, impl="auto",
     for s in range(n_steps):
         tok = toks[-1] if forced is None else forced[s]
         t = torch.full((1, 1), tok, dtype=torch.long, device=dev)
-        logits, cache = model.decode_fn(params, cache, t, PROMPT + s,
-                                        impl=impl)
+        logits, cache = model.decode_fn(params, cache, t, P + s, impl=impl)
         toks.append(int(torch.argmax(logits, -1)[0]))
         outs.append(logits)
     return toks, outs
+
+
+def check_logits(model, params, prompt, dev):
+    """Prefill + LOGIT_STEPS decode steps through the kernels and through
+    the plain versions, in bf16 as served and with params and cache in
+    f32, every run fed the kernels' bf16 greedy tokens; returns the max
+    abs logit differences (bf16 kernels vs plain, f32 kernels vs plain,
+    bf16 plain vs f32 plain) and the max |logit|."""
+    from repro_torch.models.params import tree_map
+    toks, auto = direct_decode(model, params, prompt, LOGIT_STEPS, dev)
+    check(all(bool(torch.isfinite(a).all())
+              and a.shape == (1, model.cfg.vocab_size) for a in auto),
+          "logits not finite or of the wrong shape")
+    forced = toks[:LOGIT_STEPS]
+    _, plain = direct_decode(model, params, prompt, LOGIT_STEPS, dev,
+                             impl="torch", forced=forced)
+    p32 = tree_map(lambda t: t.float(), params)
+    runs32 = [direct_decode(model, p32, prompt, LOGIT_STEPS, dev, impl=impl,
+                            forced=forced, dtype=torch.float32)[1]
+              for impl in ("auto", "torch")]
+    del p32
+    torch.cuda.empty_cache()
+    diff = lambda xs, ys: max(float((a - b).abs().max())
+                              for a, b in zip(xs, ys))
+    return (diff(auto, plain), diff(*runs32), diff(plain, runs32[1]),
+            max(float(a.abs().max()) for a in auto))
+
+
+def check_recurrence_matters(model, params, prompt, dev):
+    """With the live leaves, zeroing the carried state between prefill and
+    the first decode step must move the logits."""
+    from repro_torch.models.params import tree_map
+    cfg = model.cfg
+    groups = (("tm_x", "cm_x"), ("wkv",)) if cfg.attn_free \
+        else (("conv",), ("h",))
+    P = len(prompt)
+    cache = model.init_cache(1, P + GEN, dev)
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+    logits, cache = model.prefill_fn(params, cache, {"tokens": tokens})
+    tok = torch.argmax(logits, -1)[:, None]
+
+    def step(zero):
+        c = tree_map(lambda t: t.clone(), cache)
+        for d in [c] if cfg.attn_free else \
+                [c["rec"]] + [x for x in c["tail"] if "h" in x]:
+            for name in zero:
+                d[name].zero_()
+        return model.decode_fn(params, c, tok, P)[0]
+
+    base = step(())
+    moved = {"+".join(z): float((step(z) - base).abs().max())
+             for z in groups}
+    check(all(m > 1e-3 for m in moved.values()),
+          f"{cfg.name}: zeroing the carried state did not move the logits "
+          f"{moved}")
+    return moved
 
 
 def check_served_packing(model, params, plan, req, dev):
@@ -428,7 +732,7 @@ def check_served_packing(model, params, plan, req, dev):
     from repro_torch.core.executor import pack_buffers, unpack_buffer
     from repro_torch.models.params import tree_leaves
 
-    cache = model.init_cache(1, PROMPT + GEN, dev)
+    cache = model.init_cache(1, len(req.prompt) + GEN, dev)
     tokens = torch.as_tensor(req.prompt, dtype=torch.long, device=dev)[None]
     _, cache = model.prefill_fn(params, cache, {"tokens": tokens})
     leaves = dict(enumerate(tree_leaves(cache)))
@@ -457,45 +761,50 @@ def check_served_packing(model, params, plan, req, dev):
                 back.reshape(-1).view(torch.uint8), raw),
                 f"served cache leaf {i}: unpacked by {impl} != the leaf")
     torch.cuda.synchronize()
-    say(f"serve: one prefilled cache packed into {plan['resident_extent']} "
-        f"B by the u8 write kernel and by its plain version: arenas "
-        f"bit-equal, leaves (offset, bytes) {spans} at their planned "
-        f"offsets; unpacked by the u8 read kernel and by its plain version: "
-        f"bit-equal to the leaves")
+    say(f"serve: one prefilled {model.cfg.name} cache "
+        f"({', '.join(str(t.dtype).split('.')[1] for t in leaves.values())}"
+        f") packed into {plan['resident_extent']} B by the u8 write kernel "
+        f"and by its plain version: arenas bit-equal, leaves (offset, bytes) "
+        f"{spans} at their planned offsets; unpacked by the u8 read kernel "
+        f"and by its plain version: bit-equal to the leaves")
     return spans
 
 
-def phase_serve(dev):
+def phase_serve(dev, arch):
     import repro_torch.configs as configs
     from repro_torch.launch import serve as S
     from repro_torch.models.params import leaf_count, tree_leaves
     from repro_torch.models.zoo import build_model
 
-    cfg = configs.get(ARCH)
+    spec = SERVES[arch]
+    prompt_len = spec["prompt"]
+    cfg = configs.get(arch)
     model = build_model(cfg)
-    smax = PROMPT + GEN
+    smax = prompt_len + GEN
     plan = S.plan_decode_arena(model, 1, smax)
-    got = {k: plan[k] for k in PLAN_INTS}
-    check(got == PLAN_INTS, f"decode plan {got} != reference {PLAN_INTS}")
+    got = {k: plan[k] for k in spec["plan"]}
+    check(got == spec["plan"], f"{arch} decode plan {got} != reference "
+                               f"{spec['plan']}")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    live_leaves(cfg, params, dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
     check(n_params == leaf_count(model.defs),
           f"{n_params} parameters made, {leaf_count(model.defs)} defined")
-    say(f"serve: {ARCH} at full width, {n_params} parameters in bf16 "
+    say(f"serve: {arch} at full width, {n_params} parameters in bf16 "
         f"({cfg.param_count()} without the norm scales) made on the card "
         f"in {time.perf_counter() - t0:.3f} s; decode plan {got}, policy "
         f"{plan['policy']} (the reference's integers)")
 
     budget = 4 * plan["arena_bytes"]      # the CLI's default budget
-    reqs = S.synth_requests(N_REQ, PROMPT, GEN, cfg.vocab_size, SEED + 1)
+    reqs = S.synth_requests(N_REQ, prompt_len, GEN, cfg.vocab_size, SEED + 1)
     reset_all()
     m = S.run_server(model, params, reqs, smax=smax, budget_bytes=budget,
                      warm=2)
     torch.cuda.synchronize()
     launches = all_launches()
-    say(f"serve: {m['n_served']}/{m['n_requests']} served, "
+    say(f"serve: {arch}: {m['n_served']}/{m['n_requests']} served, "
         f"{m['n_rejected']} rejected, {m['n_tokens']} tokens in "
         f"{m['wall_s']:.2f} s over {m['steps']} ticks, concurrency "
         f"{m['max_concurrent']} under {budget} B; launches over the run "
@@ -504,62 +813,69 @@ def phase_serve(dev):
           and m["n_tokens"] == N_REQ * GEN,
           f"served {m['n_served']}, rejected {m['n_rejected']}, "
           f"{m['n_tokens']} tokens")
-    # per request: prefill 16 layers, then GEN - 1 decode steps of 16; each
-    # prefill packs k and v once, each decode step unpacks and packs them
-    steps = N_REQ * (GEN - 1)
-    want = {"flash_attention": N_REQ * cfg.n_layers * GEN,
-            "write": 2 * (N_REQ + steps), "read": 2 * steps}
+    want = path_launches(cfg, plan["n_cache"])
     for k, n in want.items():
-        check(launches[k] == n, f"{k} launched {launches[k]} times, the "
-                                f"serving path needs {n}")
+        check(launches[k] == n, f"{arch}: {k} launched {launches[k]} times, "
+                                f"the serving path needs {n}")
     spans = check_served_packing(model, params, plan, reqs[0], dev)
 
     for r in reqs:
         toks, _ = direct_decode(model, params, r.prompt, GEN - 1, dev)
         check(toks == list(r.tokens),
-              f"request {r.rid}: server tokens differ from the arena-free "
-              f"loop")
-    toks, auto = direct_decode(model, params, reqs[0].prompt, LOGIT_STEPS,
-                               dev)
-    _, plain = direct_decode(model, params, reqs[0].prompt, LOGIT_STEPS, dev,
-                             impl="torch", forced=toks[:LOGIT_STEPS])
-    e = max(float((a - b).abs().max()) for a, b in zip(auto, plain))
-    peak = max(float(a.abs().max()) for a in auto)
-    check(all(bool(torch.isfinite(a).all()) and a.shape == (1, cfg.vocab_size)
-              for a in auto), "logits not finite or of the wrong shape")
-    check(e <= LOGIT_ATOL, f"logits of the kernel vs the plain attention: "
-                           f"max abs err {e} > {LOGIT_ATOL}")
-    say(f"serve: tokens of all {N_REQ} requests bit-equal to the arena-free "
-        f"prefill + decode loop; prefill + {LOGIT_STEPS} decode steps' "
-        f"logits, kernel vs plain attention: max abs err {e:.3e} (atol "
-        f"{LOGIT_ATOL}; max |logit| {peak:.3f})")
-    return model, params, plan, reqs, launches, spans
+              f"{arch} request {r.rid}: server tokens differ from the "
+              f"arena-free loop")
+    e, e32, gap, peak = check_logits(model, params, reqs[0].prompt, dev)
+    tol = spec["logit_atol"]
+    check(e32 <= LOGIT_ATOL32,
+          f"{arch}: f32 logits of the kernels vs the plain versions: max "
+          f"abs err {e32} > {LOGIT_ATOL32}")
+    check(e <= tol, f"{arch}: bf16 logits of the kernels vs the plain "
+                    f"versions: max abs err {e} > {tol}")
+    say(f"serve: {arch}: tokens of all {N_REQ} requests bit-equal to the "
+        f"arena-free prefill + decode loop; prefill + {LOGIT_STEPS} decode "
+        f"steps' logits, kernels vs plain versions: f32 max abs err "
+        f"{e32:.3e} (atol {LOGIT_ATOL32}), bf16 {e:.3e} (atol {tol}); the "
+        f"plain versions' bf16 logits vs their f32 ones {gap:.3e}; max "
+        f"|logit| {peak:.3f}")
+    if cfg.attn_free or cfg.family == "hybrid":
+        moved = check_recurrence_matters(model, params, reqs[0].prompt, dev)
+        say(f"serve: {arch}: zeroing the carried state before the first "
+            f"decode step moves the logits by {moved} (max abs)")
+    return dict(model=model, params=params, plan=plan, reqs=reqs,
+                launches=launches, spans=spans, smax=smax)
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: timings
+# Phase 8: timings
 # ---------------------------------------------------------------------------
 
 
-def device_profile(work) -> tuple[float, int, dict]:
+def device_profile(work, required=True):
     """(microseconds, activities, {name: [us, count]}) of the card during
     ``work()``: the kernels and copies of a ``torch.profiler`` trace,
-    summed and counted, in all and by name."""
+    summed and counted, in all and by name.  A short trace sometimes comes
+    back empty on the card's machine; it is taken again, up to four
+    times, and then None is returned, or the run fails if ``required``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        work()
+    for attempt in range(4):
         torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
-    for e in evs:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += e.time_range.elapsed_us()
-        acc[1] += 1
-    us = sum(t for t, _ in by_name.values())
-    check(us > 0, "the profiler saw no device activity")
-    return us, len(evs), by_name
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            work()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_name = {}
+        for e in evs:
+            acc = by_name.setdefault(e.name, [0.0, 0])
+            acc[0] += e.time_range.elapsed_us()
+            acc[1] += 1
+        us = sum(t for t, _ in by_name.values())
+        if us > 0:
+            return us, len(evs), by_name
+        time.sleep(0.5 * (attempt + 1))
+    check(not required, f"the profiler saw no device activity in four "
+                        f"traces of {getattr(work, '__name__', work)}")
+    return None
 
 
 def device_us(work) -> float:
@@ -626,8 +942,9 @@ def record_launches(rt, plans, inputs):
 
 def time_replay(launches_of, fn, reps=20):
     """(device ms, host-clock ms) per launch of ``fn`` over the recorded
-    launches: the card's own time from the profiler, and the time per call
-    with the host's issue cost, from CUDA events around ``reps`` passes."""
+    launches: the card's own time from the profiler (or, where no trace
+    comes back, the CUDA events' time), and the time per call with the
+    host's issue cost, from CUDA events around ``reps`` passes."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
     def one_pass():
@@ -643,8 +960,18 @@ def time_replay(launches_of, fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     call_ms = start.elapsed_time(end) / (reps * len(launches_of))
-    dev_ms = device_us(one_pass) / 1e3 / len(launches_of)
-    return dev_ms, call_ms
+    # traces of a launch or two have come back empty on the card's
+    # machine: trace enough passes for some 64 launches, unless a pass
+    # already takes a millisecond
+    passes = 1 if call_ms * len(launches_of) > 1.0 else \
+        max(1, min(reps, 64 // len(launches_of)))
+    prof = device_profile(lambda: [one_pass() for _ in range(passes)],
+                          required=False)
+    if prof is None:
+        say(f"timing: no trace of {getattr(fn, '__name__', fn)}; its "
+            f"device time below is the CUDA events' time per call")
+        return call_ms, call_ms
+    return prof[0] / 1e3 / (passes * len(launches_of)), call_ms
 
 
 def phase_timing(plans, inputs, launches, err, card):
@@ -727,17 +1054,43 @@ def phase_timing(plans, inputs, launches, err, card):
 
 
 def fa_bound(q, k, v, kw) -> tuple[float, float]:
-    """(bytes ms, operations ms) the card needs at least for one attention
-    call: q, k and v read once for the kv_len live keys, the output written
-    once, over 3.35 TB/s; 2*2*H*D flops per live (query, key) pair over the
-    bf16 tensor-core peak."""
+    """(bytes ms, operations ms) the card needs at least for one causal
+    attention call: q read once, k and v read once for the keys some query
+    attends to (the window's and kv_len's cuts applied), the output
+    written once, over 3.35 TB/s; 2*2*H*D flops per live (query, key) pair
+    over the bf16 tensor-core peak."""
     B, Sq, H, D = q.shape
-    n, qs = kw["kv_len"], kw["q_start"]
-    live = sum(min(n, qs + i + 1) for i in range(Sq))     # causal pairs
+    n, qs, w = kw["kv_len"], kw["q_start"], kw.get("window")
+    lo = lambda p: 0 if w is None else max(0, p - w + 1)     # first key
+    live = sum(min(n, p + 1) - lo(p) for p in range(qs, qs + Sq))
+    keys = min(n, qs + Sq) - lo(qs)
     esz = q.element_size()
-    nbytes = esz * (2 * q.numel() + 2 * B * n * k.shape[2] * D)
+    nbytes = esz * (2 * q.numel() + B * keys * k.shape[2]
+                    * (k.shape[3] + v.shape[3]))
     return (nbytes / HBM_BYTES_PER_S * 1e3,
             4 * B * H * D * live / BF16_FLOP_PER_S * 1e3)
+
+
+def wkv6_bound(B, T, H, N, esz) -> tuple[float, float]:
+    """(bytes ms, operations ms) for one WKV-6 call with an initial state:
+    r, k, v, w read and o written once, u read once, the f32 state read
+    and written once; per head and step 5 N^2 f32 flops (o: a product and
+    a sum per state element; the state: two products and a sum) and 5 N
+    (the bonus and its product with v), over the f32 CUDA-core peak."""
+    nbytes = esz * (5 * B * T * H * N + H * N) + 2 * 4 * B * H * N * N
+    flops = B * H * T * (5 * N * N + 5 * N)
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+
+
+def rglru_bound(B, T, D, esz) -> tuple[float, float]:
+    """(bytes ms, operations ms) for one RG-LRU call with h0: log_a (f32)
+    and gx read once, h written once in gx's dtype, h0 read and hT written
+    once (f32); 10 f32 operations per element (two exps, a sqrt, the
+    clip's two, 2 la, 1 - e, and the step's two products and sum) over the
+    f32 CUDA-core peak."""
+    nbytes = (4 + 2 * esz) * B * T * D + 2 * 4 * B * D
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            10 * B * T * D / F32_FLOP_PER_S * 1e3)
 
 
 def time_served_packing(plan, spans, by_name, card, dev):
@@ -777,18 +1130,18 @@ def time_served_packing(plan, spans, by_name, card, dev):
             f"{lib_ms * 1e3:.2f} [{card}]")
 
 
-def phase_serve_timing(model, params, plan, reqs, spans, launches, err,
-                       card, dev):
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+def phase_serve_timing(ctx, card, dev):
+    """Prefill ms per request, ms per decode token (host clock), the
+    device's busy time and idle share over one decode token, and the u8
+    arena write/read at the served leaves, for one served model."""
     from repro_torch.launch import serve as S
     from repro_torch.launch.steps import make_prefill_step
 
-    cfg, smax = model.cfg, PROMPT + GEN
+    model, params, plan, reqs = (ctx[k] for k in ("model", "params", "plan",
+                                                  "reqs"))
+    smax, prompt = ctx["smax"], reqs[0].prompt
     prefill = make_prefill_step(model)
-    batch = {"tokens": torch.as_tensor(reqs[0].prompt, dtype=torch.long,
+    batch = {"tokens": torch.as_tensor(prompt, dtype=torch.long,
                                        device=dev)[None]}
     ms = []
     for _ in range(4):
@@ -803,7 +1156,7 @@ def phase_serve_timing(model, params, plan, reqs, spans, launches, err,
     # decode through the server: one request in flight, one token a tick
     pool = S.make_pool(4 * plan["arena_bytes"])
     server = S.DecodeServer(model, params, pool, smax=smax)
-    server.submit(S.Request(rid=0, prompt=reqs[0].prompt, max_new=GEN))
+    server.submit(S.Request(rid=0, prompt=prompt, max_new=GEN))
     server.step()                  # admit + prefill + the first decode
     ms = []
     for _ in range(8):
@@ -815,50 +1168,70 @@ def phase_serve_timing(model, params, plan, reqs, spans, launches, err,
     tok_ms = statistics.median(ms)
     reset_all()
     busy_us, n_dev, by_name = device_profile(server.step)
-    per_tok = all_launches()
+    per_tok = {k: v for k, v in all_launches().items() if v}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    say(f"timing: serve {ARCH}: prefill {prefill_ms:.2f} ms per request of "
-        f"{PROMPT} tokens (median of 3, host clock); decode {tok_ms:.3f} ms "
-        f"per token (median of 8 ticks, min {min(ms):.3f}, one request in "
-        f"flight, host clock); device busy {busy_us:.1f} us per token, idle "
-        f"share {1 - busy_us / (tok_ms * 1e3):.4f}; {n_dev} device "
-        f"activities per token, of them the port's kernels {per_tok} "
-        f"[{card}]")
-    say("timing: serve decode token, device us by kernel (count): "
-        + "; ".join(f"{name[:60]} {t:.1f} ({n})" for name, (t, n) in top))
-    time_served_packing(plan, spans, by_name, card, dev)
+    name = model.cfg.name
+    say(f"timing: serve {name}: prefill {prefill_ms:.2f} ms per request of "
+        f"{len(prompt)} tokens (median of 3, host clock); decode "
+        f"{tok_ms:.3f} ms per token (median of 8 ticks, min {min(ms):.3f}, "
+        f"one request in flight, host clock); device busy {busy_us:.1f} us "
+        f"per token, idle share {1 - busy_us / (tok_ms * 1e3):.4f}; {n_dev} "
+        f"device activities per token, of them the port's kernels "
+        f"{per_tok} [{card}]")
+    say(f"timing: serve {name} decode token, device us by kernel (count): "
+        + "; ".join(f"{k[:60]} {t:.1f} ({n})" for k, (t, n) in top))
+    time_served_packing(plan, ctx["spans"], by_name, card, dev)
 
-    # the flash kernel at the serving path's shapes
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def rnd(*shape):
-        return torch.randn(*shape, device=dev, generator=gen).bfloat16()
+def flash_impls():
+    import torch.nn.functional as F
 
-    dec = (rnd(1, 1, H, D), rnd(1, smax, KV, D), rnd(1, smax, KV, D))
-    pre = (rnd(1, PROMPT, H, D), rnd(1, PROMPT, KV, D), rnd(1, PROMPT, KV, D))
-    impls = {
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    def sdpa(q, k, v, kw):
+        n, mask = kw["kv_len"], kw.get("mask")    # the window as a mask
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :n].transpose(1, 2),
+            v[:, :n].transpose(1, 2), attn_mask=mask,
+            is_causal=mask is None and q.shape[1] > 1,
+            enable_gqa=True).transpose(1, 2)
+
+    def args(kw):
+        return {k: kw[k] for k in ("q_start", "kv_len", "window") if k in kw}
+
+    return {
         "kernel": lambda q, k, v, kw: FK.flash_attention_cuda(
-            q, k, v, causal=True, window=None, **kw),
+            q, k, v, causal=True, **{"window": None, **args(kw)}),
         "plain": lambda q, k, v, kw: flash_attention(q, k, v, impl="torch",
-                                                     **kw),
-        "sdpa": lambda q, k, v, kw: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k[:, :kw["kv_len"]].transpose(1, 2),
-            v[:, :kw["kv_len"]].transpose(1, 2), is_causal=q.shape[1] > 1,
-            enable_gqa=True),
+                                                     **args(kw)),
+        "sdpa": sdpa,
     }
-    shapes = {"decode": (*dec, dict(q_start=smax - 1, kv_len=smax)),
-              "prefill": (*pre, dict(q_start=0, kv_len=PROMPT))}
-    for name, args in shapes.items():
+
+
+def window_mask(Sq, q_start, kv_len, window, dev):
+    """SDPA's boolean mask (True attends) for causal attention with a
+    window: key j is live for the query at p when p - window < j <= p."""
+    p = q_start + torch.arange(Sq, device=dev)[:, None]
+    j = torch.arange(kv_len, device=dev)[None]
+    return (j <= p) & (j > p - window)
+
+
+def time_flash(name, shapes, mix, card, dev):
+    """The flash kernel, its plain version and SDPA at ``shapes`` (name ->
+    (q, k, v, kw)) and over the launch ``mix``; returns the mix's (kernel,
+    plain, sdpa) device ms per launch, bound ms and what bounds it."""
+    impls = flash_impls()
+    for label, args in shapes.items():
         t = {i: time_replay([args], fn) for i, fn in impls.items()}
         b_ms, o_ms = fa_bound(*args)
         e = float((impls["kernel"](*args).float()
-                   - impls["sdpa"](*args).transpose(1, 2).float())
-                  .abs().max())
-        q = args[0]
-        say(f"timing: flash_attention {name} (B 1, Sq {q.shape[1]}, Skv "
-            f"{args[1].shape[1]}, H {H}, KV {KV}, D {D}, bf16, "
-            f"{args[3]}): device us per launch: kernel "
+                   - impls["sdpa"](*args).float()).abs().max())
+        q, k = args[0], args[1]
+        kw = {x: y for x, y in args[3].items() if x != "mask"}
+        say(f"timing: flash_attention {name} {label} (B 1, Sq {q.shape[1]}, "
+            f"Skv {k.shape[1]}, H {q.shape[2]}, KV {k.shape[2]}, D "
+            f"{q.shape[3]}, bf16, {kw}): device us per launch: kernel "
             f"{t['kernel'][0] * 1e3:.2f}, bound {max(b_ms, o_ms) * 1e3:.3f} "
             f"({'bytes' if b_ms >= o_ms else 'operations'}), plain "
             f"{t['plain'][0] * 1e3:.2f}, sdpa {t['sdpa'][0] * 1e3:.2f}; "
@@ -866,36 +1239,159 @@ def phase_serve_timing(model, params, plan, reqs, spans, launches, err,
             f"plain {t['plain'][1] * 1e3:.2f}, sdpa "
             f"{t['sdpa'][1] * 1e3:.2f}; kernel vs sdpa max abs err {e:.3e} "
             f"[{card}]")
-
-    # the serving run's launch mix: each request runs one prefill per layer
-    # and one decode per layer at t = PROMPT .. PROMPT + GEN - 2, so every
-    # shape below stands for N_REQ * n_layers launches
-    mix = [shapes["prefill"]] + [(*dec, dict(q_start=t, kv_len=t + 1))
-                                 for t in range(PROMPT, PROMPT + GEN - 1)]
     t = {i: time_replay(mix, fn, reps=3)[0] for i, fn in impls.items()}
     bounds = [fa_bound(*a) for a in mix]
     bound_ms = sum(max(b) for b in bounds) / len(mix)
     by = "bytes" if sum(b for b, _ in bounds) >= sum(o for _, o in bounds) \
         else "operations"
-    say(f"timing: flash_attention over the serving run's launch mix "
-        f"({len(mix)} shapes, {N_REQ * cfg.n_layers} launches each): device "
-        f"us per launch: kernel {t['kernel'] * 1e3:.2f}, bound "
-        f"{bound_ms * 1e3:.3f} ({by}), plain {t['plain'] * 1e3:.2f}, sdpa "
-        f"{t['sdpa'] * 1e3:.2f} [{card}]")
+    say(f"timing: flash_attention {name} over the serving run's launch mix "
+        f"({len(mix)} shapes): device us per launch: kernel "
+        f"{t['kernel'] * 1e3:.2f}, bound {bound_ms * 1e3:.3f} ({by}), plain "
+        f"{t['plain'] * 1e3:.2f}, sdpa {t['sdpa'] * 1e3:.2f} [{card}]")
+    return t, bound_ms, by
+
+
+def flash_shapes(cfg, prompt, smax, dev, window=None):
+    """The served attention's prefill and last decode shape, and the
+    serving run's launch mix (one prefill, one decode at each t)."""
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).bfloat16()
+
+    def kw(Sq, q_start, kv_len):
+        out = dict(q_start=q_start, kv_len=kv_len)
+        if window is not None:
+            out.update(window=window,
+                       mask=window_mask(Sq, q_start, kv_len, window, dev))
+        return out
+
+    dec = (rnd(1, 1, H, D), rnd(1, smax, KV, D), rnd(1, smax, KV, D))
+    pre = (rnd(1, prompt, H, D), rnd(1, prompt, KV, D), rnd(1, prompt, KV, D))
+    shapes = {"decode": (*dec, kw(1, smax - 1, smax)),
+              "prefill": (*pre, kw(prompt, 0, prompt))}
+    mix = [shapes["prefill"]] + [(*dec, kw(1, t, t + 1))
+                                 for t in range(prompt, prompt + GEN - 1)]
+    return shapes, mix
+
+
+def flash_row(ctx, err, card, dev):
+    """llama3.2-1b's attention: the flash row of the kernels JSON."""
+    cfg = ctx["model"].cfg
+    shapes, mix = flash_shapes(cfg, len(ctx["reqs"][0].prompt), ctx["smax"],
+                               dev)
+    # each shape of the mix stands for N_REQ * n_layers launches
+    t, bound_ms, by = time_flash(cfg.name, shapes, mix, card, dev)
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces=REPLACES["flash_attention"],
-        launches=launches["flash_attention"],
+        launches=ctx["launches"]["flash_attention"],
         max_abs_err=err["flash_attention"], ms=t["kernel"],
         plain_ms=t["plain"], bound_ms=bound_ms, bound_by=by,
         library_ms=t["sdpa"])
 
 
+def recurrence_row(name, fn, plain, bound, shapes, launches, err, card):
+    """A recurrence kernel at the served decode and prefill shapes
+    (``shapes``: label -> args of ``fn``), against its plain version and
+    its bound (``bound``: args -> (bytes ms, operations ms)); the row's
+    times are the serving run's mix, one prefill to GEN - 1 decodes."""
+    t, b = {}, {}
+    for label, args in shapes.items():
+        reps = 20 if label == "decode" else 3
+        t[label] = (time_replay([args], fn, reps=reps)[0],
+                    time_replay([args], plain, reps=reps)[0])
+        b[label] = bound(*args)
+        by = "bytes" if b[label][0] >= b[label][1] else "operations"
+        shape = ", ".join(f"{tuple(a.shape)} {str(a.dtype).split('.')[1]}"
+                          for a in args if isinstance(a, torch.Tensor))
+        say(f"timing: {name} {label} ({shape}): device us per launch: "
+            f"kernel {t[label][0] * 1e3:.2f}, bound {max(b[label]) * 1e3:.3f} "
+            f"({by}; bytes {b[label][0] * 1e3:.3f}, operations "
+            f"{b[label][1] * 1e3:.3f}), plain {t[label][1] * 1e3:.2f}, "
+            f"torch call none [{card}]")
+    mix = lambda x: (x["prefill"] + (GEN - 1) * x["decode"]) / GEN
+    bytes_ms = mix({k: v[0] for k, v in b.items()})
+    ops_ms = mix({k: v[1] for k, v in b.items()})
+    row = dict(
+        name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+        replaces=REPLACES[name], launches=launches[name],
+        max_abs_err=err[name], ms=mix({k: v[0] for k, v in t.items()}),
+        plain_ms=mix({k: v[1] for k, v in t.items()}),
+        bound_ms=mix({k: max(v) for k, v in b.items()}),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None)
+    say(f"timing: {name} over the serving run's mix (1 prefill : {GEN - 1} "
+        f"decodes): device us per launch: kernel {row['ms'] * 1e3:.2f}, "
+        f"bound {row['bound_ms'] * 1e3:.3f} ({row['bound_by']}), plain "
+        f"{row['plain_ms'] * 1e3:.2f} [{card}]")
+    return row
+
+
+def wkv6_row(ctx, err, card, dev):
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+
+    cfg = ctx["model"].cfg
+    H, N = cfg.d_model // cfg.head_dim, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def args(T):
+        r, k, v = (torch.randn(1, T, H, N, device=dev, generator=gen)
+                   .bfloat16() for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(1, T, H, N, device=dev,
+                                             generator=gen))).bfloat16()
+        u = (0.5 * torch.randn(H, N, device=dev, generator=gen)).bfloat16()
+        s0 = torch.randn(1, H, N, N, device=dev, generator=gen)
+        return r, k, v, w, u, s0
+
+    shapes = {"decode": args(1), "prefill": args(len(ctx["reqs"][0].prompt))}
+    return recurrence_row(
+        "wkv6", lambda r, k, v, w, u, s0: WK.wkv6_cuda(
+            r, k, v, w, u, initial_state=s0, state_out=s0),
+        lambda r, k, v, w, u, s0: wkv6_ref(r, k, v, w, u, s0, s0),
+        lambda r, k, v, w, u, s0: wkv6_bound(*r.shape, r.element_size()),
+        shapes, ctx["launches"], err, card)
+
+
+def rglru_row(ctx, err, card, dev):
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru.ref import rglru_ref
+
+    cfg = ctx["model"].cfg
+    W = cfg.lru_width or cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def args(T):
+        la = -0.5 * torch.exp(torch.randn(1, T, W, device=dev,
+                                          generator=gen))
+        gx = torch.randn(1, T, W, device=dev, generator=gen).bfloat16()
+        return la, gx, torch.randn(1, W, device=dev, generator=gen)
+
+    shapes = {"decode": args(1), "prefill": args(len(ctx["reqs"][0].prompt))}
+    return recurrence_row(
+        "rglru", lambda la, gx, h0: RK.rglru_cuda(la, gx, h0, state_out=h0),
+        lambda la, gx, h0: rglru_ref(la, gx, h0, h0),
+        lambda la, gx, h0: rglru_bound(*gx.shape, gx.element_size()),
+        shapes, ctx["launches"], err, card)
+
+
+def mqa_flash_timing(ctx, card, dev):
+    """recurrentgemma-2b's attention (H 10, KV 1, D 256, window 2048): the
+    kernel, its plain version and SDPA with the window as a mask."""
+    cfg = ctx["model"].cfg
+    shapes, mix = flash_shapes(cfg, len(ctx["reqs"][0].prompt), ctx["smax"],
+                               dev, window=cfg.local_window)
+    time_flash(cfg.name, shapes, mix, card, dev)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     csrc = SRC / "repro_torch" / "csrc"
-    if not all((csrc / f).is_file() for f in ("arena.cu",
-                                              "flash_attention.cu")):
+    if not all((csrc / f).is_file() for f in (
+            "arena.cu", "flash_attention.cu", "wkv6.cu", "rglru.cu")):
         say("FAIL: src/repro_torch not found beside chip_smoke.py; run it "
             "from the root of a checkout")
         return 2
@@ -908,32 +1404,52 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from repro_torch.kernels.arena import kernel as K
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rwkv6 import kernel as WK
 
     def timed_build(mod):
         t0 = time.perf_counter()
         return mod.build(), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as ex:      # one nvcc per source, together
-        builds = [ex.submit(timed_build, mod) for mod in (K, FK)]
+    mods = (K, FK, WK, RK)
+    with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, together
+        builds = [ex.submit(timed_build, mod) for mod in mods]
         for fut in builds:
             lib, sec = fut.result()
             say(f"build: {lib.relative_to(ROOT)} in {sec:.1f} s")
-    K._library()
-    FK._library()
+    for mod in mods:
+        mod._library()
     say(f"card: {card}")
 
     rng = np.random.default_rng(SEED)
     err = {k: 0.0 for k in REPLACES}
     phase_kernels(dev, rng, err)
     phase_flash(dev, err)
+    phase_wkv6(dev, err)
+    phase_rglru(dev, err)
     plans, inputs, launches, _ = phase_main(rng)
-    model, params, plan, reqs, serve_launches, spans = phase_serve(dev)
-    rows = phase_timing(plans, inputs, launches, err, card)
-    rows.append(phase_serve_timing(model, params, plan, reqs, spans,
-                                   serve_launches, err, card, dev))
+    say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+
+    rows = []
+    for arch in SERVES:            # one model on the card at a time
+        ctx = phase_serve(dev, arch)
+        if arch == "llama3.2-1b":
+            rows += phase_timing(plans, inputs, launches, err, card)
+        phase_serve_timing(ctx, card, dev)
+        if arch == "llama3.2-1b":
+            rows.append(flash_row(ctx, err, card, dev))
+        elif arch == "rwkv6-7b":
+            rows.append(wkv6_row(ctx, err, card, dev))
+        else:
+            rows.append(rglru_row(ctx, err, card, dev))
+            mqa_flash_timing(ctx, card, dev)
+        del ctx
+        torch.cuda.empty_cache()
+        say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(card)

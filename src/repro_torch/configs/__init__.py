@@ -2,10 +2,12 @@
 
 The port's registry lists only the architectures it can build:
 
-  llama3.2-1b
+  llama3.2-1b        dense decoder
+  rwkv6-7b           RWKV-6, attention-free
+  recurrentgemma-2b  Griffin: RG-LRU + local attention
 
 The other configs of ``repro.configs`` join with their model families
-(ROADMAP A5/A6).
+(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from repro_torch.configs.base import (
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "rwkv6-7b": "rwkv6_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -7,7 +7,8 @@
 // KV tiles skipped.  Layouts are the public function's: q (B,Sq,H,D),
 // k (B,Skv,KV,D), v (B,Skv,KV,Dv), out (B,Sq,H,Dv) in q's dtype; bf16 or
 // f32 inputs.  Query head h reads KV head h / G, G = H / KV.  (D, Dv) is
-// (16, 16), (64, 64), (128, 128) or (192, 128); the wrapper refuses others.
+// (16, 16), (64, 64), (128, 128), (192, 128) or (256, 256); the wrapper
+// refuses others.
 //
 // Design.  The TPU kernel walks the KV blocks as a sequential grid axis and
 // keeps m/l/acc in VMEM scratch across grid steps.  Here one block of 128
@@ -42,6 +43,8 @@
 //     and each walks all of its tiles in turn: latency-bound, far from the
 //     byte bound.  A split-K decode (tiles spread over blocks, a second
 //     pass to merge m/l/acc) is the fix.
+//     Multi-query attention is the worst case: recurrentgemma-2b (H 10,
+//     KV 1, D 256) decodes in a single block, B * KV = 1;
 //   * prefill uses CUDA-core f32 FMAs, not the tensor cores (`wgmma`), and
 //     stages tiles through registers (no TMA / cp.async pipeline).
 // Both are later work; this kernel is the simple one that is right.
@@ -331,6 +334,7 @@ int dispatch(const Params& p, cudaStream_t stream) {
   if (dmax <= 64) return launch_rows<T, 64>(p, stream);    // D 64
   if (dmax <= 128) return launch_rows<T, 128>(p, stream);  // D 128
   if (dmax <= 192) return launch_rows<T, 192>(p, stream);  // D 192, Dv 128
+  if (dmax <= 256) return launch_rows<T, 256>(p, stream);  // D 256
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,6 +4,8 @@
                       (csrc/arena.cu)
   flash_attention  -- GQA forward attention with an online softmax
                       (csrc/flash_attention.cu)
+  rwkv6            -- the RWKV-6 WKV recurrence (csrc/wkv6.cu)
+  rglru            -- Griffin's RG-LRU recurrence (csrc/rglru.cu)
 
 ``_build`` compiles each ``csrc/*.cu`` with nvcc into its own library.
 

@@ -32,7 +32,7 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "flash_attention.cu"
 
 #: (D of q/k, Dv of v) pairs the kernel is built and checked for
-HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128))
+HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128), (256, 256))
 
 LAUNCHES = {"flash_attention": 0}
 

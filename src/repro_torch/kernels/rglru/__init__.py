@@ -1,0 +1,19 @@
+"""RG-LRU recurrence of Griffin: the CUDA kernel and its plain PyTorch
+version.
+
+ops.py    -- ``rglru`` dispatch (impl in {auto, cuda, torch, ref}; no
+             environment override)
+kernel.py -- the CUDA kernel (csrc/rglru.cu): build, ctypes binding,
+             checked launches, launch count
+ref.py    -- the plain version ``rglru_ref``, the sequential recurrence
+             with an f32 carry
+
+Used by ``repro_torch.models.blocks.griffin_rec_block_apply`` for every
+recurrent layer of the serving path.
+"""
+
+from repro_torch.kernels.rglru.kernel import LAUNCHES, reset_launches
+from repro_torch.kernels.rglru.ops import rglru
+from repro_torch.kernels.rglru.ref import rglru_ref
+
+__all__ = ["LAUNCHES", "reset_launches", "rglru", "rglru_ref"]

@@ -1,0 +1,47 @@
+"""Public RG-LRU op: impl dispatch.
+
+``rglru(log_a, gx, h0, *, impl)``:
+
+  * ``"auto"``          -- the CUDA kernel for tensors on the card,
+                           ``"torch"`` for tensors on the CPU;
+  * ``"cuda"``          -- the CUDA kernel (``csrc/rglru.cu``); raises for
+                           a tensor on the CPU;
+  * ``"torch"``/``"ref"`` -- the sequential recurrence in plain PyTorch
+                           (:func:`~repro_torch.kernels.rglru.ref.rglru_ref`,
+                           the plain version the kernel is held against;
+                           the CPU path).
+
+``repro``'s ``"xla"`` associative scan has no counterpart: the tests hold
+the plain version against it.  No environment variable changes the
+choice: a CUDA tensor under ``"auto"`` launches the kernel or raises; it
+never falls back.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.rglru import kernel as _kernel
+from repro_torch.kernels.rglru.ref import rglru_ref
+
+IMPLS = ("auto", "cuda", "torch", "ref")
+
+
+def _pick_impl(impl: str, gx) -> str:
+    if impl == "auto":
+        return "cuda" if gx.is_cuda else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown rglru impl {impl!r}; expected one of "
+                         f"{IMPLS}")
+    return impl
+
+
+def rglru(log_a, gx, h0=None, *, impl: str = "auto", state_out=None):
+    """log_a, gx: (B,T,D).  Returns (h (B,T,D) in gx's dtype, h_T (B,D)
+    f32).  ``state_out`` (f32, (B,D)) receives h_T and is returned; it may
+    be ``h0`` itself, which then is updated in place."""
+    impl = _pick_impl(impl, gx)
+    if impl == "cuda":
+        if not gx.is_cuda:
+            raise ValueError("impl='cuda' needs CUDA tensors; got gx on "
+                             f"{gx.device}")
+        return _kernel.rglru_cuda(log_a, gx, h0, state_out=state_out)
+    return rglru_ref(log_a, gx, h0, state_out)

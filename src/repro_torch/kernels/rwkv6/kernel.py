@@ -1,0 +1,126 @@
+"""CUDA WKV-6 kernel for Hopper: build, bind, launch.
+
+The kernel lives in ``repro_torch/csrc/wkv6.cu`` (plain C interface).  The
+first call compiles it into ``build/repro_torch/<source hash>/libwkv6.so``
+(:mod:`repro_torch.kernels._build`) and loads it with ``ctypes``; nothing
+is built when this module is imported.
+
+:func:`wkv6_cuda` takes CUDA tensors only and checks device, dtype (bf16
+or f32, one for r, k, v, w and u; the states f32), contiguity, shapes,
+T >= 1 and the head size N (one of :data:`HEAD_SIZES`); it allocates the
+output with ``torch.empty``, launches on PyTorch's current stream and
+raises if the launch was refused.  ``LAUNCHES["wkv6"]`` counts launches;
+:func:`reset_launches` sets it to 0.
+
+It replaces ``wkv6_pallas`` / ``_wkv6_kernel`` of
+``repro/kernels/rwkv6/kernel.py``; the source note says what bounds it and
+what the simple design leaves on the table.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "wkv6.cu"
+
+#: head sizes N the kernel is instantiated for (smoke 16, rwkv6-7b 64)
+HEAD_SIZES = (16, 32, 64)
+
+LAUNCHES = {"wkv6": 0}
+
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build() -> Path:
+    """Compile ``csrc/wkv6.cu`` unless a library of this source exists;
+    returns the library's path."""
+    return _build.build(SOURCE, "wkv6")
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            vp, ll = ctypes.c_void_p, ctypes.c_longlong
+            for sfx in _SUFFIX.values():
+                fn = getattr(lib, f"repro_wkv6_{sfx}")
+                fn.argtypes = [vp, vp, vp, vp, vp,     # r k v w u
+                               vp, vp, vp,             # s0 o sT
+                               ll, ll, ll, ll,         # B T H N
+                               vp]                     # stream
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _check(r, k, v, w, u, initial_state, state_out) -> None:
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
+        if not (isinstance(t, torch.Tensor) and t.is_cuda):
+            raise ValueError(f"wkv6_cuda takes CUDA tensors only; {name} "
+                             f"is not one")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != r.dtype or t.device != r.device:
+            raise ValueError(f"{name} ({t.dtype} on {t.device}) must match "
+                             f"r ({r.dtype} on {r.device})")
+    if r.dtype not in _SUFFIX:
+        raise ValueError(f"dtype {r.dtype} not in {tuple(_SUFFIX)}")
+    if r.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {r.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    if r.dim() != 4:
+        raise ValueError(f"r must be (B, T, H, N); got {tuple(r.shape)}")
+    B, T, H, N = r.shape
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        if t.shape != r.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != r "
+                             f"{tuple(r.shape)}")
+    if tuple(u.shape) != (H, N):
+        raise ValueError(f"u {tuple(u.shape)} != (H, N) = {(H, N)}")
+    if T < 1:
+        raise ValueError("wkv6_cuda needs T >= 1")
+    if N not in HEAD_SIZES:
+        raise ValueError(f"head size N = {N} not in {HEAD_SIZES}")
+    for name, s in (("initial_state", initial_state),
+                    ("state_out", state_out)):
+        if s is None:
+            continue
+        if not (isinstance(s, torch.Tensor) and s.device == r.device
+                and s.dtype == torch.float32 and s.is_contiguous()
+                and tuple(s.shape) == (B, H, N, N)):
+            raise ValueError(f"{name} must be a contiguous f32 tensor of "
+                             f"shape {(B, H, N, N)} on {r.device}")
+
+
+def wkv6_cuda(r, k, v, w, u, *, initial_state=None, state_out=None):
+    """The WKV-6 recurrence on the card: r, k, v, w ``(B,T,H,N)``, u
+    ``(H,N)`` -> (out ``(B,T,H,N)`` in r's dtype, final state
+    ``(B,H,N,N)`` f32).  ``state_out`` receives the final state (a fresh
+    tensor when None) and may be ``initial_state`` itself."""
+    _check(r, k, v, w, u, initial_state, state_out)
+    B, T, H, N = r.shape
+    out = torch.empty_like(r)
+    sT = state_out if state_out is not None else torch.empty(
+        (B, H, N, N), dtype=torch.float32, device=r.device)
+    fn = getattr(_library(), f"repro_wkv6_{_SUFFIX[r.dtype]}")
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    s0 = None if initial_state is None else initial_state.data_ptr()
+    _build.raise_on(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       w.data_ptr(), u.data_ptr(), s0, out.data_ptr(),
+                       sT.data_ptr(), B, T, H, N, stream), "wkv6")
+    LAUNCHES["wkv6"] += 1
+    return out, sT

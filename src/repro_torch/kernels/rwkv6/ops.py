@@ -1,0 +1,50 @@
+"""Public WKV-6 op: impl dispatch.
+
+``wkv6(r, k, v, w, u, *, initial_state, impl)``:
+
+  * ``"auto"``          -- the CUDA kernel for tensors on the card,
+                           ``"torch"`` for tensors on the CPU;
+  * ``"cuda"``          -- the CUDA kernel (``csrc/wkv6.cu``); raises for
+                           a tensor on the CPU;
+  * ``"torch"``/``"ref"`` -- the exact sequential loop in plain PyTorch
+                           (:func:`~repro_torch.kernels.rwkv6.ref.wkv6_ref`,
+                           the plain version the kernel is held against;
+                           the CPU path).
+
+No environment variable changes the choice: a CUDA tensor under
+``"auto"`` launches the kernel or raises; it never falls back.
+``repro``'s chunked-linear-attention note applies here too: the exact
+sequential update is the one that cannot overflow.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.rwkv6 import kernel as _kernel
+from repro_torch.kernels.rwkv6.ref import wkv6_ref
+
+IMPLS = ("auto", "cuda", "torch", "ref")
+
+
+def _pick_impl(impl: str, r) -> str:
+    if impl == "auto":
+        return "cuda" if r.is_cuda else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown wkv6 impl {impl!r}; expected one of "
+                         f"{IMPLS}")
+    return impl
+
+
+def wkv6(r, k, v, w, u, *, initial_state=None, impl: str = "auto",
+         state_out=None):
+    """r,k,v,w: (B,T,H,N); u: (H,N).  Returns (out (B,T,H,N), state
+    (B,H,N,N) f32).  ``state_out`` (f32, (B,H,N,N)) receives the final
+    state and is returned; it may be ``initial_state`` itself, which then
+    is updated in place."""
+    impl = _pick_impl(impl, r)
+    if impl == "cuda":
+        if not r.is_cuda:
+            raise ValueError("impl='cuda' needs CUDA tensors; got r on "
+                             f"{r.device}")
+        return _kernel.wkv6_cuda(r, k, v, w, u, initial_state=initial_state,
+                                 state_out=state_out)
+    return wkv6_ref(r, k, v, w, u, initial_state, state_out)

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense decoder LM.
+"""Model zoo of the port: the dense decoder, RWKV-6 and Griffin LMs.
 
 ``build_model(cfg) -> Model`` with:
     defs        ParamDef tree (layers stacked on a leading axis)
@@ -8,13 +8,15 @@
     prefill_fn(params, cache, batch, *, impl, rules)   -> (logits_last, cache)
     decode_fn(params, cache, tokens, t, *, impl, rules) -> (logits, cache)
 
-The counterpart of ``repro.models.zoo.build_decoder_lm`` for dense configs,
-with the same parameter tree (names and stacked shapes), so that
-``params_from_numpy`` maps ``repro``'s parameters one to one.  The layer
-stack is a Python loop over the stacked parameters (the counterpart of
-``_scan_stack``); the cache is updated in place and returned.  ``loss_fn``
-waits for training (ROADMAP A7).  ``build_model`` raises for the families
-the port does not build yet (ROADMAP A5/A6).
+The counterparts of ``repro.models.zoo``'s ``build_decoder_lm`` (dense
+configs), ``build_rwkv_lm`` and ``build_griffin_lm``, with the same
+parameter and cache trees (names, stacked shapes, leaf order), so that
+``params_from_numpy`` maps ``repro``'s parameters one to one and the
+decode-state plans agree.  Each layer stack is a Python loop over the
+stacked parameters (the counterpart of ``_scan_stack``); the cache is
+updated in place and returned.  ``loss_fn`` waits for training
+(ROADMAP A7).  ``build_model`` raises for the families the port does not
+build yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -69,28 +71,12 @@ def _layer(stacked, i: int):
     return tree_map(lambda a: a[i], stacked)
 
 
-def build_decoder_lm(cfg: ArchConfig) -> Model:
-    if cfg.n_experts or cfg.mla is not None or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA and MTP decoders are not ported yet "
-            f"(ROADMAP A6)")
-    n_layers = cfg.n_layers
-    defs = {"embed": embed_defs(cfg), "ln_f": norm_defs(cfg.d_model),
-            "dense": stack_defs(B.transformer_block_defs(cfg), n_layers)}
-
+def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone) -> Model:
+    """A Model over ``backbone(params, x, ctx, cache) -> x``: the embedding
+    in front, the final norm and the last position's logits behind, and
+    prefill (positions from 0) and decode (positions from ``t``)."""
     def init(generator: torch.Generator, device=None):
         return init_params(defs, generator, device)
-
-    def backbone(params, x, ctx, caches):
-        dense = params["dense"]
-        cache = caches["dense"] if caches else None
-        for i in range(n_layers):
-            c = _layer(cache, i) if cache is not None else None
-            x, _, _ = B.transformer_block_apply(_layer(dense, i), x, ctx, c)
-        return x
-
-    def make_cache_defs(bsz, smax):
-        return {"dense": _kv_cache_defs(cfg, n_layers, bsz, smax)}
 
     def init_cache(bsz, smax, device=None):
         return tree_map(
@@ -122,13 +108,133 @@ def build_decoder_lm(cfg: ArchConfig) -> Model:
                  prefill_fn, decode_fn)
 
 
+def build_decoder_lm(cfg: ArchConfig) -> Model:
+    if cfg.n_experts or cfg.mla is not None or cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE, MLA and MTP decoders are not ported yet "
+            f"(ROADMAP A6)")
+    n_layers = cfg.n_layers
+    defs = {"embed": embed_defs(cfg), "ln_f": norm_defs(cfg.d_model),
+            "dense": stack_defs(B.transformer_block_defs(cfg), n_layers)}
+
+    def backbone(params, x, ctx, caches):
+        dense = params["dense"]
+        cache = caches["dense"] if caches else None
+        for i in range(n_layers):
+            c = _layer(cache, i) if cache is not None else None
+            x, _, _ = B.transformer_block_apply(_layer(dense, i), x, ctx, c)
+        return x
+
+    def make_cache_defs(bsz, smax):
+        return {"dense": _kv_cache_defs(cfg, n_layers, bsz, smax)}
+
+    return _lm(cfg, defs, make_cache_defs, backbone)
+
+
+# ----------------------------------------------------------------- RWKV-6 LM
+
+def build_rwkv_lm(cfg: ArchConfig) -> Model:
+    n_layers = cfg.n_layers
+    defs = {
+        "embed": embed_defs(cfg),
+        "blocks": stack_defs(B.rwkv6_block_defs(cfg), n_layers),
+        "ln_f": norm_defs(cfg.d_model),
+    }
+    H, N = cfg.d_model // cfg.head_dim, cfg.head_dim
+
+    def backbone(params, x, ctx, cache):
+        blocks = params["blocks"]
+        for i in range(n_layers):
+            c = _layer(cache, i) if cache is not None else None
+            x, _, _ = B.rwkv6_block_apply(_layer(blocks, i), x, ctx, c)
+        return x
+
+    def make_cache_defs(bsz, smax):
+        L, D = n_layers, cfg.d_model
+        return {
+            "tm_x": ParamDef((L, bsz, D), (None, "batch", None),
+                             init="zeros"),
+            "cm_x": ParamDef((L, bsz, D), (None, "batch", None),
+                             init="zeros"),
+            "wkv": ParamDef((L, bsz, H, N, N),
+                            (None, "batch", "tensor", None, None),
+                            init="zeros", dtype=torch.float32),
+        }
+
+    return _lm(cfg, defs, make_cache_defs, backbone)
+
+
+# ----------------------------------------------------------------- Griffin
+
+def build_griffin_lm(cfg: ArchConfig) -> Model:
+    """recurrentgemma: pattern (rec, rec, attn) repeating over n_layers,
+    the remainder as a list of tail layers."""
+    pattern = cfg.block_pattern            # e.g. ("rec", "rec", "attn")
+    period = len(pattern)
+    n_groups = cfg.n_layers // period
+    n_tail = cfg.n_layers - n_groups * period
+    tail_pattern = pattern[:n_tail]
+    n_rec_g = sum(1 for b in pattern if b == "rec")
+    n_rec, n_attn = n_groups * n_rec_g, n_groups * (period - n_rec_g)
+
+    rec_defs = B.griffin_rec_block_defs(cfg)
+    attn_defs_ = B.griffin_attn_block_defs(cfg)
+    defs = {
+        "embed": embed_defs(cfg),
+        "groups": {"rec": stack_defs(rec_defs, n_rec),
+                   "attn": stack_defs(attn_defs_, n_attn)},
+        "tail": [(rec_defs if b == "rec" else attn_defs_)
+                 for b in tail_pattern],
+        "ln_f": norm_defs(cfg.d_model),
+    }
+    W = cfg.lru_width or cfg.d_model
+    apply = {"rec": B.griffin_rec_block_apply,
+             "attn": B.griffin_attn_block_apply}
+
+    def backbone(params, x, ctx, caches):
+        groups = params["groups"]
+        seen = {"rec": 0, "attn": 0}      # layer index within each stack
+        for b in pattern * n_groups:
+            i = seen[b]
+            c = _layer(caches[b], i) if caches else None
+            x, _, _ = apply[b](_layer(groups[b], i), x, ctx, c)
+            seen[b] += 1
+        for i, b in enumerate(tail_pattern):
+            c = caches["tail"][i] if caches else None
+            x, _, _ = apply[b](params["tail"][i], x, ctx, c)
+        return x
+
+    def make_cache_defs(bsz, smax):
+        # as in repro: the local-attention cache is indexed by absolute
+        # position, smax long (a ring buffer of local_window rows is the
+        # production layout)
+        def conv(*lead):
+            return ParamDef((*lead, bsz, B._CONV_W - 1, W),
+                            (*(None,) * len(lead), "batch", None, "tensor"),
+                            init="zeros")
+
+        def hstate(*lead):
+            return ParamDef((*lead, bsz, W),
+                            (*(None,) * len(lead), "batch", "tensor"),
+                            init="zeros", dtype=torch.float32)
+
+        kv = ParamDef((bsz, smax, cfg.n_kv_heads, cfg.head_dim),
+                      ("batch", None, "tensor", None), init="zeros")
+        return {
+            "rec": {"conv": conv(n_rec), "h": hstate(n_rec)},
+            "attn": _kv_cache_defs(cfg, n_attn, bsz, smax),
+            "tail": [{"conv": conv(), "h": hstate()} if b == "rec"
+                     else {"k": kv, "v": kv} for b in tail_pattern],
+        }
+
+    return _lm(cfg, defs, make_cache_defs, backbone)
+
+
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.attn_free:
-        raise NotImplementedError(
-            f"{cfg.name}: the RWKV-6 LM is not ported yet (ROADMAP A5)")
+        return build_rwkv_lm(cfg)
     if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the Griffin LM is not ported yet (ROADMAP A5)")
+        return build_griffin_lm(cfg)
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP A6)")

@@ -193,10 +193,13 @@ def test_unported_families_raise():
     import dataclasses
 
     cfg = tconfigs.smoke(ARCH)
-    for bad, item in ((dict(attn_free=True), "A5"),
-                      (dict(family="hybrid"), "A5"),
-                      (dict(is_encoder_decoder=True), "A6"),
+    for bad, item in ((dict(is_encoder_decoder=True), "A6"),
                       (dict(n_experts=4, n_experts_per_tok=2,
                             moe_d_ff=32), "A6")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(dataclasses.replace(cfg, **bad))
+    # the recurrent families (ROADMAP A5) build now: RWKV-6 and Griffin
+    rwkv = build_model(dataclasses.replace(cfg, attn_free=True))
+    griffin = build_model(dataclasses.replace(cfg, family="hybrid"))
+    assert set(rwkv.defs) == {"embed", "blocks", "ln_f"}
+    assert set(griffin.defs) == {"embed", "groups", "tail", "ln_f"}
