@@ -9,26 +9,40 @@ nothing of JAX.  Phases, each fatal (an exception or a failed check exits
 non-zero):
 
 1. build   -- compile ``src/repro_torch/csrc/arena.cu``,
-              ``flash_attention.cu``, ``wkv6.cu`` and ``rglru.cu`` (nvcc,
-              sm_90a, all four started together) and print the build
-              seconds of each, the card's name and power limit;
+              ``flash_attention.cu``, ``flash_decode.cu``,
+              ``flash_prefill_sm90.cu``, ``wkv6.cu`` and ``rglru.cu``
+              (nvcc, sm_90a, all six started together) and print the build
+              seconds of each, the two new flash kernels' registers, shared
+              memory and spills (``-Xptxas -v``), the card's name and power
+              limit;
 2. kernels -- hold each arena kernel against its plain PyTorch version on
               the card: awkward offsets and lengths (0, 1, 3, 4097 and
               150,528, the largest tensor of the DARTS cell), f32 and u8;
               write/read/accum and the exact chain ops bit-equal, the
               transcendental chain ops allclose; n == 0 launches nothing;
-3. flash   -- hold the flash-attention kernel against its plain PyTorch
-              version (``impl="torch"``) and the oracle (``impl="ref"``) on
-              the card: bf16 and f32, every (D, Dv) the wrapper takes
+3. flash   -- hold the three flash-attention kernels (the split-K
+              decode, the ``wgmma`` prefill and the simple kernel) against
+              the plain PyTorch version (``impl="torch"``) and the oracle
+              (``impl="ref"``) on the card, each case through every kernel
+              that takes it (the simple kernel takes all; the decode kernel
+              Sq * G <= 16; the prefill kernel bf16 at 64/64, 128/128 and
+              256/256): bf16 and f32, every (D, Dv) the wrapper takes
               (16/16, 64/64, 128/128, 192/128, 256/256), GQA groups 1 and 4,
               decode over caches of 1/127/1056/4097 keys, causal prefill of
-              1/33/1024 tokens, a sliding window, non-causal attention (with
-              a window, and against a partly filled cache), and a cache
-              whose tail beyond kv_len holds garbage that must not leak;
-              then recurrentgemma-2b's multi-query shape (D 256, G 10,
-              KV 1, window 2048): decode over 2592 keys, causal prefill of
-              2560, a garbage tail; f32 within rtol 1e-5 + atol 1e-5, bf16
-              within one bf16 ulp of the output + 1e-5;
+              1/33/1024 tokens, a sliding window, a prefill against a
+              partly filled cache, non-causal attention (with a window, and
+              against a partly filled cache), batch 2 at decode and
+              prefill, and a cache whose tail beyond kv_len holds garbage
+              that must not leak; then
+              recurrentgemma-2b's multi-query shape (D 256, G 10, KV 1,
+              window 2048): decode over 2592 keys, causal prefill of 2560,
+              a garbage tail; f32 within rtol 1e-5 + atol 1e-5, bf16 within
+              one bf16 ulp of the output + 1e-5.  Then the split-K decode's
+              partials (m, l, acc of each split, at its own rule and at 7
+              and 64 splits) against ``flash_decode_partials_torch`` and its
+              output against ``flash_decode_combine_torch``, with splits
+              fully masked for some rows and a row masked in every split
+              (output 0, no NaN);
 4. wkv6    -- hold the WKV-6 kernel against its plain version on the card:
               bf16 and f32, N 16/32/64, T 1/7/256/1000/1024, with and
               without an initial state: outputs within the flash phase's
@@ -61,7 +75,9 @@ non-zero):
               keeps the cache as plain tensors, the first decode steps'
               logits of the kernels allclose to the plain versions' (in
               f32, and in bf16 as served), every
-              kernel's launches over the run exactly the path's count, and
+              kernel's launches over the run exactly the path's count (an
+              attention layer: one ``wgmma`` prefill per request and one
+              split-K decode per decode step, the simple kernel never), and
               one prefilled cache packed and unpacked at the served plan by
               the u8 kernels bit-equal to their plain versions;
 8. timing  -- microseconds per ``execute`` of the two full networks, and per
@@ -70,9 +86,11 @@ non-zero):
               the same (a yardstick, never called by the port); for each
               served model its prefill ms per request, ms per decode token,
               the device's busy time and idle share over one decode step and
-              its launches, the u8 arena write/read at the served leaves'
-              sizes, and its recurrence or attention kernel at decode and
-              prefill shapes.
+              its launches (no more device activities per decode token than
+              PR 13 measured), the u8 arena write/read at the served
+              leaves' sizes, and its recurrence or attention kernel at
+              decode and prefill shapes (attention: the routed kernel, the
+              simple kernel, the plain version and SDPA).
 
 The kernels JSON (one entry per kernel) is printed third from last, the
 card's name and power limit second from last, and ``{"ok": true,
@@ -142,6 +160,13 @@ SERVES = {
               "transient_bytes": 1_034_240, "n_buffers": 89}),
 }
 RG_RTOL = RG_ATOL = 1e-5           # rglru f32: exp of two libraries
+# device activities per decode token with one request in flight (PR 13's
+# chip run; the redesigned attention must not add any)
+ACTIVITIES = {"llama3.2-1b": 999, "rwkv6-7b": 2806, "recurrentgemma-2b": 1511}
+# the split-K decode's partials against the plain version's: m to rtol/atol
+# 1e-5; l and acc to 1e-5 plus 1e-5 times the summands' magnitude (at most
+# l for l, l * max|v| for acc)
+SPLIT_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -268,42 +293,64 @@ def fa_err(got, want):
     return float(diff.max()) if diff.numel() else 0.0, ok
 
 
+def flash_routes(dtype, D, Dv, rows) -> dict:
+    """The kernels that take a call, by route, each through its wrapper:
+    the simple kernel always, the split-K decode at Sq * G <= 16, the
+    ``wgmma`` prefill in bf16 at its pairs."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    out = {"simple": FK.flash_simple_cuda}
+    if rows <= FK.DECODE_MAX_ROWS:
+        out["decode"] = lambda *a, **kw: FK.flash_decode_cuda(*a, **kw)[0]
+    if dtype == torch.bfloat16 and (D, Dv) in FK.PREFILL_HEAD_DIMS:
+        out["prefill"] = FK.flash_prefill_cuda
+    return out
+
+
 def phase_flash(dev, err):
+    """Every case through every kernel that takes it; returns the worst
+    error of each route."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    worst = {}
+    worst, per_route, n_runs = {}, {}, {}
 
     def run(name, dtype, D, Dv, KV, G, sq, skv, kw):
-        q = torch.randn(1, sq, KV * G, D, device=dev, generator=gen).to(dtype)
-        k = torch.randn(1, skv, KV, D, device=dev, generator=gen).to(dtype)
-        v = torch.randn(1, skv, KV, Dv, device=dev, generator=gen).to(dtype)
+        kw = dict(kw)
+        B = kw.pop("batch", 1)
+        q = torch.randn(B, sq, KV * G, D, device=dev, generator=gen).to(dtype)
+        k = torch.randn(B, skv, KV, D, device=dev, generator=gen).to(dtype)
+        v = torch.randn(B, skv, KV, Dv, device=dev, generator=gen).to(dtype)
         args = dict(causal=kw.get("causal", True), window=kw.get("window"),
                     q_start=kw.get("q_start", 0),
                     kv_len=kw.get("kv_len", skv))
-        got = FK.flash_attention_cuda(q, k, v, **args)
+        wants = {impl: flash_attention(q, k, v, impl=impl, **kw)
+                 for impl in ("torch", "ref")}
         line = []
-        for impl in ("torch", "ref"):
-            want = flash_attention(q, k, v, impl=impl, **kw)
-            e, ok = fa_err(got, want)
-            check(ok, f"flash {name} {dtype} D={D} Dv={Dv} G={G} KV={KV} "
-                      f"vs {impl}: max abs err {e}")
-            err["flash_attention"] = max(err["flash_attention"], e)
-            key = (str(dtype).split(".")[1], impl)
-            worst[key] = max(worst.get(key, 0.0), e)
-            line.append(f"{impl} {e:.3e}")
-        if name.endswith("tail"):
-            # finite garbage beyond kv_len must not leak
-            k[:, kw["kv_len"]:] = 1e4
-            v[:, kw["kv_len"]:] = -1e4
-            dirty = FK.flash_attention_cuda(q, k, v, **args)
-            check(torch.equal(dirty, got),
-                  f"flash {name} {dtype} D={D} Dv={Dv} G={G}: garbage "
-                  f"beyond kv_len leaked")
+        for route, kernel in flash_routes(dtype, D, Dv, sq * G).items():
+            got = kernel(q, k, v, **args)
+            for impl, want in wants.items():
+                e, ok = fa_err(got, want)
+                check(ok, f"flash {name} {dtype} D={D} Dv={Dv} G={G} KV={KV} "
+                          f"route {route} vs {impl}: max abs err {e}")
+                err["flash_attention"] = max(err["flash_attention"], e)
+                key = (str(dtype).split(".")[1], impl)
+                worst[key] = max(worst.get(key, 0.0), e)
+                per_route[route] = max(per_route.get(route, 0.0), e)
+                line.append(f"{route} vs {impl} {e:.3e}")
+            n_runs[route] = n_runs.get(route, 0) + 1
+            if name.endswith("tail"):
+                # finite garbage beyond kv_len must not leak
+                k2, v2 = k.clone(), v.clone()
+                k2[:, kw["kv_len"]:] = 1e4
+                v2[:, kw["kv_len"]:] = -1e4
+                dirty = kernel(q, k2, v2, **args)
+                check(torch.equal(dirty, got),
+                      f"flash {name} {dtype} D={D} Dv={Dv} G={G} route "
+                      f"{route}: garbage beyond kv_len leaked")
         say(f"flash: {name} Sq {sq} Skv {skv} {kw} "
             f"{str(dtype).split('.')[1]} D {D} Dv {Dv} G {G} KV {KV}: "
-            f"max abs err vs {', '.join(line)}")
+            f"max abs err {', '.join(line)}")
 
     cases = []
     for kv in (1, 127, 1056, 4097):        # decode: one query at kv_len - 1
@@ -312,10 +359,16 @@ def phase_flash(dev, err):
         cases.append(("prefill", n, n, dict()))
     cases.append(("window", 100, 100, dict(window=17)))
     cases.append(("tail", 1, 1056, dict(q_start=499, kv_len=500)))
+    cases.append(("prefill window", 300, 300, dict(window=100)))
+    cases.append(("prefill tail", 70, 1056, dict(q_start=400, kv_len=470)))
     cases.append(("noncausal", 33, 100, dict(causal=False)))
     cases.append(("noncausal window", 64, 64, dict(causal=False, window=9)))
     cases.append(("noncausal tail", 5, 1056, dict(causal=False, q_start=3,
                                                   kv_len=700)))
+    cases.append(("batch decode", 1, 300, dict(q_start=299, kv_len=300,
+                                               batch=2)))
+    cases.append(("batch prefill tail", 70, 300, dict(q_start=200,
+                                                      kv_len=270, batch=2)))
     # recurrentgemma-2b's served attention: one KV head for 10 query heads,
     # D 256, window 2048, the cache of smax 2592 and the prompt of 2560
     w = MQA_WINDOW
@@ -334,7 +387,87 @@ def phase_flash(dev, err):
     torch.cuda.synchronize()
     say(f"flash: every case within tolerance (f32 rtol {FA_RTOL32} + atol "
         f"{FA_ATOL32}; bf16 one ulp of the output + {FA_ATOL16}); worst "
-        + ", ".join(f"{d} vs {i} {e:.3e}" for (d, i), e in worst.items()))
+        + ", ".join(f"{d} vs {i} {e:.3e}" for (d, i), e in worst.items())
+        + f"; by route {per_route}, cases per route {n_runs}")
+    per_route.update(phase_flash_split(dev, gen))
+    return per_route
+
+
+def phase_flash_split(dev, gen):
+    """The split-K decode's partials and merged output against its two plain
+    versions, with splits fully masked for some rows, empty splits, and
+    rows masked in every split (which must give 0 with no NaN; those rows
+    are held against the oracle, since ``impl="torch"``, like ``repro``'s
+    ``_flash_xla``, gives them the mean of the masked values)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_decode_combine_torch,
+        flash_decode_partials_torch,
+    )
+
+    cases = [  # (name, dtype, Sq, Skv, H, KV, D, Dv, kw, rows masked)
+        ("llama decode", torch.bfloat16, 1, 1056, 32, 8, 64, 64,
+         dict(q_start=1055, kv_len=1056), 0),
+        ("griffin decode", torch.bfloat16, 1, 2592, 10, 1, 256, 256,
+         dict(q_start=2591, kv_len=2592, window=MQA_WINDOW), 0),
+        ("f32 192/128 tail", torch.float32, 1, 1056, 16, 4, 192, 128,
+         dict(q_start=499, kv_len=500), 0),
+        ("some splits masked", torch.bfloat16, 16, 116, 1, 1, 128, 128,
+         dict(q_start=100, kv_len=116, window=20), 0),
+        ("rows masked in every split", torch.float32, 4, 64, 8, 2, 16, 16,
+         dict(q_start=8, kv_len=9, window=2), 2),
+    ]
+    worst = 0.0
+    for name, dtype, sq, skv, H, KV, D, Dv, kw, n_dead in cases:
+        q = torch.randn(1, sq, H, D, device=dev, generator=gen).to(dtype)
+        k = torch.randn(1, skv, KV, D, device=dev, generator=gen).to(dtype)
+        v = torch.randn(1, skv, KV, Dv, device=dev, generator=gen).to(dtype)
+        args = dict(causal=True, window=kw.get("window"),
+                    q_start=kw["q_start"], kv_len=kw["kv_len"])
+        vmax = float(v.float().abs().max())
+        for splits in (None, 7, 64):
+            out, m, l, acc = FK.flash_decode_cuda(q, k, v, splits=splits,
+                                                  **args)
+            mw, lw, aw = flash_decode_partials_torch(q, k, v, splits=splits,
+                                                     **kw)
+            what = f"flash_decode {name} splits {splits} ({m.shape[2]})"
+            check(m.shape == mw.shape, f"{what}: {m.shape} vs {mw.shape}")
+            check(not any(bool(torch.isnan(t).any())
+                          for t in (out.float(), m, l, acc)), f"{what}: NaN")
+            live = torch.isfinite(mw)
+            check(torch.equal(live, torch.isfinite(m)),
+                  f"{what}: the -inf splits differ")
+            em = float((m - mw).abs()[live].max()) if live.any() else 0.0
+            el = float((l - lw).abs().max())
+            ea = float((acc - aw).abs().max())
+            check(bool(((m - mw).abs()[live] <= SPLIT_TOL
+                        * (1 + mw.abs()[live])).all())
+                  and bool(((l - lw).abs() <= SPLIT_TOL * (1 + lw)).all())
+                  and bool(((acc - aw).abs() <= SPLIT_TOL
+                            * (1 + lw[..., None] * vmax)).all()),
+                  f"{what}: partials off the plain version's (m {em}, l "
+                  f"{el}, acc {ea})")
+            check(bool((l[~live] == 0).all())
+                  and bool((acc[~live] == 0).all()),
+                  f"{what}: a fully masked split is not exactly 0")
+            merged = flash_decode_combine_torch(mw, lw, aw, dtype=dtype)
+            e, ok = fa_err(out, merged)
+            check(ok, f"{what}: output vs the plain merge: {e}")
+            e2, ok2 = fa_err(out, flash_attention(q, k, v, impl="ref", **kw))
+            check(ok2, f"{what}: output vs the oracle: {e2}")
+            if n_dead:
+                check(not bool(out[:, -n_dead:].any()),
+                      f"{what}: a row with no live key is not 0")
+            worst = max(worst, e, e2)
+            say(f"flash: split-K {name} ({str(dtype).split('.')[1]}, D {D}, "
+                f"Dv {Dv}, G {H // KV}, {kw}) at {m.shape[2]} splits: "
+                f"partials vs plain m {em:.3e}, l {el:.3e}, acc {ea:.3e}; "
+                f"output vs plain merge {e:.3e}, vs oracle {e2:.3e}; "
+                f"{int((~live).sum())} of {live.numel()} (split, row) "
+                f"partials fully masked, exactly 0")
+    torch.cuda.synchronize()
+    return {"decode partials": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -588,9 +721,10 @@ def all_launches() -> dict:
 def path_launches(cfg, n_cache: int) -> dict:
     """Every kernel's launches over the serving run: each request runs one
     prefill and GEN - 1 decode steps; every forward runs one attention or
-    recurrence kernel per layer of its kind; each prefill packs the
-    ``n_cache`` state leaves once, each decode step unpacks and packs
-    them."""
+    recurrence kernel per layer of its kind (attention in bf16: the
+    ``wgmma`` prefill for a prompt, the split-K decode for a decode step,
+    the simple kernel never); each prefill packs the ``n_cache`` state
+    leaves once, each decode step unpacks and packs them."""
     if cfg.attn_free:
         kinds = ["wkv6"] * cfg.n_layers
     elif cfg.family == "hybrid":
@@ -600,9 +734,13 @@ def path_launches(cfg, n_cache: int) -> dict:
     else:
         kinds = ["flash_attention"] * cfg.n_layers
     want = {k: 0 for k in all_launches()}
-    for k in kinds:
-        want[k] += N_REQ * GEN
     steps = N_REQ * (GEN - 1)
+    for k in kinds:
+        if k == "flash_attention":
+            want["flash_prefill"] += N_REQ
+            want["flash_decode"] += steps
+        else:
+            want[k] += N_REQ * GEN
     want["write"] = n_cache * (N_REQ + steps)
     want["read"] = n_cache * steps
     return want
@@ -1180,6 +1318,9 @@ def phase_serve_timing(ctx, card, dev):
         f"{per_tok} [{card}]")
     say(f"timing: serve {name} decode token, device us by kernel (count): "
         + "; ".join(f"{k[:60]} {t:.1f} ({n})" for k, (t, n) in top))
+    check(n_dev <= ACTIVITIES[name],
+          f"{name}: {n_dev} device activities per decode token, more than "
+          f"the {ACTIVITIES[name]} of PR 13")
     time_served_packing(plan, ctx["spans"], by_name, card, dev)
 
 
@@ -1200,9 +1341,14 @@ def flash_impls():
     def args(kw):
         return {k: kw[k] for k in ("q_start", "kv_len", "window") if k in kw}
 
+    def cuda(fn):
+        return lambda q, k, v, kw: fn(q, k, v, causal=True,
+                                      **{"window": None, **args(kw)})
+
     return {
-        "kernel": lambda q, k, v, kw: FK.flash_attention_cuda(
-            q, k, v, causal=True, **{"window": None, **args(kw)}),
+        # the kernel the route rule picks, and PR 12's kernel beside it
+        "kernel": cuda(FK.flash_attention_cuda),
+        "simple": cuda(FK.flash_simple_cuda),
         "plain": lambda q, k, v, kw: flash_attention(q, k, v, impl="torch",
                                                      **args(kw)),
         "sdpa": sdpa,
@@ -1218,37 +1364,51 @@ def window_mask(Sq, q_start, kv_len, window, dev):
 
 
 def time_flash(name, shapes, mix, card, dev):
-    """The flash kernel, its plain version and SDPA at ``shapes`` (name ->
-    (q, k, v, kw)) and over the launch ``mix``; returns the mix's (kernel,
-    plain, sdpa) device ms per launch, bound ms and what bounds it."""
+    """The routed flash kernel, the simple kernel, the plain version and
+    SDPA at ``shapes`` (label -> (q, k, v, kw)) and over the launch ``mix``;
+    returns {label or "mix": times (ms), bound and route}."""
+    from repro_torch.kernels.flash_attention import kernel as FK
     impls = flash_impls()
+    out = {}
     for label, args in shapes.items():
         t = {i: time_replay([args], fn) for i, fn in impls.items()}
         b_ms, o_ms = fa_bound(*args)
         e = float((impls["kernel"](*args).float()
                    - impls["sdpa"](*args).float()).abs().max())
-        q, k = args[0], args[1]
+        q, k, v = args[0], args[1], args[2]
+        route = FK.pick_route(q.shape[1], q.shape[2] // k.shape[2], q.dtype,
+                              q.shape[3], v.shape[3])
         kw = {x: y for x, y in args[3].items() if x != "mask"}
+        out[label] = dict(
+            route=route, ms=t["kernel"][0], simple_ms=t["simple"][0],
+            plain_ms=t["plain"][0], library_ms=t["sdpa"][0],
+            bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations")
         say(f"timing: flash_attention {name} {label} (B 1, Sq {q.shape[1]}, "
             f"Skv {k.shape[1]}, H {q.shape[2]}, KV {k.shape[2]}, D "
             f"{q.shape[3]}, bf16, {kw}): device us per launch: kernel "
-            f"{t['kernel'][0] * 1e3:.2f}, bound {max(b_ms, o_ms) * 1e3:.3f} "
-            f"({'bytes' if b_ms >= o_ms else 'operations'}), plain "
-            f"{t['plain'][0] * 1e3:.2f}, sdpa {t['sdpa'][0] * 1e3:.2f}; "
-            f"host-clock us per call: kernel {t['kernel'][1] * 1e3:.2f}, "
-            f"plain {t['plain'][1] * 1e3:.2f}, sdpa "
-            f"{t['sdpa'][1] * 1e3:.2f}; kernel vs sdpa max abs err {e:.3e} "
-            f"[{card}]")
+            f"({route}) {t['kernel'][0] * 1e3:.2f}, bound "
+            f"{max(b_ms, o_ms) * 1e3:.3f} "
+            f"({'bytes' if b_ms >= o_ms else 'operations'}), simple kernel "
+            f"{t['simple'][0] * 1e3:.2f}, plain {t['plain'][0] * 1e3:.2f}, "
+            f"sdpa {t['sdpa'][0] * 1e3:.2f}; host-clock us per call: kernel "
+            f"{t['kernel'][1] * 1e3:.2f}, simple {t['simple'][1] * 1e3:.2f}, "
+            f"plain {t['plain'][1] * 1e3:.2f}, sdpa {t['sdpa'][1] * 1e3:.2f}; "
+            f"kernel vs sdpa max abs err {e:.3e} [{card}]")
     t = {i: time_replay(mix, fn, reps=3)[0] for i, fn in impls.items()}
     bounds = [fa_bound(*a) for a in mix]
     bound_ms = sum(max(b) for b in bounds) / len(mix)
     by = "bytes" if sum(b for b, _ in bounds) >= sum(o for _, o in bounds) \
         else "operations"
+    out["mix"] = dict(route="decode + prefill", ms=t["kernel"],
+                      simple_ms=t["simple"], plain_ms=t["plain"],
+                      library_ms=t["sdpa"], bound_ms=bound_ms, bound_by=by)
     say(f"timing: flash_attention {name} over the serving run's launch mix "
-        f"({len(mix)} shapes): device us per launch: kernel "
-        f"{t['kernel'] * 1e3:.2f}, bound {bound_ms * 1e3:.3f} ({by}), plain "
-        f"{t['plain'] * 1e3:.2f}, sdpa {t['sdpa'] * 1e3:.2f} [{card}]")
-    return t, bound_ms, by
+        f"({len(mix)} shapes): device us per launch: kernel (routed) "
+        f"{t['kernel'] * 1e3:.2f}, bound {bound_ms * 1e3:.3f} ({by}), simple "
+        f"kernel {t['simple'] * 1e3:.2f}, plain {t['plain'] * 1e3:.2f}, sdpa "
+        f"{t['sdpa'] * 1e3:.2f} [{card}]")
+    return out
 
 
 def flash_shapes(cfg, prompt, smax, dev, window=None):
@@ -1276,21 +1436,42 @@ def flash_shapes(cfg, prompt, smax, dev, window=None):
     return shapes, mix
 
 
+FLASH_SOURCES = {"decode": "src/repro_torch/csrc/flash_decode.cu",
+                 "prefill": "src/repro_torch/csrc/flash_prefill_sm90.cu",
+                 "simple": "src/repro_torch/csrc/flash_attention.cu"}
+FLASH_LAUNCHES = {"decode": "flash_decode", "prefill": "flash_prefill",
+                  "simple": "flash_attention"}
+
+
 def flash_row(ctx, err, card, dev):
-    """llama3.2-1b's attention: the flash row of the kernels JSON."""
+    """llama3.2-1b's attention: the flash row of the kernels JSON.  Its
+    times are the serving run's launch mix through the routed kernels;
+    ``routes`` gives each kernel's times at its served shape, its source
+    and its launches over the serving run; ``models`` gives each served
+    attention model's decode, prefill and mix times and launches by
+    route (``simple_ms``: the simple kernel at the same shape)."""
     cfg = ctx["model"].cfg
     shapes, mix = flash_shapes(cfg, len(ctx["reqs"][0].prompt), ctx["smax"],
                                dev)
     # each shape of the mix stands for N_REQ * n_layers launches
-    t, bound_ms, by = time_flash(cfg.name, shapes, mix, card, dev)
+    res = time_flash(cfg.name, shapes, mix, card, dev)
+    launches = {r: ctx["launches"][k] for r, k in FLASH_LAUNCHES.items()}
+    routes = {}
+    for label in ("decode", "prefill"):
+        r = res[label]["route"]
+        routes[r] = dict(res[label], source=FLASH_SOURCES[r],
+                         launches=launches[r])
+    mix_t = res["mix"]
     return dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
+        source=FLASH_SOURCES["decode"],
         replaces=REPLACES["flash_attention"],
-        launches=ctx["launches"]["flash_attention"],
-        max_abs_err=err["flash_attention"], ms=t["kernel"],
-        plain_ms=t["plain"], bound_ms=bound_ms, bound_by=by,
-        library_ms=t["sdpa"])
+        launches=sum(launches.values()),
+        max_abs_err=err["flash_attention"], ms=mix_t["ms"],
+        plain_ms=mix_t["plain_ms"], bound_ms=mix_t["bound_ms"],
+        bound_by=mix_t["bound_by"], library_ms=mix_t["library_ms"],
+        simple_ms=mix_t["simple_ms"], routes=routes,
+        models={cfg.name: dict(res, launches=launches)})
 
 
 def recurrence_row(name, fn, plain, bound, shapes, launches, err, card):
@@ -1380,18 +1561,20 @@ def rglru_row(ctx, err, card, dev):
 
 def mqa_flash_timing(ctx, card, dev):
     """recurrentgemma-2b's attention (H 10, KV 1, D 256, window 2048): the
-    kernel, its plain version and SDPA with the window as a mask."""
+    routed kernel, the simple kernel, its plain version and SDPA with the
+    window as a mask."""
     cfg = ctx["model"].cfg
     shapes, mix = flash_shapes(cfg, len(ctx["reqs"][0].prompt), ctx["smax"],
                                dev, window=cfg.local_window)
-    time_flash(cfg.name, shapes, mix, card, dev)
+    return time_flash(cfg.name, shapes, mix, card, dev)
 
 
 def main() -> int:
     t_start = time.perf_counter()
     csrc = SRC / "repro_torch" / "csrc"
     if not all((csrc / f).is_file() for f in (
-            "arena.cu", "flash_attention.cu", "wkv6.cu", "rglru.cu")):
+            "arena.cu", "flash_attention.cu", "flash_decode.cu",
+            "flash_prefill_sm90.cu", "wkv6.cu", "rglru.cu")):
         say("FAIL: src/repro_torch not found beside chip_smoke.py; run it "
             "from the root of a checkout")
         return 2
@@ -1406,29 +1589,37 @@ def main() -> int:
     card = card_line()
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.arena import kernel as K
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.rwkv6 import kernel as WK
 
-    def timed_build(mod):
+    def timed_build(fn):
         t0 = time.perf_counter()
-        return mod.build(), time.perf_counter() - t0
+        return fn(), time.perf_counter() - t0
 
-    mods = (K, FK, WK, RK)
-    with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, together
-        builds = [ex.submit(timed_build, mod) for mod in mods]
+    # one nvcc per source, all started together
+    jobs = [K.build, WK.build, RK.build] + [
+        (lambda n=n: FK.build(n)) for n in FK.SOURCES]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        builds = [ex.submit(timed_build, fn) for fn in jobs]
         for fut in builds:
             lib, sec = fut.result()
             say(f"build: {lib.relative_to(ROOT)} in {sec:.1f} s")
-    for mod in mods:
+            if lib.stem in ("libflash_decode", "libflash_prefill_sm90"):
+                for ln in _build.ptxas_report(lib):
+                    say(f"build: ptxas {lib.stem[3:]}: {ln}")
+    for mod in (K, WK, RK):
         mod._library()
+    for n in FK.SOURCES:
+        FK._library(n)
     say(f"card: {card}")
 
     rng = np.random.default_rng(SEED)
     err = {k: 0.0 for k in REPLACES}
     phase_kernels(dev, rng, err)
-    phase_flash(dev, err)
+    flash_err = phase_flash(dev, err)
     phase_wkv6(dev, err)
     phase_rglru(dev, err)
     plans, inputs, launches, _ = phase_main(rng)
@@ -1441,12 +1632,17 @@ def main() -> int:
             rows += phase_timing(plans, inputs, launches, err, card)
         phase_serve_timing(ctx, card, dev)
         if arch == "llama3.2-1b":
-            rows.append(flash_row(ctx, err, card, dev))
+            flash = flash_row(ctx, err, card, dev)
+            flash["max_abs_err_by_route"] = flash_err
+            rows.append(flash)
         elif arch == "rwkv6-7b":
             rows.append(wkv6_row(ctx, err, card, dev))
         else:
             rows.append(rglru_row(ctx, err, card, dev))
-            mqa_flash_timing(ctx, card, dev)
+            flash["models"][arch] = dict(
+                mqa_flash_timing(ctx, card, dev),
+                launches={r: ctx["launches"][k]
+                          for r, k in FLASH_LAUNCHES.items()})
         del ctx
         torch.cuda.empty_cache()
         say(f"elapsed: {time.perf_counter() - t_start:.1f} s")

@@ -38,16 +38,19 @@
 //     0.65 us at the memory's rate.
 //   * prefill (Sq = Skv = P, causal): operations, 2*2*H*P*P*D / 2 over the
 //     tensor cores' bf16 rate; 4.3 GFLOP per layer at P = 1024, 4.3 us.
-// What the simple design leaves on the table:
-//   * decode runs B * KV blocks, 8 for llama3.2-1b at batch 1, on 132 SMs,
-//     and each walks all of its tiles in turn: latency-bound, far from the
-//     byte bound.  A split-K decode (tiles spread over blocks, a second
-//     pass to merge m/l/acc) is the fix.
-//     Multi-query attention is the worst case: recurrentgemma-2b (H 10,
-//     KV 1, D 256) decodes in a single block, B * KV = 1;
-//   * prefill uses CUDA-core f32 FMAs, not the tensor cores (`wgmma`), and
-//     stages tiles through registers (no TMA / cp.async pipeline).
-// Both are later work; this kernel is the simple one that is right.
+// What the simple design leaves on the table, and where it went:
+//   * decode ran B * KV blocks, 8 for llama3.2-1b at batch 1 and one for
+//     recurrentgemma-2b (MQA), each walking all of its tiles in turn:
+//     latency-bound, far from the byte bound.  Every call with
+//     Sq * G <= 16 now goes to the split-K decode, flash_decode.cu;
+//   * prefill uses CUDA-core f32 FMAs, not the tensor cores, and stages
+//     tiles through registers.  bf16 calls with Sq * G > 16 at (64, 64),
+//     (128, 128) and (256, 256) now go to the `wgmma` prefill,
+//     flash_prefill_sm90.cu.
+// This kernel still serves the rest, by the fixed rule of
+// kernels/flash_attention/kernel.py (`pick_route`): f32 calls with
+// Sq * G > 16, and the (16, 16) and (192, 128) pairs with Sq * G > 16.
+// Its numbers stay in PERF.md beside the new kernels'.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

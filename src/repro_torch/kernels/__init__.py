@@ -2,8 +2,10 @@
 
   arena            -- the four arena slice ops of the executor
                       (csrc/arena.cu)
-  flash_attention  -- GQA forward attention with an online softmax
-                      (csrc/flash_attention.cu)
+  flash_attention  -- GQA forward attention with an online softmax: the
+                      split-K decode (csrc/flash_decode.cu), the wgmma
+                      prefill (csrc/flash_prefill_sm90.cu) and the simple
+                      kernel (csrc/flash_attention.cu), by a fixed route
   rwkv6            -- the RWKV-6 WKV recurrence (csrc/wkv6.cu)
   rglru            -- Griffin's RG-LRU recurrence (csrc/rglru.cu)
 

@@ -5,10 +5,12 @@ interface, one library per source file.
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``build/repro_torch/<hash of source and flags>/lib<name>.so`` at the root
 of the checkout and returns its path; a library of the same source and
-flags is reused, across processes too.  The kernel modules load the
-library with ``ctypes``.  Nothing is built when a module is imported, and
-a missing ``nvcc`` or a failed build raises :class:`KernelBuildError`:
-there is no fallback.  Builds of different sources may run at the same
+flags is reused, across processes too.  The compiler's report
+(``-Xptxas -v``: registers, shared memory and spills of each kernel) is
+kept beside it in ``lib<name>.log``; :func:`ptxas_report` reads it.  The
+kernel modules load the library with ``ctypes``.  Nothing is built when a
+module is imported, and a missing ``nvcc`` or a failed build raises
+:class:`KernelBuildError`: there is no fallback.  Builds of different sources may run at the same
 time (``chip_smoke.py`` starts them together); each publishes its library
 with an atomic rename.
 """
@@ -23,7 +25,7 @@ from pathlib import Path
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class KernelBuildError(RuntimeError):
@@ -69,5 +71,17 @@ def build(source: Path, name: str) -> Path:
         raise KernelBuildError(
             f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
             f"{res.stdout}{res.stderr}")
+    out.with_suffix(".log").write_text(res.stdout + res.stderr)
     os.replace(tmp, out)     # atomic publish, safe across processes
     return out
+
+
+def ptxas_report(library: Path) -> list[str]:
+    """The lines of ``library``'s build log that give each kernel's
+    registers, shared memory and spills (empty when no log was kept)."""
+    log = Path(library).with_suffix(".log")
+    if not log.exists():
+        return []
+    keep = ("Compiling entry", "Used", "spill")
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if any(k in ln for k in keep)]

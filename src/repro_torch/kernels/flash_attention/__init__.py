@@ -1,10 +1,13 @@
 """GQA flash attention: the CUDA kernel and its plain PyTorch versions.
 
 ops.py    -- ``flash_attention`` dispatch (impl in {auto, cuda, torch,
-             ref}; no environment override) and the chunked online-softmax
-             plain version (``impl="torch"``)
-kernel.py -- the CUDA kernel (csrc/flash_attention.cu): build, ctypes
-             binding, checked launches, launch count
+             ref}; no environment override), the chunked online-softmax
+             plain version (``impl="torch"``) and the split-K decode's
+             plain versions (partials per split, and their merge)
+kernel.py -- the three CUDA kernels (csrc/flash_decode.cu,
+             csrc/flash_prefill_sm90.cu, csrc/flash_attention.cu): build,
+             ctypes binding, the route rule, checked launches, launch
+             counts
 ref.py    -- the O(S²) oracle ``attention_ref``
 
 Used by ``repro_torch.models.layers.attn_apply`` for every prefill and
@@ -12,7 +15,13 @@ decode attention of the serving path.
 """
 
 from repro_torch.kernels.flash_attention.kernel import LAUNCHES, reset_launches
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_decode_combine_torch,
+    flash_decode_partials_torch,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["LAUNCHES", "attention_ref", "flash_attention", "reset_launches"]
+__all__ = ["LAUNCHES", "attention_ref", "flash_attention",
+           "flash_decode_combine_torch", "flash_decode_partials_torch",
+           "reset_launches"]

@@ -1,22 +1,37 @@
-"""CUDA flash-attention kernel for Hopper: build, bind, launch.
+"""CUDA flash-attention kernels for Hopper: build, bind, route, launch.
 
-The kernel lives in ``repro_torch/csrc/flash_attention.cu`` (plain C
-interface).  The first call compiles it into ``build/repro_torch/<source
-hash>/libflash_attention.so`` (:mod:`repro_torch.kernels._build`) and loads
-it with ``ctypes``; nothing is built when this module is imported.
+Three kernels, each its own source under ``repro_torch/csrc/`` (plain C
+interface), compiled at first use into ``build/repro_torch/<source
+hash>/lib<name>.so`` (:mod:`repro_torch.kernels._build`) and loaded with
+``ctypes``; nothing is built when this module is imported:
 
-:func:`flash_attention_cuda` takes CUDA tensors only and checks device,
-dtype (bf16 or f32, the same for q, k and v), contiguity and 16-byte
-alignment (the kernel moves tiles in 16-byte vectors), shapes and head
-dims (the (D, Dv) pairs of :data:`HEAD_DIMS`); it allocates the output
-with ``torch.empty``, launches on PyTorch's current stream and raises if
-the launch was refused.
-``LAUNCHES["flash_attention"]`` counts launches; :func:`reset_launches`
-sets it to 0.
+  * ``flash_decode.cu``       -- split-K decode, one launch, for every call
+                                 whose block of rows is small
+                                 (``Sq * G <= 16``), bf16 or f32, every
+                                 (D, Dv) of :data:`HEAD_DIMS`;
+  * ``flash_prefill_sm90.cu`` -- the tensor-core (``wgmma``) prefill, for
+                                 bf16 calls with ``Sq * G > 16`` and (D, Dv)
+                                 in :data:`PREFILL_HEAD_DIMS`;
+  * ``flash_attention.cu``    -- the simple kernel, for the rest: f32 with
+                                 ``Sq * G > 16``, and the (16, 16) and
+                                 (192, 128) pairs with ``Sq * G > 16``.
 
-It replaces ``flash_attention_pallas`` / ``_fa_kernel`` of
-``repro/kernels/flash_attention/kernel.py``; the source note says what
-bounds it and what the simple design leaves on the table.
+:func:`pick_route` is that fixed rule, by dtype and shape; it is not a
+fallback.  :func:`flash_attention_cuda` routes a call; each kernel also
+has its own wrapper (:func:`flash_decode_cuda`, :func:`flash_prefill_cuda`,
+:func:`flash_simple_cuda`), which the checks call to hold every kernel
+against the plain version.  The wrappers take CUDA tensors only, check
+device, dtype (bf16 or f32, the same for q, k and v), contiguity, 16-byte
+alignment (the kernels move tiles in 16-byte vectors), shapes and head
+dims, allocate the output (and the decode kernel's f32 scratch) with
+``torch.empty``, launch on PyTorch's current stream and raise if the
+launch was refused.  ``LAUNCHES`` counts each kernel's launches
+(``flash_attention`` the simple kernel's); :func:`reset_launches` sets
+them to 0.
+
+They replace ``flash_attention_pallas`` / ``_fa_kernel`` of
+``repro/kernels/flash_attention/kernel.py``; each source note says what
+bounds its kernel and what its design does about it.
 """
 
 from __future__ import annotations
@@ -29,16 +44,34 @@ import torch
 
 from repro_torch.kernels import _build
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+#: library name -> source; one ``nvcc`` each
+SOURCES = {name: CSRC / f"{name}.cu" for name in
+           ("flash_attention", "flash_decode", "flash_prefill_sm90")}
 
 #: (D of q/k, Dv of v) pairs the kernel is built and checked for
 HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128), (256, 256))
 
-LAUNCHES = {"flash_attention": 0}
+#: (D, Dv) pairs the tensor-core prefill takes (bf16 only)
+PREFILL_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
+
+#: the split-K decode takes calls with at most this many rows (Sq * G)
+DECODE_MAX_ROWS = 16
+#: keys per tile of the decode kernel, and the blocks its split rule aims at
+#: (one per SM of an H100 SXM)
+DECODE_TILE, DECODE_TARGET_BLOCKS = 32, 132
+#: the most splits a decode call may ask for (the merge keeps a weight per
+#: split and row in shared memory)
+DECODE_MAX_SPLITS = 1024
+#: the most partial bytes the split rule lets one merging block read
+DECODE_MERGE_BYTES = 384 * 1024
+
+LAUNCHES = {"flash_attention": 0, "flash_decode": 0, "flash_prefill": 0}
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
+_counters: dict = {}            # device index -> int32 zeros, one per (b, KV)
 
 
 def reset_launches() -> None:
@@ -46,29 +79,97 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def build() -> Path:
-    """Compile ``csrc/flash_attention.cu`` unless a library of this source
-    exists; returns the library's path."""
-    return _build.build(SOURCE, "flash_attention")
+def build(name: str = "flash_attention") -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of this source exists;
+    returns the library's path."""
+    return _build.build(SOURCES[name], name)
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
+_ARGS = {
+    "flash_attention": ["q", "k", "v", "o", "B", "Sq", "Skv", "H", "KV", "D",
+                        "Dv", "q_start", "kv_len", "window", "causal",
+                        "scale", "stream"],
+    "flash_prefill_sm90": ["q", "k", "v", "o", "B", "Sq", "Skv", "H", "KV",
+                           "D", "Dv", "q_start", "kv_len", "window",
+                           "causal", "scale", "stream"],
+    "flash_decode": ["is_bf16", "q", "k", "v", "o", "part", "counter", "B",
+                     "Sq", "Skv", "H", "KV", "D", "Dv", "q_start", "kv_len",
+                     "window", "causal", "scale", "splits", "t0", "tpc",
+                     "stream"],
+}
+_CTYPE = {"q": ctypes.c_void_p, "k": ctypes.c_void_p, "v": ctypes.c_void_p,
+          "o": ctypes.c_void_p, "part": ctypes.c_void_p,
+          "counter": ctypes.c_void_p, "stream": ctypes.c_void_p,
+          "is_bf16": ctypes.c_int, "causal": ctypes.c_int,
+          "scale": ctypes.c_float}
+
+
+def _library(name: str = "flash_attention") -> ctypes.CDLL:
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ll = ctypes.c_void_p, ctypes.c_longlong
-            for sfx in _SUFFIX.values():
-                fn = getattr(lib, f"repro_flash_attention_{sfx}")
-                fn.argtypes = [
-                    vp, vp, vp, vp,                 # q k v o
-                    ll, ll, ll, ll, ll, ll, ll,     # B Sq Skv H KV D Dv
-                    ll, ll, ll,                     # q_start kv_len window
-                    ctypes.c_int, ctypes.c_float,   # causal scale
-                    vp]                             # stream
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)))
+            entries = [f"repro_flash_attention_{sfx}"
+                       for sfx in _SUFFIX.values()] \
+                if name == "flash_attention" else [f"repro_{name}"]
+            for entry in entries:
+                fn = getattr(lib, entry)
+                fn.argtypes = [_CTYPE.get(a, ctypes.c_longlong)
+                               for a in _ARGS[name]]
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]
+
+
+def pick_route(Sq: int, G: int, dtype: torch.dtype, D: int, Dv: int) -> str:
+    """Which kernel takes a call: ``"decode"`` when its block of rows is
+    small (``Sq * G <= 16``), ``"prefill"`` for bf16 at the
+    :data:`PREFILL_HEAD_DIMS`, else ``"simple"``."""
+    if Sq * G <= DECODE_MAX_ROWS:
+        return "decode"
+    if dtype == torch.bfloat16 and (D, Dv) in PREFILL_HEAD_DIMS:
+        return "prefill"
+    return "simple"
+
+
+def live_tiles(Sq: int, *, causal: bool, window: int | None, q_start: int,
+               kv_len: int, tile: int = DECODE_TILE) -> tuple[int, int]:
+    """(first tile, number of tiles) of the keys some query of the block
+    attends to: ``_fa_kernel``'s block test (keys beyond ``kv_len``, after
+    the causal diagonal of the last query, before the window of the first
+    are dead)."""
+    k_end = min(kv_len, q_start + Sq) if causal else kv_len
+    k_begin = max(0, q_start - window + 1) if window is not None else 0
+    if k_end <= k_begin:
+        return 0, 0
+    t0 = k_begin // tile
+    return t0, -(-k_end // tile) - t0
+
+
+def decode_splits(B: int, KV: int, Sq: int, H: int, Dv: int, *,
+                  causal: bool, window: int | None, q_start: int,
+                  kv_len: int,
+                  splits: int | None = None) -> tuple[int, int, int]:
+    """(splits S, first live tile t0, tiles per split tpc) of the split-K
+    decode.  ``splits=None`` is the rule: about
+    :data:`DECODE_TARGET_BLOCKS` blocks over the ``B * KV`` (batch, KV
+    head) pairs whenever the live tiles allow, but no more than keep the
+    partials one merging block reads (``S * Sq * G * (Dv + 2)`` f32) within
+    :data:`DECODE_MERGE_BYTES`; tpc = ceil(n / S) and S = ceil(n / tpc).
+    An explicit S is kept, and its splits past the live range are
+    empty."""
+    t0, n = live_tiles(Sq, causal=causal, window=window, q_start=q_start,
+                       kv_len=kv_len)
+    if splits is None:
+        want = -(-DECODE_TARGET_BLOCKS // (B * KV))
+        # one block merges the splits: bound the partials it reads
+        per_split = 4 * Sq * (H // KV) * (Dv + 2)
+        want = min(want, max(1, DECODE_MERGE_BYTES // per_split))
+        S = max(1, min(n, want))
+        tpc = -(-n // S) if n else 1
+        return (-(-n // tpc) if n else 1), t0, tpc
+    if splits < 1:
+        raise ValueError(f"splits {splits} must be >= 1")
+    return splits, t0, (-(-n // splits) if n else 1)
 
 
 def _check(q, k, v) -> None:
@@ -104,11 +205,18 @@ def _check(q, k, v) -> None:
                          f"{HEAD_DIMS}")
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
-                         q_start: int, kv_len: int,
-                         softmax_scale: float | None = None):
-    """Forward GQA attention on the card: q ``(B,Sq,H,D)``, k ``(B,Skv,KV,D)``,
-    v ``(B,Skv,KV,Dv)`` -> ``(B,Sq,H,Dv)`` in q's dtype (f32 accumulation)."""
+def _counter(device: torch.device, n: int) -> torch.Tensor:
+    """The decode kernel's per-(b, KV head) arrival counters on ``device``:
+    int32 zeros, allocated once (grown when a call needs more) and left at
+    0 by every launch.  Calls that share them run on one stream."""
+    c = _counters.get(device.index)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _counters[device.index] = c
+    return c
+
+
+def _args(q, k, v, *, window, q_start, kv_len, softmax_scale):
     _check(q, k, v)
     if q_start < 0 or kv_len < 0:
         raise ValueError(f"q_start {q_start} and kv_len {kv_len} must be >= 0")
@@ -116,15 +224,123 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
         raise ValueError(f"window {window} must be >= 0")
     B, Sq, H, D = q.shape
     _, Skv, KV, Dv = v.shape
+    scale = float(softmax_scale if softmax_scale is not None else D ** -0.5)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return B, Sq, Skv, H, KV, D, Dv, min(kv_len, Skv), scale, stream
+
+
+def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
+            splits):
+    """Launch the split-K decode; returns (out, partials (B*KV, S, Sq*G,
+    Dv + 2) f32)."""
+    B, Sq, Skv, H, KV, D, Dv, kv_len, scale, stream = _args(
+        q, k, v, window=window, q_start=q_start, kv_len=kv_len,
+        softmax_scale=softmax_scale)
+    G = H // KV
+    if Sq * G > DECODE_MAX_ROWS:
+        raise ValueError(f"the decode kernel takes Sq * G <= "
+                         f"{DECODE_MAX_ROWS} rows, got {Sq * G}")
+    S, t0, tpc = decode_splits(B, KV, Sq, H, Dv, causal=causal,
+                               window=window, q_start=q_start,
+                               kv_len=kv_len, splits=splits)
+    if S > DECODE_MAX_SPLITS:
+        raise ValueError(f"{S} splits exceed the decode kernel's "
+                         f"{DECODE_MAX_SPLITS}")
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    part = torch.empty((B * KV, S, Sq * G, Dv + 2), dtype=torch.float32,
+                       device=q.device)
+    if out.numel() == 0:
+        return out, part
+    counter = _counter(q.device, B * KV)
+    fn = _library("flash_decode").repro_flash_decode
+    _build.raise_on(fn(int(q.dtype == torch.bfloat16), q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                       part.data_ptr(), counter.data_ptr(), B, Sq, Skv, H,
+                       KV, D, Dv, q_start, kv_len,
+                       -1 if window is None else window, int(bool(causal)),
+                       scale, S, t0, tpc, stream), "flash_decode")
+    LAUNCHES["flash_decode"] += 1
+    return out, part
+
+
+def flash_decode_cuda(q, k, v, *, causal: bool, window: int | None,
+                      q_start: int, kv_len: int,
+                      softmax_scale: float | None = None,
+                      splits: int | None = None):
+    """The split-K decode kernel (``Sq * G <= 16``; ``splits`` fixes the
+    number of splits, default its rule) with its partials: returns ``(out,
+    m, l, acc)``, ``m``/``l`` ``(B, KV, S, Sq, G)`` and ``acc`` ``(B, KV, S, Sq,
+    G, Dv)`` in f32, each split's as :func:`~repro_torch.kernels.
+    flash_attention.ops.flash_decode_partials_torch` computes them."""
+    out, part = _decode(q, k, v, causal=causal, window=window,
+                        q_start=q_start, kv_len=kv_len,
+                        softmax_scale=softmax_scale, splits=splits)
+    B, Sq, H, _ = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    part = part.view(B, KV, part.shape[1], Sq, H // KV, Dv + 2)
+    return out, part[..., Dv], part[..., Dv + 1], part[..., :Dv]
+
+
+def _launch(name, lib, entry, q, k, v, *, causal, window, q_start, kv_len,
+            softmax_scale):
+    """Check, allocate the output, launch ``entry`` of library ``lib``
+    (``{sfx}`` in ``entry`` becomes the dtype's suffix), count."""
+    B, Sq, Skv, H, KV, D, Dv, kv_len, scale, stream = _args(
+        q, k, v, window=window, q_start=q_start, kv_len=kv_len,
+        softmax_scale=softmax_scale)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    scale = float(softmax_scale if softmax_scale is not None else D ** -0.5)
-    fn = getattr(_library(), f"repro_flash_attention_{_SUFFIX[q.dtype]}")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = getattr(_library(lib), entry.format(sfx=_SUFFIX[q.dtype]))
     _build.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), B, Sq, Skv, H, KV, D, Dv, q_start,
-                       min(kv_len, Skv), -1 if window is None else window,
-                       int(bool(causal)), scale, stream), "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+                       kv_len, -1 if window is None else window,
+                       int(bool(causal)), scale, stream), name)
+    LAUNCHES[name] += 1
     return out
+
+
+def flash_prefill_cuda(q, k, v, *, causal: bool, window: int | None,
+                       q_start: int, kv_len: int,
+                       softmax_scale: float | None = None):
+    """The ``wgmma`` prefill kernel: bf16 at (D, Dv) in
+    :data:`PREFILL_HEAD_DIMS`, any number of rows; raises otherwise."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if q.dtype != torch.bfloat16 or (D, Dv) not in PREFILL_HEAD_DIMS:
+        raise ValueError(f"the prefill kernel takes bf16 at (D, Dv) in "
+                         f"{PREFILL_HEAD_DIMS}, got {q.dtype} at {(D, Dv)}")
+    return _launch("flash_prefill", "flash_prefill_sm90",
+                   "repro_flash_prefill_sm90", q, k, v, causal=causal,
+                   window=window, q_start=q_start, kv_len=kv_len,
+                   softmax_scale=softmax_scale)
+
+
+def flash_simple_cuda(q, k, v, *, causal: bool, window: int | None,
+                      q_start: int, kv_len: int,
+                      softmax_scale: float | None = None):
+    """The simple kernel (``csrc/flash_attention.cu``): every dtype and
+    head-dim pair the wrapper takes."""
+    return _launch("flash_attention", "flash_attention",
+                   "repro_flash_attention_{sfx}", q, k, v, causal=causal,
+                   window=window, q_start=q_start, kv_len=kv_len,
+                   softmax_scale=softmax_scale)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
+                         q_start: int, kv_len: int,
+                         softmax_scale: float | None = None):
+    """Forward GQA attention on the card: q ``(B,Sq,H,D)``, k ``(B,Skv,KV,D)``,
+    v ``(B,Skv,KV,Dv)`` -> ``(B,Sq,H,Dv)`` in q's dtype (f32 accumulation),
+    through the kernel :func:`pick_route` names for the call."""
+    _, Sq, H, D = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    if KV == 0 or H % KV:
+        _check(q, k, v)                      # raises with the reason
+    kw = dict(causal=causal, window=window, q_start=q_start, kv_len=kv_len,
+              softmax_scale=softmax_scale)
+    route = pick_route(Sq, H // KV, q.dtype, D, Dv)
+    if route == "decode":
+        return _decode(q, k, v, splits=None, **kw)[0]
+    if route == "prefill":
+        return flash_prefill_cuda(q, k, v, **kw)
+    return flash_simple_cuda(q, k, v, **kw)

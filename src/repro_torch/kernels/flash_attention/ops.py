@@ -4,13 +4,31 @@
 
   * ``"auto"``  -- the CUDA kernel for tensors on the card, ``"torch"``
                    for tensors on the CPU;
-  * ``"cuda"``  -- the CUDA kernel (``csrc/flash_attention.cu``); raises
-                   for a tensor on the CPU;
+  * ``"cuda"``  -- the CUDA kernels; raises for a tensor on the CPU.  A
+                   fixed rule by dtype and shape (``kernel.pick_route``)
+                   picks one of three: the split-K decode
+                   (``csrc/flash_decode.cu``) for every call with
+                   ``Sq * G <= 16`` (bf16 or f32, any (D, Dv)); the
+                   ``wgmma`` prefill (``csrc/flash_prefill_sm90.cu``) for
+                   bf16 calls with ``Sq * G > 16`` at (D, Dv) in
+                   {(64, 64), (128, 128), (256, 256)}; the simple kernel
+                   (``csrc/flash_attention.cu``) for the rest, f32 with
+                   ``Sq * G > 16`` and the (16, 16) and (192, 128) pairs
+                   with ``Sq * G > 16``.  The rule is a route, not a
+                   fallback: each call has one kernel;
   * ``"torch"`` -- chunked online-softmax loop over KV chunks in plain
                    PyTorch: O(S·C) memory, a line-for-line counterpart of
                    ``repro``'s ``_flash_xla`` (the plain version the kernel
                    is held against; the CPU path);
   * ``"ref"``   -- the O(S²) oracle (tests only).
+
+The split-K decode's plain versions are :func:`flash_decode_partials_torch`
+(each split's partial m, l and acc, split as the kernel splits) and
+:func:`flash_decode_combine_torch` (their merge); together they compute
+what ``_flash_torch`` computes, except for a row with no live key among
+the keys visited: they give it 0, as ``attention_ref`` and the CUDA
+kernels do, where ``_flash_torch`` (like ``repro``'s ``_flash_xla``,
+which masks with a finite -1e30) gives the mean of the masked values.
 
 No environment variable changes the choice: a CUDA tensor under
 ``"auto"`` launches the kernel or raises; it never falls back.
@@ -29,6 +47,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 IMPLS = ("auto", "cuda", "torch", "ref")
 
 _NEG_INF = -1e30
+_INF = float("inf")
 
 
 def _pick_impl(impl: str, q) -> str:
@@ -147,3 +166,74 @@ def _flash_torch(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def flash_decode_partials_torch(q, k, v, *, splits=None, causal=True,
+                                window=None, q_start=0, kv_len=None,
+                                softmax_scale=None):
+    """Each split's partial softmax state of the split-K decode, in f32:
+    ``(m, l, acc)`` with ``m`` and ``l`` ``(B, KV, S, Sq, G)`` and ``acc``
+    ``(B, KV, S, Sq, G, Dv)``.
+
+    The live keys are cut as the kernel cuts them (``kernel.decode_splits``:
+    ``splits=None`` is its rule, else S splits): split s covers the tiles
+    ``[t0 + s * tpc, t0 + (s + 1) * tpc)`` of ``DECODE_TILE`` keys, clipped
+    to the live range.  ``m`` is the split's max of the scaled live scores
+    (``-inf`` where no key of the split is live for the row, an empty split
+    included), ``l = sum exp(s - m)`` and ``acc = sum exp(s - m) v`` (both
+    0 where ``m = -inf``)."""
+    B, Sq, H, D = q.shape
+    _, Skv, KV, _ = k.shape
+    Dv = v.shape[-1]
+    G = H // KV
+    kv_len = Skv if kv_len is None else min(int(kv_len), Skv)
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    S, t0, tpc = _kernel.decode_splits(B, KV, Sq, H, Dv, causal=causal,
+                                       window=window, q_start=q_start,
+                                       kv_len=kv_len, splits=splits)
+    n = _kernel.live_tiles(Sq, causal=causal, window=window, q_start=q_start,
+                           kv_len=kv_len)[1]
+    tile, dev = _kernel.DECODE_TILE, q.device
+    qh = (q.float() * scale).reshape(B, Sq, KV, G, D)
+    qpos = q_start + torch.arange(Sq, device=dev)
+    m = torch.full((B, KV, S, Sq, G), -_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, S, Sq, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, S, Sq, G, Dv), dtype=torch.float32,
+                      device=dev)
+    for s in range(S):
+        lo = (t0 + s * tpc) * tile
+        hi = min((t0 + min((s + 1) * tpc, n)) * tile, Skv)
+        if lo >= hi:
+            continue                                  # an empty split
+        sc = torch.einsum("bqkgd,bckd->bkqgc", qh, k[:, lo:hi].float())
+        kpos = lo + torch.arange(hi - lo, device=dev)
+        mask = (kpos[None, :] < kv_len).expand(Sq, -1)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        sc = torch.where(mask[None, None, :, None, :], sc, -_INF)
+        ms = sc.amax(-1)                              # (B, KV, Sq, G)
+        p = torch.where(torch.isinf(ms)[..., None], 0.0,
+                        torch.exp(sc - ms[..., None]))
+        m[:, :, s] = ms
+        l[:, :, s] = p.sum(-1)
+        acc[:, :, s] = torch.einsum("bkqgc,bckd->bkqgd", p,
+                                    v[:, lo:hi].float())
+    return m, l, acc
+
+
+def flash_decode_combine_torch(m, l, acc, *, dtype=torch.float32):
+    """Merge the splits' partials of :func:`flash_decode_partials_torch`:
+    ``M = max_s m_s``, ``out = sum_s e^(m_s - M) acc_s / max(sum_s
+    e^(m_s - M) l_s, 1e-30)``.  A split with ``m_s = -inf`` weighs exactly
+    0 (never ``exp(-inf - (-inf))``), and a row whose splits are all
+    ``-inf`` gives 0.  Returns ``(B, Sq, KV * G, Dv)`` in ``dtype``."""
+    B, KV, _, Sq, G, Dv = acc.shape
+    M = m.amax(2, keepdim=True)
+    dead = torch.isinf(m) & (m < 0)
+    w = torch.where(dead, 0.0, torch.exp(torch.where(dead, 0.0, m - M)))
+    num = (w[..., None] * acc).sum(2)                 # (B, KV, Sq, G, Dv)
+    den = torch.clamp((w * l).sum(2), min=1e-30)
+    out = num / den[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, KV * G, Dv).to(dtype)
