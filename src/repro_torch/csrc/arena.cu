@@ -17,16 +17,47 @@
 //
 // What bounds them on an H100 SXM: each op moves a few bytes per element
 // and does at most a few dozen flops on it, so the roofline bound is bytes
-// over 3.35 TB/s -- 0.36 us for the largest tensor of the DARTS cell
-// (150,528 f32 elements, read once and written once).  At the arena sizes
-// of the paper's edge networks (0.7-3 MB) that is below the ~2-4 us a
-// launch costs, so launch latency and the host loop that issues the
-// launches are the real bound.  The design does the one thing that helps
-// at the kernel: it touches only the n elements of the slice (the Pallas
+// over 3.35 TB/s.  At the paper networks' f32 tensors (about 100 KB a
+// launch) that is ~0.06 us, far below the ~0.83 us that a launch of the
+// copy's grid costs on the card with no load or store at all
+// (tools/arena_copy_probe.py, variant empty), so the launch and one
+// L2 round trip for the load and one for the store bound them, and the
+// host loop that issues them bounds the program.  At the served
+// decode-state leaves (u8, 10 KB to 33.5 MB a leaf; 17.3 MB for each of
+// llama3.2-1b's K and V) write and read are DRAM streams: 10.33 us of
+// bound for one llama leaf.
+//
+// Write and read are one byte copy, dst[0:nbytes] = src[0:nbytes]
+// (arena + o*esz <- x, or out <- arena + o*esz), for f32 and u8 alike.
+// The wrapper splits it by copy_plan (kernels/arena/kernel.py) into a
+// head of at most 15 bytes up to the first 16-byte-aligned destination
+// address, a body of 16-byte stores, and a tail of at most 15 bytes; the
+// source's phase against the destination, (src - dst) mod 16, picks how
+// each 16-byte store is built (one kernel instance a phase class):
+//   phase 0      one aligned 16-byte load (every served leaf);
+//   other phase  the two aligned 16-byte loads that hold its 16 source
+//                bytes, joined by __funnelshift_r (a word select when the
+//                phase is a multiple of 4, as for every other f32 call).
+// Both loads of a shifted store lie in 16-byte blocks that hold source
+// bytes, so nothing outside the source's own 16-byte blocks is read.
+// Each thread issues kLoads 16-byte loads before its stores, through the
+// non-coherent path (the source is never written within a launch: the
+// wrapper refuses an x that shares the arena's storage, and out is
+// fresh).  The grid is one store a thread up to one resident wave
+// (kMaxBlocks), with a grid-stride loop beyond, so a small copy spreads
+// over as many SMs as it fills.  Stores are evict-first: a packed leaf is
+// read back only after a whole decode step has streamed the weights
+// through L2, an unpacked leaf is read once by its layer, and the
+// executor's arena is far smaller than L2, so nothing waits on a line
+// they give up first; at Griffin's small leaves they are faster.  The head
+// and tail bytes are moved by the first 32 threads of block 0, loaded
+// before the body and stored after it.  tools/arena_copy_probe.py times
+// the variants this design was chosen over (PERF.md §6).
+//
+// accum and chain_write touch only the n elements of the slice (the Pallas
 // kernels copy the whole arena through, which exists only for their
-// interpret mode), and chain_write applies a whole alias chain in registers
-// so a fused chain costs one launch.  Vector loads, TMA and CUDA-graph
-// capture of the whole program are later work.
+// interpret mode), and chain_write applies a whole alias chain in
+// registers so a fused chain costs one launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,6 +70,12 @@ constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132LL * 8;
 
 constexpr int kMaxChain = 16;  // MAX_CHAIN in kernels/arena/elemwise.py
+
+// the copy: threads a block (8 blocks an SM at 32 registers), 16-byte
+// loads in flight a thread, and the type of its store indices
+constexpr int kCopyThreads = 256;
+constexpr int kLoads = 2;
+using Index = long long;
 
 // must match ELEMWISE_OP_CODES in kernels/arena/elemwise.py
 enum ElemOp : int {
@@ -70,31 +107,113 @@ unsigned int grid_for(long long n) {
   return static_cast<unsigned int>(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-// Replaces arena_write_pallas / _write_kernel (src/repro/kernels/arena/
-// kernel.py).  Bound: 2*n*sizeof(T) bytes over 3.35 TB/s, under the launch
-// latency at these sizes.  One coalesced grid-stride copy of the slice.
-template <typename T>
-__global__ void write_kernel(T* arena, const T* __restrict__ x,
-                             long long offset, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    arena[offset + i] = x[i];
-  }
+// The split of one copy, computed by copy_plan in kernels/arena/kernel.py:
+// head bytes, then nvec 16-byte stores from the first 16-byte-aligned
+// destination address on, then tail bytes; phase = (src - dst) mod 16.
+struct CopyPlan {
+  long long head;
+  long long nvec;
+  long long tail;
+  int phase;
+};
+
+__device__ __forceinline__ uint4 load16(const uint4* p) { return __ldg(p); }
+
+__device__ __forceinline__ void store16(uint4* p, uint4 v) { __stcs(p, v); }
+
+// bytes [4W + bits/8, 4W + bits/8 + 16) of the 32 bytes a:b
+template <int W>
+__device__ __forceinline__ uint4 join(uint4 a, uint4 b, unsigned int bits) {
+  const unsigned int w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  return make_uint4(__funnelshift_r(w[W], w[W + 1], bits),
+                    __funnelshift_r(w[W + 1], w[W + 2], bits),
+                    __funnelshift_r(w[W + 2], w[W + 3], bits),
+                    __funnelshift_r(w[W + 3], w[W + 4], bits));
 }
 
-// Replaces arena_read_pallas / _read_kernel.  Bound as write.  The output
-// is a fresh buffer the wrapper allocates, never a view of the arena.
-template <typename T>
-__global__ void read_kernel(const T* arena, T* __restrict__ out,
-                            long long offset, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    out[i] = arena[offset + i];
+// Replaces arena_write_pallas / _write_kernel and arena_read_pallas /
+// _read_kernel (src/repro/kernels/arena/kernel.py): dst[0:nbytes] =
+// src[0:nbytes] split by p.  Bound: 2*nbytes over 3.35 TB/s.
+//
+// kMode 0 is phase 0: store i takes source vector i.  kMode 1 + W is any
+// other phase: s is the source body rounded down to 16 bytes, and store i
+// joins aligned source vectors i and i + 1 at word W and bit shift bits.
+// A thread issues kLoads 16-byte loads (kStores stores' worth) before
+// their stores, and each warp instruction covers 512 contiguous bytes.
+// The edge bytes are loaded before and stored after the body, so that no
+// load of the body waits on them.
+template <int kMode>
+__device__ __forceinline__ void copy_bytes(
+    unsigned char* dst, const unsigned char* __restrict__ src,
+    const CopyPlan& p) {
+  long long edge = -1;
+  unsigned char e = 0;
+  if (blockIdx.x == 0 && threadIdx.x < 32) {
+    const int t = threadIdx.x;
+    if (t < p.head) {
+      edge = t;
+    } else if (t >= 16 && t - 16 < p.tail) {
+      edge = p.head + 16 * p.nvec + (t - 16);
+    }
+    if (edge >= 0) e = src[edge];
   }
+  uint4* d = reinterpret_cast<uint4*>(dst + p.head);
+  const unsigned char* s = src + p.head;
+  // Thread t of the grid takes stores t, t + step, ... (step = the grid's
+  // threads), kStores of them a pass: a small copy is one store a thread,
+  // spread over as many SMs as it fills.
+  constexpr int kStores = kMode == 0 || kLoads == 1 ? kLoads : kLoads / 2;
+  const Index n = static_cast<Index>(p.nvec);
+  const Index step = static_cast<Index>(gridDim.x) * kCopyThreads;
+  for (Index i = static_cast<Index>(blockIdx.x) * kCopyThreads + threadIdx.x;
+       i < n; i += step * kStores) {
+    if constexpr (kMode == 0) {
+      const uint4* sv = reinterpret_cast<const uint4*>(s);
+      uint4 v[kStores];
+#pragma unroll
+      for (int k = 0; k < kStores; ++k) {
+        if (i + k * step < n) v[k] = load16(sv + i + k * step);
+      }
+#pragma unroll
+      for (int k = 0; k < kStores; ++k) {
+        if (i + k * step < n) store16(d + i + k * step, v[k]);
+      }
+    } else {
+      const uint4* sa = reinterpret_cast<const uint4*>(s - p.phase);
+      const unsigned int bits = 8u * (p.phase & 3);
+      uint4 a[kStores], b[kStores];
+#pragma unroll
+      for (int k = 0; k < kStores; ++k) {
+        if (i + k * step < n) {
+          a[k] = load16(sa + i + k * step);
+          b[k] = load16(sa + i + k * step + 1);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kStores; ++k) {
+        if (i + k * step < n) {
+          store16(d + i + k * step, join<kMode - 1>(a[k], b[k], bits));
+        }
+      }
+    }
+  }
+  if (edge >= 0) dst[edge] = e;
+}
+
+// Two names for the one copy, so that a trace tells write from read.
+template <int kMode>
+__global__ void __launch_bounds__(kCopyThreads, 2048 / kCopyThreads)
+    arena_write_kernel(unsigned char* arena_at,
+                       const unsigned char* __restrict__ x, CopyPlan p) {
+  copy_bytes<kMode>(arena_at, x, p);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kCopyThreads, 2048 / kCopyThreads)
+    arena_read_kernel(unsigned char* out,
+                      const unsigned char* __restrict__ arena_at,
+                      CopyPlan p) {
+  copy_bytes<kMode>(out, arena_at, p);
 }
 
 // Replaces arena_accum_pallas / _accum_kernel: the rewritten partial-conv
@@ -163,48 +282,96 @@ __global__ void chain_write_kernel(float* arena, const float* __restrict__ x,
   }
 }
 
-template <typename T>
-int launch_write(void* arena, const void* x, long long offset, long long n,
-                 void* stream) {
-  if (n <= 0) return 0;
-  write_kernel<T><<<grid_for(n), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(arena), static_cast<const T*>(x), offset, n);
+// The plan must split exactly nbytes, with the body's stores 16-byte
+// aligned and the phase of these two addresses: anything else would store
+// out of place or fault, so it is refused before the launch.
+bool plan_fits(const unsigned char* dst, const unsigned char* src,
+               long long nbytes, const CopyPlan& p) {
+  const unsigned long long d = reinterpret_cast<unsigned long long>(dst);
+  const unsigned long long s = reinterpret_cast<unsigned long long>(src);
+  return p.head >= 0 && p.head < 16 && p.tail >= 0 && p.tail < 16 &&
+         p.nvec >= 0 && p.head + 16 * p.nvec + p.tail == nbytes &&
+         (p.nvec == 0 || (d + p.head) % 16 == 0) &&
+         p.phase == static_cast<int>((s - d) & 15);
+}
+
+// One store a thread up to kMaxBlocks (the launch bounds keep 8 blocks
+// resident on each SM: one wave), then the grid-stride loop.
+template <int kMode, bool kRead>
+int launch_mode(unsigned char* d, const unsigned char* s, const CopyPlan& p,
+                cudaStream_t st) {
+  const long long want = (p.nvec + kCopyThreads - 1) / kCopyThreads;
+  const unsigned int blocks = static_cast<unsigned int>(
+      want < 1 ? 1 : (want < kMaxBlocks ? want : kMaxBlocks));
+  if (kRead) {
+    arena_read_kernel<kMode><<<blocks, kCopyThreads, 0, st>>>(d, s, p);
+  } else {
+    arena_write_kernel<kMode><<<blocks, kCopyThreads, 0, st>>>(d, s, p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_read(const void* arena, void* out, long long offset, long long n,
+template <bool kRead>
+int launch_phase(unsigned char* d, const unsigned char* s, const CopyPlan& p,
+                 cudaStream_t st) {
+  switch (p.phase == 0 ? 0 : 1 + (p.phase >> 2)) {
+    case 0: return launch_mode<0, kRead>(d, s, p, st);
+    case 1: return launch_mode<1, kRead>(d, s, p, st);
+    case 2: return launch_mode<2, kRead>(d, s, p, st);
+    case 3: return launch_mode<3, kRead>(d, s, p, st);
+    default: return launch_mode<4, kRead>(d, s, p, st);
+  }
+}
+
+int launch_copy(bool read, void* dst, const void* src, long long nbytes,
+                long long head, long long nvec, long long tail, int phase,
                 void* stream) {
-  if (n <= 0) return 0;
-  read_kernel<T><<<grid_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(arena), static_cast<T*>(out), offset, n);
-  return static_cast<int>(cudaGetLastError());
+  if (nbytes <= 0) return 0;
+  unsigned char* d = static_cast<unsigned char*>(dst);
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  const CopyPlan p{head, nvec, tail, phase};
+  if (!plan_fits(d, s, nbytes, p)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return read ? launch_phase<true>(d, s, p, st)
+              : launch_phase<false>(d, s, p, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// write: arena[offset : offset + n] = x; read: out = arena[offset :
+// offset + n].  offset and n in elements; (head, nvec, tail, phase) is
+// copy_plan of the two byte addresses and n * sizeof(element).
 int repro_arena_write_f32(void* arena, const void* x, long long offset,
-                          long long n, void* stream) {
-  return launch_write<float>(arena, x, offset, n, stream);
+                          long long n, long long head, long long nvec,
+                          long long tail, int phase, void* stream) {
+  return launch_copy(false, static_cast<float*>(arena) + offset, x, 4 * n,
+                     head, nvec, tail, phase, stream);
 }
 
 int repro_arena_write_u8(void* arena, const void* x, long long offset,
-                         long long n, void* stream) {
-  return launch_write<unsigned char>(arena, x, offset, n, stream);
+                         long long n, long long head, long long nvec,
+                         long long tail, int phase, void* stream) {
+  return launch_copy(false, static_cast<unsigned char*>(arena) + offset, x,
+                     n, head, nvec, tail, phase, stream);
 }
 
 int repro_arena_read_f32(const void* arena, void* out, long long offset,
-                         long long n, void* stream) {
-  return launch_read<float>(arena, out, offset, n, stream);
+                         long long n, long long head, long long nvec,
+                         long long tail, int phase, void* stream) {
+  return launch_copy(true, out, static_cast<const float*>(arena) + offset,
+                     4 * n, head, nvec, tail, phase, stream);
 }
 
 int repro_arena_read_u8(const void* arena, void* out, long long offset,
-                        long long n, void* stream) {
-  return launch_read<unsigned char>(arena, out, offset, n, stream);
+                        long long n, long long head, long long nvec,
+                        long long tail, int phase, void* stream) {
+  return launch_copy(true, out,
+                     static_cast<const unsigned char*>(arena) + offset, n,
+                     head, nvec, tail, phase, stream);
 }
 
 int repro_arena_accum_f32(void* arena, const void* x, long long offset,

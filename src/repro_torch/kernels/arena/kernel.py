@@ -13,6 +13,10 @@ refused.  A missing ``nvcc`` or a failed build raises
 :class:`KernelBuildError`: there is no fallback.  ``n == 0`` returns before
 any launch.  Offsets and lengths are elements of the arena's dtype.
 
+Write and read are one byte copy in the kernel; :func:`copy_plan` splits
+it (head bytes, 16-byte body stores, tail bytes, and the source's phase)
+from the two byte addresses, and the launch passes the split along.
+
 ``LAUNCHES`` counts the launches of each kernel (one per call that reached
 the device); :func:`reset_launches` sets the counts to 0.
 
@@ -26,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -50,6 +55,38 @@ class _ChainOps(ctypes.Structure):
     _fields_ = [("n", ctypes.c_int), ("op", ctypes.c_int * MAX_CHAIN)]
 
 
+class CopyPlan(NamedTuple):
+    """The split of one copy ``dst[0:nbytes] = src[0:nbytes]`` (struct
+    CopyPlan in ``csrc/arena.cu``): ``head`` bytes up to the first
+    16-byte-aligned destination address, ``nvec`` 16-byte stores, ``tail``
+    bytes; ``phase`` is ``(src - dst) mod 16``."""
+
+    head: int
+    nvec: int
+    tail: int
+    phase: int
+
+    @property
+    def mode(self) -> str:
+        """How the body's 16-byte stores are built: ``'aligned'`` (phase
+        0: one aligned 16-byte load each), ``'word_shift'`` (a multiple of
+        4: two aligned loads, a word select) or ``'byte_shift'`` (two
+        aligned loads, a funnel shift; only u8 copies meet it).  All three
+        store 16 bytes an instruction."""
+        if self.phase == 0:
+            return "aligned"
+        return "word_shift" if self.phase % 4 == 0 else "byte_shift"
+
+
+def copy_plan(dst_addr: int, src_addr: int, nbytes: int) -> CopyPlan:
+    """Split the copy of ``nbytes`` from byte address ``src_addr`` to
+    ``dst_addr`` so that every store of the body is 16-byte aligned."""
+    head = min(-dst_addr % 16, nbytes)
+    nvec = (nbytes - head) // 16
+    return CopyPlan(head, nvec, nbytes - head - 16 * nvec,
+                    (src_addr - dst_addr) % 16)
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -61,22 +98,27 @@ def build() -> Path:
     return _build.build(SOURCE, "arena")
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries' argument and result types on ``lib``."""
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name in ("repro_arena_write_f32", "repro_arena_write_u8",
+                 "repro_arena_read_f32", "repro_arena_read_u8"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, ll, ll, ll, ll, ll, i, vp]
+        fn.restype = i
+    lib.repro_arena_accum_f32.argtypes = [vp, vp, ll, ll, vp]
+    lib.repro_arena_accum_f32.restype = i
+    fn = lib.repro_arena_chain_write_f32
+    fn.argtypes = [vp, vp, ll, ll, _ChainOps, vp]
+    fn.restype = i
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ll = ctypes.c_void_p, ctypes.c_longlong
-            for name in ("repro_arena_write_f32", "repro_arena_write_u8",
-                         "repro_arena_read_f32", "repro_arena_read_u8",
-                         "repro_arena_accum_f32"):
-                fn = getattr(lib, name)
-                fn.argtypes = [vp, vp, ll, ll, vp]
-                fn.restype = ctypes.c_int
-            fn = lib.repro_arena_chain_write_f32
-            fn.argtypes = [vp, vp, ll, ll, _ChainOps, vp]
-            fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(build())))
         return _lib
 
 
@@ -115,7 +157,9 @@ def arena_write_cuda(arena, x, offset: int):
     if n == 0:
         return arena
     fn = getattr(_library(), f"repro_arena_write_{_SUFFIX[arena.dtype]}")
-    _build.raise_on(fn(arena.data_ptr(), x.data_ptr(), offset, n,
+    esz = arena.element_size()
+    plan = copy_plan(arena.data_ptr() + esz * offset, x.data_ptr(), esz * n)
+    _build.raise_on(fn(arena.data_ptr(), x.data_ptr(), offset, n, *plan,
                        _stream(arena)), "arena_write")
     LAUNCHES["write"] += 1
     return arena
@@ -128,7 +172,9 @@ def arena_read_cuda(arena, offset: int, n: int):
     if n == 0:
         return out
     fn = getattr(_library(), f"repro_arena_read_{_SUFFIX[arena.dtype]}")
-    _build.raise_on(fn(arena.data_ptr(), out.data_ptr(), offset, n,
+    esz = arena.element_size()
+    plan = copy_plan(out.data_ptr(), arena.data_ptr() + esz * offset, esz * n)
+    _build.raise_on(fn(arena.data_ptr(), out.data_ptr(), offset, n, *plan,
                        _stream(arena)), "arena_read")
     LAUNCHES["read"] += 1
     return out

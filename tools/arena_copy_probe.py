@@ -1,0 +1,322 @@
+#!/usr/bin/env python3
+"""Variants of the arena copy (write and read in ``csrc/arena.cu``) timed
+against each other and against torch's copy, on one CUDA card.  Run from
+the root of a checkout:
+
+    python3 tools/arena_copy_probe.py [variant ...]
+
+Each variant is ``csrc/arena.cu`` with a few edits, built into
+``build/arena_probe/`` (the repository's source is not changed) and bound
+in place of the library the wrappers load, so every call goes through
+``arena_write_cuda`` / ``arena_read_cuda`` and ``copy_plan`` as on the main
+path:
+
+  main        the source as it is: blocks of 256 threads, 2 16-byte loads
+              in flight a thread (__ldg), evict-first stores (__stcs),
+              64-bit indices, at least 8 blocks an SM (32 registers)
+  l1, l4      1 or 4 loads in flight a thread
+  rows        a body that fills whole passes of the grid in rows of 512
+              stores a block instead of spread over the grid
+  i32         32-bit indices
+  ld, ldcg    plain loads; loads that skip L1 (__ldcg)
+  st          plain stores
+  nolb        no floor of blocks an SM on the registers
+  tma         the phase-0 body by a 1-D bulk copy (cp.async.bulk global ->
+              shared -> global, one mbarrier), 16 KB a block's chunk
+  empty       the same launches with no load or store: the floor a launch
+              of this grid costs
+
+Shapes: the f32 launches one execute of ``darts_net_x6`` and
+``randwire_net_32x8`` makes (slice and fused, as ``chip_smoke.py``
+records them), all together and by size (under 64 KB, 64 KB and over),
+and the u8 decode-state leaves of ``llama3.2-1b``,
+``rwkv6-7b`` and ``recurrentgemma-2b`` at their served plans.  For each,
+write and read: device us per launch warm (replayed as the main path
+finds L2) and cold (L2 flushed before each launch), and beside them the
+torch call (``copy_`` / ``clone``), timed first and last, and the names of
+its device activities.  The variants run
+in turns, main first and last; naming variants runs only those (and
+main).  One line per measurement with the card's
+name and power limit; all of it as JSON in
+``chiprun_out/arena_copy_probe.json``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+OUT = ROOT / "build" / "arena_probe"
+
+TMA_BODY = r'''
+// 1-D bulk copy of the phase-0 body: thread 0 of each block moves chunks
+// of kCopyThreads * kLoads * 2 vectors global -> shared -> global.
+__device__ __forceinline__ void body_tma(uint4* d, const uint4* s,
+                                         long long nvec) {
+  __shared__ alignas(128) unsigned char buf[kCopyThreads * kLoads * 32];
+  __shared__ alignas(8) unsigned long long bar;
+  if (threadIdx.x != 0) return;
+  const unsigned int sbuf =
+      static_cast<unsigned int>(__cvta_generic_to_shared(buf));
+  const unsigned int sbar =
+      static_cast<unsigned int>(__cvta_generic_to_shared(&bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(sbar));
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  const long long chunk = static_cast<long long>(kCopyThreads) * kLoads * 2;
+  unsigned int parity = 0;
+  for (long long c = blockIdx.x * chunk; c < nvec;
+       c += static_cast<long long>(gridDim.x) * chunk) {
+    const long long left = nvec - c;
+    const unsigned int bytes =
+        16u * static_cast<unsigned int>(left < chunk ? left : chunk);
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(sbar),
+        "r"(bytes)
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(sbuf),
+        "l"(s + c), "r"(bytes), "r"(sbar)
+        : "memory");
+    asm volatile(
+        "{\n.reg .pred P1;\nLAB_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(sbar),
+        "r"(parity)
+        : "memory");
+    parity ^= 1u;
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+            d + c),
+        "r"(sbuf), "r"(bytes)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+'''
+
+LOADS = "constexpr int kLoads = 2;"
+INDEX = "using Index = long long;"
+STEP = "  const Index step = static_cast<Index>(gridDim.x) * kCopyThreads;\n"
+FIRST = "static_cast<Index>(blockIdx.x) * kCopyThreads + threadIdx.x;"
+LOAD = "return __ldg(p);"
+STORE = "{ __stcs(p, v); }"
+BOUNDS = "__launch_bounds__(kCopyThreads, 2048 / kCopyThreads)"
+EDGE = "  long long edge = -1;\n"
+BODY = "  const unsigned char* s = src + p.head;\n"
+COPY = "// Replaces arena_write_pallas / _write_kernel and arena_read_pallas"
+WANT = "(p.nvec + kCopyThreads - 1) / kCopyThreads"
+
+VARIANTS = {
+    "main": [],
+    "l1": [(LOADS, "constexpr int kLoads = 1;")],
+    "l4": [(LOADS, "constexpr int kLoads = 4;")],
+    # a body that fills whole passes in rows of kCopyThreads * kStores
+    # stores a block (k apart by kCopyThreads)
+    "rows": [(STEP, STEP + "  const bool rows = n >= step * kStores;\n"
+                    "  const Index lane = rows ? kCopyThreads : step;\n"),
+             (FIRST, "static_cast<Index>(blockIdx.x) * (rows ? kCopyThreads"
+                     " * kStores : kCopyThreads) + threadIdx.x;"),
+             ("k * step", "k * lane")],
+    "i32": [(INDEX, "using Index = int;")],
+    "ld": [(LOAD, "return *p;")],
+    "ldcg": [(LOAD, "return __ldcg(p);")],
+    "st": [(STORE, "{ *p = v; }")],
+    "nolb": [(BOUNDS, "__launch_bounds__(kCopyThreads)")],
+    "tma": [(COPY, TMA_BODY + COPY),
+            (BODY, BODY + "  if constexpr (kMode == 0) {\n"
+                          "    body_tma(d, reinterpret_cast<const uint4*>(s), "
+                          "p.nvec);\n"
+                          "    if (edge >= 0) dst[edge] = e;\n"
+                          "    return;\n  }\n"),
+            (WANT, "(p.nvec + kCopyThreads * kLoads * 2 - 1) / "
+                   "(kCopyThreads * kLoads * 2)")],
+    # the launch alone: the same grid, no load or store
+    "empty": [(EDGE, "  return;\n" + EDGE)],
+}
+UNCHECKED = {"empty"}
+ORDER = ("main", "l1", "l4", "rows", "i32", "ld", "ldcg", "st", "nolb",
+         "tma", "empty", "main")
+
+
+def variant(name: str, edits) -> Path:
+    """Build ``csrc/arena.cu`` with every occurrence of each old of
+    ``edits`` replaced by its new; returns the library's path."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.arena import kernel as K
+    text = K.SOURCE.read_text()
+    for old, new in edits:
+        if old not in text:
+            raise SystemExit(f"arena.cu: the probe's anchor is gone: {old!r}")
+        text = text.replace(old, new)
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / f"arena_{name}.cu"
+    path.write_text(text)
+    return _build.build(path, f"arena_{name}")
+
+
+def f32_launches(dev):
+    """(write args, read args) of the f32 launches one execute of each
+    full network makes, on one random arena."""
+    import chip_smoke as CS
+    import repro_torch as rt
+    from repro_torch.graphs import FULL_NETWORKS
+
+    names = ("darts_net_x6", "randwire_net_32x8")
+    plans = {n: rt.plan(FULL_NETWORKS[n](), rt.PlanConfig()) for n in names}
+    rng = np.random.default_rng(CS.SEED)
+    inputs = {n: CS.seeded_inputs(p.graph, rng) for n, p in plans.items()}
+    log = CS.record_launches(rt, plans, inputs)
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED)
+    arena = torch.randn(max(e[1] for e in log), device=dev, generator=gen)
+    xs = {}
+    for _, _, _, n, _ in log:
+        if n not in xs:
+            xs[n] = torch.randn(n, device=dev, generator=gen)
+    return ([(arena, xs[n], o) for op, _, o, n, _ in log if op == "write"],
+            [(arena, o, n) for op, _, o, n, _ in log if op == "read"])
+
+
+def served_launches(dev):
+    """{arch: (write args, read args)} at each model's served leaves: the
+    decode plan's offsets in an arena of its resident extent, one source
+    of each leaf's bytes."""
+    import chip_smoke as CS
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve as S
+    from repro_torch.models.params import is_def, tree_leaves
+    from repro_torch.models.zoo import build_model
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(CS.SEED + 3)
+    for arch, spec in CS.SERVES.items():
+        model = build_model(configs.get(arch))
+        smax = spec["prompt"] + CS.GEN
+        plan = S.plan_decode_arena(model, 1, smax)
+        defs = tree_leaves(model.make_cache_defs(1, smax), is_leaf=is_def)
+        spans = [(plan["plan"].offset_of(i),
+                  int(np.prod(d.shape)) * d.dtype.itemsize)
+                 for i, d in enumerate(defs)]
+        arena = torch.randint(0, 256, (plan["resident_extent"],),
+                              dtype=torch.uint8, device=dev, generator=gen)
+        xs = [torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                            generator=gen) for _, n in spans]
+        out[arch] = ([(arena, x, o) for x, (o, _) in zip(xs, spans)],
+                     [(arena, o, n) for o, n in spans])
+    return out
+
+
+def check_copies(name, sets):
+    """The variant must copy right before it is timed: its first launches
+    of each set against the plain versions, bit for bit."""
+    import chip_smoke as CS
+    from repro_torch.kernels.arena import kernel as K
+    from repro_torch.kernels.arena import ref as R
+    for sname, (wargs, rargs) in sets.items():
+        for args in wargs[:4]:
+            a = args[0].clone()
+            K.arena_write_cuda(a, *args[1:])
+            CS.check(torch.equal(a, R.arena_write_torch(
+                args[0].clone(), *args[1:])), f"{name} {sname} write")
+        for args in rargs[:4]:
+            CS.check(torch.equal(K.arena_read_cuda(*args),
+                                 R.arena_read_torch(*args)),
+                     f"{name} {sname} read")
+
+
+def by_size(wargs, rargs):
+    """The f32 launches in two sets by bytes: under 64 KB, and 64 KB and
+    over."""
+    cuts = (("f32 <64KB", 0, 16384), ("f32 >=64KB", 16384, 1 << 62))
+    return {name: ([a for a in wargs if lo <= a[1].shape[0] < hi],
+                   [a for a in rargs if lo <= a[2] < hi])
+            for name, lo, hi in cuts}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false; this probe needs a "
+              "CUDA card", flush=True)
+        return 2
+    import chip_smoke as CS
+    from repro_torch.kernels.arena import kernel as K
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    card = CS.card_line()
+    from repro_torch.kernels import _build
+
+    def built(kv):
+        try:
+            return variant(*kv)
+        except _build.KernelBuildError as e:     # reported, not timed
+            print(f"probe: variant {kv[0]} does not build: {e}", flush=True)
+            return None
+
+    with ThreadPoolExecutor(len(VARIANTS)) as ex:
+        libs = {k: v for k, v in zip(VARIANTS, ex.map(built, VARIANTS.items()))
+                if v is not None}
+    for name, lib in libs.items():
+        for ln in _build.ptxas_report(lib):
+            print(f"probe: ptxas {name}: {ln}", flush=True)
+    K._library()
+    f32 = f32_launches(dev)
+    sets = {"f32": f32, **by_size(*f32), **served_launches(dev)}
+    flush = CS.L2Flush(dev)
+    torch_fns = {"write": lambda a, x, o: a[o:o + x.shape[0]].copy_(x),
+                 "read": lambda a, o, n: a[o:o + n].clone()}
+
+    def measure(tag, fns):
+        res = {}
+        for sname, (wargs, rargs) in sets.items():
+            for op, args in (("write", wargs), ("read", rargs)):
+                if not args:
+                    continue
+                fn = fns[op]
+                warm = CS.time_replay(args, fn)[0]
+                cold = CS.time_cold(args, fn, flush)
+                res[f"{sname} {op}"] = dict(warm_ms=warm, cold_ms=cold)
+                print(f"probe: {tag} {sname} {op} ({len(args)} launches): "
+                      f"device us per launch warm {warm * 1e3:.3f}, cold "
+                      f"{CS.fmt_us(cold)} [{card}]", flush=True)
+        return res
+
+    results = {"card": card, "torch_first": measure("torch", torch_fns)}
+    for op, args in zip(("write", "read"), sets["f32"]):
+        names = sorted(CS.device_profile(
+            lambda: [torch_fns[op](*a) for a in args[:64]])[2])
+        results[f"torch {op} activities"] = names
+        print(f"probe: torch {op} call's device activities: {names}",
+              flush=True)
+    kernels = {"write": K.arena_write_cuda, "read": K.arena_read_cuda}
+    asked = set(sys.argv[1:]) | {"main"}
+    for i, name in enumerate(ORDER):
+        if name not in libs or (len(asked) > 1 and name not in asked):
+            continue
+        K._lib = K.bind(ctypes.CDLL(str(libs[name])))
+        if name not in UNCHECKED:
+            check_copies(name, sets)
+        results[f"{name}#{i}"] = measure(name, kernels)
+    results["torch_last"] = measure("torch", torch_fns)
+    out = ROOT / "chiprun_out" / "arena_copy_probe.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(results, indent=1))
+    print(f"probe: wrote {out.relative_to(ROOT)}", flush=True)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
