@@ -13,8 +13,9 @@ non-zero):
               ``flash_prefill_sm90.cu``, ``wkv6.cu`` and ``rglru.cu``
               (nvcc, sm_90a, all six started together) and print the build
               seconds of each, the registers, shared memory and spills
-              (``-Xptxas -v``) of the arena kernels and the two newer flash
-              kernels, the card's name and power limit;
+              (``-Xptxas -v``) of the arena kernels (accum among them), the
+              WKV-6 kernel and the two newer flash kernels, the card's name
+              and power limit;
 2. kernels -- hold each arena kernel against its plain PyTorch version on
               the card.  write and read (one vectorised byte copy split by
               ``copy_plan``), f32 and u8: every destination phase x source
@@ -26,9 +27,14 @@ non-zero):
               read also into an out view through its C entry: bit-equal,
               the bytes around the slice and the sources unchanged, the
               cases counted per (op, dtype, mode); a split that does not
-              fit its addresses refused.  accum and the exact chain ops
-              bit-equal at awkward offsets and lengths (0, 1, 3, 4097,
-              150,528), the transcendental chain ops allclose; n == 0
+              fit its addresses refused.  accum (the same split over f32)
+              at every arena phase x x phase mod 16 bytes, x a view at a
+              storage offset, at the f32 lengths above: bit-equal to the
+              plain version, the floats around the slice and x unchanged;
+              a split that does not fit its addresses, or is not whole
+              floats, refused.  accum and the exact chain ops also
+              bit-equal at random offsets and lengths 0, 1, 3, 4097 and
+              150,528, the transcendental chain ops allclose; n == 0
               launches nothing;
 3. flash   -- hold the three flash-attention kernels (the split-K
               decode, the ``wgmma`` prefill and the simple kernel) against
@@ -54,13 +60,16 @@ non-zero):
               fully masked for some rows and a row masked in every split
               (output 0, no NaN);
 4. wkv6    -- hold the WKV-6 kernel against its plain version on the card:
-              bf16 and f32, N 16/32/64, T 1/7/256/1000/1024, with and
-              without an initial state: outputs within the flash phase's
-              tolerances plus the rounding bound of two f32 sums of N + 1
-              terms (2 (N + 1) 2^-24 times the terms' magnitudes), final
-              states bit-equal; a split run (T/2 + T/2,
-              the state threaded) and an in-place state equal the whole
-              run bit for bit;
+              bf16 and f32, N 16/32/64, batch 1 at T 1/7/256/1000/1024
+              with and without an initial state, and batch 2 at T 1000
+              and 3 chunks + 5 steps (T 7, 1000 and that one end in a
+              ragged chunk): outputs within the flash phase's tolerances
+              plus the rounding bound of two f32 sums of N + 1 terms
+              (2 (N + 1) 2^-24 times the terms' magnitudes), final states
+              bit-equal; a split run (T/2 + T/2, the state threaded), a
+              run of T 7 one step a launch (the one-step path) and a run
+              whose final state overwrites its initial state in place
+              equal the whole run bit for bit;
 5. rglru   -- the same for the RG-LRU kernel: gx bf16 and f32, D 16 and
               2560, T 1/5/2560, with and without h0: h within the same
               tolerances, hT within rtol 1e-5 + atol 1e-5 (the bit-equal
@@ -96,14 +105,16 @@ non-zero):
               the same (a yardstick, never called by the port), for write
               and read also cold (L2 flushed before each launch); for each
               served model its prefill ms per request, ms per decode token,
-              the device's busy time and idle share over one decode step and
+              the device's busy time and idle share over one prefill (with
+              its largest kernels) and one decode step and
               its launches (no more device activities per decode token than
-              PR 13 measured), the u8 arena write/read at the served
-              leaves (one launch of each per leaf a decode token, by the
-              launch counts; the kernels found by name in a trace of
-              their own; replayed warm and with L2 flushed before each
-              launch, against the bound, the plain version and one torch
-              copy), and its recurrence or attention kernel at
+              ``ACTIVITIES``, in a trace that holds all of them), the u8
+              arena write/read at the served leaves (one launch of each
+              per leaf a decode token, by the launch counts; the kernels
+              found by name in a trace of their own; replayed warm and
+              with L2 flushed before each launch, against the bound, the
+              plain version and one torch copy), and its recurrence or
+              attention kernel at
               decode and prefill shapes (attention: the routed kernel, the
               simple kernel, the plain version and SDPA).
 
@@ -181,9 +192,14 @@ SERVES = {
               "transient_bytes": 1_034_240, "n_buffers": 89}),
 }
 RG_RTOL = RG_ATOL = 1e-5           # rglru f32: exp of two libraries
-# device activities per decode token with one request in flight (PR 13's
-# chip run; the redesigned attention must not add any)
-ACTIVITIES = {"llama3.2-1b": 999, "rwkv6-7b": 2806, "recurrentgemma-2b": 1511}
+# device activities per decode token with one request in flight, counted in
+# traces that hold the step's first kernels (``device_profile``'s lead), as
+# the flash, arena and recurrence kernels stood before their Hopper
+# redesigns; the redesigns must not add any.  Limits read from traces
+# without the lead (999 / 2806 / 1511) were low by the kernels those traces
+# missed, so a trace that held them failed with nothing risen.
+ACTIVITIES = {"llama3.2-1b": 999, "rwkv6-7b": 2808, "recurrentgemma-2b": 1515}
+TOKEN_TRACES = 3
 # the split-K decode's partials against the plain version's: m to rtol/atol
 # 1e-5; l and acc to 1e-5 plus 1e-5 times the summands' magnitude (at most
 # l for l, l * max|v| for acc)
@@ -319,6 +335,62 @@ def sweep_copy(dev) -> dict:
     return cases
 
 
+def sweep_accum(dev) -> dict:
+    """accum at every arena phase x x phase mod 16 bytes (whole floats),
+    at the f32 COPY_LENGTHS: x a view of a larger tensor at a storage
+    offset, the slice of an arena with guard floats on both sides.  Each
+    result is bit-equal to the plain version, with the guard floats and x
+    unchanged; a split that does not fit its addresses, or is not whole
+    floats, is refused.  Returns the cases run per mode."""
+    from repro_torch.kernels.arena import kernel as K
+    from repro_torch.kernels.arena import ref as R
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    cases = {}
+    for n in COPY_LENGTHS:
+        guard = 8                                # floats each side
+        full = torch.randn(guard + n + 2 * guard, device=dev, generator=gen)
+        src = 3 * torch.randn(n + 4, device=dev, generator=gen)
+        keep_src = src.clone()
+        for dp in range(4):                      # arena phase: dp floats
+            o = guard + dp
+            for sp in range(4):                  # x phase: sp floats
+                x = src[sp:sp + n]
+                a = full.clone()
+                plan = K.copy_plan(a.data_ptr() + 4 * o, x.data_ptr(), 4 * n)
+                K.arena_accum_cuda(a, x, o)
+                want = R.arena_accum_torch(full.clone(), x, o)
+                key = f"accum {plan.mode}"
+                cases[key] = cases.get(key, 0) + 1
+                check(torch.equal(a, want)
+                      and torch.equal(a[:o], full[:o])
+                      and torch.equal(a[o + n:], full[o + n:])
+                      and torch.equal(src, keep_src),
+                      f"accum n={n} arena phase {4 * dp} B, x phase "
+                      f"{4 * sp} B: differs from the plain version or "
+                      f"touched a float outside the slice")
+    torch.cuda.synchronize()
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    a, x = torch.zeros(64, device=dev), torch.zeros(16, device=dev)
+    good = K.copy_plan(a.data_ptr() + 4, x.data_ptr(), 48)
+    fn = K._library().repro_arena_accum_f32
+    for bad in (good._replace(phase=(good.phase + 4) % 16),
+                good._replace(head=good.head + 16),
+                good._replace(tail=good.tail + 4)):
+        check(fn(a.data_ptr(), x.data_ptr(), 1, 12, *bad, stream) != 0,
+              f"the accum entry launched a wrong split {bad}")
+    # 3 floats, all head: a split of 9 + 3 bytes fits the addresses but
+    # cuts floats
+    small = K.copy_plan(a.data_ptr() + 4, x.data_ptr(), 12)
+    bad = small._replace(head=small.head - 3, tail=small.tail + 3)
+    check(small.nvec == 0 and fn(a.data_ptr(), x.data_ptr(), 1, 3, *bad,
+                                 stream) != 0,
+          f"the accum entry launched a split that cuts floats {bad}")
+    torch.cuda.synchronize()
+    return cases
+
+
 def phase_kernels(dev, rng, err):
     from repro_torch.kernels.arena import kernel as K
     from repro_torch.kernels.arena import ref as R
@@ -342,6 +414,7 @@ def phase_kernels(dev, rng, err):
         return e
 
     cases = sweep_copy(dev)      # bit-equal: write/read errors stay 0
+    cases.update(sweep_accum(dev))
     for n in SIZES:
         a, x, o = arena_and_x(n, torch.float32)
         got = K.arena_accum_cuda(a.clone(), x, o)
@@ -378,7 +451,8 @@ def phase_kernels(dev, rng, err):
           f"n == 0 launched a kernel: {K.LAUNCHES}")
     say(f"kernels: write/read f32+u8 bit-equal with the guard bytes "
         f"untouched over every phase pair, cases per (op, dtype, mode) "
-        f"{cases}; accum, exact chains bit-equal at "
+        f"{cases}; accum bit-equal over every phase pair of the f32 "
+        f"lengths, a wrong split refused; accum, exact chains bit-equal at "
         f"n in {SIZES}; transcendental chains max abs err "
         f"{worst_transcendental:.3e} (rtol {CHAIN_RTOL}, atol {CHAIN_ATOL}); "
         f"n == 0 launches nothing")
@@ -617,53 +691,80 @@ def phase_wkv6(dev, err):
     def rnd(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
 
+    # (B, T, with s0): batch 1 as served, batch 2 at a T that ends in a
+    # ragged chunk
+    runs = [(1, T, s) for T in (1, 7, 256, 1000, 1024) for s in (False, True)]
+    runs += [(2, 1000, False), (2, 3 * WK.CHUNK + 5, True)]
     n, worst_share = 0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for N in WK.HEAD_SIZES:
             H = 4096 // N if N == 64 else 4     # rwkv6-7b: 64 heads of 64
-            for T in (1, 7, 256, 1000, 1024):
-                for with_s0 in (False, True):
-                    r, k, v = (rnd(1, T, H, N).to(dtype) for _ in range(3))
-                    w = torch.exp(-torch.exp(rnd(1, T, H, N))).to(dtype)
-                    u = (0.5 * rnd(H, N)).to(dtype)
-                    s0 = rnd(1, H, N, N) if with_s0 else None
-                    o, sT = WK.wkv6_cuda(r, k, v, w, u, initial_state=s0)
-                    ow, sw = wkv6_ref(r, k, v, w, u, s0)
-                    # a bound on the summands of each output: the same
-                    # recurrence on |r|, |k|, |v|, |u|, |s0| (w > 0)
-                    mag = wkv6_ref(r.abs(), k.abs(), v.abs(), w, u.abs(),
-                                   None if s0 is None else s0.abs())[0]
-                    e, ok, share = wkv6_err(o, ow, mag, N)
-                    worst_share = max(worst_share, share)
-                    what = f"wkv6 {dtype} N={N} H={H} T={T} s0={with_s0}"
-                    check(ok, f"{what}: output max abs err {e}")
-                    check(torch.equal(sT, sw), f"{what}: final state not "
-                          f"bit-equal (max abs err "
-                          f"{float((sT - sw).abs().max())})")
-                    err["wkv6"] = max(err["wkv6"], e)
-                    if T > 1:           # the state threaded across two runs
-                        h = T // 2
-                        o1, s1 = WK.wkv6_cuda(r[:, :h].contiguous(),
-                                              k[:, :h].contiguous(),
-                                              v[:, :h].contiguous(),
-                                              w[:, :h].contiguous(), u,
-                                              initial_state=s0)
-                        o2, s2 = WK.wkv6_cuda(r[:, h:].contiguous(),
-                                              k[:, h:].contiguous(),
-                                              v[:, h:].contiguous(),
-                                              w[:, h:].contiguous(), u,
-                                              initial_state=s1,
-                                              state_out=s1)
-                        check(s2 is s1 and torch.equal(s2, sT)
-                              and torch.equal(torch.cat([o1, o2], 1), o),
-                              f"{what}: the split run differs")
-                    n += 1
+            for B, T, with_s0 in runs:
+                r, k, v = (rnd(B, T, H, N).to(dtype) for _ in range(3))
+                w = torch.exp(-torch.exp(rnd(B, T, H, N))).to(dtype)
+                u = (0.5 * rnd(H, N)).to(dtype)
+                s0 = rnd(B, H, N, N) if with_s0 else None
+                o, sT = WK.wkv6_cuda(r, k, v, w, u, initial_state=s0)
+                ow, sw = wkv6_ref(r, k, v, w, u, s0)
+                # a bound on the summands of each output: the same
+                # recurrence on |r|, |k|, |v|, |u|, |s0| (w > 0)
+                mag = wkv6_ref(r.abs(), k.abs(), v.abs(), w, u.abs(),
+                               None if s0 is None else s0.abs())[0]
+                e, ok, share = wkv6_err(o, ow, mag, N)
+                worst_share = max(worst_share, share)
+                what = f"wkv6 {dtype} N={N} B={B} H={H} T={T} s0={with_s0}"
+                check(ok, f"{what}: output max abs err {e}")
+                check(torch.equal(sT, sw), f"{what}: final state not "
+                      f"bit-equal (max abs err "
+                      f"{float((sT - sw).abs().max())})")
+                err["wkv6"] = max(err["wkv6"], e)
+                if with_s0:             # the final state over s0, in place
+                    s_in = s0.clone()
+                    o_in, s_out = WK.wkv6_cuda(r, k, v, w, u,
+                                               initial_state=s_in,
+                                               state_out=s_in)
+                    check(s_out is s_in and torch.equal(s_in, sT)
+                          and torch.equal(o_in, o),
+                          f"{what}: the in-place run differs")
+                if T == 7:              # one step a launch: decode path
+                    s_step = None if s0 is None else s0.clone()
+                    outs = []
+                    for t in range(T):
+                        o_t, s_step = WK.wkv6_cuda(
+                            r[:, t:t + 1].contiguous(),
+                            k[:, t:t + 1].contiguous(),
+                            v[:, t:t + 1].contiguous(),
+                            w[:, t:t + 1].contiguous(), u,
+                            initial_state=s_step, state_out=s_step)
+                        outs.append(o_t)
+                    check(torch.equal(s_step, sT)
+                          and torch.equal(torch.cat(outs, 1), o),
+                          f"{what}: the run one step a launch differs")
+                if T > 1:               # the state threaded across two runs
+                    h = T // 2
+                    o1, s1 = WK.wkv6_cuda(r[:, :h].contiguous(),
+                                          k[:, :h].contiguous(),
+                                          v[:, :h].contiguous(),
+                                          w[:, :h].contiguous(), u,
+                                          initial_state=s0)
+                    o2, s2 = WK.wkv6_cuda(r[:, h:].contiguous(),
+                                          k[:, h:].contiguous(),
+                                          v[:, h:].contiguous(),
+                                          w[:, h:].contiguous(), u,
+                                          initial_state=s1,
+                                          state_out=s1)
+                    check(s2 is s1 and torch.equal(s2, sT)
+                          and torch.equal(torch.cat([o1, o2], 1), o),
+                          f"{what}: the split run differs")
+                n += 1
     torch.cuda.synchronize()
-    say(f"wkv6: {n} cases (f32/bf16, N {WK.HEAD_SIZES}, T 1..1024, with and "
-        f"without s0): outputs within tolerance of the plain version, worst "
-        f"{err['wkv6']:.3e}, at most {worst_share:.3f} of the allowed error; "
-        f"final states bit-equal; split runs with the "
-        f"state threaded in place bit-equal to the whole run")
+    say(f"wkv6: {n} cases (f32/bf16, N {WK.HEAD_SIZES}, (B, T, s0) in "
+        f"{runs}; chunk {WK.CHUNK}, tile {WK.TILE_COLS}, row split "
+        f"{WK.ROW_SPLIT}): outputs within tolerance of the plain version, "
+        f"worst {err['wkv6']:.3e}, at most {worst_share:.3f} of the allowed "
+        f"error; final states bit-equal; in-place runs, split runs with "
+        f"the state threaded in place and T 7 one step a launch bit-equal "
+        f"to the whole run")
 
 
 def phase_rglru(dev, err):
@@ -1107,20 +1208,30 @@ def phase_serve(dev, arch):
 # ---------------------------------------------------------------------------
 
 
+# the lead of every trace: torch.cuda._sleep's kernel, about a millisecond
+LEAD_CYCLES, LEAD_KERNEL = 2_000_000, "spin_kernel"
+
+
 def device_profile(work, required=True):
     """(microseconds, activities, {name: [us, count]}) of the card during
     ``work()``: the kernels and copies of a ``torch.profiler`` trace,
-    summed and counted, in all and by name.  A short trace sometimes comes
-    back empty on the card's machine; it is taken again, up to four
-    times, and then None is returned, or the run fails if ``required``."""
+    summed and counted, in all and by name.  A trace lacks the first
+    kernels launched after it starts, so a short spin kernel runs to its end
+    in the trace before ``work()`` and is left out of the counts.  A short
+    trace sometimes comes back empty on the card's machine; it is taken
+    again, up to four times, and then None is returned, or the run fails if
+    ``required``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(LEAD_CYCLES)
+            torch.cuda.synchronize()
             work()
             torch.cuda.synchronize()
-        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and LEAD_KERNEL not in e.name]
         by_name = {}
         for e in evs:
             acc = by_name.setdefault(e.name, [0.0, 0])
@@ -1197,11 +1308,14 @@ def record_launches(rt, plans, inputs):
     return [e for e in log if e[3] > 0]
 
 
-def time_replay(launches_of, fn, reps=20):
+def time_replay(launches_of, fn, reps=20, one_launch=False):
     """(device ms, host-clock ms) per launch of ``fn`` over the recorded
     launches: the card's own time from the profiler (or, where no trace
     comes back, the CUDA events' time), and the time per call with the
-    host's issue cost, from CUDA events around ``reps`` passes."""
+    host's issue cost, from CUDA events around ``reps`` passes.  With
+    ``one_launch`` (``fn`` launches one kernel a call) the device time is
+    the mean over the kernels the trace holds, so a trace that lost some
+    of them does not read low."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
     def one_pass():
@@ -1228,7 +1342,13 @@ def time_replay(launches_of, fn, reps=20):
         say(f"timing: no trace of {getattr(fn, '__name__', fn)}; its "
             f"device time below is the CUDA events' time per call")
         return call_ms, call_ms
-    return prof[0] / 1e3 / (passes * len(launches_of)), call_ms
+    calls = passes * len(launches_of)
+    if one_launch:
+        if prof[1] != calls:
+            say(f"timing: the trace holds {prof[1]} of {calls} launches of "
+                f"{getattr(fn, '__name__', fn)}; their mean is its time")
+        return prof[0] / 1e3 / prof[1], call_ms
+    return prof[0] / 1e3 / calls, call_ms
 
 
 class L2Flush:
@@ -1434,10 +1554,8 @@ def time_served_packing(plan, spans, by_name, card, dev):
     flush = L2Flush(dev)
     out = {}
     for name, (args, kern, plain, lib) in impls.items():
-        # the decode token's trace can lack a few of the step's first
-        # kernels (on the card, none of rwkv6-7b's 3 reads), so the name
-        # is held over a trace of some 64 launches over the leaves, of
-        # which it may lack no more than one pass
+        # the name is held over a trace of some 64 launches over the
+        # leaves, of which it may lack no more than one pass
         t_us, t_n = traced_copies(by_name, name)
         passes = max(2, -(-64 // len(spans)))
         n_traced = traced_copies(device_profile(
@@ -1474,8 +1592,9 @@ def time_served_packing(plan, spans, by_name, card, dev):
 
 def phase_serve_timing(ctx, card, dev):
     """Prefill ms per request, ms per decode token (host clock), the
-    device's busy time and idle share over one decode token, and the u8
-    arena write/read at the served leaves, for one served model."""
+    device's busy time and idle share over one prefill and one decode
+    token, and the u8 arena write/read at the served leaves, for one
+    served model."""
     from repro_torch.launch import serve as S
     from repro_torch.launch.steps import make_prefill_step
 
@@ -1494,6 +1613,11 @@ def phase_serve_timing(ctx, card, dev):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     prefill_ms = statistics.median(ms[1:])
+    # the card's share of one prefill: busy time, and its largest kernels
+    cache = model.init_cache(1, smax, dev)
+    pre_us, _, pre_by = device_profile(lambda: prefill(params, cache, batch))
+    pre_top = sorted(pre_by.items(), key=lambda kv: -kv[1][0])[:4]
+    del cache
 
     # decode through the server: one request in flight, one token a tick
     pool = S.make_pool(4 * plan["arena_bytes"])
@@ -1508,14 +1632,17 @@ def phase_serve_timing(ctx, card, dev):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     tok_ms = statistics.median(ms)
-    reset_all()
-    busy_us, n_dev, by_name = device_profile(server.step)
-    per_tok = {k: v for k, v in all_launches().items() if v}
-    n_cache = plan["n_cache"]
-    check(per_tok.get("write") == per_tok.get("read") == n_cache,
-          f"{model.cfg.name}: {per_tok} arena copies in a decode token, "
-          f"{n_cache} leaves")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    # a trace can lack a few of a token's kernels, never hold more: the
+    # most complete of TOKEN_TRACES traces stands for the token
+    n_cache, traces = plan["n_cache"], []
+    for _ in range(TOKEN_TRACES):
+        reset_all()
+        traces.append(device_profile(server.step))
+        per_tok = {k: v for k, v in all_launches().items() if v}
+        check(per_tok.get("write") == per_tok.get("read") == n_cache,
+              f"{model.cfg.name}: {per_tok} arena copies in a decode "
+              f"token, {n_cache} leaves")
+    busy_us, n_dev, by_name = max(traces, key=lambda t: t[1])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     name = model.cfg.name
     say(f"timing: serve {name}: prefill {prefill_ms:.2f} ms per request of "
@@ -1523,13 +1650,19 @@ def phase_serve_timing(ctx, card, dev):
         f"{tok_ms:.3f} ms per token (median of 8 ticks, min {min(ms):.3f}, "
         f"one request in flight, host clock); device busy {busy_us:.1f} us "
         f"per token, idle share {1 - busy_us / (tok_ms * 1e3):.4f}; {n_dev} "
-        f"device activities per token, of them the port's kernels "
+        f"device activities per token (the most of "
+        f"{[t[1] for t in traces]}), of them the port's kernels "
         f"{per_tok} [{card}]")
     say(f"timing: serve {name} decode token, device us by kernel (count): "
         + "; ".join(f"{k[:60]} {t:.1f} ({n})" for k, (t, n) in top))
+    say(f"timing: serve {name} prefill: device busy {pre_us:.1f} us of "
+        f"{prefill_ms * 1e3:.1f} (idle share "
+        f"{1 - pre_us / (prefill_ms * 1e3):.4f}); device us by kernel "
+        f"(count): " + "; ".join(f"{k[:60]} {t:.1f} ({n})"
+                                  for k, (t, n) in pre_top) + f" [{card}]")
     check(n_dev <= ACTIVITIES[name],
           f"{name}: {n_dev} device activities per decode token, more than "
-          f"the {ACTIVITIES[name]} of PR 13")
+          f"the limit of {ACTIVITIES[name]}")
     return time_served_packing(plan, ctx["spans"], by_name, card, dev)
 
 
@@ -1690,8 +1823,8 @@ def recurrence_row(name, fn, plain, bound, shapes, launches, err, card):
     times are the serving run's mix, one prefill to GEN - 1 decodes."""
     t, b = {}, {}
     for label, args in shapes.items():
-        reps = 20 if label == "decode" else 3
-        t[label] = (time_replay([args], fn, reps=reps)[0],
+        reps = 20 if label == "decode" else 10
+        t[label] = (time_replay([args], fn, reps=reps, one_launch=True)[0],
                     time_replay([args], plain, reps=reps)[0])
         b[label] = bound(*args)
         by = "bytes" if b[label][0] >= b[label][1] else "operations"
@@ -1816,7 +1949,7 @@ def main() -> int:
         for fut in builds:
             lib, sec = fut.result()
             say(f"build: {lib.relative_to(ROOT)} in {sec:.1f} s")
-            if lib.stem in ("libarena", "libflash_decode",
+            if lib.stem in ("libarena", "libwkv6", "libflash_decode",
                             "libflash_prefill_sm90"):
                 for ln in _build.ptxas_report(lib):
                     say(f"build: ptxas {lib.stem[3:]}: {ln}")

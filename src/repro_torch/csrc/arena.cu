@@ -54,10 +54,24 @@
 // before the body and stored after it.  tools/arena_copy_probe.py times
 // the variants this design was chosen over (PERF.md §6).
 //
-// accum and chain_write touch only the n elements of the slice (the Pallas
+// accum, arena[o:o+n] += x, is the same split over f32: the wrapper passes
+// copy_plan(arena + 4 o, x, 4 n), so the head and the tail are at most 3
+// floats each and the body is float4 read-modify-writes at 16-byte-aligned
+// arena addresses.  x's phase against the arena is a multiple of 4 bytes:
+// phase 0 is one aligned load of x, any other the two aligned loads that
+// join<W> selects words from (bits 0).  The add is four __fadd_rn a vector,
+// bit-equal to torch's add_.  The arena is read and written in the same
+// launch, so its loads skip L1 (__ldcg), never the non-coherent path; x
+// keeps __ldg.  Stores are plain: the next node reads the accumulated
+// slice soon after.  The grid is launch_mode's (one vector a thread up to
+// one wave), kAccVecs vectors a thread a pass beyond it.  The mean launch
+// of a darts_net_x6 execute is ~37,700 floats (0.135 us of bytes), so the
+// launch and two L2 round trips set its time, as for the f32 copies.
+//
+// chain_write touches only the n elements of the slice (the Pallas
 // kernels copy the whole arena through, which exists only for their
-// interpret mode), and chain_write applies a whole alias chain in
-// registers so a fused chain costs one launch.
+// interpret mode) and applies a whole alias chain in registers so a fused
+// chain costs one launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,6 +90,9 @@ constexpr int kMaxChain = 16;  // MAX_CHAIN in kernels/arena/elemwise.py
 constexpr int kCopyThreads = 256;
 constexpr int kLoads = 2;
 using Index = long long;
+// accum: float4 read-modify-writes a thread in one pass of the grid (2
+// and 4 spill at the launch bounds' 32 registers, tools/arena_copy_probe.py)
+constexpr int kAccVecs = 1;
 
 // must match ELEMWISE_OP_CODES in kernels/arena/elemwise.py
 enum ElemOp : int {
@@ -216,17 +233,70 @@ __global__ void __launch_bounds__(kCopyThreads, 2048 / kCopyThreads)
   copy_bytes<kMode>(out, arena_at, p);
 }
 
+__device__ __forceinline__ float4 load_arena(const float4* p) {
+  return __ldcg(p);
+}
+
+__device__ __forceinline__ void store_arena(float4* p, float4 v) { *p = v; }
+
+__device__ __forceinline__ float4 add4(float4 a, uint4 b) {
+  return make_float4(__fadd_rn(a.x, __uint_as_float(b.x)),
+                     __fadd_rn(a.y, __uint_as_float(b.y)),
+                     __fadd_rn(a.z, __uint_as_float(b.z)),
+                     __fadd_rn(a.w, __uint_as_float(b.w)));
+}
+
 // Replaces arena_accum_pallas / _accum_kernel: the rewritten partial-conv
-// step.  Bound: 3*n*4 bytes (slice read, x read, slice written).  The add is
-// __fadd_rn, bit-equal to torch's eager add.
-__global__ void accum_kernel(float* arena, const float* __restrict__ x,
-                             long long offset, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    arena[offset + i] = __fadd_rn(arena[offset + i], x[i]);
+// step, dst[0:n] += x[0:n] split by p (in bytes, as for the copy).  Bound:
+// 3*n*4 bytes (slice read, x read, slice written).  kW is x's phase in
+// words, (x - dst) mod 16 / 4: 0 loads vector i of x, any other joins the
+// aligned vectors i and i + 1 that hold its 16 bytes.  The edge floats (at
+// most 3 a side) are loaded by the first threads of block 0 before the
+// body and stored after it.
+template <int kW>
+__global__ void __launch_bounds__(kCopyThreads, 2048 / kCopyThreads)
+    accum_kernel(float* dst, const float* __restrict__ x, CopyPlan p) {
+  long long edge = -1;
+  float e = 0.f;
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    const int t = threadIdx.x;
+    const long long head = p.head / 4, tail = p.tail / 4;
+    if (t < head) {
+      edge = t;
+    } else if (t >= 4 && t - 4 < tail) {
+      edge = head + 4 * p.nvec + (t - 4);
+    }
+    if (edge >= 0) e = __fadd_rn(__ldcg(dst + edge), x[edge]);
   }
+  float4* d = reinterpret_cast<float4*>(
+      reinterpret_cast<unsigned char*>(dst) + p.head);
+  const uint4* xs = reinterpret_cast<const uint4*>(
+      reinterpret_cast<const unsigned char*>(x) + p.head - p.phase);
+  const Index n = static_cast<Index>(p.nvec);
+  const Index grid = static_cast<Index>(gridDim.x) * kCopyThreads;
+  for (Index i = threadIdx.x + static_cast<Index>(blockIdx.x) * kCopyThreads;
+       i < n; i += grid * kAccVecs) {
+    float4 a[kAccVecs];
+    uint4 b[kAccVecs];
+#pragma unroll
+    for (int k = 0; k < kAccVecs; ++k) {
+      const Index j = i + k * grid;
+      if (j < n) {
+        a[k] = load_arena(d + j);
+        if constexpr (kW == 0) {
+          b[k] = __ldg(xs + j);
+        } else {
+          b[k] = join<kW>(__ldg(xs + j), __ldg(xs + j + 1), 0u);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kAccVecs; ++k) {
+      const Index j = i + k * grid;
+      if (j < n) store_arena(d + j, add4(a[k], b[k]));
+    }
+  }
+  if (edge >= 0) dst[edge] = e;
 }
 
 // The unary ops of ELEMWISE_FNS.  relu, relu6, bn, bias_add and scale use
@@ -323,6 +393,16 @@ int launch_phase(unsigned char* d, const unsigned char* s, const CopyPlan& p,
   }
 }
 
+template <int kW>
+int launch_accum(float* d, const float* x, const CopyPlan& p,
+                 cudaStream_t st) {
+  const long long want = (p.nvec + kCopyThreads - 1) / kCopyThreads;
+  const unsigned int blocks = static_cast<unsigned int>(
+      want < 1 ? 1 : (want < kMaxBlocks ? want : kMaxBlocks));
+  accum_kernel<kW><<<blocks, kCopyThreads, 0, st>>>(d, x, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_copy(bool read, void* dst, const void* src, long long nbytes,
                 long long head, long long nvec, long long tail, int phase,
                 void* stream) {
@@ -374,13 +454,28 @@ int repro_arena_read_u8(const void* arena, void* out, long long offset,
                      head, nvec, tail, phase, stream);
 }
 
+// accum: arena[offset : offset + n] += x; (head, nvec, tail, phase) is
+// copy_plan of the arena's and x's byte addresses and 4 * n, so head,
+// tail and phase are whole floats (a plan that is not is refused).
 int repro_arena_accum_f32(void* arena, const void* x, long long offset,
-                          long long n, void* stream) {
+                          long long n, long long head, long long nvec,
+                          long long tail, int phase, void* stream) {
   if (n <= 0) return 0;
-  accum_kernel<<<grid_for(n), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(arena), static_cast<const float*>(x), offset, n);
-  return static_cast<int>(cudaGetLastError());
+  float* d = static_cast<float*>(arena) + offset;
+  const float* s = static_cast<const float*>(x);
+  const CopyPlan p{head, nvec, tail, phase};
+  if (!plan_fits(reinterpret_cast<unsigned char*>(d),
+                 reinterpret_cast<const unsigned char*>(s), 4 * n, p) ||
+      p.head % 4 != 0 || p.phase % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (p.phase >> 2) {
+    case 0: return launch_accum<0>(d, s, p, st);
+    case 1: return launch_accum<1>(d, s, p, st);
+    case 2: return launch_accum<2>(d, s, p, st);
+    default: return launch_accum<3>(d, s, p, st);
+  }
 }
 
 int repro_arena_chain_write_f32(void* arena, const void* x, long long offset,

@@ -16,6 +16,7 @@ any launch.  Offsets and lengths are elements of the arena's dtype.
 Write and read are one byte copy in the kernel; :func:`copy_plan` splits
 it (head bytes, 16-byte body stores, tail bytes, and the source's phase)
 from the two byte addresses, and the launch passes the split along.
+Accum takes the same split of its f32 slice and ``x``.
 
 ``LAUNCHES`` counts the launches of each kernel (one per call that reached
 the device); :func:`reset_launches` sets the counts to 0.
@@ -102,12 +103,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries' argument and result types on ``lib``."""
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name in ("repro_arena_write_f32", "repro_arena_write_u8",
-                 "repro_arena_read_f32", "repro_arena_read_u8"):
+                 "repro_arena_read_f32", "repro_arena_read_u8",
+                 "repro_arena_accum_f32"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, ll, ll, ll, ll, ll, i, vp]
         fn.restype = i
-    lib.repro_arena_accum_f32.argtypes = [vp, vp, ll, ll, vp]
-    lib.repro_arena_accum_f32.restype = i
     fn = lib.repro_arena_chain_write_f32
     fn.argtypes = [vp, vp, ll, ll, _ChainOps, vp]
     fn.restype = i
@@ -186,8 +186,9 @@ def arena_accum_cuda(arena, x, offset: int):
     _check(arena, offset, n, (torch.float32,), x)
     if n == 0:
         return arena
+    plan = copy_plan(arena.data_ptr() + 4 * offset, x.data_ptr(), 4 * n)
     _build.raise_on(_library().repro_arena_accum_f32(
-        arena.data_ptr(), x.data_ptr(), offset, n, _stream(arena)),
+        arena.data_ptr(), x.data_ptr(), offset, n, *plan, _stream(arena)),
         "arena_accum")
     LAUNCHES["accum"] += 1
     return arena

@@ -14,7 +14,13 @@ raises if the launch was refused.  ``LAUNCHES["wkv6"]`` counts launches;
 
 It replaces ``wkv6_pallas`` / ``_wkv6_kernel`` of
 ``repro/kernels/rwkv6/kernel.py``; the source note says what bounds it and
-what the simple design leaves on the table.
+how its design meets that.  The kernel splits the work by
+:data:`TILE_COLS` columns of the state a block, :data:`ROW_SPLIT` lanes a
+column, :data:`CHUNK` steps staged at a time and :data:`BONUS_SPLIT` lanes
+a step's bonus; :func:`block_tile` is its
+grid rule, and ``ref.wkv6_tiled_torch`` repeats its decomposition in plain
+PyTorch.  The library reports the constants it was built with, and one
+that differs from these is refused.
 """
 
 from __future__ import annotations
@@ -31,6 +37,12 @@ SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "wkv6.cu"
 
 #: head sizes N the kernel is instantiated for (smoke 16, rwkv6-7b 64)
 HEAD_SIZES = (16, 32, 64)
+#: kTileCols, kRowSplit, kChunk and kBonusSplit of csrc/wkv6.cu: columns
+#: of the state a block owns (at most N), lanes a column's rows are split
+#: over, steps staged in shared memory at a time, and lanes a step's bonus
+#: is split over
+TILE_COLS, ROW_SPLIT, CHUNK, BONUS_SPLIT = 16, 8, 16, 8
+CONSTANTS = (TILE_COLS, ROW_SPLIT, CHUNK, BONUS_SPLIT)
 
 LAUNCHES = {"wkv6": 0}
 
@@ -42,6 +54,25 @@ _lib_lock = threading.Lock()
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def tile_cols(N: int) -> int:
+    """Columns of the state one block owns at head size ``N``."""
+    return min(N, TILE_COLS)
+
+
+def grid(B: int, H: int, N: int) -> int:
+    """Blocks of one launch: one per (b, h, tile of columns)."""
+    return B * H * (N // tile_cols(N))
+
+
+def block_tile(block: int, H: int, N: int) -> tuple[int, int, int, int]:
+    """``(b, h, j0, j1)``: the batch row, head and columns ``[j0, j1)`` of
+    the state that block ``block`` owns (``blockIdx.x`` in the kernel)."""
+    jt = tile_cols(N)
+    bh, tile = divmod(block, N // jt)
+    b, h = divmod(bh, H)
+    return b, h, tile * jt, (tile + 1) * jt
 
 
 def build() -> Path:
@@ -63,6 +94,14 @@ def _library() -> ctypes.CDLL:
                                ll, ll, ll, ll,         # B T H N
                                vp]                     # stream
                 fn.restype = ctypes.c_int
+            got = (ctypes.c_int * len(CONSTANTS))()
+            lib.repro_wkv6_constants.argtypes = [ctypes.c_void_p]
+            lib.repro_wkv6_constants.restype = None
+            lib.repro_wkv6_constants(got)
+            if tuple(got) != CONSTANTS:
+                raise _build.KernelBuildError(
+                    f"libwkv6 was built with (JT, R, C, bonus split) = "
+                    f"{tuple(got)}, kernel.py says {CONSTANTS}")
             _lib = lib
         return _lib
 

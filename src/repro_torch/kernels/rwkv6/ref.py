@@ -12,11 +12,26 @@ Shapes: r,k,v,w: (B, T, H, N); u: (H, N); state: (B, H, N, N).  The state
 update is spelled ``w * S + k * v`` (two products and a sum, each rounded
 in f32), which the CUDA kernel repeats without FMA contraction, so the
 final states agree to the bit.
+
+``wkv6_tiled_torch`` computes the same function in the CUDA kernel's
+decomposition (``csrc/wkv6.cu``), with its tile, row split and chunk from
+``kernel.py``: each tile of columns walks all steps on its own, chunk by
+chunk; a step's bonus is the in-order sums of ``BONUS_SPLIT`` runs of
+consecutive rows merged by a butterfly, and a column's output its row
+groups' FMA sums merged by a butterfly.  Its state
+is bit-equal to ``wkv6_ref``'s and its outputs agree to f32 rounding.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.rwkv6.kernel import (
+    BONUS_SPLIT,
+    CHUNK,
+    ROW_SPLIT,
+    tile_cols,
+)
 
 f32 = torch.float32
 
@@ -40,3 +55,65 @@ def wkv6_ref(r, k, v, w, u, initial_state=None, state_out=None):
     if state_out is not None:
         S = state_out.copy_(S)
     return out.to(r.dtype), S
+
+
+def _fma(a, b, c):
+    """f32 ``a * b + c`` rounded once, as ``__fmaf_rn`` (the product is
+    exact in f64; the sum is rounded there and again to f32, which differs
+    from one rounding only at a tie of the second)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _butterfly(x, masks):
+    """Each lane of the last dim adds its partner ``lane ^ m`` for each
+    mask in turn, as ``__shfl_xor_sync`` merges do (every lane ends with
+    the same sum)."""
+    idx = torch.arange(x.shape[-1], device=x.device)
+    for m in masks:
+        x = x + x[..., idx ^ m]
+    return x
+
+
+def wkv6_tiled_torch(r, k, v, w, u, initial_state=None, state_out=None):
+    """``wkv6_ref``'s function in the CUDA kernel's decomposition; returns
+    ``(out (B,T,H,N) in r's dtype, state (B,H,N,N) f32)``."""
+    B, T, H, N = r.shape
+    jt, R = tile_cols(N), ROW_SPLIT
+    rt_ = N // R                             # rows a thread
+    rf, kf, vf, wf = (x.to(f32) for x in (r, k, v, w))
+    uf = u.to(f32)
+    S0 = (torch.zeros((B, H, N, N), dtype=f32, device=r.device)
+          if initial_state is None else initial_state.to(f32))
+    S_out = torch.empty((B, H, N, N), dtype=f32, device=r.device)
+    out = torch.empty((B, T, H, N), dtype=f32, device=r.device)
+    bs = BONUS_SPLIT
+    split_masks = [1 << q for q in range(bs.bit_length() - 1)]
+    for j0 in range(0, N, jt):               # one block's columns
+        S = S0[..., j0:j0 + jt].clone()      # (B, H, N, jt)
+        for t0 in range(0, T, CHUNK):
+            cs = min(CHUNK, T - t0)
+            # the chunk's bonuses: lane l sums (r u) k over its N / bs
+            # consecutive rows in order, then the lanes merge
+            prod = ((rf[:, t0:t0 + cs] * uf) * kf[:, t0:t0 + cs]).view(
+                B, cs, H, bs, N // bs)
+            p = torch.zeros((B, cs, H, bs), dtype=f32, device=r.device)
+            for m in range(N // bs):
+                p = p + prod[..., m]
+            bon = _butterfly(p, split_masks)[..., 0]         # (B, cs, H)
+            for s in range(cs):
+                t = t0 + s
+                rt, kt, wt = rf[:, t], kf[:, t], wf[:, t]    # (B, H, N)
+                vt = vf[:, t, :, j0:j0 + jt]                  # (B, H, jt)
+                Sg = S.view(B, H, R, rt_, jt)
+                rg = rt.view(B, H, R, rt_)
+                a = torch.zeros((B, H, R, jt), dtype=f32, device=r.device)
+                for m in range(rt_):
+                    a = _fma(rg[..., m, None], Sg[:, :, :, m], a)
+                masks = [1 << q for q in range(R.bit_length() - 1)]
+                tot = _butterfly(a.transpose(-1, -2), masks)[..., 0]
+                out[:, t, :, j0:j0 + jt] = tot + bon[:, s, :, None] * vt
+                S = wt[..., None] * S + kt[..., None] * vt[..., None, :]
+        S_out[..., j0:j0 + jt] = S
+    if state_out is not None:
+        S_out = state_out.copy_(S_out)
+    return out.to(r.dtype), S_out

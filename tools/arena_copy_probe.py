@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Variants of the arena copy (write and read in ``csrc/arena.cu``) timed
-against each other and against torch's copy, on one CUDA card.  Run from
-the root of a checkout:
+"""Variants of the arena copy (write and read in ``csrc/arena.cu``) and of
+the arena accumulate (accum) timed against each other and against torch's
+copy and ``add_``, on one CUDA card.  Run from the root of a checkout:
 
     python3 tools/arena_copy_probe.py [variant ...]
 
@@ -9,11 +9,13 @@ Each variant is ``csrc/arena.cu`` with a few edits, built into
 ``build/arena_probe/`` (the repository's source is not changed) and bound
 in place of the library the wrappers load, so every call goes through
 ``arena_write_cuda`` / ``arena_read_cuda`` and ``copy_plan`` as on the main
-path:
+path (and accum through ``arena_accum_cuda``):
 
   main        the source as it is: blocks of 256 threads, 2 16-byte loads
               in flight a thread (__ldg), evict-first stores (__stcs),
-              64-bit indices, at least 8 blocks an SM (32 registers)
+              64-bit indices, at least 8 blocks an SM (32 registers);
+              accum 1 float4 read-modify-write a thread a pass, arena
+              loads by __ldcg, plain stores
   l1, l4      1 or 4 loads in flight a thread
   rows        a body that fills whole passes of the grid in rows of 512
               stores a block instead of spread over the grid
@@ -24,17 +26,24 @@ path:
   tma         the phase-0 body by a 1-D bulk copy (cp.async.bulk global ->
               shared -> global, one mbarrier), 16 KB a block's chunk
   empty       the same launches with no load or store: the floor a launch
-              of this grid costs
+              of this grid costs (copy and accum)
+  acc_v2, acc_v4  accum with 2 or 4 vectors a thread a pass
+  acc_stcs    accum with evict-first stores (__stcs)
+  acc_ld      accum with plain arena loads (through L1)
+  acc_old     the accum kernel of PRs 11-15: one float a thread, 4-byte
+              loads and store, 256 elements a block
 
 Shapes: the f32 launches one execute of ``darts_net_x6`` and
 ``randwire_net_32x8`` makes (slice and fused, as ``chip_smoke.py``
 records them), all together and by size (under 64 KB, 64 KB and over),
-and the u8 decode-state leaves of ``llama3.2-1b``,
-``rwkv6-7b`` and ``recurrentgemma-2b`` at their served plans.  For each,
-write and read: device us per launch warm (replayed as the main path
-finds L2) and cold (L2 flushed before each launch), and beside them the
-torch call (``copy_`` / ``clone``), timed first and last, and the names of
-its device activities.  The variants run
+the u8 decode-state leaves of ``llama3.2-1b``,
+``rwkv6-7b`` and ``recurrentgemma-2b`` at their served plans, and one
+accum of 16 MB (4,194,304 floats, beyond one wave of the grid).  For each,
+write, read and accum: device us per launch warm (replayed as the main
+path finds L2) and cold (L2 flushed before each launch), and beside them
+the torch call (``copy_`` / ``clone`` / ``add_``), timed first and last,
+and the names of its device activities.  A copy variant times write and
+read, an accum variant accum, main and empty all three.  The variants run
 in turns, main first and last; naming variants runs only those (and
 main).  One line per measurement with the card's
 name and power limit; all of it as JSON in
@@ -147,9 +156,50 @@ VARIANTS = {
     # the launch alone: the same grid, no load or store
     "empty": [(EDGE, "  return;\n" + EDGE)],
 }
+OLD_ACCUM = r'''
+__global__ void old_accum_kernel(float* arena, const float* __restrict__ x,
+                                 long long offset, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    arena[offset + i] = __fadd_rn(arena[offset + i], x[i]);
+  }
+}
+
+'''
+ACC_VECS = "constexpr int kAccVecs = 1;"
+ACC_LOAD = "  return __ldcg(p);\n}\n\n__device__ __forceinline__ void store_arena"
+ACC_STORE = "void store_arena(float4* p, float4 v) { *p = v; }"
+ACC_DOC = "// Replaces arena_accum_pallas / _accum_kernel"
+ACC_LAUNCH = "  const cudaStream_t st = static_cast<cudaStream_t>(stream);\n" \
+    "  switch (p.phase >> 2) {"
+VARIANTS.update({
+    "acc_v2": [(ACC_VECS, "constexpr int kAccVecs = 2;")],
+    "acc_v4": [(ACC_VECS, "constexpr int kAccVecs = 4;")],
+    "acc_stcs": [(ACC_STORE,
+                  "void store_arena(float4* p, float4 v) { __stcs(p, v); }")],
+    "acc_ld": [(ACC_LOAD, ACC_LOAD.replace("__ldcg(p)", "*p"))],
+    "acc_old": [(ACC_DOC, OLD_ACCUM + ACC_DOC),
+                (ACC_LAUNCH,
+                 "  old_accum_kernel<<<grid_for(n), kThreads, 0,\n"
+                 "      static_cast<cudaStream_t>(stream)>>>(\n"
+                 "      static_cast<float*>(arena), s, offset, n);\n"
+                 "  return static_cast<int>(cudaGetLastError());\n"
+                 + ACC_LAUNCH)],
+})
 UNCHECKED = {"empty"}
 ORDER = ("main", "l1", "l4", "rows", "i32", "ld", "ldcg", "st", "nolb",
-         "tma", "empty", "main")
+         "tma", "acc_v2", "acc_v4", "acc_stcs", "acc_ld", "acc_old", "empty",
+         "main")
+ALL_OPS = ("write", "read", "accum")
+
+
+def ops_of(name: str) -> tuple[str, ...]:
+    """The ops a variant changes, and so is timed at."""
+    if name in ("main", "empty"):
+        return ALL_OPS
+    return ("accum",) if name.startswith("acc_") else ("write", "read")
 
 
 def variant(name: str, edits) -> Path:
@@ -169,8 +219,8 @@ def variant(name: str, edits) -> Path:
 
 
 def f32_launches(dev):
-    """(write args, read args) of the f32 launches one execute of each
-    full network makes, on one random arena."""
+    """{op: args} of the f32 launches one execute of each full network
+    makes (write, read, accum), on one random arena."""
     import chip_smoke as CS
     import repro_torch as rt
     from repro_torch.graphs import FULL_NETWORKS
@@ -186,8 +236,22 @@ def f32_launches(dev):
     for _, _, _, n, _ in log:
         if n not in xs:
             xs[n] = torch.randn(n, device=dev, generator=gen)
-    return ([(arena, xs[n], o) for op, _, o, n, _ in log if op == "write"],
-            [(arena, o, n) for op, _, o, n, _ in log if op == "read"])
+    return {"write": [(arena, xs[n], o) for op, _, o, n, _ in log
+                      if op == "write"],
+            "read": [(arena, o, n) for op, _, o, n, _ in log
+                     if op == "read"],
+            "accum": [(arena, xs[n], o) for op, _, o, n, _ in log
+                      if op == "accum"]}
+
+
+def large_accum(dev):
+    """One accum of 16 MB at a word-shifted x: a DRAM stream beyond one
+    wave of the grid."""
+    n = 1 << 22
+    gen = torch.Generator(device=dev).manual_seed(11)
+    arena = torch.randn(n + 8, device=dev, generator=gen)
+    x = torch.randn(n + 4, device=dev, generator=gen)[1:n + 1]
+    return {"accum": [(arena, x, 2)]}
 
 
 def served_launches(dev):
@@ -214,35 +278,39 @@ def served_launches(dev):
                               dtype=torch.uint8, device=dev, generator=gen)
         xs = [torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
                             generator=gen) for _, n in spans]
-        out[arch] = ([(arena, x, o) for x, (o, _) in zip(xs, spans)],
-                     [(arena, o, n) for o, n in spans])
+        out[arch] = {"write": [(arena, x, o) for x, (o, _) in zip(xs, spans)],
+                     "read": [(arena, o, n) for o, n in spans]}
     return out
 
 
 def check_copies(name, sets):
-    """The variant must copy right before it is timed: its first launches
+    """The variant must be right before it is timed: its first launches
     of each set against the plain versions, bit for bit."""
     import chip_smoke as CS
     from repro_torch.kernels.arena import kernel as K
     from repro_torch.kernels.arena import ref as R
-    for sname, (wargs, rargs) in sets.items():
-        for args in wargs[:4]:
-            a = args[0].clone()
-            K.arena_write_cuda(a, *args[1:])
-            CS.check(torch.equal(a, R.arena_write_torch(
-                args[0].clone(), *args[1:])), f"{name} {sname} write")
-        for args in rargs[:4]:
-            CS.check(torch.equal(K.arena_read_cuda(*args),
-                                 R.arena_read_torch(*args)),
-                     f"{name} {sname} read")
+    for sname, ops in sets.items():
+        for op in ops_of(name):
+            for args in ops.get(op, [])[:4]:
+                if op == "read":
+                    ok = torch.equal(K.arena_read_cuda(*args),
+                                     R.arena_read_torch(*args))
+                else:
+                    a = args[0].clone()
+                    getattr(K, f"arena_{op}_cuda")(a, *args[1:])
+                    ok = torch.equal(a, getattr(R, f"arena_{op}_torch")(
+                        args[0].clone(), *args[1:]))
+                CS.check(ok, f"{name} {sname} {op}")
 
 
-def by_size(wargs, rargs):
+def by_size(f32):
     """The f32 launches in two sets by bytes: under 64 KB, and 64 KB and
     over."""
     cuts = (("f32 <64KB", 0, 16384), ("f32 >=64KB", 16384, 1 << 62))
-    return {name: ([a for a in wargs if lo <= a[1].shape[0] < hi],
-                   [a for a in rargs if lo <= a[2] < hi])
+    n_of = {"write": lambda a: a[1].shape[0], "read": lambda a: a[2],
+            "accum": lambda a: a[1].shape[0]}
+    return {name: {op: [a for a in args if lo <= n_of[op](a) < hi]
+                   for op, args in f32.items()}
             for name, lo, hi in cuts}
 
 
@@ -273,15 +341,18 @@ def main() -> int:
             print(f"probe: ptxas {name}: {ln}", flush=True)
     K._library()
     f32 = f32_launches(dev)
-    sets = {"f32": f32, **by_size(*f32), **served_launches(dev)}
+    sets = {"f32": f32, **by_size(f32), **served_launches(dev),
+            "f32 16MB": large_accum(dev)}
     flush = CS.L2Flush(dev)
     torch_fns = {"write": lambda a, x, o: a[o:o + x.shape[0]].copy_(x),
-                 "read": lambda a, o, n: a[o:o + n].clone()}
+                 "read": lambda a, o, n: a[o:o + n].clone(),
+                 "accum": lambda a, x, o: a[o:o + x.shape[0]].add_(x)}
 
-    def measure(tag, fns):
+    def measure(tag, fns, ops=ALL_OPS):
         res = {}
-        for sname, (wargs, rargs) in sets.items():
-            for op, args in (("write", wargs), ("read", rargs)):
+        for sname, by_op in sets.items():
+            for op in ops:
+                args = by_op.get(op)
                 if not args:
                     continue
                 fn = fns[op]
@@ -294,13 +365,14 @@ def main() -> int:
         return res
 
     results = {"card": card, "torch_first": measure("torch", torch_fns)}
-    for op, args in zip(("write", "read"), sets["f32"]):
+    for op, args in sets["f32"].items():
         names = sorted(CS.device_profile(
             lambda: [torch_fns[op](*a) for a in args[:64]])[2])
         results[f"torch {op} activities"] = names
         print(f"probe: torch {op} call's device activities: {names}",
               flush=True)
-    kernels = {"write": K.arena_write_cuda, "read": K.arena_read_cuda}
+    kernels = {"write": K.arena_write_cuda, "read": K.arena_read_cuda,
+               "accum": K.arena_accum_cuda}
     asked = set(sys.argv[1:]) | {"main"}
     for i, name in enumerate(ORDER):
         if name not in libs or (len(asked) > 1 and name not in asked):
@@ -308,7 +380,7 @@ def main() -> int:
         K._lib = K.bind(ctypes.CDLL(str(libs[name])))
         if name not in UNCHECKED:
             check_copies(name, sets)
-        results[f"{name}#{i}"] = measure(name, kernels)
+        results[f"{name}#{i}"] = measure(name, kernels, ops_of(name))
     results["torch_last"] = measure("torch", torch_fns)
     out = ROOT / "chiprun_out" / "arena_copy_probe.json"
     out.parent.mkdir(exist_ok=True)
