@@ -14,8 +14,8 @@ non-zero):
               (nvcc, sm_90a, all six started together) and print the build
               seconds of each, the registers, shared memory and spills
               (``-Xptxas -v``) of the arena kernels (accum among them), the
-              WKV-6 kernel and the two newer flash kernels, the card's name
-              and power limit;
+              WKV-6 and RG-LRU kernels and the two newer flash kernels, the
+              card's name and power limit;
 2. kernels -- hold each arena kernel against its plain PyTorch version on
               the card.  write and read (one vectorised byte copy split by
               ``copy_plan``), f32 and u8: every destination phase x source
@@ -32,7 +32,13 @@ non-zero):
               storage offset, at the f32 lengths above: bit-equal to the
               plain version, the floats around the slice and x unchanged;
               a split that does not fit its addresses, or is not whole
-              floats, refused.  accum and the exact chain ops also
+              floats, refused.  chain_write (the same split) of every
+              single op and five longer chains at every arena phase x x
+              phase mod 16 bytes, at the f32 lengths above: exact chains
+              bit-equal to the plain version, the rest allclose, the floats
+              around the slice and x unchanged; a split that does not fit
+              its addresses, or is not whole floats, refused (its launch
+              raises).  accum and the exact chain ops also
               bit-equal at random offsets and lengths 0, 1, 3, 4097 and
               150,528, the transcendental chain ops allclose; n == 0
               launches nothing;
@@ -70,10 +76,17 @@ non-zero):
               run of T 7 one step a launch (the one-step path) and a run
               whose final state overwrites its initial state in place
               equal the whole run bit for bit;
-5. rglru   -- the same for the RG-LRU kernel: gx bf16 and f32, D 16 and
-              2560, T 1/5/2560, with and without h0: h within the same
-              tolerances, hT within rtol 1e-5 + atol 1e-5 (the bit-equal
-              share is printed), split and in-place runs bit-equal;
+5. rglru   -- the same for the RG-LRU kernels: gx bf16 and f32, D 16, 37
+              (rows not 16-byte aligned), 40 (a ragged group of channels)
+              at batch 2 and 2560 at batch 1, T 1, 5, the route threshold
+              and one either side, a chunk and one either side, and 2560,
+              with and without h0; every case through both kernels (the
+              staged and the step kernel), which must agree bit for bit on
+              h and hT; h within the same tolerances of the plain version,
+              hT within rtol 1e-5 + atol 1e-5 (the bit-equal share is
+              printed); in-place runs and runs split in two (at the middle,
+              and after the threshold's steps, across the route boundary)
+              bit-equal to the whole run;
 6. main    -- plan every paper graph and full network with SERENITY and
               execute it in one arena on the card, slice-per-node and fused:
               realized == planned bytes, slice path bit-equal to
@@ -96,7 +109,9 @@ non-zero):
               f32, and in bf16 as served), every
               kernel's launches over the run exactly the path's count (an
               attention layer: one ``wgmma`` prefill per request and one
-              split-K decode per decode step, the simple kernel never), and
+              split-K decode per decode step, the simple kernel never; an
+              RG-LRU layer: one staged launch per prompt and one step
+              launch per decode step), and
               one prefilled cache packed and unpacked at the served plan by
               the u8 kernels bit-equal to their plain versions;
 8. timing  -- microseconds per ``execute`` of the two full networks, and per
@@ -116,7 +131,9 @@ non-zero):
               plain version and one torch copy), and its recurrence or
               attention kernel at
               decode and prefill shapes (attention: the routed kernel, the
-              simple kernel, the plain version and SDPA).
+              simple kernel, the plain version and SDPA; RG-LRU: also both
+              kernels at the prefill shape); chain_write beside ``copy_``
+              of the same bytes, a floor of its launch.
 
 The kernels JSON (one entry per kernel) is printed third from last, the
 card's name and power limit second from last, and ``{"ok": true,
@@ -126,6 +143,7 @@ non-zero before printing any of them.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -391,6 +409,86 @@ def sweep_accum(dev) -> dict:
     return cases
 
 
+def sweep_chain(dev, chains, err) -> tuple[dict, float]:
+    """chain_write of every chain in ``chains`` at every arena phase x x
+    phase mod 16 bytes (whole floats), at the f32 COPY_LENGTHS, as
+    sweep_accum runs accum: exact chains bit-equal to the plain version,
+    the rest allclose, the guard floats and x unchanged in every case; a
+    split that does not fit its addresses, or is not whole floats, is
+    refused and its launch raises.  Returns the cases run per (exact or
+    not, mode) and the worst error of the transcendental chains."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.arena import kernel as K
+    from repro_torch.kernels.arena import ref as R
+    from repro_torch.kernels.arena.elemwise import (
+        EXACT_OPS,
+        MAX_CHAIN,
+        chain_codes,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    cases, worst = {}, 0.0
+    for n in COPY_LENGTHS:
+        guard = 8                                # floats each side
+        full = torch.randn(guard + n + 2 * guard, device=dev, generator=gen)
+        src = 3 * torch.randn(n + 4, device=dev, generator=gen)
+        keep_src = src.clone()
+        for ops in chains:
+            exact = set(ops) <= EXACT_OPS
+            for dp in range(4):                  # arena phase: dp floats
+                o = guard + dp
+                for sp in range(4):              # x phase: sp floats
+                    x = src[sp:sp + n]
+                    a = full.clone()
+                    plan = K.copy_plan(a.data_ptr() + 4 * o, x.data_ptr(),
+                                       4 * n)
+                    K.arena_chain_write_cuda(a, x, o, ops)
+                    want = R.arena_chain_write_torch(full.clone(), x, o, ops)
+                    key = f"{'exact' if exact else 'transcendental'} " \
+                          f"{plan.mode}"
+                    cases[key] = cases.get(key, 0) + 1
+                    what = (f"chain_write {ops} n={n} arena phase {4 * dp} "
+                            f"B, x phase {4 * sp} B")
+                    check(torch.equal(a[:o], full[:o])
+                          and torch.equal(a[o + n:], full[o + n:])
+                          and torch.equal(src, keep_src),
+                          f"{what}: touched a float outside the slice or x")
+                    e = 0.0 if n == 0 else float(
+                        (a.double() - want.double()).abs().max())
+                    err["chain_write"] = max(err["chain_write"], e)
+                    if exact:
+                        check(torch.equal(a, want),
+                              f"{what}: differs from the plain version")
+                    else:
+                        worst = max(worst, e)
+                        check(torch.allclose(a, want, rtol=CHAIN_RTOL,
+                                             atol=CHAIN_ATOL),
+                              f"{what}: max abs err {e}")
+    torch.cuda.synchronize()
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    a, x = torch.zeros(64, device=dev), torch.zeros(16, device=dev)
+    codes = chain_codes(("bn", "relu"))
+    chain = K._ChainOps(len(codes), (ctypes.c_int * MAX_CHAIN)(*codes))
+    good = K.copy_plan(a.data_ptr() + 4, x.data_ptr(), 48)
+    small = K.copy_plan(a.data_ptr() + 4, x.data_ptr(), 12)
+    fn = K._library().repro_arena_chain_write_f32
+    for bad, n in ((good._replace(phase=(good.phase + 4) % 16), 12),
+                   (good._replace(head=good.head + 16), 12),
+                   (good._replace(tail=good.tail + 4), 12),
+                   # 9 + 3 bytes: fits the addresses, cuts floats
+                   (small._replace(head=small.head - 3,
+                                   tail=small.tail + 3), 3)):
+        try:
+            _build.raise_on(fn(a.data_ptr(), x.data_ptr(), 1, n, *bad, chain,
+                               stream), "arena_chain_write")
+        except _build.KernelLaunchError:
+            continue
+        check(False, f"the chain_write entry launched a wrong split {bad}")
+    torch.cuda.synchronize()
+    return cases, worst
+
+
 def phase_kernels(dev, rng, err):
     from repro_torch.kernels.arena import kernel as K
     from repro_torch.kernels.arena import ref as R
@@ -425,6 +523,7 @@ def phase_kernels(dev, rng, err):
     chains = [(op,) for op in ELEMWISE_OP_CODES] + [
         ("relu", "bn"), ("bn", "relu"), ("relu", "bn", "relu", "bn"),
         ("bn", "scale", "bias_add", "relu6"), ("gelu", "silu", "tanh")]
+    chain_cases, chain_worst = sweep_chain(dev, chains, err)
     worst_transcendental = 0.0
     for ops in chains:
         for n in SIZES:
@@ -452,8 +551,12 @@ def phase_kernels(dev, rng, err):
     say(f"kernels: write/read f32+u8 bit-equal with the guard bytes "
         f"untouched over every phase pair, cases per (op, dtype, mode) "
         f"{cases}; accum bit-equal over every phase pair of the f32 "
-        f"lengths, a wrong split refused; accum, exact chains bit-equal at "
-        f"n in {SIZES}; transcendental chains max abs err "
+        f"lengths, a wrong split refused; chain_write of {len(chains)} "
+        f"chains over every phase pair of the f32 lengths, cases per "
+        f"(chain kind, mode) {chain_cases}: exact chains bit-equal, guard "
+        f"floats and x untouched, transcendental chains max abs err "
+        f"{chain_worst:.3e}, a wrong split refused; accum, exact chains "
+        f"bit-equal at n in {SIZES}; transcendental chains max abs err "
         f"{worst_transcendental:.3e} (rtol {CHAIN_RTOL}, atol {CHAIN_ATOL}); "
         f"n == 0 launches nothing")
 
@@ -767,17 +870,27 @@ def phase_wkv6(dev, err):
         f"to the whole run")
 
 
+def rglru_cases(RK) -> tuple[list, list]:
+    """(D values, T values) of phase 5: a group of 16 channels, a ragged
+    group (40), rows that are not 16-byte aligned (37) and Griffin's width;
+    T at 1, around the route threshold and a chunk, and 2560."""
+    Ts = sorted({1, 5, RK.STEP_MAX_T - 1, RK.STEP_MAX_T, RK.STEP_MAX_T + 1,
+                 RK.CHUNK - 1, RK.CHUNK, RK.CHUNK + 1, 2560})
+    return [16, 37, 40, 2560], Ts
+
+
 def phase_rglru(dev, err):
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.rglru.ref import rglru_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    n = n_equal = 0
+    Ds, Ts = rglru_cases(RK)
+    n = n_equal = n_split = 0
     worst_hT = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for D in (16, 2560):
-            B = 2 if D == 16 else 1
-            for T in (1, 5, 2560):
+        for D in Ds:
+            B = 1 if D == 2560 else 2
+            for T in Ts:
                 for with_h0 in (False, True):
                     la = -0.5 * torch.exp(torch.randn(B, T, D, device=dev,
                                                       generator=gen))
@@ -785,11 +898,18 @@ def phase_rglru(dev, err):
                                      generator=gen).to(dtype)
                     h0 = torch.randn(B, D, device=dev, generator=gen) \
                         if with_h0 else None
-                    h, hT = RK.rglru_cuda(la, gx, h0)
+                    what = f"rglru {dtype} B={B} D={D} T={T} h0={with_h0}"
+                    # both kernels, whatever the route: the same bits
+                    h, hT = RK.rglru_staged_cuda(la, gx, h0)
+                    hs, hTs = RK.rglru_step_cuda(la, gx, h0)
+                    check(torch.equal(h, hs) and torch.equal(hT, hTs),
+                          f"{what}: the staged kernel differs from the step "
+                          f"kernel (h max abs err "
+                          f"{float((h.float() - hs.float()).abs().max())}, "
+                          f"hT {float((hT - hTs).abs().max())})")
                     hw, hTw = rglru_ref(la, gx, h0)
                     e, ok = fa_err(h, hw)
                     eT = float((hT - hTw).abs().max())
-                    what = f"rglru {dtype} B={B} D={D} T={T} h0={with_h0}"
                     check(ok, f"{what}: h max abs err {e}")
                     check(torch.allclose(hT, hTw, rtol=RG_RTOL,
                                          atol=RG_ATOL),
@@ -798,8 +918,19 @@ def phase_rglru(dev, err):
                     worst_hT = max(worst_hT, eT)
                     n_equal += int(torch.equal(h, hw)
                                    and torch.equal(hT, hTw))
-                    if T > 1:           # the carry threaded across two runs
-                        c = T // 2
+                    if with_h0:         # the final state over h0, in place
+                        s_in = h0.clone()
+                        h_in, s_out = RK.rglru_cuda(la, gx, s_in,
+                                                    state_out=s_in)
+                        check(s_out is s_in and torch.equal(s_in, hT)
+                              and torch.equal(h_in, h),
+                              f"{what}: the in-place run differs")
+                    # the carry threaded across two routed runs: at the
+                    # middle, and after STEP_MAX_T steps (the first run on
+                    # the step kernel, the second on the staged one)
+                    for c in {T // 2, RK.STEP_MAX_T} - {0, T}:
+                        if c > T:
+                            continue
                         h1, s1 = RK.rglru_cuda(la[:, :c].contiguous(),
                                                gx[:, :c].contiguous(), h0)
                         h2, s2 = RK.rglru_cuda(la[:, c:].contiguous(),
@@ -807,13 +938,21 @@ def phase_rglru(dev, err):
                                                state_out=s1)
                         check(s2 is s1 and torch.equal(s2, hT)
                               and torch.equal(torch.cat([h1, h2], 1), h),
-                              f"{what}: the split run differs")
+                              f"{what}: the run split after {c} steps "
+                              f"({RK.pick_route(c)} + "
+                              f"{RK.pick_route(T - c)}) differs")
+                        n_split += 1
                     n += 1
     torch.cuda.synchronize()
-    say(f"rglru: {n} cases (gx f32/bf16, D 16/2560, T 1/5/2560, with and "
-        f"without h0): h within tolerance, hT within rtol {RG_RTOL} + atol "
-        f"{RG_ATOL} (worst {worst_hT:.3e}); {n_equal} of {n} bit-equal to "
-        f"the plain version; split runs bit-equal to the whole run")
+    say(f"rglru: {n} cases (gx f32/bf16, D {Ds} (B 2, Griffin's 2560 B 1), "
+        f"T {Ts}, with and without h0; staged kernel: {RK.CHANNELS} "
+        f"channels a block, chunks of {RK.CHUNK}, {RK.STAGES} stages; the "
+        f"step kernel takes T <= {RK.STEP_MAX_T}): the staged and the step "
+        f"kernel bit-equal on h and hT in every case; h within tolerance of "
+        f"the plain version, hT within rtol {RG_RTOL} + atol {RG_ATOL} "
+        f"(worst {worst_hT:.3e}); {n_equal} of {n} bit-equal to the plain "
+        f"version; in-place runs and {n_split} split runs (across the route "
+        f"boundary too) bit-equal to the whole run")
 
 
 # ---------------------------------------------------------------------------
@@ -1175,6 +1314,20 @@ def phase_serve(dev, arch):
     for k, n in want.items():
         check(launches[k] == n, f"{arch}: {k} launched {launches[k]} times, "
                                 f"the serving path needs {n}")
+    routes = None
+    if want["rglru"]:
+        # each prompt through the staged kernel, each decode step through
+        # the step kernel, in every recurrent layer
+        from repro_torch.kernels.rglru import kernel as RK
+        layers = want["rglru"] // (N_REQ * GEN)
+        routes = dict(RK.ROUTES)
+        need = {"step": layers * N_REQ * (GEN - 1), "staged": layers * N_REQ}
+        check(routes == need and RK.pick_route(prompt_len) == "staged"
+              and RK.pick_route(1) == "step",
+              f"{arch}: rglru launches by kernel {routes}, the serving path "
+              f"needs {need}")
+        say(f"serve: {arch}: rglru launches by kernel {routes} (staged "
+            f"prefills, step decodes)")
     spans = check_served_packing(model, params, plan, reqs[0], dev)
 
     for r in reqs:
@@ -1200,7 +1353,7 @@ def phase_serve(dev, arch):
         say(f"serve: {arch}: zeroing the carried state before the first "
             f"decode step moves the logits by {moved} (max abs)")
     return dict(model=model, params=params, plan=plan, reqs=reqs,
-                launches=launches, spans=spans, smax=smax)
+                launches=launches, routes=routes, spans=spans, smax=smax)
 
 
 # ---------------------------------------------------------------------------
@@ -1451,6 +1604,14 @@ def phase_timing(plans, inputs, launches, err, card):
         plain_ms, plain_call_ms = time_replay(args, plain)
         lib_ms, lib_call_ms = (None, None) if lib is None \
             else time_replay(args, lib)
+        floor = ""
+        if name == "chain_write":
+            # no one torch call applies a chain: copy_ of the same bytes is
+            # a floor of the launch, not the same function
+            floor_ms = time_replay(
+                args, lambda a, x, o, ops: a[o:o + x.shape[0]].copy_(x))[0]
+            floor = (f"; launch-floor yardstick (copy_ of the same bytes, "
+                     f"not the same function) {floor_ms * 1e3:.3f}")
         mean_bytes = per_elem[name] * sum(r[3] for r in recs) / len(recs)
         bound_ms = mean_bytes / HBM_BYTES_PER_S * 1e3
         row = dict(
@@ -1473,7 +1634,8 @@ def phase_timing(plans, inputs, launches, err, card):
             f"(mean n {mean_bytes / per_elem[name]:.0f}); device us per "
             f"launch: kernel {ms * 1e3:.3f}, bound {bound_ms * 1e3:.3f} "
             f"(bytes), plain {plain_ms * 1e3:.3f}, torch call "
-            f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.3f}'}{cold}; "
+            f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:.3f}'}{cold}"
+            f"{floor}; "
             f"host-clock us per call: kernel {call_ms * 1e3:.2f}, plain "
             f"{plain_call_ms * 1e3:.2f}, torch call "
             f"{'n/a' if lib_call_ms is None else f'{lib_call_ms * 1e3:.2f}'} "
@@ -1894,11 +2056,33 @@ def rglru_row(ctx, err, card, dev):
         return la, gx, torch.randn(1, W, device=dev, generator=gen)
 
     shapes = {"decode": args(1), "prefill": args(len(ctx["reqs"][0].prompt))}
-    return recurrence_row(
+    row = recurrence_row(
         "rglru", lambda la, gx, h0: RK.rglru_cuda(la, gx, h0, state_out=h0),
         lambda la, gx, h0: rglru_ref(la, gx, h0, h0),
         lambda la, gx, h0: rglru_bound(*gx.shape, gx.element_size()),
         shapes, ctx["launches"], err, card)
+    # each kernel at the prefill shape in the same run: the staged kernel
+    # (the route), the step kernel (one thread a channel), the
+    # staged kernel again
+    fns = {"staged": RK.rglru_staged_cuda, "step": RK.rglru_step_cuda}
+    t = [(r, time_replay([shapes["prefill"]],
+                         lambda la, gx, h0, f=fns[r]: f(la, gx, h0,
+                                                        state_out=h0),
+                         reps=10, one_launch=True)[0])
+         for r in ("staged", "step", "staged")]
+    row["routes"] = {
+        "step": dict(source="src/repro_torch/csrc/rglru.cu "
+                            "(rglru_step_kernel)",
+                     launches=ctx["routes"]["step"], prefill_ms=t[1][1]),
+        "staged": dict(source="src/repro_torch/csrc/rglru.cu "
+                              "(rglru_staged_kernel)",
+                       launches=ctx["routes"]["staged"],
+                       prefill_ms=t[0][1], prefill_ms_again=t[2][1])}
+    say(f"timing: rglru prefill {tuple(shapes['prefill'][1].shape)} bf16, "
+        f"each kernel: device us per launch staged {t[0][1] * 1e3:.2f} "
+        f"(again {t[2][1] * 1e3:.2f}), step {t[1][1] * 1e3:.2f}; launches "
+        f"over the serving run {ctx['routes']} [{card}]")
+    return row
 
 
 def mqa_flash_timing(ctx, card, dev):
@@ -1949,8 +2133,8 @@ def main() -> int:
         for fut in builds:
             lib, sec = fut.result()
             say(f"build: {lib.relative_to(ROOT)} in {sec:.1f} s")
-            if lib.stem in ("libarena", "libwkv6", "libflash_decode",
-                            "libflash_prefill_sm90"):
+            if lib.stem in ("libarena", "libwkv6", "librglru",
+                            "libflash_decode", "libflash_prefill_sm90"):
                 for ln in _build.ptxas_report(lib):
                     say(f"build: ptxas {lib.stem[3:]}: {ln}")
     for mod in (K, WK, RK):
@@ -1962,9 +2146,13 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     err = {k: 0.0 for k in REPLACES}
     phase_kernels(dev, rng, err)
+    say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     flash_err = phase_flash(dev, err)
+    say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     phase_wkv6(dev, err)
+    say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     phase_rglru(dev, err)
+    say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     plans, inputs, launches, _ = phase_main(rng)
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 

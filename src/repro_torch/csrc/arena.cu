@@ -68,19 +68,29 @@
 // of a darts_net_x6 execute is ~37,700 floats (0.135 us of bytes), so the
 // launch and two L2 round trips set its time, as for the f32 copies.
 //
-// chain_write touches only the n elements of the slice (the Pallas
-// kernels copy the whole arena through, which exists only for their
-// interpret mode) and applies a whole alias chain in registers so a fused
-// chain costs one launch.
+// chain_write, arena[o:o+n] = ops[k-1](...ops[0](x)), is the same split
+// again: copy_plan(arena + 4 o, x, 4 n), x loaded at its phase as accum
+// loads it, the chain applied to the four floats in registers, one
+// dispatch an op for all four, each by the same op_of as one float (so
+// the ops and their rounding are the plain version's; a dispatch a float
+// made the kernel slower than the one-float kernel it replaces), float4
+// stores at 16-byte-aligned arena addresses, and the grid launch_mode's.
+// The ops travel packed in a 64-bit code (indexing the kernel's
+// parameters at run time put a copy of them in local memory), and a chain
+// of exact ops only runs an instance with no transcendental code (-0.06 us
+// a launch at the darts chains; tools/arena_copy_probe.py, chain_*
+// variants).  A fused chain costs one launch and touches only the slice
+// (the Pallas kernels copy the whole arena through, which exists only for
+// their interpret mode).  Its stores are plain, as accum's: the next node
+// reads the slice soon after.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-// enough blocks to fill 132 SMs several times over; the grid-stride loop
-// covers any longer slice
+// one resident wave of the copy's grid (8 blocks of 256 on each of 132
+// SMs); the grid-stride loop covers any longer slice
 constexpr long long kMaxBlocks = 132LL * 8;
 
 constexpr int kMaxChain = 16;  // MAX_CHAIN in kernels/arena/elemwise.py
@@ -110,19 +120,14 @@ enum ElemOp : int {
 
 }  // namespace
 
-// The chain travels by value in the kernel's parameters: no device copy of
-// the op list, no extra launch.
+// The chain as the C entry takes it (by value: no device copy of the op
+// list, no extra launch); the launch packs it into a Chain.
 struct ChainOps {
   int n;
   int op[kMaxChain];
 };
 
 namespace {
-
-unsigned int grid_for(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
-  return static_cast<unsigned int>(b < kMaxBlocks ? b : kMaxBlocks);
-}
 
 // The split of one copy, computed by copy_plan in kernels/arena/kernel.py:
 // head bytes, then nvec 16-byte stores from the first 16-byte-aligned
@@ -303,53 +308,145 @@ __global__ void __launch_bounds__(kCopyThreads, 2048 / kCopyThreads)
 // the same arithmetic as torch's eager CUDA kernels, with _rn intrinsics so
 // no FMA contraction separates them: bit-equal.  The transcendentals follow
 // torch's formulas with expf/tanhf: allclose.
-__device__ __forceinline__ float apply_op(int op, float v) {
+template <int kOp>
+__device__ __forceinline__ float op_of(float v) {
+  if constexpr (kOp == OP_RELU) {
+    return isnan(v) ? v : fmaxf(v, 0.0f);
+  } else if constexpr (kOp == OP_RELU6) {
+    return isnan(v) ? v : fminf(fmaxf(v, 0.0f), 6.0f);
+  } else if constexpr (kOp == OP_BN) {
+    return __fsub_rn(__fmul_rn(v, 1.05f), 0.02f);
+  } else if constexpr (kOp == OP_SIGMOID) {
+    return 1.0f / (1.0f + expf(-v));
+  } else if constexpr (kOp == OP_TANH) {
+    return tanhf(v);
+  } else if constexpr (kOp == OP_GELU) {
+    // tanh form, as jax.nn.gelu's default and F.gelu(approximate="tanh")
+    const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
+    const float kKappa = 0.044715f;
+    const float inner = kBeta * (v + kKappa * (v * v * v));
+    return 0.5f * v * (1.0f + tanhf(inner));
+  } else if constexpr (kOp == OP_SILU) {
+    return v / (1.0f + expf(-v));
+  } else if constexpr (kOp == OP_BIAS_ADD) {
+    return __fadd_rn(v, 0.05f);
+  } else if constexpr (kOp == OP_SCALE) {
+    return __fmul_rn(v, 0.9f);
+  } else {  // identity, dropout (inference), cast_inplace
+    return v;
+  }
+}
+
+template <int kOp, int N>
+__device__ __forceinline__ void map_op(float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = op_of<kOp>(v[i]);
+}
+
+// A chain as the kernel takes it: op k in bits 4k .. 4k + 3 of code, so
+// that no thread indexes the kernel's parameters at run time (which puts
+// a copy of them in local memory).
+struct Chain {
+  unsigned long long code;
+  int n;
+};
+
+__host__ __device__ constexpr bool exact_op(int op) {
+  return op != OP_SIGMOID && op != OP_TANH && op != OP_GELU && op != OP_SILU;
+}
+
+// An exact op on each of the N floats of v (the identities do nothing).
+template <int N>
+__device__ __forceinline__ void apply_exact(int op, float (&v)[N]) {
   switch (op) {
-    case OP_RELU:
-      return isnan(v) ? v : fmaxf(v, 0.0f);
-    case OP_RELU6:
-      return isnan(v) ? v : fminf(fmaxf(v, 0.0f), 6.0f);
-    case OP_BN:
-      return __fsub_rn(__fmul_rn(v, 1.05f), 0.02f);
-    case OP_SIGMOID:
-      return 1.0f / (1.0f + expf(-v));
-    case OP_TANH:
-      return tanhf(v);
-    case OP_GELU: {
-      // tanh form, as jax.nn.gelu's default and F.gelu(approximate="tanh")
-      const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
-      const float kKappa = 0.044715f;
-      const float inner = kBeta * (v + kKappa * (v * v * v));
-      return 0.5f * v * (1.0f + tanhf(inner));
+    case OP_RELU: map_op<OP_RELU>(v); break;
+    case OP_RELU6: map_op<OP_RELU6>(v); break;
+    case OP_BN: map_op<OP_BN>(v); break;
+    case OP_BIAS_ADD: map_op<OP_BIAS_ADD>(v); break;
+    case OP_SCALE: map_op<OP_SCALE>(v); break;
+    default: break;
+  }
+}
+
+// Any op on each of the N floats of v.
+template <int N>
+__device__ __forceinline__ void apply_any(int op, float (&v)[N]) {
+  switch (op) {
+    case OP_SIGMOID: map_op<OP_SIGMOID>(v); break;
+    case OP_TANH: map_op<OP_TANH>(v); break;
+    case OP_GELU: map_op<OP_GELU>(v); break;
+    case OP_SILU: map_op<OP_SILU>(v); break;
+    default: apply_exact(op, v); break;
+  }
+}
+
+// The chain on each of the N floats of v, op by op: one dispatch an op for
+// all N (the chain is the launch's, so every thread takes the same case).
+// With kExact (a chain of exact ops only) the kernel holds neither the
+// transcendental ops' code nor their cases (tools/arena_copy_probe.py,
+// chain_general, measures what they cost).
+template <bool kExact, int N>
+__device__ __forceinline__ void apply_chain(const Chain& c, float (&v)[N]) {
+  unsigned long long code = c.code;
+  for (int k = 0; k < c.n; ++k, code >>= 4) {
+    const int op = static_cast<int>(code & 15);
+    if constexpr (kExact) {
+      apply_exact(op, v);
+    } else {
+      apply_any(op, v);
     }
-    case OP_SILU:
-      return v / (1.0f + expf(-v));
-    case OP_BIAS_ADD:
-      return __fadd_rn(v, 0.05f);
-    case OP_SCALE:
-      return __fmul_rn(v, 0.9f);
-    default:  // identity, dropout (inference), cast_inplace
-      return v;
   }
 }
 
 // Replaces arena_chain_write_pallas / _chain_write_kernel: a whole in-place
-// alias chain in one launch.  Bound: 2*n*4 bytes; the chain's flops (a few
-// dozen per element at most) are far below the card's 67 TFLOP/s f32 rate.
-// The running value stays in a register from the first op to the store.
-__global__ void chain_write_kernel(float* arena, const float* __restrict__ x,
-                                   long long offset, long long n,
-                                   ChainOps ops) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    float v = x[i];
-    for (int k = 0; k < ops.n; ++k) {
-      v = apply_op(ops.op[k], v);
+// alias chain in one launch, dst[0:n] = chain(x[0:n]) split by p (in
+// bytes, as for accum).  Bound: 2*n*4 bytes; the chain's flops (a few
+// dozen per element at most) are far below the card's 67 TFLOP/s f32
+// rate.  kW is x's phase in words, as for accum; kExact says every op of
+// the chain is exact.  The running values stay in registers from the first
+// op to the store; the edge floats (at most 3 a side) are loaded and
+// chained by the first threads of block 0 before the body and stored after
+// it.
+template <int kW, bool kExact>
+__global__ void __launch_bounds__(kCopyThreads, 2048 / kCopyThreads)
+    chain_write_kernel(float* dst, const float* __restrict__ x, CopyPlan p,
+                       Chain ops) {
+  long long edge = -1;
+  float e = 0.f;
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    const int t = threadIdx.x;
+    const long long head = p.head / 4, tail = p.tail / 4;
+    if (t < head) {
+      edge = t;
+    } else if (t >= 4 && t - 4 < tail) {
+      edge = head + 4 * p.nvec + (t - 4);
     }
-    arena[offset + i] = v;
+    if (edge >= 0) {
+      float v[1] = {x[edge]};
+      apply_chain<kExact>(ops, v);
+      e = v[0];
+    }
   }
+  float4* d = reinterpret_cast<float4*>(
+      reinterpret_cast<unsigned char*>(dst) + p.head);
+  const uint4* xs = reinterpret_cast<const uint4*>(
+      reinterpret_cast<const unsigned char*>(x) + p.head - p.phase);
+  const Index n = static_cast<Index>(p.nvec);
+  const Index grid = static_cast<Index>(gridDim.x) * kCopyThreads;
+  for (Index i = threadIdx.x + static_cast<Index>(blockIdx.x) * kCopyThreads;
+       i < n; i += grid) {
+    uint4 b;
+    if constexpr (kW == 0) {
+      b = __ldg(xs + i);
+    } else {
+      b = join<kW>(__ldg(xs + i), __ldg(xs + i + 1), 0u);
+    }
+    float v[4] = {__uint_as_float(b.x), __uint_as_float(b.y),
+                  __uint_as_float(b.z), __uint_as_float(b.w)};
+    apply_chain<kExact>(ops, v);
+    store_arena(d + i, make_float4(v[0], v[1], v[2], v[3]));
+  }
+  if (edge >= 0) dst[edge] = e;
 }
 
 // The plan must split exactly nbytes, with the body's stores 16-byte
@@ -401,6 +498,33 @@ int launch_accum(float* d, const float* x, const CopyPlan& p,
       want < 1 ? 1 : (want < kMaxBlocks ? want : kMaxBlocks));
   accum_kernel<kW><<<blocks, kCopyThreads, 0, st>>>(d, x, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kW, bool kExact>
+int launch_chain_k(float* d, const float* x, const CopyPlan& p,
+                   const Chain& ops, cudaStream_t st) {
+  const long long want = (p.nvec + kCopyThreads - 1) / kCopyThreads;
+  const unsigned int blocks = static_cast<unsigned int>(
+      want < 1 ? 1 : (want < kMaxBlocks ? want : kMaxBlocks));
+  chain_write_kernel<kW, kExact><<<blocks, kCopyThreads, 0, st>>>(d, x, p,
+                                                                  ops);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kW>
+int launch_chain(float* d, const float* x, const CopyPlan& p,
+                 const Chain& ops, bool exact, cudaStream_t st) {
+  return exact ? launch_chain_k<kW, true>(d, x, p, ops, st)
+               : launch_chain_k<kW, false>(d, x, p, ops, st);
+}
+
+// The f32 split of accum and chain_write must fit the two addresses and
+// take whole floats.
+bool f32_plan_fits(const float* d, const float* s, long long n,
+                   const CopyPlan& p) {
+  return plan_fits(reinterpret_cast<const unsigned char*>(d),
+                   reinterpret_cast<const unsigned char*>(s), 4 * n, p) &&
+         p.head % 4 == 0 && p.phase % 4 == 0;
 }
 
 int launch_copy(bool read, void* dst, const void* src, long long nbytes,
@@ -464,9 +588,7 @@ int repro_arena_accum_f32(void* arena, const void* x, long long offset,
   float* d = static_cast<float*>(arena) + offset;
   const float* s = static_cast<const float*>(x);
   const CopyPlan p{head, nvec, tail, phase};
-  if (!plan_fits(reinterpret_cast<unsigned char*>(d),
-                 reinterpret_cast<const unsigned char*>(s), 4 * n, p) ||
-      p.head % 4 != 0 || p.phase % 4 != 0) {
+  if (!f32_plan_fits(d, s, n, p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -478,17 +600,37 @@ int repro_arena_accum_f32(void* arena, const void* x, long long offset,
   }
 }
 
+// chain_write: arena[offset : offset + n] = ops(x); the split is accum's
+// (copy_plan of the arena's and x's byte addresses and 4 * n, whole
+// floats).  A chain longer than kMaxChain, or with an op code that is not
+// one of enum ElemOp's, is refused.
 int repro_arena_chain_write_f32(void* arena, const void* x, long long offset,
-                                long long n, ChainOps ops, void* stream) {
+                                long long n, long long head, long long nvec,
+                                long long tail, int phase, ChainOps ops,
+                                void* stream) {
   if (n <= 0) return 0;
-  if (ops.n < 0 || ops.n > kMaxChain) {
+  float* d = static_cast<float*>(arena) + offset;
+  const float* s = static_cast<const float*>(x);
+  const CopyPlan p{head, nvec, tail, phase};
+  if (ops.n < 0 || ops.n > kMaxChain || !f32_plan_fits(d, s, n, p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  chain_write_kernel<<<grid_for(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(arena), static_cast<const float*>(x), offset, n,
-      ops);
-  return static_cast<int>(cudaGetLastError());
+  Chain c{0, ops.n};
+  bool exact = true;
+  for (int k = 0; k < ops.n; ++k) {
+    if (ops.op[k] < 0 || ops.op[k] > OP_SCALE) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    c.code |= static_cast<unsigned long long>(ops.op[k]) << (4 * k);
+    exact = exact && exact_op(ops.op[k]);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (p.phase >> 2) {
+    case 0: return launch_chain<0>(d, s, p, c, exact, st);
+    case 1: return launch_chain<1>(d, s, p, c, exact, st);
+    case 2: return launch_chain<2>(d, s, p, c, exact, st);
+    default: return launch_chain<3>(d, s, p, c, exact, st);
+  }
 }
 
 }  // extern "C"

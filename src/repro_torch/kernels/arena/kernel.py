@@ -16,7 +16,7 @@ any launch.  Offsets and lengths are elements of the arena's dtype.
 Write and read are one byte copy in the kernel; :func:`copy_plan` splits
 it (head bytes, 16-byte body stores, tail bytes, and the source's phase)
 from the two byte addresses, and the launch passes the split along.
-Accum takes the same split of its f32 slice and ``x``.
+Accum and chain_write take the same split of their f32 slice and ``x``.
 
 ``LAUNCHES`` counts the launches of each kernel (one per call that reached
 the device); :func:`reset_launches` sets the counts to 0.
@@ -109,7 +109,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [vp, vp, ll, ll, ll, ll, ll, i, vp]
         fn.restype = i
     fn = lib.repro_arena_chain_write_f32
-    fn.argtypes = [vp, vp, ll, ll, _ChainOps, vp]
+    fn.argtypes = [vp, vp, ll, ll, ll, ll, ll, i, _ChainOps, vp]
     fn.restype = i
     return lib
 
@@ -196,15 +196,17 @@ def arena_accum_cuda(arena, x, offset: int):
 
 def arena_chain_write_cuda(arena, x, offset: int, ops=()):
     """Apply the elementwise chain ``ops`` to ``x`` in registers and write
-    the result at ``offset`` (f32), one launch; returns arena."""
+    the result at ``offset`` (f32), one launch split by :func:`copy_plan`
+    as accum's is; returns arena."""
     codes = chain_codes(ops)
     n = x.shape[0]
     _check(arena, offset, n, (torch.float32,), x)
     if n == 0:
         return arena
     chain = _ChainOps(len(codes), (ctypes.c_int * MAX_CHAIN)(*codes))
+    plan = copy_plan(arena.data_ptr() + 4 * offset, x.data_ptr(), 4 * n)
     _build.raise_on(_library().repro_arena_chain_write_f32(
-        arena.data_ptr(), x.data_ptr(), offset, n, chain, _stream(arena)),
-        "arena_chain_write")
+        arena.data_ptr(), x.data_ptr(), offset, n, *plan, chain,
+        _stream(arena)), "arena_chain_write")
     LAUNCHES["chain_write"] += 1
     return arena

@@ -1,10 +1,11 @@
-"""RG-LRU recurrence of Griffin: the CUDA kernel and its plain PyTorch
+"""RG-LRU recurrence of Griffin: the CUDA kernels and their plain PyTorch
 version.
 
 ops.py    -- ``rglru`` dispatch (impl in {auto, cuda, torch, ref}; no
              environment override)
-kernel.py -- the CUDA kernel (csrc/rglru.cu): build, ctypes binding,
-             checked launches, launch count
+kernel.py -- the CUDA kernels (csrc/rglru.cu: a step kernel for decode,
+             a staged kernel for prefill, by ``pick_route``): build,
+             ctypes binding, checked launches, launch counts
 ref.py    -- the plain version ``rglru_ref``, the sequential recurrence
              with an f32 carry
 

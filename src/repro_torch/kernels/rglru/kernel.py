@@ -1,20 +1,33 @@
-"""CUDA RG-LRU kernel for Hopper: build, bind, launch.
+"""CUDA RG-LRU kernels for Hopper: build, bind, launch.
 
-The kernel lives in ``repro_torch/csrc/rglru.cu`` (plain C interface).  The
+The kernels live in ``repro_torch/csrc/rglru.cu`` (plain C interface).  The
 first call compiles it into ``build/repro_torch/<source hash>/librglru.so``
 (:mod:`repro_torch.kernels._build`) and loads it with ``ctypes``; nothing
 is built when this module is imported.
 
-:func:`rglru_cuda` takes CUDA tensors only and checks device, dtypes
-(``log_a`` and the carries f32, ``gx`` bf16 or f32), contiguity, shapes
-and T >= 1; it allocates the outputs with ``torch.empty``, launches on
-PyTorch's current stream and raises if the launch was refused.
-``LAUNCHES["rglru"]`` counts launches; :func:`reset_launches` sets it
-to 0.
+Two kernels compute the same bits by a fixed route of T
+(:func:`pick_route`): the step kernel (one thread a channel for all T)
+takes ``T <= STEP_MAX_T`` (decode), the staged kernel the rest (prefill:
+blocks of :data:`CHANNELS` channels, chunks of :data:`CHUNK` steps loaded
+:data:`STAGES` deep, compute warps for the gates and one walker warp for
+the carry; :func:`grid` and :func:`smem_bytes` are its launch shape).
+:func:`rglru_cuda` follows the route; :func:`rglru_step_cuda` and
+:func:`rglru_staged_cuda` launch one kernel each, at any T >= 1, so the two
+can be held against each other.  A route that cannot launch raises; no
+call falls to the other route.
+
+Each wrapper takes CUDA tensors only and checks device, dtypes (``log_a``
+and the carries f32, ``gx`` bf16 or f32), contiguity, shapes and T >= 1;
+it allocates the outputs with ``torch.empty``, launches on PyTorch's
+current stream and raises if the launch was refused.
+``LAUNCHES["rglru"]`` counts launches of either kernel, ``ROUTES`` each
+kernel's; :func:`reset_launches` sets both to 0.  The library reports
+the constants it was built with, and one that differs from these is
+refused.
 
 It replaces ``rglru_pallas`` / ``_rglru_kernel`` of
 ``repro/kernels/rglru/kernel.py``; the source note says what bounds it and
-what the simple design leaves on the table.
+how the staged design meets that.
 """
 
 from __future__ import annotations
@@ -29,7 +42,14 @@ from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "rglru.cu"
 
+#: kChannels, kChunk, kStages and kStepMaxT of csrc/rglru.cu: channels a
+#: staged block owns, steps staged at a time, chunks in its load ring, and
+#: the longest T the step kernel takes
+CHANNELS, CHUNK, STAGES, STEP_MAX_T = 32, 128, 3, 8
+CONSTANTS = (CHANNELS, CHUNK, STAGES, STEP_MAX_T)
+
 LAUNCHES = {"rglru": 0}
+ROUTES = {"step": 0, "staged": 0}
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _lib = None
@@ -37,8 +57,48 @@ _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, ROUTES):
+        for k in d:
+            d[k] = 0
+
+
+def pick_route(T: int) -> str:
+    """The kernel that takes a call of T steps: ``"step"`` up to
+    :data:`STEP_MAX_T`, else ``"staged"``."""
+    return "step" if T <= STEP_MAX_T else "staged"
+
+
+def grid(B: int, D: int) -> int:
+    """Blocks of a staged launch: one per batch row and group of
+    :data:`CHANNELS` channels (the last group ragged)."""
+    return B * -(-D // CHANNELS)
+
+
+def block_channels(block: int, D: int) -> tuple[int, int, int]:
+    """``(b, d0, d1)``: the batch row and channels ``[d0, d1)`` that staged
+    block ``block`` owns (``blockIdx.x`` in the kernel)."""
+    b, g = divmod(block, -(-D // CHANNELS))
+    return b, g * CHANNELS, min(D, (g + 1) * CHANNELS)
+
+
+def smem_bytes(esz: int) -> int:
+    """Dynamic shared memory of a staged block at gx's element size: the
+    load ring (la f32 and gx, STAGES chunks) and a and b (f32) of two
+    chunks."""
+    return CHUNK * CHANNELS * (STAGES * (4 + esz) + 2 * 8)
+
+
+def copy_channels(D: int, esz: int, la_addr: int = 0, gx_addr: int = 0
+                  ) -> int:
+    """Channels one copy of the staged kernel moves: the largest of 8, 4, 2
+    and 1 that divides D and keeps every copy aligned to its size, ``min(16,
+    4 v)`` bytes of la and ``min(16, esz v)`` of gx (at ``la_addr`` and
+    ``gx_addr``).  8 at Griffin's width: 16-byte copies of both."""
+    for v in (8, 4, 2, 1):
+        if (D % v == 0 and la_addr % min(16, 4 * v) == 0
+                and gx_addr % min(16, esz * v) == 0):
+            return v
+    return 1
 
 
 def build() -> Path:
@@ -52,13 +112,26 @@ def _library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            vp, ll = ctypes.c_void_p, ctypes.c_longlong
+            vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             for sfx in _SUFFIX.values():
-                fn = getattr(lib, f"repro_rglru_{sfx}")
+                fn = getattr(lib, f"repro_rglru_step_{sfx}")
                 fn.argtypes = [vp, vp, vp, vp, vp,     # la gx h0 h hT
                                ll, ll, ll,             # B T D
                                vp]                     # stream
-                fn.restype = ctypes.c_int
+                fn.restype = i
+                fn = getattr(lib, f"repro_rglru_staged_{sfx}")
+                fn.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll,
+                               i,                      # channels a copy
+                               vp]
+                fn.restype = i
+            got = (ctypes.c_int * len(CONSTANTS))()
+            lib.repro_rglru_constants.argtypes = [ctypes.c_void_p]
+            lib.repro_rglru_constants.restype = None
+            lib.repro_rglru_constants(got)
+            if tuple(got) != CONSTANTS:
+                raise _build.KernelBuildError(
+                    f"librglru was built with (CHANNELS, CHUNK, STAGES, "
+                    f"STEP_MAX_T) = {tuple(got)}, kernel.py says {CONSTANTS}")
             _lib = lib
         return _lib
 
@@ -93,19 +166,39 @@ def _check(log_a, gx, h0, state_out) -> None:
                              f"shape {(B, D)} on {gx.device}")
 
 
-def rglru_cuda(log_a, gx, h0=None, *, state_out=None):
-    """The RG-LRU recurrence on the card: log_a (f32) and gx ``(B,T,D)`` ->
-    (h ``(B,T,D)`` in gx's dtype, hT ``(B,D)`` f32).  ``state_out``
-    receives hT (a fresh tensor when None) and may be ``h0`` itself."""
+def _launch(route: str, log_a, gx, h0, state_out):
     _check(log_a, gx, h0, state_out)
     B, T, D = gx.shape
     h = torch.empty_like(gx)
     hT = state_out if state_out is not None else torch.empty(
         (B, D), dtype=torch.float32, device=gx.device)
-    fn = getattr(_library(), f"repro_rglru_{_SUFFIX[gx.dtype]}")
+    fn = getattr(_library(), f"repro_rglru_{route}_{_SUFFIX[gx.dtype]}")
+    extra = () if route == "step" else (copy_channels(
+        D, gx.element_size(), log_a.data_ptr(), gx.data_ptr()),)
     stream = torch.cuda.current_stream(gx.device).cuda_stream
     _build.raise_on(fn(log_a.data_ptr(), gx.data_ptr(),
                        None if h0 is None else h0.data_ptr(), h.data_ptr(),
-                       hT.data_ptr(), B, T, D, stream), "rglru")
+                       hT.data_ptr(), B, T, D, *extra, stream),
+                    f"rglru {route}")
     LAUNCHES["rglru"] += 1
+    ROUTES[route] += 1
     return h, hT
+
+
+def rglru_step_cuda(log_a, gx, h0=None, *, state_out=None):
+    """The step kernel (one thread a channel) at any T >= 1."""
+    return _launch("step", log_a, gx, h0, state_out)
+
+
+def rglru_staged_cuda(log_a, gx, h0=None, *, state_out=None):
+    """The staged kernel (compute warps and a walker warp) at any T >= 1."""
+    return _launch("staged", log_a, gx, h0, state_out)
+
+
+def rglru_cuda(log_a, gx, h0=None, *, state_out=None):
+    """The RG-LRU recurrence on the card through the kernel
+    :func:`pick_route` names: log_a (f32) and gx ``(B,T,D)`` -> (h
+    ``(B,T,D)`` in gx's dtype, hT ``(B,D)`` f32).  ``state_out`` receives
+    hT (a fresh tensor when None) and may be ``h0`` itself."""
+    route = pick_route(gx.shape[1]) if gx.dim() == 3 else "step"
+    return _launch(route, log_a, gx, h0, state_out)

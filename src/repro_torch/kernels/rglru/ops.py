@@ -2,10 +2,12 @@
 
 ``rglru(log_a, gx, h0, *, impl)``:
 
-  * ``"auto"``          -- the CUDA kernel for tensors on the card,
+  * ``"auto"``          -- the CUDA kernels for tensors on the card,
                            ``"torch"`` for tensors on the CPU;
-  * ``"cuda"``          -- the CUDA kernel (``csrc/rglru.cu``); raises for
-                           a tensor on the CPU;
+  * ``"cuda"``          -- the CUDA kernels (``csrc/rglru.cu``: the step
+                           kernel for T <= ``kernel.STEP_MAX_T``, the
+                           staged kernel beyond, by ``kernel.pick_route``);
+                           raises for a tensor on the CPU;
   * ``"torch"``/``"ref"`` -- the sequential recurrence in plain PyTorch
                            (:func:`~repro_torch.kernels.rglru.ref.rglru_ref`,
                            the plain version the kernel is held against;
