@@ -64,7 +64,14 @@ non-zero):
               and 64 splits) against ``flash_decode_partials_torch`` and its
               output against ``flash_decode_combine_torch``, with splits
               fully masked for some rows and a row masked in every split
-              (output 0, no NaN);
+              (output 0, no NaN); and the launch a captured decode step
+              makes, the position on the device and the capacity split
+              rule, at llama3.2-1b's and recurrentgemma-2b's served caches
+              and a small f32 one, at positions from 0 to the last: the
+              rule's splits, partials and output against the plain
+              versions with a tensor position and the oracle, and bit-equal
+              to the host-position launch wherever the host rule splits
+              alike;
 4. wkv6    -- hold the WKV-6 kernel against its plain version on the card:
               bf16 and f32, N 16/32/64, batch 1 at T 1/7/256/1000/1024
               with and without an initial state, and batch 2 at T 1000
@@ -92,8 +99,17 @@ non-zero):
               realized == planned bytes, slice path bit-equal to
               ``run_reference`` on the card, fused path bit-equal where every
               fused chain is exact (else allclose), the planner's known
-              integers, a uint8 pack/unpack round trip, and each of the four
-              kernels launched > 0 times over the run;
+              integers, a uint8 pack/unpack round trip; then every one
+              again with ``jit=True`` (one CUDA graph per program, the
+              counterpart of ``repro``'s whole-program jit), slice and
+              fused: the first call, a replay and a replay with other
+              inputs bit-equal to the eager runs and held to
+              ``run_reference`` as they are, a replay's outputs not
+              overwritten by the next, realized == planned, and the arena
+              launches per replay, as the capture counted them and in the
+              most complete of three traces of a replay, equal to the eager
+              run's; each of the four kernels launched > 0 times over the
+              run;
 7. serve   -- the serving path, once per model at its published width
               (random weights from a seed; for ``rwkv6-7b`` and
               ``recurrentgemma-2b`` the recurrent mixing leaves, zeros or
@@ -102,10 +118,12 @@ non-zero):
               requests of 32 generated tokens under the CLI's default
               budget: ``llama3.2-1b`` and ``rwkv6-7b`` with 1024 prompt
               tokens, ``recurrentgemma-2b`` with 2560 (longer than its
-              2048-key window): the decode plan's integers, 4 served and
-              128 tokens, tokens bit-equal to a prefill + decode loop that
-              keeps the cache as plain tensors, the first decode steps'
-              logits of the kernels allclose to the plain versions' (in
+              2048-key window), every decode token through the server's
+              one captured decode step (a CUDA graph for every position):
+              the decode plan's integers, 4 served and
+              128 tokens, tokens bit-equal to an eager prefill + decode
+              loop that keeps the cache as plain tensors, the first decode
+              steps' logits of the kernels allclose to the plain versions' (in
               f32, and in bf16 as served), every
               kernel's launches over the run exactly the path's count (an
               attention layer: one ``wgmma`` prefill per request and one
@@ -114,12 +132,17 @@ non-zero):
               launch per decode step), and
               one prefilled cache packed and unpacked at the served plan by
               the u8 kernels bit-equal to their plain versions;
-8. timing  -- microseconds per ``execute`` of the two full networks, and per
+8. timing  -- microseconds per ``execute`` of the two full networks, eager
+              and captured (``jit=True``) in turns, each with the device's
+              busy time and idle share, and per
               kernel at the launches the main paths made: the kernel, its
               bound, its plain version and the one torch call that computes
               the same (a yardstick, never called by the port), for write
-              and read also cold (L2 flushed before each launch); for each
-              served model its prefill ms per request, ms per decode token,
+              and read also cold (L2 flushed before each launch) and inside
+              a replayed CUDA graph of the launches beside ``copy_`` there;
+              for each served model its prefill ms per request, ms per
+              decode token captured (the server) and eager (the same
+              token's unpack, eager step and pack),
               the device's busy time and idle share over one prefill (with
               its largest kernels) and one decode step and
               its launches (no more device activities per decode token than
@@ -131,6 +154,7 @@ non-zero):
               plain version and one torch copy), and its recurrence or
               attention kernel at
               decode and prefill shapes (attention: the routed kernel, the
+              decode kernel at a device position, the
               simple kernel, the plain version and SDPA; RG-LRU: also both
               kernels at the prefill shape); chain_write beside ``copy_``
               of the same bytes, a floor of its launch.
@@ -711,43 +735,52 @@ def phase_flash_split(dev, gen):
          dict(q_start=8, kv_len=9, window=2), 2),
     ]
     worst = 0.0
+
+    def hold(what, q, k, v, got, want, ref_kw, dtype):
+        """One launch's partials and output against the plain versions'
+        and the oracle; returns (m, l, acc, merge, oracle) errors and the
+        mask of live (split, row) partials."""
+        out, m, l, acc = got
+        mw, lw, aw = want
+        vmax = float(v.float().abs().max())
+        check(m.shape == mw.shape, f"{what}: {m.shape} vs {mw.shape}")
+        check(not any(bool(torch.isnan(t).any())
+                      for t in (out.float(), m, l, acc)), f"{what}: NaN")
+        live = torch.isfinite(mw)
+        check(torch.equal(live, torch.isfinite(m)),
+              f"{what}: the -inf splits differ")
+        em = float((m - mw).abs()[live].max()) if live.any() else 0.0
+        el = float((l - lw).abs().max())
+        ea = float((acc - aw).abs().max())
+        check(bool(((m - mw).abs()[live] <= SPLIT_TOL
+                    * (1 + mw.abs()[live])).all())
+              and bool(((l - lw).abs() <= SPLIT_TOL * (1 + lw)).all())
+              and bool(((acc - aw).abs() <= SPLIT_TOL
+                        * (1 + lw[..., None] * vmax)).all()),
+              f"{what}: partials off the plain version's (m {em}, l "
+              f"{el}, acc {ea})")
+        check(bool((l[~live] == 0).all()) and bool((acc[~live] == 0).all()),
+              f"{what}: a fully masked split is not exactly 0")
+        merged = flash_decode_combine_torch(mw, lw, aw, dtype=dtype)
+        e, ok = fa_err(out, merged)
+        check(ok, f"{what}: output vs the plain merge: {e}")
+        e2, ok2 = fa_err(out, flash_attention(q, k, v, impl="ref", **ref_kw))
+        check(ok2, f"{what}: output vs the oracle: {e2}")
+        return em, el, ea, e, e2, live
+
     for name, dtype, sq, skv, H, KV, D, Dv, kw, n_dead in cases:
         q = torch.randn(1, sq, H, D, device=dev, generator=gen).to(dtype)
         k = torch.randn(1, skv, KV, D, device=dev, generator=gen).to(dtype)
         v = torch.randn(1, skv, KV, Dv, device=dev, generator=gen).to(dtype)
         args = dict(causal=True, window=kw.get("window"),
                     q_start=kw["q_start"], kv_len=kw["kv_len"])
-        vmax = float(v.float().abs().max())
         for splits in (None, 7, 64):
-            out, m, l, acc = FK.flash_decode_cuda(q, k, v, splits=splits,
-                                                  **args)
-            mw, lw, aw = flash_decode_partials_torch(q, k, v, splits=splits,
-                                                     **kw)
+            got = FK.flash_decode_cuda(q, k, v, splits=splits, **args)
+            want = flash_decode_partials_torch(q, k, v, splits=splits, **kw)
+            out, m = got[0], got[1]
             what = f"flash_decode {name} splits {splits} ({m.shape[2]})"
-            check(m.shape == mw.shape, f"{what}: {m.shape} vs {mw.shape}")
-            check(not any(bool(torch.isnan(t).any())
-                          for t in (out.float(), m, l, acc)), f"{what}: NaN")
-            live = torch.isfinite(mw)
-            check(torch.equal(live, torch.isfinite(m)),
-                  f"{what}: the -inf splits differ")
-            em = float((m - mw).abs()[live].max()) if live.any() else 0.0
-            el = float((l - lw).abs().max())
-            ea = float((acc - aw).abs().max())
-            check(bool(((m - mw).abs()[live] <= SPLIT_TOL
-                        * (1 + mw.abs()[live])).all())
-                  and bool(((l - lw).abs() <= SPLIT_TOL * (1 + lw)).all())
-                  and bool(((acc - aw).abs() <= SPLIT_TOL
-                            * (1 + lw[..., None] * vmax)).all()),
-                  f"{what}: partials off the plain version's (m {em}, l "
-                  f"{el}, acc {ea})")
-            check(bool((l[~live] == 0).all())
-                  and bool((acc[~live] == 0).all()),
-                  f"{what}: a fully masked split is not exactly 0")
-            merged = flash_decode_combine_torch(mw, lw, aw, dtype=dtype)
-            e, ok = fa_err(out, merged)
-            check(ok, f"{what}: output vs the plain merge: {e}")
-            e2, ok2 = fa_err(out, flash_attention(q, k, v, impl="ref", **kw))
-            check(ok2, f"{what}: output vs the oracle: {e2}")
+            em, el, ea, e, e2, live = hold(what, q, k, v, got, want, kw,
+                                           dtype)
             if n_dead:
                 check(not bool(out[:, -n_dead:].any()),
                       f"{what}: a row with no live key is not 0")
@@ -758,8 +791,60 @@ def phase_flash_split(dev, gen):
                 f"output vs plain merge {e:.3e}, vs oracle {e2:.3e}; "
                 f"{int((~live).sum())} of {live.numel()} (split, row) "
                 f"partials fully masked, exactly 0")
+
+    # the position on the device (a captured decode step's launch): the
+    # capacity split rule at the served caches and a small f32 one, over
+    # positions from 0 to the last, each against the plain versions with a
+    # tensor position and the oracle; where the host rule splits alike,
+    # the launch must equal the host-position launch bit for bit
+    dpos = [  # (name, dtype, Sq, Skv, H, KV, D, Dv, window, positions)
+        ("llama", torch.bfloat16, 1, 1056, 32, 8, 64, 64, None,
+         (0, 31, 32, 500, 1023, 1024, 1040, 1055)),
+        ("griffin", torch.bfloat16, 1, 2592, 10, 1, 256, 256, MQA_WINDOW,
+         (0, 100, 2047, 2048, 2100, 2559, 2560, 2575, 2591)),
+        ("f32 Sq 2 window", torch.float32, 2, 300, 8, 2, 128, 128, 40,
+         (0, 1, 39, 40, 41, 150, 298)),
+    ]
+    worst_dev, equal_host, n_dev = 0.0, 0, 0
+    for name, dtype, sq, skv, H, KV, D, Dv, w, positions in dpos:
+        q = torch.randn(1, sq, H, D, device=dev, generator=gen).to(dtype)
+        k = torch.randn(1, skv, KV, D, device=dev, generator=gen).to(dtype)
+        v = torch.randn(1, skv, KV, Dv, device=dev, generator=gen).to(dtype)
+        cap = FK.capacity_splits(1, KV, sq, H, Dv, Skv=skv, causal=True,
+                                 window=w)
+        for t in positions:
+            pos = torch.full((), t, dtype=torch.long, device=dev)
+            got = FK.flash_decode_cuda(q, k, v, causal=True, window=w,
+                                       q_start=pos)
+            want = flash_decode_partials_torch(q, k, v, causal=True,
+                                               window=w, q_start=pos)
+            what = f"flash_decode {name} at device position {t}"
+            check(got[1].shape[2] == cap[0],
+                  f"{what}: {got[1].shape[2]} splits, the rule {cap[0]}")
+            ref_kw = dict(causal=True, window=w, q_start=t, kv_len=t + sq)
+            e = hold(what, q, k, v, got, want, ref_kw, dtype)[3:5]
+            host = FK.decode_splits(1, KV, sq, H, Dv, causal=True, window=w,
+                                    q_start=t, kv_len=t + sq)
+            if (host[0], host[2]) == cap:
+                out_host = FK.flash_decode_cuda(q, k, v, **ref_kw)[0]
+                check(torch.equal(got[0], out_host),
+                      f"{what}: not bit-equal to the host-position launch "
+                      f"of the same splits")
+                equal_host += 1
+            worst_dev = max(worst_dev, *e)
+            n_dev += 1
+        say(f"flash: split-K {name} ({str(dtype).split('.')[1]}, Sq {sq}, "
+            f"Skv {skv}, G {H // KV}, window {w}) at device positions "
+            f"{positions}: {cap[0]} splits of {cap[1]} tiles (the capacity "
+            f"rule) at every one, partials within the plain version's "
+            f"tolerance, output vs plain merge and oracle within the "
+            f"flash tolerance")
+    say(f"flash: device positions: {n_dev} launches held, worst output "
+        f"error {worst_dev:.3e}; {equal_host} bit-equal to the host-position "
+        f"launch of the same splits")
     torch.cuda.synchronize()
-    return {"decode partials": worst}
+    return {"decode partials": worst, "decode at a device position":
+            worst_dev}
 
 
 # ---------------------------------------------------------------------------
@@ -1043,11 +1128,103 @@ def phase_main(rng):
         check(torch.equal(back.cpu(), x), f"pack/unpack node {u} {x.dtype}")
     torch.cuda.synchronize()
 
+    captured = phase_capture(rt, plans, inputs, rng)
+
     launches = dict(LAUNCHES)
-    say(f"main: launches over the run {launches}")
+    say(f"main: launches over the run (eager and captured) {launches}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path was never launched: {launches}")
-    return plans, inputs, launches, per_graph
+    return plans, inputs, launches, per_graph, captured
+
+
+# the arena kernels' names in a trace, by launch count key
+ARENA_KERNELS = {"write": "arena_write_kernel", "read": "arena_read_kernel",
+                 "accum": "accum_kernel", "chain_write": "chain_write_kernel"}
+
+
+def phase_capture(rt, plans, inputs, rng):
+    """``jit=True`` on every paper graph and full network, slice and fused:
+    the first call (the capture's warm-up) and a replay bit-equal to the
+    eager run, a replay with other inputs right against ``run_reference``
+    of those (bit-equal where the eager run is), the first replay's
+    outputs not overwritten by the second, realized == planned, and the
+    arena launches per replay, both as the capture counted them and as the
+    most complete of three traces of a replay holds them, equal to the
+    eager run's.  Returns {(name, fuse): launches per replay}."""
+    import functools
+
+    from repro_torch.kernels.arena import LAUNCHES
+    from repro_torch.kernels.arena.elemwise import EXACT_OPS
+
+    out = {}
+    for name, p in plans.items():
+        other = seeded_inputs(p.graph, rng)
+        refs = {"first": rt.run_reference(p.graph, inputs[name]),
+                "other": rt.run_reference(p.graph, other)}
+        for fuse in (False, True):
+            run = functools.partial(rt.execute, p.graph, plan=p.arena,
+                                    order=p.order, fuse=fuse)
+            before = dict(LAUNCHES)
+            eager = run(inputs[name]).outputs
+            torch.cuda.synchronize()
+            per_exec = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            res = {"first": run(inputs[name], jit=True),
+                   "again": run(inputs[name], jit=True)}
+            prog = rt.compile_plan(p.graph, p.order, p.arena, fuse=fuse)
+            call = prog._captures[None][0]
+            traces = [device_profile(lambda: run(inputs[name], jit=True))
+                      for _ in range(3)]
+            traced = max(({op: traced_copies(t[2], op)[1]
+                           for op in ARENA_KERNELS} for t in traces),
+                         key=lambda d: sum(d.values()))
+            res["other"] = run(other, jit=True)
+            torch.cuda.synchronize()
+            exact = not fuse or all(set(ops) <= EXACT_OPS
+                                    for _, ops, _ in prog._groups.values())
+            what = f"{name} {'fused' if fuse else 'slice'} jit=True"
+            for key, r in res.items():
+                check(r.realized_matches_plan
+                      and r.realized_peak_bytes == p.peak_bytes
+                      and r.realized_arena_bytes == p.arena_bytes,
+                      f"{what} ({key}): realized != planned")
+                ref = refs["other" if key == "other" else "first"]
+                check(set(r.outputs) == set(ref), f"{what}: output names")
+                for k, v in ref.items():
+                    got = r.outputs[k]
+                    if key != "other":
+                        check(torch.equal(got, eager[k]),
+                              f"{what} ({key}): {k} not bit-equal to the "
+                              f"eager run")
+                    if exact:
+                        check(torch.equal(got, v),
+                              f"{what} ({key}): {k} not bit-equal to "
+                              f"run_reference")
+                    else:
+                        check(torch.allclose(got, v, rtol=CHAIN_RTOL,
+                                             atol=CHAIN_ATOL),
+                              f"{what} ({key}): {k} not allclose to "
+                              f"run_reference")
+            for k in eager:
+                check(torch.equal(res["again"].outputs[k], eager[k]),
+                      f"{what}: a replay's output {k} was overwritten by "
+                      f"the next replay")
+            per_replay = {k: call.launches[k] for k in per_exec}
+            check(per_replay == per_exec,
+                  f"{what}: launches per replay {per_replay}, the eager run "
+                  f"{per_exec}")
+            check(traced == per_exec,
+                  f"{what}: the most complete of three traces of a replay "
+                  f"holds {traced} arena kernels, the eager run launches "
+                  f"{per_exec}")
+            out[(name, fuse)] = per_exec
+            say(f"capture: {what}: first call, replay and a replay with "
+                f"other inputs bit-equal to the eager run and "
+                f"{'bit-equal' if exact else 'allclose'} to run_reference, "
+                f"realized == planned; arena launches per replay "
+                f"{per_replay} (in a traced replay {traced}; activities in "
+                f"the three traces {[t[1] for t in traces]}), as the eager "
+                f"run's; {call.replays} replays")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1405,13 +1582,15 @@ def device_us(work) -> float:
     return device_profile(work)[0]
 
 
-def time_execute(rt, p, inputs, fuse, reps=20):
+def time_execute(rt, p, inputs, fuse, reps=20, jit=False):
     """(median, min) host-clock us per execute, and device-busy us per
-    execute, with the inputs already on the card."""
+    execute, with the inputs already on the card; ``jit`` replays the
+    program's CUDA graph."""
     dev_inputs = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
 
     def run():
-        rt.execute(p.graph, dev_inputs, p.arena, order=p.order, fuse=fuse)
+        rt.execute(p.graph, dev_inputs, p.arena, order=p.order, fuse=fuse,
+                   jit=jit)
 
     for _ in range(3):
         run()
@@ -1437,7 +1616,7 @@ def record_launches(rt, plans, inputs):
     def rec(nm):
         def wrapped(arena, *args):
             if nm == "read":
-                offset, n = args
+                offset, n = args[:2]
                 log.append((nm, arena.shape[0], offset, n, ()))
             else:
                 x, offset, *ops = args
@@ -1518,6 +1697,36 @@ class L2Flush:
         self.buf.fill_(1.0)
 
 
+def time_in_graph(launches_of, fn, dev, reps=20):
+    """(device ms per launch, ms per launch of a replay) of ``fn`` over the
+    recorded launches captured in one CUDA graph: the mean of the
+    activities in a trace of one replay (None where four traces came back
+    empty), and a replay's time by CUDA events over ``reps`` replays per
+    launch (the gaps between the graph's nodes included)."""
+    from repro_torch.core.capture import CapturedCall
+    call = CapturedCall(lambda: [fn(*a) for a in launches_of], dev)
+    for _ in range(2):
+        call.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        call.replay()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / (reps * len(launches_of))
+    prof = device_profile(call.replay, required=False)
+    if prof is None:
+        say(f"timing: no trace of a replayed graph of "
+            f"{getattr(fn, '__name__', fn)}; not measured")
+        return None, step_ms
+    if prof[1] != len(launches_of):
+        say(f"timing: the trace of a replayed graph holds {prof[1]} of "
+            f"{len(launches_of)} launches of {getattr(fn, '__name__', fn)}; "
+            f"their mean is its time")
+    return prof[0] / 1e3 / prof[1], step_ms
+
+
 def time_cold(launches_of, fn, flush):
     """Device ms per launch of ``fn`` over the recorded launches with the
     L2 flushed before each launch (the flush's own kernels left out by
@@ -1544,12 +1753,13 @@ def fmt_us(ms) -> str:
     return "not measured" if ms is None else f"{ms * 1e3:.3f}"
 
 
-def phase_timing(plans, inputs, launches, err, card):
+def phase_timing(plans, inputs, launches, err, card, captured):
     import repro_torch as rt
     from repro_torch.kernels.arena import LAUNCHES, reset_launches
     from repro_torch.kernels.arena import kernel as K
     from repro_torch.kernels.arena import ref as R
 
+    executes = {}
     for name in ("darts_net_x6", "randwire_net_32x8"):
         p = plans[name]
         for fuse in (False, True):
@@ -1558,13 +1768,31 @@ def phase_timing(plans, inputs, launches, err, card):
                        fuse=fuse)
             torch.cuda.synchronize()
             per_exec = dict(LAUNCHES)
-            med, best, busy = time_execute(rt, p, inputs[name], fuse)
-            say(f"timing: execute {name} {'fused' if fuse else 'slice'}: "
-                f"median {med:.1f} us, min {best:.1f} us per execute "
-                f"(host clock); device busy {busy:.1f} us per execute, "
-                f"idle share {1 - busy / med:.4f}; arena kernel launches "
-                f"per execute {per_exec} [{card}]")
+            path = "fused" if fuse else "slice"
+            # eager, captured (jit=True), eager, captured: in turns
+            t = [time_execute(rt, p, inputs[name], fuse, jit=jit)
+                 for jit in (False, True, False, True)]
+            for i, jit in enumerate((False, True, False, True)):
+                med, best, busy = t[i]
+                say(f"timing: execute {name} {path} "
+                    f"{'captured (jit=True)' if jit else 'eager'}"
+                    f"{' again' if i > 1 else ''}: median {med:.1f} us, min "
+                    f"{best:.1f} us per execute (host clock); device busy "
+                    f"{busy:.1f} us per execute, idle share "
+                    f"{1 - busy / med:.4f}; arena kernel launches per "
+                    f"execute {per_exec}"
+                    f"{', per replay ' + str(captured[(name, fuse)]) if jit else ''}"
+                    f" [{card}]")
+            executes[f"{name} {path}"] = dict(
+                eager_us=[x[0] for x in t[0::2]],
+                eager_min_us=[x[1] for x in t[0::2]],
+                eager_busy_us=[x[2] for x in t[0::2]],
+                captured_us=[x[0] for x in t[1::2]],
+                captured_min_us=[x[1] for x in t[1::2]],
+                captured_busy_us=[x[2] for x in t[1::2]])
 
+    say("timing: execute, eager and captured: " + json.dumps(executes)
+        + f" [{card}]")
     log = record_launches(rt, plans, inputs)
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1630,6 +1858,20 @@ def phase_timing(plans, inputs, launches, err, card):
             cold = (f"; cold (L2 flushed before each launch): kernel "
                     f"{fmt_us(c[0])} (again {fmt_us(c[3])}), plain "
                     f"{fmt_us(c[1])}, torch call {fmt_us(c[2])}")
+            # inside a CUDA graph, as a captured execute runs them: kernel,
+            # torch call, kernel, in turns
+            g = [time_in_graph(args, f, dev) for f in (kern, lib, kern)]
+            row.update(graph_ms=g[0][0], graph_step_ms=g[0][1],
+                       graph_library_ms=g[1][0],
+                       graph_library_step_ms=g[1][1],
+                       graph_ms_again=g[2][0], graph_step_ms_again=g[2][1])
+            cold += (f"; in a replayed graph of the launches, device us per "
+                     f"launch (the trace's mean) kernel {fmt_us(g[0][0])} "
+                     f"(again {fmt_us(g[2][0])}), torch call "
+                     f"{fmt_us(g[1][0])}; us per launch of a replay (CUDA "
+                     f"events, gaps between nodes included) kernel "
+                     f"{fmt_us(g[0][1])} (again {fmt_us(g[2][1])}), torch "
+                     f"call {fmt_us(g[1][1])}")
         say(f"timing: {name}: {len(recs)} launches at the main path's shapes "
             f"(mean n {mean_bytes / per_elem[name]:.0f}); device us per "
             f"launch: kernel {ms * 1e3:.3f}, bound {bound_ms * 1e3:.3f} "
@@ -1686,7 +1928,7 @@ def rglru_bound(B, T, D, esz) -> tuple[float, float]:
 
 def traced_copies(by_name, op) -> tuple[float, int]:
     """(device us, launches) of the arena ``op`` kernel in a trace."""
-    hits = [v for k, v in by_name.items() if f"arena_{op}_kernel" in k]
+    hits = [v for k, v in by_name.items() if ARENA_KERNELS[op] in k]
     return sum(v[0] for v in hits), sum(v[1] for v in hits)
 
 
@@ -1825,7 +2067,51 @@ def phase_serve_timing(ctx, card, dev):
     check(n_dev <= ACTIVITIES[name],
           f"{name}: {n_dev} device activities per decode token, more than "
           f"the limit of {ACTIVITIES[name]}")
-    return time_served_packing(plan, ctx["spans"], by_name, card, dev)
+    check(server._captured.call is not None
+          and server._captured.call.replays >= 8 + TOKEN_TRACES,
+          f"{name}: the server's decode ticks did not replay its captured "
+          f"step")
+
+    # the same token eager, as the server on the CPU makes it (and the card
+    # before its capture): unpack into fresh tensors, the eager step, the
+    # argmax, the pack, on a copy of the request's arena
+    req = server.active[0]
+    arena = req.arena.clone()
+    defs = server._cache_defs()
+
+    def eager_token():
+        cache = S.unpack_decode_state(plan, arena, defs)
+        tok = torch.full((1, 1), req.last_tok, dtype=torch.long, device=dev)
+        logits, cache = server._decode(params, cache, tok, req.t)
+        int(torch.argmax(logits, -1)[0])
+        S.pack_decode_state(plan, cache, arena=arena)
+
+    eager_token()
+    ems = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_token()
+        torch.cuda.synchronize()
+        ems.append((time.perf_counter() - t0) * 1e3)
+    e_busy, e_dev, _ = max((device_profile(eager_token)
+                            for _ in range(TOKEN_TRACES)),
+                           key=lambda t: t[1])
+    e_ms = statistics.median(ems)
+    say(f"timing: serve {name}: decode eager {e_ms:.3f} ms per token "
+        f"(median of 8, min {min(ems):.3f}, host clock) against captured "
+        f"{tok_ms:.3f} (min {min(ms):.3f}); device busy eager "
+        f"{e_busy:.1f} us (idle share {1 - e_busy / (e_ms * 1e3):.4f}, "
+        f"{e_dev} activities), captured {busy_us:.1f} us (idle share "
+        f"{1 - busy_us / (tok_ms * 1e3):.4f}, {n_dev} activities) "
+        f"[{card}]")
+    out = time_served_packing(plan, ctx["spans"], by_name, card, dev)
+    out["decode"] = dict(
+        captured_ms=tok_ms, captured_min_ms=min(ms), captured_busy_us=busy_us,
+        captured_activities=n_dev, eager_ms=e_ms, eager_min_ms=min(ems),
+        eager_busy_us=e_busy, eager_activities=e_dev, prefill_ms=prefill_ms,
+        prefill_busy_us=pre_us)
+    return out
 
 
 def flash_impls():
@@ -1888,6 +2174,26 @@ def time_flash(name, shapes, mix, card, dev):
             plain_ms=t["plain"][0], library_ms=t["sdpa"][0],
             bound_ms=max(b_ms, o_ms),
             bound_by="bytes" if b_ms >= o_ms else "operations")
+        if route == "decode":
+            # the launch a captured decode step makes: the position on the
+            # device, the capacity split rule; beside it the host-position
+            # launch again, in turns
+            pos = torch.full((), kw["q_start"], dtype=torch.long, device=dev)
+            dp = [time_replay([args], fn)[0] for fn in (
+                lambda q, k, v, a: FK.flash_decode_cuda(
+                    q, k, v, causal=True, window=a.get("window"),
+                    q_start=pos)[0],
+                impls["kernel"])]
+            S = FK.capacity_splits(1, k.shape[2], q.shape[1], q.shape[2],
+                                   v.shape[3], Skv=k.shape[1], causal=True,
+                                   window=kw.get("window"))
+            out[label].update(device_position_ms=dp[0],
+                              device_position_splits=S[0], ms_again=dp[1])
+            say(f"timing: flash_attention {name} {label} at a device "
+                f"position (the capacity rule, {S[0]} splits of {S[1]} "
+                f"tiles): device us per launch {dp[0] * 1e3:.2f}, the "
+                f"host-position launch {t['kernel'][0] * 1e3:.2f} (again "
+                f"{dp[1] * 1e3:.2f}) [{card}]")
         say(f"timing: flash_attention {name} {label} (B 1, Sq {q.shape[1]}, "
             f"Skv {k.shape[1]}, H {q.shape[2]}, KV {k.shape[2]}, D "
             f"{q.shape[3]}, bf16, {kw}): device us per launch: kernel "
@@ -2153,15 +2459,17 @@ def main() -> int:
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     phase_rglru(dev, err)
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
-    plans, inputs, launches, _ = phase_main(rng)
+    plans, inputs, launches, _, captured = phase_main(rng)
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
-    rows = []
+    rows, decode = [], {}
     for arch in SERVES:            # one model on the card at a time
         ctx = phase_serve(dev, arch)
         if arch == "llama3.2-1b":
-            rows += phase_timing(plans, inputs, launches, err, card)
+            rows += phase_timing(plans, inputs, launches, err, card,
+                                 captured)
         served = phase_serve_timing(ctx, card, dev)
+        decode[arch] = served["decode"]
         for r in rows:
             if r["name"] in ("arena_write", "arena_read"):
                 r.setdefault("served", {})[arch] = served[r["name"][6:]]
@@ -2180,6 +2488,8 @@ def main() -> int:
         del ctx
         torch.cuda.empty_cache()
         say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+    say("timing: decode per token, captured and eager: "
+        + json.dumps(decode) + f" [{card}]")
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -31,6 +31,12 @@ Alongside values, execution *measures* the arena (realized, not estimated):
 
 ``strict=True`` (default) asserts both equalities.
 
+``jit=True`` runs the program as one CUDA graph on the card
+(:mod:`repro_torch.core.capture`), the counterpart of ``repro``'s
+whole-program ``jax.jit``: captured once per program and arena, replayed
+bit-equal to the eager run.  The CPU has no CUDA graph, and there
+``jit=True`` raises.
+
 Execution has two granularities (DESIGN.md §11): the default
 *slice-per-node* path issues one arena read per predecessor and one write
 per node, and the *fused* path (``fuse=True``) executes each in-place alias
@@ -63,6 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.allocator import ArenaPlan
+from repro_torch.core.capture import CapturedCall
 from repro_torch.core.graph import Graph, Node
 from repro_torch.core.rewriter import FusedRegion, fuse_alias_chains
 from repro_torch.kernels.arena import (
@@ -442,6 +449,9 @@ class PlanProgram:
     else a single ``arena_write``.  Cross-region edges still round-trip
     through the arena, so the fused path realizes the identical footprint
     (DESIGN.md §11).
+
+    ``run(jit=True)`` replays the program as one CUDA graph, captured per
+    arena and held by the program (see :func:`execute_plan`).
     """
 
     def __init__(self, g: Graph, order: Sequence[int], plan: ArenaPlan, *,
@@ -473,6 +483,9 @@ class PlanProgram:
         self.arena_elems = -(-plan.arena_bytes // 4)
         self._input_ids = [u for u in self.order if nds[u].op == "input"]
         self._exit_ids = list(g.exits())
+        # jit=True: (arena address, elements) or None (the program's own
+        # arena) -> (CapturedCall, arena, static inputs)
+        self._captures: dict = {}
 
         # rewriter-produced views alias every predecessor; a mixed view has
         # no arena layout for the non-aliased parts — refuse rather than
@@ -651,6 +664,36 @@ class PlanProgram:
                 arena_write(arena, val, off[u], impl=impl)
             i += 1
 
+    def _program(self, arena, ext_it) -> tuple:
+        body = self._body_fused if self.fuse else self._body_slice
+        body(arena, ext_it)
+        return tuple(arena_read(arena, self._off[u], self._elems[u],
+                                impl=self.impl) for u in self._exit_ids)
+
+    def _run_captured(self, arena, ext_vals) -> tuple:
+        """The program as a CUDA graph, captured at the first call for this
+        arena (whose warm-up call is this call's run) and replayed at the
+        calls after, with the inputs copied into the capture's static
+        input tensors.  The outputs of a replay are copied out of the
+        graph's memory, which the next replay overwrites."""
+        key = None if arena is None else (arena.data_ptr(), arena.shape[0])
+        entry = self._captures.get(key)
+        if entry is None:
+            if arena is None:
+                arena = torch.zeros(self.arena_elems, dtype=torch.float32,
+                                    device=self.device)
+            static = tuple(v.clone() for v in ext_vals)
+            call = CapturedCall(lambda: self._program(arena, iter(static)),
+                                self.device)
+            self._captures[key] = (call, arena, static)
+            while len(self._captures) > _CAPTURE_CAP:
+                self._captures.pop(next(iter(self._captures)))
+            return call.first
+        call, _, static = entry
+        for dst, v in zip(static, ext_vals):
+            dst.copy_(v)
+        return tuple(o.clone() for o in call.replay())
+
     # -- entry point -------------------------------------------------------
 
     def resolve_ext(self, inputs) -> tuple:
@@ -658,14 +701,19 @@ class PlanProgram:
         ext = _resolve_inputs(self.graph, inputs, self.device)
         return tuple(_fit(ext[u], self._elems[u]) for u in self._input_ids)
 
-    def run(self, inputs=None, *, arena=None,
+    def run(self, inputs=None, *, arena=None, jit: bool = False,
             strict: bool = True) -> ExecutionResult:
         """Execute the program; see :func:`execute_plan` for semantics."""
         plan = self.plan
+        if jit and self.device.type != "cuda":
+            raise ExecutorError(
+                f"jit=True captures the program in a CUDA graph, and "
+                f"{self.device} has none; run with jit=False there")
         ext_vals = self.resolve_ext(inputs)
         if arena is None:
-            arena = torch.zeros(self.arena_elems, dtype=torch.float32,
-                                device=self.device)
+            if not jit:
+                arena = torch.zeros(self.arena_elems, dtype=torch.float32,
+                                    device=self.device)
         else:
             if not isinstance(arena, torch.Tensor) \
                     or arena.dtype != torch.float32 or arena.dim() != 1 \
@@ -687,10 +735,10 @@ class PlanProgram:
                 f"extent {self.realized_arena_bytes} vs planned "
                 f"{plan.arena_bytes}")
 
-        body = self._body_fused if self.fuse else self._body_slice
-        body(arena, iter(ext_vals))
-        outs = [arena_read(arena, self._off[u], self._elems[u],
-                           impl=self.impl) for u in self._exit_ids]
+        if jit:
+            outs = self._run_captured(arena, ext_vals)
+        else:
+            outs = self._program(arena, iter(ext_vals))
 
         nds = self.graph.nodes
         return ExecutionResult(
@@ -707,6 +755,8 @@ class PlanProgram:
 
 
 _PROGRAM_CACHE_CAP = 8
+# captures a program keeps (one per arena it ran in with jit=True)
+_CAPTURE_CAP = 4
 
 
 def compile_plan(
@@ -725,9 +775,11 @@ def compile_plan(
 
     Programs are memoized on the plan object itself (like its offset
     index), keyed by the schedule, the device and the execution options, so
-    repeat executions skip the per-plan precomputation; a program built for
-    one device is never reused on another.  The cache is dropped on
-    pickling (``ArenaPlan.__getstate__``) and capped per plan.
+    repeat executions skip the per-plan precomputation and replay the
+    program's CUDA graphs (``jit=True``: a program holds its captures, so
+    ``jit`` is no part of the key); a program built for one device is
+    never reused on another.  The cache is dropped on pickling
+    (``ArenaPlan.__getstate__``) and capped per plan.
     """
     dev = resolve_device(device)
     steps_key = None if steps is None else tuple(tuple(s) for s in steps)
@@ -758,6 +810,7 @@ def execute_plan(
     impl: str = "auto",
     device=None,
     arena=None,
+    jit: bool = False,
     strict: bool = True,
     fuse: bool = False,
     steps: Sequence[Sequence[int]] | None = None,
@@ -784,6 +837,19 @@ def execute_plan(
         elements on ``device`` to execute in (reused storage, e.g. across
         decode steps).  It is written in place — the port's counterpart of
         donating the buffer.  Allocated fresh (zeroed) when ``None``.
+      jit: capture the whole arena program (the body, then the exit
+        reads) into one CUDA graph with the arena buffer as its static
+        storage (capture cached per program and arena) — the counterpart
+        of ``repro``'s whole-program jit.  The first call for an arena runs
+        the program eagerly once (the warm-up, which is this call's run)
+        and captures it; later calls copy their inputs into the capture's
+        static input tensors and replay, bit-equal to the eager run.  A
+        supplied ``arena`` is captured against: another arena storage
+        gets a capture of its own (the program keeps the last four, and
+        with them their arenas alive); ``None`` uses an arena the program
+        owns.  The outputs are copies, which no later run overwrites.  A
+        ``registry`` op must not wait on the host (a capture cannot).
+        Raises on the CPU, which has no CUDA graph.
       strict: assert the realized-vs-planned invariant and that the arena
         is large enough.
       fuse: execute in-place alias chains as fused regions — value
@@ -801,7 +867,7 @@ def execute_plan(
     """
     return compile_plan(g, order, plan, fuse=fuse, registry=registry,
                         impl=impl, device=device, steps=steps).run(
-        inputs, arena=arena, strict=strict)
+        inputs, arena=arena, jit=jit, strict=strict)
 
 
 # ---------------------------------------------------------------------------
@@ -856,10 +922,21 @@ def pack_buffers(plan: ArenaPlan, arrays: Mapping[int, object], *,
 
 
 def unpack_buffer(arena, plan: ArenaPlan, node_id: int, shape, dtype, *,
-                  impl: str = "auto") -> torch.Tensor:
-    """Read one planned tensor back out of a uint8 arena (a fresh tensor
-    on the arena's device)."""
+                  impl: str = "auto", out=None) -> torch.Tensor:
+    """Read one planned tensor back out of a uint8 arena: a fresh tensor
+    on the arena's device, or ``out`` (a contiguous tensor of ``shape`` and
+    ``dtype`` there, e.g. a captured step's static state), written in place
+    and returned."""
     dt = _torch_dtype(dtype)
     nbytes = int(np.prod(shape)) * dt.itemsize
+    if out is not None:
+        if out.dtype != dt or tuple(out.shape) != tuple(shape) \
+                or not out.is_contiguous():
+            raise ExecutorError(
+                f"out ({out.dtype}, {tuple(out.shape)}) must be a contiguous "
+                f"{dt} tensor of shape {tuple(shape)}")
+        arena_read(arena, plan.offset_of(node_id), nbytes, impl=impl,
+                   out=out.reshape(-1).view(torch.uint8))
+        return out
     b = arena_read(arena, plan.offset_of(node_id), nbytes, impl=impl)
     return b.view(dt).reshape(shape)

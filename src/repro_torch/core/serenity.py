@@ -694,6 +694,7 @@ def execute(
     impl: str = "auto",
     device=None,
     arena=None,
+    jit: bool = False,
     strict: bool = True,
     fuse: bool = False,
     steps: "Sequence[Sequence[int]] | None" = None,
@@ -718,12 +719,14 @@ def execute(
         float32.  Missing inputs get deterministic defaults.
       plan: an :class:`ArenaPlan` to realize (skips scheduling).
       order: the schedule ``plan`` was built from (required with ``plan``).
-      impl / device / arena / strict / fuse: forwarded to
+      impl / device / arena / jit / strict / fuse: forwarded to
         :func:`repro_torch.core.executor.execute_plan` — arena-op dispatch
         (the CUDA kernels on the card, the plain versions on the CPU), the
         device (``None``: the card; raises when CUDA is absent), an
-        optional float32 arena written in place, the realized-vs-planned
-        assertion, and fused alias-chain execution (DESIGN.md §11).
+        optional float32 arena written in place, whole-program capture in
+        a CUDA graph (the counterpart of ``repro``'s whole-program jit;
+        raises on the CPU), the realized-vs-planned assertion, and fused
+        alias-chain execution (DESIGN.md §11).
       steps: width-W time slots the supplied ``plan`` was packed with
         (``Plan.steps`` of a pareto plan); ignored when planning here —
         the fresh plan's own steps are used.
@@ -754,4 +757,5 @@ def execute(
         raise ExecutorError("execute: `order` is required when `plan` is "
                             "supplied (the schedule the plan was built from)")
     return execute_plan(g, order, plan, inputs, impl=impl, device=device,
-                        arena=arena, strict=strict, fuse=fuse, steps=steps)
+                        arena=arena, jit=jit, strict=strict, fuse=fuse,
+                        steps=steps)

@@ -36,6 +36,16 @@
 // keys, 64 tiles): 32 splits of 2 tiles.  A caller may ask for S itself
 // (tests); splits past the end of the range are empty and give m = -inf.
 //
+// The position on the device: with `q_pos` given (a captured decode step,
+// one launch for every position), the kernel reads q_start from it, takes
+// kv_len = min(q_start + Sq, Skv) and finds t0 from the live range itself.
+// The wrapper then sets S and tpc by the same rule over the most tiles the
+// live range can touch at any position (`capacity_splits`): ceil(Skv / 32),
+// and with a causal window no more than ceil((window + Sq) / 32) + 1.  At
+// the served shapes that gives 17 splits of 2 tiles (llama3.2-1b, 1056
+// keys) and 33 of 2 (recurrentgemma-2b, 2592 keys, window 2048), the host
+// rule's splits within one.
+//
 // Inside a block (one warp per query row: 4 warps for up to 4 rows, else
 // 16): Q and the split's tiles come through a ring of two shared-memory
 // stages filled by 16-byte `cp.async` copies (Q with the first tile, so
@@ -95,6 +105,7 @@ struct Params {
   int causal;
   float scale;
   long long t0, tpc, S;            // first live tile, tiles per split, splits
+  const long long* q_pos;          // the position on the device, or null
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -198,17 +209,24 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
   const long long split = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // this split's tiles: [ta, tb)
-  const long long ta = p.t0 + split * p.tpc;
-  long long tb = ta + p.tpc;
-  // the block-level live range, as the wrapper computed it
-  const long long qpos_lo = p.q_start, qpos_hi = p.q_start + p.Sq - 1;
-  long long k_end = p.kv_len;
+  // the position: the host's, or read from the device
+  long long q_start = p.q_start, kv_len = p.kv_len;
+  if (p.q_pos != nullptr) {
+    q_start = *p.q_pos;
+    kv_len = q_start + p.Sq < p.Skv ? q_start + p.Sq : p.Skv;
+  }
+  // the block-level live range, as the wrapper's live_tiles computes it
+  const long long qpos_lo = q_start, qpos_hi = q_start + p.Sq - 1;
+  long long k_end = kv_len;
   if (p.causal && qpos_hi + 1 < k_end) k_end = qpos_hi + 1;
   long long k_begin = 0;
   if (p.window >= 0 && qpos_lo - p.window + 1 > 0)
     k_begin = qpos_lo - p.window + 1;
   const long long t_last = k_end > k_begin ? (k_end + kTile - 1) / kTile : 0;
+  // this split's tiles: [ta, tb)
+  const long long t0 = p.q_pos != nullptr ? k_begin / kTile : p.t0;
+  const long long ta = t0 + split * p.tpc;
+  long long tb = ta + p.tpc;
   if (tb > t_last) tb = t_last;
 
   const int k_vpr = D / kVec, v_vpr = Dv / kVec;   // 16-byte copies per row
@@ -218,14 +236,14 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
     T* vs = Vs + stage * kTile * Dv;
     for (int i = tid; i < kTile * k_vpr; i += kThreads) {
       const int j = i / k_vpr, c = i - j * k_vpr;
-      const bool in = kb + j < p.kv_len;
+      const bool in = kb + j < kv_len;
       const T* src = in ? k + ((b * p.Skv + kb + j) * p.KV + kvh) * D + c * kVec
                         : k;
       cp_async16(ks + j * kstride + c * kVec, src, in ? 16 : 0);
     }
     for (int i = tid; i < kTile * v_vpr; i += kThreads) {
       const int j = i / v_vpr, c = i - j * v_vpr;
-      const bool in = kb + j < p.kv_len;
+      const bool in = kb + j < kv_len;
       const T* src = in ? v + ((b * p.Skv + kb + j) * p.KV + kvh) * Dv +
                               c * kVec
                         : v;
@@ -235,7 +253,7 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
 
   const int row = warp;                      // this warp's query row
   const bool valid = row < R;
-  const long long qpos = p.q_start + row / G;
+  const long long qpos = q_start + row / G;
   float m = -INFINITY, l = 0.f, acc[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
@@ -293,7 +311,7 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
       const float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
 
       // online softmax update
-      bool live = kj < p.kv_len;
+      bool live = kj < kv_len;
       if (p.causal) live = live && kj <= qpos;
       if (p.window >= 0) live = live && kj > qpos - p.window;
       const float sr = live ? s : -INFINITY;
@@ -509,6 +527,7 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.causal = causal;
   p.scale = scale;
   p.t0 = 0; p.tpc = 1; p.S = 1;
+  p.q_pos = nullptr;
   return p;
 }
 
@@ -520,18 +539,23 @@ extern "C" {
 // accepted).  `part` holds (B*KV, splits, Sq*G, Dv+2) f32, `counter` B*KV
 // int32 zeros; splits, the first live tile t0 and the tiles per split tpc
 // by the rule above (kernels/flash_attention/kernel.py:decode_splits).
+// With `q_pos` (an int64 on the device) not null, q_start, kv_len and t0
+// come from the device and the arguments of those names are not read
+// (splits and tpc: kernel.py:capacity_splits).
 int repro_flash_decode(int is_bf16, const void* q, const void* k,
                        const void* v, void* o, void* part, void* counter,
                        long long B, long long Sq, long long Skv, long long H,
                        long long KV, long long D, long long Dv,
                        long long q_start, long long kv_len, long long window,
                        int causal, float scale, long long splits,
-                       long long t0, long long tpc, void* stream) {
+                       long long t0, long long tpc, const void* q_pos,
+                       void* stream) {
   Params p = make_params(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, q_start,
                          kv_len, window, causal, scale);
   p.part = static_cast<float*>(part);
   p.counter = static_cast<int*>(counter);
   p.S = splits; p.t0 = t0; p.tpc = tpc;
+  p.q_pos = static_cast<const long long*>(q_pos);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch<__nv_bfloat16>(p, s) : dispatch<float>(p, s);
 }

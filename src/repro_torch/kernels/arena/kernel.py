@@ -165,10 +165,18 @@ def arena_write_cuda(arena, x, offset: int):
     return arena
 
 
-def arena_read_cuda(arena, offset: int, n: int):
-    """A fresh ``(n,)`` copy of ``arena[offset : offset+n]`` (f32 or u8)."""
+def arena_read_cuda(arena, offset: int, n: int, out=None):
+    """A copy of ``arena[offset : offset+n]`` (f32 or u8): a fresh ``(n,)``
+    tensor, or ``out`` (contiguous, 1-D, ``n`` elements of the arena's
+    dtype on its device, sharing no storage with it), written in place."""
     _check(arena, offset, n, _SUFFIX)
-    out = torch.empty(n, dtype=arena.dtype, device=arena.device)
+    if out is None:
+        out = torch.empty(n, dtype=arena.dtype, device=arena.device)
+    else:
+        _check(arena, offset, n, _SUFFIX, out)
+        if out.shape[0] != n:
+            raise ValueError(f"out holds {out.shape[0]} elements, the "
+                             f"slice {n}")
     if n == 0:
         return out
     fn = getattr(_library(), f"repro_arena_read_{_SUFFIX[arena.dtype]}")

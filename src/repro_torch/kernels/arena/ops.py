@@ -56,11 +56,14 @@ def arena_accum(arena, x, offset: int, *, impl: str = "auto"):
     return arena_accum_torch(arena, x, offset)
 
 
-def arena_read(arena, offset: int, n: int, *, impl: str = "auto"):
-    """A fresh ``(n,)`` copy of ``arena[offset : offset+n]``."""
+def arena_read(arena, offset: int, n: int, *, impl: str = "auto",
+               out=None):
+    """A copy of ``arena[offset : offset+n]``: a fresh ``(n,)`` tensor, or
+    ``out`` (a contiguous 1-D tensor of ``n`` elements in the arena's dtype
+    on its device), written in place and returned."""
     if _use_kernel(impl, arena):
-        return _kernel.arena_read_cuda(arena, offset, n)
-    return arena_read_torch(arena, offset, n)
+        return _kernel.arena_read_cuda(arena, offset, n, out)
+    return arena_read_torch(arena, offset, n, out)
 
 
 def arena_chain_write(arena, x, offset: int, ops=(), *, impl: str = "auto"):

@@ -22,10 +22,12 @@ def arena_accum_torch(arena, x, offset: int):
     return arena
 
 
-def arena_read_torch(arena, offset: int, n: int):
-    # a fresh copy: a view would change under a later in-place write (an
-    # alias chain overwriting its predecessor's slice)
-    return arena[offset:offset + n].clone()
+def arena_read_torch(arena, offset: int, n: int, out=None):
+    # a copy, never a view: a view would change under a later in-place
+    # write (an alias chain overwriting its predecessor's slice)
+    if out is None:
+        return arena[offset:offset + n].clone()
+    return out.copy_(arena[offset:offset + n])
 
 
 def arena_chain_write_torch(arena, x, offset: int, ops=()):

@@ -29,6 +29,15 @@ launch was refused.  ``LAUNCHES`` counts each kernel's launches
 (``flash_attention`` the simple kernel's); :func:`reset_launches` sets
 them to 0.
 
+The decode kernel also takes its position from the device: with
+``q_start`` a 0-d int64 tensor on the card, the kernel reads it there (and
+``kv_len = q_start + Sq``, clipped to the cache), finds its first live
+tile itself, and splits the keys by :func:`capacity_splits`, a rule of the
+cache's capacity and the window and not of the position.  One launch then
+serves every position, which is what a captured decode step replays
+(:mod:`repro_torch.core.capture`).  The other two kernels take host
+integers only.
+
 They replace ``flash_attention_pallas`` / ``_fa_kernel`` of
 ``repro/kernels/flash_attention/kernel.py``; each source note says what
 bounds its kernel and what its design does about it.
@@ -72,6 +81,8 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _libs: dict = {}
 _lib_lock = threading.Lock()
 _counters: dict = {}            # device index -> int32 zeros, one per (b, KV)
+#: the decode kernel's grid takes at most this many (batch, KV head) pairs
+MAX_PAIRS = 65535
 
 
 def reset_launches() -> None:
@@ -95,11 +106,12 @@ _ARGS = {
     "flash_decode": ["is_bf16", "q", "k", "v", "o", "part", "counter", "B",
                      "Sq", "Skv", "H", "KV", "D", "Dv", "q_start", "kv_len",
                      "window", "causal", "scale", "splits", "t0", "tpc",
-                     "stream"],
+                     "q_pos", "stream"],
 }
 _CTYPE = {"q": ctypes.c_void_p, "k": ctypes.c_void_p, "v": ctypes.c_void_p,
           "o": ctypes.c_void_p, "part": ctypes.c_void_p,
-          "counter": ctypes.c_void_p, "stream": ctypes.c_void_p,
+          "counter": ctypes.c_void_p, "q_pos": ctypes.c_void_p,
+          "stream": ctypes.c_void_p,
           "is_bf16": ctypes.c_int, "causal": ctypes.c_int,
           "scale": ctypes.c_float}
 
@@ -145,12 +157,28 @@ def live_tiles(Sq: int, *, causal: bool, window: int | None, q_start: int,
     return t0, -(-k_end // tile) - t0
 
 
+def _split(n: int, B: int, KV: int, Sq: int, H: int, Dv: int,
+           splits: int | None) -> tuple[int, int]:
+    """(S, tpc) for n tiles: see :func:`decode_splits`."""
+    if splits is None:
+        want = -(-DECODE_TARGET_BLOCKS // (B * KV))
+        # one block merges the splits: bound the partials it reads
+        per_split = 4 * Sq * (H // KV) * (Dv + 2)
+        want = min(want, max(1, DECODE_MERGE_BYTES // per_split))
+        S = max(1, min(n, want))
+        tpc = -(-n // S) if n else 1
+        return (-(-n // tpc) if n else 1), tpc
+    if splits < 1:
+        raise ValueError(f"splits {splits} must be >= 1")
+    return splits, (-(-n // splits) if n else 1)
+
+
 def decode_splits(B: int, KV: int, Sq: int, H: int, Dv: int, *,
                   causal: bool, window: int | None, q_start: int,
                   kv_len: int,
                   splits: int | None = None) -> tuple[int, int, int]:
     """(splits S, first live tile t0, tiles per split tpc) of the split-K
-    decode.  ``splits=None`` is the rule: about
+    decode at a host position.  ``splits=None`` is the rule: about
     :data:`DECODE_TARGET_BLOCKS` blocks over the ``B * KV`` (batch, KV
     head) pairs whenever the live tiles allow, but no more than keep the
     partials one merging block reads (``S * Sq * G * (Dv + 2)`` f32) within
@@ -159,17 +187,35 @@ def decode_splits(B: int, KV: int, Sq: int, H: int, Dv: int, *,
     empty."""
     t0, n = live_tiles(Sq, causal=causal, window=window, q_start=q_start,
                        kv_len=kv_len)
-    if splits is None:
-        want = -(-DECODE_TARGET_BLOCKS // (B * KV))
-        # one block merges the splits: bound the partials it reads
-        per_split = 4 * Sq * (H // KV) * (Dv + 2)
-        want = min(want, max(1, DECODE_MERGE_BYTES // per_split))
-        S = max(1, min(n, want))
-        tpc = -(-n // S) if n else 1
-        return (-(-n // tpc) if n else 1), t0, tpc
-    if splits < 1:
-        raise ValueError(f"splits {splits} must be >= 1")
-    return splits, t0, (-(-n // splits) if n else 1)
+    S, tpc = _split(n, B, KV, Sq, H, Dv, splits)
+    return S, t0, tpc
+
+
+def capacity_tiles(Sq: int, Skv: int, *, causal: bool, window: int | None,
+                   tile: int = DECODE_TILE) -> int:
+    """The most tiles the live keys of a call over a cache of ``Skv`` keys
+    can touch, at any position: ``ceil(Skv / tile)``, and with a causal
+    window no more than ``ceil((window + Sq) / tile) + 1`` (the live keys
+    of the block, ``window + Sq - 1`` of them at most, start anywhere in a
+    tile)."""
+    n = -(-Skv // tile)
+    if causal and window is not None:
+        n = min(n, -(-(window + Sq) // tile) + 1)
+    return n
+
+
+def capacity_splits(B: int, KV: int, Sq: int, H: int, Dv: int, *,
+                    Skv: int, causal: bool, window: int | None,
+                    splits: int | None = None) -> tuple[int, int]:
+    """(splits S, tiles per split tpc) of the split-K decode at a device
+    position: :func:`decode_splits`'s rule over the
+    :func:`capacity_tiles` of the cache instead of the live tiles of one
+    position.  The kernel finds the first live tile t0 from the position;
+    split s takes tiles ``[t0 + s * tpc, t0 + (s + 1) * tpc)`` cut to the
+    live range, and a split past it is empty.  S * tpc covers the live
+    tiles at every position."""
+    return _split(capacity_tiles(Sq, Skv, causal=causal, window=window),
+                  B, KV, Sq, H, Dv, splits)
 
 
 def _check(q, k, v) -> None:
@@ -197,33 +243,48 @@ def _check(q, k, v) -> None:
         raise ValueError(f"q and k head dims differ: {D} vs {Dk}")
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
-    if B * KV > 65535:
+    if B * KV > MAX_PAIRS:
         raise ValueError(f"batch x KV heads = {B * KV} exceeds the grid's "
-                         f"y limit of 65535")
+                         f"y limit of {MAX_PAIRS}")
     if (D, v.shape[3]) not in HEAD_DIMS:
         raise ValueError(f"head dims (D, Dv) = {(D, v.shape[3])} not in "
                          f"{HEAD_DIMS}")
 
 
-def _counter(device: torch.device, n: int) -> torch.Tensor:
+def _counter(device: torch.device) -> torch.Tensor:
     """The decode kernel's per-(b, KV head) arrival counters on ``device``:
-    int32 zeros, allocated once (grown when a call needs more) and left at
-    0 by every launch.  Calls that share them run on one stream."""
+    :data:`MAX_PAIRS` int32 zeros, allocated once and never replaced (a
+    captured decode graph holds their address), left at 0 by every launch.
+    Every call on a device shares them, so the calls must run in order on
+    one stream, as serial decode and its captured replays do: eager calls,
+    a capture's warm-up and its replays are issued one after another on
+    the current stream."""
     c = _counters.get(device.index)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    if c is None:
+        c = torch.zeros(MAX_PAIRS, dtype=torch.int32, device=device)
         _counters[device.index] = c
     return c
 
 
 def _args(q, k, v, *, window, q_start, kv_len, softmax_scale):
     _check(q, k, v)
-    if q_start < 0 or kv_len < 0:
-        raise ValueError(f"q_start {q_start} and kv_len {kv_len} must be >= 0")
     if window is not None and window < 0:
         raise ValueError(f"window {window} must be >= 0")
     B, Sq, H, D = q.shape
     _, Skv, KV, Dv = v.shape
+    if torch.is_tensor(q_start):
+        # a device position: the decode kernel derives kv_len from it
+        if q_start.dim() != 0 or q_start.dtype != torch.int64 \
+                or q_start.device != q.device:
+            raise ValueError(
+                f"a device q_start must be a 0-d int64 tensor on "
+                f"{q.device}, got {q_start.dtype} of shape "
+                f"{tuple(q_start.shape)} on {q_start.device}")
+        kv_len = Skv
+    elif kv_len is None:
+        kv_len = Skv
+    elif q_start < 0 or kv_len < 0:
+        raise ValueError(f"q_start {q_start} and kv_len {kv_len} must be >= 0")
     scale = float(softmax_scale if softmax_scale is not None else D ** -0.5)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return B, Sq, Skv, H, KV, D, Dv, min(kv_len, Skv), scale, stream
@@ -232,7 +293,9 @@ def _args(q, k, v, *, window, q_start, kv_len, softmax_scale):
 def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
             splits):
     """Launch the split-K decode; returns (out, partials (B*KV, S, Sq*G,
-    Dv + 2) f32)."""
+    Dv + 2) f32).  ``q_start`` is a host int, or a 0-d int64 tensor on the
+    card (then ``kv_len`` is ``q_start + Sq`` and the split rule is
+    :func:`capacity_splits`)."""
     B, Sq, Skv, H, KV, D, Dv, kv_len, scale, stream = _args(
         q, k, v, window=window, q_start=q_start, kv_len=kv_len,
         softmax_scale=softmax_scale)
@@ -240,9 +303,15 @@ def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
     if Sq * G > DECODE_MAX_ROWS:
         raise ValueError(f"the decode kernel takes Sq * G <= "
                          f"{DECODE_MAX_ROWS} rows, got {Sq * G}")
-    S, t0, tpc = decode_splits(B, KV, Sq, H, Dv, causal=causal,
-                               window=window, q_start=q_start,
-                               kv_len=kv_len, splits=splits)
+    if torch.is_tensor(q_start):
+        q_pos, q_start, t0 = q_start.data_ptr(), 0, 0
+        S, tpc = capacity_splits(B, KV, Sq, H, Dv, Skv=Skv, causal=causal,
+                                 window=window, splits=splits)
+    else:
+        q_pos = None
+        S, t0, tpc = decode_splits(B, KV, Sq, H, Dv, causal=causal,
+                                   window=window, q_start=q_start,
+                                   kv_len=kv_len, splits=splits)
     if S > DECODE_MAX_SPLITS:
         raise ValueError(f"{S} splits exceed the decode kernel's "
                          f"{DECODE_MAX_SPLITS}")
@@ -251,27 +320,30 @@ def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
                        device=q.device)
     if out.numel() == 0:
         return out, part
-    counter = _counter(q.device, B * KV)
+    counter = _counter(q.device)
     fn = _library("flash_decode").repro_flash_decode
     _build.raise_on(fn(int(q.dtype == torch.bfloat16), q.data_ptr(),
                        k.data_ptr(), v.data_ptr(), out.data_ptr(),
                        part.data_ptr(), counter.data_ptr(), B, Sq, Skv, H,
                        KV, D, Dv, q_start, kv_len,
                        -1 if window is None else window, int(bool(causal)),
-                       scale, S, t0, tpc, stream), "flash_decode")
+                       scale, S, t0, tpc, q_pos, stream), "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out, part
 
 
 def flash_decode_cuda(q, k, v, *, causal: bool, window: int | None,
-                      q_start: int, kv_len: int,
+                      q_start, kv_len=None,
                       softmax_scale: float | None = None,
                       splits: int | None = None):
     """The split-K decode kernel (``Sq * G <= 16``; ``splits`` fixes the
     number of splits, default its rule) with its partials: returns ``(out,
     m, l, acc)``, ``m``/``l`` ``(B, KV, S, Sq, G)`` and ``acc`` ``(B, KV, S, Sq,
     G, Dv)`` in f32, each split's as :func:`~repro_torch.kernels.
-    flash_attention.ops.flash_decode_partials_torch` computes them."""
+    flash_attention.ops.flash_decode_partials_torch` computes them.
+    ``q_start`` is a host int (with ``kv_len``), or a 0-d int64 tensor on
+    the card (``kv_len`` then ``q_start + Sq``, and the splits
+    :func:`capacity_splits`)."""
     out, part = _decode(q, k, v, causal=causal, window=window,
                         q_start=q_start, kv_len=kv_len,
                         softmax_scale=softmax_scale, splits=splits)
@@ -327,11 +399,13 @@ def flash_simple_cuda(q, k, v, *, causal: bool, window: int | None,
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
-                         q_start: int, kv_len: int,
+                         q_start, kv_len,
                          softmax_scale: float | None = None):
     """Forward GQA attention on the card: q ``(B,Sq,H,D)``, k ``(B,Skv,KV,D)``,
     v ``(B,Skv,KV,Dv)`` -> ``(B,Sq,H,Dv)`` in q's dtype (f32 accumulation),
-    through the kernel :func:`pick_route` names for the call."""
+    through the kernel :func:`pick_route` names for the call.  A device
+    ``q_start`` (0-d int64 tensor; ``kv_len = q_start + Sq``) is taken by
+    the decode route only."""
     _, Sq, H, D = q.shape
     KV, Dv = k.shape[2], v.shape[3]
     if KV == 0 or H % KV:
@@ -341,6 +415,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
     route = pick_route(Sq, H // KV, q.dtype, D, Dv)
     if route == "decode":
         return _decode(q, k, v, splits=None, **kw)[0]
+    if torch.is_tensor(q_start):
+        raise ValueError(f"a device q_start is taken by the decode kernel "
+                         f"only (Sq * G <= {DECODE_MAX_ROWS}), not by the "
+                         f"{route} kernel of Sq * G = {Sq * (H // KV)}")
     if route == "prefill":
         return flash_prefill_cuda(q, k, v, **kw)
     return flash_simple_cuda(q, k, v, **kw)

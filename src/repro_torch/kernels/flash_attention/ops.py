@@ -32,8 +32,18 @@ which masks with a finite -1e30) gives the mean of the masked values.
 
 No environment variable changes the choice: a CUDA tensor under
 ``"auto"`` launches the kernel or raises; it never falls back.
-``q_start`` and ``kv_len`` are host integers (the serving loop keeps the
-decode position on the host).
+
+``q_start`` and ``kv_len`` are host integers, or 0-d integer tensors: a
+decode step's position on the device, so that one launch, and one captured
+graph, serves every position.  The kernel then takes ``kv_len = q_start +
+Sq`` whatever is passed, so pass that, or ``None`` under a causal mask,
+which keeps the same keys.  The CUDA route
+then is the split-K decode, which reads the position on the card; the
+plain versions mask from the tensors (``_flash_torch`` skips no chunk
+then, since which chunks are dead is not known on the host), and a CPU run
+with a tensor position gives what the same run with an int gives (see
+``_flash_torch`` for the one row it would not: a row with no live key).  :func:`flash_decode_partials_torch` reads a tensor position on the
+host and splits as the kernel does at a device position.
 """
 
 from __future__ import annotations
@@ -66,8 +76,8 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int | None = None,
-    q_start: int = 0,
-    kv_len: int | None = None,
+    q_start=0,
+    kv_len=None,
     softmax_scale: float | None = None,
     impl: str = "auto",
     kv_chunk: int = 1024,
@@ -78,10 +88,14 @@ def flash_attention(
     ``q_start`` is the absolute position of ``q[:, 0]``; keys at or beyond
     ``kv_len`` (default ``Skv``) are masked, as are keys after the causal
     diagonal and, with ``window``, keys at or before ``qpos - window``.
+    Both are ints, or 0-d integer tensors on ``q``'s device (the module
+    docstring).
     """
     impl = _pick_impl(impl, q)
-    q_start = int(q_start)
-    kv_len = None if kv_len is None else int(kv_len)
+    if not torch.is_tensor(q_start):
+        q_start = int(q_start)
+    if kv_len is not None and not torch.is_tensor(kv_len):
+        kv_len = int(kv_len)
     if impl == "ref":
         return attention_ref(
             q, k, v, causal=causal, window=window, q_start=q_start,
@@ -108,7 +122,13 @@ def _flash_torch(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
     """Online-softmax loop over KV chunks (the flash algorithm in eager
     PyTorch).  Fully-masked chunks are skipped with the same test as the
     kernel's (beyond ``kv_len``, after the causal diagonal, before the
-    window)."""
+    window) where the positions are host ints.  With tensor positions
+    every chunk is visited: for a row with a live key and finite keys and
+    values the result is the same, since a chunk the mask kills leaves m,
+    l and acc as they were once a live key was seen, and before one its
+    sums are wiped by the first live chunk's correction exp(-1e30 - m) =
+    0.  (A row with no live key at all gives 0 when its chunks are
+    skipped, the mean of the masked values when they are visited.)"""
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     Dv = v.shape[-1]                 # may differ from D (e.g. MLA: 192 vs 128)
@@ -138,11 +158,12 @@ def _flash_torch(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
         lo = ci * C                     # first kv position in chunk
         hi = lo + C - 1
         alive = True
-        if causal:
-            alive &= lo <= q_hi
-        if window is not None:
-            alive &= hi > q_start - window
-        if kv_len is not None:
+        if not torch.is_tensor(q_start):
+            if causal:
+                alive &= lo <= q_hi
+            if window is not None:
+                alive &= hi > q_start - window
+        if kv_len is not None and not torch.is_tensor(kv_len):
             alive &= lo < kv_len
         if not alive:
             continue
@@ -178,19 +199,31 @@ def flash_decode_partials_torch(q, k, v, *, splits=None, causal=True,
     The live keys are cut as the kernel cuts them (``kernel.decode_splits``:
     ``splits=None`` is its rule, else S splits): split s covers the tiles
     ``[t0 + s * tpc, t0 + (s + 1) * tpc)`` of ``DECODE_TILE`` keys, clipped
-    to the live range.  ``m`` is the split's max of the scaled live scores
-    (``-inf`` where no key of the split is live for the row, an empty split
-    included), ``l = sum exp(s - m)`` and ``acc = sum exp(s - m) v`` (both
-    0 where ``m = -inf``)."""
+    to the live range.  With ``q_start`` a 0-d tensor (a device position),
+    it is read on the host, ``kv_len`` is ``q_start + Sq`` (cut to the
+    cache) and S and tpc are ``kernel.capacity_splits``'s, as the kernel's
+    are at a device position.  ``m`` is the split's max of the scaled live
+    scores (``-inf`` where no key of the split is live for the row, an
+    empty split included), ``l = sum exp(s - m)`` and ``acc = sum exp(s -
+    m) v`` (both 0 where ``m = -inf``)."""
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     Dv = v.shape[-1]
     G = H // KV
-    kv_len = Skv if kv_len is None else min(int(kv_len), Skv)
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    S, t0, tpc = _kernel.decode_splits(B, KV, Sq, H, Dv, causal=causal,
-                                       window=window, q_start=q_start,
-                                       kv_len=kv_len, splits=splits)
+    if torch.is_tensor(q_start):
+        q_start = int(q_start)
+        kv_len = min(q_start + Sq, Skv)
+        S, tpc = _kernel.capacity_splits(B, KV, Sq, H, Dv, Skv=Skv,
+                                         causal=causal, window=window,
+                                         splits=splits)
+        t0 = _kernel.live_tiles(Sq, causal=causal, window=window,
+                                q_start=q_start, kv_len=kv_len)[0]
+    else:
+        kv_len = Skv if kv_len is None else min(int(kv_len), Skv)
+        S, t0, tpc = _kernel.decode_splits(B, KV, Sq, H, Dv, causal=causal,
+                                           window=window, q_start=q_start,
+                                           kv_len=kv_len, splits=splits)
     n = _kernel.live_tiles(Sq, causal=causal, window=window, q_start=q_start,
                            kv_len=kv_len)[1]
     tile, dev = _kernel.DECODE_TILE, q.device

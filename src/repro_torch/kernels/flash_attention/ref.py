@@ -17,12 +17,14 @@ def attention_ref(
     *,
     causal: bool = True,
     window: int | None = None,
-    q_start: int = 0,
-    kv_len: int | None = None,
+    q_start=0,
+    kv_len=None,
     softmax_scale: float | None = None,
 ) -> torch.Tensor:
     """O(S^2)-memory reference.  ``q_start``: absolute position of q[0]
     (decode: cache length).  ``kv_len``: #valid cache entries (rest masked).
+    Either may be an int or a 0-d integer tensor (a position on the
+    device), which the mask is built from.
     """
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
@@ -36,7 +38,9 @@ def attention_ref(
     scores = torch.einsum("bqkgd,bskd->bkgqs", qh, kf) * scale
 
     dev = q.device
-    qpos = int(q_start) + torch.arange(Sq, device=dev)[:, None]   # (Sq, 1)
+    if not torch.is_tensor(q_start):
+        q_start = int(q_start)
+    qpos = q_start + torch.arange(Sq, device=dev)[:, None]        # (Sq, 1)
     kpos = torch.arange(Skv, device=dev)[None, :]                 # (1, Skv)
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
     if causal:
@@ -44,7 +48,7 @@ def attention_ref(
     if window is not None:
         mask &= kpos > qpos - window
     if kv_len is not None:
-        mask &= kpos < int(kv_len)
+        mask &= kpos < (kv_len if torch.is_tensor(kv_len) else int(kv_len))
     scores = torch.where(mask[None, None, None], scores, -torch.inf)
     p = torch.exp(scores - scores.amax(-1, keepdim=True))
     p = torch.where(torch.isfinite(scores), p, 0.0)

@@ -27,6 +27,15 @@ back.  One step mode is ported:
               live together, matching the pool's ``overlap='serial'``
               admission accounting.
 
+On the card that one decode is a CUDA graph, captured once per server for
+every position (:class:`~repro_torch.launch.steps.CapturedDecodeStep`, the
+counterpart of ``repro``'s ``jax.jit`` of its decode step): each request's
+state is unpacked into the graph's static cache, the graph is replayed,
+and the static cache is packed back; the unpack and pack stay outside the
+graph, since each request's arena lies elsewhere.  On the CPU, which has
+no CUDA graph, the decode step runs eagerly.  Prefill runs eagerly on
+both (``repro`` traces it per prompt shape).
+
 ``step_mode="vmap"`` (all active requests in one batched step) and the
 sharded fleet (``fleet_planner_for_model``, ``run_fleet``, ``--fleet``,
 ``--mesh``) wait for a later slice (ROADMAP A4).  Entry points run on the
@@ -52,7 +61,11 @@ from repro_torch.core.executor import (
     unpack_buffer,
 )
 from repro_torch.core.plancache import default_cache
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.launch.steps import (
+    make_captured_decode_step,
+    make_decode_step,
+    make_prefill_step,
+)
 from repro_torch.models.params import (
     is_def,
     tree_flatten,
@@ -170,15 +183,18 @@ def pack_decode_state(plan: dict, cache, arena=None):
                         device=arena.device)
 
 
-def unpack_decode_state(plan: dict, arena, defs_like):
-    """Rebuild the decode-state tree from its planned arena offsets (fresh
-    tensors on the arena's device, read by the u8 arena-read kernel).
-    ``defs_like`` is any tree of leaves with ``shape`` and ``dtype``
-    (``ParamDef``s or tensors)."""
+def unpack_decode_state(plan: dict, arena, defs_like, *, out=None):
+    """Rebuild the decode-state tree from its planned arena offsets (read
+    by the u8 arena-read kernel): fresh tensors on the arena's device, or,
+    with ``out`` (a tree of contiguous tensors of the same leaves, such as
+    a captured step's static cache), into those, in place.  ``defs_like``
+    is any tree of leaves with ``shape`` and ``dtype`` (``ParamDef``s or
+    tensors)."""
     leaves, treedef = tree_flatten(defs_like, is_leaf=is_def)
+    outs = [None] * len(leaves) if out is None else tree_leaves(out)
     apl = plan["plan"]
-    rebuilt = [unpack_buffer(arena, apl, i, leaf.shape, leaf.dtype)
-               for i, leaf in enumerate(leaves)]
+    rebuilt = [unpack_buffer(arena, apl, i, leaf.shape, leaf.dtype, out=o)
+               for i, (leaf, o) in enumerate(zip(leaves, outs))]
     return tree_unflatten(treedef, rebuilt)
 
 
@@ -341,6 +357,11 @@ class DecodeServer:
         self.rules = rules
         self._prefill = make_prefill_step(model, rules)
         self._decode = make_decode_step(model, rules)
+        # the card decodes through one captured step (its static state at
+        # (1, smax)); the CPU has no CUDA graph and decodes eagerly
+        self._captured = None if self.device.type != "cuda" else \
+            make_captured_decode_step(model, params, smax=smax, rules=rules,
+                                      device=self.device)
         self._plan = plan_decode_arena(model, 1, smax)
         # register our regions plan with the pool once; submits reuse the
         # key (no per-request graph re-fingerprinting)
@@ -555,12 +576,18 @@ class DecodeServer:
         return self.model.make_cache_defs(1, self.smax)
 
     def _step_serial(self) -> None:
+        step = self._captured
         for req in self.active:
-            cache = unpack_decode_state(self._plan, req.arena,
-                                        self._cache_defs())
-            tok = torch.full((1, 1), req.last_tok, dtype=torch.long,
-                             device=self.device)
-            logits, cache = self._decode(self.params, cache, tok, req.t)
+            if step is None:
+                cache = unpack_decode_state(self._plan, req.arena,
+                                            self._cache_defs())
+                tok = torch.full((1, 1), req.last_tok, dtype=torch.long,
+                                 device=self.device)
+                logits, cache = self._decode(self.params, cache, tok, req.t)
+            else:
+                cache = unpack_decode_state(self._plan, req.arena,
+                                            step.cache, out=step.cache)
+                logits = step(req.last_tok, req.t)
             req.last_tok = int(torch.argmax(logits, -1)[0])
             req.tokens.append(req.last_tok)
             req.t += 1

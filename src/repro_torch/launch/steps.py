@@ -2,6 +2,8 @@
 
   * ``make_prefill_step(model, rules)``  (params, cache, batch) -> (logits, cache)
   * ``make_decode_step(model, rules)``   (params, cache, tokens, t) -> (logits, cache)
+  * ``make_captured_decode_step(model, params, smax=...)``
+        (token, t) -> logits: the decode step in one CUDA graph
 
 Their default is ``impl="auto"``: the CUDA flash-attention kernel for
 tensors on the card, the plain PyTorch version for tensors on the CPU
@@ -11,6 +13,10 @@ step and the input specs of the dry-run wait for ROADMAP A7/A10.
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core.capture import CapturedCall
+from repro_torch.core.executor import resolve_device
 from repro_torch.models.zoo import Model
 
 
@@ -27,3 +33,67 @@ def make_decode_step(model: Model, rules=None, *, impl: str = "auto"):
                                rules=rules)
 
     return decode_step
+
+
+class CapturedDecodeStep:
+    """One batch-1 decode step captured in a CUDA graph that serves every
+    position: the counterpart of ``repro``'s ``jax.jit(make_decode_step(
+    ...))``, whose one trace serves every position because ``t`` is traced.
+
+    Static tensors take the place of the traced arguments: :attr:`cache`
+    (the decode-state tree at ``(1, smax)``, updated in place by every
+    step), the token and the position (one int64 pair on the card, the
+    position a 0-d tensor that the step reads on the device:
+    ``models.zoo``'s ``decode_fn``), and the logits the capture made.  A
+    caller writes a request's state into :attr:`cache` (e.g.
+    ``unpack_decode_state(..., out=step.cache)``), calls ``step(token,
+    t)``, reads the logits before the next call (which overwrites them),
+    and takes the state back from :attr:`cache`.
+
+    The first call runs the step eagerly (the capture's warm-up, which is
+    that call's step) and captures it; every later call is one replay
+    (:class:`~repro_torch.core.capture.CapturedCall`, which keeps the
+    kernels' launch counts true).  The card only: raises on the CPU.
+    """
+
+    def __init__(self, model: Model, params, *, smax: int, rules=None,
+                 impl: str = "auto", device=None):
+        self.device = resolve_device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"a captured decode step needs a CUDA device, "
+                             f"got {self.device}; decode eagerly on the CPU")
+        self.params = params
+        self.cache = model.init_cache(1, smax, self.device)
+        self._step = make_decode_step(model, rules, impl=impl)
+        # token and position, written by one copy a step from a pinned
+        # host pair, which is not rewritten before the last copy has run
+        self._host = torch.zeros(2, dtype=torch.long, pin_memory=True)
+        self._copied = torch.cuda.Event()
+        self._io = torch.zeros(2, dtype=torch.long, device=self.device)
+        self.tokens = self._io[:1].view(1, 1)
+        self.t = self._io[1]
+        self.call: CapturedCall | None = None
+
+    def __call__(self, token: int, t: int) -> torch.Tensor:
+        """Decode ``token`` at position ``t`` against :attr:`cache`;
+        returns the ``(1, vocab)`` f32 logits."""
+        self._copied.synchronize()
+        self._host[0], self._host[1] = int(token), int(t)
+        self._io.copy_(self._host, non_blocking=True)
+        self._copied.record()
+        if self.call is None:
+            self.call = CapturedCall(
+                lambda: self._step(self.params, self.cache, self.tokens,
+                                   self.t)[0], self.device)
+            return self.call.first
+        return self.call.replay()
+
+
+def make_captured_decode_step(model: Model, params, *, smax: int,
+                              rules=None, impl: str = "auto",
+                              device=None) -> CapturedDecodeStep:
+    """The decode step of ``model`` with ``params`` for a cache of ``smax``
+    positions, captured in one CUDA graph on ``device`` (``None``: the
+    card): see :class:`CapturedDecodeStep`."""
+    return CapturedDecodeStep(model, params, smax=smax, rules=rules,
+                              impl=impl, device=device)

@@ -11,6 +11,10 @@ and ``mla_*`` wait for their families (ROADMAP A6).
 Unlike JAX, the port updates the KV cache **in place**: ``attn_apply``
 writes the layer's new keys and values into the cache tensors it is given
 (the counterpart of ``dynamic_update_slice``) and returns that same dict.
+A decode step's position may be a host int or a 0-d integer tensor on the
+device (``jnp.int32(t)`` traced under ``jax.jit`` in ``repro``): with a
+tensor, no op of the step reads the position on the host, so one captured
+graph serves every position.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ class Ctx:
     impl: str = "auto"                # attention implementation
     decode: bool = False
     positions: Any = None             # (B, S) absolute positions
-    cache_len: Any = None             # host int: #valid cache entries
+    cache_len: Any = None             # #valid cache entries: an int, or a
+                                      # 0-d integer tensor on the device
     rules: Any = None                 # sharding rules (ROADMAP A8; unused)
 
 
@@ -53,11 +58,12 @@ def rms_norm(x, p, eps: float = 1e-6):
     return (y * (1.0 + p["scale"].to(f32))).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _rope_freq(theta: float, half: int, device: torch.device):
     """``exp(-log(theta) * arange(half) / half)`` in f32, made once per
     (theta, half, device): a decode step would otherwise spend four
-    launches per call on it."""
+    launches per call on it.  Never evicted: a captured decode graph reads
+    it by its address."""
     log_theta = torch.log(torch.tensor(theta, dtype=f32))
     return torch.exp(
         -log_theta * torch.arange(half, dtype=f32) / half).to(device)
@@ -104,7 +110,12 @@ def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
     ``ctx.cache_len`` and attends over the whole buffer with
     ``q_start = t``, ``kv_len = t + S``.  Both writes go into the given
     cache tensors in place (the port's counterpart of JAX's
-    ``dynamic_update_slice``); the returned cache is the same dict.
+    ``dynamic_update_slice``); the returned cache is the same dict.  With
+    ``t`` a device tensor the decode write is one ``index_copy_`` at the
+    step's positions (``ctx.positions[0]``, ``t + arange(S)``), the
+    attention takes ``q_start = t`` and leaves ``kv_len`` to the causal
+    mask, and the check that the write fits the cache is the device's: an
+    index past the cache fails there, not on the host.
     """
     cfg = ctx.cfg
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -121,6 +132,14 @@ def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
         q_start, kv_len, ks, vs = 0, None, k, v
+    elif cache is not None and torch.is_tensor(ctx.cache_len):
+        t, idx = ctx.cache_len, ctx.positions[0]
+        cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+        # kv_len = t + S is what the causal mask already keeps (the last
+        # query sits at t + S - 1), and the kernel derives it on the
+        # device: a tensor t + S would cost a launch a layer
+        q_start, kv_len, ks, vs = t, None, cache["k"], cache["v"]
     elif cache is not None:
         t = int(ctx.cache_len)
         if t + S > cache["k"].shape[1]:

@@ -8,6 +8,12 @@
     prefill_fn(params, cache, batch, *, impl, rules)   -> (logits_last, cache)
     decode_fn(params, cache, tokens, t, *, impl, rules) -> (logits, cache)
 
+``decode_fn``'s position ``t`` is an int or a 0-d integer tensor (the
+counterpart of ``repro``'s traced ``jnp.int32(t)``).  On the card an int is
+made a device tensor first, so that an eager decode step and a captured
+one (``repro_torch.launch.steps.make_captured_decode_step``) launch the
+same kernels.
+
 The counterparts of ``repro.models.zoo``'s ``build_decoder_lm`` (dense
 configs), ``build_rwkv_lm`` and ``build_griffin_lm``, with the same
 parameter and cache trees (names, stacked shapes, leaf order), so that
@@ -87,7 +93,15 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone) -> Model:
         Bz, S = tokens.shape
         pos = torch.arange(S, device=tokens.device)[None]
         if decode:
-            pos = pos + int(t)
+            if torch.is_tensor(t):
+                t = t.to(device=tokens.device, dtype=torch.long)
+            elif tokens.is_cuda:
+                # the card's decode reads its position on the device
+                t = torch.full((), int(t), dtype=torch.long,
+                               device=tokens.device)
+            else:
+                t = int(t)
+            pos = pos + t
         ctx = Ctx(cfg=cfg, impl=impl, positions=pos.expand(Bz, S),
                   decode=decode, cache_len=t, rules=rules)
         x = embed_apply(params["embed"], tokens, cfg)
