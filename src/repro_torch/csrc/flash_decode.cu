@@ -39,6 +39,10 @@
 // The position on the device: with `q_pos` given (a captured decode step,
 // one launch for every position), the kernel reads q_start from it, takes
 // kv_len = min(q_start + Sq, Skv) and finds t0 from the live range itself.
+// `q_pos` holds one position for every batch row (stride 0: the serial
+// step) or one per row (stride 1: the batched step, whose rows decode at
+// their own positions); each (b, KV head) block reads its row's, so rows
+// at different positions share one grid.
 // The wrapper then sets S and tpc by the same rule over the most tiles the
 // live range can touch at any position (`capacity_splits`): ceil(Skv / 32),
 // and with a causal window no more than ceil((window + Sq) / 32) + 1.  At
@@ -106,6 +110,8 @@ struct Params {
   float scale;
   long long t0, tpc, S;            // first live tile, tiles per split, splits
   const long long* q_pos;          // the position on the device, or null
+  long long q_pos_stride;          // 0: one position for every row; 1: a
+                                   // position per batch row, q_pos[b]
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -209,10 +215,10 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
   const long long split = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // the position: the host's, or read from the device
+  // the position: the host's, or read from the device (this batch row's)
   long long q_start = p.q_start, kv_len = p.kv_len;
   if (p.q_pos != nullptr) {
-    q_start = *p.q_pos;
+    q_start = p.q_pos[b * p.q_pos_stride];
     kv_len = q_start + p.Sq < p.Skv ? q_start + p.Sq : p.Skv;
   }
   // the block-level live range, as the wrapper's live_tiles computes it
@@ -528,6 +534,7 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.scale = scale;
   p.t0 = 0; p.tpc = 1; p.S = 1;
   p.q_pos = nullptr;
+  p.q_pos_stride = 0;
   return p;
 }
 
@@ -539,9 +546,11 @@ extern "C" {
 // accepted).  `part` holds (B*KV, splits, Sq*G, Dv+2) f32, `counter` B*KV
 // int32 zeros; splits, the first live tile t0 and the tiles per split tpc
 // by the rule above (kernels/flash_attention/kernel.py:decode_splits).
-// With `q_pos` (an int64 on the device) not null, q_start, kv_len and t0
+// With `q_pos` (int64 on the device) not null, q_start, kv_len and t0
 // come from the device and the arguments of those names are not read
-// (splits and tpc: kernel.py:capacity_splits).
+// (splits and tpc: kernel.py:capacity_splits); batch row b reads
+// q_pos[b * q_pos_stride], so stride 0 gives every row one position and
+// stride 1 each row its own.
 int repro_flash_decode(int is_bf16, const void* q, const void* k,
                        const void* v, void* o, void* part, void* counter,
                        long long B, long long Sq, long long Skv, long long H,
@@ -549,13 +558,14 @@ int repro_flash_decode(int is_bf16, const void* q, const void* k,
                        long long q_start, long long kv_len, long long window,
                        int causal, float scale, long long splits,
                        long long t0, long long tpc, const void* q_pos,
-                       void* stream) {
+                       long long q_pos_stride, void* stream) {
   Params p = make_params(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, q_start,
                          kv_len, window, causal, scale);
   p.part = static_cast<float*>(part);
   p.counter = static_cast<int*>(counter);
   p.S = splits; p.t0 = t0; p.tpc = tpc;
   p.q_pos = static_cast<const long long*>(q_pos);
+  p.q_pos_stride = q_pos_stride;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch<__nv_bfloat16>(p, s) : dispatch<float>(p, s);
 }

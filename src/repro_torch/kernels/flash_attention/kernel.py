@@ -35,8 +35,11 @@ The decode kernel also takes its position from the device: with
 tile itself, and splits the keys by :func:`capacity_splits`, a rule of the
 cache's capacity and the window and not of the position.  One launch then
 serves every position, which is what a captured decode step replays
-(:mod:`repro_torch.core.capture`).  The other two kernels take host
-integers only.
+(:mod:`repro_torch.core.capture`).  ``q_start`` may also be a ``(B,)``
+int64 tensor, a position per batch row (the batched decode step, whose
+rows decode at their own positions): each (b, KV head) block reads its
+row's, and the split rule, being the capacity's, is the same for every
+row.  The other two kernels take host integers only.
 
 They replace ``flash_attention_pallas`` / ``_fa_kernel`` of
 ``repro/kernels/flash_attention/kernel.py``; each source note says what
@@ -106,7 +109,7 @@ _ARGS = {
     "flash_decode": ["is_bf16", "q", "k", "v", "o", "part", "counter", "B",
                      "Sq", "Skv", "H", "KV", "D", "Dv", "q_start", "kv_len",
                      "window", "causal", "scale", "splits", "t0", "tpc",
-                     "q_pos", "stream"],
+                     "q_pos", "q_pos_stride", "stream"],
 }
 _CTYPE = {"q": ctypes.c_void_p, "k": ctypes.c_void_p, "v": ctypes.c_void_p,
           "o": ctypes.c_void_p, "part": ctypes.c_void_p,
@@ -243,12 +246,20 @@ def _check(q, k, v) -> None:
         raise ValueError(f"q and k head dims differ: {D} vs {Dk}")
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
-    if B * KV > MAX_PAIRS:
-        raise ValueError(f"batch x KV heads = {B * KV} exceeds the grid's "
-                         f"y limit of {MAX_PAIRS}")
+    check_pairs(B, KV)
     if (D, v.shape[3]) not in HEAD_DIMS:
         raise ValueError(f"head dims (D, Dv) = {(D, v.shape[3])} not in "
                          f"{HEAD_DIMS}")
+
+
+def check_pairs(B: int, KV: int) -> None:
+    """Raise unless the decode kernel's grid and its arrival counters
+    (:data:`MAX_PAIRS`, one per (batch row, KV head)) cover ``B * KV``:
+    a batched decode step checks its bucket with it before it builds."""
+    if B * KV > MAX_PAIRS:
+        raise ValueError(f"batch x KV heads = {B} x {KV} = {B * KV} exceeds "
+                         f"the decode kernel's {MAX_PAIRS} (batch, KV head) "
+                         f"pairs (its grid's y limit and its counters)")
 
 
 def _counter(device: torch.device) -> torch.Tensor:
@@ -273,13 +284,16 @@ def _args(q, k, v, *, window, q_start, kv_len, softmax_scale):
     B, Sq, H, D = q.shape
     _, Skv, KV, Dv = v.shape
     if torch.is_tensor(q_start):
-        # a device position: the decode kernel derives kv_len from it
-        if q_start.dim() != 0 or q_start.dtype != torch.int64 \
-                or q_start.device != q.device:
+        # a device position, one for every row or one per batch row: the
+        # decode kernel derives kv_len from it
+        if tuple(q_start.shape) not in ((), (B,)) \
+                or q_start.dtype != torch.int64 \
+                or q_start.device != q.device \
+                or not q_start.is_contiguous():
             raise ValueError(
-                f"a device q_start must be a 0-d int64 tensor on "
-                f"{q.device}, got {q_start.dtype} of shape "
-                f"{tuple(q_start.shape)} on {q_start.device}")
+                f"a device q_start must be a contiguous int64 tensor of "
+                f"shape () or ({B},) on {q.device}, got {q_start.dtype} of "
+                f"shape {tuple(q_start.shape)} on {q_start.device}")
         kv_len = Skv
     elif kv_len is None:
         kv_len = Skv
@@ -293,9 +307,9 @@ def _args(q, k, v, *, window, q_start, kv_len, softmax_scale):
 def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
             splits):
     """Launch the split-K decode; returns (out, partials (B*KV, S, Sq*G,
-    Dv + 2) f32).  ``q_start`` is a host int, or a 0-d int64 tensor on the
-    card (then ``kv_len`` is ``q_start + Sq`` and the split rule is
-    :func:`capacity_splits`)."""
+    Dv + 2) f32).  ``q_start`` is a host int, or an int64 tensor on the
+    card, 0-d or a position per batch row (then each row's ``kv_len`` is
+    its ``q_start + Sq`` and the split rule is :func:`capacity_splits`)."""
     B, Sq, Skv, H, KV, D, Dv, kv_len, scale, stream = _args(
         q, k, v, window=window, q_start=q_start, kv_len=kv_len,
         softmax_scale=softmax_scale)
@@ -304,11 +318,12 @@ def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
         raise ValueError(f"the decode kernel takes Sq * G <= "
                          f"{DECODE_MAX_ROWS} rows, got {Sq * G}")
     if torch.is_tensor(q_start):
-        q_pos, q_start, t0 = q_start.data_ptr(), 0, 0
+        q_pos, stride = q_start.data_ptr(), q_start.dim()
+        q_start, t0 = 0, 0
         S, tpc = capacity_splits(B, KV, Sq, H, Dv, Skv=Skv, causal=causal,
                                  window=window, splits=splits)
     else:
-        q_pos = None
+        q_pos, stride = None, 0
         S, t0, tpc = decode_splits(B, KV, Sq, H, Dv, causal=causal,
                                    window=window, q_start=q_start,
                                    kv_len=kv_len, splits=splits)
@@ -327,7 +342,8 @@ def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
                        part.data_ptr(), counter.data_ptr(), B, Sq, Skv, H,
                        KV, D, Dv, q_start, kv_len,
                        -1 if window is None else window, int(bool(causal)),
-                       scale, S, t0, tpc, q_pos, stream), "flash_decode")
+                       scale, S, t0, tpc, q_pos, stride, stream),
+                    "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out, part
 
@@ -341,9 +357,9 @@ def flash_decode_cuda(q, k, v, *, causal: bool, window: int | None,
     m, l, acc)``, ``m``/``l`` ``(B, KV, S, Sq, G)`` and ``acc`` ``(B, KV, S, Sq,
     G, Dv)`` in f32, each split's as :func:`~repro_torch.kernels.
     flash_attention.ops.flash_decode_partials_torch` computes them.
-    ``q_start`` is a host int (with ``kv_len``), or a 0-d int64 tensor on
-    the card (``kv_len`` then ``q_start + Sq``, and the splits
-    :func:`capacity_splits`)."""
+    ``q_start`` is a host int (with ``kv_len``), or an int64 tensor on the
+    card, 0-d or ``(B,)`` (a position per batch row; each row's ``kv_len``
+    then its ``q_start + Sq``, and the splits :func:`capacity_splits`)."""
     out, part = _decode(q, k, v, causal=causal, window=window,
                         q_start=q_start, kv_len=kv_len,
                         softmax_scale=softmax_scale, splits=splits)
@@ -404,8 +420,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
     """Forward GQA attention on the card: q ``(B,Sq,H,D)``, k ``(B,Skv,KV,D)``,
     v ``(B,Skv,KV,Dv)`` -> ``(B,Sq,H,Dv)`` in q's dtype (f32 accumulation),
     through the kernel :func:`pick_route` names for the call.  A device
-    ``q_start`` (0-d int64 tensor; ``kv_len = q_start + Sq``) is taken by
-    the decode route only."""
+    ``q_start`` (an int64 tensor, 0-d or ``(B,)``; ``kv_len = q_start +
+    Sq``) is taken by the decode route only."""
     _, Sq, H, D = q.shape
     KV, Dv = k.shape[2], v.shape[3]
     if KV == 0 or H % KV:

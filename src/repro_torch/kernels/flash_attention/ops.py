@@ -35,15 +35,18 @@ No environment variable changes the choice: a CUDA tensor under
 
 ``q_start`` and ``kv_len`` are host integers, or 0-d integer tensors: a
 decode step's position on the device, so that one launch, and one captured
-graph, serves every position.  The kernel then takes ``kv_len = q_start +
-Sq`` whatever is passed, so pass that, or ``None`` under a causal mask,
-which keeps the same keys.  The CUDA route
-then is the split-K decode, which reads the position on the card; the
-plain versions mask from the tensors (``_flash_torch`` skips no chunk
-then, since which chunks are dead is not known on the host), and a CPU run
-with a tensor position gives what the same run with an int gives (see
-``_flash_torch`` for the one row it would not: a row with no live key).  :func:`flash_decode_partials_torch` reads a tensor position on the
-host and splits as the kernel does at a device position.
+graph, serves every position.  ``q_start`` may also be a ``(B,)`` integer
+tensor, a position per batch row (the batched decode step): row ``b`` is
+masked at its own ``q_start[b]``.  The kernel then takes ``kv_len =
+q_start + Sq`` whatever is passed, so pass that, or ``None`` under a
+causal mask, which keeps the same keys.  The CUDA route then is the
+split-K decode, which reads the positions on the card; the plain versions
+mask from the tensors (``_flash_torch`` skips no chunk then, since which
+chunks are dead is not known on the host), and a CPU run with a tensor
+position gives what the same run with an int gives (see ``_flash_torch``
+for the one row it would not: a row with no live key).
+:func:`flash_decode_partials_torch` reads a tensor position on the host
+and splits as the kernel does at a device position.
 """
 
 from __future__ import annotations
@@ -58,6 +61,16 @@ IMPLS = ("auto", "cuda", "torch", "ref")
 
 _NEG_INF = -1e30
 _INF = float("inf")
+
+
+def _row_positions(q_start, Sq: int, device) -> torch.Tensor:
+    """The absolute positions of the ``Sq`` queries as a ``(1, Sq)`` tensor
+    (an int or 0-d ``q_start``: every batch row alike) or a ``(B, Sq)`` one
+    (a ``(B,)`` ``q_start``: a position per row)."""
+    ar = torch.arange(Sq, device=device)
+    if torch.is_tensor(q_start) and q_start.dim() == 1:
+        return q_start.to(device)[:, None] + ar
+    return (q_start + ar)[None]
 
 
 def _pick_impl(impl: str, q) -> str:
@@ -88,8 +101,8 @@ def flash_attention(
     ``q_start`` is the absolute position of ``q[:, 0]``; keys at or beyond
     ``kv_len`` (default ``Skv``) are masked, as are keys after the causal
     diagonal and, with ``window``, keys at or before ``qpos - window``.
-    Both are ints, or 0-d integer tensors on ``q``'s device (the module
-    docstring).
+    Both are ints, or 0-d integer tensors on ``q``'s device; ``q_start``
+    also a ``(B,)`` one, a position per batch row (the module docstring).
     """
     impl = _pick_impl(impl, q)
     if not torch.is_tensor(q_start):
@@ -145,8 +158,7 @@ def _flash_torch(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
     dev = q.device
 
     qh = (q.float() * scale).reshape(B, Sq, KV, G, D)
-    qpos = q_start + torch.arange(Sq, device=dev)             # (Sq,)
-    q_hi = q_start + Sq - 1
+    qpos = _row_positions(q_start, Sq, dev)[..., None]   # (1 or B, Sq, 1)
 
     kc = k.reshape(B, n_chunks, C, KV, D)
     vc = v.reshape(B, n_chunks, C, KV, Dv)
@@ -160,7 +172,7 @@ def _flash_torch(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
         alive = True
         if not torch.is_tensor(q_start):
             if causal:
-                alive &= lo <= q_hi
+                alive &= lo <= q_start + Sq - 1
             if window is not None:
                 alive &= hi > q_start - window
         if kv_len is not None and not torch.is_tensor(kv_len):
@@ -171,14 +183,14 @@ def _flash_torch(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
         vs = vc[:, ci].float()
         s = torch.einsum("bqkgd,bckd->bqkgc", qh, ks)         # (B,Sq,KV,G,C)
         kpos = lo + torch.arange(C, device=dev)
-        mask = torch.ones((Sq, C), dtype=torch.bool, device=dev)
+        mask = torch.ones((1, Sq, C), dtype=torch.bool, device=dev)
         if causal:
-            mask &= kpos[None, :] <= qpos[:, None]
+            mask = mask & (kpos <= qpos)
         if window is not None:
-            mask &= kpos[None, :] > qpos[:, None] - window
+            mask = mask & (kpos > qpos - window)
         if kv_len is not None:
-            mask &= kpos[None, :] < kv_len
-        s = torch.where(mask[None, :, None, None, :], s, _NEG_INF)
+            mask = mask & (kpos < kv_len)
+        s = torch.where(mask[:, :, None, None, :], s, _NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -199,60 +211,64 @@ def flash_decode_partials_torch(q, k, v, *, splits=None, causal=True,
     The live keys are cut as the kernel cuts them (``kernel.decode_splits``:
     ``splits=None`` is its rule, else S splits): split s covers the tiles
     ``[t0 + s * tpc, t0 + (s + 1) * tpc)`` of ``DECODE_TILE`` keys, clipped
-    to the live range.  With ``q_start`` a 0-d tensor (a device position),
-    it is read on the host, ``kv_len`` is ``q_start + Sq`` (cut to the
-    cache) and S and tpc are ``kernel.capacity_splits``'s, as the kernel's
-    are at a device position.  ``m`` is the split's max of the scaled live
-    scores (``-inf`` where no key of the split is live for the row, an
-    empty split included), ``l = sum exp(s - m)`` and ``acc = sum exp(s -
-    m) v`` (both 0 where ``m = -inf``)."""
+    to the live range.  With ``q_start`` a tensor (a device position: 0-d,
+    or ``(B,)``, a position per batch row), it is read on the host, each
+    row's ``kv_len`` is its ``q_start + Sq`` (cut to the cache) and its t0
+    its own, and S and tpc are ``kernel.capacity_splits``'s, as the
+    kernel's are at a device position.  ``m`` is the split's max of the
+    scaled live scores (``-inf`` where no key of the split is live for the
+    row, an empty split included), ``l = sum exp(s - m)`` and ``acc = sum
+    exp(s - m) v`` (both 0 where ``m = -inf``)."""
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
     Dv = v.shape[-1]
     G = H // KV
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     if torch.is_tensor(q_start):
-        q_start = int(q_start)
-        kv_len = min(q_start + Sq, Skv)
         S, tpc = _kernel.capacity_splits(B, KV, Sq, H, Dv, Skv=Skv,
                                          causal=causal, window=window,
                                          splits=splits)
-        t0 = _kernel.live_tiles(Sq, causal=causal, window=window,
-                                q_start=q_start, kv_len=kv_len)[0]
+        starts = [int(p) for p in q_start.reshape(-1).tolist()]
+        # (batch rows, q_start, kv_len): every row alike, or one per row
+        groups = [(slice(None) if len(starts) == 1 else slice(b, b + 1), p,
+                   min(p + Sq, Skv)) for b, p in enumerate(starts)]
     else:
         kv_len = Skv if kv_len is None else min(int(kv_len), Skv)
-        S, t0, tpc = _kernel.decode_splits(B, KV, Sq, H, Dv, causal=causal,
-                                           window=window, q_start=q_start,
-                                           kv_len=kv_len, splits=splits)
-    n = _kernel.live_tiles(Sq, causal=causal, window=window, q_start=q_start,
-                           kv_len=kv_len)[1]
+        S, _, tpc = _kernel.decode_splits(B, KV, Sq, H, Dv, causal=causal,
+                                          window=window, q_start=q_start,
+                                          kv_len=kv_len, splits=splits)
+        groups = [(slice(None), int(q_start), kv_len)]
     tile, dev = _kernel.DECODE_TILE, q.device
     qh = (q.float() * scale).reshape(B, Sq, KV, G, D)
-    qpos = q_start + torch.arange(Sq, device=dev)
     m = torch.full((B, KV, S, Sq, G), -_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KV, S, Sq, G), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KV, S, Sq, G, Dv), dtype=torch.float32,
                       device=dev)
-    for s in range(S):
-        lo = (t0 + s * tpc) * tile
-        hi = min((t0 + min((s + 1) * tpc, n)) * tile, Skv)
-        if lo >= hi:
-            continue                                  # an empty split
-        sc = torch.einsum("bqkgd,bckd->bkqgc", qh, k[:, lo:hi].float())
-        kpos = lo + torch.arange(hi - lo, device=dev)
-        mask = (kpos[None, :] < kv_len).expand(Sq, -1)
-        if causal:
-            mask = mask & (kpos[None, :] <= qpos[:, None])
-        if window is not None:
-            mask = mask & (kpos[None, :] > qpos[:, None] - window)
-        sc = torch.where(mask[None, None, :, None, :], sc, -_INF)
-        ms = sc.amax(-1)                              # (B, KV, Sq, G)
-        p = torch.where(torch.isinf(ms)[..., None], 0.0,
-                        torch.exp(sc - ms[..., None]))
-        m[:, :, s] = ms
-        l[:, :, s] = p.sum(-1)
-        acc[:, :, s] = torch.einsum("bkqgc,bckd->bkqgd", p,
-                                    v[:, lo:hi].float())
+    for rows, qs, kvl in groups:
+        t0, n = _kernel.live_tiles(Sq, causal=causal, window=window,
+                                   q_start=qs, kv_len=kvl)
+        qpos = qs + torch.arange(Sq, device=dev)
+        for s in range(S):
+            lo = (t0 + s * tpc) * tile
+            hi = min((t0 + min((s + 1) * tpc, n)) * tile, Skv)
+            if lo >= hi:
+                continue                              # an empty split
+            sc = torch.einsum("bqkgd,bckd->bkqgc", qh[rows],
+                              k[rows, lo:hi].float())
+            kpos = lo + torch.arange(hi - lo, device=dev)
+            mask = (kpos[None, :] < kvl).expand(Sq, -1)
+            if causal:
+                mask = mask & (kpos[None, :] <= qpos[:, None])
+            if window is not None:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            sc = torch.where(mask[None, None, :, None, :], sc, -_INF)
+            ms = sc.amax(-1)                          # (b, KV, Sq, G)
+            p = torch.where(torch.isinf(ms)[..., None], 0.0,
+                            torch.exp(sc - ms[..., None]))
+            m[rows, :, s] = ms
+            l[rows, :, s] = p.sum(-1)
+            acc[rows, :, s] = torch.einsum("bkqgc,bckd->bkqgd", p,
+                                           v[rows, lo:hi].float())
     return m, l, acc
 
 

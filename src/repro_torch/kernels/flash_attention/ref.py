@@ -24,7 +24,8 @@ def attention_ref(
     """O(S^2)-memory reference.  ``q_start``: absolute position of q[0]
     (decode: cache length).  ``kv_len``: #valid cache entries (rest masked).
     Either may be an int or a 0-d integer tensor (a position on the
-    device), which the mask is built from.
+    device), which the mask is built from; ``q_start`` also a ``(B,)``
+    integer tensor, a position per batch row.
     """
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
@@ -40,16 +41,19 @@ def attention_ref(
     dev = q.device
     if not torch.is_tensor(q_start):
         q_start = int(q_start)
-    qpos = q_start + torch.arange(Sq, device=dev)[:, None]        # (Sq, 1)
-    kpos = torch.arange(Skv, device=dev)[None, :]                 # (1, Skv)
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if torch.is_tensor(q_start) and q_start.dim() == 1:
+        q_start = q_start.reshape(-1, 1, 1)               # a row's own
+    qpos = q_start + torch.arange(Sq, device=dev)[:, None]   # (1|B,) Sq, 1
+    kpos = torch.arange(Skv, device=dev)[None, :]            # (1, Skv)
+    mask = torch.ones((1, Sq, Skv), dtype=torch.bool, device=dev)
     if causal:
-        mask &= kpos <= qpos
+        mask = mask & (kpos <= qpos)
     if window is not None:
-        mask &= kpos > qpos - window
+        mask = mask & (kpos > qpos - window)
     if kv_len is not None:
-        mask &= kpos < (kv_len if torch.is_tensor(kv_len) else int(kv_len))
-    scores = torch.where(mask[None, None, None], scores, -torch.inf)
+        mask = mask & (kpos < (kv_len if torch.is_tensor(kv_len)
+                               else int(kv_len)))
+    scores = torch.where(mask[:, None, None], scores, -torch.inf)
     p = torch.exp(scores - scores.amax(-1, keepdim=True))
     p = torch.where(torch.isfinite(scores), p, 0.0)
     denom = p.sum(-1, keepdim=True)

@@ -1,10 +1,11 @@
 """Multi-tenant serving on the card: request queue + budgeted arena pool +
-continuous-batching serial decode.
+continuous-batching decode.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --requests 4 \
         --prompt-len 1024 --gen 32                        # on the card
     python -m repro_torch.launch.serve --arch llama3.2-1b --smoke \
         --requests 6 --prompt-len 8 --gen 4 --device cpu  # on the CPU
+    python -m repro_torch.launch.serve ... --step-mode vmap   # batched
 
 The PyTorch counterpart of ``repro.launch.serve``.  Every request's decode
 state is arena-planned by SERENITY: the KV caches pinned resident at the
@@ -20,26 +21,42 @@ lives *packed in its leased uint8 arena at the planned byte offsets*
 (``pack_buffers``/``unpack_buffer``, i.e. the u8 arena kernels on the
 card).  A step unpacks the state, runs prefill or decode (attention
 through the CUDA flash-attention kernel on the card) and packs the state
-back.  One step mode is ported:
+back.  Two step modes, as in ``repro``:
 
-  ``serial``  one bsz=1 decode reused for every active request, executed
-              back-to-back -- transients of distinct requests are never
-              live together, matching the pool's ``overlap='serial'``
+  ``serial``  (default) one bsz=1 decode reused for every active request,
+              executed back-to-back -- transients of distinct requests are
+              never live together, matching the pool's ``overlap='serial'``
               admission accounting.
+  ``vmap``    all active requests advance in ONE batched decode step of a
+              power-of-two batch bucket, each row at its own position (the
+              counterpart of ``repro``'s ``jax.vmap`` of the step).
+              Padding rows beyond the live batch repeat row 0 and are
+              charged to the pool budget (``ArenaPool.reserve_scratch``)
+              for the step, or the step runs at the exact batch when they
+              do not fit.  All members' transients materialize at once, so
+              admission uses ``overlap='none'`` accounting.
 
-On the card that one decode is a CUDA graph, captured once per server for
-every position (:class:`~repro_torch.launch.steps.CapturedDecodeStep`, the
-counterpart of ``repro``'s ``jax.jit`` of its decode step): each request's
-state is unpacked into the graph's static cache, the graph is replayed,
-and the static cache is packed back; the unpack and pack stay outside the
-graph, since each request's arena lies elsewhere.  On the CPU, which has
-no CUDA graph, the decode step runs eagerly.  Prefill runs eagerly on
-both (``repro`` traces it per prompt shape).
+On the card each step is a CUDA graph (the counterpart of ``repro``'s
+``jax.jit``): serial mode captures one for every position
+(:class:`~repro_torch.launch.steps.CapturedDecodeStep`), vmap mode one per
+bucket (:class:`~repro_torch.launch.steps.CapturedBatchedDecodeStep`), of
+which only the bucket in use stays resident: a new bucket frees the
+previous one's static cache and graph pool, and a return captures again.  A
+request's state is unpacked into the graph's static cache, the graph is
+replayed, and the static cache is packed back; the unpack and pack stay
+outside the graph, since each request's arena lies elsewhere.  In vmap
+mode the state of a leaf's batch row is not contiguous (leaves are stacked
+by layer, ``(n_layers, bucket, ...)``), so each row is unpacked by the u8
+kernels into a contiguous batch-1 staging tree and copied into its row
+(one strided copy a leaf), and the reverse after the step.  On the CPU,
+which has no CUDA graph, the steps run eagerly
+(:class:`~repro_torch.launch.steps.BatchedDecodeStep` in vmap mode).
+Prefill runs eagerly on both (``repro`` traces it per prompt shape).
 
-``step_mode="vmap"`` (all active requests in one batched step) and the
-sharded fleet (``fleet_planner_for_model``, ``run_fleet``, ``--fleet``,
-``--mesh``) wait for a later slice (ROADMAP A4).  Entry points run on the
-card unless the caller passes ``device='cpu'``, and raise without CUDA.
+The sharded fleet (``fleet_planner_for_model``, ``run_fleet``,
+``--fleet``, ``--mesh``) waits for a later slice (ROADMAP A4).  Entry
+points run on the card unless the caller passes ``device='cpu'``, and
+raise without CUDA.
 """
 
 from __future__ import annotations
@@ -62,6 +79,8 @@ from repro_torch.core.executor import (
 )
 from repro_torch.core.plancache import default_cache
 from repro_torch.launch.steps import (
+    BatchedDecodeStep,
+    CapturedBatchedDecodeStep,
     make_captured_decode_step,
     make_decode_step,
     make_prefill_step,
@@ -74,7 +93,7 @@ from repro_torch.models.params import (
 )
 from repro_torch.models.zoo import build_model
 from repro_torch.runtime.chaos import ChaosController, TransientExecutorError
-from repro_torch.runtime.pool import ArenaPool
+from repro_torch.runtime.pool import ArenaPool, PoolError
 
 #: Pareto request classes decode admission serves (DESIGN.md §12): a
 #: ``memory`` request leases the tight regions plan (transients time-share
@@ -318,11 +337,11 @@ class DecodeServer:
     Robustness layer (DESIGN.md §13), as in ``repro``: a mid-run
     :meth:`set_budget` shrink (or an injected admission fault) triggers the
     graceful-degradation ladder -- (1) re-plan a ``latency``-class request
-    at its memory-optimal Pareto point, (2) pin batch buckets to the exact
-    batch and drop padding scratch (a no-op in serial mode, counted as in
-    ``repro``), (3) preempt the lowest-priority lease (spill its packed KV
-    state to host, re-admit later with bounded retry + exponential
-    backoff).  A :class:`TickWatchdog` escalates stalls with structured
+    at its memory-optimal Pareto point, (2) pin vmap batch buckets to the
+    exact batch and drop the padding scratch (taken and counted in serial
+    mode too, as in ``repro``), (3) preempt the lowest-priority lease
+    (spill its packed KV state to host, re-admit later with bounded retry
+    + exponential backoff).  A :class:`TickWatchdog` escalates stalls with structured
     queue diagnostics, and a ``chaos=``
     :class:`~repro_torch.runtime.chaos.ChaosController` drives
     deterministic fault injection through the hooks.
@@ -338,12 +357,13 @@ class DecodeServer:
                  max_readmit_attempts: int = 5,
                  max_transient_retries: int = 3,
                  device=None):
-        if step_mode == "vmap":
-            raise NotImplementedError(
-                "step_mode='vmap' (one batched step for every active "
-                "request) is not ported yet (ROADMAP A4); use 'serial'")
-        if step_mode != "serial":
+        if step_mode not in ("serial", "vmap"):
             raise ValueError(f"unknown step_mode {step_mode!r}")
+        if step_mode == "vmap" and pool.overlap == "serial":
+            raise ValueError(
+                "step_mode='vmap' materializes every active request's "
+                "transients at once; the pool must use overlap='none' "
+                "admission accounting")
         self.device = resolve_device(device)
         leaf = tree_leaves(params)[0]
         if leaf.device != self.device:
@@ -357,11 +377,23 @@ class DecodeServer:
         self.rules = rules
         self._prefill = make_prefill_step(model, rules)
         self._decode = make_decode_step(model, rules)
-        # the card decodes through one captured step (its static state at
-        # (1, smax)); the CPU has no CUDA graph and decodes eagerly
-        self._captured = None if self.device.type != "cuda" else \
+        # serial mode on the card decodes through one captured step (its
+        # static state at (1, smax)); the CPU has no CUDA graph and decodes
+        # eagerly
+        self._captured = None \
+            if self.device.type != "cuda" or step_mode != "serial" else \
             make_captured_decode_step(model, params, smax=smax, rules=rules,
                                       device=self.device)
+        # vmap mode: the batched step of the bucket in use (captured on
+        # the card, eager on the CPU), built at the bucket's first step and
+        # dropped when another bucket is built, so that one bucket's static
+        # cache and graph pool stay resident, not every bucket's
+        self._batched: BatchedDecodeStep | None = None
+        # a contiguous batch-1 state for the rows' copies in and out of the
+        # batched cache, and each leaf's batch axis there
+        self._stage = None
+        self._batch_axes = [d.logical.index("batch") for d in tree_leaves(
+            self._cache_defs(), is_leaf=is_def)]
         self._plan = plan_decode_arena(model, 1, smax)
         # register our regions plan with the pool once; submits reuse the
         # key (no per-request graph re-fingerprinting)
@@ -395,6 +427,7 @@ class DecodeServer:
         self._tick = 0
         self._spilled: list[Request] = []       # preempted, awaiting readmit
         self._exact_buckets = False             # ladder rung 2 latch
+        self._scratch_token = None              # vmap padding reservation
         self.ladder = {"replan": 0, "shrink_buckets": 0, "preempt": 0}
         self.transient_errors = 0
         self._transient_streak = 0
@@ -508,10 +541,9 @@ class DecodeServer:
 
         Rung 1: re-plan a ``latency``-class request at its memory-optimal
         Pareto point (preempt + downgrade + readmit -- the classes share
-        offsets, so only the admission charge changes).  Rung 2: pin
-        batched decode to exact-size buckets and drop any padding scratch
-        (counted once; serial decode holds no scratch).  Rung 3: preempt
-        the lowest-priority lease outright.
+        offsets, so only the admission charge changes).  Rung 2: pin vmap
+        decode to exact-size batch buckets and drop the server's padding
+        scratch.  Rung 3: preempt the lowest-priority lease outright.
         """
         # admitted-but-unpolled tickets (an external set_budget between
         # poll and _start) hold leases none of the rungs below can see:
@@ -527,11 +559,13 @@ class DecodeServer:
             self.ladder["replan"] += 1
             return True
         if not self._exact_buckets:
-            # serial decode has no buckets and holds no scratch: the rung
-            # sheds nothing, but is taken once, as in repro, so that the
-            # ladder walks the same rungs
             self._exact_buckets = True
             self.ladder["shrink_buckets"] += 1
+            # drop the server's own padding-scratch reservation (token-
+            # scoped: other reservers' scratch is theirs to release)
+            token, self._scratch_token = self._scratch_token, None
+            if token is not None:
+                token.release()
             return True
         owned = [r for r in self.active if r.lease is not None]
         if not owned:
@@ -593,6 +627,91 @@ class DecodeServer:
             req.t += 1
             req.arena = pack_decode_state(self._plan, cache, arena=req.arena)
 
+    @staticmethod
+    def _bucket(n: int) -> int:
+        """Next power-of-two batch bucket (bounds the captured steps to
+        log2 of the largest batch)."""
+        return 1 << max(0, n - 1).bit_length()
+
+    def _batched_step(self, bucket: int) -> BatchedDecodeStep:
+        """This bucket's batched step: captured on the card, eager on the
+        CPU.  A new bucket frees the previous bucket's step (its static
+        ``(bucket, smax)`` cache and, on the card, its graph pool) before
+        it is built; a return to that bucket captures again."""
+        step = self._batched
+        if step is None or step.bucket != bucket:
+            self._batched = step = None
+            make = CapturedBatchedDecodeStep \
+                if self.device.type == "cuda" else BatchedDecodeStep
+            step = self._batched = make(
+                self.model, self.params, bucket=bucket, smax=self.smax,
+                rules=self.rules, device=self.device)
+        return step
+
+    def _rows_in(self, cache, pad: int) -> None:
+        """Unpack every active request's state (u8 arena reads) into the
+        staging state and copy it into its row of the batched ``cache``;
+        row 0's also into the ``pad`` padding rows after the live ones."""
+        if self._stage is None:
+            self._stage = self.model.init_cache(1, self.smax, self.device)
+        B = len(self.active)
+        stage = tree_leaves(self._stage)
+        for i, req in enumerate(self.active):
+            unpack_decode_state(self._plan, req.arena, self._stage,
+                                out=self._stage)
+            for ax, rows, one in zip(self._batch_axes, tree_leaves(cache),
+                                     stage):
+                rows.narrow(ax, i, 1).copy_(one)
+                if i == 0 and pad:
+                    dst = rows.narrow(ax, B, pad)
+                    dst.copy_(one.expand(dst.shape))
+
+    def _rows_out(self, cache) -> None:
+        """Copy every live row of the batched ``cache`` into the staging
+        state and pack it into its request's arena (u8 arena writes)."""
+        stage = tree_leaves(self._stage)
+        for i, req in enumerate(self.active):
+            for ax, rows, one in zip(self._batch_axes, tree_leaves(cache),
+                                     stage):
+                one.copy_(rows.narrow(ax, i, 1))
+            req.arena = pack_decode_state(self._plan, self._stage,
+                                          arena=req.arena)
+
+    def _step_vmap(self) -> None:
+        B = len(self.active)
+        # ladder rung 2: exact-size buckets trade extra captures for zero
+        # padding rows (no scratch charged against the shrunk budget)
+        bucket = B if self._exact_buckets else self._bucket(B)
+        pad = bucket - B
+        if pad:
+            # padding rows materialize real state + transients beyond the
+            # admitted set: charge them to the pool budget for the duration
+            # of the step (a handle-based reservation released in the
+            # finally below), or shrink the bucket to the exact batch
+            try:
+                self._scratch_token = self.pool.reserve_scratch(
+                    pad * self._plan["arena_bytes"])
+            except PoolError:
+                bucket, pad = B, 0
+        try:
+            step = self._batched_step(bucket)
+            self._rows_in(step.cache, pad)
+            r0 = self.active[0]
+            toks = [r.last_tok for r in self.active] + [r0.last_tok] * pad
+            ts = [r.t for r in self.active] + [r0.t] * pad
+            next_toks = step(toks, ts)[1]
+            self._rows_out(step.cache)
+            # one device-to-host read for the whole batch
+            next_toks = next_toks.tolist()[:B]
+            for req, tok in zip(self.active, next_toks):
+                req.last_tok = int(tok)
+                req.tokens.append(req.last_tok)
+                req.t += 1
+        finally:
+            token, self._scratch_token = self._scratch_token, None
+            if token is not None:
+                token.release()
+
     def step(self) -> int:
         """One scheduler tick; returns the number of active requests.
 
@@ -623,7 +742,10 @@ class DecodeServer:
             try:
                 if self.chaos is not None:
                     self.chaos.maybe_executor_error()
-                self._step_serial()
+                if self.step_mode == "serial":
+                    self._step_serial()
+                else:
+                    self._step_vmap()
                 self._transient_streak = 0
             except TransientExecutorError:
                 # request state untouched: skip the decode phase this tick
@@ -787,16 +909,18 @@ class DecodeServer:
         }
 
 
-def make_pool(budget_bytes: int, *, pooled: bool = True, max_warm: int = 4,
+def make_pool(budget_bytes: int, *, step_mode: str = "serial",
+              pooled: bool = True, max_warm: int = 4,
               tenant_quotas: dict[str, int] | None = None,
               device=None) -> ArenaPool:
-    """Pool whose lease buffers are uint8 tensors on ``device`` (``None``:
-    the card).  ``pooled=False`` is the naive one-arena-per-request
-    admission baseline (``overlap='none'``)."""
+    """Pool whose admission accounting matches the server's step mode and
+    whose lease buffers are uint8 tensors on ``device`` (``None``: the
+    card).  ``pooled=False`` is the naive one-arena-per-request admission
+    baseline; it and ``step_mode='vmap'`` give ``overlap='none'``."""
     dev = resolve_device(device)
     return ArenaPool(
         budget_bytes,
-        overlap="serial" if pooled else "none",
+        overlap="serial" if (pooled and step_mode == "serial") else "none",
         max_warm=max_warm,
         alloc_fn=lambda n: torch.zeros(n, dtype=torch.uint8, device=dev),
         tenant_quotas=tenant_quotas,
@@ -811,7 +935,7 @@ def run_server(model, params, requests, *, smax: int, budget_bytes: int,
                device=None, **server_kwargs) -> dict:
     """Build a pool + server on ``device`` (``None``: the card), serve
     ``requests``, return metrics."""
-    pool = make_pool(budget_bytes, pooled=pooled,
+    pool = make_pool(budget_bytes, step_mode=step_mode, pooled=pooled,
                      tenant_quotas=tenant_quotas, device=device)
     server = DecodeServer(model, params, pool, smax=smax, rules=rules,
                           step_mode=step_mode, chaos=chaos, device=device,
@@ -859,6 +983,8 @@ def main() -> None:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--budget-mb", type=float, default=0.0,
                     help="global arena budget; 0 = 4x one request's arena")
+    ap.add_argument("--step-mode", choices=("serial", "vmap"),
+                    default="serial")
     ap.add_argument("--no-pool", action="store_true",
                     help="naive one-arena-per-request admission baseline")
     ap.add_argument("--warm", type=int, default=2,
@@ -895,8 +1021,9 @@ def main() -> None:
                           cfg.vocab_size, args.seed + 1,
                           latency_frac=args.latency_frac)
     metrics = run_server(model, params, reqs, smax=smax,
-                         budget_bytes=budget, pooled=not args.no_pool,
-                         warm=args.warm, device=dev)
+                         budget_bytes=budget, step_mode=args.step_mode,
+                         pooled=not args.no_pool, warm=args.warm,
+                         device=dev)
     print(f"[serve] {metrics['n_served']}/{metrics['n_requests']} requests "
           f"({metrics['n_rejected']} rejected), {metrics['n_tokens']} tokens "
           f"in {metrics['wall_s']:.2f} s "

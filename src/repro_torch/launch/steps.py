@@ -4,6 +4,10 @@
   * ``make_decode_step(model, rules)``   (params, cache, tokens, t) -> (logits, cache)
   * ``make_captured_decode_step(model, params, smax=...)``
         (token, t) -> logits: the decode step in one CUDA graph
+  * ``BatchedDecodeStep(model, params, bucket=..., smax=...)``
+        (tokens, ts) -> (logits, next tokens): the decode step of ``bucket``
+        rows, each at its own position, eagerly;
+        ``CapturedBatchedDecodeStep`` the same in one CUDA graph
 
 Their default is ``impl="auto"``: the CUDA flash-attention kernel for
 tensors on the card, the plain PyTorch version for tensors on the CPU
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.core.capture import CapturedCall
 from repro_torch.core.executor import resolve_device
+from repro_torch.kernels.flash_attention.kernel import check_pairs
 from repro_torch.models.zoo import Model
 
 
@@ -85,6 +90,93 @@ class CapturedDecodeStep:
             self.call = CapturedCall(
                 lambda: self._step(self.params, self.cache, self.tokens,
                                    self.t)[0], self.device)
+            return self.call.first
+        return self.call.replay()
+
+
+class BatchedDecodeStep:
+    """The decode step of ``bucket`` rows, each at its own position, run
+    eagerly: the CPU's batched step (the card's is
+    :class:`CapturedBatchedDecodeStep`, which keeps this interface).
+
+    :attr:`cache` is the decode-state tree at ``(bucket, smax)`` (a leaf's
+    batch axis where its ``ParamDef`` names ``"batch"``), updated in place
+    by every step.  ``step(tokens, ts)`` decodes ``tokens[b]`` at position
+    ``ts[b]`` against row ``b`` of :attr:`cache` and returns the ``(bucket,
+    vocab)`` f32 logits and their ``(bucket,)`` argmax.
+    """
+
+    def __init__(self, model: Model, params, *, bucket: int, smax: int,
+                 rules=None, impl: str = "auto", device=None):
+        self.device = resolve_device(device)
+        self.bucket = bucket
+        self.params = params
+        self.cache = model.init_cache(bucket, smax, self.device)
+        self._step = make_decode_step(model, rules, impl=impl)
+
+    def _run(self, tokens, t):
+        logits = self._step(self.params, self.cache, tokens, t)[0]
+        return logits, torch.argmax(logits, -1)
+
+    def _check(self, tokens, ts) -> None:
+        if len(tokens) != self.bucket or len(ts) != self.bucket:
+            raise ValueError(f"{len(tokens)} tokens and {len(ts)} positions "
+                             f"for a step of {self.bucket} rows")
+
+    def __call__(self, tokens, ts) -> tuple[torch.Tensor, torch.Tensor]:
+        self._check(tokens, ts)
+        return self._run(
+            torch.as_tensor(tokens, dtype=torch.long,
+                            device=self.device)[:, None],
+            torch.as_tensor(ts, dtype=torch.long, device=self.device))
+
+
+class CapturedBatchedDecodeStep(BatchedDecodeStep):
+    """:class:`BatchedDecodeStep` captured in one CUDA graph: the
+    counterpart of ``repro``'s ``jax.jit(step, donate_argnums=(1,))`` per
+    batch bucket, whose step is ``jax.vmap`` of the decode over the rows
+    (``launch/serve.py``).
+
+    The contract is :class:`CapturedDecodeStep`'s, at ``bucket`` rows: the
+    tokens ``(bucket, 1)`` and the positions ``(bucket,)`` are written by
+    one copy a step from a pinned host buffer, which is not rewritten
+    before the last copy has run; the logits and their argmax are computed
+    inside the graph, so that a caller reads the next tokens of every row
+    with one device-to-host copy, and are overwritten by the next call.
+    The split-K decode reads each row's position on the device.  The first
+    call is the capture's warm-up; every later call is one replay.  The
+    card only: raises on the CPU.
+    """
+
+    def __init__(self, model: Model, params, *, bucket: int, smax: int,
+                 rules=None, impl: str = "auto", device=None):
+        device = resolve_device(device)
+        if device.type != "cuda":
+            raise ValueError(f"a captured decode step needs a CUDA device, "
+                             f"got {device}; decode eagerly on the CPU")
+        if not model.cfg.attn_free:
+            check_pairs(bucket, model.cfg.n_kv_heads)
+        super().__init__(model, params, bucket=bucket, smax=smax,
+                         rules=rules, impl=impl, device=device)
+        self._host = torch.zeros(2 * bucket, dtype=torch.long,
+                                 pin_memory=True)
+        self._copied = torch.cuda.Event()
+        self._io = torch.zeros(2 * bucket, dtype=torch.long,
+                               device=self.device)
+        self.tokens = self._io[:bucket].view(bucket, 1)
+        self.t = self._io[bucket:]
+        self.call: CapturedCall | None = None
+
+    def __call__(self, tokens, ts) -> tuple[torch.Tensor, torch.Tensor]:
+        self._check(tokens, ts)
+        self._copied.synchronize()
+        self._host[:self.bucket] = torch.as_tensor(tokens, dtype=torch.long)
+        self._host[self.bucket:] = torch.as_tensor(ts, dtype=torch.long)
+        self._io.copy_(self._host, non_blocking=True)
+        self._copied.record()
+        if self.call is None:
+            self.call = CapturedCall(lambda: self._run(self.tokens, self.t),
+                                     self.device)
             return self.call.first
         return self.call.replay()
 

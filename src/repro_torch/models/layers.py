@@ -14,7 +14,9 @@ writes the layer's new keys and values into the cache tensors it is given
 A decode step's position may be a host int or a 0-d integer tensor on the
 device (``jnp.int32(t)`` traced under ``jax.jit`` in ``repro``): with a
 tensor, no op of the step reads the position on the host, so one captured
-graph serves every position.
+graph serves every position.  It may also be a ``(B,)`` integer tensor, a
+position per batch row (``repro``'s ``jax.vmap`` of the decode step over
+requests at their own positions).
 """
 
 from __future__ import annotations
@@ -40,8 +42,11 @@ class Ctx:
     impl: str = "auto"                # attention implementation
     decode: bool = False
     positions: Any = None             # (B, S) absolute positions
-    cache_len: Any = None             # #valid cache entries: an int, or a
-                                      # 0-d integer tensor on the device
+    cache_len: Any = None             # #valid cache entries: an int, a 0-d
+                                      # integer tensor on the device, or a
+                                      # (B,) one (a position per row)
+    rows: Any = None                  # (B, S) batch row of each position,
+                                      # with a (B,) cache_len
     rules: Any = None                 # sharding rules (ROADMAP A8; unused)
 
 
@@ -115,7 +120,10 @@ def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
     step's positions (``ctx.positions[0]``, ``t + arange(S)``), the
     attention takes ``q_start = t`` and leaves ``kv_len`` to the causal
     mask, and the check that the write fits the cache is the device's: an
-    index past the cache fails there, not on the host.
+    index past the cache fails there, not on the host.  With ``t`` of shape
+    ``(B,)`` (row ``b`` at its own position) the write is one
+    ``index_put_`` at ``(row, ctx.positions)`` and the attention masks each
+    row at its own ``q_start = t[b]``.
     """
     cfg = ctx.cfg
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -133,9 +141,15 @@ def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
         cache["v"][:, :S] = v
         q_start, kv_len, ks, vs = 0, None, k, v
     elif cache is not None and torch.is_tensor(ctx.cache_len):
-        t, idx = ctx.cache_len, ctx.positions[0]
-        cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+        t = ctx.cache_len
+        if t.dim() == 0:
+            idx = ctx.positions[0]
+            cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+            cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+        else:
+            idx = (ctx.rows, ctx.positions)
+            cache["k"].index_put_(idx, k.to(cache["k"].dtype))
+            cache["v"].index_put_(idx, v.to(cache["v"].dtype))
         # kv_len = t + S is what the causal mask already keeps (the last
         # query sits at t + S - 1), and the kernel derives it on the
         # device: a tensor t + S would cost a launch a layer

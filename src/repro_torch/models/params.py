@@ -57,38 +57,42 @@ def tree_flatten(tree, is_leaf: Callable | None = None):
     """``(leaves, treedef)`` in ``jax.tree`` order: dict keys sorted, lists
     and tuples in order, ``None`` an empty node."""
     leaves = []
+    return leaves, _flatten(tree, is_leaf, leaves)
 
-    def rec(t):
-        if is_leaf is not None and is_leaf(t):
-            leaves.append(t)
-            return _LEAF
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return (dict, keys, [rec(t[k]) for k in keys])
-        if isinstance(t, (list, tuple)):
-            return (type(t), None, [rec(c) for c in t])
-        if t is None:
-            return (None, None, [])
+
+# the recursions are module functions, not closures: a nested function
+# that calls itself is a reference cycle, which would keep the leaves (a
+# decode state's tensors) alive until the garbage collector runs
+
+
+def _flatten(t, is_leaf, leaves: list):
+    if is_leaf is not None and is_leaf(t):
         leaves.append(t)
         return _LEAF
-
-    return leaves, rec(tree)
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return (dict, keys, [_flatten(t[k], is_leaf, leaves) for k in keys])
+    if isinstance(t, (list, tuple)):
+        return (type(t), None, [_flatten(c, is_leaf, leaves) for c in t])
+    if t is None:
+        return (None, None, [])
+    leaves.append(t)
+    return _LEAF
 
 
 def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
+    return _unflatten(treedef, iter(leaves))
 
-    def rec(d):
-        if d is _LEAF:
-            return next(it)
-        kind, keys, kids = d
-        if kind is dict:
-            return {k: rec(c) for k, c in zip(keys, kids)}
-        if kind is None:
-            return None
-        return kind(rec(c) for c in kids)
 
-    return rec(treedef)
+def _unflatten(d, it):
+    if d is _LEAF:
+        return next(it)
+    kind, keys, kids = d
+    if kind is dict:
+        return {k: _unflatten(c, it) for k, c in zip(keys, kids)}
+    if kind is None:
+        return None
+    return kind(_unflatten(c, it) for c in kids)
 
 
 def tree_leaves(tree, is_leaf: Callable | None = None) -> list:

@@ -12,7 +12,12 @@
 counterpart of ``repro``'s traced ``jnp.int32(t)``).  On the card an int is
 made a device tensor first, so that an eager decode step and a captured
 one (``repro_torch.launch.steps.make_captured_decode_step``) launch the
-same kernels.
+same kernels.  ``t`` may also be a ``(B,)`` integer tensor, a position per
+batch row: the counterpart of ``repro``'s ``jax.vmap`` of the decode step
+over requests at their own positions (the batched decode step,
+``repro_torch.launch.steps.CapturedBatchedDecodeStep``).  Only the
+attention reads the position; the recurrent state of RWKV-6 and of
+Griffin's RG-LRU layers is per row already.
 
 The counterparts of ``repro.models.zoo``'s ``build_decoder_lm`` (dense
 configs), ``build_rwkv_lm`` and ``build_griffin_lm``, with the same
@@ -92,7 +97,14 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone) -> Model:
     def _fwd_cached(params, cache, tokens, t, *, impl, rules, decode):
         Bz, S = tokens.shape
         pos = torch.arange(S, device=tokens.device)[None]
-        if decode:
+        rows = None
+        if decode and torch.is_tensor(t) and t.dim() == 1:
+            # a position per batch row
+            t = t.to(device=tokens.device, dtype=torch.long)
+            pos = pos + t[:, None]
+            rows = torch.arange(Bz, device=tokens.device)[:, None].expand(
+                Bz, S)
+        elif decode:
             if torch.is_tensor(t):
                 t = t.to(device=tokens.device, dtype=torch.long)
             elif tokens.is_cuda:
@@ -103,7 +115,7 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone) -> Model:
                 t = int(t)
             pos = pos + t
         ctx = Ctx(cfg=cfg, impl=impl, positions=pos.expand(Bz, S),
-                  decode=decode, cache_len=t, rules=rules)
+                  decode=decode, cache_len=t, rows=rows, rules=rules)
         x = embed_apply(params["embed"], tokens, cfg)
         x = backbone(params, x, ctx, cache)
         h = rms_norm(x[:, -1:], params["ln_f"])

@@ -27,9 +27,12 @@ On the CPU:
 On the card only (marked ``cuda``; skipped without one): a captured
 execute is bit-equal to the eager slice and fused runs, and two runs with
 other inputs each give their own outputs; the captured decode step gives
-the eager step's logits bit for bit at every position.
+the eager step's logits bit for bit at every position, and the captured
+batched step (4 rows, each at its own position) gives the eager batched
+step's logits, next tokens and state bit for bit, for the three families.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -50,7 +53,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_decode_partials_torch,
 )
 from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
-from repro_torch.launch.steps import make_captured_decode_step  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    CapturedBatchedDecodeStep,
+    make_captured_decode_step,
+)
 from repro_torch.models.params import (  # noqa: E402
     params_from_numpy,
     tree_leaves,
@@ -332,3 +338,35 @@ def test_captured_decode_step_bit_equal_on_card(card):
         assert torch.equal(got, want), t
         tok = int(want.argmax(-1)[0])
     assert step.call.replays == smax - P - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCHS)
+def test_captured_batched_step_bit_equal_on_card(card, arch):
+    cfg = tconfigs.smoke(arch)
+    if cfg.head_dim not in (16, 64, 128, 256):
+        # Griffin's smoke head dim (32) is not one the flash kernels take
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    tm = build_model(cfg)
+    params = tm.init(torch.Generator(device=card).manual_seed(0), card)
+    smax, B = 40, 4
+    step = CapturedBatchedDecodeStep(tm, params, bucket=B, smax=smax,
+                                     device=card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    for leaf in tree_leaves(step.cache):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=card))
+    cache = tree_map(lambda t: t.clone(), step.cache)
+    lens = [5, 9, 20, 31]
+    toks = [1, 2, 3, 4]
+    for s in range(4):
+        ts = [n + s for n in lens]
+        want, cache = tm.decode_fn(
+            params, cache, torch.tensor(toks, device=card)[:, None],
+            torch.tensor(ts, device=card))
+        logits, nxt = step(toks, ts)
+        assert torch.equal(logits, want), s
+        assert nxt.tolist() == want.argmax(-1).tolist()
+        toks = nxt.tolist()
+    for a, b in zip(tree_leaves(step.cache), tree_leaves(cache)):
+        assert torch.equal(a, b)
+    assert step.call.replays == 3

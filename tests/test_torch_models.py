@@ -15,6 +15,8 @@ seed.  Both packages run prefill and then decode steps against a cache:
 """
 
 import functools
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -109,6 +111,25 @@ def test_tree_order_is_jax_order():
         "a": (4, None, 5), "b": {"a": [2, 3], "z": 1}, "c": 6}
     defs = stack_defs({"w": ParamDef((3, 4), (None, "tensor"))}, 5)
     assert defs["w"].shape == (5, 3, 4) and defs["w"].scale_axis == 1
+
+
+def test_tree_helpers_leave_no_reference_cycle():
+    """Flattening and rebuilding a tree of tensors leaves nothing that
+    holds them once the caller drops them, with the garbage collector off:
+    a decode state's tensors are freed at once."""
+    tree = {"k": torch.zeros(4), "v": [torch.ones(2), (torch.ones(3),)]}
+    leaves, treedef = tree_flatten(tree)
+    refs = [weakref.ref(t) for t in leaves]
+    gc.collect()
+    gc.disable()
+    try:
+        rebuilt = tree_unflatten(treedef, tree_map(lambda t: t, tree_leaves(
+            tree_unflatten(treedef, leaves))))
+        assert all(a is b for a, b in zip(tree_leaves(rebuilt), leaves))
+        del tree, leaves, rebuilt
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 @pytest.mark.parametrize("seed", [1, 2])

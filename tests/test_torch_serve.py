@@ -13,7 +13,8 @@
   * a mid-run budget shrink preempts, spills and re-admits; the surviving
     tokens are bit-equal to the fault-free run of the port, and the ladder
     takes the same decisions as ``repro``'s;
-  * ``step_mode="vmap"`` and the card's default without CUDA raise;
+  * ``step_mode="vmap"`` on a serial-overlap pool and the card's default
+    without CUDA raise;
   * the recurrent families: decode plans integer-equal for the full
     ``rwkv6-7b`` at ``smax`` 1056 and ``recurrentgemma-2b`` at 2592
     (mixed bf16/f32 leaves, Griffin's list-valued ``tail``); on their
@@ -187,9 +188,11 @@ def test_budget_shrink_preempts_readmits_and_keeps_tokens(smoke):
 def test_vmap_and_missing_card_raise(smoke):
     _, tm, _, tp = smoke
     reqs = tserve.synth_requests(1, 4, 2, 512)
-    with pytest.raises(NotImplementedError, match="A4"):
-        tserve.run_server(tm, tp, reqs, smax=6, budget_bytes=10**6,
-                          step_mode="vmap", device="cpu")
+    # vmap serves (tests/test_torch_serve_vmap.py), but not on a pool that
+    # admits with serial-overlap accounting
+    with pytest.raises(ValueError, match="overlap='none'"):
+        tserve.DecodeServer(tm, tp, tserve.make_pool(10**6, device="cpu"),
+                            smax=6, step_mode="vmap", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(ExecutorError, match="CUDA"):
             tserve.run_server(tm, tp, reqs, smax=6, budget_bytes=10**6)
