@@ -10,8 +10,8 @@ non-zero):
 
 1. build   -- compile ``src/repro_torch/csrc/arena.cu``,
               ``flash_attention.cu``, ``flash_decode.cu``,
-              ``flash_prefill_sm90.cu``, ``wkv6.cu`` and ``rglru.cu``
-              (nvcc, sm_90a, all six started together) and print the build
+              ``flash_prefill_sm90.cu``, ``flash_backward.cu``, ``wkv6.cu``
+              and ``rglru.cu`` (nvcc, sm_90a, all seven started together) and print the build
               seconds of each, the registers, shared memory and spills
               (``-Xptxas -v``) of the arena kernels (accum among them), the
               WKV-6 and RG-LRU kernels and the two newer flash kernels, the
@@ -182,6 +182,38 @@ non-zero):
               JSON rows' ``batched``), and the row staging copies against
               their bound.
 
+9. train   -- the training path, the serving models' weights freed: at
+              llama3.2-1b's heads (H 32, KV 8, D 64) with B 8 x S 256 and
+              the ragged S 200 and 17, bf16 and f32, the forward kernel's
+              output against ``_flash_torch`` and ``attention_ref`` (the
+              flash tolerance) and the flash backward kernel against its
+              plain version (``flash_attention_backward_torch``; f32
+              within 1e-4 of each gradient's largest magnitude, bf16
+              within 4 ulps of it), and ``FlashAttentionFn`` against
+              autograd of the plain forward (f32 at (2, 200), bf16 at
+              (8, 256), the prefill route); the full-width llama3.2-1b
+              gradient through the kernels against the plain versions',
+              leaf by leaf and layer by layer (relative L2 within 3e-2),
+              and a deliberately broken backward reading above that; one
+              full-width train step through the kernels
+              (impl="auto": the ``wgmma`` prefill forward, the backward
+              kernel) against the same step through the plain versions
+              (loss and grad_norm within the bf16 logit tolerance), with
+              16 launches of each flash kernel; the step's ms (host clock,
+              ending in ``synchronize``), tokens/s, model FLOPs' share of
+              989 TFLOP/s, device busy time and idle share, peak memory;
+              ``launch/train.py``'s ``main`` in process for 7 steps at the
+              CLI's defaults (batch 8, seq 256, AdamW, bf16) with a
+              checkpoint at step 4, its launches counted from 0 (16 x 7 of
+              each flash kernel), every loss finite, and a second run
+              resumed from that checkpoint alone, whose parameters and
+              optimizer state end bit-equal to the first's (both under
+              ``torch.use_deterministic_algorithms(True)``); rwkv6-7b's
+              and Griffin's ``loss_fn`` raising under autograd on the card
+              (no backward kernel yet); and the flash forward and backward
+              at the step's shape against their bounds, their plain
+              versions and SDPA's forward and backward.
+
 The kernels JSON (one entry per kernel) is printed third from last, the
 card's name and power limit second from last, and ``{"ok": true,
 "device": {...}}`` last.  Without CUDA, or outside a checkout, it exits
@@ -193,6 +225,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2792,12 +2825,590 @@ def mqa_flash_timing(ctx, card, dev):
     return time_flash(cfg.name, shapes, mix, card, dev)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: training
+# ---------------------------------------------------------------------------
+
+# the backward kernel against its plain version: llama3.2-1b's heads (H 32,
+# KV 8, D 64) at the CLI's batch 8 x seq 256, and two ragged sequences
+# (B, S); f32 within BWD_RTOL32 of each gradient's largest magnitude (sums
+# in another order), bf16 within BWD_ULPS16 bf16 ulps of it (both round one
+# f32 sum to bf16)
+BWD_CASES = ((8, 256), (2, 200), (2, 17))
+BWD_RTOL32, BWD_ULPS16 = 1e-4, 4
+# the train step through the kernels against the same step through the
+# plain versions (impl="torch"), full width, bf16: the loss within the bf16
+# logit atol of llama3.2-1b's serving check, grad_norm within the same
+# relative
+TRAIN_ATOL = SERVES["llama3.2-1b"]["logit_atol"]
+# and its gradient, leaf by leaf, each stacked leaf layer by layer: the
+# worst relative L2 error ||g - g_plain|| / ||g_plain|| within
+# TRAIN_GRAD_RTOL, set from readings on an H100 (worst of three seeds
+# 2.03e-2, at an attention projection); a deliberately broken backward (one
+# KV head's dK zeroed in one layer), which read 0.32-0.38, must read above
+# it
+TRAIN_GRAD_RTOL = 3e-2
+# the CLI's run: TRAIN_STEPS steps at its defaults (batch 8, seq 256, AdamW,
+# bf16), a checkpoint at TRAIN_CKPT_EVERY; the replay resumes there
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ = 7, 4, 8, 256
+TIMED_STEPS = 5
+# the memory a full-width llama3.2-1b step holds, reckoned from shapes:
+# bf16 params and grads, f32 AdamW moments, f32 logits, their log-softmax
+# and gradient
+TRAIN_MEM_BYTES = 20e9
+
+
+def bwd_tol(want, dtype) -> float:
+    scale = float(want.float().abs().max())
+    if dtype == torch.float32:
+        return BWD_RTOL32 * scale
+    return BWD_ULPS16 * 2.0 ** (math.floor(math.log2(max(scale, 1e-30)))
+                                - 7)
+
+
+def bwd_bound(q, k, v) -> tuple[float, float]:
+    """(bytes ms, operations ms) for one causal backward in its training
+    form: q, k, v, o and dO read once, dq, dk and dv written once; five
+    products (the scores recomputed, dP, dV, dK, dQ) of 2 D flops per live
+    (query, key) pair and head, over the bf16 tensor-core peak."""
+    B, S, H, D = q.shape
+    nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel()
+                                 + 2 * v.numel())
+    live = S * (S + 1) // 2
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            5 * 2 * B * H * D * live / BF16_FLOP_PER_S * 1e3)
+
+
+def attn_inputs(dev, B, S, dtype, seed, H=32, KV=8, D=64):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(*s, device=dev, generator=gen).to(dtype)
+            for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D),
+                      (B, S, H, D))]
+
+
+def check_flash_backward(dev) -> dict:
+    """The forward kernel's output and the backward kernel against their
+    plain versions on the same inputs, every case of BWD_CASES in bf16 and
+    f32: o (the routed kernel: the ``wgmma`` prefill in bf16, the simple
+    kernel in f32) against ``_flash_torch`` and ``attention_ref`` at the
+    flash tolerance (``fa_err``), then dq, dk and dv given that o against
+    ``flash_attention_backward_torch``; then ``FlashAttentionFn`` (what
+    ``flash_attention`` takes under autograd on the card) against autograd
+    of the plain forward at (2, 200) in f32 (the simple kernel) and at the
+    train step's (8, 256) in bf16 (the prefill route).  Returns the worst
+    errors."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_backward_torch,
+    )
+    worst = {"max_abs_err": 0.0, "bf16_ulps": 0.0, "f32_rel": 0.0,
+             "forward": 0.0, "function_bf16_ulps": 0.0,
+             "function_f32_rel": 0.0}
+    for B, S in BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + S)
+            o = FK.flash_attention_cuda(q, k, v, causal=True, window=None,
+                                        q_start=0, kv_len=S)
+            for impl in ("torch", "ref"):
+                e, ok = fa_err(o, flash_attention(q, k, v, causal=True,
+                                                  impl=impl))
+                check(ok, f"flash forward (B {B}, S {S}, {dtype}, route "
+                          f"{FK.pick_route(S, 4, dtype, 64, 64)}) vs {impl}: "
+                          f"max abs err {e}")
+                worst["forward"] = max(worst["forward"], e)
+            got = FK.flash_backward_cuda(q, k, v, o, do)
+            torch.cuda.synchronize()
+            want = flash_attention_backward_torch(q, k, v, o, do)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                check(g.dtype == w.dtype and g.shape == w.shape,
+                      f"flash_backward {name}: {g.dtype} {tuple(g.shape)}")
+                e = float((g.float() - w.float()).abs().max())
+                tol = bwd_tol(w, dtype)
+                check(e <= tol, f"flash_backward {name} (B {B}, S {S}, "
+                                f"{dtype}): max abs err {e} > {tol}")
+                worst["max_abs_err"] = max(worst["max_abs_err"], e)
+                key = "f32_rel" if dtype == torch.float32 else "bf16_ulps"
+                worst[key] = max(worst[key], e / tol * (
+                    BWD_RTOL32 if dtype == torch.float32 else BWD_ULPS16))
+    for (B, S), dtype in (((2, 200), torch.float32),
+                          ((TRAIN_BATCH, TRAIN_SEQ), torch.bfloat16)):
+        q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + 1)
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        o = flash_attention(q, k, v, causal=True)
+        check(o.grad_fn is not None and "FlashAttentionFn" in
+              type(o.grad_fn).__name__,
+              f"flash_attention under autograd on the card: grad_fn "
+              f"{o.grad_fn}")
+        got = torch.autograd.grad(o, (q, k, v), do)
+        ref = flash_attention(q, k, v, causal=True, impl="torch")
+        want = torch.autograd.grad(ref, (q, k, v), do)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            e = float((g.float() - w.float()).abs().max())
+            tol = bwd_tol(w, dtype)
+            key = "function_" + ("f32_rel" if dtype == torch.float32
+                                 else "bf16_ulps")
+            worst[key] = max(worst[key], e / tol * (
+                BWD_RTOL32 if dtype == torch.float32 else BWD_ULPS16))
+            check(e <= tol, f"FlashAttentionFn {name} (B {B}, S {S}, "
+                            f"{dtype}) vs autograd of the plain forward: "
+                            f"max abs err {e} > {tol}")
+    say(f"train: the forward kernel's o vs _flash_torch and attention_ref "
+        f"and flash_backward vs flash_attention_backward_torch, (B, S) in "
+        f"{BWD_CASES}, H 32, KV 8, D 64, bf16 and f32: o max abs err "
+        f"{worst['forward']:.3e} (flash tolerance); gradients max abs err "
+        f"{worst['max_abs_err']:.3e}, f32 {worst['f32_rel']:.3e} of the "
+        f"largest gradient (tol {BWD_RTOL32}), bf16 {worst['bf16_ulps']:.2f} "
+        f"ulps of it (tol {BWD_ULPS16}); FlashAttentionFn vs autograd of "
+        f"the plain forward: f32 (2, 200) {worst['function_f32_rel']:.3e} of "
+        f"the largest gradient, bf16 ({TRAIN_BATCH}, {TRAIN_SEQ}) "
+        f"{worst['function_bf16_ulps']:.2f} ulps of it")
+    return worst
+
+
+def leaf_paths(tree, prefix="") -> list[str]:
+    """The leaves' paths in ``tree_flatten``'s order (sorted dict keys)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def loss_grads(model, params, batch, impl) -> tuple:
+    """(loss, the gradient of every leaf) by ``model.loss_fn`` under
+    autograd, as ``make_train_step`` takes them, before its clip."""
+    from repro_torch.models.params import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    with torch.enable_grad():
+        loss, _ = model.loss_fn(params, batch, impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads
+
+
+def worst_grad_err(got, want, paths, n_layers) -> tuple[float, str]:
+    """The worst relative L2 error ||g - w|| / ||w|| over the leaves, a
+    stacked leaf (first dim ``n_layers``) layer by layer, and where."""
+    worst, where = 0.0, ""
+    for path, g, w in zip(paths, got, want):
+        stacked = w.dim() >= 2 and w.shape[0] == n_layers
+        for i, (gs, ws) in enumerate(zip(g, w) if stacked else [(g, w)]):
+            d = float(torch.linalg.vector_norm((gs - ws).float()))
+            e = d / max(float(torch.linalg.vector_norm(ws.float())), 1e-30)
+            if e > worst:
+                worst, where = e, path + (f"[{i}]" if stacked else "")
+    return worst, where
+
+
+def grad_compare(model, params, batch) -> dict:
+    """The full-width loss's gradient through the kernels (impl="auto")
+    against the plain versions' (impl="torch"), leaf by leaf and layer by
+    layer (``worst_grad_err``) within TRAIN_GRAD_RTOL; then the same
+    reading of a deliberately broken backward, the backward kernel's dK of
+    KV head 0 zeroed in its first launch (the last layer), which must
+    read above TRAIN_GRAD_RTOL: the check can see a wrong attention
+    gradient in one head of one layer.  Launches here are outside the
+    counted runs."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    paths = leaf_paths(params)
+    L = model.cfg.n_layers
+    _, want = loss_grads(model, params, batch, "torch")
+    _, got = loss_grads(model, params, batch, "auto")
+    sound, sound_at = worst_grad_err(got, want, paths, L)
+    del got
+    kernel, broke = FK.flash_backward_cuda, []
+
+    def broken(*a, **kw):
+        dq, dk, dv = kernel(*a, **kw)
+        if not broke:
+            dk[:, :, 0] = 0
+            broke.append(1)
+        return dq, dk, dv
+
+    FK.flash_backward_cuda = broken
+    try:
+        _, bad = loss_grads(model, params, batch, "auto")
+    finally:
+        FK.flash_backward_cuda = kernel
+    broken_err, broken_at = worst_grad_err(bad, want, paths, L)
+    del bad, want
+    say(f"train: full-width gradient through the kernels vs the plain "
+        f"versions, {len(paths)} leaves (stacked ones by layer): worst "
+        f"relative L2 error {sound:.3e} at {sound_at} (limit "
+        f"{TRAIN_GRAD_RTOL}); with one KV head's dK zeroed in the last "
+        f"layer's backward it reads {broken_err:.3e} at {broken_at}")
+    check(sound <= TRAIN_GRAD_RTOL,
+          f"the full-width gradient through the kernels is {sound} (at "
+          f"{sound_at}) from the plain versions', above {TRAIN_GRAD_RTOL}")
+    check(broken_err > TRAIN_GRAD_RTOL,
+          f"a broken attention backward reads {broken_err} (at "
+          f"{broken_at}), within {TRAIN_GRAD_RTOL}: the gradient check "
+          f"cannot see it")
+    return dict(grad_rel_err=sound, grad_rel_err_at=sound_at,
+                broken_grad_rel_err=broken_err,
+                broken_grad_rel_err_at=broken_at)
+
+
+def train_step_compare(dev, card):
+    """One full-width llama3.2-1b train step through the kernels
+    (impl="auto") against the same step through the plain versions
+    (impl="torch"), from the same params, optimizer state and batch; the
+    kernels' step's launches.  Returns (model, opt, state after the
+    kernels' step, batch, record)."""
+    import repro_torch.configs as configs
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.zoo import build_model
+
+    cfg = configs.get("llama3.2-1b")
+    model = build_model(cfg)
+    opt = make_optimizer(cfg, lr=3e-4)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    plain_params = tree_map(lambda t: t.clone(), params)
+    pipe = DataPipeline(cfg=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        seed=SEED)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(0).items()}
+    kw = dict(peak_lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+    grads = grad_compare(model, params, batch)
+    torch.cuda.empty_cache()
+    state = {"params": params, "opt": opt.init(params)}
+    reset_all()
+    state, m_k = make_train_step(model, opt, impl="auto", **kw)(state, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    want = {"flash_prefill": cfg.n_layers, "flash_backward": cfg.n_layers}
+    check(launches == want, f"one train step launched {launches}, the "
+                            f"train path needs {want}")
+    plain = {"params": plain_params, "opt": opt.init(plain_params)}
+    _, m_p = make_train_step(model, opt, impl="torch", **kw)(plain, batch)
+    torch.cuda.synchronize()
+    del plain, plain_params
+    got = {k: float(m_k[k]) for k in ("loss", "grad_norm", "lr")}
+    ref = {k: float(m_p[k]) for k in ("loss", "grad_norm", "lr")}
+    check(all(np.isfinite(list(got.values()))), f"train step metrics {got}")
+    check(abs(got["loss"] - ref["loss"]) <= TRAIN_ATOL
+          and abs(got["grad_norm"] - ref["grad_norm"])
+          <= TRAIN_ATOL * ref["grad_norm"],
+          f"train step through the kernels {got} vs the plain versions "
+          f"{ref} (loss atol {TRAIN_ATOL}, grad_norm rtol {TRAIN_ATOL})")
+    n = sum(t.numel() for t in tree_leaves(state["params"]))
+    say(f"train: llama3.2-1b at full width ({n} parameters, bf16), batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}: one step through the kernels "
+        f"{got} vs through the plain versions {ref} (loss atol {TRAIN_ATOL}, "
+        f"grad_norm rtol {TRAIN_ATOL}); its launches {launches} [{card}]")
+    rec = dict(loss=got["loss"], loss_plain=ref["loss"],
+               grad_norm=got["grad_norm"], grad_norm_plain=ref["grad_norm"],
+               step_launches=launches, **grads)
+    return model, opt, state, batch, rec
+
+
+TRAIN_PARTS = ("forward", "backward", "clip", "optimizer")
+
+
+def step_parts(model, opt, state, batch) -> dict:
+    """One train step in its parts: the loss (forward), its gradient
+    (backward), the clip and the optimizer's update, each in a
+    ``record_function`` range (for a trace) and timed twice: on the
+    device by CUDA events between the parts, and on the host from the
+    part's first op to its last op queued (no wait in between).  Returns
+    {part: (device ms, host issue ms)}.  The parts are
+    ``make_train_step``'s body, called one by one so that events can sit
+    between them."""
+    from torch.profiler import record_function
+
+    from repro_torch.models.params import tree_flatten, tree_unflatten
+    from repro_torch.optim.schedule import cosine_warmup
+    params = state["params"]
+    leaves, treedef = tree_flatten(params)
+    ev, host = [torch.cuda.Event(enable_timing=True)], [time.perf_counter()]
+
+    def mark():
+        host.append(time.perf_counter())
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+
+    ev[0].record()
+    with torch.enable_grad():
+        with record_function("forward"):
+            loss, _ = model.loss_fn(params, batch)
+        mark()
+        with record_function("backward"):
+            grads = torch.autograd.grad(loss, leaves)
+        mark()
+    with record_function("clip"):
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in grads))
+        scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
+        for g in grads:
+            g.mul_(scale.to(g.dtype))
+        lr = cosine_warmup(state["opt"]["step"], peak_lr=3e-4, warmup=10,
+                           total=TRAIN_STEPS)
+    mark()
+    with record_function("optimizer"):
+        opt.update(tree_unflatten(treedef, list(grads)), state["opt"],
+                   params, lr_scale=lr / opt.lr)
+    mark()
+    torch.cuda.synchronize()
+    return {n: (ev[i].elapsed_time(ev[i + 1]),
+                (host[i + 1] - host[i]) * 1e3)
+            for i, n in enumerate(TRAIN_PARTS)}
+
+
+def time_train_step(model, opt, state, batch, card) -> dict:
+    """ms per step (host clock, each step ending in ``synchronize``) over
+    TIMED_STEPS steps after the first, tokens/s, the model FLOPs' share of
+    the bf16 peak (6 N per token), the device's busy time and idle share
+    over one traced step with its flash kernels' time, the step's parts
+    (``step_parts``), and the peak memory allocated."""
+    from repro_torch.launch.steps import make_train_step
+    step = make_train_step(model, opt, impl="auto", peak_lr=3e-4, warmup=10,
+                           total_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    busy, n_act, by_name = device_profile(lambda: step(state, batch))
+    parts = step_parts(model, opt, state, batch)
+    med = statistics.median(ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = model.cfg.param_count()
+    share = 6 * n * tokens / (med / 1e3) / BF16_FLOP_PER_S
+    kern = lambda key: sum(t for name, (t, _) in by_name.items()
+                           if key in name)
+    out = dict(ms_median=med, ms_min=min(ms), ms=ms,
+               tokens_per_s=tokens / (med / 1e3), model_flops_share=share,
+               busy_us=busy, idle_share=max(0.0, 1 - busy / (med * 1e3)),
+               activities=n_act, peak_allocated=peak, parts_device_host_ms=parts,
+               flash_prefill_us=kern("flash_prefill_kernel"),
+               flash_backward_us=kern("bwd_"),
+               gemm_us=kern("gemm") + kern("nvjet") + kern("cutlass"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    say(f"train: llama3.2-1b step (B {TRAIN_BATCH}, S {TRAIN_SEQ}, bf16, "
+        f"AdamW): {med:.2f} ms median, {min(ms):.2f} min of {TIMED_STEPS} "
+        f"(host clock, each ending in synchronize); {out['tokens_per_s']:.0f} "
+        f"tokens/s; model FLOPs (6 x {n} x {tokens}) {share:.4f} of "
+        f"989 TFLOP/s; one traced step: device busy {busy:.1f} us, idle "
+        f"share {out['idle_share']:.4f}, {n_act} activities, flash prefill "
+        f"{out['flash_prefill_us']:.1f} us, flash backward "
+        f"{out['flash_backward_us']:.1f} us, products (gemm / nvjet / "
+        f"cutlass kernels) {out['gemm_us']:.1f} us; parts by CUDA events "
+        f"(host issue) "
+        + ", ".join(f"{k} {d:.2f} ms ({h:.2f})" for k, (d, h)
+                    in parts.items())
+        + f"; peak allocated {peak} B (reckoned ~{TRAIN_MEM_BYTES:.0f}); "
+        f"largest kernels "
+        + ", ".join(f"{k[:60]} {t:.1f} us x {c}" for k, (t, c) in top)
+        + f" [{card}]")
+    return out
+
+
+def cli_run_and_replay(dev, card) -> dict:
+    """``launch/train.py``'s ``main`` in this process: TRAIN_STEPS steps of
+    full-width llama3.2-1b at the CLI's defaults with a checkpoint every
+    TRAIN_CKPT_EVERY steps, the launch counts set to 0 just before and
+    read just after (the train path's own); then a second run in another
+    directory that holds only the step-TRAIN_CKPT_EVERY checkpoint, which
+    resumes there and replays to TRAIN_STEPS.  Both under
+    ``torch.use_deterministic_algorithms(True)``: torch's backward of the
+    embedding lookup and of the loss's gather add with atomics otherwise
+    (cuBLAS then needs ``CUBLAS_WORKSPACE_CONFIG``; ``:4096:8`` is the 32
+    MiB PyTorch gives a Hopper card anyway).  The replay's parameters and
+    optimizer state must equal the straight run's bit for bit."""
+    import os
+    import shutil
+
+    import repro_torch.configs as configs
+    from repro_torch.launch import train
+    from repro_torch.models.params import tree_leaves
+
+    cfg = configs.get("llama3.2-1b")
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", "llama3.2-1b", "--steps", str(TRAIN_STEPS),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "1",
+            "--seed", str(SEED)]
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_all()
+        t0 = time.perf_counter()
+        straight = train.main(argv + ["--ckpt-dir", str(root / "a")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in all_launches().items() if v}
+        want = {"flash_prefill": cfg.n_layers * TRAIN_STEPS,
+                "flash_backward": cfg.n_layers * TRAIN_STEPS}
+        check(launches == want, f"the CLI's {TRAIN_STEPS} steps launched "
+                                f"{launches}, the train path needs {want}")
+        losses = straight["losses"]
+        check(straight["end_step"] == TRAIN_STEPS
+              and len(losses) == TRAIN_STEPS
+              and all(np.isfinite(losses)),
+              f"the CLI ended at {straight['end_step']}, losses {losses}")
+        (root / "b").mkdir(parents=True)
+        ck = f"step_{TRAIN_CKPT_EVERY:010d}"
+        os.rename(root / "a" / ck, root / "b" / ck)
+        shutil.rmtree(root / "a")
+        t0 = time.perf_counter()
+        replay = train.main(argv + ["--ckpt-dir", str(root / "b")])
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    check(replay["start"] == TRAIN_CKPT_EVERY
+          and replay["losses"] == losses[TRAIN_CKPT_EVERY:],
+          f"the replay resumed at {replay['start']} with losses "
+          f"{replay['losses']}, the straight run's {losses}")
+    a, b = tree_leaves(straight["state"]), tree_leaves(replay["state"])
+    check(len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                   for x, y in zip(a, b)),
+          "the replay from the checkpoint is not bit-equal to the straight "
+          "run")
+    say(f"train: python -m repro_torch.launch.train {' '.join(argv)} (in "
+        f"process, deterministic algorithms): losses {losses}, launches "
+        f"{launches} ({cfg.n_layers} of each a step), {run_s:.1f} s with "
+        f"checkpoints; the replay from step {TRAIN_CKPT_EVERY} "
+        f"({replay_s:.1f} s) ends bit-equal in all {len(a)} leaves of "
+        f"params and optimizer state [{card}]")
+    return dict(losses=losses, launches=launches, run_s=run_s,
+                replay_s=replay_s)
+
+
+def check_recurrent_training_raises(dev):
+    """rwkv6-7b's and Griffin's loss under autograd on the card raise
+    (their recurrence kernels have no backward yet), rather than drop the
+    gradient; smoke widths, which reach the same first kernel."""
+    import repro_torch.configs as configs
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.zoo import build_model
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        model = build_model(configs.smoke(arch))
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                            dev)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        tokens = torch.zeros((1, 16), dtype=torch.long, device=dev)
+        try:
+            model.loss_fn(params, {"tokens": tokens})
+        except NotImplementedError as e:
+            check("backward" in str(e), f"{arch}: {e}")
+            say(f"train: {arch} loss_fn under autograd on the card raises: "
+                f"{e}")
+            continue
+        check(False, f"{arch}: loss_fn under autograd on the card ran "
+                     f"without its backward kernel")
+
+
+def time_train_flash(dev, card) -> dict:
+    """The flash forward (routed: the ``wgmma`` prefill) and backward
+    kernels at the train step's shape (B 8, S 256, H 32, KV 8, D 64, bf16)
+    against their bounds, their plain versions and SDPA's forward and
+    backward (``is_causal=True, enable_gqa=True``; a yardstick, never
+    called by the port)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import (
+        _flash_torch,
+        flash_attention_backward_torch,
+    )
+    q, k, v, do = attn_inputs(dev, TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16,
+                              SEED + 3)
+    S = TRAIN_SEQ
+    o = FK.flash_attention_cuda(q, k, v, causal=True, window=None,
+                                q_start=0, kv_len=S)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                        enable_gqa=True)
+    dos = do.transpose(1, 2)
+    fwd = {
+        "kernel": lambda: FK.flash_attention_cuda(
+            q, k, v, causal=True, window=None, q_start=0, kv_len=S),
+        "plain": lambda: _flash_torch(q, k, v, causal=True, window=None,
+                                      q_start=0, kv_len=None,
+                                      softmax_scale=None, kv_chunk=1024),
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True),
+    }
+    bwd = {
+        "kernel": lambda: FK.flash_backward_cuda(q, k, v, o, do),
+        "plain": lambda: flash_attention_backward_torch(q, k, v, o, do),
+        "sdpa": lambda: torch.autograd.grad(so, (qs, ks, vs), dos,
+                                            retain_graph=True),
+    }
+    out = {}
+    with torch.no_grad():
+        t_f = {i: time_replay([()], fn, reps=10)[0] for i, fn in fwd.items()}
+    t_b = {i: time_replay([()], fn, reps=10)[0] for i, fn in bwd.items()}
+    for name, t, bound in (("forward", t_f, fa_bound(q, k, v, dict(
+            q_start=0, kv_len=S))), ("backward", t_b, bwd_bound(q, k, v))):
+        by = "bytes" if bound[0] >= bound[1] else "operations"
+        out[name] = dict(ms=t["kernel"], plain_ms=t["plain"],
+                         library_ms=t["sdpa"], bound_ms=max(bound),
+                         bound_by=by)
+        say(f"timing: flash {name} at the train step's shape (B "
+            f"{TRAIN_BATCH}, S {S}, H 32, KV 8, D 64, bf16, causal): device "
+            f"us per launch: kernel {t['kernel'] * 1e3:.2f}, bound "
+            f"{max(bound) * 1e3:.3f} ({by}; bytes {bound[0] * 1e3:.3f}, "
+            f"operations {bound[1] * 1e3:.3f}), plain {t['plain'] * 1e3:.2f},"
+            f" sdpa {t['sdpa'] * 1e3:.2f} [{card}]")
+    return out
+
+
+def phase_train(dev, card, err) -> tuple[dict, dict]:
+    """The train path: the backward kernel against its plain version, one
+    full-width step through the kernels against the plain versions, the
+    step's time and memory, the CLI's run with a checkpoint and its
+    bit-equal replay, the recurrent families raising, and the flash
+    kernels' times at the step's shape.  Returns (the flash_backward row
+    of the kernels JSON, the phase's record)."""
+    t0 = time.perf_counter()
+    worst = check_flash_backward(dev)
+    err["flash_backward"] = worst["max_abs_err"]
+    model, opt, state, batch, rec = train_step_compare(dev, card)
+    rec["step"] = time_train_step(model, opt, state, batch, card)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["cli"] = cli_run_and_replay(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_recurrent_training_raises(dev)
+    flash = time_train_flash(dev, card)
+    rec["flash"] = flash
+    b = flash["backward"]
+    row = dict(
+        name="flash_backward", route="cuda",
+        source="src/repro_torch/csrc/flash_backward.cu",
+        replaces="src/repro/kernels/flash_attention/ops.py:77",
+        replaces_note="no TPU kernel: jax.grad of _flash_xla",
+        launches=rec["cli"]["launches"]["flash_backward"],
+        max_abs_err=err["flash_backward"], ms=b["ms"],
+        plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
+        bound_by=b["bound_by"], library_ms=b["library_ms"],
+        errors=worst, forward_at_train_shape=flash["forward"])
+    rec["seconds"] = time.perf_counter() - t0
+    say(f"train: phase done in {rec['seconds']:.1f} s [{card}]")
+    return row, rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     csrc = SRC / "repro_torch" / "csrc"
     if not all((csrc / f).is_file() for f in (
             "arena.cu", "flash_attention.cu", "flash_decode.cu",
-            "flash_prefill_sm90.cu", "wkv6.cu", "rglru.cu")):
+            "flash_prefill_sm90.cu", "flash_backward.cu", "wkv6.cu",
+            "rglru.cu")):
         say("FAIL: src/repro_torch not found beside chip_smoke.py; run it "
             "from the root of a checkout")
         return 2
@@ -2831,7 +3442,8 @@ def main() -> int:
             lib, sec = fut.result()
             say(f"build: {lib.relative_to(ROOT)} in {sec:.1f} s")
             if lib.stem in ("libarena", "libwkv6", "librglru",
-                            "libflash_decode", "libflash_prefill_sm90"):
+                            "libflash_decode", "libflash_prefill_sm90",
+                            "libflash_backward"):
                 for ln in _build.ptxas_report(lib):
                     say(f"build: ptxas {lib.stem[3:]}: {ln}")
     for mod in (K, WK, RK):
@@ -2898,6 +3510,12 @@ def main() -> int:
                         bucket=N_REQ,
                         launches_per_tick=b["tick"]["launches"][k],
                         us_per_launch=us, traced_launches=n)
+
+    # the train path, the serving models' weights freed
+    train_row, train_rec = phase_train(dev, card, err)
+    rows.append(train_row)
+    say("timing: train: " + json.dumps(train_rec) + f" [{card}]")
+    say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(card)

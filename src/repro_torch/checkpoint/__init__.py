@@ -1,0 +1,8 @@
+from repro_torch.checkpoint.ckpt import (
+    CheckpointManager,
+    latest_step,
+    restore,
+    save,
+)
+
+__all__ = ["CheckpointManager", "latest_step", "restore", "save"]

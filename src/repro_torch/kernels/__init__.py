@@ -5,11 +5,15 @@
   flash_attention  -- GQA forward attention with an online softmax: the
                       split-K decode (csrc/flash_decode.cu), the wgmma
                       prefill (csrc/flash_prefill_sm90.cu) and the simple
-                      kernel (csrc/flash_attention.cu), by a fixed route
+                      kernel (csrc/flash_attention.cu), by a fixed route;
+                      and the training form's gradient
+                      (csrc/flash_backward.cu)
   rwkv6            -- the RWKV-6 WKV recurrence (csrc/wkv6.cu)
   rglru            -- Griffin's RG-LRU recurrence (csrc/rglru.cu)
 
-``_build`` compiles each ``csrc/*.cu`` with nvcc into its own library.
+``_build`` compiles each ``csrc/*.cu`` with nvcc into its own library;
+``_grad`` keeps every wrapper from returning, under autograd on the card,
+an output that autograd cannot see through.
 
 Each package keeps beside its kernels a plain PyTorch version of the same
 function (used for CPU tensors and as the reference the kernels are held

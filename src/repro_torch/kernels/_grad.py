@@ -1,0 +1,36 @@
+"""Autograd guards of the kernel wrappers.
+
+The CUDA kernels are ctypes launches, which autograd does not see: an
+output a kernel computed carries no ``grad_fn``, and a loss built on it
+would back-propagate through everything but the kernel without an error.
+So on the card a wrapper whose inputs need a gradient either runs a
+``torch.autograd.Function`` with a backward kernel (the flash attention's
+``FlashAttentionFn``) or raises :func:`no_backward`'s error; it never
+returns a detached output.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def on_card(t) -> bool:
+    """Whether ``t`` lies on the card: the one test of the device by which
+    the wrappers pick a kernel or its plain version."""
+    return t.is_cuda
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd is recording and one of ``tensors`` (None and
+    non-tensors skipped) requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in tensors)
+
+
+def no_backward(op: str, kernel: str) -> NotImplementedError:
+    """The error of a kernel wrapper called on the card under autograd
+    when ``kernel``, its backward, is not ported yet."""
+    return NotImplementedError(
+        f"{op}: an input requires a gradient, and its backward kernel "
+        f"({kernel}) is not ported yet (ROADMAP B); on the card run it "
+        f"under torch.no_grad(), or train on the CPU")

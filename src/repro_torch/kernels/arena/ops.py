@@ -11,13 +11,17 @@ PyTorch versions.
 
 No environment variable changes the choice: a switch that forced the plain
 version on the card would hide the kernel.  A CUDA tensor under ``'auto'``
-launches the kernel or raises; it never falls back.  All ops update the
+launches the kernel or raises; it never falls back.  The kernels have no
+backward: on the card, under autograd with an arena or input that requires
+a gradient, a call raises ``NotImplementedError`` rather than return an
+arena autograd cannot see through (the executor runs without gradients).  All ops update the
 arena in place and return it.  Offsets and lengths are in elements of the
 arena's dtype (see ``repro_torch.core.executor`` for the byte conversion).
 """
 
 from __future__ import annotations
 
+from repro_torch.kernels import _grad
 from repro_torch.kernels.arena import kernel as _kernel
 from repro_torch.kernels.arena.ref import (
     arena_accum_torch,
@@ -29,29 +33,37 @@ from repro_torch.kernels.arena.ref import (
 IMPLS = ("auto", "cuda", "torch")
 
 
-def _use_kernel(impl: str, arena) -> bool:
+
+def _use_kernel(impl: str, arena, *inputs, op: str) -> bool:
+    """Whether the call launches the kernel; on the card, under autograd
+    with ``arena`` or an input that requires a gradient, raises."""
     if impl == "auto":
-        return arena.is_cuda
-    if impl == "cuda":
-        if not arena.is_cuda:
+        use = _grad.on_card(arena)
+    elif impl == "cuda":
+        if not _grad.on_card(arena):
             raise ValueError("impl='cuda' needs a CUDA arena; got one on "
                              f"{arena.device}")
-        return True
-    if impl == "torch":
-        return False
-    raise ValueError(f"unknown arena impl {impl!r}; expected one of {IMPLS}")
+        use = True
+    elif impl == "torch":
+        use = False
+    else:
+        raise ValueError(f"unknown arena impl {impl!r}; expected one of "
+                         f"{IMPLS}")
+    if use and _grad.needs_grad(arena, *inputs):
+        raise _grad.no_backward(op, f"a backward of {op}")
+    return use
 
 
 def arena_write(arena, x, offset: int, *, impl: str = "auto"):
     """Write ``x`` (1-D, arena dtype) at element ``offset``; returns arena."""
-    if _use_kernel(impl, arena):
+    if _use_kernel(impl, arena, x, op="arena_write"):
         return _kernel.arena_write_cuda(arena, x, offset)
     return arena_write_torch(arena, x, offset)
 
 
 def arena_accum(arena, x, offset: int, *, impl: str = "auto"):
     """Add ``x`` into ``arena[offset : offset+n]``; returns arena."""
-    if _use_kernel(impl, arena):
+    if _use_kernel(impl, arena, x, op="arena_accum"):
         return _kernel.arena_accum_cuda(arena, x, offset)
     return arena_accum_torch(arena, x, offset)
 
@@ -61,7 +73,7 @@ def arena_read(arena, offset: int, n: int, *, impl: str = "auto",
     """A copy of ``arena[offset : offset+n]``: a fresh ``(n,)`` tensor, or
     ``out`` (a contiguous 1-D tensor of ``n`` elements in the arena's dtype
     on its device), written in place and returned."""
-    if _use_kernel(impl, arena):
+    if _use_kernel(impl, arena, out, op="arena_read"):
         return _kernel.arena_read_cuda(arena, offset, n, out)
     return arena_read_torch(arena, offset, n, out)
 
@@ -79,6 +91,6 @@ def arena_chain_write(arena, x, offset: int, ops=(), *, impl: str = "auto"):
     ops of :data:`~repro_torch.kernels.arena.elemwise.EXACT_OPS` and
     allclose for the transcendentals.
     """
-    if _use_kernel(impl, arena):
+    if _use_kernel(impl, arena, x, op="arena_chain_write"):
         return _kernel.arena_chain_write_cuda(arena, x, offset, ops)
     return arena_chain_write_torch(arena, x, offset, ops)

@@ -2,26 +2,33 @@
 
 ops.py    -- ``flash_attention`` dispatch (impl in {auto, cuda, torch,
              ref}; no environment override), the chunked online-softmax
-             plain version (``impl="torch"``) and the split-K decode's
-             plain versions (partials per split, and their merge)
-kernel.py -- the three CUDA kernels (csrc/flash_decode.cu,
-             csrc/flash_prefill_sm90.cu, csrc/flash_attention.cu): build,
-             ctypes binding, the route rule, checked launches, launch
-             counts
+             plain version (``impl="torch"``), the split-K decode's
+             plain versions (partials per split, and their merge), and
+             the training form's gradient: ``FlashAttentionFn``, taken
+             under autograd, with the backward kernel on the card and its
+             plain version ``flash_attention_backward_torch``
+kernel.py -- the four CUDA kernels (csrc/flash_decode.cu,
+             csrc/flash_prefill_sm90.cu, csrc/flash_attention.cu and the
+             backward, csrc/flash_backward.cu): build, ctypes binding,
+             the route rule, checked launches, launch counts
 ref.py    -- the O(S²) oracle ``attention_ref``
 
 Used by ``repro_torch.models.layers.attn_apply`` for every prefill and
-decode attention of the serving path.
+decode attention of the serving path, and for the attention of the train
+step (forward and gradient).
 """
 
 from repro_torch.kernels.flash_attention.kernel import LAUNCHES, reset_launches
 from repro_torch.kernels.flash_attention.ops import (
+    FlashAttentionFn,
     flash_attention,
+    flash_attention_backward_torch,
     flash_decode_combine_torch,
     flash_decode_partials_torch,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["LAUNCHES", "attention_ref", "flash_attention",
-           "flash_decode_combine_torch", "flash_decode_partials_torch",
-           "reset_launches"]
+__all__ = ["LAUNCHES", "FlashAttentionFn", "attention_ref",
+           "flash_attention", "flash_attention_backward_torch",
+           "flash_decode_combine_torch",
+           "flash_decode_partials_torch", "reset_launches"]

@@ -1,6 +1,6 @@
 """CUDA flash-attention kernels for Hopper: build, bind, route, launch.
 
-Three kernels, each its own source under ``repro_torch/csrc/`` (plain C
+Three forward kernels and one backward, each its own source under ``repro_torch/csrc/`` (plain C
 interface), compiled at first use into ``build/repro_torch/<source
 hash>/lib<name>.so`` (:mod:`repro_torch.kernels._build`) and loaded with
 ``ctypes``; nothing is built when this module is imported:
@@ -14,7 +14,14 @@ hash>/lib<name>.so`` (:mod:`repro_torch.kernels._build`) and loaded with
                                  in :data:`PREFILL_HEAD_DIMS`;
   * ``flash_attention.cu``    -- the simple kernel, for the rest: f32 with
                                  ``Sq * G > 16``, and the (16, 16) and
-                                 (192, 128) pairs with ``Sq * G > 16``.
+                                 (192, 128) pairs with ``Sq * G > 16``;
+  * ``flash_backward.cu``     -- the gradient (dq, dk, dv) of causal
+                                 attention in its training form (q_start
+                                 0, Sq = Skv, no window), bf16 or f32 at
+                                 (D, Dv) in :data:`BACKWARD_HEAD_DIMS`:
+                                 :func:`flash_backward_cuda`, one entry
+                                 that launches its three kernels (one
+                                 count in ``LAUNCHES["flash_backward"]``).
 
 :func:`pick_route` is that fixed rule, by dtype and shape; it is not a
 fallback.  :func:`flash_attention_cuda` routes a call; each kernel also
@@ -41,9 +48,11 @@ rows decode at their own positions): each (b, KV head) block reads its
 row's, and the split rule, being the capacity's, is the same for every
 row.  The other two kernels take host integers only.
 
-They replace ``flash_attention_pallas`` / ``_fa_kernel`` of
-``repro/kernels/flash_attention/kernel.py``; each source note says what
-bounds its kernel and what its design does about it.
+The forward kernels replace ``flash_attention_pallas`` / ``_fa_kernel`` of
+``repro/kernels/flash_attention/kernel.py``; the backward has no Pallas
+counterpart (``repro`` differentiates ``_flash_xla`` with XLA).  Each
+source note says what bounds its kernel and what its design does about
+it.
 """
 
 from __future__ import annotations
@@ -59,13 +68,17 @@ from repro_torch.kernels import _build
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 #: library name -> source; one ``nvcc`` each
 SOURCES = {name: CSRC / f"{name}.cu" for name in
-           ("flash_attention", "flash_decode", "flash_prefill_sm90")}
+           ("flash_attention", "flash_decode", "flash_prefill_sm90",
+            "flash_backward")}
 
 #: (D of q/k, Dv of v) pairs the kernel is built and checked for
 HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128), (256, 256))
 
 #: (D, Dv) pairs the tensor-core prefill takes (bf16 only)
 PREFILL_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
+
+#: (D, Dv) pairs the backward kernel takes (bf16 or f32): llama3.2-1b's
+BACKWARD_HEAD_DIMS = ((64, 64),)
 
 #: the split-K decode takes calls with at most this many rows (Sq * G)
 DECODE_MAX_ROWS = 16
@@ -78,7 +91,8 @@ DECODE_MAX_SPLITS = 1024
 #: the most partial bytes the split rule lets one merging block read
 DECODE_MERGE_BYTES = 384 * 1024
 
-LAUNCHES = {"flash_attention": 0, "flash_decode": 0, "flash_prefill": 0}
+LAUNCHES = {"flash_attention": 0, "flash_decode": 0, "flash_prefill": 0,
+            "flash_backward": 0}
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _libs: dict = {}
@@ -110,9 +124,15 @@ _ARGS = {
                      "Sq", "Skv", "H", "KV", "D", "Dv", "q_start", "kv_len",
                      "window", "causal", "scale", "splits", "t0", "tpc",
                      "q_pos", "q_pos_stride", "stream"],
+    "flash_backward": ["is_bf16", "q", "k", "v", "o", "do", "dq", "dk", "dv",
+                       "lse", "delta", "B", "S", "H", "KV", "D", "scale",
+                       "stream"],
 }
 _CTYPE = {"q": ctypes.c_void_p, "k": ctypes.c_void_p, "v": ctypes.c_void_p,
           "o": ctypes.c_void_p, "part": ctypes.c_void_p,
+          "do": ctypes.c_void_p, "dq": ctypes.c_void_p,
+          "dk": ctypes.c_void_p, "dv": ctypes.c_void_p,
+          "lse": ctypes.c_void_p, "delta": ctypes.c_void_p,
           "counter": ctypes.c_void_p, "q_pos": ctypes.c_void_p,
           "stream": ctypes.c_void_p,
           "is_bf16": ctypes.c_int, "causal": ctypes.c_int,
@@ -438,3 +458,73 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
     if route == "prefill":
         return flash_prefill_cuda(q, k, v, **kw)
     return flash_simple_cuda(q, k, v, **kw)
+
+
+def check_backward(q, k, v, *, causal=True, window=None, q_start=0,
+                   kv_len=None) -> None:
+    """Raise unless a call is the training form the backward takes:
+    causal, no window, ``q_start`` the host int 0, ``kv_len`` None or
+    ``Skv``, ``Sq == Skv``; on the card also bf16 or f32 at (D, Dv) in
+    :data:`BACKWARD_HEAD_DIMS`, what the kernel is built for.  A windowed
+    backward and Griffin's (256, 256) come with Griffin's training
+    (ROADMAP B)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if torch.is_tensor(q_start) or torch.is_tensor(kv_len):
+        raise NotImplementedError(
+            "the flash backward takes host positions only (a device "
+            "position is a decode step's, which has no gradient)")
+    if not causal or window is not None or q_start != 0 \
+            or (kv_len is not None and kv_len != Skv) or Sq != Skv:
+        raise NotImplementedError(
+            f"the flash backward takes causal attention with q_start 0, "
+            f"kv_len = Skv = Sq and no window only, got causal={causal}, "
+            f"window={window}, q_start={q_start}, kv_len={kv_len}, "
+            f"Sq={Sq}, Skv={Skv} (a windowed backward kernel waits for "
+            f"ROADMAP B)")
+    dims = (q.shape[3], v.shape[3])
+    if q.is_cuda and (dims not in BACKWARD_HEAD_DIMS
+                      or q.dtype not in _SUFFIX):
+        raise NotImplementedError(
+            f"the flash backward kernel takes bf16 or f32 at (D, Dv) in "
+            f"{BACKWARD_HEAD_DIMS}, got {q.dtype} at {dims} (other head "
+            f"dims wait for ROADMAP B)")
+
+
+def flash_backward_cuda(q, k, v, o, do, *,
+                        softmax_scale: float | None = None):
+    """The gradient of causal attention ``o = attn(q, k, v)`` (q_start 0,
+    Sq = Skv) given ``do``, the output's gradient: returns ``(dq, dk, dv)``
+    in the inputs' dtype, by ``csrc/flash_backward.cu`` (a setup pass for
+    each row's log-sum-exp and rowsum(do * o), then the dK/dV and dQ
+    kernels).  All five inputs contiguous CUDA tensors of one dtype; q, o
+    and do ``(B, S, H, D)``, k and v ``(B, S, KV, D)``."""
+    _check(q, k, v)
+    check_backward(q, k, v)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if not (isinstance(t, torch.Tensor) and t.is_cuda) \
+                or tuple(t.shape) != (B, S, H, v.shape[3]) \
+                or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous CUDA tensor of "
+                             f"shape {(B, S, H, v.shape[3])} in {q.dtype} "
+                             f"on {q.device}, 16-byte aligned")
+    if B * H > MAX_PAIRS:
+        raise ValueError(f"batch x heads = {B * H} exceeds the grid's "
+                         f"{MAX_PAIRS}")
+    scale = float(softmax_scale if softmax_scale is not None else D ** -0.5)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _library("flash_backward").repro_flash_backward
+    _build.raise_on(fn(int(q.dtype == torch.bfloat16), q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, S,
+                       H, KV, D, scale, stream), "flash_backward")
+    LAUNCHES["flash_backward"] += 1
+    return dq, dk, dv

@@ -22,6 +22,18 @@
                    is held against; the CPU path);
   * ``"ref"``   -- the O(S²) oracle (tests only).
 
+Under autograd (grad enabled and an input that requires a gradient),
+``"auto"`` on the card and ``"cuda"`` take :class:`FlashAttentionFn`: the
+routed forward kernel, and the hand-written backward kernel
+(``csrc/flash_backward.cu``, ``kernel.flash_backward_cuda``) for the
+gradient.  It takes the training form only (causal, ``q_start`` 0,
+``kv_len = Skv = Sq``, no window; on the card (64, 64) heads) and raises
+for any other call that needs a gradient on the card.  Without autograd
+(serving, under ``torch.no_grad()``) the call is the plain kernel launch
+it always was, so captured graphs and launch counts do not change.  The
+backward's plain version is :func:`flash_attention_backward_torch`;
+``"torch"`` on any device differentiates ``_flash_torch`` with autograd.
+
 The split-K decode's plain versions are :func:`flash_decode_partials_torch`
 (each split's partial m, l and acc, split as the kernel splits) and
 :func:`flash_decode_combine_torch` (their merge); together they compute
@@ -54,6 +66,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _grad
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -73,9 +86,10 @@ def _row_positions(q_start, Sq: int, device) -> torch.Tensor:
     return (q_start + ar)[None]
 
 
+
 def _pick_impl(impl: str, q) -> str:
     if impl == "auto":
-        return "cuda" if q.is_cuda else "torch"
+        return "cuda" if _grad.on_card(q) else "torch"
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; expected one of "
                          f"{IMPLS}")
@@ -115,9 +129,13 @@ def flash_attention(
             kv_len=kv_len, softmax_scale=softmax_scale,
         )
     if impl == "cuda":
-        if not q.is_cuda:
+        if not _grad.on_card(q):
             raise ValueError("impl='cuda' needs CUDA tensors; got q on "
                              f"{q.device}")
+        if _grad.needs_grad(q, k, v):
+            _kernel.check_backward(q, k, v, causal=causal, window=window,
+                                   q_start=q_start, kv_len=kv_len)
+            return FlashAttentionFn.apply(q, k, v, softmax_scale)
         return _kernel.flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window, q_start=q_start,
@@ -286,3 +304,66 @@ def flash_decode_combine_torch(m, l, acc, *, dtype=torch.float32):
     den = torch.clamp((w * l).sum(2), min=1e-30)
     out = num / den[..., None]
     return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, KV * G, Dv).to(dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal GQA attention in its training form (``q_start`` 0, ``Sq =
+    Skv``, no window) on the card, with a hand-written gradient: the
+    forward is the routed forward kernel (``kernel.flash_attention_cuda``:
+    the ``wgmma`` prefill in bf16, the simple kernel in f32) and the
+    backward the backward kernel (``kernel.flash_backward_cuda``).  It
+    saves q, k, v and the output for the backward (the log-sum-exp is
+    recomputed there).  ``apply(q, k, v, softmax_scale)``; the caller
+    (:func:`flash_attention`) has checked the form with
+    ``kernel.check_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, softmax_scale=None):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o = _kernel.flash_attention_cuda(
+            q, k, v, causal=True, window=None, q_start=0,
+            kv_len=k.shape[1], softmax_scale=softmax_scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.softmax_scale = softmax_scale
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = _kernel.flash_backward_cuda(
+            q, k, v, o, do.contiguous(), softmax_scale=ctx.softmax_scale)
+        return dq, dk, dv, None
+
+
+def flash_attention_backward_torch(q, k, v, o, do, *, softmax_scale=None):
+    """The backward kernel's algorithm in plain torch ops: the gradient of
+    causal attention ``o = attn(q, k, v)`` (``q_start`` 0, ``Sq = Skv``)
+    given ``do``, from the recomputed log-sum-exp of each query row.
+
+    With ``s = scale q k^T`` under the causal mask, ``lse`` its row-wise
+    log-sum-exp, ``P = exp(s - lse)`` and ``D = rowsum(do * o)``:
+    ``dv = P^T do``, ``dS = P * (do v^T - D)``, ``dq = scale dS k``,
+    ``dk = scale dS^T q``, summed over the query heads of each KV head; in
+    f32 (O(S²) memory), returned in the inputs' dtypes."""
+    B, S, H, D = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    G = H // KV
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    qf = q.float().reshape(B, S, KV, G, D)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, S, KV, G, Dv)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    pos = torch.arange(S, device=q.device)
+    live = pos[None, :] <= pos[:, None]                       # (q, s)
+    s = torch.where(live, s, -torch.inf)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse)                                    # 0 where dead
+    delta = (dof * o.float().reshape(B, S, KV, G, Dv)).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -16,20 +16,25 @@
 ``repro``'s ``"xla"`` associative scan has no counterpart: the tests hold
 the plain version against it.  No environment variable changes the
 choice: a CUDA tensor under ``"auto"`` launches the kernel or raises; it
-never falls back.
+never falls back.  The kernels have no backward yet (ROADMAP B): on the
+card, under autograd with an input that requires a gradient, the call
+raises ``NotImplementedError`` rather than return an output autograd
+cannot see through.
 """
 
 from __future__ import annotations
 
+from repro_torch.kernels import _grad
 from repro_torch.kernels.rglru import kernel as _kernel
 from repro_torch.kernels.rglru.ref import rglru_ref
 
 IMPLS = ("auto", "cuda", "torch", "ref")
 
 
+
 def _pick_impl(impl: str, gx) -> str:
     if impl == "auto":
-        return "cuda" if gx.is_cuda else "torch"
+        return "cuda" if _grad.on_card(gx) else "torch"
     if impl not in IMPLS:
         raise ValueError(f"unknown rglru impl {impl!r}; expected one of "
                          f"{IMPLS}")
@@ -42,8 +47,10 @@ def rglru(log_a, gx, h0=None, *, impl: str = "auto", state_out=None):
     be ``h0`` itself, which then is updated in place."""
     impl = _pick_impl(impl, gx)
     if impl == "cuda":
-        if not gx.is_cuda:
+        if not _grad.on_card(gx):
             raise ValueError("impl='cuda' needs CUDA tensors; got gx on "
                              f"{gx.device}")
+        if _grad.needs_grad(log_a, gx, h0):
+            raise _grad.no_backward("rglru", "the RG-LRU backward")
         return _kernel.rglru_cuda(log_a, gx, h0, state_out=state_out)
     return rglru_ref(log_a, gx, h0, state_out)

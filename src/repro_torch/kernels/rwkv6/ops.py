@@ -12,22 +12,27 @@
                            the CPU path).
 
 No environment variable changes the choice: a CUDA tensor under
-``"auto"`` launches the kernel or raises; it never falls back.
+``"auto"`` launches the kernel or raises; it never falls back.  The kernel
+has no backward yet (ROADMAP B): on the card, under autograd with an input
+that requires a gradient, the call raises ``NotImplementedError`` rather
+than return an output autograd cannot see through.
 ``repro``'s chunked-linear-attention note applies here too: the exact
 sequential update is the one that cannot overflow.
 """
 
 from __future__ import annotations
 
+from repro_torch.kernels import _grad
 from repro_torch.kernels.rwkv6 import kernel as _kernel
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
 IMPLS = ("auto", "cuda", "torch", "ref")
 
 
+
 def _pick_impl(impl: str, r) -> str:
     if impl == "auto":
-        return "cuda" if r.is_cuda else "torch"
+        return "cuda" if _grad.on_card(r) else "torch"
     if impl not in IMPLS:
         raise ValueError(f"unknown wkv6 impl {impl!r}; expected one of "
                          f"{IMPLS}")
@@ -42,9 +47,11 @@ def wkv6(r, k, v, w, u, *, initial_state=None, impl: str = "auto",
     is updated in place."""
     impl = _pick_impl(impl, r)
     if impl == "cuda":
-        if not r.is_cuda:
+        if not _grad.on_card(r):
             raise ValueError("impl='cuda' needs CUDA tensors; got r on "
                              f"{r.device}")
+        if _grad.needs_grad(r, k, v, w, u, initial_state):
+            raise _grad.no_backward("wkv6", "the WKV-6 backward")
         return _kernel.wkv6_cuda(r, k, v, w, u, initial_state=initial_state,
                                  state_out=state_out)
     return wkv6_ref(r, k, v, w, u, initial_state, state_out)

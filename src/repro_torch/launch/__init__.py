@@ -1,10 +1,13 @@
-"""Launchers of the port: serving steps and the decode-arena server.
+"""Launchers of the port: train and serving steps, the decode-arena
+server and the trainer.
 
-steps.py  -- make_prefill_step / make_decode_step (impl="auto": the CUDA
-             kernel on the card)
+steps.py  -- make_train_step / make_optimizer, make_prefill_step /
+             make_decode_step and the captured decode steps
+             (impl="auto": the CUDA kernels on the card)
 serve.py  -- decode_state_graph, plan_decode_arena, pack/unpack/realize
              of the decode state, DecodeServer, run_server, and the CLI
              (``python -m repro_torch.launch.serve``)
+train.py  -- the training CLI (``python -m repro_torch.launch.train``)
 
-The trainer, the mesh and the dry-run wait for ROADMAP A7/A8/A10.
+The mesh and the dry-run wait for ROADMAP A8/A10.
 """

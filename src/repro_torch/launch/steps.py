@@ -1,5 +1,7 @@
-"""Serving steps of the port.
+"""Train and serving steps of the port.
 
+  * ``make_train_step(model, opt, rules)``  (state, batch) -> (state, metrics)
+  * ``make_optimizer(cfg, **kw)``        the config's optimizer
   * ``make_prefill_step(model, rules)``  (params, cache, batch) -> (logits, cache)
   * ``make_decode_step(model, rules)``   (params, cache, tokens, t) -> (logits, cache)
   * ``make_captured_decode_step(model, params, smax=...)``
@@ -9,20 +11,77 @@
         rows, each at its own position, eagerly;
         ``CapturedBatchedDecodeStep`` the same in one CUDA graph
 
-Their default is ``impl="auto"``: the CUDA flash-attention kernel for
-tensors on the card, the plain PyTorch version for tensors on the CPU
-(``repro``'s steps default to its ``"xla"`` version instead).  The training
-step and the input specs of the dry-run wait for ROADMAP A7/A10.
+Their default is ``impl="auto"``: the CUDA flash-attention kernels for
+tensors on the card (forward and, in the train step, the backward), the
+plain PyTorch versions for tensors on the CPU (``repro``'s steps default to
+its ``"xla"`` version instead).  The input specs of the dry-run wait for
+ROADMAP A10, sharding ``rules`` for A8.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.capture import CapturedCall
 from repro_torch.core.executor import resolve_device
 from repro_torch.kernels.flash_attention.kernel import check_pairs
+from repro_torch.models.params import tree_flatten, tree_unflatten
 from repro_torch.models.zoo import Model
+from repro_torch.optim import OPTIMIZERS
+from repro_torch.optim.schedule import cosine_warmup
+
+
+def make_train_step(model: Model, opt, rules=None, *, impl: str = "auto",
+                    peak_lr: float = 3e-4, warmup: int = 100,
+                    total_steps: int = 10_000, grad_clip: float = 1.0):
+    """``(state, batch) -> (state, metrics)``, the counterpart of
+    ``repro``'s ``make_train_step``: the loss and its gradient by autograd
+    (``model.loss_fn``; on the card the attention's gradient is the
+    backward kernel), a global-norm clip (the norm in f32 over every
+    gradient leaf in leaf order, each gradient scaled in its own dtype),
+    ``cosine_warmup`` of the optimizer's step, and ``opt.update``.
+
+    ``state`` is ``{"params", "opt"}``.  The update writes the new
+    parameters and optimizer state into the given tensors (the
+    counterpart of ``repro``'s donated state) and returns that state; the
+    parameter leaves are made to require a gradient.  ``metrics`` holds
+    ``loss``, ``lm_loss`` (and the model's other metrics), ``grad_norm``
+    and ``lr``, each a 0-d tensor on the state's device: the step reads
+    nothing back to the host.  Sharding ``rules`` wait for ROADMAP A8."""
+    if rules is not None:
+        raise NotImplementedError(
+            "sharding rules wait for parallelism (ROADMAP A8)")
+
+    def train_step(state, batch):
+        params = state["params"]
+        leaves, treedef = tree_flatten(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss, metrics = model.loss_fn(params, batch, impl=impl)
+            grads = torch.autograd.grad(loss, leaves)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        # global-norm clip
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                               for g in grads))
+        scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        for g in grads:                  # autograd's own: scaled in place
+            g.mul_(scale.to(g.dtype))
+        lr = cosine_warmup(state["opt"]["step"], peak_lr=peak_lr,
+                           warmup=warmup, total=total_steps)
+        new_params, new_opt = opt.update(
+            tree_unflatten(treedef, grads), state["opt"], params,
+            lr_scale=lr / opt.lr)
+        metrics.update(grad_norm=gnorm, lr=lr)
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step
+
+
+def make_optimizer(cfg: ArchConfig, **kw):
+    return OPTIMIZERS[cfg.optimizer](**kw)
 
 
 def make_prefill_step(model: Model, rules=None, *, impl: str = "auto"):

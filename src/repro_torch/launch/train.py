@@ -1,0 +1,135 @@
+"""The training CLI of the port: the counterpart of ``repro.launch.train``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --steps 8                           # on the card, at full width
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --steps 4                           # the smoke config on the CPU
+
+Wires together: config -> model -> optimizer -> data pipeline ->
+fault-tolerant loop with async checkpointing, resuming from the newest
+checkpoint in ``--ckpt-dir`` (default ``build/train_ckpt`` at the root of
+the checkout).  It logs the loss and tokens/s every ``--log-every`` steps,
+as ``repro`` does.  The train step (``launch/steps.py:make_train_step``)
+runs the attention's forward and backward through the hand-written flash
+kernels on the card; RWKV-6 and Griffin train on the CPU only, since their
+recurrence kernels have no backward yet (ROADMAP B): on the card their
+first step raises.  Weights are random, drawn from ``--seed``.  ``--mesh``
+takes ``none`` only: sharding waits for ROADMAP A8.  ``--device`` is
+``cuda`` unless ``cpu`` is asked for; without a card it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from pathlib import Path
+
+import torch
+
+import repro_torch.configs as configs
+from repro_torch.checkpoint import CheckpointManager, latest_step, restore
+from repro_torch.core.executor import resolve_device
+from repro_torch.data import DataPipeline
+from repro_torch.launch.steps import make_optimizer, make_train_step
+from repro_torch.models.params import tree_leaves
+from repro_torch.models.zoo import build_model
+from repro_torch.runtime import FaultTolerantLoop
+
+log = logging.getLogger("repro_torch.train")
+
+DEFAULT_CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "train_ckpt"
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    choices=configs.ARCH_NAMES)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT_DIR))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--mesh", choices=("none", "single", "multi"),
+                    default="none")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Train as the flags say; returns ``{"state", "start", "end_step",
+    "losses", "stragglers"}`` (the final train state, the step it resumed
+    from, the step it stopped at, each step's loss and the straggler
+    count)."""
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    if args.mesh != "none":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: sharding waits for ROADMAP A8")
+    device = resolve_device(args.device)
+
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    model = build_model(cfg)
+    opt = make_optimizer(cfg, lr=args.lr)
+    step_fn = make_train_step(model, opt, None, peak_lr=args.lr,
+                              warmup=max(args.steps // 20, 10),
+                              total_steps=args.steps)
+    pipe = DataPipeline(cfg=cfg, seq_len=args.seq, global_batch=args.batch,
+                        seed=args.seed)
+
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = model.init(gen, device)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    log.info("arch=%s params=%.2fM device=%s", cfg.name, n_params / 1e6,
+             device)
+    state = {"params": params, "opt": opt.init(params)}
+
+    ckpt = CheckpointManager(args.ckpt_dir, keep=3)
+    start = latest_step(args.ckpt_dir) or 0
+    if start:
+        log.info("resuming from checkpoint step %d", start)
+        state = restore(args.ckpt_dir, start, state)
+
+    losses = []
+    t_last = time.perf_counter()
+
+    def on_metrics(step, metrics):
+        nonlocal t_last
+        losses.append(float(metrics["loss"]))
+        if step % args.log_every == 0:
+            dt = time.perf_counter() - t_last
+            t_last = time.perf_counter()
+            tok_s = args.batch * args.seq * args.log_every / dt
+            log.info("step %5d loss=%.4f  %.1f tok/s", step,
+                     float(metrics["loss"]), tok_s)
+
+    def run_step(state, batch):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        return step_fn(state, batch)
+
+    loop = FaultTolerantLoop(
+        step_fn=run_step,
+        ckpt_manager=ckpt,
+        batch_iter_factory=pipe.iter_from,
+        ckpt_every=args.ckpt_every,
+    )
+    state, end_step = loop.run(state, start, args.steps,
+                               on_metrics=on_metrics)
+    first = sum(losses[:10]) / max(len(losses[:10]), 1)
+    last = sum(losses[-10:]) / max(len(losses[-10:]), 1)
+    log.info("done at step %d: loss %.4f -> %.4f (stragglers=%d)",
+             end_step, first, last, loop.timer.stragglers)
+    return {"state": state, "start": start, "end_step": end_step,
+            "losses": losses, "stragglers": loop.timer.stragglers}
+
+
+if __name__ == "__main__":
+    main()

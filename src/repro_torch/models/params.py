@@ -9,7 +9,9 @@ definition tree:
                              device (the weights are random and seeded);
   * ``params_from_numpy`` -- the same tree filled from ``repro``'s
                              parameter pytree as numpy arrays (the parity
-                             tests carry JAX-initialized weights across).
+                             tests carry JAX-initialized weights across,
+                             and, over ``opt.state_defs``, its optimizer
+                             state).
 
 ``param_pspecs`` and ``abstract_params`` wait for the sharding port
 (ROADMAP A8).
@@ -147,7 +149,9 @@ def params_from_numpy(defs, tree, device=None):
             raise ValueError(f"leaf of shape {a.shape}, defined {d.shape}")
         if d.dtype.is_floating_point:
             a = np.asarray(a, dtype=np.float32)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
+        # a C-ordered copy: np.ascontiguousarray would make a 0-d leaf
+        # (an optimizer's step) 1-d
+        return torch.from_numpy(np.array(a, order="C")).to(
             device=device, dtype=d.dtype)
 
     d_leaves, treedef = tree_flatten(defs, is_leaf=is_def)

@@ -3,6 +3,7 @@
 ``build_model(cfg) -> Model`` with:
     defs        ParamDef tree (layers stacked on a leading axis)
     init(generator, device)                            materialized params
+    loss_fn(params, batch, *, impl, rules)             -> (loss, metrics)
     make_cache_defs(batch_size, max_len)               ParamDef tree (decode state)
     init_cache(batch_size, max_len, device)            zeroed decode state
     prefill_fn(params, cache, batch, *, impl, rules)   -> (logits_last, cache)
@@ -25,9 +26,19 @@ parameter and cache trees (names, stacked shapes, leaf order), so that
 ``params_from_numpy`` maps ``repro``'s parameters one to one and the
 decode-state plans agree.  Each layer stack is a Python loop over the
 stacked parameters (the counterpart of ``_scan_stack``); the cache is
-updated in place and returned.  ``loss_fn`` waits for training
-(ROADMAP A7).  ``build_model`` raises for the families the port does not
-build yet (ROADMAP A6).
+updated in place and returned.  ``build_model`` raises for the families
+the port does not build yet (ROADMAP A6).
+
+``loss_fn`` is the counterpart of ``repro``'s: the next-token
+cross-entropy over every position, in f32, with ``metrics`` ``loss`` and
+``lm_loss`` (and ``aux_loss``, 0, for the dense decoder, whose MoE
+balance loss and MTP head come with ROADMAP A6).  Under autograd each
+stacked leaf is cut into its layers once (``unbind``), so that the
+backward stacks the layers' gradients in one pass.  On the card the
+attention's gradient runs the hand-written backward kernel
+(``kernels.flash_attention.ops.FlashAttentionFn``); the recurrences have
+no backward kernel yet and raise under autograd on the card (ROADMAP B),
+so RWKV-6 and Griffin train on the CPU only.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ class Model:
     cfg: ArchConfig
     defs: Any
     init: Callable
+    loss_fn: Callable
     make_cache_defs: Callable
     init_cache: Callable
     prefill_fn: Callable
@@ -82,12 +94,64 @@ def _layer(stacked, i: int):
     return tree_map(lambda a: a[i], stacked)
 
 
-def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone) -> Model:
+class _Unstacked:
+    """A stacked leaf cut into its layers once: ``[i]`` gives layer ``i``
+    as ``unbind`` made it.  Indexing the stacked tensor per layer instead
+    would give each layer's gradient the stacked shape, zeros but for its
+    slice, and the backward would add them all up."""
+
+    def __init__(self, t: torch.Tensor):
+        self.layers = t.unbind(0)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.layers[i]
+
+
+def _xent(logits, targets, mask):
+    lz = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(lz, -1, targets[..., None])[..., 0]
+    n = torch.clamp(mask.sum(), min=1)
+    return -(ll * mask).sum() / n
+
+
+def _lm_loss(logits, tokens):
+    """next-token CE: logits[:, :-1] predicts tokens[:, 1:]."""
+    targets = tokens[:, 1:].long()
+    return _xent(logits[:, :-1], targets, torch.ones_like(targets))
+
+
+def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
+        stacked: tuple[str, ...], aux_loss: bool = False) -> Model:
     """A Model over ``backbone(params, x, ctx, cache) -> x``: the embedding
-    in front, the final norm and the last position's logits behind, and
-    prefill (positions from 0) and decode (positions from ``t``)."""
+    in front, the final norm and the logits behind; prefill (positions
+    from 0) and decode (positions from ``t``) give the last position's
+    logits, ``loss_fn`` the next-token loss over all of them.
+    ``stacked`` names the top-level subtrees whose leaves stack the
+    layers; ``aux_loss`` adds ``repro``'s dense ``aux_loss`` metric."""
     def init(generator: torch.Generator, device=None):
         return init_params(defs, generator, device)
+
+    def loss_fn(params, batch, *, impl="auto", rules=None):
+        if rules is not None:
+            raise NotImplementedError(
+                "sharding rules wait for parallelism (ROADMAP A8)")
+        tokens = batch["tokens"]
+        Bz, S = tokens.shape
+        if torch.is_grad_enabled():
+            params = {k: tree_map(_Unstacked, v) if k in stacked else v
+                      for k, v in params.items()}
+        pos = torch.arange(S, device=tokens.device)[None].expand(Bz, S)
+        ctx = Ctx(cfg=cfg, impl=impl, positions=pos, rules=rules)
+        x = embed_apply(params["embed"], tokens, cfg)
+        x = backbone(params, x, ctx, None)
+        logits = logits_apply(params["embed"], rms_norm(x, params["ln_f"]),
+                              cfg)
+        loss = _lm_loss(logits, tokens)
+        metrics = {"loss": loss, "lm_loss": loss}
+        if aux_loss:
+            metrics["aux_loss"] = torch.zeros((), dtype=torch.float32,
+                                              device=tokens.device)
+        return loss, metrics
 
     def init_cache(bsz, smax, device=None):
         return tree_map(
@@ -130,7 +194,7 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone) -> Model:
         return _fwd_cached(params, cache, tokens, t,
                            impl=impl, rules=rules, decode=True)
 
-    return Model(cfg, defs, init, make_cache_defs, init_cache,
+    return Model(cfg, defs, init, loss_fn, make_cache_defs, init_cache,
                  prefill_fn, decode_fn)
 
 
@@ -154,7 +218,8 @@ def build_decoder_lm(cfg: ArchConfig) -> Model:
     def make_cache_defs(bsz, smax):
         return {"dense": _kv_cache_defs(cfg, n_layers, bsz, smax)}
 
-    return _lm(cfg, defs, make_cache_defs, backbone)
+    return _lm(cfg, defs, make_cache_defs, backbone, stacked=("dense",),
+               aux_loss=True)
 
 
 # ----------------------------------------------------------------- RWKV-6 LM
@@ -187,7 +252,7 @@ def build_rwkv_lm(cfg: ArchConfig) -> Model:
                             init="zeros", dtype=torch.float32),
         }
 
-    return _lm(cfg, defs, make_cache_defs, backbone)
+    return _lm(cfg, defs, make_cache_defs, backbone, stacked=("blocks",))
 
 
 # ----------------------------------------------------------------- Griffin
@@ -253,7 +318,7 @@ def build_griffin_lm(cfg: ArchConfig) -> Model:
                      else {"k": kv, "v": kv} for b in tail_pattern],
         }
 
-    return _lm(cfg, defs, make_cache_defs, backbone)
+    return _lm(cfg, defs, make_cache_defs, backbone, stacked=("groups",))
 
 
 def build_model(cfg: ArchConfig) -> Model:

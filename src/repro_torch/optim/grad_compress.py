@@ -1,0 +1,55 @@
+"""Error-feedback int8 gradient compression: the counterpart of
+``repro.optim.grad_compress``.
+
+``quantize``/``dequantize`` (symmetric per-tensor int8 with one f32
+scale), ``ef_compress`` (g' = Q(g + err), err' = (g + err) - g') and
+``init_error``: the same codes and scales as ``repro`` on the same input
+(``torch.round`` rounds half to even, as ``jnp.round`` does).
+``compressed_psum``, the collective that sums the codes across devices,
+waits for parallelism (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.params import (
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
+
+f32 = torch.float32
+
+
+def quantize(x: torch.Tensor, *, bits: int = 8):
+    """Symmetric per-tensor int quantization; returns ``(q, scale)``."""
+    lim = float(2 ** (bits - 1) - 1)
+    xf = x.to(f32)
+    amax = torch.max(torch.abs(xf))
+    scale = torch.clamp(amax, min=1e-12) / lim
+    q = torch.clamp(torch.round(xf / scale), -lim, lim).to(torch.int8)
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(f32) * scale
+
+
+def ef_compress(grads, err):
+    """Error feedback over a tree: returns ``(grads', err')``, each leaf of
+    ``grads'`` in its gradient's dtype, ``err'`` in f32."""
+    g_leaves, treedef = tree_flatten(grads)
+    out_g, out_e = [], []
+    for g, e in zip(g_leaves, tree_leaves(err)):
+        ge = g.to(f32) + e
+        deq = dequantize(*quantize(ge))
+        out_g.append(deq.to(g.dtype))
+        out_e.append(ge - deq)
+    return tree_unflatten(treedef, out_g), tree_unflatten(treedef, out_e)
+
+
+def init_error(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
+                                          device=p.device), params)

@@ -1,8 +1,10 @@
-"""Serving runtime of the port: the budgeted arena pool and the fault DSL.
+"""Runtime of the port: the budgeted arena pool, the fault DSL and the
+fault-tolerant training loop.
 
-Copies of ``repro.runtime.pool`` and ``repro.runtime.chaos`` (neither
-imports JAX).  ``fleet``, ``loadgen`` and ``fault`` wait for a later slice
-(ROADMAP A4).
+Copies of ``repro.runtime.pool``, ``repro.runtime.chaos`` and
+``repro.runtime.fault`` (none imports JAX; ``fault`` checkpoints through
+``repro_torch.checkpoint``).  ``fleet`` and ``loadgen`` wait for a later
+slice (ROADMAP A4).
 """
 
 from repro_torch.runtime.chaos import (
@@ -12,6 +14,7 @@ from repro_torch.runtime.chaos import (
     TransientExecutorError,
     seeded_corpus,
 )
+from repro_torch.runtime.fault import FaultTolerantLoop, StepTimer
 from repro_torch.runtime.pool import (
     ArenaPool,
     Lease,
@@ -29,6 +32,7 @@ __all__ = [
     "ChaosController",
     "FaultPlan",
     "FaultSpec",
+    "FaultTolerantLoop",
     "Lease",
     "LeaseError",
     "PoolError",
@@ -36,6 +40,7 @@ __all__ = [
     "PreemptionStats",
     "ScratchReservation",
     "SpilledLease",
+    "StepTimer",
     "Ticket",
     "TransientExecutorError",
     "seeded_corpus",

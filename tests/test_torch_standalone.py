@@ -3,8 +3,11 @@
 A subprocess with ``jax`` and ``networkx`` made unimportable imports the
 port, plans a cell and executes it on the CPU, then builds the smoke
 ``llama3.2-1b`` and serves one request through the decode-arena server on
-the CPU; a scan of the port's sources and of ``chip_smoke.py`` finds no
-import of ``jax`` or of ``repro``.
+the CPU; another, with ``jax`` and ``ml_dtypes`` made unimportable, imports
+the training modules (``repro_torch.optim``, ``data``, ``checkpoint``,
+``launch.train``), round-trips a bf16 checkpoint and takes a train step of
+the smoke ``llama3.2-1b`` on the CPU; a scan of the port's sources and of
+``chip_smoke.py`` finds no import of ``jax``, ``ml_dtypes`` or ``repro``.
 """
 
 import ast
@@ -59,6 +62,49 @@ def test_imports_plans_and_executes_without_jax_or_networkx():
     assert out.stdout.split() == ["ok", "1277952"]
 
 
+_TRAIN_CHILD = """
+import sys, tempfile
+sys.modules["jax"] = None
+sys.modules["ml_dtypes"] = None
+import torch
+import repro_torch.checkpoint as ckpt
+import repro_torch.configs as configs
+import repro_torch.data
+import repro_torch.optim
+from repro_torch.launch import train
+from repro_torch.launch.steps import make_optimizer, make_train_step
+from repro_torch.models import build_model
+d = tempfile.mkdtemp()
+st = {"w": torch.arange(5, dtype=torch.bfloat16), "s": torch.tensor(3)}
+ckpt.save(d, 1, st)
+back = ckpt.restore(d, 1, {"w": torch.zeros(5, dtype=torch.bfloat16),
+                           "s": torch.tensor(0)})
+assert torch.equal(back["w"], st["w"]) and int(back["s"]) == 3
+model = build_model(configs.smoke("llama3.2-1b"))
+opt = make_optimizer(model.cfg)
+params = model.init(torch.Generator().manual_seed(0), "cpu")
+state = {"params": params, "opt": opt.init(params)}
+pipe = repro_torch.data.DataPipeline(cfg=model.cfg, seq_len=8,
+                                     global_batch=2)
+batch = {"tokens": torch.from_numpy(pipe.batch_at(0)["tokens"])}
+state, m = make_train_step(model, opt, warmup=1)(state, batch)
+assert torch.isfinite(m["loss"]) and int(state["opt"]["step"]) == 1
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_trains_and_checkpoints_without_jax_or_ml_dtypes():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _TRAIN_CHILD], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok"]
+
+
 def _imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -74,4 +120,5 @@ def _imported_roots(path: Path) -> set[str]:
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_repro(path):
     roots = _imported_roots(path)
-    assert not roots & {"jax", "jaxlib", "repro", "networkx"}, roots
+    assert not roots & {"jax", "jaxlib", "ml_dtypes", "repro",
+                        "networkx"}, roots

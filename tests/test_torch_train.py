@@ -1,0 +1,435 @@
+"""The port's training path against ``repro``'s, on the CPU, and its
+attention gradient.
+
+Inputs (weights, tokens, attention tensors) are made in ``repro`` or with
+numpy from a seed and handed to both packages; every comparison is in f32:
+
+  * ``loss_fn`` of the three smoke families (``llama3.2-1b``, ``rwkv6-7b``,
+    ``recurrentgemma-2b``; the recurrent mixing leaves filled by
+    ``live_leaves`` as in ``test_torch_recurrent_models.py``, the Griffin
+    sequence longer than its window) against ``repro``'s
+    ``loss_fn(impl="xla")``: the loss within 1e-5, every gradient leaf
+    against ``jax.grad`` within 1e-4 of the leaf's largest gradient (sums
+    in another order);
+  * 3 train steps of the smoke ``llama3.2-1b`` against ``repro``'s jitted
+    ``make_train_step`` from one state (the optimizer state carried across
+    by ``params_from_numpy`` over ``opt.state_defs``) and one batch
+    sequence: loss and ``grad_norm`` each step within 1e-4 relative, the
+    final parameters within 1e-4;
+  * a run of the CLI's loop checkpointed at step 2 and replayed from that
+    checkpoint ends in bit-equal parameters and optimizer state;
+  * ``python -m repro_torch.launch.train --smoke --device cpu --steps 4``
+    runs and logs finite losses;
+  * ``flash_attention_backward_torch`` (the backward kernel's plain
+    version) against autograd of ``attention_ref`` and of ``_flash_torch``
+    and against ``jax.grad`` of ``repro``'s ``_flash_xla`` (S 17 and 64, G
+    1 and 4; 1e-5);
+  * no kernel wrapper drops a gradient: with the wrappers' device test
+    (``kernels._grad.on_card``) made to answer "on the card" and each
+    kernel entry replaced by its plain version run without autograd (as a
+    ctypes launch is), every ``impl="cuda"`` op given an input that
+    requires a gradient either returns an output with a ``grad_fn`` (the
+    flash attention's ``FlashAttentionFn``, whose gradient then equals
+    autograd's of the plain forward) or raises ``NotImplementedError``
+    (the recurrences, the arena ops), and a training form the backward
+    does not take raises too.
+
+The card's tests of the same path are in ``test_torch_train_card.py``,
+which imports no JAX (the card's machine has none).
+"""
+
+import functools
+import math
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import repro.configs as jconfigs  # noqa: E402
+from repro.kernels.flash_attention.ops import _flash_xla  # noqa: E402
+from repro.launch.steps import make_optimizer as jmake_optimizer  # noqa: E402
+from repro.launch.steps import make_train_step as jmake_train_step  # noqa: E402
+from repro.models.zoo import build_model as jax_build  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
+from repro_torch.kernels import _grad  # noqa: E402
+from repro_torch.kernels.arena import ops as arena_ops  # noqa: E402
+from repro_torch.kernels.arena.ref import (  # noqa: E402
+    arena_accum_torch,
+    arena_chain_write_torch,
+    arena_read_torch,
+    arena_write_torch,
+)
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    FlashAttentionFn,
+    _flash_torch,
+    flash_attention,
+    flash_attention_backward_torch,
+)
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
+from repro_torch.kernels.rglru.ref import rglru_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as rwkv6_ops  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.launch.steps import make_optimizer, make_train_step  # noqa: E402
+from repro_torch.models.params import (  # noqa: E402
+    params_from_numpy,
+    tree_leaves,
+    tree_map,
+)
+from repro_torch.models.zoo import build_model  # noqa: E402
+
+from test_torch_recurrent_models import live_leaves  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
+SEQ = {"llama3.2-1b": 16, "rwkv6-7b": 12, "recurrentgemma-2b": 24}
+f32 = jnp.float32
+
+
+def _np32(tree):
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def _tokens(seed, B, S, V):
+    return np.random.default_rng(seed).integers(0, V, (B, S)).astype(
+        np.int32)
+
+
+# ---------------------------------------------------------------- loss_fn
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def loss_pair(request):
+    arch = request.param
+    jm = jax_build(jconfigs.smoke(arch))
+    tm = build_model(tconfigs.smoke(arch))
+    init = jm.init(jax.random.PRNGKey(0))
+    jp = init if arch == "llama3.2-1b" else live_leaves(arch, init)
+    jp = jax.tree.map(lambda a: a.astype(f32), jp)
+    tp = tree_map(lambda t: t.float(),
+                  params_from_numpy(tm.defs, _np32(jp), "cpu"))
+    tokens = _tokens(5, 2, SEQ[arch], tm.cfg.vocab_size)
+    jloss = lambda p: jm.loss_fn(p, {"tokens": jnp.asarray(tokens)},
+                                 impl="xla")
+    (jl, jmet), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
+    leaves = tree_leaves(tp)
+    for p in leaves:
+        p.requires_grad_(True)
+    tl, tmet = tm.loss_fn(tp, {"tokens": torch.from_numpy(tokens)})
+    tg = torch.autograd.grad(tl, leaves)
+    return arch, (jl, jmet, jg), (tl, tmet, tg)
+
+
+def test_loss_matches_repro(loss_pair):
+    arch, (jl, jmet, _), (tl, tmet, _) = loss_pair
+    assert tl.dtype == torch.float32 and tl.shape == ()
+    assert set(tmet) == set(jmet)
+    assert abs(float(tl.detach()) - float(jl)) <= 1e-5
+    for k in jmet:
+        assert abs(float(tmet[k].detach()) - float(jmet[k])) <= 1e-5, k
+
+
+def test_grads_match_repro(loss_pair):
+    arch, (_, _, jg), (_, _, tg) = loss_pair
+    jl = jax.tree.leaves(jg)
+    assert len(jl) == len(tg)
+    for a, b in zip(jl, tg):
+        a = np.asarray(a)
+        assert b.shape == a.shape
+        scale = max(float(np.abs(a).max()), 1e-12)
+        err = float(np.abs(b.numpy() - a).max()) / scale
+        assert err <= 1e-4, (arch, a.shape, err)
+    # the gradient is not all zero: the check has teeth
+    assert max(float(np.abs(np.asarray(a)).max()) for a in jl) > 1e-3
+
+
+def test_loss_needs_no_grad_to_run():
+    tm = build_model(tconfigs.smoke("llama3.2-1b"))
+    tp = tm.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(_tokens(1, 2, 8, 512))
+    with torch.no_grad():
+        loss, met = tm.loss_fn(tp, {"tokens": tokens})
+    assert loss.grad_fn is None and torch.isfinite(loss)
+    assert float(met["aux_loss"]) == 0.0
+    with pytest.raises(NotImplementedError, match="A8"):
+        tm.loss_fn(tp, {"tokens": tokens}, rules=object())
+
+
+# ---------------------------------------------------------------- train step
+
+
+def test_three_train_steps_match_repro():
+    arch = "llama3.2-1b"
+    kw = dict(peak_lr=1e-2, warmup=1, total_steps=10, grad_clip=1.0)
+    jm = jax_build(jconfigs.smoke(arch))
+    tm = build_model(tconfigs.smoke(arch))
+    jopt = jmake_optimizer(jm.cfg, lr=1e-2)
+    topt = make_optimizer(tm.cfg, lr=1e-2)
+    jp = jax.tree.map(lambda a: a.astype(f32), jm.init(jax.random.PRNGKey(1)))
+    jstate = {"params": jp, "opt": jopt.init(jp)}
+    tstate = {
+        "params": tree_map(lambda t: t.float(),
+                           params_from_numpy(tm.defs, _np32(jp), "cpu")),
+        "opt": params_from_numpy(topt.state_defs(tm.defs),
+                                 jax.tree.map(np.asarray, jstate["opt"]),
+                                 "cpu"),
+    }
+    assert tstate["opt"]["step"].dtype == torch.int32
+    jstep = jax.jit(jmake_train_step(jm, jopt, None, impl="xla", **kw))
+    tstep = make_train_step(tm, topt, None, **kw)
+    for s in range(3):
+        tokens = _tokens(10 + s, 2, 16, 512)
+        jstate, jmet = jstep(jstate, {"tokens": jnp.asarray(tokens)})
+        tstate, tmet = tstep(tstate, {"tokens": torch.from_numpy(tokens)})
+        for k in ("loss", "lm_loss", "grad_norm", "lr"):
+            assert tmet[k].shape == () and tmet[k].grad_fn is None
+            np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                       rtol=1e-4, err_msg=f"{k} step {s}")
+    assert int(tstate["opt"]["step"]) == 3
+    for a, b in zip(jax.tree.leaves(jstate["params"]),
+                    tree_leaves(tstate["params"])):
+        np.testing.assert_allclose(b.detach().numpy(), np.asarray(a),
+                                   rtol=0, atol=1e-4)
+    # the steps moved the parameters
+    moved = max(float(np.abs(np.asarray(a) - b).max()) for a, b in zip(
+        jax.tree.leaves(jstate["params"]), jax.tree.leaves(_np32(jp))))
+    assert moved > 1e-3
+
+
+def test_train_step_rejects_rules():
+    tm = build_model(tconfigs.smoke("llama3.2-1b"))
+    with pytest.raises(NotImplementedError, match="A8"):
+        make_train_step(tm, make_optimizer(tm.cfg), rules=object())
+
+
+def _cli(ckpt_dir, steps, every):
+    return ttrain.main(["--smoke", "--device", "cpu", "--steps", str(steps),
+                        "--batch", "2", "--seq", "16", "--ckpt-every",
+                        str(every), "--ckpt-dir", str(ckpt_dir),
+                        "--log-every", "1", "--seed", "3"])
+
+
+def test_checkpoint_replay_bit_equal(tmp_path):
+    straight = _cli(tmp_path / "a", 4, 2)
+    assert straight["start"] == 0 and straight["end_step"] == 4
+    assert all(math.isfinite(x) for x in straight["losses"])
+    # resume from the step-2 checkpoint alone and replay steps 3 and 4
+    (tmp_path / "b").mkdir()
+    shutil.copytree(tmp_path / "a" / "step_0000000002",
+                    tmp_path / "b" / "step_0000000002")
+    replay = _cli(tmp_path / "b", 4, 2)
+    assert replay["start"] == 2 and replay["end_step"] == 4
+    assert replay["losses"] == straight["losses"][2:]
+    for a, b in zip(tree_leaves(straight["state"]),
+                    tree_leaves(replay["state"])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_cli_runs_on_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--device", "cpu", "--steps", "4", "--log-every", "1",
+         "--ckpt-dir", str(tmp_path / "ck")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    losses = [float(ln.split("loss=")[1].split()[0])
+              for ln in out.stderr.splitlines() if "loss=" in ln]
+    assert len(losses) == 4 and all(math.isfinite(x) for x in losses)
+    assert "done at step 4" in out.stderr
+
+
+def test_cli_rejects_a_mesh(tmp_path):
+    with pytest.raises(NotImplementedError, match="A8"):
+        ttrain.main(["--smoke", "--device", "cpu", "--mesh", "single",
+                     "--ckpt-dir", str(tmp_path)])
+
+
+# ---------------------------------------------------------------- attention
+
+
+def _attn_inputs(seed, B, S, H, KV, D, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(dtype) for s in
+            ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D))]
+
+
+@pytest.mark.parametrize("S", [17, 64])
+@pytest.mark.parametrize("G", [1, 4])
+def test_backward_plain_matches_autograd_and_jax(S, G):
+    KV, D = 2, 16
+    qn, kn, vn, don = _attn_inputs(S + G, 2, S, KV * G, KV, D)
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in (qn, kn, vn))
+    do = torch.from_numpy(don)
+    o = attention_ref(q, k, v, causal=True)
+    got = flash_attention_backward_torch(q.detach(), k.detach(), v.detach(),
+                                         o.detach(), do)
+    wants = {
+        "attention_ref": torch.autograd.grad(o, (q, k, v), do),
+        "_flash_torch": torch.autograd.grad(
+            _flash_torch(q, k, v, causal=True, window=None, q_start=0,
+                         kv_len=None, softmax_scale=None, kv_chunk=8),
+            (q, k, v), do),
+    }
+    fx = functools.partial(_flash_xla, causal=True, window=None, q_start=0,
+                           kv_len=None, softmax_scale=None, kv_chunk=8,
+                           skip_masked_blocks=False)
+    _, vjp = jax.vjp(fx, jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+    wants["_flash_xla"] = [torch.from_numpy(np.array(a))
+                           for a in vjp(jnp.asarray(don))]
+    for name, want in wants.items():
+        for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+            assert g.dtype == torch.float32 and g.shape == w.shape
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5,
+                                       msg=f"{what} vs {name}")
+
+
+def test_function_on_cpu_matches_autograd(on_card):
+    # the Function is the card's; on CPU tensors, with its kernel entries
+    # the plain versions (the on_card fixture), it computes autograd's
+    # gradient of the plain forward
+    qn, kn, vn, don = _attn_inputs(3, 2, 24, 8, 2, 16)
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in (qn, kn, vn))
+    do = torch.from_numpy(don)
+    o = FlashAttentionFn.apply(q, k, v, None)
+    assert o.grad_fn is not None
+    got = torch.autograd.grad(o, (q, k, v), do)
+    ref = attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(o, ref, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got, torch.autograd.grad(ref, (q, k, v), do)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- no dropped
+# gradient: every impl="cuda" op, its device test answering "on the card"
+# and its kernel entries the plain versions run without autograd, as a
+# ctypes launch is
+
+
+def _detached(fn):
+    def run(*a, **kw):
+        with torch.no_grad():
+            return fn(*a, **kw)
+    return run
+
+
+@pytest.fixture
+def on_card(monkeypatch):
+    monkeypatch.setattr(_grad, "on_card", lambda t: True)
+    fk = fa_ops._kernel
+
+    def fwd(q, k, v, *, causal, window, q_start, kv_len, softmax_scale):
+        return _flash_torch(q, k, v, causal=causal, window=window,
+                            q_start=q_start, kv_len=kv_len,
+                            softmax_scale=softmax_scale, kv_chunk=8)
+
+    monkeypatch.setattr(fk, "flash_attention_cuda", _detached(fwd))
+    monkeypatch.setattr(fk, "flash_backward_cuda",
+                        _detached(flash_attention_backward_torch))
+    monkeypatch.setattr(rwkv6_ops._kernel, "wkv6_cuda", _detached(
+        lambda r, k, v, w, u, *, initial_state, state_out:
+        wkv6_ref(r, k, v, w, u, initial_state, state_out)))
+    monkeypatch.setattr(rglru_ops._kernel, "rglru_cuda", _detached(
+        lambda la, gx, h0, *, state_out: rglru_ref(la, gx, h0, state_out)))
+    ak = arena_ops._kernel
+    for name, fn in (("write", arena_write_torch), ("read", arena_read_torch),
+                     ("accum", arena_accum_torch),
+                     ("chain_write", arena_chain_write_torch)):
+        monkeypatch.setattr(ak, f"arena_{name}_cuda", _detached(fn))
+
+
+def _leaf(*shape, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=g).requires_grad_(True)
+
+
+def test_mock_flash_cuda_has_grad_fn(on_card):
+    q, k, v = _leaf(1, 20, 4, 16), _leaf(1, 20, 2, 16, seed=1), \
+        _leaf(1, 20, 2, 16, seed=2)
+    for impl in ("cuda", "auto"):
+        o = flash_attention(q, k, v, causal=True, impl=impl)
+        assert o.grad_fn is not None, impl
+        got = torch.autograd.grad(o.sum(), (q, k, v))
+        want = torch.autograd.grad(attention_ref(q, k, v).sum(), (q, k, v))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    # without autograd, the kernel's own launch (no grad_fn, no Function)
+    with torch.no_grad():
+        assert flash_attention(q, k, v, impl="cuda").grad_fn is None
+
+
+@pytest.mark.parametrize("kw", [
+    dict(window=4), dict(causal=False), dict(q_start=3),
+    dict(kv_len=10), dict(q_start=torch.tensor(0))])
+def test_mock_flash_cuda_raises_off_the_training_form(on_card, kw):
+    q, k, v = _leaf(1, 20, 4, 16), _leaf(1, 20, 2, 16), _leaf(1, 20, 2, 16)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, k, v, **{"causal": True, **kw}, impl="cuda")
+
+
+def test_mock_flash_cuda_raises_for_unported_head_dims(on_card,
+                                                       monkeypatch):
+    # the card's kernel takes (64, 64) only: a (16, 16) call on the card
+    # raises before its forward runs
+    q, k, v = _leaf(1, 20, 4, 16), _leaf(1, 20, 2, 16), _leaf(1, 20, 2, 16)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    with pytest.raises(NotImplementedError, match=r"\(64, 64\)"):
+        fa_ops._kernel.check_backward(q, k, v)
+
+
+def test_mock_recurrences_cuda_raise(on_card):
+    B, T, H, N = 1, 5, 2, 8
+    r, k, v = (_leaf(B, T, H, N, seed=i) for i in range(3))
+    w = torch.rand(B, T, H, N).requires_grad_(True)
+    u = _leaf(H, N, seed=4)
+    with pytest.raises(NotImplementedError, match="WKV-6 backward"):
+        rwkv6_ops.wkv6(r, k, v, w, u, impl="cuda")
+    la = -torch.rand(B, T, 6)
+    gx = _leaf(B, T, 6)
+    with pytest.raises(NotImplementedError, match="RG-LRU backward"):
+        rglru_ops.rglru(la, gx, impl="cuda")
+    # without autograd the (mock) kernel runs as before
+    with torch.no_grad():
+        assert rwkv6_ops.wkv6(r, k, v, w, u, impl="cuda")[0].grad_fn is None
+        assert rglru_ops.rglru(la, gx, impl="cuda")[0].grad_fn is None
+
+
+def test_mock_arena_cuda_raise(on_card):
+    arena = torch.zeros(64)
+    x = _leaf(8)
+    for fn in (arena_ops.arena_write, arena_ops.arena_accum,
+               arena_ops.arena_chain_write):
+        with pytest.raises(NotImplementedError, match="backward"):
+            fn(arena, x, 4, impl="cuda")
+    with pytest.raises(NotImplementedError, match="backward"):
+        arena_ops.arena_read(arena.clone().requires_grad_(True), 4, 8,
+                             impl="cuda")
+    out = arena_ops.arena_write(arena, x.detach(), 4, impl="cuda")
+    assert torch.equal(out[4:12], x.detach())
+
+
+def test_recurrent_loss_trains_on_cpu():
+    # on the CPU the recurrent families have gradients (the plain
+    # versions under autograd); on the card their loss raises instead
+    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+        tm = build_model(tconfigs.smoke(arch))
+        tp = tm.init(torch.Generator().manual_seed(0), "cpu")
+        for p in tree_leaves(tp):
+            p.requires_grad_(True)
+        loss, _ = tm.loss_fn(tp, {"tokens": torch.from_numpy(
+            _tokens(2, 1, 8, tm.cfg.vocab_size))})
+        assert loss.grad_fn is not None

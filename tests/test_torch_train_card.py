@@ -1,0 +1,100 @@
+"""The port's training path on the card (marked ``cuda``; skipped without
+one): ``python -m pytest -m cuda tests/test_torch_train_card.py``.  It
+imports no JAX, which the card's machine does not have; the CPU tests of
+the same path against ``repro`` are in ``test_torch_train.py``.
+
+  * the backward kernel (``kernel.flash_backward_cuda``) against its plain
+    version ``flash_attention_backward_torch`` on the same inputs, f32 and
+    bf16, at S 17, 200 and 256 (G 4, D 64): f32 within 1e-4 of each
+    gradient's largest magnitude (sums in another order), bf16 within 4
+    ulps of it (both round one f32 sum to bf16);
+  * ``FlashAttentionFn`` (what ``flash_attention`` takes under autograd on
+    the card) against autograd of the plain forward, in f32;
+  * ``wkv6`` and ``rglru`` raise ``NotImplementedError`` under autograd on
+    the card, and the recurrent families' ``loss_fn`` with them.
+"""
+
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch.configs as tconfigs  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention,
+    flash_attention_backward_torch,
+)
+from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as rwkv6_ops  # noqa: E402
+from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.models.zoo import build_model  # noqa: E402
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _card_inputs(card, dtype, B, S, H, KV, D=64, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(*s, generator=g, device=card).to(dtype)
+            for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D),
+                      (B, S, H, D))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [17, 200, 256])
+def test_backward_kernel_matches_plain_on_card(card, dtype, S):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    dt = getattr(torch, dtype)
+    q, k, v, do = _card_inputs(card, dt, 2, S, 8, 2)
+    o = flash_attention(q, k, v, causal=True)
+    got = fk.flash_backward_cuda(q, k, v, o, do)
+    want = flash_attention_backward_torch(q, k, v, o, do)
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        tol = 1e-4 * scale if dt == torch.float32 else \
+            4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+        assert float((g.float() - w.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_function_grads_match_plain_on_card(card):
+    q, k, v, do = (t.requires_grad_(i < 3) for i, t in
+                   enumerate(_card_inputs(card, torch.float32, 2, 64, 8, 2)))
+    o = flash_attention(q, k, v, causal=True)
+    assert o.grad_fn is not None
+    got = torch.autograd.grad(o, (q, k, v), do)
+    ref = flash_attention(q, k, v, causal=True, impl="torch")
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_recurrences_raise_under_grad_on_card(card):
+    r, k, v = (torch.randn(1, 4, 2, 16, device=card, requires_grad=True)
+               for _ in range(3))
+    w = torch.rand(1, 4, 2, 16, device=card)
+    u = torch.randn(2, 16, device=card)
+    with pytest.raises(NotImplementedError):
+        rwkv6_ops.wkv6(r, k, v, w, u)
+    gx = torch.randn(1, 4, 32, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        rglru_ops.rglru(-torch.rand(1, 4, 32, device=card), gx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+def test_recurrent_loss_raises_under_grad_on_card(card, arch):
+    tm = build_model(tconfigs.smoke(arch))
+    params = tm.init(torch.Generator(device=card).manual_seed(0), card)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    tokens = torch.zeros((1, 8), dtype=torch.long, device=card)
+    with pytest.raises(NotImplementedError, match="backward"):
+        tm.loss_fn(params, {"tokens": tokens})
