@@ -10,12 +10,13 @@ non-zero):
 
 1. build   -- compile ``src/repro_torch/csrc/arena.cu``,
               ``flash_attention.cu``, ``flash_decode.cu``,
-              ``flash_prefill_sm90.cu``, ``flash_backward.cu``, ``wkv6.cu``
-              and ``rglru.cu`` (nvcc, sm_90a, all seven started together) and print the build
-              seconds of each, the registers, shared memory and spills
-              (``-Xptxas -v``) of the arena kernels (accum among them), the
-              WKV-6 and RG-LRU kernels and the two newer flash kernels, the
-              card's name and power limit;
+              ``flash_prefill_sm90.cu``, ``flash_backward.cu``,
+              ``flash_backward_sm90.cu``, ``wkv6.cu`` and ``rglru.cu``
+              (nvcc, sm_90a, all eight started together) and print the
+              build seconds of each, the registers, shared memory and
+              spills (``-Xptxas -v``) of the arena kernels (accum among
+              them), the WKV-6 and RG-LRU kernels and the four newer flash
+              kernels, the card's name and power limit;
 2. kernels -- hold each arena kernel against its plain PyTorch version on
               the card.  write and read (one vectorised byte copy split by
               ``copy_plan``), f32 and u8: every destination phase x source
@@ -186,33 +187,42 @@ non-zero):
               llama3.2-1b's heads (H 32, KV 8, D 64) with B 8 x S 256 and
               the ragged S 200 and 17, bf16 and f32, the forward kernel's
               output against ``_flash_torch`` and ``attention_ref`` (the
-              flash tolerance) and the flash backward kernel against its
-              plain version (``flash_attention_backward_torch``; f32
+              flash tolerance) and both flash backward kernels against
+              their plain version (``flash_attention_backward_torch``; f32
               within 1e-4 of each gradient's largest magnitude, bf16
-              within 4 ulps of it), and ``FlashAttentionFn`` against
+              within 4 ulps of it): the tensor-core kernel
+              (``flash_backward_sm90.cu``, the bf16 route) in bf16, the
+              CUDA-core kernel (``flash_backward.cu``, the f32 route) in
+              both; the tensor-core kernel against the CUDA-core one in
+              bf16 (the readings printed) and two runs of it bit-equal;
+              and ``FlashAttentionFn`` against
               autograd of the plain forward (f32 at (2, 200), bf16 at
               (8, 256), the prefill route); the full-width llama3.2-1b
               gradient through the kernels against the plain versions',
               leaf by leaf and layer by layer (relative L2 within 3e-2),
               and a deliberately broken backward reading above that; one
               full-width train step through the kernels
-              (impl="auto": the ``wgmma`` prefill forward, the backward
-              kernel) against the same step through the plain versions
+              (impl="auto": the ``wgmma`` prefill forward, the tensor-core
+              backward) against the same step through the plain versions
               (loss and grad_norm within the bf16 logit tolerance), with
-              16 launches of each flash kernel; the step's ms (host clock,
+              16 launches of each flash kernel, the backward's all on the
+              tensor-core route; the step's ms (host clock,
               ending in ``synchronize``), tokens/s, model FLOPs' share of
               989 TFLOP/s, device busy time and idle share, peak memory;
               ``launch/train.py``'s ``main`` in process for 7 steps at the
               CLI's defaults (batch 8, seq 256, AdamW, bf16) with a
               checkpoint at step 4, its launches counted from 0 (16 x 7 of
-              each flash kernel), every loss finite, and a second run
+              each flash kernel, the backward's 112 on the tensor-core
+              route), every loss finite, and a second run
               resumed from that checkpoint alone, whose parameters and
               optimizer state end bit-equal to the first's (both under
               ``torch.use_deterministic_algorithms(True)``); rwkv6-7b's
               and Griffin's ``loss_fn`` raising under autograd on the card
               (no backward kernel yet); and the flash forward and backward
               at the step's shape against their bounds, their plain
-              versions and SDPA's forward and backward.
+              versions and SDPA's forward and backward, the two backward
+              kernels timed in turns (CUDA-core, tensor-core, tensor-core,
+              CUDA-core).
 
 The kernels JSON (one entry per kernel) is printed third from last, the
 card's name and power limit second from last, and ``{"ok": true,
@@ -1376,6 +1386,14 @@ def all_launches() -> dict:
         out.update(importlib.import_module(f"repro_torch.kernels.{m}")
                    .LAUNCHES)
     return out
+
+
+def backward_routes() -> dict:
+    """The flash backward's calls by kernel since the counts were last set
+    to 0 (``reset_all``): the tensor-core kernel's and the CUDA-core
+    one's."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    return dict(FK.BACKWARD_ROUTES)
 
 
 def path_launches(cfg, n_cache: int, n_req: int = N_REQ,
@@ -2895,8 +2913,11 @@ def check_flash_backward(dev) -> dict:
     ``flash_attention_backward_torch``; then ``FlashAttentionFn`` (what
     ``flash_attention`` takes under autograd on the card) against autograd
     of the plain forward at (2, 200) in f32 (the simple kernel) and at the
-    train step's (8, 256) in bf16 (the prefill route).  Returns the worst
-    errors."""
+    train step's (8, 256) in bf16 (the prefill route).  bf16 runs both
+    backward kernels (the tensor-core one, bf16's route, and the CUDA-core
+    one) and holds them against each other and the tensor-core kernel's
+    second run bit-equal to its first (no atomics); f32 runs the CUDA-core
+    kernel, its route.  Returns the worst errors."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention,
@@ -2904,7 +2925,8 @@ def check_flash_backward(dev) -> dict:
     )
     worst = {"max_abs_err": 0.0, "bf16_ulps": 0.0, "f32_rel": 0.0,
              "forward": 0.0, "function_bf16_ulps": 0.0,
-             "function_f32_rel": 0.0}
+             "function_f32_rel": 0.0, "sm90_bf16_ulps": 0.0,
+             "simple_bf16_ulps": 0.0, "sm90_vs_simple_bf16_ulps": 0.0}
     for B, S in BWD_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + S)
@@ -2917,20 +2939,45 @@ def check_flash_backward(dev) -> dict:
                           f"{FK.pick_route(S, 4, dtype, 64, 64)}) vs {impl}: "
                           f"max abs err {e}")
                 worst["forward"] = max(worst["forward"], e)
-            got = FK.flash_backward_cuda(q, k, v, o, do)
-            torch.cuda.synchronize()
             want = flash_attention_backward_torch(q, k, v, o, do)
-            for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                check(g.dtype == w.dtype and g.shape == w.shape,
-                      f"flash_backward {name}: {g.dtype} {tuple(g.shape)}")
-                e = float((g.float() - w.float()).abs().max())
-                tol = bwd_tol(w, dtype)
-                check(e <= tol, f"flash_backward {name} (B {B}, S {S}, "
-                                f"{dtype}): max abs err {e} > {tol}")
-                worst["max_abs_err"] = max(worst["max_abs_err"], e)
-                key = "f32_rel" if dtype == torch.float32 else "bf16_ulps"
-                worst[key] = max(worst[key], e / tol * (
-                    BWD_RTOL32 if dtype == torch.float32 else BWD_ULPS16))
+            route = FK.pick_backward_route(dtype, 64, 64)
+            kernels = {route: FK.flash_backward_cuda}
+            if dtype == torch.bfloat16:
+                kernels["simple"] = FK.flash_backward_simple_cuda
+            got = {}
+            for kname, fn in kernels.items():
+                got[kname] = fn(q, k, v, o, do)
+                torch.cuda.synchronize()
+                for name, g, w in zip(("dq", "dk", "dv"), got[kname], want):
+                    check(g.dtype == w.dtype and g.shape == w.shape,
+                          f"flash_backward {name}: {g.dtype} "
+                          f"{tuple(g.shape)}")
+                    e = float((g.float() - w.float()).abs().max())
+                    tol = bwd_tol(w, dtype)
+                    check(e <= tol, f"flash_backward ({kname} kernel) "
+                                    f"{name} (B {B}, S {S}, {dtype}): max "
+                                    f"abs err {e} > {tol}")
+                    worst["max_abs_err"] = max(worst["max_abs_err"], e)
+                    key = "f32_rel" if dtype == torch.float32 \
+                        else "bf16_ulps"
+                    r = e / tol * (BWD_RTOL32 if dtype == torch.float32
+                                   else BWD_ULPS16)
+                    worst[key] = max(worst[key], r)
+                    if dtype == torch.bfloat16:
+                        worst[f"{kname}_bf16_ulps"] = max(
+                            worst[f"{kname}_bf16_ulps"], r)
+            if dtype == torch.bfloat16:
+                again = FK.flash_backward_sm90_cuda(q, k, v, o, do)
+                torch.cuda.synchronize()
+                for name, a, b, c in zip(("dq", "dk", "dv"), got["sm90"],
+                                         again, got["simple"]):
+                    check(torch.equal(a, b), f"flash_backward (sm90 kernel) "
+                                             f"{name} (B {B}, S {S}): two "
+                                             f"runs differ")
+                    e = float((a.float() - c.float()).abs().max())
+                    worst["sm90_vs_simple_bf16_ulps"] = max(
+                        worst["sm90_vs_simple_bf16_ulps"],
+                        e / bwd_tol(c, dtype) * BWD_ULPS16)
     for (B, S), dtype in (((2, 200), torch.float32),
                           ((TRAIN_BATCH, TRAIN_SEQ), torch.bfloat16)):
         q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + 1)
@@ -2958,9 +3005,13 @@ def check_flash_backward(dev) -> dict:
         f"and flash_backward vs flash_attention_backward_torch, (B, S) in "
         f"{BWD_CASES}, H 32, KV 8, D 64, bf16 and f32: o max abs err "
         f"{worst['forward']:.3e} (flash tolerance); gradients max abs err "
-        f"{worst['max_abs_err']:.3e}, f32 {worst['f32_rel']:.3e} of the "
-        f"largest gradient (tol {BWD_RTOL32}), bf16 {worst['bf16_ulps']:.2f} "
-        f"ulps of it (tol {BWD_ULPS16}); FlashAttentionFn vs autograd of "
+        f"{worst['max_abs_err']:.3e}, f32 (CUDA-core kernel) "
+        f"{worst['f32_rel']:.3e} of the largest gradient (tol {BWD_RTOL32}), "
+        f"bf16 {worst['bf16_ulps']:.2f} ulps of it (tol {BWD_ULPS16}): the "
+        f"tensor-core kernel {worst['sm90_bf16_ulps']:.2f}, the CUDA-core "
+        f"kernel {worst['simple_bf16_ulps']:.2f}, the two against each other "
+        f"{worst['sm90_vs_simple_bf16_ulps']:.2f}; the tensor-core kernel's "
+        f"two runs bit-equal; FlashAttentionFn vs autograd of "
         f"the plain forward: f32 (2, 200) {worst['function_f32_rel']:.3e} of "
         f"the largest gradient, bf16 ({TRAIN_BATCH}, {TRAIN_SEQ}) "
         f"{worst['function_bf16_ulps']:.2f} ulps of it")
@@ -3083,6 +3134,10 @@ def train_step_compare(dev, card):
     want = {"flash_prefill": cfg.n_layers, "flash_backward": cfg.n_layers}
     check(launches == want, f"one train step launched {launches}, the "
                             f"train path needs {want}")
+    routes = backward_routes()
+    want = {"sm90": cfg.n_layers, "simple": 0}
+    check(routes == want, f"one bf16 train step's backward launches by "
+                          f"kernel {routes}, the route gives {want}")
     plain = {"params": plain_params, "opt": opt.init(plain_params)}
     _, m_p = make_train_step(model, opt, impl="torch", **kw)(plain, batch)
     torch.cuda.synchronize()
@@ -3099,10 +3154,11 @@ def train_step_compare(dev, card):
     say(f"train: llama3.2-1b at full width ({n} parameters, bf16), batch "
         f"{TRAIN_BATCH} x seq {TRAIN_SEQ}: one step through the kernels "
         f"{got} vs through the plain versions {ref} (loss atol {TRAIN_ATOL}, "
-        f"grad_norm rtol {TRAIN_ATOL}); its launches {launches} [{card}]")
+        f"grad_norm rtol {TRAIN_ATOL}); its launches {launches}, the "
+        f"backward's by kernel {routes} [{card}]")
     rec = dict(loss=got["loss"], loss_plain=ref["loss"],
                grad_norm=got["grad_norm"], grad_norm_plain=ref["grad_norm"],
-               step_launches=launches, **grads)
+               step_launches=launches, step_backward_routes=routes, **grads)
     return model, opt, state, batch, rec
 
 
@@ -3244,10 +3300,15 @@ def cli_run_and_replay(dev, card) -> dict:
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = {k: v for k, v in all_launches().items() if v}
+        routes = backward_routes()
         want = {"flash_prefill": cfg.n_layers * TRAIN_STEPS,
                 "flash_backward": cfg.n_layers * TRAIN_STEPS}
         check(launches == want, f"the CLI's {TRAIN_STEPS} steps launched "
                                 f"{launches}, the train path needs {want}")
+        want = {"sm90": cfg.n_layers * TRAIN_STEPS, "simple": 0}
+        check(routes == want, f"the CLI's {TRAIN_STEPS} steps' backward "
+                              f"launches by kernel {routes}, the bf16 route "
+                              f"gives {want}")
         losses = straight["losses"]
         check(straight["end_step"] == TRAIN_STEPS
               and len(losses) == TRAIN_STEPS
@@ -3275,12 +3336,13 @@ def cli_run_and_replay(dev, card) -> dict:
           "run")
     say(f"train: python -m repro_torch.launch.train {' '.join(argv)} (in "
         f"process, deterministic algorithms): losses {losses}, launches "
-        f"{launches} ({cfg.n_layers} of each a step), {run_s:.1f} s with "
+        f"{launches} ({cfg.n_layers} of each a step; the backward's by "
+        f"kernel {routes}), {run_s:.1f} s with "
         f"checkpoints; the replay from step {TRAIN_CKPT_EVERY} "
         f"({replay_s:.1f} s) ends bit-equal in all {len(a)} leaves of "
         f"params and optimizer state [{card}]")
-    return dict(losses=losses, launches=launches, run_s=run_s,
-                replay_s=replay_s)
+    return dict(losses=losses, launches=launches, backward_routes=routes,
+                run_s=run_s, replay_s=replay_s)
 
 
 def check_recurrent_training_raises(dev):
@@ -3308,12 +3370,42 @@ def check_recurrent_training_raises(dev):
                      f"without its backward kernel")
 
 
+def backward_turn(fn, per_call: int, calls: int = 10) -> float:
+    """Device ms per call of a backward wrapper that launches ``per_call``
+    kernels (named ``bwd_*``): a trace of ``calls`` calls after two
+    warm-up calls.  A trace that lost some of the launches (the profiler
+    drops events at random) reads low, so it is taken again, up to
+    TRACE_TRIES times; failing that, the most complete trace's mean per
+    launch times ``per_call``, and a line says so."""
+    fn(), fn()
+    torch.cuda.synchronize()
+    best = (0, 0.0)
+    for _ in range(TRACE_TRIES):
+        prof = device_profile(lambda: [fn() for _ in range(calls)],
+                              required=False)
+        if prof is None:
+            continue
+        got = [(t, c) for name, (t, c) in prof[2].items() if "bwd_" in name]
+        n, us = sum(c for _, c in got), sum(t for t, _ in got)
+        if n == calls * per_call:
+            return us / calls / 1e3
+        best = max(best, (n, us))
+    check(best[0] > 0, "no trace held a backward kernel")
+    say(f"timing: no trace held all {calls * per_call} backward launches; "
+        f"the best held {best[0]}, whose mean per launch is used")
+    return best[1] / best[0] * per_call / 1e3
+
+
 def time_train_flash(dev, card) -> dict:
     """The flash forward (routed: the ``wgmma`` prefill) and backward
     kernels at the train step's shape (B 8, S 256, H 32, KV 8, D 64, bf16)
     against their bounds, their plain versions and SDPA's forward and
     backward (``is_causal=True, enable_gqa=True``; a yardstick, never
-    called by the port)."""
+    called by the port).  The backward's two kernels are timed in turns
+    (``backward_turn``: traces that hold every launch), the CUDA-core one,
+    the tensor-core one (bf16's route), the tensor-core one, the CUDA-core
+    one: ``kernel`` is the mean of the tensor-core kernel's two times,
+    ``simple`` of the other's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -3341,6 +3433,7 @@ def time_train_flash(dev, card) -> dict:
             qs, ks, vs, is_causal=True, enable_gqa=True),
     }
     bwd = {
+        "simple": lambda: FK.flash_backward_simple_cuda(q, k, v, o, do),
         "kernel": lambda: FK.flash_backward_cuda(q, k, v, o, do),
         "plain": lambda: flash_attention_backward_torch(q, k, v, o, do),
         "sdpa": lambda: torch.autograd.grad(so, (qs, ks, vs), dos,
@@ -3349,16 +3442,30 @@ def time_train_flash(dev, card) -> dict:
     out = {}
     with torch.no_grad():
         t_f = {i: time_replay([()], fn, reps=10)[0] for i, fn in fwd.items()}
-    t_b = {i: time_replay([()], fn, reps=10)[0] for i, fn in bwd.items()}
+    turns = {"simple": [], "kernel": []}
+    for i in ("simple", "kernel", "kernel", "simple"):
+        turns[i].append(backward_turn(bwd[i], 3 if i == "simple" else 2))
+    t_b = {i: statistics.mean(t) for i, t in turns.items()}
+    t_b.update({i: time_replay([()], bwd[i], reps=10)[0]
+                for i in ("plain", "sdpa")})
     for name, t, bound in (("forward", t_f, fa_bound(q, k, v, dict(
             q_start=0, kv_len=S))), ("backward", t_b, bwd_bound(q, k, v))):
         by = "bytes" if bound[0] >= bound[1] else "operations"
         out[name] = dict(ms=t["kernel"], plain_ms=t["plain"],
                          library_ms=t["sdpa"], bound_ms=max(bound),
                          bound_by=by)
+        extra = ""
+        if name == "backward":
+            out[name].update(simple_ms=t["simple"], turns_ms=turns)
+            extra = (f" (the tensor-core kernel; in turns "
+                     f"{turns['kernel'][0] * 1e3:.2f}, "
+                     f"{turns['kernel'][1] * 1e3:.2f}), the CUDA-core kernel "
+                     f"{t['simple'] * 1e3:.2f} (in turns "
+                     f"{turns['simple'][0] * 1e3:.2f}, "
+                     f"{turns['simple'][1] * 1e3:.2f})")
         say(f"timing: flash {name} at the train step's shape (B "
             f"{TRAIN_BATCH}, S {S}, H 32, KV 8, D 64, bf16, causal): device "
-            f"us per launch: kernel {t['kernel'] * 1e3:.2f}, bound "
+            f"us per launch: kernel {t['kernel'] * 1e3:.2f}{extra}, bound "
             f"{max(bound) * 1e3:.3f} ({by}; bytes {bound[0] * 1e3:.3f}, "
             f"operations {bound[1] * 1e3:.3f}), plain {t['plain'] * 1e3:.2f},"
             f" sdpa {t['sdpa'] * 1e3:.2f} [{card}]")
@@ -3387,15 +3494,25 @@ def phase_train(dev, card, err) -> tuple[dict, dict]:
     flash = time_train_flash(dev, card)
     rec["flash"] = flash
     b = flash["backward"]
+    routes = rec["cli"]["backward_routes"]
     row = dict(
         name="flash_backward", route="cuda",
-        source="src/repro_torch/csrc/flash_backward.cu",
+        source="src/repro_torch/csrc/flash_backward_sm90.cu",
         replaces="src/repro/kernels/flash_attention/ops.py:77",
         replaces_note="no TPU kernel: jax.grad of _flash_xla",
         launches=rec["cli"]["launches"]["flash_backward"],
         max_abs_err=err["flash_backward"], ms=b["ms"],
         plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
         bound_by=b["bound_by"], library_ms=b["library_ms"],
+        simple_ms=b["simple_ms"],
+        routes={"sm90": dict(
+                    source="src/repro_torch/csrc/flash_backward_sm90.cu",
+                    launches=routes["sm90"], ms=b["ms"],
+                    turns_ms=b["turns_ms"]["kernel"]),
+                "simple": dict(
+                    source="src/repro_torch/csrc/flash_backward.cu",
+                    launches=routes["simple"], ms=b["simple_ms"],
+                    turns_ms=b["turns_ms"]["simple"])},
         errors=worst, forward_at_train_shape=flash["forward"])
     rec["seconds"] = time.perf_counter() - t0
     say(f"train: phase done in {rec['seconds']:.1f} s [{card}]")
@@ -3407,8 +3524,8 @@ def main() -> int:
     csrc = SRC / "repro_torch" / "csrc"
     if not all((csrc / f).is_file() for f in (
             "arena.cu", "flash_attention.cu", "flash_decode.cu",
-            "flash_prefill_sm90.cu", "flash_backward.cu", "wkv6.cu",
-            "rglru.cu")):
+            "flash_prefill_sm90.cu", "flash_backward.cu",
+            "flash_backward_sm90.cu", "wkv6.cu", "rglru.cu")):
         say("FAIL: src/repro_torch not found beside chip_smoke.py; run it "
             "from the root of a checkout")
         return 2
@@ -3443,7 +3560,7 @@ def main() -> int:
             say(f"build: {lib.relative_to(ROOT)} in {sec:.1f} s")
             if lib.stem in ("libarena", "libwkv6", "librglru",
                             "libflash_decode", "libflash_prefill_sm90",
-                            "libflash_backward"):
+                            "libflash_backward", "libflash_backward_sm90"):
                 for ln in _build.ptxas_report(lib):
                     say(f"build: ptxas {lib.stem[3:]}: {ln}")
     for mod in (K, WK, RK):

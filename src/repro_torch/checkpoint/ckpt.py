@@ -19,7 +19,9 @@ bfloat16) under the dtype name ``bfloat16`` and viewed back as
   * **bounded**: the manager keeps the newest ``keep`` checkpoints.
 
 ``restore(..., like)`` gives each leaf the dtype and device of the
-matching leaf of ``like`` (a tensor, or a numpy array for a numpy leaf).
+matching leaf of ``like`` (a tensor, or a numpy array for a numpy leaf),
+and raises ``ValueError`` where a file's shape is not that leaf's (a
+checkpoint of another config in the same directory).
 Resharding onto another mesh (``repro``'s ``shardings=``) waits for
 ROADMAP A8.
 """
@@ -123,6 +125,11 @@ def _load(path: str, rec: dict, like):
     if tuple(arr.shape) != tuple(rec["shape"]):
         raise ValueError(f"{rec['path']}: file of shape {arr.shape}, "
                          f"manifest {rec['shape']}")
+    if (torch.is_tensor(like) or isinstance(like, np.ndarray)) \
+            and tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"{rec['path']}: checkpoint leaf of shape "
+                         f"{tuple(arr.shape)}, the state's leaf "
+                         f"{tuple(like.shape)} (another config's checkpoint?)")
     if torch.is_tensor(like):
         if "bfloat16" in rec["dtype"] and arr.dtype == np.uint16:
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)

@@ -1,0 +1,705 @@
+// Tensor-core backward of causal GQA flash attention for Hopper (sm_90a),
+// plain C interface.
+//
+// No TPU kernel precedes it: the JAX package has no backward kernel; its
+// train step differentiates `_flash_xla` (src/repro/kernels/flash_attention/
+// ops.py:77) with XLA, `jax.grad`.  This kernel computes that gradient for
+// the training form of the forward, bf16: causal, q_start 0, Sq = Skv = S,
+// no window, (D, Dv) = (64, 64).  Given q (B,S,H,D), k and v (B,S,KV,D), the
+// forward's output o (B,S,H,D) and the output's gradient dO (B,S,H,D), with
+// P = softmax(scale * q k^T) under the causal mask, it returns
+//   dV = P^T dO,  dS = P * (dO v^T - rowsum(dO * o)),
+//   dQ = scale * dS k,  dK = scale * dS^T q,
+// summed over the G = H / KV query heads that share a KV head; sums in f32,
+// outputs bf16.  flash_backward.cu computes the same on CUDA cores and
+// keeps the f32 calls.
+//
+// What bounds it on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 dense): at
+// llama3.2-1b's training shape (B 8, S 256, H 32, KV 8, D 64) one layer's
+// backward must read q, k, v, o and dO and write dq, dk and dv, 41.9 MB,
+// 12.5 us; its five products over the causal (query, key) pairs are 5.4
+// GFLOP, 5.4 us on the tensor cores.  So bytes bound it.  The design keeps
+// every product on the tensor cores and every intermediate (S, P, dP, dS)
+// in registers, and reads each input from device memory about once (the
+// tiles that several blocks share come from L2).
+//
+// Design: two kernels, launched in order on one stream by one entry, no
+// atomics (the G heads of a KV head are summed in a fixed order inside one
+// block, so a replay gives the same bits).  A block is one warpgroup (128
+// threads); every product is `wgmma.m64n64k16` (bf16 in, f32 sums), 64 rows
+// a tile:
+//   * dQ: one block per (batch, head, 64 query rows).  Its first sweep over
+//     the live key tiles computes S = Q K^T only, and each row's log-sum-exp
+//     by an online max and sum (base 2); D = rowsum(dO * o) comes from the
+//     dO tile and an o tile copied with it, each row's quad of threads
+//     summing a quarter of it.  Both go to f32 scratch (B, H, S rounded up
+//     to 64) for the dK/dV kernel: no separate setup pass.  Its second
+//     sweep computes S and dP = dO V^T, then P = 2^(S scale log2 e - lse)
+//     and dS = P (dP - D) in registers, then dQ += dS K;
+//   * dK/dV: one block per (batch, KV head, 64 keys) loops over the G query
+//     heads of its KV head, then over the query tiles at or after its keys:
+//     S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T in registers, then
+//     dV += P^T dO and dK += dS^T Q.  dK and dV stay in registers over all
+//     G x tiles steps.
+// Operands.  S, dP, S^T and dP^T take both operands from shared memory,
+// K-major (rows D-contiguous).  dQ, dV and dK take A from registers (the
+// accumulator layout of the previous product, rounded to bf16, is the
+// A-fragment layout of the next) and B from shared memory, MN-major: the
+// same swizzled Q, dO and K tiles serve as K-major B of one product and
+// MN-major B of the next, under two descriptors.  P and dS enter the
+// products as bf16 (2^-9 relative each; the card's check holds each
+// gradient to 4 bf16 ulps of its largest value).
+// Copies.  Tiles come through a ring of kStages stages of 16-byte `cp.async`
+// copies into the 128-byte-swizzled layout `wgmma` reads (flash_prefill_
+// sm90.cu's), rows at or past S zero-filled; the ring's tiles are kStages - 1
+// ahead of the one computed.  The dK/dV kernel's ring also carries the 64
+// log-sum-exps and D of each query tile.
+// Outputs are staged through shared memory as bf16 and stored 16 bytes a
+// thread.  Masks are per element only on the diagonal and ragged tiles.
+// Block order.  A 1-D grid, heaviest blocks first: the dQ blocks of the last
+// query tile (the most key tiles) over every (batch, head), then the tile
+// before; the dK/dV blocks of key tile 0 (the most query tiles) first.
+// Occupancy.  `-Xptxas -v` for sm_90a: dQ 128 registers (held there by its
+// launch bounds, for four blocks an SM), dK/dV 197, no spills.  What
+// limits each, from clock stamps on an H100 (tools/flash_backward_probe.py
+// variants, PERF.md): the dQ blocks are short (2 to 2n steps) and wait on
+// their copies from L2; a dK/dV block is a chain of G x tiles dependent
+// steps (copy, products, softmax, products), two blocks an SM.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;      // one warpgroup
+constexpr int kTile = 64;          // rows of every tile: queries or keys
+constexpr int kD = 64;             // head dim of q, k and v
+constexpr int kDqStages = 2;       // stages of the dQ kernel's K/V ring
+constexpr int kDkdvStages = 3;     // stages of the dK/dV kernel's Q/dO ring
+constexpr int kTileBytes = kTile * kD * 2;
+constexpr int kStatBytes = 2 * kTile * 4;     // lse and D of a query tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dynamic shared memory of each kernel: its resident tiles, its ring, and
+// 1024 bytes to align the swizzled tiles
+constexpr int kDqSmem = (2 + 2 * kDqStages) * kTileBytes + 1024;
+constexpr int kDkdvSmem =
+    (2 + 2 * kDkdvStages) * kTileBytes + kDkdvStages * kStatBytes + 1024;
+
+struct Params {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* o;
+  const __nv_bfloat16* dout;
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  float* lse;                // (B, H, Spad), base 2 and scaled
+  float* delta;              // (B, H, Spad)
+  long long B, S, H, KV, Spad, tiles;
+  float scale, scale_log2;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte asynchronous copy to a shared address; src_bytes 0 zero-fills
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// makes the generic-proxy writes of cp.async visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// byte offset (unused by a K-major operand and by an MN-major one 64 wide),
+// stride byte offset 1024 (8 rows of 128 bytes), layout type 1 (B128).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// k-step kk (16 of the 64 dims) of a K-major tile: rows D-contiguous
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 32, 16);
+}
+// k-step kk (16 of the 64 rows) of an MN-major tile: rows are the sum's
+// index, each D-contiguous
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 16 * 128, kTile * 128);
+}
+
+// byte offset of 16-byte chunk c (c < 8) of row r in a 64 x 64 bf16 tile
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16, shared, K-major) * B (16 x 64, bf16,
+// shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16,
+// shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x by the special function unit (flushes to 0 below 2^-126; -inf
+// gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void zero(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+// A = X Y^T (64 x 64) and B = U W^T, both from shared memory, K-major, in
+// one batch of products
+__device__ __forceinline__ void two_products_ss(float (&a)[32], uint32_t x,
+                                                uint32_t y, float (&b)[32],
+                                                uint32_t u, uint32_t w) {
+  zero(a);
+  zero(b);
+  fence_regs(a);
+  fence_regs(b);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss(a, desc_k(x, kk), desc_k(y, kk));
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss(b, desc_k(u, kk), desc_k(w, kk));
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(a);
+  fence_regs(b);
+}
+
+// the A fragments (bf16) of a 64 x 64 accumulator, one per k-step of 16
+__device__ __forceinline__ void to_frags(const float (&d)[32],
+                                         uint32_t (&a)[kTile / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
+}
+
+// rows row0 .. row0 + 63 of a (S x 64) bf16 matrix whose row r starts at
+// base + r * stride, into a swizzled tile; rows at or past S zero-filled.
+// Thread t copies 16-byte chunk t % 8 of rows t / 8 + 16 i, i < 4: one
+// address computed, then steps of 16 rows (the swizzle repeats every 8)
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* base,
+                                          long long row0, long long S,
+                                          long long stride, int tid) {
+  const int r = tid >> 3, c = tid & 7;
+  const __nv_bfloat16* src = base + (row0 + r) * stride + c * 8;
+  const uint32_t d = dst + swz(r, c);
+  const int left = (int)(S - row0 - r);        // rows of this thread in S
+#pragma unroll
+  for (int i = 0; i < kTile / 16; ++i) {
+    const bool in = 16 * i < left;
+    cp_async16(d + i * 16 * 128, in ? src + i * 16 * stride : base,
+               in ? 16 : 0);
+  }
+}
+
+// the 16-byte chunk c of row r of a swizzled tile at shared address `tile`,
+// through a generic pointer (`smem` is the dynamic shared memory's start)
+__device__ __forceinline__ uint4* chunk(unsigned char* smem, uint32_t tile,
+                                        int r, int c) {
+  return reinterpret_cast<uint4*>(smem + (tile - smem_u32(smem)) +
+                                  swz(r, c));
+}
+
+// A 64 x 64 f32 accumulator (this thread's rows r0 and r0 + 8) times
+// `scale`, as bf16 into a swizzled tile at shared address `tile`
+__device__ __forceinline__ void stage_out(unsigned char* smem, uint32_t tile,
+                                          const float (&d)[32], float scale,
+                                          int r0, int lane) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+      *reinterpret_cast<__nv_bfloat162*>(
+          reinterpret_cast<unsigned char*>(chunk(smem, tile, r0 + 8 * x, jj)) +
+          4 * (lane & 3)) =
+          __floats2bfloat162_rn(d[4 * jj + 2 * x] * scale,
+                                d[4 * jj + 2 * x + 1] * scale);
+}
+
+// The rows of a swizzled tile to rows row0 .. of a (S x 64) bf16 matrix
+// (row r at base + r * stride), 16 bytes a thread, rows past S left out
+__device__ __forceinline__ void store_tile(__nv_bfloat16* base,
+                                           unsigned char* smem, uint32_t tile,
+                                           long long row0, long long S,
+                                           long long stride, int tid) {
+  const int r = tid >> 3, c = tid & 7;
+#pragma unroll
+  for (int i = 0; i < kTile / 16; ++i)
+    if (row0 + r + 16 * i < S)
+      *reinterpret_cast<uint4*>(base + (row0 + r + 16 * i) * stride + c * 8) =
+          *chunk(smem, tile, r + 16 * i, c);
+}
+
+// Block i of the dQ grid: query tile (the last first), head, batch row
+__device__ __forceinline__ void dq_block(long long i, const Params& p,
+                                         long long& b, long long& h,
+                                         long long& qt) {
+  const long long pairs = p.B * p.H, r = i / pairs, pair = i - r * pairs;
+  qt = p.tiles - 1 - r;
+  b = pair / p.H;
+  h = pair - b * p.H;
+}
+
+// Block i of the dK/dV grid: key tile (0 first), KV head, batch row
+__device__ __forceinline__ void dkdv_block(long long i, const Params& p,
+                                           long long& b, long long& kvh,
+                                           long long& kt) {
+  const long long pairs = p.B * p.KV, r = i / pairs, pair = i - r * pairs;
+  kt = r;
+  b = pair / p.KV;
+  kvh = pair - b * p.KV;
+}
+
+// dQ of 64 query rows of one head, and their log-sum-exp and D into the
+// scratch.  Steps 0 .. n-1 sweep the n live key tiles for the log-sum-exp
+// (K only); steps n .. 2n-1 sweep them again for dQ (K and V).
+__global__ void __launch_bounds__(kThreads, 4) bwd_dq_sm90_kernel(Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base, sdO = sQ + kTileBytes;
+  const uint32_t sK = sdO + kTileBytes;                 // kDqStages tiles
+  const uint32_t sV = sK + kDqStages * kTileBytes;      // kDqStages tiles
+
+  long long b, h, qt;
+  dq_block(blockIdx.x, p, b, h, qt);
+  const long long S = p.S, H = p.H, KV = p.KV, kvh = h / (H / KV);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long q0 = qt * kTile;
+  const __nv_bfloat16* qb = p.q + (b * S * H + h) * kD;
+  const __nv_bfloat16* db = p.dout + (b * S * H + h) * kD;
+  const __nv_bfloat16* kb = p.k + (b * S * KV + kvh) * kD;
+  const __nv_bfloat16* vb = p.v + (b * S * KV + kvh) * kD;
+  load_tile(sQ, qb, q0, S, H * kD, tid);
+  load_tile(sdO, db, q0, S, H * kD, tid);
+  // o's rows into stage 0's V slot, which no step fills before step 2
+  // (sweep 2 starts at step n >= 1; step 1, if it is the first of sweep 2,
+  // takes stage 1); D is summed from it in step 0
+  load_tile(sV, p.o + (b * S * H + h) * kD, q0, S, H * kD, tid);
+
+  const long long n = qt + 1;          // live key tiles: 0 .. qt
+  auto load_step = [&](long long j, int stage) {
+    const long long t = j < n ? j : j - n;
+    load_tile(sK + stage * kTileBytes, kb, t * kTile, S, KV * kD, tid);
+    if (j >= n)
+      load_tile(sV + stage * kTileBytes, vb, t * kTile, S, KV * kD, tid);
+  };
+#pragma unroll
+  for (int i = 0; i < kDqStages - 1; ++i) {
+    if (i < 2 * n) load_step(i, i);
+    cp_async_commit();
+  }
+
+  // this thread's two rows of every accumulator: r0 and r0 + 8
+  const int r0 = warp * 16 + (lane >> 2);
+  bool valid[2];
+  int qpos[2];            // positions fit an int: S < 2^31
+  float m[2], l[2], lse[2], del[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    qpos[x] = (int)q0 + r0 + 8 * x;
+    valid[x] = qpos[x] < S;
+    m[x] = -INFINITY;
+    l[x] = lse[x] = 0.f;
+  }
+
+  float dq[32];
+  zero(dq);
+  const bool rows_full = q0 + kTile <= S;
+  int stage = 0;
+  for (long long j = 0; j < 2 * n; ++j) {
+    const int ahead = stage == 0 ? kDqStages - 1 : stage - 1;
+    if (j + kDqStages - 1 < 2 * n) load_step(j + kDqStages - 1, ahead);
+    cp_async_commit();
+    cp_async_wait<kDqStages - 1>();              // step j's tiles have landed
+    fence_proxy_async();
+    __syncthreads();
+    if (j == 0) {
+      // D = rowsum(dO * o) from the tiles: each thread of a row's quad
+      // sums 16 of its dims (rows past S are zeros)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        float acc = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int c = 2 * (lane & 3) + cc;
+          const uint4 ou = *chunk(smem_raw, sV, r0 + 8 * x, c);
+          const uint4 du = *chunk(smem_raw, sdO, r0 + 8 * x, c);
+          const __nv_bfloat162* o2 =
+              reinterpret_cast<const __nv_bfloat162*>(&ou);
+          const __nv_bfloat162* d2 =
+              reinterpret_cast<const __nv_bfloat162*>(&du);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 df = __bfloat1622float2(d2[e]);
+            acc = fmaf(of.x, df.x, acc);
+            acc = fmaf(of.y, df.y, acc);
+          }
+        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        del[x] = acc;
+      }
+    }
+    const uint32_t ks = sK + stage * kTileBytes, vs = sV + stage * kTileBytes;
+    stage = stage + 1 == kDqStages ? 0 : stage + 1;
+    const long long t = j < n ? j : j - n, k0 = t * kTile;
+    // every key of the tile is live for every row (uniform over the block)
+    const bool full = rows_full && t < qt;
+
+    // register i holds row r0 + 8 * ((i >> 1) & 1), key 8 * (i >> 2) +
+    // 2 * (lane & 3) + (i & 1) of the tile
+    float s[32], dp[32];
+    if (j < n) {
+      // sweep 1: S = Q K^T, an online max and sum of 2^(s scale log2 e)
+      zero(s);
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss(s, desc_k(sQ, kk), desc_k(ks, kk));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (full) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          s[i] *= p.scale_log2;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int x = (i >> 1) & 1;
+          const int kj = (int)k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          s[i] = valid[x] && kj <= qpos[x] ? s[i] * p.scale_log2 : -INFINITY;
+          mx[x] = fmaxf(mx[x], s[i]);
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
+        mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
+        const float m_new = fmaxf(m[x], mx[x]);
+        if (m_new == -INFINITY) continue;        // no live key yet
+        float rs = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i >> 1) & 1) == x) rs += ex2(s[i] - m_new);   // -inf -> 0
+        l[x] = l[x] * ex2(m[x] - m_new) + rs;  // 0 * 0 while m was -inf
+        m[x] = m_new;
+      }
+      if (j == n - 1) {
+        // the log-sum-exp (base 2, of the scaled scores), and D, to the
+        // scratch; rows past S get 0 there and are masked everywhere
+        const long long row = (b * H + h) * p.Spad + q0 + r0;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+          l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+          lse[x] = valid[x] ? m[x] + log2f(l[x]) : 0.f;
+          if ((lane & 3) == 0) {
+            p.lse[row + 8 * x] = lse[x];
+            p.delta[row + 8 * x] = valid[x] ? del[x] : 0.f;
+          }
+        }
+      }
+    } else {
+      // sweep 2: S and dP = dO V^T, P and dS in registers, dQ += dS K
+      two_products_ss(s, sQ, ks, dp, sdO, vs);
+      if (full) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int x = (i >> 1) & 1;
+          dp[i] = ex2(s[i] * p.scale_log2 - lse[x]) * (dp[i] - del[x]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int x = (i >> 1) & 1;
+          const int kj = (int)k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          const float pr = valid[x] && kj <= qpos[x]
+                               ? ex2(s[i] * p.scale_log2 - lse[x]) : 0.f;
+          dp[i] = pr * (dp[i] - del[x]);
+        }
+      }
+      uint32_t a[kTile / 16][4];
+      to_frags(dp, a);
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        wgmma_rs(dq, a[kk], desc_mn(ks, kk));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dq);
+    }
+    __syncthreads();                             // the stage may be refilled
+  }
+  cp_async_wait<0>();
+
+  // dQ through the Q tile's shared memory, for 16-byte stores
+  stage_out(smem_raw, sQ, dq, p.scale, r0, lane);
+  __syncthreads();
+  store_tile(p.dq + (b * S * H + h) * kD, smem_raw, sQ, q0, S, H * kD, tid);
+}
+
+// dK and dV of 64 keys of one KV head.  Step j takes head g = j / nq of the
+// KV head's G and query tile kt + j % nq (the nq tiles at or after the
+// block's keys).
+__global__ void __launch_bounds__(kThreads, 1) bwd_dkdv_sm90_kernel(Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sK = base, sV = sK + kTileBytes;
+  const uint32_t sQ = sV + kTileBytes;                  // kDkdvStages tiles
+  const uint32_t sdO = sQ + kDkdvStages * kTileBytes;   // kDkdvStages tiles
+  const uint32_t sSt = sdO + kDkdvStages * kTileBytes;  // kDkdvStages stats
+  const float* stats = reinterpret_cast<const float*>(
+      smem_raw + (sSt - smem_u32(smem_raw)));
+
+  long long b, kvh, kt;
+  dkdv_block(blockIdx.x, p, b, kvh, kt);
+  const long long S = p.S, H = p.H, KV = p.KV, G = H / KV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long k0 = kt * kTile;
+  load_tile(sK, p.k + (b * S * KV + kvh) * kD, k0, S, KV * kD, tid);
+  load_tile(sV, p.v + (b * S * KV + kvh) * kD, k0, S, KV * kD, tid);
+
+  const long long nq = p.tiles - kt, n = G * nq;
+  auto load_step = [&](long long j, int stage) {
+    const long long g = j / nq, qt = kt + j - g * nq, h = kvh * G + g;
+    const long long row0 = qt * kTile;
+    load_tile(sQ + stage * kTileBytes, p.q + (b * S * H + h) * kD, row0, S,
+              H * kD, tid);
+    load_tile(sdO + stage * kTileBytes, p.dout + (b * S * H + h) * kD, row0,
+              S, H * kD, tid);
+    // the tile's 64 log-sum-exps, then its 64 D (the scratch is padded to
+    // whole tiles)
+    if (tid < 2 * kTile / 4) {
+      const float* src = (tid < kTile / 4 ? p.lse : p.delta) +
+                         (b * H + h) * p.Spad + row0 + 4 * (tid % (kTile / 4));
+      cp_async16(sSt + stage * kStatBytes + 16 * tid, src, 16);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kDkdvStages - 1; ++i) {
+    if (i < n) load_step(i, i);
+    cp_async_commit();
+  }
+
+  // this thread's two keys (accumulator rows) r0 and r0 + 8; register i
+  // of S^T holds key r0 + 8 * ((i >> 1) & 1), query 8 * (i >> 2) +
+  // 2 * (lane & 3) + (i & 1) of the query tile
+  const int r0 = warp * 16 + (lane >> 2);
+  int kpos[2];            // positions fit an int: S < 2^31
+#pragma unroll
+  for (int x = 0; x < 2; ++x) kpos[x] = (int)k0 + r0 + 8 * x;
+  float dk[32], dv[32];
+  zero(dk);
+  zero(dv);
+  int stage = 0;
+  for (long long j = 0; j < n; ++j) {
+    const int ahead = stage == 0 ? kDkdvStages - 1 : stage - 1;
+    if (j + kDkdvStages - 1 < n) load_step(j + kDkdvStages - 1, ahead);
+    cp_async_commit();
+    cp_async_wait<kDkdvStages - 1>();            // step j's tiles have landed
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t qs = sQ + stage * kTileBytes;
+    const uint32_t dos = sdO + stage * kTileBytes;
+    const float* lse = stats + stage * (kStatBytes / 4);
+    const float* del = lse + kTile;
+    stage = stage + 1 == kDkdvStages ? 0 : stage + 1;
+    const long long g = j / nq, q0 = (kt + j - g * nq) * kTile;
+    // every query of the tile sees every key of the block
+    const bool full = q0 > k0 && q0 + kTile <= S;
+
+    // S^T = K Q^T and dP^T = V dO^T
+    float st[32], dpt[32];
+    two_products_ss(st, sK, qs, dpt, sV, dos);
+    // P^T = 2^(s scale log2 e - lse) and dS^T = P^T (dP^T - D), keys after
+    // a query (the causal mask) and queries past S giving 0
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 8 * jj + 2 * (lane & 3);
+      const float2 lq = *reinterpret_cast<const float2*>(lse + c);
+      const float2 dd = *reinterpret_cast<const float2*>(del + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * jj + e, x = (e >> 1) & 1, y = e & 1;
+        const int qi = (int)q0 + c + y;
+        float pr = ex2(st[i] * p.scale_log2 - (y ? lq.y : lq.x));
+        if (!full) pr = qi < (int)S && kpos[x] <= qi ? pr : 0.f;
+        st[i] = pr;
+        dpt[i] = pr * (dpt[i] - (y ? dd.y : dd.x));
+      }
+    }
+    // dV += P^T dO, dK += dS^T Q
+    uint32_t pa[kTile / 16][4], sa[kTile / 16][4];
+    to_frags(st, pa);
+    to_frags(dpt, sa);
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      wgmma_rs(dv, pa[kk], desc_mn(dos, kk));
+      wgmma_rs(dk, sa[kk], desc_mn(qs, kk));
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();                             // the stage may be refilled
+  }
+  cp_async_wait<0>();
+
+  // dK and dV through the K and V tiles' shared memory, for 16-byte stores
+  stage_out(smem_raw, sK, dk, p.scale, r0, lane);
+  stage_out(smem_raw, sV, dv, 1.f, r0, lane);
+  __syncthreads();
+  const long long off = (b * S * KV + kvh) * kD;
+  store_tile(p.dk + off, smem_raw, sK, k0, S, KV * kD, tid);
+  store_tile(p.dv + off, smem_raw, sV, k0, S, KV * kD, tid);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the two kernels on `stream` (dQ, which writes the scratch, then
+// dK/dV, which reads it) and returns cudaGetLastError() (0 when both
+// launches were accepted).  Sizes are elements; the wrapper has checked
+// shapes, dtypes (bf16), contiguity, 16-byte alignment and S > 0, and
+// allocated dq, dk, dv and the f32 scratch lse and delta (B * H * Spad
+// each, Spad = S rounded up to a multiple of 64).
+int repro_flash_backward_sm90(const void* q, const void* k, const void* v,
+                              const void* o, const void* dout, void* dq,
+                              void* dk, void* dv, void* lse, void* delta,
+                              long long B, long long S, long long H,
+                              long long KV, long long D, long long Dv,
+                              float scale, void* stream) {
+  if (D != kD || Dv != kD || KV <= 0 || H % KV)
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<const __nv_bfloat16*>(o);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.lse = static_cast<float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.B = B; p.S = S; p.H = H; p.KV = KV;
+  p.tiles = (S + kTile - 1) / kTile;
+  p.Spad = p.tiles * kTile;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_dq_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDqSmem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(bwd_dkdv_sm90_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kDkdvSmem);
+  if (e != cudaSuccess) return (int)e;
+  bwd_dq_sm90_kernel<<<(unsigned)(p.tiles * B * H), kThreads, kDqSmem, s>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  bwd_dkdv_sm90_kernel<<<(unsigned)(p.tiles * B * KV), kThreads, kDkdvSmem,
+                         s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

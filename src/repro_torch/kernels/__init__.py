@@ -6,8 +6,9 @@
                       split-K decode (csrc/flash_decode.cu), the wgmma
                       prefill (csrc/flash_prefill_sm90.cu) and the simple
                       kernel (csrc/flash_attention.cu), by a fixed route;
-                      and the training form's gradient
-                      (csrc/flash_backward.cu)
+                      and the training form's gradient, by a fixed route
+                      too (csrc/flash_backward_sm90.cu on the tensor
+                      cores for bf16, csrc/flash_backward.cu for f32)
   rwkv6            -- the RWKV-6 WKV recurrence (csrc/wkv6.cu)
   rglru            -- Griffin's RG-LRU recurrence (csrc/rglru.cu)
 

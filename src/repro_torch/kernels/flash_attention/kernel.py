@@ -1,9 +1,10 @@
 """CUDA flash-attention kernels for Hopper: build, bind, route, launch.
 
-Three forward kernels and one backward, each its own source under ``repro_torch/csrc/`` (plain C
-interface), compiled at first use into ``build/repro_torch/<source
-hash>/lib<name>.so`` (:mod:`repro_torch.kernels._build`) and loaded with
-``ctypes``; nothing is built when this module is imported:
+Three forward kernels and two backward ones, each its own source under
+``repro_torch/csrc/`` (plain C interface), compiled at first use into
+``build/repro_torch/<source hash>/lib<name>.so``
+(:mod:`repro_torch.kernels._build`) and loaded with ``ctypes``; nothing is
+built when this module is imported:
 
   * ``flash_decode.cu``       -- split-K decode, one launch, for every call
                                  whose block of rows is small
@@ -15,26 +16,35 @@ hash>/lib<name>.so`` (:mod:`repro_torch.kernels._build`) and loaded with
   * ``flash_attention.cu``    -- the simple kernel, for the rest: f32 with
                                  ``Sq * G > 16``, and the (16, 16) and
                                  (192, 128) pairs with ``Sq * G > 16``;
-  * ``flash_backward.cu``     -- the gradient (dq, dk, dv) of causal
+  * ``flash_backward_sm90.cu`` -- the gradient (dq, dk, dv) of causal
                                  attention in its training form (q_start
-                                 0, Sq = Skv, no window), bf16 or f32 at
-                                 (D, Dv) in :data:`BACKWARD_HEAD_DIMS`:
-                                 :func:`flash_backward_cuda`, one entry
-                                 that launches its three kernels (one
-                                 count in ``LAUNCHES["flash_backward"]``).
+                                 0, Sq = Skv, no window) on the tensor
+                                 cores (``wgmma``), bf16 at (D, Dv) in
+                                 :data:`BACKWARD_HEAD_DIMS`: one entry that
+                                 launches its two kernels (dQ with each
+                                 row's log-sum-exp, then dK/dV);
+  * ``flash_backward.cu``     -- the same gradient on CUDA cores, for f32
+                                 (it also takes bf16, so that the two can
+                                 be timed side by side): one entry that
+                                 launches its three kernels.
 
-:func:`pick_route` is that fixed rule, by dtype and shape; it is not a
-fallback.  :func:`flash_attention_cuda` routes a call; each kernel also
-has its own wrapper (:func:`flash_decode_cuda`, :func:`flash_prefill_cuda`,
-:func:`flash_simple_cuda`), which the checks call to hold every kernel
-against the plain version.  The wrappers take CUDA tensors only, check
-device, dtype (bf16 or f32, the same for q, k and v), contiguity, 16-byte
-alignment (the kernels move tiles in 16-byte vectors), shapes and head
-dims, allocate the output (and the decode kernel's f32 scratch) with
-``torch.empty``, launch on PyTorch's current stream and raise if the
-launch was refused.  ``LAUNCHES`` counts each kernel's launches
-(``flash_attention`` the simple kernel's); :func:`reset_launches` sets
-them to 0.
+:func:`pick_route` is that fixed rule for the forward, by dtype and shape,
+and :func:`pick_backward_route` for the backward; neither is a fallback.
+:func:`flash_backward_cuda` routes a backward call; each backward kernel
+has its own wrapper too (:func:`flash_backward_sm90_cuda`,
+:func:`flash_backward_simple_cuda`).  ``LAUNCHES["flash_backward"]``
+counts every backward call (one launch of an entry), ``BACKWARD_ROUTES``
+the calls of each kernel.  :func:`flash_attention_cuda` routes a call;
+each kernel also has its own wrapper (:func:`flash_decode_cuda`,
+:func:`flash_prefill_cuda`, :func:`flash_simple_cuda`), which the checks
+call to hold every kernel against the plain version.  The wrappers take
+CUDA tensors only, check device, dtype (bf16 or f32, the same for q, k and
+v), contiguity, 16-byte alignment (the kernels move tiles in 16-byte
+vectors), shapes and head dims, allocate the output (and the decode
+kernel's f32 scratch) with ``torch.empty``, launch on PyTorch's current
+stream and raise if the launch was refused.  ``LAUNCHES`` counts each
+kernel's launches (``flash_attention`` the simple kernel's);
+:func:`reset_launches` sets them, and ``BACKWARD_ROUTES``, to 0.
 
 The decode kernel also takes its position from the device: with
 ``q_start`` a 0-d int64 tensor on the card, the kernel reads it there (and
@@ -69,7 +79,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 #: library name -> source; one ``nvcc`` each
 SOURCES = {name: CSRC / f"{name}.cu" for name in
            ("flash_attention", "flash_decode", "flash_prefill_sm90",
-            "flash_backward")}
+            "flash_backward", "flash_backward_sm90")}
 
 #: (D of q/k, Dv of v) pairs the kernel is built and checked for
 HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128), (256, 256))
@@ -77,8 +87,12 @@ HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128), (256, 256))
 #: (D, Dv) pairs the tensor-core prefill takes (bf16 only)
 PREFILL_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
 
-#: (D, Dv) pairs the backward kernel takes (bf16 or f32): llama3.2-1b's
+#: (D, Dv) pairs the backward kernels take (bf16 or f32): llama3.2-1b's
 BACKWARD_HEAD_DIMS = ((64, 64),)
+#: kTile, kDqStages and kDkdvStages of csrc/flash_backward_sm90.cu: rows of
+#: every tile (64 query rows a dQ block, 64 keys a dK/dV block), and the
+#: stages of each kernel's copy ring
+BACKWARD_TILE, BACKWARD_DQ_STAGES, BACKWARD_DKDV_STAGES = 64, 2, 3
 
 #: the split-K decode takes calls with at most this many rows (Sq * G)
 DECODE_MAX_ROWS = 16
@@ -93,6 +107,8 @@ DECODE_MERGE_BYTES = 384 * 1024
 
 LAUNCHES = {"flash_attention": 0, "flash_decode": 0, "flash_prefill": 0,
             "flash_backward": 0}
+#: backward calls by kernel (each is also one ``LAUNCHES["flash_backward"]``)
+BACKWARD_ROUTES = {"sm90": 0, "simple": 0}
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _libs: dict = {}
@@ -103,8 +119,9 @@ MAX_PAIRS = 65535
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, BACKWARD_ROUTES):
+        for k in d:
+            d[k] = 0
 
 
 def build(name: str = "flash_attention") -> Path:
@@ -127,6 +144,9 @@ _ARGS = {
     "flash_backward": ["is_bf16", "q", "k", "v", "o", "do", "dq", "dk", "dv",
                        "lse", "delta", "B", "S", "H", "KV", "D", "scale",
                        "stream"],
+    "flash_backward_sm90": ["q", "k", "v", "o", "do", "dq", "dk", "dv", "lse",
+                            "delta", "B", "S", "H", "KV", "D", "Dv", "scale",
+                            "stream"],
 }
 _CTYPE = {"q": ctypes.c_void_p, "k": ctypes.c_void_p, "v": ctypes.c_void_p,
           "o": ctypes.c_void_p, "part": ctypes.c_void_p,
@@ -464,8 +484,8 @@ def check_backward(q, k, v, *, causal=True, window=None, q_start=0,
                    kv_len=None) -> None:
     """Raise unless a call is the training form the backward takes:
     causal, no window, ``q_start`` the host int 0, ``kv_len`` None or
-    ``Skv``, ``Sq == Skv``; on the card also bf16 or f32 at (D, Dv) in
-    :data:`BACKWARD_HEAD_DIMS`, what the kernel is built for.  A windowed
+    ``Skv``, ``Sq == Skv``; on the card also a dtype and (D, Dv) that
+    :func:`pick_backward_route` gives a kernel.  A windowed
     backward and Griffin's (256, 256) come with Griffin's training
     (ROADMAP B)."""
     Sq, Skv = q.shape[1], k.shape[1]
@@ -481,23 +501,67 @@ def check_backward(q, k, v, *, causal=True, window=None, q_start=0,
             f"window={window}, q_start={q_start}, kv_len={kv_len}, "
             f"Sq={Sq}, Skv={Skv} (a windowed backward kernel waits for "
             f"ROADMAP B)")
-    dims = (q.shape[3], v.shape[3])
-    if q.is_cuda and (dims not in BACKWARD_HEAD_DIMS
-                      or q.dtype not in _SUFFIX):
+    if q.is_cuda:
+        pick_backward_route(q.dtype, q.shape[3], v.shape[3])
+
+
+def pick_backward_route(dtype: torch.dtype, D: int, Dv: int) -> str:
+    """Which kernel takes a backward call: ``"sm90"`` (the tensor-core
+    kernel) for bf16, ``"simple"`` (the CUDA-core kernel) for f32, both at
+    (D, Dv) in :data:`BACKWARD_HEAD_DIMS`; raises for any other form.  (A
+    tensor-core f32 path, TF32, would miss f32's 1e-4 check.)"""
+    if (D, Dv) not in BACKWARD_HEAD_DIMS or dtype not in _SUFFIX:
         raise NotImplementedError(
-            f"the flash backward kernel takes bf16 or f32 at (D, Dv) in "
-            f"{BACKWARD_HEAD_DIMS}, got {q.dtype} at {dims} (other head "
+            f"the flash backward kernels take bf16 or f32 at (D, Dv) in "
+            f"{BACKWARD_HEAD_DIMS}, got {dtype} at {(D, Dv)} (other head "
             f"dims wait for ROADMAP B)")
+    return "sm90" if dtype == torch.bfloat16 else "simple"
 
 
-def flash_backward_cuda(q, k, v, o, do, *,
-                        softmax_scale: float | None = None):
-    """The gradient of causal attention ``o = attn(q, k, v)`` (q_start 0,
-    Sq = Skv) given ``do``, the output's gradient: returns ``(dq, dk, dv)``
-    in the inputs' dtype, by ``csrc/flash_backward.cu`` (a setup pass for
-    each row's log-sum-exp and rowsum(do * o), then the dK/dV and dQ
-    kernels).  All five inputs contiguous CUDA tensors of one dtype; q, o
-    and do ``(B, S, H, D)``, k and v ``(B, S, KV, D)``."""
+def backward_tiles(S: int) -> int:
+    """Tiles of :data:`BACKWARD_TILE` rows over a sequence of ``S``."""
+    return -(-S // BACKWARD_TILE)
+
+
+def backward_grid(B: int, S: int, H: int, KV: int) -> tuple[int, int]:
+    """Blocks of the tensor-core backward's two launches: ``(dQ, dK/dV)``,
+    one per (batch row, head, query tile) and per (batch row, KV head, key
+    tile)."""
+    n = backward_tiles(S)
+    return n * B * H, n * B * KV
+
+
+def dq_block(i: int, B: int, S: int, H: int) -> tuple[int, int, int]:
+    """``(b, h, query tile)`` of block ``i`` of the dQ launch, as the kernel
+    computes it: the last query tile (the most key tiles) over every
+    (batch row, head) first."""
+    r, pair = divmod(i, B * H)
+    return pair // H, pair % H, backward_tiles(S) - 1 - r
+
+
+def dkdv_block(i: int, B: int, S: int, KV: int) -> tuple[int, int, int]:
+    """``(b, KV head, key tile)`` of block ``i`` of the dK/dV launch: key
+    tile 0 (the most query tiles) over every (batch row, KV head) first."""
+    r, pair = divmod(i, B * KV)
+    return pair // KV, pair % KV, r
+
+
+def backward_smem_bytes() -> tuple[int, int]:
+    """Dynamic shared memory of the dQ and the dK/dV kernel: two resident
+    bf16 tiles, two tiles a stage of the ring (the dK/dV kernel's stages
+    also hold a query tile's f32 log-sum-exp and D), and 1024 bytes to
+    align the swizzled tiles."""
+    tile = BACKWARD_TILE * 64 * 2
+    dq = (2 + 2 * BACKWARD_DQ_STAGES) * tile + 1024
+    dkdv = (2 + 2 * BACKWARD_DKDV_STAGES) * tile \
+        + BACKWARD_DKDV_STAGES * 2 * BACKWARD_TILE * 4 + 1024
+    return dq, dkdv
+
+
+def _backward_args(q, k, v, o, do, softmax_scale):
+    """Check a backward call's five tensors (the training form, CUDA,
+    contiguous, one dtype, 16-byte aligned); returns ``(B, S, H, KV, D,
+    scale, dq, dk, dv)`` with the outputs allocated."""
     _check(q, k, v)
     check_backward(q, k, v)
     B, S, H, D = q.shape
@@ -515,6 +579,16 @@ def flash_backward_cuda(q, k, v, o, do, *,
                          f"{MAX_PAIRS}")
     scale = float(softmax_scale if softmax_scale is not None else D ** -0.5)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    return B, S, H, KV, D, scale, dq, dk, dv
+
+
+def flash_backward_simple_cuda(q, k, v, o, do, *,
+                               softmax_scale: float | None = None):
+    """The CUDA-core backward (``csrc/flash_backward.cu``: a setup pass for
+    each row's log-sum-exp and rowsum(do * o), then the dK/dV and dQ
+    kernels), bf16 or f32: the route of f32 calls."""
+    B, S, H, KV, D, scale, dq, dk, dv = _backward_args(q, k, v, o, do,
+                                                       softmax_scale)
     if q.numel() == 0:
         return dq, dk, dv
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -527,4 +601,50 @@ def flash_backward_cuda(q, k, v, o, do, *,
                        dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, S,
                        H, KV, D, scale, stream), "flash_backward")
     LAUNCHES["flash_backward"] += 1
+    BACKWARD_ROUTES["simple"] += 1
     return dq, dk, dv
+
+
+def flash_backward_sm90_cuda(q, k, v, o, do, *,
+                             softmax_scale: float | None = None):
+    """The tensor-core backward (``csrc/flash_backward_sm90.cu``: the dQ
+    kernel, which also writes each row's log-sum-exp and rowsum(do * o) to
+    f32 scratch, then the dK/dV kernel), bf16 only: the route of bf16
+    calls."""
+    B, S, H, KV, D, scale, dq, dk, dv = _backward_args(q, k, v, o, do,
+                                                       softmax_scale)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core backward takes bf16, got "
+                         f"{q.dtype}")
+    if q.numel() == 0:
+        return dq, dk, dv
+    spad = backward_tiles(S) * BACKWARD_TILE
+    lse = torch.empty((B, H, spad), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _library("flash_backward_sm90").repro_flash_backward_sm90
+    _build.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                       delta.data_ptr(), B, S, H, KV, D, v.shape[3], scale,
+                       stream), "flash_backward_sm90")
+    LAUNCHES["flash_backward"] += 1
+    BACKWARD_ROUTES["sm90"] += 1
+    return dq, dk, dv
+
+
+def flash_backward_cuda(q, k, v, o, do, *,
+                        softmax_scale: float | None = None):
+    """The gradient of causal attention ``o = attn(q, k, v)`` (q_start 0,
+    Sq = Skv) given ``do``, the output's gradient: returns ``(dq, dk, dv)``
+    in the inputs' dtype, by the kernel :func:`pick_backward_route` names
+    (bf16: :func:`flash_backward_sm90_cuda`; f32:
+    :func:`flash_backward_simple_cuda`).  All five inputs contiguous CUDA
+    tensors of one dtype; q, o and do ``(B, S, H, D)``, k and v ``(B, S,
+    KV, D)``."""
+    route = pick_backward_route(q.dtype, q.shape[3], v.shape[3])
+    if route == "sm90":
+        return flash_backward_sm90_cuda(q, k, v, o, do,
+                                        softmax_scale=softmax_scale)
+    return flash_backward_simple_cuda(q, k, v, o, do,
+                                      softmax_scale=softmax_scale)

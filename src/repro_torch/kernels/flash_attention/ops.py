@@ -24,14 +24,18 @@
 
 Under autograd (grad enabled and an input that requires a gradient),
 ``"auto"`` on the card and ``"cuda"`` take :class:`FlashAttentionFn`: the
-routed forward kernel, and the hand-written backward kernel
-(``csrc/flash_backward.cu``, ``kernel.flash_backward_cuda``) for the
-gradient.  It takes the training form only (causal, ``q_start`` 0,
-``kv_len = Skv = Sq``, no window; on the card (64, 64) heads) and raises
+routed forward kernel, and the hand-written backward
+(``kernel.flash_backward_cuda``, routed by ``kernel.pick_backward_route``:
+``csrc/flash_backward_sm90.cu`` on the tensor cores for bf16,
+``csrc/flash_backward.cu`` for f32) for the gradient.  It takes the
+training form only (causal, ``q_start`` 0, ``kv_len = Skv = Sq``, no
+window; on the card (64, 64) heads) and raises
 for any other call that needs a gradient on the card.  Without autograd
 (serving, under ``torch.no_grad()``) the call is the plain kernel launch
 it always was, so captured graphs and launch counts do not change.  The
-backward's plain version is :func:`flash_attention_backward_torch`;
+backward's plain version is :func:`flash_attention_backward_torch`, and
+:func:`flash_backward_tiled_torch` emulates the tensor-core kernel's
+tiles, sweeps and bf16 roundings;
 ``"torch"`` on any device differentiates ``_flash_torch`` with autograd.
 
 The split-K decode's plain versions are :func:`flash_decode_partials_torch`
@@ -311,7 +315,8 @@ class FlashAttentionFn(torch.autograd.Function):
     Skv``, no window) on the card, with a hand-written gradient: the
     forward is the routed forward kernel (``kernel.flash_attention_cuda``:
     the ``wgmma`` prefill in bf16, the simple kernel in f32) and the
-    backward the backward kernel (``kernel.flash_backward_cuda``).  It
+    backward the routed backward kernel (``kernel.flash_backward_cuda``:
+    the tensor-core kernel in bf16, the CUDA-core one in f32).  It
     saves q, k, v and the output for the backward (the log-sum-exp is
     recomputed there).  ``apply(q, k, v, softmax_scale)``; the caller
     (:func:`flash_attention`) has checked the form with
@@ -367,3 +372,91 @@ def flash_attention_backward_torch(q, k, v, o, do, *, softmax_scale=None):
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
     return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
+                               round_bf16=False):
+    """The tensor-core backward's decomposition (``csrc/flash_backward_
+    sm90.cu``) in plain torch ops, on tiles of ``kernel.BACKWARD_TILE``
+    rows, rows past S zero as the kernel's copies fill them:
+
+      * the dQ kernel, query tile by query tile: a first sweep over the
+        live key tiles for each row's log-sum-exp (base 2, of the scores
+        times ``scale * log2 e``, by an online max and sum), a second for
+        ``dS = P (dP - D)`` and ``dQ += dS K``;
+      * the dK/dV kernel, key tile by key tile: the G query heads of its
+        KV head in order, each over the query tiles at or after the keys,
+        ``dV += P^T dO`` and ``dK += dS^T Q``.
+
+    ``round_bf16`` rounds P and dS to bf16 where they enter a product, as
+    the kernel does; without it every value stays f32.  Sums are f32;
+    returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    B, S, H, D = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    G = H // KV
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    sl2 = scale * 1.4426950408889634
+    T = _kernel.BACKWARD_TILE
+    n = _kernel.backward_tiles(S)
+    rnd = (lambda t: t.bfloat16().float()) if round_bf16 else (lambda t: t)
+    pad = lambda t: F.pad(t.float(), (0, 0, 0, 0, 0, n * T - S))
+    qf = pad(q).reshape(B, n * T, KV, G, D)
+    dof = pad(do).reshape(B, n * T, KV, G, Dv)
+    kf, vf = pad(k), pad(v)
+    delta = (dof * pad(o).reshape(B, n * T, KV, G, Dv)).sum(-1)
+    pos = torch.arange(n * T, device=q.device)
+    tile = lambda t: slice(t * T, (t + 1) * T)
+
+    def live(rows, keys):                               # (queries, keys)
+        return (pos[rows][:, None] < S) & (pos[keys][None, :]
+                                           <= pos[rows][:, None])
+
+    lse = torch.zeros((B, n * T, KV, G), device=q.device)
+    dq = torch.zeros_like(qf)
+    for qt in range(n):
+        rows = tile(qt)
+        m = torch.full((B, T, KV, G), -_INF, device=q.device)
+        l = torch.zeros((B, T, KV, G), device=q.device)
+        for t in range(qt + 1):                          # sweep 1
+            s = torch.einsum("bqkgd,bckd->bqkgc", qf[:, rows],
+                             kf[:, tile(t)]) * sl2
+            s = torch.where(live(rows, tile(t))[:, None, None], s, -_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            ok = m_new > -_INF
+            ref = torch.where(ok, m_new, 0.0)
+            l = torch.where(ok, l * torch.exp2(m - ref)
+                            + torch.exp2(s - ref[..., None]).sum(-1), l)
+            m = m_new
+        ok = (pos[rows] < S)[:, None, None]
+        lse[:, rows] = torch.where(ok, m + torch.log2(l), 0.0)
+        for t in range(qt + 1):                          # sweep 2
+            s = torch.einsum("bqkgd,bckd->bqkgc", qf[:, rows],
+                             kf[:, tile(t)]) * sl2
+            dp = torch.einsum("bqkgd,bckd->bqkgc", dof[:, rows],
+                              vf[:, tile(t)])
+            p = torch.where(live(rows, tile(t))[:, None, None],
+                            torch.exp2(s - lse[:, rows, ..., None]), 0.0)
+            ds = rnd(p * (dp - delta[:, rows, ..., None]))
+            dq[:, rows] += torch.einsum("bqkgc,bckd->bqkgd", ds,
+                                        kf[:, tile(t)])
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for kt in range(n):
+        keys = tile(kt)
+        for g in range(G):
+            for qt in range(kt, n):
+                rows = tile(qt)
+                st = torch.einsum("bckd,bqkd->bkcq", kf[:, keys],
+                                  qf[:, rows, :, g]) * sl2
+                dpt = torch.einsum("bckd,bqkd->bkcq", vf[:, keys],
+                                   dof[:, rows, :, g])
+                lq = lse[:, rows, :, g].permute(0, 2, 1)[:, :, None]
+                dl = delta[:, rows, :, g].permute(0, 2, 1)[:, :, None]
+                pt = torch.where(live(rows, keys).T, torch.exp2(st - lq),
+                                 0.0)
+                dst = rnd(pt * (dpt - dl))
+                dv[:, keys] += torch.einsum("bkcq,bqkd->bckd", rnd(pt),
+                                            dof[:, rows, :, g])
+                dk[:, keys] += torch.einsum("bkcq,bqkd->bckd", dst,
+                                            qf[:, rows, :, g])
+    return ((dq[:, :S] * scale).reshape(B, S, H, D).to(q.dtype),
+            (dk[:, :S] * scale).to(k.dtype), dv[:, :S].to(v.dtype))

@@ -18,10 +18,14 @@ Inputs are made with numpy from a seed and handed to both packages:
     in place, and the manifests' path strings letter for letter;
   * a checkpoint written by ``repro.checkpoint.save`` restored by the port
     bit-equal, and the reverse;
+  * a smoke ``llama3.2-1b`` train state restored into one of another
+    ``d_ff`` raises ``ValueError`` (a leaf's shape is checked against the
+    state's, not only against the manifest);
   * ``FaultTolerantLoop`` and ``StepTimer``: the cases of
     ``tests/test_fault.py`` over the port's checkpoints.
 """
 
+import dataclasses
 import json
 import os
 import signal
@@ -45,7 +49,9 @@ from repro.optim.schedule import cosine_warmup as jcosine  # noqa: E402
 import repro_torch.checkpoint as tckpt  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.data import DataPipeline as TPipeline  # noqa: E402
+from repro_torch.launch.steps import make_optimizer  # noqa: E402
 from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.zoo import build_model  # noqa: E402
 from repro_torch.optim import adafactor as tadafactor  # noqa: E402
 from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.optim import grad_compress as tgc  # noqa: E402
@@ -310,6 +316,21 @@ def test_port_checkpoint_restores_in_repro(tmp_path):
     like = jax.tree.map(jnp.zeros_like, _jax_state(st))
     back = jckpt.restore(str(tmp_path), 4, like)
     _same(_torch_state(st), back)
+
+
+def test_restore_refuses_leaf_of_another_shape(tmp_path):
+    def state(cfg):
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        return {"params": params, "opt": make_optimizer(cfg).init(params)}
+
+    cfg = tconfigs.smoke("llama3.2-1b")
+    tckpt.save(str(tmp_path), 2, state(cfg))
+    other = state(dataclasses.replace(cfg, d_ff=2 * cfg.d_ff))
+    with pytest.raises(ValueError, match="shape"):
+        tckpt.restore(str(tmp_path), 2, other)
+    # the state of the same config still restores
+    tckpt.restore(str(tmp_path), 2, state(cfg))
 
 
 # ---------------------------------------------------------------- fault loop

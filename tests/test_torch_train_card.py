@@ -3,11 +3,15 @@ one): ``python -m pytest -m cuda tests/test_torch_train_card.py``.  It
 imports no JAX, which the card's machine does not have; the CPU tests of
 the same path against ``repro`` are in ``test_torch_train.py``.
 
-  * the backward kernel (``kernel.flash_backward_cuda``) against its plain
-    version ``flash_attention_backward_torch`` on the same inputs, f32 and
-    bf16, at S 17, 200 and 256 (G 4, D 64): f32 within 1e-4 of each
-    gradient's largest magnitude (sums in another order), bf16 within 4
-    ulps of it (both round one f32 sum to bf16);
+  * both backward kernels against their plain version
+    ``flash_attention_backward_torch`` on the same inputs, at S 17, 200 and
+    256 (G 4, D 64): the routed call (``kernel.flash_backward_cuda``: the
+    tensor-core kernel in bf16, the CUDA-core kernel in f32) and each
+    kernel's own wrapper where it takes the dtype (the CUDA-core kernel
+    in bf16 too); f32 within 1e-4 of each gradient's largest magnitude
+    (sums in another order), bf16 within 4 ulps of it (both round one f32
+    sum to bf16); the routed call counts one launch on the dtype's route;
+  * two runs of the tensor-core kernel bit-equal (no atomics);
   * ``FlashAttentionFn`` (what ``flash_attention`` takes under autograd on
     the card) against autograd of the plain forward, in f32;
   * ``wkv6`` and ``rglru`` raise ``NotImplementedError`` under autograd on
@@ -46,20 +50,42 @@ def _card_inputs(card, dtype, B, S, H, KV, D=64, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel,dtype", [
+    ("routed", "float32"), ("routed", "bfloat16"), ("sm90", "bfloat16"),
+    ("simple", "float32"), ("simple", "bfloat16")])
 @pytest.mark.parametrize("S", [17, 200, 256])
-def test_backward_kernel_matches_plain_on_card(card, dtype, S):
+def test_backward_kernel_matches_plain_on_card(card, kernel, dtype, S):
     from repro_torch.kernels.flash_attention import kernel as fk
     dt = getattr(torch, dtype)
+    fn = {"routed": fk.flash_backward_cuda,
+          "sm90": fk.flash_backward_sm90_cuda,
+          "simple": fk.flash_backward_simple_cuda}[kernel]
     q, k, v, do = _card_inputs(card, dt, 2, S, 8, 2)
     o = flash_attention(q, k, v, causal=True)
-    got = fk.flash_backward_cuda(q, k, v, o, do)
+    fk.reset_launches()
+    got = fn(q, k, v, o, do)
+    route = fk.pick_backward_route(dt, 64, 64) if kernel == "routed" \
+        else kernel
+    assert fk.BACKWARD_ROUTES == {"sm90": 0, "simple": 0, route: 1}
+    assert fk.LAUNCHES["flash_backward"] == 1
     want = flash_attention_backward_torch(q, k, v, o, do)
     for g, w in zip(got, want):
         scale = float(w.float().abs().max())
         tol = 1e-4 * scale if dt == torch.float32 else \
             4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
         assert float((g.float() - w.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [17, 200, 256])
+def test_backward_sm90_runs_bit_equal_on_card(card, S):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    q, k, v, do = _card_inputs(card, torch.bfloat16, 2, S, 8, 2, seed=S)
+    o = flash_attention(q, k, v, causal=True)
+    a = fk.flash_backward_sm90_cuda(q, k, v, o, do)
+    b = fk.flash_backward_sm90_cuda(q, k, v, o, do)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
