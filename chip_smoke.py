@@ -166,9 +166,11 @@ non-zero):
               ``ACTIVITIES``, in a trace that holds all of them), the u8
               arena write/read at the served leaves (one launch of each
               per leaf a decode token, by the launch counts; the kernels
-              found by name in a trace of their own; replayed warm and
-              with L2 flushed before each launch, against the bound, the
-              plain version and one torch copy), and its recurrence or
+              found by name in a trace of their own; replayed warm (each
+              time from a trace that holds every launch, else not
+              measured) and with L2 flushed before each launch, against
+              the bound, the plain version and one torch copy), and its
+              recurrence or
               attention kernel at
               decode and prefill shapes (attention: the routed kernel, the
               decode kernel at a device position, the
@@ -223,6 +225,32 @@ non-zero):
               versions and SDPA's forward and backward, the two backward
               kernels timed in turns (CUDA-core, tensor-core, tensor-core,
               CUDA-core).
+
+10. bridge -- (run after phase 6) the graph bridge
+              (``repro_torch/core/fx_bridge.py``): each function of
+              ``repro_torch/graphs/programs.py`` (``wide`` at x 64 x 64,
+              the rest at the bench's 64 x 128 f32, ``nas_cell`` also at
+              2048 x 1024, a 76 MB arena) traced to aten, scheduled
+              (host seconds printed) and run by ``compile_scheduled``
+              through one planned uint8 arena on the card, eagerly and
+              captured (``jit=True``): the program run once through the
+              arena kernels and once through their plain versions, each
+              in a zeroed arena, with bit-equal outputs and final arena
+              bytes; outputs bit-equal to the unscheduled function's
+              (the same aten ops on the same bytes), captured
+              bit-equal to eager (a replay, one with other inputs, a
+              replay's outputs kept), realized == optimal peak, arena >=
+              peak, ``exact`` where ``repro``'s is, the arena launches per
+              call (one write per threaded tensor, one read per op and
+              distinct threaded input) in each eager call, the capture's
+              count and the most complete of up to ``TRACE_TRIES`` traces
+              of a replay, both kernels launched; prints nodes, the
+              traced / Kahn / optimal / arena bytes, the caching
+              allocator's peak over one unscheduled call and over one
+              eager arena call (inputs counted in both), and us per call
+              (unscheduled, eager arena, captured; CUDA events, median of
+              20).  The ``arena_write``/``arena_read`` JSON rows carry the
+              bridge's launches per call (``bridge``).
 
 The kernels JSON (one entry per kernel) is printed third from last, the
 card's name and power limit second from last, and ``{"ok": true,
@@ -1366,6 +1394,224 @@ def phase_capture(rt, plans, inputs, rng):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the graph bridge (core/fx_bridge.py), run after phase 6
+# ---------------------------------------------------------------------------
+
+
+# (program, x shape): each of ``repro_torch.graphs.programs`` at the bench's
+# size (``wide``'s weights take 64 columns), and ``nas_cell`` at a size
+# whose 76 MB arena makes the copies real work
+BRIDGE_CASES = (("wide", (64, 64)), ("nas_cell", (64, 128)),
+                ("nas_like", (64, 128)), ("moe_fanout", (64, 128)),
+                ("branchy_residual", (64, 128)), ("mixed", (64, 128)),
+                ("nas_cell", (2048, 1024)))
+# where repro's bridge is exact (tests/test_jax_bridge.py:59 gates
+# nas_cell; tests/test_torch_fx_bridge.py holds the others' integers)
+BRIDGE_EXACT = ("wide", "nas_cell", "nas_like", "moe_fanout",
+                "branchy_residual")
+BRIDGE_REPS = 20
+
+
+def bridge_close(got, want) -> bool:
+    """Bit-equal: the scheduled program runs the unscheduled function's
+    aten ops on the same bytes, in another order."""
+    return got.dtype == want.dtype and torch.equal(got, want)
+
+
+def event_us(fn, reps=BRIDGE_REPS) -> float:
+    """Median us per call of ``fn()`` by CUDA events around each call
+    (the host's issue included), after two warm calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) * 1e3)
+    return statistics.median(times)
+
+
+def phase_bridge(dev, card) -> dict:
+    """The graph bridge on the card: each BRIDGE_CASES program traced,
+    scheduled (``schedule_fx``; host seconds) and run through the planned
+    uint8 arena by ``compile_scheduled``, eagerly and captured
+    (``jit=True``).  Checks, each fatal: the program through the arena
+    kernels against the same program through their plain versions (outputs
+    and final arena bytes bit-equal), outputs bit-equal to the unscheduled
+    function's on the card, eager and
+    captured bit-equal (a replay, and a replay with other inputs against
+    an eager run on those; a replay's outputs not overwritten by the next),
+    realized == optimal peak, arena >= peak, ``exact`` where repro's is,
+    and the arena launches per call (write: one per threaded tensor; read:
+    one per op and distinct threaded input) in each eager call, in the
+    capture's count and in the most complete of up to TRACE_TRIES traces
+    of a replay; both kernels launched.  Prints nodes, planning seconds,
+    the peaks, the caching allocator's peak over one call of the
+    unscheduled function and of the eager arena program, and us per call (unscheduled, eager arena,
+    captured).  Returns {case: record}."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.core import fx_bridge as fb
+    from repro_torch.graphs.programs import PROGRAMS
+    from repro_torch.kernels.arena import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = {}
+    for name, shape in BRIDGE_CASES:
+        case = f"{name} {shape[0]}x{shape[1]}"
+        fn, make_args = PROGRAMS[name]
+        args = make_args(torch.randn(shape, device=dev, generator=gen))
+        other = make_args(torch.randn(shape, device=dev, generator=gen))
+        t0 = time.perf_counter()
+        gm = fb.trace_fn(fn, *args)
+        _, rep = fb.schedule_fx(gm)
+        plan_s = time.perf_counter() - t0
+        n_nodes = len(fb.fx_to_graph(gm)[0])
+        torch.cuda.synchronize()
+
+        eager = fb.compile_scheduled(fn)
+        per_call = []
+        for a in (args, args, other):
+            reset_launches()
+            res = eager(*a)
+            torch.cuda.synchronize()
+            per_call.append(dict(LAUNCHES))
+        r = eager.report
+        want = {k: 0 for k in LAUNCHES}
+        want.update(write=r.n_arena_writes, read=r.n_arena_reads)
+        check(all(c == want for c in per_call),
+              f"bridge {case}: arena launches per eager call {per_call}, "
+              f"the program's {want}")
+        check(want["write"] > 0 and want["read"] > 0,
+              f"bridge {case}: an arena kernel was not launched: {want}")
+        check(r.realized_bytes == r.optimal_peak and r.realized_matches_plan,
+              f"bridge {case}: realized {r.realized_bytes} B != optimal "
+              f"peak {r.optimal_peak} B")
+        check(r.arena_bytes >= r.optimal_peak,
+              f"bridge {case}: arena {r.arena_bytes} B below the peak")
+        check(r.exact or name not in BRIDGE_EXACT,
+              f"bridge {case}: the plan fell back (exact=False)")
+        check((r.optimal_peak, r.arena_bytes) == (rep.optimal_peak,
+                                                 rep.arena_bytes),
+              f"bridge {case}: compile_scheduled's plan differs from "
+              f"schedule_fx's")
+
+        # each arena kernel against its plain version at this program's
+        # shapes and offsets: the same program on the same inputs, once
+        # through the kernels and once through the plain versions, each in
+        # its own zeroed arena; the aten ops between are the same calls on
+        # the same bytes, so outputs and final arena bytes are bit-equal
+        prog = eager.program
+        flat = [t for t in tree_leaves(args) if isinstance(t, torch.Tensor)]
+        arenas = {impl: torch.zeros(max(r.arena_bytes, 1), dtype=torch.uint8,
+                                    device=dev) for impl in ("auto", "torch")}
+        with torch.no_grad():
+            held = {impl: prog.run(arenas[impl], flat, impl=impl)
+                    for impl in arenas}
+        torch.cuda.synchronize()
+        check(all(torch.equal(k, p) for k, p in zip(held["auto"],
+                                                      held["torch"]))
+              and torch.equal(arenas["auto"], arenas["torch"]),
+              f"bridge {case}: the arena kernels' program differs from the "
+              f"plain versions' (outputs or final arena bytes)")
+
+        want_first = tree_leaves(fn(*args))
+        want_other = tree_leaves(fn(*other))
+        got_first = tree_leaves(eager(*args))
+        got_other = tree_leaves(res)
+        for got, ref in ((got_first, want_first), (got_other, want_other)):
+            check(len(got) == len(ref) and all(
+                bridge_close(g, w) for g, w in zip(got, ref)),
+                f"bridge {case}: the arena program's outputs are not "
+                f"bit-equal to the unscheduled function's: "
+                f"{[(g - w).abs().max().item() for g, w in zip(got, ref)]}")
+
+        cap = fb.compile_scheduled(fn, jit=True)
+        runs = {"first": cap(*args), "again": cap(*args)}
+        kept = [t.clone() for t in tree_leaves(runs["again"])]
+        runs["other"] = cap(*other)
+        torch.cuda.synchronize()
+        for key, y in runs.items():
+            ref = got_other if key == "other" else got_first
+            check(all(torch.equal(g, w)
+                      for g, w in zip(tree_leaves(y), ref)),
+                f"bridge {case} jit=True ({key}): not bit-equal to the "
+                f"eager arena program")
+        check(all(torch.equal(g, w) for g, w in zip(
+            tree_leaves(runs["again"]), kept)),
+            f"bridge {case}: a replay's output was overwritten by the next")
+        call = cap.program.capture
+        per_replay = {k: call.launches.get(k, 0) for k in LAUNCHES}
+        check(per_replay == want,
+              f"bridge {case}: launches per replay {per_replay}, the "
+              f"program's {want}")
+        traces, traced = [], {}
+        while len(traces) < 3 or (traced != per_replay
+                                  and len(traces) < TRACE_TRIES):
+            traces.append(device_profile(lambda: cap(*args)))
+            traced = max(({op: traced_copies(t[2], op)[1]
+                           for op in ARENA_KERNELS} for t in traces),
+                         key=lambda d: sum(d.values()))
+        check(traced == per_replay,
+              f"bridge {case}: the most complete of {len(traces)} traces of "
+              f"a replay holds {traced} arena kernels, the program launches "
+              f"{per_replay}")
+
+        # the caching allocator's peak over one call of the unscheduled
+        # function, its inputs counted as the arena holds them: what
+        # PyTorch takes for the same program
+        # and the same over one eager call of the arena program (its arena,
+        # the fresh tensors of its reads, each op's output before its
+        # write), from the same base: the bridge's own measured memory
+        in_bytes = sum(t.numel() * t.element_size() for t in flat)
+
+        def peak_of(call) -> int:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            call(*args)
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated(dev) - base + in_bytes
+
+        del arenas, held
+        alloc_peak, bridge_peak = peak_of(fn), peak_of(eager)
+        us = {"plain": event_us(lambda: fn(*args)),
+              "eager": event_us(lambda: eager(*args)),
+              "captured": event_us(lambda: cap(*args))}
+        rec = dict(nodes=n_nodes, plan_s=plan_s, original_peak=r.original_peak,
+                   kahn_peak=r.kahn_peak, optimal_peak=r.optimal_peak,
+                   arena_bytes=r.arena_bytes, exact=r.exact,
+                   realized_bytes=r.realized_bytes,
+                   n_env_bypassed=r.n_env_bypassed,
+                   launches_per_call={"write": want["write"],
+                                      "read": want["read"]},
+                   traced=traced, allocator_peak=alloc_peak,
+                   bridge_peak=bridge_peak, us=us)
+        out[case] = rec
+        say(f"bridge: {case}: {rec['nodes']} nodes, planned in "
+            f"{plan_s:.2f} s (host); traced / Kahn / optimal / arena "
+            f"{r.original_peak} / {r.kahn_peak} / {r.optimal_peak} / "
+            f"{r.arena_bytes} B, exact {r.exact}, realized == optimal; "
+            f"allocator peak (inputs counted) of one call: unscheduled "
+            f"{alloc_peak} B, eager arena program {bridge_peak} B; "
+            f"arena launches per call {rec['launches_per_call']} (eager, "
+            f"per replay and traced {traced}); kernels bit-equal to the "
+            f"plain versions in the program, outputs bit-equal to the "
+            f"unscheduled function's, captured bit-equal to eager; us per "
+            f"call (CUDA events, "
+            f"median of {BRIDGE_REPS}): unscheduled {us['plain']:.1f}, "
+            f"eager arena {us['eager']:.1f}, captured {us['captured']:.1f}"
+            f" [{card}]")
+    say(f"bridge: phase done in {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: serving each model at full width
 # ---------------------------------------------------------------------------
 
@@ -2077,14 +2323,18 @@ def record_launches(rt, plans, inputs):
     return [e for e in log if e[3] > 0]
 
 
-def time_replay(launches_of, fn, reps=20, one_launch=False):
+def time_replay(launches_of, fn, reps=20, one_launch=False,
+                complete=False):
     """(device ms, host-clock ms) per launch of ``fn`` over the recorded
     launches: the card's own time from the profiler (or, where no trace
     comes back, the CUDA events' time), and the time per call with the
     host's issue cost, from CUDA events around ``reps`` passes.  With
     ``one_launch`` (``fn`` launches one kernel a call) the device time is
     the mean over the kernels the trace holds, so a trace that lost some
-    of them does not read low."""
+    of them does not read low.  With ``complete`` (``fn`` makes one device
+    activity a call) the device time comes only from a trace that holds
+    every call's activity, taken up to TRACE_TRIES times, else it is None
+    (not measured)."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
     def one_pass():
@@ -2105,13 +2355,27 @@ def time_replay(launches_of, fn, reps=20, one_launch=False):
     # already takes a millisecond
     passes = 1 if call_ms * len(launches_of) > 1.0 else \
         max(1, min(reps, 64 // len(launches_of)))
-    prof = device_profile(lambda: [one_pass() for _ in range(passes)],
-                          required=False)
+    calls = passes * len(launches_of)
+    best = None
+    for _ in range(TRACE_TRIES if complete else 1):
+        prof = device_profile(lambda: [one_pass() for _ in range(passes)],
+                              required=False)
+        if prof is not None and (best is None or prof[1] > best[1]):
+            best = prof
+        if prof is None or not complete or prof[1] == calls:
+            break
+    if complete and (best is None or best[1] != calls):
+        held = "none" if best is None else (
+            f"at most {best[1]}, whose mean is "
+            f"{best[0] / best[1]:.3f} us (not used)")
+        say(f"timing: no trace of {getattr(fn, '__name__', fn)} held all "
+            f"{calls} of its activities ({held}); its device time is not "
+            f"measured")
+        return None, call_ms
     if prof is None:
         say(f"timing: no trace of {getattr(fn, '__name__', fn)}; its "
             f"device time below is the CUDA events' time per call")
         return call_ms, call_ms
-    calls = passes * len(launches_of)
     if one_launch:
         if prof[1] != calls:
             say(f"timing: the trace holds {prof[1]} of {calls} launches of "
@@ -2410,7 +2674,9 @@ def time_served_packing(plan, spans, by_name, card, dev):
         check(lo <= n_traced <= hi,
               f"{name}: {n_traced} launches of arena_{name}_kernel in the "
               f"most complete trace of {passes} x {len(spans)}")
-        ms, plain_ms, lib_ms = (time_replay(args, f)[0]
+        # one device activity a call: each time from a trace that holds
+        # all of them (a trace that lost some read below the DRAM bound)
+        ms, plain_ms, lib_ms = (time_replay(args, f, complete=True)[0]
                                 for f in (kern, plain, lib))
         cold, cold_plain, cold_lib, cold_again = (
             time_cold(args, f, flush) for f in (kern, plain, lib, kern))
@@ -2422,8 +2688,8 @@ def time_served_packing(plan, spans, by_name, card, dev):
             f"{len(spans)} launches, {t_us:.1f} us in all; {n_traced} in a "
             f"trace of {passes} passes; replayed, device us per launch: bound "
             f"{bound_ms * 1e3:.2f} (bytes, {2 * mean_n:.0f} B); warm: kernel "
-            f"{ms * 1e3:.2f}, plain {plain_ms * 1e3:.2f}, torch call "
-            f"{lib_ms * 1e3:.2f}; cold (L2 flushed before each launch): "
+            f"{fmt_us(ms)}, plain {fmt_us(plain_ms)}, torch call "
+            f"{fmt_us(lib_ms)}; cold (L2 flushed before each launch): "
             f"kernel {fmt_us(cold)} (again {fmt_us(cold_again)}), plain "
             f"{fmt_us(cold_plain)}, torch call {fmt_us(cold_lib)}; the cold "
             f"kernel reaches {share} of the bound [{card}]")
@@ -3581,6 +3847,9 @@ def main() -> int:
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     plans, inputs, launches, _, captured = phase_main(rng)
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+    bridge = phase_bridge(dev, card)
+    say("bridge: " + json.dumps(bridge) + f" [{card}]")
+    say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
     rows, decode, batched = [], {}, {}
     for arch in SERVES:            # one model on the card at a time
@@ -3627,6 +3896,12 @@ def main() -> int:
                         bucket=N_REQ,
                         launches_per_tick=b["tick"]["launches"][k],
                         us_per_launch=us, traced_launches=n)
+
+    # the bridge's arena launches per call, by case
+    for r in rows:
+        if r["name"] in ("arena_write", "arena_read"):
+            r["bridge"] = {case: rec["launches_per_call"][r["name"][6:]]
+                           for case, rec in bridge.items()}
 
     # the train path, the serving models' weights freed
     train_row, train_rec = phase_train(dev, card, err)

@@ -12,8 +12,9 @@ Public API:
                                                Graph.build takes
     dp_schedule, brute_force_schedule       -- Algorithm 1 + branch-and-bound
                                                pruning (+ oracle for tests)
-    pareto_schedule                         -- width-W latency x memory
-                                               frontier (DESIGN.md §12)
+    pareto_schedule, oracle_frontier        -- width-W latency x memory
+                                               frontier + its differential
+                                               oracle (DESIGN.md §12)
     adaptive_budget_schedule                -- Algorithm 2
     partition, partition_hierarchy          -- divide & conquer (flat and
     find_separators                            nested segment tree)
@@ -27,9 +28,14 @@ Public API:
                                                two-region serving layout
     plan_shared_arena, plan_coresidency     -- co-residency: K plans in one
                                                buffer (multi-tenant pool)
+    simulate_traffic                        -- Belady off-chip traffic model
     execute, execute_plan, compile_plan     -- run a schedule on the planned
                                                arena (realized footprint)
     pack_buffers, unpack_buffer             -- real tensors in a uint8 arena
+    trace_fn, fx_to_graph, schedule_fx      -- the graph bridge (fx_bridge):
+    serenity_transform, compile_scheduled      a PyTorch function's aten ops
+    analyze_fn, memory_aware_remat             reordered, and run through the
+                                               planned arena on the card
     schedule, schedule_order                -- deprecated kwarg shims onto
                                                plan()/PlanConfig
 """
@@ -57,6 +63,18 @@ from repro_torch.core.executor import (
     run_reference,
     unpack_buffer,
 )
+from repro_torch.core.fx_bridge import (
+    FxScheduleReport,
+    ScheduledProgram,
+    analyze_fn,
+    compile_scheduled,
+    fx_config,
+    fx_to_graph,
+    memory_aware_remat,
+    schedule_fx,
+    serenity_transform,
+    trace_fn,
+)
 from repro_torch.core.graph import (
     Graph,
     GraphError,
@@ -72,6 +90,10 @@ from repro_torch.core.heuristics import (
     dfs_schedule,
     greedy_schedule,
     kahn_schedule,
+)
+from repro_torch.core.ilp_oracle import (
+    OracleError,
+    oracle_frontier,
 )
 from repro_torch.core.partition import (
     PartitionNode,
@@ -123,6 +145,7 @@ from repro_torch.core.serenity import (
     schedule,
     schedule_order,
 )
+from repro_torch.core.traffic import TrafficResult, simulate_traffic
 
 __all__ = [
     "ArenaPlan",
@@ -130,10 +153,12 @@ __all__ = [
     "ExecutionResult",
     "ExecutorError",
     "FusedRegion",
+    "FxScheduleReport",
     "Graph",
     "GraphError",
     "Node",
     "NoSolutionError",
+    "OracleError",
     "OrderResult",
     "ParetoFrontier",
     "ParetoPoint",
@@ -145,18 +170,22 @@ __all__ = [
     "RealizedTracker",
     "RecomputeReport",
     "RewriteReport",
+    "ScheduledProgram",
     "ScheduleResult",
     "SearchTimeout",
     "Segment",
     "SerenityResult",
     "SharedArenaPlan",
     "SimResult",
+    "TrafficResult",
     "adaptive_budget_schedule",
+    "analyze_fn",
     "annotate_inplace",
     "best_heuristic_schedule",
     "brute_force_schedule",
     "canonical_hash",
     "compile_plan",
+    "compile_scheduled",
     "default_cache",
     "dfs_schedule",
     "dp_schedule",
@@ -164,13 +193,17 @@ __all__ = [
     "execute_plan",
     "find_separators",
     "fuse_alias_chains",
+    "fx_config",
+    "fx_to_graph",
     "graph_flops",
     "graph_to_specs",
     "greedy_schedule",
     "kahn_schedule",
     "labeled_fingerprint",
+    "memory_aware_remat",
     "node_costs",
     "node_flops",
+    "oracle_frontier",
     "pack_buffers",
     "pareto_schedule",
     "partition",
@@ -189,10 +222,14 @@ __all__ = [
     "rewrite_graph",
     "run_reference",
     "schedule",
+    "schedule_fx",
     "schedule_order",
+    "serenity_transform",
     "simulate_schedule",
     "simulate_steps",
+    "simulate_traffic",
     "steps_makespan",
+    "trace_fn",
     "translate_order",
     "unpack_buffer",
     "wl_colors",

@@ -37,6 +37,15 @@ res = rt.execute(p.graph, None, p.arena, order=p.order, fuse=True,
                  device="cpu")
 assert res.realized_matches_plan
 import torch
+from repro_torch.core import fx_bridge, ilp_oracle, traffic
+from repro_torch.graphs.programs import nas_like
+f = fx_bridge.compile_scheduled(nas_like, device="cpu")
+y = f(torch.linspace(-1, 1, 16 * 32).reshape(16, 32))
+assert f.report.realized_matches_plan and torch.isfinite(y)
+assert traffic.simulate_traffic(p.graph, p.order, p.peak_bytes,
+                                include_weights=False).total_bytes == 0
+assert ilp_oracle.oracle_frontier(randwire_graph(n=6, seed=1),
+                                  max_width=2)
 import repro_torch.configs as configs
 from repro_torch.launch.serve import run_server, synth_requests
 from repro_torch.models import build_model
