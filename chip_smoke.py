@@ -78,7 +78,15 @@ non-zero):
               window, a small f32 one): partials and output against the
               plain versions at the same positions and the oracle, each
               row against the oracle of the row alone, and every row at
-              one position bit-equal to the 0-d launch;
+              one position bit-equal to the 0-d launch; and the decode
+              past 16 rows, in row blocks of 16, at granite-20b's shape
+              (H 48, KV 1, D 128, cache 1056), bf16 and f32: host
+              positions (with a garbage tail), 0-d device positions from
+              0 to the last and a position per row of bucket 4, the
+              cache beyond each position garbage, partials and output
+              against the plain versions and the oracle (and 2 queries
+              of 24 heads, row blocks across the queries, with a
+              window);
 4. wkv6    -- hold the WKV-6 kernel against its plain version on the card:
               bf16 and f32, N 16/32/64, batch 1 at T 1/7/256/1000/1024
               with and without an initial state, and batch 2 at T 1000
@@ -148,7 +156,23 @@ non-zero):
               the batched path's count, the peak reserved bytes 4 arenas,
               and the logits of LOGIT_STEPS batched steps of 4 rows at
               their own positions against each row's serial step (f32,
-              and bf16 as served at the model's tolerance);
+              and bf16 as served at the model's tolerance); then this
+              slice's decoders at published width, one at a time:
+              ``granite-moe-3b-a800m`` through the same checks, the
+              timing phase and the vmap run (its logits held with each
+              plain run routed and gated as its kernels' run, the
+              routing flips counted with their top-K margins, which must
+              lie within ROUTE_TIE, and deliberately broken decode
+              kernels (CONTROLS) reading above each logit atol), and
+              ``gemma-7b``, ``starcoder2-7b``, ``granite-20b`` and
+              ``chameleon-34b`` lighter: the plan's integers, launches,
+              served packing, tokens bit-equal to the arena-free loop,
+              bf16 logits against the plain versions at their own atol,
+              f32 logits at a cut depth (CUT_LAYERS) at CUT_ATOL32, with
+              the controls above each, and the
+              timing phase's prefill and decode times (granite-20b's
+              decode runs the row-blocked kernel, timed at its served
+              shapes beside its bound, plain version and SDPA);
 8. timing  -- microseconds per ``execute`` of the two full networks, eager
               and captured (``jit=True``) in turns, each with the device's
               busy time and idle share, and per
@@ -260,6 +284,7 @@ non-zero before printing any of them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -328,6 +353,49 @@ SERVES = {
         plan={"arena_bytes": 22_728_708, "resident_extent": 21_694_468,
               "transient_bytes": 1_034_240, "n_buffers": 89}),
 }
+# this slice's decoders, served at published width (4 requests of 1024
+# prompt tokens + GEN) after the three models above: the MoE decoder in
+# full (serve, timing, vmap), the dense ones lighter (serve, logits in bf16
+# against the plain versions, ms per token; logits in f32 at a cut depth,
+# ``check_cut_f32``); the decode plans' integers from the JAX package at
+# smax 1056.  Each bf16 atol lies between the readings of the sound kernels
+# and of the ``CONTROLS`` named in ``bf16_controls`` (on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, two prompts): granite-moe, each plain run routed
+# and gated as its kernels' run, 0.172 and 0.1875 (the batched step vs the
+# serial one 0.215), a softmax scale 5% off 1.419 and 1.447, query head 0
+# zeroed 4.25 and 3.71 (the bf16 rounding of the hidden state still moves
+# every expert's input through 32 layers; the f32 runs agree to 5e-5);
+# the dense ones 0.035-0.047, query head 0 zeroed 0.537-1.471 (gemma 1.471
+# and 1.279, starcoder2 0.703 and 0.812, granite-20b 0.686 and 0.723,
+# chameleon 0.537 and 0.543).  A subtler fault (every decode output 2^-6
+# too large, or a softmax scale 5% off) reads 0.047-0.068 in their bf16
+# logits, inside the rounding: the f32 checks are what hold it.
+DECODERS = {
+    "granite-moe-3b-a800m": dict(
+        prompt=1024, logit_atol=0.5, bf16_controls=("head0_zeroed",
+                                                   "q_x1.05"),
+        plan={"arena_bytes": 69_408_784, "resident_extent": 69_206_020,
+              "transient_bytes": 202_764, "n_buffers": 101}),
+    "gemma-7b": dict(
+        prompt=1024, logit_atol=0.15, bf16_controls=("head0_zeroed",),
+        plan={"arena_bytes": 485_478_404, "resident_extent": 484_442_116,
+              "transient_bytes": 1_036_288, "n_buffers": 89}),
+    "starcoder2-7b": dict(
+        prompt=1024, logit_atol=0.15, bf16_controls=("head0_zeroed",),
+        plan={"arena_bytes": 69_421_060, "resident_extent": 69_206_020,
+              "transient_bytes": 215_040, "n_buffers": 101}),
+    "granite-20b": dict(
+        prompt=1024, logit_atol=0.15, bf16_controls=("head0_zeroed",),
+        plan={"arena_bytes": 28_336_132, "resident_extent": 28_114_948,
+              "transient_bytes": 221_184, "n_buffers": 161}),
+    "chameleon-34b": dict(
+        prompt=1024, logit_atol=0.15, bf16_controls=("head0_zeroed",),
+        plan={"arena_bytes": 207_912_964, "resident_extent": 207_618_052,
+              "transient_bytes": 294_912, "n_buffers": 149}),
+}
+SERVES.update(DECODERS)
+FAMILIES = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
+MOE_ARCH = "granite-moe-3b-a800m"
 RG_RTOL = RG_ATOL = 1e-5           # rglru f32: exp of two libraries
 # device activities per decode token with one request in flight, counted in
 # traces that hold the step's first kernels (``device_profile``'s lead), as
@@ -997,8 +1065,167 @@ def phase_flash_split(dev, gen):
             f"within the flash tolerance of the oracle of the row alone; "
             f"all rows at {positions[-1]}: bit-equal to the 0-d launch")
     torch.cuda.synchronize()
+    worst_rb = phase_row_blocked(dev, gen, hold)
     return {"decode partials": worst, "decode at a device position":
-            worst_dev, "decode at row positions": worst_rows}
+            worst_dev, "decode at row positions": worst_rows,
+            "decode in row blocks": worst_rb}
+
+
+# granite-20b's served decode: 48 query heads over one KV head of D 128,
+# the cache of 1024 + 32 positions; the split-K decode runs it in
+# ceil(48 / 16) = 3 row blocks
+G20_H, G20_D, G20_SMAX = 48, 128, 1056
+
+
+def phase_row_blocked(dev, gen, hold):
+    """The split-K decode past 16 rows (row blocks of 16, each (pair, row
+    block) merged on its own) at granite-20b's shape, bf16 and f32: at
+    host positions (the last, and a tail at 500 of the cache with finite
+    garbage beyond it) at the rule's splits and at 7 and 64; at a 0-d
+    device position from 0 to the last (the capacity rule; bit-equal to
+    the host-position launch wherever the host rule splits alike), the
+    cache beyond each position garbage; at a position per row (bucket 4,
+    garbage beyond each row's position), each row against the oracle of
+    the row alone and all rows at one position bit-equal to the 0-d
+    launch; and 2 queries of 24 heads (row blocks that straddle the two
+    queries) with a window at device positions.  Every launch's partials
+    against ``flash_decode_partials_torch``, its output against their
+    merge and the oracle (``hold``); garbage never leaks.  Returns the
+    worst output error."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_decode_partials_torch,
+    )
+
+    H, D, Skv = G20_H, G20_D, G20_SMAX
+    check(FK.row_blocks(1, H) == 3
+          and FK.pick_route(1, H, torch.bfloat16, D, D, device_pos=True)
+          == "decode"
+          and FK.pick_route(1, H, torch.bfloat16, D, D) == "prefill",
+          "the row-blocked decode's route rule")
+    worst, n_launch = 0.0, 0
+
+    def garbage(t, start):
+        """``t`` with rows from ``start`` on (per batch row: a list) set to
+        finite garbage."""
+        t = t.clone()
+        starts = start if isinstance(start, list) else [start] * len(t)
+        for b, s0 in enumerate(starts):
+            t[b, s0:] = 1e4
+        return t
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        q = torch.randn(1, 1, H, D, device=dev, generator=gen).to(dtype)
+        k = torch.randn(1, Skv, 1, D, device=dev, generator=gen).to(dtype)
+        v = torch.randn(1, Skv, 1, D, device=dev, generator=gen).to(dtype)
+        # host positions
+        for name, qs, kvl in (("last", Skv - 1, Skv), ("tail", 499, 500)):
+            kw = dict(q_start=qs, kv_len=kvl)
+            args = dict(causal=True, window=None, **kw)
+            for splits in (None, 7, 64):
+                got = FK.flash_decode_cuda(q, k, v, splits=splits, **args)
+                want = flash_decode_partials_torch(q, k, v, splits=splits,
+                                                   **kw)
+                what = (f"row-blocked flash_decode {dn} {name} at host "
+                        f"position {qs}, splits {splits}")
+                e = hold(what, q, k, v, got, want, kw, dtype)[3:5]
+                worst, n_launch = max(worst, *e), n_launch + 1
+                if kvl < Skv:
+                    dirty = FK.flash_decode_cuda(
+                        q, garbage(k, kvl), garbage(v, kvl), splits=splits,
+                        **args)[0]
+                    check(torch.equal(dirty, got[0]),
+                          f"{what}: garbage beyond kv_len leaked")
+        # a 0-d device position, the cache beyond it garbage
+        cap = FK.capacity_splits(1, 1, 1, H, D, Skv=Skv, causal=True,
+                                 window=None)
+        same_host = 0
+        for t in (0, 31, 32, 500, 1023, 1024, 1040, Skv - 1):
+            pos = torch.full((), t, dtype=torch.long, device=dev)
+            kd, vd = garbage(k, t + 1), garbage(v, t + 1)
+            got = FK.flash_decode_cuda(q, kd, vd, causal=True, window=None,
+                                       q_start=pos)
+            want = flash_decode_partials_torch(q, k, v, causal=True,
+                                               window=None, q_start=pos)
+            what = f"row-blocked flash_decode {dn} at device position {t}"
+            check(got[1].shape[2] == cap[0],
+                  f"{what}: {got[1].shape[2]} splits, the rule {cap[0]}")
+            ref_kw = dict(causal=True, window=None, q_start=t, kv_len=t + 1)
+            e = hold(what, q, k, v, got, want, ref_kw, dtype)[3:5]
+            worst, n_launch = max(worst, *e), n_launch + 1
+            clean = FK.flash_decode_cuda(q, k, v, causal=True, window=None,
+                                         q_start=pos)[0]
+            check(torch.equal(clean, got[0]),
+                  f"{what}: garbage beyond the position leaked")
+            host = FK.decode_splits(1, 1, 1, H, D, causal=True, window=None,
+                                    q_start=t, kv_len=t + 1)
+            if (host[0], host[2]) == cap:
+                check(torch.equal(got[0], FK.flash_decode_cuda(
+                    q, k, v, **ref_kw)[0]),
+                    f"{what}: not bit-equal to the host-position launch of "
+                    f"the same splits")
+                same_host += 1
+        # a position per row: bucket 4, garbage beyond each row's position
+        positions = [3, 500, 1023, Skv - 1]
+        B = len(positions)
+        qb = torch.randn(B, 1, H, D, device=dev, generator=gen).to(dtype)
+        kb = torch.randn(B, Skv, 1, D, device=dev, generator=gen).to(dtype)
+        vb = torch.randn(B, Skv, 1, D, device=dev, generator=gen).to(dtype)
+        pos = torch.tensor(positions, dtype=torch.long, device=dev)
+        ends = [t + 1 for t in positions]
+        got = FK.flash_decode_cuda(qb, garbage(kb, ends), garbage(vb, ends),
+                                   causal=True, window=None, q_start=pos)
+        want = flash_decode_partials_torch(qb, kb, vb, causal=True,
+                                           window=None, q_start=pos)
+        what = f"row-blocked flash_decode {dn} at row positions {positions}"
+        e = hold(what, qb, kb, vb, got, want,
+                 dict(causal=True, window=None, q_start=pos), dtype)[3:5]
+        worst, n_launch = max(worst, *e), n_launch + 1
+        for b, t in enumerate(positions):
+            e_row, ok = fa_err(got[0][b:b + 1], flash_attention(
+                qb[b:b + 1], kb[b:b + 1], vb[b:b + 1], impl="ref",
+                causal=True, q_start=t, kv_len=t + 1))
+            check(ok, f"{what}: row {b} vs the oracle of the row alone: "
+                      f"{e_row}")
+        one = torch.full((), positions[-1], dtype=torch.long, device=dev)
+        check(torch.equal(
+            FK.flash_decode_cuda(qb, kb, vb, causal=True, window=None,
+                                 q_start=torch.full_like(pos, Skv - 1))[0],
+            FK.flash_decode_cuda(qb, kb, vb, causal=True, window=None,
+                                 q_start=one)[0]),
+            f"{what}: every row at one position is not bit-equal to the 0-d "
+            f"launch")
+        say(f"flash: row-blocked split-K decode ({dn}, H {H}, KV 1, D {D}, "
+            f"{FK.row_blocks(1, H)} row blocks, cache {Skv}): host positions "
+            f"(last; tail at 500 with garbage beyond) at the rule's, 7 and "
+            f"64 splits, device positions (the capacity rule, {cap[0]} "
+            f"splits of {cap[1]} tiles; {same_host} bit-equal to the host "
+            f"launch of the same splits) and row positions {positions}, "
+            f"garbage beyond each position: partials within the plain "
+            f"version's tolerance, output vs plain merge and oracle within "
+            f"the flash tolerance, no garbage leaked")
+    # 2 queries of 24 heads: 48 rows whose second row block holds rows of
+    # both queries, with a window, at device positions
+    dtype = torch.float32
+    q = torch.randn(1, 2, 24, 64, device=dev, generator=gen)
+    k = torch.randn(1, 300, 1, 64, device=dev, generator=gen)
+    v = torch.randn(1, 300, 1, 64, device=dev, generator=gen)
+    for t in (0, 39, 40, 41, 150, 298):
+        pos = torch.full((), t, dtype=torch.long, device=dev)
+        got = FK.flash_decode_cuda(q, k, v, causal=True, window=40,
+                                   q_start=pos)
+        want = flash_decode_partials_torch(q, k, v, causal=True, window=40,
+                                           q_start=pos)
+        e = hold(f"row-blocked flash_decode Sq 2 G 24 window 40 at {t}", q,
+                 k, v, got, want, dict(causal=True, window=40, q_start=t,
+                                       kv_len=t + 2), dtype)[3:5]
+        worst, n_launch = max(worst, *e), n_launch + 1
+    torch.cuda.synchronize()
+    say(f"flash: row-blocked split-K decode: {n_launch} launches held, "
+        f"worst output error {worst:.3e}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1734,30 +1961,164 @@ def direct_decode(model, params, prompt, n_steps, dev, *, impl="auto",
     return toks, outs
 
 
-def check_logits(model, params, prompt, dev):
+class RouteLog:
+    """The MoE's routing over eager forwards: while open, every
+    ``moe_dispatch`` of ``repro_torch.models.layers`` records its own
+    top-K experts and their gates (``routes``, one ``(idx, gate)`` pair of
+    ``(G, N, K)`` tensors a call) and each token's top-K margin, the K-th
+    minus the (K+1)-th router probability (``margin``).  With ``force``
+    (the ``routes`` of another run, call by call) each call takes the
+    forced experts and the forced gates instead of its own, and counts
+    the tokens whose own top-K set differs from the forced one (a flip)
+    with their margins.  A flip swaps one expert's output for another's,
+    and a gate computed from another run's router carries that run's
+    rounding into the expert mix: forcing one run's routing and gates on
+    the other keeps both out of a comparison of the kernels, and the
+    flips are counted beside it.  Captured replays run no Python and
+    record nothing."""
+
+    def __init__(self, force=None):
+        self.force = None if force is None else iter(force)
+        self.routes, self.margin, self.flip_margins = [], [], []
+        self.flips = 0
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._L, self._orig = L, L.moe_dispatch
+        L.moe_dispatch = self._dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self._L.moe_dispatch = self._orig
+
+    def _dispatch(self, probs, cfg, capacity_factor):
+        L, K = self._L, cfg.n_experts_per_tok
+        top = torch.topk(probs, K + 1, dim=-1).values
+        margin = top[..., K - 1] - top[..., K]
+        gate, idx = L.moe_route(probs, K)
+        self.routes.append((idx, gate))
+        self.margin.append(margin)
+        if self.force is not None:
+            want, want_gate = next(self.force)
+            flip = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+            self.flips += int(flip.sum())
+            self.flip_margins += margin[flip].tolist()
+            idx, gate = want, want_gate
+        return (gate, idx, *L.moe_slots(idx, cfg, capacity_factor))
+
+    def rows(self, b):
+        """The routes of batch row ``b`` alone (per-row dispatch groups)."""
+        return [(i[b:b + 1], g[b:b + 1]) for i, g in self.routes]
+
+    def summary(self) -> dict:
+        """Routed (token, layer) pairs, the smallest top-K margin met,
+        flips against the forced routing and the largest margin at a
+        flip."""
+        m = torch.cat([x.reshape(-1) for x in self.margin])
+        return dict(routed=int(m.numel()), min_margin=float(m.min()),
+                    flips=self.flips,
+                    max_flip_margin=max(self.flip_margins, default=0.0))
+
+
+def _routed(moe, force=None):
+    return RouteLog(force) if moe else contextlib.nullcontext()
+
+
+# deliberately broken decode kernels that a decoder's logit checks must
+# catch (each reading above the check's atol): query head 0's output
+# zeroed; every decode output a relative 2^-6 too large (four bf16 ulps, as
+# a softmax denominator 1.6% short would make it); the softmax scale 5% off
+# (q scaled by 1.05).  Every f32 check holds all three, a bf16 check those
+# of its model's ``bf16_controls``.
+CONTROLS = {
+    "head0_zeroed": lambda call, q: call(q).index_fill_(2, torch.tensor(
+        [0], device=q.device), 0),
+    "out_x(1+2^-6)": lambda call, q: call(q).mul_(1 + 2 ** -6),
+    "q_x1.05": lambda call, q: call(q * 1.05),
+}
+
+
+@contextlib.contextmanager
+def broken_decode(fault):
+    """Every decode call (Sq = 1) of the flash wrapper through ``fault``
+    (a ``CONTROLS`` entry) while open."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    orig = FK.flash_attention_cuda
+
+    def broken(q, k, v, **kw):
+        call = lambda qq: orig(qq, k, v, **kw)
+        return fault(call, q) if q.shape[1] == 1 else call(q)
+
+    FK.flash_attention_cuda = broken
+    try:
+        yield
+    finally:
+        FK.flash_attention_cuda = orig
+
+
+def check_logits(model, params, prompt, dev, f32=True, bf16=True):
     """Prefill + LOGIT_STEPS decode steps through the kernels and through
-    the plain versions, in bf16 as served and with params and cache in
-    f32, every run fed the kernels' bf16 greedy tokens; returns the max
-    abs logit differences (bf16 kernels vs plain, f32 kernels vs plain,
-    bf16 plain vs f32 plain) and the max |logit|."""
+    the plain versions, in bf16 as served (``bf16``) and (``f32``) with
+    params and cache in f32, every run fed the kernels' bf16 greedy tokens
+    (the f32 runs their own f32 kernels' tokens without ``bf16``); returns
+    the max abs logit differences (bf16 kernels vs plain, f32 kernels vs
+    plain, bf16 plain vs f32 plain; None where not run), the max |logit|
+    and a dict: for a model of ``DECODERS``, ``controls``, the runs with a
+    deliberately broken decode kernel against the plain run, which the
+    checks' limits must catch (in f32 every one of ``CONTROLS``, in bf16
+    the model's ``bf16_controls``);
+    for an MoE model also the routing (``RouteLog``): each plain run (and
+    each broken run) routed and gated as its kernels' run, its own flips
+    counted (bf16 and f32)."""
     from repro_torch.models.params import tree_map
-    toks, auto = direct_decode(model, params, prompt, LOGIT_STEPS, dev)
-    check(all(bool(torch.isfinite(a).all())
-              and a.shape == (1, model.cfg.vocab_size) for a in auto),
-          "logits not finite or of the wrong shape")
-    forced = toks[:LOGIT_STEPS]
-    _, plain = direct_decode(model, params, prompt, LOGIT_STEPS, dev,
-                             impl="torch", forced=forced)
-    p32 = tree_map(lambda t: t.float(), params)
-    runs32 = [direct_decode(model, p32, prompt, LOGIT_STEPS, dev, impl=impl,
-                            forced=forced, dtype=torch.float32)[1]
-              for impl in ("auto", "torch")]
-    del p32
-    torch.cuda.empty_cache()
+    moe = bool(model.cfg.n_experts)
+    controls = model.cfg.name in DECODERS
     diff = lambda xs, ys: max(float((a - b).abs().max())
                               for a, b in zip(xs, ys))
-    return (diff(auto, plain), diff(*runs32), diff(plain, runs32[1]),
-            max(float(a.abs().max()) for a in auto))
+    routes = {"controls": {}} if controls else {}
+    e = e32 = gap = plain = forced = None
+    peak = 0.0
+
+    def held(p, dtype, key, names):
+        # the kernels' run, the plain run routed as it, and the controls
+        nonlocal forced
+        with _routed(moe) as rec:
+            toks, auto = direct_decode(model, p, prompt, LOGIT_STEPS, dev,
+                                       forced=forced, dtype=dtype)
+        check(all(bool(torch.isfinite(a).all())
+                  and a.shape == (1, model.cfg.vocab_size) for a in auto),
+              "logits not finite or of the wrong shape")
+        if forced is None:
+            forced = toks[:LOGIT_STEPS]
+        force = rec.routes if moe else None
+        with _routed(moe, force) as prec:
+            _, ref = direct_decode(model, p, prompt, LOGIT_STEPS, dev,
+                                   impl="torch", forced=forced, dtype=dtype)
+        if moe:
+            routes[key] = prec.summary()
+            routes["kernels_" + key] = rec.summary()
+        if controls:
+            for name in names:
+                with broken_decode(CONTROLS[name]), _routed(moe, force):
+                    bad = direct_decode(model, p, prompt, LOGIT_STEPS, dev,
+                                        forced=forced, dtype=dtype)[1]
+                routes["controls"][f"{name} {key}"] = diff(bad, ref)
+        return auto, ref
+
+    if bf16:
+        auto, plain = held(params, None, "bf16", DECODERS.get(
+            model.cfg.name, {}).get("bf16_controls", ()))
+        e = diff(auto, plain)
+        peak = max(float(a.abs().max()) for a in auto)
+    if f32:
+        p32 = tree_map(lambda t: t.float(), params)
+        a32, t32 = held(p32, torch.float32, "f32", tuple(CONTROLS))
+        del p32
+        e32 = diff(a32, t32)
+        gap = None if plain is None else diff(plain, t32)
+        peak = max(peak, max(float(a.abs().max()) for a in a32))
+    torch.cuda.empty_cache()
+    return e, e32, gap, peak, routes
 
 
 def check_recurrence_matters(model, params, prompt, dev):
@@ -1842,12 +2203,17 @@ def check_served_packing(model, params, plan, req, dev):
 
 
 def phase_serve(dev, arch):
+    """One model behind ``run_server`` at its published width (see the
+    module's phase 7); a model of ``DECODERS`` other than the MoE one has
+    its logits held here in bf16 only (an f32 copy of its weights would not
+    fit beside them), and in f32 at a cut depth by ``check_cut_f32``."""
     import repro_torch.configs as configs
     from repro_torch.launch import serve as S
     from repro_torch.models.params import leaf_count, tree_leaves
     from repro_torch.models.zoo import build_model
 
     spec = SERVES[arch]
+    f32 = arch not in DECODERS or arch == MOE_ARCH
     prompt_len = spec["prompt"]
     cfg = configs.get(arch)
     model = build_model(cfg)
@@ -1863,9 +2229,13 @@ def phase_serve(dev, arch):
     n_params = sum(t.numel() for t in tree_leaves(params))
     check(n_params == leaf_count(model.defs),
           f"{n_params} parameters made, {leaf_count(model.defs)} defined")
-    say(f"serve: {arch} at full width, {n_params} parameters in bf16 "
+    free, total = torch.cuda.mem_get_info()
+    say(f"serve: {arch} at full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, H {cfg.n_heads}, KV {cfg.n_kv_heads}, D "
+        f"{cfg.head_dim}), {n_params} parameters in bf16 "
         f"({cfg.param_count()} without the norm scales) made on the card "
-        f"in {time.perf_counter() - t0:.3f} s; decode plan {got}, policy "
+        f"in {time.perf_counter() - t0:.3f} s; {free} of {total} B of "
+        f"device memory free beside them; decode plan {got}, policy "
         f"{plan['policy']} (the reference's integers)")
 
     budget = 4 * plan["arena_bytes"]      # the CLI's default budget
@@ -1909,26 +2279,122 @@ def phase_serve(dev, arch):
         check(toks == list(r.tokens),
               f"{arch} request {r.rid}: server tokens differ from the "
               f"arena-free loop")
-    e, e32, gap, peak = check_logits(model, params, reqs[0].prompt, dev)
+    e, e32, gap, peak, routing = check_logits(model, params, reqs[0].prompt,
+                                              dev, f32=f32)
     tol = spec["logit_atol"]
-    check(e32 <= LOGIT_ATOL32,
+    check(e32 is None or e32 <= LOGIT_ATOL32,
           f"{arch}: f32 logits of the kernels vs the plain versions: max "
           f"abs err {e32} > {LOGIT_ATOL32}")
     check(e <= tol, f"{arch}: bf16 logits of the kernels vs the plain "
                     f"versions: max abs err {e} > {tol}")
+    f32_said = f"at {CUT_LAYERS} layers below" if e32 is None else \
+        f"{e32:.3e} (atol {LOGIT_ATOL32})"
+    gap_said = "" if gap is None else \
+        f"; the plain versions' bf16 logits vs their f32 ones {gap:.3e}"
     say(f"serve: {arch}: tokens of all {N_REQ} requests bit-equal to the "
         f"arena-free prefill + decode loop; prefill + {LOGIT_STEPS} decode "
         f"steps' logits, kernels vs plain versions: f32 max abs err "
-        f"{e32:.3e} (atol {LOGIT_ATOL32}), bf16 {e:.3e} (atol {tol}); the "
-        f"plain versions' bf16 logits vs their f32 ones {gap:.3e}; max "
-        f"|logit| {peak:.3f}")
+        f"{f32_said}, bf16 {e:.3e} (atol {tol}){gap_said}; max |logit| "
+        f"{peak:.3f}")
+    if routing:
+        check_routes(arch, routing, tol, e)
     if cfg.attn_free or cfg.family == "hybrid":
         moved = check_recurrence_matters(model, params, reqs[0].prompt, dev)
         say(f"serve: {arch}: zeroing the carried state before the first "
             f"decode step moves the logits by {moved} (max abs)")
     return dict(model=model, params=params, plan=plan, reqs=reqs,
                 launches=launches, routes=routes, spans=spans, smax=smax,
-                metrics=m)
+                metrics=m, logit_err=dict(bf16=e, f32=e32), routing=routing)
+
+
+# the MoE's routing checks (RouteLog): a token whose own top-K set differs
+# between the kernels' run and the plain run, or the batched and the
+# serial step (a flip), may only have a top-K margin, the K-th minus the
+# (K+1)-th router probability, within ROUTE_TIE of its dtype, about twice
+# the most the rounding moved a router probability in the readings: f32
+# flips at margins up to 7.9e-7, bf16 up to 1.35e-2 (7,634 and 7,662 flips
+# of 33,024 routed tokens; on an NVIDIA H100 80GB HBM3 at 700.00 W)
+ROUTE_TIE = {"f32": 1e-5, "bf16": 3e-2}
+
+
+def check_routes(arch, routing, tol, e):
+    """A decoder's logit check against deliberately broken decode kernels
+    (``CONTROLS``): each one's logit error must lie above the check's
+    atol, ``tol`` in bf16 (which the kernels' own reading ``e`` lies
+    within) and LOGIT_ATOL32 in f32; for an MoE model the flips of each
+    plain run against its kernels' run (each plain run routed and gated
+    as the kernels' run), their margins within ``ROUTE_TIE``."""
+    for k in ("bf16", "f32"):
+        if k in routing:
+            r = routing[k]
+            check(r["max_flip_margin"] <= ROUTE_TIE[k],
+                  f"{arch}: a routing flip ({k}) between the kernels' and "
+                  f"the plain run at a top-K margin of "
+                  f"{r['max_flip_margin']} > {ROUTE_TIE[k]}")
+    limit = {"bf16": tol, "f32": LOGIT_ATOL32}
+    for name, bad in routing["controls"].items():
+        at = limit[name.rsplit(" ", 1)[1]]
+        check(bad > at, f"{arch}: the logits of a broken decode kernel "
+                        f"({name}) read {bad} vs the plain versions, within "
+                        f"the check's atol {at}: the check would not catch "
+                        f"it")
+    routed = "; ".join(f"{k} {v}" for k, v in routing.items()
+                       if k != "controls")
+    if routed:
+        routed = (f"; routing of prefill + {LOGIT_STEPS} decode steps, each "
+                  f"plain run routed and gated as its kernels' run: "
+                  f"{routed} (flips at top-K margins within {ROUTE_TIE})")
+    said = ", ".join(f"{k} {v:.3e}" for k, v in routing["controls"].items())
+    say(f"serve: {arch}: logits of the kernels vs the plain versions, bf16 "
+        f"{'not run' if e is None else f'{e:.3e}'} (atol {tol}), with a "
+        f"broken decode kernel: {said} (atol {tol} in bf16, {LOGIT_ATOL32} "
+        f"in f32){routed}")
+
+
+# the dense decoders' weights do not fit the card twice at full depth (an
+# f32 copy beside the bf16 one), so their kernels' f32 arithmetic (G 1 at D
+# 256, G 9, G 8 with qk-norm, G 48 in row blocks) is held at published
+# width over CUT_LAYERS layers, at CUT_ATOL32: the sound kernels read
+# 3.1e-6-7.2e-6 there, the subtlest of the CONTROLS (every decode output
+# 2^-6 too large) 5.4e-3-5.0e-2, and an output 2^-7 too large 2.7e-3-2.5e-2
+# (on an NVIDIA H100 80GB HBM3 at 700.00 W)
+CUT_LAYERS, CUT_ATOL32 = 4, 2e-4
+
+
+def check_cut_f32(arch, dev):
+    """``arch`` at published width and CUT_LAYERS layers, weights drawn on
+    the card from SEED and cast to f32: prefill + LOGIT_STEPS decode
+    steps' logits through the kernels against the plain versions within
+    CUT_ATOL32, each ``CONTROLS`` kernel reading above it."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve as S
+    from repro_torch.models.zoo import build_model
+
+    cfg = dataclasses.replace(configs.get(arch), n_layers=CUT_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompt = S.synth_requests(1, SERVES[arch]["prompt"], GEN,
+                              cfg.vocab_size, SEED + 1)[0].prompt
+    _, e32, _, peak, routing = check_logits(model, params, prompt, dev,
+                                            f32=True, bf16=False)
+    check(e32 <= CUT_ATOL32,
+          f"{arch} at {CUT_LAYERS} layers: f32 logits of the kernels vs the "
+          f"plain versions: max abs err {e32} > {CUT_ATOL32}")
+    for name, bad in routing["controls"].items():
+        check(bad > CUT_ATOL32,
+              f"{arch} at {CUT_LAYERS} layers: the f32 logits of a broken "
+              f"decode kernel ({name}) read {bad}, within {CUT_ATOL32}")
+    del model, params
+    torch.cuda.empty_cache()
+    say(f"serve: {arch} at published width, depth cut to {CUT_LAYERS} "
+        f"layers, params and cache in f32: prefill + {LOGIT_STEPS} decode "
+        f"steps' logits, kernels vs plain versions, max abs err {e32:.3e} "
+        f"(atol {CUT_ATOL32}), max |logit| {peak:.3f}; with a broken "
+        f"decode kernel " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                      routing["controls"].items()))
+    return dict(f32=e32, controls=routing["controls"])
 
 
 def hold_tokens(what, model, params, serial, batched, tol, dev):
@@ -1964,7 +2430,10 @@ def check_batched_logits(model, params, prompt, dev, f32, rows=N_REQ):
     kernels, both fed the batched step's greedy tokens: with params and
     cache in f32 (``f32``), or as served; the rows' prompts are cuts of
     ``prompt`` of different lengths, so that each row decodes at its own
-    position.  Returns the max abs logit difference and the lengths."""
+    position.  An MoE model's rows decoded alone are routed as the batched
+    step routed them (``RouteLog``), their own flips counted.  Returns the
+    max abs logit difference, the lengths and the flips' top-K margins
+    (an MoE model; else None)."""
     from repro_torch.models.params import is_def, tree_leaves, tree_map
     cast = (lambda c: tree_map(lambda t: t.float(), c)) if f32 else \
         (lambda c: c)
@@ -1985,14 +2454,20 @@ def check_batched_logits(model, params, prompt, dev, f32, rows=N_REQ):
         caches.append(c)
         toks.append(int(torch.argmax(logits, -1)[0]))
     worst = 0.0
+    moe = bool(model.cfg.n_experts)
+    flips = [] if moe else None
     for s in range(LOGIT_STEPS):
-        got, batched = model.decode_fn(
-            p32, batched, torch.tensor(toks, device=dev)[:, None],
-            torch.tensor([n + s for n in lens], device=dev))
+        with _routed(moe) as brec:
+            got, batched = model.decode_fn(
+                p32, batched, torch.tensor(toks, device=dev)[:, None],
+                torch.tensor([n + s for n in lens], device=dev))
         for b in range(rows):
-            want, caches[b] = model.decode_fn(
-                p32, caches[b], torch.tensor([[toks[b]]], device=dev),
-                lens[b] + s)
+            with _routed(moe, brec.rows(b) if moe else None) as srec:
+                want, caches[b] = model.decode_fn(
+                    p32, caches[b], torch.tensor([[toks[b]]], device=dev),
+                    lens[b] + s)
+            if moe:
+                flips += srec.flip_margins
             worst = max(worst, float((got[b] - want[0]).abs().max()))
         toks = [int(t) for t in torch.argmax(got, -1).tolist()]
     check(all(bool(torch.isfinite(t.float()).all())
@@ -2000,7 +2475,7 @@ def check_batched_logits(model, params, prompt, dev, f32, rows=N_REQ):
           f"{model.cfg.name}: the batched state is not finite")
     del p32, batched, caches
     torch.cuda.empty_cache()
-    return worst, lens
+    return worst, lens, flips
 
 
 #: the port's kernels in a trace, by the launch counts' names
@@ -2022,7 +2497,17 @@ def phase_serve_vmap(ctx, card, dev):
     a tick (the captured step's recorded counts plus one u8 read and write
     a leaf and row), the device's busy time, idle share and activities per
     tick, each kernel's us per launch in the tick's trace, and the row
-    staging copies.  Returns the numbers for the JSON."""
+    staging copies.  Returns the numbers for the JSON.
+
+    An MoE model's batched tokens cannot be held to the serial run's by
+    the top-1 margin: a routing flip between the batched and the serial
+    step moves the logits far beyond the rounding (the readings: a first
+    divergence at a serial top-1 margin of 1.45 on an NVIDIA H100 80GB
+    HBM3 at 700.00 W).
+    Its divergences from the serial run are recorded instead, its batched
+    logits are held routed alike (``check_batched_logits``), and the 4
+    requests' tokens of the captured vmap server must equal, bit for bit,
+    those of the same server with its batched step run eagerly."""
     from repro_torch.launch import serve as S
 
     model, params, plan, reqs = (ctx[k] for k in ("model", "params", "plan",
@@ -2047,8 +2532,9 @@ def phase_serve_vmap(ctx, card, dev):
               f"{name} vmap, {n} requests: served {m['n_served']}, "
               f"rejected {m['n_rejected']}, {m['n_tokens']} tokens, "
               f"concurrency {m['max_concurrent']}")
+        moe = bool(cfg.n_experts)
         ties = hold_tokens(f"{name} vmap", model, params, reqs[:n], vreqs,
-                           tol, dev)
+                           math.inf if moe else tol, dev)
         want = path_launches(cfg, n_cache, n, batched=True)
         for k, c in want.items():
             check(launches[k] == c, f"{name} vmap, {n} requests: {k} "
@@ -2065,23 +2551,57 @@ def phase_serve_vmap(ctx, card, dev):
             f"bucket 4{' (one padding row)' if n < 4 else ''}, peak reserved "
             f"{m['peak_reserved_bytes']} B = 4 arenas; tokens against the "
             f"serial run: {'all equal' if not ties else ties} (a divergence "
-            f"only where the serial top-1 margin < {tol}); launches over "
-            f"the run the batched path's count {launches} [{card}]")
+            f"only where the serial top-1 margin < "
+            f"{'inf, an MoE' if moe else tol}); launches over the run the "
+            f"batched path's count {launches} [{card}]")
         out[f"run_{n}"] = dict(wall_s=m["wall_s"], tok_per_s=m["tok_per_s"],
                                ticks=m["steps"], ties=ties,
                                peak_reserved_bytes=m["peak_reserved_bytes"])
+        if moe and n == N_REQ:
+            # the same server with its batched step eager
+            ereqs = S.synth_requests(n, len(reqs[0].prompt), GEN,
+                                     cfg.vocab_size, SEED + 1)
+            captured = S.CapturedBatchedDecodeStep
+            S.CapturedBatchedDecodeStep = S.BatchedDecodeStep
+            try:
+                S.run_server(model, params, ereqs, smax=smax,
+                             budget_bytes=budget, step_mode="vmap", warm=2)
+            finally:
+                S.CapturedBatchedDecodeStep = captured
+            check([list(r.tokens) for r in ereqs]
+                  == [list(r.tokens) for r in vreqs],
+                  f"{name} vmap: the captured server's tokens differ from "
+                  f"the same server's with its batched step eager")
+            say(f"serve: {name} vmap: the {n} requests' tokens of the "
+                f"captured server bit-equal to the same server's with its "
+                f"batched step run eagerly; against the serial run they "
+                f"diverge at (request, step, serial top-1 margin) {ties}, "
+                f"no limit (routing flips)")
 
-    e32, lens = check_batched_logits(model, params, reqs[0].prompt, dev,
-                                     f32=True)
-    e16, _ = check_batched_logits(model, params, reqs[0].prompt, dev,
-                                  f32=False)
+    e32, lens, f32_flips = check_batched_logits(
+        model, params, reqs[0].prompt, dev, f32=True)
+    e16, _, flips = check_batched_logits(model, params, reqs[0].prompt, dev,
+                                         f32=False)
     check(e32 <= LOGIT_ATOL32 and e16 <= tol,
           f"{name}: logits of the batched step vs the serial step: max abs "
           f"err f32 {e32} (atol {LOGIT_ATOL32}), bf16 {e16} (atol {tol})")
+    routed = ""
+    if flips is not None:
+        for k, f in (("f32", f32_flips), ("bf16", flips)):
+            check(max(f, default=0.0) <= ROUTE_TIE[k],
+                  f"{name}: a routing flip ({k}) between the batched and the "
+                  f"serial step at a top-K margin of {max(f, default=0.0)} "
+                  f"> {ROUTE_TIE[k]}")
+        routed = (f"; each row routed as the batched step routed it: "
+                  f"{len(f32_flips)} f32 and {len(flips)} bf16 flips of its "
+                  f"own, the largest top-K margins "
+                  f"{max(f32_flips, default=0.0):.3e} and "
+                  f"{max(flips, default=0.0):.3e} (within {ROUTE_TIE})")
+        out["route_flips"] = dict(f32=f32_flips, bf16=flips)
     say(f"serve: {name} vmap: {LOGIT_STEPS} batched decode steps of "
         f"{N_REQ} rows (prompts of {lens}) vs each row's serial step: max "
         f"abs logit err f32 {e32:.3e} (atol {LOGIT_ATOL32}), bf16 as served "
-        f"{e16:.3e} (atol {tol})")
+        f"{e16:.3e} (atol {tol}){routed}")
     out["logit_err_f32"], out["logit_err_bf16"] = e32, e16
 
     # one server's ticks at bucket 4
@@ -2702,11 +3222,11 @@ def time_served_packing(plan, spans, by_name, card, dev):
     return out
 
 
-def phase_serve_timing(ctx, card, dev):
+def phase_serve_timing(ctx, card, dev, packing=True):
     """Prefill ms per request, ms per decode token (host clock), the
     device's busy time and idle share over one prefill and one decode
-    token, and the u8 arena write/read at the served leaves, for one
-    served model."""
+    token, and (``packing``) the u8 arena write/read at the served leaves,
+    for one served model."""
     from repro_torch.launch import serve as S
     from repro_torch.launch.steps import make_prefill_step
 
@@ -2772,9 +3292,9 @@ def phase_serve_timing(ctx, card, dev):
         f"{1 - pre_us / (prefill_ms * 1e3):.4f}); device us by kernel "
         f"(count): " + "; ".join(f"{k[:60]} {t:.1f} ({n})"
                                   for k, (t, n) in pre_top) + f" [{card}]")
-    check(n_dev <= ACTIVITIES[name],
+    check(n_dev <= ACTIVITIES.get(name, n_dev),
           f"{name}: {n_dev} device activities per decode token, more than "
-          f"the limit of {ACTIVITIES[name]}")
+          f"the limit of {ACTIVITIES.get(name)}")
     check(server._captured.call is not None
           and server._captured.call.replays >= 8 + TOKEN_TRACES,
           f"{name}: the server's decode ticks did not replay its captured "
@@ -2813,12 +3333,103 @@ def phase_serve_timing(ctx, card, dev):
         f"{e_dev} activities), captured {busy_us:.1f} us (idle share "
         f"{1 - busy_us / (tok_ms * 1e3):.4f}, {n_dev} activities) "
         f"[{card}]")
-    out = time_served_packing(plan, ctx["spans"], by_name, card, dev)
+    out = time_served_packing(plan, ctx["spans"], by_name, card, dev) \
+        if packing else {}
     out["decode"] = dict(
         captured_ms=tok_ms, captured_min_ms=min(ms), captured_busy_us=busy_us,
         captured_activities=n_dev, eager_ms=e_ms, eager_min_ms=min(ems),
         eager_busy_us=e_busy, eager_activities=e_dev, prefill_ms=prefill_ms,
         prefill_busy_us=pre_us)
+    return out
+
+
+def decode_bound(cfg, card) -> dict:
+    """The least time a decode token's weights take to read at 3.35 TB/s:
+    every bf16 parameter once (``cfg.param_count()``; an MoE model in
+    ``repro``'s dense ``(E, cap, D)`` form reads every expert's), and for
+    an MoE model its active parameters alone
+    (``cfg.active_param_count()``: the K routed experts' of each layer;
+    both embeddings counted)."""
+    out = dict(weights_bound_ms=2 * cfg.param_count() / HBM_BYTES_PER_S
+               * 1e3)
+    if cfg.n_experts:
+        out["active_bound_ms"] = 2 * cfg.active_param_count() \
+            / HBM_BYTES_PER_S * 1e3
+    say(f"timing: serve {cfg.name}: a decode token's DRAM bound, its "
+        f"weights read once: " + ", ".join(f"{k[:-9]} {v:.3f} ms"
+                                            for k, v in out.items())
+        + f" [{card}]")
+    return out
+
+
+def row_blocked_timing(ctx, card, dev):
+    """The row-blocked split-K decode at granite-20b's served shapes: one
+    query of 48 heads over the cache of its one KV head (D 128, bf16), at a
+    0-d device position at the last step (the captured serial step's
+    launch) and at a position per row of bucket 4 (the batched step's):
+    the kernel's device us per launch, its bound, the plain version
+    (``impl="torch"`` at the same positions) and SDPA (the torch call)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    cfg = ctx["model"].cfg
+    H, KV, D, smax = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ctx["smax"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    out = {}
+    for label, B in (("serial", 1), ("bucket 4", N_REQ)):
+        q = torch.randn(B, 1, H, D, device=dev, generator=gen).bfloat16()
+        k = torch.randn(B, smax, KV, D, device=dev, generator=gen).bfloat16()
+        v = torch.randn(B, smax, KV, D, device=dev, generator=gen).bfloat16()
+        last = [smax - 1 - 7 * b for b in range(B)]
+        pos = torch.tensor(last, dtype=torch.long, device=dev)
+        if B == 1:
+            pos = pos[0]
+        mask = torch.arange(smax, device=dev)[None] <= pos.reshape(-1, 1)
+
+        def kern(q, k, v):
+            return FK.flash_decode_cuda(q, k, v, causal=True, window=None,
+                                        q_start=pos)[0]
+
+        def plain(q, k, v):
+            return flash_attention(q, k, v, impl="torch", q_start=pos)
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask[:, None, None, :],
+                enable_gqa=True).transpose(1, 2)
+
+        e, ok = fa_err(kern(q, k, v), plain(q, k, v))
+        check(ok, f"row-blocked decode at granite-20b's {label} shape vs "
+                  f"the plain version: {e}")
+        t = {n: time_replay([(q, k, v)], fn)[0]
+             for n, fn in (("kernel", kern), ("plain", plain),
+                           ("sdpa", sdpa))}
+        again = time_replay([(q, k, v)], kern)[0]
+        bounds = [fa_bound(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                           dict(q_start=p, kv_len=p + 1))
+                  for b, p in enumerate(last)]
+        b_ms = sum(b for b, _ in bounds)
+        o_ms = sum(o for _, o in bounds)
+        S = FK.capacity_splits(B, KV, 1, H, D, Skv=smax, causal=True,
+                               window=None)
+        out[label] = dict(
+            ms=t["kernel"], ms_again=again, plain_ms=t["plain"],
+            library_ms=t["sdpa"], bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations",
+            splits=S[0], tiles_per_split=S[1],
+            row_blocks=FK.row_blocks(1, H // KV), positions=last,
+            max_abs_err=e)
+        say(f"timing: row-blocked flash_decode at granite-20b's {label} "
+            f"decode (B {B}, H {H}, KV {KV}, D {D}, cache {smax}, positions "
+            f"{last} on the device; {FK.row_blocks(1, H // KV)} row blocks, "
+            f"{S[0]} splits of {S[1]} tiles): device us per launch kernel "
+            f"{t['kernel'] * 1e3:.2f} (again {again * 1e3:.2f}), bound "
+            f"{max(b_ms, o_ms) * 1e3:.3f} ({out[label]['bound_by']}), plain "
+            f"{t['plain'] * 1e3:.2f}, sdpa {t['sdpa'] * 1e3:.2f}; vs plain "
+            f"{e:.3e} [{card}]")
     return out
 
 
@@ -3852,7 +4463,7 @@ def main() -> int:
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
     rows, decode, batched = [], {}, {}
-    for arch in SERVES:            # one model on the card at a time
+    for arch in FAMILIES:          # one model on the card at a time
         ctx = phase_serve(dev, arch)
         if arch == "llama3.2-1b":
             rows += phase_timing(plans, inputs, launches, err, card,
@@ -3877,6 +4488,30 @@ def main() -> int:
                           for r, k in FLASH_LAUNCHES.items()})
         del ctx
         torch.cuda.empty_cache()
+        say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+    # this slice's decoders: the MoE one in full, the dense ones lighter
+    for arch in DECODERS:
+        ctx = phase_serve(dev, arch)
+        # the u8 copies are timed at the three families' leaves
+        decode[arch] = phase_serve_timing(ctx, card, dev,
+                                          packing=False)["decode"]
+        decode[arch].update(decode_bound(ctx["model"].cfg, card))
+        if arch == MOE_ARCH:
+            batched[arch] = phase_serve_vmap(ctx, card, dev)
+        if arch == "granite-20b":
+            flash["row_blocked"] = dict(
+                row_blocked_timing(ctx, card, dev),
+                source=FLASH_SOURCES["decode"],
+                launches=ctx["launches"]["flash_decode"])
+        flash["models"][arch] = dict(
+            launches={r: ctx["launches"][k]
+                      for r, k in FLASH_LAUNCHES.items()},
+            logit_err=ctx["logit_err"])
+        del ctx
+        torch.cuda.empty_cache()
+        if arch != MOE_ARCH:       # the MoE is held in f32 at full depth
+            flash["models"][arch]["logit_err"]["f32_at_cut_depth"] = \
+                check_cut_f32(arch, dev)
         say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     say("timing: decode per token, captured and eager: "
         + json.dumps(decode) + f" [{card}]")

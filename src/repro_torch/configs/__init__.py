@@ -2,12 +2,19 @@
 
 The port's registry lists only the architectures it can build:
 
-  llama3.2-1b        dense decoder
-  rwkv6-7b           RWKV-6, attention-free
-  recurrentgemma-2b  Griffin: RG-LRU + local attention
+  llama3.2-1b           dense decoder
+  gemma-7b              dense decoder, head dim 256, GeGLU, tied embeddings
+  starcoder2-7b         dense decoder, GQA 9 heads a KV head, GeLU MLP
+  granite-20b           dense decoder, multi-query (48 heads, one KV head)
+  chameleon-34b         dense decoder with qk-norm (VQ image tokens share
+                        the vocabulary, so it serves as a decoder)
+  granite-moe-3b-a800m  MoE decoder: 40 experts, top-8
+  rwkv6-7b              RWKV-6, attention-free
+  recurrentgemma-2b     Griffin: RG-LRU + local attention
 
-The other configs of ``repro.configs`` join with their model families
-(ROADMAP A6).
+The configs of ``repro.configs`` with MLA and MTP (``deepseek-v3-671b``)
+and the encoder-decoder (``seamless-m4t-medium``) join with their model
+families (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -24,6 +31,11 @@ from repro_torch.configs.base import (
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "gemma-7b": "gemma_7b",
+    "starcoder2-7b": "starcoder2_7b",
+    "granite-20b": "granite_20b",
+    "chameleon-34b": "chameleon_34b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "rwkv6-7b": "rwkv6_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }

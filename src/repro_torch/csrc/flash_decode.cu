@@ -1,8 +1,9 @@
 // Split-K decode attention for Hopper (sm_90a), one launch, plain C
 // interface.
 //
-// Replaces, for the calls whose block of query rows is small (Sq * G <= 16:
-// decode, Sq = 1, and the short multi-token decode), the Pallas TPU kernel
+// Replaces, for decode (Sq = 1) and the short multi-token decode -- every
+// call whose rows number Sq * G <= 16, and every call whose position lives
+// on the device, in blocks of 16 rows -- the Pallas TPU kernel
 // `flash_attention_pallas` / `_fa_kernel`
 // (src/repro/kernels/flash_attention/kernel.py): GQA attention with an
 // online softmax, causal, sliding `window`, `q_start` / `kv_len` against a
@@ -14,6 +15,16 @@
 // group) pair, row = qi * G + g, so the G query heads of a KV head read each
 // K/V tile once.
 //
+// Row blocks: a block takes at most kMaxRows = 16 rows (one warp each).  A
+// call with more rows (granite-20b's multi-query decode: G = 48) runs
+// ceil(Sq * G / 16) row blocks of one (b, KV head) side by side, grid z;
+// block z takes rows [16 z, 16 z + 16), each row block reads the K/V tiles
+// of its split once for its rows (so G = 48 reads them three times, from
+// L2 after the first), and each (pair, row block) merges on its own.  A
+// call of at most 16 rows has one row block (grid z = 1, row0 = 0, all of
+// its rows in the block), and every operation of it runs in the order of
+// the kernel before row blocks, bit for bit.
+//
 // Why split: at batch 1 the simple kernel (flash_attention.cu) runs B * KV
 // blocks, 8 for llama3.2-1b and ONE for recurrentgemma-2b (MQA), each
 // walking its whole cache; the card sits empty while one SM waits on its
@@ -22,18 +33,20 @@
 // 2048-key window; about 0.65 us at 3.35 TB/s), so the keys must be spread
 // over the SMs.
 //
-// Grid (S, B * KV).  The live key range of a (b, KV head) is the one the
+// Grid (S, B * KV, row blocks).  The live key range of a (b, KV head) is the one the
 // simple kernel computes for its row block ([k_begin, k_end): beyond
 // kv_len, after the causal diagonal of the last query, before the window of
 // the first), cut into tiles of kTile = 32 keys, tiles [t0, t1).  The rule
 // for S (the wrapper's `decode_splits`, which the plain version shares):
-// n = t1 - t0 tiles; about 132 blocks (one per SM) over the B * KV pairs,
-// want = ceil(132 / (B * KV)), but no more splits than keep the partials
-// that the merging block reads (S * rows * (Dv + 2) f32) within 384 KB;
+// n = t1 - t0 tiles; about 132 blocks (one per SM) over the B * KV pairs
+// and their RB row blocks, want = ceil(132 / (B * KV * RB)), but no more
+// splits than keep the partials that the merging block reads (S * rows of
+// its row block * (Dv + 2) f32) within 384 KB;
 // tpc = ceil(n / min(n, want)) tiles per split, S = ceil(n / tpc).  So
 // llama3.2-1b (B * KV = 8, 1056 keys, 33 tiles): 17 splits of 2 tiles
 // (64 keys); recurrentgemma-2b (B * KV = 1, 10 rows of Dv 256, 2048 live
-// keys, 64 tiles): 32 splits of 2 tiles.  A caller may ask for S itself
+// keys, 64 tiles): 32 splits of 2 tiles; granite-20b (B * KV = 1, 48 rows
+// in 3 row blocks, 1056 keys): 33 splits of one tile, 99 blocks.  A caller may ask for S itself
 // (tests); splits past the end of the range are empty and give m = -inf.
 //
 // The position on the device: with `q_pos` given (a captured decode step,
@@ -59,11 +72,13 @@
 // (f32 FMAs, four partial sums), the row max and sum are warp shuffles,
 // lane c owns Dv / 32 consecutive columns of the row's accumulator.  The
 // block's partial (acc, m, l) per row goes to an f32 scratch
-// (B*KV, S, G*Sq, Dv+2) that the wrapper allocates with torch.empty.
+// (B*KV, S, G*Sq, Dv+2) that the wrapper allocates with torch.empty (each
+// row block writes its own rows of it).
 //
 // Merge, in the same launch: each block writes its partials, runs
-// __threadfence() and atomicAdd's a per-(b, KV head) int32 counter; the
-// block that arrives last reads the S partials (M = max m_s,
+// __threadfence() and atomicAdd's a per-(b, KV head, row block) int32
+// counter; the block of its row block that arrives last reads the S
+// partials of its rows (M = max m_s,
 // out = sum e^(m_s - M) acc_s / max(sum e^(m_s - M) l_s, 1e-30); a split
 // with m_s = -inf weighs exactly 0, and a row whose splits are all -inf
 // gives 0), stores the output in q's dtype and resets the counter to 0.
@@ -71,8 +86,9 @@
 // xor tree of lanes), with no atomics on values: the result does not depend
 // on the order in which blocks finish.  The merging block's loads are
 // issued in batches (all of a batch before any use): one at a time, each
-// would cost an L2 round trip.  The counters (one per (b, KV head), zeroed
-// once by the wrapper and left at 0 by every launch) are shared by all
+// would cost an L2 round trip.  The counters (one per (b, KV head, row
+// block), at (b * KV + kvh) * RB + z, zeroed once by the wrapper and left
+// at 0 by every launch) are shared by all
 // calls on a device, so calls that share them must run on one stream, as
 // serial decode does.  One launch and not two because decode is host-bound
 // (21-26 us of host time per device activity): a second combine launch
@@ -94,7 +110,7 @@ namespace {
 
 constexpr int kTile = 32;          // keys per tile: one per lane
 constexpr int kStages = 2;
-constexpr int kMaxRows = 16;       // Sq * G <= 16, as the wrapper checks
+constexpr int kMaxRows = 16;       // rows of a row block, one warp each
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -103,7 +119,7 @@ struct Params {
   const void* v;
   void* o;
   float* part;                     // (B*KV, S, R, Dv + 2)
-  int* counter;                    // (B*KV,), 0 between launches
+  int* counter;                    // (B*KV*RB,), 0 between launches
   long long B, Sq, Skv, H, KV, D, Dv;
   long long q_start, kv_len, window;   // kv_len <= Skv; window < 0: none
   int causal;
@@ -186,7 +202,8 @@ __device__ __forceinline__ void load_f32(const T* src, float (&x)[N]) {
 
 // DMAX: the Dv bucket; lane c owns the DMAX / 32 consecutive columns from
 // c * DMAX / 32 of its row's accumulator.  NW: warps, one per query row (the
-// instance takes up to NW rows).
+// instance takes up to NW rows a block); a call with more rows than NW
+// runs in row blocks of NW along grid z.
 template <typename T, int DMAX, int NW>
 __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
   constexpr int kThreads = NW * 32;
@@ -200,7 +217,11 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
   const int D = (int)p.D, Dv = (int)p.Dv;
   const int kstride = D + kVec;              // K row, padded by 16 bytes
   const long long G = p.H / p.KV;
-  const int R = (int)(p.Sq * G);             // rows of the block
+  const int R = (int)(p.Sq * G);             // rows of the call
+  const int row0 = (int)blockIdx.z * NW;     // the block's rows
+  const int Rb = R - row0 < NW ? R - row0 : NW;
+  // this (b, KV head, row block)'s arrival counter
+  const long long ci = (long long)blockIdx.y * gridDim.z + blockIdx.z;
   float* Qs = reinterpret_cast<float*>(smem_raw);     // NW x D, scaled
   T* Qraw = reinterpret_cast<T*>(Qs + NW * D);        // NW x D, as loaded
   T* Ks = Qraw + NW * D;                              // stages x tile
@@ -257,21 +278,21 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
     }
   };
 
-  const int row = warp;                      // this warp's query row
-  const bool valid = row < R;
-  const long long qpos = q_start + row / G;
+  const int row = warp;                      // this warp's row of the block
+  const bool valid = row < Rb;
+  const long long qpos = q_start + (row0 + row) / G;
   float m = -INFINITY, l = 0.f, acc[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
   const int d0 = lane * kCols;               // this lane's first column
 
   if (ta < tb) {
-    // Q's rows (row = qi * G + g) and the first tile in one copy group,
-    // so their latencies overlap
+    // the block's Q rows (row = qi * G + g) and the first tile in one
+    // copy group, so their latencies overlap
     const int q_vpr = D / kVec;
-    for (int i = tid; i < R * q_vpr; i += kThreads) {
+    for (int i = tid; i < Rb * q_vpr; i += kThreads) {
       const int r = i / q_vpr, c = i - r * q_vpr;
-      const long long qi = r / G, h = kvh * G + r % G;
+      const long long qi = (row0 + r) / G, h = kvh * G + (row0 + r) % G;
       cp_async16(Qraw + r * D + c * kVec,
                  q + ((b * p.Sq + qi) * p.H + h) * D + c * kVec, 16);
     }
@@ -285,7 +306,7 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
     cp_async_wait<1>();                      // tile t (and Q) landed
     __syncthreads();
     if (t == ta) {
-      for (int i = tid; i < R * D; i += kThreads)
+      for (int i = tid; i < Rb * D; i += kThreads)
         Qs[i] = to_f32(Qraw[i]) * p.scale;
       __syncthreads();
     }
@@ -353,7 +374,7 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
   const long long ps = Dv + 2;
   float* part = p.part + (bk * p.S + split) * R * ps;
   if (valid) {
-    float* pr = part + row * ps;
+    float* pr = part + (row0 + row) * ps;
     if (d0 < Dv) {
 #pragma unroll
       for (int c = 0; c < kCols; ++c) pr[d0 + c] = acc[c];
@@ -364,13 +385,14 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
     }
   }
 
-  // the last block of this (b, KV head) to arrive merges the S partials
+  // the last block of this (b, KV head, row block) to arrive merges the S
+  // partials of its rows
   __shared__ int s_last;
   __shared__ float s_den[NW];
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    const int prev = atomicAdd(p.counter + bk, 1);
+    const int prev = atomicAdd(p.counter + ci, 1);
     s_last = prev == (int)p.S - 1;
   }
   __syncthreads();
@@ -380,18 +402,22 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
   // Every global load below is issued in a batch before any of its values
   // is used: __ldcg pins program order, so a load next to its use would
   // wait out the L2's latency once per load.
-  // 1. the S x R (m, l) pairs into shared memory
+  // 1. the S x Rb (m, l) pairs into shared memory (split sp, row r of the
+  //    block at sp * Rb + r)
   const float* base = p.part + bk * p.S * R * ps;
   float* Wm = W;                             // m, then e^(m - M)
-  float* Wl = W + p.S * R;                   // l
-  const int n_ml = (int)p.S * R;
+  float* Wl = W + p.S * Rb;                  // l
+  const int n_ml = (int)p.S * Rb;
   for (int i0 = 0; i0 < n_ml; i0 += kThreads * 4) {
     float2 ml[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int i = i0 + tid + kThreads * u;
-      if (i < n_ml)
-        ml[u] = __ldcg(reinterpret_cast<const float2*>(base + i * ps + Dv));
+      if (i < n_ml) {
+        const int sp = i / Rb;
+        ml[u] = __ldcg(reinterpret_cast<const float2*>(
+            base + (sp * R + row0 + i - sp * Rb) * ps + Dv));
+      }
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -408,10 +434,10 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
   //    lane folds its splits online, then a fixed xor tree folds the lanes
   //    (the same on every lane, whatever the order the blocks finished in);
   //    the weights e^(m_s - M) replace the m_s
-  for (int r = warp; r < R; r += NW) {
+  for (int r = warp; r < Rb; r += NW) {
     float M = -INFINITY, den = 0.f;
     for (int sp = lane; sp < (int)p.S; sp += 32) {
-      const float ms = Wm[sp * R + r], ls = Wl[sp * R + r];
+      const float ms = Wm[sp * Rb + r], ls = Wl[sp * Rb + r];
       if (ms == -INFINITY) continue;         // an empty or masked split: 0
       if (ms > M) {
         den *= expf(M - ms);                 // M = -inf: den is 0 anyway
@@ -428,8 +454,8 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
       M = Mn;
     }
     for (int sp = lane; sp < (int)p.S; sp += 32) {
-      const float ms = Wm[sp * R + r];
-      Wm[sp * R + r] = ms == -INFINITY ? 0.f : expf(ms - M);
+      const float ms = Wm[sp * Rb + r];
+      Wm[sp * Rb + r] = ms == -INFINITY ? 0.f : expf(ms - M);
     }
     if (lane == 0) s_den[r] = fmaxf(den, 1e-30f);
   }
@@ -438,14 +464,14 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
   // 3. out = sum_s w_s acc_s / den in split order, the loads of kBatch
   //    splits in flight together
   const int half = Dv / 2;                   // Dv is even: float2 columns
-  const int n_units = R * half;
+  const int n_units = Rb * half;
   int uoff[kUnits], urow[kUnits];
   float2 num[kUnits];
 #pragma unroll
   for (int i = 0; i < kUnits; ++i) {
     const int u = tid + kThreads * i;
     urow[i] = u < n_units ? u / half : 0;
-    uoff[i] = urow[i] * (int)ps + 2 * (u - urow[i] * half);
+    uoff[i] = (row0 + urow[i]) * (int)ps + 2 * (u - urow[i] * half);
     num[i] = make_float2(0.f, 0.f);
   }
   for (int s0 = 0; s0 < (int)p.S; s0 += kBatch) {
@@ -462,7 +488,7 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
 #pragma unroll
       for (int i = 0; i < kUnits; ++i)
         if (s0 + j < (int)p.S && tid + kThreads * i < n_units) {
-          const float w = Wm[(s0 + j) * R + urow[i]];
+          const float w = Wm[(s0 + j) * Rb + urow[i]];
           num[i].x = fmaf(w, a[j][i].x, num[i].x);
           num[i].y = fmaf(w, a[j][i].y, num[i].y);
         }
@@ -472,19 +498,19 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
   for (int i = 0; i < kUnits; ++i) {
     const int u = tid + kThreads * i;
     if (u >= n_units) continue;
-    const int r = urow[i], d = 2 * (u - r * half);
+    const int r = row0 + urow[i], d = 2 * (u - urow[i] * half);
     const long long qi = r / G, h = kvh * G + r % G;
     T* orow = o + ((b * p.Sq + qi) * p.H + h) * Dv;
-    store(orow + d, num[i].x / s_den[r]);
-    store(orow + d + 1, num[i].y / s_den[r]);
+    store(orow + d, num[i].x / s_den[urow[i]]);
+    store(orow + d + 1, num[i].y / s_den[urow[i]]);
   }
-  if (tid == 0) p.counter[bk] = 0;           // ready for the next launch
+  if (tid == 0) p.counter[ci] = 0;           // ready for the next launch
 }
 
 template <typename T, int DMAX, int NW>
 int launch(const Params& p, cudaStream_t stream) {
   // Q (f32 and as loaded), then the tile ring, which the merge reuses for
-  // its S x rows (m, l) pairs
+  // its S x rows (m, l) pairs (at most NW rows a row block)
   const size_t head = NW * p.D * (sizeof(float) + sizeof(T));
   const size_t tiles =
       sizeof(T) * kStages * kTile * (p.D + 16 / sizeof(T) + p.Dv);
@@ -496,21 +522,24 @@ int launch(const Params& p, cudaStream_t stream) {
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((unsigned)p.S, (unsigned)(p.B * p.KV));
+  const long long rows = p.Sq * (p.H / p.KV);
+  const dim3 grid((unsigned)p.S, (unsigned)(p.B * p.KV),
+                  (unsigned)((rows + NW - 1) / NW));
   flash_decode_kernel<T, DMAX, NW><<<grid, NW * 32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// a warp per query row: 4 warps for up to 4 rows (decode at G <= 4), else 16
+// a warp per query row: 4 warps for up to 4 rows (decode at G <= 4), else
+// 16, in row blocks of 16 beyond
 template <typename T, int DMAX>
 int launch_rows(const Params& p, cudaStream_t stream) {
-  if (p.Sq * (p.H / p.KV) <= 4) return launch<T, DMAX, 4>(p, stream);
+  const long long rows = p.Sq * (p.H / p.KV);
+  if (rows <= 4) return launch<T, DMAX, 4>(p, stream);
   return launch<T, DMAX, kMaxRows>(p, stream);
 }
 
 template <typename T>
 int dispatch(const Params& p, cudaStream_t stream) {
-  if (p.Sq * (p.H / p.KV) > kMaxRows) return (int)cudaErrorInvalidValue;
   if (p.Dv <= 32) return launch_rows<T, 32>(p, stream);     // Dv 16
   if (p.Dv <= 64) return launch_rows<T, 64>(p, stream);     // Dv 64
   if (p.Dv <= 128) return launch_rows<T, 128>(p, stream);   // Dv 128
@@ -543,8 +572,9 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 when the launch was
-// accepted).  `part` holds (B*KV, splits, Sq*G, Dv+2) f32, `counter` B*KV
-// int32 zeros; splits, the first live tile t0 and the tiles per split tpc
+// accepted).  `part` holds (B*KV, splits, Sq*G, Dv+2) f32, `counter`
+// B*KV*ceil(Sq*G/16) int32 zeros (one per (b, KV head, row block)); splits,
+// the first live tile t0 and the tiles per split tpc
 // by the rule above (kernels/flash_attention/kernel.py:decode_splits).
 // With `q_pos` (int64 on the device) not null, q_start, kv_len and t0
 // come from the device and the arguments of those names are not read

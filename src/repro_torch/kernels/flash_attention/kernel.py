@@ -8,14 +8,18 @@ built when this module is imported:
 
   * ``flash_decode.cu``       -- split-K decode, one launch, for every call
                                  whose block of rows is small
-                                 (``Sq * G <= 16``), bf16 or f32, every
-                                 (D, Dv) of :data:`HEAD_DIMS`;
+                                 (``Sq * G <= 16``) and every call at a
+                                 device position (in row blocks of 16
+                                 rows), bf16 or f32, every (D, Dv) of
+                                 :data:`HEAD_DIMS`;
   * ``flash_prefill_sm90.cu`` -- the tensor-core (``wgmma``) prefill, for
-                                 bf16 calls with ``Sq * G > 16`` and (D, Dv)
-                                 in :data:`PREFILL_HEAD_DIMS`;
+                                 bf16 calls with ``Sq * G > 16`` at a host
+                                 position and (D, Dv) in
+                                 :data:`PREFILL_HEAD_DIMS`;
   * ``flash_attention.cu``    -- the simple kernel, for the rest: f32 with
                                  ``Sq * G > 16``, and the (16, 16) and
-                                 (192, 128) pairs with ``Sq * G > 16``;
+                                 (192, 128) pairs with ``Sq * G > 16``, at
+                                 a host position;
   * ``flash_backward_sm90.cu`` -- the gradient (dq, dk, dv) of causal
                                  attention in its training form (q_start
                                  0, Sq = Skv, no window) on the tensor
@@ -56,7 +60,11 @@ serves every position, which is what a captured decode step replays
 int64 tensor, a position per batch row (the batched decode step, whose
 rows decode at their own positions): each (b, KV head) block reads its
 row's, and the split rule, being the capacity's, is the same for every
-row.  The other two kernels take host integers only.
+row.  The other two kernels take host integers only, so a call at a
+device position goes to the decode kernel whatever its rows: one with
+``Sq * G > 16`` (granite-20b's multi-query decode, G = 48) runs in row
+blocks of :data:`DECODE_MAX_ROWS` rows, each (batch row, KV head, row
+block) with its own merge and arrival counter.
 
 The forward kernels replace ``flash_attention_pallas`` / ``_fa_kernel`` of
 ``repro/kernels/flash_attention/kernel.py``; the backward has no Pallas
@@ -94,7 +102,9 @@ BACKWARD_HEAD_DIMS = ((64, 64),)
 #: stages of each kernel's copy ring
 BACKWARD_TILE, BACKWARD_DQ_STAGES, BACKWARD_DKDV_STAGES = 64, 2, 3
 
-#: the split-K decode takes calls with at most this many rows (Sq * G)
+#: rows (Sq * G) of a row block of the split-K decode: the route for every
+#: call of at most this many rows, and the block a call of more rows (at a
+#: device position) is cut into
 DECODE_MAX_ROWS = 16
 #: keys per tile of the decode kernel, and the blocks its split rule aims at
 #: (one per SM of an H100 SXM)
@@ -113,8 +123,10 @@ BACKWARD_ROUTES = {"sm90": 0, "simple": 0}
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _libs: dict = {}
 _lib_lock = threading.Lock()
-_counters: dict = {}            # device index -> int32 zeros, one per (b, KV)
-#: the decode kernel's grid takes at most this many (batch, KV head) pairs
+_counters: dict = {}            # device index -> int32 zeros, one per
+                                # (b, KV head, row block)
+#: the decode kernel's grid takes at most this many (batch, KV head, row
+#: block) triples: its grid's y limit and its arrival counters
 MAX_PAIRS = 65535
 
 
@@ -175,11 +187,14 @@ def _library(name: str = "flash_attention") -> ctypes.CDLL:
         return _libs[name]
 
 
-def pick_route(Sq: int, G: int, dtype: torch.dtype, D: int, Dv: int) -> str:
+def pick_route(Sq: int, G: int, dtype: torch.dtype, D: int, Dv: int, *,
+               device_pos: bool = False) -> str:
     """Which kernel takes a call: ``"decode"`` when its block of rows is
-    small (``Sq * G <= 16``), ``"prefill"`` for bf16 at the
+    small (``Sq * G <= 16``) or its position lies on the device
+    (``device_pos``: only the decode kernel reads one there; beyond 16
+    rows it runs in row blocks), ``"prefill"`` for bf16 at the
     :data:`PREFILL_HEAD_DIMS`, else ``"simple"``."""
-    if Sq * G <= DECODE_MAX_ROWS:
+    if Sq * G <= DECODE_MAX_ROWS or device_pos:
         return "decode"
     if dtype == torch.bfloat16 and (D, Dv) in PREFILL_HEAD_DIMS:
         return "prefill"
@@ -200,13 +215,21 @@ def live_tiles(Sq: int, *, causal: bool, window: int | None, q_start: int,
     return t0, -(-k_end // tile) - t0
 
 
+def row_blocks(Sq: int, G: int) -> int:
+    """Row blocks of the split-K decode: ``ceil(Sq * G / 16)``, 1 for every
+    call of at most :data:`DECODE_MAX_ROWS` rows."""
+    return -(-(Sq * G) // DECODE_MAX_ROWS)
+
+
 def _split(n: int, B: int, KV: int, Sq: int, H: int, Dv: int,
            splits: int | None) -> tuple[int, int]:
     """(S, tpc) for n tiles: see :func:`decode_splits`."""
     if splits is None:
-        want = -(-DECODE_TARGET_BLOCKS // (B * KV))
-        # one block merges the splits: bound the partials it reads
-        per_split = 4 * Sq * (H // KV) * (Dv + 2)
+        rows = Sq * (H // KV)
+        want = -(-DECODE_TARGET_BLOCKS // (B * KV * row_blocks(Sq, H // KV)))
+        # one block merges the splits of its row block: bound the partials
+        # it reads
+        per_split = 4 * min(rows, DECODE_MAX_ROWS) * (Dv + 2)
         want = min(want, max(1, DECODE_MERGE_BYTES // per_split))
         S = max(1, min(n, want))
         tpc = -(-n // S) if n else 1
@@ -223,9 +246,12 @@ def decode_splits(B: int, KV: int, Sq: int, H: int, Dv: int, *,
     """(splits S, first live tile t0, tiles per split tpc) of the split-K
     decode at a host position.  ``splits=None`` is the rule: about
     :data:`DECODE_TARGET_BLOCKS` blocks over the ``B * KV`` (batch, KV
-    head) pairs whenever the live tiles allow, but no more than keep the
-    partials one merging block reads (``S * Sq * G * (Dv + 2)`` f32) within
-    :data:`DECODE_MERGE_BYTES`; tpc = ceil(n / S) and S = ceil(n / tpc).
+    head) pairs and their :func:`row_blocks` whenever the live tiles
+    allow, but no more than keep the partials one merging block reads
+    (``S * rows * (Dv + 2)`` f32, the rows of its row block: ``Sq * G`` up
+    to :data:`DECODE_MAX_ROWS`) within :data:`DECODE_MERGE_BYTES`; tpc =
+    ceil(n / S) and S = ceil(n / tpc).  At most 16 rows (one row block)
+    this is the rule of the kernel before row blocks, unchanged.
     An explicit S is kept, and its splits past the live range are
     empty."""
     t0, n = live_tiles(Sq, causal=causal, window=window, q_start=q_start,
@@ -292,18 +318,23 @@ def _check(q, k, v) -> None:
                          f"{HEAD_DIMS}")
 
 
-def check_pairs(B: int, KV: int) -> None:
+def check_pairs(B: int, KV: int, rows: int = 1) -> None:
     """Raise unless the decode kernel's grid and its arrival counters
-    (:data:`MAX_PAIRS`, one per (batch row, KV head)) cover ``B * KV``:
-    a batched decode step checks its bucket with it before it builds."""
-    if B * KV > MAX_PAIRS:
-        raise ValueError(f"batch x KV heads = {B} x {KV} = {B * KV} exceeds "
-                         f"the decode kernel's {MAX_PAIRS} (batch, KV head) "
-                         f"pairs (its grid's y limit and its counters)")
+    (:data:`MAX_PAIRS`, one per (batch row, KV head, row block)) cover
+    ``B * KV`` pairs of ``rows`` rows (``Sq * G``) each: a batched decode
+    step checks its bucket with it before it builds."""
+    n = B * KV * row_blocks(rows, 1)
+    if n > MAX_PAIRS:
+        raise ValueError(f"batch x KV heads x row blocks = {B} x {KV} x "
+                         f"{row_blocks(rows, 1)} = {n} exceeds the decode "
+                         f"kernel's {MAX_PAIRS} (its grid's y limit and its "
+                         f"arrival counters)")
 
 
 def _counter(device: torch.device) -> torch.Tensor:
-    """The decode kernel's per-(b, KV head) arrival counters on ``device``:
+    """The decode kernel's arrival counters on ``device``, one per (b, KV
+    head, row block) of a launch, at ``(b * KV + kv head) * row blocks +
+    row block``:
     :data:`MAX_PAIRS` int32 zeros, allocated once and never replaced (a
     captured decode graph holds their address), left at 0 by every launch.
     Every call on a device shares them, so the calls must run in order on
@@ -349,14 +380,14 @@ def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
     """Launch the split-K decode; returns (out, partials (B*KV, S, Sq*G,
     Dv + 2) f32).  ``q_start`` is a host int, or an int64 tensor on the
     card, 0-d or a position per batch row (then each row's ``kv_len`` is
-    its ``q_start + Sq`` and the split rule is :func:`capacity_splits`)."""
+    its ``q_start + Sq`` and the split rule is :func:`capacity_splits`).
+    Any number of rows ``Sq * G``: beyond :data:`DECODE_MAX_ROWS`, in row
+    blocks."""
     B, Sq, Skv, H, KV, D, Dv, kv_len, scale, stream = _args(
         q, k, v, window=window, q_start=q_start, kv_len=kv_len,
         softmax_scale=softmax_scale)
     G = H // KV
-    if Sq * G > DECODE_MAX_ROWS:
-        raise ValueError(f"the decode kernel takes Sq * G <= "
-                         f"{DECODE_MAX_ROWS} rows, got {Sq * G}")
+    check_pairs(B, KV, Sq * G)
     if torch.is_tensor(q_start):
         q_pos, stride = q_start.data_ptr(), q_start.dim()
         q_start, t0 = 0, 0
@@ -392,8 +423,9 @@ def flash_decode_cuda(q, k, v, *, causal: bool, window: int | None,
                       q_start, kv_len=None,
                       softmax_scale: float | None = None,
                       splits: int | None = None):
-    """The split-K decode kernel (``Sq * G <= 16``; ``splits`` fixes the
-    number of splits, default its rule) with its partials: returns ``(out,
+    """The split-K decode kernel (any ``Sq * G``, in row blocks of 16
+    beyond 16; ``splits`` fixes the number of splits, default its rule)
+    with its partials: returns ``(out,
     m, l, acc)``, ``m``/``l`` ``(B, KV, S, Sq, G)`` and ``acc`` ``(B, KV, S, Sq,
     G, Dv)`` in f32, each split's as :func:`~repro_torch.kernels.
     flash_attention.ops.flash_decode_partials_torch` computes them.
@@ -461,20 +493,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
     v ``(B,Skv,KV,Dv)`` -> ``(B,Sq,H,Dv)`` in q's dtype (f32 accumulation),
     through the kernel :func:`pick_route` names for the call.  A device
     ``q_start`` (an int64 tensor, 0-d or ``(B,)``; ``kv_len = q_start +
-    Sq``) is taken by the decode route only."""
+    Sq``) goes to the decode route, whatever the rows."""
     _, Sq, H, D = q.shape
     KV, Dv = k.shape[2], v.shape[3]
     if KV == 0 or H % KV:
         _check(q, k, v)                      # raises with the reason
     kw = dict(causal=causal, window=window, q_start=q_start, kv_len=kv_len,
               softmax_scale=softmax_scale)
-    route = pick_route(Sq, H // KV, q.dtype, D, Dv)
+    route = pick_route(Sq, H // KV, q.dtype, D, Dv,
+                       device_pos=torch.is_tensor(q_start))
     if route == "decode":
         return _decode(q, k, v, splits=None, **kw)[0]
-    if torch.is_tensor(q_start):
-        raise ValueError(f"a device q_start is taken by the decode kernel "
-                         f"only (Sq * G <= {DECODE_MAX_ROWS}), not by the "
-                         f"{route} kernel of Sq * G = {Sq * (H // KV)}")
     if route == "prefill":
         return flash_prefill_cuda(q, k, v, **kw)
     return flash_simple_cuda(q, k, v, **kw)

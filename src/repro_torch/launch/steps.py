@@ -214,7 +214,8 @@ class CapturedBatchedDecodeStep(BatchedDecodeStep):
             raise ValueError(f"a captured decode step needs a CUDA device, "
                              f"got {device}; decode eagerly on the CPU")
         if not model.cfg.attn_free:
-            check_pairs(bucket, model.cfg.n_kv_heads)
+            cfg = model.cfg
+            check_pairs(bucket, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads)
         super().__init__(model, params, bucket=bucket, smax=smax,
                          rules=rules, impl=impl, device=device)
         self._host = torch.zeros(2 * bucket, dtype=torch.long,

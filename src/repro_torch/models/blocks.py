@@ -9,8 +9,8 @@ The counterpart of ``repro.models.blocks`` for these families:
 updated in place and returned) or None.  The recurrences run through
 ``kernels.rwkv6.wkv6`` and ``kernels.rglru.rglru`` (the CUDA kernels on
 the card), which write the layer's final state straight into its cache
-view.  MoE and MLA blocks and the encoder-decoder blocks wait for their
-families (ROADMAP A6).
+view.  The transformer block takes an MoE MLP (``moe=True``); MLA blocks
+and the encoder-decoder blocks wait for their families (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from repro_torch.models.layers import (
     attn_defs,
     mlp_apply,
     mlp_defs,
+    moe_apply,
+    moe_defs,
     norm_defs,
     rms_norm,
 )
@@ -35,32 +37,40 @@ from repro_torch.models.params import ParamDef
 f32 = torch.float32
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.n_experts or cfg.mla is not None:
+def _no_mla(cfg: ArchConfig) -> None:
+    if cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA blocks are not ported yet "
-            f"(ROADMAP A6); the port builds dense transformer blocks only")
+            f"{cfg.name}: MLA attention is not ported yet (ROADMAP A7)")
 
 
-def transformer_block_defs(cfg: ArchConfig) -> dict:
-    _dense_only(cfg)
+def transformer_block_defs(cfg: ArchConfig, *, moe: bool = False) -> dict:
+    _no_mla(cfg)
     return {
         "ln1": norm_defs(cfg.d_model),
         "attn": attn_defs(cfg),
         "ln2": norm_defs(cfg.d_model),
-        "mlp": mlp_defs(cfg),
+        "mlp": moe_defs(cfg) if moe else mlp_defs(cfg),
     }
 
 
-def transformer_block_apply(p, x, ctx: Ctx, cache=None, *,
+def transformer_block_apply(p, x, ctx: Ctx, cache=None, *, moe: bool = False,
                             window: int | None = None):
-    """Pre-norm attention + MLP residual block; returns (x, cache, aux)
-    with ``aux`` 0.0 (the MoE balance loss of ``repro``; dense has none)."""
+    """Pre-norm attention + MLP (or MoE) residual block; returns (x, cache,
+    aux) with ``aux`` the MoE's balance loss (0.0 for a dense block, and
+    for an MoE block with a ``cache``: a serving step, which reads no loss,
+    skips its launches).  At a position per batch row (the batched decode
+    step) the MoE dispatches each row on its own
+    (``moe_apply(per_row=True)``)."""
     h = rms_norm(x, p["ln1"])
     a, new_cache = attn_apply(p["attn"], h, ctx, cache=cache, window=window)
     x = x + a
     h = rms_norm(x, p["ln2"])
-    return x + mlp_apply(p["mlp"], h, ctx.cfg), new_cache, 0.0
+    if not moe:
+        return x + mlp_apply(p["mlp"], h, ctx.cfg), new_cache, 0.0
+    per_row = torch.is_tensor(ctx.cache_len) and ctx.cache_len.dim() == 1
+    m, aux = moe_apply(p["mlp"], h, ctx.cfg, per_row=per_row,
+                       with_aux=cache is None)
+    return x + m, new_cache, aux
 
 
 # ------------------------------------------------------------ RWKV-6

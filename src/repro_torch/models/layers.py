@@ -1,12 +1,12 @@
-"""Shared model primitives of the port: norms, RoPE, attention, MLP,
+"""Shared model primitives of the port: norms, RoPE, attention, MLP, MoE,
 embedding.
 
-The counterpart of ``repro.models.layers`` for the dense decoder: each
-sub-module exposes ``<name>_defs(cfg) -> ParamDef tree`` and
+The counterpart of ``repro.models.layers`` for the dense and MoE decoders:
+each sub-module exposes ``<name>_defs(cfg) -> ParamDef tree`` and
 ``<name>_apply(params, ...) -> outputs``, with the same parameter names,
-shapes and numerics (f32 norms and RoPE, attention through
-:func:`~repro_torch.kernels.flash_attention.flash_attention`).  ``moe_*``
-and ``mla_*`` wait for their families (ROADMAP A6).
+shapes and numerics (f32 norms, RoPE and router, attention through
+:func:`~repro_torch.kernels.flash_attention.flash_attention`).  ``mla_*``
+waits for its family (ROADMAP A7).
 
 Unlike JAX, the port updates the KV cache **in place**: ``attn_apply``
 writes the layer's new keys and values into the cache tensors it is given
@@ -108,7 +108,7 @@ def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
                cache: dict | None = None):
     """Causal self-attention with RoPE; returns (y, cache).  Cache:
     {'k','v'}: (B, Smax, KV, hd).  (``repro``'s cross-attention and
-    non-causal options come with the encoder-decoder, ROADMAP A6.)
+    non-causal options come with the encoder-decoder, ROADMAP A7.)
 
     Prefill (``ctx.decode`` false) writes k/v into the cache from position
     0 and attends over the fresh k/v; decode writes them at
@@ -205,6 +205,149 @@ def mlp_apply(p, x, cfg: ArchConfig):
         h = F.gelu(torch.einsum("bsd,df->bsf", x, p["wi"]),
                    approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+def moe_defs(cfg: ArchConfig) -> dict:
+    D, Fd, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    d = {
+        "router": ParamDef((D, E), (None, None), dtype=f32),
+        "wi_gate": ParamDef((E, D, Fd), ("expert", "fsdp", None)),
+        "wi_up": ParamDef((E, D, Fd), ("expert", "fsdp", None)),
+        "wo": ParamDef((E, Fd, D), ("expert", None, "fsdp")),
+    }
+    if cfg.n_shared_experts:
+        d["shared"] = mlp_defs(cfg, d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+    return d
+
+
+def moe_capacity(n_tokens: int, cfg: ArchConfig,
+                 capacity_factor: float) -> int:
+    """Slots per expert for ``n_tokens`` tokens dispatched together:
+    ``repro``'s ``max(8, round(N K / E cf / 8) * 8)``, at most N, with
+    Python's ``round`` (half to even) as there."""
+    E, K = cfg.n_experts, cfg.n_experts_per_tok
+    cap = max(8, int(round(n_tokens * K / E * capacity_factor / 8)) * 8)
+    return min(cap, n_tokens)
+
+
+def moe_route(probs, K: int):
+    """The top-``K`` experts of each token and their gates, normalised over
+    the K: ``(gate_vals, expert_idx)``, each ``probs.shape[:-1] + (K,)``."""
+    gate_vals, expert_idx = torch.topk(probs, K, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return gate_vals, expert_idx
+
+
+def moe_slots(expert_idx, cfg: ArchConfig, capacity_factor: float):
+    """Each group's ``N * K`` (token, expert) slots in expert order (a
+    stable sort of the flat expert ids, ``sort_idx``) for ``expert_idx``
+    ``(G, N, K)``: ``(dest, keep, tok_of_slot, sort_idx, cap)``, ``dest``
+    the slot's row of the ``(E * cap + 1)`` dispatch buffer (``E * cap``,
+    the drop row, where its expert is full).  The expert counts are a
+    comparison sum, not ``bincount``, whose output size the device would
+    have to read back: nothing here leaves the device."""
+    Gp, N, K = expert_idx.shape
+    E = cfg.n_experts
+    flat_e = expert_idx.reshape(Gp, N * K)
+    sort_idx = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, sort_idx)
+    tok_of_slot = sort_idx // K
+    counts = (flat_e[..., None] == torch.arange(
+        E, device=flat_e.device)).sum(1)                          # (G, E)
+    group_start = torch.cumsum(counts, -1) - counts
+    rank = torch.arange(N * K, device=flat_e.device) - torch.gather(
+        group_start, 1, sorted_e)
+    cap = moe_capacity(N, cfg, capacity_factor)
+    keep = rank < cap
+    dest = torch.where(keep, sorted_e * cap + rank,
+                       torch.full_like(rank, E * cap))
+    return dest, keep, tok_of_slot, sort_idx, cap
+
+
+def moe_dispatch(probs, cfg: ArchConfig, capacity_factor: float):
+    """The sort-based top-k dispatch of ``repro``'s ``moe_apply`` for
+    ``probs`` ``(G, N, E)``: G groups of N tokens, each group with its own
+    capacity; :func:`moe_route`, then :func:`moe_slots`.  Returns
+    ``(gate_vals, expert_idx, dest, keep, tok_of_slot, sort_idx, cap)``."""
+    gate_vals, expert_idx = moe_route(probs, cfg.n_experts_per_tok)
+    return (gate_vals, expert_idx,
+            *moe_slots(expert_idx, cfg, capacity_factor))
+
+
+def moe_apply(p, x, cfg: ArchConfig, capacity_factor: float | None = None,
+              rules=None, *, per_row: bool = False, with_aux: bool = True):
+    """Sort-based top-k dispatch with per-expert capacity (GShard-style
+    drop), the Switch load-balance aux loss and the shared experts:
+    ``repro``'s ``moe_apply``; returns ``(y, aux)``.
+
+    The expert products run over the dense ``(E, cap, D)`` buffer with
+    ``torch.einsum``, as ``repro`` computes them outside any kernel.  The
+    combine gathers each (token, k) slot's expert output back into ``(N,
+    K)`` order and sums over K in one fixed-order reduction, where
+    ``repro`` scatter-adds into the tokens (``.at[].add``, float atomics
+    on the card): two runs give the same bits.
+
+    ``per_row``: each batch row is its own dispatch group, with the
+    capacity of its own ``S`` tokens -- what ``repro``'s ``jax.vmap`` of the
+    decode step over requests computes (each row there is a batch-1
+    call), so that rows, padding rows included, never compete for slots.
+    ``aux`` is then the mean of the rows' aux losses.  ``with_aux=False``
+    returns 0.0 for it and launches none of its ops (a serving step; under
+    ``jax.jit`` ``repro``'s unused aux is dead code too)."""
+    if rules is not None:
+        raise NotImplementedError(
+            "sharding rules wait for parallelism (ROADMAP A8)")
+    if capacity_factor is None:
+        capacity_factor = cfg.moe_capacity_factor
+    B, S, D = x.shape
+    E = cfg.n_experts
+    Gp = B if per_row else 1
+    N = B * S // Gp
+    xt = x.reshape(Gp, N, D)
+
+    logits = (xt.to(f32) @ p["router"]).to(f32)                   # (G, N, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx, dest, keep, tok_of_slot, sort_idx, cap = \
+        moe_dispatch(probs, cfg, capacity_factor)
+
+    aux = 0.0
+    if with_aux:
+        # load-balance aux loss (Switch): E * sum_e f_e * p_e, per group
+        me = (expert_idx[..., 0, None] == torch.arange(
+            E, device=x.device)).to(f32).mean(1)
+        ce = probs.mean(1)
+        aux = (E * (me * ce).sum(-1)).mean()
+
+    # dispatch: slot i of group g lands in row dest[g, i] of the group's
+    # buffer; the drop row E * cap takes every dropped slot's zeros
+    gathered = torch.where(keep[..., None],
+                           torch.gather(xt, 1, tok_of_slot[..., None]
+                                        .expand(-1, -1, D)),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+    rows = dest + (E * cap + 1) * torch.arange(
+        Gp, device=x.device)[:, None]
+    buf = torch.zeros((Gp * (E * cap + 1), D), dtype=x.dtype,
+                      device=x.device)
+    buf.index_put_((rows.reshape(-1),), gathered.reshape(-1, D))
+    buf = buf.view(Gp, E * cap + 1, D)[:, :-1].reshape(Gp, E, cap, D)
+
+    g = torch.einsum("xecd,edf->xecf", buf, p["wi_gate"])
+    h = F.silu(g) * torch.einsum("xecd,edf->xecf", buf, p["wi_up"])
+    yb = torch.einsum("xecf,efd->xecd", h, p["wo"]).reshape(Gp, E * cap, D)
+
+    # combine: each (token, k) slot reads its expert row (the zero row
+    # where it was dropped), weighted by its gate, summed over k
+    yb = torch.cat([yb, torch.zeros((Gp, 1, D), dtype=x.dtype,
+                                    device=x.device)], 1)
+    dest_nk = torch.empty_like(dest).scatter_(1, sort_idx, dest)  # (G, N*K)
+    y_nk = torch.gather(yb, 1, dest_nk[..., None].expand(-1, -1, D))
+    K = cfg.n_experts_per_tok
+    y_nk = y_nk.view(Gp, N, K, D) * gate_vals[..., None].to(x.dtype)
+    y = y_nk.sum(2).reshape(B * S, D)
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(p["shared"], x, cfg).reshape(B * S, D)
+    return y.reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------- embedding

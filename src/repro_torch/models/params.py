@@ -116,6 +116,15 @@ def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None):
 
 # ------------------------------------------------------------ parameters
 
+#: a normal leaf of more elements than this is drawn one index of its
+#: leading (layer) axis at a time: the f32 draw of a whole stacked leaf
+#: would need 4 bytes an element beside the model (chameleon-34b's
+#: ``mlp.wi_gate``, 8.7e9 elements, would want 35 GB of f32 next to its
+#: 69 GB of bf16 weights).  Every leaf of the models served before this
+#: limit existed is below it, so their draws are unchanged.
+DRAW_LIMIT = 1 << 32
+
+
 def _init_leaf(d: ParamDef, generator: torch.Generator, device):
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
@@ -125,6 +134,12 @@ def _init_leaf(d: ParamDef, generator: torch.Generator, device):
     std = 1.0 / math.sqrt(max(fan_in, 1))
     if d.init == "embed":
         std = 0.02          # GPT-style: keeps tied-logit scales sane
+    if math.prod(d.shape) > DRAW_LIMIT:
+        out = torch.empty(d.shape, dtype=d.dtype, device=device)
+        for i in range(d.shape[0]):
+            out[i] = torch.randn(d.shape[1:], generator=generator,
+                                 dtype=torch.float32, device=device).mul_(std)
+        return out
     x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                     device=device)
     return x.mul_(std).to(d.dtype)

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder, RWKV-6 and Griffin LMs.
+"""Model zoo of the port: the dense and MoE decoders, RWKV-6 and Griffin
+LMs.
 
 ``build_model(cfg) -> Model`` with:
     defs        ParamDef tree (layers stacked on a leading axis)
@@ -21,18 +22,20 @@ attention reads the position; the recurrent state of RWKV-6 and of
 Griffin's RG-LRU layers is per row already.
 
 The counterparts of ``repro.models.zoo``'s ``build_decoder_lm`` (dense
-configs), ``build_rwkv_lm`` and ``build_griffin_lm``, with the same
+and MoE configs), ``build_rwkv_lm`` and ``build_griffin_lm``, with the same
 parameter and cache trees (names, stacked shapes, leaf order), so that
 ``params_from_numpy`` maps ``repro``'s parameters one to one and the
 decode-state plans agree.  Each layer stack is a Python loop over the
 stacked parameters (the counterpart of ``_scan_stack``); the cache is
 updated in place and returned.  ``build_model`` raises for the families
-the port does not build yet (ROADMAP A6).
+the port does not build yet: MLA, MTP and the encoder-decoder (ROADMAP
+A7).
 
 ``loss_fn`` is the counterpart of ``repro``'s: the next-token
 cross-entropy over every position, in f32, with ``metrics`` ``loss`` and
-``lm_loss`` (and ``aux_loss``, 0, for the dense decoder, whose MoE
-balance loss and MTP head come with ROADMAP A6).  Under autograd each
+``lm_loss``, and for the decoder ``aux_loss``, the MoE balance loss summed
+over the MoE layers (0 for a dense config), added to the loss at 0.01
+where the config has experts.  Under autograd each
 stacked leaf is cut into its layers once (``unbind``), so that the
 backward stacks the layers' gradients in one pass.  On the card the
 attention's gradient runs the hand-written backward kernel
@@ -122,12 +125,14 @@ def _lm_loss(logits, tokens):
 
 def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
         stacked: tuple[str, ...], aux_loss: bool = False) -> Model:
-    """A Model over ``backbone(params, x, ctx, cache) -> x``: the embedding
-    in front, the final norm and the logits behind; prefill (positions
-    from 0) and decode (positions from ``t``) give the last position's
-    logits, ``loss_fn`` the next-token loss over all of them.
+    """A Model over ``backbone(params, x, ctx, cache) -> (x, aux)``: the
+    embedding in front, the final norm and the logits behind; prefill
+    (positions from 0) and decode (positions from ``t``) give the last
+    position's logits, ``loss_fn`` the next-token loss over all of them.
     ``stacked`` names the top-level subtrees whose leaves stack the
-    layers; ``aux_loss`` adds ``repro``'s dense ``aux_loss`` metric."""
+    layers; ``aux_loss``: the decoder's ``aux_loss`` metric (the MoE
+    balance loss summed over layers, 0 without experts), added to the
+    loss at 0.01 where the config has experts, as in ``repro``."""
     def init(generator: torch.Generator, device=None):
         return init_params(defs, generator, device)
 
@@ -143,14 +148,18 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
         pos = torch.arange(S, device=tokens.device)[None].expand(Bz, S)
         ctx = Ctx(cfg=cfg, impl=impl, positions=pos, rules=rules)
         x = embed_apply(params["embed"], tokens, cfg)
-        x = backbone(params, x, ctx, None)
+        x, aux = backbone(params, x, ctx, None)
         logits = logits_apply(params["embed"], rms_norm(x, params["ln_f"]),
                               cfg)
-        loss = _lm_loss(logits, tokens)
-        metrics = {"loss": loss, "lm_loss": loss}
+        lm = _lm_loss(logits, tokens)
+        metrics = {"lm_loss": lm}
+        loss = lm
         if aux_loss:
-            metrics["aux_loss"] = torch.zeros((), dtype=torch.float32,
-                                              device=tokens.device)
+            metrics["aux_loss"] = torch.as_tensor(
+                aux, dtype=torch.float32, device=tokens.device)
+            if cfg.n_experts:
+                loss = lm + 0.01 * aux
+        metrics["loss"] = loss
         return loss, metrics
 
     def init_cache(bsz, smax, device=None):
@@ -181,7 +190,7 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
         ctx = Ctx(cfg=cfg, impl=impl, positions=pos.expand(Bz, S),
                   decode=decode, cache_len=t, rows=rows, rules=rules)
         x = embed_apply(params["embed"], tokens, cfg)
-        x = backbone(params, x, ctx, cache)
+        x, _ = backbone(params, x, ctx, cache)
         h = rms_norm(x[:, -1:], params["ln_f"])
         logits = logits_apply(params["embed"], h, cfg)
         return logits[:, 0], cache
@@ -199,27 +208,40 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
 
 
 def build_decoder_lm(cfg: ArchConfig) -> Model:
-    if cfg.n_experts or cfg.mla is not None or cfg.mtp:
+    """The dense and MoE decoders: ``cfg.n_dense_layers`` dense blocks
+    (all of them without experts), then the MoE blocks, each stack under
+    its own key (``"dense"``, ``"moe"``) in the parameters and the cache,
+    present only where it has layers, as in ``repro``."""
+    if cfg.mla is not None or cfg.mtp:
         raise NotImplementedError(
-            f"{cfg.name}: MoE, MLA and MTP decoders are not ported yet "
-            f"(ROADMAP A6)")
-    n_layers = cfg.n_layers
-    defs = {"embed": embed_defs(cfg), "ln_f": norm_defs(cfg.d_model),
-            "dense": stack_defs(B.transformer_block_defs(cfg), n_layers)}
+            f"{cfg.name}: MLA and MTP decoders are not ported yet "
+            f"(ROADMAP A7)")
+    n_dense = cfg.n_dense_layers if cfg.n_experts else cfg.n_layers
+    n_moe = cfg.n_layers - n_dense
+    stacks = [(k, n, moe) for k, n, moe in (("dense", n_dense, False),
+                                            ("moe", n_moe, True)) if n]
+    defs = {"embed": embed_defs(cfg), "ln_f": norm_defs(cfg.d_model)}
+    for key, n, moe in stacks:
+        defs[key] = stack_defs(B.transformer_block_defs(cfg, moe=moe), n)
 
     def backbone(params, x, ctx, caches):
-        dense = params["dense"]
-        cache = caches["dense"] if caches else None
-        for i in range(n_layers):
-            c = _layer(cache, i) if cache is not None else None
-            x, _, _ = B.transformer_block_apply(_layer(dense, i), x, ctx, c)
-        return x
+        aux = 0.0          # a tensor once an MoE block adds its loss; a
+                           # dense block's 0.0 adds no launch to a step
+        for key, n, moe in stacks:
+            cache = caches[key] if caches else None
+            for i in range(n):
+                c = _layer(cache, i) if cache is not None else None
+                x, _, a = B.transformer_block_apply(_layer(params[key], i),
+                                                    x, ctx, c, moe=moe)
+                aux = aux + a
+        return x, aux
 
     def make_cache_defs(bsz, smax):
-        return {"dense": _kv_cache_defs(cfg, n_layers, bsz, smax)}
+        return {key: _kv_cache_defs(cfg, n, bsz, smax)
+                for key, n, _ in stacks}
 
-    return _lm(cfg, defs, make_cache_defs, backbone, stacked=("dense",),
-               aux_loss=True)
+    return _lm(cfg, defs, make_cache_defs, backbone,
+               stacked=tuple(key for key, _, _ in stacks), aux_loss=True)
 
 
 # ----------------------------------------------------------------- RWKV-6 LM
@@ -238,7 +260,7 @@ def build_rwkv_lm(cfg: ArchConfig) -> Model:
         for i in range(n_layers):
             c = _layer(cache, i) if cache is not None else None
             x, _, _ = B.rwkv6_block_apply(_layer(blocks, i), x, ctx, c)
-        return x
+        return x, None
 
     def make_cache_defs(bsz, smax):
         L, D = n_layers, cfg.d_model
@@ -293,7 +315,7 @@ def build_griffin_lm(cfg: ArchConfig) -> Model:
         for i, b in enumerate(tail_pattern):
             c = caches["tail"][i] if caches else None
             x, _, _ = apply[b](params["tail"][i], x, ctx, c)
-        return x
+        return x, None
 
     def make_cache_defs(bsz, smax):
         # as in repro: the local-attention cache is indexed by absolute
@@ -328,5 +350,5 @@ def build_model(cfg: ArchConfig) -> Model:
         return build_griffin_lm(cfg)
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP A6)")
+            f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP A7)")
     return build_decoder_lm(cfg)

@@ -4,8 +4,9 @@ the split-K decode's split rule for it, and the CUDA-graph entry points.
 On the CPU:
 
   * decode with the position ``t`` a 0-d tensor is bit-equal to decode
-    with ``t`` an int, for the smoke ``llama3.2-1b``, ``rwkv6-7b`` and
-    ``recurrentgemma-2b`` (logits and caches, in bf16 and in f32); in f32
+    with ``t`` an int, for the smoke ``llama3.2-1b``, ``rwkv6-7b``,
+    ``recurrentgemma-2b`` and ``granite-moe-3b-a800m`` (logits and caches,
+    in bf16 and in f32); in f32
     the logits are also allclose to ``repro``'s ``jax.jit(decode_fn)`` with
     a traced ``jnp.int32(t)``, at ``test_torch_models.py``'s atol 1e-4
     (sums in another order).  The recurrent models' mixing leaves are
@@ -29,7 +30,10 @@ execute is bit-equal to the eager slice and fused runs, and two runs with
 other inputs each give their own outputs; the captured decode step gives
 the eager step's logits bit for bit at every position, and the captured
 batched step (4 rows, each at its own position) gives the eager batched
-step's logits, next tokens and state bit for bit, for the three families.
+step's logits, next tokens and state bit for bit, for the four families;
+and granite-20b's multi-query decode (48 heads over one KV head: the
+split-K decode in three row blocks) captured, serial and at bucket 4,
+bit-equal to the eager step, every attention call on the decode kernel.
 """
 
 import dataclasses
@@ -64,8 +68,11 @@ from repro_torch.models.params import (  # noqa: E402
 )
 from repro_torch.models.zoo import build_model  # noqa: E402
 
-ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
-PROMPT = {"llama3.2-1b": 8, "rwkv6-7b": 8, "recurrentgemma-2b": 24}
+ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b",
+         "granite-moe-3b-a800m")
+PROMPT = {"llama3.2-1b": 8, "rwkv6-7b": 8, "recurrentgemma-2b": 24,
+          "granite-moe-3b-a800m": 8}
+RECURRENT = ("rwkv6-7b", "recurrentgemma-2b")
 STEPS, BATCH = 4, 2
 ATOL32 = 1e-4          # f32 logits against repro's (test_torch_models.py)
 SPLIT_ATOL = 1e-5      # the split decode against attention_ref, f32
@@ -88,7 +95,7 @@ def pair(request):
     jm = jax_build(jconfigs.smoke(arch))
     tm = build_model(tconfigs.smoke(arch))
     jp = jm.init(jax.random.PRNGKey(0))
-    if arch != "llama3.2-1b":
+    if arch in RECURRENT:
         jp = live_leaves(arch, jp)
     tp = params_from_numpy(
         tm.defs, jax.tree.map(lambda a: np.asarray(a, np.float32), jp),
@@ -370,3 +377,45 @@ def test_captured_batched_step_bit_equal_on_card(card, arch):
     for a, b in zip(tree_leaves(step.cache), tree_leaves(cache)):
         assert torch.equal(a, b)
     assert step.call.replays == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [None, 4])
+def test_captured_row_blocked_decode_bit_equal_on_card(card, bucket):
+    """granite-20b's multi-query decode (48 heads over one KV head, three
+    row blocks of the split-K decode) captured, serial (``bucket`` None)
+    and batched, bit-equal to the eager step; the decode kernel takes
+    every step."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    cfg = dataclasses.replace(tconfigs.smoke("granite-20b"), n_heads=48,
+                              head_dim=64)
+    tm = build_model(cfg)
+    params = tm.init(torch.Generator(device=card).manual_seed(0), card)
+    smax = 40
+    B = bucket or 1
+    if bucket:
+        step = CapturedBatchedDecodeStep(tm, params, bucket=B, smax=smax,
+                                         device=card)
+    else:
+        step = make_captured_decode_step(tm, params, smax=smax, device=card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    for leaf in tree_leaves(step.cache):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=card))
+    cache = tree_map(lambda t: t.clone(), step.cache)
+    lens = [5, 9, 20, 31][:B]
+    toks = [1, 2, 3, 4][:B]
+    fk.reset_launches()
+    for s in range(4):
+        ts = [n + s for n in lens]
+        t = torch.tensor(ts, device=card) if bucket else ts[0]
+        want, cache = tm.decode_fn(
+            params, cache, torch.tensor(toks, device=card)[:, None], t)
+        got = step(toks, ts) if bucket else step(toks[0], ts[0])
+        logits = got[0] if bucket else got
+        assert torch.equal(logits, want), s
+        toks = want.argmax(-1).tolist()
+    for a, b in zip(tree_leaves(step.cache), tree_leaves(cache)):
+        assert torch.equal(a, b)
+    assert fk.LAUNCHES["flash_decode"] == 2 * 4 * cfg.n_layers
+    assert fk.LAUNCHES["flash_prefill"] == fk.LAUNCHES["flash_attention"] == 0

@@ -10,7 +10,12 @@ chunked ``_flash_xla`` (``impl="xla"``) and the port's ``_flash_torch``
 cache tails, and with splits that are fully masked for some rows or for
 every row: such a split must weigh exactly 0, never NaN.  Inputs are made
 with numpy from a seed.  Tolerance: f32 atol 1e-5 (sums in another order).
-Also the fixed route rule and the split rule of the CUDA wrapper.
+Also the fixed route rule and the split rule of the CUDA wrapper, and,
+past 16 rows (granite-20b's 48 query heads over one KV head), the row
+blocks: a device position routed to the decode kernel, the split rule,
+``check_pairs`` and the arrival counters' layout, the plain partials at
+G 48 (fully masked splits and rows included, host and device
+positions), and the kernel source's constants.
 """
 
 import numpy as np
@@ -208,3 +213,149 @@ def test_cuda_wrappers_raise_on_cpu():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fk.flash_prefill_cuda(q, k, v, causal=True, window=None, q_start=0,
                               kv_len=20)
+
+
+# ------------------------------------------------ row blocks (G > 16)
+
+# granite-20b's decode: 48 query heads over one KV head of D 128, a cache
+# of 1024 + 32 positions
+G20, D20, SMAX20 = 48, 128, 1056
+
+
+@pytest.mark.parametrize("Sq,G,dtype,dims", [
+    (1, 48, torch.bfloat16, (128, 128)),
+    (1, 48, torch.float32, (128, 128)),
+    (2, 9, torch.bfloat16, (128, 128)),
+    (1, 17, torch.bfloat16, (16, 16)),
+])
+def test_route_takes_device_positions_to_decode(Sq, G, dtype, dims):
+    # a device position goes to the decode kernel (in row blocks), the only
+    # one that reads it there; at a host position the rule is unchanged
+    assert Sq * G > fk.DECODE_MAX_ROWS
+    assert fk.pick_route(Sq, G, dtype, *dims, device_pos=True) == "decode"
+    want = "prefill" if dtype == torch.bfloat16 and \
+        dims in fk.PREFILL_HEAD_DIMS else "simple"
+    assert fk.pick_route(Sq, G, dtype, *dims) == want
+    # at most 16 rows the route is the decode kernel either way
+    assert fk.pick_route(1, 16, dtype, *dims) == "decode"
+    assert fk.pick_route(1, 16, dtype, *dims, device_pos=True) == "decode"
+
+
+def test_row_blocks_and_split_rule_at_granite_20b():
+    assert [fk.row_blocks(1, G) for G in (1, 4, 10, 16, 17, 32, 48)] == \
+        [1, 1, 1, 1, 2, 2, 3]
+    assert fk.row_blocks(2, 9) == 2
+    # the last decode step: 33 tiles over 3 row blocks; ceil(132 / 3) = 44
+    # splits wanted, the merge reads 16 rows of Dv + 2 a split (47 fit in
+    # 384 KB): one tile a split, 33 x 3 = 99 blocks
+    assert fk.decode_splits(1, 1, 1, G20, D20, causal=True, window=None,
+                            q_start=SMAX20 - 1, kv_len=SMAX20) == (33, 0, 1)
+    assert fk.capacity_splits(1, 1, 1, G20, D20, Skv=SMAX20, causal=True,
+                              window=None) == (33, 1)
+    # the batched step's bucket 4: ceil(132 / 12) = 11 splits of 3 tiles
+    assert fk.capacity_splits(4, 1, 1, G20, D20, Skv=SMAX20, causal=True,
+                              window=None) == (11, 3)
+    # a short prompt: the live tiles bound the splits
+    assert fk.decode_splits(1, 1, 1, G20, D20, causal=True, window=None,
+                            q_start=40, kv_len=41) == (2, 0, 1)
+    # at most 16 rows the rule is the single row block's, unchanged
+    for B, KV, H, Dv in ((1, 8, 32, 64), (1, 1, 10, 256), (4, 8, 32, 64)):
+        n = fk.capacity_tiles(1, SMAX20, causal=True, window=None)
+        want = -(-fk.DECODE_TARGET_BLOCKS // (B * KV))
+        want = min(want, fk.DECODE_MERGE_BYTES // (4 * (H // KV) * (Dv + 2)))
+        S = min(n, want)
+        tpc = -(-n // S)
+        assert fk.capacity_splits(B, KV, 1, H, Dv, Skv=SMAX20, causal=True,
+                                  window=None) == (-(-n // tpc), tpc)
+
+
+def test_check_pairs_counts_row_blocks():
+    fk.check_pairs(1, 1, G20)
+    fk.check_pairs(21845, 1, G20)                 # 3 x 21845 = 65535
+    with pytest.raises(ValueError, match="row blocks"):
+        fk.check_pairs(21846, 1, G20)
+    fk.check_pairs(65535, 1, 16)
+    with pytest.raises(ValueError, match="row blocks"):
+        fk.check_pairs(65535, 1, 17)
+
+
+ROW_CASES = {
+    "decode": dict(Skv=200, q_start=199, kv_len=200),
+    "window": dict(Skv=200, q_start=199, kv_len=200, window=45),
+    "tail": dict(Skv=200, q_start=120, kv_len=121),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROW_CASES))
+@pytest.mark.parametrize("splits", [None, 1, 7, 64])
+def test_split_decode_at_g48_matches_reference(splits, case):
+    c = dict(ROW_CASES[case])
+    Skv = c.pop("Skv")
+    q, k, v = _qkv(4800 + (splits or 0), 1, 1, Skv, G20, 1, 16)
+    _, (m, l, acc) = _check_all(q, k, v, splits, **c)
+    assert m.shape[-1] == G20 and acc.shape[-2:] == (G20, 16)
+    if splits == 64:                              # splits past the range
+        assert torch.isneginf(m[:, :, 7:]).all() and not l[:, :, 7:].any()
+
+
+def test_g48_rows_masked_in_some_and_every_split():
+    # 2 queries at 114, 115 of 48 heads each (96 rows, 6 row blocks) over
+    # 116 keys, window 20: split 0 of 2 (tile 2, keys 64..95) holds key 95
+    # for the first query and no live key for the 48 rows of the second
+    q, k, v = _qkv(48, 1, 2, 116, G20, 1, 16)
+    kw = dict(q_start=114, kv_len=116, window=20)
+    got, (m, l, acc) = _check_all(q, k, v, 2, **kw)
+    assert torch.isneginf(m[0, 0, 0, 1]).all() and not l[0, 0, 0, 1].any()
+    assert not acc[0, 0, 0, 1].any()
+    assert torch.isfinite(m[0, 0, 0, 0]).all()
+    assert torch.isfinite(m[0, 0, 1]).all()
+    # every key of the second query beyond kv_len: no live key at all
+    kw = dict(q_start=8, kv_len=9, window=1)
+    for splits in (None, 1, 3):
+        got, (m, _, _) = _check_all(q, k[:, :64], v[:, :64],
+                                    splits, flash=False, **kw)
+        assert torch.isneginf(m[:, :, :, 1]).all()
+        assert not got[:, 1].any() and np.abs(got[:, 0]).max() > 0
+
+
+def test_g48_device_position_partials_match_oracle():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(49, 2, 1, 300, G20, 1, 16))
+    for pos in (torch.tensor(150), torch.tensor([37, 299])):
+        parts = flash_decode_partials_torch(q, k, v, q_start=pos)
+        assert parts[0].shape[2] == fk.capacity_splits(
+            2, 1, 1, G20, 16, Skv=300, causal=True, window=None)[0]
+        got = flash_decode_combine_torch(*parts)
+        for b in range(2):
+            p = int(pos.reshape(-1)[min(b, pos.numel() - 1)])
+            want = np.asarray(jax_ref(
+                jnp.asarray(q[b:b + 1].numpy()),
+                jnp.asarray(k[b:b + 1].numpy()),
+                jnp.asarray(v[b:b + 1].numpy()), q_start=p, kv_len=p + 1))
+            np.testing.assert_allclose(got[b:b + 1].numpy(), want, rtol=0,
+                                       atol=ATOL32)
+
+
+def test_decode_source_constants_and_counter_layout():
+    src = (fk.CSRC / "flash_decode.cu").read_text()
+    import re
+    assert int(re.search(r"constexpr int kMaxRows = (\d+);", src)[1]) \
+        == fk.DECODE_MAX_ROWS
+    assert int(re.search(r"constexpr int kTile = (\d+);", src)[1]) \
+        == fk.DECODE_TILE
+    # grid z: the row blocks; the arrival counter of (pair, row block)
+    assert "(unsigned)((rows + NW - 1) / NW)" in src
+    assert "blockIdx.y * gridDim.z + blockIdx.z" in src
+    assert "atomicAdd(p.counter + ci, 1)" in src
+    assert "p.counter[ci] = 0" in src
+    # no refusal of more than 16 rows is left: every call of more than 4
+    # rows takes the 16-warp instance, in row blocks beyond 16
+    assert "> kMaxRows" not in src
+    assert "if (rows <= 4) return launch<T, DMAX, 4>(p, stream);" in src
+    assert "return launch<T, DMAX, kMaxRows>(p, stream);" in src
+    # the layout gives every (b, KV head, row block) of a launch its own
+    # counter, inside the MAX_PAIRS the wrapper allocates
+    for B, KV, rows in ((1, 1, 48), (4, 1, 48), (2, 8, 4), (3, 2, 33)):
+        RB = fk.row_blocks(rows, 1)
+        idx = {(b * KV + h) * RB + z for b in range(B) for h in range(KV)
+               for z in range(RB)}
+        assert len(idx) == B * KV * RB and max(idx) < fk.MAX_PAIRS

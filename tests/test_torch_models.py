@@ -213,12 +213,23 @@ def test_mlp_apply_f32():
 def test_unported_families_raise():
     import dataclasses
 
+    from repro_torch.configs.base import MLAConfig
+
     cfg = tconfigs.smoke(ARCH)
-    for bad, item in ((dict(is_encoder_decoder=True), "A6"),
-                      (dict(n_experts=4, n_experts_per_tok=2,
-                            moe_d_ff=32), "A6")):
+    mla = MLAConfig(q_lora_rank=16, kv_lora_rank=16, qk_nope_head_dim=8,
+                    qk_rope_head_dim=8, v_head_dim=8)
+    for bad, item in ((dict(is_encoder_decoder=True), "A7"),
+                      (dict(mla=mla), "A7"), (dict(mtp=True), "A7")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(dataclasses.replace(cfg, **bad))
+    # the MoE decoder builds now (ROADMAP A7's MoE part): every layer an
+    # MoE block unless n_dense_layers leads with dense ones
+    moe = dataclasses.replace(cfg, n_experts=4, n_experts_per_tok=2,
+                              moe_d_ff=32)
+    assert set(build_model(moe).defs) == {"embed", "moe", "ln_f"}
+    both = build_model(dataclasses.replace(moe, n_dense_layers=1))
+    assert set(both.defs) == {"embed", "dense", "moe", "ln_f"}
+    assert set(both.make_cache_defs(1, 8)) == {"dense", "moe"}
     # the recurrent families (ROADMAP A5) build now: RWKV-6 and Griffin
     rwkv = build_model(dataclasses.replace(cfg, attn_free=True))
     griffin = build_model(dataclasses.replace(cfg, family="hybrid"))

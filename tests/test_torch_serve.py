@@ -15,6 +15,13 @@
     takes the same decisions as ``repro``'s;
   * ``step_mode="vmap"`` on a serial-overlap pool and the card's default
     without CUDA raise;
+  * this slice's decoders: decode plans integer-equal for the full
+    ``granite-moe-3b-a800m``, ``gemma-7b``, ``starcoder2-7b``,
+    ``granite-20b`` and ``chameleon-34b`` at ``smax`` 1056 (both stacks'
+    cache leaves, ``{"dense", "moe"}`` in ``repro``'s leaf order, where a
+    config has both); on ``granite-moe-smoke`` and ``granite-20b-smoke``
+    the packed decode state byte-equal to ``repro``'s, and the server's
+    tokens per request and integer metrics equal to ``repro``'s;
   * the recurrent families: decode plans integer-equal for the full
     ``rwkv6-7b`` at ``smax`` 1056 and ``recurrentgemma-2b`` at 2592
     (mixed bf16/f32 leaves, Griffin's list-valued ``tail``); on their
@@ -44,7 +51,12 @@ import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.core import plan_shared_arena  # noqa: E402
 from repro_torch.core.executor import ExecutorError  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
-from repro_torch.models.params import params_from_numpy  # noqa: E402
+from repro_torch.models.params import (  # noqa: E402
+    is_def,
+    params_from_numpy,
+    tree_leaves,
+    tree_map,
+)
 from repro_torch.models.zoo import build_model  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     ChaosController,
@@ -294,3 +306,109 @@ def test_recurrent_server_matches_repro(arch):
             if b.tokens[s] != a.tokens[s]:
                 break
     assert compared >= len(jreqs) * GEN // 3, compared
+
+
+# ------------------------------------------------------------ this slice's
+# decoders: the MoE decoder and the four other dense configs
+
+# a reference top-1 margin within llama3.2-1b's bf16 logit tolerance is a
+# tie that rounding may break either way (the MoE's router can flip a
+# near-tie expert on the same noise)
+DECODER_TIE = 5e-2
+# arena, resident extent, transients, buffers of each full config at smax
+# 1056 (1024 prompt + 32 generated), as chip_smoke.py's SERVES holds them
+DECODER_PLANS = {
+    "granite-moe-3b-a800m": (69_408_784, 69_206_020, 202_764, 101),
+    "gemma-7b": (485_478_404, 484_442_116, 1_036_288, 89),
+    "starcoder2-7b": (69_421_060, 69_206_020, 215_040, 101),
+    "granite-20b": (28_336_132, 28_114_948, 221_184, 161),
+    "chameleon-34b": (207_912_964, 207_618_052, 294_912, 149),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(DECODER_PLANS))
+def test_decode_plan_equal_full_decoders(arch):
+    jp = jserve.plan_decode_arena(jax_build(jconfigs.get(arch)), 1, 1056)
+    tp = tserve.plan_decode_arena(build_model(tconfigs.get(arch)), 1, 1056)
+    _assert_plans_equal(jp, tp)
+    assert (tp["arena_bytes"], tp["resident_extent"], tp["transient_bytes"],
+            tp["n_buffers"]) == DECODER_PLANS[arch]
+
+
+def test_decode_plan_equal_dense_and_moe_stacks():
+    import dataclasses
+
+    arch = "granite-moe-3b-a800m"
+    jcfg = dataclasses.replace(jconfigs.smoke(arch), n_layers=3,
+                               n_dense_layers=1)
+    tcfg = dataclasses.replace(tconfigs.smoke(arch), n_layers=3,
+                               n_dense_layers=1)
+    jm, tm = jax_build(jcfg), build_model(tcfg)
+    jp = jserve.plan_decode_arena(jm, 1, 20)
+    tp = tserve.plan_decode_arena(tm, 1, 20)
+    _assert_plans_equal(jp, tp)
+    assert tp["n_cache"] == 4          # dense k, v, then moe k, v
+
+
+@pytest.fixture(scope="module", params=["granite-moe-3b-a800m",
+                                        "granite-20b"])
+def decoder(request):
+    arch = request.param
+    jm = jax_build(jconfigs.smoke(arch))
+    tm = build_model(tconfigs.smoke(arch))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(
+        tm.defs, jax.tree.map(lambda a: np.asarray(a, np.float32), jp),
+        "cpu")
+    return arch, jm, tm, jp, tp
+
+
+def test_decoder_packed_state_equals_repro(decoder):
+    arch, jm, tm, _, _ = decoder
+    smax = 12
+    rng = np.random.default_rng(4)
+    jplan = jserve.plan_decode_arena(jm, 1, smax)
+    tplan = tserve.plan_decode_arena(tm, 1, smax)
+    _assert_plans_equal(jplan, tplan)
+    defs = tm.make_cache_defs(1, smax)
+    vals = tree_map(lambda d: rng.standard_normal(d.shape).astype(np.float32),
+                    defs, is_leaf=is_def)
+    jcache = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), vals)
+    tcache = tree_map(lambda a: torch.from_numpy(a).bfloat16(), vals)
+    want = np.asarray(jserve.pack_decode_state(jplan, jcache))
+    arena = tserve.pack_decode_state(tplan, tcache)
+    np.testing.assert_array_equal(arena.numpy(), want)
+    back = tserve.unpack_decode_state(tplan, arena, defs)
+    for a, b in zip(tree_leaves(back), tree_leaves(tcache)):
+        assert torch.equal(a, b)
+
+
+def test_decoder_server_matches_repro(decoder):
+    arch, jm, tm, jp, tp = decoder
+    P, GEN = 8, 4
+    smax = P + GEN
+    plan = tserve.plan_decode_arena(tm, 1, smax)
+    budget = plan_shared_arena([plan["plan"]] * 3).arena_bytes
+    kw = dict(smax=smax, budget_bytes=budget, warm=2)
+    jreqs = jserve.synth_requests(6, P, GEN, 512, seed=1)
+    treqs = tserve.synth_requests(6, P, GEN, 512, seed=1)
+    jm_ = jserve.run_server(jm, jp, jreqs, **kw)
+    tm_ = tserve.run_server(tm, tp, treqs, device="cpu", **kw)
+    assert tm_["max_concurrent"] < 6        # the budget queued
+    for k in METRICS:
+        assert tm_[k] == jm_[k], k
+    steps = [jax.jit(functools.partial(f, impl="xla"))
+             for f in (jm.prefill_fn, jm.decode_fn)]
+    compared = 0
+    for a, b in zip(jreqs, treqs):
+        assert (a.rid, a.rejected) == (b.rid, b.rejected)
+        assert list(b.tokens) == _port_direct(tm, tp, b.prompt, GEN), b.rid
+        margins = _reference_margins(jm, jp, a.prompt, list(a.tokens),
+                                     *steps)
+        for s, m in enumerate(margins):
+            if m > DECODER_TIE:
+                assert b.tokens[s] == a.tokens[s], (a.rid, s, m)
+                compared += 1
+            if b.tokens[s] != a.tokens[s]:
+                break
+    assert compared >= len(jreqs) * GEN // 2, compared

@@ -29,6 +29,13 @@ decode and against ``repro``'s batched server, on the CPU.
     which only a step whose ``repro`` top-1 margin is within the bf16 noise
     may cause (``TIE``; llama3.2-1b at its bf16 logit tolerance 5e-2).
 
+Each server and decode test runs for the four families: the dense
+``llama3.2-1b``, ``rwkv6-7b``, ``recurrentgemma-2b`` and the MoE
+``granite-moe-3b-a800m``, whose batched step dispatches each row on its
+own (``moe_apply(per_row=True)``), as ``repro``'s ``jax.vmap`` of the
+batch-1 step does: rows, padding rows included, never compete for an
+expert's slots.
+
 On the card, ``tests/test_torch_capture.py`` holds the captured batched
 step bit-equal to the eager batched step.
 """
@@ -71,13 +78,15 @@ from test_torch_serve import (  # noqa: E402
     _reference_margins,
 )
 
-ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
+MOE = "granite-moe-3b-a800m"
+ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b", MOE)
 # (prompt, generated) per request; Griffin's prompt is longer than the
 # smoke window of 16
-LENS = {"llama3.2-1b": (4, 3), **RECURRENT_LENS}
+LENS = {"llama3.2-1b": (4, 3), MOE: (4, 3), **RECURRENT_LENS}
 # a reference top-1 margin within the model's bf16 logit tolerance is a
-# tie rounding may break either way (llama3.2-1b: PERF.md's 5e-2)
-TIES = {"llama3.2-1b": 5e-2, **TIE}
+# tie rounding may break either way (llama3.2-1b: PERF.md's 5e-2; the
+# MoE decoder is held to the same)
+TIES = {"llama3.2-1b": 5e-2, MOE: 5e-2, **TIE}
 ATOL = 1e-5            # f32: sums in another order
 
 
@@ -90,7 +99,7 @@ def pair(request):
     jm = jax_build(jconfigs.smoke(arch))
     tm = build_model(tconfigs.smoke(arch))
     jp = jm.init(jax.random.PRNGKey(0))
-    if arch != "llama3.2-1b":
+    if arch in TIE:                    # the recurrent families
         jp = live_leaves(arch, jp)
     tp = _to_port(tm, jp)
     return arch, jm, tm, jp, tp, tree_map(lambda t: t.float(), tp)
