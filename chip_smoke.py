@@ -250,6 +250,37 @@ non-zero):
               kernels timed in turns (CUDA-core, tensor-core, tensor-core,
               CUDA-core).
 
+11. a7     -- (run after phase 7's decoders) this slice's families:
+              first each new attention shape, bf16 and f32, through the
+              routed kernel and every other kernel that takes it, against
+              the plain version and the oracle at the flash phase's
+              tolerance: ``seamless-m4t-medium``'s non-causal encoder
+              prefill (1024 frames, 16 heads of 64), its non-causal
+              cross-attention prefill (1024 tokens over 1024 frames, and
+              700 over 1000), its cross-attention decode over the padded
+              encoder buffer (1056 rows) at a kv_len on the device (int32,
+              0-d, and (4,) with lengths 1024, 1000, 517 and 33: the
+              split-K partials against the plain partials, garbage past
+              each length not leaking, one launch captured and replayed
+              at other lengths bit-equal to eager launches), and
+              ``deepseek-v3-671b``'s expanded MLA prefill at (D, Dv) =
+              (192, 128), 128 heads, its softmax scale 192^-0.5 (the
+              simple kernel); each timed beside its bound, its plain
+              version and SDPA.  Then each model served as in phase 7
+              (the plan's integers, 4 requests of 1024 tokens + 32,
+              seamless's with 1024 frames each, launches exactly the
+              path's, served packing, tokens bit-equal to the arena-free
+              loop, logits of the kernels against the plain versions with
+              the model's deliberately broken kernels above each limit),
+              its timing (prefill ms, captured and eager ms per token,
+              idle share, activities, the weight-read bound) and its vmap
+              phase: ``seamless-m4t-medium`` at full width and depth (f32
+              logits at full depth), ``deepseek-v3-671b`` at published
+              width with its depth cut to 4 of 61 layers (3 dense, one MoE
+              of 256 experts; each plain run routed and gated as its
+              kernels' run) and its f32 logits at 2 layers (one dense, one
+              MoE) once the bf16 weights are freed.
+
 10. bridge -- (run after phase 6) the graph bridge
               (``repro_torch/core/fx_bridge.py``): each function of
               ``repro_torch/graphs/programs.py`` (``wide`` at x 64 x 64,
@@ -394,6 +425,36 @@ DECODERS = {
               "transient_bytes": 294_912, "n_buffers": 149}),
 }
 SERVES.update(DECODERS)
+# this slice's families, served at published width after the decoders
+# (4 requests of 1024 prompt tokens + GEN; the encoder-decoder's requests
+# carry 1024 frames each, ``launch/serve.py:encoder_frames``), each through
+# the serve, timing and vmap phases: ``seamless-m4t-medium`` in full
+# (12 + 12 layers; its f32 logits at full depth), ``deepseek-v3-671b`` at
+# published width with its depth cut to ``depth`` layers of 61 (the 3
+# dense and one MoE layer of 256 experts: 1.34 TB of bf16 weights do not
+# fit one card; its f32 logits at the smaller ``f32_depth``, the bf16
+# weights freed first).  The decode plans' integers from the JAX package at
+# smax 1056 (the CPU tests assert them).  ``controls``: the deliberately
+# broken kernels (``CONTROLS``) each logit check must read above, in f32
+# and in bf16, applied where ``scope`` says (``"decode"``: the flash calls
+# of one query; ``"all"``: every flash call, MLA's decode has no kernel).
+A7 = {
+    "seamless-m4t-medium": dict(
+        prompt=1024, logit_atol=0.15, f32_atol=2e-4, scope="decode",
+        f32_controls=("kv_len+1", "head0_zeroed", "out_x(1+2^-6)",
+                      "q_x1.05"),
+        bf16_controls=("head0_zeroed",),
+        plan={"arena_bytes": 55_096_128, "resident_extent": 54_067_208,
+              "transient_bytes": 1_028_920, "n_buffers": 43}),
+    "deepseek-v3-671b": dict(
+        prompt=1024, logit_atol=0.1, scope="all", depth=4,
+        f32_depth=dict(n_layers=2, n_dense_layers=1),
+        f32_controls=("head0_zeroed", "out_x(1+2^-6)", "q_x1.05"),
+        bf16_controls=("head0_zeroed", "q_x1.05"),
+        plan={"arena_bytes": 5_411_844, "resident_extent": 4_866_052,
+              "transient_bytes": 545_792, "n_buffers": 19}),
+}
+SERVES.update(A7)
 FAMILIES = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
 MOE_ARCH = "granite-moe-3b-a800m"
 RG_RTOL = RG_ATOL = 1e-5           # rglru f32: exp of two libraries
@@ -1251,6 +1312,262 @@ def wkv6_err(got, want, mag, N):
     return float(diff.max()), share <= 1.0, share
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: this slice's attention shapes (the A7 models' served calls)
+# ---------------------------------------------------------------------------
+
+# seamless-m4t-medium: 16 heads of 64, one KV head each; its cache of
+# smax = 1024 + GEN rows; deepseek-v3-671b's expanded MLA prefill: 128
+# heads, D 192 (128 + 64), Dv 128, its own softmax scale
+SEAMLESS_H, SEAMLESS_D, MLA_H, MLA_D, MLA_DV = 16, 64, 128, 192, 128
+MLA_SCALE = MLA_D ** -0.5
+
+
+def a7_cases(dev, dtype, gen):
+    """label -> (q, k, v, kw) of each new attention shape, kw the call's
+    arguments: the encoder's non-causal prefill (1024 frames), the
+    cross-attention prefill (1024 tokens over the 1024 fresh frames, and
+    700 tokens over 1000 for a non-square one), the cross-attention
+    decode over the padded buffer of smax rows at a device kv_len (int32,
+    0-d, and ``(4,)`` with four lengths), MLA's (192, 128) causal
+    prefill."""
+    smax = 1024 + GEN
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    H, D = SEAMLESS_H, SEAMLESS_D
+    out = {
+        "encoder prefill": (rnd(1, 1024, H, D), rnd(1, 1024, H, D),
+                            rnd(1, 1024, H, D),
+                            dict(causal=False, q_start=0, kv_len=1024)),
+        "cross prefill": (rnd(1, 1024, H, D), rnd(1, 1024, H, D),
+                          rnd(1, 1024, H, D),
+                          dict(causal=False, q_start=0, kv_len=1024)),
+        "cross prefill 700x1000": (rnd(1, 700, H, D), rnd(1, 1000, H, D),
+                                   rnd(1, 1000, H, D),
+                                   dict(causal=False, q_start=0,
+                                        kv_len=1000)),
+    }
+    lens = {"cross decode": [1024],
+            "cross decode (4,)": [1024, 1000, 517, 33]}
+    for label, ls in lens.items():
+        B = len(ls)
+        n = torch.tensor(ls, dtype=torch.int32, device=dev)
+        out[label] = (rnd(B, 1, H, D), rnd(B, smax, H, D),
+                      rnd(B, smax, H, D),
+                      dict(causal=False, q_start=0,
+                           kv_len=n[0] if B == 1 else n))
+    out["mla prefill"] = (rnd(1, 1024, MLA_H, MLA_D),
+                          rnd(1, 1024, MLA_H, MLA_D),
+                          rnd(1, 1024, MLA_H, MLA_DV),
+                          dict(causal=True, q_start=0, kv_len=1024,
+                               softmax_scale=MLA_SCALE))
+    return out
+
+
+def phase_flash_a7(dev, err):
+    """Each new attention shape, bf16 and f32: the routed kernel (the one
+    the served path launches) and every other kernel that takes the call
+    against the plain version and the oracle, at the flash phase's
+    tolerance; at a device kv_len the split-K partials against the plain
+    partials, the buffer beyond each row's length filled with garbage that
+    must not leak, and one launch captured in a CUDA graph and replayed at
+    other lengths (written into the same int32 tensor) bit-equal to eager
+    launches at those lengths: the kernel reads the length on the device,
+    with no host sync.  Returns the worst error by route."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (q, k, v, kw) in a7_cases(dev, dtype, gen).items():
+            kv = kw["kv_len"]
+            args = dict(causal=kw["causal"], window=None, q_start=0,
+                        kv_len=kv, softmax_scale=kw.get("softmax_scale"))
+            wants = {impl: flash_attention(
+                q, k, v, impl=impl, causal=kw["causal"], kv_len=kv,
+                softmax_scale=kw.get("softmax_scale"))
+                for impl in ("torch", "ref")}
+            route = FK.pick_route(q.shape[1], q.shape[2] // k.shape[2],
+                                  dtype, q.shape[3], v.shape[3],
+                                  device_pos=torch.is_tensor(kv))
+            kernels = {"routed": FK.flash_attention_cuda}
+            if not torch.is_tensor(kv):
+                # the other kernels that take the call (the routed one is
+                # held above)
+                kernels.update((r, fn) for r, fn in flash_routes(
+                    dtype, q.shape[3], v.shape[3],
+                    q.shape[1] * q.shape[2] // k.shape[2]).items()
+                    if r != route)
+            line = []
+            for name, fn in kernels.items():
+                got = fn(q, k, v, **args)
+                for impl, want in wants.items():
+                    e, ok = fa_err(got, want)
+                    check(ok, f"flash {label} {dtype} {name} ({route}) vs "
+                              f"{impl}: max abs err {e}")
+                    err["flash_attention"] = max(err["flash_attention"], e)
+                    r = route if name == "routed" else name
+                    worst[r] = max(worst.get(r, 0.0), e)
+                    line.append(f"{name} vs {impl} {e:.3e}")
+            if torch.is_tensor(kv):
+                line.append(check_device_len(q, k, v, kv, args, dtype,
+                                             label))
+            say(f"flash a7: {label} ({str(dtype).split('.')[1]}, B "
+                f"{q.shape[0]}, Sq {q.shape[1]}, Skv {k.shape[1]}, H "
+                f"{q.shape[2]}, KV {k.shape[2]}, D {q.shape[3]}, Dv "
+                f"{v.shape[3]}, causal {kw['causal']}, kv_len "
+                f"{kv.tolist() if torch.is_tensor(kv) else kv}; route "
+                f"{route}): max abs err {', '.join(line)}")
+    torch.cuda.synchronize()
+    say(f"flash a7: every new shape within the flash tolerance; worst by "
+        f"route {worst}")
+    return worst
+
+
+def check_device_len(q, k, v, kv, args, dtype, label):
+    """The split-K decode at a device ``kv`` (int32): its partials against
+    the plain partials, garbage past each row's length not leaking, and
+    a captured launch replayed at other lengths bit-equal to eager ones.
+    Returns a line for the log."""
+    from repro_torch.core.capture import CapturedCall
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_decode_partials_torch)
+
+    out, m, l, acc = FK.flash_decode_cuda(q, k, v, causal=False, window=None,
+                                          q_start=0, kv_len=kv)
+    pm, pl, pacc = flash_decode_partials_torch(q, k, v, causal=False,
+                                               kv_len=kv)
+    live = torch.isfinite(pm)
+    check(torch.equal(live, torch.isfinite(m)),
+          f"{label}: the kernel's empty splits differ from the plain ones")
+    tol = lambda a, b, mag: bool(((a - b).abs() <= SPLIT_TOL + SPLIT_TOL
+                                  * mag).all())
+    vmax = float(v.float().abs().max())
+    check(tol(m[live], pm[live], pm[live].abs())
+          and tol(l, pl, pl) and tol(acc, pacc, pl[..., None] * vmax),
+          f"{label} {dtype}: split-K partials at a device kv_len vs the "
+          f"plain partials")
+    # garbage past each row's length
+    lens = kv.reshape(-1).tolist()
+    k2, v2 = k.clone(), v.clone()
+    for b in range(k.shape[0]):
+        n = lens[b if len(lens) > 1 else 0]
+        k2[b, n:] = 1e4
+        v2[b, n:] = -1e4
+    check(torch.equal(FK.flash_attention_cuda(q, k2, v2, **args), out),
+          f"{label} {dtype}: garbage beyond the device kv_len leaked")
+    # captured once, replayed at other lengths
+    n_dev = kv.clone()
+    call = CapturedCall(lambda: FK.flash_attention_cuda(
+        q, k, v, **dict(args, kv_len=n_dev)), q.device)
+    others = [[max(1, x - 1) for x in lens], [min(k.shape[1], x + 37)
+                                              for x in lens]]
+    for ls in others:
+        n_dev.copy_(torch.tensor(ls if len(lens) > 1 else ls[0],
+                                 dtype=torch.int32))
+        got = call.replay()
+        want = FK.flash_attention_cuda(q, k, v, **dict(args, kv_len=n_dev))
+        check(torch.equal(got, want),
+              f"{label} {dtype}: a captured launch replayed at kv_len {ls} "
+              f"differs from the eager launch")
+    return (f"partials within {SPLIT_TOL}, no leak past kv_len, captured "
+            f"replays at kv_len {others} bit-equal to eager")
+
+
+#: calls of each function in the CUDA graph ``graph_ms`` replays
+A7_GRAPH_CALLS = 8
+
+
+def graph_ms(fn, args, dev, reps=10):
+    """ms a call of ``fn(*args)``: CUDA events around ``reps`` replays of
+    one CUDA graph of A7_GRAPH_CALLS calls, after two replays."""
+    from repro_torch.core.capture import CapturedCall
+    call = CapturedCall(lambda: [fn(*args) for _ in range(A7_GRAPH_CALLS)],
+                        dev)
+    for _ in range(2):
+        call.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        call.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * A7_GRAPH_CALLS)
+
+
+def time_a7_shapes(card, dev):
+    """Each new bf16 attention shape: the routed kernel's ms a call, its
+    bound, the plain version's and SDPA's (the torch call; the cross
+    decode's kv_len as a mask, MLA's scale as ``scale``): CUDA events over
+    replays of a graph of A7_GRAPH_CALLS calls (``graph_ms``), which holds
+    no host issue and needs no trace (a trace that lost events read a
+    third of the time)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    out = {}
+    for label, (q, k, v, kw) in a7_cases(dev, torch.bfloat16, gen).items():
+        kv = kw["kv_len"]
+        args = dict(causal=kw["causal"], window=None, q_start=0, kv_len=kv,
+                    softmax_scale=kw.get("softmax_scale"))
+        lens = kv.reshape(-1).tolist() if torch.is_tensor(kv) else [kv]
+        mask = None
+        if torch.is_tensor(kv):
+            mask = (torch.arange(k.shape[1], device=dev)[None]
+                    < kv.reshape(-1, 1))[:, None, None, :]
+
+        def kern(q, k, v):
+            return FK.flash_attention_cuda(q, k, v, **args)
+
+        def plain(q, k, v):
+            return flash_attention(q, k, v, impl="torch",
+                                   causal=kw["causal"], kv_len=kv,
+                                   softmax_scale=kw.get("softmax_scale"))
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, is_causal=kw["causal"],
+                scale=kw.get("softmax_scale"),
+                enable_gqa=True).transpose(1, 2)
+
+        t = {n: graph_ms(fn, (q, k, v), dev)
+             for n, fn in (("kernel", kern), ("plain", plain),
+                           ("sdpa", sdpa))}
+        bounds = [fa_bound(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                           dict(q_start=0, kv_len=n,
+                                causal=kw["causal"]))
+                  for b, n in enumerate(lens * q.shape[0]
+                                        if len(lens) == 1 else lens)]
+        b_ms = sum(b for b, _ in bounds)
+        o_ms = sum(o for _, o in bounds)
+        route = FK.pick_route(q.shape[1], q.shape[2] // k.shape[2],
+                              q.dtype, q.shape[3], v.shape[3],
+                              device_pos=torch.is_tensor(kv))
+        out[label] = dict(
+            route=route, source=FLASH_SOURCES[route], ms=t["kernel"],
+            plain_ms=t["plain"], library_ms=t["sdpa"],
+            bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations",
+            shape=dict(B=q.shape[0], Sq=q.shape[1], Skv=k.shape[1],
+                       H=q.shape[2], KV=k.shape[2], D=q.shape[3],
+                       Dv=v.shape[3], causal=kw["causal"], kv_len=lens))
+        say(f"timing: flash_attention a7 {label} ({route}, bf16, "
+            f"{out[label]['shape']}): us per call in a replayed graph "
+            f"(CUDA events): kernel "
+            f"{t['kernel'] * 1e3:.2f}, bound {max(b_ms, o_ms) * 1e3:.3f} "
+            f"({out[label]['bound_by']}), plain {t['plain'] * 1e3:.2f}, "
+            f"sdpa {t['sdpa'] * 1e3:.2f} [{card}]")
+    return out
+
+
 def phase_wkv6(dev, err):
     from repro_torch.kernels.rwkv6 import kernel as WK
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
@@ -1879,7 +2196,25 @@ def path_launches(cfg, n_cache: int, n_req: int = N_REQ,
     the ``n_cache`` state leaves once, each decode step unpacks and packs
     them.  ``batched``: the requests decode together (vmap), so a decode
     step's forward runs once a tick for all of them, while the state is
-    still unpacked and packed row by row."""
+    still unpacked and packed row by row.  The encoder-decoder and MLA
+    count their own attention (below)."""
+    want = {k: 0 for k in all_launches()}
+    steps = n_req * (GEN - 1)
+    forwards = GEN - 1 if batched else steps
+    want["write"] = n_cache * (n_req + steps)
+    want["read"] = n_cache * steps
+    if cfg.is_encoder_decoder:
+        # a prompt: the encoder's non-causal prefill, the decoder's causal
+        # self and non-causal cross prefill in each layer; a decode step:
+        # the self and the cross decode (kv_len on the device) a layer
+        want["flash_prefill"] = n_req * (cfg.encoder_layers + 2 * cfg.n_layers)
+        want["flash_decode"] = forwards * 2 * cfg.n_layers
+        return want
+    if cfg.mla is not None:
+        # the expanded prefill at (192, 128) on the simple kernel; the
+        # absorbed decode runs no kernel
+        want["flash_attention"] = n_req * cfg.n_layers
+        return want
     if cfg.attn_free:
         kinds = ["wkv6"] * cfg.n_layers
     elif cfg.family == "hybrid":
@@ -1888,17 +2223,12 @@ def path_launches(cfg, n_cache: int, n_req: int = N_REQ,
                  for i in range(cfg.n_layers)]
     else:
         kinds = ["flash_attention"] * cfg.n_layers
-    want = {k: 0 for k in all_launches()}
-    steps = n_req * (GEN - 1)
-    forwards = GEN - 1 if batched else steps
     for k in kinds:
         if k == "flash_attention":
             want["flash_prefill"] += n_req
             want["flash_decode"] += forwards
         else:
             want[k] += n_req + forwards
-    want["write"] = n_cache * (n_req + steps)
-    want["read"] = n_cache * steps
     return want
 
 
@@ -1937,19 +2267,40 @@ def live_leaves(cfg, params, dev):
             r["lam"].copy_(torch.log(torch.expm1(-torch.log(a) / 8.0)))
 
 
+def prefill_batch(model, prompt, dev, rid=0):
+    """The prefill batch of request ``rid`` as the server makes it: the
+    prompt's tokens, and for an encoder-decoder its frames
+    (``launch/serve.py:encoder_frames``, seeded by ``rid``)."""
+    from repro_torch.launch import serve as S
+    batch = {"tokens": torch.as_tensor(prompt, dtype=torch.long,
+                                       device=dev)[None]}
+    if model.cfg.is_encoder_decoder:
+        batch["frames"] = S.encoder_frames(rid, len(prompt),
+                                           model.cfg.d_model, dev)
+    return batch
+
+
+def cast_floats(tree, dtype):
+    """The floating leaves of ``tree`` in ``dtype`` (an integer leaf, the
+    encoder-decoder's ``enc_len``, as it is)."""
+    from repro_torch.models.params import tree_map
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                    tree)
+
+
 def direct_decode(model, params, prompt, n_steps, dev, *, impl="auto",
-                  forced=None, dtype=None):
+                  forced=None, dtype=None, rid=0):
     """Prefill + ``n_steps`` greedy decode steps with the cache kept as
     plain tensors (no arena); returns (tokens, per-step logits).  With
     ``forced``, step s feeds token ``forced[s]`` instead of its own; with
-    ``dtype``, the cache is kept in that dtype."""
-    from repro_torch.models.params import tree_map
+    ``dtype``, the cache's floating leaves are kept in that dtype; ``rid``
+    picks an encoder-decoder request's frames."""
     P = len(prompt)
     cache = model.init_cache(1, P + GEN, dev)
     if dtype is not None:
-        cache = tree_map(lambda t: t.to(dtype), cache)
-    tokens = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
-    logits, cache = model.prefill_fn(params, cache, {"tokens": tokens},
+        cache = cast_floats(cache, dtype)
+    logits, cache = model.prefill_fn(params, cache,
+                                     prefill_batch(model, prompt, dev, rid),
                                      impl=impl)
     toks, outs = [int(torch.argmax(logits, -1)[0])], [logits]
     for s in range(n_steps):
@@ -2024,30 +2375,38 @@ def _routed(moe, force=None):
     return RouteLog(force) if moe else contextlib.nullcontext()
 
 
-# deliberately broken decode kernels that a decoder's logit checks must
+# deliberately broken flash kernels that a decoder's logit checks must
 # catch (each reading above the check's atol): query head 0's output
-# zeroed; every decode output a relative 2^-6 too large (four bf16 ulps, as
-# a softmax denominator 1.6% short would make it); the softmax scale 5% off
-# (q scaled by 1.05).  Every f32 check holds all three, a bf16 check those
-# of its model's ``bf16_controls``.
+# zeroed; every output a relative 2^-6 too large (four bf16 ulps, as a
+# softmax denominator 1.6% short would make it); the softmax scale 5% off
+# (q scaled by 1.05); a length on the device one too long (the
+# cross-attention reads one padded encoder row, which holds zeros: a key
+# of score 0 and value 0).  Every f32 check of ``DECODERS`` holds the
+# first three, a bf16 check those of its model's ``bf16_controls``; the
+# ``A7`` models name theirs for both.
 CONTROLS = {
-    "head0_zeroed": lambda call, q: call(q).index_fill_(2, torch.tensor(
-        [0], device=q.device), 0),
-    "out_x(1+2^-6)": lambda call, q: call(q).mul_(1 + 2 ** -6),
-    "q_x1.05": lambda call, q: call(q * 1.05),
+    "head0_zeroed": lambda call, q, kw: call(q, kw).index_fill_(
+        2, torch.tensor([0], device=q.device), 0),
+    "out_x(1+2^-6)": lambda call, q, kw: call(q, kw).mul_(1 + 2 ** -6),
+    "q_x1.05": lambda call, q, kw: call(q * 1.05, kw),
+    "kv_len+1": lambda call, q, kw: call(q, dict(
+        kw, kv_len=kw["kv_len"] + 1) if torch.is_tensor(kw.get("kv_len"))
+        else kw),
 }
 
 
 @contextlib.contextmanager
-def broken_decode(fault):
-    """Every decode call (Sq = 1) of the flash wrapper through ``fault``
-    (a ``CONTROLS`` entry) while open."""
+def broken_decode(fault, scope="decode"):
+    """Every decode call (Sq = 1) of the flash wrapper (with ``scope``
+    "all", every call) through ``fault`` (a ``CONTROLS`` entry) while
+    open."""
     from repro_torch.kernels.flash_attention import kernel as FK
     orig = FK.flash_attention_cuda
 
     def broken(q, k, v, **kw):
-        call = lambda qq: orig(qq, k, v, **kw)
-        return fault(call, q) if q.shape[1] == 1 else call(q)
+        call = lambda qq, kk: orig(qq, k, v, **kk)
+        return fault(call, q, kw) if q.shape[1] == 1 or scope == "all" \
+            else call(q, kw)
 
     FK.flash_attention_cuda = broken
     try:
@@ -2063,16 +2422,18 @@ def check_logits(model, params, prompt, dev, f32=True, bf16=True):
     (the f32 runs their own f32 kernels' tokens without ``bf16``); returns
     the max abs logit differences (bf16 kernels vs plain, f32 kernels vs
     plain, bf16 plain vs f32 plain; None where not run), the max |logit|
-    and a dict: for a model of ``DECODERS``, ``controls``, the runs with a
-    deliberately broken decode kernel against the plain run, which the
-    checks' limits must catch (in f32 every one of ``CONTROLS``, in bf16
-    the model's ``bf16_controls``);
+    and a dict: for a model of ``DECODERS`` or ``A7``, ``controls``, the runs
+    with a deliberately broken kernel against the plain run, which the
+    checks' limits must catch (in f32 the model's ``f32_controls``, else
+    the first three of ``CONTROLS``; in bf16 its ``bf16_controls``);
     for an MoE model also the routing (``RouteLog``): each plain run (and
     each broken run) routed and gated as its kernels' run, its own flips
     counted (bf16 and f32)."""
     from repro_torch.models.params import tree_map
     moe = bool(model.cfg.n_experts)
-    controls = model.cfg.name in DECODERS
+    spec = {**DECODERS, **A7}.get(model.cfg.name, {})
+    controls = bool(spec)
+    scope = spec.get("scope", "decode")
     diff = lambda xs, ys: max(float((a - b).abs().max())
                               for a, b in zip(xs, ys))
     routes = {"controls": {}} if controls else {}
@@ -2099,20 +2460,22 @@ def check_logits(model, params, prompt, dev, f32=True, bf16=True):
             routes["kernels_" + key] = rec.summary()
         if controls:
             for name in names:
-                with broken_decode(CONTROLS[name]), _routed(moe, force):
+                with broken_decode(CONTROLS[name], scope), \
+                        _routed(moe, force):
                     bad = direct_decode(model, p, prompt, LOGIT_STEPS, dev,
                                         forced=forced, dtype=dtype)[1]
                 routes["controls"][f"{name} {key}"] = diff(bad, ref)
         return auto, ref
 
     if bf16:
-        auto, plain = held(params, None, "bf16", DECODERS.get(
-            model.cfg.name, {}).get("bf16_controls", ()))
+        auto, plain = held(params, None, "bf16",
+                           spec.get("bf16_controls", ()))
         e = diff(auto, plain)
         peak = max(float(a.abs().max()) for a in auto)
     if f32:
         p32 = tree_map(lambda t: t.float(), params)
-        a32, t32 = held(p32, torch.float32, "f32", tuple(CONTROLS))
+        a32, t32 = held(p32, torch.float32, "f32", spec.get(
+            "f32_controls", ("head0_zeroed", "out_x(1+2^-6)", "q_x1.05")))
         del p32
         e32 = diff(a32, t32)
         gap = None if plain is None else diff(plain, t32)
@@ -2162,8 +2525,9 @@ def check_served_packing(model, params, plan, req, dev):
     from repro_torch.models.params import tree_leaves
 
     cache = model.init_cache(1, len(req.prompt) + GEN, dev)
-    tokens = torch.as_tensor(req.prompt, dtype=torch.long, device=dev)[None]
-    _, cache = model.prefill_fn(params, cache, {"tokens": tokens})
+    _, cache = model.prefill_fn(params, cache,
+                                prefill_batch(model, req.prompt, dev,
+                                              req.rid))
     leaves = dict(enumerate(tree_leaves(cache)))
     apl = plan["plan"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -2202,6 +2566,17 @@ def check_served_packing(model, params, plan, req, dev):
     return spans
 
 
+def served_config(arch):
+    """``arch``'s config as served here: published, or (an ``A7`` model
+    with ``depth``) at published width with its depth cut."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    cfg = configs.get(arch)
+    depth = SERVES[arch].get("depth")
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
 def phase_serve(dev, arch):
     """One model behind ``run_server`` at its published width (see the
     module's phase 7); a model of ``DECODERS`` other than the MoE one has
@@ -2214,8 +2589,10 @@ def phase_serve(dev, arch):
 
     spec = SERVES[arch]
     f32 = arch not in DECODERS or arch == MOE_ARCH
+    if "f32_depth" in spec:       # held in f32 at a cut depth instead
+        f32 = False
     prompt_len = spec["prompt"]
-    cfg = configs.get(arch)
+    cfg = served_config(arch)
     model = build_model(cfg)
     smax = prompt_len + GEN
     plan = S.plan_decode_arena(model, 1, smax)
@@ -2230,7 +2607,12 @@ def phase_serve(dev, arch):
     check(n_params == leaf_count(model.defs),
           f"{n_params} parameters made, {leaf_count(model.defs)} defined")
     free, total = torch.cuda.mem_get_info()
-    say(f"serve: {arch} at full width ({cfg.n_layers} layers, d "
+    depth = f"{cfg.n_layers} layers" if "depth" not in spec else (
+        f"{cfg.n_layers} layers, the depth cut from "
+        f"{configs.get(arch).n_layers}")
+    if cfg.is_encoder_decoder:
+        depth = f"{cfg.encoder_layers} encoder + {depth}"
+    say(f"serve: {arch} at full width ({depth}, d "
         f"{cfg.d_model}, H {cfg.n_heads}, KV {cfg.n_kv_heads}, D "
         f"{cfg.head_dim}), {n_params} parameters in bf16 "
         f"({cfg.param_count()} without the norm scales) made on the card "
@@ -2275,20 +2657,21 @@ def phase_serve(dev, arch):
     spans = check_served_packing(model, params, plan, reqs[0], dev)
 
     for r in reqs:
-        toks, _ = direct_decode(model, params, r.prompt, GEN - 1, dev)
+        toks, _ = direct_decode(model, params, r.prompt, GEN - 1, dev,
+                                rid=r.rid)
         check(toks == list(r.tokens),
               f"{arch} request {r.rid}: server tokens differ from the "
               f"arena-free loop")
     e, e32, gap, peak, routing = check_logits(model, params, reqs[0].prompt,
                                               dev, f32=f32)
-    tol = spec["logit_atol"]
-    check(e32 is None or e32 <= LOGIT_ATOL32,
+    tol, tol32 = spec["logit_atol"], spec.get("f32_atol", LOGIT_ATOL32)
+    check(e32 is None or e32 <= tol32,
           f"{arch}: f32 logits of the kernels vs the plain versions: max "
-          f"abs err {e32} > {LOGIT_ATOL32}")
+          f"abs err {e32} > {tol32}")
     check(e <= tol, f"{arch}: bf16 logits of the kernels vs the plain "
                     f"versions: max abs err {e} > {tol}")
-    f32_said = f"at {CUT_LAYERS} layers below" if e32 is None else \
-        f"{e32:.3e} (atol {LOGIT_ATOL32})"
+    f32_said = "at a cut depth below" if e32 is None else \
+        f"{e32:.3e} (atol {tol32})"
     gap_said = "" if gap is None else \
         f"; the plain versions' bf16 logits vs their f32 ones {gap:.3e}"
     say(f"serve: {arch}: tokens of all {N_REQ} requests bit-equal to the "
@@ -2331,7 +2714,7 @@ def check_routes(arch, routing, tol, e):
                   f"{arch}: a routing flip ({k}) between the kernels' and "
                   f"the plain run at a top-K margin of "
                   f"{r['max_flip_margin']} > {ROUTE_TIE[k]}")
-    limit = {"bf16": tol, "f32": LOGIT_ATOL32}
+    limit = {"bf16": tol, "f32": SERVES[arch].get("f32_atol", LOGIT_ATOL32)}
     for name, bad in routing["controls"].items():
         at = limit[name.rsplit(" ", 1)[1]]
         check(bad > at, f"{arch}: the logits of a broken decode kernel "
@@ -2347,7 +2730,7 @@ def check_routes(arch, routing, tol, e):
     said = ", ".join(f"{k} {v:.3e}" for k, v in routing["controls"].items())
     say(f"serve: {arch}: logits of the kernels vs the plain versions, bf16 "
         f"{'not run' if e is None else f'{e:.3e}'} (atol {tol}), with a "
-        f"broken decode kernel: {said} (atol {tol} in bf16, {LOGIT_ATOL32} "
+        f"broken kernel: {said} (atol {tol} in bf16, {limit['f32']} "
         f"in f32){routed}")
 
 
@@ -2361,40 +2744,88 @@ def check_routes(arch, routing, tol, e):
 CUT_LAYERS, CUT_ATOL32 = 4, 2e-4
 
 
+def floats_in_place(tree):
+    """Every floating leaf of a tree of dicts and lists replaced by its f32
+    copy, one leaf at a time: each bf16 leaf is freed before the next copy
+    is made, so the card holds the f32 weights and one bf16 leaf at most
+    beside them, never both trees."""
+    # no local name keeps a replaced leaf: only the tree refers to it
+    for key in list(tree) if isinstance(tree, dict) else range(len(tree)):
+        if isinstance(tree[key], (dict, list)):
+            floats_in_place(tree[key])
+        elif tree[key].is_floating_point():
+            tree[key] = tree[key].float()
+
+
 def check_cut_f32(arch, dev):
-    """``arch`` at published width and CUT_LAYERS layers, weights drawn on
-    the card from SEED and cast to f32: prefill + LOGIT_STEPS decode
-    steps' logits through the kernels against the plain versions within
-    CUT_ATOL32, each ``CONTROLS`` kernel reading above it."""
+    """``arch`` at published width and CUT_LAYERS layers (an ``A7`` model:
+    its ``f32_depth``), weights drawn on the card from SEED and cast to
+    f32: prefill + LOGIT_STEPS decode steps' logits through the kernels
+    against the plain versions within CUT_ATOL32, each of the model's
+    ``CONTROLS`` kernels reading above it (an MoE model's plain runs
+    routed and gated as its kernels' run, the flips' top-K margins within
+    ``ROUTE_TIE``)."""
     import dataclasses
 
     import repro_torch.configs as configs
     from repro_torch.launch import serve as S
     from repro_torch.models.zoo import build_model
 
-    cfg = dataclasses.replace(configs.get(arch), n_layers=CUT_LAYERS)
+    # the served model's weights go first: a server or a captured step
+    # that held them may wait for the collector
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = SERVES[arch].get("f32_depth", dict(n_layers=CUT_LAYERS))
+    cfg = dataclasses.replace(configs.get(arch), **cut)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    floats_in_place(params)
     prompt = S.synth_requests(1, SERVES[arch]["prompt"], GEN,
                               cfg.vocab_size, SEED + 1)[0].prompt
     _, e32, _, peak, routing = check_logits(model, params, prompt, dev,
                                             f32=True, bf16=False)
+    n = cfg.n_layers
     check(e32 <= CUT_ATOL32,
-          f"{arch} at {CUT_LAYERS} layers: f32 logits of the kernels vs the "
+          f"{arch} at {n} layers: f32 logits of the kernels vs the "
           f"plain versions: max abs err {e32} > {CUT_ATOL32}")
     for name, bad in routing["controls"].items():
         check(bad > CUT_ATOL32,
-              f"{arch} at {CUT_LAYERS} layers: the f32 logits of a broken "
-              f"decode kernel ({name}) read {bad}, within {CUT_ATOL32}")
+              f"{arch} at {n} layers: the f32 logits of a broken "
+              f"kernel ({name}) read {bad}, within {CUT_ATOL32}")
+    if cfg.n_experts:
+        flip = routing["f32"]["max_flip_margin"]
+        check(flip <= ROUTE_TIE["f32"],
+              f"{arch} at {n} layers: a routing flip (f32) between the "
+              f"kernels' and the plain run at a top-K margin of {flip} > "
+              f"{ROUTE_TIE['f32']}")
+    batched = None
+    if arch in A7:
+        # the batched step vs the serial step in f32, held here
+        b32, lens, bflips = check_batched_logits(model, params, prompt, dev,
+                                                 f32=True)
+        check(b32 <= LOGIT_ATOL32 and max(bflips or [0.0])
+              <= ROUTE_TIE["f32"],
+              f"{arch} at {n} layers: logits of the batched step vs the "
+              f"serial step in f32: max abs err {b32} (atol {LOGIT_ATOL32}),"
+              f" routing flips at top-K margins {bflips}")
+        batched = dict(f32=b32, flips=bflips)
+        say(f"serve: {arch} vmap at {n} layers in f32: {LOGIT_STEPS} batched "
+            f"decode steps of {N_REQ} rows (prompts of {lens}) vs each row's "
+            f"serial step: max abs logit err {b32:.3e} (atol "
+            f"{LOGIT_ATOL32}); flips {bflips}")
+    free, total = torch.cuda.mem_get_info()
     del model, params
     torch.cuda.empty_cache()
-    say(f"serve: {arch} at published width, depth cut to {CUT_LAYERS} "
-        f"layers, params and cache in f32: prefill + {LOGIT_STEPS} decode "
+    say(f"serve: {arch} at published width, depth cut to {n} "
+        f"layers ({cut}), params and cache in f32 ({free} of {total} B of "
+        f"device memory free beside them): prefill + {LOGIT_STEPS} decode "
         f"steps' logits, kernels vs plain versions, max abs err {e32:.3e} "
         f"(atol {CUT_ATOL32}), max |logit| {peak:.3f}; with a broken "
-        f"decode kernel " + ", ".join(f"{k} {v:.3e}" for k, v in
-                                      routing["controls"].items()))
-    return dict(f32=e32, controls=routing["controls"])
+        f"kernel " + ", ".join(f"{k} {v:.3e}" for k, v in
+                               routing["controls"].items())
+        + (f"; routing {routing.get('f32')}" if cfg.n_experts else ""))
+    return dict(f32=e32, controls=routing["controls"], n_layers=n,
+                routing=routing.get("f32"), batched=batched)
 
 
 def hold_tokens(what, model, params, serial, batched, tol, dev):
@@ -2411,7 +2842,8 @@ def hold_tokens(what, model, params, serial, batched, tol, dev):
         if ta == tb:
             continue
         s = next(i for i, (x, y) in enumerate(zip(ta, tb)) if x != y)
-        toks, outs = direct_decode(model, params, a.prompt, s, dev)
+        toks, outs = direct_decode(model, params, a.prompt, s, dev,
+                                   rid=a.rid)
         check(toks == ta[:s + 1], f"{what} request {a.rid}: the arena-free "
                                   f"loop differs from the serial server")
         top2 = outs[s][0].float().topk(2).values
@@ -2430,25 +2862,26 @@ def check_batched_logits(model, params, prompt, dev, f32, rows=N_REQ):
     kernels, both fed the batched step's greedy tokens: with params and
     cache in f32 (``f32``), or as served; the rows' prompts are cuts of
     ``prompt`` of different lengths, so that each row decodes at its own
-    position.  An MoE model's rows decoded alone are routed as the batched
-    step routed them (``RouteLog``), their own flips counted.  Returns the
+    position (an encoder-decoder's rows also take frames of their own, so
+    their ``enc_len`` differ).  An MoE model's rows decoded alone are
+    routed as the batched step routed them (``RouteLog``), their own flips
+    counted.  Returns the
     max abs logit difference, the lengths and the flips' top-K margins
     (an MoE model; else None)."""
-    from repro_torch.models.params import is_def, tree_leaves, tree_map
-    cast = (lambda c: tree_map(lambda t: t.float(), c)) if f32 else \
+    from repro_torch.launch.steps import batch_axes, init_batched_cache
+    from repro_torch.models.params import tree_leaves
+    cast = (lambda c: cast_floats(c, torch.float32)) if f32 else \
         (lambda c: c)
     p32 = cast(params)
     smax = len(prompt) + GEN
     lens = [len(prompt) - 7 * b for b in range(rows)]
-    axes = [d.logical.index("batch") for d in tree_leaves(
-        model.make_cache_defs(1, smax), is_leaf=is_def)]
-    batched = cast(model.init_cache(rows, smax, dev))
+    axes = batch_axes(model, smax)
+    batched = cast(init_batched_cache(model, rows, smax, dev))
     caches, toks = [], []
     for b, n in enumerate(lens):
         c = cast(model.init_cache(1, smax, dev))
-        tokens = torch.as_tensor(prompt[:n], dtype=torch.long,
-                                 device=dev)[None]
-        logits, c = model.prefill_fn(p32, c, {"tokens": tokens})
+        logits, c = model.prefill_fn(p32, c, prefill_batch(
+            model, prompt[:n], dev, rid=b))
         for ax, dst, one in zip(axes, tree_leaves(batched), tree_leaves(c)):
             dst.narrow(ax, b, 1).copy_(one)
         caches.append(c)
@@ -2578,11 +3011,14 @@ def phase_serve_vmap(ctx, card, dev):
                 f"diverge at (request, step, serial top-1 margin) {ties}, "
                 f"no limit (routing flips)")
 
-    e32, lens, f32_flips = check_batched_logits(
+    # a model held in f32 at a cut depth (its f32 weights do not fit beside
+    # its bf16 ones) has its f32 batched logits held there
+    cut = "f32_depth" in SERVES[name]
+    e32, lens, f32_flips = (None, None, []) if cut else check_batched_logits(
         model, params, reqs[0].prompt, dev, f32=True)
-    e16, _, flips = check_batched_logits(model, params, reqs[0].prompt, dev,
-                                         f32=False)
-    check(e32 <= LOGIT_ATOL32 and e16 <= tol,
+    e16, lens, flips = check_batched_logits(model, params, reqs[0].prompt,
+                                            dev, f32=False)
+    check((cut or e32 <= LOGIT_ATOL32) and e16 <= tol,
           f"{name}: logits of the batched step vs the serial step: max abs "
           f"err f32 {e32} (atol {LOGIT_ATOL32}), bf16 {e16} (atol {tol})")
     routed = ""
@@ -2598,10 +3034,11 @@ def phase_serve_vmap(ctx, card, dev):
                   f"{max(f32_flips, default=0.0):.3e} and "
                   f"{max(flips, default=0.0):.3e} (within {ROUTE_TIE})")
         out["route_flips"] = dict(f32=f32_flips, bf16=flips)
+    f32_said = "at the cut depth (below)" if cut else f"{e32:.3e}"
     say(f"serve: {name} vmap: {LOGIT_STEPS} batched decode steps of "
         f"{N_REQ} rows (prompts of {lens}) vs each row's serial step: max "
-        f"abs logit err f32 {e32:.3e} (atol {LOGIT_ATOL32}), bf16 as served "
-        f"{e16:.3e} (atol {tol}){routed}")
+        f"abs logit err f32 {f32_said} (atol {LOGIT_ATOL32}), bf16 as "
+        f"served {e16:.3e} (atol {tol}){routed}")
     out["logit_err_f32"], out["logit_err_bf16"] = e32, e16
 
     # one server's ticks at bucket 4
@@ -2715,7 +3152,7 @@ def time_staging(server, card):
         for ax, rows, one in zip(server._batch_axes, tree_leaves(cache),
                                  stage):
             rows_in.append((rows.narrow(ax, i, 1), one))
-            rows_out.append((one, rows.narrow(ax, i, 1)))
+            rows_out.append((one, rows.narrow(ax, i, 1).view(one.shape)))
     row_bytes = sum(t.numel() * t.element_size() for t in stage)
     bound_us = 2 * row_bytes / HBM_BYTES_PER_S * 1e6
     out = {}
@@ -3108,21 +3545,26 @@ def phase_timing(plans, inputs, launches, err, card, captured):
 
 
 def fa_bound(q, k, v, kw) -> tuple[float, float]:
-    """(bytes ms, operations ms) the card needs at least for one causal
-    attention call: q read once, k and v read once for the keys some query
-    attends to (the window's and kv_len's cuts applied), the output
-    written once, over 3.35 TB/s; 2*2*H*D flops per live (query, key) pair
-    over the bf16 tensor-core peak."""
+    """(bytes ms, operations ms) the card needs at least for one attention
+    call (causal unless ``kw["causal"]`` is false): q read once, k and v
+    read once for the keys some query attends to (the window's and
+    kv_len's cuts applied), the output written once, over 3.35 TB/s;
+    2*H*(D + Dv) flops per live (query, key) pair over the bf16
+    tensor-core peak."""
     B, Sq, H, D = q.shape
+    Dv = v.shape[3]
     n, qs, w = kw["kv_len"], kw["q_start"], kw.get("window")
-    lo = lambda p: 0 if w is None else max(0, p - w + 1)     # first key
-    live = sum(min(n, p + 1) - lo(p) for p in range(qs, qs + Sq))
-    keys = min(n, qs + Sq) - lo(qs)
+    if not kw.get("causal", True):
+        live, keys = Sq * n, n
+    else:
+        lo = lambda p: 0 if w is None else max(0, p - w + 1)  # first key
+        live = sum(min(n, p + 1) - lo(p) for p in range(qs, qs + Sq))
+        keys = min(n, qs + Sq) - lo(qs)
     esz = q.element_size()
-    nbytes = esz * (2 * q.numel() + B * keys * k.shape[2]
-                    * (k.shape[3] + v.shape[3]))
+    nbytes = esz * (q.numel() + B * Sq * H * Dv + B * keys * k.shape[2]
+                    * (k.shape[3] + Dv))
     return (nbytes / HBM_BYTES_PER_S * 1e3,
-            4 * B * H * D * live / BF16_FLOP_PER_S * 1e3)
+            2 * B * H * (D + Dv) * live / BF16_FLOP_PER_S * 1e3)
 
 
 def wkv6_bound(B, T, H, N, esz) -> tuple[float, float]:
@@ -3234,8 +3676,7 @@ def phase_serve_timing(ctx, card, dev, packing=True):
                                                   "reqs"))
     smax, prompt = ctx["smax"], reqs[0].prompt
     prefill = make_prefill_step(model)
-    batch = {"tokens": torch.as_tensor(prompt, dtype=torch.long,
-                                       device=dev)[None]}
+    batch = prefill_batch(model, prompt, dev)
     ms = []
     for _ in range(4):
         cache = model.init_cache(1, smax, dev)
@@ -3343,15 +3784,32 @@ def phase_serve_timing(ctx, card, dev, packing=True):
     return out
 
 
-def decode_bound(cfg, card) -> dict:
+def decode_bound(cfg, card, smax=None) -> dict:
     """The least time a decode token's weights take to read at 3.35 TB/s:
     every bf16 parameter once (``cfg.param_count()``; an MoE model in
     ``repro``'s dense ``(E, cap, D)`` form reads every expert's), and for
     an MoE model its active parameters alone
     (``cfg.active_param_count()``: the K routed experts' of each layer;
-    both embeddings counted)."""
-    out = dict(weights_bound_ms=2 * cfg.param_count() / HBM_BYTES_PER_S
-               * 1e3)
+    both embeddings counted).  An encoder-decoder's decode reads no
+    encoder weight but, as ``repro``, projects the whole padded encoder
+    buffer (``smax`` rows) to keys and values in every layer's
+    cross-attention: its bound is the larger of the decoder's weights and
+    that buffer read once a layer, and of those products at the bf16
+    peak."""
+    n = cfg.param_count()
+    if cfg.is_encoder_decoder:
+        D, F = cfg.d_model, cfg.d_ff
+        hd = cfg.n_heads * cfg.head_dim
+        kv = cfg.n_kv_heads * cfg.head_dim
+        attn = D * hd + 2 * D * kv + hd * D
+        gates = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+        n -= cfg.encoder_layers * (attn + gates * D * F)
+        nbytes = 2 * n + 2 * cfg.n_layers * smax * D
+        flops = cfg.n_layers * 2 * smax * D * 2 * kv
+        out = dict(weights_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   cross_kv_flops_bound_ms=flops / BF16_FLOP_PER_S * 1e3)
+    else:
+        out = dict(weights_bound_ms=2 * n / HBM_BYTES_PER_S * 1e3)
     if cfg.n_experts:
         out["active_bound_ms"] = 2 * cfg.active_param_count() \
             / HBM_BYTES_PER_S * 1e3
@@ -4510,6 +4968,28 @@ def main() -> int:
         del ctx
         torch.cuda.empty_cache()
         if arch != MOE_ARCH:       # the MoE is held in f32 at full depth
+            flash["models"][arch]["logit_err"]["f32_at_cut_depth"] = \
+                check_cut_f32(arch, dev)
+        say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+    # this slice's families: the encoder-decoder and MLA with the MTP head,
+    # their new attention shapes first
+    flash["a7_max_abs_err_by_route"] = phase_flash_a7(dev, err)
+    flash["a7_shapes"] = time_a7_shapes(card, dev)
+    for arch in A7:
+        ctx = phase_serve(dev, arch)
+        decode[arch] = phase_serve_timing(ctx, card, dev,
+                                          packing=False)["decode"]
+        decode[arch].update(decode_bound(ctx["model"].cfg, card,
+                                         ctx["smax"]))
+        batched[arch] = phase_serve_vmap(ctx, card, dev)
+        flash["models"][arch] = dict(
+            launches={r: ctx["launches"][k]
+                      for r, k in FLASH_LAUNCHES.items()},
+            logit_err=ctx["logit_err"],
+            controls=(ctx["routing"] or {}).get("controls"))
+        del ctx
+        torch.cuda.empty_cache()
+        if "f32_depth" in A7[arch]:
             flash["models"][arch]["logit_err"]["f32_at_cut_depth"] = \
                 check_cut_f32(arch, dev)
         say(f"elapsed: {time.perf_counter() - t_start:.1f} s")

@@ -11,10 +11,10 @@ The port's registry lists only the architectures it can build:
   granite-moe-3b-a800m  MoE decoder: 40 experts, top-8
   rwkv6-7b              RWKV-6, attention-free
   recurrentgemma-2b     Griffin: RG-LRU + local attention
-
-The configs of ``repro.configs`` with MLA and MTP (``deepseek-v3-671b``)
-and the encoder-decoder (``seamless-m4t-medium``) join with their model
-families (ROADMAP A7).
+  deepseek-v3-671b      MoE decoder with MLA and the MTP head: 256
+                        experts, top-8 (served at published width with
+                        its depth cut)
+  seamless-m4t-medium   encoder-decoder: 12 + 12 layers, cross-attention
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "rwkv6-7b": "rwkv6_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -2,8 +2,8 @@
 // interface.
 //
 // Replaces, for decode (Sq = 1) and the short multi-token decode -- every
-// call whose rows number Sq * G <= 16, and every call whose position lives
-// on the device, in blocks of 16 rows -- the Pallas TPU kernel
+// call whose rows number Sq * G <= 16, and every call whose position or
+// length lives on the device, in blocks of 16 rows -- the Pallas TPU kernel
 // `flash_attention_pallas` / `_fa_kernel`
 // (src/repro/kernels/flash_attention/kernel.py): GQA attention with an
 // online softmax, causal, sliding `window`, `q_start` / `kv_len` against a
@@ -62,6 +62,15 @@
 // the served shapes that gives 17 splits of 2 tiles (llama3.2-1b, 1056
 // keys) and 33 of 2 (recurrentgemma-2b, 2592 keys, window 2048), the host
 // rule's splits within one.
+//
+// The length on the device: with `kv_pos` given (int32, the encoder-decoder's
+// `enc_len` leaf of the decode state, which a captured cross-attention step
+// reads where it lies), kv_len = min(kv_pos[b * kv_pos_stride], Skv) and
+// q_start stays the host's (0 for cross-attention); stride 0 gives every
+// batch row one length, stride 1 each row its own (the batched step).  The
+// kernel finds t0 from the live range, as at a device position, and the
+// wrapper splits by `capacity_splits` over Skv.  int32 because the leaf is:
+// a cast to int64 would be one more launch a decoder layer and token.
 //
 // Inside a block (one warp per query row: 4 warps for up to 4 rows, else
 // 16): Q and the split's tiles come through a ring of two shared-memory
@@ -128,6 +137,8 @@ struct Params {
   const long long* q_pos;          // the position on the device, or null
   long long q_pos_stride;          // 0: one position for every row; 1: a
                                    // position per batch row, q_pos[b]
+  const int* kv_pos;               // kv_len on the device, or null
+  long long kv_pos_stride;         // 0 or 1, as q_pos_stride
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -242,6 +253,10 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
     q_start = p.q_pos[b * p.q_pos_stride];
     kv_len = q_start + p.Sq < p.Skv ? q_start + p.Sq : p.Skv;
   }
+  if (p.kv_pos != nullptr) {
+    const long long n = p.kv_pos[b * p.kv_pos_stride];
+    kv_len = n < 0 ? 0 : (n < p.Skv ? n : p.Skv);
+  }
   // the block-level live range, as the wrapper's live_tiles computes it
   const long long qpos_lo = q_start, qpos_hi = q_start + p.Sq - 1;
   long long k_end = kv_len;
@@ -251,7 +266,8 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(Params p) {
     k_begin = qpos_lo - p.window + 1;
   const long long t_last = k_end > k_begin ? (k_end + kTile - 1) / kTile : 0;
   // this split's tiles: [ta, tb)
-  const long long t0 = p.q_pos != nullptr ? k_begin / kTile : p.t0;
+  const long long t0 =
+      p.q_pos != nullptr || p.kv_pos != nullptr ? k_begin / kTile : p.t0;
   const long long ta = t0 + split * p.tpc;
   long long tb = ta + p.tpc;
   if (tb > t_last) tb = t_last;
@@ -564,6 +580,8 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.t0 = 0; p.tpc = 1; p.S = 1;
   p.q_pos = nullptr;
   p.q_pos_stride = 0;
+  p.kv_pos = nullptr;
+  p.kv_pos_stride = 0;
   return p;
 }
 
@@ -580,7 +598,9 @@ extern "C" {
 // come from the device and the arguments of those names are not read
 // (splits and tpc: kernel.py:capacity_splits); batch row b reads
 // q_pos[b * q_pos_stride], so stride 0 gives every row one position and
-// stride 1 each row its own.
+// stride 1 each row its own.  With `kv_pos` (int32 on the device) not
+// null, kv_len comes from kv_pos[b * kv_pos_stride] (cut to Skv) and t0
+// from the device; q_start stays the argument unless q_pos is given too.
 int repro_flash_decode(int is_bf16, const void* q, const void* k,
                        const void* v, void* o, void* part, void* counter,
                        long long B, long long Sq, long long Skv, long long H,
@@ -588,7 +608,8 @@ int repro_flash_decode(int is_bf16, const void* q, const void* k,
                        long long q_start, long long kv_len, long long window,
                        int causal, float scale, long long splits,
                        long long t0, long long tpc, const void* q_pos,
-                       long long q_pos_stride, void* stream) {
+                       long long q_pos_stride, const void* kv_pos,
+                       long long kv_pos_stride, void* stream) {
   Params p = make_params(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, q_start,
                          kv_len, window, causal, scale);
   p.part = static_cast<float*>(part);
@@ -596,6 +617,8 @@ int repro_flash_decode(int is_bf16, const void* q, const void* k,
   p.S = splits; p.t0 = t0; p.tpc = tpc;
   p.q_pos = static_cast<const long long*>(q_pos);
   p.q_pos_stride = q_pos_stride;
+  p.kv_pos = static_cast<const int*>(kv_pos);
+  p.kv_pos_stride = kv_pos_stride;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch<__nv_bfloat16>(p, s) : dispatch<float>(p, s);
 }

@@ -66,6 +66,16 @@ device position goes to the decode kernel whatever its rows: one with
 blocks of :data:`DECODE_MAX_ROWS` rows, each (batch row, KV head, row
 block) with its own merge and arrival counter.
 
+The decode kernel also takes ``kv_len`` from the device: an int32 tensor,
+0-d or ``(B,)`` (the encoder-decoder's ``enc_len`` decode-state leaf, the
+number of valid rows of the padded encoder buffer its cross-attention
+reads), with ``q_start`` a host int (0 for cross-attention) or a device
+position.  Each (b, KV head) block reads its row's length, finds its
+first live tile, and the split rule is :func:`capacity_splits`, as at a
+device position: one launch serves every length, which is what a captured
+cross-attention step replays.  Such a call too goes to the decode kernel
+whatever its rows.
+
 The forward kernels replace ``flash_attention_pallas`` / ``_fa_kernel`` of
 ``repro/kernels/flash_attention/kernel.py``; the backward has no Pallas
 counterpart (``repro`` differentiates ``_flash_xla`` with XLA).  Each
@@ -152,7 +162,8 @@ _ARGS = {
     "flash_decode": ["is_bf16", "q", "k", "v", "o", "part", "counter", "B",
                      "Sq", "Skv", "H", "KV", "D", "Dv", "q_start", "kv_len",
                      "window", "causal", "scale", "splits", "t0", "tpc",
-                     "q_pos", "q_pos_stride", "stream"],
+                     "q_pos", "q_pos_stride", "kv_pos", "kv_pos_stride",
+                     "stream"],
     "flash_backward": ["is_bf16", "q", "k", "v", "o", "do", "dq", "dk", "dv",
                        "lse", "delta", "B", "S", "H", "KV", "D", "scale",
                        "stream"],
@@ -166,6 +177,7 @@ _CTYPE = {"q": ctypes.c_void_p, "k": ctypes.c_void_p, "v": ctypes.c_void_p,
           "dk": ctypes.c_void_p, "dv": ctypes.c_void_p,
           "lse": ctypes.c_void_p, "delta": ctypes.c_void_p,
           "counter": ctypes.c_void_p, "q_pos": ctypes.c_void_p,
+          "kv_pos": ctypes.c_void_p,
           "stream": ctypes.c_void_p,
           "is_bf16": ctypes.c_int, "causal": ctypes.c_int,
           "scale": ctypes.c_float}
@@ -190,7 +202,7 @@ def _library(name: str = "flash_attention") -> ctypes.CDLL:
 def pick_route(Sq: int, G: int, dtype: torch.dtype, D: int, Dv: int, *,
                device_pos: bool = False) -> str:
     """Which kernel takes a call: ``"decode"`` when its block of rows is
-    small (``Sq * G <= 16``) or its position lies on the device
+    small (``Sq * G <= 16``) or its position or length lies on the device
     (``device_pos``: only the decode kernel reads one there; beyond 16
     rows it runs in row blocks), ``"prefill"`` for bf16 at the
     :data:`PREFILL_HEAD_DIMS`, else ``"simple"``."""
@@ -348,12 +360,28 @@ def _counter(device: torch.device) -> torch.Tensor:
     return c
 
 
+def _device_len(kv_len, q) -> None:
+    """Raise unless ``kv_len`` is a length on the device the decode kernel
+    reads: a contiguous int32 tensor of shape () or (B,) on q's device."""
+    B = q.shape[0]
+    if tuple(kv_len.shape) not in ((), (B,)) or kv_len.dtype != torch.int32 \
+            or kv_len.device != q.device or not kv_len.is_contiguous():
+        raise ValueError(
+            f"a device kv_len must be a contiguous int32 tensor of shape () "
+            f"or ({B},) on {q.device}, got {kv_len.dtype} of shape "
+            f"{tuple(kv_len.shape)} on {kv_len.device}")
+
+
 def _args(q, k, v, *, window, q_start, kv_len, softmax_scale):
     _check(q, k, v)
     if window is not None and window < 0:
         raise ValueError(f"window {window} must be >= 0")
     B, Sq, H, D = q.shape
     _, Skv, KV, Dv = v.shape
+    if torch.is_tensor(kv_len):
+        # a length on the device: the decode kernel reads it there
+        _device_len(kv_len, q)
+        kv_len = Skv
     if torch.is_tensor(q_start):
         # a device position, one for every row or one per batch row: the
         # decode kernel derives kv_len from it
@@ -381,20 +409,28 @@ def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
     Dv + 2) f32).  ``q_start`` is a host int, or an int64 tensor on the
     card, 0-d or a position per batch row (then each row's ``kv_len`` is
     its ``q_start + Sq`` and the split rule is :func:`capacity_splits`).
-    Any number of rows ``Sq * G``: beyond :data:`DECODE_MAX_ROWS`, in row
+    ``kv_len`` is a host int, None, or an int32 tensor on the card, 0-d or
+    a length per batch row (then it is each row's ``kv_len``, whatever
+    ``q_start`` is, and the split rule :func:`capacity_splits`).  Any
+    number of rows ``Sq * G``: beyond :data:`DECODE_MAX_ROWS`, in row
     blocks."""
+    kv_dev = kv_len if torch.is_tensor(kv_len) else None
     B, Sq, Skv, H, KV, D, Dv, kv_len, scale, stream = _args(
         q, k, v, window=window, q_start=q_start, kv_len=kv_len,
         softmax_scale=softmax_scale)
     G = H // KV
     check_pairs(B, KV, Sq * G)
+    q_pos, stride = None, 0
     if torch.is_tensor(q_start):
         q_pos, stride = q_start.data_ptr(), q_start.dim()
-        q_start, t0 = 0, 0
+        q_start = 0
+    kv_pos, kv_stride = (None, 0) if kv_dev is None else \
+        (kv_dev.data_ptr(), kv_dev.dim())
+    if q_pos is not None or kv_pos is not None:
+        t0 = 0
         S, tpc = capacity_splits(B, KV, Sq, H, Dv, Skv=Skv, causal=causal,
                                  window=window, splits=splits)
     else:
-        q_pos, stride = None, 0
         S, t0, tpc = decode_splits(B, KV, Sq, H, Dv, causal=causal,
                                    window=window, q_start=q_start,
                                    kv_len=kv_len, splits=splits)
@@ -413,7 +449,8 @@ def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
                        part.data_ptr(), counter.data_ptr(), B, Sq, Skv, H,
                        KV, D, Dv, q_start, kv_len,
                        -1 if window is None else window, int(bool(causal)),
-                       scale, S, t0, tpc, q_pos, stride, stream),
+                       scale, S, t0, tpc, q_pos, stride, kv_pos, kv_stride,
+                       stream),
                     "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out, part
@@ -431,7 +468,9 @@ def flash_decode_cuda(q, k, v, *, causal: bool, window: int | None,
     flash_attention.ops.flash_decode_partials_torch` computes them.
     ``q_start`` is a host int (with ``kv_len``), or an int64 tensor on the
     card, 0-d or ``(B,)`` (a position per batch row; each row's ``kv_len``
-    then its ``q_start + Sq``, and the splits :func:`capacity_splits`)."""
+    then its ``q_start + Sq``, and the splits :func:`capacity_splits`);
+    ``kv_len`` may be an int32 tensor on the card, 0-d or ``(B,)`` (each
+    row's length; the splits :func:`capacity_splits`)."""
     out, part = _decode(q, k, v, causal=causal, window=window,
                         q_start=q_start, kv_len=kv_len,
                         softmax_scale=softmax_scale, splits=splits)
@@ -493,7 +532,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
     v ``(B,Skv,KV,Dv)`` -> ``(B,Sq,H,Dv)`` in q's dtype (f32 accumulation),
     through the kernel :func:`pick_route` names for the call.  A device
     ``q_start`` (an int64 tensor, 0-d or ``(B,)``; ``kv_len = q_start +
-    Sq``) goes to the decode route, whatever the rows."""
+    Sq``) or a device ``kv_len`` (an int32 tensor, 0-d or ``(B,)``) goes
+    to the decode route, whatever the rows."""
     _, Sq, H, D = q.shape
     KV, Dv = k.shape[2], v.shape[3]
     if KV == 0 or H % KV:
@@ -501,7 +541,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
     kw = dict(causal=causal, window=window, q_start=q_start, kv_len=kv_len,
               softmax_scale=softmax_scale)
     route = pick_route(Sq, H // KV, q.dtype, D, Dv,
-                       device_pos=torch.is_tensor(q_start))
+                       device_pos=torch.is_tensor(q_start)
+                       or torch.is_tensor(kv_len))
     if route == "decode":
         return _decode(q, k, v, splits=None, **kw)[0]
     if route == "prefill":

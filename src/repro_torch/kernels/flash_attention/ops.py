@@ -8,7 +8,8 @@
                    fixed rule by dtype and shape (``kernel.pick_route``)
                    picks one of three: the split-K decode
                    (``csrc/flash_decode.cu``) for every call with
-                   ``Sq * G <= 16`` (bf16 or f32, any (D, Dv)); the
+                   ``Sq * G <= 16`` (bf16 or f32, any (D, Dv)) and
+                   every call at a device position or length; the
                    ``wgmma`` prefill (``csrc/flash_prefill_sm90.cu``) for
                    bf16 calls with ``Sq * G > 16`` at (D, Dv) in
                    {(64, 64), (128, 128), (256, 256)}; the simple kernel
@@ -51,7 +52,12 @@ No environment variable changes the choice: a CUDA tensor under
 
 ``q_start`` and ``kv_len`` are host integers, or 0-d integer tensors: a
 decode step's position on the device, so that one launch, and one captured
-graph, serves every position.  ``q_start`` may also be a ``(B,)`` integer
+graph, serves every position.  ``kv_len`` may also be a ``(B,)`` integer
+tensor, a length per batch row (the encoder-decoder's cross-attention,
+whose padded encoder buffer holds ``enc_len`` valid rows: 0-d for a
+request, ``(B,)`` in the batched step); the CUDA route takes it as int32
+and sends the call to the split-K decode, which reads it on the card,
+with ``q_start`` a host int (or a device position) as before.  ``q_start`` may also be a ``(B,)`` integer
 tensor, a position per batch row (the batched decode step): row ``b`` is
 masked at its own ``q_start[b]``.  The kernel then takes ``kv_len =
 q_start + Sq`` whatever is passed, so pass that, or ``None`` under a
@@ -78,6 +84,15 @@ IMPLS = ("auto", "cuda", "torch", "ref")
 
 _NEG_INF = -1e30
 _INF = float("inf")
+
+
+def _row_lens(kv_len, device):
+    """``kv_len`` as the plain versions mask with it: an int or a 0-d
+    tensor as it is, a ``(B,)`` tensor (a length per batch row) as ``(B, 1,
+    1)``, against key positions of shape ``(1, Sq, C)``."""
+    if torch.is_tensor(kv_len) and kv_len.dim() == 1:
+        return kv_len.to(device)[:, None, None]
+    return kv_len
 
 
 def _row_positions(q_start, Sq: int, device) -> torch.Tensor:
@@ -119,8 +134,9 @@ def flash_attention(
     ``q_start`` is the absolute position of ``q[:, 0]``; keys at or beyond
     ``kv_len`` (default ``Skv``) are masked, as are keys after the causal
     diagonal and, with ``window``, keys at or before ``qpos - window``.
-    Both are ints, or 0-d integer tensors on ``q``'s device; ``q_start``
-    also a ``(B,)`` one, a position per batch row (the module docstring).
+    Both are ints, or 0-d integer tensors on ``q``'s device; either also a
+    ``(B,)`` one, a position or a length per batch row (the module
+    docstring).
     """
     impl = _pick_impl(impl, q)
     if not torch.is_tensor(q_start):
@@ -181,6 +197,7 @@ def _flash_torch(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
 
     qh = (q.float() * scale).reshape(B, Sq, KV, G, D)
     qpos = _row_positions(q_start, Sq, dev)[..., None]   # (1 or B, Sq, 1)
+    kvl = _row_lens(kv_len, dev)
 
     kc = k.reshape(B, n_chunks, C, KV, D)
     vc = v.reshape(B, n_chunks, C, KV, Dv)
@@ -211,7 +228,7 @@ def _flash_torch(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
         if window is not None:
             mask = mask & (kpos > qpos - window)
         if kv_len is not None:
-            mask = mask & (kpos < kv_len)
+            mask = mask & (kpos < kvl)
         s = torch.where(mask[:, :, None, None, :], s, _NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
@@ -237,7 +254,11 @@ def flash_decode_partials_torch(q, k, v, *, splits=None, causal=True,
     or ``(B,)``, a position per batch row), it is read on the host, each
     row's ``kv_len`` is its ``q_start + Sq`` (cut to the cache) and its t0
     its own, and S and tpc are ``kernel.capacity_splits``'s, as the
-    kernel's are at a device position.  ``m`` is the split's max of the
+    kernel's are at a device position.  With ``kv_len`` a tensor (a device
+    length: 0-d, or ``(B,)``, one per batch row) it is each row's
+    ``kv_len`` (cut to the cache), read on the host, whatever ``q_start``
+    is, and S and tpc are ``kernel.capacity_splits``'s too.  ``m`` is the
+    split's max of the
     scaled live scores (``-inf`` where no key of the split is live for the
     row, an empty split included), ``l = sum exp(s - m)`` and ``acc = sum
     exp(s - m) v`` (both 0 where ``m = -inf``)."""
@@ -246,14 +267,21 @@ def flash_decode_partials_torch(q, k, v, *, splits=None, causal=True,
     Dv = v.shape[-1]
     G = H // KV
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    if torch.is_tensor(q_start):
+    if torch.is_tensor(q_start) or torch.is_tensor(kv_len):
         S, tpc = _kernel.capacity_splits(B, KV, Sq, H, Dv, Skv=Skv,
                                          causal=causal, window=window,
                                          splits=splits)
-        starts = [int(p) for p in q_start.reshape(-1).tolist()]
+        starts = [int(p) for p in q_start.reshape(-1).tolist()] \
+            if torch.is_tensor(q_start) else [int(q_start)]
+        lens = [min(max(int(n), 0), Skv) for n in kv_len.reshape(-1)
+                .tolist()] if torch.is_tensor(kv_len) else None
+        n = max(len(starts), len(lens or ()))
+        pick = lambda xs, b: xs[b if len(xs) > 1 else 0]
         # (batch rows, q_start, kv_len): every row alike, or one per row
-        groups = [(slice(None) if len(starts) == 1 else slice(b, b + 1), p,
-                   min(p + Sq, Skv)) for b, p in enumerate(starts)]
+        groups = [(slice(None) if n == 1 else slice(b, b + 1),
+                   pick(starts, b),
+                   pick(lens, b) if lens is not None
+                   else min(pick(starts, b) + Sq, Skv)) for b in range(n)]
     else:
         kv_len = Skv if kv_len is None else min(int(kv_len), Skv)
         S, _, tpc = _kernel.decode_splits(B, KV, Sq, H, Dv, causal=causal,

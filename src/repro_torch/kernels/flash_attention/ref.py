@@ -24,8 +24,8 @@ def attention_ref(
     """O(S^2)-memory reference.  ``q_start``: absolute position of q[0]
     (decode: cache length).  ``kv_len``: #valid cache entries (rest masked).
     Either may be an int or a 0-d integer tensor (a position on the
-    device), which the mask is built from; ``q_start`` also a ``(B,)``
-    integer tensor, a position per batch row.
+    device), which the mask is built from; either also a ``(B,)``
+    integer tensor, a position or a length per batch row.
     """
     B, Sq, H, D = q.shape
     _, Skv, KV, _ = k.shape
@@ -50,6 +50,8 @@ def attention_ref(
         mask = mask & (kpos <= qpos)
     if window is not None:
         mask = mask & (kpos > qpos - window)
+    if torch.is_tensor(kv_len) and kv_len.dim() == 1:
+        kv_len = kv_len.reshape(-1, 1, 1)                 # a row's own
     if kv_len is not None:
         mask = mask & (kpos < (kv_len if torch.is_tensor(kv_len)
                                else int(kv_len)))

@@ -52,9 +52,11 @@ kernels into a contiguous batch-1 staging tree and copied into its row
 which has no CUDA graph, the steps run eagerly
 (:class:`~repro_torch.launch.steps.BatchedDecodeStep` in vmap mode).
 Prefill runs eagerly on both (``repro`` traces it per prompt shape).
+An encoder-decoder's prefill batch also carries the request's frames
+(:func:`encoder_frames`, seeded by its id; the audio frontend is a stub).
 
 The sharded fleet (``fleet_planner_for_model``, ``run_fleet``,
-``--fleet``, ``--mesh``) waits for a later slice (ROADMAP A4).  Entry
+``--fleet``, ``--mesh``) waits for a later slice (ROADMAP A3).  Entry
 points run on the card unless the caller passes ``device='cpu'``, and
 raise without CUDA.
 """
@@ -81,6 +83,7 @@ from repro_torch.core.plancache import default_cache
 from repro_torch.launch.steps import (
     BatchedDecodeStep,
     CapturedBatchedDecodeStep,
+    batch_axes,
     make_captured_decode_step,
     make_decode_step,
     make_prefill_step,
@@ -102,6 +105,18 @@ from repro_torch.runtime.pool import ArenaPool, PoolError
 #: (:func:`~repro_torch.core.allocator.pin_transients`) -- it pays more
 #: bytes so its step never waits on buffer reuse inside a shared arena.
 REQUEST_CLASSES = ("memory", "latency")
+
+
+def encoder_frames(rid: int, n: int, d_model: int, device) -> torch.Tensor:
+    """The encoder's input for request ``rid`` of an encoder-decoder: ``n``
+    frame embeddings ``(1, n, d_model)`` in f32 on ``device``, drawn from a
+    ``torch.Generator`` seeded by ``rid`` (the audio frontend is a stub;
+    ``repro``'s server draws ``jax.random.normal(PRNGKey(rid), ...)``).
+    May return a numpy array instead, which the server moves to the
+    device."""
+    g = torch.Generator(device=device).manual_seed(int(rid))
+    return torch.randn((1, n, d_model), generator=g, dtype=torch.float32,
+                       device=device)
 
 
 def _align4(n: int) -> int:
@@ -392,8 +407,7 @@ class DecodeServer:
         # a contiguous batch-1 state for the rows' copies in and out of the
         # batched cache, and each leaf's batch axis there
         self._stage = None
-        self._batch_axes = [d.logical.index("batch") for d in tree_leaves(
-            self._cache_defs(), is_leaf=is_def)]
+        self._batch_axes = batch_axes(model, smax)
         self._plan = plan_decode_arena(model, 1, smax)
         # register our regions plan with the pool once; submits reuse the
         # key (no per-request graph re-fingerprinting)
@@ -494,6 +508,11 @@ class DecodeServer:
         batch = {"tokens": torch.as_tensor(
             np.asarray(req.prompt), dtype=torch.long,
             device=self.device)[None]}
+        if self.model.cfg.is_encoder_decoder:
+            batch["frames"] = torch.as_tensor(
+                encoder_frames(req.rid, P, self.model.cfg.d_model,
+                               self.device),
+                dtype=torch.float32, device=self.device)
         logits, cache = self._prefill(self.params, cache, batch)
         req.last_tok = int(torch.argmax(logits, -1)[0])
         req.tokens.append(req.last_tok)
@@ -673,7 +692,7 @@ class DecodeServer:
         for i, req in enumerate(self.active):
             for ax, rows, one in zip(self._batch_axes, tree_leaves(cache),
                                      stage):
-                one.copy_(rows.narrow(ax, i, 1))
+                one.copy_(rows.narrow(ax, i, 1).view(one.shape))
             req.arena = pack_decode_state(self._plan, self._stage,
                                           arena=req.arena)
 

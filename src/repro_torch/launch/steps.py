@@ -10,6 +10,8 @@
         (tokens, ts) -> (logits, next tokens): the decode step of ``bucket``
         rows, each at its own position, eagerly;
         ``CapturedBatchedDecodeStep`` the same in one CUDA graph
+  * ``init_batched_cache(model, bucket, smax)`` / ``batch_axes(model, smax)``
+        the batched steps' decode-state tree, and each leaf's batch axis
 
 Their default is ``impl="auto"``: the CUDA flash-attention kernels for
 tensors on the card (forward and, in the train step, the backward), the
@@ -20,13 +22,22 @@ ROADMAP A10, sharding ``rules`` for A8.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.capture import CapturedCall
 from repro_torch.core.executor import resolve_device
 from repro_torch.kernels.flash_attention.kernel import check_pairs
-from repro_torch.models.params import tree_flatten, tree_unflatten
+from repro_torch.models.params import (
+    is_def,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+    zeros_from_defs,
+)
 from repro_torch.models.zoo import Model
 from repro_torch.optim import OPTIMIZERS
 from repro_torch.optim.schedule import cosine_warmup
@@ -153,14 +164,38 @@ class CapturedDecodeStep:
         return self.call.replay()
 
 
+def batch_axes(model: Model, smax: int) -> list[int]:
+    """Each decode-state leaf's batch axis in a batched step's tree, in
+    leaf order: where its ``ParamDef`` names ``"batch"``, and 0 for a 0-d
+    leaf (a request's scalar, the encoder-decoder's ``enc_len``), which the
+    batched tree holds as a ``(bucket,)`` leaf (:func:`init_batched_cache`).
+    A batch-1 state's leaf is its row of the batched leaf: ``narrow(axis,
+    row, 1)``, viewed as the batch-1 leaf's shape."""
+    return [d.logical.index("batch") if d.shape else 0
+            for d in tree_leaves(model.make_cache_defs(1, smax),
+                                 is_leaf=is_def)]
+
+
+def init_batched_cache(model: Model, bucket: int, smax: int, device=None):
+    """The zeroed decode state of ``bucket`` rows: ``model.init_cache(
+    bucket, smax)``, with each 0-d leaf a ``(bucket,)`` one, a value per
+    row (``repro``'s ``jax.vmap`` of the batch-1 step over requests maps
+    the 0-d ``enc_len`` to one per row)."""
+    return zeros_from_defs(tree_map(
+        lambda d: d if d.shape else dataclasses.replace(
+            d, shape=(bucket,), logical=("batch",)),
+        model.make_cache_defs(bucket, smax), is_leaf=is_def), device)
+
+
 class BatchedDecodeStep:
     """The decode step of ``bucket`` rows, each at its own position, run
     eagerly: the CPU's batched step (the card's is
     :class:`CapturedBatchedDecodeStep`, which keeps this interface).
 
-    :attr:`cache` is the decode-state tree at ``(bucket, smax)`` (a leaf's
-    batch axis where its ``ParamDef`` names ``"batch"``), updated in place
-    by every step.  ``step(tokens, ts)`` decodes ``tokens[b]`` at position
+    :attr:`cache` is the decode-state tree at ``(bucket, smax)``
+    (:func:`init_batched_cache`; each leaf's batch axis by
+    :func:`batch_axes`), updated in place by every step.
+    ``step(tokens, ts)`` decodes ``tokens[b]`` at position
     ``ts[b]`` against row ``b`` of :attr:`cache` and returns the ``(bucket,
     vocab)`` f32 logits and their ``(bucket,)`` argmax.
     """
@@ -170,7 +205,7 @@ class BatchedDecodeStep:
         self.device = resolve_device(device)
         self.bucket = bucket
         self.params = params
-        self.cache = model.init_cache(bucket, smax, self.device)
+        self.cache = init_batched_cache(model, bucket, smax, self.device)
         self._step = make_decode_step(model, rules, impl=impl)
 
     def _run(self, tokens, t):

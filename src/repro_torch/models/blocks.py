@@ -1,6 +1,7 @@
-"""Residual blocks of the port: dense transformer, RWKV-6, RG-LRU hybrid.
+"""Residual blocks of the port: dense/MoE transformer (MHA or MLA), RWKV-6,
+RG-LRU hybrid, and the encoder-decoder's two blocks.
 
-The counterpart of ``repro.models.blocks`` for these families:
+The counterpart of ``repro.models.blocks``:
 
     defs  = <family>_block_defs(cfg)                  # one layer's ParamDefs
     x, cache, aux = <family>_block_apply(p, x, ctx, cache)
@@ -9,8 +10,11 @@ The counterpart of ``repro.models.blocks`` for these families:
 updated in place and returned) or None.  The recurrences run through
 ``kernels.rwkv6.wkv6`` and ``kernels.rglru.rglru`` (the CUDA kernels on
 the card), which write the layer's final state straight into its cache
-view.  The transformer block takes an MoE MLP (``moe=True``); MLA blocks
-and the encoder-decoder blocks wait for their families (ROADMAP A7).
+view.  The transformer block takes an MoE MLP (``moe=True``) and, where
+the config has one, MLA attention.  The encoder block attends without a
+causal mask and takes no cache; the decoder block runs causal
+self-attention against its cache, then cross-attention over the
+encoder's output (``enc_len`` its valid rows).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from repro_torch.models.layers import (
     Ctx,
     attn_apply,
     attn_defs,
+    mla_apply,
+    mla_defs,
     mlp_apply,
     mlp_defs,
     moe_apply,
@@ -37,17 +43,10 @@ from repro_torch.models.params import ParamDef
 f32 = torch.float32
 
 
-def _no_mla(cfg: ArchConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP A7)")
-
-
 def transformer_block_defs(cfg: ArchConfig, *, moe: bool = False) -> dict:
-    _no_mla(cfg)
     return {
         "ln1": norm_defs(cfg.d_model),
-        "attn": attn_defs(cfg),
+        "attn": mla_defs(cfg) if cfg.mla is not None else attn_defs(cfg),
         "ln2": norm_defs(cfg.d_model),
         "mlp": moe_defs(cfg) if moe else mlp_defs(cfg),
     }
@@ -62,7 +61,11 @@ def transformer_block_apply(p, x, ctx: Ctx, cache=None, *, moe: bool = False,
     step) the MoE dispatches each row on its own
     (``moe_apply(per_row=True)``)."""
     h = rms_norm(x, p["ln1"])
-    a, new_cache = attn_apply(p["attn"], h, ctx, cache=cache, window=window)
+    if ctx.cfg.mla is not None:
+        a, new_cache = mla_apply(p["attn"], h, ctx, cache)
+    else:
+        a, new_cache = attn_apply(p["attn"], h, ctx, cache=cache,
+                                  window=window)
     x = x + a
     h = rms_norm(x, p["ln2"])
     if not moe:
@@ -259,3 +262,50 @@ def griffin_attn_block_apply(p, x, ctx: Ctx, cache=None):
     x = x + a
     x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), ctx.cfg)
     return x, new_cache, 0.0
+
+
+# ------------------------------------------------------------ encoder (bidi)
+
+def encoder_block_defs(cfg: ArchConfig) -> dict:
+    return {
+        "ln1": norm_defs(cfg.d_model),
+        "attn": attn_defs(cfg),
+        "ln2": norm_defs(cfg.d_model),
+        "mlp": mlp_defs(cfg),
+    }
+
+
+def encoder_block_apply(p, x, ctx: Ctx):
+    """Non-causal self-attention (with RoPE) + MLP; no cache."""
+    h = rms_norm(x, p["ln1"])
+    a, _ = attn_apply(p["attn"], h, ctx, causal=False)
+    x = x + a
+    return x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), ctx.cfg)
+
+
+def decoder_block_defs(cfg: ArchConfig) -> dict:
+    return {
+        "ln1": norm_defs(cfg.d_model),
+        "self_attn": attn_defs(cfg),
+        "ln_x": norm_defs(cfg.d_model),
+        "cross_attn": attn_defs(cfg, cross=True),
+        "ln2": norm_defs(cfg.d_model),
+        "mlp": mlp_defs(cfg),
+    }
+
+
+def decoder_block_apply(p, x, ctx: Ctx, enc_out, cache=None, enc_len=None):
+    """Causal self-attention against ``cache = {'self': kv-cache}`` (or
+    None), cross-attention over ``enc_out`` (no RoPE, no causal mask; the
+    first ``enc_len`` rows valid where it is a padded buffer), MLP;
+    returns (x, cache, 0.0)."""
+    h = rms_norm(x, p["ln1"])
+    a, _ = attn_apply(p["self_attn"], h, ctx,
+                      cache=None if cache is None else cache["self"])
+    x = x + a
+    h = rms_norm(x, p["ln_x"])
+    c, _ = attn_apply(p["cross_attn"], h, ctx, kv_src=enc_out,
+                      kv_src_len=enc_len, causal=False, use_rope=False)
+    x = x + c
+    x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), ctx.cfg)
+    return x, cache, 0.0

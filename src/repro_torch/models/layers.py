@@ -1,12 +1,16 @@
 """Shared model primitives of the port: norms, RoPE, attention, MLP, MoE,
-embedding.
+MLA, embedding.
 
-The counterpart of ``repro.models.layers`` for the dense and MoE decoders:
-each sub-module exposes ``<name>_defs(cfg) -> ParamDef tree`` and
-``<name>_apply(params, ...) -> outputs``, with the same parameter names,
-shapes and numerics (f32 norms, RoPE and router, attention through
-:func:`~repro_torch.kernels.flash_attention.flash_attention`).  ``mla_*``
-waits for its family (ROADMAP A7).
+The counterpart of ``repro.models.layers``: each sub-module exposes
+``<name>_defs(cfg) -> ParamDef tree`` and ``<name>_apply(params, ...) ->
+outputs``, with the same parameter names, shapes and numerics (f32 norms,
+RoPE and router, attention through
+:func:`~repro_torch.kernels.flash_attention.flash_attention`).
+``attn_apply`` also takes ``repro``'s cross-attention (``kv_src``, a
+padded encoder buffer masked by ``kv_src_len``) and non-causal options;
+``mla_apply`` is DeepSeek-V3's latent attention, expanded through the
+flash kernel at prefill and absorbed (plain torch, as ``repro`` computes
+it outside any kernel) at decode.
 
 Unlike JAX, the port updates the KV cache **in place**: ``attn_apply``
 writes the layer's new keys and values into the cache tensors it is given
@@ -90,7 +94,9 @@ def apply_rope(x, positions, theta: float):
 
 # ---------------------------------------------------------------- attention
 
-def attn_defs(cfg: ArchConfig) -> dict:
+def attn_defs(cfg: ArchConfig, *, cross: bool = False) -> dict:
+    """``cross`` marks a cross-attention's projections, as ``repro``'s
+    signature does; they have the self-attention's shapes."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     d = {
         "wq": ParamDef((D, H, hd), ("fsdp", "tensor", None)),
@@ -105,10 +111,16 @@ def attn_defs(cfg: ArchConfig) -> dict:
 
 
 def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
-               cache: dict | None = None):
-    """Causal self-attention with RoPE; returns (y, cache).  Cache:
-    {'k','v'}: (B, Smax, KV, hd).  (``repro``'s cross-attention and
-    non-causal options come with the encoder-decoder, ROADMAP A7.)
+               cache: dict | None = None, kv_src=None, kv_src_len=None,
+               causal: bool = True, use_rope: bool = True):
+    """Self-attention with RoPE (causal unless ``causal=False``) or, with
+    ``kv_src`` (an encoder's output, possibly a padded buffer of which the
+    first ``kv_src_len`` rows are valid: an int, or an integer tensor, 0-d
+    or a length per batch row), cross-attention; returns (y, cache).
+    ``repro``'s rule: RoPE only when ``use_rope and kv_src is None``,
+    causal only when ``causal and kv_src is None``.  Cache: {'k','v'}:
+    (B, Smax, KV, hd); a cross-attention (like ``repro``'s) takes none and
+    recomputes its keys and values from ``kv_src`` at every call.
 
     Prefill (``ctx.decode`` false) writes k/v into the cache from position
     0 and attends over the fresh k/v; decode writes them at
@@ -123,17 +135,22 @@ def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
     index past the cache fails there, not on the host.  With ``t`` of shape
     ``(B,)`` (row ``b`` at its own position) the write is one
     ``index_put_`` at ``(row, ctx.positions)`` and the attention masks each
-    row at its own ``q_start = t[b]``.
+    row at its own ``q_start = t[b]``.  A cross-attention's
+    ``kv_src_len`` goes to the attention as ``kv_len`` as it is: on the
+    card an int32 tensor there is read by the split-K decode on the
+    device.
     """
     cfg = ctx.cfg
+    src = x if kv_src is None else kv_src
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["qnorm"])
         k = rms_norm(k, p["knorm"])
-    q = apply_rope(q, ctx.positions, cfg.rope_theta)
-    k = apply_rope(k, ctx.positions, cfg.rope_theta)
+    if use_rope and kv_src is None:
+        q = apply_rope(q, ctx.positions, cfg.rope_theta)
+        k = apply_rope(k, ctx.positions, cfg.rope_theta)
 
     S = x.shape[1]
     if cache is not None and not ctx.decode:
@@ -163,11 +180,11 @@ def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
         cache["v"][:, t:t + S] = v
         q_start, kv_len, ks, vs = t, t + S, cache["k"], cache["v"]
     else:
-        q_start, kv_len, ks, vs = 0, None, k, v
+        q_start, kv_len, ks, vs = 0, kv_src_len, k, v
 
     y = flash_attention(
         q, ks, vs,
-        causal=True,
+        causal=causal and kv_src is None,
         window=window,
         q_start=q_start,
         kv_len=kv_len,
@@ -348,6 +365,107 @@ def moe_apply(p, x, cfg: ArchConfig, capacity_factor: float | None = None,
     if cfg.n_shared_experts:
         y = y + mlp_apply(p["shared"], x, cfg).reshape(B * S, D)
     return y.reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------- MLA
+
+def mla_defs(cfg: ArchConfig) -> dict:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": ParamDef((D, m.q_lora_rank), ("fsdp", None)),
+        "q_norm": norm_defs(m.q_lora_rank),
+        "w_uq": ParamDef((m.q_lora_rank, H, qk), (None, "tensor", None)),
+        "w_dkv": ParamDef(
+            (D, m.kv_lora_rank + m.qk_rope_head_dim), ("fsdp", None)),
+        "kv_norm": norm_defs(m.kv_lora_rank),
+        "w_uk": ParamDef(
+            (m.kv_lora_rank, H, m.qk_nope_head_dim), (None, "tensor", None)),
+        "w_uv": ParamDef(
+            (m.kv_lora_rank, H, m.v_head_dim), (None, "tensor", None)),
+        "wo": ParamDef((H, m.v_head_dim, D), ("tensor", None, "fsdp")),
+    }
+
+
+def _write_at(buf, new, ctx: Ctx):
+    """Write ``new`` ``(B, S, ...)`` into ``buf`` ``(B, Smax, ...)`` at the
+    decode step's positions, in place: ``t + arange(S)`` for an int ``t``
+    (checked against the buffer), one ``index_copy_`` for a 0-d tensor, an
+    ``index_put_`` at ``(row, position)`` for a ``(B,)`` one."""
+    t, S = ctx.cache_len, new.shape[1]
+    new = new.to(buf.dtype)
+    if not torch.is_tensor(t):
+        t = int(t)
+        if t + S > buf.shape[1]:
+            raise ValueError(f"decode at position {t} of {S} tokens "
+                             f"overruns a cache of {buf.shape[1]}")
+        buf[:, t:t + S] = new
+    elif t.dim() == 0:
+        buf.index_copy_(1, ctx.positions[0], new)
+    else:
+        buf.index_put_((ctx.rows, ctx.positions), new)
+
+
+def mla_apply(p, x, ctx: Ctx, cache: dict | None = None):
+    """Multi-head latent attention; returns (y, cache).  The cache holds
+    the *latent* c_kv and the shared k_rope (``{'ckv': (B, Smax, r),
+    'krope': (B, Smax, rope)}``), written in place.
+
+    Prefill and training: the expanded MHA through
+    :func:`~repro_torch.kernels.flash_attention.flash_attention` at (D,
+    Dv) = (nope + rope, v), causal, with the softmax scale ``(nope +
+    rope) ** -0.5``.  Decode: the absorbed form (q projected into the
+    latent space; no per-head K/V), in plain torch ops as ``repro``
+    computes it, the scores masked at the step's positions on the device
+    (``ctx.positions``: an int, 0-d or ``(B,)`` position alike)."""
+    cfg = ctx.cfg
+    m = cfg.mla
+    B, S, D = x.shape
+    H = cfg.n_heads
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    scale = (nope + rope) ** -0.5
+
+    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dq"]), p["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], ctx.positions, cfg.rope_theta)
+
+    dkv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    c_kv = rms_norm(dkv[..., :m.kv_lora_rank], p["kv_norm"])
+    k_rope = apply_rope(dkv[..., m.kv_lora_rank:][:, :, None, :],
+                        ctx.positions, cfg.rope_theta)[:, :, 0]  # (B,S,rope)
+
+    if cache is not None and not ctx.decode:
+        cache["ckv"][:, :S] = c_kv
+        cache["krope"][:, :S] = k_rope
+    if cache is None or not ctx.decode:
+        # expanded attention (training / prefill)
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
+        v = torch.einsum("bsr,rhv->bshv", c_kv, p["w_uv"])
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)],
+                      -1)
+        qq = torch.cat([q_nope, q_rope], -1)
+        y = flash_attention(qq, k, v, causal=True, impl=ctx.impl,
+                            softmax_scale=scale)
+    else:
+        # absorbed decode: score via the latent space
+        _write_at(cache["ckv"], c_kv, ctx)
+        _write_at(cache["krope"], k_rope, ctx)
+        ckv_s = cache["ckv"].to(f32)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+        scores = (
+            torch.einsum("bshr,btr->bhst", q_lat.to(f32), ckv_s)
+            + torch.einsum("bshk,btk->bhst", q_rope.to(f32),
+                           cache["krope"].to(f32))) * scale
+        kpos = torch.arange(ckv_s.shape[1], device=x.device)
+        qpos = ctx.positions[:, None, :, None]             # (B, 1, S, 1)
+        scores = torch.where(kpos <= qpos, scores, -1e30)
+        w = torch.softmax(scores, dim=-1)
+        ctx_lat = torch.einsum("bhst,btr->bshr", w, ckv_s)
+        y = torch.einsum("bshr,rhv->bshv", ctx_lat.to(x.dtype), p["w_uv"])
+    out = torch.einsum("bshv,hvd->bsd", y, p["wo"])
+    return out, cache
 
 
 # ---------------------------------------------------------------- embedding

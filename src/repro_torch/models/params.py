@@ -153,6 +153,14 @@ def init_params(defs, generator: torch.Generator, device=None):
                           [_init_leaf(d, generator, device) for d in leaves])
 
 
+def zeros_from_defs(defs, device=None):
+    """A tensor of zeros for every ``ParamDef`` of ``defs`` (its shape and
+    dtype) on ``device``: a zeroed decode state."""
+    return tree_map(
+        lambda d: torch.zeros(d.shape, dtype=d.dtype, device=device), defs,
+        is_leaf=is_def)
+
+
 def params_from_numpy(defs, tree, device=None):
     """Fill ``defs`` from a tree of numpy arrays of the same structure
     (``repro``'s parameter pytree after ``np.asarray``), each leaf cast to

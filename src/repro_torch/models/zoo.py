@@ -1,5 +1,5 @@
-"""Model zoo of the port: the dense and MoE decoders, RWKV-6 and Griffin
-LMs.
+"""Model zoo of the port: the dense and MoE decoders (MHA or MLA, with
+DeepSeek-V3's MTP head), RWKV-6 and Griffin LMs, and the encoder-decoder.
 
 ``build_model(cfg) -> Model`` with:
     defs        ParamDef tree (layers stacked on a leading axis)
@@ -22,20 +22,31 @@ attention reads the position; the recurrent state of RWKV-6 and of
 Griffin's RG-LRU layers is per row already.
 
 The counterparts of ``repro.models.zoo``'s ``build_decoder_lm`` (dense
-and MoE configs), ``build_rwkv_lm`` and ``build_griffin_lm``, with the same
-parameter and cache trees (names, stacked shapes, leaf order), so that
+and MoE configs, MHA or MLA, with or without MTP), ``build_rwkv_lm``,
+``build_griffin_lm`` and ``build_encdec``, with the same parameter and
+cache trees (names, stacked shapes, leaf order), so that
 ``params_from_numpy`` maps ``repro``'s parameters one to one and the
 decode-state plans agree.  Each layer stack is a Python loop over the
 stacked parameters (the counterpart of ``_scan_stack``); the cache is
-updated in place and returned.  ``build_model`` raises for the families
-the port does not build yet: MLA, MTP and the encoder-decoder (ROADMAP
-A7).
+updated in place and returned.
+
+The encoder-decoder's batch carries ``frames`` ``(B, S_enc, d_model)``
+beside ``tokens`` (the audio frontend is a stub).  Its decode state is the
+decoder's self-attention cache (``self``), the encoder's output padded to
+``max_len`` rows (``enc_out``) and the number of valid rows, a 0-d int32
+(``enc_len``), which prefill writes and every decode step's
+cross-attention reads as its ``kv_len`` (on the card, on the device: one
+captured step serves every request).  In a batched step's tree
+(``launch.steps.init_batched_cache``) ``enc_len`` is one ``(B,)`` leaf, a
+length per row.
 
 ``loss_fn`` is the counterpart of ``repro``'s: the next-token
 cross-entropy over every position, in f32, with ``metrics`` ``loss`` and
 ``lm_loss``, and for the decoder ``aux_loss``, the MoE balance loss summed
 over the MoE layers (0 for a dense config), added to the loss at 0.01
-where the config has experts.  Under autograd each
+where the config has experts, and with MTP ``mtp_loss``, the multi-token
+prediction's loss (token t + 2 from h_t and the embedding of token t + 1
+through one more block), added at 0.3.  Under autograd each
 stacked leaf is cut into its layers once (``unbind``), so that the
 backward stacks the layers' gradients in one pass.  On the card the
 attention's gradient runs the hand-written backward kernel
@@ -64,9 +75,9 @@ from repro_torch.models.layers import (
 from repro_torch.models.params import (
     ParamDef,
     init_params,
-    is_def,
     stack_defs,
     tree_map,
+    zeros_from_defs,
 )
 
 
@@ -123,6 +134,55 @@ def _lm_loss(logits, tokens):
     return _xent(logits[:, :-1], targets, torch.ones_like(targets))
 
 
+def _mtp_loss(params, h, tokens, pos, cfg: ArchConfig, impl: str):
+    """DeepSeek-V3's multi-token prediction (``repro``'s): h_t (after the
+    final norm) normed again and joined with the embedding of token t + 1,
+    projected, one more dense block, the shared final norm and logits
+    predicting token t + 2."""
+    mtp = params["mtp"]
+    emb_next = embed_apply(params["embed"], tokens, cfg)
+    cat = torch.cat([rms_norm(h[:, :-1], mtp["ln"]), emb_next[:, 1:]], -1)
+    xm = torch.einsum("bsd,de->bse", cat, mtp["proj"])
+    ctx_m = Ctx(cfg=cfg, impl=impl, positions=pos[:, :-1])
+    xm, _, _ = B.transformer_block_apply(mtp["block"], xm, ctx_m, None,
+                                         moe=False)
+    lg = logits_apply(params["embed"], rms_norm(xm, params["ln_f"]), cfg)
+    targets = tokens[:, 2:].long()
+    return _xent(lg[:, :-1], targets, torch.ones_like(targets))
+
+
+def _positions(tokens):
+    """Positions ``0..S-1`` of every row of ``tokens`` ``(B, S)``."""
+    Bz, S = tokens.shape
+    return torch.arange(S, device=tokens.device)[None].expand(Bz, S)
+
+
+def _decode_position(t, tokens):
+    """A decode step's ``(t, positions (B, S), rows)``: ``t`` an int on the
+    CPU; on the card an int becomes a 0-d int64 tensor (the card's decode
+    reads its position on the device); a tensor ``t`` is int64 on the
+    tokens' device, and a ``(B,)`` one (a position per batch row) also
+    gives each position's batch row (``rows``, else None)."""
+    Bz, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device)[None]
+    rows = None
+    if torch.is_tensor(t) and t.dim() == 1:
+        # a position per batch row
+        t = t.to(device=tokens.device, dtype=torch.long)
+        pos = pos + t[:, None]
+        rows = torch.arange(Bz, device=tokens.device)[:, None].expand(Bz, S)
+    else:
+        if torch.is_tensor(t):
+            t = t.to(device=tokens.device, dtype=torch.long)
+        elif tokens.is_cuda:
+            t = torch.full((), int(t), dtype=torch.long,
+                           device=tokens.device)
+        else:
+            t = int(t)
+        pos = pos + t
+    return t, pos.expand(Bz, S), rows
+
+
 def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
         stacked: tuple[str, ...], aux_loss: bool = False) -> Model:
     """A Model over ``backbone(params, x, ctx, cache) -> (x, aux)``: the
@@ -145,12 +205,12 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
         if torch.is_grad_enabled():
             params = {k: tree_map(_Unstacked, v) if k in stacked else v
                       for k, v in params.items()}
-        pos = torch.arange(S, device=tokens.device)[None].expand(Bz, S)
+        pos = _positions(tokens)
         ctx = Ctx(cfg=cfg, impl=impl, positions=pos, rules=rules)
         x = embed_apply(params["embed"], tokens, cfg)
         x, aux = backbone(params, x, ctx, None)
-        logits = logits_apply(params["embed"], rms_norm(x, params["ln_f"]),
-                              cfg)
+        h = rms_norm(x, params["ln_f"])
+        logits = logits_apply(params["embed"], h, cfg)
         lm = _lm_loss(logits, tokens)
         metrics = {"lm_loss": lm}
         loss = lm
@@ -159,36 +219,24 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
                 aux, dtype=torch.float32, device=tokens.device)
             if cfg.n_experts:
                 loss = lm + 0.01 * aux
+        if cfg.mtp:
+            mtp = _mtp_loss(params, h, tokens, pos, cfg, impl)
+            metrics["mtp_loss"] = mtp
+            loss = loss + 0.3 * mtp
         metrics["loss"] = loss
         return loss, metrics
 
     def init_cache(bsz, smax, device=None):
-        return tree_map(
-            lambda d: torch.zeros(d.shape, dtype=d.dtype, device=device),
-            make_cache_defs(bsz, smax), is_leaf=is_def)
+        return zeros_from_defs(make_cache_defs(bsz, smax), device)
 
     def _fwd_cached(params, cache, tokens, t, *, impl, rules, decode):
         Bz, S = tokens.shape
-        pos = torch.arange(S, device=tokens.device)[None]
-        rows = None
-        if decode and torch.is_tensor(t) and t.dim() == 1:
-            # a position per batch row
-            t = t.to(device=tokens.device, dtype=torch.long)
-            pos = pos + t[:, None]
-            rows = torch.arange(Bz, device=tokens.device)[:, None].expand(
-                Bz, S)
-        elif decode:
-            if torch.is_tensor(t):
-                t = t.to(device=tokens.device, dtype=torch.long)
-            elif tokens.is_cuda:
-                # the card's decode reads its position on the device
-                t = torch.full((), int(t), dtype=torch.long,
-                               device=tokens.device)
-            else:
-                t = int(t)
-            pos = pos + t
-        ctx = Ctx(cfg=cfg, impl=impl, positions=pos.expand(Bz, S),
-                  decode=decode, cache_len=t, rows=rows, rules=rules)
+        if decode:
+            t, pos, rows = _decode_position(t, tokens)
+        else:
+            pos, rows = _positions(tokens), None
+        ctx = Ctx(cfg=cfg, impl=impl, positions=pos, decode=decode,
+                  cache_len=t, rows=rows, rules=rules)
         x = embed_apply(params["embed"], tokens, cfg)
         x, _ = backbone(params, x, ctx, cache)
         h = rms_norm(x[:, -1:], params["ln_f"])
@@ -211,11 +259,11 @@ def build_decoder_lm(cfg: ArchConfig) -> Model:
     """The dense and MoE decoders: ``cfg.n_dense_layers`` dense blocks
     (all of them without experts), then the MoE blocks, each stack under
     its own key (``"dense"``, ``"moe"``) in the parameters and the cache,
-    present only where it has layers, as in ``repro``."""
-    if cfg.mla is not None or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA and MTP decoders are not ported yet "
-            f"(ROADMAP A7)")
+    present only where it has layers, as in ``repro``.  With MLA the
+    blocks attend through ``mla_apply`` and the cache holds each layer's
+    latent ``ckv`` and shared ``krope`` rows instead of ``k``/``v``; with
+    MTP the parameters carry ``mtp`` (a projection, one dense block, a
+    norm), which only ``loss_fn`` runs."""
     n_dense = cfg.n_dense_layers if cfg.n_experts else cfg.n_layers
     n_moe = cfg.n_layers - n_dense
     stacks = [(k, n, moe) for k, n, moe in (("dense", n_dense, False),
@@ -223,6 +271,13 @@ def build_decoder_lm(cfg: ArchConfig) -> Model:
     defs = {"embed": embed_defs(cfg), "ln_f": norm_defs(cfg.d_model)}
     for key, n, moe in stacks:
         defs[key] = stack_defs(B.transformer_block_defs(cfg, moe=moe), n)
+    if cfg.mtp:
+        defs["mtp"] = {
+            "proj": ParamDef((2 * cfg.d_model, cfg.d_model),
+                             ("fsdp", "tensor")),
+            "block": B.transformer_block_defs(cfg, moe=False),
+            "ln": norm_defs(cfg.d_model),
+        }
 
     def backbone(params, x, ctx, caches):
         aux = 0.0          # a tensor once an MoE block adds its loss; a
@@ -237,8 +292,18 @@ def build_decoder_lm(cfg: ArchConfig) -> Model:
         return x, aux
 
     def make_cache_defs(bsz, smax):
-        return {key: _kv_cache_defs(cfg, n, bsz, smax)
-                for key, n, _ in stacks}
+        if cfg.mla is None:
+            return {key: _kv_cache_defs(cfg, n, bsz, smax)
+                    for key, n, _ in stacks}
+        m = cfg.mla
+        return {key: {
+            "ckv": ParamDef((n, bsz, smax, m.kv_lora_rank),
+                            (None, "batch", "sequence", "tensor"),
+                            init="zeros"),
+            "krope": ParamDef((n, bsz, smax, m.qk_rope_head_dim),
+                              (None, "batch", "sequence", None),
+                              init="zeros"),
+        } for key, n, _ in stacks}
 
     return _lm(cfg, defs, make_cache_defs, backbone,
                stacked=tuple(key for key, _, _ in stacks), aux_loss=True)
@@ -343,12 +408,108 @@ def build_griffin_lm(cfg: ArchConfig) -> Model:
     return _lm(cfg, defs, make_cache_defs, backbone, stacked=("groups",))
 
 
+# ----------------------------------------------------------------- enc-dec
+
+def build_encdec(cfg: ArchConfig) -> Model:
+    """seamless-m4t's backbone: an encoder over frame embeddings (the
+    frontend stub supplies them, ``batch["frames"]``) and a text decoder
+    with cross-attention; ``repro``'s ``build_encdec``.  The frames are
+    rounded to bf16, as ``repro`` casts them, and the encoder runs in the
+    parameters' dtype from there (bf16 as served, as in ``repro``; an f32
+    model runs an f32 encoder on the rounded frames, where ``repro``'s
+    layer scan, which carries bf16, takes no f32 parameters).  It attends
+    without a causal mask; the decoder's cross-attention reads the
+    encoder's output, fresh at prefill and from the padded ``enc_out``
+    buffer, masked at ``enc_len`` rows, at decode."""
+    n_enc, n_dec = cfg.encoder_layers, cfg.n_layers
+    defs = {
+        "embed": embed_defs(cfg),
+        "enc": stack_defs(B.encoder_block_defs(cfg), n_enc),
+        "dec": stack_defs(B.decoder_block_defs(cfg), n_dec),
+        "ln_enc": norm_defs(cfg.d_model),
+        "ln_f": norm_defs(cfg.d_model),
+    }
+
+    def init(generator: torch.Generator, device=None):
+        return init_params(defs, generator, device)
+
+    def encode(params, frames, impl):
+        ctx = Ctx(cfg=cfg, impl=impl, positions=_positions(frames[..., 0]))
+        x = frames.to(torch.bfloat16).to(params["ln_enc"]["scale"].dtype)
+        for i in range(n_enc):
+            x = B.encoder_block_apply(_layer(params["enc"], i), x, ctx)
+        return rms_norm(x, params["ln_enc"])
+
+    def run_decoder(params, x, enc_out, ctx, cache, enc_len=None):
+        for i in range(n_dec):
+            c = None if cache is None else {"self": _layer(cache, i)}
+            x, _, _ = B.decoder_block_apply(_layer(params["dec"], i), x,
+                                            ctx, enc_out, c, enc_len=enc_len)
+        return x
+
+    def head(params, x):
+        return logits_apply(params["embed"], rms_norm(x, params["ln_f"]),
+                            cfg)
+
+    def loss_fn(params, batch, *, impl="auto", rules=None):
+        if rules is not None:
+            raise NotImplementedError(
+                "sharding rules wait for parallelism (ROADMAP A8)")
+        frames, tokens = batch["frames"], batch["tokens"]
+        if torch.is_grad_enabled():
+            params = {k: tree_map(_Unstacked, v) if k in ("enc", "dec")
+                      else v for k, v in params.items()}
+        enc_out = encode(params, frames, impl)
+        ctx = Ctx(cfg=cfg, impl=impl, positions=_positions(tokens))
+        x = embed_apply(params["embed"], tokens, cfg)
+        x = run_decoder(params, x, enc_out, ctx, None)
+        loss = _lm_loss(head(params, x), tokens)
+        return loss, {"loss": loss, "lm_loss": loss}
+
+    def make_cache_defs(bsz, smax):
+        return {
+            "self": _kv_cache_defs(cfg, n_dec, bsz, smax),
+            "enc_out": ParamDef((bsz, smax, cfg.d_model),
+                                ("batch", None, None), init="zeros"),
+            "enc_len": ParamDef((), (), init="zeros", dtype=torch.int32),
+        }
+
+    def init_cache(bsz, smax, device=None):
+        return zeros_from_defs(make_cache_defs(bsz, smax), device)
+
+    def prefill_fn(params, cache, batch, *, impl="auto", rules=None):
+        """Encode the frames into ``cache["enc_out"]`` (its first S_enc
+        rows) and set ``cache["enc_len"]`` to S_enc, then run the decoder
+        over the prompt, its self-attention cache written from 0."""
+        frames, tokens = batch["frames"], batch["tokens"]
+        Se = frames.shape[1]
+        enc_out = encode(params, frames, impl)
+        cache["enc_out"][:, :Se] = enc_out
+        cache["enc_len"].fill_(Se)
+        ctx = Ctx(cfg=cfg, impl=impl, positions=_positions(tokens),
+                  cache_len=0)
+        x = embed_apply(params["embed"], tokens, cfg)
+        x = run_decoder(params, x, enc_out, ctx, cache["self"])
+        return head(params, x[:, -1:])[:, 0], cache
+
+    def decode_fn(params, cache, tokens, t, *, impl="auto", rules=None):
+        t, pos, rows = _decode_position(t, tokens)
+        ctx = Ctx(cfg=cfg, impl=impl, positions=pos, decode=True,
+                  cache_len=t, rows=rows)
+        x = embed_apply(params["embed"], tokens, cfg)
+        x = run_decoder(params, x, cache["enc_out"], ctx, cache["self"],
+                        enc_len=cache["enc_len"])
+        return head(params, x[:, -1:])[:, 0], cache
+
+    return Model(cfg, defs, init, loss_fn, make_cache_defs, init_cache,
+                 prefill_fn, decode_fn)
+
+
 def build_model(cfg: ArchConfig) -> Model:
     if cfg.attn_free:
         return build_rwkv_lm(cfg)
     if cfg.family == "hybrid":
         return build_griffin_lm(cfg)
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder is not ported yet (ROADMAP A7)")
+        return build_encdec(cfg)
     return build_decoder_lm(cfg)

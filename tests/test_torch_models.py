@@ -211,17 +211,31 @@ def test_mlp_apply_f32():
 
 
 def test_unported_families_raise():
+    """Once the families ROADMAP A7 waited for (it raised for them): the
+    encoder-decoder, MLA and MTP now build, with ``repro``'s top-level
+    parameter and cache keys; and the MoE decoder and the recurrent
+    families build as before."""
     import dataclasses
 
+    from repro.configs.base import MLAConfig as JMLAConfig
     from repro_torch.configs.base import MLAConfig
 
-    cfg = tconfigs.smoke(ARCH)
-    mla = MLAConfig(q_lora_rank=16, kv_lora_rank=16, qk_nope_head_dim=8,
-                    qk_rope_head_dim=8, v_head_dim=8)
-    for bad, item in ((dict(is_encoder_decoder=True), "A7"),
-                      (dict(mla=mla), "A7"), (dict(mtp=True), "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(dataclasses.replace(cfg, **bad))
+    cfg, jcfg = tconfigs.smoke(ARCH), jconfigs.smoke(ARCH)
+    dims = dict(q_lora_rank=16, kv_lora_rank=16, qk_nope_head_dim=8,
+                qk_rope_head_dim=8, v_head_dim=8)
+    for new, jnew in ((dict(is_encoder_decoder=True, encoder_layers=1),) * 2,
+                      (dict(mla=MLAConfig(**dims)),
+                       dict(mla=JMLAConfig(**dims))),
+                      (dict(mtp=True),) * 2):
+        tm = build_model(dataclasses.replace(cfg, **new))
+        jm = jax_build(dataclasses.replace(jcfg, **jnew))
+        assert set(tm.defs) == set(jm.defs), new
+        assert set(tm.make_cache_defs(1, 8)) == set(jm.make_cache_defs(1, 8))
+        is_leaf = lambda d: hasattr(d, "logical")
+        assert [tuple(d.shape) for d in jax.tree.leaves(
+            jm.defs, is_leaf=is_leaf)] == [tuple(d.shape) for d in
+                                           tree_leaves(tm.defs,
+                                                       is_leaf=is_leaf)]
     # the MoE decoder builds now (ROADMAP A7's MoE part): every layer an
     # MoE block unless n_dense_layers leads with dense ones
     moe = dataclasses.replace(cfg, n_experts=4, n_experts_per_tok=2,

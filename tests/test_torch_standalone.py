@@ -3,7 +3,9 @@
 A subprocess with ``jax`` and ``networkx`` made unimportable imports the
 port, plans a cell and executes it on the CPU, then builds the smoke
 ``llama3.2-1b`` and serves one request through the decode-arena server on
-the CPU; another, with ``jax`` and ``ml_dtypes`` made unimportable, imports
+the CPU, and the smoke ``seamless-m4t-medium`` (encoder-decoder) and
+``deepseek-v3-671b`` (MLA, MTP) one request each; another, with ``jax``
+and ``ml_dtypes`` made unimportable, imports
 the training modules (``repro_torch.optim``, ``data``, ``checkpoint``,
 ``launch.train``), round-trips a bf16 checkpoint and takes a train step of
 the smoke ``llama3.2-1b`` on the CPU; a scan of the port's sources and of
@@ -55,6 +57,13 @@ reqs = synth_requests(1, 6, 3, model.cfg.vocab_size)
 m = run_server(model, params, reqs, smax=9, budget_bytes=10**6,
                device="cpu")
 assert m["n_served"] == 1 and len(reqs[0].tokens) == 3, m
+for arch in ("seamless-m4t-medium", "deepseek-v3-671b"):
+    model = build_model(configs.smoke(arch))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    reqs = synth_requests(1, 6, 3, model.cfg.vocab_size)
+    m = run_server(model, params, reqs, smax=9, budget_bytes=10**6,
+                   device="cpu")
+    assert m["n_served"] == 1 and len(reqs[0].tokens) == 3, (arch, m)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "networkx", "repro")
              and sys.modules[m] is not None)
