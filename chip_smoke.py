@@ -48,8 +48,9 @@ non-zero):
               the plain PyTorch version (``impl="torch"``) and the oracle
               (``impl="ref"``) on the card, each case through every kernel
               that takes it (the simple kernel takes all; the decode kernel
-              Sq * G <= 16; the prefill kernel bf16 at 64/64, 128/128 and
-              256/256): bf16 and f32, every (D, Dv) the wrapper takes
+              Sq * G <= 16; the prefill kernel bf16 at 64/64, 128/128,
+              192/128 and 256/256, its second launch bit-equal to its
+              first): bf16 and f32, every (D, Dv) the wrapper takes
               (16/16, 64/64, 128/128, 192/128, 256/256), GQA groups 1 and 4,
               decode over caches of 1/127/1056/4097 keys, causal prefill of
               1/33/1024 tokens, a sliding window, a prefill against a
@@ -265,8 +266,12 @@ non-zero):
               at other lengths bit-equal to eager launches), and
               ``deepseek-v3-671b``'s expanded MLA prefill at (D, Dv) =
               (192, 128), 128 heads, its softmax scale 192^-0.5 (the
-              simple kernel); each timed beside its bound, its plain
-              version and SDPA.  Then each model served as in phase 7
+              ``wgmma`` prefill in bf16, the simple kernel in f32 and held
+              in bf16 too); a second launch of each kernel at a host
+              position bit-equal to its first; each timed beside its
+              bound, its plain version, SDPA and, where the call is
+              routed elsewhere, the simple kernel.  Then each model
+              served as in phase 7
               (the plan's integers, 4 requests of 1024 tokens + 32,
               seamless's with 1024 frames each, launches exactly the
               path's, served packing, tokens bit-equal to the arena-free
@@ -851,52 +856,9 @@ def flash_routes(dtype, D, Dv, rows) -> dict:
     return out
 
 
-def phase_flash(dev, err):
-    """Every case through every kernel that takes it; returns the worst
-    error of each route."""
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    worst, per_route, n_runs = {}, {}, {}
-
-    def run(name, dtype, D, Dv, KV, G, sq, skv, kw):
-        kw = dict(kw)
-        B = kw.pop("batch", 1)
-        q = torch.randn(B, sq, KV * G, D, device=dev, generator=gen).to(dtype)
-        k = torch.randn(B, skv, KV, D, device=dev, generator=gen).to(dtype)
-        v = torch.randn(B, skv, KV, Dv, device=dev, generator=gen).to(dtype)
-        args = dict(causal=kw.get("causal", True), window=kw.get("window"),
-                    q_start=kw.get("q_start", 0),
-                    kv_len=kw.get("kv_len", skv))
-        wants = {impl: flash_attention(q, k, v, impl=impl, **kw)
-                 for impl in ("torch", "ref")}
-        line = []
-        for route, kernel in flash_routes(dtype, D, Dv, sq * G).items():
-            got = kernel(q, k, v, **args)
-            for impl, want in wants.items():
-                e, ok = fa_err(got, want)
-                check(ok, f"flash {name} {dtype} D={D} Dv={Dv} G={G} KV={KV} "
-                          f"route {route} vs {impl}: max abs err {e}")
-                err["flash_attention"] = max(err["flash_attention"], e)
-                key = (str(dtype).split(".")[1], impl)
-                worst[key] = max(worst.get(key, 0.0), e)
-                per_route[route] = max(per_route.get(route, 0.0), e)
-                line.append(f"{route} vs {impl} {e:.3e}")
-            n_runs[route] = n_runs.get(route, 0) + 1
-            if name.endswith("tail"):
-                # finite garbage beyond kv_len must not leak
-                k2, v2 = k.clone(), v.clone()
-                k2[:, kw["kv_len"]:] = 1e4
-                v2[:, kw["kv_len"]:] = -1e4
-                dirty = kernel(q, k2, v2, **args)
-                check(torch.equal(dirty, got),
-                      f"flash {name} {dtype} D={D} Dv={Dv} G={G} route "
-                      f"{route}: garbage beyond kv_len leaked")
-        say(f"flash: {name} Sq {sq} Skv {skv} {kw} "
-            f"{str(dtype).split('.')[1]} D {D} Dv {Dv} G {G} KV {KV}: "
-            f"max abs err {', '.join(line)}")
-
+def flash_cases():
+    """The flash phase's cases, ``(name, Sq, Skv, kw)``: those run at every
+    (D, Dv) and GQA group, and recurrentgemma-2b's multi-query ones."""
     cases = []
     for kv in (1, 127, 1056, 4097):        # decode: one query at kv_len - 1
         cases.append(("decode", 1, kv, dict(q_start=kv - 1, kv_len=kv)))
@@ -922,6 +884,60 @@ def phase_flash(dev, err):
            ("mqa prefill", 2560, 2560, dict(window=w)),
            ("mqa decode tail", 1, 2592, dict(q_start=2199, kv_len=2200,
                                              window=w))]
+    return cases, mqa
+
+
+def phase_flash(dev, err):
+    """Every case through every kernel that takes it; returns the worst
+    error of each route."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst, per_route, n_runs = {}, {}, {}
+
+    def run(name, dtype, D, Dv, KV, G, sq, skv, kw):
+        kw = dict(kw)
+        B = kw.pop("batch", 1)
+        q = torch.randn(B, sq, KV * G, D, device=dev, generator=gen).to(dtype)
+        k = torch.randn(B, skv, KV, D, device=dev, generator=gen).to(dtype)
+        v = torch.randn(B, skv, KV, Dv, device=dev, generator=gen).to(dtype)
+        args = dict(causal=kw.get("causal", True), window=kw.get("window"),
+                    q_start=kw.get("q_start", 0),
+                    kv_len=kw.get("kv_len", skv))
+        wants = {impl: flash_attention(q, k, v, impl=impl, **kw)
+                 for impl in ("torch", "ref")}
+        line = []
+        for route, kernel in flash_routes(dtype, D, Dv, sq * G).items():
+            got = kernel(q, k, v, **args)
+            if route == "prefill":
+                check(torch.equal(kernel(q, k, v, **args), got),
+                      f"flash {name} {dtype} D={D} Dv={Dv} G={G}: a second "
+                      f"launch of the prefill kernel differs from the first")
+            for impl, want in wants.items():
+                e, ok = fa_err(got, want)
+                check(ok, f"flash {name} {dtype} D={D} Dv={Dv} G={G} KV={KV} "
+                          f"route {route} vs {impl}: max abs err {e}")
+                err["flash_attention"] = max(err["flash_attention"], e)
+                key = (str(dtype).split(".")[1], impl)
+                worst[key] = max(worst.get(key, 0.0), e)
+                per_route[route] = max(per_route.get(route, 0.0), e)
+                line.append(f"{route} vs {impl} {e:.3e}")
+            n_runs[route] = n_runs.get(route, 0) + 1
+            if name.endswith("tail"):
+                # finite garbage beyond kv_len must not leak
+                k2, v2 = k.clone(), v.clone()
+                k2[:, kw["kv_len"]:] = 1e4
+                v2[:, kw["kv_len"]:] = -1e4
+                dirty = kernel(q, k2, v2, **args)
+                check(torch.equal(dirty, got),
+                      f"flash {name} {dtype} D={D} Dv={Dv} G={G} route "
+                      f"{route}: garbage beyond kv_len leaked")
+        say(f"flash: {name} Sq {sq} Skv {skv} {kw} "
+            f"{str(dtype).split('.')[1]} D {D} Dv {Dv} G {G} KV {KV}: "
+            f"max abs err {', '.join(line)}")
+
+    cases, mqa = flash_cases()
     for dtype in (torch.float32, torch.bfloat16):
         for D, Dv in FK.HEAD_DIMS:        # every (D, Dv) the wrapper takes
             for G in (1, 4):
@@ -1404,6 +1420,10 @@ def phase_flash_a7(dev, err):
             line = []
             for name, fn in kernels.items():
                 got = fn(q, k, v, **args)
+                if not torch.is_tensor(kv):
+                    check(torch.equal(fn(q, k, v, **args), got),
+                          f"flash {label} {dtype} {name} ({route}): a "
+                          f"second launch differs from the first")
                 for impl, want in wants.items():
                     e, ok = fa_err(got, want)
                     check(ok, f"flash {label} {dtype} {name} ({route}) vs "
@@ -1502,7 +1522,8 @@ def graph_ms(fn, args, dev, reps=10):
 def time_a7_shapes(card, dev):
     """Each new bf16 attention shape: the routed kernel's ms a call, its
     bound, the plain version's and SDPA's (the torch call; the cross
-    decode's kv_len as a mask, MLA's scale as ``scale``): CUDA events over
+    decode's kv_len as a mask, MLA's scale as ``scale``) and, at a host
+    position routed elsewhere, the simple kernel's: CUDA events over
     replays of a graph of A7_GRAPH_CALLS calls (``graph_ms``), which holds
     no host issue and needs no trace (a trace that lost events read a
     third of the time)."""
@@ -1538,9 +1559,14 @@ def time_a7_shapes(card, dev):
                 scale=kw.get("softmax_scale"),
                 enable_gqa=True).transpose(1, 2)
 
-        t = {n: graph_ms(fn, (q, k, v), dev)
-             for n, fn in (("kernel", kern), ("plain", plain),
-                           ("sdpa", sdpa))}
+        route = FK.pick_route(q.shape[1], q.shape[2] // k.shape[2],
+                              q.dtype, q.shape[3], v.shape[3],
+                              device_pos=torch.is_tensor(kv))
+        fns = [("kernel", kern), ("plain", plain), ("sdpa", sdpa)]
+        if route not in ("simple", "decode"):
+            fns.append(("simple", lambda q, k, v: FK.flash_simple_cuda(
+                q, k, v, **args)))
+        t = {n: graph_ms(fn, (q, k, v), dev) for n, fn in fns}
         bounds = [fa_bound(q[b:b + 1], k[b:b + 1], v[b:b + 1],
                            dict(q_start=0, kv_len=n,
                                 causal=kw["causal"]))
@@ -1548,12 +1574,10 @@ def time_a7_shapes(card, dev):
                                         if len(lens) == 1 else lens)]
         b_ms = sum(b for b, _ in bounds)
         o_ms = sum(o for _, o in bounds)
-        route = FK.pick_route(q.shape[1], q.shape[2] // k.shape[2],
-                              q.dtype, q.shape[3], v.shape[3],
-                              device_pos=torch.is_tensor(kv))
         out[label] = dict(
             route=route, source=FLASH_SOURCES[route], ms=t["kernel"],
             plain_ms=t["plain"], library_ms=t["sdpa"],
+            simple_ms=t.get("simple"),
             bound_ms=max(b_ms, o_ms),
             bound_by="bytes" if b_ms >= o_ms else "operations",
             shape=dict(B=q.shape[0], Sq=q.shape[1], Skv=k.shape[1],
@@ -1564,7 +1588,9 @@ def time_a7_shapes(card, dev):
             f"(CUDA events): kernel "
             f"{t['kernel'] * 1e3:.2f}, bound {max(b_ms, o_ms) * 1e3:.3f} "
             f"({out[label]['bound_by']}), plain {t['plain'] * 1e3:.2f}, "
-            f"sdpa {t['sdpa'] * 1e3:.2f} [{card}]")
+            f"sdpa {t['sdpa'] * 1e3:.2f}"
+            + (f", simple kernel {t['simple'] * 1e3:.2f}" if "simple" in t
+               else "") + f" [{card}]")
     return out
 
 
@@ -2211,9 +2237,10 @@ def path_launches(cfg, n_cache: int, n_req: int = N_REQ,
         want["flash_decode"] = forwards * 2 * cfg.n_layers
         return want
     if cfg.mla is not None:
-        # the expanded prefill at (192, 128) on the simple kernel; the
-        # absorbed decode runs no kernel
-        want["flash_attention"] = n_req * cfg.n_layers
+        # the expanded prefill at (192, 128), by the served dtype's route
+        # (bf16: the ``wgmma`` prefill); the absorbed decode runs no kernel
+        want[FLASH_LAUNCHES[mla_route(cfg, torch.bfloat16)]] = \
+            n_req * cfg.n_layers
         return want
     if cfg.attn_free:
         kinds = ["wkv6"] * cfg.n_layers
@@ -2230,6 +2257,16 @@ def path_launches(cfg, n_cache: int, n_req: int = N_REQ,
         else:
             want[k] += n_req + forwards
     return want
+
+
+def mla_route(cfg, dtype) -> str:
+    """The kernel MLA's expanded prefill takes in ``dtype``: a prompt (more
+    than 16 rows) at (D, Dv) = (nope + rope, v) at a host position."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    m = cfg.mla
+    return FK.pick_route(FK.DECODE_MAX_ROWS + 1, 1, dtype,
+                         m.qk_nope_head_dim + m.qk_rope_head_dim,
+                         m.v_head_dim)
 
 
 def live_leaves(cfg, params, dev):
@@ -2443,9 +2480,25 @@ def check_logits(model, params, prompt, dev, f32=True, bf16=True):
     def held(p, dtype, key, names):
         # the kernels' run, the plain run routed as it, and the controls
         nonlocal forced
+        mla = model.cfg.mla is not None
+        if mla:
+            reset_all()
         with _routed(moe) as rec:
             toks, auto = direct_decode(model, p, prompt, LOGIT_STEPS, dev,
                                        forced=forced, dtype=dtype)
+        if mla:
+            # the expanded prefill, one launch a layer on its dtype's route
+            # (bf16: the wgmma prefill; f32: the simple kernel), and no
+            # other flash launch (the absorbed decode runs none)
+            got = all_launches()
+            route = mla_route(model.cfg, dtype or torch.bfloat16)
+            want = {n: 0 for n in FLASH_LAUNCHES.values()}
+            want[FLASH_LAUNCHES[route]] = model.cfg.n_layers
+            check({n: got[n] for n in want} == want,
+                  f"{model.cfg.name} {key}: flash launches over prefill + "
+                  f"{LOGIT_STEPS} decode steps {got}, the path needs {want}")
+            say(f"serve: {model.cfg.name} {key}: MLA's prefill on the "
+                f"{route} route, {model.cfg.n_layers} launches")
         check(all(bool(torch.isfinite(a).all())
                   and a.shape == (1, model.cfg.vocab_size) for a in auto),
               "logits not finite or of the wrong shape")

@@ -44,13 +44,14 @@
 //     latency-bound, far from the byte bound.  Every call with
 //     Sq * G <= 16 now goes to the split-K decode, flash_decode.cu;
 //   * prefill uses CUDA-core f32 FMAs, not the tensor cores, and stages
-//     tiles through registers.  bf16 calls with Sq * G > 16 at (64, 64),
-//     (128, 128) and (256, 256) now go to the `wgmma` prefill,
+//     tiles through registers (MLA's (192, 128) prefill at deepseek-v3-671b's
+//     shape: 3.95 ms, 36x SDPA).  bf16 calls with Sq * G > 16 at (64, 64),
+//     (128, 128), (192, 128) and (256, 256) now go to the `wgmma` prefill,
 //     flash_prefill_sm90.cu.
 // This kernel still serves the rest, by the fixed rule of
 // kernels/flash_attention/kernel.py (`pick_route`): f32 calls with
-// Sq * G > 16, and the (16, 16) and (192, 128) pairs with Sq * G > 16.
-// Its numbers stay in PERF.md beside the new kernels'.
+// Sq * G > 16, and the (16, 16) pair with Sq * G > 16.  Its numbers stay
+// in PERF.md beside the new kernels'.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

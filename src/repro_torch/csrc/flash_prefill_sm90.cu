@@ -1,37 +1,45 @@
 // Tensor-core prefill attention for Hopper (sm_90a), plain C interface.
 //
 // Replaces, for bf16 calls with Sq * G > 16 and (D, Dv) in {(64, 64),
-// (128, 128), (256, 256)}, the Pallas TPU kernel `flash_attention_pallas` /
-// `_fa_kernel` (src/repro/kernels/flash_attention/kernel.py): GQA attention
-// with an online softmax, causal, sliding `window`, `q_start` / `kv_len`,
-// m / l / acc in f32, fully masked key tiles skipped with `_fa_kernel`'s
-// block test, a row with no live key gives 0, the result is
-// acc / max(l, 1e-30).  Layouts are the public function's: q (B,Sq,H,D),
-// k (B,Skv,KV,D), v (B,Skv,KV,Dv), out (B,Sq,H,Dv), all bf16.  The f32 calls
-// and the (16, 16) and (192, 128) pairs stay on flash_attention.cu.
+// (128, 128), (192, 128), (256, 256)}, the Pallas TPU kernel
+// `flash_attention_pallas` / `_fa_kernel`
+// (src/repro/kernels/flash_attention/kernel.py), and at (192, 128), which
+// the Pallas kernel does not take (it gives v's blocks the width D),
+// `repro`'s `_flash_xla` (ops.py): GQA attention with an online softmax,
+// causal, sliding `window`, `q_start` / `kv_len`, m / l / acc in f32, fully
+// masked key tiles skipped with `_fa_kernel`'s block test, a row with no
+// live key gives 0, the result is acc / max(l, 1e-30).  Layouts are the
+// public function's: q (B,Sq,H,D), k (B,Skv,KV,D), v (B,Skv,KV,Dv), out
+// (B,Sq,H,Dv), all bf16.  The f32 calls and the (16, 16) pair stay on
+// flash_attention.cu.
 //
 // What bounds it on an H100 SXM: operations.  A causal prefill of P tokens
-// does 2 * 2 * H * D flops per live (query, key) pair: 4.3 GFLOP per
+// does 2 * H * (D + Dv) flops per live (query, key) pair: 4.3 GFLOP per
 // llama3.2-1b layer at P = 1024 (4.3 us at 989 TFLOP/s bf16), 32 GFLOP per
-// recurrentgemma-2b layer at P = 2560 with its 2048-key window (32.6 us).
-// Only the tensor cores reach that rate, and on Hopper only through `wgmma`.
+// recurrentgemma-2b layer at P = 2560 with its 2048-key window (32.6 us),
+// 43 GFLOP per deepseek-v3-671b MLA layer at P = 1024 (128 heads of
+// (192, 128): 43.5 us).  Only the tensor cores reach that rate, and on
+// Hopper only through `wgmma`.
 //
 // Design.  One block is one warpgroup (128 threads) and owns 64 query
 // positions of ONE query head (rows are positions; the G heads of a KV head
 // read its tiles from L2); grid (ceil(Sq / 64), H, B), the q blocks issued
 // last-first so the causal blocks with the most tiles start first.
-//   * Q (64 x D) is copied once into shared memory and stays there; K and V
-//     tiles of 64 keys come through a ring of 4, 3 or 2 stages (D 64, 128,
-//     256: what leaves room for 3, 2 or 1 blocks a SM).  All three are
-//     filled by 16-byte `cp.async` copies (not TMA: no tensor map, no driver
-//     API, and the zero-fill below comes free) into the 128-byte-swizzled
-//     layout `wgmma` reads: a tile is D / 64 column blocks of 64 rows x 128
-//     bytes, the 16-byte chunk c of row r stored at chunk c ^ (r % 8), each
-//     block 1024-byte aligned.  A tile's rows at or beyond kv_len (the
-//     ragged Skv tail, and whatever the cache holds beyond kv_len) are
-//     zero-filled, never read; q rows beyond Sq likewise.
+//   * Q (64 x D) is copied once into shared memory and stays there; K
+//     (64 x D) and V (64 x Dv) tiles of 64 keys come through a ring of
+//     `Config<D, Dv>::kStages` stages (4, 3, 2, 2 at (64, 64), (128, 128),
+//     (192, 128), (256, 256): what leaves room for 3, 2, 2 and 1 blocks a
+//     SM; `smem_bytes`).  All are filled by 16-byte `cp.async` copies (not
+//     TMA: no tensor map, no driver API, and the zero-fill below comes
+//     free) into the 128-byte-swizzled layout `wgmma` reads: a tile is
+//     width / 64 column blocks of 64 rows x 128 bytes, the 16-byte chunk c
+//     of row r stored at chunk c ^ (r % 8), each block 1024-byte aligned.
+//     A tile's rows at or beyond kv_len (the ragged Skv tail, and whatever
+//     the cache holds beyond kv_len) are zero-filled, never read; q rows
+//     beyond Sq likewise.
 //   * S = Q K^T: `wgmma.m64n64k16` from shared memory, both operands
-//     K-major, D / 16 steps, f32 accumulators (32 registers a thread).
+//     K-major, D / 16 steps over D / 64 column blocks, f32 accumulators (32
+//     registers a thread).
 //   * The softmax scale (times log2 e) is applied to the f32 scores, which
 //     are masked in registers (causal, window, kv_len) with -inf; the row max
 //     and sum reduce over the 4 threads of a quad; p = 2^(s - m).
@@ -49,9 +57,9 @@
 //     misses the check by up to ~120x on about one output in nine at the
 //     served shapes.  So P is split, p_hi = bf16(p), p_lo = bf16(p - p_hi),
 //     and O += p_hi V + p_lo V keeps about 16 bits of p, at 1.5x the
-//     operations of the naive design (3 products of the tile's size in
-//     place of 2), which the same probe measures at +11% to +16% of the
-//     kernel's time.
+//     operations of the naive design at D == Dv (3 products of the tile's
+//     size in place of 2; 1.4x at (192, 128)), which the same probe
+//     measures at +11% to +16% of the kernel's time.
 //   * Tiles with no live key are not visited: the tile range is
 //     `_fa_kernel`'s block test (beyond kv_len, after the causal diagonal of
 //     the block's last query, before the window of its first).
@@ -59,8 +67,11 @@
 //     mask.
 // There is no warp specialisation and no TMA: the 128 threads issue the
 // copies of the tile kStages - 1 ahead, then compute the current one, and
-// the softmax does not overlap the products.  `-Xptxas -v`: 156, 174 and
-// 234 registers at D 64, 128 and 256, no spills (PERF.md).
+// the softmax does not overlap the products of its block (at (192, 128)
+// issuing the next tile's Q K^T under the softmax measured slower, and 3
+// stages, one block an SM, slower still: `tools/flash_kernel_probe.py
+// mla`, PERF.md).  `-Xptxas -v`: 156, 174, 191, 234 registers at (64, 64),
+// (128, 128), (192, 128), (256, 256), no spills (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,10 +83,17 @@ namespace {
 constexpr int kThreads = 128;      // one warpgroup
 constexpr int kRows = 64;          // query positions per block
 constexpr int kTile = 64;          // keys per tile
-// stages of the K/V ring: as many as leave room for a few blocks a SM
-template <int D>
-__host__ __device__ constexpr int stages() {
-  return D <= 64 ? 4 : D <= 128 ? 3 : 2;
+// stages of the K/V ring per (D, Dv): as many as leave room for a few
+// blocks a SM
+template <int D, int Dv> struct Config;
+template <> struct Config<64, 64> { enum { kStages = 4 }; };
+template <> struct Config<128, 128> { enum { kStages = 3 }; };
+template <> struct Config<192, 128> { enum { kStages = 2 }; };
+template <> struct Config<256, 256> { enum { kStages = 2 }; };
+// dynamic shared memory: Q, kStages K and V tiles, 1024 bytes to align
+template <int D, int Dv>
+__host__ __device__ constexpr int smem_bytes() {
+  return kRows * D * 2 + Config<D, Dv>::kStages * kTile * (D + Dv) * 2 + 1024;
 }
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -195,16 +213,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_prefill_kernel(Params p) {
-  constexpr int kBlk = D / 64;                  // 64-wide column blocks
-  constexpr int kTileBytes = kRows * D * 2;     // Q, or one K or V tile
-  constexpr int kCpr = D / 8;                   // 16-byte chunks per row
+  constexpr int kBlk = Dv / 64;                 // accumulator column blocks
+  constexpr int kTileBytes = kRows * D * 2;     // Q, or one K tile
+  constexpr int kVBytes = kTile * Dv * 2;       // one V tile
+  constexpr int kCpr = D / 8;                   // 16-byte chunks per Q/K row
+  constexpr int kVCpr = Dv / 8;                 // and per V row
+  static_assert(Dv <= D, "a V row is copied beside its key's K row");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base;
-  constexpr int kStages = stages<D>();
+  constexpr int kStages = Config<D, Dv>::kStages;
   const uint32_t sK = sQ + kTileBytes;                  // kStages tiles
   const uint32_t sV = sK + kStages * kTileBytes;        // kStages tiles
 
@@ -235,13 +256,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   auto load_kv = [&](long long t, int stage) {
     const long long kb = t * kTile;
-    const uint32_t ks = sK + stage * kTileBytes, vs = sV + stage * kTileBytes;
+    const uint32_t ks = sK + stage * kTileBytes, vs = sV + stage * kVBytes;
     for (int i = tid; i < kTile * kCpr; i += kThreads) {
       const int j = i / kCpr, c = i - j * kCpr;
       const bool in = kb + j < p.kv_len;
-      const long long off = ((b * p.Skv + kb + j) * p.KV + kvh) * D + c * 8;
+      const long long row = (b * p.Skv + kb + j) * p.KV + kvh;
+      const long long off = row * D + c * 8, voff = row * Dv + c * 8;
       cp_async16(ks + swz(j, c, kTile), in ? p.k + off : p.k, in ? 16 : 0);
-      cp_async16(vs + swz(j, c, kTile), in ? p.v + off : p.v, in ? 16 : 0);
+      if (kVCpr == kCpr || c < kVCpr)           // V's row is Dv wide
+        cp_async16(vs + swz(j, c, kTile), in ? p.v + voff : p.v,
+                   in ? 16 : 0);
     }
   };
 
@@ -279,10 +303,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_async_wait<kStages - 1>();               // tile t has landed
     fence_proxy_async();
     __syncthreads();
-    const uint32_t ks = sK + stage * kTileBytes, vs = sV + stage * kTileBytes;
+    const uint32_t ks = sK + stage * kTileBytes, vs = sV + stage * kVBytes;
     stage = stage + 1 == kStages ? 0 : stage + 1;
 
-    // S = Q K^T
+    // S = Q K^T: D / 16 steps over D / 64 column blocks
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -396,7 +420,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int x = 0; x < 2; ++x) {
     if (!valid[x]) continue;
     __nv_bfloat16* orow =
-        p.o + ((b * p.Sq + q0 + r0 + 8 * x) * p.H + h) * D + 2 * (lane & 3);
+        p.o + ((b * p.Sq + q0 + r0 + 8 * x) * p.H + h) * Dv + 2 * (lane & 3);
 #pragma unroll
     for (int c = 0; c < kBlk; ++c)
 #pragma unroll
@@ -409,16 +433,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
+template <int D, int Dv>
 int launch(const Params& p, cudaStream_t stream) {
-  const int smem = (1 + 2 * stages<D>()) * kRows * D * 2 + 1024;
+  const int smem = smem_bytes<D, Dv>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_prefill_kernel<D, Dv>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((p.Sq + kRows - 1) / kRows), (unsigned)p.H,
                   (unsigned)p.B);
-  flash_prefill_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  flash_prefill_kernel<D, Dv><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -447,10 +471,10 @@ int repro_flash_prefill_sm90(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.scale_log2 = scale * kLog2e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != Dv) return (int)cudaErrorInvalidValue;
-  if (D == 64) return launch<64>(p, s);
-  if (D == 128) return launch<128>(p, s);
-  if (D == 256) return launch<256>(p, s);
+  if (D == 64 && Dv == 64) return launch<64, 64>(p, s);
+  if (D == 128 && Dv == 128) return launch<128, 128>(p, s);
+  if (D == 192 && Dv == 128) return launch<192, 128>(p, s);
+  if (D == 256 && Dv == 256) return launch<256, 256>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -78,10 +78,11 @@ def build(source: Path, name: str) -> Path:
 
 def ptxas_report(library: Path) -> list[str]:
     """The lines of ``library``'s build log that give each kernel's
-    registers, shared memory and spills (empty when no log was kept)."""
+    registers, shared memory and spills, and ptxas's warnings of a
+    performance loss (``wgmma`` serialized); empty when no log was kept."""
     log = Path(library).with_suffix(".log")
     if not log.exists():
         return []
-    keep = ("Compiling entry", "Used", "spill")
+    keep = ("Compiling entry", "Used", "spill", "Performance Loss")
     return [ln.strip() for ln in log.read_text().splitlines()
             if any(k in ln for k in keep)]

@@ -17,9 +17,9 @@ built when this module is imported:
                                  position and (D, Dv) in
                                  :data:`PREFILL_HEAD_DIMS`;
   * ``flash_attention.cu``    -- the simple kernel, for the rest: f32 with
-                                 ``Sq * G > 16``, and the (16, 16) and
-                                 (192, 128) pairs with ``Sq * G > 16``, at
-                                 a host position;
+                                 ``Sq * G > 16``, and the (16, 16) pair
+                                 with ``Sq * G > 16``, at a host
+                                 position;
   * ``flash_backward_sm90.cu`` -- the gradient (dq, dk, dv) of causal
                                  attention in its training form (q_start
                                  0, Sq = Skv, no window) on the tensor
@@ -102,8 +102,13 @@ SOURCES = {name: CSRC / f"{name}.cu" for name in
 #: (D of q/k, Dv of v) pairs the kernel is built and checked for
 HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (192, 128), (256, 256))
 
-#: (D, Dv) pairs the tensor-core prefill takes (bf16 only)
-PREFILL_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
+#: (D, Dv) pairs the tensor-core prefill takes (bf16 only): the dense
+#: models' and MLA's expanded prefill (192, 128)
+PREFILL_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
+#: kRows / kTile of csrc/flash_prefill_sm90.cu (query rows a block, keys a
+#: tile) and ``Config<D, Dv>::kStages``, the stages of its K/V ring
+PREFILL_TILE = 64
+PREFILL_STAGES = {(64, 64): 4, (128, 128): 3, (192, 128): 2, (256, 256): 2}
 
 #: (D, Dv) pairs the backward kernels take (bf16 or f32): llama3.2-1b's
 BACKWARD_HEAD_DIMS = ((64, 64),)
@@ -614,6 +619,13 @@ def dkdv_block(i: int, B: int, S: int, KV: int) -> tuple[int, int, int]:
     tile 0 (the most query tiles) over every (batch row, KV head) first."""
     r, pair = divmod(i, B * KV)
     return pair // KV, pair % KV, r
+
+
+def prefill_smem_bytes(D: int, Dv: int) -> int:
+    """Dynamic shared memory of the tensor-core prefill at (D, Dv): the
+    resident Q tile (64 x D), :data:`PREFILL_STAGES` K (64 x D) and V (64 x
+    Dv) tiles in bf16, and 1024 bytes to align the swizzled tiles."""
+    return 2 * PREFILL_TILE * (D + PREFILL_STAGES[(D, Dv)] * (D + Dv)) + 1024
 
 
 def backward_smem_bytes() -> tuple[int, int]:

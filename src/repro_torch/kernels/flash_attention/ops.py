@@ -12,9 +12,9 @@
                    every call at a device position or length; the
                    ``wgmma`` prefill (``csrc/flash_prefill_sm90.cu``) for
                    bf16 calls with ``Sq * G > 16`` at (D, Dv) in
-                   {(64, 64), (128, 128), (256, 256)}; the simple kernel
-                   (``csrc/flash_attention.cu``) for the rest, f32 with
-                   ``Sq * G > 16`` and the (16, 16) and (192, 128) pairs
+                   {(64, 64), (128, 128), (192, 128), (256, 256)}; the
+                   simple kernel (``csrc/flash_attention.cu``) for the
+                   rest, f32 with ``Sq * G > 16`` and the (16, 16) pair
                    with ``Sq * G > 16``.  The rule is a route, not a
                    fallback: each call has one kernel;
   * ``"torch"`` -- chunked online-softmax loop over KV chunks in plain

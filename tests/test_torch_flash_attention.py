@@ -131,6 +131,18 @@ def test_value_dim_differs(D, Dv):
     _check_all(q, k, v, pallas=False, causal=True, kv_chunk=16)
 
 
+@pytest.mark.parametrize("Sq,Skv,kw", [
+    (80, 80, dict()),                               # a prompt
+    (40, 150, dict(q_start=70, kv_len=110)),        # a partly filled cache
+])
+def test_mla_pair(Sq, Skv, kw):
+    # MLA's expanded prefill (D 192 = 128 + 64, Dv 128, its own scale), the
+    # pair the tensor-core prefill takes in bf16; Pallas does not take it
+    q, k, v = _qkv(Sq + Skv, 1, Sq, Skv, 4, 4, 192, 128)
+    _check_all(q, k, v, pallas=False, causal=True, kv_chunk=32,
+               softmax_scale=192 ** -0.5, **kw)
+
+
 def test_masked_tail_does_not_leak():
     # finite garbage beyond kv_len must not reach the output
     q, k, v = _qkv(5, 1, 1, 64, 4, 2, 16)

@@ -175,7 +175,8 @@ def test_combine_keeps_dtype_and_layout():
     (2560, 10, torch.bfloat16, (256, 256), "prefill"),
     (17, 1, torch.bfloat16, (128, 128), "prefill"),
     (1024, 4, torch.float32, (64, 64), "simple"),
-    (100, 1, torch.bfloat16, (192, 128), "simple"),
+    (100, 1, torch.bfloat16, (192, 128), "prefill"),
+    (100, 1, torch.float32, (192, 128), "simple"),
     (33, 1, torch.bfloat16, (16, 16), "simple"),
 ])
 def test_route_rule(Sq, G, dtype, dims, want):
