@@ -232,15 +232,24 @@ non-zero):
               (impl="auto": the ``wgmma`` prefill forward, the tensor-core
               backward) against the same step through the plain versions
               (loss and grad_norm within the bf16 logit tolerance), with
-              16 launches of each flash kernel, the backward's all on the
+              the config's ``remat="block"``: 32 ``flash_prefill`` (each
+              block's forward again in the backward) and 16
+              ``flash_backward`` launches, the backward's all on the
               tensor-core route; the step's ms (host clock,
               ending in ``synchronize``), tokens/s, model FLOPs' share of
               989 TFLOP/s, device busy time and idle share, peak memory;
+              ``cfg.remat`` at "none", "block" and "dots" on the same
+              step: loss and every gradient leaf bit-equal to "none"'s
+              under deterministic algorithms, then steps in turns (ms a
+              step, median and min of 5, the allocator's peak, the parts
+              by CUDA events, launches a step exactly 16 / 32 / 32
+              ``flash_prefill`` and 16 ``flash_backward``);
               ``launch/train.py``'s ``main`` in process for 7 steps at the
               CLI's defaults (batch 8, seq 256, AdamW, bf16) with a
-              checkpoint at step 4, its launches counted from 0 (16 x 7 of
-              each flash kernel, the backward's 112 on the tensor-core
-              route), every loss finite, and a second run
+              checkpoint at step 4, its launches counted from 0 (32 x 7
+              ``flash_prefill`` and 16 x 7 ``flash_backward``, the
+              backward's 112 on the tensor-core route), every loss
+              finite, and a second run
               resumed from that checkpoint alone, whose parameters and
               optimizer state end bit-equal to the first's (both under
               ``torch.use_deterministic_algorithms(True)``); rwkv6-7b's
@@ -311,6 +320,38 @@ non-zero):
               (unscheduled, eager arena, captured; CUDA events, median of
               20).  The ``arena_write``/``arena_read`` JSON rows carry the
               bridge's launches per call (``bridge``).
+
+12. chaos  -- (run after llama3.2-1b's phases 7 and 8, its weights on the
+              card) ``tests/test_chaos.py``'s generated corpus on the real
+              server: 4 requests of 4 + 3 tokens, half latency-class,
+              priorities 0 and 1, a budget of 3 shared arenas (one of
+              them a latency-class request's: at this width its pinned
+              plan alone is above 3 memory-class ones), a fault-free run
+              serving all 4 (its launches counted from 0) and
+              ``FaultPlan.generate(seed, n_ticks=8, rate=0.4)`` for seeds
+              0-31: no request lost, never over the instantaneous budget,
+              every served request's tokens bit-equal to the fault-free
+              run's.
+
+13. fleet  -- (run last) ``launch/serve.py:run_fleet`` over llama3.2-1b's
+              real decode plans at the serve CLI's buckets (1056, 2112,
+              8448), 4 decode + 1 prefill shards, ``FLEET_ARRIVALS``
+              open-loop arrivals (rate 2, prompts of mean 1024, 32
+              tokens on average, a quarter latency-class; simulated
+              workers on the host): no request lost, every shard within
+              its budget, one at 90% of it or more; the same arrivals
+              under 8 per-shard fault scripts, each with the same
+              invariants and every served request's tokens equal to the
+              fault-free run's, one preempting under a shrunk budget;
+              then each
+              bucket's record packed on the card through ``arena_write``
+              at its offsets (a random bf16 decode state) and read back
+              through ``arena_read``: bit-equal, guard bytes and the
+              transient region untouched, packed bytes equal to the
+              record's resident extent, the arena its ``alone_bytes``;
+              exactly one write and one read a leaf and bucket.  The
+              ``arena_write``/``arena_read`` JSON rows carry these
+              launches (``fleet``).
 
 The kernels JSON (one entry per kernel) is printed third from last, the
 card's name and power limit second from last, and ``{"ok": true,
@@ -3230,16 +3271,20 @@ def time_staging(server, card):
 # ---------------------------------------------------------------------------
 
 
-# the lead of every trace: torch.cuda._sleep's kernel, about a millisecond
-LEAD_CYCLES, LEAD_KERNEL = 2_000_000, "spin_kernel"
+# the lead of every trace: LEAD_SPINS of torch.cuda._sleep's kernel, about
+# a millisecond in all.  A trace can lose its first kernels, several of
+# them, and not its last (tools/trace_lead_probe.py), so the lead is many
+# short kernels, not one long one
+LEAD_CYCLES, LEAD_SPINS, LEAD_KERNEL = 125_000, 16, "spin_kernel"
 
 
 def device_profile(work, required=True):
     """(microseconds, activities, {name: [us, count]}) of the card during
     ``work()``: the kernels and copies of a ``torch.profiler`` trace,
-    summed and counted, in all and by name.  A trace lacks the first
-    kernels launched after it starts, so a short spin kernel runs to its end
-    in the trace before ``work()`` and is left out of the counts.  A short
+    summed and counted, in all and by name.  A trace can lack the first
+    kernels launched after it starts, so LEAD_SPINS short spin kernels run
+    to their end in the trace before ``work()`` and are left out of the
+    counts.  A short
     trace sometimes comes back empty on the card's machine; it is taken
     again, up to TRACE_TRIES times, and then None is returned, or the run
     fails if ``required``."""
@@ -3248,7 +3293,8 @@ def device_profile(work, required=True):
     for attempt in range(TRACE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(LEAD_CYCLES)
+            for _ in range(LEAD_SPINS):
+                torch.cuda._sleep(LEAD_CYCLES)
             torch.cuda.synchronize()
             work()
             torch.cuda.synchronize()
@@ -4258,6 +4304,9 @@ TRAIN_GRAD_RTOL = 3e-2
 # bf16), a checkpoint at TRAIN_CKPT_EVERY; the replay resumes there
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ = 7, 4, 8, 256
 TIMED_STEPS = 5
+# cfg.remat settings the train phase runs in turns (the config's default,
+# "block", is what the CLI runs)
+REMAT_SETTINGS = ("none", "block", "dots")
 # the memory a full-width llama3.2-1b step holds, reckoned from shapes:
 # bf16 params and grads, f32 AdamW moments, f32 logits, their log-softmax
 # and gradient
@@ -4270,6 +4319,15 @@ def bwd_tol(want, dtype) -> float:
         return BWD_RTOL32 * scale
     return BWD_ULPS16 * 2.0 ** (math.floor(math.log2(max(scale, 1e-30)))
                                 - 7)
+
+
+def train_launches(cfg, steps: int = 1) -> dict:
+    """The flash kernels' launches over ``steps`` train steps of ``cfg``:
+    one forward a layer, and one more where ``cfg.remat`` recomputes each
+    block in the backward ("block", "dots"); one backward a layer."""
+    again = 0 if cfg.remat in ("none", False) else 1
+    return {"flash_prefill": (1 + again) * cfg.n_layers * steps,
+            "flash_backward": cfg.n_layers * steps}
 
 
 def bwd_bound(q, k, v) -> tuple[float, float]:
@@ -4519,9 +4577,10 @@ def train_step_compare(dev, card):
     state, m_k = make_train_step(model, opt, impl="auto", **kw)(state, batch)
     torch.cuda.synchronize()
     launches = {k: v for k, v in all_launches().items() if v}
-    want = {"flash_prefill": cfg.n_layers, "flash_backward": cfg.n_layers}
+    want = train_launches(cfg)
     check(launches == want, f"one train step launched {launches}, the "
-                            f"train path needs {want}")
+                            f"train path needs {want} (remat "
+                            f"{cfg.remat!r})")
     routes = backward_routes()
     want = {"sm90": cfg.n_layers, "simple": 0}
     check(routes == want, f"one bf16 train step's backward launches by "
@@ -4654,6 +4713,107 @@ def time_train_step(model, opt, state, batch, card) -> dict:
     return out
 
 
+def remat_compare(model, opt, state, batch, card) -> dict:
+    """``cfg.remat`` at each of REMAT_SETTINGS on the same step: the loss
+    and every gradient leaf (``loss_grads``, before the clip) bit-equal to
+    "none"'s under ``torch.use_deterministic_algorithms(True)``; then one
+    train step at each setting in turns, TIMED_STEPS rounds after one
+    warm-up round: ms per step (host clock, each ending in
+    ``synchronize``), the caching allocator's peak over the setting's steps
+    (reset before each), the flash kernels' launches a step (counted from
+    0, exactly ``train_launches``), and the step's parts by CUDA events
+    (``step_parts``); and the peak of the loss and its gradient alone
+    (``loss_grads``, in the bit-equality pass), also above the memory held
+    before it (the step's own peak lies in the optimizer's update, which
+    remat does not touch).  The settings share the parameters and the optimizer
+    state, which each step moves on."""
+    import dataclasses
+    import os
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.zoo import build_model
+
+    models = {r: build_model(dataclasses.replace(model.cfg, remat=r))
+              for r in REMAT_SETTINGS}
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    # each setting's loss and gradient, and their peak above what is held
+    # before them (the state, and "none"'s gradients after the first):
+    # where the activations and their recompute show
+    equal, grad_peak, base = {}, {}, None
+    try:
+        for r in REMAT_SETTINGS:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = loss_grads(models[r], state["params"], batch,
+                                     "auto")
+            torch.cuda.synchronize()
+            grad_peak[r] = (torch.cuda.max_memory_allocated(), held)
+            if base is None:
+                base = (loss, grads)
+            else:
+                equal[r] = bool(torch.equal(loss, base[0])) and all(
+                    torch.equal(a, b) for a, b in zip(grads, base[1]))
+            del grads
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(equal.values()),
+          f"loss and gradients bit-equal to remat='none' (deterministic "
+          f"algorithms): {equal}")
+    steps = {r: make_train_step(models[r], opt, impl="auto", peak_lr=3e-4,
+                                warmup=10, total_steps=TRAIN_STEPS)
+             for r in REMAT_SETTINGS}
+    rec = {r: dict(ms=[], peak_allocated=0, launches=None)
+           for r in REMAT_SETTINGS}
+    for rnd in range(TIMED_STEPS + 1):
+        for r in REMAT_SETTINGS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all()
+            t0 = time.perf_counter()
+            state, _ = steps[r](state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in all_launches().items() if v}
+            want = train_launches(models[r].cfg)
+            check(launches == want, f"a train step at remat {r!r} "
+                                    f"launched {launches}, not {want}")
+            if rnd:                     # round 0 warms the setting up
+                rec[r]["ms"].append(ms)
+                rec[r]["peak_allocated"] = max(
+                    rec[r]["peak_allocated"],
+                    torch.cuda.max_memory_allocated())
+                rec[r]["launches"] = launches
+    for r in REMAT_SETTINGS:
+        ms = rec[r]["ms"]
+        rec[r].update(ms_median=statistics.median(ms), ms_min=min(ms),
+                      grad_peak_allocated=grad_peak[r][0],
+                      grad_peak_above_held=grad_peak[r][0] - grad_peak[r][1],
+                      parts_device_host_ms=step_parts(models[r], opt, state,
+                                                      batch))
+    rec["grads_bit_equal_to_none"] = equal
+    say("train: remat in turns (llama3.2-1b, B "
+        f"{TRAIN_BATCH} x S {TRAIN_SEQ}, bf16, AdamW; loss and gradients "
+        f"bit-equal to 'none': {equal}): "
+        + "; ".join(
+            f"{r}: {rec[r]['ms_median']:.2f} / {rec[r]['ms_min']:.2f} ms a "
+            f"step (median / min of {TIMED_STEPS}), peak "
+            f"{rec[r]['peak_allocated']} B (the loss and its gradient "
+            f"alone: {rec[r]['grad_peak_allocated']} B, "
+            f"{rec[r]['grad_peak_above_held']} above what it held), "
+            f"launches "
+            f"a step "
+            f"{rec[r]['launches']}, parts by CUDA events (host issue) "
+            + ", ".join(f"{k} {d:.2f} ({h:.2f})" for k, (d, h)
+                        in rec[r]["parts_device_host_ms"].items())
+            for r in REMAT_SETTINGS) + f" [{card}]")
+    return rec
+
+
 def cli_run_and_replay(dev, card) -> dict:
     """``launch/train.py``'s ``main`` in this process: TRAIN_STEPS steps of
     full-width llama3.2-1b at the CLI's defaults with a checkpoint every
@@ -4689,10 +4849,10 @@ def cli_run_and_replay(dev, card) -> dict:
         run_s = time.perf_counter() - t0
         launches = {k: v for k, v in all_launches().items() if v}
         routes = backward_routes()
-        want = {"flash_prefill": cfg.n_layers * TRAIN_STEPS,
-                "flash_backward": cfg.n_layers * TRAIN_STEPS}
+        want = train_launches(cfg, TRAIN_STEPS)
         check(launches == want, f"the CLI's {TRAIN_STEPS} steps launched "
-                                f"{launches}, the train path needs {want}")
+                                f"{launches}, the train path needs {want} "
+                                f"(remat {cfg.remat!r})")
         want = {"sm90": cfg.n_layers * TRAIN_STEPS, "simple": 0}
         check(routes == want, f"the CLI's {TRAIN_STEPS} steps' backward "
                               f"launches by kernel {routes}, the bf16 route "
@@ -4724,8 +4884,9 @@ def cli_run_and_replay(dev, card) -> dict:
           "run")
     say(f"train: python -m repro_torch.launch.train {' '.join(argv)} (in "
         f"process, deterministic algorithms): losses {losses}, launches "
-        f"{launches} ({cfg.n_layers} of each a step; the backward's by "
-        f"kernel {routes}), {run_s:.1f} s with "
+        f"{launches} (a step: {train_launches(cfg)}, remat "
+        f"{cfg.remat!r}; the backward's by kernel {routes}), "
+        f"{run_s:.1f} s with "
         f"checkpoints; the replay from step {TRAIN_CKPT_EVERY} "
         f"({replay_s:.1f} s) ends bit-equal in all {len(a)} leaves of "
         f"params and optimizer state [{card}]")
@@ -4860,6 +5021,333 @@ def time_train_flash(dev, card) -> dict:
     return out
 
 
+# the fleet phase (runtime/fleet.py, as launch/serve.py:run_fleet builds it)
+# at llama3.2-1b's published config: the serve CLI's buckets for prompts of
+# 1024 + GEN tokens, 4 decode shards and 1 prefill shard; FLEET_ARRIVALS of
+# OpenLoopLoadGen(rate 2.0, prompts of mean 1024, 32 generated on average,
+# a quarter latency-class), cut from 256 by time: the simulated step moves
+# each request's whole resident state (34.6 MB at bucket 1056) a token on
+# the host; the same arrivals again under FLEET_FAULT_SEEDS per-shard fault
+# scripts (FaultPlan.generate over FLEET_FAULT_TICKS ticks, about a
+# fault-free run's, at FLEET_FAULT_RATE a tick), each run in a process of
+# its own (fleet_runs).  The one prefill lane (32 prompt tokens a
+# request and tick, 8 requests) admits far fewer requests a tick than
+# arrive, so it is the shard that fills: a run must bring a shard to
+# FLEET_NEAR_BUDGET of its budget, and the fault scripts must preempt
+# under a shrunk budget
+FLEET_ARRIVALS = 96
+FLEET_FAULT_SEEDS = 8
+FLEET_FAULT_TICKS = 440
+FLEET_FAULT_RATE = 0.05
+FLEET_NEAR_BUDGET = 0.9
+FLEET_SHARDS = (4, 1)              # decode, prefill
+# bytes of 0xA5 on each side of a bucket's arena, which the packs must
+# leave alone
+FLEET_GUARD = 4096
+# the real server's chaos corpus: tests/test_chaos.py's sizes and scripts
+CHAOS_SEEDS = 32
+CHAOS_PROMPT, CHAOS_GEN, CHAOS_REQ, CHAOS_ARENAS = 4, 3, 4, 3
+
+
+def chaos_corpus(ctx, card) -> dict:
+    """``tests/test_chaos.py``'s generated corpus on the port's real server
+    on the card (``run_server``, its captured decode step), at the published
+    width of ``ctx``'s model: 4 requests of 4 prompt tokens + 3, half of
+    them latency-class, priorities 0 and 1, a budget of 3 shared arenas
+    (one latency-class, two memory-class: at published width the pinned
+    plan of a latency-class request alone is above 3 memory-class arenas),
+    one warm arena; a fault-free run serving all 4, then
+    ``FaultPlan.generate(seed,
+    n_ticks=8, rate=0.4)`` for seeds 0 to CHAOS_SEEDS - 1.  Every run: no
+    request lost (served + rejected = requests), never over the
+    instantaneous budget, every served request's tokens bit-equal to the
+    fault-free run's.  The fault-free run's launches are counted from 0."""
+    from repro_torch.core import pin_transients, plan_shared_arena
+    from repro_torch.launch import serve as S
+    from repro_torch.runtime.chaos import ChaosController, FaultPlan
+
+    t0 = time.perf_counter()
+    model, params = ctx["model"], ctx["params"]
+    smax = CHAOS_PROMPT + CHAOS_GEN
+    plan = S.plan_decode_arena(model, 1, smax)
+    budget = plan_shared_arena(
+        [pin_transients(plan["plan"])]
+        + [plan["plan"]] * (CHAOS_ARENAS - 1)).arena_bytes
+
+    def serve(chaos=None):
+        reqs = S.synth_requests(CHAOS_REQ, CHAOS_PROMPT, CHAOS_GEN,
+                                model.cfg.vocab_size, seed=3,
+                                latency_frac=0.5, priorities=(0, 1))
+        m = S.run_server(model, params, reqs, smax=smax, budget_bytes=budget,
+                         warm=1, chaos=chaos)
+        return reqs, m
+
+    reset_all()
+    reqs, m = serve()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    base = {r.rid: list(r.tokens) for r in reqs if not r.rejected}
+    # both classes served: the budget holds a latency-class plan (its
+    # transients pinned: the f32 logits of a 128,256-token vocabulary
+    # among them) beside two memory-class ones
+    check(set(base) == {r.rid for r in reqs}
+          and {r.klass for r in reqs} == {"latency", "memory"}
+          and all(len(t) == CHAOS_GEN for t in base.values()),
+          f"chaos: the fault-free run served {sorted(base)} "
+          f"({m['n_tokens']} tokens), rejected "
+          f"{[(r.rid, r.klass, r.reject_code) for r in reqs if r.rejected]}")
+    # a prompt of 4 tokens (16 query rows a KV head) and each decode step
+    # take the split-K decode in every layer; a prefill packs the state,
+    # each decode step unpacks and packs it
+    n, L = len(base), model.cfg.n_layers
+    want = {"write": plan["n_cache"] * n * CHAOS_GEN,
+            "read": plan["n_cache"] * n * (CHAOS_GEN - 1),
+            "flash_decode": L * n * CHAOS_GEN}
+    check(launches == want, f"chaos: the fault-free run launched "
+                            f"{launches}, its path needs {want}")
+    totals = dict(served=0, rejected=0, preempted=0, readmitted=0,
+                  transient_errors=0, budget_shrinks=0, admission_faults=0,
+                  faults=0)
+    for seed in range(CHAOS_SEEDS):
+        fp = FaultPlan.generate(seed, n_ticks=8, rate=0.4)
+        reqs, m = serve(ChaosController(fp))
+        toks = {r.rid: list(r.tokens) for r in reqs if not r.rejected}
+        what = f"chaos seed {seed} ({fp.describe()})"
+        check(m["n_served"] + m["n_rejected"] == CHAOS_REQ,
+              f"{what}: {m['n_served']} served + {m['n_rejected']} "
+              f"rejected of {CHAOS_REQ}")
+        check(m["max_over_budget_bytes"] <= 0,
+              f"{what}: {m['max_over_budget_bytes']} B over the budget")
+        check(all(r.reject_code for r in reqs if r.rejected),
+              f"{what}: a request rejected without a code")
+        for rid, t in toks.items():
+            check(t == base[rid], f"{what}: request {rid}'s tokens {t}, "
+                                  f"the fault-free run's {base[rid]}")
+        totals["served"] += m["n_served"]
+        totals["rejected"] += m["n_rejected"]
+        totals["preempted"] += m["n_preempted"]
+        totals["readmitted"] += m["n_readmitted"]
+        totals["transient_errors"] += m["transient_errors"]
+        totals["budget_shrinks"] += m["budget_shrinks"]
+        totals["admission_faults"] += m["admission_faults"]
+        totals["faults"] += len(fp.specs)
+    sec = time.perf_counter() - t0
+    say(f"chaos: {model.cfg.name} at full width, the real server "
+        f"(captured decode) under {CHAOS_SEEDS} generated fault scripts "
+        f"(FaultPlan.generate(seed, n_ticks=8, rate=0.4)), {CHAOS_REQ} "
+        f"requests of {CHAOS_PROMPT} + {CHAOS_GEN} tokens, half "
+        f"latency-class, under {budget} B (3 shared arenas, one of them "
+        f"latency-class): the fault-free run served all {CHAOS_REQ}; no "
+        f"request lost, never over the budget, every served request's "
+        f"tokens bit-equal to the fault-free run's; over "
+        f"the corpus {totals}; the fault-free run's launches {launches}; "
+        f"{sec:.1f} s [{card}]")
+    return dict(seeds=CHAOS_SEEDS, totals=totals, launches=launches,
+                budget_bytes=budget, seconds=sec)
+
+
+def fleet_run(seed, arrivals, buckets):
+    """One run of the fleet phase on the fleet ``run_fleet`` builds over
+    llama3.2-1b's plans (its default budget: 8 of the 2112 bucket's arenas
+    a shard): fault-free (``seed`` None) or under per-shard fault scripts
+    drawn from ``seed``.  Host work only: it touches no card.  Returns
+    (the fault scripts, the metrics, each served request's tokens, each
+    shard's peak over its budget, host s from the model's build on)."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve as S
+    from repro_torch.models.zoo import build_model
+    from repro_torch.runtime.chaos import FaultPlan
+    from repro_torch.runtime.fleet import Fleet, bucket_key_for
+
+    t0 = time.perf_counter()
+    model = build_model(configs.get("llama3.2-1b"))
+    n_decode, n_prefill = FLEET_SHARDS
+    plans = None if seed is None else {
+        sid: FaultPlan.generate(seed + 17 * sid, n_ticks=FLEET_FAULT_TICKS,
+                                rate=FLEET_FAULT_RATE)
+        for sid in range(n_decode + n_prefill)}
+    planner, records = S.fleet_planner_for_model(model, buckets)
+    budget = 8 * records[buckets[1]].alone_bytes
+    fl = Fleet(planner, key_for=bucket_key_for(records), n_decode=n_decode,
+               n_prefill=n_prefill, shard_budget_bytes=budget,
+               fault_plans=plans)
+    fm = dict(fl.run_arrivals(arrivals), shard_budget_bytes=budget)
+    return (plans, fm, {r.rid: tuple(r.tokens) for r in fl.done},
+            [round(sh.peak_reserved / budget, 4) for sh in fl.shards],
+            time.perf_counter() - t0)
+
+
+def fleet_runs(arrivals, buckets, pool: str = "processes") -> list:
+    """The fault-free run and the FLEET_FAULT_SEEDS faulted ones
+    (:func:`fleet_run`), all at once: each in a process of its own
+    (started by ``spawn``: none inherits the card's context, and none
+    shares the others' interpreter lock or address space), or, with
+    ``pool="threads"``, in threads of this process."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    seeds = [None, *range(FLEET_FAULT_SEEDS)]
+    if pool == "threads":
+        ex = ThreadPoolExecutor(len(seeds))
+    else:
+        ex = ProcessPoolExecutor(
+            len(seeds), mp_context=multiprocessing.get_context("spawn"))
+    with ex:
+        return list(ex.map(fleet_run, seeds, [arrivals] * len(seeds),
+                           [buckets] * len(seeds)))
+
+
+def phase_fleet(dev, card) -> dict:
+    """The sharded fleet over llama3.2-1b's real decode plans
+    (the fleet ``launch/serve.py:run_fleet`` builds; simulated workers on
+    the host): the open-loop arrivals served with no request lost (served +
+    rejected = requests), every shard within its budget and one at
+    FLEET_NEAR_BUDGET of it or more; the same arrivals under
+    FLEET_FAULT_SEEDS per-shard fault scripts, each meeting the same
+    invariants with every served request's tokens equal to the fault-free
+    run's, one of them preempting under a shrunk budget.  Then each bucket's ``PlanRecord`` (the single-device server's
+    decode plan, by fingerprint) realized on the card: a random bf16 decode
+    state of the model at the bucket packed through ``arena_write`` at the
+    record's offsets into a uint8 arena of the record's ``alone_bytes``
+    (FLEET_GUARD bytes of 0xA5 on each side) and read back through
+    ``arena_read``: bit-equal to the state, the guards and the transient
+    region above ``resident_extent`` untouched, the packed bytes (and the
+    sampled token's) the record's ``persistent_bytes`` = ``resident_extent``.
+    The launches are counted from 0 over the phase: exactly one write and
+    one read a state leaf and bucket."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve as S
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.zoo import build_model
+    from repro_torch.runtime.loadgen import OpenLoopLoadGen, workload_summary
+
+    t0 = time.perf_counter()
+    model = build_model(configs.get("llama3.2-1b"))
+    smax = SERVES["llama3.2-1b"]["prompt"] + GEN
+    buckets = (smax, 2 * smax, 8 * smax)
+    arrivals = OpenLoopLoadGen(seed=SEED, rate=2.0, prompt_mean=1024,
+                               gen_mean=32, latency_frac=0.25).arrivals(
+                                   FLEET_ARRIVALS)
+    n_decode, n_prefill = FLEET_SHARDS
+
+    def invariants(m, what):
+        check(m["n_lost"] == 0
+              and m["n_served"] + m["n_rejected"] == m["n_requests"]
+              == FLEET_ARRIVALS,
+              f"fleet{what}: {m['n_served']} served + {m['n_rejected']} "
+              f"rejected of {m['n_requests']} ({m['n_lost']} lost)")
+        check(m["max_over_budget"] <= 0,
+              f"fleet{what}: a shard {m['max_over_budget']} B over its "
+              f"budget")
+
+    reset_all()
+    t1 = time.perf_counter()
+    runs = fleet_runs(arrivals, buckets)
+    runs_s = time.perf_counter() - t1
+    run_s = [r[-1] for r in runs]
+    _, m, base, peaks, base_s = runs.pop(0)
+    invariants(m, "")
+    check(m["n_served"] > 0, f"fleet: nothing served: {m}")
+    check(max(peaks) >= FLEET_NEAR_BUDGET,
+          f"fleet: no shard came near its budget (peaks {peaks} of it)")
+    chaos = []
+    for seed, (plans, fm, toks, fpeaks, _) in enumerate(runs):
+        what = (f" seed {seed} ("
+                + "; ".join(f"shard {sid}: {p.describe()}"
+                            for sid, p in plans.items()) + ")")
+        invariants(fm, what)
+        for rid, t in toks.items():
+            check(t == base[rid], f"fleet{what}: request {rid}'s tokens "
+                                  f"differ from the fault-free run's")
+        chaos.append(dict({k: fm[k] for k in (
+            "n_served", "n_rejected", "ticks", "migrations", "handoffs",
+            "requeues", "preemptions")}, peaks=fpeaks))
+    # a preemption that is not a prefill handoff is a shrink below what a
+    # shard held
+    check(any(c["preemptions"] > c["handoffs"] for c in chaos),
+          f"fleet: no fault script preempted under a shrunk budget: {chaos}")
+
+    # each bucket's record realized on the card through the arena kernels
+    _, records = S.fleet_planner_for_model(model, buckets)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    packs = {}
+    for b, rec in records.items():
+        d = S.plan_decode_arena(model, 1, b)
+        check(rec.plan is d["plan"] and rec.alone_bytes == d["arena_bytes"]
+              and rec.resident_extent == d["resident_extent"],
+              f"fleet: bucket {b}'s record is not the server's decode plan")
+        cache = model.init_cache(1, b, dev)
+        leaves = tree_leaves(cache)
+        for t in leaves:
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        buf = torch.full((rec.alone_bytes + 2 * FLEET_GUARD,), 0xA5,
+                         dtype=torch.uint8, device=dev)
+        arena = buf[FLEET_GUARD:FLEET_GUARD + rec.alone_bytes]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        S.pack_decode_state(d, cache, arena)
+        ev[1].record()
+        back = tree_leaves(S.unpack_decode_state(d, arena, cache))
+        ev[2].record()
+        torch.cuda.synchronize()
+        apl = d["plan"]
+        written = sum(t.numel() * t.element_size() for t in leaves)
+        top = max(apl.offset_of(i) + t.numel() * t.element_size()
+                  for i, t in enumerate(leaves))
+        token = rec.graph.sizes[-1]
+        outside = torch.cat([buf[:FLEET_GUARD],
+                             arena[rec.resident_extent:],
+                             buf[FLEET_GUARD + rec.alone_bytes:]])
+        check(all(torch.equal(a, w) for a, w in zip(back, leaves)),
+              f"fleet: bucket {b}'s state read back differs")
+        check(bool((outside == 0xA5).all()),
+              f"fleet: bucket {b}'s packs wrote outside the resident region")
+        check(top <= rec.resident_extent
+              and written + token == rec.persistent_bytes
+              == rec.resident_extent and arena.numel() == rec.alone_bytes,
+              f"fleet: bucket {b}: {written} B packed (+ {token} B token), "
+              f"top {top}; the record's persistent {rec.persistent_bytes}, "
+              f"extent {rec.resident_extent}, alone {rec.alone_bytes}")
+        packs[b] = dict(alone_bytes=rec.alone_bytes,
+                        resident_extent=rec.resident_extent,
+                        packed_bytes=written, leaves=len(leaves),
+                        pack_ms=ev[0].elapsed_time(ev[1]),
+                        unpack_ms=ev[1].elapsed_time(ev[2]))
+        del cache, leaves, back, buf, arena
+    torch.cuda.empty_cache()
+    launches = {k: v for k, v in all_launches().items() if v}
+    n_leaves = packs[smax]["leaves"]
+    want = {"write": n_leaves * len(buckets), "read": n_leaves * len(buckets)}
+    check(launches == want, f"fleet: the phase launched {launches}, its "
+                            f"path needs {want}")
+    sec = time.perf_counter() - t0
+    out = dict(
+        arrivals=FLEET_ARRIVALS, workload=workload_summary(arrivals),
+        metrics={k: v for k, v in m.items() if k != "planner"},
+        planner=m["planner"], peaks=peaks, fault_free_s=base_s, faults=chaos,
+        run_s=run_s, runs_s=runs_s, packs=packs, launches=launches, seconds=sec)
+    say(f"fleet: llama3.2-1b's decode plans (buckets {buckets}), "
+        f"{n_decode} decode + {n_prefill} prefill shards, "
+        f"{FLEET_ARRIVALS} open-loop arrivals {out['workload']}: "
+        f"{m['n_served']} served, {m['n_rejected']} rejected, 0 lost, "
+        f"{m['ticks']} ticks, {m['tok_per_tick']} tok/tick, p50 / p99 "
+        f"{m['p50_ticks']} / {m['p99_ticks']} ticks, {m['handoffs']} "
+        f"handoffs, {m['migrations']} migrations, {m['preemptions']} "
+        f"preemptions, {m['requeues']} requeues, shard budget "
+        f"{m['shard_budget_bytes']} B, peaks {peaks} of it by shard (the "
+        f"last the prefill lane) ({base_s:.2f} s on the host, beside "
+        f"the others); {FLEET_FAULT_SEEDS} fault scripts (rate "
+        f"{FLEET_FAULT_RATE} a "
+        f"tick and shard over {FLEET_FAULT_TICKS} ticks; all {len(runs) + 1} "
+        f"runs, a process each, in {runs_s:.2f} s): each lost nothing, "
+        f"stayed in "
+        f"budget, tokens equal to the fault-free run's: {chaos}; each "
+        f"bucket's record packed and read back on the card bit-equal "
+        f"(guards untouched, packed bytes = resident extent): {packs}; "
+        f"launches {launches}; phase {sec:.1f} s [{card}]")
+    return out
+
+
 def phase_train(dev, card, err) -> tuple[dict, dict]:
     """The train path: the backward kernel against its plain version, one
     full-width step through the kernels against the plain versions, the
@@ -4872,6 +5360,7 @@ def phase_train(dev, card, err) -> tuple[dict, dict]:
     err["flash_backward"] = worst["max_abs_err"]
     model, opt, state, batch, rec = train_step_compare(dev, card)
     rec["step"] = time_train_step(model, opt, state, batch, card)
+    rec["remat"] = remat_compare(model, opt, state, batch, card)
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -4989,6 +5478,7 @@ def main() -> int:
             flash = flash_row(ctx, err, card, dev)
             flash["max_abs_err_by_route"] = flash_err
             rows.append(flash)
+            chaos = chaos_corpus(ctx, card)
         elif arch == "rwkv6-7b":
             rows.append(wkv6_row(ctx, err, card, dev))
         else:
@@ -5075,6 +5565,16 @@ def main() -> int:
     train_row, train_rec = phase_train(dev, card, err)
     rows.append(train_row)
     say("timing: train: " + json.dumps(train_rec) + f" [{card}]")
+    say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+
+    # the sharded fleet over llama3.2-1b's decode plans, its records
+    # realized through the arena kernels; the real server's chaos corpus
+    fleet = phase_fleet(dev, card)
+    for r in rows:
+        if r["name"] in ("arena_write", "arena_read"):
+            r["fleet"] = dict(launches=fleet["launches"][r["name"][6:]],
+                              packs=fleet["packs"])
+    say("fleet: " + json.dumps(dict(fleet, chaos=chaos)) + f" [{card}]")
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -56,9 +56,17 @@ An encoder-decoder's prefill batch also carries the request's frames
 (:func:`encoder_frames`, seeded by its id; the audio frontend is a stub).
 
 The sharded fleet (``fleet_planner_for_model``, ``run_fleet``,
-``--fleet``, ``--mesh``) waits for a later slice (ROADMAP A3).  Entry
-points run on the card unless the caller passes ``device='cpu'``, and
-raise without CUDA.
+``--fleet N``; ``runtime/fleet.py``) serves an open-loop workload on N
+simulated decode shards, and ``--prefill-shards`` prefill shards, over
+this model's real decode plans, one per sequence bucket: it builds no
+parameters and touches no card, as in ``repro``::
+
+    python -m repro_torch.launch.serve --arch llama3.2-1b --fleet 4 \
+        --prefill-shards 1 --rate 2.0
+
+``--mesh`` waits for parallelism (ROADMAP A8).  The other entry points run
+on the card unless the caller passes ``device='cpu'``, and raise without
+CUDA.
 """
 
 from __future__ import annotations
@@ -96,6 +104,8 @@ from repro_torch.models.params import (
 )
 from repro_torch.models.zoo import build_model
 from repro_torch.runtime.chaos import ChaosController, TransientExecutorError
+from repro_torch.runtime.fleet import Fleet, PlannerService, bucket_key_for
+from repro_torch.runtime.loadgen import OpenLoopLoadGen, workload_summary
 from repro_torch.runtime.pool import ArenaPool, PoolError
 
 #: Pareto request classes decode admission serves (DESIGN.md §12): a
@@ -992,6 +1002,66 @@ def synth_requests(n: int, prompt_len: int, gen: int, vocab: int,
     return reqs
 
 
+# ---------------------------------------------------------------------------
+# Sharded fleet top layer (DESIGN.md §14)
+# ---------------------------------------------------------------------------
+
+
+def fleet_planner_for_model(model, buckets: Sequence[int]) \
+        -> tuple[PlannerService, dict]:
+    """A :class:`PlannerService` loaded with this model's real decode
+    plans, one per sequence bucket.
+
+    Each bucket's regions-layout decode plan (KV caches pinned resident,
+    transients above -- :func:`plan_decode_arena`) is registered together
+    with its two Pareto class plans, all backed by the shared
+    content-addressed plan cache -- so fleet workers lease exactly the
+    plans the single-device server serves, fetched by fingerprint, never
+    planned locally.  Returns ``(planner, {bucket: PlanRecord})``.
+    """
+    planner = PlannerService(cache=default_cache())
+    records = {}
+    for b in sorted(set(int(b) for b in buckets)):
+        d = plan_decode_arena(model, 1, b)
+        records[b] = planner.register(
+            d["graph"], plan=d["plan"],
+            classes={"memory": d["plan"],
+                     "latency": pin_transients(d["plan"])})
+    return planner, records
+
+
+def run_fleet(model, arrivals, *, buckets: Sequence[int],
+              n_decode: int = 4, n_prefill: int = 1,
+              shard_budget_bytes: int | None = None,
+              prefill_budget_bytes: int | None = None,
+              max_batch: int = 8, prefill_chunk: int = 32,
+              tenant_quotas: dict[str, int] | None = None,
+              fault_plans: dict | None = None,
+              max_ticks: int | None = None) -> dict:
+    """Serve an open-loop workload on a sharded fleet of this model's
+    decode plans (simulated device workers -- scheduling fidelity, not
+    kernels; see ``runtime/fleet.py``).
+
+    ``shard_budget_bytes`` defaults to ``max_batch`` times the largest
+    non-oversize bucket's arena -- each decode shard can hold a full
+    batch of the biggest routable request.
+    """
+    planner, records = fleet_planner_for_model(model, buckets)
+    if shard_budget_bytes is None:
+        fitted = sorted(records)[:-1] or sorted(records)
+        shard_budget_bytes = max_batch * records[fitted[-1]].alone_bytes
+    fleet = Fleet(planner, key_for=bucket_key_for(records),
+                  n_decode=n_decode, n_prefill=n_prefill,
+                  shard_budget_bytes=shard_budget_bytes,
+                  prefill_budget_bytes=prefill_budget_bytes,
+                  max_batch=max_batch, prefill_chunk=prefill_chunk,
+                  tenant_quotas=tenant_quotas, fault_plans=fault_plans)
+    metrics = fleet.run_arrivals(arrivals, max_ticks=max_ticks)
+    metrics["shard_budget_bytes"] = shard_budget_bytes
+    metrics["buckets"] = sorted(records)
+    return metrics
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b",
@@ -1015,9 +1085,18 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve on a sharded fleet of N decode shards "
+                         "(simulated workers over the real decode plans) "
+                         "instead of the single in-process server")
+    ap.add_argument("--prefill-shards", type=int, default=1,
+                    help="dedicated prefill-lane shards (fleet mode; 0 "
+                         "prefills inline on decode shards)")
+    ap.add_argument("--rate", type=float, default=2.0,
+                    help="open-loop Poisson arrival rate, requests/tick "
+                         "(fleet mode)")
     args = ap.parse_args()
 
-    dev = resolve_device(args.device)
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     model = build_model(cfg)
     smax = args.prompt_len + args.gen
@@ -1034,6 +1113,32 @@ def main() -> None:
 
     budget = int(args.budget_mb * 1e6) if args.budget_mb else \
         4 * plan["arena_bytes"]
+
+    if args.fleet > 0:
+        # sharded fleet: open-loop load over per-bucket decode plans;
+        # simulated workers exercise routing/admission, not kernels
+        gen = OpenLoopLoadGen(
+            seed=args.seed, rate=args.rate,
+            prompt_mean=args.prompt_len, prompt_max=4 * smax,
+            gen_mean=args.gen, gen_max=2 * args.gen, latency_frac=0.25)
+        arrivals = gen.arrivals(args.requests)
+        print(f"[fleet] workload: {workload_summary(arrivals)}")
+        m = run_fleet(model, arrivals,
+                      buckets=(smax, 2 * smax, 8 * smax),
+                      n_decode=args.fleet, n_prefill=args.prefill_shards)
+        print(f"[fleet] {m['n_served']}/{m['n_requests']} served "
+              f"({m['n_rejected']} rejected, rate {m['rejection_rate']}), "
+              f"{m['tokens']} tokens over {m['ticks']} ticks on "
+              f"{args.fleet}+{args.prefill_shards} shards "
+              f"({m['tok_per_tick']} tok/tick)")
+        print(f"[fleet] latency p50 {m['p50_ticks']} / p99 {m['p99_ticks']} "
+              f"ticks; {m['handoffs']} prefill handoffs, "
+              f"{m['migrations']} migrations, {m['preemptions']} "
+              f"preemptions; shard budget "
+              f"{m['shard_budget_bytes']/1e6:.2f} MB")
+        return
+
+    dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen, dev)
     reqs = synth_requests(args.requests, args.prompt_len, args.gen,

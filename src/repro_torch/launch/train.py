@@ -13,9 +13,13 @@ as ``repro`` does.  The train step (``launch/steps.py:make_train_step``)
 runs the attention's forward and backward through the hand-written flash
 kernels on the card; RWKV-6 and Griffin train on the CPU only, since their
 recurrence kernels have no backward yet (ROADMAP B): on the card their
-first step raises.  Weights are random, drawn from ``--seed``.  ``--mesh``
-takes ``none`` only: sharding waits for ROADMAP A8.  ``--device`` is
-``cuda`` unless ``cpu`` is asked for; without a card it raises.
+first step raises.  Rematerialization follows the config's ``remat``, as in
+``repro`` (``"block"`` in every config: each block's forward runs again in
+the backward, so the attention's forward kernel launches twice a layer a
+step; ``models/zoo.py:_maybe_remat``).  Weights are random, drawn from ``--seed``.
+``--mesh`` takes ``none`` only: sharding waits for ROADMAP A8.
+``--device`` is ``cuda`` unless ``cpu`` is asked for; without a card it
+raises.
 """
 
 from __future__ import annotations

@@ -48,7 +48,11 @@ where the config has experts, and with MTP ``mtp_loss``, the multi-token
 prediction's loss (token t + 2 from h_t and the embedding of token t + 1
 through one more block), added at 0.3.  Under autograd each
 stacked leaf is cut into its layers once (``unbind``), so that the
-backward stacks the layers' gradients in one pass.  On the card the
+backward stacks the layers' gradients in one pass, and ``cfg.remat``
+wraps what ``repro``'s ``_maybe_remat`` wraps: each block of the dense and
+MoE stacks, each RWKV-6 block, each Griffin group of ``pattern`` (not the
+unrolled tail), each encoder and each decoder block
+(``_maybe_remat``).  On the card the
 attention's gradient runs the hand-written backward kernel
 (``kernels.flash_attention.ops.FlashAttentionFn``); the recurrences have
 no backward kernel yet and raise under autograd on the card (ROADMAP B),
@@ -58,9 +62,11 @@ so RWKV-6 and Griffin train on the CPU only.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
@@ -79,6 +85,7 @@ from repro_torch.models.params import (
     tree_map,
     zeros_from_defs,
 )
+from repro_torch.models.remat import dots_contexts
 
 
 @dataclasses.dataclass
@@ -101,6 +108,29 @@ def _kv_cache_defs(cfg: ArchConfig, n_layers, bsz, smax, window=None):
         "k": ParamDef(shape, logical, init="zeros"),
         "v": ParamDef(shape, logical, init="zeros"),
     }
+
+
+def _maybe_remat(body, remat):
+    """``repro``'s remat policy around one scanned block (or Griffin
+    group), in a non-reentrant ``torch.utils.checkpoint``: False/'none' ->
+    off; True/'block' -> full recompute; 'dots' -> selective (keep the
+    outputs of the products without batch dimensions that the backward
+    needs, recompute the rest: ``models/remat.py``).
+
+    Only where autograd records: under ``torch.no_grad()`` ``body`` is
+    returned as it is, so that prefill, decode and every captured serving
+    step launch exactly what they launched before; a forward that carries
+    a cache (prefill, decode) passes 'none', as ``repro``'s decode does.
+    The non-reentrant form runs the forward with the gradient on, so a
+    kernel without a backward (``kernels/_grad.py``) still raises there
+    rather than being recomputed into a detached graph."""
+    if not remat or remat == "none" or not torch.is_grad_enabled():
+        return body
+    # the blocks draw no random numbers: there is no RNG state to replay
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "dots":
+        kw["context_fn"] = dots_contexts
+    return functools.partial(checkpoint, body, **kw)
 
 
 def _layer(stacked, i: int):
@@ -282,12 +312,14 @@ def build_decoder_lm(cfg: ArchConfig) -> Model:
     def backbone(params, x, ctx, caches):
         aux = 0.0          # a tensor once an MoE block adds its loss; a
                            # dense block's 0.0 adds no launch to a step
+        remat = cfg.remat if caches is None else "none"
         for key, n, moe in stacks:
             cache = caches[key] if caches else None
+            block = _maybe_remat(functools.partial(
+                B.transformer_block_apply, moe=moe), remat)
             for i in range(n):
                 c = _layer(cache, i) if cache is not None else None
-                x, _, a = B.transformer_block_apply(_layer(params[key], i),
-                                                    x, ctx, c, moe=moe)
+                x, _, a = block(_layer(params[key], i), x, ctx, c)
                 aux = aux + a
         return x, aux
 
@@ -322,9 +354,11 @@ def build_rwkv_lm(cfg: ArchConfig) -> Model:
 
     def backbone(params, x, ctx, cache):
         blocks = params["blocks"]
+        block = _maybe_remat(B.rwkv6_block_apply,
+                             cfg.remat if cache is None else "none")
         for i in range(n_layers):
             c = _layer(cache, i) if cache is not None else None
-            x, _, _ = B.rwkv6_block_apply(_layer(blocks, i), x, ctx, c)
+            x, _, _ = block(_layer(blocks, i), x, ctx, c)
         return x, None
 
     def make_cache_defs(bsz, smax):
@@ -369,14 +403,25 @@ def build_griffin_lm(cfg: ArchConfig) -> Model:
     apply = {"rec": B.griffin_rec_block_apply,
              "attn": B.griffin_attn_block_apply}
 
+    def group(x, ps, cs, ctx):
+        """One group of ``pattern``: remat wraps a group, not a block."""
+        for b, p, c in zip(pattern, ps, cs):
+            x, _, _ = apply[b](p, x, ctx, c)
+        return x
+
     def backbone(params, x, ctx, caches):
         groups = params["groups"]
         seen = {"rec": 0, "attn": 0}      # layer index within each stack
-        for b in pattern * n_groups:
-            i = seen[b]
-            c = _layer(caches[b], i) if caches else None
-            x, _, _ = apply[b](_layer(groups[b], i), x, ctx, c)
-            seen[b] += 1
+        run = _maybe_remat(group, cfg.remat if caches is None else "none")
+        for _ in range(n_groups):
+            ps, cs = [], []
+            for b in pattern:
+                i = seen[b]
+                ps.append(_layer(groups[b], i))
+                cs.append(_layer(caches[b], i) if caches else None)
+                seen[b] += 1
+            x = run(x, ps, cs, ctx)
+        # the tail is unrolled and not wrapped, as in repro
         for i, b in enumerate(tail_pattern):
             c = caches["tail"][i] if caches else None
             x, _, _ = apply[b](params["tail"][i], x, ctx, c)
@@ -436,15 +481,18 @@ def build_encdec(cfg: ArchConfig) -> Model:
     def encode(params, frames, impl):
         ctx = Ctx(cfg=cfg, impl=impl, positions=_positions(frames[..., 0]))
         x = frames.to(torch.bfloat16).to(params["ln_enc"]["scale"].dtype)
+        block = _maybe_remat(B.encoder_block_apply, cfg.remat)
         for i in range(n_enc):
-            x = B.encoder_block_apply(_layer(params["enc"], i), x, ctx)
+            x = block(_layer(params["enc"], i), x, ctx)
         return rms_norm(x, params["ln_enc"])
 
     def run_decoder(params, x, enc_out, ctx, cache, enc_len=None):
+        block = _maybe_remat(B.decoder_block_apply,
+                             cfg.remat if cache is None else "none")
         for i in range(n_dec):
             c = None if cache is None else {"self": _layer(cache, i)}
-            x, _, _ = B.decoder_block_apply(_layer(params["dec"], i), x,
-                                            ctx, enc_out, c, enc_len=enc_len)
+            x, _, _ = block(_layer(params["dec"], i), x, ctx, enc_out, c,
+                            enc_len=enc_len)
         return x
 
     def head(params, x):

@@ -1,10 +1,11 @@
-"""Runtime of the port: the budgeted arena pool, the fault DSL and the
-fault-tolerant training loop.
+"""Runtime of the port: the budgeted arena pool, the fault DSL, the
+fault-tolerant training loop, the sharded serving fleet and its open-loop
+load generator.
 
-Copies of ``repro.runtime.pool``, ``repro.runtime.chaos`` and
-``repro.runtime.fault`` (none imports JAX; ``fault`` checkpoints through
-``repro_torch.checkpoint``).  ``fleet`` and ``loadgen`` wait for a later
-slice (ROADMAP A4).
+Copies of ``repro.runtime.pool``, ``repro.runtime.chaos``,
+``repro.runtime.fault``, ``repro.runtime.fleet`` and
+``repro.runtime.loadgen`` (none imports JAX; ``fault`` checkpoints through
+``repro_torch.checkpoint``).
 """
 
 from repro_torch.runtime.chaos import (
@@ -15,6 +16,20 @@ from repro_torch.runtime.chaos import (
     seeded_corpus,
 )
 from repro_torch.runtime.fault import FaultTolerantLoop, StepTimer
+from repro_torch.runtime.fleet import (
+    Fleet,
+    FleetRequest,
+    FleetRouter,
+    FleetStallError,
+    PlannerService,
+    PlanRecord,
+    WorkerShard,
+)
+from repro_torch.runtime.loadgen import (
+    Arrival,
+    OpenLoopLoadGen,
+    workload_summary,
+)
 from repro_torch.runtime.pool import (
     ArenaPool,
     Lease,
@@ -29,12 +44,20 @@ from repro_torch.runtime.pool import (
 
 __all__ = [
     "ArenaPool",
+    "Arrival",
     "ChaosController",
     "FaultPlan",
     "FaultSpec",
     "FaultTolerantLoop",
+    "Fleet",
+    "FleetRequest",
+    "FleetRouter",
+    "FleetStallError",
     "Lease",
     "LeaseError",
+    "OpenLoopLoadGen",
+    "PlanRecord",
+    "PlannerService",
     "PoolError",
     "PoolStats",
     "PreemptionStats",
@@ -43,5 +66,7 @@ __all__ = [
     "StepTimer",
     "Ticket",
     "TransientExecutorError",
+    "WorkerShard",
     "seeded_corpus",
+    "workload_summary",
 ]

@@ -1,7 +1,8 @@
 """Multi-tenant arena pool: budgeted leases of pre-planned serving arenas.
 
 A copy of ``repro.runtime.pool`` (no JAX in either); the one change is the
-spill of a leased buffer, an explicit device-to-host copy of the tensor.
+spill of a leased buffer, an explicit device-to-host copy of a tensor (the
+fleet's simulated state, a numpy array, is copied as ``repro`` copies it).
 
 One edge device, one byte budget, many concurrent requests — the regime
 where per-inference footprint is the binding constraint.  The pool turns
@@ -624,10 +625,11 @@ class ArenaPool:
         src = state if state is not None else lease.buffer
         host = None
         if src is not None:
-            # an explicit device-to-host copy (np.asarray of a CUDA
-            # tensor raises)
-            host = np.array(src.detach().cpu().numpy(), dtype=np.uint8,
-                            copy=True)
+            # a tensor by an explicit device-to-host copy (np.asarray of a
+            # CUDA tensor raises); the fleet's simulated state is numpy
+            if hasattr(src, "detach"):
+                src = src.detach().cpu().numpy()
+            host = np.array(src, dtype=np.uint8, copy=True)
         lease.buffer = None
         spill_bytes = int(host.nbytes) if host is not None \
             else lease.resident_extent

@@ -4,11 +4,13 @@ A subprocess with ``jax`` and ``networkx`` made unimportable imports the
 port, plans a cell and executes it on the CPU, then builds the smoke
 ``llama3.2-1b`` and serves one request through the decode-arena server on
 the CPU, and the smoke ``seamless-m4t-medium`` (encoder-decoder) and
-``deepseek-v3-671b`` (MLA, MTP) one request each; another, with ``jax``
-and ``ml_dtypes`` made unimportable, imports
-the training modules (``repro_torch.optim``, ``data``, ``checkpoint``,
-``launch.train``), round-trips a bf16 checkpoint and takes a train step of
-the smoke ``llama3.2-1b`` on the CPU; a scan of the port's sources and of
+``deepseek-v3-671b`` (MLA, MTP) one request each, and serves an open-loop
+workload on the sharded fleet (``runtime.fleet``, ``runtime.loadgen``,
+``launch.serve.run_fleet``); another, with ``jax`` and ``ml_dtypes`` made
+unimportable, imports the training modules (``repro_torch.optim``,
+``data``, ``checkpoint``, ``launch.train``), round-trips a bf16 checkpoint
+and takes a train step of the smoke ``llama3.2-1b`` on the CPU (under its
+default ``remat="block"``); a scan of the port's sources and of
 ``chip_smoke.py`` finds no import of ``jax``, ``ml_dtypes`` or ``repro``.
 """
 
@@ -64,6 +66,13 @@ for arch in ("seamless-m4t-medium", "deepseek-v3-671b"):
     m = run_server(model, params, reqs, smax=9, budget_bytes=10**6,
                    device="cpu")
     assert m["n_served"] == 1 and len(reqs[0].tokens) == 3, (arch, m)
+from repro_torch.launch.serve import run_fleet
+from repro_torch.runtime.fleet import Fleet
+from repro_torch.runtime.loadgen import OpenLoopLoadGen
+fm = run_fleet(build_model(configs.smoke("llama3.2-1b")),
+               OpenLoopLoadGen(0, rate=2.0).arrivals(16),
+               buckets=(64, 128, 512))
+assert fm["n_lost"] == 0 and fm["n_served"] + fm["n_rejected"] == 16, fm
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "networkx", "repro")
              and sys.modules[m] is not None)

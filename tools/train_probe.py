@@ -102,7 +102,8 @@ def main() -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(CS.LEAD_CYCLES)
+        for _ in range(CS.LEAD_SPINS):
+            torch.cuda._sleep(CS.LEAD_CYCLES)
         torch.cuda.synchronize()
         CS.step_parts(model, opt, state, batch)
     self_dev = lambda e: getattr(e, "self_device_time_total",
