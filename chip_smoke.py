@@ -353,6 +353,29 @@ non-zero):
               ``arena_write``/``arena_read`` JSON rows carry these
               launches (``fleet``).
 
+14. parallel -- (run after phase 9, before 13) the sharded path at world
+              size 1: NCCL over an in-process store, a 1 x 1 mesh and
+              ``rules_for_mesh``.  (a) llama3.2-1b at its published width,
+              weights from SEED placed by ``distribute_params``, serves 4
+              requests of 16 + 16 tokens under rules (eagerly: the
+              captured step raises under rules, ROADMAP A8) and
+              unsharded (captured): tokens equal, every step's logits of
+              one request bit-equal to the captured step's, every
+              kernel's launches equal (``flash_decode``,
+              ``flash_prefill``, ``arena_write``, ``arena_read`` among
+              them), peak memory within 1%, ms per token of both;
+              (b) 2 train steps (batch 8 x seq 256, remat "block") under
+              rules and unsharded, both under deterministic algorithms:
+              loss, grad_norm and every state leaf bit-equal, 32
+              ``flash_prefill`` and 16 ``flash_backward`` launches a
+              step, ms per step of both; (c) granite-moe-3b-a800m with
+              ``moe_impl="ep_shardmap"`` serves 2 requests of 8 + 8
+              tokens under rules with the scatter form's tokens; (d)
+              ``compressed_psum`` bit-equal to quantize-then-dequantize
+              on a bf16 tensor of llama's largest leaf; the process group
+              destroyed at the end.  The flash, flash_backward and arena
+              JSON rows carry its launches (``parallel``).
+
 The kernels JSON (one entry per kernel) is printed third from last, the
 card's name and power limit second from last, and ``{"ok": true,
 "device": {...}}`` last.  Without CUDA, or outside a checkout, it exits
@@ -5396,6 +5419,340 @@ def phase_train(dev, card, err) -> tuple[dict, dict]:
     return row, rec
 
 
+# ------------------------------------------------------------ 14. parallel
+
+PAR_REQ, PAR_PROMPT, PAR_GEN = 4, 16, 16      # llama served under rules
+PAR_EP_REQ, PAR_EP_PROMPT, PAR_EP_GEN = 2, 8, 8
+PAR_TRAIN_STEPS = 2
+PAR_MEM_RTOL = 0.01                 # peak memory, sharded vs unsharded
+
+
+@contextlib.contextmanager
+def deterministic():
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def par_serve(model, params, reqs, smax, dev, rules=None) -> dict:
+    """``run_server`` of ``reqs`` (serial mode), the kernels' launches
+    counted from 0, the allocator's peak from a reset, ms per token."""
+    from repro_torch.launch.serve import run_server
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all()
+    t0 = time.perf_counter()
+    m = run_server(model, params, reqs, smax=smax, budget_bytes=1 << 34,
+                   rules=rules, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(m["n_served"] == len(reqs), f"served {m['n_served']} of "
+                                      f"{len(reqs)} requests")
+    return dict(tokens=[list(r.tokens) for r in reqs],
+                launches={k: v for k, v in all_launches().items() if v},
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                ms_per_token=1e3 * wall / m["n_tokens"],
+                n_tokens=m["n_tokens"])
+
+
+def par_decode(model, params, sharded, prompt, dev, rules) -> dict:
+    """Prefill and PAR_GEN - 1 greedy decode steps of one prompt, three
+    ways: with ``params`` unsharded through the captured step (as the
+    server decodes) and eagerly, with ``sharded`` (the same weights as
+    DTensors) eagerly under ``rules``.  Returns whether each step's logits
+    under rules are bit-equal to the captured step's, and each way's ms a
+    decode step (host clock ending in ``synchronize``; median over the
+    steps after the first, which captures or warms up)."""
+    from repro_torch.launch.steps import (
+        make_captured_decode_step,
+        place_state,
+    )
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.parallel.sharding import full
+
+    smax = len(prompt) + PAR_GEN
+    batch = prefill_batch(model, prompt, dev)
+    defs = model.make_cache_defs(1, smax)
+
+    def run(p, r, captured):
+        lg, cache = model.prefill_fn(
+            p, place_state(model.init_cache(1, smax, dev), defs, r), batch,
+            rules=r)
+        step = None
+        if captured:
+            step = make_captured_decode_step(model, p, smax=smax, device=dev)
+            for a, b in zip(tree_leaves(step.cache), tree_leaves(cache)):
+                a.copy_(b)
+        outs, ms = [full(lg).clone()], []
+        for s in range(PAR_GEN - 1):
+            tok = int(torch.argmax(outs[-1], -1)[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if captured:
+                lg = step(tok, len(prompt) + s)
+            else:
+                t = torch.full((1, 1), tok, dtype=torch.long, device=dev)
+                lg, cache = model.decode_fn(p, cache, t, len(prompt) + s,
+                                            rules=r)
+            lg = full(lg).clone()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            outs.append(lg)
+        return outs, statistics.median(ms[1:])
+
+    with torch.no_grad():
+        ref, ms_cap = run(params, None, True)
+        eager, ms_eager = run(params, None, False)
+        got, ms_rules = run(sharded, rules, False)
+    return dict(equal=[bool(torch.equal(a, b)) for a, b in zip(got, ref)],
+                eager_equal=all(torch.equal(a, b)
+                                for a, b in zip(eager, ref)),
+                ms_captured=ms_cap, ms_eager=ms_eager, ms_rules=ms_rules)
+
+
+def par_serving(dev, card, rules, mesh) -> dict:
+    """(a) llama3.2-1b at its published width, weights from SEED placed by
+    ``distribute_params``: served unsharded (the captured step) and under
+    rules (eager), tokens, logits and launches equal, peak memory within
+    PAR_MEM_RTOL."""
+    import repro_torch.configs as configs
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.models.params import distribute_params, tree_map
+    from repro_torch.models.zoo import build_model
+
+    cfg = configs.get("llama3.2-1b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    reqs = lambda: synth_requests(PAR_REQ, PAR_PROMPT, PAR_GEN,
+                                  cfg.vocab_size, SEED + 1)
+    smax = PAR_PROMPT + PAR_GEN
+    ref = par_serve(model, params, reqs(), smax, dev)
+    sp = distribute_params(params, model.defs, rules, mesh)
+    del params
+    got = par_serve(model, sp, reqs(), smax, dev, rules)
+    say(f"parallel: serving under rules: {got['ms_per_token']:.2f} ms/token,"
+        f" launches {got['launches']}, peak {got['peak_bytes']} B; "
+        f"unsharded: {ref['ms_per_token']:.2f}, {ref['launches']}, "
+        f"{ref['peak_bytes']} B [{card}]")
+    check(got["tokens"] == ref["tokens"],
+          f"llama3.2-1b served under rules: tokens {got['tokens']} != the "
+          f"unsharded server's {ref['tokens']}")
+    for k in ("flash_decode", "flash_prefill", "write", "read"):
+        check(got["launches"].get(k, 0) == ref["launches"].get(k, 0) > 0,
+              f"{k}: {got['launches'].get(k, 0)} launches under rules, "
+              f"{ref['launches'].get(k, 0)} unsharded")
+    check(got["launches"] == ref["launches"],
+          f"launches under rules {got['launches']} != unsharded "
+          f"{ref['launches']}")
+    mem = got["peak_bytes"] / ref["peak_bytes"] - 1.0
+    check(abs(mem) <= PAR_MEM_RTOL,
+          f"peak memory under rules {got['peak_bytes']} B vs unsharded "
+          f"{ref['peak_bytes']} B ({100 * mem:+.2f}%, limit "
+          f"{100 * PAR_MEM_RTOL}%)")
+    prompt = np.asarray(reqs()[0].prompt)
+    # at world size 1 each DTensor's shard is the whole weight
+    plain = tree_map(lambda t: t.to_local(), sp)
+    dec = par_decode(model, plain, sp, prompt, dev, rules)
+    check(all(dec["equal"]), f"logits under rules bit-equal to the "
+                             f"captured unsharded step's at steps "
+                             f"{dec['equal']}")
+    say(f"parallel: llama3.2-1b served at world size 1 under rules "
+        f"({PAR_REQ} x {PAR_PROMPT} + {PAR_GEN}): tokens equal, "
+        f"{len(dec['equal'])} steps' logits bit-equal, launches "
+        f"{got['launches']} = unsharded; served ms/token (the run's wall "
+        f"over its tokens) {got['ms_per_token']:.2f} eager under rules vs "
+        f"{ref['ms_per_token']:.2f} captured unsharded; ms a decode step "
+        f"(median) {dec['ms_rules']:.2f} eager under rules, "
+        f"{dec['ms_eager']:.2f} eager unsharded, {dec['ms_captured']:.2f} "
+        f"captured; peak {got['peak_bytes']} B vs {ref['peak_bytes']} B "
+        f"[{card}]")
+    return dict(launches=got["launches"], ms_per_token=got["ms_per_token"],
+                ms_per_token_unsharded=ref["ms_per_token"],
+                ms_decode_step=dict(rules=dec["ms_rules"],
+                                    eager=dec["ms_eager"],
+                                    captured=dec["ms_captured"]),
+                eager_bit_equal_to_captured=dec["eager_equal"],
+                peak_bytes=got["peak_bytes"],
+                peak_bytes_unsharded=ref["peak_bytes"],
+                logits_bit_equal_steps=len(dec["equal"]),
+                n_tokens=got["n_tokens"])
+
+
+def par_training(dev, card, rules, mesh) -> dict:
+    """(b) PAR_TRAIN_STEPS llama3.2-1b train steps (batch TRAIN_BATCH x
+    seq TRAIN_SEQ) under rules against the unsharded steps from the same
+    state, both under deterministic algorithms: loss, grad_norm and the
+    updated parameters bit-equal, the flash launches exactly
+    ``train_launches`` (32 forward, 16 backward a step, remat "block")."""
+    import repro_torch.configs as configs
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models.params import (
+        distribute_params,
+        tree_leaves,
+        tree_map,
+    )
+    from repro_torch.models.zoo import build_model
+
+    cfg = configs.get("llama3.2-1b")
+    model = build_model(cfg)
+    opt = make_optimizer(cfg, lr=3e-4)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    pipe = DataPipeline(cfg=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(PAR_TRAIN_STEPS)]
+    kw = dict(peak_lr=3e-4, warmup=1, total_steps=10)
+    sh = tree_map(lambda t: t.clone(), params)
+    out, launches, ms = {}, {}, {}
+    with deterministic():
+        for name, r in (("unsharded", None), ("rules", rules)):
+            if r is None:
+                state = {"params": params, "opt": opt.init(params)}
+            else:
+                state = {"params": distribute_params(sh, model.defs, r, mesh),
+                         "opt": distribute_params(opt.init(sh),
+                                                  opt.state_defs(model.defs),
+                                                  r, mesh)}
+            step = make_train_step(model, opt, r, impl="auto", **kw)
+            reset_all()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ms_ = []
+            for b in batches:
+                t1 = time.perf_counter()
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+                ms_.append(1e3 * (time.perf_counter() - t1))
+            launches[name] = {k: v for k, v in all_launches().items() if v}
+            ms[name] = ms_
+            out[name] = (m, state)
+    (m0, s0), (m1, s1) = out["unsharded"], out["rules"]
+    want = train_launches(cfg, PAR_TRAIN_STEPS)
+    say(f"parallel: train launches under rules {launches['rules']}, "
+        f"unsharded {launches['unsharded']}; ms/step {ms} [{card}]")
+    check(launches["rules"] == launches["unsharded"] == want,
+          f"train launches under rules {launches['rules']}, unsharded "
+          f"{launches['unsharded']}, the path needs {want}")
+    for k in ("loss", "grad_norm", "lr"):
+        check(torch.equal(m0[k], m1[k]), f"train {k} under rules "
+                                          f"{float(m1[k])} != {float(m0[k])}")
+    same = all(torch.equal(a, b.full_tensor())
+               for a, b in zip(tree_leaves(s0), tree_leaves(s1)))
+    check(same, "the train state after the steps under rules is not "
+                "bit-equal to the unsharded one")
+    say(f"parallel: {PAR_TRAIN_STEPS} llama3.2-1b train steps (batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}) under rules: loss "
+        f"{float(m1['loss'])}, grad_norm {float(m1['grad_norm'])}, state "
+        f"bit-equal to unsharded; launches {launches['rules']}; ms/step "
+        f"{[round(x, 1) for x in ms['rules']]} under rules, "
+        f"{[round(x, 1) for x in ms['unsharded']]} unsharded [{card}]")
+    return dict(launches=launches["rules"], ms_per_step=ms["rules"],
+                ms_per_step_unsharded=ms["unsharded"],
+                loss=float(m1["loss"]), grad_norm=float(m1["grad_norm"]))
+
+
+def par_expert_parallel(dev, card, rules, mesh) -> dict:
+    """(c) granite-moe-3b-a800m at its published width: the
+    expert-parallel MoE (``moe_impl="ep_shardmap"``) served under rules
+    gives the scatter form's tokens (unsharded): at a 1 x 1 mesh the
+    dispatch is the same."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels import _local
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.models.params import distribute_params
+    from repro_torch.models.zoo import build_model
+
+    cfg = configs.get(MOE_ARCH)
+    model = build_model(cfg)
+    ep = build_model(dataclasses.replace(cfg, moe_impl="ep_shardmap"))
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    reqs = lambda: synth_requests(PAR_EP_REQ, PAR_EP_PROMPT, PAR_EP_GEN,
+                                  cfg.vocab_size, SEED + 2)
+    smax = PAR_EP_PROMPT + PAR_EP_GEN
+    ref = par_serve(model, params, reqs(), smax, dev)
+    calls = _local.LOCAL_CALLS["moe_ep"]
+    got = par_serve(ep, distribute_params(params, model.defs, rules, mesh),
+                    reqs(), smax, dev, rules)
+    n_ep = _local.LOCAL_CALLS["moe_ep"] - calls
+    check(n_ep > 0, "the expert-parallel MoE was never called")
+    check(got["tokens"] == ref["tokens"],
+          f"{MOE_ARCH} ep_shardmap tokens {got['tokens']} != scatter's "
+          f"{ref['tokens']}")
+    say(f"parallel: {MOE_ARCH} ep_shardmap under rules ({PAR_EP_REQ} x "
+        f"{PAR_EP_PROMPT} + {PAR_EP_GEN}): tokens equal the scatter "
+        f"form's, {n_ep} expert-parallel layer calls; "
+        f"{got['ms_per_token']:.2f} ms/token vs {ref['ms_per_token']:.2f} "
+        f"[{card}]")
+    return dict(moe_ep_calls=n_ep, ms_per_token=got["ms_per_token"],
+                ms_per_token_scatter=ref["ms_per_token"])
+
+
+def par_psum(dev, mesh) -> dict:
+    """(d) ``compressed_psum`` at world size 1 bit-equal to quantize then
+    dequantize, on a random bf16 tensor of llama3.2-1b's largest leaf."""
+    import math as _m
+
+    import repro_torch.configs as configs
+    from repro_torch.models.params import is_def, tree_leaves
+    from repro_torch.models.zoo import build_model
+    from repro_torch.optim.grad_compress import (
+        compressed_psum,
+        dequantize,
+        quantize,
+    )
+
+    defs = tree_leaves(build_model(configs.get("llama3.2-1b")).defs,
+                       is_leaf=is_def)
+    big = max(defs, key=lambda d: _m.prod(d.shape))
+    g = torch.randn(big.shape, generator=torch.Generator(device=dev)
+                    .manual_seed(SEED), device=dev).to(torch.bfloat16)
+    got = compressed_psum(g, (mesh, "data"))
+    want = dequantize(*quantize(g)).to(torch.bfloat16)
+    check(torch.equal(got, want), "compressed_psum at world size 1 is not "
+                                  "quantize-then-dequantize")
+    return dict(shape=list(big.shape), bit_equal=True)
+
+
+def phase_parallel(dev, card) -> dict:
+    """Phase 14: the sharded path at world size 1 (NCCL over an in-process
+    store, a 1 x 1 mesh, ``rules_for_mesh``).  Returns its record."""
+    from repro_torch.launch.mesh import (
+        init_single_process,
+        make_host_mesh,
+        rules_for_mesh,
+    )
+
+    t0 = time.perf_counter()
+    init_single_process(dev)
+    try:
+        mesh = make_host_mesh(1, 1, device=dev)
+        rules = rules_for_mesh(mesh)
+        rec = dict(serve=par_serving(dev, card, rules, mesh))
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["train"] = par_training(dev, card, rules, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["ep"] = par_expert_parallel(dev, card, rules, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["psum"] = par_psum(dev, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+    say(f"parallel: phase done in {rec['seconds']:.1f} s [{card}]")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     csrc = SRC / "repro_torch" / "csrc"
@@ -5565,6 +5922,24 @@ def main() -> int:
     train_row, train_rec = phase_train(dev, card, err)
     rows.append(train_row)
     say("timing: train: " + json.dumps(train_rec) + f" [{card}]")
+    say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+
+    # the sharded path at world size 1: each count from 0 in its run
+    par = phase_parallel(dev, card)
+    par_rows = {"flash_attention": ("serve", ("flash_decode",
+                                              "flash_prefill")),
+                "flash_backward": ("train", ("flash_backward",)),
+                "arena_write": ("serve", ("write",)),
+                "arena_read": ("serve", ("read",))}
+    for r in rows:
+        if r["name"] in par_rows:
+            part, keys = par_rows[r["name"]]
+            r["parallel"] = {k: par[part]["launches"].get(k, 0)
+                             for k in keys}
+            if r["name"] == "flash_attention":
+                r["parallel"]["train_flash_prefill"] = \
+                    par["train"]["launches"]["flash_prefill"]
+    say("parallel: " + json.dumps(par) + f" [{card}]")
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
     # the sharded fleet over llama3.2-1b's decode plans, its records

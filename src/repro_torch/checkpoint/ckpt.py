@@ -21,9 +21,14 @@ bfloat16) under the dtype name ``bfloat16`` and viewed back as
 ``restore(..., like)`` gives each leaf the dtype and device of the
 matching leaf of ``like`` (a tensor, or a numpy array for a numpy leaf),
 and raises ``ValueError`` where a file's shape is not that leaf's (a
-checkpoint of another config in the same directory).
-Resharding onto another mesh (``repro``'s ``shardings=``) waits for
-ROADMAP A8.
+checkpoint of another config in the same directory).  A DTensor leaf
+(sharded training) is saved whole (``full_tensor()``): a checkpoint never
+holds one rank's shard, so it restores onto any mesh.  ``restore(...,
+shardings=)`` places each leaf on a mesh (``repro``'s elastic restart onto
+another mesh): a tree of ``parallel.sharding.NamedSharding`` on a live
+``DeviceMesh`` (``launch.steps.out_shardings_for`` of an abstract state),
+each leaf placed at its placements by ``parallel.sharding.place``; without
+it a DTensor leaf of ``like`` gives its own mesh and placements.
 """
 
 from __future__ import annotations
@@ -36,8 +41,10 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.params import tree_flatten, tree_unflatten
+from repro_torch.parallel.sharding import place
 
 
 def _paths(t, prefix: str, out: list) -> None:
@@ -64,6 +71,8 @@ def _to_host(leaf) -> tuple[np.ndarray, str | None]:
     """A host copy of ``leaf`` as numpy, and its logical dtype where the
     array's differs (a bf16 tensor: its uint16 bits, ``"bfloat16"``)."""
     if torch.is_tensor(leaf):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -142,17 +151,36 @@ def _load(path: str, rec: dict, like):
     return arr.astype(getattr(like, "dtype", arr.dtype))
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Any:
+def _place(t: torch.Tensor, like, shd):
+    """``t`` (the whole leaf) on the mesh of ``shd`` (a ``NamedSharding``),
+    or of ``like`` where it is a DTensor; ``t`` itself otherwise."""
+    if shd is not None:
+        return place(t, shd.mesh, shd.placements)
+    if isinstance(like, DTensor):
+        return place(t, like.device_mesh, like.placements)
+    return t
+
+
+def restore(ckpt_dir: str, step: int, like: Any, shardings=None) -> Any:
     """Restore into the structure of ``like``: each leaf found by its path
     string, given the dtype (and, for a tensor, the device) of ``like``'s
-    leaf."""
+    leaf, and placed by ``shardings`` (a tree of ``NamedSharding`` or None
+    of ``like``'s structure) or by ``like``'s DTensor leaf."""
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {a["path"]: a for a in manifest["arrays"]}
     paths, leaves, treedef = _flatten_with_paths(like)
-    return tree_unflatten(treedef, [_load(path, by_path[p], leaf)
-                                    for p, leaf in zip(paths, leaves)])
+    shds = [None] * len(leaves) if shardings is None else \
+        tree_flatten(shardings, is_leaf=lambda x: x is None
+                     or not isinstance(x, (dict, list, tuple)))[0]
+    if len(shds) != len(leaves):
+        raise ValueError(f"{len(shds)} shardings for {len(leaves)} leaves")
+    out = []
+    for p, leaf, shd in zip(paths, leaves, shds):
+        x = _load(path, by_path[p], leaf)
+        out.append(_place(x, leaf, shd) if torch.is_tensor(x) else x)
+    return tree_unflatten(treedef, out)
 
 
 class CheckpointManager:

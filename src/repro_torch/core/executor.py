@@ -67,6 +67,7 @@ from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.allocator import ArenaPlan
 from repro_torch.core.capture import CapturedCall
@@ -902,7 +903,10 @@ def pack_buffers(plan: ArenaPlan, arrays: Mapping[int, object], *,
     the serving driver to realize the decode-state plan (DESIGN.md §1/§6).
     """
     dev = resolve_device(device)
-    items = sorted(arrays.items())
+    # a DTensor leaf (sharded serving) is packed whole, as one replicated
+    # arena holds it: the bytes and offsets of the unsharded state
+    items = sorted((nid, x.full_tensor() if isinstance(x, DTensor) else x)
+                   for nid, x in arrays.items())
     for nid, x in items:
         a = plan.allocation_of(nid)
         span = a.size - a.intra.get(nid, 0)

@@ -13,11 +13,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _local
+
 
 def on_card(t) -> bool:
     """Whether ``t`` lies on the card: the one test of the device by which
-    the wrappers pick a kernel or its plain version."""
-    return t.is_cuda
+    the wrappers pick a kernel or its plain version.  A DTensor is judged
+    by its local shard (its own ``is_cuda`` follows its mesh)."""
+    return _local.local(t).is_cuda
 
 
 def needs_grad(*tensors) -> bool:

@@ -21,7 +21,7 @@ arena's dtype (see ``repro_torch.core.executor`` for the byte conversion).
 
 from __future__ import annotations
 
-from repro_torch.kernels import _grad
+from repro_torch.kernels import _grad, _local
 from repro_torch.kernels.arena import kernel as _kernel
 from repro_torch.kernels.arena.ref import (
     arena_accum_torch,
@@ -32,6 +32,15 @@ from repro_torch.kernels.arena.ref import (
 
 IMPLS = ("auto", "cuda", "torch")
 
+
+def _no_dtensor(op: str, *xs) -> None:
+    """Raise for a DTensor: its ``data_ptr()`` is 0, so the kernel would
+    write through a null pointer.  An arena is one replicated buffer, and
+    a sharded state is gathered whole before it is packed
+    (``core.executor.pack_buffers``)."""
+    if _local.has_dtensor(*xs):
+        raise TypeError(f"{op} takes plain tensors, not DTensors: take "
+                        f"full_tensor() first")
 
 
 def _use_kernel(impl: str, arena, *inputs, op: str) -> bool:
@@ -56,6 +65,7 @@ def _use_kernel(impl: str, arena, *inputs, op: str) -> bool:
 
 def arena_write(arena, x, offset: int, *, impl: str = "auto"):
     """Write ``x`` (1-D, arena dtype) at element ``offset``; returns arena."""
+    _no_dtensor("arena_write", arena, x)
     if _use_kernel(impl, arena, x, op="arena_write"):
         return _kernel.arena_write_cuda(arena, x, offset)
     return arena_write_torch(arena, x, offset)
@@ -63,6 +73,7 @@ def arena_write(arena, x, offset: int, *, impl: str = "auto"):
 
 def arena_accum(arena, x, offset: int, *, impl: str = "auto"):
     """Add ``x`` into ``arena[offset : offset+n]``; returns arena."""
+    _no_dtensor("arena_accum", arena, x)
     if _use_kernel(impl, arena, x, op="arena_accum"):
         return _kernel.arena_accum_cuda(arena, x, offset)
     return arena_accum_torch(arena, x, offset)
@@ -73,6 +84,7 @@ def arena_read(arena, offset: int, n: int, *, impl: str = "auto",
     """A copy of ``arena[offset : offset+n]``: a fresh ``(n,)`` tensor, or
     ``out`` (a contiguous 1-D tensor of ``n`` elements in the arena's dtype
     on its device), written in place and returned."""
+    _no_dtensor("arena_read", arena, out)
     if _use_kernel(impl, arena, out, op="arena_read"):
         return _kernel.arena_read_cuda(arena, offset, n, out)
     return arena_read_torch(arena, offset, n, out)
@@ -91,6 +103,7 @@ def arena_chain_write(arena, x, offset: int, ops=(), *, impl: str = "auto"):
     ops of :data:`~repro_torch.kernels.arena.elemwise.EXACT_OPS` and
     allclose for the transcendentals.
     """
+    _no_dtensor("arena_chain_write", arena, x)
     if _use_kernel(impl, arena, x, op="arena_chain_write"):
         return _kernel.arena_chain_write_cuda(arena, x, offset, ops)
     return arena_chain_write_torch(arena, x, offset, ops)

@@ -76,7 +76,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _grad
+from repro_torch.kernels import _grad, _local
 from repro_torch.kernels.flash_attention import kernel as _kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -137,7 +137,25 @@ def flash_attention(
     Both are ints, or 0-d integer tensors on ``q``'s device; either also a
     ``(B,)`` one, a position or a length per batch row (the module
     docstring).
+
+    DTensor inputs run on their local shards (``kernels/_local.py``):
+    batch and heads sharded where they divide, everything else (the
+    sequence) gathered; a ``(B,)`` ``q_start`` or ``kv_len`` keeps the
+    batch whole.
     """
+    if _local.has_dtensor(q, k, v):
+        per_row = any(torch.is_tensor(a) and a.dim() == 1
+                      for a in (q_start, kv_len))
+        dims = {"heads": 2} if per_row else {"batch": 0, "heads": 2}
+
+        def run(q, k, v):
+            return flash_attention(
+                q, k, v, causal=causal, window=window, q_start=q_start,
+                kv_len=kv_len, softmax_scale=softmax_scale, impl=impl,
+                kv_chunk=kv_chunk)
+
+        return _local.call_local("flash_attention", run, (q, k, v),
+                                 (dims, dims, dims), dims)
     impl = _pick_impl(impl, q)
     if not torch.is_tensor(q_start):
         q_start = int(q_start)

@@ -24,9 +24,10 @@ cannot see through.
 
 from __future__ import annotations
 
-from repro_torch.kernels import _grad
+from repro_torch.kernels import _grad, _local
 from repro_torch.kernels.rglru import kernel as _kernel
 from repro_torch.kernels.rglru.ref import rglru_ref
+from repro_torch.parallel.sharding import copy_into
 
 IMPLS = ("auto", "cuda", "torch", "ref")
 
@@ -44,7 +45,25 @@ def _pick_impl(impl: str, gx) -> str:
 def rglru(log_a, gx, h0=None, *, impl: str = "auto", state_out=None):
     """log_a, gx: (B,T,D).  Returns (h (B,T,D) in gx's dtype, h_T (B,D)
     f32).  ``state_out`` (f32, (B,D)) receives h_T and is returned; it may
-    be ``h0`` itself, which then is updated in place."""
+    be ``h0`` itself, which then is updated in place.
+
+    DTensor inputs run on their local shards (``kernels/_local.py``),
+    batch and channels sharded where they divide (each channel is its own
+    recurrence); a DTensor ``state_out`` receives its shard of h_T."""
+    if _local.has_dtensor(log_a, gx, h0, state_out):
+        x3 = {"batch": 0, "heads": 2}
+        st = {"batch": 0, "heads": 1}
+
+        def run(log_a, gx, h0):
+            return rglru(log_a, gx, h0, impl=impl)
+
+        h, hT = _local.call_local(
+            "rglru", run, (log_a, gx, h0),
+            (x3, x3, st if h0 is not None else None), (x3, st))
+        if state_out is not None:
+            copy_into(state_out, hT)
+            hT = state_out
+        return h, hT
     impl = _pick_impl(impl, gx)
     if impl == "cuda":
         if not _grad.on_card(gx):

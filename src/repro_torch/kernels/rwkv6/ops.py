@@ -22,9 +22,10 @@ sequential update is the one that cannot overflow.
 
 from __future__ import annotations
 
-from repro_torch.kernels import _grad
+from repro_torch.kernels import _grad, _local
 from repro_torch.kernels.rwkv6 import kernel as _kernel
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
+from repro_torch.parallel.sharding import copy_into
 
 IMPLS = ("auto", "cuda", "torch", "ref")
 
@@ -44,7 +45,26 @@ def wkv6(r, k, v, w, u, *, initial_state=None, impl: str = "auto",
     """r,k,v,w: (B,T,H,N); u: (H,N).  Returns (out (B,T,H,N), state
     (B,H,N,N) f32).  ``state_out`` (f32, (B,H,N,N)) receives the final
     state and is returned; it may be ``initial_state`` itself, which then
-    is updated in place."""
+    is updated in place.
+
+    DTensor inputs run on their local shards (``kernels/_local.py``),
+    batch and heads sharded where they divide; a DTensor ``state_out``
+    receives its shard of the state."""
+    if _local.has_dtensor(r, k, v, w, u, initial_state, state_out):
+        x4 = {"batch": 0, "heads": 2}
+        st = {"batch": 0, "heads": 1}
+
+        def run(r, k, v, w, u, s0):
+            return wkv6(r, k, v, w, u, initial_state=s0, impl=impl)
+
+        out, state = _local.call_local(
+            "wkv6", run, (r, k, v, w, u, initial_state),
+            (x4, x4, x4, x4, {"heads": 0},
+             st if initial_state is not None else None), (x4, st))
+        if state_out is not None:
+            copy_into(state_out, state)
+            state = state_out
+        return out, state
     impl = _pick_impl(impl, r)
     if impl == "cuda":
         if not _grad.on_card(r):

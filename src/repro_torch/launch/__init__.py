@@ -8,6 +8,8 @@ serve.py  -- decode_state_graph, plan_decode_arena, pack/unpack/realize
              of the decode state, DecodeServer, run_server, and the CLI
              (``python -m repro_torch.launch.serve``)
 train.py  -- the training CLI (``python -m repro_torch.launch.train``)
+mesh.py   -- the production and host meshes, ``rules_for_mesh``, and a
+             process group of one rank in this process
 
-The mesh and the dry-run wait for ROADMAP A8/A10.
+The dry-run waits for ROADMAP A10.
 """

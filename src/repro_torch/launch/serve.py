@@ -64,9 +64,16 @@ parameters and touches no card, as in ``repro``::
     python -m repro_torch.launch.serve --arch llama3.2-1b --fleet 4 \
         --prefill-shards 1 --rate 2.0
 
-``--mesh`` waits for parallelism (ROADMAP A8).  The other entry points run
-on the card unless the caller passes ``device='cpu'``, and raise without
-CUDA.
+Under sharding ``rules`` (``--mesh single|multi``: the production mesh
+and ``rules_for_mesh``, as in ``repro``; the weights placed by
+``distribute_params``) the server prefills and decodes eagerly on
+DTensors: a request's state is unpacked whole from its arena, placed on
+the mesh at the cache specs for the step (``launch.steps.place_state``),
+and packed back whole (``full_tensor()``), so the arena plans, bytes and
+offsets are those of the unsharded server; the captured steps raise
+under rules (ROADMAP A8), so the server does not build them.  The other
+entry points run on the card unless the caller passes ``device='cpu'``,
+and raise without CUDA.
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ from repro_torch.core.executor import (
     unpack_buffer,
 )
 from repro_torch.core.plancache import default_cache
+from repro_torch.launch.mesh import make_production_mesh, rules_for_mesh
 from repro_torch.launch.steps import (
     BatchedDecodeStep,
     CapturedBatchedDecodeStep,
@@ -95,14 +103,17 @@ from repro_torch.launch.steps import (
     make_captured_decode_step,
     make_decode_step,
     make_prefill_step,
+    place_state,
 )
 from repro_torch.models.params import (
+    distribute_params,
     is_def,
     tree_flatten,
     tree_leaves,
     tree_unflatten,
 )
 from repro_torch.models.zoo import build_model
+from repro_torch.parallel.sharding import full
 from repro_torch.runtime.chaos import ChaosController, TransientExecutorError
 from repro_torch.runtime.fleet import Fleet, PlannerService, bucket_key_for
 from repro_torch.runtime.loadgen import OpenLoopLoadGen, workload_summary
@@ -404,9 +415,10 @@ class DecodeServer:
         self._decode = make_decode_step(model, rules)
         # serial mode on the card decodes through one captured step (its
         # static state at (1, smax)); the CPU has no CUDA graph and decodes
-        # eagerly
+        # eagerly, as does every step under sharding rules
         self._captured = None \
-            if self.device.type != "cuda" or step_mode != "serial" else \
+            if self.device.type != "cuda" or step_mode != "serial" \
+            or rules is not None else \
             make_captured_decode_step(model, params, smax=smax, rules=rules,
                                       device=self.device)
         # vmap mode: the batched step of the bucket in use (captured on
@@ -514,7 +526,8 @@ class DecodeServer:
             self.active.append(req)
             return
         P = len(req.prompt)
-        cache = self.model.init_cache(1, self.smax, self.device)
+        cache = self._placed(self.model.init_cache(1, self.smax,
+                                                   self.device))
         batch = {"tokens": torch.as_tensor(
             np.asarray(req.prompt), dtype=torch.long,
             device=self.device)[None]}
@@ -524,7 +537,7 @@ class DecodeServer:
                                self.device),
                 dtype=torch.float32, device=self.device)
         logits, cache = self._prefill(self.params, cache, batch)
-        req.last_tok = int(torch.argmax(logits, -1)[0])
+        req.last_tok = int(torch.argmax(full(logits), -1)[0])
         req.tokens.append(req.last_tok)
         req.t = P
         req.arena = pack_decode_state(self._plan, cache,
@@ -638,12 +651,16 @@ class DecodeServer:
     def _cache_defs(self):
         return self.model.make_cache_defs(1, self.smax)
 
+    def _placed(self, cache):
+        """A batch-1 state for a step: on the mesh under rules."""
+        return place_state(cache, self._cache_defs(), self.rules)
+
     def _step_serial(self) -> None:
         step = self._captured
         for req in self.active:
             if step is None:
-                cache = unpack_decode_state(self._plan, req.arena,
-                                            self._cache_defs())
+                cache = self._placed(unpack_decode_state(
+                    self._plan, req.arena, self._cache_defs()))
                 tok = torch.full((1, 1), req.last_tok, dtype=torch.long,
                                  device=self.device)
                 logits, cache = self._decode(self.params, cache, tok, req.t)
@@ -651,7 +668,7 @@ class DecodeServer:
                 cache = unpack_decode_state(self._plan, req.arena,
                                             step.cache, out=step.cache)
                 logits = step(req.last_tok, req.t)
-            req.last_tok = int(torch.argmax(logits, -1)[0])
+            req.last_tok = int(torch.argmax(full(logits), -1)[0])
             req.tokens.append(req.last_tok)
             req.t += 1
             req.arena = pack_decode_state(self._plan, cache, arena=req.arena)
@@ -671,7 +688,8 @@ class DecodeServer:
         if step is None or step.bucket != bucket:
             self._batched = step = None
             make = CapturedBatchedDecodeStep \
-                if self.device.type == "cuda" else BatchedDecodeStep
+                if self.device.type == "cuda" and self.rules is None \
+                else BatchedDecodeStep
             step = self._batched = make(
                 self.model, self.params, bucket=bucket, smax=self.smax,
                 rules=self.rules, device=self.device)
@@ -1062,7 +1080,7 @@ def run_fleet(model, arrivals, *, buckets: Sequence[int],
     return metrics
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b",
                     choices=configs.ARCH_NAMES)
@@ -1095,7 +1113,12 @@ def main() -> None:
     ap.add_argument("--rate", type=float, default=2.0,
                     help="open-loop Poisson arrival rate, requests/tick "
                          "(fleet mode)")
-    args = ap.parse_args()
+    ap.add_argument("--mesh", choices=("none", "single", "multi"),
+                    default="none",
+                    help="serve under sharding rules on the production "
+                         "mesh (16x16, or 2x16x16 across pods); needs a "
+                         "process group of its 256 (512) ranks")
+    args = ap.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     model = build_model(cfg)
@@ -1139,15 +1162,22 @@ def main() -> None:
         return
 
     dev = resolve_device(args.device)
+    mesh = rules = None
+    if args.mesh != "none":
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=dev)
+        rules = rules_for_mesh(mesh)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen, dev)
+    if rules is not None:
+        params = distribute_params(params, model.defs, rules, mesh)
     reqs = synth_requests(args.requests, args.prompt_len, args.gen,
                           cfg.vocab_size, args.seed + 1,
                           latency_frac=args.latency_frac)
     metrics = run_server(model, params, reqs, smax=smax,
                          budget_bytes=budget, step_mode=args.step_mode,
-                         pooled=not args.no_pool, warm=args.warm,
-                         device=dev)
+                         pooled=not args.no_pool, rules=rules,
+                         warm=args.warm, device=dev)
     print(f"[serve] {metrics['n_served']}/{metrics['n_requests']} requests "
           f"({metrics['n_rejected']} rejected), {metrics['n_tokens']} tokens "
           f"in {metrics['wall_s']:.2f} s "

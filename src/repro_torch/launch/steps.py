@@ -16,8 +16,19 @@
 Their default is ``impl="auto"``: the CUDA flash-attention kernels for
 tensors on the card (forward and, in the train step, the backward), the
 plain PyTorch versions for tensors on the CPU (``repro``'s steps default to
-its ``"xla"`` version instead).  The input specs of the dry-run wait for
-ROADMAP A10, sharding ``rules`` for A8.
+its ``"xla"`` version instead).
+
+Sharding ``rules`` (``ShardingRules`` on a ``DeviceMesh``, e.g.
+``launch.mesh.rules_for_mesh``) run the train, prefill and decode steps on
+DTensors: parameters and state placed by ``models.params.
+distribute_params``, activations pinned by ``parallel.sharding.
+shard_act``, kernels on local shards (``kernels/_local.py``).  Under rules
+a step runs eagerly: the captured steps raise (ROADMAP A8).
+
+The abstract input specs -- ``batch_specs``, ``state_specs``,
+``cache_specs``, ``train_input_specs``, ``serve_input_specs`` and
+``out_shardings_for`` -- are ``repro``'s: ``AbstractLeaf`` trees (shape,
+dtype, sharding; no storage) on a mesh, a live one or a ``MeshShape``.
 """
 
 from __future__ import annotations
@@ -31,6 +42,9 @@ from repro_torch.core.capture import CapturedCall
 from repro_torch.core.executor import resolve_device
 from repro_torch.kernels.flash_attention.kernel import check_pairs
 from repro_torch.models.params import (
+    AbstractLeaf,
+    abstract_params,
+    distribute_params,
     is_def,
     tree_flatten,
     tree_leaves,
@@ -41,6 +55,13 @@ from repro_torch.models.params import (
 from repro_torch.models.zoo import Model
 from repro_torch.optim import OPTIMIZERS
 from repro_torch.optim.schedule import cosine_warmup
+from repro_torch.parallel.sharding import (
+    NamedSharding,
+    act_spec,
+    check_rules,
+    full,
+    sharded,
+)
 
 
 def make_train_step(model: Model, opt, rules=None, *, impl: str = "auto",
@@ -59,33 +80,41 @@ def make_train_step(model: Model, opt, rules=None, *, impl: str = "auto",
     parameter leaves are made to require a gradient.  ``metrics`` holds
     ``loss``, ``lm_loss`` (and the model's other metrics), ``grad_norm``
     and ``lr``, each a 0-d tensor on the state's device: the step reads
-    nothing back to the host.  Sharding ``rules`` wait for ROADMAP A8."""
-    if rules is not None:
-        raise NotImplementedError(
-            "sharding rules wait for parallelism (ROADMAP A8)")
+    nothing back to the host.
+
+    Under ``rules`` the state is DTensors (``distribute_params`` of
+    ``model.defs`` and ``opt.state_defs``), the gradients come out with
+    the parameters' placements, each leaf's squared sum is a ``Partial``
+    sum over its shards and the norm their sum in leaf order, reduced
+    across the mesh; the metrics are returned whole (plain tensors).
+    Rules without a mesh raise here."""
+    check_rules(rules)
 
     def train_step(state, batch):
         params = state["params"]
         leaves, treedef = tree_flatten(params)
         for p in leaves:
             p.requires_grad_(True)
-        with torch.enable_grad():
-            loss, metrics = model.loss_fn(params, batch, impl=impl)
+        with torch.enable_grad(), sharded(rules):
+            loss, metrics = model.loss_fn(params, batch, impl=impl,
+                                          rules=rules)
             grads = torch.autograd.grad(loss, leaves)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        # global-norm clip
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in grads))
-        scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
-        for g in grads:                  # autograd's own: scaled in place
-            g.mul_(scale.to(g.dtype))
-        lr = cosine_warmup(state["opt"]["step"], peak_lr=peak_lr,
-                           warmup=warmup, total=total_steps)
-        new_params, new_opt = opt.update(
-            tree_unflatten(treedef, grads), state["opt"], params,
-            lr_scale=lr / opt.lr)
-        metrics.update(grad_norm=gnorm, lr=lr)
+        with sharded(rules):
+            metrics = {k: full(v.detach()) for k, v in metrics.items()}
+            # global-norm clip
+            gnorm = torch.sqrt(sum(
+                torch.sum(torch.square(g.to(torch.float32)))
+                for g in grads))
+            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
+                                max=1.0)
+            for g in grads:              # autograd's own: scaled in place
+                g.mul_(scale.to(g.dtype))
+            lr = cosine_warmup(state["opt"]["step"], peak_lr=peak_lr,
+                               warmup=warmup, total=total_steps)
+            new_params, new_opt = opt.update(
+                tree_unflatten(treedef, grads), state["opt"], params,
+                lr_scale=lr / opt.lr)
+        metrics.update(grad_norm=full(gnorm), lr=full(lr))
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step
@@ -110,6 +139,15 @@ def make_decode_step(model: Model, rules=None, *, impl: str = "auto"):
     return decode_step
 
 
+def _no_capture_under(rules) -> None:
+    if rules is not None:
+        raise NotImplementedError(
+            "a captured decode step under sharding rules is not ported "
+            "(ROADMAP A8): DTensor's redistributions are collectives and "
+            "host decisions the graph would freeze; decode eagerly under "
+            "rules")
+
+
 class CapturedDecodeStep:
     """One batch-1 decode step captured in a CUDA graph that serves every
     position: the counterpart of ``repro``'s ``jax.jit(make_decode_step(
@@ -128,11 +166,13 @@ class CapturedDecodeStep:
     The first call runs the step eagerly (the capture's warm-up, which is
     that call's step) and captures it; every later call is one replay
     (:class:`~repro_torch.core.capture.CapturedCall`, which keeps the
-    kernels' launch counts true).  The card only: raises on the CPU.
+    kernels' launch counts true).  The card only: raises on the CPU, and
+    under sharding ``rules`` (ROADMAP A8).
     """
 
     def __init__(self, model: Model, params, *, smax: int, rules=None,
                  impl: str = "auto", device=None):
+        _no_capture_under(rules)
         self.device = resolve_device(device)
         if self.device.type != "cuda":
             raise ValueError(f"a captured decode step needs a CUDA device, "
@@ -176,15 +216,31 @@ def batch_axes(model: Model, smax: int) -> list[int]:
                                  is_leaf=is_def)]
 
 
-def init_batched_cache(model: Model, bucket: int, smax: int, device=None):
-    """The zeroed decode state of ``bucket`` rows: ``model.init_cache(
-    bucket, smax)``, with each 0-d leaf a ``(bucket,)`` one, a value per
-    row (``repro``'s ``jax.vmap`` of the batch-1 step over requests maps
-    the 0-d ``enc_len`` to one per row)."""
-    return zeros_from_defs(tree_map(
+def batched_cache_defs(model: Model, bucket: int, smax: int):
+    """The decode-state definitions of ``bucket`` rows: ``model.
+    make_cache_defs(bucket, smax)``, with each 0-d leaf a ``(bucket,)``
+    one, a value per row (``repro``'s ``jax.vmap`` of the batch-1 step
+    over requests maps the 0-d ``enc_len`` to one per row)."""
+    return tree_map(
         lambda d: d if d.shape else dataclasses.replace(
             d, shape=(bucket,), logical=("batch",)),
-        model.make_cache_defs(bucket, smax), is_leaf=is_def), device)
+        model.make_cache_defs(bucket, smax), is_leaf=is_def)
+
+
+def init_batched_cache(model: Model, bucket: int, smax: int, device=None):
+    """The zeroed decode state of ``bucket`` rows
+    (:func:`batched_cache_defs`)."""
+    return zeros_from_defs(batched_cache_defs(model, bucket, smax), device)
+
+
+def place_state(tree, defs, rules):
+    """A decode state ``tree`` (laid out as ``defs``) for a step under
+    ``rules``: DTensors at the cache specs (``distribute_params``; each
+    rank keeps its shard of the leaf it holds), or ``tree`` itself without
+    rules."""
+    if rules is None:
+        return tree
+    return distribute_params(tree, defs, rules, rules.mesh)
 
 
 class BatchedDecodeStep:
@@ -197,7 +253,9 @@ class BatchedDecodeStep:
     :func:`batch_axes`), updated in place by every step.
     ``step(tokens, ts)`` decodes ``tokens[b]`` at position
     ``ts[b]`` against row ``b`` of :attr:`cache` and returns the ``(bucket,
-    vocab)`` f32 logits and their ``(bucket,)`` argmax.
+    vocab)`` f32 logits and their ``(bucket,)`` argmax.  Under ``rules``
+    :attr:`cache` stays a tree of whole tensors, placed on the mesh for
+    each step (:func:`place_state`) and written back after it.
     """
 
     def __init__(self, model: Model, params, *, bucket: int, smax: int,
@@ -206,10 +264,20 @@ class BatchedDecodeStep:
         self.bucket = bucket
         self.params = params
         self.cache = init_batched_cache(model, bucket, smax, self.device)
+        self.rules = rules
+        self._defs = batched_cache_defs(model, bucket, smax)
         self._step = make_decode_step(model, rules, impl=impl)
 
     def _run(self, tokens, t):
-        logits = self._step(self.params, self.cache, tokens, t)[0]
+        if self.rules is None:
+            logits = self._step(self.params, self.cache, tokens, t)[0]
+            return logits, torch.argmax(logits, -1)
+        # under rules the state is placed for the step and written back
+        # whole: the server copies rows in and out of the plain tree
+        cache = place_state(self.cache, self._defs, self.rules)
+        logits = full(self._step(self.params, cache, tokens, t)[0])
+        for whole, part in zip(tree_leaves(self.cache), tree_leaves(cache)):
+            whole.copy_(full(part))
         return logits, torch.argmax(logits, -1)
 
     def _check(self, tokens, ts) -> None:
@@ -244,6 +312,7 @@ class CapturedBatchedDecodeStep(BatchedDecodeStep):
 
     def __init__(self, model: Model, params, *, bucket: int, smax: int,
                  rules=None, impl: str = "auto", device=None):
+        _no_capture_under(rules)
         device = resolve_device(device)
         if device.type != "cuda":
             raise ValueError(f"a captured decode step needs a CUDA device, "
@@ -284,3 +353,67 @@ def make_captured_decode_step(model: Model, params, *, smax: int,
     card): see :class:`CapturedDecodeStep`."""
     return CapturedDecodeStep(model, params, smax=smax, rules=rules,
                               impl=impl, device=device)
+
+
+# --------------------------------------------------------------------- specs
+
+def _sds(shape, dtype, mesh, spec) -> AbstractLeaf:
+    return AbstractLeaf(tuple(shape), dtype, NamedSharding(mesh, spec))
+
+
+def batch_specs(cfg: ArchConfig, shape, mesh, rules, *,
+                seq_len: int | None = None):
+    """Abstract train/prefill batch: tokens (+ frames for enc-dec)."""
+    S = seq_len if seq_len is not None else shape.seq_len
+    Bz = shape.global_batch
+    bspec = act_spec(rules, "bn")
+    out = {}
+    if cfg.is_encoder_decoder:
+        Se = Sd = S // 2
+        out["tokens"] = _sds((Bz, Sd), torch.int32, mesh, bspec)
+        out["frames"] = _sds((Bz, Se, cfg.d_model), torch.float32, mesh,
+                             act_spec(rules, "bnn"))
+    else:
+        out["tokens"] = _sds((Bz, S), torch.int32, mesh, bspec)
+    return out
+
+
+def state_specs(model: Model, opt, mesh, rules):
+    """Abstract ``{params, opt}`` train state."""
+    return {
+        "params": abstract_params(model.defs, rules, mesh),
+        "opt": abstract_params(opt.state_defs(model.defs), rules, mesh),
+    }
+
+
+def cache_specs(model: Model, mesh, rules, bsz: int, smax: int):
+    return abstract_params(model.make_cache_defs(bsz, smax), rules, mesh)
+
+
+def train_input_specs(model: Model, opt, shape, mesh, rules):
+    return (
+        state_specs(model, opt, mesh, rules),
+        batch_specs(model.cfg, shape, mesh, rules),
+    )
+
+
+def serve_input_specs(model: Model, shape, mesh, rules, *, kind: str):
+    """kind: 'prefill' (full-seq forward filling the cache) or 'decode'
+    (one token against a seq_len-deep cache)."""
+    cfg = model.cfg
+    Bz, S = shape.global_batch, shape.seq_len
+    params = abstract_params(model.defs, rules, mesh)
+    cache = cache_specs(model, mesh, rules, Bz, S)
+    bspec = act_spec(rules, "bn")
+    if kind == "prefill":
+        batch = batch_specs(cfg, shape, mesh, rules)
+        return params, cache, batch
+    tokens = _sds((Bz, 1), torch.int32, mesh, bspec)
+    t = AbstractLeaf((), torch.int32, None)
+    return params, cache, tokens, t
+
+
+def out_shardings_for(tree_specs):
+    """The :class:`NamedSharding` of every leaf of an abstract tree (None
+    where it has none)."""
+    return tree_map(lambda s: getattr(s, "sharding", None), tree_specs)

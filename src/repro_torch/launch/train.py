@@ -17,7 +17,11 @@ first step raises.  Rematerialization follows the config's ``remat``, as in
 ``repro`` (``"block"`` in every config: each block's forward runs again in
 the backward, so the attention's forward kernel launches twice a layer a
 step; ``models/zoo.py:_maybe_remat``).  Weights are random, drawn from ``--seed``.
-``--mesh`` takes ``none`` only: sharding waits for ROADMAP A8.
+``--mesh single|multi`` trains on the production mesh (16 x 16, or 2 x 16 x
+16 across pods; ``launch/mesh.py``) with ``rules_for_mesh``'s rules, the
+state placed by ``distribute_params``: it needs a process group of those
+256 (512) ranks and raises a ``ValueError`` naming that world size
+otherwise, as ``repro``'s ``jax.make_mesh`` fails without the devices.
 ``--device`` is ``cuda`` unless ``cpu`` is asked for; without a card it
 raises.
 """
@@ -35,8 +39,9 @@ import repro_torch.configs as configs
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.core.executor import resolve_device
 from repro_torch.data import DataPipeline
+from repro_torch.launch.mesh import make_production_mesh, rules_for_mesh
 from repro_torch.launch.steps import make_optimizer, make_train_step
-from repro_torch.models.params import tree_leaves
+from repro_torch.models.params import distribute_params, tree_leaves
 from repro_torch.models.zoo import build_model
 from repro_torch.runtime import FaultTolerantLoop
 
@@ -75,15 +80,19 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharding waits for ROADMAP A8")
     device = resolve_device(args.device)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     model = build_model(cfg)
     opt = make_optimizer(cfg, lr=args.lr)
-    step_fn = make_train_step(model, opt, None, peak_lr=args.lr,
+
+    mesh = rules = None
+    if args.mesh != "none":
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=device)
+        rules = rules_for_mesh(mesh)
+
+    step_fn = make_train_step(model, opt, rules, peak_lr=args.lr,
                               warmup=max(args.steps // 20, 10),
                               total_steps=args.steps)
     pipe = DataPipeline(cfg=cfg, seq_len=args.seq, global_batch=args.batch,
@@ -95,6 +104,12 @@ def main(argv=None) -> dict:
     log.info("arch=%s params=%.2fM device=%s", cfg.name, n_params / 1e6,
              device)
     state = {"params": params, "opt": opt.init(params)}
+    if rules is not None:
+        state = {"params": distribute_params(state["params"], model.defs,
+                                             rules, mesh),
+                 "opt": distribute_params(state["opt"],
+                                          opt.state_defs(model.defs),
+                                          rules, mesh)}
 
     ckpt = CheckpointManager(args.ckpt_dir, keep=3)
     start = latest_step(args.ckpt_dir) or 0

@@ -38,7 +38,9 @@ from repro_torch.models.layers import (
     norm_defs,
     rms_norm,
 )
+from repro_torch.models.moe_ep import moe_apply_ep
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.sharding import copy_into
 
 f32 = torch.float32
 
@@ -59,7 +61,9 @@ def transformer_block_apply(p, x, ctx: Ctx, cache=None, *, moe: bool = False,
     for an MoE block with a ``cache``: a serving step, which reads no loss,
     skips its launches).  At a position per batch row (the batched decode
     step) the MoE dispatches each row on its own
-    (``moe_apply(per_row=True)``)."""
+    (``moe_apply(per_row=True)``).  With ``cfg.moe_impl == "ep_shardmap"``
+    and rules with a mesh the MoE is the expert-parallel
+    ``moe_ep.moe_apply_ep``, as in ``repro``."""
     h = rms_norm(x, p["ln1"])
     if ctx.cfg.mla is not None:
         a, new_cache = mla_apply(p["attn"], h, ctx, cache)
@@ -71,8 +75,13 @@ def transformer_block_apply(p, x, ctx: Ctx, cache=None, *, moe: bool = False,
     if not moe:
         return x + mlp_apply(p["mlp"], h, ctx.cfg), new_cache, 0.0
     per_row = torch.is_tensor(ctx.cache_len) and ctx.cache_len.dim() == 1
-    m, aux = moe_apply(p["mlp"], h, ctx.cfg, per_row=per_row,
-                       with_aux=cache is None)
+    if ctx.cfg.moe_impl == "ep_shardmap" and ctx.rules is not None \
+            and getattr(ctx.rules, "mesh", None) is not None:
+        m, aux = moe_apply_ep(p["mlp"], h, ctx.cfg, ctx.rules,
+                              per_row=per_row, with_aux=cache is None)
+    else:
+        m, aux = moe_apply(p["mlp"], h, ctx.cfg, rules=ctx.rules,
+                           per_row=per_row, with_aux=cache is None)
     return x + m, new_cache, aux
 
 
@@ -175,8 +184,8 @@ def rwkv6_block_apply(p, x, ctx: Ctx, cache=None):
     x = x + out
 
     if cache is not None:
-        cache["tm_x"].copy_(h[:, -1])
-        cache["cm_x"].copy_(h2[:, -1])
+        copy_into(cache["tm_x"], h[:, -1])
+        copy_into(cache["cm_x"], h2[:, -1])
     return x, cache, 0.0
 
 
@@ -241,7 +250,7 @@ def griffin_rec_block_apply(p, x, ctx: Ctx, cache=None):
     x = x + mlp_apply(p["mlp"], h2, cfg)
 
     if cache is not None:
-        cache["conv"].copy_(upad[:, -(_CONV_W - 1):, :])
+        copy_into(cache["conv"], upad[:, -(_CONV_W - 1):, :])
     return x, cache, 0.0
 
 

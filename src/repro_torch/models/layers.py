@@ -31,10 +31,13 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import _local
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel.sharding import shard_act, write_rows
 
 f32 = torch.float32
 
@@ -51,7 +54,7 @@ class Ctx:
                                       # (B,) one (a position per row)
     rows: Any = None                  # (B, S) batch row of each position,
                                       # with a (B,) cache_len
-    rules: Any = None                 # sharding rules (ROADMAP A8; unused)
+    rules: Any = None                 # ShardingRules for act constraints
 
 
 # ---------------------------------------------------------------- norms/rope
@@ -154,30 +157,25 @@ def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
 
     S = x.shape[1]
     if cache is not None and not ctx.decode:
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        if isinstance(cache["k"], DTensor):
+            write_rows(cache["k"], k, start=0)
+            write_rows(cache["v"], v, start=0)
+        else:
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
         q_start, kv_len, ks, vs = 0, None, k, v
     elif cache is not None and torch.is_tensor(ctx.cache_len):
         t = ctx.cache_len
-        if t.dim() == 0:
-            idx = ctx.positions[0]
-            cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
-            cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
-        else:
-            idx = (ctx.rows, ctx.positions)
-            cache["k"].index_put_(idx, k.to(cache["k"].dtype))
-            cache["v"].index_put_(idx, v.to(cache["v"].dtype))
+        _write_at(cache["k"], k, ctx)
+        _write_at(cache["v"], v, ctx)
         # kv_len = t + S is what the causal mask already keeps (the last
         # query sits at t + S - 1), and the kernel derives it on the
         # device: a tensor t + S would cost a launch a layer
         q_start, kv_len, ks, vs = t, None, cache["k"], cache["v"]
     elif cache is not None:
         t = int(ctx.cache_len)
-        if t + S > cache["k"].shape[1]:
-            raise ValueError(f"decode at position {t} of {S} tokens "
-                             f"overruns a cache of {cache['k'].shape[1]}")
-        cache["k"][:, t:t + S] = k
-        cache["v"][:, t:t + S] = v
+        _write_at(cache["k"], k, ctx)
+        _write_at(cache["v"], v, ctx)
         q_start, kv_len, ks, vs = t, t + S, cache["k"], cache["v"]
     else:
         q_start, kv_len, ks, vs = 0, kv_src_len, k, v
@@ -292,6 +290,70 @@ def moe_dispatch(probs, cfg: ArchConfig, capacity_factor: float):
             *moe_slots(expert_idx, cfg, capacity_factor))
 
 
+def moe_route_dispatch(xt, router, cfg: ArchConfig, capacity_factor: float,
+                       with_aux: bool = True):
+    """Router, top-k dispatch and balance loss of ``xt`` ``(G, N, D)``, G
+    groups of N tokens each with its own capacity: returns ``(buf, gates,
+    dest_nk, aux)``, ``buf`` ``(G, E, cap, D)`` the experts' input slots
+    (zeros where unused), ``gates`` ``(G, N, K)`` each token's normalised
+    top-K gates and ``dest_nk`` ``(G, N * K)`` each (token, k) slot's row
+    of the ``(E * cap + 1)`` rows of expert outputs (``E * cap``, the drop
+    row, where its expert was full); ``aux`` 0.0 unless ``with_aux``."""
+    G, N, D = xt.shape
+    E = cfg.n_experts
+    logits = (xt.to(f32) @ router).to(f32)                        # (G, N, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx, dest, keep, tok_of_slot, sort_idx, cap = \
+        moe_dispatch(probs, cfg, capacity_factor)
+
+    aux = 0.0
+    if with_aux:
+        # load-balance aux loss (Switch): E * sum_e f_e * p_e, per group
+        me = (expert_idx[..., 0, None] == torch.arange(
+            E, device=xt.device)).to(f32).mean(1)
+        ce = probs.mean(1)
+        aux = (E * (me * ce).sum(-1)).mean()
+
+    # dispatch: slot i of group g lands in row dest[g, i] of the group's
+    # buffer; the drop row E * cap takes every dropped slot's zeros
+    gathered = torch.where(keep[..., None],
+                           torch.gather(xt, 1, tok_of_slot[..., None]
+                                        .expand(-1, -1, D)),
+                           torch.zeros((), dtype=xt.dtype, device=xt.device))
+    rows = dest + (E * cap + 1) * torch.arange(
+        G, device=xt.device)[:, None]
+    buf = torch.zeros((G * (E * cap + 1), D), dtype=xt.dtype,
+                      device=xt.device)
+    buf.index_put_((rows.reshape(-1),), gathered.reshape(-1, D))
+    buf = buf.view(G, E * cap + 1, D)[:, :-1].reshape(G, E, cap, D)
+    dest_nk = torch.empty_like(dest).scatter_(1, sort_idx, dest)  # (G, N*K)
+    return buf, gate_vals, dest_nk, aux
+
+
+def moe_experts(buf, p, rules=None):
+    """The experts' SwiGLU over their slots: ``buf`` ``(G, E, cap, D)`` with
+    ``p``'s ``(E, ...)`` weights -> ``(G, E, cap, D)``; with ``rules`` the
+    hidden slots are pinned as ``repro`` pins them."""
+    g = torch.einsum("xecd,edf->xecf", buf, p["wi_gate"])
+    h = F.silu(g) * torch.einsum("xecd,edf->xecf", buf, p["wi_up"])
+    if rules is not None:
+        h = shard_act(h, rules, "nxbn")
+    return torch.einsum("xecf,efd->xecd", h, p["wo"])
+
+
+def moe_combine(yb, gates, dest_nk, cfg: ArchConfig):
+    """Each (token, k) slot reads its expert's row of ``yb`` ``(G, E * cap,
+    D)`` (the zero row where it was dropped), weighted by its gate, summed
+    over k in one fixed-order reduction -> ``(G, N, D)``."""
+    G, _, D = yb.shape
+    yb = torch.cat([yb, torch.zeros((G, 1, D), dtype=yb.dtype,
+                                    device=yb.device)], 1)
+    y_nk = torch.gather(yb, 1, dest_nk[..., None].expand(-1, -1, D))
+    K = cfg.n_experts_per_tok
+    y_nk = y_nk.view(G, -1, K, D) * gates[..., None].to(yb.dtype)
+    return y_nk.sum(2)
+
+
 def moe_apply(p, x, cfg: ArchConfig, capacity_factor: float | None = None,
               rules=None, *, per_row: bool = False, with_aux: bool = True):
     """Sort-based top-k dispatch with per-expert capacity (GShard-style
@@ -311,57 +373,46 @@ def moe_apply(p, x, cfg: ArchConfig, capacity_factor: float | None = None,
     call), so that rows, padding rows included, never compete for slots.
     ``aux`` is then the mean of the rows' aux losses.  ``with_aux=False``
     returns 0.0 for it and launches none of its ops (a serving step; under
-    ``jax.jit`` ``repro``'s unused aux is dead code too)."""
-    if rules is not None:
-        raise NotImplementedError(
-            "sharding rules wait for parallelism (ROADMAP A8)")
+    ``jax.jit`` ``repro``'s unused aux is dead code too).
+
+    Under ``rules`` the routing, dispatch and combine (index arithmetic)
+    run on whole tensors through ``local_map``, every rank the same, and
+    the expert products on DTensors; ``cfg.moe_dispatch_sharding`` pins
+    the tokens and the dispatch buffers where ``repro`` pins them (tokens
+    and capacity over the batch axes, experts over the expert axis)."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
+    constrain = cfg.moe_dispatch_sharding and rules is not None
     B, S, D = x.shape
     E = cfg.n_experts
     Gp = B if per_row else 1
     N = B * S // Gp
     xt = x.reshape(Gp, N, D)
+    if constrain:
+        xt = shard_act(xt, rules, "nbn")
 
-    logits = (xt.to(f32) @ p["router"]).to(f32)                   # (G, N, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx, dest, keep, tok_of_slot, sort_idx, cap = \
-        moe_dispatch(probs, cfg, capacity_factor)
-
-    aux = 0.0
-    if with_aux:
-        # load-balance aux loss (Switch): E * sum_e f_e * p_e, per group
-        me = (expert_idx[..., 0, None] == torch.arange(
-            E, device=x.device)).to(f32).mean(1)
-        ce = probs.mean(1)
-        aux = (E * (me * ce).sum(-1)).mean()
-
-    # dispatch: slot i of group g lands in row dest[g, i] of the group's
-    # buffer; the drop row E * cap takes every dropped slot's zeros
-    gathered = torch.where(keep[..., None],
-                           torch.gather(xt, 1, tok_of_slot[..., None]
-                                        .expand(-1, -1, D)),
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-    rows = dest + (E * cap + 1) * torch.arange(
-        Gp, device=x.device)[:, None]
-    buf = torch.zeros((Gp * (E * cap + 1), D), dtype=x.dtype,
-                      device=x.device)
-    buf.index_put_((rows.reshape(-1),), gathered.reshape(-1, D))
-    buf = buf.view(Gp, E * cap + 1, D)[:, :-1].reshape(Gp, E, cap, D)
-
-    g = torch.einsum("xecd,edf->xecf", buf, p["wi_gate"])
-    h = F.silu(g) * torch.einsum("xecd,edf->xecf", buf, p["wi_up"])
-    yb = torch.einsum("xecf,efd->xecd", h, p["wo"]).reshape(Gp, E * cap, D)
-
-    # combine: each (token, k) slot reads its expert row (the zero row
-    # where it was dropped), weighted by its gate, summed over k
-    yb = torch.cat([yb, torch.zeros((Gp, 1, D), dtype=x.dtype,
-                                    device=x.device)], 1)
-    dest_nk = torch.empty_like(dest).scatter_(1, sort_idx, dest)  # (G, N*K)
-    y_nk = torch.gather(yb, 1, dest_nk[..., None].expand(-1, -1, D))
-    K = cfg.n_experts_per_tok
-    y_nk = y_nk.view(Gp, N, K, D) * gate_vals[..., None].to(x.dtype)
-    y = y_nk.sum(2).reshape(B * S, D)
+    if rules is None:
+        buf, gates, dest_nk, aux = moe_route_dispatch(
+            xt, p["router"], cfg, capacity_factor, with_aux)
+    else:
+        buf, gates, dest_nk, aux = _local.call_local(
+            "moe_dispatch", lambda xt, r: moe_route_dispatch(
+                xt, r, cfg, capacity_factor, with_aux),
+            (xt, p["router"]), ({}, {}),
+            ({}, {}, {}, {} if with_aux else None))
+    if constrain:
+        buf = shard_act(buf, rules, "nxbn")   # experts x EP, capacity x DP
+    yb = moe_experts(buf, p, rules if constrain else None).reshape(
+        Gp, -1, D)
+    if constrain:
+        yb = shard_act(yb, rules, "nbn")
+    if rules is None:
+        y = moe_combine(yb, gates, dest_nk, cfg)
+    else:
+        y = _local.call_local(
+            "moe_combine", lambda yb, g, d: moe_combine(yb, g, d, cfg),
+            (yb, gates, dest_nk), ({}, {}, {}), {})
+    y = y.reshape(B * S, D)
     if cfg.n_shared_experts:
         y = y + mlp_apply(p["shared"], x, cfg).reshape(B * S, D)
     return y.reshape(B, S, D), aux
@@ -392,17 +443,27 @@ def _write_at(buf, new, ctx: Ctx):
     """Write ``new`` ``(B, S, ...)`` into ``buf`` ``(B, Smax, ...)`` at the
     decode step's positions, in place: ``t + arange(S)`` for an int ``t``
     (checked against the buffer), one ``index_copy_`` for a 0-d tensor, an
-    ``index_put_`` at ``(row, position)`` for a ``(B,)`` one."""
+    ``index_put_`` at ``(row, position)`` for a ``(B,)`` one; into each
+    rank's shard of a DTensor ``buf`` (``parallel.sharding.write_rows``)."""
     t, S = ctx.cache_len, new.shape[1]
     new = new.to(buf.dtype)
+    dt = isinstance(buf, DTensor)
     if not torch.is_tensor(t):
         t = int(t)
         if t + S > buf.shape[1]:
             raise ValueError(f"decode at position {t} of {S} tokens "
                              f"overruns a cache of {buf.shape[1]}")
-        buf[:, t:t + S] = new
+        if dt:
+            write_rows(buf, new, start=t)
+        else:
+            buf[:, t:t + S] = new
     elif t.dim() == 0:
-        buf.index_copy_(1, ctx.positions[0], new)
+        if dt:
+            write_rows(buf, new, positions=ctx.positions[0])
+        else:
+            buf.index_copy_(1, ctx.positions[0], new)
+    elif dt:
+        write_rows(buf, new, rows=ctx.rows, positions=ctx.positions)
     else:
         buf.index_put_((ctx.rows, ctx.positions), new)
 
@@ -437,8 +498,12 @@ def mla_apply(p, x, ctx: Ctx, cache: dict | None = None):
                         ctx.positions, cfg.rope_theta)[:, :, 0]  # (B,S,rope)
 
     if cache is not None and not ctx.decode:
-        cache["ckv"][:, :S] = c_kv
-        cache["krope"][:, :S] = k_rope
+        if isinstance(cache["ckv"], DTensor):
+            write_rows(cache["ckv"], c_kv, start=0)
+            write_rows(cache["krope"], k_rope, start=0)
+        else:
+            cache["ckv"][:, :S] = c_kv
+            cache["krope"][:, :S] = k_rope
     if cache is None or not ctx.decode:
         # expanded attention (training / prefill)
         k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])

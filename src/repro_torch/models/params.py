@@ -13,8 +13,15 @@ definition tree:
                              and, over ``opt.state_defs``, its optimizer
                              state).
 
-``param_pspecs`` and ``abstract_params`` wait for the sharding port
-(ROADMAP A8).
+  * ``param_pspecs``      -- the :class:`~repro_torch.parallel.sharding.P`
+                             of every leaf under ``ShardingRules`` on a
+                             mesh (a ``DeviceMesh``, or a ``MeshShape`` of
+                             names and sizes), ``repro``'s rule;
+  * ``abstract_params``   -- :class:`AbstractLeaf` (shape, dtype and
+                             sharding; nothing allocated): the dry-run's
+                             stand-ins;
+  * ``distribute_params`` -- a full tree placed on a live mesh as DTensors
+                             at those specs, leaf by leaf.
 
 The tree helpers flatten dicts in **sorted-key order, as ``jax.tree``
 does**: ``launch/serve.py:decode_state_graph`` numbers the decode state's
@@ -30,6 +37,15 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import (
+    NamedSharding,
+    P,
+    divisible_axes,
+    place,
+    placements,
+    spec_entry,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,3 +217,102 @@ def stack_defs(defs, n: int):
 
 def leaf_count(defs) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(defs, is_leaf=is_def))
+
+
+# ------------------------------------------------------------ sharding
+
+def is_spec(x) -> bool:
+    """A leaf of a :func:`param_pspecs` tree (a ``P`` is a tuple)."""
+    return isinstance(x, P)
+
+
+def _mesh_sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))) if mesh \
+        else {}
+
+
+def param_pspecs(defs, rules, mesh=None):
+    """Resolve logical axes -> :class:`P` for every leaf of ``defs``:
+    ``repro``'s ``param_pspecs``.
+
+    When ``mesh`` is given (a ``DeviceMesh`` or a ``MeshShape``), any mesh
+    axis whose size does not evenly divide the tensor dimension is dropped
+    (replicated) -- e.g. 8 GQA KV heads under 16-way TP stay replicated
+    rather than failing to shard.  Two passes: ``sequence`` only takes the
+    mesh axes the other dimensions leave free, so a cache whose KV heads
+    do not divide the ``model`` axis shards its sequence over it instead.
+    Trailing unsharded dimensions are dropped from the spec.
+    """
+    sizes = _mesh_sizes(mesh)
+
+    def spec(d: ParamDef) -> P:
+        axes: list = [None] * len(d.shape)
+        used: set = set()
+
+        def claim(i: int, dim: int, name) -> None:
+            mesh_axis = rules.resolve(name)
+            if mesh_axis is None:
+                return
+            flat = (mesh_axis,) if isinstance(mesh_axis, str) \
+                else tuple(mesh_axis)
+            free = divisible_axes(flat, dim, sizes, used)
+            used.update(free)
+            axes[i] = spec_entry(free)
+
+        for i, (dim, name) in enumerate(zip(d.shape, d.logical)):
+            if name != "sequence":
+                claim(i, dim, name)
+        for i, (dim, name) in enumerate(zip(d.shape, d.logical)):
+            if name == "sequence":
+                claim(i, dim, name)
+        while axes and axes[-1] is None:
+            axes.pop()
+        return P(*axes)
+
+    return tree_map(spec, defs, is_leaf=is_def)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractLeaf:
+    """A leaf's shape, dtype and sharding, with no storage: the counterpart
+    of ``jax.ShapeDtypeStruct(shape, dtype, sharding=NamedSharding(...))``.
+    It needs no live mesh."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    sharding: NamedSharding
+
+
+def is_abstract(x) -> bool:
+    return isinstance(x, AbstractLeaf)
+
+
+def abstract_params(defs, rules, mesh):
+    """An :class:`AbstractLeaf` for every leaf of ``defs``: shape and
+    dtype of its definition, spec by :func:`param_pspecs` on ``mesh``."""
+    specs = param_pspecs(defs, rules, mesh)
+    d_leaves, treedef = tree_flatten(defs, is_leaf=is_def)
+    return tree_unflatten(treedef, [
+        AbstractLeaf(tuple(d.shape), d.dtype, NamedSharding(mesh, s))
+        for d, s in zip(d_leaves, tree_leaves(specs, is_leaf=is_spec))])
+
+
+def distribute_params(tree, defs, rules, mesh):
+    """Place the full tree ``tree`` (laid out as ``defs``) on ``mesh`` as
+    DTensors at :func:`param_pspecs`' specs, one leaf at a time, each
+    replacing its full leaf rather than standing beside it.  Every rank
+    holds the same full leaf (built from the same seed, or by
+    ``params_from_numpy``) and keeps its own shard of it
+    (``parallel.sharding.place``), so the sharded weights equal the
+    unsharded ones bit for bit.  Each leaf must lie on the mesh's device
+    type."""
+    specs = tree_leaves(param_pspecs(defs, rules, mesh), is_leaf=is_spec)
+    leaves, treedef = tree_flatten(tree)
+    if len(leaves) != len(specs):
+        raise ValueError(f"{len(leaves)} leaves for {len(specs)} parameter "
+                         f"definitions")
+    for i, s in enumerate(specs):
+        leaf = leaves[i]
+        leaves[i] = None
+        leaves[i] = place(leaf, mesh, placements(s, mesh))
+        del leaf
+    return tree_unflatten(treedef, leaves)

@@ -57,6 +57,14 @@ attention's gradient runs the hand-written backward kernel
 (``kernels.flash_attention.ops.FlashAttentionFn``); the recurrences have
 no backward kernel yet and raise under autograd on the card (ROADMAP B),
 so RWKV-6 and Griffin train on the CPU only.
+
+Under sharding ``rules`` (``launch.mesh.rules_for_mesh``) every entry
+point runs on DTensors (``parallel.sharding.sharded``: the plain tensors a
+step makes take part as replicated ones): the embedding's output is
+pinned to ``act_spec(rules, "bsd")``, as are the decoder stack's output
+and the encoder's input, at ``repro``'s sites; the decode cache is
+written rank by rank (``parallel.sharding.write_rows``); the kernels run
+on local shards (``kernels/_local.py``).
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ import functools
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -86,6 +95,7 @@ from repro_torch.models.params import (
     zeros_from_defs,
 )
 from repro_torch.models.remat import dots_contexts
+from repro_torch.parallel.sharding import shard_act, sharded, write_rows
 
 
 @dataclasses.dataclass
@@ -227,9 +237,10 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
         return init_params(defs, generator, device)
 
     def loss_fn(params, batch, *, impl="auto", rules=None):
-        if rules is not None:
-            raise NotImplementedError(
-                "sharding rules wait for parallelism (ROADMAP A8)")
+        with sharded(rules):
+            return _loss(params, batch, impl=impl, rules=rules)
+
+    def _loss(params, batch, *, impl, rules):
         tokens = batch["tokens"]
         Bz, S = tokens.shape
         if torch.is_grad_enabled():
@@ -238,6 +249,7 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
         pos = _positions(tokens)
         ctx = Ctx(cfg=cfg, impl=impl, positions=pos, rules=rules)
         x = embed_apply(params["embed"], tokens, cfg)
+        x = shard_act(x, rules, "bsd")
         x, aux = backbone(params, x, ctx, None)
         h = rms_norm(x, params["ln_f"])
         logits = logits_apply(params["embed"], h, cfg)
@@ -268,18 +280,21 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
         ctx = Ctx(cfg=cfg, impl=impl, positions=pos, decode=decode,
                   cache_len=t, rows=rows, rules=rules)
         x = embed_apply(params["embed"], tokens, cfg)
+        x = shard_act(x, rules, "bsd")
         x, _ = backbone(params, x, ctx, cache)
         h = rms_norm(x[:, -1:], params["ln_f"])
         logits = logits_apply(params["embed"], h, cfg)
         return logits[:, 0], cache
 
     def prefill_fn(params, cache, batch, *, impl="auto", rules=None):
-        return _fwd_cached(params, cache, batch["tokens"], 0,
-                           impl=impl, rules=rules, decode=False)
+        with sharded(rules):
+            return _fwd_cached(params, cache, batch["tokens"], 0,
+                               impl=impl, rules=rules, decode=False)
 
     def decode_fn(params, cache, tokens, t, *, impl="auto", rules=None):
-        return _fwd_cached(params, cache, tokens, t,
-                           impl=impl, rules=rules, decode=True)
+        with sharded(rules):
+            return _fwd_cached(params, cache, tokens, t,
+                               impl=impl, rules=rules, decode=True)
 
     return Model(cfg, defs, init, loss_fn, make_cache_defs, init_cache,
                  prefill_fn, decode_fn)
@@ -321,7 +336,7 @@ def build_decoder_lm(cfg: ArchConfig) -> Model:
                 c = _layer(cache, i) if cache is not None else None
                 x, _, a = block(_layer(params[key], i), x, ctx, c)
                 aux = aux + a
-        return x, aux
+        return shard_act(x, ctx.rules, "bsd"), aux
 
     def make_cache_defs(bsz, smax):
         if cfg.mla is None:
@@ -478,9 +493,10 @@ def build_encdec(cfg: ArchConfig) -> Model:
     def init(generator: torch.Generator, device=None):
         return init_params(defs, generator, device)
 
-    def encode(params, frames, impl):
+    def encode(params, frames, impl, rules):
         ctx = Ctx(cfg=cfg, impl=impl, positions=_positions(frames[..., 0]))
         x = frames.to(torch.bfloat16).to(params["ln_enc"]["scale"].dtype)
+        x = shard_act(x, rules, "bsd")
         block = _maybe_remat(B.encoder_block_apply, cfg.remat)
         for i in range(n_enc):
             x = block(_layer(params["enc"], i), x, ctx)
@@ -500,15 +516,17 @@ def build_encdec(cfg: ArchConfig) -> Model:
                             cfg)
 
     def loss_fn(params, batch, *, impl="auto", rules=None):
-        if rules is not None:
-            raise NotImplementedError(
-                "sharding rules wait for parallelism (ROADMAP A8)")
+        with sharded(rules):
+            return _loss(params, batch, impl=impl, rules=rules)
+
+    def _loss(params, batch, *, impl, rules):
         frames, tokens = batch["frames"], batch["tokens"]
         if torch.is_grad_enabled():
             params = {k: tree_map(_Unstacked, v) if k in ("enc", "dec")
                       else v for k, v in params.items()}
-        enc_out = encode(params, frames, impl)
-        ctx = Ctx(cfg=cfg, impl=impl, positions=_positions(tokens))
+        enc_out = encode(params, frames, impl, rules)
+        ctx = Ctx(cfg=cfg, impl=impl, positions=_positions(tokens),
+                  rules=rules)
         x = embed_apply(params["embed"], tokens, cfg)
         x = run_decoder(params, x, enc_out, ctx, None)
         loss = _lm_loss(head(params, x), tokens)
@@ -529,10 +547,17 @@ def build_encdec(cfg: ArchConfig) -> Model:
         """Encode the frames into ``cache["enc_out"]`` (its first S_enc
         rows) and set ``cache["enc_len"]`` to S_enc, then run the decoder
         over the prompt, its self-attention cache written from 0."""
+        with sharded(rules):
+            return _prefill(params, cache, batch, impl=impl, rules=rules)
+
+    def _prefill(params, cache, batch, *, impl, rules):
         frames, tokens = batch["frames"], batch["tokens"]
         Se = frames.shape[1]
-        enc_out = encode(params, frames, impl)
-        cache["enc_out"][:, :Se] = enc_out
+        enc_out = encode(params, frames, impl, rules)
+        if isinstance(cache["enc_out"], DTensor):
+            write_rows(cache["enc_out"], enc_out, start=0)
+        else:
+            cache["enc_out"][:, :Se] = enc_out
         cache["enc_len"].fill_(Se)
         ctx = Ctx(cfg=cfg, impl=impl, positions=_positions(tokens),
                   cache_len=0)
@@ -541,6 +566,10 @@ def build_encdec(cfg: ArchConfig) -> Model:
         return head(params, x[:, -1:])[:, 0], cache
 
     def decode_fn(params, cache, tokens, t, *, impl="auto", rules=None):
+        with sharded(rules):
+            return _decode(params, cache, tokens, t, impl=impl)
+
+    def _decode(params, cache, tokens, t, *, impl):
         t, pos, rows = _decode_position(t, tokens)
         ctx = Ctx(cfg=cfg, impl=impl, positions=pos, decode=True,
                   cache_len=t, rows=rows)

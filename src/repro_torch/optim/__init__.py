@@ -3,8 +3,8 @@
 adamw.py          -- AdamW, f32 moments, updated in place
 adafactor.py      -- Adafactor, factored second moments, updated in place
 schedule.py       -- cosine_warmup on a step tensor, on its device
-grad_compress.py  -- int8 quantize / dequantize and error feedback
-                     (``compressed_psum`` waits for ROADMAP A8)
+grad_compress.py  -- int8 quantize / dequantize, error feedback and
+                     ``compressed_psum``, the int8 sum over a group
 """
 
 from repro_torch.optim.adafactor import adafactor

@@ -8,8 +8,9 @@ counterpart of ``repro``'s ``jax.jit(step, donate_argnums=(0,))``, which
 lets XLA reuse the old state's buffers.  Nothing of the old state is kept,
 so a caller that needs it (a checkpoint, a comparison) copies it first.
 ``step`` is a 0-d int32 tensor, as in ``repro``, so that checkpoints of
-the two packages hold the same leaves.  Sharded state (ZeRO-3) waits for
-parallelism (ROADMAP A8).
+the two packages hold the same leaves.  Sharded state (ZeRO-3) is the same
+update on DTensors: the moments placed as their parameters
+(``models.params.distribute_params`` of ``state_defs``).
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ workload on the sharded fleet (``runtime.fleet``, ``runtime.loadgen``,
 unimportable, imports the training modules (``repro_torch.optim``,
 ``data``, ``checkpoint``, ``launch.train``), round-trips a bf16 checkpoint
 and takes a train step of the smoke ``llama3.2-1b`` on the CPU (under its
-default ``remat="block"``); a scan of the port's sources and of
+default ``remat="block"``); a third, with ``jax`` and ``ml_dtypes``
+unimportable, imports the parallel modules (``repro_torch.parallel``,
+``launch.mesh``, ``models.moe_ep``) and takes a sharded train step of two
+smoke families at a mesh of one rank; a scan of the port's sources and of
 ``chip_smoke.py`` finds no import of ``jax``, ``ml_dtypes`` or ``repro``.
 """
 
@@ -127,6 +130,51 @@ print("ok")
 def test_trains_and_checkpoints_without_jax_or_ml_dtypes():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _TRAIN_CHILD], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok"]
+
+
+_PARALLEL_CHILD = """
+import sys
+sys.modules["jax"] = None
+sys.modules["ml_dtypes"] = None
+import torch
+import repro_torch.configs as configs
+import repro_torch.parallel
+from repro_torch.launch import mesh as M
+from repro_torch.launch.steps import make_optimizer, make_train_step
+from repro_torch.models import build_model, moe_ep
+from repro_torch.models.params import distribute_params, tree_leaves
+M.init_single_process("cpu")
+mesh = M.make_host_mesh(1, 1, device="cpu")
+rules = M.rules_for_mesh(mesh)
+for arch in ("llama3.2-1b", "granite-moe-3b-a800m"):
+    model = build_model(configs.smoke(arch))
+    opt = make_optimizer(model.cfg)
+    p = model.init(torch.Generator().manual_seed(0), "cpu")
+    state = {"params": distribute_params(p, model.defs, rules, mesh),
+             "opt": distribute_params(opt.init(p), opt.state_defs(
+                 model.defs), rules, mesh)}
+    batch = {"tokens": torch.randint(0, 512, (2, 8),
+                                     generator=torch.Generator())}
+    state, m = make_train_step(model, opt, rules, warmup=1)(state, batch)
+    assert torch.isfinite(m["loss"]) and int(state["opt"]["step"]) == 1
+torch.distributed.destroy_process_group()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_parallel_modules_run_without_jax():
+    """``repro_torch.parallel``, ``launch.mesh`` and ``models.moe_ep``
+    import with JAX absent, and a sharded train step runs at a mesh of one
+    rank (gloo, in process)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _PARALLEL_CHILD], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["ok"]
