@@ -375,6 +375,25 @@ non-zero):
               on a bf16 tensor of llama's largest leaf; the process group
               destroyed at the end.  The flash, flash_backward and arena
               JSON rows carry its launches (``parallel``).
+15. dryrun -- (run last) the dry-run (``launch/dryrun.py``): (a)
+              llama3.2-1b's train step (batch 8 x seq 256, remat "block")
+              and an eager decode step, full width, unsharded, on real
+              tensors under the dry-run's counting mode: each kernel's
+              counted launches equal its ``LAUNCHES`` delta (32
+              ``flash_prefill`` + 16 ``flash_backward`` a step, 16
+              ``flash_decode`` a token); (b) the same steps on fake CUDA
+              tensors: launches, FLOPs, bytes and collective bytes equal
+              (a)'s, ``memory_allocated`` and ``LAUNCHES`` unmoved; (c)
+              the modelled t_compute no more than the measured step,
+              printed beside t_memory; (d) the CLI (``python -m
+              repro_torch.launch.dryrun``) for llama3.2-1b ``train_4k``
+              and deepseek-v3-671b ``decode_32k`` on the single pod, on
+              the card's routes over a fake 256-rank group, each in a
+              process of its own started at the phase's start: exit 0,
+              records written (``chiprun_out/dryrun/``), max RSS under 8
+              GB, llama's record 32 ``flash_prefill`` and 16
+              ``flash_backward`` a device.  The flash rows carry llama's
+              record's launches (``dryrun``).
 
 The kernels JSON (one entry per kernel) is printed third from last, the
 card's name and power limit second from last, and ``{"ok": true,
@@ -402,9 +421,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
-BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak, same sheet
-F32_FLOP_PER_S = 67e12             # f32 outside the tensor cores, same sheet
+sys.path.insert(0, str(SRC))
+try:
+    # the card's rates and each kernel's operations and bytes
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.costs import (
+        BF16_FLOP_PER_S,
+        F32_FLOP_PER_S,
+        HBM_BYTES_PER_S,
+    )
+except ImportError:                # not run from a checkout: main() says so
+    costs = None
 SIZES = (0, 1, 3, 4097, 150528)    # 150,528 f32 = 28x28x48x4 B: DARTS fmap
 # the copy sweep of write and read: lengths in elements; u8 runs every
 # phase pair up to COPY_SHORT and the multiples of 4 beyond, and one
@@ -3668,47 +3695,29 @@ def phase_timing(plans, inputs, launches, err, card, captured):
 
 def fa_bound(q, k, v, kw) -> tuple[float, float]:
     """(bytes ms, operations ms) the card needs at least for one attention
-    call (causal unless ``kw["causal"]`` is false): q read once, k and v
-    read once for the keys some query attends to (the window's and
-    kv_len's cuts applied), the output written once, over 3.35 TB/s;
-    2*H*(D + Dv) flops per live (query, key) pair over the bf16
-    tensor-core peak."""
-    B, Sq, H, D = q.shape
-    Dv = v.shape[3]
-    n, qs, w = kw["kv_len"], kw["q_start"], kw.get("window")
-    if not kw.get("causal", True):
-        live, keys = Sq * n, n
-    else:
-        lo = lambda p: 0 if w is None else max(0, p - w + 1)  # first key
-        live = sum(min(n, p + 1) - lo(p) for p in range(qs, qs + Sq))
-        keys = min(n, qs + Sq) - lo(qs)
-    esz = q.element_size()
-    nbytes = esz * (q.numel() + B * Sq * H * Dv + B * keys * k.shape[2]
-                    * (k.shape[3] + Dv))
+    call (causal unless ``kw["causal"]`` is false): ``costs.flash_cost``'s
+    bytes over 3.35 TB/s and its flops over the bf16 tensor-core peak."""
+    flops, nbytes = costs.flash_cost(
+        *q.shape, *k.shape[1:3], v.shape[3], q.element_size(),
+        q_start=kw["q_start"], kv_len=kw["kv_len"],
+        causal=kw.get("causal", True), window=kw.get("window"))
     return (nbytes / HBM_BYTES_PER_S * 1e3,
-            2 * B * H * (D + Dv) * live / BF16_FLOP_PER_S * 1e3)
+            flops / BF16_FLOP_PER_S * 1e3)
 
 
 def wkv6_bound(B, T, H, N, esz) -> tuple[float, float]:
-    """(bytes ms, operations ms) for one WKV-6 call with an initial state:
-    r, k, v, w read and o written once, u read once, the f32 state read
-    and written once; per head and step 5 N^2 f32 flops (o: a product and
-    a sum per state element; the state: two products and a sum) and 5 N
-    (the bonus and its product with v), over the f32 CUDA-core peak."""
-    nbytes = esz * (5 * B * T * H * N + H * N) + 2 * 4 * B * H * N * N
-    flops = B * H * T * (5 * N * N + 5 * N)
+    """(bytes ms, operations ms) for one WKV-6 call with an initial state
+    (``costs.wkv6_cost``), over 3.35 TB/s and the f32 CUDA-core peak."""
+    flops, nbytes = costs.wkv6_cost(B, T, H, N, esz)
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
 
 
 def rglru_bound(B, T, D, esz) -> tuple[float, float]:
-    """(bytes ms, operations ms) for one RG-LRU call with h0: log_a (f32)
-    and gx read once, h written once in gx's dtype, h0 read and hT written
-    once (f32); 10 f32 operations per element (two exps, a sqrt, the
-    clip's two, 2 la, 1 - e, and the step's two products and sum) over the
-    f32 CUDA-core peak."""
-    nbytes = (4 + 2 * esz) * B * T * D + 2 * 4 * B * D
+    """(bytes ms, operations ms) for one RG-LRU call with h0
+    (``costs.rglru_cost``), over 3.35 TB/s and the f32 CUDA-core peak."""
+    flops, nbytes = costs.rglru_cost(B, T, D, esz)
     return (nbytes / HBM_BYTES_PER_S * 1e3,
-            10 * B * T * D / F32_FLOP_PER_S * 1e3)
+            flops / F32_FLOP_PER_S * 1e3)
 
 
 def traced_copies(by_name, op) -> tuple[float, int]:
@@ -4355,15 +4364,13 @@ def train_launches(cfg, steps: int = 1) -> dict:
 
 def bwd_bound(q, k, v) -> tuple[float, float]:
     """(bytes ms, operations ms) for one causal backward in its training
-    form: q, k, v, o and dO read once, dq, dk and dv written once; five
-    products (the scores recomputed, dP, dV, dK, dQ) of 2 D flops per live
-    (query, key) pair and head, over the bf16 tensor-core peak."""
+    form (``costs.flash_backward_cost``), over 3.35 TB/s and the bf16
+    tensor-core peak."""
     B, S, H, D = q.shape
-    nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel()
-                                 + 2 * v.numel())
-    live = S * (S + 1) // 2
+    flops, nbytes = costs.flash_backward_cost(B, S, H, k.shape[2], D,
+                                              q.element_size())
     return (nbytes / HBM_BYTES_PER_S * 1e3,
-            5 * 2 * B * H * D * live / BF16_FLOP_PER_S * 1e3)
+            flops / BF16_FLOP_PER_S * 1e3)
 
 
 def attn_inputs(dev, B, S, dtype, seed, H=32, KV=8, D=64):
@@ -5753,6 +5760,262 @@ def phase_parallel(dev, card) -> dict:
     return rec
 
 
+# Phase 15: the dry-run (launch/dryrun.py).  (d)'s cells run in a process
+# each on the card's routes, over a fake 256-rank group, while (a)-(c) run
+# here: llama3.2-1b's train step (the train phase's batch) and one eager
+# decode step at DRYRUN_POS of a DRYRUN_SMAX cache, full width, unsharded
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("deepseek-v3-671b", "decode_32k"))
+DRYRUN_RSS_BYTES = 8 << 30
+DRYRUN_SMAX, DRYRUN_POS = 1056, 1055
+DRYRUN_TIMEOUT_S = 240
+
+
+def dryrun_start(out_dir: Path) -> list:
+    """(d): the dry-run's CLI for each of DRYRUN_CELLS on the single pod,
+    one process each, started together; its log beside its record."""
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log = open(out_dir / f"{arch}__{shape}.log", "w")
+        procs.append((arch, shape, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out",
+             str(out_dir)], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(SRC)))))
+    return procs
+
+
+def dryrun_wait(procs, deadline: float) -> dict:
+    """Wait for (d)'s processes (killed at ``deadline``); returns {(arch,
+    shape): (exit code, seconds)}."""
+    out, t0 = {}, time.perf_counter()
+    try:
+        for arch, shape, log, p in procs:
+            while p.poll() is None:
+                check(time.perf_counter() < deadline,
+                      f"dryrun: the CLI for {arch} {shape} is still running "
+                      f"after {DRYRUN_TIMEOUT_S} s")
+                time.sleep(0.2)
+            out[arch, shape] = (p.returncode, time.perf_counter() - t0)
+    finally:
+        for _, _, log, p in procs:
+            if p.returncode is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return out
+
+
+def dryrun_count(step, args, fake=None):
+    """One call of ``step(*args)`` under the dry-run's counting mode
+    (``fake``: in that FakeTensorMode too); returns its counts."""
+    from repro_torch.launch.dryrun import CostMode
+    mode = CostMode(fake)
+    mode.arguments(args)
+    with contextlib.ExitStack() as stack:
+        if fake is not None:
+            stack.enter_context(fake)
+        stack.enter_context(mode)
+        step(*args)
+    return dict(launches=mode.launches(), kernels=mode.kernels,
+                flops=dict(mode.flops), bytes=mode.bytes,
+                collective_bytes=mode.collectives()["total_bytes"],
+                peak=mode.peak)
+
+
+def phase_dryrun(dev, card) -> dict:
+    """Phase 15: the dry-run.  (a) llama3.2-1b's train step and an eager
+    decode step, full width, unsharded, on real tensors under the counting
+    mode: each kernel's counted launches equal its ``LAUNCHES`` delta; (b)
+    the same steps on fake CUDA tensors: launches, FLOPs, bytes and
+    collective bytes equal (a)'s, and neither ``memory_allocated`` nor
+    ``LAUNCHES`` moves; (c) the modelled ``t_compute`` no more than the
+    measured step; (d) the CLI's cells of DRYRUN_CELLS on the card's routes
+    over a fake 256-rank group (started first, in processes of their own):
+    exit 0, records written, max RSS under DRYRUN_RSS_BYTES, llama's train
+    record 32 ``flash_prefill`` and 16 ``flash_backward`` a device.
+    Returns its record."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import repro_torch.configs as configs
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import costs as C
+    from repro_torch.launch.steps import (
+        make_decode_step,
+        make_optimizer,
+        make_train_step,
+    )
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.zoo import build_model
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    procs = dryrun_start(out_dir)
+    try:
+        cfg = configs.get("llama3.2-1b")
+        model = build_model(cfg)
+        opt = make_optimizer(cfg, lr=3e-4)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                            dev)
+        state = {"params": params, "opt": opt.init(params)}
+        pipe = DataPipeline(cfg=cfg, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH, seed=SEED)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe.batch_at(0).items()}
+        cache = model.init_cache(1, DRYRUN_SMAX, dev)
+        tokens = torch.ones((1, 1), dtype=torch.long, device=dev)
+        train = make_train_step(model, opt, impl="auto", peak_lr=3e-4,
+                                warmup=10, total_steps=TRAIN_STEPS)
+        decode = make_decode_step(model, impl="auto")
+
+        def decode_step(params, cache, tokens):
+            with torch.no_grad():
+                decode(params, cache, tokens, DRYRUN_POS)
+
+        steps = {"train": (train, (state, batch)),
+                 "decode": (decode_step, (params, cache, tokens))}
+        for fn, args in steps.values():  # what the first call caches
+            fn(*args)
+        torch.cuda.synchronize()
+        parts = {"set-up": time.perf_counter() - t0}
+        # (a) real tensors, each count against the kernels' own, and the
+        # counted peak beside the allocator's
+        real, peaks = {}, {}
+        for name, (fn, args) in steps.items():
+            reset_all()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            real[name] = dryrun_count(fn, args)
+            torch.cuda.synchronize()
+            alloc_peak = torch.cuda.max_memory_allocated() - base
+            got = {k: v for k, v in all_launches().items() if v}
+            check(real[name]["launches"] == got,
+                  f"dryrun: the counting mode saw {real[name]['launches']} "
+                  f"launches in the {name} step, the kernels counted {got}")
+            say(f"dryrun: the {name} step's peak above its arguments: "
+                f"counted {real[name]['peak']} B, the allocator's "
+                f"{alloc_peak} B [{card}]")
+            peaks[name] = dict(counted=real[name]["peak"],
+                               allocator=alloc_peak)
+        want = dict(train_launches(cfg), flash_decode=0)
+        check(real["train"]["launches"] == {k: v for k, v in want.items()
+                                            if v},
+              f"dryrun: the train step launched {real['train']['launches']}, "
+              f"its path needs {want}")
+        check(real["decode"]["launches"] == {"flash_decode": cfg.n_layers},
+              f"dryrun: the decode step launched "
+              f"{real['decode']['launches']}, its path needs "
+              f"{cfg.n_layers} flash_decode")
+        parts["real"] = time.perf_counter() - t0 - sum(parts.values())
+        # (b) the same steps on fake CUDA tensors
+        fake = FakeTensorMode(allow_non_fake_inputs=True)
+        reset_all()
+        mem = torch.cuda.memory_allocated()
+        fakes = {}
+        for name, (fn, args) in steps.items():
+            fargs = tree_map(fake.from_tensor, args)
+            fakes[name] = dryrun_count(fn, fargs, fake)
+            del fargs
+        moved = torch.cuda.memory_allocated() - mem
+        check(moved == 0 and not any(all_launches().values()),
+              f"dryrun: the fake steps allocated {moved} B and launched "
+              f"{all_launches()} on the card")
+        same = ("launches", "kernels", "flops", "bytes", "collective_bytes")
+        for name in steps:
+            peaks[name]["fake"] = fakes[name]["peak"]
+            check(all(fakes[name][k] == real[name][k] for k in same),
+                  f"dryrun: the {name} step's counts on fake tensors "
+                  f"{fakes[name]} differ from those on real ones "
+                  f"{real[name]}")
+        parts["fake"] = time.perf_counter() - t0 - sum(parts.values())
+        # (c) the modelled compute time against the measured step
+        ms = []
+        for _ in range(TIMED_STEPS):
+            t1 = time.perf_counter()
+            train(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        dms = []
+        for _ in range(TIMED_STEPS):
+            t1 = time.perf_counter()
+            decode_step(params, cache, tokens)
+            torch.cuda.synchronize()
+            dms.append((time.perf_counter() - t1) * 1e3)
+        rec = {}
+        for name, meas in (("train", ms), ("decode", dms)):
+            c = real[name]
+            t_c = (c["flops"]["tensor"] / C.BF16_FLOP_PER_S
+                   + c["flops"]["cuda_core"] / C.F32_FLOP_PER_S) * 1e3
+            t_m = c["bytes"] / C.HBM_BYTES_PER_S * 1e3
+            med = statistics.median(meas)
+            rec[name] = dict(counts=c, t_compute_ms=t_c, t_memory_ms=t_m,
+                             measured_ms_median=med, measured_ms=meas)
+            say(f"dryrun: llama3.2-1b {name} step, full width, unsharded: "
+                f"launches {c['launches']}, flops {c['flops']}, bytes "
+                f"{c['bytes']}; modelled t_compute {t_c:.3f} ms, t_memory "
+                f"{t_m:.3f} ms; measured {med:.3f} ms median of "
+                f"{len(meas)} (host clock, ending in synchronize); real == "
+                f"fake counts [{card}]")
+        check(rec["train"]["t_compute_ms"] <= rec["train"]
+              ["measured_ms_median"],
+              f"dryrun: the modelled t_compute {rec['train']['t_compute_ms']}"
+              f" ms exceeds the measured train step "
+              f"{rec['train']['measured_ms_median']} ms")
+        del state, params, cache, batch, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["fake_alloc_bytes"] = moved
+        rec["peaks"] = peaks
+        parts["timed"] = time.perf_counter() - t0 - sum(parts.values())
+        # (d) the CLI's cells
+        ran = dryrun_wait(procs, t0 + DRYRUN_TIMEOUT_S)
+        parts["cli wait"] = time.perf_counter() - t0 - sum(parts.values())
+    finally:
+        for *_, p in procs:
+            if p.returncode is None:
+                p.kill()
+                p.wait()
+    rec["cli"] = {}
+    for (arch, shape), (code, sec) in ran.items():
+        path = out_dir / f"{arch}__{shape}__pod16x16__baseline.json"
+        check(code == 0 and path.is_file(),
+              f"dryrun: the CLI for {arch} {shape} exited {code} "
+              f"(log: {out_dir / f'{arch}__{shape}.log'})")
+        r = json.loads(path.read_text())
+        check(r["applicable"], f"dryrun: {arch} {shape} was skipped: "
+                               f"{r.get('skip_reason')}")
+        # the process's own peak (``dryrun.PeakRss``): a child's ru_maxrss
+        # would count this process's pages, which it held until its exec
+        rss = r["host_peak_rss_bytes"]
+        check(rss is not None and rss < DRYRUN_RSS_BYTES,
+              f"dryrun: the CLI for {arch} {shape} peaked at {rss} B of "
+              f"host memory, above {DRYRUN_RSS_BYTES}")
+        rec["cli"][f"{arch} {shape}"] = dict(
+            seconds=sec, max_rss_bytes=rss, launches=r["launches"],
+            kernels=r["kernels"], cost_analysis=r["cost_analysis"],
+            memory_analysis=r["memory_analysis"],
+            collectives=r["collectives"], roofline=r["roofline"],
+            lower_s=r["lower_s"], compile_s=r["compile_s"])
+        say(f"dryrun: CLI {arch} {shape} on pod16x16 (card's routes, fake "
+            f"256-rank group): exit {code} in {sec:.1f} s, max RSS {rss} B; "
+            f"per device: launches {r['launches']}, cost "
+            f"{r['cost_analysis']}, memory {r['memory_analysis']}, "
+            f"collective bytes {r['collectives']['bytes_by_type']}, "
+            f"roofline {r['roofline']} [{card}]")
+    llama = rec["cli"]["llama3.2-1b train_4k"]["launches"]
+    want = train_launches(configs.get("llama3.2-1b"))
+    check(llama == want, f"dryrun: llama3.2-1b train_4k's record counts "
+                         f"{llama} launches a device, its path {want}")
+    rec["seconds"] = time.perf_counter() - t0
+    rec["parts_s"] = parts
+    say(f"dryrun: phase done in {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f") [{card}]")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     csrc = SRC / "repro_torch" / "csrc"
@@ -5763,7 +6026,6 @@ def main() -> int:
         say("FAIL: src/repro_torch not found beside chip_smoke.py; run it "
             "from the root of a checkout")
         return 2
-    sys.path.insert(0, str(SRC))
     if not torch.cuda.is_available():
         say("FAIL: torch.cuda.is_available() is false; this check needs a "
             "CUDA card")
@@ -5950,6 +6212,16 @@ def main() -> int:
             r["fleet"] = dict(launches=fleet["launches"][r["name"][6:]],
                               packs=fleet["packs"])
     say("fleet: " + json.dumps(dict(fleet, chaos=chaos)) + f" [{card}]")
+    say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+
+    # the dry-run: the counting mode on real and fake tensors, the CLI on
+    # the card's routes over a fake 256-rank group
+    dry = phase_dryrun(dev, card)
+    for r in rows:
+        if r["name"] in ("flash_attention", "flash_backward"):
+            r["dryrun"] = {k: v for k, v in dry["cli"][
+                "llama3.2-1b train_4k"]["launches"].items()}
+    say("dryrun: " + json.dumps(dry) + f" [{card}]")
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

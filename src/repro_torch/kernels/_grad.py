@@ -30,10 +30,17 @@ def needs_grad(*tensors) -> bool:
         torch.is_tensor(t) and t.requires_grad for t in tensors)
 
 
-def no_backward(op: str, kernel: str) -> NotImplementedError:
+class NoBackward(NotImplementedError):
+    """A call on the card needs a gradient that no backward kernel takes
+    yet (ROADMAP B): a family without a backward kernel, or attention
+    outside the flash backward's form (a window, other head dims).  The
+    dry-run writes a train cell that raises it as not applicable."""
+
+
+def no_backward(op: str, kernel: str) -> NoBackward:
     """The error of a kernel wrapper called on the card under autograd
     when ``kernel``, its backward, is not ported yet."""
-    return NotImplementedError(
+    return NoBackward(
         f"{op}: an input requires a gradient, and its backward kernel "
         f"({kernel}) is not ported yet (ROADMAP B); on the card run it "
         f"under torch.no_grad(), or train on the CPU")

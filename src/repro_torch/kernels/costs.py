@@ -1,0 +1,137 @@
+"""What the port's kernels cost: operations and bytes of one launch, and the
+card's rates.
+
+Counts, not times: each function returns ``(flops, bytes)`` of one call
+from its shapes, by the rule a roofline needs -- every input read once,
+every output written once, the operations the algorithm does on these
+inputs.  ``chip_smoke.py`` turns them into its bounds over the rates
+below, and the dry-run (``launch/dryrun.py``) counts each kernel's
+``torch.library`` op by them (each op's FLOP formula is registered from
+here).
+
+The rates are NVIDIA's data sheet for the H100 SXM at its 700 W limit.
+"""
+
+from __future__ import annotations
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
+BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak, same sheet
+F32_FLOP_PER_S = 67e12             # f32 outside the tensor cores, same sheet
+
+
+def _sum_clamped(a: int, b: int, lo: int, hi: int) -> int:
+    """``sum(min(max(x, lo), hi) for x in range(a, b))`` in closed form
+    (``lo <= hi``)."""
+    if b <= a:
+        return 0
+    below = max(0, min(b, lo) - a)               # x < lo: each gives lo
+    above = max(0, b - max(a, hi + 1))           # x > hi: each gives hi
+    m0, m1 = max(a, lo), min(b, hi + 1)          # lo <= x <= hi: x itself
+    mid = (m0 + m1 - 1) * (m1 - m0) // 2 if m1 > m0 else 0
+    return below * lo + above * hi + mid
+
+
+def attention_pairs(Sq: int, *, q_start: int, kv_len: int, causal: bool,
+                    window: int | None = None) -> tuple[int, int]:
+    """``(live, keys)``: the (query, key) pairs some query of a call
+    attends to, and the keys some query of it reads.  Query ``p`` of
+    ``q_start .. q_start + Sq - 1`` reads the keys ``[lo(p), min(kv_len, p
+    + 1))`` under a causal mask (``lo(p) = p - window + 1`` with a window,
+    else 0), every key below ``kv_len`` without one; ``keys`` runs from
+    the first query's first key to the last query's last."""
+    n, qs = kv_len, q_start
+    if not causal:
+        return Sq * n, n
+    if window is None:
+        first = 0
+        live = _sum_clamped(qs + 1, qs + Sq + 1, 0, n)
+    else:
+        first = max(0, qs - window + 1)
+        # sum of min(n, p + 1) - min(max(0, p - w + 1), n): a query whose
+        # window starts past kv_len reads nothing
+        live = (_sum_clamped(qs + 1, qs + Sq + 1, 0, n)
+                - _sum_clamped(qs - window + 1, qs + Sq - window + 1, 0, n))
+    return live, min(n, qs + Sq) - first
+
+
+def flash_cost(B: int, Sq: int, H: int, D: int, Skv: int, KV: int, Dv: int,
+               esz: int, *, q_start: int, kv_len: int, causal: bool = True,
+               window: int | None = None) -> tuple[int, int]:
+    """One attention call, q ``(B, Sq, H, D)`` over k ``(B, Skv, KV, D)``
+    and v ``(B, Skv, KV, Dv)`` in elements of ``esz`` bytes: q read once,
+    k and v read once for the keys some query attends to (the window's and
+    kv_len's cuts applied), the output written once; ``2 H (D + Dv)``
+    flops per live (query, key) pair and batch row (the scores and the
+    weighted sum).  ``Skv`` is the cache's length, which the count does
+    not read."""
+    live, keys = attention_pairs(Sq, q_start=q_start, kv_len=kv_len,
+                                 causal=causal, window=window)
+    nbytes = esz * (B * Sq * H * D + B * Sq * H * Dv
+                    + B * keys * KV * (D + Dv))
+    return 2 * B * H * (D + Dv) * live, nbytes
+
+
+def flash_backward_cost(B: int, S: int, H: int, KV: int, D: int,
+                        esz: int) -> tuple[int, int]:
+    """One causal backward in its training form (q, o, dO and dq ``(B, S,
+    H, D)``, k, v, dk, dv ``(B, S, KV, D)``): q, k, v, o and dO read once,
+    dq, dk and dv written once; five products (the scores recomputed, dP,
+    dV, dK, dQ) of ``2 D`` flops per live (query, key) pair and head."""
+    nbytes = esz * (4 * B * S * H * D + 4 * B * S * KV * D)
+    live = S * (S + 1) // 2
+    return 5 * 2 * B * H * D * live, nbytes
+
+
+def wkv6_cost(B: int, T: int, H: int, N: int, esz: int, *,
+              initial_state: bool = True) -> tuple[int, int]:
+    """One WKV-6 call: r, k, v, w read and o written once, u read once,
+    the f32 state written once and, with an initial state, read once; per
+    head and step ``5 N^2`` f32 flops (o: a product and a sum per state
+    element; the state: two products and a sum) and ``5 N`` (the bonus and
+    its product with v)."""
+    nbytes = (esz * (5 * B * T * H * N + H * N)
+              + (1 + int(initial_state)) * 4 * B * H * N * N)
+    return B * H * T * (5 * N * N + 5 * N), nbytes
+
+
+def rglru_cost(B: int, T: int, D: int, esz: int, *,
+               h0: bool = True) -> tuple[int, int]:
+    """One RG-LRU call: log_a (f32) and gx read once, h written once in
+    gx's dtype, hT written once and, with ``h0``, h0 read once (f32); 10
+    f32 operations per element (two exps, a sqrt, the clip's two, 2 la, 1
+    - e, and the step's two products and sum)."""
+    nbytes = (4 + 2 * esz) * B * T * D + (1 + int(h0)) * 4 * B * D
+    return 10 * B * T * D, nbytes
+
+
+#: the kernels' ``torch.library`` ops (``OpOverloadPacket``s of the
+#: ``repro_torch`` namespace) -> (the kernel's ``LAUNCHES`` key, its cost:
+#: ``cost(*op args) -> (flops, bytes, flop class)``, the class
+#: ``"tensor"`` for bf16/f16 products and ``"cuda_core"`` for f32 work)
+KERNEL_OPS: dict = {}
+_LIB = None
+
+
+def kernel_op(schema: str, impl, fake, launches: str, cost):
+    """Define ``repro_torch::<schema>``, a kernel's launch as a
+    ``torch.library`` op: ``impl`` its implementation for real tensors
+    (every device: the launch checks its own), ``fake`` its outputs'
+    shapes for fake ones, registered with its cost (:data:`KERNEL_OPS`)
+    and its flops as its formula for ``torch.utils.flop_counter``.
+    Returns the op's default overload.  (``torch.library.custom_op``
+    would do the same at several times the host cost a call.)"""
+    import torch
+    from torch.utils.flop_counter import register_flop_formula
+
+    global _LIB
+    if _LIB is None:
+        _LIB = torch.library.Library("repro_torch", "DEF")
+    name = schema[:schema.index("(")]
+    _LIB.define(schema)
+    _LIB.impl(name, impl, "CompositeExplicitAutograd")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+    packet = getattr(torch.ops.repro_torch, name)
+    KERNEL_OPS[packet] = (launches, cost)
+    register_flop_formula(packet, get_raw=True)(
+        lambda *args, out_val=None, **kwargs: cost(*args, **kwargs)[0])
+    return packet.default

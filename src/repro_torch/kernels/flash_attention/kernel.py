@@ -76,6 +76,14 @@ device position: one launch serves every length, which is what a captured
 cross-attention step replays.  Such a call too goes to the decode kernel
 whatever its rows.
 
+Each launch is a ``torch.library`` op of the ``repro_torch`` namespace
+(``flash_decode``, ``flash_prefill``, ``flash_attention``,
+``flash_backward_sm90``, ``flash_backward_simple``): the wrappers check a
+call and split it on the host, the op's real implementation allocates,
+launches and counts, and its fake implementation gives the outputs'
+shapes, so that a fake tensor (the dry-run's, ``launch/dryrun.py``) never
+reaches ctypes; each op carries its cost (``kernels/costs.py``).
+
 The forward kernels replace ``flash_attention_pallas`` / ``_fa_kernel`` of
 ``repro/kernels/flash_attention/kernel.py``; the backward has no Pallas
 counterpart (``repro`` differentiates ``_flash_xla`` with XLA).  Each
@@ -91,7 +99,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
+from repro_torch.kernels._grad import NoBackward
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 #: library name -> source; one ``nvcc`` each
@@ -309,7 +318,7 @@ def _check(q, k, v) -> None:
         if not (isinstance(t, torch.Tensor) and t.is_cuda):
             raise ValueError("flash_attention_cuda takes CUDA tensors only; "
                              f"{name} is not one")
-        if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
+        if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D tensor "
                              f"starting on a 16-byte boundary")
         if t.dtype != q.dtype or t.device != q.device:
@@ -333,6 +342,16 @@ def _check(q, k, v) -> None:
     if (D, v.shape[3]) not in HEAD_DIMS:
         raise ValueError(f"head dims (D, Dv) = {(D, v.shape[3])} not in "
                          f"{HEAD_DIMS}")
+
+
+def _check_aligned(**tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels
+    move tiles in 16-byte vectors): the one check that reads an address,
+    so it runs in the ops' real implementations, never on a fake tensor."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous 4-D tensor "
+                             f"starting on a 16-byte boundary")
 
 
 def check_pairs(B: int, KV: int, rows: int = 1) -> None:
@@ -404,35 +423,34 @@ def _args(q, k, v, *, window, q_start, kv_len, softmax_scale):
     elif q_start < 0 or kv_len < 0:
         raise ValueError(f"q_start {q_start} and kv_len {kv_len} must be >= 0")
     scale = float(softmax_scale if softmax_scale is not None else D ** -0.5)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    return B, Sq, Skv, H, KV, D, Dv, min(kv_len, Skv), scale, stream
+    return B, Sq, Skv, H, KV, D, Dv, min(kv_len, Skv), scale
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
             splits):
-    """Launch the split-K decode; returns (out, partials (B*KV, S, Sq*G,
-    Dv + 2) f32).  ``q_start`` is a host int, or an int64 tensor on the
-    card, 0-d or a position per batch row (then each row's ``kv_len`` is
-    its ``q_start + Sq`` and the split rule is :func:`capacity_splits`).
+    """Check a split-K decode call, split it, and launch it through the
+    ``repro_torch::flash_decode`` op; returns (out, partials (B*KV, S,
+    Sq*G, Dv + 2) f32).  ``q_start`` is a host int, or an int64 tensor on
+    the card, 0-d or a position per batch row (then each row's ``kv_len``
+    is its ``q_start + Sq`` and the split rule is :func:`capacity_splits`).
     ``kv_len`` is a host int, None, or an int32 tensor on the card, 0-d or
     a length per batch row (then it is each row's ``kv_len``, whatever
     ``q_start`` is, and the split rule :func:`capacity_splits`).  Any
     number of rows ``Sq * G``: beyond :data:`DECODE_MAX_ROWS`, in row
     blocks."""
     kv_dev = kv_len if torch.is_tensor(kv_len) else None
-    B, Sq, Skv, H, KV, D, Dv, kv_len, scale, stream = _args(
+    B, Sq, Skv, H, KV, D, Dv, kv_len, scale = _args(
         q, k, v, window=window, q_start=q_start, kv_len=kv_len,
         softmax_scale=softmax_scale)
     G = H // KV
     check_pairs(B, KV, Sq * G)
-    q_pos, stride = None, 0
-    if torch.is_tensor(q_start):
-        q_pos, stride = q_start.data_ptr(), q_start.dim()
-        q_start = 0
-    kv_pos, kv_stride = (None, 0) if kv_dev is None else \
-        (kv_dev.data_ptr(), kv_dev.dim())
-    if q_pos is not None or kv_pos is not None:
-        t0 = 0
+    q_pos = q_start if torch.is_tensor(q_start) else None
+    if q_pos is not None or kv_dev is not None:
+        q_start, t0 = (0 if q_pos is not None else q_start), 0
         S, tpc = capacity_splits(B, KV, Sq, H, Dv, Skv=Skv, causal=causal,
                                  window=window, splits=splits)
     else:
@@ -442,23 +460,8 @@ def _decode(q, k, v, *, causal, window, q_start, kv_len, softmax_scale,
     if S > DECODE_MAX_SPLITS:
         raise ValueError(f"{S} splits exceed the decode kernel's "
                          f"{DECODE_MAX_SPLITS}")
-    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
-    part = torch.empty((B * KV, S, Sq * G, Dv + 2), dtype=torch.float32,
-                       device=q.device)
-    if out.numel() == 0:
-        return out, part
-    counter = _counter(q.device)
-    fn = _library("flash_decode").repro_flash_decode
-    _build.raise_on(fn(int(q.dtype == torch.bfloat16), q.data_ptr(),
-                       k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                       part.data_ptr(), counter.data_ptr(), B, Sq, Skv, H,
-                       KV, D, Dv, q_start, kv_len,
-                       -1 if window is None else window, int(bool(causal)),
-                       scale, S, t0, tpc, q_pos, stride, kv_pos, kv_stride,
-                       stream),
-                    "flash_decode")
-    LAUNCHES["flash_decode"] += 1
-    return out, part
+    return _OPS["flash_decode"](q, k, v, causal, window, q_start, q_pos,
+                                 kv_len, kv_dev, scale, S, t0, tpc)
 
 
 def flash_decode_cuda(q, k, v, *, causal: bool, window: int | None,
@@ -485,21 +488,32 @@ def flash_decode_cuda(q, k, v, *, causal: bool, window: int | None,
     return out, part[..., Dv], part[..., Dv + 1], part[..., :Dv]
 
 
-def _launch(name, lib, entry, q, k, v, *, causal, window, q_start, kv_len,
-            softmax_scale):
-    """Check, allocate the output, launch ``entry`` of library ``lib``
-    (``{sfx}`` in ``entry`` becomes the dtype's suffix), count."""
-    B, Sq, Skv, H, KV, D, Dv, kv_len, scale, stream = _args(
+def _forward(op, q, k, v, *, causal, window, q_start, kv_len,
+             softmax_scale):
+    """Check a host-position forward call and launch it through ``op``
+    (``repro_torch::flash_prefill`` or ``repro_torch::flash_attention``,
+    whose implementation is :func:`_launch`)."""
+    B, Sq, Skv, H, KV, D, Dv, kv_len, scale = _args(
         q, k, v, window=window, q_start=q_start, kv_len=kv_len,
         softmax_scale=softmax_scale)
+    return op(q, k, v, causal, window, q_start, kv_len, scale)
+
+
+def _launch(name, lib, entry, q, k, v, causal, window, q_start, kv_len,
+            scale):
+    """Allocate the output and launch ``entry`` of library ``lib``
+    (``{sfx}`` in ``entry`` becomes the dtype's suffix), count."""
+    _check_aligned(q=q, k=k, v=v)
+    B, Sq, H, _ = q.shape
+    Skv, KV, Dv = v.shape[1], v.shape[2], v.shape[3]
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     fn = getattr(_library(lib), entry.format(sfx=_SUFFIX[q.dtype]))
     _build.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), B, Sq, Skv, H, KV, D, Dv, q_start,
-                       kv_len, -1 if window is None else window,
-                       int(bool(causal)), scale, stream), name)
+                       out.data_ptr(), B, Sq, Skv, H, KV, q.shape[3], Dv,
+                       q_start, kv_len, -1 if window is None else window,
+                       int(bool(causal)), scale, _stream(q)), name)
     LAUNCHES[name] += 1
     return out
 
@@ -513,10 +527,9 @@ def flash_prefill_cuda(q, k, v, *, causal: bool, window: int | None,
     if q.dtype != torch.bfloat16 or (D, Dv) not in PREFILL_HEAD_DIMS:
         raise ValueError(f"the prefill kernel takes bf16 at (D, Dv) in "
                          f"{PREFILL_HEAD_DIMS}, got {q.dtype} at {(D, Dv)}")
-    return _launch("flash_prefill", "flash_prefill_sm90",
-                   "repro_flash_prefill_sm90", q, k, v, causal=causal,
-                   window=window, q_start=q_start, kv_len=kv_len,
-                   softmax_scale=softmax_scale)
+    return _forward(_OPS["flash_prefill"], q, k, v,
+                    causal=causal, window=window, q_start=q_start,
+                    kv_len=kv_len, softmax_scale=softmax_scale)
 
 
 def flash_simple_cuda(q, k, v, *, causal: bool, window: int | None,
@@ -524,10 +537,9 @@ def flash_simple_cuda(q, k, v, *, causal: bool, window: int | None,
                       softmax_scale: float | None = None):
     """The simple kernel (``csrc/flash_attention.cu``): every dtype and
     head-dim pair the wrapper takes."""
-    return _launch("flash_attention", "flash_attention",
-                   "repro_flash_attention_{sfx}", q, k, v, causal=causal,
-                   window=window, q_start=q_start, kv_len=kv_len,
-                   softmax_scale=softmax_scale)
+    return _forward(_OPS["flash_attention"], q, k, v,
+                    causal=causal, window=window, q_start=q_start,
+                    kv_len=kv_len, softmax_scale=softmax_scale)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
@@ -570,7 +582,7 @@ def check_backward(q, k, v, *, causal=True, window=None, q_start=0,
             "position is a decode step's, which has no gradient)")
     if not causal or window is not None or q_start != 0 \
             or (kv_len is not None and kv_len != Skv) or Sq != Skv:
-        raise NotImplementedError(
+        raise NoBackward(
             f"the flash backward takes causal attention with q_start 0, "
             f"kv_len = Skv = Sq and no window only, got causal={causal}, "
             f"window={window}, q_start={q_start}, kv_len={kv_len}, "
@@ -586,7 +598,7 @@ def pick_backward_route(dtype: torch.dtype, D: int, Dv: int) -> str:
     (D, Dv) in :data:`BACKWARD_HEAD_DIMS`; raises for any other form.  (A
     tensor-core f32 path, TF32, would miss f32's 1e-4 check.)"""
     if (D, Dv) not in BACKWARD_HEAD_DIMS or dtype not in _SUFFIX:
-        raise NotImplementedError(
+        raise NoBackward(
             f"the flash backward kernels take bf16 or f32 at (D, Dv) in "
             f"{BACKWARD_HEAD_DIMS}, got {dtype} at {(D, Dv)} (other head "
             f"dims wait for ROADMAP B)")
@@ -642,26 +654,67 @@ def backward_smem_bytes() -> tuple[int, int]:
 
 def _backward_args(q, k, v, o, do, softmax_scale):
     """Check a backward call's five tensors (the training form, CUDA,
-    contiguous, one dtype, 16-byte aligned); returns ``(B, S, H, KV, D,
-    scale, dq, dk, dv)`` with the outputs allocated."""
+    contiguous, one dtype; 16-byte alignment is checked at the launch);
+    returns the softmax scale."""
     _check(q, k, v)
     check_backward(q, k, v)
     B, S, H, D = q.shape
-    KV = k.shape[2]
     for name, t in (("o", o), ("do", do)):
         if not (isinstance(t, torch.Tensor) and t.is_cuda) \
                 or tuple(t.shape) != (B, S, H, v.shape[3]) \
                 or t.dtype != q.dtype or t.device != q.device \
-                or not t.is_contiguous() or t.data_ptr() % 16:
+                or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor of "
                              f"shape {(B, S, H, v.shape[3])} in {q.dtype} "
                              f"on {q.device}, 16-byte aligned")
     if B * H > MAX_PAIRS:
         raise ValueError(f"batch x heads = {B * H} exceeds the grid's "
                          f"{MAX_PAIRS}")
-    scale = float(softmax_scale if softmax_scale is not None else D ** -0.5)
+    return float(softmax_scale if softmax_scale is not None else D ** -0.5)
+
+
+def _backward_simple(q, k, v, o, do, scale):
+    """The CUDA-core backward's launch (``repro_torch::
+    flash_backward_simple``)."""
+    _check_aligned(q=q, k=k, v=v, o=o, do=do)
+    B, S, H, D = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    return B, S, H, KV, D, scale, dq, dk, dv
+    if q.numel() == 0:
+        return dq, dk, dv
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _library("flash_backward").repro_flash_backward
+    _build.raise_on(fn(int(q.dtype == torch.bfloat16), q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, S,
+                       H, k.shape[2], D, scale, _stream(q)),
+                    "flash_backward")
+    LAUNCHES["flash_backward"] += 1
+    BACKWARD_ROUTES["simple"] += 1
+    return dq, dk, dv
+
+
+def _backward_sm90(q, k, v, o, do, scale):
+    """The tensor-core backward's launch (``repro_torch::
+    flash_backward_sm90``)."""
+    _check_aligned(q=q, k=k, v=v, o=o, do=do)
+    B, S, H, D = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    spad = backward_tiles(S) * BACKWARD_TILE
+    lse = torch.empty((B, H, spad), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _library("flash_backward_sm90").repro_flash_backward_sm90
+    _build.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                       delta.data_ptr(), B, S, H, k.shape[2], D, v.shape[3],
+                       scale, _stream(q)), "flash_backward_sm90")
+    LAUNCHES["flash_backward"] += 1
+    BACKWARD_ROUTES["sm90"] += 1
+    return dq, dk, dv
 
 
 def flash_backward_simple_cuda(q, k, v, o, do, *,
@@ -669,22 +722,8 @@ def flash_backward_simple_cuda(q, k, v, o, do, *,
     """The CUDA-core backward (``csrc/flash_backward.cu``: a setup pass for
     each row's log-sum-exp and rowsum(do * o), then the dK/dV and dQ
     kernels), bf16 or f32: the route of f32 calls."""
-    B, S, H, KV, D, scale, dq, dk, dv = _backward_args(q, k, v, o, do,
-                                                       softmax_scale)
-    if q.numel() == 0:
-        return dq, dk, dv
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    fn = _library("flash_backward").repro_flash_backward
-    _build.raise_on(fn(int(q.dtype == torch.bfloat16), q.data_ptr(),
-                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                       dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, S,
-                       H, KV, D, scale, stream), "flash_backward")
-    LAUNCHES["flash_backward"] += 1
-    BACKWARD_ROUTES["simple"] += 1
-    return dq, dk, dv
+    scale = _backward_args(q, k, v, o, do, softmax_scale)
+    return _OPS["flash_backward_simple"](q, k, v, o, do, scale)
 
 
 def flash_backward_sm90_cuda(q, k, v, o, do, *,
@@ -693,26 +732,11 @@ def flash_backward_sm90_cuda(q, k, v, o, do, *,
     kernel, which also writes each row's log-sum-exp and rowsum(do * o) to
     f32 scratch, then the dK/dV kernel), bf16 only: the route of bf16
     calls."""
-    B, S, H, KV, D, scale, dq, dk, dv = _backward_args(q, k, v, o, do,
-                                                       softmax_scale)
+    scale = _backward_args(q, k, v, o, do, softmax_scale)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the tensor-core backward takes bf16, got "
                          f"{q.dtype}")
-    if q.numel() == 0:
-        return dq, dk, dv
-    spad = backward_tiles(S) * BACKWARD_TILE
-    lse = torch.empty((B, H, spad), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    fn = _library("flash_backward_sm90").repro_flash_backward_sm90
-    _build.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       o.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                       dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-                       delta.data_ptr(), B, S, H, KV, D, v.shape[3], scale,
-                       stream), "flash_backward_sm90")
-    LAUNCHES["flash_backward"] += 1
-    BACKWARD_ROUTES["sm90"] += 1
-    return dq, dk, dv
+    return _OPS["flash_backward_sm90"](q, k, v, o, do, scale)
 
 
 def flash_backward_cuda(q, k, v, o, do, *,
@@ -730,3 +754,120 @@ def flash_backward_cuda(q, k, v, o, do, *,
                                         softmax_scale=softmax_scale)
     return flash_backward_simple_cuda(q, k, v, o, do,
                                       softmax_scale=softmax_scale)
+
+
+# ------------------------------------------------------- torch.library ops
+#
+# Each launch entry is an op of the ``repro_torch`` namespace
+# (``costs.kernel_op``), so that a fake tensor (``FakeTensorMode``, the
+# dry-run's) reaches a shape function and never ctypes.  The wrappers
+# above check a call, split it on the host and call the op with the
+# launch's own parameters; the op's real implementation allocates the
+# outputs, launches and counts.  Every op is registered with its cost.
+
+def _flash_decode_launch(q, k, v, causal, window, q_start, q_pos, kv_len,
+                         kv_pos, scale, S, t0, tpc):
+    _check_aligned(q=q, k=k, v=v)
+    B, Sq, H, D = q.shape
+    Skv, KV, Dv = v.shape[1], v.shape[2], v.shape[3]
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    part = torch.empty((B * KV, S, Sq * (H // KV), Dv + 2),
+                       dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, part
+    counter = _counter(q.device)
+    fn = _library("flash_decode").repro_flash_decode
+    _build.raise_on(fn(int(q.dtype == torch.bfloat16), q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                       part.data_ptr(), counter.data_ptr(), B, Sq, Skv, H,
+                       KV, D, Dv, q_start, kv_len,
+                       -1 if window is None else window, int(bool(causal)),
+                       scale, S, t0, tpc,
+                       None if q_pos is None else q_pos.data_ptr(),
+                       0 if q_pos is None else q_pos.dim(),
+                       None if kv_pos is None else kv_pos.data_ptr(),
+                       0 if kv_pos is None else kv_pos.dim(), _stream(q)),
+                    "flash_decode")
+    LAUNCHES["flash_decode"] += 1
+    return out, part
+
+
+def _flash_decode_fake(q, k, v, causal, window, q_start, q_pos, kv_len,
+                       kv_pos, scale, S, t0, tpc):
+    B, Sq, H, _ = q.shape
+    KV, Dv = v.shape[2], v.shape[3]
+    return (q.new_empty((B, Sq, H, Dv)),
+            q.new_empty((B * KV, S, Sq * (H // KV), Dv + 2),
+                        dtype=torch.float32))
+
+
+def _forward_fake(q, k, v, causal, window, q_start, kv_len, scale):
+    return q.new_empty((*q.shape[:3], v.shape[3]))
+
+
+def _backward_fake(q, k, v, o, do, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flop_class(q) -> str:
+    return "tensor" if q.dtype in (torch.bfloat16, torch.float16) \
+        else "cuda_core"
+
+
+def _decode_cost(q, k, v, causal, window, q_start, q_pos, kv_len, kv_pos,
+                 *_):
+    """A decode launch's cost.  At a device position or length the count
+    cannot read it: it takes the position that reads the whole cache
+    (``kv_len = Skv``), the most the launch can need."""
+    Skv = k.shape[1]
+    if q_pos is not None:
+        q_start, kv_len = max(Skv - q.shape[1], 0), Skv
+    elif kv_pos is not None:
+        kv_len = Skv
+    return (*costs.flash_cost(*q.shape, Skv, k.shape[2], v.shape[3],
+                              q.element_size(), q_start=q_start,
+                              kv_len=kv_len, causal=causal, window=window),
+            _flop_class(q))
+
+
+def _forward_cost(q, k, v, causal, window, q_start, kv_len, scale):
+    return (*costs.flash_cost(*q.shape, *k.shape[1:3], v.shape[3],
+                              q.element_size(), q_start=q_start,
+                              kv_len=kv_len, causal=causal, window=window),
+            _flop_class(q))
+
+
+def _backward_cost(q, k, v, o, do, scale):
+    B, S, H, D = q.shape
+    return (*costs.flash_backward_cost(B, S, H, k.shape[2], D,
+                                       q.element_size()), _flop_class(q))
+
+
+_FWD = ("(Tensor q, Tensor k, Tensor v, bool causal, int? window, "
+        "int q_start, int kv_len, float scale) -> Tensor")
+_BWD = ("(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, float scale) "
+        "-> (Tensor, Tensor, Tensor)")
+_OPS = {
+    "flash_decode": costs.kernel_op(
+        "flash_decode(Tensor q, Tensor k, Tensor v, bool causal, "
+        "int? window, int q_start, Tensor? q_pos, int kv_len, "
+        "Tensor? kv_pos, float scale, int S, int t0, int tpc) "
+        "-> (Tensor, Tensor)", _flash_decode_launch, _flash_decode_fake,
+        "flash_decode", _decode_cost),
+    "flash_prefill": costs.kernel_op(
+        "flash_prefill" + _FWD,
+        lambda *a: _launch("flash_prefill", "flash_prefill_sm90",
+                           "repro_flash_prefill_sm90", *a),
+        _forward_fake, "flash_prefill", _forward_cost),
+    "flash_attention": costs.kernel_op(
+        "flash_attention" + _FWD,
+        lambda *a: _launch("flash_attention", "flash_attention",
+                           "repro_flash_attention_{sfx}", *a),
+        _forward_fake, "flash_attention", _forward_cost),
+    "flash_backward_sm90": costs.kernel_op(
+        "flash_backward_sm90" + _BWD, _backward_sm90, _backward_fake,
+        "flash_backward", _backward_cost),
+    "flash_backward_simple": costs.kernel_op(
+        "flash_backward_simple" + _BWD, _backward_simple, _backward_fake,
+        "flash_backward", _backward_cost),
+}

@@ -21,9 +21,12 @@ and the carries f32, ``gx`` bf16 or f32), contiguity, shapes and T >= 1;
 it allocates the outputs with ``torch.empty``, launches on PyTorch's
 current stream and raises if the launch was refused.
 ``LAUNCHES["rglru"]`` counts launches of either kernel, ``ROUTES`` each
-kernel's; :func:`reset_launches` sets both to 0.  The library reports
-the constants it was built with, and one that differs from these is
-refused.
+kernel's; :func:`reset_launches` sets both to 0.  Each kernel's launch
+is a ``torch.library`` op (``repro_torch::rglru_step``,
+``repro_torch::rglru_staged``; a fake tensor gets its shapes and never
+reaches ctypes), with its cost from ``kernels/costs.py``.  The library
+reports the constants it was built with, and one that differs from these
+is refused.
 
 It replaces ``rglru_pallas`` / ``_rglru_kernel`` of
 ``repro/kernels/rglru/kernel.py``; the source note says what bounds it and
@@ -38,7 +41,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "rglru.cu"
 
@@ -167,11 +170,19 @@ def _check(log_a, gx, h0, state_out) -> None:
 
 
 def _launch(route: str, log_a, gx, h0, state_out):
+    """Check a call and launch the ``route`` kernel through its op
+    (``repro_torch::rglru_step`` / ``repro_torch::rglru_staged``), which
+    writes hT into its last argument."""
     _check(log_a, gx, h0, state_out)
     B, T, D = gx.shape
-    h = torch.empty_like(gx)
     hT = state_out if state_out is not None else torch.empty(
         (B, D), dtype=torch.float32, device=gx.device)
+    return _OPS[route](log_a, gx, h0, hT), hT
+
+
+def _launch_op(route: str, log_a, gx, h0, hT):
+    B, T, D = gx.shape
+    h = torch.empty_like(gx)
     fn = getattr(_library(), f"repro_rglru_{route}_{_SUFFIX[gx.dtype]}")
     extra = () if route == "step" else (copy_channels(
         D, gx.element_size(), log_a.data_ptr(), gx.data_ptr()),)
@@ -182,7 +193,7 @@ def _launch(route: str, log_a, gx, h0, state_out):
                     f"rglru {route}")
     LAUNCHES["rglru"] += 1
     ROUTES[route] += 1
-    return h, hT
+    return h
 
 
 def rglru_step_cuda(log_a, gx, h0=None, *, state_out=None):
@@ -202,3 +213,20 @@ def rglru_cuda(log_a, gx, h0=None, *, state_out=None):
     hT (a fresh tensor when None) and may be ``h0`` itself."""
     route = pick_route(gx.shape[1]) if gx.dim() == 3 else "step"
     return _launch(route, log_a, gx, h0, state_out)
+
+
+# ``torch.library`` ops, one a kernel, so that a fake tensor (the
+# dry-run's) reaches a shape function and never ctypes.  hT may be h0
+# itself, and an op's output may not alias an input: hT is its last
+# argument, written in place, and the wrapper returns it.
+
+def _cost(log_a, gx, h0, hT):
+    return (*costs.rglru_cost(*gx.shape, gx.element_size(),
+                              h0=h0 is not None), "cuda_core")
+
+
+_OPS = {route: costs.kernel_op(
+    f"rglru_{route}(Tensor log_a, Tensor gx, Tensor? h0, Tensor(a!) hT) "
+    f"-> Tensor", lambda *a, route=route: _launch_op(route, *a),
+    lambda log_a, gx, *_: torch.empty_like(gx), "rglru", _cost)
+    for route in ("step", "staged")}

@@ -10,7 +10,9 @@ or f32, one for r, k, v, w and u; the states f32), contiguity, shapes,
 T >= 1 and the head size N (one of :data:`HEAD_SIZES`); it allocates the
 output with ``torch.empty``, launches on PyTorch's current stream and
 raises if the launch was refused.  ``LAUNCHES["wkv6"]`` counts launches;
-:func:`reset_launches` sets it to 0.
+:func:`reset_launches` sets it to 0.  The launch is the ``repro_torch::
+wkv6`` op (``torch.library``; a fake tensor gets its shapes and never
+reaches ctypes), with its cost from ``kernels/costs.py``.
 
 It replaces ``wkv6_pallas`` / ``_wkv6_kernel`` of
 ``repro/kernels/rwkv6/kernel.py``; the source note says what bounds it and
@@ -31,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "wkv6.cu"
 
@@ -149,17 +151,39 @@ def wkv6_cuda(r, k, v, w, u, *, initial_state=None, state_out=None):
     """The WKV-6 recurrence on the card: r, k, v, w ``(B,T,H,N)``, u
     ``(H,N)`` -> (out ``(B,T,H,N)`` in r's dtype, final state
     ``(B,H,N,N)`` f32).  ``state_out`` receives the final state (a fresh
-    tensor when None) and may be ``initial_state`` itself."""
+    tensor when None) and may be ``initial_state`` itself.  The launch is
+    the ``repro_torch::wkv6`` op, which writes the final state into its
+    last argument."""
     _check(r, k, v, w, u, initial_state, state_out)
     B, T, H, N = r.shape
-    out = torch.empty_like(r)
     sT = state_out if state_out is not None else torch.empty(
         (B, H, N, N), dtype=torch.float32, device=r.device)
+    return _OP(r, k, v, w, u, initial_state, sT), sT
+
+
+def _launch(r, k, v, w, u, s0, sT):
+    B, T, H, N = r.shape
+    out = torch.empty_like(r)
     fn = getattr(_library(), f"repro_wkv6_{_SUFFIX[r.dtype]}")
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    s0 = None if initial_state is None else initial_state.data_ptr()
     _build.raise_on(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       w.data_ptr(), u.data_ptr(), s0, out.data_ptr(),
+                       w.data_ptr(), u.data_ptr(),
+                       None if s0 is None else s0.data_ptr(), out.data_ptr(),
                        sT.data_ptr(), B, T, H, N, stream), "wkv6")
     LAUNCHES["wkv6"] += 1
-    return out, sT
+    return out
+
+
+def _cost(r, k, v, w, u, s0, sT):
+    return (*costs.wkv6_cost(*r.shape, r.element_size(),
+                             initial_state=s0 is not None), "cuda_core")
+
+
+# A ``torch.library`` op, so that a fake tensor (the dry-run's) reaches a
+# shape function and never ctypes.  The final state may be the initial
+# state itself, and an op's output may not alias an input: the state is
+# its last argument, written in place, and the wrapper returns it.
+_OP = costs.kernel_op(
+    "wkv6(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? s0, "
+    "Tensor(a!) sT) -> Tensor", _launch,
+    lambda r, *_: torch.empty_like(r), "wkv6", _cost)

@@ -10,6 +10,8 @@ serve.py  -- decode_state_graph, plan_decode_arena, pack/unpack/realize
 train.py  -- the training CLI (``python -m repro_torch.launch.train``)
 mesh.py   -- the production and host meshes, ``rules_for_mesh``, and a
              process group of one rank in this process
-
-The dry-run waits for ROADMAP A10.
+dryrun.py -- every (arch x shape x mesh) cell's step on fake tensors over
+             a fake 256/512-rank process group, counted (FLOPs, bytes,
+             collectives, kernel launches, peak memory) into a roofline
+             record a cell (``python -m repro_torch.launch.dryrun``)
 """

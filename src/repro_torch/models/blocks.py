@@ -36,6 +36,7 @@ from repro_torch.models.layers import (
     moe_apply,
     moe_defs,
     norm_defs,
+    proj_rows,
     rms_norm,
 )
 from repro_torch.models.moe_ep import moe_apply_ep
@@ -146,7 +147,7 @@ def rwkv6_block_apply(p, x, ctx: Ctx, cache=None):
         torch.zeros((B, D), dtype=h.dtype, device=h.device)
     xx = _token_shift(h, last) - h
     xxx = h + xx * tm["mu_x"]
-    lo = torch.tanh(torch.einsum("btd,dr->btr", xxx, tm["lora_a"]))
+    lo = torch.tanh(proj_rows(xxx, tm["lora_a"], ctx.rules, 5))
     lo = lo.reshape(B, T, 5, _RWKV_LORA)
     mix = tm["mu"][None, None] + torch.einsum("btfr,frd->btfd", lo,
                                               tm["lora_b"])

@@ -31,13 +31,13 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import _local
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.params import ParamDef
-from repro_torch.parallel.sharding import shard_act, write_rows
+from repro_torch.parallel.sharding import axis_size, shard_act, write_rows
 
 f32 = torch.float32
 
@@ -113,6 +113,22 @@ def attn_defs(cfg: ArchConfig, *, cross: bool = False) -> dict:
     return d
 
 
+def proj_rows(x, w, rules, groups: int):
+    """``einsum("bsd,d...->bs...", x, w)``: a projection of each row of
+    ``x`` whose features the caller splits into ``groups`` (heads, say).
+    Under rules whose tensor axis does not divide ``groups``, ``w`` keeps
+    them whole, and DTensor may split the einsum's flattened features over
+    that axis instead -- where ``x``'s rows are split in strides (a
+    sequence split inside a split batch) it cannot keep the rows split --
+    and no view splits such features back into groups.  There the product
+    is a ``bmm`` with the batch kept apart, whose rows stay split as
+    ``x``'s (batch, sequence) are."""
+    if rules is None or groups % axis_size(rules, rules.tensor) == 0:
+        return torch.einsum("bsd,d...->bs...", x, w)
+    y = torch.bmm(x, w.flatten(1).expand(x.shape[0], -1, -1))
+    return y.unflatten(-1, tuple(w.shape[1:]))
+
+
 def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
                cache: dict | None = None, kv_src=None, kv_src_len=None,
                causal: bool = True, use_rope: bool = True):
@@ -145,9 +161,9 @@ def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
     """
     cfg = ctx.cfg
     src = x if kv_src is None else kv_src
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    q = proj_rows(x, p["wq"], ctx.rules, cfg.n_heads)
+    k = proj_rows(src, p["wk"], ctx.rules, cfg.n_kv_heads)
+    v = proj_rows(src, p["wv"], ctx.rules, cfg.n_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, p["qnorm"])
         k = rms_norm(k, p["knorm"])
@@ -544,7 +560,14 @@ def embed_defs(cfg: ArchConfig) -> dict:
 
 
 def embed_apply(p, tokens, cfg: ArchConfig):
-    x = p["tok"][tokens]
+    w = p["tok"]
+    if isinstance(w, DTensor):
+        # the table whole on every rank, looked up by F.embedding, whose
+        # gradient DTensor places; indexing's backward (an index_put_)
+        # torch 2.11 cannot place, and a vocabulary split leaves masked
+        # partial sums that later torch cannot reduce
+        w = w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+    x = F.embedding(tokens, w)
     if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
 from torch.distributed.tensor import (
@@ -194,6 +195,18 @@ def divisible_axes(axes, dim: int, sizes: dict, used=frozenset()) -> list:
     return keep
 
 
+def axis_size(rules, axes) -> int:
+    """Ranks along ``axes`` (a mesh-axis name, a tuple of them, or None) of
+    ``rules.mesh``: 1 for None or an axis the mesh lacks."""
+    if axes is None:
+        return 1
+    sizes = dict(zip(rules.mesh.mesh_dim_names, tuple(rules.mesh.shape)))
+    n = 1
+    for a in (axes,) if isinstance(axes, str) else axes:
+        n *= sizes.get(a, 1)
+    return n
+
+
 def spec_entry(axes):
     """A spec entry of the mesh axes ``axes``: None, one name, or a
     tuple."""
@@ -205,15 +218,63 @@ def shard_act(x, rules, kind: str):
     itself without rules, else ``x`` redistributed to the spec's
     placements on ``rules.mesh``, less the axes that do not divide their
     dimension of ``x`` (:func:`divisible_axes`, as ``param_pspecs`` drops
-    them); a plain tensor is taken as replicated first."""
+    them); a plain tensor is taken as replicated first.
+
+    Every projection flattens an activation's (batch, sequence) into the
+    rows of one product.  Where this torch's DTensor cannot flatten a
+    sequence split inside a split batch (:func:`flattens_split_rows`:
+    torch 2.11 refuses), an activation whose batch and sequence are both
+    split (``kind`` ``"bs..."``) takes the sequence's axes on its batch
+    instead, if the batch divides over them all; each rank holds as many
+    rows either way."""
     if rules is None:
         return x
     mesh = rules.mesh
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
-    spec = P(*(spec_entry(divisible_axes(
-        () if e is None else (e,) if isinstance(e, str) else e, dim, sizes))
-        for e, dim in zip(act_spec(rules, kind), x.shape)))
+    axes = [divisible_axes(() if e is None else (e,) if isinstance(e, str)
+                           else e, dim, sizes)
+            for e, dim in zip(act_spec(rules, kind), x.shape)]
+    if kind.startswith("bs") and axes[0] and axes[1] \
+            and not flattens_split_rows(mesh):
+        both = sorted(axes[0] + axes[1],
+                      key=lambda a: mesh.mesh_dim_names.index(a))
+        if x.shape[0] % math.prod(sizes[a] for a in both) == 0:
+            axes[0], axes[1] = both, []
+    spec = P(*(spec_entry(a) for a in axes))
     return as_dtensor(x, mesh).redistribute(mesh, placements(spec, mesh))
+
+
+#: :func:`flattens_split_rows`' answer, found once a process
+_FLATTENS: list = []
+
+
+def flattens_split_rows(mesh) -> bool:
+    """Whether this torch's DTensor flattens two dimensions split over two
+    mesh dimensions (a sequence split inside a split batch) into one:
+    later versions do, in strided shards; torch 2.11 refuses.  Found once
+    a process by flattening such a DTensor over a meta tensor on two mesh
+    dimensions of ``mesh`` with more than one rank (True where ``mesh``
+    has fewer: nothing is split twice there), outside every dispatch mode
+    (no collective: a view is metadata)."""
+    js = [j for j, n in enumerate(tuple(mesh.shape)) if n > 1][:2]
+    if len(js) < 2:
+        return True
+    if not _FLATTENS:
+        from torch.utils._python_dispatch import _disable_current_modes
+        pl = [Replicate()] * mesh.ndim
+        pl[js[0]], pl[js[1]] = Shard(0), Shard(1)
+        n0, n1 = mesh.size(js[0]), mesh.size(js[1])
+        with _disable_current_modes():
+            probe = DTensor.from_local(
+                torch.empty((1, 1, 1), device="meta"), mesh, pl,
+                run_check=False, shape=torch.Size((n0, n1, 1)),
+                stride=(n1, 1, 1))
+            try:
+                probe.view(n0 * n1, 1)
+                _FLATTENS.append(True)
+            except (RuntimeError, AssertionError):
+                _FLATTENS.append(False)
+    return _FLATTENS[0]
 
 
 #: how many :func:`sharded` contexts are open
@@ -289,22 +350,38 @@ def _split_dims(buf: DTensor) -> set:
             if isinstance(p, Shard) and mesh.size(j) > 1}
 
 
-def _local_offsets(buf: DTensor) -> list[int]:
-    """Global offset of this rank's shard of ``buf`` in each dimension."""
-    from torch.distributed.tensor._utils import (
-        compute_local_shape_and_global_offset,
-    )
-    _, off = compute_local_shape_and_global_offset(
-        buf.shape, buf.device_mesh, buf.placements)
-    return list(off)
+def _chunk(n: int, k: int, i: int) -> tuple[int, int]:
+    """(offset, size) of chunk ``i`` of ``k`` of a dimension of ``n``, as
+    ``torch.chunk`` and DTensor's ``Shard`` cut it: chunks of ``ceil(n /
+    k)``, the last ones short or empty."""
+    c = -(-n // k)
+    lo = min(i * c, n)
+    return lo, min(n, lo + c) - lo
+
+
+def local_extent(shape, mesh, pl, coord=None) -> tuple[list, list]:
+    """``(local shape, global offsets)`` of the shard of a tensor of
+    ``shape`` at placements ``pl`` on ``mesh`` that the rank at mesh
+    coordinate ``coord`` (default this rank's) holds, on the host: each
+    mesh dimension that shards a tensor dimension cuts what the mesh
+    dimensions before it left (DTensor shards in mesh order).  No tensor
+    is made, so it holds under a ``FakeTensorMode`` too."""
+    coord = mesh.get_coordinate() if coord is None else coord
+    off, size = [0] * len(shape), list(shape)
+    for j, p in enumerate(pl):
+        if isinstance(p, Shard):
+            lo, size[p.dim] = _chunk(size[p.dim], mesh.size(j), coord[j])
+            off[p.dim] += lo
+    return size, off
 
 
 def write_rows(buf, new, *, rows=None, positions=None, start=None) -> None:
     """Write ``new`` ``(B, S, ...)`` into ``buf`` ``(B, Smax, ...)`` in
     place, at sequence positions ``start + arange(S)`` (``start`` an int),
-    at ``positions`` (a 1-D index of length S, every row alike) or, with
-    ``rows``, at ``(rows, positions)`` (both ``(B, S)``): the three forms
-    of ``layers.attn_apply``'s cache write, for a DTensor ``buf``.
+    at ``positions`` (a 1-D index of S consecutive positions, every row
+    alike) or, with ``rows``, at ``(rows, positions)`` (both ``(B, S)``):
+    the three forms of ``layers.attn_apply``'s cache write, for a DTensor
+    ``buf``.
 
     ``new`` is redistributed to ``buf``'s placements except in the
     dimensions the write indexes (batch with ``rows``, sequence always),
@@ -312,8 +389,11 @@ def write_rows(buf, new, *, rows=None, positions=None, start=None) -> None:
     own shard.  Where no indexed dimension is split (one device, or
     batch- and head-sharded caches) that is the plain write on the local
     tensors, the same operation as without a mesh.  Where one is split the
-    rank keeps the entries of its shard, which reads the index on the host
-    (under rules the decode is eager: ``launch/steps.py``)."""
+    rank keeps the entries of its shard: by host arithmetic for an int
+    ``start``, on the device for ``positions`` (no more than the shard
+    holds), and otherwise by reading the index on the host (under rules
+    the decode is eager: ``launch/steps.py``); none reads data on the host
+    but the last, so the first two run on fake tensors too."""
     mesh = buf.device_mesh
     indexed = {0, 1} if rows is not None else {1}
     pl = [Replicate() if isinstance(p, Shard) and p.dim in indexed else p
@@ -322,8 +402,6 @@ def write_rows(buf, new, *, rows=None, positions=None, start=None) -> None:
         mesh, pl).to_local()
     buf_l = buf.to_local()
     S = new_l.shape[1]
-    if start is not None:
-        positions = torch.arange(start, start + S, device=buf_l.device)
     split = _split_dims(buf) & indexed
     if not split:
         if rows is not None:
@@ -333,8 +411,26 @@ def write_rows(buf, new, *, rows=None, positions=None, start=None) -> None:
         else:
             buf_l.index_copy_(1, positions, new_l)
         return
-    off = _local_offsets(buf)
+    off = local_extent(buf.shape, mesh, buf.placements)[1]
     n0, n1 = buf_l.shape[0], buf_l.shape[1]
+    if start is not None:
+        # the rows [start, start + S) that fall in this rank's shard, by
+        # host arithmetic
+        lo, hi = max(start - off[1], 0), min(start + S - off[1], n1)
+        if lo < hi:
+            a = lo - (start - off[1])
+            buf_l[:, lo:hi] = new_l[:, a:a + hi - lo]
+        return
+    if rows is None and S <= n1:
+        # consecutive positions (a decode step's t + arange(S)) fall on
+        # distinct slots mod n1: each slot outside the shard is written
+        # back with what it holds, so nothing is read on the host
+        lp = positions.to(torch.long) - off[1]
+        keep = ((lp >= 0) & (lp < n1)).view(1, S, *[1] * (new_l.dim() - 2))
+        idx = lp % n1
+        buf_l.index_copy_(1, idx, torch.where(keep, new_l,
+                                              buf_l.index_select(1, idx)))
+        return
     if rows is None:
         lp = positions.to(torch.long) - off[1]
         keep = ((lp >= 0) & (lp < n1)).nonzero()[:, 0]

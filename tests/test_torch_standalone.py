@@ -13,8 +13,10 @@ and takes a train step of the smoke ``llama3.2-1b`` on the CPU (under its
 default ``remat="block"``); a third, with ``jax`` and ``ml_dtypes``
 unimportable, imports the parallel modules (``repro_torch.parallel``,
 ``launch.mesh``, ``models.moe_ep``) and takes a sharded train step of two
-smoke families at a mesh of one rank; a scan of the port's sources and of
-``chip_smoke.py`` finds no import of ``jax``, ``ml_dtypes`` or ``repro``.
+smoke families at a mesh of one rank; a fourth imports the dry-run
+(``launch.dryrun``) and counts a DTensor product over a fake group of 4;
+a scan of the port's sources and of ``chip_smoke.py`` finds no import of
+``jax``, ``ml_dtypes`` or ``repro``.
 """
 
 import ast
@@ -175,6 +177,45 @@ def test_parallel_modules_run_without_jax():
     rank (gloo, in process)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _PARALLEL_CHILD], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["ok"]
+
+
+_DRYRUN_CHILD = """
+import sys
+sys.modules["jax"] = None
+sys.modules["ml_dtypes"] = None
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Shard
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import production_shape
+with dryrun.fake_world(4):
+    mesh = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+    x = DTensor.from_local(torch.ones(2, 8), mesh, [Shard(0)],
+                           run_check=False, shape=torch.Size([8, 8]),
+                           stride=(8, 1))
+    with dryrun.CostMode() as m:
+        x @ x.T
+assert m.flops["cuda_core"] == 2 * 2 * 8 * 8 and m.collectives()[
+    "bytes_by_type"]["all-gather"] == 8 * 8 * 4, (m.flops, m.collectives())
+cfg = dryrun.configs.get("llama3.2-1b")
+assert dryrun.min_bytes_estimate(cfg, dryrun.SHAPES["train_4k"],
+                                 production_shape().size()) > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_dryrun_runs_without_jax():
+    """``repro_torch.launch.dryrun`` imports with JAX absent, and its
+    counting mode counts a DTensor product over a fake group of 4."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _DRYRUN_CHILD], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["ok"]
