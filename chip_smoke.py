@@ -11,12 +11,15 @@ non-zero):
 1. build   -- compile ``src/repro_torch/csrc/arena.cu``,
               ``flash_attention.cu``, ``flash_decode.cu``,
               ``flash_prefill_sm90.cu``, ``flash_backward.cu``,
-              ``flash_backward_sm90.cu``, ``wkv6.cu`` and ``rglru.cu``
-              (nvcc, sm_90a, all eight started together) and print the
+              ``flash_backward_sm90.cu``, ``wkv6.cu`` and ``rglru.cu``,
+              and the RG-LRU control (a copy of ``rglru.cu`` whose
+              backward drops a_(t+1) in one block, RGLRU_CONTROL_EDIT)
+              (nvcc, sm_90a, all nine started together) and print the
               build seconds of each, the registers, shared memory and
               spills (``-Xptxas -v``) of the arena kernels (accum among
-              them), the WKV-6 and RG-LRU kernels and the four newer flash
-              kernels, the card's name and power limit;
+              them), the WKV-6 and RG-LRU kernels (the RG-LRU backward
+              among them) and the four newer flash kernels (both backward
+              kernels at D 64 and 256), the card's name and power limit;
 2. kernels -- hold each arena kernel against its plain PyTorch version on
               the card.  write and read (one vectorised byte copy split by
               ``copy_plan``), f32 and u8: every destination phase x source
@@ -245,20 +248,51 @@ non-zero):
               by CUDA events, launches a step exactly 16 / 32 / 32
               ``flash_prefill`` and 16 ``flash_backward``);
               ``launch/train.py``'s ``main`` in process for 7 steps at the
-              CLI's defaults (batch 8, seq 256, AdamW, bf16) with a
-              checkpoint at step 4, its launches counted from 0 (32 x 7
-              ``flash_prefill`` and 16 x 7 ``flash_backward``, the
-              backward's 112 on the tensor-core route), every loss
+              CLI's defaults (batch 8, seq 256, AdamW, bf16) at published
+              width, 2 layers deep (``--layers``: the checkpoints' disk
+              writes), with a checkpoint at step 4, its launches counted
+              from 0 (4 x 7 ``flash_prefill`` and 2 x 7
+              ``flash_backward``, the backward's on the tensor-core
+              route), every loss
               finite, and a second run
               resumed from that checkpoint alone, whose parameters and
               optimizer state end bit-equal to the first's (both under
               ``torch.use_deterministic_algorithms(True)``); rwkv6-7b's
-              and Griffin's ``loss_fn`` raising under autograd on the card
-              (no backward kernel yet); and the flash forward and backward
+              ``loss_fn`` raising under autograd on the card (no WKV-6
+              backward yet); and the flash forward and backward
               at the step's shape against their bounds, their plain
               versions and SDPA's forward and backward, the two backward
               kernels timed in turns (CUDA-core, tensor-core, tensor-core,
-              CUDA-core).
+              CUDA-core).  Then Griffin: the RG-LRU backward kernel
+              (``rglru_backward_cuda``) against ``rglru_backward_torch``
+              at D 2560, (B, T) in RG_BWD_CASES, gx f32 and bf16, with and
+              without h0 (and dhT): each gradient within RG_BWD_RTOL of
+              its largest (the bit-equal cases counted), two runs
+              bit-equal, the control above the limit in its block only;
+              both flash backward kernels at Griffin's heads (H 10, KV 1,
+              (256, 256)) with windows (GRIFFIN_BWD_CASES), f32 within
+              1e-4, bf16 within 4 ulps, the window one key too wide
+              reading above that (GRIFFIN_CONTROL_CASES), and
+              ``FlashAttentionFn`` with a window against autograd;
+              recurrentgemma-2b at full width (the recurrent mixing
+              leaves filled from a seed): its gradient through the
+              kernels against impl="torch", leaf by leaf and layer by
+              layer (within GRIFFIN_GRAD_RTOL, the RG-LRU control in the
+              last recurrent layer's launch and the last attention layer's
+              dK zeroed above it),
+              one step through the kernels against the plain step (loss
+              and grad_norm within GRIFFIN_TRAIN_ATOL) with exactly 16
+              ``flash_prefill``, 8 ``flash_backward`` (tensor-core), 34
+              staged ``rglru`` and 18 ``rglru_backward`` launches
+              (``train_launches``), ms a step, tokens/s, idle share and
+              peak memory, ``launch/train.py``'s ``main`` for
+              GRIFFIN_STEPS steps at published width, GRIFFIN_CLI_LAYERS
+              deep (a checkpoint at GRIFFIN_CKPT_EVERY, every loss finite,
+              launches counted) and the resume from that checkpoint
+              bit-equal; then the RG-LRU backward and the flash backward
+              at Griffin's training shapes timed beside their bounds,
+              plain versions and SDPA's backward (each in a replayed CUDA
+              graph).
 
 11. a7     -- (run after phase 7's decoders) this slice's families:
               first each new attention shape, bf16 and f32, through the
@@ -392,8 +426,12 @@ non-zero):
               process of its own started at the phase's start: exit 0,
               records written (``chiprun_out/dryrun/``), max RSS under 8
               GB, llama's record 32 ``flash_prefill`` and 16
-              ``flash_backward`` a device.  The flash rows carry llama's
-              record's launches (``dryrun``).
+              ``flash_backward`` a device; (e) recurrentgemma-2b's train
+              step at the smoke depth (4 layers, published width, window
+              64) counted on real and on fake CUDA tensors: equal
+              launches, FLOPs and bytes, the launches ``train_launches``'s.
+              The flash rows carry llama's record's launches
+              (``dryrun``).
 
 The kernels JSON (one entry per kernel) is printed third from last, the
 card's name and power limit second from last, and ``{"ok": true,
@@ -2713,12 +2751,8 @@ def check_served_packing(model, params, plan, req, dev):
 def served_config(arch):
     """``arch``'s config as served here: published, or (an ``A7`` model
     with ``depth``) at published width with its depth cut."""
-    import dataclasses
-
     import repro_torch.configs as configs
-    cfg = configs.get(arch)
-    depth = SERVES[arch].get("depth")
-    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+    return configs.cut_depth(configs.get(arch), SERVES[arch].get("depth"))
 
 
 def phase_serve(dev, arch):
@@ -4333,8 +4367,13 @@ TRAIN_ATOL = SERVES["llama3.2-1b"]["logit_atol"]
 # it
 TRAIN_GRAD_RTOL = 3e-2
 # the CLI's run: TRAIN_STEPS steps at its defaults (batch 8, seq 256, AdamW,
-# bf16), a checkpoint at TRAIN_CKPT_EVERY; the replay resumes there
+# bf16) at published width, the depth cut to TRAIN_CLI_LAYERS, a checkpoint
+# at TRAIN_CKPT_EVERY; the replay resumes there.  The run and its replay
+# write three checkpoints (bf16 parameters and f32 AdamW moments): 11.5 GB
+# at 2 layers (37.1 GB at all 16), so that Griffin's run fits beside them
+# in the 45 GiB of disk writes the card's machine allows a call
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ = 7, 4, 8, 256
+TRAIN_CLI_LAYERS = 2
 TIMED_STEPS = 5
 # cfg.remat settings the train phase runs in turns (the config's default,
 # "block", is what the CLI runs)
@@ -4354,12 +4393,30 @@ def bwd_tol(want, dtype) -> float:
 
 
 def train_launches(cfg, steps: int = 1) -> dict:
-    """The flash kernels' launches over ``steps`` train steps of ``cfg``:
-    one forward a layer, and one more where ``cfg.remat`` recomputes each
-    block in the backward ("block", "dots"); one backward a layer."""
+    """The kernels' launches over ``steps`` train steps of ``cfg``: one
+    forward a layer, and one more where ``cfg.remat`` recomputes each
+    wrapped block in the backward ("block", "dots"); one backward a layer.
+    Attention layers launch ``flash_prefill`` and ``flash_backward``;
+    Griffin's recurrent layers the RG-LRU forward (``rglru``) and
+    ``rglru_backward``.  Griffin wraps each group of its pattern and not
+    the tail (the layers past the last whole group), whose forward runs
+    once: at recurrentgemma-2b's 26 layers, 8 groups (rec, rec, attn) and
+    2 rec layers, a step is 16 ``flash_prefill``, 8 ``flash_backward``,
+    2 x 16 + 2 = 34 ``rglru`` and 18 ``rglru_backward``."""
     again = 0 if cfg.remat in ("none", False) else 1
-    return {"flash_prefill": (1 + again) * cfg.n_layers * steps,
-            "flash_backward": cfg.n_layers * steps}
+    if cfg.family != "hybrid":
+        return {"flash_prefill": (1 + again) * cfg.n_layers * steps,
+                "flash_backward": cfg.n_layers * steps}
+    pattern = cfg.block_pattern
+    groups = cfg.n_layers // len(pattern)
+    tail = pattern[:cfg.n_layers - groups * len(pattern)]
+    out = {}
+    for kind, fwd, bwd in (("attn", "flash_prefill", "flash_backward"),
+                           ("rec", "rglru", "rglru_backward")):
+        g, t = groups * pattern.count(kind), tail.count(kind)
+        out[fwd] = ((1 + again) * g + t) * steps
+        out[bwd] = (g + t) * steps
+    return out
 
 
 def bwd_bound(q, k, v) -> tuple[float, float]:
@@ -4495,11 +4552,15 @@ def check_flash_backward(dev) -> dict:
 
 
 def leaf_paths(tree, prefix="") -> list[str]:
-    """The leaves' paths in ``tree_flatten``'s order (sorted dict keys)."""
+    """The leaves' paths in ``tree_flatten``'s order (sorted dict keys,
+    lists and tuples in order by index, ``None`` no leaf)."""
     if isinstance(tree, dict):
         return [p for k in sorted(tree)
                 for p in leaf_paths(tree[k], f"{prefix}/{k}")]
-    return [prefix]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in leaf_paths(t, f"{prefix}/{i}")]
+    return [] if tree is None else [prefix]
 
 
 def loss_grads(model, params, batch, impl) -> tuple:
@@ -4515,12 +4576,18 @@ def loss_grads(model, params, batch, impl) -> tuple:
     return loss.detach(), grads
 
 
-def worst_grad_err(got, want, paths, n_layers) -> tuple[float, str]:
+def worst_grad_err(got, want, paths, n_layers,
+                   stacked=None) -> tuple[float, str]:
     """The worst relative L2 error ||g - w|| / ||w|| over the leaves, a
-    stacked leaf (first dim ``n_layers``) layer by layer, and where."""
+    stacked leaf (first dim ``n_layers``, or where ``stacked(path, w)``)
+    layer by layer, and where."""
+    check(len(paths) == len(got) == len(want),
+          f"{len(paths)} leaf paths for {len(got)} / {len(want)} gradients")
     worst, where = 0.0, ""
+    is_stacked = stacked or (lambda path, w: w.dim() >= 2
+                             and w.shape[0] == n_layers)
     for path, g, w in zip(paths, got, want):
-        stacked = w.dim() >= 2 and w.shape[0] == n_layers
+        stacked = is_stacked(path, w)
         for i, (gs, ws) in enumerate(zip(g, w) if stacked else [(g, w)]):
             d = float(torch.linalg.vector_norm((gs - ws).float()))
             e = d / max(float(torch.linalg.vector_norm(ws.float())), 1e-30)
@@ -4722,16 +4789,20 @@ def time_train_step(model, opt, state, batch, card) -> dict:
                activities=n_act, peak_allocated=peak, parts_device_host_ms=parts,
                flash_prefill_us=kern("flash_prefill_kernel"),
                flash_backward_us=kern("bwd_"),
+               rglru_us=kern("rglru_staged_kernel"),
+               rglru_backward_us=kern("rglru_backward_kernel"),
                gemm_us=kern("gemm") + kern("nvjet") + kern("cutlass"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    say(f"train: llama3.2-1b step (B {TRAIN_BATCH}, S {TRAIN_SEQ}, bf16, "
+    say(f"train: {model.cfg.name} step (B {TRAIN_BATCH}, S {TRAIN_SEQ}, bf16, "
         f"AdamW): {med:.2f} ms median, {min(ms):.2f} min of {TIMED_STEPS} "
         f"(host clock, each ending in synchronize); {out['tokens_per_s']:.0f} "
         f"tokens/s; model FLOPs (6 x {n} x {tokens}) {share:.4f} of "
         f"989 TFLOP/s; one traced step: device busy {busy:.1f} us, idle "
         f"share {out['idle_share']:.4f}, {n_act} activities, flash prefill "
         f"{out['flash_prefill_us']:.1f} us, flash backward "
-        f"{out['flash_backward_us']:.1f} us, products (gemm / nvjet / "
+        f"{out['flash_backward_us']:.1f} us, RG-LRU forward / backward "
+        f"{out['rglru_us']:.1f} / {out['rglru_backward_us']:.1f} us, "
+        f"products (gemm / nvjet / "
         f"cutlass kernels) {out['gemm_us']:.1f} us; parts by CUDA events "
         f"(host issue) "
         + ", ".join(f"{k} {d:.2f} ms ({h:.2f})" for k, (d, h)
@@ -4844,30 +4915,54 @@ def remat_compare(model, opt, state, batch, card) -> dict:
     return rec
 
 
-def cli_run_and_replay(dev, card) -> dict:
-    """``launch/train.py``'s ``main`` in this process: TRAIN_STEPS steps of
-    full-width llama3.2-1b at the CLI's defaults with a checkpoint every
-    TRAIN_CKPT_EVERY steps, the launch counts set to 0 just before and
-    read just after (the train path's own); then a second run in another
-    directory that holds only the step-TRAIN_CKPT_EVERY checkpoint, which
-    resumes there and replays to TRAIN_STEPS.  Both under
+def state_digests(tree) -> list:
+    """Each leaf's dtype, shape and the SHA-256 of its bytes, copied to the
+    host a leaf at a time by 8 threads (hashlib and the copy release the
+    GIL): two states with equal digests are bit-equal (but for a hash
+    collision), and neither is held on the host whole."""
+    import hashlib
+
+    from repro_torch.models.params import tree_leaves
+
+    def one(t):
+        b = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+        return (str(t.dtype), tuple(t.shape),
+                hashlib.sha256(b.numpy()).hexdigest())
+
+    with ThreadPoolExecutor(8) as ex:
+        return list(ex.map(one, tree_leaves(tree)))
+
+
+def cli_run_and_replay(dev, card, arch="llama3.2-1b", steps=TRAIN_STEPS,
+                       ckpt_every=TRAIN_CKPT_EVERY,
+                       layers=TRAIN_CLI_LAYERS) -> dict:
+    """``launch/train.py``'s ``main`` in this process: ``steps`` steps of
+    ``arch`` at published width, ``layers`` deep (``--layers``), at the
+    CLI's other defaults with a checkpoint every
+    ``ckpt_every`` steps, the launch counts set to 0 just before and read
+    just after (the train path's own); then a second run in another
+    directory that holds only the step-``ckpt_every`` checkpoint, which
+    resumes there and replays to ``steps``.  Both under
     ``torch.use_deterministic_algorithms(True)``: torch's backward of the
     embedding lookup and of the loss's gather add with atomics otherwise
     (cuBLAS then needs ``CUBLAS_WORKSPACE_CONFIG``; ``:4096:8`` is the 32
     MiB PyTorch gives a Hopper card anyway).  The replay's parameters and
-    optimizer state must equal the straight run's bit for bit."""
+    optimizer state must equal the straight run's bit for bit: their
+    ``state_digests`` are compared, the straight run's taken and its state
+    freed before the replay (which holds a state of its own and restores
+    the checkpoint beside it).  The checkpoints go under
+    ``build/chip_smoke_train``, removed at the end."""
     import os
     import shutil
 
     import repro_torch.configs as configs
     from repro_torch.launch import train
-    from repro_torch.models.params import tree_leaves
 
-    cfg = configs.get("llama3.2-1b")
+    cfg = configs.cut_depth(configs.get(arch), layers)
     root = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(root, ignore_errors=True)
-    argv = ["--arch", "llama3.2-1b", "--steps", str(TRAIN_STEPS),
-            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "1",
+    argv = ["--arch", arch, "--layers", str(layers), "--steps", str(steps),
+            "--ckpt-every", str(ckpt_every), "--log-every", "1",
             "--seed", str(SEED)]
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
@@ -4879,23 +4974,28 @@ def cli_run_and_replay(dev, card) -> dict:
         run_s = time.perf_counter() - t0
         launches = {k: v for k, v in all_launches().items() if v}
         routes = backward_routes()
-        want = train_launches(cfg, TRAIN_STEPS)
-        check(launches == want, f"the CLI's {TRAIN_STEPS} steps launched "
+        want = train_launches(cfg, steps)
+        check(launches == want, f"the CLI's {steps} steps launched "
                                 f"{launches}, the train path needs {want} "
                                 f"(remat {cfg.remat!r})")
-        want = {"sm90": cfg.n_layers * TRAIN_STEPS, "simple": 0}
-        check(routes == want, f"the CLI's {TRAIN_STEPS} steps' backward "
+        want = {"sm90": want["flash_backward"], "simple": 0}
+        check(routes == want, f"the CLI's {steps} steps' backward "
                               f"launches by kernel {routes}, the bf16 route "
                               f"gives {want}")
         losses = straight["losses"]
-        check(straight["end_step"] == TRAIN_STEPS
-              and len(losses) == TRAIN_STEPS
+        check(straight["end_step"] == steps
+              and len(losses) == steps
               and all(np.isfinite(losses)),
               f"the CLI ended at {straight['end_step']}, losses {losses}")
         (root / "b").mkdir(parents=True)
-        ck = f"step_{TRAIN_CKPT_EVERY:010d}"
+        ck = f"step_{ckpt_every:010d}"
         os.rename(root / "a" / ck, root / "b" / ck)
         shutil.rmtree(root / "a")
+        t0 = time.perf_counter()
+        want = state_digests(straight.pop("state"))
+        digest_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         replay = train.main(argv + ["--ckpt-dir", str(root / "b")])
         torch.cuda.synchronize()
@@ -4903,35 +5003,35 @@ def cli_run_and_replay(dev, card) -> dict:
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(root, ignore_errors=True)
-    check(replay["start"] == TRAIN_CKPT_EVERY
-          and replay["losses"] == losses[TRAIN_CKPT_EVERY:],
+    check(replay["start"] == ckpt_every
+          and replay["losses"] == losses[ckpt_every:],
           f"the replay resumed at {replay['start']} with losses "
           f"{replay['losses']}, the straight run's {losses}")
-    a, b = tree_leaves(straight["state"]), tree_leaves(replay["state"])
-    check(len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
-                                   for x, y in zip(a, b)),
-          "the replay from the checkpoint is not bit-equal to the straight "
-          "run")
+    got = state_digests(replay.pop("state"))
+    check(got == want, "the replay from the checkpoint is not bit-equal to "
+                       "the straight run")
     say(f"train: python -m repro_torch.launch.train {' '.join(argv)} (in "
-        f"process, deterministic algorithms): losses {losses}, launches "
+        f"process, deterministic algorithms, checkpoints under {root}): "
+        f"losses {losses}, launches "
         f"{launches} (a step: {train_launches(cfg)}, remat "
         f"{cfg.remat!r}; the backward's by kernel {routes}), "
         f"{run_s:.1f} s with "
-        f"checkpoints; the replay from step {TRAIN_CKPT_EVERY} "
-        f"({replay_s:.1f} s) ends bit-equal in all {len(a)} leaves of "
-        f"params and optimizer state [{card}]")
+        f"checkpoints; the replay from step {ckpt_every} "
+        f"({replay_s:.1f} s) ends bit-equal in all {len(got)} leaves of "
+        f"params and optimizer state (each state's digests "
+        f"{digest_s:.1f} s) [{card}]")
     return dict(losses=losses, launches=launches, backward_routes=routes,
-                run_s=run_s, replay_s=replay_s)
+                run_s=run_s, replay_s=replay_s, digest_s=digest_s)
 
 
 def check_recurrent_training_raises(dev):
-    """rwkv6-7b's and Griffin's loss under autograd on the card raise
-    (their recurrence kernels have no backward yet), rather than drop the
-    gradient; smoke widths, which reach the same first kernel."""
+    """rwkv6-7b's loss under autograd on the card raises (the WKV-6 kernel
+    has no backward yet), rather than drop the gradient; smoke width,
+    which reaches the same first kernel."""
     import repro_torch.configs as configs
     from repro_torch.models.params import tree_leaves
     from repro_torch.models.zoo import build_model
-    for arch in ("rwkv6-7b", "recurrentgemma-2b"):
+    for arch in ("rwkv6-7b",):
         model = build_model(configs.smoke(arch))
         params = model.init(torch.Generator(device=dev).manual_seed(SEED),
                             dev)
@@ -5378,28 +5478,694 @@ def phase_fleet(dev, card) -> dict:
     return out
 
 
-def phase_train(dev, card, err) -> tuple[dict, dict]:
-    """The train path: the backward kernel against its plain version, one
-    full-width step through the kernels against the plain versions, the
-    step's time and memory, the CLI's run with a checkpoint and its
-    bit-equal replay, the recurrent families raising, and the flash
-    kernels' times at the step's shape.  Returns (the flash_backward row
-    of the kernels JSON, the phase's record)."""
+# ---------------------------------------------------------------------------
+# Phase 9, Griffin: the RG-LRU backward, the flash backward at (256, 256)
+# with a window, and recurrentgemma-2b training at full width
+# ---------------------------------------------------------------------------
+
+GRIFFIN = "recurrentgemma-2b"
+# the RG-LRU backward against its plain version (rglru_backward_torch) on
+# the card at Griffin's width: (B, T) at the training shape, a long prefill
+# and a short ragged one; gx f32 and bf16, with and without h0 (and dhT
+# with it).  Where torch's exp on the card is CUDA's expf the kernel gives
+# the plain version's bits; elsewhere each gradient within RG_BWD_RTOL of
+# its largest magnitude (the share of bit-equal cases is printed)
+RG_BWD_D = 2560
+RG_BWD_CASES = ((8, 256), (1, 4096), (2, 7))
+RG_BWD_RTOL = 1e-5
+# the broken control: the backward with G = g in place of G = a g (the
+# a_{t+1} factor dropped) in block 0, its first 128 channels of batch row 0
+RGLRU_CONTROL_EDIT = ("G = __fmul_rn(a, g);",
+                      "G = blockIdx.x == 0 ? g : __fmul_rn(a, g);")
+# the flash backward at Griffin's heads (H 10, KV 1, D 256): (B, S, window)
+# at the training shape, a long sequence where the window bites, and two
+# windows that bite at S 256
+GRIFFIN_HEADS = dict(H=10, KV=1, D=256)
+GRIFFIN_BWD_CASES = ((8, 256, 2048), (1, 4096, 2048), (2, 256, 64),
+                     (2, 256, 100))
+# the cases whose control (each kernel with the window one key too wide)
+# must read above the limit: one key more in 64 or 100 moves every row's
+# softmax; at S 4096 one more in 2048 reads inside bf16's rounding (2.79
+# ulps on an H100 80GB HBM3 at 700 W), so it is printed, not held
+GRIFFIN_CONTROL_CASES = ((2, 256, 64), (2, 256, 100))
+
+
+def build_rglru_control() -> Path:
+    """A copy of ``csrc/rglru.cu`` with RGLRU_CONTROL_EDIT, built by the
+    repository's flags into a library of its own."""
+    from repro_torch.kernels import _build
+    text = (SRC / "repro_torch" / "csrc" / "rglru.cu").read_text()
+    old, new = RGLRU_CONTROL_EDIT
+    check(text.count(old) == 1, f"the RG-LRU control's edit {old!r} is not "
+                                f"in csrc/rglru.cu once")
+    src = ROOT / "build" / "chip_smoke_controls" / "rglru_control.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text.replace(old, new))
+    return _build.build(src, "rglru_control")
+
+
+def rglru_control_fn(lib_path):
+    """The control library's backward, called as ``rglru_backward_cuda``
+    is (no launch counted)."""
+    lib = ctypes.CDLL(str(lib_path))
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    for sfx in ("bf16", "f32"):
+        fn = getattr(lib, f"repro_rglru_backward_{sfx}")
+        fn.argtypes = [vp] * 8 + [ll, ll, ll, vp]
+        fn.restype = ctypes.c_int
+
+    def run(log_a, gx, h0, dh, dhT=None):
+        B, T, D = gx.shape
+        dla, dgx = torch.empty_like(log_a), torch.empty_like(gx)
+        dh0 = torch.empty((B, D), dtype=torch.float32, device=gx.device)
+        sfx = "bf16" if gx.dtype == torch.bfloat16 else "f32"
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        err = getattr(lib, f"repro_rglru_backward_{sfx}")(
+            log_a.data_ptr(), gx.data_ptr(), ptr(h0), dh.data_ptr(),
+            ptr(dhT), dla.data_ptr(), dgx.data_ptr(), dh0.data_ptr(), B, T,
+            D, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the RG-LRU control's launch failed ({err})")
+        return dla, dgx, (None if h0 is None else dh0)
+
+    return run
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want| (f32)."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+
+def rglru_bwd_inputs(dev, B, T, dtype, with_h0, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D = RG_BWD_D
+    la = -0.5 * torch.exp(torch.randn(B, T, D, device=dev, generator=gen))
+    gx = torch.randn(B, T, D, device=dev, generator=gen).to(dtype)
+    dh = torch.randn(B, T, D, device=dev, generator=gen).to(dtype)
+    h0 = dhT = None
+    if with_h0:
+        h0 = torch.randn(B, D, device=dev, generator=gen)
+        dhT = torch.randn(B, D, device=dev, generator=gen)
+    return la, gx, h0, dh, dhT
+
+
+def check_rglru_backward(dev, control) -> dict:
+    """The RG-LRU backward kernel (``rglru_backward_cuda``) against its
+    plain version on the card, every case of RG_BWD_CASES x gx f32 / bf16
+    x h0 (and dhT) or none: dtypes and shapes, each gradient within
+    RG_BWD_RTOL of its largest (bit-equal ones counted), a second run
+    bit-equal to the first; then the broken control, which must read above
+    RG_BWD_RTOL in block 0's channels only.  Returns the readings."""
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru.ref import rglru_backward_torch
+    worst, worst_abs, n, n_equal = 0.0, 0.0, 0, 0
+    for B, T in RG_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_h0 in (False, True):
+                args = rglru_bwd_inputs(dev, B, T, dtype, with_h0,
+                                        SEED + 7 * T + B)
+                got = RK.rglru_backward_cuda(*args)
+                again = RK.rglru_backward_cuda(*args)
+                want = rglru_backward_torch(*args)
+                torch.cuda.synchronize()
+                what = f"rglru_backward ({dtype}, B {B}, T {T}, h0 {with_h0})"
+                equal = True
+                for name, g, w, a in zip(("dlog_a", "dgx", "dh0"), got, want,
+                                         again):
+                    if w is None:
+                        check(g is None and a is None, f"{what}: {name}")
+                        continue
+                    check(g.dtype == w.dtype and g.shape == w.shape,
+                          f"{what}: {name} {g.dtype} {tuple(g.shape)}")
+                    check(torch.equal(g, a), f"{what}: {name}: two runs "
+                                             f"differ")
+                    e = rel_err(g, w)
+                    check(e <= RG_BWD_RTOL, f"{what}: {name} {e:.3e} of its "
+                                            f"largest > {RG_BWD_RTOL}")
+                    worst = max(worst, e)
+                    worst_abs = max(worst_abs, float(
+                        (g.float() - w.float()).abs().max()))
+                    equal &= bool(torch.equal(g, w))
+                n += 1
+                n_equal += int(equal)
+    # the control at the training shape: block 0's channels only
+    B, T = RG_BWD_CASES[0]
+    args = rglru_bwd_inputs(dev, B, T, torch.bfloat16, False, SEED + 1)
+    want = rglru_backward_torch(*args)
+    bad = control(*args)
+    torch.cuda.synchronize()
+    ctl = max(rel_err(g, w) for g, w in zip(bad[:2], want[:2]))
+    rest = max(rel_err(g.reshape(-1, RG_BWD_D)[:, RK.BACKWARD_THREADS:],
+                       w.reshape(-1, RG_BWD_D)[:, RK.BACKWARD_THREADS:])
+               for g, w in zip(bad[:2], want[:2]))
+    check(ctl > RG_BWD_RTOL, f"the RG-LRU control (a_(t+1) dropped in one "
+                             f"block) reads {ctl:.3e}, within {RG_BWD_RTOL}")
+    say(f"train: rglru_backward vs rglru_backward_torch at D {RG_BWD_D}, "
+        f"(B, T) in {RG_BWD_CASES}, gx f32 / bf16, with and without h0 and "
+        f"dhT: worst {worst:.3e} of each gradient's largest (limit "
+        f"{RG_BWD_RTOL}), {n_equal} of {n} cases bit-equal, two runs "
+        f"bit-equal; the control (a_(t+1) dropped in block 0) reads "
+        f"{ctl:.3e}, its other blocks {rest:.3e}")
+    return dict(worst_rel=worst, max_abs_err=worst_abs,
+                bit_equal_cases=n_equal, cases=n, control_rel=ctl,
+                control_rest_rel=rest)
+
+
+def bwd_reading(g, w, dtype) -> float:
+    """A gradient's error in the check's unit: a share of the largest
+    magnitude (f32, limit BWD_RTOL32) or bf16 ulps of it (limit
+    BWD_ULPS16)."""
+    e = float((g.float() - w.float()).abs().max())
+    lim = BWD_RTOL32 if dtype == torch.float32 else BWD_ULPS16
+    return e / bwd_tol(w, dtype) * lim
+
+
+def check_flash_backward_griffin(dev) -> dict:
+    """Both flash backward kernels at Griffin's heads (H 10, KV 1, (256,
+    256)) with a window, every case of GRIFFIN_BWD_CASES, bf16 and f32:
+    the forward's o (routed, with the window) against ``_flash_torch``,
+    then dq, dk, dv against ``flash_attention_backward_torch`` (f32 within
+    1e-4 of each gradient's largest, bf16 within 4 ulps of it): the
+    tensor-core kernel in bf16 (two runs bit-equal), the CUDA-core kernel
+    in both.  Controls: each kernel with the window one key too wide,
+    read wherever the window bites, must read above the limit in
+    GRIFFIN_CONTROL_CASES.  Then ``FlashAttention
+    Fn`` with a window against autograd of the plain forward (f32 at (2,
+    256, 64), bf16 at (8, 256, 100)).  Returns the readings."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention,
+        flash_attention_backward_torch,
+    )
+    hd = GRIFFIN_HEADS
+    worst = {"forward": 0.0, "sm90_bf16_ulps": 0.0, "simple_bf16_ulps": 0.0,
+             "simple_f32_rel": 0.0, "function_f32_rel": 0.0,
+             "function_bf16_ulps": 0.0, "max_abs_err": 0.0}
+    controls = {}
+    for B, S, w in GRIFFIN_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + S + w, **hd)
+            o = FK.flash_attention_cuda(q, k, v, causal=True, window=w,
+                                        q_start=0, kv_len=S)
+            e, ok = fa_err(o, flash_attention(q, k, v, causal=True,
+                                              window=w, impl="torch"))
+            check(ok, f"flash forward (B {B}, S {S}, window {w}, {dtype}): "
+                      f"max abs err {e}")
+            worst["forward"] = max(worst["forward"], e)
+            want = flash_attention_backward_torch(q, k, v, o, do, window=w)
+            kernels = {"simple": FK.flash_backward_simple_cuda}
+            if dtype == torch.bfloat16:
+                kernels["sm90"] = FK.flash_backward_sm90_cuda
+            tag = "f32_rel" if dtype == torch.float32 else "bf16_ulps"
+            lim = BWD_RTOL32 if dtype == torch.float32 else BWD_ULPS16
+            for kname, fn in kernels.items():
+                got = fn(q, k, v, o, do, window=w)
+                torch.cuda.synchronize()
+                for name, g, ww in zip(("dq", "dk", "dv"), got, want):
+                    check(g.dtype == ww.dtype and g.shape == ww.shape,
+                          f"flash_backward {name}: {g.dtype}")
+                    r = bwd_reading(g, ww, dtype)
+                    check(r <= lim, f"flash_backward ({kname}) {name} (B {B},"
+                                    f" S {S}, window {w}, {dtype}): {r:.3e} "
+                                    f"> {lim}")
+                    worst[f"{kname}_{tag}"] = max(worst[f"{kname}_{tag}"], r)
+                    worst["max_abs_err"] = max(
+                        worst["max_abs_err"],
+                        float((g.float() - ww.float()).abs().max()))
+                if kname == "sm90":
+                    again = fn(q, k, v, o, do, window=w)
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"flash_backward (sm90) (B {B}, S {S}, window "
+                          f"{w}): two runs differ")
+                if w < S:               # the window bites: one key too wide
+                    bad = fn(q, k, v, o, do, window=w + 1)
+                    torch.cuda.synchronize()
+                    controls[f"{kname} {dtype} ({B}, {S}, {w})"] = max(
+                        bwd_reading(g, ww, dtype)
+                        for g, ww in zip(bad, want))
+            del q, k, v, do, o, want
+    for key, r in controls.items():
+        lim = BWD_RTOL32 if "float32" in key else BWD_ULPS16
+        check(r > lim or not any(str(c) in key
+                                 for c in GRIFFIN_CONTROL_CASES),
+              f"flash_backward control {key} (window one key too wide) "
+              f"reads {r:.3e}, within {lim}")
+    for (B, S, w), dtype in (((2, 256, 64), torch.float32),
+                             ((8, 256, 100), torch.bfloat16)):
+        q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + 2, **hd)
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        o = flash_attention(q, k, v, causal=True, window=w)
+        check(o.grad_fn is not None and "FlashAttentionFn" in
+              type(o.grad_fn).__name__, f"windowed flash_attention under "
+                                        f"autograd: grad_fn {o.grad_fn}")
+        got = torch.autograd.grad(o, (q, k, v), do)
+        ref = flash_attention(q, k, v, causal=True, window=w, impl="torch")
+        want = torch.autograd.grad(ref, (q, k, v), do)
+        key = "function_" + ("f32_rel" if dtype == torch.float32
+                             else "bf16_ulps")
+        lim = BWD_RTOL32 if dtype == torch.float32 else BWD_ULPS16
+        for name, g, ww in zip(("dq", "dk", "dv"), got, want):
+            r = bwd_reading(g, ww, dtype)
+            worst[key] = max(worst[key], r)
+            check(r <= lim, f"FlashAttentionFn {name} (B {B}, S {S}, window "
+                            f"{w}, {dtype}) vs autograd: {r:.3e} > {lim}")
+    say(f"train: flash backward at Griffin's heads (H 10, KV 1, D 256), "
+        f"(B, S, window) in {GRIFFIN_BWD_CASES}: o max abs err "
+        f"{worst['forward']:.3e}; the tensor-core kernel "
+        f"{worst['sm90_bf16_ulps']:.2f} bf16 ulps of each gradient's largest"
+        f" (limit {BWD_ULPS16}; two runs bit-equal), the CUDA-core kernel "
+        f"{worst['simple_bf16_ulps']:.2f} ulps in bf16 and "
+        f"{worst['simple_f32_rel']:.3e} of the largest in f32 (limit "
+        f"{BWD_RTOL32}); the window one key too wide reads "
+        + ", ".join(f"{k} {r:.3g}" for k, r in controls.items())
+        + f"; FlashAttentionFn with a window vs autograd: f32 "
+        f"{worst['function_f32_rel']:.3e}, bf16 "
+        f"{worst['function_bf16_ulps']:.2f} ulps")
+    return dict(worst, controls=controls)
+
+
+# recurrentgemma-2b at full width: the gradient through the kernels against
+# impl="torch", leaf by leaf (the tail's two blocks too), each stacked leaf
+# layer by layer (relative L2), within GRIFFIN_GRAD_RTOL.  Two broken
+# controls must read above it: the RG-LRU backward with a_(t+1) dropped in
+# one block of channels (the control library) in its first launch alone
+# (the last recurrent layer's), and the first attention backward's dK
+# zeroed (the last attention layer's).  Readings on an H100 over seeds 0-2
+# (tools/griffin_train_probe.py grads, H100 80GB HBM3 at 700 W): sound
+# 1.597e-2-1.720e-2 (attention projections; the recurrent blocks' leaves
+# 1.339e-2-1.359e-2), the RG-LRU control 0.225-0.669 (in its own layer's
+# leaves), dK zeroed 1.0
+GRIFFIN_GRAD_RTOL = 3e-2
+# one train step through the kernels against the plain step: the loss
+# within GRIFFIN_TRAIN_ATOL, grad_norm within the same relative
+GRIFFIN_TRAIN_ATOL = TRAIN_ATOL
+# the CLI's run: GRIFFIN_STEPS steps at its defaults at published width, the
+# depth cut to GRIFFIN_CLI_LAYERS (one group: rec, rec, attn), a checkpoint
+# at GRIFFIN_CKPT_EVERY (9.1 GB: bf16 parameters and f32 AdamW moments; the
+# run and its replay write three, 27.4 GB, beside llama's 11.5: the card's
+# machine allows a call 45 GiB of disk writes); the replay resumes there
+GRIFFIN_STEPS, GRIFFIN_CKPT_EVERY, GRIFFIN_CLI_LAYERS = 3, 2, 3
+
+
+def griffin_stacked(path, w) -> bool:
+    """Whether a Griffin leaf is stacked by layer: the groups' rec and attn
+    stacks."""
+    return path.startswith("/groups/") and w.dim() >= 2
+
+
+def griffin_inputs(dev, seed):
+    """recurrentgemma-2b at full width: the model, its parameters from
+    ``seed`` with the recurrent mixing leaves filled (``live_leaves``), and
+    the CLI's first batch (8 x 256)."""
+    import repro_torch.configs as configs
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.zoo import build_model
+    cfg = configs.get(GRIFFIN)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
+    live_leaves(cfg, params, dev)
+    pipe = DataPipeline(cfg=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        seed=seed)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(0).items()}
+    return model, params, batch
+
+
+GRIFFIN_CONTROLS = ("rglru", "dk")
+
+
+def griffin_grad_compare(model, params, batch, control) -> dict:
+    """The full-width gradient through the kernels against the plain
+    versions', and the same reading of each of GRIFFIN_CONTROLS: the
+    RG-LRU backward's control library (``control``) in the first launch
+    (the last recurrent layer's), the first attention backward's dK
+    zeroed.  Each reading is ``worst_grad_err``'s (stacked leaves by
+    layer) over all leaves and over the recurrent blocks' ("/rec/").
+    Launches here are outside the counted runs."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    paths = leaf_paths(params)
+    groups = {"all": [True] * len(paths),
+              "rec": ["/rec/" in p for p in paths]}
+
+    def err(g, w):
+        out = {}
+        for name, keep in groups.items():
+            sel = [i for i, k in enumerate(keep) if k]
+            out[name] = worst_grad_err([g[i] for i in sel],
+                                       [w[i] for i in sel],
+                                       [paths[i] for i in sel], 0,
+                                       stacked=griffin_stacked)
+        return out
+
+    loss_p, want = loss_grads(model, params, batch, "torch")
+    norm_p = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                  for g in want)))
+    loss_k, got = loss_grads(model, params, batch, "auto")
+    readings = {"sound": err(got, want)}
+    del got
+    for name, mod, attr in (("rglru", RK, "rglru_backward_cuda"),
+                            ("dk", FK, "flash_backward_cuda")):
+        kernel, broke = getattr(mod, attr), []
+
+        def broken(*a, kernel=kernel, name=name, broke=broke, **kw):
+            if broke:
+                return kernel(*a, **kw)
+            broke.append(1)
+            if name == "rglru":
+                return control(*a, **kw)
+            dq, dk, dv = kernel(*a, **kw)
+            dk.zero_()
+            return dq, dk, dv
+
+        setattr(mod, attr, broken)
+        try:
+            _, bad = loss_grads(model, params, batch, "auto")
+        finally:
+            setattr(mod, attr, kernel)
+        readings[name] = err(bad, want)
+        del bad
+    return dict(readings=readings, n_leaves=len(paths),
+                loss_kernels=float(loss_k), loss_plain=float(loss_p),
+                grad_norm_plain=norm_p)
+
+
+def check_griffin_grads(rec: dict):
+    """Holds ``griffin_grad_compare``'s readings over all leaves to
+    GRIFFIN_GRAD_RTOL: the sound gradient within it, each control above
+    it."""
+    r = rec["readings"]
+    say(f"train: {GRIFFIN} full-width gradient through the kernels vs the "
+        f"plain versions, {rec['n_leaves']} leaves (stacked ones by layer),"
+        f" worst relative L2 error over all leaves / the recurrent blocks' "
+        f"(limit {GRIFFIN_GRAD_RTOL} over all): "
+        + "; ".join(f"{name} " + " / ".join(
+            f"{r[name][g][0]:.3e} at {r[name][g][1]}" for g in ("all", "rec"))
+                    for name in ("sound",) + GRIFFIN_CONTROLS)
+        + f" (rglru: a_(t+1) dropped in one block of the last recurrent "
+          f"layer's backward, dk: the last attention layer's dK zeroed); "
+          f"loss {rec['loss_kernels']} vs {rec['loss_plain']}")
+    got, at = r["sound"]["all"]
+    check(got <= GRIFFIN_GRAD_RTOL,
+          f"{GRIFFIN}'s gradient through the kernels is {got} (at {at}) "
+          f"from the plain versions', above {GRIFFIN_GRAD_RTOL}")
+    for name in GRIFFIN_CONTROLS:
+        got, at = r[name]["all"]
+        check(got > GRIFFIN_GRAD_RTOL,
+              f"{GRIFFIN}'s {name} control reads {got} (at {at}), within "
+              f"{GRIFFIN_GRAD_RTOL}: the gradient check cannot see it")
+
+
+def griffin_train(dev, card, control) -> dict:
+    """recurrentgemma-2b trains on the card at full width: the gradient
+    against the plain versions with its controls; one train step through
+    the kernels (its loss and grad_norm against the plain step's, which
+    are the plain versions' loss and gradient norm of the gradient check,
+    taken before the step's clip and update; its launches exactly
+    ``train_launches``: 16 ``flash_prefill``, 8
+    ``flash_backward`` on the tensor-core route, 34 RG-LRU forward
+    launches on the staged route, 18 ``rglru_backward``); ms a step,
+    tokens/s, idle share and peak memory (``time_train_step``); then
+    ``launch/train.py``'s ``main`` for GRIFFIN_STEPS steps at published
+    width, GRIFFIN_CLI_LAYERS deep, and a bit-equal resume
+    (``cli_run_and_replay``).  Returns its record."""
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models.params import tree_leaves
     t0 = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    model, params, batch = griffin_inputs(dev, SEED)
+    cfg = model.cfg
+    part("set-up")
+    rec = griffin_grad_compare(model, params, batch, control)
+    check_griffin_grads(rec)
+    part("gradient and controls")
+    torch.cuda.empty_cache()
+    opt = make_optimizer(cfg, lr=3e-4)
+    kw = dict(peak_lr=3e-4, warmup=10, total_steps=GRIFFIN_STEPS)
+    # the plain step's metrics: its loss and the global norm of its
+    # gradient come before its clip and update, so they are the plain
+    # loss_grads' of the gradient check (the norm summed as the step sums
+    # it: each leaf's squares in f32, in leaf order)
+    ref = {"loss": rec["loss_plain"], "grad_norm": rec["grad_norm_plain"],
+           "lr": 0.0}
+    state = {"params": params, "opt": opt.init(params)}
+    reset_all()
+    state, m_k = make_train_step(model, opt, impl="auto", **kw)(state, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    routes = dict(backward_routes(), staged=RK.ROUTES["staged"],
+                  step=RK.ROUTES["step"])
+    want = train_launches(cfg)
+    check(launches == want, f"one {GRIFFIN} train step launched {launches}, "
+                            f"the train path needs {want}")
+    check(routes == {"sm90": want["flash_backward"], "simple": 0,
+                     "staged": want["rglru"], "step": 0},
+          f"one {GRIFFIN} train step's routes {routes}")
+    got = {k: float(m_k[k]) for k in ("loss", "grad_norm", "lr")}
+    check(all(np.isfinite(list(got.values()))), f"train step metrics {got}")
+    check(abs(got["loss"] - ref["loss"]) <= GRIFFIN_TRAIN_ATOL
+          and abs(got["grad_norm"] - ref["grad_norm"])
+          <= GRIFFIN_TRAIN_ATOL * ref["grad_norm"],
+          f"{GRIFFIN} train step through the kernels {got} vs the plain "
+          f"step {ref} (loss atol {GRIFFIN_TRAIN_ATOL}, grad_norm rtol "
+          f"{GRIFFIN_TRAIN_ATOL})")
+    n = sum(t.numel() for t in tree_leaves(state["params"]))
+    say(f"train: {GRIFFIN} at full width ({n} parameters, bf16), batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}: one step through the kernels "
+        f"{got} vs the plain step {ref}; its launches {launches} (routes "
+        f"{routes}) [{card}]")
+    part("a step")
+    rec.update(loss=got["loss"], loss_plain_step=ref["loss"],
+               grad_norm=got["grad_norm"],
+               grad_norm_plain_step=ref["grad_norm"],
+               step_launches=launches, step_routes=routes)
+    rec["step"] = time_train_step(model, opt, state, batch, card)
+    part("timed steps")
+    del state, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["cli"] = cli_run_and_replay(dev, card, arch=GRIFFIN,
+                                    steps=GRIFFIN_STEPS,
+                                    ckpt_every=GRIFFIN_CKPT_EVERY,
+                                    layers=GRIFFIN_CLI_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("CLI and resume")
+    rec["seconds"] = time.perf_counter() - t0
+    rec["parts_s"] = parts
+    say(f"train: {GRIFFIN} done in {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]")
+    return rec
+
+
+def kernel_names(fn, top: int = 3, tries: int = 3):
+    """The ``top`` device kernels by time in a traced call of ``fn``, from
+    the first of ``tries`` traces that is not empty (None if all are)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+        if by:
+            return sorted(by, key=lambda n: -by[n])[:top]
+    return None
+
+
+def backward_graph_ms(fwd, inputs, grad, dev, reps=10) -> float:
+    """ms a call of ``torch.autograd.grad`` of ``fwd(*inputs)``'s output at
+    ``grad`` with respect to ``inputs``, as ``graph_ms`` times a kernel:
+    CUDA events around ``reps`` replays of one CUDA graph of
+    A7_GRAPH_CALLS calls, after two replays.  Copies of the inputs as
+    leaves, and the forward, are made once, outside the graph, on the
+    stream the graph is captured on: each backward op runs on its forward
+    op's stream, and a leaf's on the stream it was made on."""
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+
+    def calls():
+        for _ in range(A7_GRAPH_CALLS):
+            torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+    with torch.cuda.stream(stream):
+        leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = fwd(*leaves)
+        calls()
+        with torch.cuda.graph(graph, stream=stream):
+            calls()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    for _ in range(2):
+        graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * A7_GRAPH_CALLS)
+
+
+def time_griffin_kernels(dev, card) -> dict:
+    """The new backward kernels at Griffin's training shapes, bf16: each
+    kernel by ``graph_ms`` and SDPA's backward by ``backward_graph_ms``
+    (CUDA events around replays of a CUDA graph of its calls: the device's
+    time, no host issue and no trace, which loses events late in this
+    script), the plain versions (and SDPA's backward again) by
+    ``event_us`` (CUDA events around each eager call: the host's issue
+    included, as they run).  The RG-LRU backward at (B 8, T 256, D 2560)
+    beside its bound and plain version (no torch call computes it); the
+    flash backward at (B 8, S 256, window 2048: the window does not bite)
+    and (B 1, S 4096, window 2048), the tensor-core kernel (bf16's route)
+    and the CUDA-core one in turns, beside the bound
+    (``costs.flash_backward_cost`` with the window), the plain version and
+    SDPA's backward of the same function (causal at S 256; at S 4096 the
+    window as a boolean mask; the kernels it ran named from a trace)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_backward_torch,
+    )
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru.ref import rglru_backward_torch
+    ms = lambda fn, reps: event_us(fn, reps) / 1e3  # noqa: E731
+    graphed = lambda fn, reps: graph_ms(fn, (), dev, reps)  # noqa: E731
+    out = {}
+    B, T = RG_BWD_CASES[0]
+    args = rglru_bwd_inputs(dev, B, T, torch.bfloat16, False, SEED + 3)
+    t = {"kernel": graphed(lambda: RK.rglru_backward_cuda(*args), 10),
+         "plain": ms(lambda: rglru_backward_torch(*args), 3)}
+    flops, nbytes = costs.rglru_backward_cost(B, T, RG_BWD_D, 2)
+    bound = (nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3)
+    out["rglru_backward"] = dict(
+        shape=[B, T, RG_BWD_D], ms=t["kernel"], plain_ms=t["plain"],
+        library_ms=None, bound_ms=max(bound),
+        bound_by="bytes" if bound[0] >= bound[1] else "operations")
+    say(f"timing: rglru_backward at (B {B}, T {T}, D {RG_BWD_D}, bf16): us "
+        f"per call in a replayed graph {t['kernel'] * 1e3:.2f}, bound "
+        f"{max(bound) * 1e3:.3f} (bytes {bound[0] * 1e3:.3f}, operations "
+        f"{bound[1] * 1e3:.3f}), plain {t['plain'] * 1e3:.2f} (eager, CUDA "
+        f"events), no torch call [{card}]")
+    hd = GRIFFIN_HEADS
+    for B, S, w in GRIFFIN_BWD_CASES[:2]:
+        q, k, v, do = attn_inputs(dev, B, S, torch.bfloat16, SEED + 4, **hd)
+        o = FK.flash_attention_cuda(q, k, v, causal=True, window=w,
+                                    q_start=0, kv_len=S)
+        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        sdpa_kw = (dict(attn_mask=window_mask(S, 0, S, w, dev)) if w < S
+                   else dict(is_causal=True))
+
+        def sdpa_fwd(qs, ks, vs):
+            return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                                  **sdpa_kw)
+
+        so = sdpa_fwd(qs, ks, vs)
+        dos = do.transpose(1, 2)
+        fns = {
+            "simple": lambda: FK.flash_backward_simple_cuda(
+                q, k, v, o, do, window=w),
+            "kernel": lambda: FK.flash_backward_cuda(q, k, v, o, do,
+                                                     window=w),
+            "plain": lambda: flash_attention_backward_torch(
+                q, k, v, o, do, window=w),
+            "sdpa": lambda: torch.autograd.grad(so, (qs, ks, vs), dos,
+                                                retain_graph=True),
+        }
+        turns = {"simple": [], "kernel": []}
+        for i in ("kernel", "simple", "simple", "kernel"):
+            turns[i].append(graphed(fns[i], 10 if i == "kernel" else 1))
+        tb = {i: statistics.mean(x) for i, x in turns.items()}
+        tb.update(plain=ms(fns["plain"], 3),
+                  sdpa=backward_graph_ms(sdpa_fwd, (qs, ks, vs), dos, dev),
+                  sdpa_eager=ms(fns["sdpa"], 10))
+        backend = kernel_names(fns["sdpa"])
+        flops, nbytes = costs.flash_backward_cost(B, S, hd["H"], hd["KV"],
+                                                  hd["D"], 2, window=w)
+        bound = (nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S
+                 * 1e3)
+        key = f"{B}x{S}"
+        out[key] = dict(shape=[B, S, hd["H"], hd["KV"], hd["D"], w],
+                        ms=tb["kernel"], simple_ms=tb["simple"],
+                        turns_ms=turns, plain_ms=tb["plain"],
+                        library_ms=tb["sdpa"], sdpa_kernels=backend,
+                        library_eager_ms=tb["sdpa_eager"],
+                        bound_ms=max(bound),
+                        bound_by="bytes" if bound[0] >= bound[1]
+                        else "operations")
+        say(f"timing: flash backward at Griffin's (B {B}, S {S}, H 10, KV 1, "
+            f"D 256, window {w}, bf16), us per call in a replayed graph: "
+            f"tensor-core kernel {tb['kernel'] * 1e3:.2f} (in turns "
+            f"{turns['kernel'][0] * 1e3:.2f}, {turns['kernel'][1] * 1e3:.2f}),"
+            f" CUDA-core kernel {tb['simple'] * 1e3:.2f}, bound "
+            f"{max(bound) * 1e3:.3f} ({out[key]['bound_by']}; bytes "
+            f"{bound[0] * 1e3:.3f}, operations {bound[1] * 1e3:.3f}), SDPA's "
+            f"backward {tb['sdpa'] * 1e3:.2f} ("
+            f"{'causal' if w >= S else 'boolean mask'}; its kernels "
+            f"{backend}); eager, CUDA events: plain {tb['plain'] * 1e3:.2f}, "
+            f"SDPA's backward {tb['sdpa_eager'] * 1e3:.2f} [{card}]")
+        del q, k, v, do, o, qs, ks, vs, so, dos, fns, sdpa_kw
+    return out
+
+
+def phase_train(dev, card, err, control) -> tuple[list, dict]:
+    """The train path: the backward kernels against their plain versions
+    (llama3.2-1b's heads; the RG-LRU backward and Griffin's windowed (256,
+    256) heads), one full-width llama3.2-1b step through the kernels
+    against the plain versions, the step's time and memory, the CLI's run
+    with a checkpoint and its bit-equal replay, rwkv6-7b raising, the
+    flash kernels' times at the step's shape; then recurrentgemma-2b's
+    training at full width (``griffin_train``) and the new kernels' times
+    at its shapes.  ``control`` is the RG-LRU control's backward.  Returns
+    (the flash_backward and rglru_backward rows of the kernels JSON, the
+    phase's record)."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
     worst = check_flash_backward(dev)
     err["flash_backward"] = worst["max_abs_err"]
+    part("llama's backward checks")
+    rglru_bwd = check_rglru_backward(dev, control)
+    griffin_bwd = check_flash_backward_griffin(dev)
+    err["flash_backward"] = max(err["flash_backward"],
+                                griffin_bwd["max_abs_err"])
+    part("Griffin's kernel checks")
     model, opt, state, batch, rec = train_step_compare(dev, card)
     rec["step"] = time_train_step(model, opt, state, batch, card)
     rec["remat"] = remat_compare(model, opt, state, batch, card)
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
+    part("llama's steps, timing, remat")
     rec["cli"] = cli_run_and_replay(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+    part("llama's CLI")
     check_recurrent_training_raises(dev)
     flash = time_train_flash(dev, card)
     rec["flash"] = flash
+    part("rwkv6, llama's kernel times")
+    rec["griffin"] = griffin = griffin_train(dev, card, control)
+    part("Griffin's training")
+    gk = time_griffin_kernels(dev, card)
+    rec["griffin"]["kernels"] = gk
+    part("Griffin's kernel times")
+    rec["parts_s"] = parts
     b = flash["backward"]
     routes = rec["cli"]["backward_routes"]
     row = dict(
@@ -5420,10 +6186,28 @@ def phase_train(dev, card, err) -> tuple[dict, dict]:
                     source="src/repro_torch/csrc/flash_backward.cu",
                     launches=routes["simple"], ms=b["simple_ms"],
                     turns_ms=b["turns_ms"]["simple"])},
-        errors=worst, forward_at_train_shape=flash["forward"])
+        errors=worst, forward_at_train_shape=flash["forward"],
+        griffin=dict(
+            launches=griffin["cli"]["launches"]["flash_backward"],
+            launches_a_step=griffin["step_launches"]["flash_backward"],
+            errors=griffin_bwd,
+            shapes={k: v for k, v in gk.items() if k != "rglru_backward"}))
+    g = gk["rglru_backward"]
+    rg_row = dict(
+        name="rglru_backward", route="cuda",
+        source="src/repro_torch/csrc/rglru.cu",
+        replaces="src/repro/kernels/rglru/ops.py:34",
+        replaces_note="no TPU kernel: jax.grad of the xla associative scan",
+        launches=griffin["cli"]["launches"]["rglru_backward"],
+        launches_a_step=griffin["step_launches"]["rglru_backward"],
+        max_abs_err=rglru_bwd["max_abs_err"], ms=g["ms"],
+        plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+        bound_by=g["bound_by"], library_ms=None, shape=g["shape"],
+        errors=rglru_bwd)
     rec["seconds"] = time.perf_counter() - t0
-    say(f"train: phase done in {rec['seconds']:.1f} s [{card}]")
-    return row, rec
+    say(f"train: phase done in {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]")
+    return [row, rg_row], rec
 
 
 # ------------------------------------------------------------ 14. parallel
@@ -5824,6 +6608,63 @@ def dryrun_count(step, args, fake=None):
                 peak=mode.peak)
 
 
+def dryrun_griffin(dev, card) -> dict:
+    """(e) recurrentgemma-2b's train step at its published width and the
+    smoke config's depth (4 layers: a group and a tail rec layer; the
+    smoke width's head dim 32 has no backward kernel), its window cut to
+    64 so that it bites at S 256, batch 2, counted on real tensors and on
+    fake CUDA tensors: equal launches, FLOPs and bytes, the real count
+    equal to ``LAUNCHES``' delta and to ``train_launches`` (the RG-LRU
+    forward and backward and the windowed flash backward among them)."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import repro_torch.configs as configs
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.zoo import build_model
+    cfg = dataclasses.replace(configs.get(GRIFFIN),
+                              n_layers=configs.smoke(GRIFFIN).n_layers,
+                              local_window=64)
+    model = build_model(cfg)
+    opt = make_optimizer(cfg, lr=3e-4)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    live_leaves(cfg, params, dev)
+    state = {"params": params, "opt": opt.init(params)}
+    tokens = torch.randint(0, cfg.vocab_size, (2, TRAIN_SEQ), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(SEED))
+    step = make_train_step(model, opt, impl="auto", peak_lr=3e-4,
+                           warmup=10, total_steps=TRAIN_STEPS)
+    args = (state, {"tokens": tokens})
+    reset_all()
+    real = dryrun_count(step, args)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in all_launches().items() if v}
+    fake = FakeTensorMode(allow_non_fake_inputs=True)
+    reset_all()
+    fargs = tree_map(fake.from_tensor, args)
+    faked = dryrun_count(step, fargs, fake)
+    want = train_launches(cfg)
+    same = ("launches", "kernels", "flops", "bytes")
+    check(real["launches"] == got == want,
+          f"dryrun: {GRIFFIN}'s smoke train step counted {real['launches']}"
+          f", the kernels launched {got}, its path needs {want}")
+    check(all(faked[k] == real[k] for k in same)
+          and not any(all_launches().values()),
+          f"dryrun: {GRIFFIN}'s smoke train step on fake tensors "
+          f"{faked['launches']} differs from the real one "
+          f"{real['launches']}, or launched {all_launches()}")
+    say(f"dryrun: {GRIFFIN}'s train step at {cfg.n_layers} layers (window "
+        f"{cfg.local_window}, B 2 x S {TRAIN_SEQ}): launches "
+        f"{real['launches']} on real and on fake CUDA "
+        f"tensors, flops {real['flops']}, bytes {real['bytes']} equal "
+        f"[{card}]")
+    return dict(launches=real["launches"], kernels=real["kernels"],
+                flops=real["flops"], bytes=real["bytes"])
+
+
 def phase_dryrun(dev, card) -> dict:
     """Phase 15: the dry-run.  (a) llama3.2-1b's train step and an eager
     decode step, full width, unsharded, on real tensors under the counting
@@ -5834,8 +6675,8 @@ def phase_dryrun(dev, card) -> dict:
     measured step; (d) the CLI's cells of DRYRUN_CELLS on the card's routes
     over a fake 256-rank group (started first, in processes of their own):
     exit 0, records written, max RSS under DRYRUN_RSS_BYTES, llama's train
-    record 32 ``flash_prefill`` and 16 ``flash_backward`` a device.
-    Returns its record."""
+    record 32 ``flash_prefill`` and 16 ``flash_backward`` a device; (e)
+    ``dryrun_griffin``.  Returns its record."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     import repro_torch.configs as configs
@@ -5966,6 +6807,7 @@ def phase_dryrun(dev, card) -> dict:
         del state, params, cache, batch, steps
         gc.collect()
         torch.cuda.empty_cache()
+        rec["griffin"] = dryrun_griffin(dev, card)
         rec["fake_alloc_bytes"] = moved
         rec["peaks"] = peaks
         parts["timed"] = time.perf_counter() - t0 - sum(parts.values())
@@ -6047,13 +6889,15 @@ def main() -> int:
         return fn(), time.perf_counter() - t0
 
     # one nvcc per source, all started together
-    jobs = [K.build, WK.build, RK.build] + [
+    jobs = [K.build, WK.build, RK.build, build_rglru_control] + [
         (lambda n=n: FK.build(n)) for n in FK.SOURCES]
     with ThreadPoolExecutor(len(jobs)) as ex:
         builds = [ex.submit(timed_build, fn) for fn in jobs]
         for fut in builds:
             lib, sec = fut.result()
             say(f"build: {lib.relative_to(ROOT)} in {sec:.1f} s")
+            if lib.stem == "librglru_control":
+                control = rglru_control_fn(lib)
             if lib.stem in ("libarena", "libwkv6", "librglru",
                             "libflash_decode", "libflash_prefill_sm90",
                             "libflash_backward", "libflash_backward_sm90"):
@@ -6181,8 +7025,14 @@ def main() -> int:
                            for case, rec in bridge.items()}
 
     # the train path, the serving models' weights freed
-    train_row, train_rec = phase_train(dev, card, err)
-    rows.append(train_row)
+    train_rows, train_rec = phase_train(dev, card, err, control)
+    rows += train_rows
+    for r in rows:            # the RG-LRU forward's launches in training
+        if r["name"] == "rglru":
+            g = train_rec["griffin"]
+            r["train"] = dict(launches=g["cli"]["launches"]["rglru"],
+                              launches_a_step=g["step_launches"]["rglru"],
+                              routes_a_step=g["step_routes"])
     say("timing: train: " + json.dumps(train_rec) + f" [{card}]")
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 

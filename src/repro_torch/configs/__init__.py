@@ -1,4 +1,5 @@
-"""Config registry: ``get(name)`` -> ArchConfig, ``smoke(name)`` -> reduced.
+"""Config registry: ``get(name)`` -> ArchConfig, ``smoke(name)`` -> reduced,
+``cut_depth(cfg, n)`` -> the first ``n`` layers at the same widths.
 
 The port's registry lists only the architectures it can build:
 
@@ -19,6 +20,7 @@ The port's registry lists only the architectures it can build:
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.configs.base import (
@@ -59,6 +61,20 @@ def smoke(name: str) -> ArchConfig:
     return _mod(name).smoke_config()
 
 
+def cut_depth(cfg: ArchConfig, n_layers: int | None) -> ArchConfig:
+    """``cfg`` with its first ``n_layers`` layers (leading dense layers
+    kept up to that depth), every width as it was; ``cfg`` itself for
+    None."""
+    if n_layers is None:
+        return cfg
+    if not 1 <= n_layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.name} has {cfg.n_layers} layers; cannot "
+                         f"cut it to {n_layers}")
+    return dataclasses.replace(
+        cfg, n_layers=n_layers,
+        n_dense_layers=min(cfg.n_dense_layers, n_layers))
+
+
 __all__ = [
     "ARCH_NAMES",
     "ArchConfig",
@@ -66,6 +82,7 @@ __all__ = [
     "SHAPES",
     "ShapeConfig",
     "ShardingRules",
+    "cut_depth",
     "get",
     "smoke",
 ]

@@ -5,14 +5,16 @@
 // `custom_vjp` anywhere); its train step differentiates `_flash_xla`
 // (src/repro/kernels/flash_attention/ops.py) with XLA.  This kernel computes
 // that gradient for the training form of the forward: causal, q_start 0,
-// Sq = Skv = S, no window.  Given q (B,S,H,D), k and v (B,S,KV,D), the
-// forward's output o (B,S,H,D) and the output's gradient dO (B,S,H,D), with
-// P = softmax(scale * q k^T) under the causal mask, it returns
+// Sq = Skv = S, with or without a local window W (keys at or before q - W
+// masked).  Given q (B,S,H,D), k and v (B,S,KV,D), the forward's output o
+// (B,S,H,D) and the output's gradient dO (B,S,H,D), with P = softmax(scale
+// * q k^T) under the mask, it returns
 //   dV = P^T dO,  dS = P * (dO v^T - rowsum(dO * o)),
 //   dQ = scale * dS k,  dK = scale * dS^T q,
 // summed over the G = H / KV query heads that share a KV head.  Inputs and
 // outputs are bf16 or f32 (all one dtype); every sum is f32.  D = Dv = 64
-// only (llama3.2-1b's heads); the wrapper refuses other pairs and windows.
+// (llama3.2-1b's heads) or 256 (recurrentgemma-2b's); the wrapper refuses
+// other pairs.
 //
 // Design: three kernels, launched in order by one entry, no atomics (a
 // replay gives the same bits):
@@ -21,13 +23,21 @@
 //     32-key tiles) and D = rowsum(dO * o), into f32 scratch (B, H, S).
 //     The forward kernels, which serving captures in CUDA graphs, keep
 //     their outputs as they are;
-//   * dK/dV: one block per (batch, KV head, tile of 32 keys) keeps dK and
-//     dV of its keys in registers (a 4 x 4 patch of each per thread) and
-//     loops over the G heads and the query tiles at or after its keys:
-//     S and dO v^T as 32 x 32 tiles (a 2 x 4 patch per thread), P and dS
-//     into shared memory, then dV += P^T dO and dK += dS^T q;
-//   * dQ: one block per (batch, head, tile of 32 query rows) loops over the
-//     key tiles at or before its rows and sums dQ += dS k in registers.
+//   * dK/dV: one block per (batch, KV head, tile of 32 keys, 64 columns)
+//     keeps dK and dV of its keys and columns in registers (a 4 x 4 patch
+//     of each per thread) and loops over the G heads and the live query
+//     tiles at or after its keys: S and dO v^T as 32 x 32 tiles over the
+//     full D (a 2 x 4 patch per thread), P and dS into shared memory, then
+//     dV += P^T dO and dK += dS^T q on its columns;
+//   * dQ: one block per (batch, head, tile of 32 query rows, 64 columns)
+//     loops over the live key tiles at or before its rows and sums dQ += dS
+//     k on its columns in registers.
+// At D 256 the four column blocks of a tile each recompute S and dP over
+// the full D: the accumulators keep the registers of D 64, and the tiles
+// (f32, full D) fit a block's shared memory.  The window bounds each
+// block's tiles (a dQ block starts at the tile of its first row's first
+// live key, a dK/dV block ends at the tile of the last query whose window
+// reaches its last key); masks are per element.
 // Tiles are staged in shared memory as f32 (row-major, or transposed where
 // a product reads them by column), rows past S as zeros; the products are
 // CUDA-core FMAs.
@@ -37,10 +47,11 @@
 // layer's backward must read q, k, v, o and dO and write dq, dk and dv,
 // 41.9 MB, 12.5 us; its five products over the 32,896 causal (query, key)
 // pairs of each head are 5.4 GFLOP, 5.4 us on the tensor cores.  So bytes
-// bound it.  This first kernel is far from that: it recomputes the scores
-// three times (setup, dK/dV, dQ), and its FMAs run on the CUDA cores, not
-// the tensor cores (`mma.sync` or `wgmma`, and TMA, are a later PR's work).
-// PERF.md gives its time beside the bound and beside SDPA's backward.
+// bound it.  This kernel is far from that: it recomputes the scores three
+// times (setup, dK/dV, dQ; at D 256 nine), and its FMAs run on the CUDA
+// cores, not the tensor cores: it keeps the f32 calls, whose 1e-4 check
+// TF32 would miss, and flash_backward_sm90.cu takes bf16.  PERF.md gives
+// its time beside the bound and beside SDPA's backward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,10 +61,12 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kT = 32;          // query rows per tile, and keys per tile
-constexpr int kD = 64;          // head dim of q, k and v
-constexpr int kLd = kD + 4;     // row stride (floats) of a row-major tile
+constexpr int kC = 64;          // columns of a block's dK, dV or dQ
 constexpr int kLt = kT + 4;     // row stride of a transposed tile, P and dS
 constexpr unsigned kFull = 0xffffffffu;
+// row stride (floats) of a row-major tile of D columns
+template <int kD>
+__host__ __device__ constexpr int ld() { return kD + 4; }
 
 struct Params {
   const void* q;
@@ -66,7 +79,8 @@ struct Params {
   void* dv;
   float* lse;       // (B, H, S)
   float* delta;     // (B, H, S)
-  long long B, S, H, KV;
+  long long B, S, H, KV, cols;
+  long long window; // keys at or before q - window masked (>= 1)
   float scale;
 };
 
@@ -116,32 +130,32 @@ __device__ __forceinline__ float group8_sum(float x) {
 }
 
 // Rows row0 .. row0 + kT - 1 of a (rows x kD) matrix whose row r starts at
-// base + r * stride, into dst[r][d] (row stride kLd) as f32; rows at or
-// past `rows` are zeros.
-template <typename T>
+// base + r * stride (columns c0 .. c0 + kW - 1 of it), into dst[r][d] (row
+// stride kW + 4) as f32; rows at or past `rows` are zeros.
+template <int kW, typename T>
 __device__ __forceinline__ void load_rows(float* dst, const T* base,
                                           long long row0, long long rows,
-                                          long long stride) {
-  constexpr int kVec = Vec<T>::n, kVpr = kD / kVec;
+                                          long long stride, int c0 = 0) {
+  constexpr int kVec = Vec<T>::n, kVpr = kW / kVec, kL = ld<kW>();
   for (int i = threadIdx.x; i < kT * kVpr; i += kThreads) {
     const int r = i / kVpr, c = i - r * kVpr;
     uint4 u = make_uint4(0, 0, 0, 0);
     if (row0 + r < rows)
-      u = *reinterpret_cast<const uint4*>(base + (row0 + r) * stride +
+      u = *reinterpret_cast<const uint4*>(base + (row0 + r) * stride + c0 +
                                           c * kVec);
     float x[kVec];
     unpack(u, x, T());
 #pragma unroll
     for (int e = 0; e < kVec; e += 4)
-      *reinterpret_cast<float4*>(dst + r * kLd + c * kVec + e) =
+      *reinterpret_cast<float4*>(dst + r * kL + c * kVec + e) =
           make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
   }
 }
 
-// The same rows transposed: dst[d][r] (row stride kLt).  Neighbouring
-// threads take neighbouring rows, so the scalar stores of a warp fall in
-// distinct banks.
-template <typename T>
+// The same rows (all kD columns) transposed: dst[d][r] (row stride kLt).
+// Neighbouring threads take neighbouring rows, so the scalar stores of a
+// warp fall in distinct banks.
+template <int kD, typename T>
 __device__ __forceinline__ void load_cols(float* dst, const T* base,
                                           long long row0, long long rows,
                                           long long stride) {
@@ -160,7 +174,8 @@ __device__ __forceinline__ void load_cols(float* dst, const T* base,
 }
 
 // s[r][c] = sum_d A[2 ti + r][d] * Bt[d][4 tj + c]: a 2 x 4 patch of the
-// 32 x 32 product of a row-major tile and a transposed one.
+// 32 x 32 product of a row-major tile and a transposed one, over kD
+template <int kD>
 __device__ __forceinline__ void tile_product(const float* A, const float* Bt,
                                              int ti, int tj,
                                              float (&s)[2][4]) {
@@ -168,8 +183,8 @@ __device__ __forceinline__ void tile_product(const float* A, const float* Bt,
   for (int r = 0; r < 2; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-  const float* a0 = A + (2 * ti) * kLd;
-  const float* a1 = a0 + kLd;
+  const float* a0 = A + (2 * ti) * ld<kD>();
+  const float* a1 = a0 + ld<kD>();
 #pragma unroll 8
   for (int d = 0; d < kD; ++d) {
     const float x0 = a0[d], x1 = a1[d];
@@ -185,13 +200,33 @@ __device__ __forceinline__ void tile_product(const float* A, const float* Bt,
   }
 }
 
+// whether key j is live for query i: at or before it, inside its window
+__device__ __forceinline__ bool live(long long i, long long j, long long S,
+                                     long long W) {
+  return i < S && j <= i && j > i - W;
+}
+
+// the first key tile (its first key) of query rows i0 ..: the tile holding
+// the first row's first live key
+__device__ __forceinline__ long long first_key_tile(long long i0,
+                                                    long long W) {
+  const long long k = i0 - W + 1 > 0 ? i0 - W + 1 : 0;
+  return k / kT * kT;
+}
+
+template <int kD>
+constexpr size_t setup_smem() {
+  return sizeof(float) * (kT * ld<kD>() + kD * kLt);
+}
+
 // The log-sum-exp of each query row's scaled scores over its live keys,
 // and D = rowsum(dO * o).  Grid (query tiles, B * H).
-template <typename T>
+template <int kD, typename T>
 __global__ void __launch_bounds__(kThreads) bwd_setup_kernel(Params p) {
-  __shared__ __align__(16) float Qs[kT * kLd];
-  __shared__ __align__(16) float Kt[kD * kLt];
-  const long long S = p.S, H = p.H, KV = p.KV, G = H / KV;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                  // kT x ld<kD>
+  float* Kt = Qs + kT * ld<kD>();    // kD x kLt
+  const long long S = p.S, H = p.H, KV = p.KV, G = H / KV, W = p.window;
   const long long b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
   const long long i0 = (long long)blockIdx.x * kT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -208,23 +243,25 @@ __global__ void __launch_bounds__(kThreads) bwd_setup_kernel(Params p) {
     if (i < S) {
       const T* orow = o + i * H * kD;
       const T* drow = dout + i * H * kD;
-      float x = to_f32(orow[lane]) * to_f32(drow[lane]) +
-                to_f32(orow[lane + 32]) * to_f32(drow[lane + 32]);
+      float x = to_f32(orow[lane]) * to_f32(drow[lane]);
+#pragma unroll
+      for (int d = 32; d < kD; d += 32)
+        x += to_f32(orow[lane + d]) * to_f32(drow[lane + d]);
       x = warp_sum(x);
       if (lane == 0) delta[i] = x;
     }
   }
 
-  load_rows(Qs, q, i0, S, H * kD);
+  load_rows<kD>(Qs, q, i0, S, H * kD);
   const int ti = tid >> 3, tj = tid & 7;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const long long i_last = (i0 + kT < S ? i0 + kT : S) - 1;
-  for (long long j0 = 0; j0 <= i_last; j0 += kT) {
+  for (long long j0 = first_key_tile(i0, W); j0 <= i_last; j0 += kT) {
     __syncthreads();
-    load_cols(Kt, k, j0, S, KV * kD);
+    load_cols<kD>(Kt, k, j0, S, KV * kD);
     __syncthreads();
     float s[2][4];
-    tile_product(Qs, Kt, ti, tj, s);
+    tile_product<kD>(Qs, Kt, ti, tj, s);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const long long i = i0 + 2 * ti + r;
@@ -232,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) bwd_setup_kernel(Params p) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const long long j = j0 + 4 * tj + c;
-        s[r][c] = (i < S && j <= i) ? s[r][c] * p.scale : -INFINITY;
+        s[r][c] = live(i, j, S, W) ? s[r][c] * p.scale : -INFINITY;
         mx = fmaxf(mx, s[r][c]);
       }
       const float m_new = fmaxf(m[r], group8_max(mx));
@@ -260,12 +297,13 @@ __global__ void __launch_bounds__(kThreads) bwd_setup_kernel(Params p) {
 }
 
 // P and dS of one 32 x 32 tile, a 2 x 4 patch per thread, from the scores
-// s and dP = dO v^T; keys after a row's diagonal and rows past S get 0.
+// s and dP = dO v^T; dead pairs (after a row's diagonal, at or before its
+// window) and rows past S get 0.
 __device__ __forceinline__ void probs(float (&s)[2][4], float (&dp)[2][4],
                                       const float* lse_s, const float* del_s,
                                       long long i0, long long j0,
-                                      long long S, float scale, int ti,
-                                      int tj) {
+                                      long long S, long long W, float scale,
+                                      int ti, int tj) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const long long i = i0 + 2 * ti + r;
@@ -273,7 +311,7 @@ __device__ __forceinline__ void probs(float (&s)[2][4], float (&dp)[2][4],
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const long long j = j0 + 4 * tj + c;
-      const float pr = (i < S && j <= i) ? expf(s[r][c] * scale - li) : 0.f;
+      const float pr = live(i, j, S, W) ? expf(s[r][c] * scale - li) : 0.f;
       s[r][c] = pr;
       dp[r][c] = pr * (dp[r][c] - di);
     }
@@ -293,33 +331,44 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* del_s,
   }
 }
 
-constexpr size_t kDkdvSmem =
-    sizeof(float) * (2 * kD * kLt + 2 * kT * kLd + 2 * kT * kLt + 2 * kT);
-constexpr size_t kDqSmem =
-    sizeof(float) * (2 * kT * kLd + 2 * kD * kLt + kT * kLd + kT * kLt +
-                     2 * kT);
+template <int kD>
+constexpr size_t dkdv_smem() {
+  return sizeof(float) *
+         (2 * kD * kLt + 2 * kT * ld<kD>() + 2 * kT * kLt + 2 * kT);
+}
+template <int kD>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (2 * kT * ld<kD>() + 2 * kD * kLt + kT * ld<kC>() +
+                          kT * kLt + 2 * kT);
+}
+static_assert(dq_smem<256>() <= 232448 && dkdv_smem<256>() <= 232448,
+              "a block's shared memory");
 
-// dK and dV of 32 keys of one KV head.  Grid (key tiles, B * KV).
-template <typename T>
+// dK and dV of 32 keys and 64 columns of one KV head.  Grid (key tiles,
+// B * KV * column blocks).
+template <int kD, typename T>
 __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
+  constexpr int kL = ld<kD>();
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;                  // kD x kLt
   float* Vt = Kt + kD * kLt;         // kD x kLt
-  float* Qs = Vt + kD * kLt;         // kT x kLd
-  float* dOs = Qs + kT * kLd;        // kT x kLd
-  float* Ps = dOs + kT * kLd;        // kT x kLt
+  float* Qs = Vt + kD * kLt;         // kT x kL
+  float* dOs = Qs + kT * kL;         // kT x kL
+  float* Ps = dOs + kT * kL;         // kT x kLt
   float* dSs = Ps + kT * kLt;        // kT x kLt
   float* lse_s = dSs + kT * kLt;     // kT
   float* del_s = lse_s + kT;         // kT
 
-  const long long S = p.S, H = p.H, KV = p.KV, G = H / KV;
-  const long long b = blockIdx.y / KV, kvh = blockIdx.y % KV;
+  const long long S = p.S, H = p.H, KV = p.KV, G = H / KV, W = p.window;
+  const long long bk = blockIdx.y / p.cols;
+  const int c0 = (int)(blockIdx.y - bk * p.cols) * kC;
+  const long long b = bk / KV, kvh = bk % KV;
   const long long j0 = (long long)blockIdx.x * kT;
   const int tid = threadIdx.x;
   const T* kb = static_cast<const T*>(p.k) + (b * S * KV + kvh) * kD;
   const T* vb = static_cast<const T*>(p.v) + (b * S * KV + kvh) * kD;
-  load_cols(Kt, kb, j0, S, KV * kD);
-  load_cols(Vt, vb, j0, S, KV * kD);
+  load_cols<kD>(Kt, kb, j0, S, KV * kD);
+  load_cols<kD>(Vt, vb, j0, S, KV * kD);
 
   const int ti = tid >> 3, tj = tid & 7;    // score patch: rows, keys
   const int tk = tid >> 4, td = tid & 15;   // dK/dV patch: keys, dims
@@ -329,23 +378,25 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[a][c] = dv[a][c] = 0.f;
 
+  // the query tiles at or after the block's keys (the causal mask) whose
+  // last row's window reaches its last key
+  const long long i_end = j0 + kT - 1 + W - 1 < S ? j0 + kT - 1 + W : S;
   for (long long g = 0; g < G; ++g) {
     const long long h = kvh * G + g;
     const T* qb = static_cast<const T*>(p.q) + (b * S * H + h) * kD;
     const T* db = static_cast<const T*>(p.dout) + (b * S * H + h) * kD;
     const float* lse = p.lse + (b * H + h) * S;
     const float* delta = p.delta + (b * H + h) * S;
-    // the query tiles at or after the block's keys (the causal mask)
-    for (long long i0 = j0; i0 < S; i0 += kT) {
+    for (long long i0 = j0; i0 < i_end; i0 += kT) {
       __syncthreads();
-      load_rows(Qs, qb, i0, S, H * kD);
-      load_rows(dOs, db, i0, S, H * kD);
+      load_rows<kD>(Qs, qb, i0, S, H * kD);
+      load_rows<kD>(dOs, db, i0, S, H * kD);
       load_row_stats(lse_s, del_s, lse, delta, i0, S);
       __syncthreads();
       float s[2][4], dp[2][4];
-      tile_product(Qs, Kt, ti, tj, s);
-      tile_product(dOs, Vt, ti, tj, dp);
-      probs(s, dp, lse_s, del_s, i0, j0, S, p.scale, ti, tj);
+      tile_product<kD>(Qs, Kt, ti, tj, s);
+      tile_product<kD>(dOs, Vt, ti, tj, dp);
+      probs(s, dp, lse_s, del_s, i0, j0, S, W, p.scale, ti, tj);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         *reinterpret_cast<float4*>(Ps + (2 * ti + r) * kLt + 4 * tj) =
@@ -360,10 +411,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
                                                            4 * tk);
         const float4 sv = *reinterpret_cast<const float4*>(dSs + i * kLt +
                                                            4 * tk);
-        const float4 ov = *reinterpret_cast<const float4*>(dOs + i * kLd +
-                                                           4 * td);
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + i * kLd +
-                                                           4 * td);
+        const float4 ov = *reinterpret_cast<const float4*>(
+            dOs + i * kL + c0 + 4 * td);
+        const float4 qv = *reinterpret_cast<const float4*>(
+            Qs + i * kL + c0 + 4 * td);
         const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
         const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
         const float oa[4] = {ov.x, ov.y, ov.z, ov.w};
@@ -379,8 +430,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
     }
   }
 
-  T* dkb = static_cast<T*>(p.dk) + (b * S * KV + kvh) * kD;
-  T* dvb = static_cast<T*>(p.dv) + (b * S * KV + kvh) * kD;
+  T* dkb = static_cast<T*>(p.dk) + (b * S * KV + kvh) * kD + c0;
+  T* dvb = static_cast<T*>(p.dv) + (b * S * KV + kvh) * kD + c0;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const long long j = j0 + 4 * tk + a;
@@ -393,29 +444,33 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Params p) {
   }
 }
 
-// dQ of 32 query rows of one head.  Grid (query tiles, B * H).
-template <typename T>
+// dQ of 32 query rows and 64 columns of one head.  Grid (query tiles, B *
+// H * column blocks).
+template <int kD, typename T>
 __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
+  constexpr int kL = ld<kD>(), kLc = ld<kC>();
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                  // kT x kLd
-  float* dOs = Qs + kT * kLd;        // kT x kLd
-  float* Kt = dOs + kT * kLd;        // kD x kLt
+  float* Qs = smem;                  // kT x kL
+  float* dOs = Qs + kT * kL;         // kT x kL
+  float* Kt = dOs + kT * kL;         // kD x kLt
   float* Vt = Kt + kD * kLt;         // kD x kLt
-  float* Ks = Vt + kD * kLt;         // kT x kLd
-  float* dSs = Ks + kT * kLd;        // kT x kLt
+  float* Ks = Vt + kD * kLt;         // kT x kLc: the block's columns of k
+  float* dSs = Ks + kT * kLc;        // kT x kLt
   float* lse_s = dSs + kT * kLt;     // kT
   float* del_s = lse_s + kT;         // kT
 
-  const long long S = p.S, H = p.H, KV = p.KV, G = H / KV;
-  const long long b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / G;
+  const long long S = p.S, H = p.H, KV = p.KV, G = H / KV, W = p.window;
+  const long long bh = blockIdx.y / p.cols;
+  const int c0 = (int)(blockIdx.y - bh * p.cols) * kC;
+  const long long b = bh / H, h = bh % H, kvh = h / G;
   const long long i0 = (long long)blockIdx.x * kT;
   const int tid = threadIdx.x;
   const T* kb = static_cast<const T*>(p.k) + (b * S * KV + kvh) * kD;
   const T* vb = static_cast<const T*>(p.v) + (b * S * KV + kvh) * kD;
-  load_rows(Qs, static_cast<const T*>(p.q) + (b * S * H + h) * kD, i0, S,
-            H * kD);
-  load_rows(dOs, static_cast<const T*>(p.dout) + (b * S * H + h) * kD, i0,
-            S, H * kD);
+  load_rows<kD>(Qs, static_cast<const T*>(p.q) + (b * S * H + h) * kD, i0,
+                S, H * kD);
+  load_rows<kD>(dOs, static_cast<const T*>(p.dout) + (b * S * H + h) * kD,
+                i0, S, H * kD);
   load_row_stats(lse_s, del_s, p.lse + (b * H + h) * S,
                  p.delta + (b * H + h) * S, i0, S);
 
@@ -428,16 +483,16 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
     for (int c = 0; c < 4; ++c) dq[a][c] = 0.f;
 
   const long long i_last = (i0 + kT < S ? i0 + kT : S) - 1;
-  for (long long j0 = 0; j0 <= i_last; j0 += kT) {
+  for (long long j0 = first_key_tile(i0, W); j0 <= i_last; j0 += kT) {
     __syncthreads();
-    load_cols(Kt, kb, j0, S, KV * kD);
-    load_cols(Vt, vb, j0, S, KV * kD);
-    load_rows(Ks, kb, j0, S, KV * kD);
+    load_cols<kD>(Kt, kb, j0, S, KV * kD);
+    load_cols<kD>(Vt, vb, j0, S, KV * kD);
+    load_rows<kC>(Ks, kb, j0, S, KV * kD, c0);
     __syncthreads();
     float s[2][4], dp[2][4];
-    tile_product(Qs, Kt, ti, tj, s);
-    tile_product(dOs, Vt, ti, tj, dp);
-    probs(s, dp, lse_s, del_s, i0, j0, S, p.scale, ti, tj);
+    tile_product<kD>(Qs, Kt, ti, tj, s);
+    tile_product<kD>(dOs, Vt, ti, tj, dp);
+    probs(s, dp, lse_s, del_s, i0, j0, S, W, p.scale, ti, tj);
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<float4*>(dSs + (2 * ti + r) * kLt + 4 * tj) =
@@ -445,7 +500,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kT; ++j) {
-      const float4 kv = *reinterpret_cast<const float4*>(Ks + j * kLd +
+      const float4 kv = *reinterpret_cast<const float4*>(Ks + j * kLc +
                                                          4 * td);
       const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
 #pragma unroll
@@ -457,7 +512,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
     }
   }
 
-  T* dqb = static_cast<T*>(p.dq) + (b * S * H + h) * kD;
+  T* dqb = static_cast<T*>(p.dq) + (b * S * H + h) * kD + c0;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const long long i = i0 + 4 * tq + a;
@@ -468,28 +523,38 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Params p) {
   }
 }
 
-template <typename T>
-int run(const Params& p, cudaStream_t stream) {
+template <int kD, typename T>
+int run(Params p, cudaStream_t stream) {
+  p.cols = kD / kC;
   cudaError_t e = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kDkdvSmem);
+      bwd_setup_kernel<kD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)setup_smem<kD>());
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(bwd_dq_kernel<T>,
+  e = cudaFuncSetAttribute(bwd_dkdv_kernel<kD, T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kDqSmem);
+                           (int)dkdv_smem<kD>());
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(bwd_dq_kernel<kD, T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dq_smem<kD>());
   if (e != cudaSuccess) return (int)e;
   const unsigned tiles = (unsigned)((p.S + kT - 1) / kT);
-  bwd_setup_kernel<T><<<dim3(tiles, (unsigned)(p.B * p.H)), kThreads, 0,
-                        stream>>>(p);
+  bwd_setup_kernel<kD, T><<<dim3(tiles, (unsigned)(p.B * p.H)), kThreads,
+                            setup_smem<kD>(), stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  bwd_dkdv_kernel<T><<<dim3(tiles, (unsigned)(p.B * p.KV)), kThreads,
-                       kDkdvSmem, stream>>>(p);
+  bwd_dkdv_kernel<kD, T><<<dim3(tiles, (unsigned)(p.B * p.KV * p.cols)),
+                           kThreads, dkdv_smem<kD>(), stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  bwd_dq_kernel<T><<<dim3(tiles, (unsigned)(p.B * p.H)), kThreads, kDqSmem,
-                     stream>>>(p);
+  bwd_dq_kernel<kD, T><<<dim3(tiles, (unsigned)(p.B * p.H * p.cols)),
+                         kThreads, dq_smem<kD>(), stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_d(const Params& p, long long D, cudaStream_t stream) {
+  return D == 64 ? run<64, T>(p, stream) : run<256, T>(p, stream);
 }
 
 }  // namespace
@@ -497,26 +562,27 @@ int run(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // Launches the three kernels on `stream` and returns cudaGetLastError()
-// (0 when every launch was accepted).  Sizes are elements; the wrapper has
-// checked shapes (D = Dv = kD), dtypes, contiguity, alignment and S > 0,
-// and allocated dq, dk, dv and the f32 scratch lse and delta (B * H * S
-// each).
+// (0 when every launch was accepted).  Sizes are elements; window <= 0
+// means none.  The wrapper has checked shapes (D = Dv, 64 or 256), dtypes,
+// contiguity, alignment and S > 0, and allocated dq, dk, dv and the f32
+// scratch lse and delta (B * H * S each).
 int repro_flash_backward(int is_bf16, const void* q, const void* k,
                          const void* v, const void* o, const void* dout,
                          void* dq, void* dk, void* dv, void* lse,
                          void* delta, long long B, long long S, long long H,
-                         long long KV, long long D, float scale,
-                         void* stream) {
-  if (D != kD) return (int)cudaErrorInvalidValue;
+                         long long KV, long long D, long long window,
+                         float scale, void* stream) {
+  if (D != 64 && D != 256) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.lse = static_cast<float*>(lse);
   p.delta = static_cast<float*>(delta);
   p.B = B; p.S = S; p.H = H; p.KV = KV;
+  p.window = window >= 1 && window < S ? window : S;
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? run<__nv_bfloat16>(p, s) : run<float>(p, s);
+  return is_bf16 ? run_d<__nv_bfloat16>(p, D, s) : run_d<float>(p, D, s);
 }
 
 }  // extern "C"

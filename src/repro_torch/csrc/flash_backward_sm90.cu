@@ -5,9 +5,12 @@
 // train step differentiates `_flash_xla` (src/repro/kernels/flash_attention/
 // ops.py:77) with XLA, `jax.grad`.  This kernel computes that gradient for
 // the training form of the forward, bf16: causal, q_start 0, Sq = Skv = S,
-// no window, (D, Dv) = (64, 64).  Given q (B,S,H,D), k and v (B,S,KV,D), the
-// forward's output o (B,S,H,D) and the output's gradient dO (B,S,H,D), with
-// P = softmax(scale * q k^T) under the causal mask, it returns
+// with or without a local window W (keys at or before q - W masked, as in
+// the forward), at (D, Dv) = (64, 64) (llama3.2-1b) and (256, 256)
+// (recurrentgemma-2b: 10 query heads over 1 KV head, W 2048).  Given q
+// (B,S,H,D), k and v (B,S,KV,D), the forward's output o (B,S,H,D) and the
+// output's gradient dO (B,S,H,D), with P = softmax(scale * q k^T) under the
+// mask, it returns
 //   dV = P^T dO,  dS = P * (dO v^T - rowsum(dO * o)),
 //   dQ = scale * dS k,  dK = scale * dS^T q,
 // summed over the G = H / KV query heads that share a KV head; sums in f32,
@@ -18,50 +21,75 @@
 // llama3.2-1b's training shape (B 8, S 256, H 32, KV 8, D 64) one layer's
 // backward must read q, k, v, o and dO and write dq, dk and dv, 41.9 MB,
 // 12.5 us; its five products over the causal (query, key) pairs are 5.4
-// GFLOP, 5.4 us on the tensor cores.  So bytes bound it.  The design keeps
-// every product on the tensor cores and every intermediate (S, P, dP, dS)
-// in registers, and reads each input from device memory about once (the
-// tiles that several blocks share come from L2).
+// GFLOP, 5.4 us on the tensor cores.  So bytes bound it.  At Griffin's
+// (B 8, S 256, H 10, KV 1, D 256) the window does not bite: 46.1 MB, 13.8
+// us (bytes); at B 1, S 4096, W 2048, 6,292,480 live pairs a head, 161
+// GFLOP, 163 us (operations).  The design keeps every product on the
+// tensor cores and every intermediate (S, P, dP, dS) in registers, and
+// reads each input from device memory about once (the tiles that several
+// blocks share come from L2).
 //
 // Design: two kernels, launched in order on one stream by one entry, no
 // atomics (the G heads of a KV head are summed in a fixed order inside one
 // block, so a replay gives the same bits).  A block is one warpgroup (128
 // threads); every product is `wgmma.m64n64k16` (bf16 in, f32 sums), 64 rows
-// a tile:
-//   * dQ: one block per (batch, head, 64 query rows).  Its first sweep over
-//     the live key tiles computes S = Q K^T only, and each row's log-sum-exp
-//     by an online max and sum (base 2); D = rowsum(dO * o) comes from the
-//     dO tile and an o tile copied with it, each row's quad of threads
-//     summing a quarter of it.  Both go to f32 scratch (B, H, S rounded up
-//     to 64) for the dK/dV kernel: no separate setup pass.  Its second
-//     sweep computes S and dP = dO V^T, then P = 2^(S scale log2 e - lse)
-//     and dS = P (dP - D) in registers, then dQ += dS K;
-//   * dK/dV: one block per (batch, KV head, 64 keys) loops over the G query
-//     heads of its KV head, then over the query tiles at or after its keys:
-//     S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T in registers, then
-//     dV += P^T dO and dK += dS^T Q.  dK and dV stay in registers over all
+// a tile and 64 columns an accumulator:
+//   * dQ: one block per (batch, head, 64 query rows, 64 columns of dQ).  Its
+//     first sweep over the live key tiles computes S = Q K^T only, and each
+//     row's log-sum-exp by an online max and sum (base 2); D = rowsum(dO *
+//     o) comes from the dO tile and an o tile copied with it, each row's
+//     quad of threads summing a quarter of it.  The column block 0 writes
+//     both to f32 scratch (B, H, S rounded up to 64) for the dK/dV kernel:
+//     no separate setup pass.  Its second sweep computes S and dP = dO V^T,
+//     then P = 2^(S scale log2 e - lse) and dS = P (dP - D) in registers,
+//     then dQ[:, cols] += dS K[:, cols];
+//   * dK/dV: one block per (batch, KV head, 64 keys, 64 columns of dK and
+//     dV) loops over the G query heads of its KV head, then over the live
+//     query tiles at or after its keys: S^T = K Q^T and dP^T = V dO^T, then
+//     P^T and dS^T in registers, then dV[:, cols] += P^T dO[:, cols] and
+//     dK[:, cols] += dS^T Q[:, cols].  dK and dV stay in registers over all
 //     G x tiles steps.
+// At D 256 one warpgroup cannot hold a 64 x 256 f32 accumulator beside S
+// and dP (128 registers a thread for it alone), so the D / 64 column blocks
+// of a tile are blocks of their own, each recomputing S and dP over the
+// full D: the products do 4.6x the bound's operations at D 256 (1x at D
+// 64), the price of the accumulators' registers.
+// The window.  A dQ block visits the key tiles from the first that holds a
+// key inside its first row's window to its diagonal; a dK/dV block the
+// query tiles from its diagonal to the last whose last row's window reaches
+// its first key (`kernel.py:backward_key_tiles`, `backward_query_tiles`).
+// Masks are per element only on the diagonal, band-edge and ragged tiles.
+// Each kernel is built twice, with and without a window (kWin): a call
+// whose window cuts no key (none given, or one of S or more) runs the code
+// without the window's tests (the D 64 dK/dV kernel: 197 registers
+// without them, 205 with).
 // Operands.  S, dP, S^T and dP^T take both operands from shared memory,
 // K-major (rows D-contiguous).  dQ, dV and dK take A from registers (the
 // accumulator layout of the previous product, rounded to bf16, is the
 // A-fragment layout of the next) and B from shared memory, MN-major: the
 // same swizzled Q, dO and K tiles serve as K-major B of one product and
-// MN-major B of the next, under two descriptors.  P and dS enter the
-// products as bf16 (2^-9 relative each; the card's check holds each
-// gradient to 4 bf16 ulps of its largest value).
-// Copies.  Tiles come through a ring of kStages stages of 16-byte `cp.async`
-// copies into the 128-byte-swizzled layout `wgmma` reads (flash_prefill_
-// sm90.cu's), rows at or past S zero-filled; the ring's tiles are kStages - 1
-// ahead of the one computed.  The dK/dV kernel's ring also carries the 64
-// log-sum-exps and D of each query tile.
+// MN-major B of the next, under two descriptors.  A tile of D columns is
+// stored as D / 64 column blocks of 64 rows x 128 bytes (flash_prefill_
+// sm90.cu's layout).  P and dS enter the products as bf16 (2^-9 relative
+// each; the card's check holds each gradient to 4 bf16 ulps of its largest
+// value).
+// Copies.  Tiles come through a ring of stages of 16-byte `cp.async`
+// copies into the 128-byte-swizzled layout `wgmma` reads, rows at or past S
+// zero-filled; the ring's tiles are stages - 1 ahead of the one computed.
+// The dK/dV kernel's ring also carries the 64 log-sum-exps and D of each
+// query tile.
 // Outputs are staged through shared memory as bf16 and stored 16 bytes a
-// thread.  Masks are per element only on the diagonal and ragged tiles.
+// thread.
 // Block order.  A 1-D grid, heaviest blocks first: the dQ blocks of the last
-// query tile (the most key tiles) over every (batch, head), then the tile
-// before; the dK/dV blocks of key tile 0 (the most query tiles) first.
-// Occupancy.  `-Xptxas -v` for sm_90a: dQ 128 registers (held there by its
-// launch bounds, for four blocks an SM), dK/dV 197, no spills.  What
-// limits each, from clock stamps on an H100 (tools/flash_backward_probe.py
+// query tile (the most key tiles) over every (batch, head, column block),
+// then the tile before; the dK/dV blocks of key tile 0 (the most query
+// tiles) first.  A window keeps that order heaviest first: a later query
+// tile never has fewer key tiles, a later key tile never more query tiles.
+// Occupancy.  `-Xptxas -v` for sm_90a at D 64: dQ 128 registers (held
+// there by its launch bounds, for four blocks an SM), dK/dV 197 (205 with
+// the window's tests), no spills; at D 256 dQ 149 (155), dK/dV 190 (243),
+// one block an SM each, by shared memory.  What limits
+// each at D 64, from clock stamps on an H100 (tools/flash_backward_probe.py
 // variants, PERF.md): the dQ blocks are short (2 to 2n steps) and wait on
 // their copies from L2; a dK/dV block is a chain of G x tiles dependent
 // steps (copy, products, softmax, products), two blocks an SM.
@@ -75,18 +103,38 @@ namespace {
 
 constexpr int kThreads = 128;      // one warpgroup
 constexpr int kTile = 64;          // rows of every tile: queries or keys
-constexpr int kD = 64;             // head dim of q, k and v
-constexpr int kDqStages = 2;       // stages of the dQ kernel's K/V ring
-constexpr int kDkdvStages = 3;     // stages of the dK/dV kernel's Q/dO ring
-constexpr int kTileBytes = kTile * kD * 2;
+constexpr int kCol = 64;           // columns of an accumulator block
+constexpr int kPanelBytes = kTile * kCol * 2;  // a 64 x 64 bf16 column block
 constexpr int kStatBytes = 2 * kTile * 4;     // lse and D of a query tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-// dynamic shared memory of each kernel: its resident tiles, its ring, and
-// 1024 bytes to align the swizzled tiles
-constexpr int kDqSmem = (2 + 2 * kDqStages) * kTileBytes + 1024;
-constexpr int kDkdvSmem =
-    (2 + 2 * kDkdvStages) * kTileBytes + kDkdvStages * kStatBytes + 1024;
+// per head dim D (= Dv): the stages of the dQ kernel's K/V ring and of the
+// dK/dV kernel's Q/dO ring, and the dQ blocks an SM its launch bounds aim
+// at (registers)
+template <int kD> struct Config;
+template <> struct Config<64> {
+  static constexpr int kDqStages = 2, kDkdvStages = 3, kDqBlocks = 4;
+};
+template <> struct Config<256> {
+  static constexpr int kDqStages = 2, kDkdvStages = 2, kDqBlocks = 1;
+};
+
+// bytes of a 64-row tile of D columns, and the dynamic shared memory of
+// each kernel: its resident tiles, its ring, and 1024 bytes to align the
+// swizzled tiles
+template <int kD>
+__host__ __device__ constexpr int tile_bytes() { return kTile * kD * 2; }
+template <int kD>
+__host__ __device__ constexpr int dq_smem() {
+  return (2 + 2 * Config<kD>::kDqStages) * tile_bytes<kD>() + 1024;
+}
+template <int kD>
+__host__ __device__ constexpr int dkdv_smem() {
+  return (2 + 2 * Config<kD>::kDkdvStages) * tile_bytes<kD>() +
+         Config<kD>::kDkdvStages * kStatBytes + 1024;
+}
+static_assert(dq_smem<256>() <= 232448 && dkdv_smem<256>() <= 232448,
+              "a block's shared memory");
 
 struct Params {
   const __nv_bfloat16* q;
@@ -100,6 +148,7 @@ struct Params {
   float* lse;                // (B, H, Spad), base 2 and scaled
   float* delta;              // (B, H, Spad)
   long long B, S, H, KV, Spad, tiles;
+  long long window;          // keys at or before q - window masked (kWin)
   float scale, scale_log2;
 };
 
@@ -149,19 +198,22 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
-// k-step kk (16 of the 64 dims) of a K-major tile: rows D-contiguous
+// k-step kk (16 of the D dims) of a K-major tile: rows D-contiguous, kk / 4
+// the column block
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 32, 16);
+  return make_desc(tile + (kk >> 2) * kPanelBytes + (kk & 3) * 32, 16);
 }
-// k-step kk (16 of the 64 rows) of an MN-major tile: rows are the sum's
-// index, each D-contiguous
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 16 * 128, kTile * 128);
+// k-step kk (16 of the 64 rows) of column block `col` of an MN-major tile:
+// rows are the sum's index, each D-contiguous
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk, int col) {
+  return make_desc(tile + col * kPanelBytes + kk * 16 * 128, kTile * 128);
 }
 
-// byte offset of 16-byte chunk c (c < 8) of row r in a 64 x 64 bf16 tile
+// byte offset of 16-byte chunk c of row r in a 64-row bf16 tile stored as
+// column blocks of 64 rows x 128 bytes
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+  return (uint32_t)((c >> 3) * kPanelBytes + r * 128 +
+                    (((c & 7) ^ (r & 7)) << 4));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -227,8 +279,9 @@ __device__ __forceinline__ void zero(float (&d)[32]) {
   for (int i = 0; i < 32; ++i) d[i] = 0.f;
 }
 
-// A = X Y^T (64 x 64) and B = U W^T, both from shared memory, K-major, in
-// one batch of products
+// A = X Y^T (64 x 64) and B = U W^T, both from shared memory, K-major over
+// kD, in one batch of products
+template <int kD>
 __device__ __forceinline__ void two_products_ss(float (&a)[32], uint32_t x,
                                                 uint32_t y, float (&b)[32],
                                                 uint32_t u, uint32_t w) {
@@ -259,10 +312,12 @@ __device__ __forceinline__ void to_frags(const float (&d)[32],
       a[kk][e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
 }
 
-// rows row0 .. row0 + 63 of a (S x 64) bf16 matrix whose row r starts at
+// rows row0 .. row0 + 63 of a (S x kD) bf16 matrix whose row r starts at
 // base + r * stride, into a swizzled tile; rows at or past S zero-filled.
-// Thread t copies 16-byte chunk t % 8 of rows t / 8 + 16 i, i < 4: one
-// address computed, then steps of 16 rows (the swizzle repeats every 8)
+// Thread t copies 16-byte chunk t % 8 of each column block of rows t / 8 +
+// 16 i, i < 4: one address computed, then steps of 16 rows (the swizzle
+// repeats every 8) and of a column block
+template <int kD>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* base,
                                           long long row0, long long S,
@@ -272,11 +327,13 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   const uint32_t d = dst + swz(r, c);
   const int left = (int)(S - row0 - r);        // rows of this thread in S
 #pragma unroll
-  for (int i = 0; i < kTile / 16; ++i) {
-    const bool in = 16 * i < left;
-    cp_async16(d + i * 16 * 128, in ? src + i * 16 * stride : base,
-               in ? 16 : 0);
-  }
+  for (int cb = 0; cb < kD / kCol; ++cb)
+#pragma unroll
+    for (int i = 0; i < kTile / 16; ++i) {
+      const bool in = 16 * i < left;
+      cp_async16(d + cb * kPanelBytes + i * 16 * 128,
+                 in ? src + i * 16 * stride + cb * kCol : base, in ? 16 : 0);
+    }
 }
 
 // the 16-byte chunk c of row r of a swizzled tile at shared address `tile`,
@@ -288,7 +345,8 @@ __device__ __forceinline__ uint4* chunk(unsigned char* smem, uint32_t tile,
 }
 
 // A 64 x 64 f32 accumulator (this thread's rows r0 and r0 + 8) times
-// `scale`, as bf16 into a swizzled tile at shared address `tile`
+// `scale`, as bf16 into the first column block of a swizzled tile at shared
+// address `tile`
 __device__ __forceinline__ void stage_out(unsigned char* smem, uint32_t tile,
                                           const float (&d)[32], float scale,
                                           int r0, int lane) {
@@ -303,8 +361,9 @@ __device__ __forceinline__ void stage_out(unsigned char* smem, uint32_t tile,
                                 d[4 * jj + 2 * x + 1] * scale);
 }
 
-// The rows of a swizzled tile to rows row0 .. of a (S x 64) bf16 matrix
-// (row r at base + r * stride), 16 bytes a thread, rows past S left out
+// The rows of a staged 64 x 64 block to rows row0 .. of a bf16 matrix (row
+// r's 64 columns at base + r * stride), 16 bytes a thread, rows past S left
+// out
 __device__ __forceinline__ void store_tile(__nv_bfloat16* base,
                                            unsigned char* smem, uint32_t tile,
                                            long long row0, long long S,
@@ -317,61 +376,80 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* base,
           *chunk(smem, tile, r + 16 * i, c);
 }
 
-// Block i of the dQ grid: query tile (the last first), head, batch row
+// Block i of the dQ grid: query tile (the last first), then (batch row,
+// head, column block), the column block fastest (kCols of them)
+template <int kCols>
 __device__ __forceinline__ void dq_block(long long i, const Params& p,
                                          long long& b, long long& h,
-                                         long long& qt) {
-  const long long pairs = p.B * p.H, r = i / pairs, pair = i - r * pairs;
+                                         long long& qt, int& col) {
+  const long long pairs = p.B * p.H * kCols, r = i / pairs;
+  const long long pair = i - r * pairs, bh = pair / kCols;
   qt = p.tiles - 1 - r;
-  b = pair / p.H;
-  h = pair - b * p.H;
+  col = (int)(pair - bh * kCols);
+  b = bh / p.H;
+  h = bh - b * p.H;
 }
 
-// Block i of the dK/dV grid: key tile (0 first), KV head, batch row
+// Block i of the dK/dV grid: key tile (0 first), then (batch row, KV head,
+// column block)
+template <int kCols>
 __device__ __forceinline__ void dkdv_block(long long i, const Params& p,
                                            long long& b, long long& kvh,
-                                           long long& kt) {
-  const long long pairs = p.B * p.KV, r = i / pairs, pair = i - r * pairs;
+                                           long long& kt, int& col) {
+  const long long pairs = p.B * p.KV * kCols, r = i / pairs;
+  const long long pair = i - r * pairs, bk = pair / kCols;
   kt = r;
-  b = pair / p.KV;
-  kvh = pair - b * p.KV;
+  col = (int)(pair - bk * kCols);
+  b = bk / p.KV;
+  kvh = bk - b * p.KV;
 }
 
-// dQ of 64 query rows of one head, and their log-sum-exp and D into the
-// scratch.  Steps 0 .. n-1 sweep the n live key tiles for the log-sum-exp
-// (K only); steps n .. 2n-1 sweep them again for dQ (K and V).
-__global__ void __launch_bounds__(kThreads, 4) bwd_dq_sm90_kernel(Params p) {
+// dQ of 64 query rows and 64 columns of one head, and (column block 0)
+// their log-sum-exp and D into the scratch.  The block's key tiles are t0 ..
+// qt (n of them: the window's first to the diagonal; without a window,
+// kWin false, from 0).  Steps 0 .. n-1 sweep them for the log-sum-exp (K
+// only); steps n .. 2n-1 sweep them again for dQ (K and V).
+template <int kD, bool kWin>
+__global__ void __launch_bounds__(kThreads, Config<kD>::kDqBlocks)
+    bwd_dq_sm90_kernel(Params p) {
+  constexpr int kStages = Config<kD>::kDqStages;
+  constexpr int kTB = tile_bytes<kD>();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sQ = base, sdO = sQ + kTileBytes;
-  const uint32_t sK = sdO + kTileBytes;                 // kDqStages tiles
-  const uint32_t sV = sK + kDqStages * kTileBytes;      // kDqStages tiles
+  const uint32_t sQ = base, sdO = sQ + kTB;
+  const uint32_t sK = sdO + kTB;                 // kStages tiles
+  const uint32_t sV = sK + kStages * kTB;        // kStages tiles
 
   long long b, h, qt;
-  dq_block(blockIdx.x, p, b, h, qt);
+  int col;
+  dq_block<kD / kCol>(blockIdx.x, p, b, h, qt, col);
   const long long S = p.S, H = p.H, KV = p.KV, kvh = h / (H / KV);
+  const long long W = p.window;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long q0 = qt * kTile;
   const __nv_bfloat16* qb = p.q + (b * S * H + h) * kD;
   const __nv_bfloat16* db = p.dout + (b * S * H + h) * kD;
   const __nv_bfloat16* kb = p.k + (b * S * KV + kvh) * kD;
   const __nv_bfloat16* vb = p.v + (b * S * KV + kvh) * kD;
-  load_tile(sQ, qb, q0, S, H * kD, tid);
-  load_tile(sdO, db, q0, S, H * kD, tid);
+  load_tile<kD>(sQ, qb, q0, S, H * kD, tid);
+  load_tile<kD>(sdO, db, q0, S, H * kD, tid);
   // o's rows into stage 0's V slot, which no step fills before step 2
   // (sweep 2 starts at step n >= 1; step 1, if it is the first of sweep 2,
   // takes stage 1); D is summed from it in step 0
-  load_tile(sV, p.o + (b * S * H + h) * kD, q0, S, H * kD, tid);
+  load_tile<kD>(sV, p.o + (b * S * H + h) * kD, q0, S, H * kD, tid);
 
-  const long long n = qt + 1;          // live key tiles: 0 .. qt
+  // the live key tiles: from the one holding the first row's first key in
+  // its window to the diagonal
+  const long long t0 = kWin && q0 - W + 1 > 0 ? (q0 - W + 1) / kTile : 0;
+  const long long n = qt - t0 + 1;
   auto load_step = [&](long long j, int stage) {
-    const long long t = j < n ? j : j - n;
-    load_tile(sK + stage * kTileBytes, kb, t * kTile, S, KV * kD, tid);
+    const long long t = t0 + (j < n ? j : j - n);
+    load_tile<kD>(sK + stage * kTB, kb, t * kTile, S, KV * kD, tid);
     if (j >= n)
-      load_tile(sV + stage * kTileBytes, vb, t * kTile, S, KV * kD, tid);
+      load_tile<kD>(sV + stage * kTB, vb, t * kTile, S, KV * kD, tid);
   };
 #pragma unroll
-  for (int i = 0; i < kDqStages - 1; ++i) {
+  for (int i = 0; i < kStages - 1; ++i) {
     if (i < 2 * n) load_step(i, i);
     cp_async_commit();
   }
@@ -388,51 +466,56 @@ __global__ void __launch_bounds__(kThreads, 4) bwd_dq_sm90_kernel(Params p) {
     m[x] = -INFINITY;
     l[x] = lse[x] = 0.f;
   }
+  const int w = (int)(kWin && W < S ? W : S);  // the window, cut to S
 
   float dq[32];
   zero(dq);
   const bool rows_full = q0 + kTile <= S;
   int stage = 0;
   for (long long j = 0; j < 2 * n; ++j) {
-    const int ahead = stage == 0 ? kDqStages - 1 : stage - 1;
-    if (j + kDqStages - 1 < 2 * n) load_step(j + kDqStages - 1, ahead);
+    const int ahead = stage == 0 ? kStages - 1 : stage - 1;
+    if (j + kStages - 1 < 2 * n) load_step(j + kStages - 1, ahead);
     cp_async_commit();
-    cp_async_wait<kDqStages - 1>();              // step j's tiles have landed
+    cp_async_wait<kStages - 1>();                // step j's tiles have landed
     fence_proxy_async();
     __syncthreads();
     if (j == 0) {
       // D = rowsum(dO * o) from the tiles: each thread of a row's quad
-      // sums 16 of its dims (rows past S are zeros)
+      // sums a quarter of its dims (rows past S are zeros)
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
         float acc = 0.f;
 #pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const int c = 2 * (lane & 3) + cc;
-          const uint4 ou = *chunk(smem_raw, sV, r0 + 8 * x, c);
-          const uint4 du = *chunk(smem_raw, sdO, r0 + 8 * x, c);
-          const __nv_bfloat162* o2 =
-              reinterpret_cast<const __nv_bfloat162*>(&ou);
-          const __nv_bfloat162* d2 =
-              reinterpret_cast<const __nv_bfloat162*>(&du);
+        for (int cb = 0; cb < kD / kCol; ++cb)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 of = __bfloat1622float2(o2[e]);
-            const float2 df = __bfloat1622float2(d2[e]);
-            acc = fmaf(of.x, df.x, acc);
-            acc = fmaf(of.y, df.y, acc);
+          for (int cc = 0; cc < 2; ++cc) {
+            const int c = 8 * cb + 2 * (lane & 3) + cc;
+            const uint4 ou = *chunk(smem_raw, sV, r0 + 8 * x, c);
+            const uint4 du = *chunk(smem_raw, sdO, r0 + 8 * x, c);
+            const __nv_bfloat162* o2 =
+                reinterpret_cast<const __nv_bfloat162*>(&ou);
+            const __nv_bfloat162* d2 =
+                reinterpret_cast<const __nv_bfloat162*>(&du);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 of = __bfloat1622float2(o2[e]);
+              const float2 df = __bfloat1622float2(d2[e]);
+              acc = fmaf(of.x, df.x, acc);
+              acc = fmaf(of.y, df.y, acc);
+            }
           }
-        }
         acc += __shfl_xor_sync(0xffffffffu, acc, 1);
         acc += __shfl_xor_sync(0xffffffffu, acc, 2);
         del[x] = acc;
       }
     }
-    const uint32_t ks = sK + stage * kTileBytes, vs = sV + stage * kTileBytes;
-    stage = stage + 1 == kDqStages ? 0 : stage + 1;
-    const long long t = j < n ? j : j - n, k0 = t * kTile;
-    // every key of the tile is live for every row (uniform over the block)
-    const bool full = rows_full && t < qt;
+    const uint32_t ks = sK + stage * kTB, vs = sV + stage * kTB;
+    stage = stage + 1 == kStages ? 0 : stage + 1;
+    const long long t = t0 + (j < n ? j : j - n), k0 = t * kTile;
+    // every key of the tile is live for every row (uniform over the block):
+    // below the diagonal, and inside the last row's window
+    const bool full =
+        rows_full && t < qt && (!kWin || k0 + w > q0 + kTile - 1);
 
     // register i holds row r0 + 8 * ((i >> 1) & 1), key 8 * (i >> 2) +
     // 2 * (lane & 3) + (i & 1) of the tile
@@ -460,7 +543,8 @@ __global__ void __launch_bounds__(kThreads, 4) bwd_dq_sm90_kernel(Params p) {
         for (int i = 0; i < 32; ++i) {
           const int x = (i >> 1) & 1;
           const int kj = (int)k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-          s[i] = valid[x] && kj <= qpos[x] ? s[i] * p.scale_log2 : -INFINITY;
+          s[i] = valid[x] && kj <= qpos[x] && (!kWin || kj > qpos[x] - w)
+                     ? s[i] * p.scale_log2 : -INFINITY;
           mx[x] = fmaxf(mx[x], s[i]);
         }
       }
@@ -479,14 +563,15 @@ __global__ void __launch_bounds__(kThreads, 4) bwd_dq_sm90_kernel(Params p) {
       }
       if (j == n - 1) {
         // the log-sum-exp (base 2, of the scaled scores), and D, to the
-        // scratch; rows past S get 0 there and are masked everywhere
+        // scratch (column block 0); rows past S get 0 there and are masked
+        // everywhere
         const long long row = (b * H + h) * p.Spad + q0 + r0;
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
           l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
           l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
           lse[x] = valid[x] ? m[x] + log2f(l[x]) : 0.f;
-          if ((lane & 3) == 0) {
+          if (col == 0 && (lane & 3) == 0) {
             p.lse[row + 8 * x] = lse[x];
             p.delta[row + 8 * x] = valid[x] ? del[x] : 0.f;
           }
@@ -494,7 +579,7 @@ __global__ void __launch_bounds__(kThreads, 4) bwd_dq_sm90_kernel(Params p) {
       }
     } else {
       // sweep 2: S and dP = dO V^T, P and dS in registers, dQ += dS K
-      two_products_ss(s, sQ, ks, dp, sdO, vs);
+      two_products_ss<kD>(s, sQ, ks, dp, sdO, vs);
       if (full) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
@@ -506,8 +591,9 @@ __global__ void __launch_bounds__(kThreads, 4) bwd_dq_sm90_kernel(Params p) {
         for (int i = 0; i < 32; ++i) {
           const int x = (i >> 1) & 1;
           const int kj = (int)k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-          const float pr = valid[x] && kj <= qpos[x]
-                               ? ex2(s[i] * p.scale_log2 - lse[x]) : 0.f;
+          const float pr =
+              valid[x] && kj <= qpos[x] && (!kWin || kj > qpos[x] - w)
+                  ? ex2(s[i] * p.scale_log2 - lse[x]) : 0.f;
           dp[i] = pr * (dp[i] - del[x]);
         }
       }
@@ -517,7 +603,7 @@ __global__ void __launch_bounds__(kThreads, 4) bwd_dq_sm90_kernel(Params p) {
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk)
-        wgmma_rs(dq, a[kk], desc_mn(ks, kk));
+        wgmma_rs(dq, a[kk], desc_mn(ks, kk, col));
       wgmma_commit();
       wgmma_wait0();
       fence_regs(dq);
@@ -529,38 +615,49 @@ __global__ void __launch_bounds__(kThreads, 4) bwd_dq_sm90_kernel(Params p) {
   // dQ through the Q tile's shared memory, for 16-byte stores
   stage_out(smem_raw, sQ, dq, p.scale, r0, lane);
   __syncthreads();
-  store_tile(p.dq + (b * S * H + h) * kD, smem_raw, sQ, q0, S, H * kD, tid);
+  store_tile(p.dq + (b * S * H + h) * kD + col * kCol, smem_raw, sQ, q0, S,
+             H * kD, tid);
 }
 
-// dK and dV of 64 keys of one KV head.  Step j takes head g = j / nq of the
-// KV head's G and query tile kt + j % nq (the nq tiles at or after the
-// block's keys).
-__global__ void __launch_bounds__(kThreads, 1) bwd_dkdv_sm90_kernel(Params p) {
+// dK and dV of 64 keys and 64 columns of one KV head.  The block's query
+// tiles are kt .. kt + nq - 1 (the diagonal to the last whose window reaches
+// its first key); step j takes head g = j / nq of the KV head's G and query
+// tile kt + j % nq.
+template <int kD, bool kWin>
+__global__ void __launch_bounds__(kThreads, 1)
+    bwd_dkdv_sm90_kernel(Params p) {
+  constexpr int kStages = Config<kD>::kDkdvStages;
+  constexpr int kTB = tile_bytes<kD>();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sK = base, sV = sK + kTileBytes;
-  const uint32_t sQ = sV + kTileBytes;                  // kDkdvStages tiles
-  const uint32_t sdO = sQ + kDkdvStages * kTileBytes;   // kDkdvStages tiles
-  const uint32_t sSt = sdO + kDkdvStages * kTileBytes;  // kDkdvStages stats
+  const uint32_t sK = base, sV = sK + kTB;
+  const uint32_t sQ = sV + kTB;                  // kStages tiles
+  const uint32_t sdO = sQ + kStages * kTB;       // kStages tiles
+  const uint32_t sSt = sdO + kStages * kTB;      // kStages stats
   const float* stats = reinterpret_cast<const float*>(
       smem_raw + (sSt - smem_u32(smem_raw)));
 
   long long b, kvh, kt;
-  dkdv_block(blockIdx.x, p, b, kvh, kt);
-  const long long S = p.S, H = p.H, KV = p.KV, G = H / KV;
+  int col;
+  dkdv_block<kD / kCol>(blockIdx.x, p, b, kvh, kt, col);
+  const long long S = p.S, H = p.H, KV = p.KV, G = H / KV, W = p.window;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long k0 = kt * kTile;
-  load_tile(sK, p.k + (b * S * KV + kvh) * kD, k0, S, KV * kD, tid);
-  load_tile(sV, p.v + (b * S * KV + kvh) * kD, k0, S, KV * kD, tid);
+  load_tile<kD>(sK, p.k + (b * S * KV + kvh) * kD, k0, S, KV * kD, tid);
+  load_tile<kD>(sV, p.v + (b * S * KV + kvh) * kD, k0, S, KV * kD, tid);
 
-  const long long nq = p.tiles - kt, n = G * nq;
+  // the live query tiles: the diagonal to the one holding the last query
+  // whose window reaches the block's last key
+  long long t1 = kWin ? (k0 + kTile - 1 + W - 1) / kTile : p.tiles - 1;
+  if (t1 > p.tiles - 1) t1 = p.tiles - 1;
+  const long long nq = t1 - kt + 1, n = G * nq;
   auto load_step = [&](long long j, int stage) {
     const long long g = j / nq, qt = kt + j - g * nq, h = kvh * G + g;
     const long long row0 = qt * kTile;
-    load_tile(sQ + stage * kTileBytes, p.q + (b * S * H + h) * kD, row0, S,
-              H * kD, tid);
-    load_tile(sdO + stage * kTileBytes, p.dout + (b * S * H + h) * kD, row0,
-              S, H * kD, tid);
+    load_tile<kD>(sQ + stage * kTB, p.q + (b * S * H + h) * kD, row0, S,
+                  H * kD, tid);
+    load_tile<kD>(sdO + stage * kTB, p.dout + (b * S * H + h) * kD, row0, S,
+                  H * kD, tid);
     // the tile's 64 log-sum-exps, then its 64 D (the scratch is padded to
     // whole tiles)
     if (tid < 2 * kTile / 4) {
@@ -570,7 +667,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv_sm90_kernel(Params p) {
     }
   };
 #pragma unroll
-  for (int i = 0; i < kDkdvStages - 1; ++i) {
+  for (int i = 0; i < kStages - 1; ++i) {
     if (i < n) load_step(i, i);
     cp_async_commit();
   }
@@ -582,31 +679,35 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv_sm90_kernel(Params p) {
   int kpos[2];            // positions fit an int: S < 2^31
 #pragma unroll
   for (int x = 0; x < 2; ++x) kpos[x] = (int)k0 + r0 + 8 * x;
+  const int w = (int)(kWin && W < S ? W : S);  // the window, cut to S
   float dk[32], dv[32];
   zero(dk);
   zero(dv);
   int stage = 0;
   for (long long j = 0; j < n; ++j) {
-    const int ahead = stage == 0 ? kDkdvStages - 1 : stage - 1;
-    if (j + kDkdvStages - 1 < n) load_step(j + kDkdvStages - 1, ahead);
+    const int ahead = stage == 0 ? kStages - 1 : stage - 1;
+    if (j + kStages - 1 < n) load_step(j + kStages - 1, ahead);
     cp_async_commit();
-    cp_async_wait<kDkdvStages - 1>();            // step j's tiles have landed
+    cp_async_wait<kStages - 1>();                // step j's tiles have landed
     fence_proxy_async();
     __syncthreads();
-    const uint32_t qs = sQ + stage * kTileBytes;
-    const uint32_t dos = sdO + stage * kTileBytes;
+    const uint32_t qs = sQ + stage * kTB;
+    const uint32_t dos = sdO + stage * kTB;
     const float* lse = stats + stage * (kStatBytes / 4);
     const float* del = lse + kTile;
-    stage = stage + 1 == kDkdvStages ? 0 : stage + 1;
+    stage = stage + 1 == kStages ? 0 : stage + 1;
     const long long g = j / nq, q0 = (kt + j - g * nq) * kTile;
-    // every query of the tile sees every key of the block
-    const bool full = q0 > k0 && q0 + kTile <= S;
+    // every query of the tile sees every key of the block: past the
+    // diagonal, and the last query's window reaching the first key
+    const bool full = q0 > k0 && q0 + kTile <= S &&
+                      (!kWin || q0 + kTile - 1 - k0 < w);
 
     // S^T = K Q^T and dP^T = V dO^T
     float st[32], dpt[32];
-    two_products_ss(st, sK, qs, dpt, sV, dos);
+    two_products_ss<kD>(st, sK, qs, dpt, sV, dos);
     // P^T = 2^(s scale log2 e - lse) and dS^T = P^T (dP^T - D), keys after
-    // a query (the causal mask) and queries past S giving 0
+    // a query or at or before its window (the mask) and queries past S
+    // giving 0
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const int c = 8 * jj + 2 * (lane & 3);
@@ -617,12 +718,14 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv_sm90_kernel(Params p) {
         const int i = 4 * jj + e, x = (e >> 1) & 1, y = e & 1;
         const int qi = (int)q0 + c + y;
         float pr = ex2(st[i] * p.scale_log2 - (y ? lq.y : lq.x));
-        if (!full) pr = qi < (int)S && kpos[x] <= qi ? pr : 0.f;
+        if (!full)
+          pr = qi < (int)S && kpos[x] <= qi && (!kWin || kpos[x] > qi - w)
+                   ? pr : 0.f;
         st[i] = pr;
         dpt[i] = pr * (dpt[i] - (y ? dd.y : dd.x));
       }
     }
-    // dV += P^T dO, dK += dS^T Q
+    // dV += P^T dO, dK += dS^T Q (the block's columns)
     uint32_t pa[kTile / 16][4], sa[kTile / 16][4];
     to_frags(st, pa);
     to_frags(dpt, sa);
@@ -631,8 +734,8 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv_sm90_kernel(Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
-      wgmma_rs(dv, pa[kk], desc_mn(dos, kk));
-      wgmma_rs(dk, sa[kk], desc_mn(qs, kk));
+      wgmma_rs(dv, pa[kk], desc_mn(dos, kk, col));
+      wgmma_rs(dk, sa[kk], desc_mn(qs, kk, col));
     }
     wgmma_commit();
     wgmma_wait0();
@@ -646,28 +749,67 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv_sm90_kernel(Params p) {
   stage_out(smem_raw, sK, dk, p.scale, r0, lane);
   stage_out(smem_raw, sV, dv, 1.f, r0, lane);
   __syncthreads();
-  const long long off = (b * S * KV + kvh) * kD;
+  const long long off = (b * S * KV + kvh) * kD + col * kCol;
   store_tile(p.dk + off, smem_raw, sK, k0, S, KV * kD, tid);
   store_tile(p.dv + off, smem_raw, sV, k0, S, KV * kD, tid);
+}
+
+// the two launches at head dim kD, windowed (kWin) or not: a call without
+// a window runs the code without its tests
+template <int kD, bool kWin>
+int run(const Params& p, cudaStream_t s) {
+  constexpr int kCols = kD / kCol;
+  cudaError_t e = cudaFuncSetAttribute(
+      bwd_dq_sm90_kernel<kD, kWin>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<kD>());
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(bwd_dkdv_sm90_kernel<kD, kWin>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           dkdv_smem<kD>());
+  if (e != cudaSuccess) return (int)e;
+  bwd_dq_sm90_kernel<kD, kWin><<<(unsigned)(p.tiles * p.B * p.H * kCols),
+                                 kThreads, dq_smem<kD>(), s>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  bwd_dkdv_sm90_kernel<kD, kWin>
+      <<<(unsigned)(p.tiles * p.B * p.KV * kCols), kThreads,
+         dkdv_smem<kD>(), s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// The constants this library was built with: kThreads, kTile, and for D 64
+// and D 256 the dQ and dK/dV kernels' stages and shared memory.  The
+// wrapper refuses a library whose constants differ from its own.
+void repro_flash_backward_sm90_constants(int* out) {
+  out[0] = kThreads;
+  out[1] = kTile;
+  out[2] = Config<64>::kDqStages;
+  out[3] = Config<64>::kDkdvStages;
+  out[4] = dq_smem<64>();
+  out[5] = dkdv_smem<64>();
+  out[6] = Config<256>::kDqStages;
+  out[7] = Config<256>::kDkdvStages;
+  out[8] = dq_smem<256>();
+  out[9] = dkdv_smem<256>();
+}
+
 // Launches the two kernels on `stream` (dQ, which writes the scratch, then
 // dK/dV, which reads it) and returns cudaGetLastError() (0 when both
-// launches were accepted).  Sizes are elements; the wrapper has checked
-// shapes, dtypes (bf16), contiguity, 16-byte alignment and S > 0, and
-// allocated dq, dk, dv and the f32 scratch lse and delta (B * H * Spad
-// each, Spad = S rounded up to a multiple of 64).
+// launches were accepted).  Sizes are elements; window <= 0 means none.
+// The wrapper has checked shapes, dtypes (bf16), contiguity, 16-byte
+// alignment and S > 0, and allocated dq, dk, dv and the f32 scratch lse and
+// delta (B * H * Spad each, Spad = S rounded up to a multiple of 64).
 int repro_flash_backward_sm90(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, void* dq,
                               void* dk, void* dv, void* lse, void* delta,
                               long long B, long long S, long long H,
                               long long KV, long long D, long long Dv,
-                              float scale, void* stream) {
-  if (D != kD || Dv != kD || KV <= 0 || H % KV)
+                              long long window, float scale, void* stream) {
+  if (D != Dv || (D != 64 && D != 256) || KV <= 0 || H % KV)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -683,23 +825,13 @@ int repro_flash_backward_sm90(const void* q, const void* k, const void* v,
   p.B = B; p.S = S; p.H = H; p.KV = KV;
   p.tiles = (S + kTile - 1) / kTile;
   p.Spad = p.tiles * kTile;
+  const bool win = window >= 1 && window < S;  // else no key is cut
+  p.window = win ? window : S;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      bwd_dq_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDqSmem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(bwd_dkdv_sm90_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kDkdvSmem);
-  if (e != cudaSuccess) return (int)e;
-  bwd_dq_sm90_kernel<<<(unsigned)(p.tiles * B * H), kThreads, kDqSmem, s>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  bwd_dkdv_sm90_kernel<<<(unsigned)(p.tiles * B * KV), kThreads, kDkdvSmem,
-                         s>>>(p);
-  return (int)cudaGetLastError();
+  if (D == 64) return win ? run<64, true>(p, s) : run<64, false>(p, s);
+  return win ? run<256, true>(p, s) : run<256, false>(p, s);
 }
 
 }  // extern "C"

@@ -72,13 +72,17 @@ def flash_cost(B: int, Sq: int, H: int, D: int, Skv: int, KV: int, Dv: int,
 
 
 def flash_backward_cost(B: int, S: int, H: int, KV: int, D: int,
-                        esz: int) -> tuple[int, int]:
+                        esz: int, *, window: int | None = None
+                        ) -> tuple[int, int]:
     """One causal backward in its training form (q, o, dO and dq ``(B, S,
-    H, D)``, k, v, dk, dv ``(B, S, KV, D)``): q, k, v, o and dO read once,
-    dq, dk and dv written once; five products (the scores recomputed, dP,
-    dV, dK, dQ) of ``2 D`` flops per live (query, key) pair and head."""
+    H, D)``, k, v, dk, dv ``(B, S, KV, D)``), with or without a window:
+    q, k, v, o and dO read once, dq, dk and dv written once (a window
+    still reads every key); five products (the scores recomputed, dP, dV,
+    dK, dQ) of ``2 D`` flops per live (query, key) pair and head
+    (:func:`attention_pairs`)."""
     nbytes = esz * (4 * B * S * H * D + 4 * B * S * KV * D)
-    live = S * (S + 1) // 2
+    live, _ = attention_pairs(S, q_start=0, kv_len=S, causal=True,
+                              window=window)
     return 5 * 2 * B * H * D * live, nbytes
 
 
@@ -102,6 +106,23 @@ def rglru_cost(B: int, T: int, D: int, esz: int, *,
     - e, and the step's two products and sum)."""
     nbytes = (4 + 2 * esz) * B * T * D + (1 + int(h0)) * 4 * B * D
     return 10 * B * T * D, nbytes
+
+
+def rglru_backward_cost(B: int, T: int, D: int, esz: int, *,
+                        h0: bool = False, dhT: bool = False
+                        ) -> tuple[int, int]:
+    """One RG-LRU backward: log_a (f32), gx and dh (gx's dtype) read
+    once, dlog_a (f32) and dgx (gx's dtype) written once, dh0 (f32)
+    written once, h0 and dhT read once where given; 31 f32 operations per
+    element, as the kernel does them: the carry recomputed (the forward's
+    10), the gates again (7: two exps, 2 la, 1 - e2, the clip's two, the
+    square root) and the reverse step's 14 (g's sum, dgx's product, g
+    h_{t-1} and its product by a, g x, 2 c, the division, the clip's two
+    tests, the product by e2, the doubling, dlog_a's sum, the carry's
+    product)."""
+    nbytes = ((8 + 3 * esz) * B * T * D
+              + (1 + int(h0) + int(dhT)) * 4 * B * D)
+    return 31 * B * T * D, nbytes
 
 
 #: the kernels' ``torch.library`` ops (``OpOverloadPacket``s of the

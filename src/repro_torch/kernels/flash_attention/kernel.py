@@ -22,11 +22,13 @@ built when this module is imported:
                                  position;
   * ``flash_backward_sm90.cu`` -- the gradient (dq, dk, dv) of causal
                                  attention in its training form (q_start
-                                 0, Sq = Skv, no window) on the tensor
-                                 cores (``wgmma``), bf16 at (D, Dv) in
-                                 :data:`BACKWARD_HEAD_DIMS`: one entry that
-                                 launches its two kernels (dQ with each
-                                 row's log-sum-exp, then dK/dV);
+                                 0, Sq = Skv, with or without a window) on
+                                 the tensor cores (``wgmma``), bf16 at (D,
+                                 Dv) in :data:`BACKWARD_HEAD_DIMS`: one
+                                 entry that launches its two kernels (dQ
+                                 with each row's log-sum-exp, then dK/dV),
+                                 each block one tile of 64 rows and 64
+                                 columns (:func:`backward_grid`);
   * ``flash_backward.cu``     -- the same gradient on CUDA cores, for f32
                                  (it also takes bf16, so that the two can
                                  be timed side by side): one entry that
@@ -120,11 +122,15 @@ PREFILL_TILE = 64
 PREFILL_STAGES = {(64, 64): 4, (128, 128): 3, (192, 128): 2, (256, 256): 2}
 
 #: (D, Dv) pairs the backward kernels take (bf16 or f32): llama3.2-1b's
-BACKWARD_HEAD_DIMS = ((64, 64),)
-#: kTile, kDqStages and kDkdvStages of csrc/flash_backward_sm90.cu: rows of
-#: every tile (64 query rows a dQ block, 64 keys a dK/dV block), and the
-#: stages of each kernel's copy ring
-BACKWARD_TILE, BACKWARD_DQ_STAGES, BACKWARD_DKDV_STAGES = 64, 2, 3
+#: and recurrentgemma-2b's
+BACKWARD_HEAD_DIMS = ((64, 64), (256, 256))
+#: kTile and kCol of csrc/flash_backward_sm90.cu: rows of every tile (64
+#: query rows a dQ block, 64 keys a dK/dV block) and the columns of a
+#: block's accumulators (a tile of D columns is D / 64 blocks)
+BACKWARD_TILE = BACKWARD_COLS = 64
+#: ``Config<D>::kDqStages`` and ``kDkdvStages``: the stages of each
+#: kernel's copy ring, by head dim
+BACKWARD_STAGES = {64: (2, 3), 256: (2, 2)}
 
 #: rows (Sq * G) of a row block of the split-K decode: the route for every
 #: call of at most this many rows, and the block a call of more rows (at a
@@ -179,11 +185,11 @@ _ARGS = {
                      "q_pos", "q_pos_stride", "kv_pos", "kv_pos_stride",
                      "stream"],
     "flash_backward": ["is_bf16", "q", "k", "v", "o", "do", "dq", "dk", "dv",
-                       "lse", "delta", "B", "S", "H", "KV", "D", "scale",
-                       "stream"],
+                       "lse", "delta", "B", "S", "H", "KV", "D", "window",
+                       "scale", "stream"],
     "flash_backward_sm90": ["q", "k", "v", "o", "do", "dq", "dk", "dv", "lse",
-                            "delta", "B", "S", "H", "KV", "D", "Dv", "scale",
-                            "stream"],
+                            "delta", "B", "S", "H", "KV", "D", "Dv",
+                            "window", "scale", "stream"],
 }
 _CTYPE = {"q": ctypes.c_void_p, "k": ctypes.c_void_p, "v": ctypes.c_void_p,
           "o": ctypes.c_void_p, "part": ctypes.c_void_p,
@@ -209,6 +215,13 @@ def _library(name: str = "flash_attention") -> ctypes.CDLL:
                 fn.argtypes = [_CTYPE.get(a, ctypes.c_longlong)
                                for a in _ARGS[name]]
                 fn.restype = ctypes.c_int
+            if name == "flash_backward_sm90":
+                got = (ctypes.c_int * len(SM90_CONSTANTS))()
+                lib.repro_flash_backward_sm90_constants(got)
+                if tuple(got) != SM90_CONSTANTS:
+                    raise _build.KernelBuildError(
+                        f"libflash_backward_sm90 was built with "
+                        f"{tuple(got)}, kernel.py says {SM90_CONSTANTS}")
             _libs[name] = lib
         return _libs[name]
 
@@ -570,23 +583,25 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
 def check_backward(q, k, v, *, causal=True, window=None, q_start=0,
                    kv_len=None) -> None:
     """Raise unless a call is the training form the backward takes:
-    causal, no window, ``q_start`` the host int 0, ``kv_len`` None or
-    ``Skv``, ``Sq == Skv``; on the card also a dtype and (D, Dv) that
-    :func:`pick_backward_route` gives a kernel.  A windowed
-    backward and Griffin's (256, 256) come with Griffin's training
-    (ROADMAP B)."""
+    causal, ``q_start`` the host int 0, ``kv_len`` None or ``Skv``, ``Sq ==
+    Skv``, no window or an int window >= 1 (keys at or before ``q -
+    window`` masked, as in the forward); on the card also a dtype and (D,
+    Dv) that :func:`pick_backward_route` gives a kernel."""
     Sq, Skv = q.shape[1], k.shape[1]
     if torch.is_tensor(q_start) or torch.is_tensor(kv_len):
         raise NotImplementedError(
             "the flash backward takes host positions only (a device "
             "position is a decode step's, which has no gradient)")
-    if not causal or window is not None or q_start != 0 \
+    if window is not None and (isinstance(window, bool)
+                               or not isinstance(window, int) or window < 1):
+        raise ValueError(f"window {window!r} must be an int >= 1 or None")
+    if not causal or q_start != 0 \
             or (kv_len is not None and kv_len != Skv) or Sq != Skv:
         raise NoBackward(
-            f"the flash backward takes causal attention with q_start 0, "
-            f"kv_len = Skv = Sq and no window only, got causal={causal}, "
-            f"window={window}, q_start={q_start}, kv_len={kv_len}, "
-            f"Sq={Sq}, Skv={Skv} (a windowed backward kernel waits for "
+            f"the flash backward takes causal attention with q_start 0 and "
+            f"kv_len = Skv = Sq only (a window or none), got "
+            f"causal={causal}, window={window}, q_start={q_start}, "
+            f"kv_len={kv_len}, Sq={Sq}, Skv={Skv} (other forms wait for "
             f"ROADMAP B)")
     if q.is_cuda:
         pick_backward_route(q.dtype, q.shape[3], v.shape[3])
@@ -595,8 +610,9 @@ def check_backward(q, k, v, *, causal=True, window=None, q_start=0,
 def pick_backward_route(dtype: torch.dtype, D: int, Dv: int) -> str:
     """Which kernel takes a backward call: ``"sm90"`` (the tensor-core
     kernel) for bf16, ``"simple"`` (the CUDA-core kernel) for f32, both at
-    (D, Dv) in :data:`BACKWARD_HEAD_DIMS`; raises for any other form.  (A
-    tensor-core f32 path, TF32, would miss f32's 1e-4 check.)"""
+    (D, Dv) in :data:`BACKWARD_HEAD_DIMS`, with or without a window; raises
+    for any other form.  (A tensor-core f32 path, TF32, would miss f32's
+    1e-4 check.)"""
     if (D, Dv) not in BACKWARD_HEAD_DIMS or dtype not in _SUFFIX:
         raise NoBackward(
             f"the flash backward kernels take bf16 or f32 at (D, Dv) in "
@@ -610,27 +626,66 @@ def backward_tiles(S: int) -> int:
     return -(-S // BACKWARD_TILE)
 
 
-def backward_grid(B: int, S: int, H: int, KV: int) -> tuple[int, int]:
+def backward_cols(D: int) -> int:
+    """Column blocks of a tile of ``D`` columns: the blocks of each (batch
+    row, head, tile), each holding :data:`BACKWARD_COLS` columns of its
+    dQ, or of its dK and dV."""
+    return -(-D // BACKWARD_COLS)
+
+
+def backward_key_tiles(qt: int, S: int, window: int | None
+                       ) -> tuple[int, int]:
+    """``(first, n)``: the key tiles a dQ block of query tile ``qt``
+    visits, from the one holding its first row's first live key (``q0 -
+    window + 1``) to its diagonal."""
+    q0 = qt * BACKWARD_TILE
+    w = S if window is None else min(window, S)
+    t0 = max(0, q0 - w + 1) // BACKWARD_TILE
+    return t0, qt - t0 + 1
+
+
+def backward_query_tiles(kt: int, S: int, window: int | None
+                         ) -> tuple[int, int]:
+    """``(first, n)``: the query tiles a dK/dV block of key tile ``kt``
+    visits, from its diagonal to the one holding the last query whose
+    window reaches its last key (``k0 + 63 + window - 1``)."""
+    w = S if window is None else min(window, S)
+    last = min(backward_tiles(S) - 1,
+               (kt * BACKWARD_TILE + BACKWARD_TILE - 1 + w - 1)
+               // BACKWARD_TILE)
+    return kt, last - kt + 1
+
+
+def backward_grid(B: int, S: int, H: int, KV: int, D: int = 64
+                  ) -> tuple[int, int]:
     """Blocks of the tensor-core backward's two launches: ``(dQ, dK/dV)``,
-    one per (batch row, head, query tile) and per (batch row, KV head, key
-    tile)."""
-    n = backward_tiles(S)
-    return n * B * H, n * B * KV
+    one per (batch row, head, query tile, column block) and per (batch
+    row, KV head, key tile, column block)."""
+    n, c = backward_tiles(S), backward_cols(D)
+    return n * B * H * c, n * B * KV * c
 
 
-def dq_block(i: int, B: int, S: int, H: int) -> tuple[int, int, int]:
-    """``(b, h, query tile)`` of block ``i`` of the dQ launch, as the kernel
-    computes it: the last query tile (the most key tiles) over every
-    (batch row, head) first."""
-    r, pair = divmod(i, B * H)
-    return pair // H, pair % H, backward_tiles(S) - 1 - r
+def dq_block(i: int, B: int, S: int, H: int, D: int = 64
+             ) -> tuple[int, int, int, int]:
+    """``(b, h, query tile, column block)`` of block ``i`` of the dQ
+    launch, as the kernel computes it: the last query tile (the most key
+    tiles) over every (batch row, head, column block) first, the column
+    block fastest."""
+    c = backward_cols(D)
+    r, pair = divmod(i, B * H * c)
+    bh, col = divmod(pair, c)
+    return bh // H, bh % H, backward_tiles(S) - 1 - r, col
 
 
-def dkdv_block(i: int, B: int, S: int, KV: int) -> tuple[int, int, int]:
-    """``(b, KV head, key tile)`` of block ``i`` of the dK/dV launch: key
-    tile 0 (the most query tiles) over every (batch row, KV head) first."""
-    r, pair = divmod(i, B * KV)
-    return pair // KV, pair % KV, r
+def dkdv_block(i: int, B: int, S: int, KV: int, D: int = 64
+               ) -> tuple[int, int, int, int]:
+    """``(b, KV head, key tile, column block)`` of block ``i`` of the dK/dV
+    launch: key tile 0 (the most query tiles) over every (batch row, KV
+    head, column block) first."""
+    c = backward_cols(D)
+    r, pair = divmod(i, B * KV * c)
+    bk, col = divmod(pair, c)
+    return bk // KV, bk % KV, r, col
 
 
 def prefill_smem_bytes(D: int, Dv: int) -> int:
@@ -640,24 +695,33 @@ def prefill_smem_bytes(D: int, Dv: int) -> int:
     return 2 * PREFILL_TILE * (D + PREFILL_STAGES[(D, Dv)] * (D + Dv)) + 1024
 
 
-def backward_smem_bytes() -> tuple[int, int]:
-    """Dynamic shared memory of the dQ and the dK/dV kernel: two resident
-    bf16 tiles, two tiles a stage of the ring (the dK/dV kernel's stages
-    also hold a query tile's f32 log-sum-exp and D), and 1024 bytes to
-    align the swizzled tiles."""
-    tile = BACKWARD_TILE * 64 * 2
-    dq = (2 + 2 * BACKWARD_DQ_STAGES) * tile + 1024
-    dkdv = (2 + 2 * BACKWARD_DKDV_STAGES) * tile \
-        + BACKWARD_DKDV_STAGES * 2 * BACKWARD_TILE * 4 + 1024
+def backward_smem_bytes(D: int = 64) -> tuple[int, int]:
+    """Dynamic shared memory of the dQ and the dK/dV kernel at head dim D:
+    two resident bf16 tiles of D columns, two tiles a stage of the ring
+    (the dK/dV kernel's stages also hold a query tile's f32 log-sum-exp
+    and D), and 1024 bytes to align the swizzled tiles."""
+    tile = BACKWARD_TILE * D * 2
+    dq_stages, dkdv_stages = BACKWARD_STAGES[D]
+    dq = (2 + 2 * dq_stages) * tile + 1024
+    dkdv = (2 + 2 * dkdv_stages) * tile \
+        + dkdv_stages * 2 * BACKWARD_TILE * 4 + 1024
     return dq, dkdv
 
 
-def _backward_args(q, k, v, o, do, softmax_scale):
+#: what ``repro_flash_backward_sm90_constants`` reports: threads a block,
+#: the tile, and at D 64 and 256 the stages and shared memory of each
+#: kernel
+SM90_CONSTANTS = (128, BACKWARD_TILE,
+                  *BACKWARD_STAGES[64], *backward_smem_bytes(64),
+                  *BACKWARD_STAGES[256], *backward_smem_bytes(256))
+
+
+def _backward_args(q, k, v, o, do, softmax_scale, window):
     """Check a backward call's five tensors (the training form, CUDA,
     contiguous, one dtype; 16-byte alignment is checked at the launch);
     returns the softmax scale."""
     _check(q, k, v)
-    check_backward(q, k, v)
+    check_backward(q, k, v, window=window)
     B, S, H, D = q.shape
     for name, t in (("o", o), ("do", do)):
         if not (isinstance(t, torch.Tensor) and t.is_cuda) \
@@ -667,13 +731,14 @@ def _backward_args(q, k, v, o, do, softmax_scale):
             raise ValueError(f"{name} must be a contiguous CUDA tensor of "
                              f"shape {(B, S, H, v.shape[3])} in {q.dtype} "
                              f"on {q.device}, 16-byte aligned")
-    if B * H > MAX_PAIRS:
-        raise ValueError(f"batch x heads = {B * H} exceeds the grid's "
+    if B * H * backward_cols(D) > MAX_PAIRS:
+        raise ValueError(f"batch x heads x column blocks = "
+                         f"{B * H * backward_cols(D)} exceeds the grid's "
                          f"{MAX_PAIRS}")
     return float(softmax_scale if softmax_scale is not None else D ** -0.5)
 
 
-def _backward_simple(q, k, v, o, do, scale):
+def _backward_simple(q, k, v, o, do, scale, window):
     """The CUDA-core backward's launch (``repro_torch::
     flash_backward_simple``)."""
     _check_aligned(q=q, k=k, v=v, o=o, do=do)
@@ -688,14 +753,14 @@ def _backward_simple(q, k, v, o, do, scale):
                        k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                        dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, S,
-                       H, k.shape[2], D, scale, _stream(q)),
-                    "flash_backward")
+                       H, k.shape[2], D, -1 if window is None else window,
+                       scale, _stream(q)), "flash_backward")
     LAUNCHES["flash_backward"] += 1
     BACKWARD_ROUTES["simple"] += 1
     return dq, dk, dv
 
 
-def _backward_sm90(q, k, v, o, do, scale):
+def _backward_sm90(q, k, v, o, do, scale, window):
     """The tensor-core backward's launch (``repro_torch::
     flash_backward_sm90``)."""
     _check_aligned(q=q, k=k, v=v, o=o, do=do)
@@ -711,49 +776,52 @@ def _backward_sm90(q, k, v, o, do, scale):
                        o.data_ptr(), do.data_ptr(), dq.data_ptr(),
                        dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
                        delta.data_ptr(), B, S, H, k.shape[2], D, v.shape[3],
-                       scale, _stream(q)), "flash_backward_sm90")
+                       -1 if window is None else window, scale, _stream(q)),
+                    "flash_backward_sm90")
     LAUNCHES["flash_backward"] += 1
     BACKWARD_ROUTES["sm90"] += 1
     return dq, dk, dv
 
 
 def flash_backward_simple_cuda(q, k, v, o, do, *,
-                               softmax_scale: float | None = None):
+                               softmax_scale: float | None = None,
+                               window: int | None = None):
     """The CUDA-core backward (``csrc/flash_backward.cu``: a setup pass for
     each row's log-sum-exp and rowsum(do * o), then the dK/dV and dQ
     kernels), bf16 or f32: the route of f32 calls."""
-    scale = _backward_args(q, k, v, o, do, softmax_scale)
-    return _OPS["flash_backward_simple"](q, k, v, o, do, scale)
+    scale = _backward_args(q, k, v, o, do, softmax_scale, window)
+    return _OPS["flash_backward_simple"](q, k, v, o, do, scale, window)
 
 
 def flash_backward_sm90_cuda(q, k, v, o, do, *,
-                             softmax_scale: float | None = None):
+                             softmax_scale: float | None = None,
+                             window: int | None = None):
     """The tensor-core backward (``csrc/flash_backward_sm90.cu``: the dQ
     kernel, which also writes each row's log-sum-exp and rowsum(do * o) to
     f32 scratch, then the dK/dV kernel), bf16 only: the route of bf16
     calls."""
-    scale = _backward_args(q, k, v, o, do, softmax_scale)
+    scale = _backward_args(q, k, v, o, do, softmax_scale, window)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the tensor-core backward takes bf16, got "
                          f"{q.dtype}")
-    return _OPS["flash_backward_sm90"](q, k, v, o, do, scale)
+    return _OPS["flash_backward_sm90"](q, k, v, o, do, scale, window)
 
 
 def flash_backward_cuda(q, k, v, o, do, *,
-                        softmax_scale: float | None = None):
+                        softmax_scale: float | None = None,
+                        window: int | None = None):
     """The gradient of causal attention ``o = attn(q, k, v)`` (q_start 0,
-    Sq = Skv) given ``do``, the output's gradient: returns ``(dq, dk, dv)``
+    Sq = Skv; keys at or before ``q - window`` masked when ``window`` is
+    given) given ``do``, the output's gradient: returns ``(dq, dk, dv)``
     in the inputs' dtype, by the kernel :func:`pick_backward_route` names
     (bf16: :func:`flash_backward_sm90_cuda`; f32:
     :func:`flash_backward_simple_cuda`).  All five inputs contiguous CUDA
     tensors of one dtype; q, o and do ``(B, S, H, D)``, k and v ``(B, S,
     KV, D)``."""
     route = pick_backward_route(q.dtype, q.shape[3], v.shape[3])
-    if route == "sm90":
-        return flash_backward_sm90_cuda(q, k, v, o, do,
-                                        softmax_scale=softmax_scale)
-    return flash_backward_simple_cuda(q, k, v, o, do,
-                                      softmax_scale=softmax_scale)
+    fn = flash_backward_sm90_cuda if route == "sm90" \
+        else flash_backward_simple_cuda
+    return fn(q, k, v, o, do, softmax_scale=softmax_scale, window=window)
 
 
 # ------------------------------------------------------- torch.library ops
@@ -805,7 +873,7 @@ def _forward_fake(q, k, v, causal, window, q_start, kv_len, scale):
     return q.new_empty((*q.shape[:3], v.shape[3]))
 
 
-def _backward_fake(q, k, v, o, do, scale):
+def _backward_fake(q, k, v, o, do, scale, window):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
@@ -837,16 +905,17 @@ def _forward_cost(q, k, v, causal, window, q_start, kv_len, scale):
             _flop_class(q))
 
 
-def _backward_cost(q, k, v, o, do, scale):
+def _backward_cost(q, k, v, o, do, scale, window):
     B, S, H, D = q.shape
     return (*costs.flash_backward_cost(B, S, H, k.shape[2], D,
-                                       q.element_size()), _flop_class(q))
+                                       q.element_size(), window=window),
+            _flop_class(q))
 
 
 _FWD = ("(Tensor q, Tensor k, Tensor v, bool causal, int? window, "
         "int q_start, int kv_len, float scale) -> Tensor")
-_BWD = ("(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, float scale) "
-        "-> (Tensor, Tensor, Tensor)")
+_BWD = ("(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, float scale, "
+        "int? window) -> (Tensor, Tensor, Tensor)")
 _OPS = {
     "flash_decode": costs.kernel_op(
         "flash_decode(Tensor q, Tensor k, Tensor v, bool causal, "

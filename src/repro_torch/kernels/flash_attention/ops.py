@@ -29,8 +29,8 @@ routed forward kernel, and the hand-written backward
 (``kernel.flash_backward_cuda``, routed by ``kernel.pick_backward_route``:
 ``csrc/flash_backward_sm90.cu`` on the tensor cores for bf16,
 ``csrc/flash_backward.cu`` for f32) for the gradient.  It takes the
-training form only (causal, ``q_start`` 0, ``kv_len = Skv = Sq``, no
-window; on the card (64, 64) heads) and raises
+training form only (causal, ``q_start`` 0, ``kv_len = Skv = Sq``, with or
+without a window; on the card (64, 64) and (256, 256) heads) and raises
 for any other call that needs a gradient on the card.  Without autograd
 (serving, under ``torch.no_grad()``) the call is the plain kernel launch
 it always was, so captured graphs and launch counts do not change.  The
@@ -173,7 +173,7 @@ def flash_attention(
         if _grad.needs_grad(q, k, v):
             _kernel.check_backward(q, k, v, causal=causal, window=window,
                                    q_start=q_start, kv_len=kv_len)
-            return FlashAttentionFn.apply(q, k, v, softmax_scale)
+            return FlashAttentionFn.apply(q, k, v, softmax_scale, window)
         return _kernel.flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window, q_start=q_start,
@@ -358,24 +358,26 @@ def flash_decode_combine_torch(m, l, acc, *, dtype=torch.float32):
 
 class FlashAttentionFn(torch.autograd.Function):
     """Causal GQA attention in its training form (``q_start`` 0, ``Sq =
-    Skv``, no window) on the card, with a hand-written gradient: the
-    forward is the routed forward kernel (``kernel.flash_attention_cuda``:
-    the ``wgmma`` prefill in bf16, the simple kernel in f32) and the
-    backward the routed backward kernel (``kernel.flash_backward_cuda``:
-    the tensor-core kernel in bf16, the CUDA-core one in f32).  It
-    saves q, k, v and the output for the backward (the log-sum-exp is
-    recomputed there).  ``apply(q, k, v, softmax_scale)``; the caller
+    Skv``, with or without a window: keys at or before ``q - window``
+    masked) on the card, with a hand-written gradient: the forward is the
+    routed forward kernel (``kernel.flash_attention_cuda``: the ``wgmma``
+    prefill in bf16, the simple kernel in f32) and the backward the routed
+    backward kernel (``kernel.flash_backward_cuda``: the tensor-core kernel
+    in bf16, the CUDA-core one in f32), both given the window.  It saves
+    q, k, v and the output for the backward (the log-sum-exp is recomputed
+    there).  ``apply(q, k, v, softmax_scale, window)``; the caller
     (:func:`flash_attention`) has checked the form with
     ``kernel.check_backward``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, softmax_scale=None):
+    def forward(ctx, q, k, v, softmax_scale=None, window=None):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o = _kernel.flash_attention_cuda(
-            q, k, v, causal=True, window=None, q_start=0,
+            q, k, v, causal=True, window=window, q_start=0,
             kv_len=k.shape[1], softmax_scale=softmax_scale)
         ctx.save_for_backward(q, k, v, o)
         ctx.softmax_scale = softmax_scale
+        ctx.window = window
         return o
 
     @staticmethod
@@ -383,14 +385,27 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         dq, dk, dv = _kernel.flash_backward_cuda(
-            q, k, v, o, do.contiguous(), softmax_scale=ctx.softmax_scale)
-        return dq, dk, dv, None
+            q, k, v, o, do.contiguous(), softmax_scale=ctx.softmax_scale,
+            window=ctx.window)
+        return dq, dk, dv, None, None
 
 
-def flash_attention_backward_torch(q, k, v, o, do, *, softmax_scale=None):
+def _live_pairs(S, window, device):
+    """``(query, key)`` -> live: causal, and with a window the keys after
+    ``q - window`` only."""
+    pos = torch.arange(S, device=device)
+    live = pos[None, :] <= pos[:, None]
+    if window is not None:
+        live = live & (pos[None, :] > pos[:, None] - window)
+    return live
+
+
+def flash_attention_backward_torch(q, k, v, o, do, *, softmax_scale=None,
+                                   window=None):
     """The backward kernel's algorithm in plain torch ops: the gradient of
-    causal attention ``o = attn(q, k, v)`` (``q_start`` 0, ``Sq = Skv``)
-    given ``do``, from the recomputed log-sum-exp of each query row.
+    causal attention ``o = attn(q, k, v)`` (``q_start`` 0, ``Sq = Skv``;
+    with ``window``, keys at or before ``q - window`` masked too) given
+    ``do``, from the recomputed log-sum-exp of each query row.
 
     With ``s = scale q k^T`` under the causal mask, ``lse`` its row-wise
     log-sum-exp, ``P = exp(s - lse)`` and ``D = rowsum(do * o)``:
@@ -405,8 +420,7 @@ def flash_attention_backward_torch(q, k, v, o, do, *, softmax_scale=None):
     kf, vf = k.float(), v.float()
     dof = do.float().reshape(B, S, KV, G, Dv)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
-    pos = torch.arange(S, device=q.device)
-    live = pos[None, :] <= pos[:, None]                       # (q, s)
+    live = _live_pairs(S, window, q.device)                   # (q, s)
     s = torch.where(live, s, -torch.inf)
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
     p = torch.exp(s - lse)                                    # 0 where dead
@@ -421,18 +435,24 @@ def flash_attention_backward_torch(q, k, v, o, do, *, softmax_scale=None):
 
 
 def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
-                               round_bf16=False):
+                               round_bf16=False, window=None):
     """The tensor-core backward's decomposition (``csrc/flash_backward_
     sm90.cu``) in plain torch ops, on tiles of ``kernel.BACKWARD_TILE``
     rows, rows past S zero as the kernel's copies fill them:
 
       * the dQ kernel, query tile by query tile: a first sweep over the
-        live key tiles for each row's log-sum-exp (base 2, of the scores
+        live key tiles (``kernel.backward_key_tiles``: the window's first
+        to the diagonal) for each row's log-sum-exp (base 2, of the scores
         times ``scale * log2 e``, by an online max and sum), a second for
         ``dS = P (dP - D)`` and ``dQ += dS K``;
       * the dK/dV kernel, key tile by key tile: the G query heads of its
-        KV head in order, each over the query tiles at or after the keys,
-        ``dV += P^T dO`` and ``dK += dS^T Q``.
+        KV head in order, each over the live query tiles
+        (``kernel.backward_query_tiles``: the diagonal to the last the
+        window reaches), ``dV += P^T dO`` and ``dK += dS^T Q``.
+
+    (The kernel splits each tile's D columns over blocks of 64; the
+    columns of a product are independent sums, so the emulation keeps them
+    whole.)
 
     ``round_bf16`` rounds P and dS to bf16 where they enter a product, as
     the kernel does; without it every value stays f32.  Sums are f32;
@@ -454,8 +474,11 @@ def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
     tile = lambda t: slice(t * T, (t + 1) * T)
 
     def live(rows, keys):                               # (queries, keys)
-        return (pos[rows][:, None] < S) & (pos[keys][None, :]
-                                           <= pos[rows][:, None])
+        m = (pos[rows][:, None] < S) & (pos[keys][None, :]
+                                        <= pos[rows][:, None])
+        if window is not None:
+            m = m & (pos[keys][None, :] > pos[rows][:, None] - window)
+        return m
 
     lse = torch.zeros((B, n * T, KV, G), device=q.device)
     dq = torch.zeros_like(qf)
@@ -463,7 +486,8 @@ def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
         rows = tile(qt)
         m = torch.full((B, T, KV, G), -_INF, device=q.device)
         l = torch.zeros((B, T, KV, G), device=q.device)
-        for t in range(qt + 1):                          # sweep 1
+        t0, nt = _kernel.backward_key_tiles(qt, S, window)
+        for t in range(t0, t0 + nt):                     # sweep 1
             s = torch.einsum("bqkgd,bckd->bqkgc", qf[:, rows],
                              kf[:, tile(t)]) * sl2
             s = torch.where(live(rows, tile(t))[:, None, None], s, -_INF)
@@ -475,7 +499,7 @@ def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
             m = m_new
         ok = (pos[rows] < S)[:, None, None]
         lse[:, rows] = torch.where(ok, m + torch.log2(l), 0.0)
-        for t in range(qt + 1):                          # sweep 2
+        for t in range(t0, t0 + nt):                     # sweep 2
             s = torch.einsum("bqkgd,bckd->bqkgc", qf[:, rows],
                              kf[:, tile(t)]) * sl2
             dp = torch.einsum("bqkgd,bckd->bqkgc", dof[:, rows],
@@ -488,8 +512,9 @@ def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for kt in range(n):
         keys = tile(kt)
+        q0, nq = _kernel.backward_query_tiles(kt, S, window)
         for g in range(G):
-            for qt in range(kt, n):
+            for qt in range(q0, q0 + nq):
                 rows = tile(qt)
                 st = torch.einsum("bckd,bqkd->bkcq", kf[:, keys],
                                   qf[:, rows, :, g]) * sl2

@@ -28,6 +28,12 @@ reaches ctypes), with its cost from ``kernels/costs.py``.  The library
 reports the constants it was built with, and one that differs from these
 is refused.
 
+The gradient is a third kernel (:func:`rglru_backward_cuda`, one launch
+of ``rglru_backward_kernel``, op ``repro_torch::rglru_backward``): it
+recomputes the f32 carries and runs the reverse scan, one thread a
+channel (:func:`backward_grid`); ``LAUNCHES["rglru_backward"]`` counts
+it.  ``ops.RGLRUFn`` takes it under autograd.
+
 It replaces ``rglru_pallas`` / ``_rglru_kernel`` of
 ``repro/kernels/rglru/kernel.py``; the source note says what bounds it and
 how the staged design meets that.
@@ -49,9 +55,13 @@ SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "rglru.cu"
 #: staged block owns, steps staged at a time, chunks in its load ring, and
 #: the longest T the step kernel takes
 CHANNELS, CHUNK, STAGES, STEP_MAX_T = 32, 128, 3, 8
-CONSTANTS = (CHANNELS, CHUNK, STAGES, STEP_MAX_T)
+#: kBwdThreads: threads a block of the backward kernel (one a channel)
+BACKWARD_THREADS = 128
+CONSTANTS = (CHANNELS, CHUNK, STAGES, STEP_MAX_T, BACKWARD_THREADS)
 
-LAUNCHES = {"rglru": 0}
+#: ``rglru``: forward launches of either route; ``rglru_backward``: the
+#: backward kernel's
+LAUNCHES = {"rglru": 0, "rglru_backward": 0}
 ROUTES = {"step": 0, "staged": 0}
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -69,6 +79,12 @@ def pick_route(T: int) -> str:
     """The kernel that takes a call of T steps: ``"step"`` up to
     :data:`STEP_MAX_T`, else ``"staged"``."""
     return "step" if T <= STEP_MAX_T else "staged"
+
+
+def backward_grid(B: int, D: int) -> int:
+    """Blocks of a backward launch: one thread a (batch row, channel),
+    :data:`BACKWARD_THREADS` a block."""
+    return -(-(B * D) // BACKWARD_THREADS)
 
 
 def grid(B: int, D: int) -> int:
@@ -127,6 +143,11 @@ def _library() -> ctypes.CDLL:
                                i,                      # channels a copy
                                vp]
                 fn.restype = i
+                fn = getattr(lib, f"repro_rglru_backward_{sfx}")
+                fn.argtypes = [vp, vp, vp, vp, vp,     # la gx h0 dh dhT
+                               vp, vp, vp,             # dla dgx dh0
+                               ll, ll, ll, vp]         # B T D stream
+                fn.restype = i
             got = (ctypes.c_int * len(CONSTANTS))()
             lib.repro_rglru_constants.argtypes = [ctypes.c_void_p]
             lib.repro_rglru_constants.restype = None
@@ -134,7 +155,8 @@ def _library() -> ctypes.CDLL:
             if tuple(got) != CONSTANTS:
                 raise _build.KernelBuildError(
                     f"librglru was built with (CHANNELS, CHUNK, STAGES, "
-                    f"STEP_MAX_T) = {tuple(got)}, kernel.py says {CONSTANTS}")
+                    f"STEP_MAX_T, BACKWARD_THREADS) = {tuple(got)}, "
+                    f"kernel.py says {CONSTANTS}")
             _lib = lib
         return _lib
 
@@ -215,6 +237,51 @@ def rglru_cuda(log_a, gx, h0=None, *, state_out=None):
     return _launch(route, log_a, gx, h0, state_out)
 
 
+def _check_backward(log_a, gx, h0, dh, dhT) -> None:
+    _check(log_a, gx, h0, None)
+    B, T, D = gx.shape
+    if not (isinstance(dh, torch.Tensor) and dh.device == gx.device
+            and dh.dtype == gx.dtype and dh.is_contiguous()
+            and dh.shape == gx.shape):
+        raise ValueError(f"dh must be a contiguous {gx.dtype} tensor of "
+                         f"shape {tuple(gx.shape)} on {gx.device}")
+    if dhT is not None and not (
+            isinstance(dhT, torch.Tensor) and dhT.device == gx.device
+            and dhT.dtype == torch.float32 and dhT.is_contiguous()
+            and tuple(dhT.shape) == (B, D)):
+        raise ValueError(f"dhT must be a contiguous f32 tensor of shape "
+                         f"{(B, D)} on {gx.device}")
+
+
+def rglru_backward_cuda(log_a, gx, h0, dh, dhT=None):
+    """The RG-LRU's gradient on the card (``rglru_backward_kernel``): given
+    the forward's inputs and the gradients of its outputs, ``dh`` ``(B, T,
+    D)`` in gx's dtype and ``dhT`` ``(B, D)`` f32 (None: zero), returns
+    ``(dlog_a f32, dgx in gx's dtype, dh0 f32 or None when h0 is None)``,
+    bit-equal to :func:`~repro_torch.kernels.rglru.ref.rglru_backward_torch`
+    where torch's exp on the card is CUDA's expf.  One launch, through the
+    ``repro_torch::rglru_backward`` op."""
+    _check_backward(log_a, gx, h0, dh, dhT)
+    dla, dgx, dh0 = _BACKWARD_OP(log_a, gx, h0, dh, dhT)
+    return dla, dgx, (None if h0 is None else dh0)
+
+
+def _backward_op(log_a, gx, h0, dh, dhT):
+    B, T, D = gx.shape
+    dla = torch.empty_like(log_a)
+    dgx = torch.empty_like(gx)
+    dh0 = torch.empty((B, D), dtype=torch.float32, device=gx.device)
+    fn = getattr(_library(), f"repro_rglru_backward_{_SUFFIX[gx.dtype]}")
+    stream = torch.cuda.current_stream(gx.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _build.raise_on(fn(log_a.data_ptr(), gx.data_ptr(), ptr(h0),
+                       dh.data_ptr(), ptr(dhT), dla.data_ptr(),
+                       dgx.data_ptr(), dh0.data_ptr(), B, T, D, stream),
+                    "rglru backward")
+    LAUNCHES["rglru_backward"] += 1
+    return dla, dgx, dh0
+
+
 # ``torch.library`` ops, one a kernel, so that a fake tensor (the
 # dry-run's) reaches a shape function and never ctypes.  hT may be h0
 # itself, and an op's output may not alias an input: hT is its last
@@ -230,3 +297,18 @@ _OPS = {route: costs.kernel_op(
     f"-> Tensor", lambda *a, route=route: _launch_op(route, *a),
     lambda log_a, gx, *_: torch.empty_like(gx), "rglru", _cost)
     for route in ("step", "staged")}
+
+
+def _backward_cost(log_a, gx, h0, dh, dhT):
+    return (*costs.rglru_backward_cost(*gx.shape, gx.element_size(),
+                                       h0=h0 is not None,
+                                       dhT=dhT is not None), "cuda_core")
+
+
+_BACKWARD_OP = costs.kernel_op(
+    "rglru_backward(Tensor log_a, Tensor gx, Tensor? h0, Tensor dh, "
+    "Tensor? dhT) -> (Tensor, Tensor, Tensor)", _backward_op,
+    lambda log_a, gx, h0, dh, dhT: (
+        torch.empty_like(log_a), torch.empty_like(gx),
+        log_a.new_empty((gx.shape[0], gx.shape[2]))),
+    "rglru_backward", _backward_cost)

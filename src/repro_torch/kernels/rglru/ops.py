@@ -16,13 +16,17 @@
 ``repro``'s ``"xla"`` associative scan has no counterpart: the tests hold
 the plain version against it.  No environment variable changes the
 choice: a CUDA tensor under ``"auto"`` launches the kernel or raises; it
-never falls back.  The kernels have no backward yet (ROADMAP B): on the
-card, under autograd with an input that requires a gradient, the call
-raises ``NotImplementedError`` rather than return an output autograd
-cannot see through.
+never falls back.  Under autograd on the card (grad enabled and an input
+that requires a gradient) the call is :class:`RGLRUFn`: the routed
+forward kernel, and for the gradient the backward kernel
+(``kernel.rglru_backward_cuda``); its plain version is
+``ref.rglru_backward_torch``.  An in-place ``state_out`` (serving's cache
+threading) is refused there with a ``ValueError``: training passes none.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import _grad, _local
 from repro_torch.kernels.rglru import kernel as _kernel
@@ -31,6 +35,30 @@ from repro_torch.parallel.sharding import copy_into
 
 IMPLS = ("auto", "cuda", "torch", "ref")
 
+
+class RGLRUFn(torch.autograd.Function):
+    """The RG-LRU on the card with a hand-written gradient: the forward is
+    the routed forward kernel (``kernel.rglru_cuda``) and the backward the
+    backward kernel (``kernel.rglru_backward_cuda``), which recomputes the
+    f32 carries from the saved inputs.  ``apply(log_a, gx, h0)`` -> (h,
+    hT); h0 may be None.  Autograd hands the backward a zero gradient
+    for an output the loss does not use (hT, in training)."""
+
+    @staticmethod
+    def forward(ctx, log_a, gx, h0):
+        log_a, gx = log_a.contiguous(), gx.contiguous()
+        h0 = None if h0 is None else h0.contiguous()
+        h, hT = _kernel.rglru_cuda(log_a, gx, h0)
+        ctx.save_for_backward(log_a, gx, h0)
+        return h, hT
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dh, dhT):
+        log_a, gx, h0 = ctx.saved_tensors
+        dla, dgx, dh0 = _kernel.rglru_backward_cuda(
+            log_a, gx, h0, dh.contiguous(), dhT.contiguous())
+        return dla, dgx, dh0
 
 
 def _pick_impl(impl: str, gx) -> str:
@@ -70,6 +98,10 @@ def rglru(log_a, gx, h0=None, *, impl: str = "auto", state_out=None):
             raise ValueError("impl='cuda' needs CUDA tensors; got gx on "
                              f"{gx.device}")
         if _grad.needs_grad(log_a, gx, h0):
-            raise _grad.no_backward("rglru", "the RG-LRU backward")
+            if state_out is not None:
+                raise ValueError(
+                    "rglru under autograd takes no state_out (an in-place "
+                    "hT has no gradient); training passes none")
+            return RGLRUFn.apply(log_a, gx, h0)
         return _kernel.rglru_cuda(log_a, gx, h0, state_out=state_out)
     return rglru_ref(log_a, gx, h0, state_out)

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --steps 8                           # on the card, at full width
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma-2b --layers 3 # published width, 3 layers deep
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 4                           # the smoke config on the CPU
 
@@ -11,9 +13,11 @@ checkpoint in ``--ckpt-dir`` (default ``build/train_ckpt`` at the root of
 the checkout).  It logs the loss and tokens/s every ``--log-every`` steps,
 as ``repro`` does.  The train step (``launch/steps.py:make_train_step``)
 runs the attention's forward and backward through the hand-written flash
-kernels on the card; RWKV-6 and Griffin train on the CPU only, since their
-recurrence kernels have no backward yet (ROADMAP B): on the card their
-first step raises.  Rematerialization follows the config's ``remat``, as in
+kernels on the card (Griffin's local attention with its window), and
+Griffin's RG-LRU through its forward and backward kernels
+(``kernels/rglru``): ``--arch recurrentgemma-2b`` trains at full width on
+one card.  RWKV-6 trains on the CPU only, since the WKV-6 kernel has no
+backward yet (ROADMAP B3): on the card its first step raises.  Rematerialization follows the config's ``remat``, as in
 ``repro`` (``"block"`` in every config: each block's forward runs again in
 the backward, so the attention's forward kernel launches twice a layer a
 step; ``models/zoo.py:_maybe_remat``).  Weights are random, drawn from ``--seed``.
@@ -57,6 +61,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=configs.ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config (CPU-sized)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the config's first N layers, every width "
+                         "as it is (a smaller model and checkpoint)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -83,6 +90,7 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    cfg = configs.cut_depth(cfg, args.layers)
     model = build_model(cfg)
     opt = make_optimizer(cfg, lr=args.lr)
 

@@ -21,7 +21,11 @@
   subprocess: ``repro``'s keys, the arguments' bytes equal rank 0's shards
   computed here from the abstract leaves, collectives in the train cell,
   the process's peak RSS under 2 GB; on a mocked card, rwkv6-7b's
-  ``train_4k`` is written not applicable, for want of the WKV-6 backward.
+  ``train_4k`` is written not applicable, for want of the WKV-6 backward,
+  and recurrentgemma-2b's applicable at full depth, its kernels' launches
+  a device pinned (16 ``flash_prefill``, 8 ``flash_backward``, 34
+  ``rglru_staged`` and 18 ``rglru_backward``: chip_smoke.py's
+  ``train_launches``).
 """
 
 import json
@@ -46,7 +50,10 @@ from repro_torch.kernels import costs  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as FO  # noqa: E402
 from repro_torch.kernels.rglru import kernel as RK  # noqa: E402
-from repro_torch.kernels.rglru.ref import rglru_ref  # noqa: E402
+from repro_torch.kernels.rglru.ref import (  # noqa: E402
+    rglru_backward_torch,
+    rglru_ref,
+)
 from repro_torch.kernels.rwkv6 import kernel as WK  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
 from repro_torch.launch import dryrun as D  # noqa: E402
@@ -435,21 +442,30 @@ def test_decode_op_shapes_and_flops(q_start, device_pos):
 
 @pytest.mark.parametrize("name", ["flash_backward_sm90",
                                   "flash_backward_simple"])
-def test_backward_ops_shapes_and_flops(name):
+@pytest.mark.parametrize("window", [None, 5])
+def test_backward_ops_shapes_and_flops(name, window):
     B, S, H, KV, D = 2, 24, 4, 2, 64
     q, k, v = (_rand(B, S, H, D), _rand(B, S, KV, D, seed=1),
                _rand(B, S, KV, D, seed=2))
     o, do = _rand(B, S, H, D, seed=3), _rand(B, S, H, D, seed=4)
-    want = FO.flash_attention_backward_torch(q, k, v, o, do)
+    want = FO.flash_attention_backward_torch(q, k, v, o, do, window=window)
     op = getattr(ops, name)
     mode, fts = _fake(q, k, v, o, do)
     with mode:
-        got = op(*fts, 0.125)
+        got = op(*fts, 0.125, window)
     assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype)
                                                  for t in want]
-    assert _flops(op, q, k, v, o, do, 0.125) == costs.flash_backward_cost(
-        B, S, H, KV, D, 4)[0]
+    flops, nbytes = costs.flash_backward_cost(B, S, H, KV, D, 4,
+                                              window=window)
+    live, _ = costs.attention_pairs(S, q_start=0, kv_len=S, causal=True,
+                                    window=window)
+    assert flops == 5 * 2 * B * H * D * live
+    assert live == (S * (S + 1) // 2 if window is None
+                    else sum(min(p + 1, window) for p in range(S)))
+    assert _flops(op, q, k, v, o, do, 0.125, window) == flops
     assert costs.KERNEL_OPS[op][0] == "flash_backward"
+    assert costs.KERNEL_OPS[op][1](q, k, v, o, do, 0.125, window) == (
+        flops, nbytes, "cuda_core")
 
 
 @pytest.mark.parametrize("with_state", [False, True])
@@ -472,12 +488,27 @@ def test_wkv6_op_shapes_and_flops(with_state):
         == "cuda_core"
 
 
-@pytest.mark.parametrize("route", ["step", "staged"])
+@pytest.mark.parametrize("route", ["step", "staged", "backward"])
 def test_rglru_ops_shapes_and_flops(route):
     B, T, Dm = 2, 12, 24
     la = -torch.exp(_rand(B, T, Dm))
     gx = _rand(B, T, Dm, dtype=torch.bfloat16, seed=1)
     h0 = _rand(B, Dm, seed=2)
+    if route == "backward":
+        dh = _rand(B, T, Dm, dtype=torch.bfloat16, seed=3)
+        want = rglru_backward_torch(la, gx, h0, dh)
+        mode, fts = _fake(la, gx, h0, dh)
+        with mode:
+            got = ops.rglru_backward(*fts, None)
+        assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype)
+                                                     for t in want]
+        flops, nbytes = costs.rglru_backward_cost(B, T, Dm, 2, h0=True)
+        assert nbytes == 14 * B * T * Dm + 2 * 4 * B * Dm
+        assert _flops(ops.rglru_backward, la, gx, h0, dh, None) == flops
+        assert costs.KERNEL_OPS[ops.rglru_backward][0] == "rglru_backward"
+        assert costs.KERNEL_OPS[ops.rglru_backward][1](
+            la, gx, h0, dh, None) == (flops, nbytes, "cuda_core")
+        return
     want, want_h = rglru_ref(la, gx, h0)
     op = getattr(ops, f"rglru_{route}")
     hT = torch.empty(B, Dm)
@@ -633,3 +664,35 @@ def test_train_cell_without_a_backward_kernel_is_skipped():
     ok, why = out.split(" | ")
     assert ok == "False"
     assert "WKV-6 backward" in why
+
+
+_MOCKED_GRIFFIN = """
+import tempfile, torch
+from repro_torch.kernels import _grad
+# the card mocked: the wrappers route fake CPU tensors to the kernels' ops,
+# whose fake implementations give the shapes (nothing launches)
+_grad.on_card = lambda t: True
+torch.Tensor.is_cuda = property(lambda t: True)
+torch.cuda.current_device = lambda: None
+from repro_torch.launch.dryrun import run_cell
+rec = run_cell("recurrentgemma-2b", "train_4k", False, tempfile.mkdtemp(),
+               device="cpu")
+print(rec["applicable"], "|", sorted(rec["launches"].items()), "|",
+      sorted((k, v["launches"]) for k, v in rec["kernels"].items()))
+"""
+
+
+def test_griffin_train_cell_is_applicable_on_a_mocked_card():
+    out = _run(_MOCKED_GRIFFIN, timeout=240).strip().splitlines()[-1]
+    ok, launches, kernels = out.split(" | ")
+    assert ok == "True"
+    # a device's step under remat "block": 8 groups (rec, rec, attn) run
+    # their forward twice, the tail's 2 rec blocks once; one backward a
+    # layer
+    assert launches == str(sorted({"flash_prefill": 16, "flash_backward": 8,
+                                   "rglru": 34,
+                                   "rglru_backward": 18}.items()))
+    assert kernels == str(sorted({"flash_prefill": 16,
+                                  "flash_backward_sm90": 8,
+                                  "rglru_staged": 34,
+                                  "rglru_backward": 18}.items()))

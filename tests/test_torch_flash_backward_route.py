@@ -2,15 +2,20 @@
 geometry and its decomposition, on the CPU (``kernels/flash_attention/
 kernel.py`` and ``ops.py``; the kernels themselves run on the card only).
 
-  * ``pick_backward_route``: bf16 at (64, 64) takes the tensor-core kernel
-    (``csrc/flash_backward_sm90.cu``), f32 the CUDA-core one
-    (``csrc/flash_backward.cu``); any other dtype or (D, Dv) raises;
+  * ``pick_backward_route``: bf16 at (64, 64) and (256, 256) takes the
+    tensor-core kernel (``csrc/flash_backward_sm90.cu``), f32 the CUDA-core
+    one (``csrc/flash_backward.cu``); any other dtype or (D, Dv) raises;
+    ``check_backward`` takes a window (an int >= 1) and refuses the other
+    forms;
   * ``backward_grid``, ``dq_block`` and ``dkdv_block``: each launch covers
-    every (batch row, head, tile) exactly once, the blocks with the most
-    tiles to visit issued first;
-  * ``backward_smem_bytes`` equals the source's ``kDqSmem`` and
-    ``kDkdvSmem`` and stays within a block's 232,448 bytes, and the
-    constants of ``kernel.py`` are the source's;
+    every (batch row, head, tile, column block) exactly once, the blocks
+    with the most tiles to visit issued first; with a window,
+    ``backward_key_tiles`` and ``backward_query_tiles`` cover each live
+    (query tile, key tile) pair once and no dead one, and the order stays
+    heaviest first;
+  * ``backward_smem_bytes`` at D 64 and 256 equals the source's
+    ``dq_smem`` and ``dkdv_smem`` and stays within a block's 232,448
+    bytes, and the constants of ``kernel.py`` are the source's;
   * every backward wrapper raises on CPU tensors and launches nothing;
   * ``flash_backward_tiled_torch`` (the kernel's two kernels, tile by tile,
     in plain torch) without rounding against ``jax.vjp`` of ``repro``'s
@@ -18,7 +23,12 @@ kernel.py`` and ``ops.py``; the kernels themselves run on the card only).
     the plain backward), and with the kernel's bf16 rounding of P and dS
     within 4 bf16 ulps of each gradient's largest value of
     ``flash_attention_backward_torch`` (the card's limit), at ragged S
-    (17, 64, 200) and G 1 and 4, inputs made with numpy from a seed.
+    (17, 64, 200) and G 1 and 4, inputs made with numpy from a seed;
+  * with a window (1, 16, 50), at (D, Dv) (16, 16) and (256, 256), G 1
+    and 10: the plain backward and the tiled emulation against
+    ``jax.vjp`` of ``_flash_xla(window=w)``, each gradient within 1e-5 of
+    its largest (at least 1: at window 1, dq and dk are 0 but for
+    rounding).
 """
 
 import functools
@@ -47,8 +57,10 @@ SMEM_LIMIT = 232_448          # dynamic shared memory a block may use (H100)
 
 
 def test_pick_backward_route():
-    assert fk.pick_backward_route(torch.bfloat16, 64, 64) == "sm90"
-    assert fk.pick_backward_route(torch.float32, 64, 64) == "simple"
+    for d in (64, 256):
+        assert fk.pick_backward_route(torch.bfloat16, d, d) == "sm90"
+        assert fk.pick_backward_route(torch.float32, d, d) == "simple"
+    assert fk.BACKWARD_HEAD_DIMS == ((64, 64), (256, 256))
     for dims in fk.HEAD_DIMS:
         if dims in fk.BACKWARD_HEAD_DIMS:
             continue
@@ -59,70 +71,113 @@ def test_pick_backward_route():
         fk.pick_backward_route(torch.float16, 64, 64)
 
 
-@pytest.mark.parametrize("B,S,H,KV", [(1, 17, 4, 4), (2, 64, 8, 2),
-                                      (2, 200, 8, 2), (8, 256, 32, 8),
-                                      (3, 129, 4, 1)])
-def test_grids_cover_every_tile_once_heaviest_first(B, S, H, KV):
-    n = fk.backward_tiles(S)
+@pytest.mark.parametrize("B,S,H,KV,D", [(1, 17, 4, 4, 64), (2, 64, 8, 2, 64),
+                                        (2, 200, 8, 2, 64),
+                                        (8, 256, 32, 8, 64),
+                                        (3, 129, 4, 1, 64),
+                                        (8, 256, 10, 1, 256),
+                                        (1, 300, 10, 1, 256)])
+def test_grids_cover_every_tile_once_heaviest_first(B, S, H, KV, D):
+    n, c = fk.backward_tiles(S), fk.backward_cols(D)
     assert (n - 1) * fk.BACKWARD_TILE < S <= n * fk.BACKWARD_TILE
-    n_dq, n_dkdv = fk.backward_grid(B, S, H, KV)
-    assert (n_dq, n_dkdv) == (n * B * H, n * B * KV)
+    assert c * fk.BACKWARD_COLS == D
+    n_dq, n_dkdv = fk.backward_grid(B, S, H, KV, D)
+    assert (n_dq, n_dkdv) == (n * B * H * c, n * B * KV * c)
     G = H // KV
     seen, work = set(), []
     for i in range(n_dq):
-        b, h, qt = fk.dq_block(i, B, S, H)
-        assert 0 <= b < B and 0 <= h < H and 0 <= qt < n
-        seen.add((b, h, qt))
+        b, h, qt, col = fk.dq_block(i, B, S, H, D)
+        assert 0 <= b < B and 0 <= h < H and 0 <= qt < n and 0 <= col < c
+        seen.add((b, h, qt, col))
         work.append(qt + 1)                 # key tiles at or before its rows
     assert len(seen) == n_dq
     assert work == sorted(work, reverse=True) and work[0] == n
     seen, work = set(), []
     for i in range(n_dkdv):
-        b, kvh, kt = fk.dkdv_block(i, B, S, KV)
-        assert 0 <= b < B and 0 <= kvh < KV and 0 <= kt < n
-        seen.add((b, kvh, kt))
+        b, kvh, kt, col = fk.dkdv_block(i, B, S, KV, D)
+        assert 0 <= b < B and 0 <= kvh < KV and 0 <= kt < n and 0 <= col < c
+        seen.add((b, kvh, kt, col))
         work.append(G * (n - kt))           # G heads x query tiles at or after
     assert len(seen) == n_dkdv
     assert work == sorted(work, reverse=True) and work[0] == G * n
 
 
+@pytest.mark.parametrize("S,window", [(17, 1), (64, 16), (200, 50),
+                                      (256, 2048), (300, 64), (300, 65),
+                                      (4096, 2048), (129, None)])
+def test_windowed_tiles_cover_each_live_tile_once(S, window):
+    n = fk.backward_tiles(S)
+    T = fk.BACKWARD_TILE
+    w = S if window is None else window
+    live = {(q // T, k // T) for q in range(S)
+            for k in range(max(0, q - w + 1), q + 1)}
+    by_dq, by_dkdv, work_dq, work_dkdv = [], [], [], []
+    for t in range(n):
+        t0, m = fk.backward_key_tiles(t, S, window)
+        by_dq += [(t, j) for j in range(t0, t0 + m)]
+        work_dq.append(m)
+        q0, m = fk.backward_query_tiles(t, S, window)
+        by_dkdv += [(j, t) for j in range(q0, q0 + m)]
+        work_dkdv.append(m)
+    for got in (by_dq, by_dkdv):
+        assert len(got) == len(set(got)) and set(got) == live
+    # the kernels' block order stays heaviest first: the dQ grid from the
+    # last query tile, the dK/dV grid from key tile 0
+    assert work_dq == sorted(work_dq)
+    assert work_dkdv == sorted(work_dkdv, reverse=True)
+
+
 def _source_ints():
     text = SOURCE.read_text()
-    return text, {name: int(re.search(rf"constexpr int {name} = (\d+);",
-                                      text).group(1))
-                  for name in ("kThreads", "kTile", "kD", "kDqStages",
-                               "kDkdvStages")}
+    ints = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                text).group(1))
+            for name in ("kThreads", "kTile", "kCol")}
+    stages = {}
+    for d, body in re.findall(r"template <> struct Config<(\d+)> \{\s*"
+                              r"static constexpr int ([^;]+);", text):
+        kv = dict(x.split("=") for x in body.replace(" ", "").split(","))
+        stages[int(d)] = (int(kv["kDqStages"]), int(kv["kDkdvStages"]),
+                          int(kv["kDqBlocks"]))
+    return text, ints, stages
 
 
 def test_constants_are_the_sources():
-    _, got = _source_ints()
+    _, got, stages = _source_ints()
     assert got == {"kThreads": 128, "kTile": fk.BACKWARD_TILE,
-                   "kD": fk.BACKWARD_HEAD_DIMS[0][0],
-                   "kDqStages": fk.BACKWARD_DQ_STAGES,
-                   "kDkdvStages": fk.BACKWARD_DKDV_STAGES}
-    assert fk.BACKWARD_HEAD_DIMS == ((64, 64),)
-    # a tile is whole k-steps of wgmma (16) and one 64-row wgmma M
-    assert fk.BACKWARD_TILE == 64
+                   "kCol": fk.BACKWARD_COLS}
+    assert {d: s[:2] for d, s in stages.items()} == fk.BACKWARD_STAGES
+    assert fk.BACKWARD_HEAD_DIMS == tuple((d, d) for d in sorted(stages))
+    assert fk.SM90_CONSTANTS[:2] == (got["kThreads"], got["kTile"])
+    # a tile is whole k-steps of wgmma (16) and one 64-row wgmma M; an
+    # accumulator block is 64 columns (n64)
+    assert fk.BACKWARD_TILE == fk.BACKWARD_COLS == 64
 
 
-def test_smem_bytes_are_the_sources_and_fit_a_block():
-    text, ints = _source_ints()
-    ints["kTileBytes"] = ints["kTile"] * ints["kD"] * 2
-    ints["kStatBytes"] = 2 * ints["kTile"] * 4
+@pytest.mark.parametrize("D", [64, 256])
+def test_smem_bytes_are_the_sources_and_fit_a_block(D):
+    text, ints, stages = _source_ints()
+    dq_stages, dkdv_stages, dq_blocks = stages[D]
+    ints.update(kStatBytes=2 * ints["kTile"] * 4,
+                **{"tile_bytes<kD>()": ints["kTile"] * D * 2,
+                   "Config<kD>::kDqStages": dq_stages,
+                   "Config<kD>::kDkdvStages": dkdv_stages})
     got = []
-    for name in ("kDqSmem", "kDkdvSmem"):
-        expr = re.search(rf"constexpr int {name} =\s*([^;]+);", text).group(1)
+    for name in ("dq_smem", "dkdv_smem"):
+        expr = re.search(rf"constexpr int {name}\(\) \{{\s*return ([^;]+);",
+                         text).group(1)
         for k, val in sorted(ints.items(), key=lambda kv: -len(kv[0])):
             expr = expr.replace(k, str(val))
         assert re.fullmatch(r"[\d\s()+*]+", expr), expr
-        got.append(eval(expr))
-    assert tuple(got) == fk.backward_smem_bytes()
+        got.append(eval(" ".join(expr.split())))
+    assert tuple(got) == fk.backward_smem_bytes(D)
     for b in got:
         assert b <= SMEM_LIMIT
-    # an SM's 228 KB holds the blocks its registers allow: four of the dQ
-    # kernel (128 registers a thread), two of the dK/dV kernel
-    assert 4 * (got[0] + 1024) <= 228 * 1024
-    assert 2 * (got[1] + 1024) <= 228 * 1024
+    # an SM's 228 KB holds the blocks its registers allow: at D 64 four of
+    # the dQ kernel (128 registers a thread), two of the dK/dV kernel; at
+    # D 256 one of each
+    dkdv_blocks = 2 if D == 64 else 1
+    assert dq_blocks * (got[0] + 1024) <= 228 * 1024
+    assert dkdv_blocks * (got[1] + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -178,3 +233,42 @@ def test_tiled_emulation_rounded_within_card_limit(S, G):
         tol = 4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
         err = float((g.float() - w.float()).abs().max())
         assert err <= tol, (what, err, tol)
+
+
+@pytest.mark.parametrize("D", [16, 256])
+@pytest.mark.parametrize("G", [1, 10])
+@pytest.mark.parametrize("S", [17, 64, 200])
+@pytest.mark.parametrize("window", [1, 16, 50])
+def test_windowed_backward_matches_jax_vjp(D, G, S, window):
+    qn, kn, vn, don = _inputs(1000 * window + 10 * S + G, S, G, B=1, KV=1,
+                              D=D)
+    fx = functools.partial(_flash_xla, causal=True, window=window,
+                           q_start=0, kv_len=None, softmax_scale=None,
+                           kv_chunk=64, skip_masked_blocks=False)
+    out, vjp = jax.vjp(fx, jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+    want = [np.array(w) for w in vjp(jnp.asarray(don))]
+    q, k, v, do = (torch.from_numpy(a) for a in (qn, kn, vn, don))
+    o = torch.from_numpy(np.array(out))
+    for name, fn in (("plain", flash_attention_backward_torch),
+                     ("tiled", flash_backward_tiled_torch)):
+        got = fn(q, k, v, o, do, window=window)
+        for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+            assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+            # at window 1 every row attends to its own key alone: P = 1,
+            # dS = 0, and dq and dk are 0 but for rounding, so the scale
+            # is at least 1
+            scale = max(float(np.abs(w).max()), 1.0)
+            err = float(np.abs(g.numpy() - w).max())
+            assert err <= 1e-5 * scale, (name, what, err, scale)
+
+
+def test_check_backward_takes_a_window_only_in_the_training_form():
+    q, k, v = (torch.zeros(1, 8, 2, 16) for _ in range(3))
+    for w in (1, 4, 100, None):
+        fk.check_backward(q, k, v, window=w)
+    for bad in (0, -1, 2.5, True):
+        with pytest.raises(ValueError, match="window"):
+            fk.check_backward(q, k, v, window=bad)
+    for kw in (dict(causal=False), dict(q_start=2), dict(kv_len=4)):
+        with pytest.raises(NotImplementedError):
+            fk.check_backward(q, k, v, window=4, **kw)

@@ -340,7 +340,7 @@ def card(monkeypatch):
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.rglru import kernel as rk
-    from repro_torch.kernels.rglru.ref import rglru_ref
+    from repro_torch.kernels.rglru.ref import rglru_backward_torch, rglru_ref
     from repro_torch.kernels.rwkv6 import kernel as wk
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
@@ -357,10 +357,10 @@ def card(monkeypatch):
         check(q, k, v)
         return fops._flash_torch(q, k, v, kv_chunk=1024, **kw)
 
-    def flash_backward(q, k, v, o, do, softmax_scale=None):
+    def flash_backward(q, k, v, o, do, softmax_scale=None, window=None):
         check(q, k, v, o, do)
         return fops.flash_attention_backward_torch(
-            q, k, v, o, do, softmax_scale=softmax_scale)
+            q, k, v, o, do, softmax_scale=softmax_scale, window=window)
 
     def wkv(r, k, v, w, u, initial_state=None, state_out=None):
         check(r, k, v, w, u, initial_state, state_out)
@@ -369,6 +369,10 @@ def card(monkeypatch):
     def lru(log_a, gx, h0=None, state_out=None):
         check(log_a, gx, h0, state_out)
         return rglru_ref(log_a, gx, h0, state_out)
+
+    def lru_backward(log_a, gx, h0, dh, dhT=None):
+        check(log_a, gx, h0, dh, dhT)
+        return rglru_backward_torch(log_a, gx, h0, dh, dhT)
 
     def awrite(arena, x, offset):
         check(arena, x)
@@ -383,6 +387,7 @@ def card(monkeypatch):
     monkeypatch.setattr(fk, "flash_backward_cuda", flash_backward)
     monkeypatch.setattr(wk, "wkv6_cuda", wkv)
     monkeypatch.setattr(rk, "rglru_cuda", lru)
+    monkeypatch.setattr(rk, "rglru_backward_cuda", lru_backward)
     monkeypatch.setattr(ak, "arena_write_cuda", awrite)
     monkeypatch.setattr(ak, "arena_read_cuda", aread)
     return seen

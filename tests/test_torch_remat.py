@@ -24,8 +24,10 @@
   * with the card mocked (``test_torch_train.py``'s ``on_card``): the
     attention's forward runs twice a block under ``"block"`` and ``"dots"``
     (once more in the backward), once under ``"none"``, its backward once,
-    with the same gradient; ``wkv6`` and ``rglru`` still raise under
-    remat rather than being recomputed into a detached graph.
+    with the same gradient; Griffin's RG-LRU and windowed attention
+    backward once a layer under ``"block"`` and ``"dots"``, with the
+    gradient of ``"none"``; ``wkv6`` still raises under remat rather than
+    being recomputed into a detached graph.
 """
 
 import collections
@@ -389,7 +391,42 @@ def test_mock_card_attention_runs_again(on_card, monkeypatch,  # noqa: F811
         assert all(torch.equal(a, b) for a, b in zip(grads, grads0))
 
 
-@pytest.mark.parametrize("arch", ("rwkv6-7b", "recurrentgemma-2b"))
+@pytest.mark.parametrize("pol", ("block", "dots"))
+def test_mock_card_griffin_trains_under_remat(on_card,  # noqa: F811
+                                              monkeypatch, pol):
+    # the RG-LRU's and the windowed attention's backward kernels (their
+    # plain versions on the mocked card) run once a layer under each
+    # remat, and the gradient is the one without remat
+    from repro_torch.kernels.rglru import kernel as rk
+    fk = fa_ops._kernel
+    counts = collections.Counter()
+    for mod, name in ((fk, "flash_backward_cuda"),
+                      (rk, "rglru_backward_cuda")):
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(mod, name, counted)
+    runs = {}
+    for p in ("none", pol):
+        cfg = _cfg("recurrentgemma-2b", p)
+        model = build_model(cfg)
+        params = tree_map(lambda t: t.float(), model.init(
+            torch.Generator().manual_seed(0), "cpu"))
+        counts.clear()
+        runs[p] = _grads(model, params, _batch(cfg))
+        n_attn = cfg.n_layers // len(cfg.block_pattern) \
+            * cfg.block_pattern.count("attn")
+        assert counts == {"flash_backward_cuda": n_attn,
+                          "rglru_backward_cuda": cfg.n_layers - n_attn}
+    assert torch.equal(runs[pol][0], runs["none"][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[pol][1],
+                                                 runs["none"][1]))
+
+
+@pytest.mark.parametrize("arch", ("rwkv6-7b",))
 @pytest.mark.parametrize("pol", ("block", "dots"))
 def test_mock_card_recurrences_raise_under_remat(on_card,  # noqa: F811
                                                  arch, pol):

@@ -9,7 +9,8 @@ The kernels (``csrc/rglru.cu``) cannot run here; what surrounds them can:
     row, channel) exactly once, the last group of channels ragged;
   * ``smem_bytes`` stays under the 227 KB a block may use, for bf16 and
     f32 gx;
-  * the constants of ``kernel.py`` are those of ``csrc/rglru.cu``;
+  * the constants of ``kernel.py`` are those of ``csrc/rglru.cu`` (the
+    backward kernel's threads a block among them);
   * ``copy_channels``: 16-byte copies at Griffin's width, narrower where
     D or an address does not allow them;
   * the port's plain ``rglru_ref`` (what the kernels are held against on
@@ -70,10 +71,13 @@ def test_constants_are_the_sources():
     text = rk.SOURCE.read_text()
     got = {name: int(re.search(rf"constexpr int {name} = (\d+);",
                                text).group(1))
-           for name in ("kChannels", "kChunk", "kStages", "kStepMaxT")}
+           for name in ("kChannels", "kChunk", "kStages", "kStepMaxT",
+                        "kBwdThreads")}
     assert got == {"kChannels": rk.CHANNELS, "kChunk": rk.CHUNK,
-                   "kStages": rk.STAGES, "kStepMaxT": rk.STEP_MAX_T}
-    assert rk.CONSTANTS == (rk.CHANNELS, rk.CHUNK, rk.STAGES, rk.STEP_MAX_T)
+                   "kStages": rk.STAGES, "kStepMaxT": rk.STEP_MAX_T,
+                   "kBwdThreads": rk.BACKWARD_THREADS}
+    assert rk.CONSTANTS == (rk.CHANNELS, rk.CHUNK, rk.STAGES, rk.STEP_MAX_T,
+                            rk.BACKWARD_THREADS)
     # a chunk is whole quads of steps, a block whole units of 8 channels
     assert rk.CHUNK % 16 == 0 and rk.CHANNELS % 8 == 0
 
@@ -132,5 +136,5 @@ def test_cuda_routes_raise_on_cpu_tensors():
             fn(la, gx, h0)
     with pytest.raises(ValueError, match="CUDA"):
         rglru(la, gx, h0, impl="cuda")
-    assert rk.LAUNCHES == {"rglru": 0}
+    assert rk.LAUNCHES == {"rglru": 0, "rglru_backward": 0}
     assert rk.ROUTES == {"step": 0, "staged": 0}

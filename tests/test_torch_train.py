@@ -20,6 +20,9 @@ numpy from a seed and handed to both packages; every comparison is in f32:
     checkpoint ends in bit-equal parameters and optimizer state;
   * ``python -m repro_torch.launch.train --smoke --device cpu --steps 4``
     runs and logs finite losses;
+  * ``--layers`` (``configs.cut_depth``) keeps the first layers at the same
+    widths (the smoke ``llama3.2-1b`` at 1, ``recurrentgemma-2b`` at 3), and
+    such a run replays bit-equal from its checkpoint;
   * ``flash_attention_backward_torch`` (the backward kernel's plain
     version) against autograd of ``attention_ref`` and of ``_flash_torch``
     and against ``jax.grad`` of ``repro``'s ``_flash_xla`` (S 17 and 64, G
@@ -29,10 +32,15 @@ numpy from a seed and handed to both packages; every comparison is in f32:
     kernel entry replaced by its plain version run without autograd (as a
     ctypes launch is), every ``impl="cuda"`` op given an input that
     requires a gradient either returns an output with a ``grad_fn`` (the
-    flash attention's ``FlashAttentionFn``, whose gradient then equals
-    autograd's of the plain forward) or raises ``NotImplementedError``
-    (the recurrences, the arena ops), and a training form the backward
-    does not take raises too.
+    flash attention's ``FlashAttentionFn``, with or without a window, and
+    the RG-LRU's ``RGLRUFn``, whose gradients then equal autograd's of the
+    plain forward) or raises ``NotImplementedError`` (WKV-6, the arena
+    ops), and a training form the backward does not take raises too;
+  * the whole Griffin slice on that mocked card: the smoke
+    ``recurrentgemma-2b`` (window 16, S 24: the window bites) with its
+    gradients through ``RGLRUFn`` and the windowed ``FlashAttentionFn``
+    (each backward entry counted) against ``jax.grad`` of ``repro``'s
+    ``loss_fn``, leaf by leaf within 1e-4 of each leaf's largest.
 
 The card's tests of the same path are in ``test_torch_train_card.py``,
 which imports no JAX (the card's machine has none).
@@ -78,7 +86,10 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
-from repro_torch.kernels.rglru.ref import rglru_ref  # noqa: E402
+from repro_torch.kernels.rglru.ref import (  # noqa: E402
+    rglru_backward_torch,
+    rglru_ref,
+)
 from repro_torch.kernels.rwkv6 import ops as rwkv6_ops  # noqa: E402
 from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
@@ -255,6 +266,46 @@ def test_cli_runs_on_cpu(tmp_path):
     assert "done at step 4" in out.stderr
 
 
+@pytest.mark.parametrize("arch,layers", [("llama3.2-1b", 1),
+                                         ("recurrentgemma-2b", 3)])
+def test_cli_cuts_depth(tmp_path, arch, layers):
+    # --layers keeps the first layers at the same widths: the trained
+    # state has the cut model's leaves, and its replay resumes bit-equal
+    argv = ["--smoke", "--arch", arch, "--layers", str(layers), "--device",
+            "cpu", "--steps", "3", "--batch", "2", "--seq", "16",
+            "--ckpt-every", "2", "--log-every", "1", "--seed", "3"]
+    straight = ttrain.main(argv + ["--ckpt-dir", str(tmp_path / "a")])
+    assert straight["end_step"] == 3
+    assert all(math.isfinite(x) for x in straight["losses"])
+    cfg = tconfigs.cut_depth(tconfigs.smoke(arch), layers)
+    assert cfg.n_layers == layers < tconfigs.smoke(arch).n_layers
+    assert cfg.d_model == tconfigs.smoke(arch).d_model
+    want = build_model(cfg).init(torch.Generator().manual_seed(0), "meta")
+    got = tree_leaves(straight["state"]["params"])
+    assert [tuple(t.shape) for t in got] == [tuple(t.shape)
+                                             for t in tree_leaves(want)]
+    (tmp_path / "b").mkdir()
+    shutil.copytree(tmp_path / "a" / "step_0000000002",
+                    tmp_path / "b" / "step_0000000002")
+    replay = ttrain.main(argv + ["--ckpt-dir", str(tmp_path / "b")])
+    assert replay["start"] == 2 and replay["losses"] == straight["losses"][2:]
+    for a, b in zip(tree_leaves(straight["state"]),
+                    tree_leaves(replay["state"])):
+        assert torch.equal(a, b)
+
+
+def test_cut_depth_keeps_widths_and_bounds_depth():
+    full = tconfigs.get("deepseek-v3-671b")
+    assert tconfigs.cut_depth(full, None) is full
+    cut = tconfigs.cut_depth(full, 2)
+    assert (cut.n_layers, cut.n_dense_layers) == (2, 2)
+    assert (cut.d_model, cut.vocab_size) == (full.d_model, full.vocab_size)
+    assert tconfigs.cut_depth(full, 5).n_dense_layers == full.n_dense_layers
+    for bad in (0, full.n_layers + 1):
+        with pytest.raises(ValueError, match="cannot cut it"):
+            tconfigs.cut_depth(full, bad)
+
+
 def test_cli_rejects_a_mesh(tmp_path):
     # the production mesh needs its 256 ranks, as jax.make_mesh its devices
     with pytest.raises(ValueError, match="needs a world of 256 ranks"):
@@ -349,7 +400,10 @@ def on_card(monkeypatch):
         lambda r, k, v, w, u, *, initial_state, state_out:
         wkv6_ref(r, k, v, w, u, initial_state, state_out)))
     monkeypatch.setattr(rglru_ops._kernel, "rglru_cuda", _detached(
-        lambda la, gx, h0, *, state_out: rglru_ref(la, gx, h0, state_out)))
+        lambda la, gx, h0=None, *, state_out=None:
+        rglru_ref(la, gx, h0, state_out)))
+    monkeypatch.setattr(rglru_ops._kernel, "rglru_backward_cuda",
+                        _detached(rglru_backward_torch))
     ak = arena_ops._kernel
     for name, fn in (("write", arena_write_torch), ("read", arena_read_torch),
                      ("accum", arena_accum_torch),
@@ -378,7 +432,7 @@ def test_mock_flash_cuda_has_grad_fn(on_card):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(window=4), dict(causal=False), dict(q_start=3),
+    dict(causal=False), dict(q_start=3),
     dict(kv_len=10), dict(q_start=torch.tensor(0))])
 def test_mock_flash_cuda_raises_off_the_training_form(on_card, kw):
     q, k, v = _leaf(1, 20, 4, 16), _leaf(1, 20, 2, 16), _leaf(1, 20, 2, 16)
@@ -396,6 +450,26 @@ def test_mock_flash_cuda_raises_for_unported_head_dims(on_card,
         fa_ops._kernel.check_backward(q, k, v)
 
 
+@pytest.mark.parametrize("window", [1, 4, 19])
+@pytest.mark.parametrize("impl", ["cuda", "auto"])
+def test_mock_flash_cuda_window_has_grad_fn(on_card, window, impl):
+    # a window takes FlashAttentionFn too (Griffin's local attention), its
+    # gradient autograd's of the plain forward with the same window
+    q, k, v = _leaf(1, 20, 4, 16), _leaf(1, 20, 2, 16, seed=1), \
+        _leaf(1, 20, 2, 16, seed=2)
+    o = flash_attention(q, k, v, causal=True, window=window, impl=impl)
+    assert o.grad_fn is not None and "FlashAttentionFn" in \
+        type(o.grad_fn).__name__
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(3))
+    got = torch.autograd.grad(o, (q, k, v), do)
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(o, ref, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got, torch.autograd.grad(ref, (q, k, v), do)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, causal=True, window=0, impl=impl)
+
+
 def test_mock_recurrences_cuda_raise(on_card):
     B, T, H, N = 1, 5, 2, 8
     r, k, v = (_leaf(B, T, H, N, seed=i) for i in range(3))
@@ -403,14 +477,85 @@ def test_mock_recurrences_cuda_raise(on_card):
     u = _leaf(H, N, seed=4)
     with pytest.raises(NotImplementedError, match="WKV-6 backward"):
         rwkv6_ops.wkv6(r, k, v, w, u, impl="cuda")
-    la = -torch.rand(B, T, 6)
-    gx = _leaf(B, T, 6)
-    with pytest.raises(NotImplementedError, match="RG-LRU backward"):
-        rglru_ops.rglru(la, gx, impl="cuda")
     # without autograd the (mock) kernel runs as before
     with torch.no_grad():
         assert rwkv6_ops.wkv6(r, k, v, w, u, impl="cuda")[0].grad_fn is None
-        assert rglru_ops.rglru(la, gx, impl="cuda")[0].grad_fn is None
+
+
+@pytest.mark.parametrize("impl", ["cuda", "auto"])
+def test_mock_rglru_cuda_has_grad_fn(on_card, impl):
+    # the RG-LRU under autograd on the card is RGLRUFn: its gradient (the
+    # backward's plain version as the kernel entry) is autograd's of the
+    # plain recurrence
+    B, T = 1, 5
+    la = (-torch.rand(B, T, 6)).requires_grad_(True)
+    gx, h0 = _leaf(B, T, 6, seed=1), _leaf(B, 6, seed=2)
+    h, hT = rglru_ops.rglru(la, gx, h0, impl=impl)
+    assert h.grad_fn is not None and "RGLRUFn" in type(h.grad_fn).__name__
+    loss = (h * torch.arange(T * 6.0).reshape(1, T, 6)).sum() + hT.sum()
+    got = torch.autograd.grad(loss, (la, gx, h0))
+    hr, hTr = rglru_ref(la, gx, h0)
+    loss_r = (hr * torch.arange(T * 6.0).reshape(1, T, 6)).sum() + hTr.sum()
+    for g, w in zip(got, torch.autograd.grad(loss_r, (la, gx, h0))):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        assert rglru_ops.rglru(la, gx, impl=impl)[0].grad_fn is None
+
+
+def test_mock_griffin_loss_grads_match_repro(on_card, monkeypatch):
+    # the smoke Griffin on the mocked card: every RG-LRU and attention
+    # gradient through RGLRUFn and the windowed FlashAttentionFn, whose
+    # backward entries are counted
+    arch = "recurrentgemma-2b"
+    calls = {"rglru": 0, "flash": 0}
+    fk = fa_ops._kernel
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    monkeypatch.setattr(rglru_ops._kernel, "rglru_backward_cuda",
+                        counted("rglru", rglru_ops._kernel
+                                .rglru_backward_cuda))
+    monkeypatch.setattr(fk, "flash_backward_cuda",
+                        counted("flash", fk.flash_backward_cuda))
+    windows = []
+    check = fk.check_backward
+    monkeypatch.setattr(fk, "check_backward", lambda *a, **kw: (
+        windows.append(kw.get("window")), check(*a, **kw))[1])
+    jm = jax_build(jconfigs.smoke(arch))
+    tm = build_model(tconfigs.smoke(arch))
+    cfg = tm.cfg
+    S = SEQ[arch]
+    assert cfg.local_window < S
+    jp = jax.tree.map(lambda a: a.astype(f32),
+                      live_leaves(arch, jm.init(jax.random.PRNGKey(1))))
+    tp = tree_map(lambda t: t.float(),
+                  params_from_numpy(tm.defs, _np32(jp), "cpu"))
+    tokens = _tokens(7, 2, S, cfg.vocab_size)
+    jg = jax.grad(lambda p: jm.loss_fn(
+        p, {"tokens": jnp.asarray(tokens)}, impl="xla")[0])(jp)
+    leaves = tree_leaves(tp)
+    for p in leaves:
+        p.requires_grad_(True)
+    tl, _ = tm.loss_fn(tp, {"tokens": torch.from_numpy(tokens)})
+    tg = torch.autograd.grad(tl, leaves)
+    n_attn = cfg.n_layers // len(cfg.block_pattern) * \
+        cfg.block_pattern.count("attn")
+    n_rec = cfg.n_layers - n_attn
+    assert calls == {"rglru": n_rec, "flash": n_attn}
+    assert windows and set(windows) == {cfg.local_window}
+    jl = jax.tree.leaves(jg)
+    assert len(jl) == len(tg)
+    for a, b in zip(jl, tg):
+        a = np.asarray(a)
+        assert b.shape == a.shape
+        scale = max(float(np.abs(a).max()), 1e-12)
+        err = float(np.abs(b.numpy() - a).max()) / scale
+        assert err <= 1e-4, (a.shape, err)
+    assert max(float(np.abs(np.asarray(a)).max()) for a in jl) > 1e-3
 
 
 def test_mock_arena_cuda_raise(on_card):
@@ -429,7 +574,8 @@ def test_mock_arena_cuda_raise(on_card):
 
 def test_recurrent_loss_trains_on_cpu():
     # on the CPU the recurrent families have gradients (the plain
-    # versions under autograd); on the card their loss raises instead
+    # versions under autograd); on the card Griffin's go through its
+    # backward kernels, and rwkv6's loss raises
     for arch in ("rwkv6-7b", "recurrentgemma-2b"):
         tm = build_model(tconfigs.smoke(arch))
         tp = tm.init(torch.Generator().manual_seed(0), "cpu")

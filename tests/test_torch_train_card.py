@@ -14,8 +14,15 @@ the same path against ``repro`` are in ``test_torch_train.py``.
   * two runs of the tensor-core kernel bit-equal (no atomics);
   * ``FlashAttentionFn`` (what ``flash_attention`` takes under autograd on
     the card) against autograd of the plain forward, in f32;
-  * ``wkv6`` and ``rglru`` raise ``NotImplementedError`` under autograd on
-    the card, and the recurrent families' ``loss_fn`` with them.
+  * both backward kernels at Griffin's heads ((256, 256), G 10, KV 1) with
+    a window against the plain version, as above;
+  * ``wkv6`` raises ``NotImplementedError`` under autograd on the card,
+    and rwkv6-7b's ``loss_fn`` with it; ``rglru`` under autograd is
+    ``RGLRUFn``, its gradient (the backward kernel) against autograd of
+    the plain recurrence in f32 (1e-5 of each gradient's largest), and the
+    ``loss_fn`` gradient of Griffin at its published width and the smoke
+    depth (window 16) through the kernels against ``impl="torch"`` in f32,
+    leaf by leaf within 1e-4 of each leaf's largest.
 """
 
 import math
@@ -102,6 +109,27 @@ def test_function_grads_match_plain_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [
+    ("sm90", "bfloat16"), ("simple", "float32"), ("simple", "bfloat16")])
+@pytest.mark.parametrize("S,window", [(256, 64), (200, 50), (130, 2048)])
+def test_windowed_backward_matches_plain_on_card(card, kernel, dtype, S,
+                                                 window):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    dt = getattr(torch, dtype)
+    fn = {"sm90": fk.flash_backward_sm90_cuda,
+          "simple": fk.flash_backward_simple_cuda}[kernel]
+    q, k, v, do = _card_inputs(card, dt, 2, S, 10, 1, D=256, seed=S)
+    o = flash_attention(q, k, v, causal=True, window=window)
+    got = fn(q, k, v, o, do, window=window)
+    want = flash_attention_backward_torch(q, k, v, o, do, window=window)
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        tol = 1e-4 * scale if dt == torch.float32 else \
+            4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+        assert float((g.float() - w.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
 def test_recurrences_raise_under_grad_on_card(card):
     r, k, v = (torch.randn(1, 4, 2, 16, device=card, requires_grad=True)
                for _ in range(3))
@@ -109,13 +137,55 @@ def test_recurrences_raise_under_grad_on_card(card):
     u = torch.randn(2, 16, device=card)
     with pytest.raises(NotImplementedError):
         rwkv6_ops.wkv6(r, k, v, w, u)
-    gx = torch.randn(1, 4, 32, device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        rglru_ops.rglru(-torch.rand(1, 4, 32, device=card), gx)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("T", [4, 300])
+def test_rglru_grads_match_plain_on_card(card, T):
+    g = torch.Generator(device=card).manual_seed(T)
+    la = (-0.5 * torch.exp(torch.randn(2, T, 32, device=card, generator=g))
+          ).requires_grad_(True)
+    gx, h0 = (torch.randn(*s, device=card, generator=g).requires_grad_(True)
+              for s in ((2, T, 32), (2, 32)))
+    dh = torch.randn(2, T, 32, device=card, generator=g)
+    h, hT = rglru_ops.rglru(la, gx, h0)
+    assert h.grad_fn is not None and "RGLRUFn" in type(h.grad_fn).__name__
+    got = torch.autograd.grad((h * dh).sum() + hT.sum(), (la, gx, h0))
+    hr, hTr = rglru_ops.rglru(la, gx, h0, impl="torch")
+    want = torch.autograd.grad((hr * dh).sum() + hTr.sum(), (la, gx, h0))
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_griffin_loss_grads_match_plain_on_card(card):
+    # Griffin's heads (the smoke config's head dim 32 has no backward
+    # kernel) at the smoke depth, its window cut to 16 so that it bites
+    import dataclasses
+    cfg = tconfigs.get("recurrentgemma-2b")
+    tm = build_model(dataclasses.replace(
+        cfg, n_layers=tconfigs.smoke("recurrentgemma-2b").n_layers,
+        local_window=16))
+    params = tm.init(torch.Generator(device=card).manual_seed(0), card)
+    leaves = [p.float() for p in tree_leaves(params)]
+    for p in leaves:
+        p.requires_grad_(True)
+    from repro_torch.models.params import tree_unflatten, tree_flatten
+    tree = tree_unflatten(tree_flatten(params)[1], leaves)
+    tokens = torch.randint(0, tm.cfg.vocab_size, (2, 24), device=card,
+                           generator=torch.Generator(device=card)
+                           .manual_seed(1))
+    grads = {}
+    for impl in ("auto", "torch"):
+        loss, _ = tm.loss_fn(tree, {"tokens": tokens}, impl=impl)
+        grads[impl] = torch.autograd.grad(loss, leaves)
+    for a, b in zip(grads["auto"], grads["torch"]):
+        scale = max(float(b.abs().max()), 1e-12)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b"])
 def test_recurrent_loss_raises_under_grad_on_card(card, arch):
     tm = build_model(tconfigs.smoke(arch))
     params = tm.init(torch.Generator(device=card).manual_seed(0), card)

@@ -194,44 +194,46 @@ STAMPS = [
      "#define BWD_STAMP(k, i) if (threadIdx.x == 0) { const long long t_ = "
      "clock64(); atomicAdd(&g_stamps[16 * (k) + (i)], (unsigned long long)"
      "(t_ - t_prev_)); t_prev_ = t_; }\n"),
-    ("kvh = h / (H / KV);\n  const int tid = threadIdx.x, warp = tid >> 5, "
-     "lane = tid & 31;\n",
-     "kvh = h / (H / KV);\n  const int tid = threadIdx.x, warp = tid >> 5, "
-     "lane = tid & 31;\n  long long t_prev_ = clock64();\n"),
+    ("const long long W = p.window;\n  const int tid = threadIdx.x, "
+     "warp = tid >> 5, lane = tid & 31;\n",
+     "const long long W = p.window;\n  const int tid = threadIdx.x, "
+     "warp = tid >> 5, lane = tid & 31;\n  long long t_prev_ = clock64();\n"),
     ("  float dq[32];\n", "  " + _stamp(0, 0) + "  float dq[32];\n"),
-    ("load_step(j + kDqStages - 1, ahead);\n    cp_async_commit();\n",
-     "load_step(j + kDqStages - 1, ahead);\n    cp_async_commit();\n    "
-     + _stamp(0, 1)),
+    ("< 2 * n) load_step(j + kStages - 1, ahead);\n    cp_async_commit();\n",
+     "< 2 * n) load_step(j + kStages - 1, ahead);\n    cp_async_commit();\n"
+     "    " + _stamp(0, 1)),
     ("    const uint32_t ks = sK + stage",
      "    " + _stamp(0, 2) + "    const uint32_t ks = sK + stage"),
     ("      fence_regs(s);\n      float mx[2]",
      "      fence_regs(s);\n      " + _stamp(0, 3) + "      float mx[2]"),
     ("    } else {\n      // sweep 2",
      "      " + _stamp(0, 4) + "    } else {\n      // sweep 2"),
-    ("      two_products_ss(s, sQ, ks, dp, sdO, vs);\n",
-     "      two_products_ss(s, sQ, ks, dp, sdO, vs);\n      " + _stamp(0, 5)),
+    ("      two_products_ss<kD>(s, sQ, ks, dp, sdO, vs);\n",
+     "      two_products_ss<kD>(s, sQ, ks, dp, sdO, vs);\n      "
+     + _stamp(0, 5)),
     ("      to_frags(dp, a);\n", "      to_frags(dp, a);\n      "
      + _stamp(0, 6)),
     ("      wgmma_wait0();\n      fence_regs(dq);\n",
      "      wgmma_wait0();\n      fence_regs(dq);\n      " + _stamp(0, 7)),
     ("// the stage may be refilled\n",
      "// the stage may be refilled\n    " + _stamp(0, 8)),
-    ("smem_raw, sQ, q0, S, H * kD, tid);\n}",
-     "smem_raw, sQ, q0, S, H * kD, tid);\n  " + _stamp(0, 9)
+    ("             H * kD, tid);\n}",
+     "             H * kD, tid);\n  " + _stamp(0, 9)
      + "  if (threadIdx.x == 0) atomicAdd(&g_stamps[15], 1ull);\n}"),
-    ("G = H / KV;\n  const int tid = threadIdx.x, warp = tid >> 5, "
-     "lane = tid & 31;\n",
-     "G = H / KV;\n  const int tid = threadIdx.x, warp = tid >> 5, "
-     "lane = tid & 31;\n  long long t_prev_ = clock64();\n"),
+    ("G = H / KV, W = p.window;\n  const int tid = threadIdx.x, "
+     "warp = tid >> 5, lane = tid & 31;\n",
+     "G = H / KV, W = p.window;\n  const int tid = threadIdx.x, "
+     "warp = tid >> 5, lane = tid & 31;\n  long long t_prev_ = clock64();\n"),
     ("  float dk[32], dv[32];",
      "  " + _stamp(1, 0) + "  float dk[32], dv[32];"),
-    ("load_step(j + kDkdvStages - 1, ahead);\n    cp_async_commit();\n",
-     "load_step(j + kDkdvStages - 1, ahead);\n    cp_async_commit();\n    "
+    ("< n) load_step(j + kStages - 1, ahead);\n    cp_async_commit();\n",
+     "< n) load_step(j + kStages - 1, ahead);\n    cp_async_commit();\n    "
      + _stamp(1, 1)),
     ("    const uint32_t qs = sQ + stage",
      "    " + _stamp(1, 2) + "    const uint32_t qs = sQ + stage"),
-    ("    two_products_ss(st, sK, qs, dpt, sV, dos);\n",
-     "    two_products_ss(st, sK, qs, dpt, sV, dos);\n    " + _stamp(1, 3)),
+    ("    two_products_ss<kD>(st, sK, qs, dpt, sV, dos);\n",
+     "    two_products_ss<kD>(st, sK, qs, dpt, sV, dos);\n    "
+     + _stamp(1, 3)),
     ("    to_frags(dpt, sa);\n", "    to_frags(dpt, sa);\n    "
      + _stamp(1, 4)),
     ("    fence_regs(dv);\n    fence_regs(dk);\n    __syncthreads();",
@@ -252,9 +254,10 @@ STAMPS = [
 ]
 VARIANTS = {
     "stamps": STAMPS,
-    "dq3": [("constexpr int kDqStages = 2;", "constexpr int kDqStages = 3;"),
-            ("__launch_bounds__(kThreads, 4) bwd_dq_sm90_kernel",
-             "__launch_bounds__(kThreads, 3) bwd_dq_sm90_kernel")],
+    "dq3": [("static constexpr int kDqStages = 2, kDkdvStages = 3, "
+             "kDqBlocks = 4;",
+             "static constexpr int kDqStages = 3, kDkdvStages = 3, "
+             "kDqBlocks = 3;")],
 }
 
 
