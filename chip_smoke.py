@@ -257,9 +257,8 @@ non-zero):
               finite, and a second run
               resumed from that checkpoint alone, whose parameters and
               optimizer state end bit-equal to the first's (both under
-              ``torch.use_deterministic_algorithms(True)``); rwkv6-7b's
-              ``loss_fn`` raising under autograd on the card (no WKV-6
-              backward yet); and the flash forward and backward
+              ``torch.use_deterministic_algorithms(True)``); and the
+              flash forward and backward
               at the step's shape against their bounds, their plain
               versions and SDPA's forward and backward, the two backward
               kernels timed in turns (CUDA-core, tensor-core, tensor-core,
@@ -281,7 +280,7 @@ non-zero):
               last recurrent layer's launch and the last attention layer's
               dK zeroed above it),
               one step through the kernels against the plain step (loss
-              and grad_norm within GRIFFIN_TRAIN_ATOL) with exactly 16
+              and grad_norm within TRAIN_ATOL) with exactly 16
               ``flash_prefill``, 8 ``flash_backward`` (tensor-core), 34
               staged ``rglru`` and 18 ``rglru_backward`` launches
               (``train_launches``), ms a step, tokens/s, idle share and
@@ -292,7 +291,20 @@ non-zero):
               bit-equal; then the RG-LRU backward and the flash backward
               at Griffin's training shapes timed beside their bounds,
               plain versions and SDPA's backward (each in a replayed CUDA
-              graph).
+              graph).  Then RWKV-6: the WKV-6 backward kernel
+              (``wkv6_backward_cuda``) against ``wkv6_backward_torch`` at
+              H 64, N 64, (B, T) in WKV_BWD_CASES, f32 and bf16, with and
+              without s0 and dsT (f32 within WKV_BWD_RTOL of each
+              gradient's largest, bf16 within one ulp of each element
+              plus that), two runs bit-equal, the control
+              (WKV6_CONTROL_EDIT) above the limit in its block only;
+              rwkv6-7b at published width, RWKV_LAYERS of 32 layers deep,
+              through the same steps as Griffin (``family_train``: the
+              gradient within RWKV_GRAD_RTOL, its two controls above it,
+              one step with exactly 2L ``wkv6`` and L ``wkv6_backward``,
+              the step's time and peaks, the CLI at RWKV_CLI_LAYERS and
+              its bit-equal resume); the backward timed beside its bound
+              and plain version.
 
 11. a7     -- (run after phase 7's decoders) this slice's families:
               first each new attention shape, bf16 and f32, through the
@@ -4398,12 +4410,16 @@ def train_launches(cfg, steps: int = 1) -> dict:
     wrapped block in the backward ("block", "dots"); one backward a layer.
     Attention layers launch ``flash_prefill`` and ``flash_backward``;
     Griffin's recurrent layers the RG-LRU forward (``rglru``) and
-    ``rglru_backward``.  Griffin wraps each group of its pattern and not
+    ``rglru_backward``; RWKV-6's layers ``wkv6`` and ``wkv6_backward``.
+    Griffin wraps each group of its pattern and not
     the tail (the layers past the last whole group), whose forward runs
     once: at recurrentgemma-2b's 26 layers, 8 groups (rec, rec, attn) and
     2 rec layers, a step is 16 ``flash_prefill``, 8 ``flash_backward``,
     2 x 16 + 2 = 34 ``rglru`` and 18 ``rglru_backward``."""
     again = 0 if cfg.remat in ("none", False) else 1
+    if cfg.attn_free:
+        return {"wkv6": (1 + again) * cfg.n_layers * steps,
+                "wkv6_backward": cfg.n_layers * steps}
     if cfg.family != "hybrid":
         return {"flash_prefill": (1 + again) * cfg.n_layers * steps,
                 "flash_backward": cfg.n_layers * steps}
@@ -4786,11 +4802,16 @@ def time_train_step(model, opt, state, batch, card) -> dict:
     out = dict(ms_median=med, ms_min=min(ms), ms=ms,
                tokens_per_s=tokens / (med / 1e3), model_flops_share=share,
                busy_us=busy, idle_share=max(0.0, 1 - busy / (med * 1e3)),
-               activities=n_act, peak_allocated=peak, parts_device_host_ms=parts,
+               activities=n_act, peak_allocated=peak,
+               peak_reserved=torch.cuda.max_memory_reserved(),
+               parts_device_host_ms=parts,
                flash_prefill_us=kern("flash_prefill_kernel"),
                flash_backward_us=kern("bwd_"),
                rglru_us=kern("rglru_staged_kernel"),
                rglru_backward_us=kern("rglru_backward_kernel"),
+               wkv6_us=kern("wkv6_kernel"),
+               wkv6_backward_us=kern("wkv6_backward_kernel")
+               + kern("wkv6_du_kernel"),
                gemm_us=kern("gemm") + kern("nvjet") + kern("cutlass"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     say(f"train: {model.cfg.name} step (B {TRAIN_BATCH}, S {TRAIN_SEQ}, bf16, "
@@ -4802,7 +4823,8 @@ def time_train_step(model, opt, state, batch, card) -> dict:
         f"{out['flash_prefill_us']:.1f} us, flash backward "
         f"{out['flash_backward_us']:.1f} us, RG-LRU forward / backward "
         f"{out['rglru_us']:.1f} / {out['rglru_backward_us']:.1f} us, "
-        f"products (gemm / nvjet / "
+        f"WKV-6 forward / backward {out['wkv6_us']:.1f} / "
+        f"{out['wkv6_backward_us']:.1f} us, products (gemm / nvjet / "
         f"cutlass kernels) {out['gemm_us']:.1f} us; parts by CUDA events "
         f"(host issue) "
         + ", ".join(f"{k} {d:.2f} ms ({h:.2f})" for k, (d, h)
@@ -4978,7 +5000,7 @@ def cli_run_and_replay(dev, card, arch="llama3.2-1b", steps=TRAIN_STEPS,
         check(launches == want, f"the CLI's {steps} steps launched "
                                 f"{launches}, the train path needs {want} "
                                 f"(remat {cfg.remat!r})")
-        want = {"sm90": want["flash_backward"], "simple": 0}
+        want = {"sm90": want.get("flash_backward", 0), "simple": 0}
         check(routes == want, f"the CLI's {steps} steps' backward "
                               f"launches by kernel {routes}, the bf16 route "
                               f"gives {want}")
@@ -5022,31 +5044,6 @@ def cli_run_and_replay(dev, card, arch="llama3.2-1b", steps=TRAIN_STEPS,
         f"{digest_s:.1f} s) [{card}]")
     return dict(losses=losses, launches=launches, backward_routes=routes,
                 run_s=run_s, replay_s=replay_s, digest_s=digest_s)
-
-
-def check_recurrent_training_raises(dev):
-    """rwkv6-7b's loss under autograd on the card raises (the WKV-6 kernel
-    has no backward yet), rather than drop the gradient; smoke width,
-    which reaches the same first kernel."""
-    import repro_torch.configs as configs
-    from repro_torch.models.params import tree_leaves
-    from repro_torch.models.zoo import build_model
-    for arch in ("rwkv6-7b",):
-        model = build_model(configs.smoke(arch))
-        params = model.init(torch.Generator(device=dev).manual_seed(SEED),
-                            dev)
-        for p in tree_leaves(params):
-            p.requires_grad_(True)
-        tokens = torch.zeros((1, 16), dtype=torch.long, device=dev)
-        try:
-            model.loss_fn(params, {"tokens": tokens})
-        except NotImplementedError as e:
-            check("backward" in str(e), f"{arch}: {e}")
-            say(f"train: {arch} loss_fn under autograd on the card raises: "
-                f"{e}")
-            continue
-        check(False, f"{arch}: loss_fn under autograd on the card ran "
-                     f"without its backward kernel")
 
 
 def backward_turn(fn, per_call: int, calls: int = 10) -> float:
@@ -5757,9 +5754,6 @@ def check_flash_backward_griffin(dev) -> dict:
 # 1.339e-2-1.359e-2), the RG-LRU control 0.225-0.669 (in its own layer's
 # leaves), dK zeroed 1.0
 GRIFFIN_GRAD_RTOL = 3e-2
-# one train step through the kernels against the plain step: the loss
-# within GRIFFIN_TRAIN_ATOL, grad_norm within the same relative
-GRIFFIN_TRAIN_ATOL = TRAIN_ATOL
 # the CLI's run: GRIFFIN_STEPS steps at its defaults at published width, the
 # depth cut to GRIFFIN_CLI_LAYERS (one group: rec, rec, attn), a checkpoint
 # at GRIFFIN_CKPT_EVERY (9.1 GB: bf16 parameters and f32 AdamW moments; the
@@ -5774,14 +5768,51 @@ def griffin_stacked(path, w) -> bool:
     return path.startswith("/groups/") and w.dim() >= 2
 
 
-def griffin_inputs(dev, seed):
-    """recurrentgemma-2b at full width: the model, its parameters from
-    ``seed`` with the recurrent mixing leaves filled (``live_leaves``), and
-    the CLI's first batch (8 x 256)."""
+def griffin_controls(control):
+    """Griffin's gradient controls: the RG-LRU backward's control library
+    (``control``) in the first launch (the last recurrent layer's), the
+    first attention backward's dK zeroed (the last attention layer's)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    return (("rglru", RK, "rglru_backward_cuda", control),
+            ("dk", FK, "flash_backward_cuda", None))
+
+
+def griffin_routes(want):
+    """A Griffin step's routes and those it must take: every attention
+    backward on the tensor-core kernel, every RG-LRU forward staged."""
+    from repro_torch.kernels.rglru import kernel as RK
+    got = dict(backward_routes(), staged=RK.ROUTES["staged"],
+               step=RK.ROUTES["step"])
+    return got, {"sm90": want["flash_backward"], "simple": 0,
+                 "staged": want["rglru"], "step": 0}
+
+
+# recurrentgemma-2b's training (``family_train``): all 26 layers
+GRIFFIN_TRAIN = dict(
+    arch=GRIFFIN, layers=None, rtol=GRIFFIN_GRAD_RTOL,
+    group=("rec", "/rec/", "the recurrent blocks'"),
+    controls=griffin_controls,
+    controls_said="rglru: a_(t+1) dropped in one block of the last "
+                  "recurrent layer's backward, dk: the last attention "
+                  "layer's dK zeroed",
+    steps=GRIFFIN_STEPS, ckpt_every=GRIFFIN_CKPT_EVERY,
+    cli_layers=GRIFFIN_CLI_LAYERS, stacked=griffin_stacked,
+    routes=griffin_routes)
+
+
+def family_inputs(fam, dev, seed, layers=None):
+    """``fam["arch"]`` at published width, cut to ``layers`` (default
+    ``fam["layers"]``; None: all): the model, its parameters from ``seed``
+    with the recurrent mixing leaves filled (``live_leaves``), and the
+    CLI's first batch (8 x 256)."""
     import repro_torch.configs as configs
     from repro_torch.data import DataPipeline
     from repro_torch.models.zoo import build_model
-    cfg = configs.get(GRIFFIN)
+    cfg = configs.get(fam["arch"])
+    layers = fam["layers"] if layers is None else layers
+    if layers is not None:
+        cfg = configs.cut_depth(cfg, layers)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
     live_leaves(cfg, params, dev)
@@ -5792,22 +5823,18 @@ def griffin_inputs(dev, seed):
     return model, params, batch
 
 
-GRIFFIN_CONTROLS = ("rglru", "dk")
-
-
-def griffin_grad_compare(model, params, batch, control) -> dict:
-    """The full-width gradient through the kernels against the plain
-    versions', and the same reading of each of GRIFFIN_CONTROLS: the
-    RG-LRU backward's control library (``control``) in the first launch
-    (the last recurrent layer's), the first attention backward's dK
-    zeroed.  Each reading is ``worst_grad_err``'s (stacked leaves by
-    layer) over all leaves and over the recurrent blocks' ("/rec/").
-    Launches here are outside the counted runs."""
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.rglru import kernel as RK
+def family_grad_compare(fam, model, params, batch, control) -> dict:
+    """The gradient through the kernels against the plain versions', and
+    the same reading of each of ``fam["controls"](control)``: (name, the
+    kernel's module, its wrapper, the control library's call or None for
+    the wrapper's second output (dk) zeroed), each breaking the first
+    launch alone.  Each reading is ``worst_grad_err``'s (stacked leaves by
+    layer) over all leaves and over ``fam["group"]``'s.  Launches here are
+    outside the counted runs."""
     paths = leaf_paths(params)
+    L = model.cfg.n_layers
     groups = {"all": [True] * len(paths),
-              "rec": ["/rec/" in p for p in paths]}
+              fam["group"][0]: [fam["group"][1] in p for p in paths]}
 
     def err(g, w):
         out = {}
@@ -5815,8 +5842,8 @@ def griffin_grad_compare(model, params, batch, control) -> dict:
             sel = [i for i, k in enumerate(keep) if k]
             out[name] = worst_grad_err([g[i] for i in sel],
                                        [w[i] for i in sel],
-                                       [paths[i] for i in sel], 0,
-                                       stacked=griffin_stacked)
+                                       [paths[i] for i in sel], L,
+                                       stacked=fam["stacked"])
         return out
 
     loss_p, want = loss_grads(model, params, batch, "torch")
@@ -5825,19 +5852,18 @@ def griffin_grad_compare(model, params, batch, control) -> dict:
     loss_k, got = loss_grads(model, params, batch, "auto")
     readings = {"sound": err(got, want)}
     del got
-    for name, mod, attr in (("rglru", RK, "rglru_backward_cuda"),
-                            ("dk", FK, "flash_backward_cuda")):
+    for name, mod, attr, lib in fam["controls"](control):
         kernel, broke = getattr(mod, attr), []
 
-        def broken(*a, kernel=kernel, name=name, broke=broke, **kw):
+        def broken(*a, kernel=kernel, lib=lib, broke=broke, **kw):
             if broke:
                 return kernel(*a, **kw)
             broke.append(1)
-            if name == "rglru":
-                return control(*a, **kw)
-            dq, dk, dv = kernel(*a, **kw)
-            dk.zero_()
-            return dq, dk, dv
+            if lib is not None:
+                return lib(*a, **kw)
+            out = kernel(*a, **kw)
+            out[1].zero_()
+            return out
 
         setattr(mod, attr, broken)
         try:
@@ -5846,68 +5872,70 @@ def griffin_grad_compare(model, params, batch, control) -> dict:
             setattr(mod, attr, kernel)
         readings[name] = err(bad, want)
         del bad
-    return dict(readings=readings, n_leaves=len(paths),
+    return dict(readings=readings, n_leaves=len(paths), layers=L,
                 loss_kernels=float(loss_k), loss_plain=float(loss_p),
                 grad_norm_plain=norm_p)
 
 
-def check_griffin_grads(rec: dict):
-    """Holds ``griffin_grad_compare``'s readings over all leaves to
-    GRIFFIN_GRAD_RTOL: the sound gradient within it, each control above
+def check_family_grads(fam, rec: dict):
+    """Holds ``family_grad_compare``'s readings over all leaves to
+    ``fam["rtol"]``: the sound gradient within it, each control above
     it."""
-    r = rec["readings"]
-    say(f"train: {GRIFFIN} full-width gradient through the kernels vs the "
-        f"plain versions, {rec['n_leaves']} leaves (stacked ones by layer),"
-        f" worst relative L2 error over all leaves / the recurrent blocks' "
-        f"(limit {GRIFFIN_GRAD_RTOL} over all): "
-        + "; ".join(f"{name} " + " / ".join(
-            f"{r[name][g][0]:.3e} at {r[name][g][1]}" for g in ("all", "rec"))
-                    for name in ("sound",) + GRIFFIN_CONTROLS)
-        + f" (rglru: a_(t+1) dropped in one block of the last recurrent "
-          f"layer's backward, dk: the last attention layer's dK zeroed); "
-          f"loss {rec['loss_kernels']} vs {rec['loss_plain']}")
+    r, arch, rtol = rec["readings"], fam["arch"], fam["rtol"]
+    group, names = fam["group"][0], [n for n in r if n != "sound"]
+    say(f"train: {arch} at published width, {rec['layers']} layers: the "
+        f"gradient through the kernels vs the plain versions, "
+        f"{rec['n_leaves']} leaves (stacked ones by layer), worst relative "
+        f"L2 error over all leaves / {fam['group'][2]} (limit {rtol} over "
+        f"all): " + "; ".join(f"{name} " + " / ".join(
+            f"{r[name][g][0]:.3e} at {r[name][g][1]}" for g in ("all", group))
+                              for name in ["sound"] + names)
+        + f" ({fam['controls_said']}); loss {rec['loss_kernels']} vs "
+          f"{rec['loss_plain']}")
     got, at = r["sound"]["all"]
-    check(got <= GRIFFIN_GRAD_RTOL,
-          f"{GRIFFIN}'s gradient through the kernels is {got} (at {at}) "
-          f"from the plain versions', above {GRIFFIN_GRAD_RTOL}")
-    for name in GRIFFIN_CONTROLS:
+    check(got <= rtol, f"{arch}'s gradient through the kernels is {got} (at "
+                       f"{at}) from the plain versions', above {rtol}")
+    for name in names:
         got, at = r[name]["all"]
-        check(got > GRIFFIN_GRAD_RTOL,
-              f"{GRIFFIN}'s {name} control reads {got} (at {at}), within "
-              f"{GRIFFIN_GRAD_RTOL}: the gradient check cannot see it")
+        check(got > rtol, f"{arch}'s {name} control reads {got} (at {at}), "
+                          f"within {rtol}: the gradient check cannot see it")
 
 
-def griffin_train(dev, card, control) -> dict:
-    """recurrentgemma-2b trains on the card at full width: the gradient
-    against the plain versions with its controls; one train step through
-    the kernels (its loss and grad_norm against the plain step's, which
-    are the plain versions' loss and gradient norm of the gradient check,
-    taken before the step's clip and update; its launches exactly
-    ``train_launches``: 16 ``flash_prefill``, 8
-    ``flash_backward`` on the tensor-core route, 34 RG-LRU forward
-    launches on the staged route, 18 ``rglru_backward``); ms a step,
-    tokens/s, idle share and peak memory (``time_train_step``); then
-    ``launch/train.py``'s ``main`` for GRIFFIN_STEPS steps at published
-    width, GRIFFIN_CLI_LAYERS deep, and a bit-equal resume
+def family_train(fam, dev, card, control) -> dict:
+    """``fam["arch"]`` trains on the card at published width, cut to
+    ``fam["layers"]``: the gradient against the plain versions with its
+    controls (``family_grad_compare``, ``control`` the kernel's control
+    library); one train step through the kernels (its loss and grad_norm
+    against the plain step's, which are the plain versions' loss and
+    gradient norm of the gradient check, taken before the step's clip and
+    update; its launches exactly ``train_launches``, its routes, where
+    ``fam["routes"]`` names them, those required); ms a step, tokens/s,
+    idle share and peak memory (``time_train_step``); then
+    ``launch/train.py``'s ``main`` for ``fam["steps"]`` steps at published
+    width, ``fam["cli_layers"]`` deep, and a bit-equal resume
     (``cli_run_and_replay``).  Returns its record."""
-    from repro_torch.kernels.rglru import kernel as RK
+    import repro_torch.configs as configs
     from repro_torch.launch.steps import make_optimizer, make_train_step
     from repro_torch.models.params import tree_leaves
+    arch = fam["arch"]
     t0 = time.perf_counter()
     parts = {}
 
     def part(name):
         parts[name] = time.perf_counter() - t0 - sum(parts.values())
 
-    model, params, batch = griffin_inputs(dev, SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, batch = family_inputs(fam, dev, SEED)
     cfg = model.cfg
     part("set-up")
-    rec = griffin_grad_compare(model, params, batch, control)
-    check_griffin_grads(rec)
+    rec = family_grad_compare(fam, model, params, batch, control)
+    check_family_grads(fam, rec)
     part("gradient and controls")
+    gc.collect()
     torch.cuda.empty_cache()
     opt = make_optimizer(cfg, lr=3e-4)
-    kw = dict(peak_lr=3e-4, warmup=10, total_steps=GRIFFIN_STEPS)
+    kw = dict(peak_lr=3e-4, warmup=10, total_steps=fam["steps"])
     # the plain step's metrics: its loss and the global norm of its
     # gradient come before its clip and update, so they are the plain
     # loss_grads' of the gradient check (the norm summed as the step sums
@@ -5919,47 +5947,52 @@ def griffin_train(dev, card, control) -> dict:
     state, m_k = make_train_step(model, opt, impl="auto", **kw)(state, batch)
     torch.cuda.synchronize()
     launches = {k: v for k, v in all_launches().items() if v}
-    routes = dict(backward_routes(), staged=RK.ROUTES["staged"],
-                  step=RK.ROUTES["step"])
     want = train_launches(cfg)
-    check(launches == want, f"one {GRIFFIN} train step launched {launches}, "
+    check(launches == want, f"one {arch} train step launched {launches}, "
                             f"the train path needs {want}")
-    check(routes == {"sm90": want["flash_backward"], "simple": 0,
-                     "staged": want["rglru"], "step": 0},
-          f"one {GRIFFIN} train step's routes {routes}")
+    said = ""
+    if fam["routes"] is not None:
+        routes, want_routes = fam["routes"](want)
+        check(routes == want_routes, f"one {arch} train step's routes "
+                                     f"{routes}, not {want_routes}")
+        rec["step_routes"] = routes
+        said = f" (routes {routes})"
     got = {k: float(m_k[k]) for k in ("loss", "grad_norm", "lr")}
     check(all(np.isfinite(list(got.values()))), f"train step metrics {got}")
-    check(abs(got["loss"] - ref["loss"]) <= GRIFFIN_TRAIN_ATOL
+    check(abs(got["loss"] - ref["loss"]) <= TRAIN_ATOL
           and abs(got["grad_norm"] - ref["grad_norm"])
-          <= GRIFFIN_TRAIN_ATOL * ref["grad_norm"],
-          f"{GRIFFIN} train step through the kernels {got} vs the plain "
-          f"step {ref} (loss atol {GRIFFIN_TRAIN_ATOL}, grad_norm rtol "
-          f"{GRIFFIN_TRAIN_ATOL})")
+          <= TRAIN_ATOL * ref["grad_norm"],
+          f"{arch} train step through the kernels {got} vs the plain step "
+          f"{ref} (loss atol {TRAIN_ATOL}, grad_norm rtol {TRAIN_ATOL})")
     n = sum(t.numel() for t in tree_leaves(state["params"]))
-    say(f"train: {GRIFFIN} at full width ({n} parameters, bf16), batch "
+    say(f"train: {arch} at published width, {cfg.n_layers} of "
+        f"{configs.get(arch).n_layers} layers ({n} parameters, bf16), batch "
         f"{TRAIN_BATCH} x seq {TRAIN_SEQ}: one step through the kernels "
-        f"{got} vs the plain step {ref}; its launches {launches} (routes "
-        f"{routes}) [{card}]")
+        f"{got} vs the plain step {ref}; its launches {launches}{said} "
+        f"[{card}]")
     part("a step")
     rec.update(loss=got["loss"], loss_plain_step=ref["loss"],
                grad_norm=got["grad_norm"],
                grad_norm_plain_step=ref["grad_norm"],
-               step_launches=launches, step_routes=routes)
+               step_launches=launches, parameters=n)
     rec["step"] = time_train_step(model, opt, state, batch, card)
+    say(f"train: {arch} at {cfg.n_layers} layers peaked at "
+        f"{rec['step']['peak_allocated']} B allocated, "
+        f"{rec['step']['peak_reserved']} B reserved, of the card's "
+        f"{torch.cuda.get_device_properties(dev).total_memory} B [{card}]")
     part("timed steps")
     del state, batch, params
     gc.collect()
     torch.cuda.empty_cache()
-    rec["cli"] = cli_run_and_replay(dev, card, arch=GRIFFIN,
-                                    steps=GRIFFIN_STEPS,
-                                    ckpt_every=GRIFFIN_CKPT_EVERY,
-                                    layers=GRIFFIN_CLI_LAYERS)
+    rec["cli"] = cli_run_and_replay(dev, card, arch=arch, steps=fam["steps"],
+                                    ckpt_every=fam["ckpt_every"],
+                                    layers=fam["cli_layers"])
     gc.collect()
     torch.cuda.empty_cache()
     part("CLI and resume")
     rec["seconds"] = time.perf_counter() - t0
     rec["parts_s"] = parts
-    say(f"train: {GRIFFIN} done in {rec['seconds']:.1f} s ("
+    say(f"train: {arch} done in {rec['seconds']:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]")
     return rec
 
@@ -6120,17 +6153,254 @@ def time_griffin_kernels(dev, card) -> dict:
     return out
 
 
-def phase_train(dev, card, err, control) -> tuple[list, dict]:
+# ---------------------------------------------------------------------------
+# Phase 9, RWKV-6: the WKV-6 backward and rwkv6-7b training at published
+# width, its depth cut
+# ---------------------------------------------------------------------------
+
+RWKV = "rwkv6-7b"
+# the WKV-6 backward against its plain version (wkv6_backward_torch) on the
+# card at rwkv6-7b's heads (H 64, N 64): (B, T) at the training shape, a
+# long prefill and a short ragged one; inputs f32 and bf16, with and
+# without s0 (and dsT with it); w = exp(-exp(omega)), omega ~ U(-12, 6), so
+# that some w round to 0 and some to 1 in bf16.  f32 within WKV_BWD_RTOL of
+# each gradient's largest magnitude, bf16 within one bf16 ulp of each
+# element plus WKV_BWD_RTOL of the largest (both round one f32 sum, taken
+# in another order)
+WKV_BWD_HEADS = dict(H=64, N=64)
+WKV_BWD_CASES = ((8, 256), (1, 1024), (2, 7))
+WKV_BWD_RTOL = 1e-5
+# the broken control: the adjoint's update without its w_t factor (G <- G +
+# r do^T) in one block, batch row 0's last head (block H - 1: the head of
+# the fastest decays, where live_leaves' w0 runs to -1)
+WKV6_CONTROL_EDIT = (
+    "G[q] = __fadd_rn(__fmul_rn(ww, G[q]), __fmul_rn(rr, dq[q]));",
+    "G[q] = __fadd_rn(blockIdx.x == H - 1 ? G[q] : __fmul_rn(ww, G[q]), "
+    "__fmul_rn(rr, dq[q]));")
+# rwkv6-7b at published width (d_model 4096, 64 heads of 64, d_ff 14336,
+# vocab 65536), the depth cut to RWKV_LAYERS of 32: all 32 layers hold 7.53
+# B parameters, ~90 GB under bf16 AdamW (12 B a parameter), beyond the
+# card.  A step's allocated peak on an H100 80GB HBM3 (tools/
+# rwkv6_train_probe.py step): 65.9 GB at 16 layers, 69.6 at 17, 73.4 at
+# 18, out of memory at 19.  In this script 17 layers peaked at 70.7 GB
+# allocated but 82.2 GB reserved of the 85.0e9 B the card reports, 2.8 GB
+# to spare on a machine whose allocator may split blocks otherwise; 16
+# keeps the margin (both peaks in PERF.md section 5)
+RWKV_LAYERS = 16
+# its gradient through the kernels against impl="torch", leaf by leaf,
+# stacked leaves layer by layer (relative L2), within RWKV_GRAD_RTOL; two
+# broken controls must read above it: the control library in the first
+# backward launch alone (the last layer's), and the last layer's dk zeroed.
+# RWKV-6's bf16 rounding sets the limit: over seeds 0-2 the sound readings
+# were 7.69e-2-8.28e-2 at 16 layers (8.17e-2-8.74e-2 at 17; at the token
+# shift's mu_x and at u), while at 16 layers each bf16 gradient reads
+# 0.339-0.340 from the f32 plain one there, the kernels' and the plain
+# versions' alike, and the f32 gradient through the kernels 4.1e-5
+# (tools/rwkv6_train_probe.py grads / noise, H100 80GB HBM3 at 700 W); the
+# one-head control read 0.174-0.230 at 16 layers, dk zeroed 1.0
+RWKV_GRAD_RTOL = 0.12
+# the CLI's run at published width, RWKV_CLI_LAYERS deep: RWKV_STEPS steps,
+# a checkpoint at RWKV_CKPT_EVERY (9.8 GB at 2 layers: 0.98 B parameters x
+# 10 B), the replay resuming there
+RWKV_STEPS, RWKV_CKPT_EVERY, RWKV_CLI_LAYERS = 3, 2, 2
+
+
+def build_wkv6_control() -> Path:
+    """A copy of ``csrc/wkv6_backward.cu`` with WKV6_CONTROL_EDIT, built by
+    the repository's flags into a library of its own."""
+    from repro_torch.kernels import _build
+    text = (SRC / "repro_torch" / "csrc" / "wkv6_backward.cu").read_text()
+    old, new = WKV6_CONTROL_EDIT
+    check(text.count(old) == 1, f"the WKV-6 control's edit {old!r} is not "
+                                f"in csrc/wkv6_backward.cu once")
+    src = ROOT / "build" / "chip_smoke_controls" / "wkv6_backward_control.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text.replace(old, new))
+    return _build.build(src, "wkv6_backward_control")
+
+
+def wkv6_control_fn(lib_path):
+    """The backward of another build of ``csrc/wkv6_backward.cu`` (the
+    control's), called as ``wkv6_backward_cuda`` is (no launch
+    counted)."""
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    lib = WK.bind_backward(ctypes.CDLL(str(lib_path)))
+
+    def run(r, k, v, w, u, s0, do, dsT=None):
+        WK._check_backward(r, k, v, w, u, s0, do, dsT)
+        out = WK.backward_launch(lib, r, k, v, w, u, s0, do, dsT)
+        return (*out[:5], None if s0 is None else out[5])
+
+    return run
+
+
+def wkv6_bwd_inputs(dev, B, T, dtype, with_s0, seed):
+    """(r, k, v, w, u, s0, do, dsT) at rwkv6-7b's heads."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    H, N = WKV_BWD_HEADS["H"], WKV_BWD_HEADS["N"]
+    r, k, v, do = (torch.randn(B, T, H, N, device=dev, generator=gen)
+                   .to(dtype) for _ in range(4))
+    om = torch.empty(B, T, H, N, device=dev).uniform_(-12.0, 6.0,
+                                                      generator=gen)
+    w = torch.exp(-torch.exp(om)).to(dtype)
+    u = torch.randn(H, N, device=dev, generator=gen).to(dtype)
+    s0 = dsT = None
+    if with_s0:
+        s0, dsT = (torch.randn(B, H, N, N, device=dev, generator=gen)
+                   for _ in range(2))
+    return r, k, v, w, u, s0, do, dsT
+
+
+def wkv6_bwd_reading(g, w) -> float:
+    """A gradient's error in units of its limit: f32 max |g - w| over
+    WKV_BWD_RTOL of the largest |w|; bf16 the worst element's |g - w| over
+    (one bf16 ulp of it + WKV_BWD_RTOL of the largest).  At most 1 within
+    the limit."""
+    gf, wf = g.float(), w.float()
+    scale = float(wf.abs().max())
+    if g.dtype == torch.float32:
+        return float((gf - wf).abs().max()) / max(WKV_BWD_RTOL * scale,
+                                                   1e-30)
+    ulp = torch.where(wf == 0, torch.zeros_like(wf), torch.exp2(
+        torch.floor(torch.log2(wf.abs())) - 7))
+    return float(((gf - wf).abs() / (ulp + WKV_BWD_RTOL * scale)).max())
+
+
+def check_wkv6_backward(dev, control) -> dict:
+    """The WKV-6 backward kernel (``wkv6_backward_cuda``) against its plain
+    version on the card, every case of WKV_BWD_CASES x f32 / bf16 x s0 (and
+    dsT) or none: dtypes and shapes, each gradient within its limit
+    (``wkv6_bwd_reading`` <= 1) and a second run bit-equal to the first;
+    then the broken control, which must read above the limit in the
+    gradients it breaks (dk, dv, dw of batch row 0's last head) and nowhere
+    else.  Returns the readings."""
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6.ref import wkv6_backward_torch
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    worst = {"f32": 0.0, "bf16": 0.0}
+    worst_abs, n = 0.0, 0
+    for B, T in WKV_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for with_s0 in (False, True):
+                args = wkv6_bwd_inputs(dev, B, T, dtype, with_s0,
+                                       SEED + 11 * T + B)
+                got = WK.wkv6_backward_cuda(*args)
+                again = WK.wkv6_backward_cuda(*args)
+                want = wkv6_backward_torch(*args)
+                torch.cuda.synchronize()
+                what = (f"wkv6_backward ({dtype}, B {B}, T {T}, s0 "
+                        f"{with_s0})")
+                for name, g, w, a in zip(names, got, want, again):
+                    if w is None:
+                        check(g is None and a is None, f"{what}: {name}")
+                        continue
+                    check(g.dtype == w.dtype and g.shape == w.shape,
+                          f"{what}: {name} {g.dtype} {tuple(g.shape)}")
+                    check(torch.equal(g, a), f"{what}: {name}: two runs "
+                                             f"differ")
+                    e = wkv6_bwd_reading(g, w)
+                    check(e <= 1.0, f"{what}: {name} reads {e:.3f} of its "
+                                    f"limit")
+                    key = "f32" if dtype == torch.float32 else "bf16"
+                    worst[key] = max(worst[key], e)
+                    worst_abs = max(worst_abs, float(
+                        (g.float() - w.float()).abs().max()))
+                n += 1
+                del args, got, again, want
+    # the control at the training shape: batch row 0's last head only
+    B, T = WKV_BWD_CASES[0]
+    args = wkv6_bwd_inputs(dev, B, T, torch.bfloat16, False, SEED + 1)
+    want = wkv6_backward_torch(*args)
+    bad = control(*args)
+    torch.cuda.synchronize()
+    ctl = {name: wkv6_bwd_reading(g[0, :, -1], w[0, :, -1]) for name, g, w
+           in zip(names[1:4], bad[1:4], want[1:4])}
+    rest = max(wkv6_bwd_reading(g[0, :, :-1], w[0, :, :-1])
+               for g, w in zip(bad[:4], want[:4]))
+    rest = max([rest] + [wkv6_bwd_reading(g[1:], w[1:])
+                         for g, w in zip(bad[:4], want[:4])])
+    check(min(ctl.values()) > 1.0 and rest <= 1.0,
+          f"the WKV-6 control (w_t dropped from the adjoint in one block) "
+          f"reads {ctl} of the limit there, {rest:.3f} in the other "
+          f"blocks")
+    say(f"train: wkv6_backward vs wkv6_backward_torch at H 64, N 64, (B, T) "
+        f"in {WKV_BWD_CASES}, f32 / bf16, with and without s0 and dsT: worst "
+        f"{worst['f32']:.3f} of the f32 limit ({WKV_BWD_RTOL} of each "
+        f"gradient's largest) and {worst['bf16']:.3f} of the bf16 limit (one "
+        f"ulp of each element + {WKV_BWD_RTOL} of the largest), max abs "
+        f"err {worst_abs:.3e}, two runs bit-equal; the control (w_t dropped in batch row 0's last head) reads "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ctl.items())
+        + f" of the limit there, the other blocks {rest:.3f}")
+    return dict(worst_of_limit=worst, max_abs_err=worst_abs, cases=n,
+                control_of_limit=ctl, control_rest_of_limit=rest)
+
+
+def rwkv_controls(control):
+    """RWKV-6's gradient controls: the WKV-6 backward's control library
+    (``control``) in the first launch (the last layer's), the first
+    launch's dk zeroed."""
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    return (("wkv6", WK, "wkv6_backward_cuda", control),
+            ("dk", WK, "wkv6_backward_cuda", None))
+
+
+# rwkv6-7b's training (``family_train``): RWKV_LAYERS of its 32 layers
+RWKV_TRAIN = dict(
+    arch=RWKV, layers=RWKV_LAYERS, rtol=RWKV_GRAD_RTOL,
+    group=("tmix", "/tmix/", "the time mix's"), controls=rwkv_controls,
+    controls_said="wkv6: w_t dropped from the adjoint in one (batch row, "
+                  "head) of the last layer's backward, dk: the last "
+                  "layer's dk zeroed",
+    steps=RWKV_STEPS, ckpt_every=RWKV_CKPT_EVERY,
+    cli_layers=RWKV_CLI_LAYERS, stacked=None, routes=None)
+
+
+def time_rwkv_kernels(dev, card) -> dict:
+    """The WKV-6 backward at rwkv6-7b's training shape (B 8, T 256, H 64,
+    N 64, bf16; dsT given, as autograd gives it) by ``graph_ms`` beside its
+    bound (``costs.wkv6_backward_cost``) and its plain version by
+    ``event_us`` (eager, the host's issue included); no torch call
+    computes it."""
+    from repro_torch.kernels.rwkv6 import kernel as WK
+    from repro_torch.kernels.rwkv6.ref import wkv6_backward_torch
+    B, T = WKV_BWD_CASES[0]
+    H, N = WKV_BWD_HEADS["H"], WKV_BWD_HEADS["N"]
+    r, k, v, w, u, _, do, _ = wkv6_bwd_inputs(dev, B, T, torch.bfloat16,
+                                              False, SEED + 3)
+    dsT = torch.zeros(B, H, N, N, device=dev)
+    args = (r, k, v, w, u, None, do, dsT)
+    t = {"kernel": graph_ms(lambda: WK.wkv6_backward_cuda(*args), (), dev,
+                            10),
+         "plain": event_us(lambda: wkv6_backward_torch(*args), 3) / 1e3}
+    flops, nbytes = costs.wkv6_backward_cost(B, T, H, N, 2, dsT=True)
+    bound = (nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3)
+    out = dict(shape=[B, T, H, N], ms=t["kernel"], plain_ms=t["plain"],
+               library_ms=None, bound_ms=max(bound),
+               bound_by="bytes" if bound[0] >= bound[1] else "operations")
+    say(f"timing: wkv6_backward at (B {B}, T {T}, H {H}, N {N}, bf16): us "
+        f"per call in a replayed graph {t['kernel'] * 1e3:.2f}, bound "
+        f"{max(bound) * 1e3:.3f} ({out['bound_by']}; bytes "
+        f"{bound[0] * 1e3:.3f}, operations {bound[1] * 1e3:.3f}), plain "
+        f"{t['plain'] * 1e3:.2f} (eager, CUDA events), no torch call "
+        f"[{card}]")
+    return out
+
+
+def phase_train(dev, card, err, control, wkv6_control
+                ) -> tuple[list, dict]:
     """The train path: the backward kernels against their plain versions
     (llama3.2-1b's heads; the RG-LRU backward and Griffin's windowed (256,
     256) heads), one full-width llama3.2-1b step through the kernels
     against the plain versions, the step's time and memory, the CLI's run
-    with a checkpoint and its bit-equal replay, rwkv6-7b raising, the
-    flash kernels' times at the step's shape; then recurrentgemma-2b's
-    training at full width (``griffin_train``) and the new kernels' times
-    at its shapes.  ``control`` is the RG-LRU control's backward.  Returns
-    (the flash_backward and rglru_backward rows of the kernels JSON, the
-    phase's record)."""
+    with a checkpoint and its bit-equal replay, the flash kernels' times
+    at the step's shape; then recurrentgemma-2b's training at full width
+    (``family_train``) and the new kernels' times at its shapes; then the
+    WKV-6 backward against its plain version (``check_wkv6_backward``),
+    rwkv6-7b's training at published width, its depth cut (``family_train``)
+    and the backward's time.  ``control`` and ``wkv6_control`` are the
+    RG-LRU's and the WKV-6's control backwards.  Returns (the
+    flash_backward, rglru_backward and wkv6_backward rows of the kernels
+    JSON, the phase's record)."""
     t0 = time.perf_counter()
     parts = {}
 
@@ -6156,15 +6426,26 @@ def phase_train(dev, card, err, control) -> tuple[list, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     part("llama's CLI")
-    check_recurrent_training_raises(dev)
     flash = time_train_flash(dev, card)
     rec["flash"] = flash
-    part("rwkv6, llama's kernel times")
-    rec["griffin"] = griffin = griffin_train(dev, card, control)
+    part("llama's kernel times")
+    rec["griffin"] = griffin = family_train(GRIFFIN_TRAIN, dev, card, control)
     part("Griffin's training")
     gk = time_griffin_kernels(dev, card)
     rec["griffin"]["kernels"] = gk
     part("Griffin's kernel times")
+    t_rwkv = time.perf_counter()
+    wkv6_bwd = check_wkv6_backward(dev, wkv6_control)
+    part("the WKV-6 backward's checks")
+    rec["rwkv6"] = rwkv = family_train(RWKV_TRAIN, dev, card,
+                                       wkv6_control)
+    part("RWKV-6's training")
+    wt = time_rwkv_kernels(dev, card)
+    rwkv["kernel"] = wt
+    part("the WKV-6 backward's time")
+    rwkv["block_seconds"] = time.perf_counter() - t_rwkv
+    say(f"train: the RWKV-6 block took {rwkv['block_seconds']:.1f} s "
+        f"[{card}]")
     rec["parts_s"] = parts
     b = flash["backward"]
     routes = rec["cli"]["backward_routes"]
@@ -6204,10 +6485,22 @@ def phase_train(dev, card, err, control) -> tuple[list, dict]:
         plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
         bound_by=g["bound_by"], library_ms=None, shape=g["shape"],
         errors=rglru_bwd)
+    wk_row = dict(
+        name="wkv6_backward", route="cuda",
+        source="src/repro_torch/csrc/wkv6_backward.cu",
+        replaces="src/repro/kernels/rwkv6/ops.py:30",
+        replaces_note="no TPU kernel: jax.value_and_grad of wkv6_ref's "
+                      "scan (impl='xla')",
+        launches=rwkv["cli"]["launches"]["wkv6_backward"],
+        launches_a_step=rwkv["step_launches"]["wkv6_backward"],
+        max_abs_err=wkv6_bwd["max_abs_err"], ms=wt["ms"],
+        plain_ms=wt["plain_ms"], bound_ms=wt["bound_ms"],
+        bound_by=wt["bound_by"], library_ms=None, shape=wt["shape"],
+        errors=wkv6_bwd)
     rec["seconds"] = time.perf_counter() - t0
     say(f"train: phase done in {rec['seconds']:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]")
-    return [row, rg_row], rec
+    return [row, rg_row, wk_row], rec
 
 
 # ------------------------------------------------------------ 14. parallel
@@ -6608,25 +6901,16 @@ def dryrun_count(step, args, fake=None):
                 peak=mode.peak)
 
 
-def dryrun_griffin(dev, card) -> dict:
-    """(e) recurrentgemma-2b's train step at its published width and the
-    smoke config's depth (4 layers: a group and a tail rec layer; the
-    smoke width's head dim 32 has no backward kernel), its window cut to
-    64 so that it bites at S 256, batch 2, counted on real tensors and on
-    fake CUDA tensors: equal launches, FLOPs and bytes, the real count
-    equal to ``LAUNCHES``' delta and to ``train_launches`` (the RG-LRU
-    forward and backward and the windowed flash backward among them)."""
-    import dataclasses
-
+def dryrun_train(dev, card, cfg) -> dict:
+    """A train step of ``cfg`` (the recurrent mixing leaves filled), batch
+    2 x TRAIN_SEQ, counted on real tensors and on fake CUDA tensors: equal
+    launches, FLOPs and bytes, the real count equal to ``LAUNCHES``' delta
+    and to ``train_launches``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    import repro_torch.configs as configs
     from repro_torch.launch.steps import make_optimizer, make_train_step
     from repro_torch.models.params import tree_map
     from repro_torch.models.zoo import build_model
-    cfg = dataclasses.replace(configs.get(GRIFFIN),
-                              n_layers=configs.smoke(GRIFFIN).n_layers,
-                              local_window=64)
     model = build_model(cfg)
     opt = make_optimizer(cfg, lr=3e-4)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -6649,20 +6933,42 @@ def dryrun_griffin(dev, card) -> dict:
     want = train_launches(cfg)
     same = ("launches", "kernels", "flops", "bytes")
     check(real["launches"] == got == want,
-          f"dryrun: {GRIFFIN}'s smoke train step counted {real['launches']}"
-          f", the kernels launched {got}, its path needs {want}")
+          f"dryrun: {cfg.name}'s train step counted {real['launches']}, the "
+          f"kernels launched {got}, its path needs {want}")
     check(all(faked[k] == real[k] for k in same)
           and not any(all_launches().values()),
-          f"dryrun: {GRIFFIN}'s smoke train step on fake tensors "
+          f"dryrun: {cfg.name}'s train step on fake tensors "
           f"{faked['launches']} differs from the real one "
           f"{real['launches']}, or launched {all_launches()}")
-    say(f"dryrun: {GRIFFIN}'s train step at {cfg.n_layers} layers (window "
-        f"{cfg.local_window}, B 2 x S {TRAIN_SEQ}): launches "
-        f"{real['launches']} on real and on fake CUDA "
-        f"tensors, flops {real['flops']}, bytes {real['bytes']} equal "
+    say(f"dryrun: {cfg.name}'s train step at {cfg.n_layers} layers (B 2 x S "
+        f"{TRAIN_SEQ}): launches {real['launches']} on real and on fake "
+        f"CUDA tensors, flops {real['flops']}, bytes {real['bytes']} equal "
         f"[{card}]")
     return dict(launches=real["launches"], kernels=real["kernels"],
                 flops=real["flops"], bytes=real["bytes"])
+
+
+def dryrun_griffin(dev, card) -> dict:
+    """(e) recurrentgemma-2b's train step at its published width and the
+    smoke config's depth (4 layers: a group and a tail rec layer; the
+    smoke width's head dim 32 has no backward kernel), its window cut to
+    64 so that it bites at S 256, by ``dryrun_train`` (the RG-LRU forward
+    and backward and the windowed flash backward among its launches)."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    cfg = dataclasses.replace(configs.get(GRIFFIN),
+                              n_layers=configs.smoke(GRIFFIN).n_layers,
+                              local_window=64)
+    return dryrun_train(dev, card, cfg)
+
+
+def dryrun_rwkv6(dev, card) -> dict:
+    """(f) rwkv6-7b's train step at its published width and RWKV_CLI_LAYERS
+    deep, by ``dryrun_train`` (the WKV-6 forward and backward)."""
+    import repro_torch.configs as configs
+    return dryrun_train(dev, card, configs.cut_depth(configs.get(RWKV),
+                                                     RWKV_CLI_LAYERS))
 
 
 def phase_dryrun(dev, card) -> dict:
@@ -6676,7 +6982,7 @@ def phase_dryrun(dev, card) -> dict:
     over a fake 256-rank group (started first, in processes of their own):
     exit 0, records written, max RSS under DRYRUN_RSS_BYTES, llama's train
     record 32 ``flash_prefill`` and 16 ``flash_backward`` a device; (e)
-    ``dryrun_griffin``.  Returns its record."""
+    ``dryrun_griffin``; (f) ``dryrun_rwkv6``.  Returns its record."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     import repro_torch.configs as configs
@@ -6808,6 +7114,9 @@ def phase_dryrun(dev, card) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         rec["griffin"] = dryrun_griffin(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["rwkv6"] = dryrun_rwkv6(dev, card)
         rec["fake_alloc_bytes"] = moved
         rec["peaks"] = peaks
         parts["timed"] = time.perf_counter() - t0 - sum(parts.values())
@@ -6864,7 +7173,8 @@ def main() -> int:
     if not all((csrc / f).is_file() for f in (
             "arena.cu", "flash_attention.cu", "flash_decode.cu",
             "flash_prefill_sm90.cu", "flash_backward.cu",
-            "flash_backward_sm90.cu", "wkv6.cu", "rglru.cu")):
+            "flash_backward_sm90.cu", "wkv6.cu", "wkv6_backward.cu",
+            "rglru.cu")):
         say("FAIL: src/repro_torch not found beside chip_smoke.py; run it "
             "from the root of a checkout")
         return 2
@@ -6889,7 +7199,8 @@ def main() -> int:
         return fn(), time.perf_counter() - t0
 
     # one nvcc per source, all started together
-    jobs = [K.build, WK.build, RK.build, build_rglru_control] + [
+    jobs = [K.build, WK.build, WK.build_backward, RK.build,
+            build_rglru_control, build_wkv6_control] + [
         (lambda n=n: FK.build(n)) for n in FK.SOURCES]
     with ThreadPoolExecutor(len(jobs)) as ex:
         builds = [ex.submit(timed_build, fn) for fn in jobs]
@@ -6898,13 +7209,17 @@ def main() -> int:
             say(f"build: {lib.relative_to(ROOT)} in {sec:.1f} s")
             if lib.stem == "librglru_control":
                 control = rglru_control_fn(lib)
-            if lib.stem in ("libarena", "libwkv6", "librglru",
+            if lib.stem == "libwkv6_backward_control":
+                wkv6_control = wkv6_control_fn(lib)
+            if lib.stem in ("libarena", "libwkv6", "libwkv6_backward",
+                            "librglru",
                             "libflash_decode", "libflash_prefill_sm90",
                             "libflash_backward", "libflash_backward_sm90"):
                 for ln in _build.ptxas_report(lib):
                     say(f"build: ptxas {lib.stem[3:]}: {ln}")
     for mod in (K, WK, RK):
         mod._library()
+    WK._backward_library()
     for n in FK.SOURCES:
         FK._library(n)
     say(f"card: {card}")
@@ -7025,14 +7340,19 @@ def main() -> int:
                            for case, rec in bridge.items()}
 
     # the train path, the serving models' weights freed
-    train_rows, train_rec = phase_train(dev, card, err, control)
+    train_rows, train_rec = phase_train(dev, card, err, control,
+                                        wkv6_control)
     rows += train_rows
-    for r in rows:            # the RG-LRU forward's launches in training
+    for r in rows:            # the recurrences' forward launches in training
         if r["name"] == "rglru":
             g = train_rec["griffin"]
             r["train"] = dict(launches=g["cli"]["launches"]["rglru"],
                               launches_a_step=g["step_launches"]["rglru"],
                               routes_a_step=g["step_routes"])
+        if r["name"] == "wkv6":
+            g = train_rec["rwkv6"]
+            r["train"] = dict(launches=g["cli"]["launches"]["wkv6"],
+                              launches_a_step=g["step_launches"]["wkv6"])
     say("timing: train: " + json.dumps(train_rec) + f" [{card}]")
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 

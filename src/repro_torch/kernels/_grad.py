@@ -5,9 +5,9 @@ output a kernel computed carries no ``grad_fn``, and a loss built on it
 would back-propagate through everything but the kernel without an error.
 So on the card a wrapper whose inputs need a gradient either runs a
 ``torch.autograd.Function`` with a backward kernel (the flash attention's
-``FlashAttentionFn``, the RG-LRU's ``RGLRUFn``) or raises
-:func:`no_backward`'s error (WKV-6, the arena ops); it never returns a
-detached output.
+``FlashAttentionFn``, the RG-LRU's ``RGLRUFn``, WKV-6's ``WKV6Fn``) or
+raises :func:`no_backward`'s error (the arena ops, attention outside the
+backward's forms); it never returns a detached output.
 """
 
 from __future__ import annotations
@@ -33,11 +33,10 @@ def needs_grad(*tensors) -> bool:
 
 class NoBackward(NotImplementedError):
     """A call on the card needs a gradient that no backward kernel takes
-    yet (ROADMAP B): a family without a backward kernel (RWKV-6), or
-    attention outside the flash backward's form (head dims other than
-    (64, 64) and (256, 256), a non-causal call, an offset or a cut
-    ``kv_len``).  The dry-run writes a train cell that raises it as not
-    applicable."""
+    yet (ROADMAP B): attention outside the flash backward's form (head
+    dims other than (64, 64) and (256, 256), a non-causal call, an offset
+    or a cut ``kv_len``), or an arena op.  The dry-run writes a train cell
+    that raises it as not applicable."""
 
 
 def no_backward(op: str, kernel: str) -> NoBackward:

@@ -125,6 +125,26 @@ def rglru_backward_cost(B: int, T: int, D: int, esz: int, *,
     return 31 * B * T * D, nbytes
 
 
+def wkv6_backward_cost(B: int, T: int, H: int, N: int, esz: int, *,
+                       s0: bool = False, dsT: bool = False
+                       ) -> tuple[int, int]:
+    """One WKV-6 backward, the work the gradient needs: r, k, v, w and do
+    read once and dr, dk, dv, dw written once (``esz`` bytes an element), u
+    read and du written once, s0 read and ds0 (f32) written where s0 is
+    given, dsT read where given; per head and step the state walked forward
+    once, ``3 N^2`` (S_{t-1} for dr and dw), and the reverse's ``11 N^2``
+    (dr, dk, dw: an FMA each per element; dv: a product and a sum; G: two
+    products and a sum) and ``16 N`` (the bonus and v . do, 5; dr's and
+    dk's bonus terms, 6; du's term, 3; dv's b do, 2).  The kernel does
+    more: it walks each chunk's states a second time from its checkpoint
+    (another ``3 N^2`` a step, but a chunk's last), writes and reads the
+    f32 checkpoints and writes ds0 without s0; none of that is counted."""
+    flops = B * H * T * (14 * N * N + 16 * N)
+    nbytes = (esz * (9 * B * T * H * N + 2 * H * N)
+              + (2 * int(s0) + int(dsT)) * 4 * B * H * N * N)
+    return flops, nbytes
+
+
 #: the kernels' ``torch.library`` ops (``OpOverloadPacket``s of the
 #: ``repro_torch`` namespace) -> (the kernel's ``LAUNCHES`` key, its cost:
 #: ``cost(*op args) -> (flops, bytes, flop class)``, the class

@@ -23,6 +23,17 @@ a step's bonus; :func:`block_tile` is its
 grid rule, and ``ref.wkv6_tiled_torch`` repeats its decomposition in plain
 PyTorch.  The library reports the constants it was built with, and one
 that differs from these is refused.
+
+The gradient is a kernel of its own, in ``csrc/wkv6_backward.cu``
+(``libwkv6_backward.so``): :func:`wkv6_backward_cuda`, one call of
+``wkv6_backward_kernel`` (a block a (batch row, head), the state's rows
+over its threads, :func:`backward_shape`) and of ``wkv6_du_kernel`` (u's
+gradient summed over the batch rows in order), through the op
+``repro_torch::wkv6_backward``; ``LAUNCHES["wkv6_backward"]`` counts it.
+``ops.WKV6Fn`` takes it under autograd; ``ref.wkv6_backward_torch`` is its
+plain version.
+It replaces no TPU kernel: ``repro`` differentiates ``wkv6_ref``'s scan
+(``jax.value_and_grad`` in ``repro/launch/steps.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import torch
 from repro_torch.kernels import _build, costs
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "wkv6.cu"
+BACKWARD_SOURCE = SOURCE.with_name("wkv6_backward.cu")
 
 #: head sizes N the kernel is instantiated for (smoke 16, rwkv6-7b 64)
 HEAD_SIZES = (16, 32, 64)
@@ -45,11 +57,18 @@ HEAD_SIZES = (16, 32, 64)
 #: is split over
 TILE_COLS, ROW_SPLIT, CHUNK, BONUS_SPLIT = 16, 8, 16, 8
 CONSTANTS = (TILE_COLS, ROW_SPLIT, CHUNK, BONUS_SPLIT)
+#: kCols and kChunk of csrc/wkv6_backward.cu: columns of the state a
+#: thread owns (one row), and the steps between the forward walk's f32
+#: checkpoints, whose states a thread recomputes into registers
+BACKWARD_COLS, BACKWARD_CHUNK = 8, 8
+BACKWARD_CONSTANTS = (BACKWARD_COLS, BACKWARD_CHUNK)
 
-LAUNCHES = {"wkv6": 0}
+#: ``wkv6``: forward launches; ``wkv6_backward``: the backward's
+LAUNCHES = {"wkv6": 0, "wkv6_backward": 0}
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _lib = None
+_backward_lib = None
 _lib_lock = threading.Lock()
 
 
@@ -77,10 +96,65 @@ def block_tile(block: int, H: int, N: int) -> tuple[int, int, int, int]:
     return b, h, tile * jt, (tile + 1) * jt
 
 
+def backward_shape(N: int) -> tuple[int, int, int]:
+    """``(CG, RW, W)`` of a backward block at head size N: the threads a
+    row of the state is split over (neighbouring lanes, BACKWARD_COLS
+    columns each), the rows a warp holds and the warps a block has (one
+    thread a row and column group: ``N * CG`` threads)."""
+    cg = N // BACKWARD_COLS
+    return cg, 32 // cg, N * cg // 32
+
+
+def backward_smem_bytes(N: int) -> int:
+    """Dynamic shared memory of a backward block, in f32: a chunk of r, k,
+    w, v and do staged (5 C N), its bonuses and v . do (2 C), the warps'
+    partial dv (C W N), the rows' dr, dk, dw (3 C N) and u (N)."""
+    C, (_, _, W) = BACKWARD_CHUNK, backward_shape(N)
+    return 4 * (5 * C * N + 2 * C + C * W * N + 3 * C * N + N)
+
+
 def build() -> Path:
     """Compile ``csrc/wkv6.cu`` unless a library of this source exists;
     returns the library's path."""
     return _build.build(SOURCE, "wkv6")
+
+
+def build_backward() -> Path:
+    """Compile ``csrc/wkv6_backward.cu`` unless a library of this source
+    exists; returns the library's path."""
+    return _build.build(BACKWARD_SOURCE, "wkv6_backward")
+
+
+def bind_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a backward library's entries (this
+    source's or an edited copy's) and check its constants."""
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    for sfx in _SUFFIX.values():
+        fn = getattr(lib, f"repro_wkv6_backward_{sfx}")
+        fn.argtypes = [vp, vp, vp, vp, vp,         # r k v w u
+                       vp, vp, vp,                 # s0 do dsT
+                       vp, vp, vp, vp, vp, vp,     # dr dk dv dw du ds0
+                       vp, vp,                     # checkpoints, du partials
+                       ll, ll, ll, ll,             # B T H N
+                       vp]                         # stream
+        fn.restype = ctypes.c_int
+    got = (ctypes.c_int * len(BACKWARD_CONSTANTS))()
+    lib.repro_wkv6_backward_constants.argtypes = [ctypes.c_void_p]
+    lib.repro_wkv6_backward_constants.restype = None
+    lib.repro_wkv6_backward_constants(got)
+    if tuple(got) != BACKWARD_CONSTANTS:
+        raise _build.KernelBuildError(
+            f"libwkv6_backward was built with (cols, chunk) = "
+            f"{tuple(got)}, kernel.py says {BACKWARD_CONSTANTS}")
+    return lib
+
+
+def _backward_library() -> ctypes.CDLL:
+    global _backward_lib
+    with _lib_lock:
+        if _backward_lib is None:
+            _backward_lib = bind_backward(ctypes.CDLL(str(build_backward())))
+        return _backward_lib
 
 
 def _library() -> ctypes.CDLL:
@@ -187,3 +261,78 @@ _OP = costs.kernel_op(
     "wkv6(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? s0, "
     "Tensor(a!) sT) -> Tensor", _launch,
     lambda r, *_: torch.empty_like(r), "wkv6", _cost)
+
+
+def _check_backward(r, k, v, w, u, s0, do, dsT) -> None:
+    _check(r, k, v, w, u, s0, None)
+    B, T, H, N = r.shape
+    if not (isinstance(do, torch.Tensor) and do.device == r.device
+            and do.dtype == r.dtype and do.is_contiguous()
+            and do.shape == r.shape):
+        raise ValueError(f"do must be a contiguous {r.dtype} tensor of "
+                         f"shape {tuple(r.shape)} on {r.device}")
+    if dsT is not None and not (
+            isinstance(dsT, torch.Tensor) and dsT.device == r.device
+            and dsT.dtype == torch.float32 and dsT.is_contiguous()
+            and tuple(dsT.shape) == (B, H, N, N)):
+        raise ValueError(f"dsT must be a contiguous f32 tensor of shape "
+                         f"{(B, H, N, N)} on {r.device}")
+
+
+def wkv6_backward_cuda(r, k, v, w, u, s0, do, dsT=None):
+    """The WKV-6 gradient on the card: given the forward's inputs (s0 may
+    be None) and the gradients of its outputs, ``do`` ``(B, T, H, N)`` in
+    r's dtype and ``dsT`` ``(B, H, N, N)`` f32 (None: zero), returns
+    ``(dr, dk, dv, dw in r's dtype, du (H, N) in u's dtype, ds0 f32 or None
+    when s0 is None)``, as
+    :func:`~repro_torch.kernels.rwkv6.ref.wkv6_backward_torch` does.
+    One call, through the ``repro_torch::wkv6_backward`` op."""
+    _check_backward(r, k, v, w, u, s0, do, dsT)
+    out = _BACKWARD_OP(r, k, v, w, u, s0, do, dsT)
+    return (*out[:5], None if s0 is None else out[5])
+
+
+def backward_launch(lib, r, k, v, w, u, s0, do, dsT):
+    """One launch of the backward entries of ``lib`` (a
+    :func:`bind_backward`-ed library: this source's, or an edited copy's)
+    on checked inputs; returns the six outputs, ds0 whether s0 is given or
+    not.  Counts nothing: the op counts its own launches."""
+    B, T, H, N = r.shape
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty_like(u)
+    ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    chunks = -(-T // BACKWARD_CHUNK)
+    ckpt = torch.empty((B, H, chunks, N, N), dtype=torch.float32,
+                       device=r.device)
+    du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    fn = getattr(lib, f"repro_wkv6_backward_{_SUFFIX[r.dtype]}")
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _build.raise_on(fn(*(ptr(t) for t in (r, k, v, w, u, s0, do, dsT, dr,
+                                          dk, dv, dw, du, ds0, ckpt,
+                                          du_part)), B, T, H, N, stream),
+                    "wkv6 backward")
+    return dr, dk, dv, dw, du, ds0
+
+
+def _backward_op(r, k, v, w, u, s0, do, dsT):
+    out = backward_launch(_backward_library(), r, k, v, w, u, s0, do, dsT)
+    LAUNCHES["wkv6_backward"] += 1
+    return out
+
+
+def _backward_cost(r, k, v, w, u, s0, do, dsT):
+    return (*costs.wkv6_backward_cost(*r.shape, r.element_size(),
+                                      s0=s0 is not None,
+                                      dsT=dsT is not None), "cuda_core")
+
+
+_BACKWARD_OP = costs.kernel_op(
+    "wkv6_backward(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+    "Tensor? s0, Tensor dout, Tensor? dsT) -> (Tensor, Tensor, Tensor, "
+    "Tensor, Tensor, Tensor)", _backward_op,
+    lambda r, k, v, w, u, s0, do, dsT: (
+        *(torch.empty_like(r) for _ in range(4)), torch.empty_like(u),
+        r.new_empty(r.shape[:1] + r.shape[2:] + r.shape[3:],
+                    dtype=torch.float32)),
+    "wkv6_backward", _backward_cost)

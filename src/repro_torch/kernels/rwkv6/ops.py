@@ -12,15 +12,20 @@
                            the CPU path).
 
 No environment variable changes the choice: a CUDA tensor under
-``"auto"`` launches the kernel or raises; it never falls back.  The kernel
-has no backward yet (ROADMAP B): on the card, under autograd with an input
-that requires a gradient, the call raises ``NotImplementedError`` rather
-than return an output autograd cannot see through.
+``"auto"`` launches the kernel or raises; it never falls back.  Under
+autograd on the card (grad enabled and an input that requires a gradient)
+the call is :class:`WKV6Fn`: the forward kernel, and for the gradient the
+backward kernel (``kernel.wkv6_backward_cuda``, ``csrc/wkv6_backward.cu``);
+its plain version is ``ref.wkv6_backward_torch``.  An in-place
+``state_out`` (serving's cache threading) is refused there with a
+``ValueError``: training passes none.
 ``repro``'s chunked-linear-attention note applies here too: the exact
 sequential update is the one that cannot overflow.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import _grad, _local
 from repro_torch.kernels.rwkv6 import kernel as _kernel
@@ -28,6 +33,33 @@ from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.parallel.sharding import copy_into
 
 IMPLS = ("auto", "cuda", "torch", "ref")
+
+
+class WKV6Fn(torch.autograd.Function):
+    """WKV-6 on the card with a hand-written gradient: the forward is the
+    forward kernel (``kernel.wkv6_cuda``) and the backward the backward
+    kernel (``kernel.wkv6_backward_cuda``), which recomputes the f32
+    states from the saved inputs (the outputs are not kept).  ``apply(r,
+    k, v, w, u, s0)`` -> (out, sT); s0 may be None.  Autograd hands the
+    backward a zero gradient for an output the loss does not use (sT, in
+    training)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
+        s0 = None if s0 is None else s0.contiguous()
+        out, sT = _kernel.wkv6_cuda(r, k, v, w, u, initial_state=s0,
+                                     state_out=None)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return out, sT
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout, dsT):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        return _kernel.wkv6_backward_cuda(
+            r, k, v, w, u, s0, dout.contiguous(),
+            None if dsT is None else dsT.contiguous())
 
 
 
@@ -71,7 +103,11 @@ def wkv6(r, k, v, w, u, *, initial_state=None, impl: str = "auto",
             raise ValueError("impl='cuda' needs CUDA tensors; got r on "
                              f"{r.device}")
         if _grad.needs_grad(r, k, v, w, u, initial_state):
-            raise _grad.no_backward("wkv6", "the WKV-6 backward")
+            if state_out is not None:
+                raise ValueError(
+                    "wkv6 under autograd takes no state_out (an in-place "
+                    "state has no gradient); training passes none")
+            return WKV6Fn.apply(r, k, v, w, u, initial_state)
         return _kernel.wkv6_cuda(r, k, v, w, u, initial_state=initial_state,
                                  state_out=state_out)
     return wkv6_ref(r, k, v, w, u, initial_state, state_out)

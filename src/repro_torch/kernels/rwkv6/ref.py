@@ -20,6 +20,23 @@ chunk; a step's bonus is the in-order sums of ``BONUS_SPLIT`` runs of
 consecutive rows merged by a butterfly, and a column's output its row
 groups' FMA sums merged by a butterfly.  Its state
 is bit-equal to ``wkv6_ref``'s and its outputs agree to f32 rounding.
+
+The gradient.  ``wkv6_backward_torch`` is the plain version of the
+backward kernel (``csrc/wkv6_backward.cu``): given the forward's inputs and
+the gradients ``do`` of the output and ``dsT`` of the final state, the
+states ``S_{t-1}`` are recomputed forward in f32 as the forward rounds them
+and the state's adjoint ``G`` runs back from ``G = dsT``:
+
+    dr_t = S_{t-1} do_t + u k_t (v_t . do_t)
+    dk_t = G_t v_t + u r_t (v_t . do_t)
+    dv_t = G_t^T k_t + b_t do_t                (b_t = (r_t u) . k_t)
+    dw_t = rowsum(G_t * S_{t-1})
+    G_{t-1} = diag(w_t) G_t + r_t do_t^T,   ds0 = G_{-1}
+    du = sum over batch and time of r_t k_t (v_t . do_t)
+
+The kernel sums in another order (per-thread FMA chains merged by
+butterflies), so the card holds it to this version within a limit, not
+bit for bit.
 """
 
 from __future__ import annotations
@@ -117,3 +134,49 @@ def wkv6_tiled_torch(r, k, v, w, u, initial_state=None, state_out=None):
     if state_out is not None:
         S_out = state_out.copy_(S_out)
     return out.to(r.dtype), S_out
+
+
+def _states(kf, vf, wf, s0, B, H, N, device):
+    """The f32 state entering each step, ``(B, T, H, N, N)``: s0 (zeros
+    when None), then each step's ``w S + k v`` as the forward rounds it."""
+    T = kf.shape[1]
+    S = (torch.zeros((B, H, N, N), dtype=f32, device=device)
+         if s0 is None else s0.to(f32))
+    Sp = torch.empty((B, T, H, N, N), dtype=f32, device=device)
+    for t in range(T):
+        Sp[:, t] = S
+        S = wf[:, t, ..., None] * S + kf[:, t, ..., None] * \
+            vf[:, t, :, None, :]
+    return Sp
+
+
+def wkv6_backward_torch(r, k, v, w, u, s0, do, dsT=None):
+    """The WKV-6 gradient in plain torch: the reverse scan, given ``do``
+    ``(B, T, H, N)`` (in r's dtype) and ``dsT`` ``(B, H, N, N)`` (f32, or
+    None: zero), the gradients of :func:`wkv6_ref`'s two outputs.  Returns
+    ``(dr, dk, dv, dw in r's dtype, du in u's dtype, ds0 f32 or None when
+    s0 is None)``; the states are recomputed forward in f32."""
+    B, T, H, N = r.shape
+    rf, kf, vf, wf, dof = (x.to(f32) for x in (r, k, v, w, do))
+    uf = u.to(f32)
+    Sp = _states(kf, vf, wf, s0, B, H, N, r.device)
+    G = (torch.zeros((B, H, N, N), dtype=f32, device=r.device)
+         if dsT is None else dsT.to(f32))
+    vdo = (vf * dof).sum(-1)                             # (B, T, H)
+    bonus = (rf * uf * kf).sum(-1)
+    dr, dk, dv, dw = (torch.empty((B, T, H, N), dtype=f32, device=r.device)
+                      for _ in range(4))
+    for t in range(T - 1, -1, -1):
+        S = Sp[:, t]
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", S, dof[:, t]) \
+            + uf * kf[:, t] * vdo[:, t, :, None]
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", G, vf[:, t]) \
+            + uf * rf[:, t] * vdo[:, t, :, None]
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kf[:, t]) \
+            + bonus[:, t, :, None] * dof[:, t]
+        dw[:, t] = (G * S).sum(-1)
+        G = wf[:, t, ..., None] * G + rf[:, t, ..., None] * \
+            dof[:, t, :, None, :]
+    du = (rf * kf * vdo[..., None]).sum((0, 1))
+    return (*(x.to(r.dtype) for x in (dr, dk, dv, dw)), du.to(u.dtype),
+            None if s0 is None else G)

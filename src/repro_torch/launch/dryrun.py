@@ -36,10 +36,11 @@ The mesh's device type follows the port's rule for entry points: ``cuda``
 unless asked (``--device cpu``).  On ``cuda`` the kernel wrappers route
 the fake tensors as they route real ones, so the counts are those of the
 card's routes, DTensor issues NCCL's all-to-all, and a train cell whose
-kernel has no backward (``kernels._grad.NoBackward``: rwkv6, head dims
-outside ``BACKWARD_HEAD_DIMS``) is written as not applicable, with the
-error's text; Griffin's cells count ``rglru_backward`` and the windowed
-``flash_backward`` (256, 256).  It needs a PyTorch built with CUDA and allocates
+kernel has no backward (``kernels._grad.NoBackward``: head dims outside
+``BACKWARD_HEAD_DIMS``, attention outside the backward's form) is written
+as not applicable, with the error's text; Griffin's cells count
+``rglru_backward`` and the windowed ``flash_backward`` (256, 256), rwkv6's
+``wkv6_backward``.  It needs a PyTorch built with CUDA and allocates
 nothing on the card and launches nothing.  On ``cpu`` the count is of the
 CPU path: the plain versions of the kernels, and DTensor's all-gather +
 chunk where the card would run an all-to-all.

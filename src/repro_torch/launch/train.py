@@ -4,6 +4,8 @@
         --steps 8                           # on the card, at full width
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch recurrentgemma-2b --layers 3 # published width, 3 layers deep
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch rwkv6-7b --layers 17         # published width, 17 of 32
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 4                           # the smoke config on the CPU
 
@@ -16,8 +18,10 @@ runs the attention's forward and backward through the hand-written flash
 kernels on the card (Griffin's local attention with its window), and
 Griffin's RG-LRU through its forward and backward kernels
 (``kernels/rglru``): ``--arch recurrentgemma-2b`` trains at full width on
-one card.  RWKV-6 trains on the CPU only, since the WKV-6 kernel has no
-backward yet (ROADMAP B3): on the card its first step raises.  Rematerialization follows the config's ``remat``, as in
+one card.  RWKV-6's WKV-6 runs through its forward and backward kernels
+(``kernels/rwkv6``): ``--arch rwkv6-7b`` trains at published width with
+its depth cut to fit one card (``--layers 17``: AdamW's state of all 32
+layers, ~90 GB, does not).  Rematerialization follows the config's ``remat``, as in
 ``repro`` (``"block"`` in every config: each block's forward runs again in
 the backward, so the attention's forward kernel launches twice a layer a
 step; ``models/zoo.py:_maybe_remat``).  Weights are random, drawn from ``--seed``.

@@ -20,12 +20,13 @@
   ``decode_32k`` and ``train_4k`` on the single pod, through the CLI in a
   subprocess: ``repro``'s keys, the arguments' bytes equal rank 0's shards
   computed here from the abstract leaves, collectives in the train cell,
-  the process's peak RSS under 2 GB; on a mocked card, rwkv6-7b's
-  ``train_4k`` is written not applicable, for want of the WKV-6 backward,
-  and recurrentgemma-2b's applicable at full depth, its kernels' launches
-  a device pinned (16 ``flash_prefill``, 8 ``flash_backward``, 34
-  ``rglru_staged`` and 18 ``rglru_backward``: chip_smoke.py's
-  ``train_launches``).
+  the process's peak RSS under 2 GB; on a mocked card, starcoder2-7b's
+  ``train_4k`` is written not applicable, for want of a flash backward at
+  its head dims (128, 128), and recurrentgemma-2b's and rwkv6-7b's
+  applicable at full depth, their kernels' launches a device pinned
+  (Griffin: 16 ``flash_prefill``, 8 ``flash_backward``, 34
+  ``rglru_staged`` and 18 ``rglru_backward``; rwkv6: 64 ``wkv6`` and 32
+  ``wkv6_backward``: chip_smoke.py's ``train_launches``).
 """
 
 import json
@@ -55,7 +56,10 @@ from repro_torch.kernels.rglru.ref import (  # noqa: E402
     rglru_ref,
 )
 from repro_torch.kernels.rwkv6 import kernel as WK  # noqa: E402
-from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import (  # noqa: E402
+    wkv6_backward_torch,
+    wkv6_ref,
+)
 from repro_torch.launch import dryrun as D  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -651,19 +655,24 @@ def test_cli_prints_its_lines_and_stays_small(cli_cells):
 _MOCKED = """
 import tempfile, torch
 from repro_torch.kernels import _grad
+# the card mocked: the wrappers route fake CPU tensors to the kernels' ops
 _grad.on_card = lambda t: True
+torch.Tensor.is_cuda = property(lambda t: True)
+torch.cuda.current_device = lambda: None
 from repro_torch.launch.dryrun import run_cell
-rec = run_cell("rwkv6-7b", "train_4k", False, tempfile.mkdtemp(),
+rec = run_cell("starcoder2-7b", "train_4k", False, tempfile.mkdtemp(),
                device="cpu")
 print(rec["applicable"], "|", rec["skip_reason"])
 """
 
 
 def test_train_cell_without_a_backward_kernel_is_skipped():
+    # starcoder2-7b's heads (128, 128) wait for the flash backward's next
+    # form (ROADMAP B2)
     out = _run(_MOCKED, timeout=240).strip().splitlines()[-1]
     ok, why = out.split(" | ")
     assert ok == "False"
-    assert "WKV-6 backward" in why
+    assert "flash backward" in why and "(128, 128)" in why
 
 
 _MOCKED_GRIFFIN = """
@@ -696,3 +705,44 @@ def test_griffin_train_cell_is_applicable_on_a_mocked_card():
                                   "flash_backward_sm90": 8,
                                   "rglru_staged": 34,
                                   "rglru_backward": 18}.items()))
+
+
+_MOCKED_RWKV6 = _MOCKED_GRIFFIN.replace('"recurrentgemma-2b"', '"rwkv6-7b"')
+
+
+def test_rwkv6_train_cell_is_applicable_on_a_mocked_card():
+    out = _run(_MOCKED_RWKV6, timeout=240).strip().splitlines()[-1]
+    ok, launches, kernels = out.split(" | ")
+    assert ok == "True"
+    # a device's step under remat "block": 32 layers run their WKV-6
+    # forward twice, its backward once
+    want = str(sorted({"wkv6": 64, "wkv6_backward": 32}.items()))
+    assert launches == want and kernels == want
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_backward_op_shapes_and_flops(with_state):
+    B, T, H, N = 2, 11, 2, 16
+    r, k, v, do = (_rand(B, T, H, N, seed=i) for i in range(4))
+    w = torch.exp(-torch.exp(_rand(B, T, H, N, seed=4)))
+    u = _rand(H, N, seed=5)
+    s0 = _rand(B, H, N, N, seed=6) if with_state else None
+    dsT = _rand(B, H, N, N, seed=7) if with_state else None
+    want = wkv6_backward_torch(r, k, v, w, u, s0, do, dsT)
+    mode, fts = _fake(r, k, v, w, u, s0, do, dsT)
+    with mode:
+        got = ops.wkv6_backward(*fts)
+    # the op returns a ds0 whether s0 is given or not (the kernel writes
+    # it; the wrapper drops it without s0)
+    want = want[:5] + (torch.empty(B, H, N, N),)
+    assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype)
+                                                 for t in want]
+    flops, nbytes = costs.wkv6_backward_cost(B, T, H, N, 4, s0=with_state,
+                                             dsT=with_state)
+    # ds0 counted only with s0: without it the function has no ds0
+    assert nbytes == 4 * (9 * B * T * H * N + 2 * H * N) + (
+        3 if with_state else 0) * 4 * B * H * N * N
+    assert _flops(ops.wkv6_backward, r, k, v, w, u, s0, do, dsT) == flops
+    assert costs.KERNEL_OPS[ops.wkv6_backward][0] == "wkv6_backward"
+    assert costs.KERNEL_OPS[ops.wkv6_backward][1](
+        r, k, v, w, u, s0, do, dsT) == (flops, nbytes, "cuda_core")

@@ -342,7 +342,7 @@ def card(monkeypatch):
     from repro_torch.kernels.rglru import kernel as rk
     from repro_torch.kernels.rglru.ref import rglru_backward_torch, rglru_ref
     from repro_torch.kernels.rwkv6 import kernel as wk
-    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    from repro_torch.kernels.rwkv6.ref import wkv6_backward_torch, wkv6_ref
 
     seen = []
 
@@ -366,6 +366,10 @@ def card(monkeypatch):
         check(r, k, v, w, u, initial_state, state_out)
         return wkv6_ref(r, k, v, w, u, initial_state, state_out)
 
+    def wkv_backward(r, k, v, w, u, s0, do, dsT=None):
+        check(r, k, v, w, u, s0, do, dsT)
+        return wkv6_backward_torch(r, k, v, w, u, s0, do, dsT)
+
     def lru(log_a, gx, h0=None, state_out=None):
         check(log_a, gx, h0, state_out)
         return rglru_ref(log_a, gx, h0, state_out)
@@ -386,6 +390,7 @@ def card(monkeypatch):
     monkeypatch.setattr(fk, "flash_attention_cuda", flash)
     monkeypatch.setattr(fk, "flash_backward_cuda", flash_backward)
     monkeypatch.setattr(wk, "wkv6_cuda", wkv)
+    monkeypatch.setattr(wk, "wkv6_backward_cuda", wkv_backward)
     monkeypatch.setattr(rk, "rglru_cuda", lru)
     monkeypatch.setattr(rk, "rglru_backward_cuda", lru_backward)
     monkeypatch.setattr(ak, "arena_write_cuda", awrite)

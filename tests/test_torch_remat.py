@@ -26,8 +26,9 @@
     (once more in the backward), once under ``"none"``, its backward once,
     with the same gradient; Griffin's RG-LRU and windowed attention
     backward once a layer under ``"block"`` and ``"dots"``, with the
-    gradient of ``"none"``; ``wkv6`` still raises under remat rather than
-    being recomputed into a detached graph.
+    gradient of ``"none"``; RWKV-6's WKV-6 forward twice a layer and its
+    backward once (``WKV6Fn``), loss and every gradient leaf bit-equal to
+    ``"none"``'s.
 """
 
 import collections
@@ -429,11 +430,32 @@ def test_mock_card_griffin_trains_under_remat(on_card,  # noqa: F811
 @pytest.mark.parametrize("arch", ("rwkv6-7b",))
 @pytest.mark.parametrize("pol", ("block", "dots"))
 def test_mock_card_recurrences_raise_under_remat(on_card,  # noqa: F811
-                                                 arch, pol):
-    cfg = _cfg(arch, pol)
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), "cpu")
-    for p in tree_leaves(params):
-        p.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        model.loss_fn(params, _batch(cfg))
+                                                 monkeypatch, arch, pol):
+    # The name is kept from when this held the raise; it now holds that
+    # WKV-6 trains under remat: WKV6Fn's forward (its plain version on the
+    # mocked card) runs twice a layer, its backward once, and the loss and
+    # every gradient leaf are those of "none"
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    counts = collections.Counter()
+    for name in ("wkv6_cuda", "wkv6_backward_cuda"):
+        fn = getattr(wk, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(wk, name, counted)
+    runs = {}
+    for p in ("none", pol):
+        cfg = _cfg(arch, p)
+        model = build_model(cfg)
+        params = tree_map(lambda t: t.float(), model.init(
+            torch.Generator().manual_seed(0), "cpu"))
+        counts.clear()
+        runs[p] = _grads(model, params, _batch(cfg))
+        L = cfg.n_layers
+        assert counts == {"wkv6_cuda": L if p == "none" else 2 * L,
+                          "wkv6_backward_cuda": L}
+    assert torch.equal(runs[pol][0], runs["none"][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[pol][1],
+                                                 runs["none"][1]))

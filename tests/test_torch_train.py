@@ -32,10 +32,11 @@ numpy from a seed and handed to both packages; every comparison is in f32:
     kernel entry replaced by its plain version run without autograd (as a
     ctypes launch is), every ``impl="cuda"`` op given an input that
     requires a gradient either returns an output with a ``grad_fn`` (the
-    flash attention's ``FlashAttentionFn``, with or without a window, and
-    the RG-LRU's ``RGLRUFn``, whose gradients then equal autograd's of the
-    plain forward) or raises ``NotImplementedError`` (WKV-6, the arena
-    ops), and a training form the backward does not take raises too;
+    flash attention's ``FlashAttentionFn``, with or without a window, the
+    RG-LRU's ``RGLRUFn`` and WKV-6's ``WKV6Fn``, whose gradients then
+    equal autograd's of the plain forward) or raises
+    ``NotImplementedError`` (the arena ops), and a training form the
+    backward does not take raises too;
   * the whole Griffin slice on that mocked card: the smoke
     ``recurrentgemma-2b`` (window 16, S 24: the window bites) with its
     gradients through ``RGLRUFn`` and the windowed ``FlashAttentionFn``
@@ -91,7 +92,10 @@ from repro_torch.kernels.rglru.ref import (  # noqa: E402
     rglru_ref,
 )
 from repro_torch.kernels.rwkv6 import ops as rwkv6_ops  # noqa: E402
-from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import (  # noqa: E402
+    wkv6_backward_torch,
+    wkv6_ref,
+)
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.steps import make_optimizer, make_train_step  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
@@ -399,6 +403,8 @@ def on_card(monkeypatch):
     monkeypatch.setattr(rwkv6_ops._kernel, "wkv6_cuda", _detached(
         lambda r, k, v, w, u, *, initial_state, state_out:
         wkv6_ref(r, k, v, w, u, initial_state, state_out)))
+    monkeypatch.setattr(rwkv6_ops._kernel, "wkv6_backward_cuda",
+                        _detached(wkv6_backward_torch))
     monkeypatch.setattr(rglru_ops._kernel, "rglru_cuda", _detached(
         lambda la, gx, h0=None, *, state_out=None:
         rglru_ref(la, gx, h0, state_out)))
@@ -471,12 +477,23 @@ def test_mock_flash_cuda_window_has_grad_fn(on_card, window, impl):
 
 
 def test_mock_recurrences_cuda_raise(on_card):
+    # The name is kept from when this held the raise; it now holds that
+    # WKV-6 under autograd on the mocked card is WKV6Fn and has a gradient:
+    # with the backward's plain version as the kernel entry, autograd's of
+    # the plain recurrence
     B, T, H, N = 1, 5, 2, 8
     r, k, v = (_leaf(B, T, H, N, seed=i) for i in range(3))
     w = torch.rand(B, T, H, N).requires_grad_(True)
     u = _leaf(H, N, seed=4)
-    with pytest.raises(NotImplementedError, match="WKV-6 backward"):
-        rwkv6_ops.wkv6(r, k, v, w, u, impl="cuda")
+    out, sT = rwkv6_ops.wkv6(r, k, v, w, u, impl="cuda")
+    assert out.grad_fn is not None and "WKV6Fn" in \
+        type(out.grad_fn).__name__
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(5))
+    got = torch.autograd.grad((out * do).sum() + sT.sum(), (r, k, v, w, u))
+    o_r, sT_r = wkv6_ref(r, k, v, w, u)
+    want = torch.autograd.grad((o_r * do).sum() + sT_r.sum(), (r, k, v, w, u))
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
     # without autograd the (mock) kernel runs as before
     with torch.no_grad():
         assert rwkv6_ops.wkv6(r, k, v, w, u, impl="cuda")[0].grad_fn is None
@@ -574,8 +591,8 @@ def test_mock_arena_cuda_raise(on_card):
 
 def test_recurrent_loss_trains_on_cpu():
     # on the CPU the recurrent families have gradients (the plain
-    # versions under autograd); on the card Griffin's go through its
-    # backward kernels, and rwkv6's loss raises
+    # versions under autograd); on the card they go through their
+    # backward kernels (RGLRUFn, WKV6Fn)
     for arch in ("rwkv6-7b", "recurrentgemma-2b"):
         tm = build_model(tconfigs.smoke(arch))
         tp = tm.init(torch.Generator().manual_seed(0), "cpu")

@@ -19,7 +19,7 @@ one key too wide as a control, ``FlashAttentionFn`` with a window).
 
 ``grads`` reads, for seeds 0, 1 and 2 (or those given), the full-width
 gradient of recurrentgemma-2b's loss through the kernels against the
-plain versions' (``chip_smoke.griffin_grad_compare``'s readings: the worst
+plain versions' (``chip_smoke.family_grad_compare``'s readings: the worst
 relative L2 error over all leaves, the recurrent blocks' and the rest,
 stacked ones by layer, and the three controls'), without its limits: the
 readings ``GRIFFIN_GRAD_RTOL`` and ``GRIFFIN_REC_GRAD_RTOL`` are set
@@ -29,9 +29,9 @@ from.
 both flash backward kernels at Griffin's training shapes beside their
 bounds, plain versions and SDPA's backward.
 
-``train`` runs ``chip_smoke.griffin_train``: the gradient check, one step
-against the plain step with its launches, the step's time, the CLI's run
-at cut depth and its bit-equal resume.
+``train`` runs ``chip_smoke.family_train`` on ``GRIFFIN_TRAIN``: the
+gradient check, one step against the plain step with its launches, the
+step's time, the CLI's run at cut depth and its bit-equal resume.
 
 Every line ends with the card's name and power limit.  JSON of the
 readings goes to ``chiprun_out/griffin_train_probe_<mode>.json``.
@@ -56,8 +56,9 @@ def grads(dev, card, CS, seeds) -> dict:
     control = CS.rglru_control_fn(CS.build_rglru_control())
     out = {}
     for seed in seeds:
-        model, params, batch = CS.griffin_inputs(dev, seed)
-        rec = CS.griffin_grad_compare(model, params, batch, control)
+        model, params, batch = CS.family_inputs(CS.GRIFFIN_TRAIN, dev, seed)
+        rec = CS.family_grad_compare(CS.GRIFFIN_TRAIN, model, params, batch,
+                                     control)
         out[str(seed)] = rec
         CS.say(f"grads: seed {seed}: " + "; ".join(
             f"{name}: " + ", ".join(f"{g} {r:.4e} at {at}"
@@ -107,8 +108,8 @@ def main() -> int:
     elif mode == "time":
         rec["time"] = CS.time_griffin_kernels(dev, card)
     elif mode == "train":
-        rec["train"] = CS.griffin_train(dev, card,
-                                        CS.rglru_control_fn(libs[1]))
+        rec["train"] = CS.family_train(CS.GRIFFIN_TRAIN, dev, card,
+                                       CS.rglru_control_fn(libs[1]))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"griffin_train_probe_{mode}.json").write_text(
