@@ -5491,7 +5491,8 @@ RG_BWD_D = 2560
 RG_BWD_CASES = ((8, 256), (1, 4096), (2, 7))
 RG_BWD_RTOL = 1e-5
 # the broken control: the backward with G = g in place of G = a g (the
-# a_{t+1} factor dropped) in block 0, its first 128 channels of batch row 0
+# a_{t+1} factor dropped) in block 0, its first CHANNELS (32) channels of
+# batch row 0
 RGLRU_CONTROL_EDIT = ("G = __fmul_rn(a, g);",
                       "G = blockIdx.x == 0 ? g : __fmul_rn(a, g);")
 # the flash backward at Griffin's heads (H 10, KV 1, D 256): (B, S, window)
@@ -5612,8 +5613,8 @@ def check_rglru_backward(dev, control) -> dict:
     bad = control(*args)
     torch.cuda.synchronize()
     ctl = max(rel_err(g, w) for g, w in zip(bad[:2], want[:2]))
-    rest = max(rel_err(g.reshape(-1, RG_BWD_D)[:, RK.BACKWARD_THREADS:],
-                       w.reshape(-1, RG_BWD_D)[:, RK.BACKWARD_THREADS:])
+    rest = max(rel_err(g.reshape(-1, RG_BWD_D)[:, RK.CHANNELS:],
+                       w.reshape(-1, RG_BWD_D)[:, RK.CHANNELS:])
                for g, w in zip(bad[:2], want[:2]))
     check(ctl > RG_BWD_RTOL, f"the RG-LRU control (a_(t+1) dropped in one "
                              f"block) reads {ctl:.3e}, within {RG_BWD_RTOL}")
@@ -6171,12 +6172,12 @@ WKV_BWD_HEADS = dict(H=64, N=64)
 WKV_BWD_CASES = ((8, 256), (1, 1024), (2, 7))
 WKV_BWD_RTOL = 1e-5
 # the broken control: the adjoint's update without its w_t factor (G <- G +
-# r do^T) in one block, batch row 0's last head (block H - 1: the head of
-# the fastest decays, where live_leaves' w0 runs to -1)
+# r do^T) in one (batch row, head), batch row 0's last head (cluster bh = H
+# - 1, both its blocks: the head of the fastest decays, where live_leaves'
+# w0 runs to -1)
 WKV6_CONTROL_EDIT = (
-    "G[q] = __fadd_rn(__fmul_rn(ww, G[q]), __fmul_rn(rr, dq[q]));",
-    "G[q] = __fadd_rn(blockIdx.x == H - 1 ? G[q] : __fmul_rn(ww, G[q]), "
-    "__fmul_rn(rr, dq[q]));")
+    "G[q] = __fmaf_rn(ww, G[q], __fmul_rn(rr, dq[q]));",
+    "G[q] = __fmaf_rn(bh == H - 1 ? 1.f : ww, G[q], __fmul_rn(rr, dq[q]));")
 # rwkv6-7b at published width (d_model 4096, 64 heads of 64, d_ff 14336,
 # vocab 65536), the depth cut to RWKV_LAYERS of 32: all 32 layers hold 7.53
 # B parameters, ~90 GB under bf16 AdamW (12 B a parameter), beyond the
@@ -6320,7 +6321,8 @@ def check_wkv6_backward(dev, control) -> dict:
     rest = max([rest] + [wkv6_bwd_reading(g[1:], w[1:])
                          for g, w in zip(bad[:4], want[:4])])
     check(min(ctl.values()) > 1.0 and rest <= 1.0,
-          f"the WKV-6 control (w_t dropped from the adjoint in one block) "
+          f"the WKV-6 control (w_t dropped from the adjoint in one (batch "
+          f"row, head)) "
           f"reads {ctl} of the limit there, {rest:.3f} in the other "
           f"blocks")
     say(f"train: wkv6_backward vs wkv6_backward_torch at H 64, N 64, (B, T) "

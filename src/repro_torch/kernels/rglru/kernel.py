@@ -29,10 +29,16 @@ reports the constants it was built with, and one that differs from these
 is refused.
 
 The gradient is a third kernel (:func:`rglru_backward_cuda`, one launch
-of ``rglru_backward_kernel``, op ``repro_torch::rglru_backward``): it
-recomputes the f32 carries and runs the reverse scan, one thread a
-channel (:func:`backward_grid`); ``LAUNCHES["rglru_backward"]`` counts
-it.  ``ops.RGLRUFn`` takes it under autograd.
+of ``rglru_backward_kernel``, op ``repro_torch::rglru_backward``), the
+staged design run twice: blocks of :data:`CHANNELS` channels of one batch
+row (:func:`grid`, :func:`block_channels`), chunks of
+:data:`BACKWARD_CHUNK` steps in a cp.async ring, compute warps for the
+gates and the outputs and one walker warp for the carry and the adjoint
+(:func:`backward_smem_bytes`); the carry entering each chunk is kept in
+dlog_a's first row of the chunk, and each chunk's carries are walked
+again before its adjoint.  ``LAUNCHES["rglru_backward"]`` counts it.
+``ops.RGLRUFn`` takes it under autograd;
+``ref.rglru_backward_chunked_torch`` repeats its order in plain torch.
 
 It replaces ``rglru_pallas`` / ``_rglru_kernel`` of
 ``repro/kernels/rglru/kernel.py``; the source note says what bounds it and
@@ -55,9 +61,15 @@ SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "rglru.cu"
 #: staged block owns, steps staged at a time, chunks in its load ring, and
 #: the longest T the step kernel takes
 CHANNELS, CHUNK, STAGES, STEP_MAX_T = 32, 128, 3, 8
-#: kBwdThreads: threads a block of the backward kernel (one a channel)
-BACKWARD_THREADS = 128
-CONSTANTS = (CHANNELS, CHUNK, STAGES, STEP_MAX_T, BACKWARD_THREADS)
+#: kBwdChunk, kBwdStages and kBwdThreads of csrc/rglru.cu: the backward's
+#: steps a chunk, chunks in its load ring's flight (its raw ring holds
+#: BACKWARD_STAGES + 2 chunks: staged, gated, walked, written), and threads
+#: a block (a walker warp and a compute thread a (quad of steps, channel)
+#: cell of a chunk)
+BACKWARD_CHUNK, BACKWARD_STAGES = 16, 3
+BACKWARD_THREADS = 32 + BACKWARD_CHUNK // 4 * CHANNELS
+CONSTANTS = (CHANNELS, CHUNK, STAGES, STEP_MAX_T, BACKWARD_CHUNK,
+             BACKWARD_STAGES, BACKWARD_THREADS)
 
 #: ``rglru``: forward launches of either route; ``rglru_backward``: the
 #: backward kernel's
@@ -81,21 +93,15 @@ def pick_route(T: int) -> str:
     return "step" if T <= STEP_MAX_T else "staged"
 
 
-def backward_grid(B: int, D: int) -> int:
-    """Blocks of a backward launch: one thread a (batch row, channel),
-    :data:`BACKWARD_THREADS` a block."""
-    return -(-(B * D) // BACKWARD_THREADS)
-
-
 def grid(B: int, D: int) -> int:
-    """Blocks of a staged launch: one per batch row and group of
-    :data:`CHANNELS` channels (the last group ragged)."""
+    """Blocks of a staged launch, and of a backward launch: one per batch
+    row and group of :data:`CHANNELS` channels (the last group ragged)."""
     return B * -(-D // CHANNELS)
 
 
 def block_channels(block: int, D: int) -> tuple[int, int, int]:
     """``(b, d0, d1)``: the batch row and channels ``[d0, d1)`` that staged
-    block ``block`` owns (``blockIdx.x`` in the kernel)."""
+    or backward block ``block`` owns (``blockIdx.x`` in the kernel)."""
     b, g = divmod(block, -(-D // CHANNELS))
     return b, g * CHANNELS, min(D, (g + 1) * CHANNELS)
 
@@ -105,6 +111,14 @@ def smem_bytes(esz: int) -> int:
     load ring (la f32 and gx, STAGES chunks) and a and b (f32) of two
     chunks."""
     return CHUNK * CHANNELS * (STAGES * (4 + esz) + 2 * 8)
+
+
+def backward_smem_bytes(esz: int) -> int:
+    """Dynamic shared memory of a backward block at gx's element size: the
+    raw ring of la (f32), gx and dh (BACKWARD_STAGES + 2 chunks) and three
+    slots of four f32 arrays a chunk (a, b or h_{t-1}, e2, g)."""
+    tile = BACKWARD_CHUNK * CHANNELS
+    return tile * ((BACKWARD_STAGES + 2) * (4 + 2 * esz) + 3 * 4 * 4)
 
 
 def copy_channels(D: int, esz: int, la_addr: int = 0, gx_addr: int = 0
@@ -155,7 +169,8 @@ def _library() -> ctypes.CDLL:
             if tuple(got) != CONSTANTS:
                 raise _build.KernelBuildError(
                     f"librglru was built with (CHANNELS, CHUNK, STAGES, "
-                    f"STEP_MAX_T, BACKWARD_THREADS) = {tuple(got)}, "
+                    f"STEP_MAX_T, BACKWARD_CHUNK, BACKWARD_STAGES, "
+                    f"BACKWARD_THREADS) = {tuple(got)}, "
                     f"kernel.py says {CONSTANTS}")
             _lib = lib
         return _lib

@@ -109,38 +109,47 @@ def rglru_backward_torch(log_a, gx, h0, dh, dhT=None):
 
 
 def rglru_backward_chunked_torch(log_a, gx, h0, dh, dhT=None, *,
-                                 chunk: int = 128):
+                                 chunk: int = 32):
     """:func:`rglru_backward_torch` in the kernel's order
-    (``csrc/rglru.cu:rglru_backward_kernel``): a forward pass that leaves
-    the carry entering each step in dlog_a's buffer, ``chunk`` steps at a
-    time, then a reverse pass over the chunks from the last, each chunk's
-    gates recomputed, its gradients walked from its last step down and its
-    dlog_a written over its carries.  Every element sees the same f32
-    operations as in :func:`rglru_backward_torch`, so the two agree bit
-    for bit."""
+    (``csrc/rglru.cu:rglru_backward_kernel``): a forward pass over the
+    chunks but the last that keeps only the carry entering each chunk, in
+    dlog_a's first row of that chunk, then a reverse pass over the chunks
+    from the last, each chunk's gates recomputed, its carries walked again
+    from its checkpoint, its adjoint walked from its last step down and
+    its dlog_a written over its rows (the checkpoint row among them).
+    Every element sees the same f32 operations as in
+    :func:`rglru_backward_torch`, so the two agree bit for bit."""
     B, T, D = log_a.shape
     la, x = log_a.to(f32), gx.to(f32)
     dla = torch.empty((B, T, D), dtype=f32, device=gx.device)
     dgx = torch.empty((B, T, D), dtype=gx.dtype, device=gx.device)
-    h = (torch.zeros((B, D), dtype=f32, device=gx.device)
-         if h0 is None else h0.to(f32))
-    for t0 in range(0, T, chunk):                       # pass 1
-        sl = slice(t0, min(T, t0 + chunk))
-        a, _, _, _, b = _gates(la[:, sl], x[:, sl])
+    h0f = (torch.zeros((B, D), dtype=f32, device=gx.device)
+           if h0 is None else h0.to(f32))
+    starts = list(range(0, T, chunk))
+    h = h0f
+    for t0 in starts[:-1]:                              # pass 1
+        if t0:
+            dla[:, t0] = h
+        a, _, _, _, b = _gates(la[:, t0:t0 + chunk], x[:, t0:t0 + chunk])
         for s in range(a.shape[1]):
-            dla[:, t0 + s] = h
             h = a[:, s] * h + b[:, s]
+    if len(starts) > 1:
+        dla[:, starts[-1]] = h
     G = (torch.zeros((B, D), dtype=f32, device=gx.device)
          if dhT is None else dhT.to(f32))
     dhf = dh.to(f32)
-    for t0 in reversed(range(0, T, chunk)):              # pass 2
+    for t0 in reversed(starts):                         # pass 2
         sl = slice(t0, min(T, t0 + chunk))
-        a, e2, one_m, c, _ = _gates(la[:, sl], x[:, sl])
+        a, e2, one_m, c, b = _gates(la[:, sl], x[:, sl])
+        h = h0f if t0 == 0 else dla[:, t0].clone()
+        hp = torch.empty_like(a)
+        for s in range(a.shape[1]):
+            hp[:, s] = h
+            h = a[:, s] * h + b[:, s]
         g = torch.empty_like(a)
         for s in range(a.shape[1] - 1, -1, -1):
             g[:, s] = dhf[:, t0 + s] + G
             G = a[:, s] * g[:, s]
-        dla[:, sl], d = _step_grads(g, dla[:, sl].clone(), x[:, sl], a, e2,
-                                    one_m, c)
+        dla[:, sl], d = _step_grads(g, hp, x[:, sl], a, e2, one_m, c)
         dgx[:, sl] = d.to(gx.dtype)
     return dla, dgx, (None if h0 is None else G)

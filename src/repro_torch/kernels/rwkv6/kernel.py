@@ -26,9 +26,12 @@ that differs from these is refused.
 
 The gradient is a kernel of its own, in ``csrc/wkv6_backward.cu``
 (``libwkv6_backward.so``): :func:`wkv6_backward_cuda`, one call of
-``wkv6_backward_kernel`` (a block a (batch row, head), the state's rows
-over its threads, :func:`backward_shape`) and of ``wkv6_du_kernel`` (u's
-gradient summed over the batch rows in order), through the op
+``wkv6_backward_kernel`` (a cluster of :data:`BACKWARD_CLUSTER` blocks a
+(batch row, head), each owning N / BACKWARD_CLUSTER rows of the state,
+:data:`BACKWARD_ROW_LANES` threads a row, dv's column sums merged across
+the cluster in rank order; :func:`backward_shape`,
+:func:`backward_block`) and of ``wkv6_du_kernel`` (u's gradient summed
+over the batch rows in order), through the op
 ``repro_torch::wkv6_backward``; ``LAUNCHES["wkv6_backward"]`` counts it.
 ``ops.WKV6Fn`` takes it under autograd; ``ref.wkv6_backward_torch`` is its
 plain version.
@@ -57,11 +60,16 @@ HEAD_SIZES = (16, 32, 64)
 #: is split over
 TILE_COLS, ROW_SPLIT, CHUNK, BONUS_SPLIT = 16, 8, 16, 8
 CONSTANTS = (TILE_COLS, ROW_SPLIT, CHUNK, BONUS_SPLIT)
-#: kCols and kChunk of csrc/wkv6_backward.cu: columns of the state a
-#: thread owns (one row), and the steps between the forward walk's f32
-#: checkpoints, whose states a thread recomputes into registers
-BACKWARD_COLS, BACKWARD_CHUNK = 8, 8
-BACKWARD_CONSTANTS = (BACKWARD_COLS, BACKWARD_CHUNK)
+#: kRowLanes, kChunk, kInterval and kCluster of csrc/wkv6_backward.cu:
+#: threads a row of the state is split over (N / BACKWARD_ROW_LANES
+#: columns each), the steps whose states a thread walks again into
+#: registers, the steps between the forward walk's f32 checkpoints (an
+#: interval's chunk starts are kept in shared memory), and the blocks of a
+#: (batch row, head)'s cluster, the state's rows split between them
+BACKWARD_ROW_LANES, BACKWARD_CHUNK, BACKWARD_INTERVAL, BACKWARD_CLUSTER = (
+    8, 8, 32, 2)
+BACKWARD_CONSTANTS = (BACKWARD_ROW_LANES, BACKWARD_CHUNK, BACKWARD_INTERVAL,
+                      BACKWARD_CLUSTER)
 
 #: ``wkv6``: forward launches; ``wkv6_backward``: the backward's
 LAUNCHES = {"wkv6": 0, "wkv6_backward": 0}
@@ -96,21 +104,44 @@ def block_tile(block: int, H: int, N: int) -> tuple[int, int, int, int]:
     return b, h, tile * jt, (tile + 1) * jt
 
 
-def backward_shape(N: int) -> tuple[int, int, int]:
-    """``(CG, RW, W)`` of a backward block at head size N: the threads a
-    row of the state is split over (neighbouring lanes, BACKWARD_COLS
-    columns each), the rows a warp holds and the warps a block has (one
-    thread a row and column group: ``N * CG`` threads)."""
-    cg = N // BACKWARD_COLS
-    return cg, 32 // cg, N * cg // 32
+def backward_shape(N: int) -> tuple[int, int, int, int]:
+    """``(NR, cols, RW, W)`` of a backward block at head size N: the rows
+    of the state it owns, the columns a thread owns (one row,
+    BACKWARD_ROW_LANES threads a row on neighbouring lanes), the rows a
+    warp holds and the warps a block has (``NR * BACKWARD_ROW_LANES``
+    threads)."""
+    nr = N // BACKWARD_CLUSTER
+    threads = nr * BACKWARD_ROW_LANES
+    return nr, N // BACKWARD_ROW_LANES, 32 // BACKWARD_ROW_LANES, threads // 32
 
 
-def backward_smem_bytes(N: int) -> int:
-    """Dynamic shared memory of a backward block, in f32: a chunk of r, k,
-    w, v and do staged (5 C N), its bonuses and v . do (2 C), the warps'
-    partial dv (C W N), the rows' dr, dk, dw (3 C N) and u (N)."""
-    C, (_, _, W) = BACKWARD_CHUNK, backward_shape(N)
-    return 4 * (5 * C * N + 2 * C + C * W * N + 3 * C * N + N)
+def backward_block(block: int, H: int, N: int) -> tuple[int, int, int, int]:
+    """``(b, h, i0, i1)``: the batch row, head and rows ``[i0, i1)`` of the
+    state that backward block ``block`` owns (``blockIdx.x``; its rank in
+    the cluster is ``block % BACKWARD_CLUSTER``)."""
+    bh, rank = divmod(block, BACKWARD_CLUSTER)
+    b, h = divmod(bh, H)
+    nr = N // BACKWARD_CLUSTER
+    return b, h, rank * nr, (rank + 1) * nr
+
+
+def backward_grid(B: int, H: int) -> int:
+    """Blocks of a backward launch: a cluster of BACKWARD_CLUSTER a (batch
+    row, head)."""
+    return B * H * BACKWARD_CLUSTER
+
+
+def backward_smem_bytes(N: int, esz: int) -> int:
+    """Dynamic shared memory of a backward block at the inputs' element
+    size ``esz``: the staged chunk of k, w, v, r and do in f32 (5 C N
+    floats), the raw ring of two chunks in the inputs' dtype (2 x 5 C N x
+    esz bytes), the interval's chunk starts of its rows (K / C x NR x N),
+    the warps' dv partials (2 x C W N), the rows' partial dr, dk, dw (3 C
+    NR x row lanes), the chunk's bonuses and v . do (2 C) and u (N)."""
+    C, K, L = BACKWARD_CHUNK, BACKWARD_INTERVAL, BACKWARD_ROW_LANES
+    NR, _, _, W = backward_shape(N)
+    return 4 * (5 * C * N + K // C * NR * N + 2 * C * W * N
+                + 3 * C * NR * L + 2 * C + N) + 2 * 5 * C * N * esz
 
 
 def build() -> Path:
@@ -144,7 +175,8 @@ def bind_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_wkv6_backward_constants(got)
     if tuple(got) != BACKWARD_CONSTANTS:
         raise _build.KernelBuildError(
-            f"libwkv6_backward was built with (cols, chunk) = "
+            f"libwkv6_backward was built with (row lanes, chunk, "
+            f"interval, cluster) = "
             f"{tuple(got)}, kernel.py says {BACKWARD_CONSTANTS}")
     return lib
 
@@ -271,6 +303,10 @@ def _check_backward(r, k, v, w, u, s0, do, dsT) -> None:
             and do.shape == r.shape):
         raise ValueError(f"do must be a contiguous {r.dtype} tensor of "
                          f"shape {tuple(r.shape)} on {r.device}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                             f"backward copies rows 16 bytes at a time)")
     if dsT is not None and not (
             isinstance(dsT, torch.Tensor) and dsT.device == r.device
             and dsT.dtype == torch.float32 and dsT.is_contiguous()
@@ -301,8 +337,8 @@ def backward_launch(lib, r, k, v, w, u, s0, do, dsT):
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty_like(u)
     ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
-    chunks = -(-T // BACKWARD_CHUNK)
-    ckpt = torch.empty((B, H, chunks, N, N), dtype=torch.float32,
+    intervals = -(-T // BACKWARD_INTERVAL)
+    ckpt = torch.empty((B, H, intervals, N, N), dtype=torch.float32,
                        device=r.device)
     du_part = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
     fn = getattr(lib, f"repro_wkv6_backward_{_SUFFIX[r.dtype]}")

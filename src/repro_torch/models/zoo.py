@@ -54,9 +54,11 @@ MoE stacks, each RWKV-6 block, each Griffin group of ``pattern`` (not the
 unrolled tail), each encoder and each decoder block
 (``_maybe_remat``).  On the card the
 attention's gradient runs the hand-written backward kernel
-(``kernels.flash_attention.ops.FlashAttentionFn``); the recurrences have
-no backward kernel yet and raise under autograd on the card (ROADMAP B),
-so RWKV-6 and Griffin train on the CPU only.
+(``kernels.flash_attention.ops.FlashAttentionFn``), and so do the
+recurrences': RWKV-6's through ``kernels.rwkv6.ops.WKV6Fn``
+(``csrc/wkv6_backward.cu``) and Griffin's through
+``kernels.rglru.ops.RGLRUFn`` (``rglru_backward_kernel`` in
+``csrc/rglru.cu``), so both train on the card.
 
 Under sharding ``rules`` (``launch.mesh.rules_for_mesh``) every entry
 point runs on DTensors (``parallel.sharding.sharded``: the plain tensors a

@@ -11,12 +11,15 @@ card only; what it is held against and what surrounds it run here:
     without h0 and dhT, numpy inputs from a seed, each gradient within
     1e-5 of its largest magnitude (sums in another order);
   * ``rglru_backward_chunked_torch`` (the kernel's order: a forward pass
-    leaving the carries in dlog_a's buffer, then the chunks in reverse)
-    bit-equal to the sequential plain backward, f32 and bf16 gx, chunks of
-    the kernel's size and ragged ones;
-  * the backward kernel's constants and grid against the source: one
-    thread a (batch row, channel), ``BACKWARD_THREADS`` a block, the
-    launch covering every channel once;
+    keeping the carry entering each chunk in dlog_a's first row of the
+    chunk, then the chunks in reverse, each chunk's carries walked again
+    from its checkpoint) bit-equal to the sequential plain backward, f32
+    and bf16 gx, chunks of the kernel's size and ragged ones;
+  * the backward kernel's layout against the source: its constants equal
+    the wrapper's, every channel owned by one walker lane of one block,
+    every (step, channel) of a chunk by one compute thread's cell and one
+    copy unit, its shared memory the wrapper's and at most 227 KB (five
+    blocks an SM at bf16), a raw slot alive from its copy to its output;
   * ``rglru_backward_cuda`` raises on CPU tensors and launches nothing;
   * ``RGLRUFn`` on a mocked card (the device test answering "on the
     card", the kernel entries the plain versions run without autograd, as
@@ -103,8 +106,9 @@ def test_plain_backward_matches_jax_vjp_and_autograd(T, with_h0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,chunk", [(300, rk.CHUNK), (7, rk.CHUNK),
-                                     (33, 8), (256, rk.CHUNK)])
+@pytest.mark.parametrize("T,chunk", [(300, rk.BACKWARD_CHUNK),
+                                     (7, rk.BACKWARD_CHUNK), (33, 8),
+                                     (256, rk.BACKWARD_CHUNK)])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_chunked_emulation_bit_equal(dtype, T, chunk, with_h0):
     la, gx, h0, dh, dhT = (_t(a) for a in _inputs(T + chunk, 2, T, D,
@@ -117,22 +121,67 @@ def test_chunked_emulation_bit_equal(dtype, T, chunk, with_h0):
         assert (g is None and w is None) or torch.equal(g, w)
 
 
-def test_backward_constants_and_grid_are_the_sources():
+def _constexprs(esz):
+    """The source's namespace-level ``constexpr int`` constants and
+    ``struct BwdSmem``'s, evaluated in order with ``sizeof(T)`` = esz."""
     text = rk.SOURCE.read_text()
-    threads = int(re.search(r"constexpr int kBwdThreads = (\d+);",
-                            text).group(1))
-    assert threads == rk.BACKWARD_THREADS
-    # one thread a (batch row, channel): c = blockIdx.x * kBwdThreads +
-    # threadIdx.x, b = c / D
-    assert "blockIdx.x * kBwdThreads + threadIdx.x" in text
+    env = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text,
+                                 re.M):
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    body = text[text.index("struct BwdSmem {"):]
+    body = body[:body.index("};")]
+    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);",
+                                 body):
+        expr = expr.replace("(int)sizeof(T)", str(esz)).replace("/", "//")
+        env[name] = eval(expr, {}, dict(env))
+    return text, env
+
+
+def test_backward_constants_and_grid_are_the_sources():
+    text, env = _constexprs(2)
+    assert (env["kChannels"], env["kBwdChunk"], env["kBwdStages"],
+            env["kBwdThreads"]) == (rk.CHANNELS, rk.BACKWARD_CHUNK,
+                                    rk.BACKWARD_STAGES, rk.BACKWARD_THREADS)
+    assert rk.CONSTANTS[4:] == (rk.BACKWARD_CHUNK, rk.BACKWARD_STAGES,
+                                rk.BACKWARD_THREADS)
+    # a raw slot lives from its copy to its output: the stages in flight,
+    # then gated, walked and written
+    assert env["kBwdRing"] == rk.BACKWARD_STAGES + 2
+    for esz in (2, 4):
+        _, e = _constexprs(esz)
+        assert e["kBytes"] == rk.backward_smem_bytes(esz) <= 227 * 1024
+    # the blocks an SM the registers are bounded for fit its shared memory
+    # at bf16 (five: Griffin's 640 blocks in one wave)
+    assert env["kBwdBlocksSM"] * (rk.backward_smem_bytes(2) + 1024) \
+        <= 228 * 1024
+    # the walker warp is warp 0, lane = channel; a compute thread (ct =
+    # threadIdx.x - 32) owns the cell (quad ct / 32, channel ct % 32) and
+    # copies unit ct (step ct / 4, channels 8 (ct % 4) ..) of each chunk
+    assert "const int ch = threadIdx.x, ct = threadIdx.x - 32;" in text
+    assert "const int q = ct / kChannels, ch = ct % kChannels;" in text
+    assert "const int s = ct / kGroups, e = (ct % kGroups) * kUnit;" in text
+    C, W = rk.BACKWARD_CHUNK, rk.CHANNELS
+    cells = np.zeros((C, W), np.int64)
+    units = np.zeros((C, W), np.int64)
+    for ct in range(rk.BACKWARD_THREADS - 32):
+        q, ch = divmod(ct, W)
+        cells[4 * q:4 * q + 4, ch] += 1
+        if ct < env["kBwdUnits"]:
+            s, g = divmod(ct, env["kGroups"])
+            units[s, g * env["kUnit"]:(g + 1) * env["kUnit"]] += 1
+    assert (cells == 1).all() and (units == 1).all()
+    # a block a batch row and CHANNELS channels: every channel once
     for B, Dm in ((8, 2560), (1, 2560), (2, 37), (3, 1)):
-        n = rk.backward_grid(B, Dm)
-        assert (n - 1) * threads < B * Dm <= n * threads
-        seen = np.zeros(B * Dm, np.int64)
-        for blk in range(n):
-            c = blk * threads + np.arange(threads)
-            seen[c[c < B * Dm]] += 1
+        seen = np.zeros((B, Dm), np.int64)
+        for blk in range(rk.grid(B, Dm)):
+            b, d0, d1 = rk.block_channels(blk, Dm)
+            lanes = d0 + np.arange(32)
+            seen[b, lanes[lanes < Dm]] += 1
+            assert d1 - d0 == min(32, Dm - d0)
         assert (seen == 1).all()
+    assert "const long long blocks = B * ((D + kChannels - 1) / kChannels);" \
+        in text
     for sfx in ("bf16", "f32"):
         assert f"int repro_rglru_backward_{sfx}(" in text
 

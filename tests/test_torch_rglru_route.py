@@ -72,11 +72,13 @@ def test_constants_are_the_sources():
     got = {name: int(re.search(rf"constexpr int {name} = (\d+);",
                                text).group(1))
            for name in ("kChannels", "kChunk", "kStages", "kStepMaxT",
-                        "kBwdThreads")}
+                        "kBwdChunk", "kBwdStages")}
     assert got == {"kChannels": rk.CHANNELS, "kChunk": rk.CHUNK,
                    "kStages": rk.STAGES, "kStepMaxT": rk.STEP_MAX_T,
-                   "kBwdThreads": rk.BACKWARD_THREADS}
+                   "kBwdChunk": rk.BACKWARD_CHUNK,
+                   "kBwdStages": rk.BACKWARD_STAGES}
     assert rk.CONSTANTS == (rk.CHANNELS, rk.CHUNK, rk.STAGES, rk.STEP_MAX_T,
+                            rk.BACKWARD_CHUNK, rk.BACKWARD_STAGES,
                             rk.BACKWARD_THREADS)
     # a chunk is whole quads of steps, a block whole units of 8 channels
     assert rk.CHUNK % 16 == 0 and rk.CHANNELS % 8 == 0

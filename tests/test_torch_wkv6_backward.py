@@ -15,8 +15,12 @@ it is held against and what surrounds it run here:
   * the cost the dry-run and the bound count: the work the gradient
     needs, the state walked forward once;
   * the kernel's constants, grid, thread layout and shared memory against
-    the source: one block a (batch row, head), every state element owned
-    by one thread, a row's threads on one warp's neighbouring lanes;
+    the source: a cluster of BACKWARD_CLUSTER blocks a (batch row, head),
+    every state element owned by one thread of one block of the cluster, a
+    row's threads on one warp's neighbouring lanes, each dv column written
+    by one block after the ranks' partials are added in rank order, every
+    staged element copied once, shared memory at most 227 KB (two blocks
+    an SM at bf16, N 64);
   * ``wkv6_backward_cuda`` raises on CPU tensors and launches nothing;
   * ``WKV6Fn`` on a mocked card (the device test answering "on the card",
     the kernel entries the plain versions run without autograd, as a
@@ -171,21 +175,24 @@ def test_plain_backward_in_bf16_rounds_the_f32_gradient_once(T, N, with_s0):
 
 
 def _shape_constants():
-    """``struct Shape``'s constants of the source, evaluated at each N."""
+    """``struct Shape``'s constants of the source, and the namespace's."""
     text = wk.BACKWARD_SOURCE.read_text()
     body = text[text.index("struct Shape {"):]
     body = body[:body.index("};")]
     return text, re.findall(r"static constexpr int (\w+) = ([^;]+);", body)
 
 
-def _eval_shape(N):
+def _eval_shape(N, esz=2):
+    """Shape<T, N>'s constants evaluated at N, with sizeof(T) = esz."""
     text, lines = _shape_constants()
     env = {"N": N}
-    for name in ("kCols", "kChunk"):
+    for name in ("kRowLanes", "kChunk", "kInterval", "kCluster", "kRing",
+                 "kBlocksSM"):
         env[name] = int(re.search(rf"constexpr int {name} = (\d+);",
                                   text).group(1))
     for name, expr in lines:
-        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+        expr = expr.replace("(int)sizeof(T)", str(esz)).replace("/", "//")
+        env[name] = eval(expr, {}, dict(env))
     return env
 
 
@@ -193,26 +200,73 @@ def test_backward_constants_and_grid_are_the_sources():
     text = wk.BACKWARD_SOURCE.read_text()
     for N in wk.HEAD_SIZES:
         env = _eval_shape(N)
-        assert (env["kCols"], env["kChunk"]) == wk.BACKWARD_CONSTANTS
-        assert (env["CG"], env["RW"], env["W"]) == wk.backward_shape(N)
-        assert env["kBytes"] == wk.backward_smem_bytes(N)
-        assert env["kBytes"] <= 227 * 1024
-        # a thread (i, cg): row i, columns [8 cg, 8 cg + 8); every element
-        # once, a row's threads neighbouring lanes of one warp
-        CG, RW, W = wk.backward_shape(N)
-        tid = np.arange(env["kThreads"])
-        i, cg = tid // CG, tid % CG
+        assert (env["kRowLanes"], env["kChunk"], env["kInterval"],
+                env["kCluster"]) == wk.BACKWARD_CONSTANTS
+        NR, KC, RW, W = wk.backward_shape(N)
+        assert (env["NR"], env["kCols"], env["RW"], env["W"]) == (NR, KC,
+                                                                  RW, W)
+        for esz in (2, 4):
+            e = _eval_shape(N, esz)
+            assert e["kBytes"] == wk.backward_smem_bytes(N, esz)
+            assert e["kBytes"] <= 227 * 1024
+        # thread tid of the block of rank q: row q NR + tid / row lanes,
+        # columns [KC cg, KC cg + KC); every element of the state once
+        # across the cluster, a row's lanes neighbouring lanes of one warp
+        L = wk.BACKWARD_ROW_LANES
         seen = np.zeros((N, N), np.int64)
-        for q in range(wk.BACKWARD_COLS):
-            np.add.at(seen, (i, cg * wk.BACKWARD_COLS + q), 1)
+        tid = np.arange(env["kThreads"])
+        i, cg = tid // L, tid % L
+        for blk in range(wk.BACKWARD_CLUSTER):
+            b, h, i0, i1 = wk.backward_block(blk, 3, N)
+            assert (b, h) == (0, 0) and i1 - i0 == NR
+            for q in range(KC):
+                np.add.at(seen, (i0 + i, cg * KC + q), 1)
         assert (seen == 1).all()
-        assert (np.unique(tid // 32 * RW + (tid % 32) // CG) == np.arange(N)
-                ).all() and W * 32 == env["kThreads"]
-        assert ((tid // 32) == (i // RW)).all()
-    assert "const int i = tid / CG, cg = tid % CG, j0 = cg * kCols;" in text
-    # one block a (batch row, head)
-    assert "<<<static_cast<unsigned>(B * H), L::kThreads, L::kBytes," in text
-    assert "bh = blockIdx.x, b = bh / H, h = bh % H;" in text
+        assert ((tid // 32) == (i // RW)).all() and W * 32 == env["kThreads"]
+        # dv: block rank q writes the columns [q N / CL, (q + 1) N / CL) of
+        # each of a chunk's steps, a thread one (step, column)
+        cols = np.zeros((wk.BACKWARD_CHUNK, N), np.int64)
+        for rank in range(wk.BACKWARD_CLUSTER):
+            sv = tid // (N // wk.BACKWARD_CLUSTER)
+            jv = rank * (N // wk.BACKWARD_CLUSTER) + tid % (
+                N // wk.BACKWARD_CLUSTER)
+            live = sv < wk.BACKWARD_CHUNK
+            np.add.at(cols, (sv[live], jv[live]), 1)
+        assert (cols == 1).all()
+        # the staged chunk: copy c of (step, array, kVec elements), every
+        # element of the five arrays' chunk once
+        vec = 16 // 2
+        per_row = N // vec
+        staged = np.zeros((wk.BACKWARD_CHUNK, 5, N), np.int64)
+        for c in range(wk.BACKWARD_CHUNK * 5 * per_row):
+            s, a = c // (5 * per_row), (c // per_row) % 5
+            n = (c % per_row) * vec
+            staged[s, a, n:n + vec] += 1
+        assert (staged == 1).all()
+    # two blocks an SM at rwkv6-7b's bf16 training shape
+    assert 2 * (wk.backward_smem_bytes(64, 2) + 1024) <= 228 * 1024
+    assert "const int i = tid / kRowLanes, cg = tid % kRowLanes, j0 = cg * KC;" \
+        in text
+    assert "const int gi = rank * NR + i;" in text
+    # a cluster of kCluster blocks a (batch row, head), launched B H kCluster
+    assert "__global__ void __cluster_dims__(kCluster, 1, 1)" in text
+    assert "<<<static_cast<unsigned>(B * H * L::CL), L::kThreads, L::kBytes," \
+        in text
+    assert "const long long bh = blockIdx.x / CL, b = bh / H, h = bh % H;" \
+        in text
+    assert "const int rank = static_cast<int>(cluster.block_rank());" in text
+    assert wk.backward_grid(8, 64) == 8 * 64 * wk.BACKWARD_CLUSTER
+    # the merge order: ranks 0 .. CL - 1, each rank's warps 0 .. W - 1,
+    # after a cluster barrier
+    body = text[text.index("    for (int s = C - 1; s >= 0; --s) back(s);"):]
+    assert body.index("cluster.sync();") < body.index("// dv: (step sv")
+    merge = body[body.index("// dv: (step sv"):]
+    merge = merge[:merge.index("store(dv")]
+    assert "for (int q = 0; q < CL; ++q) {" in merge
+    assert "cluster.map_shared_rank(pt, q) + sv * W * N + jv;" in merge
+    assert "for (int x = 0; x < W; ++x) {" in merge
+    assert "acc = q == 0 && x == 0 ? pr[0] : __fadd_rn(acc, pr[x * N]);" \
+        in merge
     for sfx in ("bf16", "f32"):
         assert f"int repro_wkv6_backward_{sfx}(" in text
 

@@ -6,6 +6,7 @@ the full-width gradient.  Run from the root of a checkout:
     python3 tools/griffin_train_probe.py grads      # two minutes
     python3 tools/griffin_train_probe.py time       # a minute
     python3 tools/griffin_train_probe.py train      # three minutes
+    python3 tools/griffin_train_probe.py compare FILE   # half a minute
 
 ``check`` builds ``csrc/rglru.cu`` (with the RG-LRU backward kernel), both
 flash backward kernels and the forward ones, and the RG-LRU control (a copy
@@ -32,6 +33,11 @@ bounds, plain versions and SDPA's backward.
 ``train`` runs ``chip_smoke.family_train`` on ``GRIFFIN_TRAIN``: the
 gradient check, one step against the plain step with its launches, the
 step's time, the CLI's run at cut depth and its bit-equal resume.
+
+``compare FILE`` builds FILE (another version of ``csrc/rglru.cu``, e.g. a
+``git archive`` of another commit's under ``build/``), holds its backward
+bit-equal to this checkout's at Griffin's training shape (bf16) and times
+both in turns (this, other, other, this) in replayed graphs.
 
 Every line ends with the card's name and power limit.  JSON of the
 readings goes to ``chiprun_out/griffin_train_probe_<mode>.json``.
@@ -67,6 +73,34 @@ def grads(dev, card, CS, seeds) -> dict:
         del model, params, batch
         torch.cuda.empty_cache()
     return out
+
+
+def compare(dev, card, CS, path) -> dict:
+    """Another build of ``csrc/rglru.cu`` (``path``) against this
+    checkout's backward kernel at Griffin's training shape: bit-equal
+    outputs, then us a call of each in a replayed graph, in turns."""
+    import statistics
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru import kernel as RK
+    other = CS.rglru_control_fn(_build.build(Path(path), "rglru_other"))
+    B, T = CS.RG_BWD_CASES[0]
+    args = CS.rglru_bwd_inputs(dev, B, T, torch.bfloat16, False,
+                               CS.SEED + 3)
+    fns = {"this": lambda: RK.rglru_backward_cuda(*args),
+           "other": lambda: other(*args)}
+    equal = all(torch.equal(a, b) for a, b in zip(fns["this"](),
+                                                  fns["other"]())
+                if a is not None)
+    turns = {"this": [], "other": []}
+    for name in ("this", "other", "other", "this"):
+        turns[name].append(CS.graph_ms(fns[name], (), dev, 10) * 1e3)
+    out = {name: statistics.mean(x) for name, x in turns.items()}
+    CS.say(f"compare: rglru_backward at (B {B}, T {T}, D {CS.RG_BWD_D}, "
+           f"bf16), us a call in a replayed graph: this checkout "
+           f"{turns['this']}, {path} {turns['other']}; outputs bit-equal "
+           f"{equal} [{card}]")
+    return dict(turns_us=turns, mean_us=out, bit_equal=equal, other=path)
 
 
 def main() -> int:
@@ -110,6 +144,8 @@ def main() -> int:
     elif mode == "train":
         rec["train"] = CS.family_train(CS.GRIFFIN_TRAIN, dev, card,
                                        CS.rglru_control_fn(libs[1]))
+    elif mode == "compare":
+        rec["compare"] = compare(dev, card, CS, sys.argv[2])
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"griffin_train_probe_{mode}.json").write_text(

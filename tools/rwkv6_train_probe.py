@@ -48,8 +48,10 @@ width and ``RWKV_CLI_LAYERS`` deep counted on real and on fake tensors.
 
 ``compare FILE`` builds FILE (another version of
 ``csrc/wkv6_backward.cu``, e.g. a ``git archive`` of another commit's
-under ``build/``), holds it bit-equal to this checkout's kernel at
-rwkv6-7b's training shape and times both in turns.
+under ``build/``, whatever its layout's constants), reads each output of
+the two kernels against each other at rwkv6-7b's training shape in units
+of the card's limit (``chip_smoke.wkv6_bwd_reading``; sums in another
+order differ within it) and times both in turns.
 
 Every line ends with the card's name and power limit.  JSON of the
 readings goes to ``chiprun_out/rwkv6_train_probe.json``.
@@ -142,17 +144,49 @@ def step(dev, card, CS, layers) -> dict:
                 peak_reserved=reserved)
 
 
+def other_backward(lib_path):
+    """The bf16 backward of another build of ``csrc/wkv6_backward.cu``,
+    called as ``wkv6_backward_cuda`` is, whatever constants it was built
+    with: its checkpoint scratch is allocated for a checkpoint every 8
+    steps, the finest any of its layouts takes."""
+    import ctypes
+    lib = ctypes.CDLL(str(lib_path))
+    vp, ll = ctypes.c_void_p, ctypes.c_longlong
+    fn = lib.repro_wkv6_backward_bf16
+    fn.argtypes = [vp] * 16 + [ll] * 4 + [vp]
+    fn.restype = ctypes.c_int
+
+    def run(r, k, v, w, u, s0, do, dsT=None):
+        B, T, H, N = r.shape
+        outs = [torch.empty_like(r) for _ in range(4)]
+        du = torch.empty_like(u)
+        ds0 = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+        ckpt = torch.empty((B, H, -(-T // 8), N, N), dtype=torch.float32,
+                           device=r.device)
+        du_part = torch.empty((B, H, N), dtype=torch.float32,
+                              device=r.device)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        err = fn(*(ptr(t) for t in (r, k, v, w, u, s0, do, dsT, *outs, du,
+                                    ds0, ckpt, du_part)), B, T, H, N,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the other backward's launch failed ({err})")
+        return (*outs, du, None if s0 is None else ds0)
+
+    return run
+
+
 def compare(dev, card, CS, path) -> dict:
     """Another build of the backward's source (``path``, e.g. an earlier
     version unpacked under ``build/``) against this checkout's kernel at
-    rwkv6-7b's training shape: bit-equal outputs, then us a call of each in
-    a replayed graph, in turns (this, other, other, this)."""
+    rwkv6-7b's training shape: each output's reading against the other's
+    in units of the limit, then us a call of each in a replayed graph, in
+    turns (this, other, other, this)."""
     import statistics
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.rwkv6 import kernel as WK
-    other = CS.wkv6_control_fn(_build.build(Path(path),
-                                            "wkv6_backward_other"))
+    other = other_backward(_build.build(Path(path), "wkv6_backward_other"))
     B, T = CS.WKV_BWD_CASES[0]
     r, k, v, w, u, _, do, _ = CS.wkv6_bwd_inputs(dev, B, T, torch.bfloat16,
                                                  False, CS.SEED + 3)
@@ -160,18 +194,20 @@ def compare(dev, card, CS, path) -> dict:
     args = (r, k, v, w, u, None, do, torch.zeros(B, H, N, N, device=dev))
     fns = {"this": lambda: WK.wkv6_backward_cuda(*args),
            "other": lambda: other(*args)}
-    equal = all(torch.equal(a, b) for a, b in zip(fns["this"](),
-                                                  fns["other"]())
-                if a is not None)
+    names = ("dr", "dk", "dv", "dw", "du")
+    readings = {name: CS.wkv6_bwd_reading(a, b) for name, a, b in
+                zip(names, fns["this"](), fns["other"]())}
     turns = {"this": [], "other": []}
     for name in ("this", "other", "other", "this"):
         turns[name].append(CS.graph_ms(fns[name], (), dev, 10) * 1e3)
     out = {name: statistics.mean(t) for name, t in turns.items()}
     CS.say(f"compare: wkv6_backward at (B {B}, T {T}, H {H}, N {N}, bf16), "
            f"us a call in a replayed graph: this checkout "
-           f"{turns['this']}, {path} {turns['other']}; outputs bit-equal "
-           f"{equal} [{card}]")
-    return dict(turns_us=turns, mean_us=out, bit_equal=equal, other=path)
+           f"{turns['this']}, {path} {turns['other']}; each output against "
+           f"the other's, in units of the limit: "
+           + ", ".join(f"{n} {x:.3f}" for n, x in readings.items())
+           + f" [{card}]")
+    return dict(turns_us=turns, mean_us=out, readings=readings, other=path)
 
 
 def main() -> int:
