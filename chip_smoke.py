@@ -19,7 +19,8 @@ non-zero):
               spills (``-Xptxas -v``) of the arena kernels (accum among
               them), the WKV-6 and RG-LRU kernels (the RG-LRU backward
               among them) and the four newer flash kernels (both backward
-              kernels at D 64 and 256), the card's name and power limit;
+              kernels at D 64, 128 and 256), the card's name and power
+              limit;
 2. kernels -- hold each arena kernel against its plain PyTorch version on
               the card.  write and read (one vectorised byte copy split by
               ``copy_plan``), f32 and u8: every destination phase x source
@@ -304,7 +305,28 @@ non-zero):
               one step with exactly 2L ``wkv6`` and L ``wkv6_backward``,
               the step's time and peaks, the CLI at RWKV_CLI_LAYERS and
               its bit-equal resume); the backward timed beside its bound
-              and plain version.
+              and plain version.  Then the dense and MoE decoders
+              (``decoders_train``): both flash backward kernels at (128,
+              128), the heads of starcoder2-7b (G 9 over KV 4) and
+              granite-20b (G 48 over one KV head), (B, S) in BWD_CASES,
+              without a window and with D128_WINDOW, f32 within 1e-4,
+              bf16 within 4 ulps, two tensor-core runs bit-equal, KV head
+              0's dK zeroed above the limit, ``FlashAttentionFn`` at D 128
+              against autograd; starcoder2-7b (STARCODER2_LAYERS of 32
+              layers), granite-moe-3b-a800m (all 32; its gradient check
+              with the kernels' runs forced to the plain run's expert ids,
+              gates their own, the flips printed) and gemma-7b
+              (GEMMA_LAYERS of 28) at published width through the same
+              steps (``family_train``: the gradient within the family's
+              DECODER_GRAD_RTOL, the last layer's dK zeroed above it, one
+              step with exactly 2L ``flash_prefill`` and L
+              ``flash_backward``, all on the tensor-core route, its time
+              and peaks, the CLI at DECODER_CLI_LAYERS and its bit-equal
+              resume); granite-20b's and chameleon-34b's gradient checks
+              alone at 2 layers (``family_grads``); the (128, 128)
+              backward at the three models' heads timed beside its bound,
+              its plain version and SDPA's backward, the block's seconds
+              by part.
 
 11. a7     -- (run after phase 7's decoders) this slice's families:
               first each new attention shape, bf16 and f32, through the
@@ -2494,20 +2516,27 @@ class RouteLog:
     """The MoE's routing over eager forwards: while open, every
     ``moe_dispatch`` of ``repro_torch.models.layers`` records its own
     top-K experts and their gates (``routes``, one ``(idx, gate)`` pair of
-    ``(G, N, K)`` tensors a call) and each token's top-K margin, the K-th
-    minus the (K+1)-th router probability (``margin``).  With ``force``
-    (the ``routes`` of another run, call by call) each call takes the
-    forced experts and the forced gates instead of its own, and counts
-    the tokens whose own top-K set differs from the forced one (a flip)
-    with their margins.  A flip swaps one expert's output for another's,
-    and a gate computed from another run's router carries that run's
-    rounding into the expert mix: forcing one run's routing and gates on
-    the other keeps both out of a comparison of the kernels, and the
-    flips are counted beside it.  Captured replays run no Python and
-    record nothing."""
+    ``(G, N, K)`` tensors a call, the gates detached) and each token's
+    top-K margin, the K-th minus the (K+1)-th router probability
+    (``margin``).  With ``force`` (the ``routes`` of another run, call by
+    call) each call takes the forced experts and the forced gates instead
+    of its own, and counts the tokens whose own top-K set differs from the
+    forced one (a flip) with their margins.  A flip swaps one expert's
+    output for another's, and a gate computed from another run's router
+    carries that run's rounding into the expert mix: forcing one run's
+    routing and gates on the other keeps both out of a comparison of the
+    kernels, and the flips are counted beside it.  The training form,
+    ``own_gates``, forces the expert ids alone: the gates are this run's
+    router probabilities at the forced ids, normalised over the K as
+    ``moe_route`` normalises them, so the router's gradient flows in
+    both runs (forced with its own ids, a run gives its own bits).  Calls
+    are forced in order, a block that ``remat`` runs again in the
+    backward included.  Captured replays run no Python and record
+    nothing."""
 
-    def __init__(self, force=None):
+    def __init__(self, force=None, own_gates=False):
         self.force = None if force is None else iter(force)
+        self.own_gates = own_gates
         self.routes, self.margin, self.flip_margins = [], [], []
         self.flips = 0
 
@@ -2525,14 +2554,17 @@ class RouteLog:
         top = torch.topk(probs, K + 1, dim=-1).values
         margin = top[..., K - 1] - top[..., K]
         gate, idx = L.moe_route(probs, K)
-        self.routes.append((idx, gate))
-        self.margin.append(margin)
+        self.routes.append((idx, gate.detach()))
+        self.margin.append(margin.detach())
         if self.force is not None:
             want, want_gate = next(self.force)
             flip = (idx.sort(-1).values != want.sort(-1).values).any(-1)
             self.flips += int(flip.sum())
             self.flip_margins += margin[flip].tolist()
             idx, gate = want, want_gate
+            if self.own_gates:
+                g = torch.gather(probs, -1, want)
+                gate = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
         return (gate, idx, *L.moe_slots(idx, cfg, capacity_factor))
 
     def rows(self, b):
@@ -2549,8 +2581,8 @@ class RouteLog:
                     max_flip_margin=max(self.flip_margins, default=0.0))
 
 
-def _routed(moe, force=None):
-    return RouteLog(force) if moe else contextlib.nullcontext()
+def _routed(moe, force=None, own_gates=False):
+    return RouteLog(force, own_gates) if moe else contextlib.nullcontext()
 
 
 # deliberately broken flash kernels that a decoder's logit checks must
@@ -5638,37 +5670,39 @@ def bwd_reading(g, w, dtype) -> float:
     return e / bwd_tol(w, dtype) * lim
 
 
-def check_flash_backward_griffin(dev) -> dict:
-    """Both flash backward kernels at Griffin's heads (H 10, KV 1, (256,
-    256)) with a window, every case of GRIFFIN_BWD_CASES, bf16 and f32:
-    the forward's o (routed, with the window) against ``_flash_torch``,
-    then dq, dk, dv against ``flash_attention_backward_torch`` (f32 within
-    1e-4 of each gradient's largest, bf16 within 4 ulps of it): the
-    tensor-core kernel in bf16 (two runs bit-equal), the CUDA-core kernel
-    in both.  Controls: each kernel with the window one key too wide,
-    read wherever the window bites, must read above the limit in
-    GRIFFIN_CONTROL_CASES.  Then ``FlashAttention
-    Fn`` with a window against autograd of the plain forward (f32 at (2,
-    256, 64), bf16 at (8, 256, 100)).  Returns the readings."""
+def check_flash_backward_cases(dev, label, cases, control, control_said,
+                               held, functions) -> dict:
+    """Both flash backward kernels at each ``(heads, B, S, window)`` of
+    ``cases`` (``heads`` ``attn_inputs``' H, KV and D), bf16 and f32: the
+    forward's o (routed, with the window) against ``_flash_torch``, then
+    dq, dk, dv against ``flash_attention_backward_torch`` (f32 within
+    BWD_RTOL32 of each gradient's largest, bf16 within BWD_ULPS16 ulps of
+    it): the tensor-core kernel in bf16 (two runs bit-equal), the CUDA-core
+    kernel in both.  ``control(kname, fn, args, window, S, got)`` gives a
+    broken output of a case's kernel (None: none), read against the plain
+    version; it must read above the limit wherever ``held(key)``.  Then
+    ``FlashAttentionFn`` against autograd of the plain forward at each
+    ``(heads, B, S, window, dtype)`` of ``functions``.  Returns the
+    readings."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention,
         flash_attention_backward_torch,
     )
-    hd = GRIFFIN_HEADS
     worst = {"forward": 0.0, "sm90_bf16_ulps": 0.0, "simple_bf16_ulps": 0.0,
              "simple_f32_rel": 0.0, "function_f32_rel": 0.0,
              "function_bf16_ulps": 0.0, "max_abs_err": 0.0}
     controls = {}
-    for B, S, w in GRIFFIN_BWD_CASES:
+    for hd, B, S, w in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + S + w, **hd)
+            q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + S + (w or 0),
+                                      **hd)
+            what = f"H {hd['H']}, KV {hd['KV']}, ({B}, {S}, {w})"
             o = FK.flash_attention_cuda(q, k, v, causal=True, window=w,
                                         q_start=0, kv_len=S)
             e, ok = fa_err(o, flash_attention(q, k, v, causal=True,
                                               window=w, impl="torch"))
-            check(ok, f"flash forward (B {B}, S {S}, window {w}, {dtype}): "
-                      f"max abs err {e}")
+            check(ok, f"flash forward ({what}, {dtype}): max abs err {e}")
             worst["forward"] = max(worst["forward"], e)
             want = flash_attention_backward_torch(q, k, v, o, do, window=w)
             kernels = {"simple": FK.flash_backward_simple_cuda}
@@ -5683,9 +5717,8 @@ def check_flash_backward_griffin(dev) -> dict:
                     check(g.dtype == ww.dtype and g.shape == ww.shape,
                           f"flash_backward {name}: {g.dtype}")
                     r = bwd_reading(g, ww, dtype)
-                    check(r <= lim, f"flash_backward ({kname}) {name} (B {B},"
-                                    f" S {S}, window {w}, {dtype}): {r:.3e} "
-                                    f"> {lim}")
+                    check(r <= lim, f"flash_backward ({kname}) {name} ("
+                                    f"{what}, {dtype}): {r:.3e} > {lim}")
                     worst[f"{kname}_{tag}"] = max(worst[f"{kname}_{tag}"], r)
                     worst["max_abs_err"] = max(
                         worst["max_abs_err"],
@@ -5693,30 +5726,26 @@ def check_flash_backward_griffin(dev) -> dict:
                 if kname == "sm90":
                     again = fn(q, k, v, o, do, window=w)
                     check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                          f"flash_backward (sm90) (B {B}, S {S}, window "
-                          f"{w}): two runs differ")
-                if w < S:               # the window bites: one key too wide
-                    bad = fn(q, k, v, o, do, window=w + 1)
+                          f"flash_backward (sm90) ({what}): two runs differ")
+                bad = control(kname, fn, (q, k, v, o, do), w, S, got)
+                if bad is not None:
                     torch.cuda.synchronize()
-                    controls[f"{kname} {dtype} ({B}, {S}, {w})"] = max(
-                        bwd_reading(g, ww, dtype)
-                        for g, ww in zip(bad, want))
+                    controls[f"{kname} {dtype} {what}"] = max(
+                        bwd_reading(g, ww, dtype) for g, ww in zip(bad, want))
             del q, k, v, do, o, want
     for key, r in controls.items():
         lim = BWD_RTOL32 if "float32" in key else BWD_ULPS16
-        check(r > lim or not any(str(c) in key
-                                 for c in GRIFFIN_CONTROL_CASES),
-              f"flash_backward control {key} (window one key too wide) "
-              f"reads {r:.3e}, within {lim}")
-    for (B, S, w), dtype in (((2, 256, 64), torch.float32),
-                             ((8, 256, 100), torch.bfloat16)):
+        check(r > lim or not held(key),
+              f"flash_backward control {key} ({control_said}) reads "
+              f"{r:.3e}, within {lim}")
+    for hd, B, S, w, dtype in functions:
         q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + 2, **hd)
-        for t in (q, k, v):
-            t.requires_grad_(True)
+        for x in (q, k, v):
+            x.requires_grad_(True)
         o = flash_attention(q, k, v, causal=True, window=w)
         check(o.grad_fn is not None and "FlashAttentionFn" in
-              type(o.grad_fn).__name__, f"windowed flash_attention under "
-                                        f"autograd: grad_fn {o.grad_fn}")
+              type(o.grad_fn).__name__, f"flash_attention under autograd "
+                                        f"(window {w}): grad_fn {o.grad_fn}")
         got = torch.autograd.grad(o, (q, k, v), do)
         ref = flash_attention(q, k, v, causal=True, window=w, impl="torch")
         want = torch.autograd.grad(ref, (q, k, v), do)
@@ -5726,21 +5755,39 @@ def check_flash_backward_griffin(dev) -> dict:
         for name, g, ww in zip(("dq", "dk", "dv"), got, want):
             r = bwd_reading(g, ww, dtype)
             worst[key] = max(worst[key], r)
-            check(r <= lim, f"FlashAttentionFn {name} (B {B}, S {S}, window "
-                            f"{w}, {dtype}) vs autograd: {r:.3e} > {lim}")
-    say(f"train: flash backward at Griffin's heads (H 10, KV 1, D 256), "
-        f"(B, S, window) in {GRIFFIN_BWD_CASES}: o max abs err "
-        f"{worst['forward']:.3e}; the tensor-core kernel "
-        f"{worst['sm90_bf16_ulps']:.2f} bf16 ulps of each gradient's largest"
-        f" (limit {BWD_ULPS16}; two runs bit-equal), the CUDA-core kernel "
-        f"{worst['simple_bf16_ulps']:.2f} ulps in bf16 and "
+            check(r <= lim, f"FlashAttentionFn {name} (H {hd['H']}, B {B}, "
+                            f"S {S}, window {w}, {dtype}) vs autograd: "
+                            f"{r:.3e} > {lim}")
+    say(f"train: flash backward at {label}, {len(cases)} cases (heads, B, "
+        f"S, window): o max abs err {worst['forward']:.3e}; the tensor-core "
+        f"kernel {worst['sm90_bf16_ulps']:.2f} bf16 ulps of each gradient's "
+        f"largest (limit {BWD_ULPS16}; two runs bit-equal), the CUDA-core "
+        f"kernel {worst['simple_bf16_ulps']:.2f} ulps in bf16 and "
         f"{worst['simple_f32_rel']:.3e} of the largest in f32 (limit "
-        f"{BWD_RTOL32}); the window one key too wide reads "
+        f"{BWD_RTOL32}); {control_said} reads "
         + ", ".join(f"{k} {r:.3g}" for k, r in controls.items())
-        + f"; FlashAttentionFn with a window vs autograd: f32 "
+        + f"; FlashAttentionFn vs autograd: f32 "
         f"{worst['function_f32_rel']:.3e}, bf16 "
         f"{worst['function_bf16_ulps']:.2f} ulps")
-    return dict(worst, controls=controls)
+    return dict(worst, controls=controls, cases=len(cases))
+
+
+def check_flash_backward_griffin(dev) -> dict:
+    """``check_flash_backward_cases`` at Griffin's heads (H 10, KV 1, (256,
+    256)), every case of GRIFFIN_BWD_CASES (a window each).  The control:
+    each kernel with the window one key too wide, read wherever the window
+    bites, must read above the limit in GRIFFIN_CONTROL_CASES.
+    ``FlashAttentionFn`` with a window: f32 at (2, 256, 64), bf16 at (8,
+    256, 100)."""
+    hd = GRIFFIN_HEADS
+    return check_flash_backward_cases(
+        dev, "Griffin's heads (H 10, KV 1, D 256)",
+        [(hd, B, S, w) for B, S, w in GRIFFIN_BWD_CASES],
+        lambda kname, fn, args, w, S, got: (fn(*args, window=w + 1)
+                                            if w < S else None),
+        "the window one key too wide",
+        lambda key: any(str(c) in key for c in GRIFFIN_CONTROL_CASES),
+        [(hd, 2, 256, 64, torch.float32), (hd, 8, 256, 100, torch.bfloat16)])
 
 
 # recurrentgemma-2b at full width: the gradient through the kernels against
@@ -5830,8 +5877,12 @@ def family_grad_compare(fam, model, params, batch, control) -> dict:
     kernel's module, its wrapper, the control library's call or None for
     the wrapper's second output (dk) zeroed), each breaking the first
     launch alone.  Each reading is ``worst_grad_err``'s (stacked leaves by
-    layer) over all leaves and over ``fam["group"]``'s.  Launches here are
-    outside the counted runs."""
+    layer) over all leaves and over ``fam["group"]``'s.  For an MoE the
+    plain run's expert ids are recorded and forced on each run through the
+    kernels (``RouteLog(..., own_gates=True)``: the gates from that run's
+    own router, whose gradient flows), its flips and their largest top-K
+    margin recorded (``routing``).  Launches here are outside the counted
+    runs."""
     paths = leaf_paths(params)
     L = model.cfg.n_layers
     groups = {"all": [True] * len(paths),
@@ -5847,10 +5898,23 @@ def family_grad_compare(fam, model, params, batch, control) -> dict:
                                        stacked=fam["stacked"])
         return out
 
-    loss_p, want = loss_grads(model, params, batch, "torch")
+    moe = bool(model.cfg.n_experts)
+    with _routed(moe) as plain_log:
+        loss_p, want = loss_grads(model, params, batch, "torch")
     norm_p = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                   for g in want)))
-    loss_k, got = loss_grads(model, params, batch, "auto")
+
+    def routed():
+        return _routed(moe, plain_log.routes if moe else None, True)
+
+    with routed() as log:
+        loss_k, got = loss_grads(model, params, batch, "auto")
+    routing = None
+    if moe:
+        check(len(log.routes) == len(plain_log.routes),
+              f"the kernels' run dispatched {len(log.routes)} times, the "
+              f"plain run {len(plain_log.routes)}")
+        routing = log.summary()
     readings = {"sound": err(got, want)}
     del got
     for name, mod, attr, lib in fam["controls"](control):
@@ -5868,14 +5932,15 @@ def family_grad_compare(fam, model, params, batch, control) -> dict:
 
         setattr(mod, attr, broken)
         try:
-            _, bad = loss_grads(model, params, batch, "auto")
+            with routed():
+                _, bad = loss_grads(model, params, batch, "auto")
         finally:
             setattr(mod, attr, kernel)
         readings[name] = err(bad, want)
         del bad
     return dict(readings=readings, n_leaves=len(paths), layers=L,
                 loss_kernels=float(loss_k), loss_plain=float(loss_p),
-                grad_norm_plain=norm_p)
+                grad_norm_plain=norm_p, routing=routing)
 
 
 def check_family_grads(fam, rec: dict):
@@ -5892,7 +5957,13 @@ def check_family_grads(fam, rec: dict):
             f"{r[name][g][0]:.3e} at {r[name][g][1]}" for g in ("all", group))
                               for name in ["sound"] + names)
         + f" ({fam['controls_said']}); loss {rec['loss_kernels']} vs "
-          f"{rec['loss_plain']}")
+          f"{rec['loss_plain']}"
+        + ("" if rec["routing"] is None else
+           f"; the kernels' runs routed as the plain run (expert ids "
+           f"forced, gates their own): {rec['routing']['flips']} of "
+           f"{rec['routing']['routed']} routed (token, layer) pairs "
+           f"flipped, the largest flip's top-K margin "
+           f"{rec['routing']['max_flip_margin']:.3e}"))
     got, at = r["sound"]["all"]
     check(got <= rtol, f"{arch}'s gradient through the kernels is {got} (at "
                        f"{at}) from the plain versions', above {rtol}")
@@ -6051,36 +6122,93 @@ def backward_graph_ms(fwd, inputs, grad, dev, reps=10) -> float:
     return start.elapsed_time(end) / (reps * A7_GRAPH_CALLS)
 
 
-def time_griffin_kernels(dev, card) -> dict:
-    """The new backward kernels at Griffin's training shapes, bf16: each
-    kernel by ``graph_ms`` and SDPA's backward by ``backward_graph_ms``
-    (CUDA events around replays of a CUDA graph of its calls: the device's
-    time, no host issue and no trace, which loses events late in this
-    script), the plain versions (and SDPA's backward again) by
-    ``event_us`` (CUDA events around each eager call: the host's issue
-    included, as they run).  The RG-LRU backward at (B 8, T 256, D 2560)
-    beside its bound and plain version (no torch call computes it); the
-    flash backward at (B 8, S 256, window 2048: the window does not bite)
-    and (B 1, S 4096, window 2048), the tensor-core kernel (bf16's route)
-    and the CUDA-core one in turns, beside the bound
-    (``costs.flash_backward_cost`` with the window), the plain version and
-    SDPA's backward of the same function (causal at S 256; at S 4096 the
-    window as a boolean mask; the kernels it ran named from a trace)."""
+def time_flash_backward(dev, card, label, B, S, hd, w=None) -> dict:
+    """The flash backward at (B, S) and ``hd``'s heads, bf16, with the
+    window ``w`` (or none): the tensor-core kernel (bf16's route) and the
+    CUDA-core one in turns by ``graph_ms`` (CUDA events around replays of
+    a CUDA graph of its calls: the device's time, no host issue and no
+    trace, which loses events late in this script), SDPA's backward of the
+    same function by ``backward_graph_ms`` (causal, or the window as a
+    boolean mask where it bites; the kernels it ran named from a trace),
+    the plain version and SDPA's backward again by ``event_us`` (CUDA
+    events around each eager call: the host's issue included), beside the
+    bound (``costs.flash_backward_cost`` with the window)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_backward_torch,
     )
+    ms = lambda fn, reps: event_us(fn, reps) / 1e3  # noqa: E731
+    q, k, v, do = attn_inputs(dev, B, S, torch.bfloat16, SEED + 4, **hd)
+    o = FK.flash_attention_cuda(q, k, v, causal=True, window=w, q_start=0,
+                                kv_len=S)
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    masked = w is not None and w < S
+    sdpa_kw = (dict(attn_mask=window_mask(S, 0, S, w, dev)) if masked
+               else dict(is_causal=True))
+
+    def sdpa_fwd(qs, ks, vs):
+        return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                              **sdpa_kw)
+
+    so = sdpa_fwd(qs, ks, vs)
+    dos = do.transpose(1, 2)
+    fns = {
+        "simple": lambda: FK.flash_backward_simple_cuda(q, k, v, o, do,
+                                                        window=w),
+        "kernel": lambda: FK.flash_backward_cuda(q, k, v, o, do, window=w),
+        "plain": lambda: flash_attention_backward_torch(q, k, v, o, do,
+                                                        window=w),
+        "sdpa": lambda: torch.autograd.grad(so, (qs, ks, vs), dos,
+                                            retain_graph=True),
+    }
+    turns = {"simple": [], "kernel": []}
+    for i in ("kernel", "simple", "simple", "kernel"):
+        turns[i].append(graph_ms(fns[i], (), dev, 10 if i == "kernel" else 1))
+    tb = {i: statistics.mean(x) for i, x in turns.items()}
+    tb.update(plain=ms(fns["plain"], 3),
+              sdpa=backward_graph_ms(sdpa_fwd, (qs, ks, vs), dos, dev),
+              sdpa_eager=ms(fns["sdpa"], 10))
+    backend = kernel_names(fns["sdpa"])
+    flops, nbytes = costs.flash_backward_cost(B, S, hd["H"], hd["KV"],
+                                              hd["D"], 2, window=w)
+    bound = (nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3)
+    out = dict(shape=[B, S, hd["H"], hd["KV"], hd["D"], w], ms=tb["kernel"],
+               simple_ms=tb["simple"], turns_ms=turns, plain_ms=tb["plain"],
+               library_ms=tb["sdpa"], sdpa_kernels=backend,
+               library_eager_ms=tb["sdpa_eager"], bound_ms=max(bound),
+               bound_by="bytes" if bound[0] >= bound[1] else "operations")
+    say(f"timing: flash backward at {label} (B {B}, S {S}, H {hd['H']}, KV "
+        f"{hd['KV']}, D {hd['D']}, window {w}, bf16), us per call in a "
+        f"replayed graph: tensor-core kernel {tb['kernel'] * 1e3:.2f} (in "
+        f"turns {turns['kernel'][0] * 1e3:.2f}, "
+        f"{turns['kernel'][1] * 1e3:.2f}), CUDA-core kernel "
+        f"{tb['simple'] * 1e3:.2f}, bound {max(bound) * 1e3:.3f} "
+        f"({out['bound_by']}; {nbytes} bytes {bound[0] * 1e3:.3f}, {flops} "
+        f"operations {bound[1] * 1e3:.3f}), SDPA's backward "
+        f"{tb['sdpa'] * 1e3:.2f} ({'boolean mask' if masked else 'causal'};"
+        f" its kernels {[n[:60] for n in backend or []]}); eager, CUDA "
+        f"events: plain {tb['plain'] * 1e3:.2f}, SDPA's backward "
+        f"{tb['sdpa_eager'] * 1e3:.2f} [{card}]")
+    return out
+
+
+def time_griffin_kernels(dev, card) -> dict:
+    """The new backward kernels at Griffin's training shapes, bf16: the
+    RG-LRU backward at (B 8, T 256, D 2560) by ``graph_ms`` beside its
+    bound and plain version (``event_us``; no torch call computes it); the
+    flash backward (``time_flash_backward``) at (B 8, S 256, window 2048:
+    the window does not bite) and (B 1, S 4096, window 2048)."""
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.rglru.ref import rglru_backward_torch
-    ms = lambda fn, reps: event_us(fn, reps) / 1e3  # noqa: E731
-    graphed = lambda fn, reps: graph_ms(fn, (), dev, reps)  # noqa: E731
     out = {}
     B, T = RG_BWD_CASES[0]
     args = rglru_bwd_inputs(dev, B, T, torch.bfloat16, False, SEED + 3)
-    t = {"kernel": graphed(lambda: RK.rglru_backward_cuda(*args), 10),
-         "plain": ms(lambda: rglru_backward_torch(*args), 3)}
+    t = {"kernel": graph_ms(lambda: RK.rglru_backward_cuda(*args), (), dev,
+                            10),
+         "plain": event_us(lambda: rglru_backward_torch(*args), 3) / 1e3}
     flops, nbytes = costs.rglru_backward_cost(B, T, RG_BWD_D, 2)
     bound = (nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3)
     out["rglru_backward"] = dict(
@@ -6092,65 +6220,9 @@ def time_griffin_kernels(dev, card) -> dict:
         f"{max(bound) * 1e3:.3f} (bytes {bound[0] * 1e3:.3f}, operations "
         f"{bound[1] * 1e3:.3f}), plain {t['plain'] * 1e3:.2f} (eager, CUDA "
         f"events), no torch call [{card}]")
-    hd = GRIFFIN_HEADS
     for B, S, w in GRIFFIN_BWD_CASES[:2]:
-        q, k, v, do = attn_inputs(dev, B, S, torch.bfloat16, SEED + 4, **hd)
-        o = FK.flash_attention_cuda(q, k, v, causal=True, window=w,
-                                    q_start=0, kv_len=S)
-        qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
-                      for x in (q, k, v))
-        sdpa_kw = (dict(attn_mask=window_mask(S, 0, S, w, dev)) if w < S
-                   else dict(is_causal=True))
-
-        def sdpa_fwd(qs, ks, vs):
-            return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
-                                                  **sdpa_kw)
-
-        so = sdpa_fwd(qs, ks, vs)
-        dos = do.transpose(1, 2)
-        fns = {
-            "simple": lambda: FK.flash_backward_simple_cuda(
-                q, k, v, o, do, window=w),
-            "kernel": lambda: FK.flash_backward_cuda(q, k, v, o, do,
-                                                     window=w),
-            "plain": lambda: flash_attention_backward_torch(
-                q, k, v, o, do, window=w),
-            "sdpa": lambda: torch.autograd.grad(so, (qs, ks, vs), dos,
-                                                retain_graph=True),
-        }
-        turns = {"simple": [], "kernel": []}
-        for i in ("kernel", "simple", "simple", "kernel"):
-            turns[i].append(graphed(fns[i], 10 if i == "kernel" else 1))
-        tb = {i: statistics.mean(x) for i, x in turns.items()}
-        tb.update(plain=ms(fns["plain"], 3),
-                  sdpa=backward_graph_ms(sdpa_fwd, (qs, ks, vs), dos, dev),
-                  sdpa_eager=ms(fns["sdpa"], 10))
-        backend = kernel_names(fns["sdpa"])
-        flops, nbytes = costs.flash_backward_cost(B, S, hd["H"], hd["KV"],
-                                                  hd["D"], 2, window=w)
-        bound = (nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S
-                 * 1e3)
-        key = f"{B}x{S}"
-        out[key] = dict(shape=[B, S, hd["H"], hd["KV"], hd["D"], w],
-                        ms=tb["kernel"], simple_ms=tb["simple"],
-                        turns_ms=turns, plain_ms=tb["plain"],
-                        library_ms=tb["sdpa"], sdpa_kernels=backend,
-                        library_eager_ms=tb["sdpa_eager"],
-                        bound_ms=max(bound),
-                        bound_by="bytes" if bound[0] >= bound[1]
-                        else "operations")
-        say(f"timing: flash backward at Griffin's (B {B}, S {S}, H 10, KV 1, "
-            f"D 256, window {w}, bf16), us per call in a replayed graph: "
-            f"tensor-core kernel {tb['kernel'] * 1e3:.2f} (in turns "
-            f"{turns['kernel'][0] * 1e3:.2f}, {turns['kernel'][1] * 1e3:.2f}),"
-            f" CUDA-core kernel {tb['simple'] * 1e3:.2f}, bound "
-            f"{max(bound) * 1e3:.3f} ({out[key]['bound_by']}; bytes "
-            f"{bound[0] * 1e3:.3f}, operations {bound[1] * 1e3:.3f}), SDPA's "
-            f"backward {tb['sdpa'] * 1e3:.2f} ("
-            f"{'causal' if w >= S else 'boolean mask'}; its kernels "
-            f"{backend}); eager, CUDA events: plain {tb['plain'] * 1e3:.2f}, "
-            f"SDPA's backward {tb['sdpa_eager'] * 1e3:.2f} [{card}]")
-        del q, k, v, do, o, qs, ks, vs, so, dos, fns, sdpa_kw
+        out[f"{B}x{S}"] = time_flash_backward(dev, card, "Griffin's heads",
+                                              B, S, GRIFFIN_HEADS, w)
     return out
 
 
@@ -6388,6 +6460,178 @@ def time_rwkv_kernels(dev, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9, the dense and MoE decoders: the flash backward at (128, 128),
+# starcoder2-7b, granite-moe-3b-a800m and gemma-7b trained at published
+# width, granite-20b's and chameleon-34b's gradients at 2 layers
+# ---------------------------------------------------------------------------
+
+# the heads of the three (128, 128) models: starcoder2-7b 36 query heads
+# over 4 KV heads, granite-20b 48 over one, chameleon-34b 64 over 8
+D128_HEADS = {"starcoder2-7b": dict(H=36, KV=4, D=128),
+              "granite-20b": dict(H=48, KV=1, D=128),
+              "chameleon-34b": dict(H=64, KV=8, D=128)}
+# both backward kernels at (128, 128) against their plain version at the
+# first two models' heads, (B, S) of BWD_CASES (S 256, 200, 17), without a
+# window and with D128_WINDOW keys (it bites at S 200 and 256); limits
+# BWD_RTOL32 / BWD_ULPS16; the control (KV head 0's dK zeroed in the
+# tensor-core kernel's output) must read above the bf16 limit in every
+# case
+D128_CHECKED = ("starcoder2-7b", "granite-20b")
+D128_WINDOW = 100
+
+
+def kv0_dk_zeroed(kname, fn, args, window, S, got):
+    """The (128, 128) control: the tensor-core kernel's output with KV head
+    0's dK zeroed (None for the CUDA-core kernel)."""
+    if kname != "sm90":
+        return None
+    dk = got[1].clone()
+    dk[:, :, 0] = 0
+    return got[0], dk, got[2]
+
+
+def check_flash_backward_d128(dev) -> dict:
+    """``check_flash_backward_cases`` at (128, 128): the heads of each of
+    D128_CHECKED, (B, S) of BWD_CASES, no window and D128_WINDOW; the
+    control (KV head 0's dK zeroed) above the bf16 limit in every case;
+    ``FlashAttentionFn`` at granite-20b's heads (2, 200) with the window in
+    f32, at starcoder2-7b's (8, 256) in bf16."""
+    return check_flash_backward_cases(
+        dev, f"(128, 128), the heads of {' and '.join(D128_CHECKED)}",
+        [(D128_HEADS[a], B, S, w) for a in D128_CHECKED
+         for B, S in BWD_CASES for w in (None, D128_WINDOW)],
+        kv0_dk_zeroed, "KV head 0's dK zeroed", lambda key: True,
+        [(D128_HEADS["granite-20b"], 2, 200, D128_WINDOW, torch.float32),
+         (D128_HEADS["starcoder2-7b"], TRAIN_BATCH, TRAIN_SEQ, None,
+          torch.bfloat16)])
+
+
+def time_d128_kernels(dev, card) -> dict:
+    """The (128, 128) backward (``time_flash_backward``) at each of
+    D128_HEADS, B 8 x S 256, no window.  Returns a record per model."""
+    return {arch: time_flash_backward(dev, card, f"{arch}'s heads",
+                                      TRAIN_BATCH, TRAIN_SEQ, hd)
+            for arch, hd in D128_HEADS.items()}
+
+
+def attn_controls(control):
+    """A dense or MoE decoder's gradient control: the first flash
+    backward's dK zeroed (the last layer's)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    return (("dk", FK, "flash_backward_cuda", None),)
+
+
+def sm90_routes(want):
+    """A dense or MoE step's backward routes and those it must take: every
+    flash backward on the tensor-core kernel."""
+    return backward_routes(), {"sm90": want["flash_backward"], "simple": 0}
+
+
+# The dense and MoE decoders' training (``family_train``) at published
+# width, B 8 x S 256 under bf16 AdamW, remat "block": the gradient through
+# the kernels against impl="torch", leaf by leaf, stacked leaves layer by
+# layer (relative L2) within the family's limit, the last layer's dK zeroed
+# above it; one step against the plain step; the CLI at DECODER_CLI_LAYERS
+# (checkpoints of bf16 parameters and f32 moments, 10 B a parameter:
+# starcoder2-7b 8.9 GB, gemma-7b 13.4 GB with its tied 256000-row
+# embedding, granite-moe 3.5 GB; each CLI's removed before the next).
+# Depths: AdamW holds 12 B a parameter, and its f32 temporaries of the
+# largest stacked leaf come on top (5.06 GiB for starcoder2-7b's MLP at 16
+# layers).  A step's peaks on an H100 80GB HBM3 (tools/
+# decoder_train_probe.py step; the card reports 85.0e9 B): starcoder2-7b
+# 70.5 / 79.8 GB allocated / reserved at 14 layers, 75.2 / 81.1 at 15, out
+# of memory at 16; gemma-7b 66.0 / 76.9 at 11, 71.1 / 81.5 at 12, out of
+# memory at 14; granite-moe-3b-a800m 64.7 / 71.3 at all 32.  The depths
+# keep 5 GB or more to spare.
+DECODER_STEPS, DECODER_CKPT_EVERY, DECODER_CLI_LAYERS = 3, 2, 2
+STARCODER2_LAYERS = 14
+GEMMA_LAYERS = 11
+# Limits from the sound readings over seeds 0-2 (tools/
+# decoder_train_probe.py grads, H100 80GB HBM3 at 700 W): starcoder2-7b
+# 1.70e-2-1.76e-2 (16 layers), gemma-7b 1.60e-2-1.81e-2 (12 layers),
+# granite-20b 7.84e-3-7.88e-3 and chameleon-34b 8.75e-3-1.00e-2 (2 layers)
+# keep llama's 3e-2; granite-moe-3b-a800m reads 0.181-0.200 with the
+# kernels' runs forced to the plain run's expert ids.  That is bf16's
+# noise: against the f32 plain gradient (32 layers, seed 0, every run
+# forced to its ids) the bf16 kernels read 0.320, the bf16 plain versions
+# 0.311, the f32 kernels 4.07e-5 (tools/decoder_train_probe.py noise).  The
+# dK-zeroed control read 1.0 in every family
+DECODER_GRAD_RTOL = {"starcoder2-7b": 3e-2, "granite-moe-3b-a800m": 0.3,
+                     "gemma-7b": 3e-2, "granite-20b": 3e-2,
+                     "chameleon-34b": 3e-2}
+
+
+def decoder_train(arch, layers) -> dict:
+    """``family_train``'s dict for a dense or MoE decoder at ``layers`` of
+    its layers (None: all)."""
+    return dict(
+        arch=arch, layers=layers, rtol=DECODER_GRAD_RTOL[arch],
+        group=("attn", "/attn/", "the attention's"), controls=attn_controls,
+        controls_said="dk: the last layer's dK zeroed",
+        steps=DECODER_STEPS, ckpt_every=DECODER_CKPT_EVERY,
+        cli_layers=DECODER_CLI_LAYERS, stacked=None, routes=sm90_routes)
+
+
+STARCODER2_TRAIN = decoder_train("starcoder2-7b", STARCODER2_LAYERS)
+MOE_TRAIN = decoder_train(MOE_ARCH, None)
+GEMMA_TRAIN = decoder_train("gemma-7b", GEMMA_LAYERS)
+DECODER_TRAINS = (STARCODER2_TRAIN, MOE_TRAIN, GEMMA_TRAIN)
+# granite-20b (G 48 over one KV head) and chameleon-34b (qk-norm, KV 8) put
+# the (128, 128) kernel under the other two layouts: their gradient check
+# alone at published width, 2 layers
+DECODER_GRADS = tuple(decoder_train(a, 2) for a in ("granite-20b",
+                                                    "chameleon-34b"))
+
+
+def family_grads(fam, dev, card) -> dict:
+    """``fam["arch"]``'s gradient check alone (``family_grad_compare`` and
+    ``check_family_grads``) at published width, cut to ``fam["layers"]``:
+    no step, no CLI.  Returns its record."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, batch = family_inputs(fam, dev, SEED)
+    rec = family_grad_compare(fam, model, params, batch, None)
+    check_family_grads(fam, rec)
+    del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    say(f"train: {fam['arch']}'s gradient check at {rec['layers']} layers "
+        f"done in {rec['seconds']:.1f} s [{card}]")
+    return rec
+
+
+def decoders_train(dev, card) -> dict:
+    """Phase 9's dense and MoE decoders: the (128, 128) backward's checks,
+    each of DECODER_TRAINS through ``family_train``, each of DECODER_GRADS
+    through ``family_grads``, the (128, 128) backward's times.  Returns the
+    block's record, its seconds by part."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    rec = {"d128_checks": check_flash_backward_d128(dev)}
+    part("the (128, 128) backward's checks")
+    for fam in DECODER_TRAINS:
+        rec[fam["arch"]] = family_train(fam, dev, card, None)
+        part(fam["arch"])
+    for fam in DECODER_GRADS:
+        rec[fam["arch"]] = family_grads(fam, dev, card)
+        part(fam["arch"])
+    rec["d128_times"] = time_d128_kernels(dev, card)
+    part("the (128, 128) backward's times")
+    rec["seconds"] = time.perf_counter() - t0
+    rec["parts_s"] = parts
+    say(f"train: the dense and MoE decoders' block took "
+        f"{rec['seconds']:.1f} s (" + ", ".join(
+            f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]")
+    return rec
+
+
 def phase_train(dev, card, err, control, wkv6_control
                 ) -> tuple[list, dict]:
     """The train path: the backward kernels against their plain versions
@@ -6399,7 +6643,10 @@ def phase_train(dev, card, err, control, wkv6_control
     (``family_train``) and the new kernels' times at its shapes; then the
     WKV-6 backward against its plain version (``check_wkv6_backward``),
     rwkv6-7b's training at published width, its depth cut (``family_train``)
-    and the backward's time.  ``control`` and ``wkv6_control`` are the
+    and the backward's time; then the dense and MoE decoders
+    (``decoders_train``: the flash backward at (128, 128), starcoder2-7b,
+    granite-moe-3b-a800m and gemma-7b trained, granite-20b's and
+    chameleon-34b's gradients).  ``control`` and ``wkv6_control`` are the
     RG-LRU's and the WKV-6's control backwards.  Returns (the
     flash_backward, rglru_backward and wkv6_backward rows of the kernels
     JSON, the phase's record)."""
@@ -6448,6 +6695,10 @@ def phase_train(dev, card, err, control, wkv6_control
     rwkv["block_seconds"] = time.perf_counter() - t_rwkv
     say(f"train: the RWKV-6 block took {rwkv['block_seconds']:.1f} s "
         f"[{card}]")
+    rec["decoders"] = dec = decoders_train(dev, card)
+    err["flash_backward"] = max(err["flash_backward"],
+                                dec["d128_checks"]["max_abs_err"])
+    part("the dense and MoE decoders")
     rec["parts_s"] = parts
     b = flash["backward"]
     routes = rec["cli"]["backward_routes"]
@@ -6474,7 +6725,13 @@ def phase_train(dev, card, err, control, wkv6_control
             launches=griffin["cli"]["launches"]["flash_backward"],
             launches_a_step=griffin["step_launches"]["flash_backward"],
             errors=griffin_bwd,
-            shapes={k: v for k, v in gk.items() if k != "rglru_backward"}))
+            shapes={k: v for k, v in gk.items() if k != "rglru_backward"}),
+        d128=dict(errors=dec["d128_checks"], shapes=dec["d128_times"]),
+        decoders={fam["arch"]: dict(
+            launches=dec[fam["arch"]]["cli"]["launches"]["flash_backward"],
+            launches_a_step=dec[fam["arch"]]["step_launches"][
+                "flash_backward"])
+            for fam in DECODER_TRAINS})
     g = gk["rglru_backward"]
     rg_row = dict(
         name="rglru_backward", route="cuda",

@@ -13,8 +13,9 @@
 //   dQ = scale * dS k,  dK = scale * dS^T q,
 // summed over the G = H / KV query heads that share a KV head.  Inputs and
 // outputs are bf16 or f32 (all one dtype); every sum is f32.  D = Dv = 64
-// (llama3.2-1b's heads) or 256 (recurrentgemma-2b's); the wrapper refuses
-// other pairs.
+// (llama3.2-1b's heads, granite-moe-3b-a800m's), 128 (starcoder2-7b's,
+// granite-20b's, chameleon-34b's) or 256 (gemma-7b's, recurrentgemma-2b's);
+// the wrapper refuses other pairs.
 //
 // Design: three kernels, launched in order by one entry, no atomics (a
 // replay gives the same bits):
@@ -32,8 +33,8 @@
 //   * dQ: one block per (batch, head, tile of 32 query rows, 64 columns)
 //     loops over the live key tiles at or before its rows and sums dQ += dS
 //     k on its columns in registers.
-// At D 256 the four column blocks of a tile each recompute S and dP over
-// the full D: the accumulators keep the registers of D 64, and the tiles
+// At D 128 and 256 the two or four column blocks of a tile each recompute
+// S and dP over the full D: the accumulators keep the registers of D 64, and the tiles
 // (f32, full D) fit a block's shared memory.  The window bounds each
 // block's tiles (a dQ block starts at the tile of its first row's first
 // live key, a dK/dV block ends at the tile of the last query whose window
@@ -341,7 +342,8 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (2 * kT * ld<kD>() + 2 * kD * kLt + kT * ld<kC>() +
                           kT * kLt + 2 * kT);
 }
-static_assert(dq_smem<256>() <= 232448 && dkdv_smem<256>() <= 232448,
+static_assert(dq_smem<128>() <= 232448 && dkdv_smem<128>() <= 232448 &&
+                  dq_smem<256>() <= 232448 && dkdv_smem<256>() <= 232448,
               "a block's shared memory");
 
 // dK and dV of 32 keys and 64 columns of one KV head.  Grid (key tiles,
@@ -554,7 +556,8 @@ int run(Params p, cudaStream_t stream) {
 
 template <typename T>
 int run_d(const Params& p, long long D, cudaStream_t stream) {
-  return D == 64 ? run<64, T>(p, stream) : run<256, T>(p, stream);
+  if (D == 64) return run<64, T>(p, stream);
+  return D == 128 ? run<128, T>(p, stream) : run<256, T>(p, stream);
 }
 
 }  // namespace
@@ -563,16 +566,16 @@ extern "C" {
 
 // Launches the three kernels on `stream` and returns cudaGetLastError()
 // (0 when every launch was accepted).  Sizes are elements; window <= 0
-// means none.  The wrapper has checked shapes (D = Dv, 64 or 256), dtypes,
-// contiguity, alignment and S > 0, and allocated dq, dk, dv and the f32
-// scratch lse and delta (B * H * S each).
+// means none.  The wrapper has checked shapes (D = Dv, 64, 128 or 256),
+// dtypes, contiguity, alignment and S > 0, and allocated dq, dk, dv and the
+// f32 scratch lse and delta (B * H * S each).
 int repro_flash_backward(int is_bf16, const void* q, const void* k,
                          const void* v, const void* o, const void* dout,
                          void* dq, void* dk, void* dv, void* lse,
                          void* delta, long long B, long long S, long long H,
                          long long KV, long long D, long long window,
                          float scale, void* stream) {
-  if (D != 64 && D != 256) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128 && D != 256) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
   p.dq = dq; p.dk = dk; p.dv = dv;

@@ -6,8 +6,10 @@
 // ops.py:77) with XLA, `jax.grad`.  This kernel computes that gradient for
 // the training form of the forward, bf16: causal, q_start 0, Sq = Skv = S,
 // with or without a local window W (keys at or before q - W masked, as in
-// the forward), at (D, Dv) = (64, 64) (llama3.2-1b) and (256, 256)
-// (recurrentgemma-2b: 10 query heads over 1 KV head, W 2048).  Given q
+// the forward), at (D, Dv) = (64, 64) (llama3.2-1b, granite-moe-3b-a800m),
+// (128, 128) (starcoder2-7b: 36 query heads over 4 KV heads; granite-20b:
+// 48 over 1; chameleon-34b: 64 over 8) and (256, 256) (gemma-7b;
+// recurrentgemma-2b: 10 query heads over 1 KV head, W 2048).  Given q
 // (B,S,H,D), k and v (B,S,KV,D), the forward's output o (B,S,H,D) and the
 // output's gradient dO (B,S,H,D), with P = softmax(scale * q k^T) under the
 // mask, it returns
@@ -24,7 +26,8 @@
 // GFLOP, 5.4 us on the tensor cores.  So bytes bound it.  At Griffin's
 // (B 8, S 256, H 10, KV 1, D 256) the window does not bite: 46.1 MB, 13.8
 // us (bytes); at B 1, S 4096, W 2048, 6,292,480 live pairs a head, 161
-// GFLOP, 163 us (operations).  The design keeps every product on the
+// GFLOP, 163 us (operations).  At starcoder2-7b's (B 8, S 256, H 36, KV 4,
+// D 128): 83.9 MB, 25.0 us (bytes; 12.1 GFLOP, 12.3 us).  The design keeps every product on the
 // tensor cores and every intermediate (S, P, dP, dS) in registers, and
 // reads each input from device memory about once (the tiles that several
 // blocks share come from L2).
@@ -49,11 +52,14 @@
 //     P^T and dS^T in registers, then dV[:, cols] += P^T dO[:, cols] and
 //     dK[:, cols] += dS^T Q[:, cols].  dK and dV stay in registers over all
 //     G x tiles steps.
-// At D 256 one warpgroup cannot hold a 64 x 256 f32 accumulator beside S
-// and dP (128 registers a thread for it alone), so the D / 64 column blocks
-// of a tile are blocks of their own, each recomputing S and dP over the
-// full D: the products do 4.6x the bound's operations at D 256 (1x at D
-// 64), the price of the accumulators' registers.
+// Past D 64 one warpgroup cannot hold a 64 x D f32 accumulator beside S
+// and dP (64 registers a thread at D 128, 128 at D 256, for it alone), so
+// the D / 64 column blocks of a tile are blocks of their own, each
+// recomputing S and dP over the full D.  Counting the bound's five
+// products once (S, dP, dV, dK, dQ) against what the blocks do (S in both
+// sweeps of the dQ kernel and in the dK/dV kernel, dP in both kernels, each
+// per column block, and the three outputs once): 1.6x at D 64, 2.6x at D
+// 128, 4.6x at D 256, the price of the accumulators' registers.
 // The window.  A dQ block visits the key tiles from the first that holds a
 // key inside its first row's window to its diagonal; a dK/dV block the
 // query tiles from its diagonal to the last whose last row's window reaches
@@ -87,12 +93,18 @@
 // tile never has fewer key tiles, a later key tile never more query tiles.
 // Occupancy.  `-Xptxas -v` for sm_90a at D 64: dQ 128 registers (held
 // there by its launch bounds, for four blocks an SM), dK/dV 197 (205 with
-// the window's tests), no spills; at D 256 dQ 149 (155), dK/dV 190 (243),
-// one block an SM each, by shared memory.  What limits
+// the window's tests), no spills; at D 128 (two stages each: a third
+// would leave one block an SM) dQ 151 (155), dK/dV 185 (244), no spills,
+// two blocks an SM each, by shared memory (99,328 and 100,352 bytes) and,
+// with the window, by the dK/dV kernel's registers; at D 256 dQ 149 (155),
+// dK/dV 190 (243), one block an SM each, by shared memory.  What limits
 // each at D 64, from clock stamps on an H100 (tools/flash_backward_probe.py
 // variants, PERF.md): the dQ blocks are short (2 to 2n steps) and wait on
 // their copies from L2; a dK/dV block is a chain of G x tiles dependent
-// steps (copy, products, softmax, products), two blocks an SM.
+// steps (copy, products, softmax, products), two blocks an SM.  That chain
+// is what granite-20b's heads (G 48 over one KV head) make long: at B 8,
+// S 256 the dK/dV grid is 64 blocks for 132 SMs, each up to 192 steps
+// (PERF.md section 6, row 8).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,6 +127,9 @@ template <int kD> struct Config;
 template <> struct Config<64> {
   static constexpr int kDqStages = 2, kDkdvStages = 3, kDqBlocks = 4;
 };
+template <> struct Config<128> {
+  static constexpr int kDqStages = 2, kDkdvStages = 2, kDqBlocks = 2;
+};
 template <> struct Config<256> {
   static constexpr int kDqStages = 2, kDkdvStages = 2, kDqBlocks = 1;
 };
@@ -133,8 +148,14 @@ __host__ __device__ constexpr int dkdv_smem() {
   return (2 + 2 * Config<kD>::kDkdvStages) * tile_bytes<kD>() +
          Config<kD>::kDkdvStages * kStatBytes + 1024;
 }
-static_assert(dq_smem<256>() <= 232448 && dkdv_smem<256>() <= 232448,
+static_assert(dq_smem<128>() <= 232448 && dkdv_smem<128>() <= 232448 &&
+                  dq_smem<256>() <= 232448 && dkdv_smem<256>() <= 232448,
               "a block's shared memory");
+// D 128's two blocks an SM of each kernel (an SM's 233,472 bytes, 1024 of
+// them reserved a block)
+static_assert(Config<128>::kDqBlocks * (dq_smem<128>() + 1024) <= 233472 &&
+                  2 * (dkdv_smem<128>() + 1024) <= 233472,
+              "two blocks an SM at D 128");
 
 struct Params {
   const __nv_bfloat16* q;
@@ -781,8 +802,8 @@ int run(const Params& p, cudaStream_t s) {
 
 extern "C" {
 
-// The constants this library was built with: kThreads, kTile, and for D 64
-// and D 256 the dQ and dK/dV kernels' stages and shared memory.  The
+// The constants this library was built with: kThreads, kTile, and for D
+// 64, 128 and 256 the dQ and dK/dV kernels' stages and shared memory.  The
 // wrapper refuses a library whose constants differ from its own.
 void repro_flash_backward_sm90_constants(int* out) {
   out[0] = kThreads;
@@ -791,10 +812,14 @@ void repro_flash_backward_sm90_constants(int* out) {
   out[3] = Config<64>::kDkdvStages;
   out[4] = dq_smem<64>();
   out[5] = dkdv_smem<64>();
-  out[6] = Config<256>::kDqStages;
-  out[7] = Config<256>::kDkdvStages;
-  out[8] = dq_smem<256>();
-  out[9] = dkdv_smem<256>();
+  out[6] = Config<128>::kDqStages;
+  out[7] = Config<128>::kDkdvStages;
+  out[8] = dq_smem<128>();
+  out[9] = dkdv_smem<128>();
+  out[10] = Config<256>::kDqStages;
+  out[11] = Config<256>::kDkdvStages;
+  out[12] = dq_smem<256>();
+  out[13] = dkdv_smem<256>();
 }
 
 // Launches the two kernels on `stream` (dQ, which writes the scratch, then
@@ -809,7 +834,7 @@ int repro_flash_backward_sm90(const void* q, const void* k, const void* v,
                               long long B, long long S, long long H,
                               long long KV, long long D, long long Dv,
                               long long window, float scale, void* stream) {
-  if (D != Dv || (D != 64 && D != 256) || KV <= 0 || H % KV)
+  if (D != Dv || (D != 64 && D != 128 && D != 256) || KV <= 0 || H % KV)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
@@ -831,6 +856,7 @@ int repro_flash_backward_sm90(const void* q, const void* k, const void* v,
   p.scale_log2 = scale * kLog2e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return win ? run<64, true>(p, s) : run<64, false>(p, s);
+  if (D == 128) return win ? run<128, true>(p, s) : run<128, false>(p, s);
   return win ? run<256, true>(p, s) : run<256, false>(p, s);
 }
 

@@ -34,8 +34,8 @@ def needs_grad(*tensors) -> bool:
 class NoBackward(NotImplementedError):
     """A call on the card needs a gradient that no backward kernel takes
     yet (ROADMAP B): attention outside the flash backward's form (head
-    dims other than (64, 64) and (256, 256), a non-causal call, an offset
-    or a cut ``kv_len``), or an arena op.  The dry-run writes a train cell
+    dims other than (64, 64), (128, 128) and (256, 256), a non-causal
+    call, an offset or a cut ``kv_len``), or an arena op.  The dry-run writes a train cell
     that raises it as not applicable."""
 
 

@@ -122,15 +122,16 @@ PREFILL_TILE = 64
 PREFILL_STAGES = {(64, 64): 4, (128, 128): 3, (192, 128): 2, (256, 256): 2}
 
 #: (D, Dv) pairs the backward kernels take (bf16 or f32): llama3.2-1b's
-#: and recurrentgemma-2b's
-BACKWARD_HEAD_DIMS = ((64, 64), (256, 256))
+#: and granite-moe's; starcoder2-7b's, granite-20b's and chameleon-34b's;
+#: gemma-7b's and recurrentgemma-2b's
+BACKWARD_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
 #: kTile and kCol of csrc/flash_backward_sm90.cu: rows of every tile (64
 #: query rows a dQ block, 64 keys a dK/dV block) and the columns of a
 #: block's accumulators (a tile of D columns is D / 64 blocks)
 BACKWARD_TILE = BACKWARD_COLS = 64
 #: ``Config<D>::kDqStages`` and ``kDkdvStages``: the stages of each
 #: kernel's copy ring, by head dim
-BACKWARD_STAGES = {64: (2, 3), 256: (2, 2)}
+BACKWARD_STAGES = {64: (2, 3), 128: (2, 2), 256: (2, 2)}
 
 #: rows (Sq * G) of a row block of the split-K decode: the route for every
 #: call of at most this many rows, and the block a call of more rows (at a
@@ -709,11 +710,11 @@ def backward_smem_bytes(D: int = 64) -> tuple[int, int]:
 
 
 #: what ``repro_flash_backward_sm90_constants`` reports: threads a block,
-#: the tile, and at D 64 and 256 the stages and shared memory of each
+#: the tile, and at D 64, 128 and 256 the stages and shared memory of each
 #: kernel
 SM90_CONSTANTS = (128, BACKWARD_TILE,
-                  *BACKWARD_STAGES[64], *backward_smem_bytes(64),
-                  *BACKWARD_STAGES[256], *backward_smem_bytes(256))
+                  *(x for d, _ in BACKWARD_HEAD_DIMS
+                    for x in (*BACKWARD_STAGES[d], *backward_smem_bytes(d))))
 
 
 def _backward_args(q, k, v, o, do, softmax_scale, window):

@@ -30,8 +30,9 @@ routed forward kernel, and the hand-written backward
 ``csrc/flash_backward_sm90.cu`` on the tensor cores for bf16,
 ``csrc/flash_backward.cu`` for f32) for the gradient.  It takes the
 training form only (causal, ``q_start`` 0, ``kv_len = Skv = Sq``, with or
-without a window; on the card (64, 64) and (256, 256) heads) and raises
-for any other call that needs a gradient on the card.  Without autograd
+without a window; on the card (64, 64), (128, 128) and (256, 256)
+heads) and raises for any other call that needs a gradient on the card.
+Without autograd
 (serving, under ``torch.no_grad()``) the call is the plain kernel launch
 it always was, so captured graphs and launch counts do not change.  The
 backward's plain version is :func:`flash_attention_backward_torch`, and

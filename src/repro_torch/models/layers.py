@@ -129,6 +129,18 @@ def proj_rows(x, w, rules, groups: int):
     return y.unflatten(-1, tuple(w.shape[1:]))
 
 
+def proj_heads(y, w, rules, groups: int):
+    """``einsum("bshk,hkd->bsd", y, w)``: the output projection of the
+    ``groups`` heads of ``y``.  Under rules whose tensor axis does not
+    divide ``groups``, DTensor may split the einsum's flattened heads over
+    that axis in the backward, and no view splits such features back into
+    heads; there the product is a ``bmm`` over the flattened heads with
+    the batch kept apart (:func:`proj_rows`' counterpart)."""
+    if rules is None or groups % axis_size(rules, rules.tensor) == 0:
+        return torch.einsum("bshk,hkd->bsd", y, w)
+    return torch.bmm(y.flatten(2), w.flatten(0, 1).expand(y.shape[0], -1, -1))
+
+
 def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
                cache: dict | None = None, kv_src=None, kv_src_len=None,
                causal: bool = True, use_rope: bool = True):
@@ -205,7 +217,7 @@ def attn_apply(p, x, ctx: Ctx, *, window: int | None = None,
         impl=ctx.impl,
         kv_chunk=cfg.attn_kv_chunk,
     )
-    out = torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    out = proj_heads(y, p["wo"], ctx.rules, cfg.n_heads)
     return out, cache
 
 

@@ -2,7 +2,8 @@
 geometry and its decomposition, on the CPU (``kernels/flash_attention/
 kernel.py`` and ``ops.py``; the kernels themselves run on the card only).
 
-  * ``pick_backward_route``: bf16 at (64, 64) and (256, 256) takes the
+  * ``pick_backward_route``: bf16 at (64, 64), (128, 128) and (256, 256)
+    takes the
     tensor-core kernel (``csrc/flash_backward_sm90.cu``), f32 the CUDA-core
     one (``csrc/flash_backward.cu``); any other dtype or (D, Dv) raises;
     ``check_backward`` takes a window (an int >= 1) and refuses the other
@@ -13,7 +14,7 @@ kernel.py`` and ``ops.py``; the kernels themselves run on the card only).
     ``backward_key_tiles`` and ``backward_query_tiles`` cover each live
     (query tile, key tile) pair once and no dead one, and the order stays
     heaviest first;
-  * ``backward_smem_bytes`` at D 64 and 256 equals the source's
+  * ``backward_smem_bytes`` at D 64, 128 and 256 equals the source's
     ``dq_smem`` and ``dkdv_smem`` and stays within a block's 232,448
     bytes, and the constants of ``kernel.py`` are the source's;
   * every backward wrapper raises on CPU tensors and launches nothing;
@@ -23,7 +24,9 @@ kernel.py`` and ``ops.py``; the kernels themselves run on the card only).
     the plain backward), and with the kernel's bf16 rounding of P and dS
     within 4 bf16 ulps of each gradient's largest value of
     ``flash_attention_backward_torch`` (the card's limit), at ragged S
-    (17, 64, 200) and G 1 and 4, inputs made with numpy from a seed;
+    (17, 64, 200) and G 1 and 4, inputs made with numpy from a seed; at
+    D 128 with starcoder2-7b's G 9 and granite-20b's G 48 over one KV
+    head, with and without a window, against the plain backward;
   * with a window (1, 16, 50), at (D, Dv) (16, 16) and (256, 256), G 1
     and 10: the plain backward and the tiled emulation against
     ``jax.vjp`` of ``_flash_xla(window=w)``, each gradient within 1e-5 of
@@ -57,10 +60,10 @@ SMEM_LIMIT = 232_448          # dynamic shared memory a block may use (H100)
 
 
 def test_pick_backward_route():
-    for d in (64, 256):
+    for d in (64, 128, 256):
         assert fk.pick_backward_route(torch.bfloat16, d, d) == "sm90"
         assert fk.pick_backward_route(torch.float32, d, d) == "simple"
-    assert fk.BACKWARD_HEAD_DIMS == ((64, 64), (256, 256))
+    assert fk.BACKWARD_HEAD_DIMS == ((64, 64), (128, 128), (256, 256))
     for dims in fk.HEAD_DIMS:
         if dims in fk.BACKWARD_HEAD_DIMS:
             continue
@@ -76,7 +79,9 @@ def test_pick_backward_route():
                                         (8, 256, 32, 8, 64),
                                         (3, 129, 4, 1, 64),
                                         (8, 256, 10, 1, 256),
-                                        (1, 300, 10, 1, 256)])
+                                        (1, 300, 10, 1, 256),
+                                        (8, 256, 36, 4, 128),
+                                        (2, 200, 48, 1, 128)])
 def test_grids_cover_every_tile_once_heaviest_first(B, S, H, KV, D):
     n, c = fk.backward_tiles(S), fk.backward_cols(D)
     assert (n - 1) * fk.BACKWARD_TILE < S <= n * fk.BACKWARD_TILE
@@ -153,7 +158,7 @@ def test_constants_are_the_sources():
     assert fk.BACKWARD_TILE == fk.BACKWARD_COLS == 64
 
 
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_smem_bytes_are_the_sources_and_fit_a_block(D):
     text, ints, stages = _source_ints()
     dq_stages, dkdv_stages, dq_blocks = stages[D]
@@ -174,8 +179,9 @@ def test_smem_bytes_are_the_sources_and_fit_a_block(D):
         assert b <= SMEM_LIMIT
     # an SM's 228 KB holds the blocks its registers allow: at D 64 four of
     # the dQ kernel (128 registers a thread), two of the dK/dV kernel; at
-    # D 256 one of each
-    dkdv_blocks = 2 if D == 64 else 1
+    # D 128 two of each; at D 256 one of each
+    assert dq_blocks == {64: 4, 128: 2, 256: 1}[D]
+    dkdv_blocks = 1 if D == 256 else 2
     assert dq_blocks * (got[0] + 1024) <= 228 * 1024
     assert dkdv_blocks * (got[1] + 1024) <= 228 * 1024
 
@@ -227,6 +233,35 @@ def test_tiled_emulation_rounded_within_card_limit(S, G):
                       causal=True).bfloat16()
     want = flash_attention_backward_torch(q, k, v, o, do)
     got = flash_backward_tiled_torch(q, k, v, o, do, round_bf16=True)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        scale = float(w.float().abs().max())
+        tol = 4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol, (what, err, tol)
+
+
+@pytest.mark.parametrize("S", [17, 200])
+@pytest.mark.parametrize("G", [9, 48])
+@pytest.mark.parametrize("window", [None, 100])
+def test_tiled_emulation_d128_rounded_within_card_limit(S, G, window):
+    # (128, 128), at starcoder2-7b's G 9 and granite-20b's G 48 over one KV
+    # head, with and without a window: the emulation unrounded within 1e-5
+    # of the plain backward's largest, rounded within the card's 4 bf16
+    # ulps of it
+    qn, kn, vn, don = _inputs(7 * S + G, S, G, B=1, KV=1, D=128)
+    q, k, v, do = (torch.from_numpy(a) for a in (qn, kn, vn, don))
+    o = attention_ref(q, k, v, causal=True, window=window)
+    want = flash_attention_backward_torch(q, k, v, o, do, window=window)
+    got = flash_backward_tiled_torch(q, k, v, o, do, window=window)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-5 * scale, what
+    qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    ob = attention_ref(q, k, v, causal=True, window=window).bfloat16()
+    want = flash_attention_backward_torch(qb, kb, vb, ob, dob, window=window)
+    got = flash_backward_tiled_torch(qb, kb, vb, ob, dob, window=window,
+                                     round_bf16=True)
     for g, w, what in zip(got, want, ("dq", "dk", "dv")):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         scale = float(w.float().abs().max())

@@ -4,13 +4,16 @@ attention gradient.
 Inputs (weights, tokens, attention tensors) are made in ``repro`` or with
 numpy from a seed and handed to both packages; every comparison is in f32:
 
-  * ``loss_fn`` of the three smoke families (``llama3.2-1b``, ``rwkv6-7b``,
-    ``recurrentgemma-2b``; the recurrent mixing leaves filled by
-    ``live_leaves`` as in ``test_torch_recurrent_models.py``, the Griffin
-    sequence longer than its window) against ``repro``'s
-    ``loss_fn(impl="xla")``: the loss within 1e-5, every gradient leaf
-    against ``jax.grad`` within 1e-4 of the leaf's largest gradient (sums
-    in another order);
+  * ``loss_fn`` of the smoke configs of the three families
+    (``llama3.2-1b``, ``rwkv6-7b``, ``recurrentgemma-2b``; the recurrent
+    mixing leaves filled by ``live_leaves`` as in
+    ``test_torch_recurrent_models.py``, the Griffin sequence longer than
+    its window) and of the dense and MoE decoders (``gemma-7b``,
+    ``starcoder2-7b``, ``granite-20b``, ``chameleon-34b``,
+    ``granite-moe-3b-a800m``, whose metrics carry the MoE's ``aux_loss``)
+    against ``repro``'s ``loss_fn(impl="xla")``: the loss and each metric
+    within 1e-5, every gradient leaf against ``jax.grad`` within 1e-4 of
+    the leaf's largest gradient (sums in another order);
   * 3 train steps of the smoke ``llama3.2-1b`` against ``repro``'s jitted
     ``make_train_step`` from one state (the optimizer state carried across
     by ``params_from_numpy`` over ``opt.state_defs``) and one batch
@@ -36,7 +39,14 @@ numpy from a seed and handed to both packages; every comparison is in f32:
     RG-LRU's ``RGLRUFn`` and WKV-6's ``WKV6Fn``, whose gradients then
     equal autograd's of the plain forward) or raises
     ``NotImplementedError`` (the arena ops), and a training form the
-    backward does not take raises too;
+    backward does not take raises too: ``check_backward`` on a mocked CUDA
+    tensor takes (128, 128) with and without a window, and raises at
+    (16, 16) and (192, 128);
+  * the MoE's gradient check on the card forces each run's expert ids on
+    the other (``chip_smoke.RouteLog(force, own_gates=True)``): a run
+    forced with its own ids, gates from its own router, gives a loss and
+    gradients bit-equal to the unforced run (the smoke
+    ``granite-moe-3b-a800m``, f32);
   * the whole Griffin slice on that mocked card: the smoke
     ``recurrentgemma-2b`` (window 16, S 24: the window bites) with its
     gradients through ``RGLRUFn`` and the windowed ``FlashAttentionFn``
@@ -108,8 +118,12 @@ from repro_torch.models.zoo import build_model  # noqa: E402
 from test_torch_recurrent_models import live_leaves  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("llama3.2-1b", "rwkv6-7b", "recurrentgemma-2b")
-SEQ = {"llama3.2-1b": 16, "rwkv6-7b": 12, "recurrentgemma-2b": 24}
+RECURRENT = ("rwkv6-7b", "recurrentgemma-2b")
+ARCHS = ("llama3.2-1b", *RECURRENT, "gemma-7b", "starcoder2-7b",
+         "granite-20b", "chameleon-34b", "granite-moe-3b-a800m")
+SEQ = {"llama3.2-1b": 16, "rwkv6-7b": 12, "recurrentgemma-2b": 24,
+       "gemma-7b": 16, "starcoder2-7b": 16, "granite-20b": 16,
+       "chameleon-34b": 16, "granite-moe-3b-a800m": 16}
 f32 = jnp.float32
 
 
@@ -131,7 +145,7 @@ def loss_pair(request):
     jm = jax_build(jconfigs.smoke(arch))
     tm = build_model(tconfigs.smoke(arch))
     init = jm.init(jax.random.PRNGKey(0))
-    jp = init if arch == "llama3.2-1b" else live_leaves(arch, init)
+    jp = live_leaves(arch, init) if arch in RECURRENT else init
     jp = jax.tree.map(lambda a: a.astype(f32), jp)
     tp = tree_map(lambda t: t.float(),
                   params_from_numpy(tm.defs, _np32(jp), "cpu"))
@@ -454,6 +468,84 @@ def test_mock_flash_cuda_raises_for_unported_head_dims(on_card,
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     with pytest.raises(NotImplementedError, match=r"\(64, 64\)"):
         fa_ops._kernel.check_backward(q, k, v)
+
+
+@pytest.mark.parametrize("dims", [(16, 16), (192, 128)])
+def test_mock_check_backward_raises_for_dims_without_a_kernel(on_card,
+                                                             monkeypatch,
+                                                             dims):
+    # the mocked card's route: MLA's (192, 128) and the (16, 16) pair have
+    # no backward kernel, with or without a window
+    D, Dv = dims
+    q, k, v = _leaf(1, 20, 4, D), _leaf(1, 20, 2, D), _leaf(1, 20, 2, Dv)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    for window in (None, 7):
+        with pytest.raises(NotImplementedError, match=r"\(128, 128\)"):
+            fa_ops._kernel.check_backward(q, k, v, window=window)
+
+
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("impl", ["cuda", "auto"])
+def test_mock_flash_cuda_d128_has_grad_fn(on_card, monkeypatch, window,
+                                          impl):
+    # (128, 128), starcoder2-7b's, granite-20b's and chameleon-34b's heads:
+    # the route takes it with and without a window, and under autograd the
+    # call is FlashAttentionFn, its gradient autograd's of the plain
+    # forward
+    q, k, v = _leaf(1, 20, 4, 128), _leaf(1, 20, 2, 128, seed=1), \
+        _leaf(1, 20, 2, 128, seed=2)
+    o = flash_attention(q, k, v, causal=True, window=window, impl=impl)
+    assert o.grad_fn is not None and "FlashAttentionFn" in \
+        type(o.grad_fn).__name__
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(3))
+    got = torch.autograd.grad(o, (q, k, v), do)
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(o, ref, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got, torch.autograd.grad(ref, (q, k, v), do)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    fa_ops._kernel.check_backward(q, k, v, window=window)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fa_ops._kernel.pick_backward_route(dtype, 128, 128) == (
+            "sm90" if dtype == torch.bfloat16 else "simple")
+
+
+def test_moe_forced_with_own_routes_is_bit_equal():
+    # chip_smoke.py's gradient check of the MoE runs the kernels' run with
+    # the plain run's expert ids and gates from its own router; forced with
+    # its own ids, a run gives the same bits as unforced, the router's
+    # gradient included (remat "block": each block's forward runs twice,
+    # and the forcing follows the calls in order)
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import RouteLog, leaf_paths
+    arch = "granite-moe-3b-a800m"
+    tm = build_model(tconfigs.smoke(arch))
+    assert tm.cfg.remat == "block"
+    tp = tree_map(lambda t: t.float(),
+                  tm.init(torch.Generator().manual_seed(4), "cpu"))
+    leaves = tree_leaves(tp)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = {"tokens": torch.from_numpy(_tokens(9, 2, SEQ[arch],
+                                                tm.cfg.vocab_size))}
+
+    def run(log):
+        with log:
+            loss, met = tm.loss_fn(tp, batch)
+            return loss, met, torch.autograd.grad(loss, leaves)
+
+    own = RouteLog()
+    loss, met, grads = run(own)
+    assert len(own.routes) == 2 * tm.cfg.n_layers
+    forced = RouteLog(own.routes, own_gates=True)
+    loss_f, met_f, grads_f = run(forced)
+    assert forced.summary()["flips"] == 0
+    assert torch.equal(loss, loss_f)
+    assert torch.equal(met["aux_loss"], met_f["aux_loss"])
+    router = leaf_paths(tp).index("/moe/mlp/router")
+    assert float(grads[router].abs().max()) > 0
+    for a, b in zip(grads, grads_f):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("window", [1, 4, 19])

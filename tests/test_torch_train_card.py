@@ -16,6 +16,12 @@ the same path against ``repro`` are in ``test_torch_train.py``.
     the card) against autograd of the plain forward, in f32;
   * both backward kernels at Griffin's heads ((256, 256), G 10, KV 1) with
     a window against the plain version, as above;
+  * both backward kernels at (128, 128), at starcoder2-7b's heads (G 9
+    over KV 4) and granite-20b's (G 48 over one KV head), S 17, 200 and
+    256, without a window and with one of 100 keys, against the plain
+    version at the same limits; the routed call counts one launch on its
+    route, the tensor-core kernel's two runs are bit-equal, and its output
+    with KV head 0's dK zeroed reads above the bf16 limit;
   * the WKV-6 backward kernel (``kernel.wkv6_backward_cuda``) against its
     plain version ``wkv6_backward_torch`` at N 64, f32 (1e-5 of each
     gradient's largest) and bf16 (one ulp of each element plus 1e-5 of the
@@ -132,6 +138,49 @@ def test_windowed_backward_matches_plain_on_card(card, kernel, dtype, S,
         tol = 1e-4 * scale if dt == torch.float32 else \
             4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
         assert float((g.float() - w.float()).abs().max()) <= tol
+
+
+def _within(got, want, dt):
+    # (all within the limit, the worst share of it)
+    worst = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        tol = 1e-4 * scale if dt == torch.float32 else \
+            4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+        worst = max(worst, float((g.float() - w.float()).abs().max()) / tol)
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [
+    ("routed", "bfloat16"), ("routed", "float32"), ("simple", "bfloat16")])
+@pytest.mark.parametrize("heads", [(36, 4), (48, 1)])
+@pytest.mark.parametrize("S", [17, 200, 256])
+@pytest.mark.parametrize("window", [None, 100])
+def test_d128_backward_matches_plain_on_card(card, kernel, dtype, heads, S,
+                                             window):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    dt = getattr(torch, dtype)
+    fn = {"routed": fk.flash_backward_cuda,
+          "simple": fk.flash_backward_simple_cuda}[kernel]
+    H, KV = heads
+    q, k, v, do = _card_inputs(card, dt, 2, S, H, KV, D=128, seed=S + H)
+    o = flash_attention(q, k, v, causal=True, window=window)
+    fk.reset_launches()
+    got = fn(q, k, v, o, do, window=window)
+    route = fk.pick_backward_route(dt, 128, 128) if kernel == "routed" \
+        else kernel
+    assert fk.BACKWARD_ROUTES == {"sm90": 0, "simple": 0, route: 1}
+    want = flash_attention_backward_torch(q, k, v, o, do, window=window)
+    assert _within(got, want, dt) <= 1.0
+    if route == "sm90":
+        again = fk.flash_backward_sm90_cuda(q, k, v, o, do, window=window)
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+        # the control: KV head 0's dK zeroed reads above the limit
+        bad = got[1].clone()
+        bad[:, :, 0] = 0
+        assert _within([bad], [want[1]], dt) > 1.0
 
 
 @pytest.mark.cuda
