@@ -245,8 +245,8 @@ non-zero):
               ``cfg.remat`` at "none", "block" and "dots" on the same
               step: loss and every gradient leaf bit-equal to "none"'s
               under deterministic algorithms, then steps in turns (ms a
-              step, median and min of 5, the allocator's peak, the parts
-              by CUDA events, launches a step exactly 16 / 32 / 32
+              step, median and min of TIMED_STEPS, the allocator's peak,
+              the parts by CUDA events, launches a step exactly 16 / 32 / 32
               ``flash_prefill`` and 16 ``flash_backward``);
               ``launch/train.py``'s ``main`` in process for 7 steps at the
               CLI's defaults (batch 8, seq 256, AdamW, bf16) at published
@@ -326,7 +326,27 @@ non-zero):
               alone at 2 layers (``family_grads``); the (128, 128)
               backward at the three models' heads timed beside its bound,
               its plain version and SDPA's backward, the block's seconds
-              by part.
+              by part.  Then the last two families
+              (``last_families_train``): both flash backward kernels
+              non-causal at (64, 64) (NONCAUSAL_HEADS, (B, (Sq, Skv)) in
+              NONCAUSAL_CASES) and causal at (192, 128) at MLA's scale
+              (MLA_HEADS, MLA_CASES), f32 within 1e-4, bf16 within 4
+              ulps, two tensor-core runs bit-equal, a control above the
+              limit in every case (non-causal: the kernel run causal,
+              dK's last key tile or dQ's last query tile zeroed; (192,
+              128): dV's last 64 columns zeroed), ``FlashAttentionFn``
+              of each form against autograd; seamless-m4t-medium (all 12
+              + 12 layers, AdamW; the gradient check's frames
+              SEAMLESS_GRAD_FRAMES rows against the tokens' 256) and
+              deepseek-v3-671b (DEEPSEEK_LAYERS dense layers and the MTP
+              block, its config's Adafactor) at published width through
+              ``family_train`` (the gradient within LAST_GRAD_RTOL, two
+              controls each above it, one step with exactly
+              ``train_launches``' launches, all on the tensor-core route,
+              its time, the optimizer's time beside its bound, peaks, the
+              CLI and its bit-equal resume); the new forms' backward timed
+              at the training shapes beside the bound, the plain version
+              and SDPA's backward.
 
 11. a7     -- (run after phase 7's decoders) this slice's families:
               first each new attention shape, bf16 and f32, through the
@@ -457,7 +477,8 @@ non-zero):
               repro_torch.launch.dryrun``) for llama3.2-1b ``train_4k``
               and deepseek-v3-671b ``decode_32k`` on the single pod, on
               the card's routes over a fake 256-rank group, each in a
-              process of its own started at the phase's start: exit 0,
+              process of its own started before phase 14 (they run beside
+              phases 14 and 13): exit 0,
               records written (``chiprun_out/dryrun/``), max RSS under 8
               GB, llama's record 32 ``flash_prefill`` and 16
               ``flash_backward`` a device; (e) recurrentgemma-2b's train
@@ -2585,6 +2606,13 @@ def _routed(moe, force=None, own_gates=False):
     return RouteLog(force, own_gates) if moe else contextlib.nullcontext()
 
 
+def has_moe_layers(cfg) -> bool:
+    """Whether ``cfg`` (its depth cut or not) runs an MoE layer: experts,
+    and layers past its leading dense ones (deepseek-v3-671b cut to its
+    three dense layers runs none)."""
+    return bool(cfg.n_experts) and cfg.n_layers > cfg.n_dense_layers
+
+
 # deliberately broken flash kernels that a decoder's logit checks must
 # catch (each reading above the check's atol): query head 0's output
 # zeroed; every output a relative 2^-6 too large (four bf16 ulps, as a
@@ -4418,7 +4446,7 @@ TRAIN_GRAD_RTOL = 3e-2
 # in the 45 GiB of disk writes the card's machine allows a call
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ = 7, 4, 8, 256
 TRAIN_CLI_LAYERS = 2
-TIMED_STEPS = 5
+TIMED_STEPS = 3
 # cfg.remat settings the train phase runs in turns (the config's default,
 # "block", is what the CLI runs)
 REMAT_SETTINGS = ("none", "block", "dots")
@@ -4438,9 +4466,14 @@ def bwd_tol(want, dtype) -> float:
 
 def train_launches(cfg, steps: int = 1) -> dict:
     """The kernels' launches over ``steps`` train steps of ``cfg``: one
-    forward a layer, and one more where ``cfg.remat`` recomputes each
-    wrapped block in the backward ("block", "dots"); one backward a layer.
-    Attention layers launch ``flash_prefill`` and ``flash_backward``;
+    forward an attention call, and one more where ``cfg.remat``
+    recomputes each wrapped block in the backward ("block", "dots"); one
+    backward an attention call.  Attention calls launch ``flash_prefill``
+    and ``flash_backward``: one a decoder layer, and in the
+    encoder-decoder one an encoder layer (its self-attention) and two a
+    decoder layer (self- and cross-attention: at seamless-m4t-medium's 12
+    + 12 layers 36 backward calls a step); DeepSeek's MTP block adds one,
+    its forward once (``_mtp_loss`` runs it outside ``_maybe_remat``).
     Griffin's recurrent layers the RG-LRU forward (``rglru``) and
     ``rglru_backward``; RWKV-6's layers ``wkv6`` and ``wkv6_backward``.
     Griffin wraps each group of its pattern and not
@@ -4453,8 +4486,12 @@ def train_launches(cfg, steps: int = 1) -> dict:
         return {"wkv6": (1 + again) * cfg.n_layers * steps,
                 "wkv6_backward": cfg.n_layers * steps}
     if cfg.family != "hybrid":
-        return {"flash_prefill": (1 + again) * cfg.n_layers * steps,
-                "flash_backward": cfg.n_layers * steps}
+        wrapped = cfg.n_layers
+        if cfg.is_encoder_decoder:
+            wrapped = cfg.encoder_layers + 2 * cfg.n_layers
+        once = 1 if cfg.mtp else 0
+        return {"flash_prefill": ((1 + again) * wrapped + once) * steps,
+                "flash_backward": (wrapped + once) * steps}
     pattern = cfg.block_pattern
     groups = cfg.n_layers // len(pattern)
     tail = pattern[:cfg.n_layers - groups * len(pattern)]
@@ -4467,22 +4504,43 @@ def train_launches(cfg, steps: int = 1) -> dict:
     return out
 
 
-def bwd_bound(q, k, v) -> tuple[float, float]:
-    """(bytes ms, operations ms) for one causal backward in its training
-    form (``costs.flash_backward_cost``), over 3.35 TB/s and the bf16
+def bwd_bound(q, k, v, causal: bool = True,
+              window: int | None = None) -> tuple[float, float]:
+    """(bytes ms, operations ms) for one backward in a training form
+    (``costs.flash_backward_cost``: causal with Sq = Skv, or non-causal
+    with any; D and Dv from q and v), over 3.35 TB/s and the bf16
     tensor-core peak."""
-    B, S, H, D = q.shape
-    flops, nbytes = costs.flash_backward_cost(B, S, H, k.shape[2], D,
-                                              q.element_size())
+    B, Sq, H, D = q.shape
+    flops, nbytes = costs.flash_backward_cost(
+        B, Sq, H, k.shape[2], D, q.element_size(), Skv=k.shape[1],
+        Dv=v.shape[3], causal=causal, window=window)
     return (nbytes / HBM_BYTES_PER_S * 1e3,
             flops / BF16_FLOP_PER_S * 1e3)
 
 
-def attn_inputs(dev, B, S, dtype, seed, H=32, KV=8, D=64):
+def attn_inputs(dev, B, S, dtype, seed, H=32, KV=8, D=64, Dv=None,
+                Skv=None):
+    """q ``(B, S, H, D)``, k ``(B, Skv, KV, D)``, v ``(B, Skv, KV, Dv)``
+    and dO ``(B, S, H, Dv)`` (``Dv`` default D, ``Skv`` default S), normal
+    from ``seed``."""
+    Dv = D if Dv is None else Dv
+    Skv = S if Skv is None else Skv
     gen = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(*s, device=dev, generator=gen).to(dtype)
-            for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D),
-                      (B, S, H, D))]
+            for s in ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv),
+                      (B, S, H, Dv))]
+
+
+def attn_form(hd, S):
+    """A case's heads and form: ``hd`` holds H, KV, D and optionally Dv,
+    ``causal`` (default True) and ``scale`` (the softmax scale, default D
+    ** -0.5); ``S`` is S or (Sq, Skv).  Returns (``attn_inputs``' head
+    keywords, Sq, Skv, the keywords of a forward, backward or plain call:
+    causal and softmax_scale)."""
+    Sq, Skv = (S, S) if isinstance(S, int) else S
+    heads = {k: hd[k] for k in ("H", "KV", "D", "Dv") if k in hd}
+    return heads, Sq, Skv, dict(causal=hd.get("causal", True),
+                                softmax_scale=hd.get("scale"))
 
 
 def check_flash_backward(dev) -> dict:
@@ -4806,18 +4864,26 @@ def step_parts(model, opt, state, batch) -> dict:
             for i, n in enumerate(TRAIN_PARTS)}
 
 
-def time_train_step(model, opt, state, batch, card) -> dict:
+def time_train_step(model, opt, state, batch, card,
+                    steps: int = TIMED_STEPS) -> dict:
     """ms per step (host clock, each step ending in ``synchronize``) over
-    TIMED_STEPS steps after the first, tokens/s, the model FLOPs' share of
+    ``steps`` steps after the first, tokens/s, the model FLOPs' share of
     the bf16 peak (6 N per token), the device's busy time and idle share
     over one traced step with its flash kernels' time, the step's parts
-    (``step_parts``), and the peak memory allocated."""
+    (``step_parts``), the optimizer's bound (the bytes its update must
+    move: the gradient read, the parameters read and written, its state
+    read and written, over 3.35 TB/s) and the peak memory allocated."""
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import tree_leaves
+    nbytes = lambda tree: sum(t.numel() * t.element_size()  # noqa: E731
+                              for t in tree_leaves(tree))
+    opt_bytes = 3 * nbytes(state["params"]) + 2 * nbytes(state["opt"])
+    opt_name = type(opt).__name__
     step = make_train_step(model, opt, impl="auto", peak_lr=3e-4, warmup=10,
                            total_steps=TRAIN_STEPS)
     torch.cuda.reset_peak_memory_stats()
     ms = []
-    for _ in range(TIMED_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, _ = step(state, batch)
         torch.cuda.synchronize()
@@ -4836,7 +4902,9 @@ def time_train_step(model, opt, state, batch, card) -> dict:
                busy_us=busy, idle_share=max(0.0, 1 - busy / (med * 1e3)),
                activities=n_act, peak_allocated=peak,
                peak_reserved=torch.cuda.max_memory_reserved(),
-               parts_device_host_ms=parts,
+               parts_device_host_ms=parts, optimizer=opt_name,
+               optimizer_bytes=opt_bytes,
+               optimizer_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
                flash_prefill_us=kern("flash_prefill_kernel"),
                flash_backward_us=kern("bwd_"),
                rglru_us=kern("rglru_staged_kernel"),
@@ -4847,7 +4915,7 @@ def time_train_step(model, opt, state, batch, card) -> dict:
                gemm_us=kern("gemm") + kern("nvjet") + kern("cutlass"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     say(f"train: {model.cfg.name} step (B {TRAIN_BATCH}, S {TRAIN_SEQ}, bf16, "
-        f"AdamW): {med:.2f} ms median, {min(ms):.2f} min of {TIMED_STEPS} "
+        f"{opt_name}): {med:.2f} ms median, {min(ms):.2f} min of {steps} "
         f"(host clock, each ending in synchronize); {out['tokens_per_s']:.0f} "
         f"tokens/s; model FLOPs (6 x {n} x {tokens}) {share:.4f} of "
         f"989 TFLOP/s; one traced step: device busy {busy:.1f} us, idle "
@@ -4861,6 +4929,8 @@ def time_train_step(model, opt, state, batch, card) -> dict:
         f"(host issue) "
         + ", ".join(f"{k} {d:.2f} ms ({h:.2f})" for k, (d, h)
                     in parts.items())
+        + f" (the optimizer's bound {out['optimizer_bound_ms']:.3f} ms: "
+          f"{opt_bytes} bytes)"
         + f"; peak allocated {peak} B (reckoned ~{TRAIN_MEM_BYTES:.0f}); "
         f"largest kernels "
         + ", ".join(f"{k[:60]} {t:.1f} us x {c}" for k, (t, c) in top)
@@ -5673,13 +5743,16 @@ def bwd_reading(g, w, dtype) -> float:
 def check_flash_backward_cases(dev, label, cases, control, control_said,
                                held, functions) -> dict:
     """Both flash backward kernels at each ``(heads, B, S, window)`` of
-    ``cases`` (``heads`` ``attn_inputs``' H, KV and D), bf16 and f32: the
-    forward's o (routed, with the window) against ``_flash_torch``, then
-    dq, dk, dv against ``flash_attention_backward_torch`` (f32 within
-    BWD_RTOL32 of each gradient's largest, bf16 within BWD_ULPS16 ulps of
-    it): the tensor-core kernel in bf16 (two runs bit-equal), the CUDA-core
-    kernel in both.  ``control(kname, fn, args, window, S, got)`` gives a
-    broken output of a case's kernel (None: none), read against the plain
+    ``cases`` (``heads`` and S as ``attn_form`` reads them: H, KV, D and
+    optionally Dv, the mask and the softmax scale; S or (Sq, Skv)), bf16
+    and f32: the forward's o (routed, with the window) against
+    ``_flash_torch``, then dq, dk, dv against
+    ``flash_attention_backward_torch`` (f32 within BWD_RTOL32 of each
+    gradient's largest, bf16 within BWD_ULPS16 ulps of it): the
+    tensor-core kernel in bf16 (two runs bit-equal), the CUDA-core kernel
+    in both.  ``control(kname, fn, args, window, S, got)`` gives a broken
+    output of a case's kernel (None: none; ``args`` q, k, v, o, dO and the
+    case's keywords, ``S`` as the case gives it), read against the plain
     version; it must read above the limit wherever ``held(key)``.  Then
     ``FlashAttentionFn`` against autograd of the plain forward at each
     ``(heads, B, S, window, dtype)`` of ``functions``.  Returns the
@@ -5694,24 +5767,28 @@ def check_flash_backward_cases(dev, label, cases, control, control_said,
              "function_bf16_ulps": 0.0, "max_abs_err": 0.0}
     controls = {}
     for hd, B, S, w in cases:
+        heads, Sq, Skv, kw = attn_form(hd, S)
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + S + (w or 0),
-                                      **hd)
-            what = f"H {hd['H']}, KV {hd['KV']}, ({B}, {S}, {w})"
-            o = FK.flash_attention_cuda(q, k, v, causal=True, window=w,
-                                        q_start=0, kv_len=S)
-            e, ok = fa_err(o, flash_attention(q, k, v, causal=True,
-                                              window=w, impl="torch"))
+            q, k, v, do = attn_inputs(dev, B, Sq, dtype,
+                                      SEED + Sq + Skv + (w or 0), Skv=Skv,
+                                      **heads)
+            what = (f"H {hd['H']}, KV {hd['KV']}, ({B}, {S}, {w}"
+                    + ("" if kw["causal"] else ", non-causal") + ")")
+            o = FK.flash_attention_cuda(q, k, v, window=w, q_start=0,
+                                        kv_len=Skv, **kw)
+            e, ok = fa_err(o, flash_attention(q, k, v, window=w,
+                                              impl="torch", **kw))
             check(ok, f"flash forward ({what}, {dtype}): max abs err {e}")
             worst["forward"] = max(worst["forward"], e)
-            want = flash_attention_backward_torch(q, k, v, o, do, window=w)
+            want = flash_attention_backward_torch(q, k, v, o, do, window=w,
+                                                  **kw)
             kernels = {"simple": FK.flash_backward_simple_cuda}
             if dtype == torch.bfloat16:
                 kernels["sm90"] = FK.flash_backward_sm90_cuda
             tag = "f32_rel" if dtype == torch.float32 else "bf16_ulps"
             lim = BWD_RTOL32 if dtype == torch.float32 else BWD_ULPS16
             for kname, fn in kernels.items():
-                got = fn(q, k, v, o, do, window=w)
+                got = fn(q, k, v, o, do, window=w, **kw)
                 torch.cuda.synchronize()
                 for name, g, ww in zip(("dq", "dk", "dv"), got, want):
                     check(g.dtype == ww.dtype and g.shape == ww.shape,
@@ -5724,10 +5801,10 @@ def check_flash_backward_cases(dev, label, cases, control, control_said,
                         worst["max_abs_err"],
                         float((g.float() - ww.float()).abs().max()))
                 if kname == "sm90":
-                    again = fn(q, k, v, o, do, window=w)
+                    again = fn(q, k, v, o, do, window=w, **kw)
                     check(all(torch.equal(a, b) for a, b in zip(got, again)),
                           f"flash_backward (sm90) ({what}): two runs differ")
-                bad = control(kname, fn, (q, k, v, o, do), w, S, got)
+                bad = control(kname, fn, (q, k, v, o, do, kw), w, S, got)
                 if bad is not None:
                     torch.cuda.synchronize()
                     controls[f"{kname} {dtype} {what}"] = max(
@@ -5739,15 +5816,18 @@ def check_flash_backward_cases(dev, label, cases, control, control_said,
               f"flash_backward control {key} ({control_said}) reads "
               f"{r:.3e}, within {lim}")
     for hd, B, S, w, dtype in functions:
-        q, k, v, do = attn_inputs(dev, B, S, dtype, SEED + 2, **hd)
+        heads, Sq, Skv, kw = attn_form(hd, S)
+        q, k, v, do = attn_inputs(dev, B, Sq, dtype, SEED + 2, Skv=Skv,
+                                  **heads)
         for x in (q, k, v):
             x.requires_grad_(True)
-        o = flash_attention(q, k, v, causal=True, window=w)
+        o = flash_attention(q, k, v, window=w, **kw)
         check(o.grad_fn is not None and "FlashAttentionFn" in
               type(o.grad_fn).__name__, f"flash_attention under autograd "
-                                        f"(window {w}): grad_fn {o.grad_fn}")
+                                        f"(window {w}, {kw}): grad_fn "
+                                        f"{o.grad_fn}")
         got = torch.autograd.grad(o, (q, k, v), do)
-        ref = flash_attention(q, k, v, causal=True, window=w, impl="torch")
+        ref = flash_attention(q, k, v, window=w, impl="torch", **kw)
         want = torch.autograd.grad(ref, (q, k, v), do)
         key = "function_" + ("f32_rel" if dtype == torch.float32
                              else "bf16_ulps")
@@ -5783,7 +5863,7 @@ def check_flash_backward_griffin(dev) -> dict:
     return check_flash_backward_cases(
         dev, "Griffin's heads (H 10, KV 1, D 256)",
         [(hd, B, S, w) for B, S, w in GRIFFIN_BWD_CASES],
-        lambda kname, fn, args, w, S, got: (fn(*args, window=w + 1)
+        lambda kname, fn, args, w, S, got: (fn(*args[:5], window=w + 1)
                                             if w < S else None),
         "the window one key too wide",
         lambda key: any(str(c) in key for c in GRIFFIN_CONTROL_CASES),
@@ -5853,7 +5933,7 @@ def family_inputs(fam, dev, seed, layers=None):
     """``fam["arch"]`` at published width, cut to ``layers`` (default
     ``fam["layers"]``; None: all): the model, its parameters from ``seed``
     with the recurrent mixing leaves filled (``live_leaves``), and the
-    CLI's first batch (8 x 256)."""
+    CLI's first batch (8 x 256; the encoder-decoder's frames as many)."""
     import repro_torch.configs as configs
     from repro_torch.data import DataPipeline
     from repro_torch.models.zoo import build_model
@@ -5871,12 +5951,27 @@ def family_inputs(fam, dev, seed, layers=None):
     return model, params, batch
 
 
+def grad_batch(fam, batch, dev, seed) -> dict:
+    """The gradient check's batch: ``batch``, with the encoder-decoder's
+    frames (where ``fam`` names ``grad_frames``) redrawn from ``seed`` at
+    that many rows, so that its cross-attention runs with Sq != Skv (the
+    timed step keeps the pipeline's batch)."""
+    n = fam.get("grad_frames")
+    if n is None:
+        return batch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, _, d = batch["frames"].shape
+    return dict(batch, frames=torch.randn(B, n, d, device=dev,
+                                          generator=gen))
+
+
 def family_grad_compare(fam, model, params, batch, control) -> dict:
     """The gradient through the kernels against the plain versions', and
     the same reading of each of ``fam["controls"](control)``: (name, the
-    kernel's module, its wrapper, the control library's call or None for
-    the wrapper's second output (dk) zeroed), each breaking the first
-    launch alone.  Each reading is ``worst_grad_err``'s (stacked leaves by
+    kernel's module, its wrapper, a broken call or None for the wrapper's
+    second output (dk) zeroed), each breaking the first launch alone (a
+    broken call that returns None leaves that launch to the kernel and
+    breaks a later one; every control must break one).  Each reading is ``worst_grad_err``'s (stacked leaves by
     layer) over all leaves and over ``fam["group"]``'s.  For an MoE the
     plain run's expert ids are recorded and forced on each run through the
     kernels (``RouteLog(..., own_gates=True)``: the gates from that run's
@@ -5898,7 +5993,7 @@ def family_grad_compare(fam, model, params, batch, control) -> dict:
                                        stacked=fam["stacked"])
         return out
 
-    moe = bool(model.cfg.n_experts)
+    moe = has_moe_layers(model.cfg)
     with _routed(moe) as plain_log:
         loss_p, want = loss_grads(model, params, batch, "torch")
     norm_p = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
@@ -5923,11 +6018,14 @@ def family_grad_compare(fam, model, params, batch, control) -> dict:
         def broken(*a, kernel=kernel, lib=lib, broke=broke, **kw):
             if broke:
                 return kernel(*a, **kw)
-            broke.append(1)
             if lib is not None:
-                return lib(*a, **kw)
-            out = kernel(*a, **kw)
-            out[1].zero_()
+                out = lib(*a, **kw)
+            else:
+                out = kernel(*a, **kw)
+                out[1].zero_()
+            if out is None:
+                return kernel(*a, **kw)
+            broke.append(1)
             return out
 
         setattr(mod, attr, broken)
@@ -5936,6 +6034,8 @@ def family_grad_compare(fam, model, params, batch, control) -> dict:
                 _, bad = loss_grads(model, params, batch, "auto")
         finally:
             setattr(mod, attr, kernel)
+        check(bool(broke), f"{fam['arch']}'s {name} control broke no "
+                           f"launch")
         readings[name] = err(bad, want)
         del bad
     return dict(readings=readings, n_leaves=len(paths), layers=L,
@@ -6001,19 +6101,29 @@ def family_train(fam, dev, card, control) -> dict:
     model, params, batch = family_inputs(fam, dev, SEED)
     cfg = model.cfg
     part("set-up")
-    rec = family_grad_compare(fam, model, params, batch, control)
+    checked = grad_batch(fam, batch, dev, SEED)
+    rec = family_grad_compare(fam, model, params, checked, control)
     check_family_grads(fam, rec)
     part("gradient and controls")
+    # the plain step's metrics: its loss and the global norm of its
+    # gradient come before its clip and update, so they are the plain
+    # loss_grads' of the gradient check (the norm summed as the step sums
+    # it: each leaf's squares in f32, in leaf order), or of the step's own
+    # batch where the check took another
+    ref = {"loss": rec["loss_plain"], "grad_norm": rec["grad_norm_plain"],
+           "lr": 0.0}
+    del checked
+    if fam.get("grad_frames") is not None:
+        with _routed(has_moe_layers(cfg)):
+            loss_p, want = loss_grads(model, params, batch, "torch")
+        ref.update(loss=float(loss_p), grad_norm=float(torch.sqrt(
+            sum(torch.sum(torch.square(g.float())) for g in want))))
+        del want
+        part("the plain step's batch")
     gc.collect()
     torch.cuda.empty_cache()
     opt = make_optimizer(cfg, lr=3e-4)
     kw = dict(peak_lr=3e-4, warmup=10, total_steps=fam["steps"])
-    # the plain step's metrics: its loss and the global norm of its
-    # gradient come before its clip and update, so they are the plain
-    # loss_grads' of the gradient check (the norm summed as the step sums
-    # it: each leaf's squares in f32, in leaf order)
-    ref = {"loss": rec["loss_plain"], "grad_norm": rec["grad_norm_plain"],
-           "lr": 0.0}
     state = {"params": params, "opt": opt.init(params)}
     reset_all()
     state, m_k = make_train_step(model, opt, impl="auto", **kw)(state, batch)
@@ -6047,7 +6157,8 @@ def family_train(fam, dev, card, control) -> dict:
                grad_norm=got["grad_norm"],
                grad_norm_plain_step=ref["grad_norm"],
                step_launches=launches, parameters=n)
-    rec["step"] = time_train_step(model, opt, state, batch, card)
+    rec["step"] = time_train_step(model, opt, state, batch, card,
+                                  fam.get("timed_steps", TIMED_STEPS))
     say(f"train: {arch} at {cfg.n_layers} layers peaked at "
         f"{rec['step']['peak_allocated']} B allocated, "
         f"{rec['step']['peak_reserved']} B reserved, of the card's "
@@ -6123,16 +6234,18 @@ def backward_graph_ms(fwd, inputs, grad, dev, reps=10) -> float:
 
 
 def time_flash_backward(dev, card, label, B, S, hd, w=None) -> dict:
-    """The flash backward at (B, S) and ``hd``'s heads, bf16, with the
-    window ``w`` (or none): the tensor-core kernel (bf16's route) and the
-    CUDA-core one in turns by ``graph_ms`` (CUDA events around replays of
-    a CUDA graph of its calls: the device's time, no host issue and no
-    trace, which loses events late in this script), SDPA's backward of the
-    same function by ``backward_graph_ms`` (causal, or the window as a
-    boolean mask where it bites; the kernels it ran named from a trace),
-    the plain version and SDPA's backward again by ``event_us`` (CUDA
-    events around each eager call: the host's issue included), beside the
-    bound (``costs.flash_backward_cost`` with the window)."""
+    """The flash backward at (B, S) and ``hd``'s heads and form
+    (``attn_form``: S or (Sq, Skv), causal or not, Dv, the softmax scale),
+    bf16, with the window ``w`` (or none): the tensor-core kernel (bf16's
+    route) and the CUDA-core one in turns by ``graph_ms`` (CUDA events
+    around replays of a CUDA graph of its calls: the device's time, no
+    host issue and no trace, which loses events late in this script),
+    SDPA's backward of the same function by ``backward_graph_ms`` (causal,
+    non-causal, or the window as a boolean mask where it bites; the
+    kernels it ran named from a trace), the plain version and SDPA's
+    backward again by ``event_us`` (CUDA events around each eager call:
+    the host's issue included), beside the bound
+    (``costs.flash_backward_cost`` of the form)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -6140,27 +6253,31 @@ def time_flash_backward(dev, card, label, B, S, hd, w=None) -> dict:
         flash_attention_backward_torch,
     )
     ms = lambda fn, reps: event_us(fn, reps) / 1e3  # noqa: E731
-    q, k, v, do = attn_inputs(dev, B, S, torch.bfloat16, SEED + 4, **hd)
-    o = FK.flash_attention_cuda(q, k, v, causal=True, window=w, q_start=0,
-                                kv_len=S)
+    heads, Sq, Skv, kw = attn_form(hd, S)
+    q, k, v, do = attn_inputs(dev, B, Sq, torch.bfloat16, SEED + 4, Skv=Skv,
+                              **heads)
+    o = FK.flash_attention_cuda(q, k, v, window=w, q_start=0, kv_len=Skv,
+                                **kw)
     qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
-    masked = w is not None and w < S
-    sdpa_kw = (dict(attn_mask=window_mask(S, 0, S, w, dev)) if masked
-               else dict(is_causal=True))
+    masked = w is not None and w < Sq
+    sdpa_kw = (dict(attn_mask=window_mask(Sq, 0, Skv, w, dev)) if masked
+               else dict(is_causal=kw["causal"]))
 
     def sdpa_fwd(qs, ks, vs):
-        return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
-                                              **sdpa_kw)
+        return F.scaled_dot_product_attention(
+            qs, ks, vs, enable_gqa=True, scale=kw["softmax_scale"],
+            **sdpa_kw)
 
     so = sdpa_fwd(qs, ks, vs)
     dos = do.transpose(1, 2)
     fns = {
         "simple": lambda: FK.flash_backward_simple_cuda(q, k, v, o, do,
-                                                        window=w),
-        "kernel": lambda: FK.flash_backward_cuda(q, k, v, o, do, window=w),
+                                                        window=w, **kw),
+        "kernel": lambda: FK.flash_backward_cuda(q, k, v, o, do, window=w,
+                                                 **kw),
         "plain": lambda: flash_attention_backward_torch(q, k, v, o, do,
-                                                        window=w),
+                                                        window=w, **kw),
         "sdpa": lambda: torch.autograd.grad(so, (qs, ks, vs), dos,
                                             retain_graph=True),
     }
@@ -6172,23 +6289,28 @@ def time_flash_backward(dev, card, label, B, S, hd, w=None) -> dict:
               sdpa=backward_graph_ms(sdpa_fwd, (qs, ks, vs), dos, dev),
               sdpa_eager=ms(fns["sdpa"], 10))
     backend = kernel_names(fns["sdpa"])
-    flops, nbytes = costs.flash_backward_cost(B, S, hd["H"], hd["KV"],
-                                              hd["D"], 2, window=w)
+    flops, nbytes = costs.flash_backward_cost(
+        B, Sq, hd["H"], hd["KV"], hd["D"], 2, Skv=Skv, Dv=v.shape[3],
+        causal=kw["causal"], window=w)
     bound = (nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3)
-    out = dict(shape=[B, S, hd["H"], hd["KV"], hd["D"], w], ms=tb["kernel"],
+    form = ("causal" if kw["causal"] else "non-causal") + (
+        "" if Sq == Skv else f", Sq {Sq}, Skv {Skv}")
+    out = dict(shape=[B, Sq, Skv, hd["H"], hd["KV"], hd["D"], v.shape[3],
+                      w, kw["causal"]], ms=tb["kernel"],
                simple_ms=tb["simple"], turns_ms=turns, plain_ms=tb["plain"],
                library_ms=tb["sdpa"], sdpa_kernels=backend,
                library_eager_ms=tb["sdpa_eager"], bound_ms=max(bound),
                bound_by="bytes" if bound[0] >= bound[1] else "operations")
     say(f"timing: flash backward at {label} (B {B}, S {S}, H {hd['H']}, KV "
-        f"{hd['KV']}, D {hd['D']}, window {w}, bf16), us per call in a "
-        f"replayed graph: tensor-core kernel {tb['kernel'] * 1e3:.2f} (in "
-        f"turns {turns['kernel'][0] * 1e3:.2f}, "
+        f"{hd['KV']}, (D, Dv) ({hd['D']}, {v.shape[3]}), {form}, window {w},"
+        f" bf16), us per call in a replayed graph: tensor-core kernel "
+        f"{tb['kernel'] * 1e3:.2f} (in turns "
+        f"{turns['kernel'][0] * 1e3:.2f}, "
         f"{turns['kernel'][1] * 1e3:.2f}), CUDA-core kernel "
         f"{tb['simple'] * 1e3:.2f}, bound {max(bound) * 1e3:.3f} "
         f"({out['bound_by']}; {nbytes} bytes {bound[0] * 1e3:.3f}, {flops} "
         f"operations {bound[1] * 1e3:.3f}), SDPA's backward "
-        f"{tb['sdpa'] * 1e3:.2f} ({'boolean mask' if masked else 'causal'};"
+        f"{tb['sdpa'] * 1e3:.2f} ({'boolean mask' if masked else form};"
         f" its kernels {[n[:60] for n in backend or []]}); eager, CUDA "
         f"events: plain {tb['plain'] * 1e3:.2f}, SDPA's backward "
         f"{tb['sdpa_eager'] * 1e3:.2f} [{card}]")
@@ -6632,6 +6754,212 @@ def decoders_train(dev, card) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 9, the last two families: the flash backward non-causal with Sq !=
+# Skv (seamless-m4t-medium) and at (192, 128) (deepseek-v3-671b's MLA),
+# both families trained at published width
+# ---------------------------------------------------------------------------
+
+SEAMLESS, DEEPSEEK = "seamless-m4t-medium", "deepseek-v3-671b"
+# the non-causal form at (64, 64): seamless-m4t-medium's heads (16 over 16)
+# and a grouped layout (8 over 2); (B, (Sq, Skv)): the training shape, the
+# cross-attention's frames longer and shorter than the tokens, and a short
+# ragged one
+NONCAUSAL_HEADS = {"seamless": dict(H=SEAMLESS_H, KV=SEAMLESS_H,
+                                    D=SEAMLESS_D, causal=False),
+                   "G 4": dict(H=8, KV=2, D=SEAMLESS_D, causal=False)}
+NONCAUSAL_CASES = ((TRAIN_BATCH, (TRAIN_SEQ, TRAIN_SEQ)), (2, (200, 384)),
+                   (2, (384, 200)), (2, (17, 100)))
+# (192, 128) causal at MLA's softmax scale: deepseek-v3-671b's heads (128,
+# each its own KV head) and a grouped layout (8 over 2); (B, S)
+MLA_HEADS = {"deepseek": dict(H=MLA_H, KV=MLA_H, D=MLA_D, Dv=MLA_DV,
+                              scale=MLA_SCALE),
+             "G 4": dict(H=8, KV=2, D=MLA_D, Dv=MLA_DV, scale=MLA_SCALE)}
+MLA_CASES = ((TRAIN_BATCH, TRAIN_SEQ), (2, 200), (2, 17))
+# seamless-m4t-medium's gradient check runs its frames at this many rows
+# against the tokens' TRAIN_SEQ: the cross-attention's Sq != Skv
+SEAMLESS_GRAD_FRAMES = 384
+
+
+def noncausal_control(kname, fn, args, window, S, got):
+    """The non-causal form's control, each kernel: at Sq = Skv the same
+    kernel run causal (the loop bounds of the form it replaces); at Skv >
+    Sq dK's last key tile zeroed (keys the queries' length would cut); at
+    Sq > Skv dQ's last query tile zeroed (queries the keys' length would
+    cut)."""
+    q, k, v, o, do, kw = args
+    Sq, Skv = S
+    if Sq == Skv:
+        return fn(q, k, v, o, do, window=window, **dict(kw, causal=True))
+    dq, dk, dv = (t.clone() for t in got)
+    if Skv > Sq:
+        dk[:, (Skv - 1) // 64 * 64:] = 0
+    else:
+        dq[:, (Sq - 1) // 64 * 64:] = 0
+    return dq, dk, dv
+
+
+def dv_cols_zeroed(kname, fn, args, window, S, got):
+    """The (192, 128) control, each kernel: dV's last 64 columns (its
+    second column block) zeroed."""
+    dv = got[2].clone()
+    dv[..., 64:] = 0
+    return got[0], got[1], dv
+
+
+def check_flash_backward_new_forms(dev) -> dict:
+    """``check_flash_backward_cases`` at the two new forms: non-causal at
+    each of NONCAUSAL_HEADS and NONCAUSAL_CASES (``noncausal_control``),
+    and (192, 128) causal at each of MLA_HEADS and MLA_CASES
+    (``dv_cols_zeroed``), every control above the limit in every case;
+    ``FlashAttentionFn`` non-causal at (2, (200, 384)) in f32 (G 4) and at
+    the cross-attention's (8, (256, 384)) in bf16 (seamless's heads), at
+    (192, 128) at (2, 200) in f32 (G 4) and (8, 256) in bf16 (deepseek's
+    heads).  Returns both readings."""
+    nc, mla = NONCAUSAL_HEADS, MLA_HEADS
+    out = {"noncausal": check_flash_backward_cases(
+        dev, "non-causal (64, 64), seamless-m4t-medium's heads and G 4",
+        [(hd, B, S, None) for hd in nc.values() for B, S in NONCAUSAL_CASES],
+        noncausal_control,
+        "the kernel run causal (Sq = Skv), dK's last key tile (Skv > Sq) or "
+        "dQ's last query tile (Sq > Skv) zeroed", lambda key: True,
+        [(nc["G 4"], 2, (200, 384), None, torch.float32),
+         (nc["seamless"], TRAIN_BATCH, (TRAIN_SEQ, SEAMLESS_GRAD_FRAMES),
+          None, torch.bfloat16)])}
+    out["mla"] = check_flash_backward_cases(
+        dev, "(192, 128) causal at MLA's scale, deepseek-v3-671b's heads and "
+             "G 4",
+        [(hd, B, S, None) for hd in mla.values() for B, S in MLA_CASES],
+        dv_cols_zeroed, "dV's last 64 columns zeroed", lambda key: True,
+        [(mla["G 4"], 2, 200, None, torch.float32),
+         (mla["deepseek"], TRAIN_BATCH, TRAIN_SEQ, None, torch.bfloat16)])
+    return out
+
+
+def time_new_forms(dev, card) -> dict:
+    """The new forms' backward (``time_flash_backward``) at the training
+    shapes: seamless's encoder (B 8, S 256, non-causal), its
+    cross-attention (Sq 256 over Skv 384: the gradient check's frames) and
+    deepseek's MLA (B 8, S 256, (192, 128))."""
+    nc = NONCAUSAL_HEADS["seamless"]
+    return {
+        "seamless encoder": time_flash_backward(
+            dev, card, "seamless-m4t-medium's encoder", TRAIN_BATCH,
+            (TRAIN_SEQ, TRAIN_SEQ), nc),
+        "seamless cross": time_flash_backward(
+            dev, card, "seamless-m4t-medium's cross-attention",
+            TRAIN_BATCH, (TRAIN_SEQ, SEAMLESS_GRAD_FRAMES), nc),
+        "deepseek MLA": time_flash_backward(
+            dev, card, "deepseek-v3-671b's MLA", TRAIN_BATCH, TRAIN_SEQ,
+            MLA_HEADS["deepseek"])}
+
+
+def seamless_controls(control):
+    """seamless-m4t-medium's gradient controls: the first flash backward's
+    dK zeroed (the last decoder layer's cross-attention); the first
+    non-causal backward with Sq = Skv (the last encoder layer's
+    self-attention: the decoder's cross-attention runs Sq != Skv in the
+    check) run causal."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    kernel = FK.flash_backward_cuda
+
+    def as_causal(q, k, v, o, do, **kw):
+        if kw.get("causal", True) or q.shape[1] != k.shape[1]:
+            return None
+        return kernel(q, k, v, o, do, **dict(kw, causal=True))
+
+    return (("dk", FK, "flash_backward_cuda", None),
+            ("causal", FK, "flash_backward_cuda", as_causal))
+
+
+def mla_controls(control):
+    """deepseek-v3-671b's gradient controls, each in the first flash
+    backward (the MTP block's attention, the last in the forward): KV head
+    0's dK zeroed; dV's last 64 columns zeroed (the Dv tiling's second
+    column block)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    kernel = FK.flash_backward_cuda
+
+    def kv0(*a, **kw):
+        dq, dk, dv = kernel(*a, **kw)
+        dk[:, :, 0] = 0
+        return dq, dk, dv
+
+    def dv_cols(*a, **kw):
+        dq, dk, dv = kernel(*a, **kw)
+        dv[..., 64:] = 0
+        return dq, dk, dv
+
+    return (("dk_kv0", FK, "flash_backward_cuda", kv0),
+            ("dv_cols", FK, "flash_backward_cuda", dv_cols))
+
+
+# The last two families' training (``family_train``) at published width,
+# B 8 x S 256, remat "block".  seamless-m4t-medium: all 12 + 12 layers
+# under AdamW (0.88 B parameters), its gradient check at
+# SEAMLESS_GRAD_FRAMES frames; its CLI at SEAMLESS_CLI_LAYERS layers of
+# each stack (cut_depth cuts the encoder alike).
+# deepseek-v3-671b: its three dense layers and the MTP block (3.6 B
+# parameters, each MLA at 128 heads of (192, 128)) under its config's
+# Adafactor; its first MoE layer (layer 4: 256 experts of 3 x 7168 x 2048,
+# 11.3 B parameters) does not fit one card beside its gradient and
+# Adafactor's f32 temporaries; its CLI at one layer (with the MTP block),
+# whose checkpoint holds Adafactor's factored vr / vc.
+SEAMLESS_CLI_LAYERS, DEEPSEEK_LAYERS, DEEPSEEK_CLI_LAYERS = 1, 3, 1
+LAST_STEPS, LAST_CKPT_EVERY, LAST_TIMED_STEPS = 3, 2, 2
+# Limits from the sound readings over seeds 0-2 (tools/
+# last_families_probe.py grads, H100 80GB HBM3 at 700 W): deepseek-v3-671b
+# 1.31e-2-1.38e-2 keeps llama's 3e-2 (its controls 6.15e-2-0.165 and
+# 0.707-0.736); seamless-m4t-medium 0.112-0.120 (at the decoder's
+# cross-attention and ln_x), which is bf16's noise: against the f32 plain
+# gradient (seed 0; `noise`) the bf16 kernels read 0.128, the bf16 plain
+# versions 0.127, the f32 kernels 1.03e-3; so 0.18, its controls reading
+# 1.0 and 3.68-3.72
+LAST_GRAD_RTOL = {SEAMLESS: 0.18, DEEPSEEK: 3e-2}
+SEAMLESS_TRAIN = dict(
+    arch=SEAMLESS, layers=None, rtol=LAST_GRAD_RTOL[SEAMLESS],
+    group=("attn", "attn", "the attention's"), controls=seamless_controls,
+    controls_said="dk: the last decoder layer's cross-attention dK zeroed, "
+                  "causal: the last encoder layer's backward run causal",
+    steps=LAST_STEPS, ckpt_every=LAST_CKPT_EVERY,
+    cli_layers=SEAMLESS_CLI_LAYERS, stacked=None, routes=sm90_routes,
+    grad_frames=SEAMLESS_GRAD_FRAMES, timed_steps=LAST_TIMED_STEPS)
+DEEPSEEK_TRAIN = dict(
+    arch=DEEPSEEK, layers=DEEPSEEK_LAYERS, rtol=LAST_GRAD_RTOL[DEEPSEEK],
+    group=("attn", "/attn/", "the attention's"), controls=mla_controls,
+    controls_said="dk_kv0: the MTP block's KV head 0 dK zeroed, dv_cols: "
+                  "its dV's last 64 columns zeroed",
+    steps=LAST_STEPS, ckpt_every=LAST_CKPT_EVERY,
+    cli_layers=DEEPSEEK_CLI_LAYERS, stacked=None, routes=sm90_routes,
+    timed_steps=LAST_TIMED_STEPS)
+LAST_TRAINS = (SEAMLESS_TRAIN, DEEPSEEK_TRAIN)
+
+
+def last_families_train(dev, card) -> dict:
+    """Phase 9's last two families: the new forms' backward checks
+    (``check_flash_backward_new_forms``), each of LAST_TRAINS through
+    ``family_train``, the new forms' times (``time_new_forms``).  Returns
+    the block's record, its seconds by part."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    rec = {"checks": check_flash_backward_new_forms(dev)}
+    part("the new forms' checks")
+    for fam in LAST_TRAINS:
+        rec[fam["arch"]] = family_train(fam, dev, card, None)
+        part(fam["arch"])
+    rec["times"] = time_new_forms(dev, card)
+    part("the new forms' times")
+    rec["seconds"] = time.perf_counter() - t0
+    rec["parts_s"] = parts
+    say(f"train: the last two families' block took {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]")
+    return rec
+
+
 def phase_train(dev, card, err, control, wkv6_control
                 ) -> tuple[list, dict]:
     """The train path: the backward kernels against their plain versions
@@ -6646,7 +6974,9 @@ def phase_train(dev, card, err, control, wkv6_control
     and the backward's time; then the dense and MoE decoders
     (``decoders_train``: the flash backward at (128, 128), starcoder2-7b,
     granite-moe-3b-a800m and gemma-7b trained, granite-20b's and
-    chameleon-34b's gradients).  ``control`` and ``wkv6_control`` are the
+    chameleon-34b's gradients); then the last two families
+    (``last_families_train``: the flash backward non-causal and at (192,
+    128), seamless-m4t-medium and deepseek-v3-671b trained).  ``control`` and ``wkv6_control`` are the
     RG-LRU's and the WKV-6's control backwards.  Returns (the
     flash_backward, rglru_backward and wkv6_backward rows of the kernels
     JSON, the phase's record)."""
@@ -6699,6 +7029,11 @@ def phase_train(dev, card, err, control, wkv6_control
     err["flash_backward"] = max(err["flash_backward"],
                                 dec["d128_checks"]["max_abs_err"])
     part("the dense and MoE decoders")
+    rec["last"] = last = last_families_train(dev, card)
+    err["flash_backward"] = max(err["flash_backward"],
+                                *(c["max_abs_err"]
+                                  for c in last["checks"].values()))
+    part("the last two families")
     rec["parts_s"] = parts
     b = flash["backward"]
     routes = rec["cli"]["backward_routes"]
@@ -6731,7 +7066,13 @@ def phase_train(dev, card, err, control, wkv6_control
             launches=dec[fam["arch"]]["cli"]["launches"]["flash_backward"],
             launches_a_step=dec[fam["arch"]]["step_launches"][
                 "flash_backward"])
-            for fam in DECODER_TRAINS})
+            for fam in DECODER_TRAINS},
+        new_forms=dict(errors=last["checks"], shapes=last["times"]),
+        last_families={fam["arch"]: dict(
+            launches=last[fam["arch"]]["cli"]["launches"]["flash_backward"],
+            launches_a_step=last[fam["arch"]]["step_launches"][
+                "flash_backward"])
+            for fam in LAST_TRAINS})
     g = gk["rglru_backward"]
     rg_row = dict(
         name="rglru_backward", route="cuda",
@@ -7230,7 +7571,7 @@ def dryrun_rwkv6(dev, card) -> dict:
                                                      RWKV_CLI_LAYERS))
 
 
-def phase_dryrun(dev, card) -> dict:
+def phase_dryrun(dev, card, procs=None, started=None) -> dict:
     """Phase 15: the dry-run.  (a) llama3.2-1b's train step and an eager
     decode step, full width, unsharded, on real tensors under the counting
     mode: each kernel's counted launches equal its ``LAUNCHES`` delta; (b)
@@ -7241,7 +7582,9 @@ def phase_dryrun(dev, card) -> dict:
     over a fake 256-rank group (started first, in processes of their own):
     exit 0, records written, max RSS under DRYRUN_RSS_BYTES, llama's train
     record 32 ``flash_prefill`` and 16 ``flash_backward`` a device; (e)
-    ``dryrun_griffin``; (f) ``dryrun_rwkv6``.  Returns its record."""
+    ``dryrun_griffin``; (f) ``dryrun_rwkv6``.  ``procs``: (d)'s processes
+    where the caller started them (``dryrun_start``, at ``started`` on the
+    host clock), else they start here.  Returns its record."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     import repro_torch.configs as configs
@@ -7257,7 +7600,8 @@ def phase_dryrun(dev, card) -> dict:
 
     t0 = time.perf_counter()
     out_dir = ROOT / "chiprun_out" / "dryrun"
-    procs = dryrun_start(out_dir)
+    if procs is None:
+        procs, started = dryrun_start(out_dir), t0
     try:
         cfg = configs.get("llama3.2-1b")
         model = build_model(cfg)
@@ -7380,7 +7724,7 @@ def phase_dryrun(dev, card) -> dict:
         rec["peaks"] = peaks
         parts["timed"] = time.perf_counter() - t0 - sum(parts.values())
         # (d) the CLI's cells
-        ran = dryrun_wait(procs, t0 + DRYRUN_TIMEOUT_S)
+        ran = dryrun_wait(procs, started + DRYRUN_TIMEOUT_S)
         parts["cli wait"] = time.perf_counter() - t0 - sum(parts.values())
     finally:
         for *_, p in procs:
@@ -7615,6 +7959,24 @@ def main() -> int:
     say("timing: train: " + json.dumps(train_rec) + f" [{card}]")
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
+    # the dry-run's CLI cells (phase 15 (d)) start here, in processes of
+    # their own, and run beside phases 14 and 13 (host-bound, on fake
+    # tensors: no launch, nothing allocated on the card)
+    dry_started = time.perf_counter()
+    dry_procs = dryrun_start(ROOT / "chiprun_out" / "dryrun")
+    try:
+        return finish(dev, card, t_start, rows, chaos, dry_procs,
+                      dry_started)
+    finally:
+        for *_, p in dry_procs:
+            if p.returncode is None:
+                p.kill()
+                p.wait()
+
+
+def finish(dev, card, t_start, rows, chaos, dry_procs, dry_started) -> int:
+    """Phases 14, 13 and 15 and the last lines (``main``'s tail, while the
+    dry-run's CLI processes run)."""
     # the sharded path at world size 1: each count from 0 in its run
     par = phase_parallel(dev, card)
     par_rows = {"flash_attention": ("serve", ("flash_decode",
@@ -7645,7 +8007,7 @@ def main() -> int:
 
     # the dry-run: the counting mode on real and fake tensors, the CLI on
     # the card's routes over a fake 256-rank group
-    dry = phase_dryrun(dev, card)
+    dry = phase_dryrun(dev, card, dry_procs, dry_started)
     for r in rows:
         if r["name"] in ("flash_attention", "flash_backward"):
             r["dryrun"] = {k: v for k, v in dry["cli"][

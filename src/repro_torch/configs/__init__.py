@@ -63,8 +63,8 @@ def smoke(name: str) -> ArchConfig:
 
 def cut_depth(cfg: ArchConfig, n_layers: int | None) -> ArchConfig:
     """``cfg`` with its first ``n_layers`` layers (leading dense layers
-    kept up to that depth), every width as it was; ``cfg`` itself for
-    None."""
+    kept up to that depth; an encoder-decoder's encoder cut alike), every
+    width as it was; ``cfg`` itself for None."""
     if n_layers is None:
         return cfg
     if not 1 <= n_layers <= cfg.n_layers:
@@ -72,7 +72,8 @@ def cut_depth(cfg: ArchConfig, n_layers: int | None) -> ArchConfig:
                          f"cut it to {n_layers}")
     return dataclasses.replace(
         cfg, n_layers=n_layers,
-        n_dense_layers=min(cfg.n_dense_layers, n_layers))
+        n_dense_layers=min(cfg.n_dense_layers, n_layers),
+        encoder_layers=min(cfg.encoder_layers, n_layers))
 
 
 __all__ = [

@@ -32,11 +32,14 @@ def needs_grad(*tensors) -> bool:
 
 
 class NoBackward(NotImplementedError):
-    """A call on the card needs a gradient that no backward kernel takes
-    yet (ROADMAP B): attention outside the flash backward's form (head
-    dims other than (64, 64), (128, 128) and (256, 256), a non-causal
-    call, an offset or a cut ``kv_len``), or an arena op.  The dry-run writes a train cell
-    that raises it as not applicable."""
+    """A call on the card needs a gradient that no backward kernel takes:
+    attention outside the flash backward's forms (``kernel.
+    check_backward``: an offset or a cut ``kv_len``, a causal call with
+    ``Sq != Skv``, a window on a non-causal call, causal head dims other
+    than (64, 64), (128, 128), (192, 128) and (256, 256), non-causal ones
+    other than (64, 64)), or an arena op.  No config the port trains makes
+    such a call.  The dry-run writes a train cell that raises it as not
+    applicable."""
 
 
 def no_backward(op: str, kernel: str) -> NoBackward:

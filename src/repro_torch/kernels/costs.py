@@ -72,18 +72,24 @@ def flash_cost(B: int, Sq: int, H: int, D: int, Skv: int, KV: int, Dv: int,
 
 
 def flash_backward_cost(B: int, S: int, H: int, KV: int, D: int,
-                        esz: int, *, window: int | None = None
-                        ) -> tuple[int, int]:
-    """One causal backward in its training form (q, o, dO and dq ``(B, S,
-    H, D)``, k, v, dk, dv ``(B, S, KV, D)``), with or without a window:
-    q, k, v, o and dO read once, dq, dk and dv written once (a window
-    still reads every key); five products (the scores recomputed, dP, dV,
-    dK, dQ) of ``2 D`` flops per live (query, key) pair and head
-    (:func:`attention_pairs`)."""
-    nbytes = esz * (4 * B * S * H * D + 4 * B * S * KV * D)
-    live, _ = attention_pairs(S, q_start=0, kv_len=S, causal=True,
+                        esz: int, *, Skv: int | None = None,
+                        Dv: int | None = None, causal: bool = True,
+                        window: int | None = None) -> tuple[int, int]:
+    """One backward in a training form: q and dq ``(B, S, H, D)``, o and
+    dO ``(B, S, H, Dv)``, k and dk ``(B, Skv, KV, D)``, v and dv ``(B,
+    Skv, KV, Dv)`` (``Skv`` default ``S``, ``Dv`` default ``D``), causal
+    (``Skv = S``, with or without a window) or not: q, k, v, o and dO read
+    once, dq, dk and dv written once (a window still reads every key);
+    five products per live (query, key) pair and head
+    (:func:`attention_pairs`, as :func:`flash_cost` counts the forward's
+    pairs): the scores recomputed, dK and dQ over ``D`` (``2 D`` flops
+    each), dP and dV over ``Dv`` (``2 Dv`` each)."""
+    Skv = S if Skv is None else Skv
+    Dv = D if Dv is None else Dv
+    nbytes = esz * 2 * (D + Dv) * (B * S * H + B * Skv * KV)
+    live, _ = attention_pairs(S, q_start=0, kv_len=Skv, causal=causal,
                               window=window)
-    return 5 * 2 * B * H * D * live, nbytes
+    return 2 * (3 * D + 2 * Dv) * B * H * live, nbytes
 
 
 def wkv6_cost(B: int, T: int, H: int, N: int, esz: int, *,

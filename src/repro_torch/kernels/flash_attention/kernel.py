@@ -20,13 +20,15 @@ built when this module is imported:
                                  ``Sq * G > 16``, and the (16, 16) pair
                                  with ``Sq * G > 16``, at a host
                                  position;
-  * ``flash_backward_sm90.cu`` -- the gradient (dq, dk, dv) of causal
-                                 attention in its training form (q_start
-                                 0, Sq = Skv, with or without a window) on
-                                 the tensor cores (``wgmma``), bf16 at (D,
-                                 Dv) in :data:`BACKWARD_HEAD_DIMS`: one
-                                 entry that launches its two kernels (dQ
-                                 with each row's log-sum-exp, then dK/dV),
+  * ``flash_backward_sm90.cu`` -- the gradient (dq, dk, dv) of attention
+                                 in its training forms (q_start 0; causal
+                                 with Sq = Skv, with or without a window,
+                                 at (D, Dv) in :data:`BACKWARD_HEAD_DIMS`,
+                                 or non-causal with any Sq and Skv at
+                                 :data:`NONCAUSAL_HEAD_DIMS`) on the
+                                 tensor cores (``wgmma``), bf16: one entry
+                                 that launches its two kernels (dQ with
+                                 each row's log-sum-exp, then dK/dV),
                                  each block one tile of 64 rows and 64
                                  columns (:func:`backward_grid`);
   * ``flash_backward.cu``     -- the same gradient on CUDA cores, for f32
@@ -121,17 +123,22 @@ PREFILL_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
 PREFILL_TILE = 64
 PREFILL_STAGES = {(64, 64): 4, (128, 128): 3, (192, 128): 2, (256, 256): 2}
 
-#: (D, Dv) pairs the backward kernels take (bf16 or f32): llama3.2-1b's
-#: and granite-moe's; starcoder2-7b's, granite-20b's and chameleon-34b's;
-#: gemma-7b's and recurrentgemma-2b's
-BACKWARD_HEAD_DIMS = ((64, 64), (128, 128), (256, 256))
+#: (D, Dv) pairs the backward kernels take causal (bf16 or f32):
+#: llama3.2-1b's and granite-moe's; starcoder2-7b's, granite-20b's and
+#: chameleon-34b's; deepseek-v3-671b's MLA (nope + rope, v); gemma-7b's and
+#: recurrentgemma-2b's
+BACKWARD_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
+#: the pairs they also take non-causal, any Sq and Skv: seamless-m4t-
+#: medium's encoder self-attention and its decoder's cross-attention
+NONCAUSAL_HEAD_DIMS = ((64, 64),)
 #: kTile and kCol of csrc/flash_backward_sm90.cu: rows of every tile (64
 #: query rows a dQ block, 64 keys a dK/dV block) and the columns of a
 #: block's accumulators (a tile of D columns is D / 64 blocks)
 BACKWARD_TILE = BACKWARD_COLS = 64
-#: ``Config<D>::kDqStages`` and ``kDkdvStages``: the stages of each
-#: kernel's copy ring, by head dim
-BACKWARD_STAGES = {64: (2, 3), 128: (2, 2), 256: (2, 2)}
+#: ``Config<D, Dv>::kDqStages`` and ``kDkdvStages``: the stages of each
+#: kernel's copy ring, by head dims
+BACKWARD_STAGES = {(64, 64): (2, 3), (128, 128): (2, 2), (192, 128): (2, 2),
+                   (256, 256): (2, 2)}
 
 #: rows (Sq * G) of a row block of the split-K decode: the route for every
 #: call of at most this many rows, and the block a call of more rows (at a
@@ -186,11 +193,11 @@ _ARGS = {
                      "q_pos", "q_pos_stride", "kv_pos", "kv_pos_stride",
                      "stream"],
     "flash_backward": ["is_bf16", "q", "k", "v", "o", "do", "dq", "dk", "dv",
-                       "lse", "delta", "B", "S", "H", "KV", "D", "window",
-                       "scale", "stream"],
+                       "lse", "delta", "B", "Sq", "Skv", "H", "KV", "D", "Dv",
+                       "window", "causal", "scale", "stream"],
     "flash_backward_sm90": ["q", "k", "v", "o", "do", "dq", "dk", "dv", "lse",
-                            "delta", "B", "S", "H", "KV", "D", "Dv",
-                            "window", "scale", "stream"],
+                            "delta", "B", "Sq", "Skv", "H", "KV", "D", "Dv",
+                            "window", "causal", "scale", "stream"],
 }
 _CTYPE = {"q": ctypes.c_void_p, "k": ctypes.c_void_p, "v": ctypes.c_void_p,
           "o": ctypes.c_void_p, "part": ctypes.c_void_p,
@@ -583,11 +590,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int | None,
 
 def check_backward(q, k, v, *, causal=True, window=None, q_start=0,
                    kv_len=None) -> None:
-    """Raise unless a call is the training form the backward takes:
-    causal, ``q_start`` the host int 0, ``kv_len`` None or ``Skv``, ``Sq ==
-    Skv``, no window or an int window >= 1 (keys at or before ``q -
-    window`` masked, as in the forward); on the card also a dtype and (D,
-    Dv) that :func:`pick_backward_route` gives a kernel."""
+    """Raise unless a call is a training form the backward takes:
+    ``q_start`` the host int 0 and ``kv_len`` None or ``Skv``, and either
+    causal with ``Sq == Skv``, no window or an int window >= 1 (keys at or
+    before ``q - window`` masked, as in the forward), or non-causal with
+    any ``Sq`` and ``Skv`` and no window; on the card also a dtype and (D,
+    Dv) that :func:`pick_backward_route` gives a kernel for the form."""
     Sq, Skv = q.shape[1], k.shape[1]
     if torch.is_tensor(q_start) or torch.is_tensor(kv_len):
         raise NotImplementedError(
@@ -596,29 +604,31 @@ def check_backward(q, k, v, *, causal=True, window=None, q_start=0,
     if window is not None and (isinstance(window, bool)
                                or not isinstance(window, int) or window < 1):
         raise ValueError(f"window {window!r} must be an int >= 1 or None")
-    if not causal or q_start != 0 \
-            or (kv_len is not None and kv_len != Skv) or Sq != Skv:
+    if q_start != 0 or (kv_len is not None and kv_len != Skv) \
+            or (causal and Sq != Skv) or (not causal and window is not None):
         raise NoBackward(
-            f"the flash backward takes causal attention with q_start 0 and "
-            f"kv_len = Skv = Sq only (a window or none), got "
-            f"causal={causal}, window={window}, q_start={q_start}, "
-            f"kv_len={kv_len}, Sq={Sq}, Skv={Skv} (other forms wait for "
-            f"ROADMAP B)")
+            f"the flash backward takes q_start 0 and kv_len = Skv, causal "
+            f"with Sq = Skv (a window or none) or non-causal without a "
+            f"window, got causal={causal}, window={window}, "
+            f"q_start={q_start}, kv_len={kv_len}, Sq={Sq}, Skv={Skv}")
     if q.is_cuda:
-        pick_backward_route(q.dtype, q.shape[3], v.shape[3])
+        pick_backward_route(q.dtype, q.shape[3], v.shape[3], causal=causal)
 
 
-def pick_backward_route(dtype: torch.dtype, D: int, Dv: int) -> str:
+def pick_backward_route(dtype: torch.dtype, D: int, Dv: int, *,
+                        causal: bool = True) -> str:
     """Which kernel takes a backward call: ``"sm90"`` (the tensor-core
-    kernel) for bf16, ``"simple"`` (the CUDA-core kernel) for f32, both at
-    (D, Dv) in :data:`BACKWARD_HEAD_DIMS`, with or without a window; raises
-    for any other form.  (A tensor-core f32 path, TF32, would miss f32's
-    1e-4 check.)"""
-    if (D, Dv) not in BACKWARD_HEAD_DIMS or dtype not in _SUFFIX:
+    kernel) for bf16, ``"simple"`` (the CUDA-core kernel) for f32, both
+    causal at (D, Dv) in :data:`BACKWARD_HEAD_DIMS`, with or without a
+    window, and non-causal at :data:`NONCAUSAL_HEAD_DIMS`; raises for any
+    other form.  (A tensor-core f32 path, TF32, would miss f32's 1e-4
+    check.)"""
+    dims = BACKWARD_HEAD_DIMS if causal else NONCAUSAL_HEAD_DIMS
+    if (D, Dv) not in dims or dtype not in _SUFFIX:
         raise NoBackward(
             f"the flash backward kernels take bf16 or f32 at (D, Dv) in "
-            f"{BACKWARD_HEAD_DIMS}, got {dtype} at {(D, Dv)} (other head "
-            f"dims wait for ROADMAP B)")
+            f"{dims} {'causal' if causal else 'non-causal'}, got {dtype} "
+            f"at {(D, Dv)}")
     return "sm90" if dtype == torch.bfloat16 else "simple"
 
 
@@ -630,26 +640,32 @@ def backward_tiles(S: int) -> int:
 def backward_cols(D: int) -> int:
     """Column blocks of a tile of ``D`` columns: the blocks of each (batch
     row, head, tile), each holding :data:`BACKWARD_COLS` columns of its
-    dQ, or of its dK and dV."""
+    dQ, or of its dK and (where Dv has them) dV."""
     return -(-D // BACKWARD_COLS)
 
 
-def backward_key_tiles(qt: int, S: int, window: int | None
-                       ) -> tuple[int, int]:
+def backward_key_tiles(qt: int, S: int, window: int | None, *,
+                       causal: bool = True) -> tuple[int, int]:
     """``(first, n)``: the key tiles a dQ block of query tile ``qt``
-    visits, from the one holding its first row's first live key (``q0 -
-    window + 1``) to its diagonal."""
+    visits over ``S`` keys: causal, from the one holding its first row's
+    first live key (``q0 - window + 1``) to its diagonal; non-causal,
+    every key tile."""
+    if not causal:
+        return 0, backward_tiles(S)
     q0 = qt * BACKWARD_TILE
     w = S if window is None else min(window, S)
     t0 = max(0, q0 - w + 1) // BACKWARD_TILE
     return t0, qt - t0 + 1
 
 
-def backward_query_tiles(kt: int, S: int, window: int | None
-                         ) -> tuple[int, int]:
+def backward_query_tiles(kt: int, S: int, window: int | None, *,
+                         causal: bool = True) -> tuple[int, int]:
     """``(first, n)``: the query tiles a dK/dV block of key tile ``kt``
-    visits, from its diagonal to the one holding the last query whose
-    window reaches its last key (``k0 + 63 + window - 1``)."""
+    visits over ``S`` queries: causal, from its diagonal to the one
+    holding the last query whose window reaches its last key (``k0 + 63 +
+    window - 1``); non-causal, every query tile."""
+    if not causal:
+        return 0, backward_tiles(S)
     w = S if window is None else min(window, S)
     last = min(backward_tiles(S) - 1,
                (kt * BACKWARD_TILE + BACKWARD_TILE - 1 + w - 1)
@@ -657,21 +673,23 @@ def backward_query_tiles(kt: int, S: int, window: int | None
     return kt, last - kt + 1
 
 
-def backward_grid(B: int, S: int, H: int, KV: int, D: int = 64
-                  ) -> tuple[int, int]:
+def backward_grid(B: int, S: int, H: int, KV: int, D: int = 64, *,
+                  Skv: int | None = None) -> tuple[int, int]:
     """Blocks of the tensor-core backward's two launches: ``(dQ, dK/dV)``,
-    one per (batch row, head, query tile, column block) and per (batch
-    row, KV head, key tile, column block)."""
-    n, c = backward_tiles(S), backward_cols(D)
-    return n * B * H * c, n * B * KV * c
+    one per (batch row, head, query tile of ``S``, column block of D) and
+    per (batch row, KV head, key tile of ``Skv`` (default ``S``), column
+    block of D: at D > Dv the last ones hold dK's columns alone)."""
+    c = backward_cols(D)
+    nk = backward_tiles(S if Skv is None else Skv)
+    return backward_tiles(S) * B * H * c, nk * B * KV * c
 
 
 def dq_block(i: int, B: int, S: int, H: int, D: int = 64
              ) -> tuple[int, int, int, int]:
     """``(b, h, query tile, column block)`` of block ``i`` of the dQ
-    launch, as the kernel computes it: the last query tile (the most key
-    tiles) over every (batch row, head, column block) first, the column
-    block fastest."""
+    launch over ``S`` queries, as the kernel computes it: the last query
+    tile (causal: the most key tiles) over every (batch row, head, column
+    block) first, the column block fastest."""
     c = backward_cols(D)
     r, pair = divmod(i, B * H * c)
     bh, col = divmod(pair, c)
@@ -681,8 +699,8 @@ def dq_block(i: int, B: int, S: int, H: int, D: int = 64
 def dkdv_block(i: int, B: int, S: int, KV: int, D: int = 64
                ) -> tuple[int, int, int, int]:
     """``(b, KV head, key tile, column block)`` of block ``i`` of the dK/dV
-    launch: key tile 0 (the most query tiles) over every (batch row, KV
-    head, column block) first."""
+    launch: key tile 0 (causal: the most query tiles) over every (batch
+    row, KV head, column block) first."""
     c = backward_cols(D)
     r, pair = divmod(i, B * KV * c)
     bk, col = divmod(pair, c)
@@ -696,42 +714,48 @@ def prefill_smem_bytes(D: int, Dv: int) -> int:
     return 2 * PREFILL_TILE * (D + PREFILL_STAGES[(D, Dv)] * (D + Dv)) + 1024
 
 
-def backward_smem_bytes(D: int = 64) -> tuple[int, int]:
-    """Dynamic shared memory of the dQ and the dK/dV kernel at head dim D:
-    two resident bf16 tiles of D columns, two tiles a stage of the ring
-    (the dK/dV kernel's stages also hold a query tile's f32 log-sum-exp
-    and D), and 1024 bytes to align the swizzled tiles."""
-    tile = BACKWARD_TILE * D * 2
-    dq_stages, dkdv_stages = BACKWARD_STAGES[D]
-    dq = (2 + 2 * dq_stages) * tile + 1024
-    dkdv = (2 + 2 * dkdv_stages) * tile \
+def backward_smem_bytes(D: int = 64, Dv: int | None = None
+                        ) -> tuple[int, int]:
+    """Dynamic shared memory of the dQ and the dK/dV kernel at head dims
+    (D, Dv) (``Dv`` default ``D``): the dQ kernel's resident Q (D columns)
+    and dO (Dv) tiles and a K and a V tile a stage of its ring; the dK/dV
+    kernel's resident K and V tiles and a Q and a dO tile a stage, with
+    the query tile's f32 log-sum-exp and D; all bf16, 64 rows, and 1024
+    bytes to align the swizzled tiles."""
+    Dv = D if Dv is None else Dv
+    pair = BACKWARD_TILE * (D + Dv) * 2
+    dq_stages, dkdv_stages = BACKWARD_STAGES[(D, Dv)]
+    dq = (1 + dq_stages) * pair + 1024
+    dkdv = (1 + dkdv_stages) * pair \
         + dkdv_stages * 2 * BACKWARD_TILE * 4 + 1024
     return dq, dkdv
 
 
 #: what ``repro_flash_backward_sm90_constants`` reports: threads a block,
-#: the tile, and at D 64, 128 and 256 the stages and shared memory of each
-#: kernel
+#: the tile, and at each pair of BACKWARD_HEAD_DIMS the stages and shared
+#: memory of each kernel
 SM90_CONSTANTS = (128, BACKWARD_TILE,
-                  *(x for d, _ in BACKWARD_HEAD_DIMS
-                    for x in (*BACKWARD_STAGES[d], *backward_smem_bytes(d))))
+                  *(x for dims in BACKWARD_HEAD_DIMS
+                    for x in (*BACKWARD_STAGES[dims],
+                              *backward_smem_bytes(*dims))))
 
 
-def _backward_args(q, k, v, o, do, softmax_scale, window):
-    """Check a backward call's five tensors (the training form, CUDA,
+def _backward_args(q, k, v, o, do, softmax_scale, window, causal):
+    """Check a backward call's five tensors (a training form, CUDA,
     contiguous, one dtype; 16-byte alignment is checked at the launch);
     returns the softmax scale."""
     _check(q, k, v)
-    check_backward(q, k, v, window=window)
-    B, S, H, D = q.shape
+    check_backward(q, k, v, causal=causal, window=window)
+    B, Sq, H, D = q.shape
+    want = (B, Sq, H, v.shape[3])
     for name, t in (("o", o), ("do", do)):
         if not (isinstance(t, torch.Tensor) and t.is_cuda) \
-                or tuple(t.shape) != (B, S, H, v.shape[3]) \
+                or tuple(t.shape) != want \
                 or t.dtype != q.dtype or t.device != q.device \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous CUDA tensor of "
-                             f"shape {(B, S, H, v.shape[3])} in {q.dtype} "
-                             f"on {q.device}, 16-byte aligned")
+                             f"shape {want} in {q.dtype} on {q.device}, "
+                             f"16-byte aligned")
     if B * H * backward_cols(D) > MAX_PAIRS:
         raise ValueError(f"batch x heads x column blocks = "
                          f"{B * H * backward_cols(D)} exceeds the grid's "
@@ -739,90 +763,94 @@ def _backward_args(q, k, v, o, do, softmax_scale, window):
     return float(softmax_scale if softmax_scale is not None else D ** -0.5)
 
 
-def _backward_simple(q, k, v, o, do, scale, window):
-    """The CUDA-core backward's launch (``repro_torch::
-    flash_backward_simple``)."""
+def _backward_launch(lib, entry, route, lead, q, k, v, o, do, scale, window,
+                     causal, spad):
+    """Allocate dq, dk, dv and the f32 scratch (each row's log-sum-exp and
+    rowsum(dO * o), ``(B, H, spad)``), launch ``entry`` of library ``lib``
+    (``lead``: its arguments before the tensors), count."""
     _check_aligned(q=q, k=k, v=v, o=o, do=do)
-    B, S, H, D = q.shape
+    B, Sq, H, D = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    if q.numel() == 0:
-        return dq, dk, dv
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    fn = _library("flash_backward").repro_flash_backward
-    _build.raise_on(fn(int(q.dtype == torch.bfloat16), q.data_ptr(),
-                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                       dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, S,
-                       H, k.shape[2], D, -1 if window is None else window,
-                       scale, _stream(q)), "flash_backward")
-    LAUNCHES["flash_backward"] += 1
-    BACKWARD_ROUTES["simple"] += 1
-    return dq, dk, dv
-
-
-def _backward_sm90(q, k, v, o, do, scale, window):
-    """The tensor-core backward's launch (``repro_torch::
-    flash_backward_sm90``)."""
-    _check_aligned(q=q, k=k, v=v, o=o, do=do)
-    B, S, H, D = q.shape
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    if q.numel() == 0:
-        return dq, dk, dv
-    spad = backward_tiles(S) * BACKWARD_TILE
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
     lse = torch.empty((B, H, spad), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    fn = _library("flash_backward_sm90").repro_flash_backward_sm90
-    _build.raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    fn = getattr(_library(lib), entry)
+    _build.raise_on(fn(*lead, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        o.data_ptr(), do.data_ptr(), dq.data_ptr(),
                        dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-                       delta.data_ptr(), B, S, H, k.shape[2], D, v.shape[3],
-                       -1 if window is None else window, scale, _stream(q)),
-                    "flash_backward_sm90")
+                       delta.data_ptr(), B, Sq, k.shape[1], H, k.shape[2],
+                       D, v.shape[3], -1 if window is None else window,
+                       int(bool(causal)), scale, _stream(q)), lib)
     LAUNCHES["flash_backward"] += 1
-    BACKWARD_ROUTES["sm90"] += 1
+    BACKWARD_ROUTES[route] += 1
     return dq, dk, dv
+
+
+def _backward_simple(q, k, v, o, do, scale, window, causal=True):
+    """The CUDA-core backward's launch (``repro_torch::
+    flash_backward_simple``); its scratch is ``(B, H, Sq)``."""
+    return _backward_launch("flash_backward", "repro_flash_backward",
+                            "simple", (int(q.dtype == torch.bfloat16),),
+                            q, k, v, o, do, scale, window, causal,
+                            q.shape[1])
+
+
+def _backward_sm90(q, k, v, o, do, scale, window, causal=True):
+    """The tensor-core backward's launch (``repro_torch::
+    flash_backward_sm90``); its scratch is ``(B, H, Sq rounded up to a
+    tile)``."""
+    return _backward_launch("flash_backward_sm90",
+                            "repro_flash_backward_sm90", "sm90", (), q, k,
+                            v, o, do, scale, window, causal,
+                            backward_tiles(q.shape[1]) * BACKWARD_TILE)
 
 
 def flash_backward_simple_cuda(q, k, v, o, do, *,
                                softmax_scale: float | None = None,
-                               window: int | None = None):
+                               window: int | None = None,
+                               causal: bool = True):
     """The CUDA-core backward (``csrc/flash_backward.cu``: a setup pass for
     each row's log-sum-exp and rowsum(do * o), then the dK/dV and dQ
     kernels), bf16 or f32: the route of f32 calls."""
-    scale = _backward_args(q, k, v, o, do, softmax_scale, window)
-    return _OPS["flash_backward_simple"](q, k, v, o, do, scale, window)
+    scale = _backward_args(q, k, v, o, do, softmax_scale, window, causal)
+    return _OPS["flash_backward_simple"](q, k, v, o, do, scale, window,
+                                         causal)
 
 
 def flash_backward_sm90_cuda(q, k, v, o, do, *,
                              softmax_scale: float | None = None,
-                             window: int | None = None):
+                             window: int | None = None,
+                             causal: bool = True):
     """The tensor-core backward (``csrc/flash_backward_sm90.cu``: the dQ
     kernel, which also writes each row's log-sum-exp and rowsum(do * o) to
     f32 scratch, then the dK/dV kernel), bf16 only: the route of bf16
     calls."""
-    scale = _backward_args(q, k, v, o, do, softmax_scale, window)
+    scale = _backward_args(q, k, v, o, do, softmax_scale, window, causal)
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the tensor-core backward takes bf16, got "
                          f"{q.dtype}")
-    return _OPS["flash_backward_sm90"](q, k, v, o, do, scale, window)
+    return _OPS["flash_backward_sm90"](q, k, v, o, do, scale, window, causal)
 
 
 def flash_backward_cuda(q, k, v, o, do, *,
                         softmax_scale: float | None = None,
-                        window: int | None = None):
-    """The gradient of causal attention ``o = attn(q, k, v)`` (q_start 0,
-    Sq = Skv; keys at or before ``q - window`` masked when ``window`` is
-    given) given ``do``, the output's gradient: returns ``(dq, dk, dv)``
-    in the inputs' dtype, by the kernel :func:`pick_backward_route` names
-    (bf16: :func:`flash_backward_sm90_cuda`; f32:
+                        window: int | None = None, causal: bool = True):
+    """The gradient of attention ``o = attn(q, k, v)`` in a training form
+    (q_start 0; causal with Sq = Skv, keys at or before ``q - window``
+    masked when ``window`` is given, or non-causal over every key) given
+    ``do``, the output's gradient: returns ``(dq, dk, dv)`` in the inputs'
+    dtype, by the kernel :func:`pick_backward_route` names (bf16:
+    :func:`flash_backward_sm90_cuda`; f32:
     :func:`flash_backward_simple_cuda`).  All five inputs contiguous CUDA
-    tensors of one dtype; q, o and do ``(B, S, H, D)``, k and v ``(B, S,
-    KV, D)``."""
-    route = pick_backward_route(q.dtype, q.shape[3], v.shape[3])
+    tensors of one dtype; q ``(B, Sq, H, D)``, k ``(B, Skv, KV, D)``, v
+    ``(B, Skv, KV, Dv)``, o and do ``(B, Sq, H, Dv)``."""
+    route = pick_backward_route(q.dtype, q.shape[3], v.shape[3],
+                                causal=causal)
     fn = flash_backward_sm90_cuda if route == "sm90" \
         else flash_backward_simple_cuda
-    return fn(q, k, v, o, do, softmax_scale=softmax_scale, window=window)
+    return fn(q, k, v, o, do, softmax_scale=softmax_scale, window=window,
+              causal=causal)
 
 
 # ------------------------------------------------------- torch.library ops
@@ -874,7 +902,7 @@ def _forward_fake(q, k, v, causal, window, q_start, kv_len, scale):
     return q.new_empty((*q.shape[:3], v.shape[3]))
 
 
-def _backward_fake(q, k, v, o, do, scale, window):
+def _backward_fake(q, k, v, o, do, scale, window, causal=True):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
@@ -906,17 +934,19 @@ def _forward_cost(q, k, v, causal, window, q_start, kv_len, scale):
             _flop_class(q))
 
 
-def _backward_cost(q, k, v, o, do, scale, window):
-    B, S, H, D = q.shape
-    return (*costs.flash_backward_cost(B, S, H, k.shape[2], D,
-                                       q.element_size(), window=window),
+def _backward_cost(q, k, v, o, do, scale, window, causal=True):
+    B, Sq, H, D = q.shape
+    return (*costs.flash_backward_cost(B, Sq, H, k.shape[2], D,
+                                       q.element_size(), Skv=k.shape[1],
+                                       Dv=v.shape[3], causal=causal,
+                                       window=window),
             _flop_class(q))
 
 
 _FWD = ("(Tensor q, Tensor k, Tensor v, bool causal, int? window, "
         "int q_start, int kv_len, float scale) -> Tensor")
 _BWD = ("(Tensor q, Tensor k, Tensor v, Tensor o, Tensor do, float scale, "
-        "int? window) -> (Tensor, Tensor, Tensor)")
+        "int? window, bool causal=True) -> (Tensor, Tensor, Tensor)")
 _OPS = {
     "flash_decode": costs.kernel_op(
         "flash_decode(Tensor q, Tensor k, Tensor v, bool causal, "

@@ -29,9 +29,11 @@ routed forward kernel, and the hand-written backward
 (``kernel.flash_backward_cuda``, routed by ``kernel.pick_backward_route``:
 ``csrc/flash_backward_sm90.cu`` on the tensor cores for bf16,
 ``csrc/flash_backward.cu`` for f32) for the gradient.  It takes the
-training form only (causal, ``q_start`` 0, ``kv_len = Skv = Sq``, with or
-without a window; on the card (64, 64), (128, 128) and (256, 256)
-heads) and raises for any other call that needs a gradient on the card.
+training forms only (``q_start`` 0, ``kv_len = Skv``; causal with ``Sq =
+Skv``, with or without a window, at (64, 64), (128, 128), (192, 128) and
+(256, 256) heads, or non-causal with any ``Sq`` and ``Skv`` at (64, 64):
+``kernel.check_backward``) and raises for any other call that needs a
+gradient on the card.
 Without autograd
 (serving, under ``torch.no_grad()``) the call is the plain kernel launch
 it always was, so captured graphs and launch counts do not change.  The
@@ -174,7 +176,8 @@ def flash_attention(
         if _grad.needs_grad(q, k, v):
             _kernel.check_backward(q, k, v, causal=causal, window=window,
                                    q_start=q_start, kv_len=kv_len)
-            return FlashAttentionFn.apply(q, k, v, softmax_scale, window)
+            return FlashAttentionFn.apply(q, k, v, softmax_scale, window,
+                                          causal)
         return _kernel.flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window, q_start=q_start,
@@ -358,27 +361,29 @@ def flash_decode_combine_torch(m, l, acc, *, dtype=torch.float32):
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Causal GQA attention in its training form (``q_start`` 0, ``Sq =
-    Skv``, with or without a window: keys at or before ``q - window``
-    masked) on the card, with a hand-written gradient: the forward is the
-    routed forward kernel (``kernel.flash_attention_cuda``: the ``wgmma``
-    prefill in bf16, the simple kernel in f32) and the backward the routed
-    backward kernel (``kernel.flash_backward_cuda``: the tensor-core kernel
-    in bf16, the CUDA-core one in f32), both given the window.  It saves
-    q, k, v and the output for the backward (the log-sum-exp is recomputed
-    there).  ``apply(q, k, v, softmax_scale, window)``; the caller
-    (:func:`flash_attention`) has checked the form with
-    ``kernel.check_backward``."""
+    """GQA attention in a training form (``q_start`` 0, ``kv_len = Skv``:
+    causal with ``Sq = Skv``, with or without a window, keys at or before
+    ``q - window`` masked; or non-causal, any ``Sq`` and ``Skv``) on the
+    card, with a hand-written gradient: the forward is the routed forward
+    kernel (``kernel.flash_attention_cuda``: the ``wgmma`` prefill in
+    bf16, the simple kernel in f32) and the backward the routed backward
+    kernel (``kernel.flash_backward_cuda``: the tensor-core kernel in
+    bf16, the CUDA-core one in f32), both given the window and the mask.
+    It saves q, k, v and the output for the backward (the log-sum-exp is
+    recomputed there).  ``apply(q, k, v, softmax_scale, window,
+    causal=True)``; the caller (:func:`flash_attention`) has checked the
+    form with ``kernel.check_backward``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, softmax_scale=None, window=None):
+    def forward(ctx, q, k, v, softmax_scale=None, window=None, causal=True):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o = _kernel.flash_attention_cuda(
-            q, k, v, causal=True, window=window, q_start=0,
+            q, k, v, causal=causal, window=window, q_start=0,
             kv_len=k.shape[1], softmax_scale=softmax_scale)
         ctx.save_for_backward(q, k, v, o)
         ctx.softmax_scale = softmax_scale
         ctx.window = window
+        ctx.causal = causal
         return o
 
     @staticmethod
@@ -387,69 +392,80 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, o = ctx.saved_tensors
         dq, dk, dv = _kernel.flash_backward_cuda(
             q, k, v, o, do.contiguous(), softmax_scale=ctx.softmax_scale,
-            window=ctx.window)
-        return dq, dk, dv, None, None
+            window=ctx.window, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
-def _live_pairs(S, window, device):
-    """``(query, key)`` -> live: causal, and with a window the keys after
-    ``q - window`` only."""
-    pos = torch.arange(S, device=device)
-    live = pos[None, :] <= pos[:, None]
+def _live_pairs(Sq, Skv, window, causal, device):
+    """``(query, key)`` -> live, queries and keys from position 0: every
+    pair without the causal mask; causal, the keys at or before the
+    query, and with a window the keys after ``q - window`` only."""
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Skv, device=device)[None, :]
+    live = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        live = live & (kp <= qp)
     if window is not None:
-        live = live & (pos[None, :] > pos[:, None] - window)
+        live = live & (kp > qp - window)
     return live
 
 
 def flash_attention_backward_torch(q, k, v, o, do, *, softmax_scale=None,
-                                   window=None):
-    """The backward kernel's algorithm in plain torch ops: the gradient of
-    causal attention ``o = attn(q, k, v)`` (``q_start`` 0, ``Sq = Skv``;
-    with ``window``, keys at or before ``q - window`` masked too) given
-    ``do``, from the recomputed log-sum-exp of each query row.
+                                   window=None, causal=True):
+    """The backward kernels' algorithm in plain torch ops: the gradient of
+    attention ``o = attn(q, k, v)`` (``q_start`` 0; causal, with
+    ``window`` keys at or before ``q - window`` masked too, or with
+    ``causal=False`` every key of ``Skv``) given ``do``, from the
+    recomputed log-sum-exp of each query row.
 
-    With ``s = scale q k^T`` under the causal mask, ``lse`` its row-wise
+    With ``s = scale q k^T`` under the mask, ``lse`` its row-wise
     log-sum-exp, ``P = exp(s - lse)`` and ``D = rowsum(do * o)``:
     ``dv = P^T do``, ``dS = P * (do v^T - D)``, ``dq = scale dS k``,
     ``dk = scale dS^T q``, summed over the query heads of each KV head; in
-    f32 (O(S²) memory), returned in the inputs' dtypes."""
-    B, S, H, D = q.shape
-    KV, Dv = k.shape[2], v.shape[3]
+    f32 (O(Sq Skv) memory), returned in the inputs' dtypes.  q ``(B, Sq,
+    H, D)``, k ``(B, Skv, KV, D)``, v ``(B, Skv, KV, Dv)``, o and do
+    ``(B, Sq, H, Dv)``."""
+    B, Sq, H, D = q.shape
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KV
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    qf = q.float().reshape(B, S, KV, G, D)
+    qf = q.float().reshape(B, Sq, KV, G, D)
     kf, vf = k.float(), v.float()
-    dof = do.float().reshape(B, S, KV, G, Dv)
+    dof = do.float().reshape(B, Sq, KV, G, Dv)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
-    live = _live_pairs(S, window, q.device)                   # (q, s)
+    live = _live_pairs(Sq, Skv, window, causal, q.device)      # (q, s)
     s = torch.where(live, s, -torch.inf)
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
     p = torch.exp(s - lse)                                    # 0 where dead
-    delta = (dof * o.float().reshape(B, S, KV, G, Dv)).sum(-1)
+    delta = (dof * o.float().reshape(B, Sq, KV, G, Dv)).sum(-1)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
-    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
 
 def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
-                               round_bf16=False, window=None):
+                               round_bf16=False, window=None, causal=True):
     """The tensor-core backward's decomposition (``csrc/flash_backward_
     sm90.cu``) in plain torch ops, on tiles of ``kernel.BACKWARD_TILE``
-    rows, rows past S zero as the kernel's copies fill them:
+    rows, rows past Sq (queries) and Skv (keys) zero as the kernel's
+    copies fill them:
 
       * the dQ kernel, query tile by query tile: a first sweep over the
-        live key tiles (``kernel.backward_key_tiles``: the window's first
-        to the diagonal) for each row's log-sum-exp (base 2, of the scores
-        times ``scale * log2 e``, by an online max and sum), a second for
-        ``dS = P (dP - D)`` and ``dQ += dS K``;
+        live key tiles (``kernel.backward_key_tiles``: causal, the
+        window's first to the diagonal; non-causal, every key tile) for
+        each row's log-sum-exp (base 2, of the scores times ``scale *
+        log2 e``, by an online max and sum) and, non-causal, ``D = sum P
+        dP`` by an online sum beside it (causal, ``D = rowsum(dO * o)``),
+        a second for ``dS = P (dP - D)`` and ``dQ += dS K``;
       * the dK/dV kernel, key tile by key tile: the G query heads of its
         KV head in order, each over the live query tiles
-        (``kernel.backward_query_tiles``: the diagonal to the last the
-        window reaches), ``dV += P^T dO`` and ``dK += dS^T Q``.
+        (``kernel.backward_query_tiles``: causal, the diagonal to the last
+        the window reaches; non-causal, every query tile), ``dV += P^T
+        dO`` and ``dK += dS^T Q``.
 
     (The kernel splits each tile's D columns over blocks of 64; the
     columns of a product are independent sums, so the emulation keeps them
@@ -458,36 +474,39 @@ def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
     ``round_bf16`` rounds P and dS to bf16 where they enter a product, as
     the kernel does; without it every value stays f32.  Sums are f32;
     returns ``(dq, dk, dv)`` in the inputs' dtypes."""
-    B, S, H, D = q.shape
-    KV, Dv = k.shape[2], v.shape[3]
+    B, Sq, H, D = q.shape
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KV
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     sl2 = scale * 1.4426950408889634
     T = _kernel.BACKWARD_TILE
-    n = _kernel.backward_tiles(S)
+    nq, nk = _kernel.backward_tiles(Sq), _kernel.backward_tiles(Skv)
     rnd = (lambda t: t.bfloat16().float()) if round_bf16 else (lambda t: t)
-    pad = lambda t: F.pad(t.float(), (0, 0, 0, 0, 0, n * T - S))
-    qf = pad(q).reshape(B, n * T, KV, G, D)
-    dof = pad(do).reshape(B, n * T, KV, G, Dv)
-    kf, vf = pad(k), pad(v)
-    delta = (dof * pad(o).reshape(B, n * T, KV, G, Dv)).sum(-1)
-    pos = torch.arange(n * T, device=q.device)
+    pad = lambda t, n: F.pad(t.float(), (0, 0, 0, 0, 0, n * T - t.shape[1]))
+    qf = pad(q, nq).reshape(B, nq * T, KV, G, D)
+    dof = pad(do, nq).reshape(B, nq * T, KV, G, Dv)
+    kf, vf = pad(k, nk), pad(v, nk)
+    delta = (dof * pad(o, nq).reshape(B, nq * T, KV, G, Dv)).sum(-1)
+    pos = torch.arange(max(nq, nk) * T, device=q.device)
     tile = lambda t: slice(t * T, (t + 1) * T)
 
     def live(rows, keys):                               # (queries, keys)
-        m = (pos[rows][:, None] < S) & (pos[keys][None, :]
-                                        <= pos[rows][:, None])
+        qp, kp = pos[rows][:, None], pos[keys][None, :]
+        m = (qp < Sq) & (kp < Skv)
+        if causal:
+            m = m & (kp <= qp)
         if window is not None:
-            m = m & (pos[keys][None, :] > pos[rows][:, None] - window)
+            m = m & (kp > qp - window)
         return m
 
-    lse = torch.zeros((B, n * T, KV, G), device=q.device)
+    lse = torch.zeros((B, nq * T, KV, G), device=q.device)
     dq = torch.zeros_like(qf)
-    for qt in range(n):
+    for qt in range(nq):
         rows = tile(qt)
         m = torch.full((B, T, KV, G), -_INF, device=q.device)
         l = torch.zeros((B, T, KV, G), device=q.device)
-        t0, nt = _kernel.backward_key_tiles(qt, S, window)
+        dsum = torch.zeros_like(l)
+        t0, nt = _kernel.backward_key_tiles(qt, Skv, window, causal=causal)
         for t in range(t0, t0 + nt):                     # sweep 1
             s = torch.einsum("bqkgd,bckd->bqkgc", qf[:, rows],
                              kf[:, tile(t)]) * sl2
@@ -495,11 +514,18 @@ def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
             m_new = torch.maximum(m, s.amax(-1))
             ok = m_new > -_INF
             ref = torch.where(ok, m_new, 0.0)
-            l = torch.where(ok, l * torch.exp2(m - ref)
-                            + torch.exp2(s - ref[..., None]).sum(-1), l)
+            e = torch.exp2(s - ref[..., None])
+            c = torch.exp2(m - ref)
+            l = torch.where(ok, l * c + e.sum(-1), l)
+            if not causal:
+                dp = torch.einsum("bqkgd,bckd->bqkgc", dof[:, rows],
+                                  vf[:, tile(t)])
+                dsum = torch.where(ok, dsum * c + (e * dp).sum(-1), dsum)
             m = m_new
-        ok = (pos[rows] < S)[:, None, None]
+        ok = (pos[rows] < Sq)[:, None, None]
         lse[:, rows] = torch.where(ok, m + torch.log2(l), 0.0)
+        if not causal:
+            delta[:, rows] = torch.where(ok, dsum / l, 0.0)
         for t in range(t0, t0 + nt):                     # sweep 2
             s = torch.einsum("bqkgd,bckd->bqkgc", qf[:, rows],
                              kf[:, tile(t)]) * sl2
@@ -511,11 +537,11 @@ def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
             dq[:, rows] += torch.einsum("bqkgc,bckd->bqkgd", ds,
                                         kf[:, tile(t)])
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    for kt in range(n):
+    for kt in range(nk):
         keys = tile(kt)
-        q0, nq = _kernel.backward_query_tiles(kt, S, window)
+        q0, n = _kernel.backward_query_tiles(kt, Sq, window, causal=causal)
         for g in range(G):
-            for qt in range(q0, q0 + nq):
+            for qt in range(q0, q0 + n):
                 rows = tile(qt)
                 st = torch.einsum("bckd,bqkd->bkcq", kf[:, keys],
                                   qf[:, rows, :, g]) * sl2
@@ -530,5 +556,5 @@ def flash_backward_tiled_torch(q, k, v, o, do, *, softmax_scale=None,
                                             dof[:, rows, :, g])
                 dk[:, keys] += torch.einsum("bkcq,bqkd->bckd", dst,
                                             qf[:, rows, :, g])
-    return ((dq[:, :S] * scale).reshape(B, S, H, D).to(q.dtype),
-            (dk[:, :S] * scale).to(k.dtype), dv[:, :S].to(v.dtype))
+    return ((dq[:, :Sq] * scale).reshape(B, Sq, H, D).to(q.dtype),
+            (dk[:, :Skv] * scale).to(k.dtype), dv[:, :Skv].to(v.dtype))

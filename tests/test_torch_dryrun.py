@@ -21,14 +21,21 @@
   subprocess: ``repro``'s keys, the arguments' bytes equal rank 0's shards
   computed here from the abstract leaves, collectives in the train cell,
   the process's peak RSS under 2 GB; on a mocked card,
-  seamless-m4t-medium's ``train_4k`` is written not applicable, for want
-  of a flash backward of its encoder's non-causal attention, and
-  starcoder2-7b's (heads (128, 128)), recurrentgemma-2b's and rwkv6-7b's
-  applicable at full depth, their kernels' launches a device pinned
-  (starcoder2: 64 ``flash_prefill``, 32 ``flash_backward_sm90``; Griffin:
-  16 ``flash_prefill``, 8 ``flash_backward``, 34 ``rglru_staged`` and 18
-  ``rglru_backward``; rwkv6: 64 ``wkv6`` and 32 ``wkv6_backward``:
+  deepseek-v3-671b's ``train_4k`` is written not applicable when the
+  backward's head dims lack its MLA's (192, 128) (``NoBackward``'s path,
+  which no config takes now), and starcoder2-7b's (heads (128, 128)),
+  recurrentgemma-2b's, rwkv6-7b's and seamless-m4t-medium's (its
+  encoder's and cross-attention's non-causal backward) applicable at full
+  depth, their kernels' launches a device pinned (starcoder2: 64
+  ``flash_prefill``, 32 ``flash_backward_sm90``; Griffin: 16
+  ``flash_prefill``, 8 ``flash_backward``, 34 ``rglru_staged`` and 18
+  ``rglru_backward``; rwkv6: 64 ``wkv6`` and 32 ``wkv6_backward``;
+  seamless: 72 ``flash_prefill`` and 36 ``flash_backward_sm90``:
   chip_smoke.py's ``train_launches``).
+* ``flash_backward_cost`` against a count over explicit (query, key)
+  pairs: causal with and without a window, non-causal with Sq != Skv, and
+  D != Dv (MLA's (192, 128)), and the bounds of the three training
+  shapes the two new families' backward runs at.
 """
 
 import json
@@ -306,6 +313,55 @@ def test_live_pairs_equal_a_brute_force_count(case):
         assert keys == max(seen) - min(seen) + 1
 
 
+BWD_COST_CASES = [  # (B, Sq, Skv, H, KV, D, Dv, causal, window)
+    (2, 24, 24, 4, 2, 64, 64, True, None),
+    (2, 24, 24, 4, 2, 64, 64, True, 5),
+    (1, 17, 40, 4, 4, 64, 64, False, None),
+    (1, 40, 17, 4, 2, 64, 64, False, None),
+    (2, 20, 20, 4, 4, 192, 128, True, None),
+    (1, 70, 70, 2, 1, 192, 128, True, 9),
+]
+
+
+@pytest.mark.parametrize("case", BWD_COST_CASES, ids=str)
+def test_flash_backward_cost_counts_explicit_pairs(case):
+    B, Sq, Skv, H, KV, D, Dv, causal, w = case
+    live = 0
+    for i in range(Sq):
+        for j in range(Skv):
+            if causal and j > i:
+                continue
+            if w is not None and j <= i - w:
+                continue
+            live += 1
+    # per live pair and head: the scores and dK and dQ over D, dP and dV
+    # over Dv (2 flops a multiply-add)
+    flops = B * H * live * (3 * 2 * D + 2 * 2 * Dv)
+    # q, dq (D) and o, dO (Dv) of every query; k, dk (D) and v, dv (Dv)
+    # of every key
+    nbytes = 2 * (B * Sq * H * (2 * D + 2 * Dv)
+                  + B * Skv * KV * (2 * D + 2 * Dv))
+    assert costs.flash_backward_cost(B, Sq, H, KV, D, 2, Skv=Skv, Dv=Dv,
+                                     causal=causal, window=w) == (flops,
+                                                                  nbytes)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((8, 256, 256, 16, 16, 64, 64, False), (33_554_432, 5.37e9)),
+    ((8, 256, 384, 16, 16, 64, 64, False), (41_943_040, 8.05e9)),
+    ((8, 256, 256, 128, 128, 192, 128, True), (671_088_640, 56.05e9)),
+], ids=["seamless encoder", "seamless cross", "deepseek MLA"])
+def test_flash_backward_cost_at_the_training_shapes(shape, want):
+    # the new forms' bounds at the trained families' shapes (bf16): bytes
+    # bound all three on an H100 (3.35 TB/s against 989 TFLOP/s)
+    B, Sq, Skv, H, KV, D, Dv, causal = shape
+    flops, nbytes = costs.flash_backward_cost(B, Sq, H, KV, D, 2, Skv=Skv,
+                                              Dv=Dv, causal=causal)
+    assert nbytes == want[0]
+    assert abs(flops - want[1]) <= 0.005e9
+    assert nbytes / costs.HBM_BYTES_PER_S > flops / costs.BF16_FLOP_PER_S
+
+
 def _old_fa_bound(q, k, v, kw):
     """``chip_smoke.py``'s ``fa_bound`` before the cost module."""
     B, Sq, H, D = q.shape
@@ -365,6 +421,13 @@ def test_chip_smoke_bounds_are_unchanged(smoke, shape):
     assert smoke.bwd_bound(q, k, k) == (
         2 * (4 * q.numel() + 4 * k.numel()) / 3.35e12 * 1e3,
         5 * 2 * 8 * 32 * 64 * (S * (S + 1) // 2) / 989e12 * 1e3)
+    # non-causal with Sq != Skv: every (query, key) pair live
+    with FakeTensorMode():
+        q = torch.empty(8, 256, 16, 64, dtype=torch.bfloat16)
+        k = torch.empty(8, 384, 16, 64, dtype=torch.bfloat16)
+    assert smoke.bwd_bound(q, k, k, causal=False) == (
+        2 * (4 * q.numel() + 4 * k.numel()) / 3.35e12 * 1e3,
+        5 * 2 * 8 * 16 * 64 * (256 * 384) / 989e12 * 1e3)
 
 
 def _rand(*shape, dtype=torch.float32, seed=0):
@@ -472,6 +535,34 @@ def test_backward_ops_shapes_and_flops(name, window):
     assert costs.KERNEL_OPS[op][0] == "flash_backward"
     assert costs.KERNEL_OPS[op][1](q, k, v, o, do, 0.125, window) == (
         flops, nbytes, "cuda_core")
+
+
+@pytest.mark.parametrize("name", ["flash_backward_sm90",
+                                  "flash_backward_simple"])
+@pytest.mark.parametrize("form", [(17, 40, 64, 64, False),
+                                  (40, 17, 64, 64, False),
+                                  (24, 24, 192, 128, True)], ids=str)
+def test_backward_ops_new_forms_shapes_and_flops(name, form):
+    # non-causal with Sq != Skv, and MLA's (192, 128): the op's shapes are
+    # the plain version's, its cost flash_backward_cost's with Skv, Dv and
+    # the mask
+    Sq, Skv, D, Dv, causal = form
+    B, H, KV = 2, 4, 2
+    q, k, v = (_rand(B, Sq, H, D), _rand(B, Skv, KV, D, seed=1),
+               _rand(B, Skv, KV, Dv, seed=2))
+    o, do = _rand(B, Sq, H, Dv, seed=3), _rand(B, Sq, H, Dv, seed=4)
+    want = FO.flash_attention_backward_torch(q, k, v, o, do, causal=causal)
+    op = getattr(ops, name)
+    mode, fts = _fake(q, k, v, o, do)
+    with mode:
+        got = op(*fts, 0.125, None, causal)
+    assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype)
+                                                 for t in want]
+    cost = costs.flash_backward_cost(B, Sq, H, KV, D, 4, Skv=Skv, Dv=Dv,
+                                     causal=causal)
+    assert _flops(op, q, k, v, o, do, 0.125, None, causal) == cost[0]
+    assert costs.KERNEL_OPS[op][1](q, k, v, o, do, 0.125, None, causal) == (
+        *cost, "cuda_core")
 
 
 @pytest.mark.parametrize("with_state", [False, True])
@@ -657,24 +748,30 @@ def test_cli_prints_its_lines_and_stays_small(cli_cells):
 _MOCKED = """
 import tempfile, torch
 from repro_torch.kernels import _grad
+from repro_torch.kernels.flash_attention import kernel as FK
 # the card mocked: the wrappers route fake CPU tensors to the kernels' ops
 _grad.on_card = lambda t: True
 torch.Tensor.is_cuda = property(lambda t: True)
 torch.cuda.current_device = lambda: None
+# the backward's head dims without MLA's (192, 128)
+FK.BACKWARD_HEAD_DIMS = tuple(d for d in FK.BACKWARD_HEAD_DIMS
+                              if d != (192, 128))
 from repro_torch.launch.dryrun import run_cell
-rec = run_cell("seamless-m4t-medium", "train_4k", False, tempfile.mkdtemp(),
+rec = run_cell("deepseek-v3-671b", "train_4k", False, tempfile.mkdtemp(),
                device="cpu")
 print(rec["applicable"], "|", rec["skip_reason"])
 """
 
 
 def test_train_cell_without_a_backward_kernel_is_skipped():
-    # seamless-m4t-medium's encoder attends non-causally, a form the flash
-    # backward does not take yet (ROADMAP B2)
+    # Kept by design now that every config trains on the card: it holds
+    # NoBackward's path, deepseek-v3-671b's train_4k with the backward's
+    # head dims patched to lack its MLA's (192, 128), written not
+    # applicable with the error's text
     out = _run(_MOCKED, timeout=240).strip().splitlines()[-1]
     ok, why = out.split(" | ")
     assert ok == "False"
-    assert "flash backward" in why and "causal=False" in why
+    assert "flash backward" in why and "(192, 128)" in why
 
 
 _MOCKED_GRIFFIN = """
@@ -724,6 +821,28 @@ def test_starcoder2_train_cell_is_applicable_on_a_mocked_card():
                                    "flash_backward": 32}.items()))
     assert kernels == str(sorted({"flash_prefill": 64,
                                   "flash_backward_sm90": 32}.items()))
+
+
+_MOCKED_SEAMLESS = _MOCKED_GRIFFIN.replace('"recurrentgemma-2b"',
+                                          '"seamless-m4t-medium"')
+
+
+def test_seamless_train_cell_is_applicable_on_a_mocked_card():
+    # the encoder's non-causal self-attention and the decoder's
+    # cross-attention take the tensor-core backward: a device's step under
+    # remat "block" runs each of the 12 encoder layers' attention forward
+    # twice and each of the 12 decoder layers' two (self, cross) twice,
+    # each backward once, as chip_smoke.py's train_launches counts
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import train_launches
+    want = train_launches(configs.get("seamless-m4t-medium"))
+    assert want == {"flash_prefill": 72, "flash_backward": 36}
+    out = _run(_MOCKED_SEAMLESS, timeout=240).strip().splitlines()[-1]
+    ok, launches, kernels = out.split(" | ")
+    assert ok == "True"
+    assert launches == str(sorted(want.items()))
+    assert kernels == str(sorted({"flash_prefill": 72,
+                                  "flash_backward_sm90": 36}.items()))
 
 
 def test_rwkv6_train_cell_is_applicable_on_a_mocked_card():

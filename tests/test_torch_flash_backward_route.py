@@ -2,19 +2,21 @@
 geometry and its decomposition, on the CPU (``kernels/flash_attention/
 kernel.py`` and ``ops.py``; the kernels themselves run on the card only).
 
-  * ``pick_backward_route``: bf16 at (64, 64), (128, 128) and (256, 256)
-    takes the
-    tensor-core kernel (``csrc/flash_backward_sm90.cu``), f32 the CUDA-core
-    one (``csrc/flash_backward.cu``); any other dtype or (D, Dv) raises;
-    ``check_backward`` takes a window (an int >= 1) and refuses the other
-    forms;
+  * ``pick_backward_route``: bf16 at (64, 64), (128, 128), (192, 128) and
+    (256, 256) causal, and at (64, 64) non-causal, takes the tensor-core
+    kernel (``csrc/flash_backward_sm90.cu``), f32 the CUDA-core one
+    (``csrc/flash_backward.cu``); any other dtype or (D, Dv) raises;
+    ``check_backward`` takes a window (an int >= 1) on a causal call, a
+    non-causal call with any Sq and Skv, and refuses the other forms;
   * ``backward_grid``, ``dq_block`` and ``dkdv_block``: each launch covers
     every (batch row, head, tile, column block) exactly once, the blocks
     with the most tiles to visit issued first; with a window,
     ``backward_key_tiles`` and ``backward_query_tiles`` cover each live
     (query tile, key tile) pair once and no dead one, and the order stays
-    heaviest first;
-  * ``backward_smem_bytes`` at D 64, 128 and 256 equals the source's
+    heaviest first; non-causal, every block visits every tile of the
+    other sequence (Sq != Skv, both ragged);
+  * ``backward_smem_bytes`` at (64, 64), (128, 128), (192, 128) and (256,
+    256) equals the source's
     ``dq_smem`` and ``dkdv_smem`` and stays within a block's 232,448
     bytes, and the constants of ``kernel.py`` are the source's;
   * every backward wrapper raises on CPU tensors and launches nothing;
@@ -27,6 +29,12 @@ kernel.py`` and ``ops.py``; the kernels themselves run on the card only).
     (17, 64, 200) and G 1 and 4, inputs made with numpy from a seed; at
     D 128 with starcoder2-7b's G 9 and granite-20b's G 48 over one KV
     head, with and without a window, against the plain backward;
+  * the two forms of deepseek-v3-671b's and seamless-m4t-medium's
+    training: non-causal with (Sq, Skv) (17, 40), (64, 200) and (200, 64),
+    and causal at (192, 128) with MLA's softmax scale: the plain backward
+    and the tiled emulation against ``jax.vjp`` of ``_flash_xla`` (1e-5 of
+    each gradient's largest), the emulation with the kernel's bf16
+    rounding within 4 bf16 ulps of it;
   * with a window (1, 16, 50), at (D, Dv) (16, 16) and (256, 256), G 1
     and 10: the plain backward and the tiled emulation against
     ``jax.vjp`` of ``_flash_xla(window=w)``, each gradient within 1e-5 of
@@ -60,16 +68,24 @@ SMEM_LIMIT = 232_448          # dynamic shared memory a block may use (H100)
 
 
 def test_pick_backward_route():
-    for d in (64, 128, 256):
-        assert fk.pick_backward_route(torch.bfloat16, d, d) == "sm90"
-        assert fk.pick_backward_route(torch.float32, d, d) == "simple"
-    assert fk.BACKWARD_HEAD_DIMS == ((64, 64), (128, 128), (256, 256))
+    for dims in ((64, 64), (128, 128), (192, 128), (256, 256)):
+        assert fk.pick_backward_route(torch.bfloat16, *dims) == "sm90"
+        assert fk.pick_backward_route(torch.float32, *dims) == "simple"
+    assert fk.BACKWARD_HEAD_DIMS == ((64, 64), (128, 128), (192, 128),
+                                     (256, 256))
+    assert fk.NONCAUSAL_HEAD_DIMS == ((64, 64),)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fk.pick_backward_route(dtype, 64, 64, causal=False) == (
+            "sm90" if dtype == torch.bfloat16 else "simple")
     for dims in fk.HEAD_DIMS:
-        if dims in fk.BACKWARD_HEAD_DIMS:
-            continue
-        for dtype in (torch.bfloat16, torch.float32):
-            with pytest.raises(NotImplementedError, match=r"\(64, 64\)"):
-                fk.pick_backward_route(dtype, *dims)
+        for causal, ported in ((True, fk.BACKWARD_HEAD_DIMS),
+                               (False, fk.NONCAUSAL_HEAD_DIMS)):
+            if dims in ported:
+                continue
+            for dtype in (torch.bfloat16, torch.float32):
+                with pytest.raises(NotImplementedError,
+                                   match=r"\(64, 64\)"):
+                    fk.pick_backward_route(dtype, *dims, causal=causal)
     with pytest.raises(NotImplementedError):
         fk.pick_backward_route(torch.float16, 64, 64)
 
@@ -107,6 +123,46 @@ def test_grids_cover_every_tile_once_heaviest_first(B, S, H, KV, D):
     assert work == sorted(work, reverse=True) and work[0] == G * n
 
 
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", [(8, 256, 256, 16, 16, 64),
+                                             (8, 256, 384, 16, 16, 64),
+                                             (2, 200, 64, 8, 2, 64),
+                                             (2, 17, 100, 8, 2, 64),
+                                             (8, 256, 256, 128, 128, 192)])
+def test_grids_cover_every_tile_once_sq_ne_skv(B, Sq, Skv, H, KV, D):
+    # the dQ grid over Sq's query tiles, the dK/dV grid over Skv's key
+    # tiles, each (batch row, head, tile, column block) once: D's column
+    # blocks in both (at (192, 128) the dK/dV kernel's third holds dK's
+    # columns alone)
+    nq, nk, c = fk.backward_tiles(Sq), fk.backward_tiles(Skv), \
+        fk.backward_cols(D)
+    n_dq, n_dkdv = fk.backward_grid(B, Sq, H, KV, D, Skv=Skv)
+    assert (n_dq, n_dkdv) == (nq * B * H * c, nk * B * KV * c)
+    got = {fk.dq_block(i, B, Sq, H, D) for i in range(n_dq)}
+    assert got == {(b, h, t, col) for b in range(B) for h in range(H)
+                   for t in range(nq) for col in range(c)}
+    got = {fk.dkdv_block(i, B, Skv, KV, D) for i in range(n_dkdv)}
+    assert got == {(b, h, t, col) for b in range(B) for h in range(KV)
+                   for t in range(nk) for col in range(c)}
+
+
+@pytest.mark.parametrize("Sq,Skv", [(17, 40), (64, 200), (200, 64),
+                                    (256, 384), (130, 130)])
+def test_noncausal_tiles_cover_every_pair_once(Sq, Skv):
+    # non-causal: every dQ block visits all of Skv's key tiles, every
+    # dK/dV block all of Sq's query tiles, each (query tile, key tile)
+    # pair once
+    nq, nk = fk.backward_tiles(Sq), fk.backward_tiles(Skv)
+    live = {(i, j) for i in range(nq) for j in range(nk)}
+    by_dq = [(t, j) for t in range(nq) for j in range(
+        *(lambda a, n: (a, a + n))(*fk.backward_key_tiles(
+            t, Skv, None, causal=False)))]
+    by_dkdv = [(j, t) for t in range(nk) for j in range(
+        *(lambda a, n: (a, a + n))(*fk.backward_query_tiles(
+            t, Sq, None, causal=False)))]
+    for got in (by_dq, by_dkdv):
+        assert len(got) == len(set(got)) and set(got) == live
+
+
 @pytest.mark.parametrize("S,window", [(17, 1), (64, 16), (200, 50),
                                       (256, 2048), (300, 64), (300, 65),
                                       (4096, 2048), (129, None)])
@@ -138,11 +194,13 @@ def _source_ints():
                                 text).group(1))
             for name in ("kThreads", "kTile", "kCol")}
     stages = {}
-    for d, body in re.findall(r"template <> struct Config<(\d+)> \{\s*"
-                              r"static constexpr int ([^;]+);", text):
+    for d, dv, body in re.findall(r"template <> struct Config<(\d+), "
+                                  r"(\d+)> \{\s*static constexpr int "
+                                  r"([^;]+);", text):
         kv = dict(x.split("=") for x in body.replace(" ", "").split(","))
-        stages[int(d)] = (int(kv["kDqStages"]), int(kv["kDkdvStages"]),
-                          int(kv["kDqBlocks"]))
+        stages[int(d), int(dv)] = (int(kv["kDqStages"]),
+                                   int(kv["kDkdvStages"]),
+                                   int(kv["kDqBlocks"]))
     return text, ints, stages
 
 
@@ -151,21 +209,30 @@ def test_constants_are_the_sources():
     assert got == {"kThreads": 128, "kTile": fk.BACKWARD_TILE,
                    "kCol": fk.BACKWARD_COLS}
     assert {d: s[:2] for d, s in stages.items()} == fk.BACKWARD_STAGES
-    assert fk.BACKWARD_HEAD_DIMS == tuple((d, d) for d in sorted(stages))
+    assert fk.BACKWARD_HEAD_DIMS == tuple(sorted(stages))
     assert fk.SM90_CONSTANTS[:2] == (got["kThreads"], got["kTile"])
+    assert len(fk.SM90_CONSTANTS) == 2 + 4 * len(stages)
+    # the constants entry reports each pair of BACKWARD_HEAD_DIMS in order
+    text = SOURCE.read_text()
+    body = text[text.index("void repro_flash_backward_sm90_constants"):]
+    pairs = re.findall(r"Config<(\d+), (\d+)>::kDqStages", body)
+    assert [tuple(map(int, p)) for p in pairs] == list(fk.BACKWARD_HEAD_DIMS)
     # a tile is whole k-steps of wgmma (16) and one 64-row wgmma M; an
     # accumulator block is 64 columns (n64)
     assert fk.BACKWARD_TILE == fk.BACKWARD_COLS == 64
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 192])
 def test_smem_bytes_are_the_sources_and_fit_a_block(D):
+    # D 192 is MLA's (192, 128); the other pairs have Dv = D
+    Dv = 128 if D == 192 else D
     text, ints, stages = _source_ints()
-    dq_stages, dkdv_stages, dq_blocks = stages[D]
+    dq_stages, dkdv_stages, dq_blocks = stages[D, Dv]
     ints.update(kStatBytes=2 * ints["kTile"] * 4,
                 **{"tile_bytes<kD>()": ints["kTile"] * D * 2,
-                   "Config<kD>::kDqStages": dq_stages,
-                   "Config<kD>::kDkdvStages": dkdv_stages})
+                   "tile_bytes<kDv>()": ints["kTile"] * Dv * 2,
+                   "Config<kD, kDv>::kDqStages": dq_stages,
+                   "Config<kD, kDv>::kDkdvStages": dkdv_stages})
     got = []
     for name in ("dq_smem", "dkdv_smem"):
         expr = re.search(rf"constexpr int {name}\(\) \{{\s*return ([^;]+);",
@@ -174,14 +241,14 @@ def test_smem_bytes_are_the_sources_and_fit_a_block(D):
             expr = expr.replace(k, str(val))
         assert re.fullmatch(r"[\d\s()+*]+", expr), expr
         got.append(eval(" ".join(expr.split())))
-    assert tuple(got) == fk.backward_smem_bytes(D)
+    assert tuple(got) == fk.backward_smem_bytes(D, Dv)
     for b in got:
         assert b <= SMEM_LIMIT
     # an SM's 228 KB holds the blocks its registers allow: at D 64 four of
     # the dQ kernel (128 registers a thread), two of the dK/dV kernel; at
-    # D 128 two of each; at D 256 one of each
-    assert dq_blocks == {64: 4, 128: 2, 256: 1}[D]
-    dkdv_blocks = 1 if D == 256 else 2
+    # D 128 two of each; at (192, 128) and D 256 one of each
+    assert dq_blocks == {64: 4, 128: 2, 192: 1, 256: 1}[D]
+    dkdv_blocks = 1 if D in (192, 256) else 2
     assert dq_blocks * (got[0] + 1024) <= 228 * 1024
     assert dkdv_blocks * (got[1] + 1024) <= 228 * 1024
 
@@ -307,3 +374,65 @@ def test_check_backward_takes_a_window_only_in_the_training_form():
     for kw in (dict(causal=False), dict(q_start=2), dict(kv_len=4)):
         with pytest.raises(NotImplementedError):
             fk.check_backward(q, k, v, window=4, **kw)
+    # non-causal: any Sq and Skv, no window; causal: Sq = Skv
+    k2, v2 = (torch.zeros(1, 13, 2, 16) for _ in range(2))
+    fk.check_backward(q, k2, v2, causal=False)
+    fk.check_backward(q, k, v, causal=False)
+    with pytest.raises(NotImplementedError):
+        fk.check_backward(q, k2, v2, causal=True)
+    with pytest.raises(NotImplementedError):
+        fk.check_backward(q, k2, v2, causal=False, kv_len=12)
+
+
+def _vjp_case(seed, B, Sq, Skv, H, KV, D, Dv, causal, scale):
+    rng = np.random.default_rng(seed)
+    qn, kn, vn, don = (rng.standard_normal(sh).astype(np.float32) for sh in (
+        (B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv), (B, Sq, H, Dv)))
+    fx = functools.partial(_flash_xla, causal=causal, window=None,
+                           q_start=0, kv_len=None, softmax_scale=scale,
+                           kv_chunk=64, skip_masked_blocks=False)
+    out, vjp = jax.vjp(fx, jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+    want = [np.array(w) for w in vjp(jnp.asarray(don))]
+    q, k, v, do = (torch.from_numpy(a) for a in (qn, kn, vn, don))
+    return (q, k, v, torch.from_numpy(np.array(out)), do), want
+
+
+# (Sq, Skv, H, KV, D, Dv, causal, softmax scale): seamless-m4t-medium's
+# non-causal forms, ragged both ways; MLA's (192, 128) at its scale (nope +
+# rope) ** -0.5, G 1 and 4
+NEW_FORMS = [(17, 40, 4, 4, 64, 64, False, None),
+             (64, 200, 8, 2, 64, 64, False, None),
+             (200, 64, 8, 2, 64, 64, False, None),
+             (17, 17, 4, 4, 192, 128, True, 192 ** -0.5),
+             (130, 130, 8, 2, 192, 128, True, 192 ** -0.5)]
+
+
+@pytest.mark.parametrize("form", NEW_FORMS)
+@pytest.mark.parametrize("name", ["plain", "tiled"])
+def test_new_forms_match_jax_vjp(form, name):
+    Sq, Skv, H, KV, D, Dv, causal, scale = form
+    args, want = _vjp_case(Sq + 3 * Skv + D, 1, Sq, Skv, H, KV, D, Dv,
+                           causal, scale)
+    fn = {"plain": flash_attention_backward_torch,
+          "tiled": flash_backward_tiled_torch}[name]
+    got = fn(*args, softmax_scale=scale, causal=causal)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= 1e-5 * float(np.abs(w).max()), (what, err)
+
+
+@pytest.mark.parametrize("form", NEW_FORMS)
+def test_new_forms_tiled_rounded_within_card_limit(form):
+    # the emulation with the kernel's bf16 rounding of P and dS against
+    # jax.vjp of _flash_xla: within 4 bf16 ulps of each gradient's largest
+    Sq, Skv, H, KV, D, Dv, causal, scale = form
+    args, want = _vjp_case(Sq + 3 * Skv + D + 1, 1, Sq, Skv, H, KV, D, Dv,
+                           causal, scale)
+    got = flash_backward_tiled_torch(*args, softmax_scale=scale,
+                                     causal=causal, round_bf16=True)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        scale_w = float(np.abs(w).max())
+        tol = 4 * 2.0 ** (math.floor(math.log2(scale_w)) - 7)
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= tol, (what, err, tol)

@@ -357,10 +357,12 @@ def card(monkeypatch):
         check(q, k, v)
         return fops._flash_torch(q, k, v, kv_chunk=1024, **kw)
 
-    def flash_backward(q, k, v, o, do, softmax_scale=None, window=None):
+    def flash_backward(q, k, v, o, do, softmax_scale=None, window=None,
+                       causal=True):
         check(q, k, v, o, do)
         return fops.flash_attention_backward_torch(
-            q, k, v, o, do, softmax_scale=softmax_scale, window=window)
+            q, k, v, o, do, softmax_scale=softmax_scale, window=window,
+            causal=causal)
 
     def wkv(r, k, v, w, u, initial_state=None, state_out=None):
         check(r, k, v, w, u, initial_state, state_out)

@@ -8,10 +8,14 @@ numpy from a seed and handed to both packages; every comparison is in f32:
     (``llama3.2-1b``, ``rwkv6-7b``, ``recurrentgemma-2b``; the recurrent
     mixing leaves filled by ``live_leaves`` as in
     ``test_torch_recurrent_models.py``, the Griffin sequence longer than
-    its window) and of the dense and MoE decoders (``gemma-7b``,
+    its window), of the dense and MoE decoders (``gemma-7b``,
     ``starcoder2-7b``, ``granite-20b``, ``chameleon-34b``,
-    ``granite-moe-3b-a800m``, whose metrics carry the MoE's ``aux_loss``)
-    against ``repro``'s ``loss_fn(impl="xla")``: the loss and each metric
+    ``granite-moe-3b-a800m``, whose metrics carry the MoE's ``aux_loss``),
+    of the encoder-decoder (``seamless-m4t-medium``, 24 frames against 16
+    tokens; ``repro``'s encoder carried in f32 as in
+    ``test_torch_encdec.py``) and of ``deepseek-v3-671b`` (MLA, MoE, its
+    metrics carrying ``mtp_loss``) against ``repro``'s
+    ``loss_fn(impl="xla")``: the loss and each metric
     within 1e-5, every gradient leaf against ``jax.grad`` within 1e-4 of
     the leaf's largest gradient (sums in another order);
   * 3 train steps of the smoke ``llama3.2-1b`` against ``repro``'s jitted
@@ -40,8 +44,12 @@ numpy from a seed and handed to both packages; every comparison is in f32:
     equal autograd's of the plain forward) or raises
     ``NotImplementedError`` (the arena ops), and a training form the
     backward does not take raises too: ``check_backward`` on a mocked CUDA
-    tensor takes (128, 128) with and without a window, and raises at
-    (16, 16) and (192, 128);
+    tensor takes (128, 128) with and without a window, MLA's (192, 128)
+    causal at its own softmax scale and (64, 64) non-causal with ``Sq``
+    equal to ``Skv`` or not (seamless-m4t-medium's encoder and
+    cross-attention), and raises at (16, 16) and (128, 64), for a causal
+    call with ``Sq != Skv``, a cut ``kv_len``, a device position, a
+    window on a non-causal call and non-causal calls at other head dims;
   * the MoE's gradient check on the card forces each run's expert ids on
     the other (``chip_smoke.RouteLog(force, own_gates=True)``): a run
     forced with its own ids, gates from its own router, gives a loss and
@@ -75,6 +83,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.configs as jconfigs  # noqa: E402
+import repro.models.zoo as jzoo  # noqa: E402
 from repro.kernels.flash_attention.ops import _flash_xla  # noqa: E402
 from repro.launch.steps import make_optimizer as jmake_optimizer  # noqa: E402
 from repro.launch.steps import make_train_step as jmake_train_step  # noqa: E402
@@ -120,10 +129,15 @@ from test_torch_recurrent_models import live_leaves  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 RECURRENT = ("rwkv6-7b", "recurrentgemma-2b")
 ARCHS = ("llama3.2-1b", *RECURRENT, "gemma-7b", "starcoder2-7b",
-         "granite-20b", "chameleon-34b", "granite-moe-3b-a800m")
+         "granite-20b", "chameleon-34b", "granite-moe-3b-a800m",
+         "seamless-m4t-medium", "deepseek-v3-671b")
 SEQ = {"llama3.2-1b": 16, "rwkv6-7b": 12, "recurrentgemma-2b": 24,
        "gemma-7b": 16, "starcoder2-7b": 16, "granite-20b": 16,
-       "chameleon-34b": 16, "granite-moe-3b-a800m": 16}
+       "chameleon-34b": 16, "granite-moe-3b-a800m": 16,
+       "seamless-m4t-medium": 16, "deepseek-v3-671b": 16}
+# the encoder-decoder's frames: more rows than its tokens, so that its
+# cross-attention has Sq != Skv
+FRAMES = {"seamless-m4t-medium": 24}
 f32 = jnp.float32
 
 
@@ -149,14 +163,24 @@ def loss_pair(request):
     jp = jax.tree.map(lambda a: a.astype(f32), jp)
     tp = tree_map(lambda t: t.float(),
                   params_from_numpy(tm.defs, _np32(jp), "cpu"))
-    tokens = _tokens(5, 2, SEQ[arch], tm.cfg.vocab_size)
-    jloss = lambda p: jm.loss_fn(p, {"tokens": jnp.asarray(tokens)},
-                                 impl="xla")
-    (jl, jmet), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
+    batch = {"tokens": _tokens(5, 2, SEQ[arch], tm.cfg.vocab_size)}
+    if arch in FRAMES:
+        batch["frames"] = np.random.default_rng(6).standard_normal(
+            (2, FRAMES[arch], tm.cfg.d_model)).astype(np.float32)
+    jloss = lambda p: jm.loss_fn(
+        p, {k: jnp.asarray(a) for k, a in batch.items()}, impl="xla")
+    with pytest.MonkeyPatch.context() as mp:
+        if tm.cfg.is_encoder_decoder:
+            # repro's encoder carried in f32 from the bf16-rounded frames,
+            # as the port's runs with f32 parameters (test_torch_encdec.py)
+            mp.setattr(jzoo, "shard_act",
+                       lambda x, rules, kind: x.astype(jnp.float32))
+        (jl, jmet), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
     leaves = tree_leaves(tp)
     for p in leaves:
         p.requires_grad_(True)
-    tl, tmet = tm.loss_fn(tp, {"tokens": torch.from_numpy(tokens)})
+    tl, tmet = tm.loss_fn(tp, {k: torch.from_numpy(a)
+                               for k, a in batch.items()})
     tg = torch.autograd.grad(tl, leaves)
     return arch, (jl, jmet, jg), (tl, tmet, tg)
 
@@ -324,6 +348,21 @@ def test_cut_depth_keeps_widths_and_bounds_depth():
             tconfigs.cut_depth(full, bad)
 
 
+def test_cut_depth_cuts_both_stacks_of_the_encoder_decoder():
+    # seamless-m4t-medium's --layers N keeps the first N layers of its
+    # encoder and of its decoder, widths as published
+    full = tconfigs.get("seamless-m4t-medium")
+    cut = tconfigs.cut_depth(full, 1)
+    assert (cut.n_layers, cut.encoder_layers) == (1, 1)
+    assert (cut.d_model, cut.vocab_size) == (full.d_model, full.vocab_size)
+    assert tconfigs.cut_depth(tconfigs.get("llama3.2-1b"), 2) \
+        .encoder_layers == 0
+    tm = build_model(tconfigs.cut_depth(tconfigs.smoke(
+        "seamless-m4t-medium"), 1))
+    shapes = {k: tuple(v.shape) for k, v in tm.defs["enc"]["ln1"].items()}
+    assert shapes == {"scale": (1, tm.cfg.d_model)}
+
+
 def test_cli_rejects_a_mesh(tmp_path):
     # the production mesh needs its 256 ranks, as jax.make_mesh its devices
     with pytest.raises(ValueError, match="needs a world of 256 ranks"):
@@ -452,9 +491,13 @@ def test_mock_flash_cuda_has_grad_fn(on_card):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(causal=False), dict(q_start=3),
+    dict(causal=False, window=5), dict(q_start=3),
     dict(kv_len=10), dict(q_start=torch.tensor(0))])
 def test_mock_flash_cuda_raises_off_the_training_form(on_card, kw):
+    # A window on a non-causal call (no model makes one), an offset, a cut
+    # kv_len and a device position: forms outside the backward's, which
+    # raise.  (A non-causal call without a window is a training form now:
+    # test_mock_flash_cuda_noncausal_has_grad_fn.)
     q, k, v = _leaf(1, 20, 4, 16), _leaf(1, 20, 2, 16), _leaf(1, 20, 2, 16)
     with pytest.raises(NotImplementedError):
         flash_attention(q, k, v, **{"causal": True, **kw}, impl="cuda")
@@ -470,12 +513,13 @@ def test_mock_flash_cuda_raises_for_unported_head_dims(on_card,
         fa_ops._kernel.check_backward(q, k, v)
 
 
-@pytest.mark.parametrize("dims", [(16, 16), (192, 128)])
+@pytest.mark.parametrize("dims", [(16, 16), (128, 64)])
 def test_mock_check_backward_raises_for_dims_without_a_kernel(on_card,
                                                              monkeypatch,
                                                              dims):
-    # the mocked card's route: MLA's (192, 128) and the (16, 16) pair have
-    # no backward kernel, with or without a window
+    # the mocked card's route: the (16, 16) pair and (128, 64), a pair no
+    # model has, have no backward kernel, with or without a window.  (MLA's
+    # (192, 128) has one now: test_mock_flash_cuda_mla_has_grad_fn.)
     D, Dv = dims
     q, k, v = _leaf(1, 20, 4, D), _leaf(1, 20, 2, D), _leaf(1, 20, 2, Dv)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
@@ -508,6 +552,80 @@ def test_mock_flash_cuda_d128_has_grad_fn(on_card, monkeypatch, window,
     for dtype in (torch.bfloat16, torch.float32):
         assert fa_ops._kernel.pick_backward_route(dtype, 128, 128) == (
             "sm90" if dtype == torch.bfloat16 else "simple")
+
+
+@pytest.mark.parametrize("Sq,Skv", [(20, 20), (20, 33), (33, 20)])
+@pytest.mark.parametrize("impl", ["cuda", "auto"])
+def test_mock_flash_cuda_noncausal_has_grad_fn(on_card, monkeypatch, Sq,
+                                               Skv, impl):
+    # seamless-m4t-medium's encoder self-attention (Sq = Skv) and its
+    # cross-attention (Sq != Skv): non-causal at (64, 64) takes
+    # FlashAttentionFn, its gradient autograd's of the plain forward
+    q = _leaf(1, Sq, 4, 64)
+    k, v = _leaf(1, Skv, 2, 64, seed=1), _leaf(1, Skv, 2, 64, seed=2)
+    o = flash_attention(q, k, v, causal=False, impl=impl)
+    assert o.grad_fn is not None and "FlashAttentionFn" in \
+        type(o.grad_fn).__name__
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(3))
+    got = torch.autograd.grad(o, (q, k, v), do)
+    ref = attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(o, ref, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got, torch.autograd.grad(ref, (q, k, v), do)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    fa_ops._kernel.check_backward(q, k, v, causal=False)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fa_ops._kernel.pick_backward_route(
+            dtype, 64, 64, causal=False) == (
+            "sm90" if dtype == torch.bfloat16 else "simple")
+
+
+@pytest.mark.parametrize("impl", ["cuda", "auto"])
+def test_mock_flash_cuda_mla_has_grad_fn(on_card, monkeypatch, impl):
+    # deepseek-v3-671b's MLA in training: (192, 128), causal, with a
+    # softmax scale of its own (passed through to both kernels, not
+    # recomputed from D), takes FlashAttentionFn, its gradient autograd's
+    # of the plain forward at that scale
+    q, k = _leaf(1, 20, 4, 192), _leaf(1, 20, 4, 192, seed=1)
+    v = _leaf(1, 20, 4, 128, seed=2)
+    scale = 0.11
+    o = flash_attention(q, k, v, causal=True, softmax_scale=scale,
+                        impl=impl)
+    assert o.grad_fn is not None and "FlashAttentionFn" in \
+        type(o.grad_fn).__name__
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(3))
+    got = torch.autograd.grad(o, (q, k, v), do)
+    ref = attention_ref(q, k, v, causal=True, softmax_scale=scale)
+    torch.testing.assert_close(o, ref, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got, torch.autograd.grad(ref, (q, k, v), do)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    fa_ops._kernel.check_backward(q, k, v)
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fa_ops._kernel.pick_backward_route(dtype, 192, 128) == (
+            "sm90" if dtype == torch.bfloat16 else "simple")
+
+
+@pytest.mark.parametrize("form", [
+    "causal Sq != Skv", "cut kv_len", "device position",
+    "non-causal window", "non-causal (128, 128)", "non-causal (192, 128)"])
+def test_mock_check_backward_raises_off_the_new_forms(on_card, monkeypatch,
+                                                      form):
+    # the forms around the two this slice adds, each still refused on the
+    # mocked card: the backward kernels never see them
+    D, Dv = {"non-causal (128, 128)": (128, 128),
+             "non-causal (192, 128)": (192, 128)}.get(form, (64, 64))
+    Skv = 33 if form == "causal Sq != Skv" else 20
+    q = _leaf(1, 20, 4, D)
+    k, v = _leaf(1, Skv, 2, D, seed=1), _leaf(1, Skv, 2, Dv, seed=2)
+    kw = {"causal Sq != Skv": dict(causal=True),
+          "cut kv_len": dict(causal=False, kv_len=10),
+          "device position": dict(causal=False, q_start=torch.tensor(0)),
+          "non-causal window": dict(causal=False, window=5),
+          }.get(form, dict(causal=False))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    with pytest.raises(NotImplementedError):
+        fa_ops._kernel.check_backward(q, k, v, **kw)
 
 
 def test_moe_forced_with_own_routes_is_bit_equal():

@@ -22,6 +22,15 @@ the same path against ``repro`` are in ``test_torch_train.py``.
     version at the same limits; the routed call counts one launch on its
     route, the tensor-core kernel's two runs are bit-equal, and its output
     with KV head 0's dK zeroed reads above the bf16 limit;
+  * both backward kernels non-causal at (64, 64) (seamless-m4t-medium's
+    encoder and cross-attention), at its heads (16 over 16) and G 4 (8
+    over 2), (B, Sq, Skv) (8, 256, 256), (2, 200, 384), (2, 384, 200) and
+    (2, 17, 100), and causal at (192, 128) with MLA's softmax scale
+    (deepseek-v3-671b), at its heads (128 over 128) and G 4, (B, S) (8,
+    256), (2, 200) and (2, 17), against the plain version at the same
+    limits; the routed call counts one launch on its route, the
+    tensor-core kernel's two runs are bit-equal; ``FlashAttentionFn`` of
+    each form against autograd of the plain forward in f32;
   * the WKV-6 backward kernel (``kernel.wkv6_backward_cuda``) against its
     plain version ``wkv6_backward_torch`` at N 64, f32 (1e-5 of each
     gradient's largest) and bf16 (one ulp of each element plus 1e-5 of the
@@ -60,11 +69,14 @@ def card():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _card_inputs(card, dtype, B, S, H, KV, D=64, seed=0):
+def _card_inputs(card, dtype, B, S, H, KV, D=64, seed=0, Dv=None, Skv=None):
+    # q (B, S, H, D), k (B, Skv, KV, D), v (B, Skv, KV, Dv), dO (B, S, H,
+    # Dv); Dv and Skv default to D and S
+    Dv, Skv = Dv or D, Skv or S
     g = torch.Generator(device=card).manual_seed(seed)
     return [torch.randn(*s, generator=g, device=card).to(dtype)
-            for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D),
-                      (B, S, H, D))]
+            for s in ((B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, Dv),
+                      (B, S, H, Dv))]
 
 
 @pytest.mark.cuda
@@ -309,3 +321,81 @@ def test_recurrent_loss_raises_under_grad_on_card(card, arch):
     for a, b in zip(grads["auto"], grads["torch"]):
         scale = max(float(b.abs().max()), 1e-12)
         assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+NONCAUSAL_SHAPES = [(8, 256, 256), (2, 200, 384), (2, 384, 200),
+                    (2, 17, 100)]
+MLA_SCALE = 192 ** -0.5
+
+
+def _new_form_case(card, fk, kernel, dtype, heads, shape, form):
+    dt = getattr(torch, dtype)
+    fn = {"routed": fk.flash_backward_cuda,
+          "simple": fk.flash_backward_simple_cuda}[kernel]
+    H, KV = heads
+    if form == "non-causal":
+        B, Sq, Skv = shape
+        kw = dict(causal=False, softmax_scale=None)
+        q, k, v, do = _card_inputs(card, dt, B, Sq, H, KV, Skv=Skv,
+                                   seed=Sq + 3 * Skv + H)
+        dims = (64, 64)
+    else:
+        B, S = shape
+        kw = dict(causal=True, softmax_scale=MLA_SCALE)
+        q, k, v, do = _card_inputs(card, dt, B, S, H, KV, D=192, Dv=128,
+                                   seed=S + H)
+        dims = (192, 128)
+    o = flash_attention(q, k, v, **kw)
+    fk.reset_launches()
+    got = fn(q, k, v, o, do, **kw)
+    route = fk.pick_backward_route(dt, *dims, causal=kw["causal"]) \
+        if kernel == "routed" else kernel
+    assert fk.BACKWARD_ROUTES == {"sm90": 0, "simple": 0, route: 1}
+    assert fk.LAUNCHES["flash_backward"] == 1
+    want = flash_attention_backward_torch(q, k, v, o, do, **kw)
+    assert _within(got, want, dt) <= 1.0
+    if route == "sm90":
+        again = fk.flash_backward_sm90_cuda(q, k, v, o, do, **kw)
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [
+    ("routed", "bfloat16"), ("routed", "float32"), ("simple", "bfloat16")])
+@pytest.mark.parametrize("heads", [(16, 16), (8, 2)])
+@pytest.mark.parametrize("shape", NONCAUSAL_SHAPES)
+def test_noncausal_backward_matches_plain_on_card(card, kernel, dtype,
+                                                  heads, shape):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    _new_form_case(card, fk, kernel, dtype, heads, shape, "non-causal")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [
+    ("routed", "bfloat16"), ("routed", "float32"), ("simple", "bfloat16")])
+@pytest.mark.parametrize("heads", [(128, 128), (8, 2)])
+@pytest.mark.parametrize("shape", [(8, 256), (2, 200), (2, 17)])
+def test_mla_backward_matches_plain_on_card(card, kernel, dtype, heads,
+                                            shape):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    _new_form_case(card, fk, kernel, dtype, heads, shape, "(192, 128)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["non-causal", "(192, 128)"])
+def test_new_form_function_grads_match_plain_on_card(card, form):
+    if form == "non-causal":
+        kw = dict(causal=False)
+        ins = _card_inputs(card, torch.float32, 2, 200, 8, 2, Skv=384)
+    else:
+        kw = dict(causal=True, softmax_scale=MLA_SCALE)
+        ins = _card_inputs(card, torch.float32, 2, 200, 8, 2, D=192, Dv=128)
+    q, k, v, do = (t.requires_grad_(i < 3) for i, t in enumerate(ins))
+    o = flash_attention(q, k, v, **kw)
+    assert o.grad_fn is not None and "FlashAttentionFn" in \
+        type(o.grad_fn).__name__
+    got = torch.autograd.grad(o, (q, k, v), do)
+    ref = flash_attention(q, k, v, impl="torch", **kw)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    assert _within(got, want, torch.float32) <= 1.0
