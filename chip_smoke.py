@@ -214,7 +214,25 @@ non-zero):
               JSON rows' ``batched``), and the row staging copies against
               their bound.
 
-9. train   -- the training path, the serving models' weights freed: at
+9. train   -- the training path, the serving models' weights freed.
+              First the optimizer kernels (``csrc/adamw.cu``,
+              ``check_optim_kernels``): ``sumsq_kernel`` and
+              ``adamw_update_kernel`` against their plain versions at
+              llama3.2-1b's full-width leaves over OPTIM_UPDATES updates
+              and on the ragged set (OPTIM_RAGGED, f32 and bf16, every
+              other leaf off 16-byte alignment): the update bit-equal in
+              every leaf given the same scale, each leaf's squared sum
+              within SUMSQ_RTOL of torch's and bit-equal to a second run
+              (on the ragged set both kernels bit-equal to their order
+              emulated in torch too), the two controls
+              (OPTIM_CONTROL_EDITS) above their limits in leaf 0 only;
+              their times beside their bounds, plain versions and two
+              timing references.  Then llama3.2-1b's train step captured
+              in one CUDA graph (``captured_train_compare``:
+              CAPTURED_STEPS captured steps bit-equal to as many eager
+              ones in loss, grad_norm, lr and the final state, launches a
+              replay the eager step's, ms a step, idle share and peaks).
+              Then, at
               llama3.2-1b's heads (H 32, KV 8, D 64) with B 8 x S 256 and
               the ragged S 200 and 17, bf16 and f32, the forward kernel's
               output against ``_flash_torch`` and ``attention_ref`` (the
@@ -346,7 +364,13 @@ non-zero):
               its time, the optimizer's time beside its bound, peaks, the
               CLI and its bit-equal resume); the new forms' backward timed
               at the training shapes beside the bound, the plain version
-              and SDPA's backward.
+              and SDPA's backward.  Last the CLI block: every family's CLI
+              run and its bit-equal resume (``cli_run_and_replay``, each
+              step a replay of ``launch/steps.py:CapturedTrainStep``,
+              launches ``train_launches``' with one ``sumsq`` and one
+              ``adamw_update`` a step for every AdamW config), gathered
+              from ``family_train`` (CLI_QUEUE) so that the fleet's host
+              runs (phase 13, ``FleetRuns``) go beside it.
 
 11. a7     -- (run after phase 7's decoders) this slice's families:
               first each new attention shape, bf16 and f32, through the
@@ -2370,7 +2394,7 @@ def phase_bridge(dev, card) -> dict:
 # ---------------------------------------------------------------------------
 
 
-KERNEL_MODULES = ("arena", "flash_attention", "rwkv6", "rglru")
+KERNEL_MODULES = ("arena", "flash_attention", "rwkv6", "rglru", "optim")
 
 
 def reset_all():
@@ -3682,8 +3706,10 @@ def phase_timing(plans, inputs, launches, err, card, captured):
             torch.cuda.synchronize()
             per_exec = dict(LAUNCHES)
             path = "fused" if fuse else "slice"
-            # eager, captured (jit=True), eager, captured: in turns
-            t = [time_execute(rt, p, inputs[name], fuse, jit=jit)
+            # eager, captured (jit=True), eager, captured: in turns (an
+            # eager execute takes ~70 ms: its median over 10)
+            t = [time_execute(rt, p, inputs[name], fuse, jit=jit,
+                              reps=20 if jit else 10)
                  for jit in (False, True, False, True)]
             for i, jit in enumerate((False, True, False, True)):
                 med, best, busy = t[i]
@@ -4446,6 +4472,9 @@ TRAIN_GRAD_RTOL = 3e-2
 # in the 45 GiB of disk writes the card's machine allows a call
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_BATCH, TRAIN_SEQ = 7, 4, 8, 256
 TRAIN_CLI_LAYERS = 2
+# llama3.2-1b's CLI run at those settings (``family_cli``'s form)
+LLAMA_CLI = dict(arch="llama3.2-1b", steps=TRAIN_STEPS,
+                 ckpt_every=TRAIN_CKPT_EVERY, cli_layers=TRAIN_CLI_LAYERS)
 TIMED_STEPS = 3
 # cfg.remat settings the train phase runs in turns (the config's default,
 # "block", is what the CLI runs)
@@ -4480,18 +4509,23 @@ def train_launches(cfg, steps: int = 1) -> dict:
     the tail (the layers past the last whole group), whose forward runs
     once: at recurrentgemma-2b's 26 layers, 8 groups (rec, rec, attn) and
     2 rec layers, a step is 16 ``flash_prefill``, 8 ``flash_backward``,
-    2 x 16 + 2 = 34 ``rglru`` and 18 ``rglru_backward``."""
+    2 x 16 + 2 = 34 ``rglru`` and 18 ``rglru_backward``.  An AdamW
+    config's step adds one ``sumsq`` (the clip's norm) and one
+    ``adamw_update`` (the clip's scaling and the update); Adafactor's
+    (deepseek-v3-671b) runs on plain ops and adds none."""
     again = 0 if cfg.remat in ("none", False) else 1
+    optim = ({"sumsq": steps, "adamw_update": steps}
+             if cfg.optimizer == "adamw" else {})
     if cfg.attn_free:
         return {"wkv6": (1 + again) * cfg.n_layers * steps,
-                "wkv6_backward": cfg.n_layers * steps}
+                "wkv6_backward": cfg.n_layers * steps, **optim}
     if cfg.family != "hybrid":
         wrapped = cfg.n_layers
         if cfg.is_encoder_decoder:
             wrapped = cfg.encoder_layers + 2 * cfg.n_layers
         once = 1 if cfg.mtp else 0
         return {"flash_prefill": ((1 + again) * wrapped + once) * steps,
-                "flash_backward": (wrapped + once) * steps}
+                "flash_backward": (wrapped + once) * steps, **optim}
     pattern = cfg.block_pattern
     groups = cfg.n_layers // len(pattern)
     tail = pattern[:cfg.n_layers - groups * len(pattern)]
@@ -4501,7 +4535,7 @@ def train_launches(cfg, steps: int = 1) -> dict:
         g, t = groups * pattern.count(kind), tail.count(kind)
         out[fwd] = ((1 + again) * g + t) * steps
         out[bwd] = (g + t) * steps
-    return out
+    return {**out, **optim}
 
 
 def bwd_bound(q, k, v, causal: bool = True,
@@ -4823,9 +4857,12 @@ def step_parts(model, opt, state, batch) -> dict:
     part's first op to its last op queued (no wait in between).  Returns
     {part: (device ms, host issue ms)}.  The parts are
     ``make_train_step``'s body, called one by one so that events can sit
-    between them."""
+    between them.  The clip is the norm and the scale (AdamW's norm one
+    ``sumsq`` launch); the gradients' scaling is the optimizer's (AdamW:
+    one ``adamw_update`` launch with the update)."""
     from torch.profiler import record_function
 
+    from repro_torch.kernels.optim.ops import global_norm
     from repro_torch.models.params import tree_flatten, tree_unflatten
     from repro_torch.optim.schedule import cosine_warmup
     params = state["params"]
@@ -4846,17 +4883,15 @@ def step_parts(model, opt, state, batch) -> dict:
             grads = torch.autograd.grad(loss, leaves)
         mark()
     with record_function("clip"):
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in grads))
+        gnorm = global_norm(grads, impl="auto" if opt.fused_clip
+                            else "torch")
         scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
-        for g in grads:
-            g.mul_(scale.to(g.dtype))
         lr = cosine_warmup(state["opt"]["step"], peak_lr=3e-4, warmup=10,
                            total=TRAIN_STEPS)
     mark()
     with record_function("optimizer"):
         opt.update(tree_unflatten(treedef, list(grads)), state["opt"],
-                   params, lr_scale=lr / opt.lr)
+                   params, lr_scale=lr / opt.lr, clip_scale=scale)
     mark()
     torch.cuda.synchronize()
     return {n: (ev[i].elapsed_time(ev[i + 1]),
@@ -5039,22 +5074,60 @@ def remat_compare(model, opt, state, batch, card) -> dict:
     return rec
 
 
-def state_digests(tree) -> list:
-    """Each leaf's dtype, shape and the SHA-256 of its bytes, copied to the
-    host a leaf at a time by 8 threads (hashlib and the copy release the
-    GIL): two states with equal digests are bit-equal (but for a hash
-    collision), and neither is held on the host whole."""
-    import hashlib
+# odd 64-bit constants (splitmix64's) as int64, for state_digests' mix
+_MIX_KEY, _MIX_1, _MIX_2 = (c - (1 << 64) for c in (
+    0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB))
+# words a slice of a leaf, so that the mix's temporaries stay small
+_DIGEST_SLICE = 1 << 24
 
+
+def _mix_words(x):
+    """A bijection of int64 words, in place: splitmix64's finaliser (xor
+    with a logical right shift, multiply by an odd constant, twice; each
+    step is invertible modulo 2^64), so a change in any bit of a word
+    spreads over all 64 bits of its image."""
+    for shift, mult in ((30, _MIX_1), (27, _MIX_2), (31, None)):
+        x.bitwise_xor_((x >> shift) & ((1 << (64 - shift)) - 1))
+        if mult is not None:
+            x.mul_(mult)
+    return x
+
+
+def state_digests(tree) -> list:
+    """Each leaf's dtype, shape and two sums, computed on the card, of its
+    bytes read as int64 words w_i (the last zero-padded): each word keyed
+    by its place and mixed, x_i = mix(w_i xor i K) (``_mix_words``, a
+    bijection; K odd), then sum x_i and sum (2 i + 1) x_i, both modulo
+    2^64.  Integer sums do not depend
+    on their order, so two bit-equal states give equal digests; since the
+    mix spreads every bit of a word over its image, two leaves that differ
+    in any words give equal digests only by a chance of about 2^-64 a sum
+    (the mix is not linear, so no pattern of flipped bits cancels by
+    construction, as it would in sums of the raw words).  (A SHA-256 of
+    each leaf copied to the host took 2.1-8.6 s a state at the CLI's
+    depths; this takes milliseconds, and only 16 bytes a leaf reach the
+    host.)"""
     from repro_torch.models.params import tree_leaves
 
-    def one(t):
-        b = t.detach().contiguous().view(-1).view(torch.uint8).cpu()
-        return (str(t.dtype), tuple(t.shape),
-                hashlib.sha256(b.numpy()).hexdigest())
-
-    with ThreadPoolExecutor(8) as ex:
-        return list(ex.map(one, tree_leaves(tree)))
+    sums = []
+    for t in tree_leaves(tree):
+        b = t.detach().contiguous().view(-1).view(torch.uint8)
+        if b.numel() % 8:
+            b = torch.cat([b, b.new_zeros(8 - b.numel() % 8)])
+        w = b.view(torch.int64)
+        d = torch.zeros(2, dtype=torch.int64, device=w.device)
+        for s in range(0, w.numel(), _DIGEST_SLICE):
+            ws = w[s:s + _DIGEST_SLICE]
+            i = torch.arange(s, s + ws.numel(), dtype=torch.int64,
+                             device=w.device)
+            x = _mix_words(torch.bitwise_xor(ws, i * _MIX_KEY))
+            d += torch.stack([x.sum(), (x * i.mul_(2).add_(1)).sum()])
+            del x, i
+        sums.append(d)
+        del b, w
+    got = torch.stack(sums).cpu().tolist() if sums else []
+    return [(str(t.dtype), tuple(t.shape), tuple(d))
+            for t, d in zip(tree_leaves(tree), got)]
 
 
 def cli_run_and_replay(dev, card, arch="llama3.2-1b", steps=TRAIN_STEPS,
@@ -5426,7 +5499,53 @@ def fleet_runs(arrivals, buckets, pool: str = "processes") -> list:
                            [buckets] * len(seeds)))
 
 
-def phase_fleet(dev, card) -> dict:
+#: the host runs' worker processes when they run beside the train phase's
+#: CLI block (two of the card machine's 8 cores left to the CLI)
+FLEET_WORKERS = 6
+
+
+def fleet_inputs():
+    """(model, smax, buckets, arrivals) of the fleet phase."""
+    import repro_torch.configs as configs
+    from repro_torch.models.zoo import build_model
+    from repro_torch.runtime.loadgen import OpenLoopLoadGen
+    model = build_model(configs.get("llama3.2-1b"))
+    smax = SERVES["llama3.2-1b"]["prompt"] + GEN
+    arrivals = OpenLoopLoadGen(seed=SEED, rate=2.0, prompt_mean=1024,
+                               gen_mean=32, latency_frac=0.25).arrivals(
+                                   FLEET_ARRIVALS)
+    return model, smax, (smax, 2 * smax, 8 * smax), arrivals
+
+
+class FleetRuns:
+    """The fleet's host runs (:func:`fleet_run`: the fault-free one and
+    FLEET_FAULT_SEEDS faulted ones) started in FLEET_WORKERS processes of
+    their own (``spawn``), to run beside the card's work; :meth:`result`
+    waits for them.  They are simulations on the host: their ticks and
+    tokens do not depend on how fast they run."""
+
+    def __init__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        _, _, buckets, arrivals = fleet_inputs()
+        seeds = [None, *range(FLEET_FAULT_SEEDS)]
+        self.t0 = time.perf_counter()
+        self.ex = ProcessPoolExecutor(
+            FLEET_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        self.futures = [self.ex.submit(fleet_run, s, arrivals, buckets)
+                        for s in seeds]
+
+    def result(self) -> tuple[list, float]:
+        """(the runs, in fleet_runs' order; seconds since they started)"""
+        runs = [f.result() for f in self.futures]
+        self.ex.shutdown()
+        return runs, time.perf_counter() - self.t0
+
+    def cancel(self) -> None:
+        self.ex.shutdown(wait=True, cancel_futures=True)
+
+
+def phase_fleet(dev, card, pending: FleetRuns | None = None) -> dict:
     """The sharded fleet over llama3.2-1b's real decode plans
     (the fleet ``launch/serve.py:run_fleet`` builds; simulated workers on
     the host): the open-loop arrivals served with no request lost (served +
@@ -5443,20 +5562,16 @@ def phase_fleet(dev, card) -> dict:
     region above ``resident_extent`` untouched, the packed bytes (and the
     sampled token's) the record's ``persistent_bytes`` = ``resident_extent``.
     The launches are counted from 0 over the phase: exactly one write and
-    one read a state leaf and bucket."""
-    import repro_torch.configs as configs
+    one read a state leaf and bucket.  With ``pending`` (:class:`FleetRuns`,
+    started beside the train phase's CLI block) the host runs are its, and
+    ``runs_s`` their time from their start, which they shared with the
+    card's work."""
     from repro_torch.launch import serve as S
     from repro_torch.models.params import tree_leaves
-    from repro_torch.models.zoo import build_model
-    from repro_torch.runtime.loadgen import OpenLoopLoadGen, workload_summary
+    from repro_torch.runtime.loadgen import workload_summary
 
     t0 = time.perf_counter()
-    model = build_model(configs.get("llama3.2-1b"))
-    smax = SERVES["llama3.2-1b"]["prompt"] + GEN
-    buckets = (smax, 2 * smax, 8 * smax)
-    arrivals = OpenLoopLoadGen(seed=SEED, rate=2.0, prompt_mean=1024,
-                               gen_mean=32, latency_frac=0.25).arrivals(
-                                   FLEET_ARRIVALS)
+    model, smax, buckets, arrivals = fleet_inputs()
     n_decode, n_prefill = FLEET_SHARDS
 
     def invariants(m, what):
@@ -5470,9 +5585,12 @@ def phase_fleet(dev, card) -> dict:
               f"budget")
 
     reset_all()
-    t1 = time.perf_counter()
-    runs = fleet_runs(arrivals, buckets)
-    runs_s = time.perf_counter() - t1
+    if pending is not None:
+        runs, runs_s = pending.result()
+    else:
+        t1 = time.perf_counter()
+        runs = fleet_runs(arrivals, buckets)
+        runs_s = time.perf_counter() - t1
     run_s = [r[-1] for r in runs]
     _, m, base, peaks, base_s = runs.pop(0)
     invariants(m, "")
@@ -5568,7 +5686,10 @@ def phase_fleet(dev, card) -> dict:
         f"the others); {FLEET_FAULT_SEEDS} fault scripts (rate "
         f"{FLEET_FAULT_RATE} a "
         f"tick and shard over {FLEET_FAULT_TICKS} ticks; all {len(runs) + 1} "
-        f"runs, a process each, in {runs_s:.2f} s): each lost nothing, "
+        f"runs, a process each"
+        + (f" ({FLEET_WORKERS} at a time, beside the train phase's CLI "
+           f"block)" if pending is not None else "")
+        + f", in {runs_s:.2f} s): each lost nothing, "
         f"stayed in "
         f"budget, tokens equal to the fault-free run's: {chaos}; each "
         f"bucket's record packed and read back on the card bit-equal "
@@ -6167,17 +6288,35 @@ def family_train(fam, dev, card, control) -> dict:
     del state, batch, params
     gc.collect()
     torch.cuda.empty_cache()
-    rec["cli"] = cli_run_and_replay(dev, card, arch=arch, steps=fam["steps"],
-                                    ckpt_every=fam["ckpt_every"],
-                                    layers=fam["cli_layers"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    part("CLI and resume")
+    if CLI_QUEUE is None:
+        rec["cli"] = family_cli(fam, dev, card)
+        part("CLI and resume")
+    else:                # the train phase's CLI block runs it
+        CLI_QUEUE.append((fam, rec))
     rec["seconds"] = time.perf_counter() - t0
     rec["parts_s"] = parts
     say(f"train: {arch} done in {rec['seconds']:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]")
     return rec
+
+
+#: while the train phase gathers the families' CLI runs into one block (run
+#: beside the fleet's host runs), ``family_train`` queues its family and
+#: record here; None: each family's CLI runs inline
+CLI_QUEUE: list | None = None
+
+
+def family_cli(fam, dev, card) -> dict:
+    """``cli_run_and_replay`` at ``fam``'s CLI settings, the card's memory
+    released before and after."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = cli_run_and_replay(dev, card, arch=fam["arch"], steps=fam["steps"],
+                             ckpt_every=fam["ckpt_every"],
+                             layers=fam["cli_layers"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def kernel_names(fn, top: int = 3, tries: int = 3):
@@ -6960,8 +7099,454 @@ def last_families_train(dev, card) -> dict:
     return rec
 
 
-def phase_train(dev, card, err, control, wkv6_control
-                ) -> tuple[list, dict]:
+# ------------------------------------------------- the optimizer kernels
+
+OPTIM_SOURCE = "src/repro_torch/csrc/adamw.cu"
+OPTIM_REPLACES = "src/repro/launch/train.py:65"
+OPTIM_NOTE = ("no TPU kernel: XLA's fusion of adamw.update and the clip "
+              "inside jax.jit (src/repro/optim/adamw.py:48, "
+              "src/repro/launch/steps.py:42-50)")
+# updates at llama3.2-1b's full-width leaves, each from new seeded
+# gradients; the ragged set: leaves of these element counts in f32 and in
+# bf16, every other one at an address 1 element past 16-byte alignment
+# (gradient, parameter and moments alike)
+OPTIM_UPDATES = 3
+OPTIM_RAGGED = (1, 3, 4097, 2 * 32768 + 5)
+# each leaf's squared sum by sumsq_kernel against torch.sum(torch.square(
+# g.float())), relative: the two sum in other orders.  Readings on an H100
+# 80GB HBM3 at 700 W: 1.463e-7 (the ragged set), 1.487e-7 (llama3.2-1b's
+# leaves, 3 updates); the chunk-0 control 1.94e-3 and 1.0
+SUMSQ_RTOL = 1e-6
+# the controls, each a library built from a one-line edit of
+# csrc/adamw.cu: the weight decay dropped in chunk 0 (leaf 0's first
+# 32768 elements) of the update; chunk 0's partial skipped by sumsq
+OPTIM_CONTROL_EDITS = {
+    "adamw_control_wd": ("u = __fadd_rn(u, __fmul_rn(h.wd, p));",
+                         "u = blockIdx.x == 0 ? u : "
+                         "__fadd_rn(u, __fmul_rn(h.wd, p));"),
+    "adamw_control_skip": ("partials[c] = acc;",
+                           "partials[c] = c == 0 ? 0.0f : acc;"),
+}
+# captured against eager train steps of llama3.2-1b at published width
+CAPTURED_STEPS = 4
+
+
+def build_optim_control(name: str) -> Path:
+    """A copy of ``csrc/adamw.cu`` with ``OPTIM_CONTROL_EDITS[name]``,
+    built by the repository's flags into a library of its own."""
+    from repro_torch.kernels import _build
+    text = (ROOT / OPTIM_SOURCE).read_text()
+    old, new = OPTIM_CONTROL_EDITS[name]
+    check(text.count(old) == 1, f"the optimizer control's edit {old!r} is "
+                                f"not in csrc/adamw.cu once")
+    src = ROOT / "build" / "chip_smoke_controls" / f"{name}.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text.replace(old, new))
+    return _build.build(src, name)
+
+
+def optim_control_fns(lib_path):
+    """The control library's ``(sumsq(grads), update(grads, params, ms,
+    vs, scale, lr, bc1, bc2, opt))``, launched as the kernel's wrappers
+    launch theirs, on the same leaf tables (no launch counted)."""
+    from repro_torch.kernels.optim import kernel as OK
+    lib = ctypes.CDLL(str(lib_path))
+    vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_float)
+    lib.repro_sumsq.argtypes = [vp, i, ll, vp, vp, vp, vp]
+    lib.repro_sumsq.restype = i
+    lib.repro_adamw_update.argtypes = [vp, i, ll, vp, vp, vp, vp] + [f] * 6 \
+        + [vp]
+    lib.repro_adamw_update.restype = i
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def sumsq(grads):
+        rows, chunks = OK._table(grads)
+        dev = grads[0].device
+        out = torch.zeros(len(grads), dtype=torch.float32, device=dev)
+        partials = torch.empty(chunks, dtype=torch.float32, device=dev)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = lib.repro_sumsq(rows.ctypes.data, len(rows), chunks,
+                              partials.data_ptr(), out.data_ptr(),
+                              counter.data_ptr(), stream())
+        check(err == 0, f"the sumsq control's launch failed ({err})")
+        return out
+
+    def update(grads, params, ms, vs, scale, lr, bc1, bc2, opt):
+        rows, chunks = OK._table(grads, params, ms, vs)
+        err = lib.repro_adamw_update(
+            rows.ctypes.data, len(rows), chunks,
+            scale.data_ptr(), lr.data_ptr(), bc1.data_ptr(), bc2.data_ptr(),
+            opt.b1, 1 - opt.b1, opt.b2, 1 - opt.b2, opt.eps,
+            opt.weight_decay, stream())
+        check(err == 0, f"the update control's launch failed ({err})")
+
+    return sumsq, update
+
+
+def optim_scalars(opt, step: int, dev):
+    """(lr, bc1, bc2) as ``adamw.update`` computes them at ``step`` (the
+    step after the update), from the schedule's lr at the step before."""
+    from repro_torch.optim.schedule import cosine_warmup
+    s = torch.tensor(step - 1, dtype=torch.int32, device=dev)
+    lr = opt.lr * (cosine_warmup(s, peak_lr=3e-4, warmup=10,
+                                 total=TRAIN_STEPS) / opt.lr)
+    t = (s + 1).to(torch.float32)
+    return lr, 1.0 - torch.pow(opt.b1, t), 1.0 - torch.pow(opt.b2, t)
+
+
+def sumsq_reading(got, want) -> list:
+    """Each leaf's |got - want| / |want| (f32 squared sums)."""
+    return [abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+            for a, b in zip(got, want)]
+
+
+def seeded_leaves(shapes, dtypes, dev, seed, offsets=None):
+    """(grads, params, ms, vs) of these shapes, from ``seed``: grads and
+    params in their dtypes, moments f32 (v >= 0), each leaf at
+    ``offsets[i]`` elements into a buffer of its own (default 0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = ([], [], [], [])
+    for i, (shape, dt) in enumerate(zip(shapes, dtypes)):
+        off = offsets[i] if offsets else 0
+        n = math.prod(shape)
+        for j, (kind, scale) in enumerate((("g", 1e-2), ("p", 2e-2),
+                                            ("m", 1e-3), ("v", 1e-5))):
+            buf = torch.empty(n + off, dtype=dt if kind in "gp"
+                              else torch.float32, device=dev)
+            x = torch.randn(n, generator=gen, device=dev)
+            buf[off:] = (x * x if kind == "v" else x) * scale
+            out[j].append(buf[off:].view(shape))
+    return out
+
+
+def optim_check_set(label, shapes, dtypes, dev, opt, controls, seed,
+                    updates, offsets=None, emulate=False) -> dict:
+    """The two kernels against their plain versions on one set of leaves,
+    over ``updates`` updates, each from new seeded gradients: per update,
+    sumsq's per-leaf sums within SUMSQ_RTOL of ``torch.sum(torch.square(
+    g.float()))`` and bit-equal to a second run (and, with ``emulate``, to
+    ``ref.sumsq_chunked_torch``'s, the kernel's order in torch on the
+    host); the update given the same scale, lr, bc1 and bc2 as the plain
+    clip and update, bit-equal to it in every leaf's p, m and v (and with
+    ``emulate`` ``ref.adamw_update_chunked_torch`` on the host too).  Then
+    the controls on the last update's leaves: the sumsq control above the
+    limit in leaf 0 and bit-equal to the kernel elsewhere; one more update
+    by the kernel and by the update control from the same state (the two
+    states are bit-equal there): leaf 0 differs, every other leaf
+    bit-equal."""
+    from repro_torch.kernels.optim import kernel as OK
+    from repro_torch.kernels.optim import ref as OR
+    hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                 weight_decay=opt.weight_decay)
+    g0, pk, mk, vk = seeded_leaves(shapes, dtypes, dev, seed, offsets)
+    del g0
+    pp, mp, vp = ([t.clone() for t in ts] for ts in (pk, mk, vk))
+    worst, worst_abs, equal = 0.0, 0.0, True
+    emul = {"sumsq": True, "adamw_update": True}
+    for u in range(updates):
+        grads = seeded_leaves(shapes, dtypes, dev, seed + 1 + u,
+                              offsets)[0]
+        got = OK.sumsq_cuda(grads)
+        again = OK.sumsq_cuda(grads)
+        want = torch.stack(OR.sumsq_torch(grads))
+        check(torch.equal(got, again), f"{label}: sumsq's two runs differ")
+        worst = max(worst, *sumsq_reading(got, want))
+        worst_abs = max(worst_abs, float((got - want).abs().max()))
+        if emulate:
+            host = [g.cpu() for g in grads]
+            em = OR.sumsq_chunked_torch(host)
+            if not torch.equal(got.cpu(), em):
+                emul["sumsq"] = False
+                say(f"optim: {label}: sumsq {got.tolist()} against its "
+                    f"order emulated {em.tolist()}")
+        scale = torch.clamp(1.0 / torch.clamp(torch.sqrt(got.sum()),
+                                              min=1e-9), max=1.0)
+        lr, bc1, bc2 = optim_scalars(opt, u + 3, dev)
+        if emulate:
+            # on the card: torch's f32 ops there round as the kernel's do
+            # (the host's square root may not: a handful of elements
+            # differ there)
+            hs = [[t.clone() for t in ts] for ts in (grads, pk, mk, vk)]
+            addrs = [tuple(t.data_ptr() for t in four)
+                     for four in zip(grads, pk, mk, vk)]
+            OR.adamw_update_chunked_torch(*hs, scale=scale, lr=lr, bc1=bc1,
+                                          bc2=bc2, addrs=addrs, **hyper)
+        OK.adamw_update_cuda(grads, pk, mk, vk, scale=scale, lr=lr,
+                             bc1=bc1, bc2=bc2, **hyper)
+        OR.adamw_update_torch([g.clone() for g in grads], pp, mp, vp,
+                              scale=scale, lr=lr, bc1=bc1, bc2=bc2, **hyper)
+        same = [all(torch.equal(a[i], b[i]) for a, b in
+                    ((pk, pp), (mk, mp), (vk, vp)))
+                for i in range(len(shapes))]
+        equal &= all(same)
+        if emulate:
+            off = [int((a != b).sum()) for a, b in
+                   zip(pk + mk + vk, hs[1] + hs[2] + hs[3])]
+            if any(off):
+                emul["adamw_update"] = False
+                say(f"optim: {label}: the update's elements off its order "
+                    f"emulated, p / m / v a leaf: {off}")
+    check(equal, f"{label}: the update is not bit-equal to the plain clip "
+                 f"and update in every leaf")
+    check(worst <= SUMSQ_RTOL, f"{label}: sumsq against torch.sum reads "
+                               f"{worst:.3e}, limit {SUMSQ_RTOL}")
+    check(all(emul.values()), f"{label}: the kernels bit-equal to their "
+                              f"order emulated in torch: {emul}")
+    # the controls on the last update's gradients and the equal states
+    sumsq_c, update_c = controls
+    ctrl = sumsq_c(grads)
+    reading = sumsq_reading(ctrl, want)
+    check(reading[0] > SUMSQ_RTOL and torch.equal(ctrl[1:], got[1:]),
+          f"{label}: the sumsq control (chunk 0 skipped) reads {reading[0]:.3e}"
+          f" in leaf 0 (limit {SUMSQ_RTOL}); elsewhere equal to the kernel: "
+          f"{torch.equal(ctrl[1:], got[1:])}")
+    lr, bc1, bc2 = optim_scalars(opt, updates + 3, dev)
+    OK.adamw_update_cuda(grads, pk, mk, vk, scale=scale, lr=lr, bc1=bc1,
+                         bc2=bc2, **hyper)
+    update_c(grads, pp, mp, vp, scale, lr, bc1, bc2, opt)
+    differs = [not all(torch.equal(a[i], b[i]) for a, b in
+                       ((pk, pp), (mk, mp), (vk, vp)))
+               for i in range(len(shapes))]
+    check(differs[0] and not any(differs[1:]),
+          f"{label}: the update control (weight decay dropped in chunk 0) "
+          f"changed leaves {[i for i, d in enumerate(differs) if d]}, "
+          f"leaf 0 only expected")
+    n = sum(math.prod(sh) for sh in shapes)
+    rec = dict(leaves=len(shapes), parameters=n, updates=updates,
+               update_bit_equal=equal, sumsq_worst_rel=worst,
+               sumsq_max_abs_err=worst_abs,
+               sumsq_control_leaf0=reading[0],
+               update_control_leaves=[i for i, d in enumerate(differs) if d])
+    if emulate:
+        rec["emulation_bit_equal"] = all(emul.values())
+    say(f"optim: {label} ({len(shapes)} leaves, {n} parameters, "
+        f"{updates} updates): the update bit-equal to the plain clip and "
+        f"update in every leaf; sumsq within {worst:.3e} of torch.sum "
+        f"(limit {SUMSQ_RTOL}), two runs bit-equal"
+        + (", both kernels bit-equal to their order emulated in torch"
+           if emulate else "")
+        + f"; controls: chunk 0 skipped reads {reading[0]:.3e} in leaf 0, "
+          f"the weight decay dropped in chunk 0 changes leaf 0 only")
+    return rec, (grads, pk, mk, vk, pp, mp, vp)
+
+
+def check_optim_kernels(dev, card, controls) -> dict:
+    """The optimizer kernels against their plain versions on the card
+    (``optim_check_set``): at llama3.2-1b's full-width leaves (bf16
+    parameters and gradients, f32 moments) over OPTIM_UPDATES updates, and
+    on the ragged set (OPTIM_RAGGED in f32 and bf16, every other leaf off
+    16-byte alignment) with the kernels' order emulated in torch too; then
+    their times at llama's leaves (``time_optim_kernels``)."""
+    import repro_torch.configs as configs
+    from repro_torch.models.params import is_def, tree_leaves
+    from repro_torch.models.zoo import build_model
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    opt = adamw(lr=3e-4)
+    ragged = [(n,) for n in OPTIM_RAGGED] * 2
+    dts = [torch.float32] * len(OPTIM_RAGGED) + [torch.bfloat16] * len(
+        OPTIM_RAGGED)
+    rec = {"ragged": optim_check_set(
+        "the ragged set", ragged, dts, dev, opt, controls, SEED + 100, 2,
+        offsets=[i % 2 for i in range(len(ragged))], emulate=True)[0]}
+    defs = tree_leaves(build_model(configs.get("llama3.2-1b")).defs,
+                       is_leaf=is_def)
+    shapes = [tuple(d.shape) for d in defs]
+    rec["llama"], leaves = optim_check_set(
+        "llama3.2-1b's leaves", shapes, [torch.bfloat16] * len(shapes), dev,
+        opt, controls, SEED, OPTIM_UPDATES)
+    rec["times"] = time_optim_kernels(leaves, opt, card)
+    del leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    say(f"optim: the kernels' checks and times took {rec['seconds']:.1f} s "
+        f"[{card}]")
+    return rec
+
+
+def time_optim_kernels(leaves, opt, card) -> dict:
+    """ms a launch of each optimizer kernel at llama3.2-1b's leaves
+    (``event_us``: CUDA events around each call, after two warm calls)
+    beside its bound (the bytes it must move over 3.35 TB/s: sumsq 2 B a
+    parameter, the update 22 B), its plain version's ms (``ref``'s
+    per-leaf squared sums; the plain clip and update), and two PyTorch
+    calls as timing references only, whose math is not ``repro``'s:
+    ``torch._foreach_norm`` of the gradients and one step of
+    ``torch.optim.AdamW(fused=True)`` (its moments in the parameters'
+    dtype, bf16, and its weight decay applied before the update)."""
+    from repro_torch.kernels.optim import kernel as OK
+    from repro_torch.kernels.optim import ref as OR
+    grads, pk, mk, vk, pp, mp, vp = leaves
+    dev = grads[0].device
+    hyper = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                 weight_decay=opt.weight_decay)
+    lr, bc1, bc2 = optim_scalars(opt, 5, dev)
+    scale = torch.tensor(0.5, device=dev)
+    numels = [g.numel() for g in grads]
+    _, b_sumsq = costs.sumsq_cost(numels, [2] * len(numels))
+    _, b_update = costs.adamw_update_cost(numels, [2] * len(numels),
+                                          [2] * len(numels))
+    out = dict(
+        sumsq=dict(ms=event_us(lambda: OK.sumsq_cuda(grads), 10) / 1e3,
+                   plain_ms=event_us(lambda: torch.sqrt(sum(
+                       OR.sumsq_torch(grads))), 5) / 1e3,
+                   bound_ms=b_sumsq / HBM_BYTES_PER_S * 1e3,
+                   library_ms=event_us(
+                       lambda: torch._foreach_norm(grads), 10) / 1e3),
+        adamw_update=dict(
+            ms=event_us(lambda: OK.adamw_update_cuda(
+                grads, pk, mk, vk, scale=scale, lr=lr, bc1=bc1, bc2=bc2,
+                **hyper), 10) / 1e3,
+            plain_ms=event_us(lambda: OR.adamw_update_torch(
+                grads, pp, mp, vp, scale=scale, lr=lr, bc1=bc1, bc2=bc2,
+                **hyper), 3) / 1e3,
+            bound_ms=b_update / HBM_BYTES_PER_S * 1e3))
+    ps = [torch.nn.Parameter(p) for p in pk]
+    for p, g in zip(ps, grads):
+        p.grad = g
+    ref_opt = torch.optim.AdamW(ps, lr=3e-4, betas=(opt.b1, opt.b2),
+                                eps=opt.eps, weight_decay=opt.weight_decay,
+                                fused=True)
+    out["adamw_update"]["library_ms"] = event_us(ref_opt.step, 5) / 1e3
+    del ref_opt, ps
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, r in out.items():
+        r.update(bound_by="bytes", parameters=sum(numels),
+                 shape=f"llama3.2-1b's {len(numels)} leaves, bf16")
+    say("timing: optimizer kernels at llama3.2-1b's leaves ("
+        f"{sum(numels)} parameters): " + "; ".join(
+            f"{k} {r['ms']:.3f} ms (bound {r['bound_ms']:.3f}, plain "
+            f"{r['plain_ms']:.3f}, timing reference {r['library_ms']:.3f} "
+            f"({'torch._foreach_norm' if k == 'sumsq' else 'torch.optim.AdamW(fused=True).step, bf16 moments'}"
+            f"))" for k, r in out.items()) + f" [{card}]")
+    return out
+
+
+def captured_train_compare(dev, card) -> dict:
+    """llama3.2-1b's train step at published width (B 8 x S 256, remat
+    "block", AdamW), CAPTURED_STEPS steps captured in one CUDA graph
+    (``CapturedTrainStep``: the warm-up and replays) against as many eager
+    steps, from the same state and batches, under deterministic
+    algorithms: each step's loss, grad_norm and lr bit-equal; the final
+    parameters and optimizer state bit-equal (``state_digests``); launches
+    per replay equal to the eager step's, both ``train_launches``.  Prints
+    ms a step (host clock, each ending in ``synchronize``; the steps after
+    the first), the captured step's idle share over one traced replay, and
+    the caching allocator's peak allocated and reserved bytes of each
+    run."""
+    import repro_torch.configs as configs
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import (
+        CapturedTrainStep,
+        make_optimizer,
+        make_train_step,
+    )
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.zoo import build_model
+    t0 = time.perf_counter()
+    cfg = configs.get("llama3.2-1b")
+    model = build_model(cfg)
+    opt = make_optimizer(cfg, lr=3e-4)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    states = {"eager": {"params": params, "opt": opt.init(params)}}
+    states["captured"] = tree_map(lambda t: t.clone(), states["eager"])
+    del params
+    pipe = DataPipeline(cfg=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                        seed=SEED)
+    batches = [{k: torch.from_numpy(v) for k, v in pipe.batch_at(i).items()}
+               for i in range(CAPTURED_STEPS)]
+    kw = dict(peak_lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
+    want = train_launches(cfg)
+    rec = {}
+    with deterministic():
+        for kind in ("eager", "captured"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step = (make_train_step(model, opt, impl="auto", **kw)
+                    if kind == "eager" else
+                    CapturedTrainStep(model, opt, device=dev, **kw))
+            r = rec[kind] = dict(metrics=[], ms=[], launches=[])
+            state = states[kind]
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            for b in batches:
+                reset_all()
+                t1 = time.perf_counter()
+                if kind == "eager":
+                    b = {k: v.to(dev) for k, v in b.items()}
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+                r["ms"].append((time.perf_counter() - t1) * 1e3)
+                r["metrics"].append([float(m[k]) for k in ("loss",
+                                                           "grad_norm",
+                                                           "lr")])
+                r["launches"].append(
+                    {k: v for k, v in all_launches().items() if v})
+            r.update(peak_allocated=torch.cuda.max_memory_allocated(),
+                     peak_reserved=torch.cuda.max_memory_reserved(),
+                     held=held, peak_above_held=(
+                         torch.cuda.max_memory_allocated() - held),
+                     ms_median=statistics.median(r["ms"][1:]),
+                     ms_min=min(r["ms"][1:]))
+            if kind == "captured":
+                digests = state_digests(state)
+                replay = {k: v for k, v in step.call.launches.items() if v}
+                r["launches_a_replay"] = replay
+                # one more replay, traced (the state moves past the check's)
+                busy, n_act, _ = device_profile(
+                    lambda: step(state, batches[0]))
+                r.update(busy_us=busy, activities=n_act,
+                         idle_share=max(0.0, 1 - busy / (
+                             r["ms_median"] * 1e3)))
+                del step
+            else:
+                digests_eager = state_digests(state)
+            states[kind] = None
+            del state
+    e, c = rec["eager"], rec["captured"]
+    check(all(x == want for x in e["launches"]),
+          f"the eager steps launched {e['launches']}, a step needs {want}")
+    check(c["launches_a_replay"] == want and all(
+        x == want for x in c["launches"]),
+          f"a replay of the captured step launches "
+          f"{c['launches_a_replay']} ({c['launches']} a call), the eager "
+          f"step {want}")
+    check(c["metrics"] == e["metrics"],
+          f"the captured steps' (loss, grad_norm, lr) {c['metrics']} are "
+          f"not the eager steps' {e['metrics']}")
+    check(digests == digests_eager, "the captured steps' final parameters "
+                                    "and optimizer state are not bit-equal "
+                                    "to the eager steps'")
+    rec.update(steps=CAPTURED_STEPS, bit_equal=True,
+               seconds=time.perf_counter() - t0)
+    say(f"train: llama3.2-1b at published width (B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ}, remat {cfg.remat!r}, AdamW, deterministic "
+        f"algorithms): {CAPTURED_STEPS} captured steps (the warm-up and "
+        f"{CAPTURED_STEPS - 1} replays) bit-equal to {CAPTURED_STEPS} eager "
+        f"steps in loss, grad_norm and lr {e['metrics']} and in all "
+        f"{len(digests)} leaves of the final state; launches a replay "
+        f"{c['launches_a_replay']} = the eager step's; ms a step "
+        f"(median / min of steps 2-{CAPTURED_STEPS}) captured "
+        f"{c['ms_median']:.2f} / {c['ms_min']:.2f}, eager "
+        f"{e['ms_median']:.2f} / {e['ms_min']:.2f} (first steps "
+        f"{c['ms'][0]:.1f} captured incl. the capture, {e['ms'][0]:.1f} "
+        f"eager); a traced replay: device busy {c['busy_us']:.1f} us, "
+        f"idle share {c['idle_share']:.4f}; peak allocated / reserved "
+        f"captured {c['peak_allocated']} / {c['peak_reserved']} B, "
+        f"{c['peak_above_held']} above its state's {c['held']}; eager "
+        f"{e['peak_allocated']} / {e['peak_reserved']} B, "
+        f"{e['peak_above_held']} above the {e['held']} held (its state "
+        f"and the captured run's copy); "
+        f"{rec['seconds']:.1f} s [{card}]")
+    return rec
+
+
+def phase_train(dev, card, err, control, wkv6_control, optim_controls
+                ) -> tuple[list, dict, FleetRuns]:
     """The train path: the backward kernels against their plain versions
     (llama3.2-1b's heads; the RG-LRU backward and Griffin's windowed (256,
     256) heads), one full-width llama3.2-1b step through the kernels
@@ -6980,12 +7565,19 @@ def phase_train(dev, card, err, control, wkv6_control
     RG-LRU's and the WKV-6's control backwards.  Returns (the
     flash_backward, rglru_backward and wkv6_backward rows of the kernels
     JSON, the phase's record)."""
+    global CLI_QUEUE
     t0 = time.perf_counter()
     parts = {}
 
     def part(name):
         parts[name] = time.perf_counter() - t0 - sum(parts.values())
 
+    # every family's CLI and resume waits for the CLI block at the end
+    CLI_QUEUE = []
+    optim = check_optim_kernels(dev, card, optim_controls)
+    part("the optimizer kernels' checks and times")
+    captured = captured_train_compare(dev, card)
+    part("llama's captured step")
     worst = check_flash_backward(dev)
     err["flash_backward"] = worst["max_abs_err"]
     part("llama's backward checks")
@@ -6995,16 +7587,14 @@ def phase_train(dev, card, err, control, wkv6_control
                                 griffin_bwd["max_abs_err"])
     part("Griffin's kernel checks")
     model, opt, state, batch, rec = train_step_compare(dev, card)
+    rec.update(optim=optim, captured=captured)
     rec["step"] = time_train_step(model, opt, state, batch, card)
     rec["remat"] = remat_compare(model, opt, state, batch, card)
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
     part("llama's steps, timing, remat")
-    rec["cli"] = cli_run_and_replay(dev, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    part("llama's CLI")
+    CLI_QUEUE.append((LLAMA_CLI, rec))
     flash = time_train_flash(dev, card)
     rec["flash"] = flash
     part("llama's kernel times")
@@ -7034,6 +7624,18 @@ def phase_train(dev, card, err, control, wkv6_control
                                 *(c["max_abs_err"]
                                   for c in last["checks"].values()))
     part("the last two families")
+    # the CLI block: each family's CLI and its resume on the captured step,
+    # the fleet's host runs (phase 13) beside it in processes of their own
+    fleet = FleetRuns()
+    queue, CLI_QUEUE = CLI_QUEUE, None
+    try:
+        for fam, r in queue:
+            r["cli"] = family_cli(fam, dev, card)
+    except BaseException:
+        fleet.cancel()
+        raise
+    part("the CLI block (8 families' CLI and resume, the fleet's host runs "
+         "beside it)")
     rec["parts_s"] = parts
     b = flash["backward"]
     routes = rec["cli"]["backward_routes"]
@@ -7097,10 +7699,26 @@ def phase_train(dev, card, err, control, wkv6_control
         plain_ms=wt["plain_ms"], bound_ms=wt["bound_ms"],
         bound_by=wt["bound_by"], library_ms=None, shape=wt["shape"],
         errors=wkv6_bwd)
+    optim_rows = [dict(
+        name=k, route="cuda", source=OPTIM_SOURCE, replaces=OPTIM_REPLACES,
+        replaces_note=OPTIM_NOTE, launches=rec["cli"]["launches"][k],
+        launches_a_step=rec["step_launches"][k],
+        launches_a_replay=captured["captured"]["launches_a_replay"][k],
+        max_abs_err=(max(optim[s]["sumsq_max_abs_err"]
+                         for s in ("ragged", "llama"))
+                     if k == "sumsq" else 0.0),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        library_note="timing reference only, not repro's math: "
+        + ("torch._foreach_norm of the gradients" if k == "sumsq" else
+           "one step of torch.optim.AdamW(fused=True), its moments bf16 "
+           "and its weight decay applied before the update"),
+        shape=t["shape"], errors={s: optim[s] for s in ("ragged", "llama")})
+        for k, t in optim["times"].items()]
     rec["seconds"] = time.perf_counter() - t0
     say(f"train: phase done in {rec['seconds']:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]")
-    return [row, rg_row, wk_row], rec
+    return [row, rg_row, wk_row, *optim_rows], rec, fleet
 
 
 # ------------------------------------------------------------ 14. parallel
@@ -7777,7 +8395,7 @@ def main() -> int:
             "arena.cu", "flash_attention.cu", "flash_decode.cu",
             "flash_prefill_sm90.cu", "flash_backward.cu",
             "flash_backward_sm90.cu", "wkv6.cu", "wkv6_backward.cu",
-            "rglru.cu")):
+            "rglru.cu", "adamw.cu")):
         say("FAIL: src/repro_torch not found beside chip_smoke.py; run it "
             "from the root of a checkout")
         return 2
@@ -7794,6 +8412,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.arena import kernel as K
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.optim import kernel as OK
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.rwkv6 import kernel as WK
 
@@ -7802,9 +8421,11 @@ def main() -> int:
         return fn(), time.perf_counter() - t0
 
     # one nvcc per source, all started together
-    jobs = [K.build, WK.build, WK.build_backward, RK.build,
+    jobs = [K.build, WK.build, WK.build_backward, RK.build, OK.build,
             build_rglru_control, build_wkv6_control] + [
-        (lambda n=n: FK.build(n)) for n in FK.SOURCES]
+        (lambda n=n: build_optim_control(n)) for n in OPTIM_CONTROL_EDITS
+    ] + [(lambda n=n: FK.build(n)) for n in FK.SOURCES]
+    optim_controls = [None, None]
     with ThreadPoolExecutor(len(jobs)) as ex:
         builds = [ex.submit(timed_build, fn) for fn in jobs]
         for fut in builds:
@@ -7814,13 +8435,17 @@ def main() -> int:
                 control = rglru_control_fn(lib)
             if lib.stem == "libwkv6_backward_control":
                 wkv6_control = wkv6_control_fn(lib)
+            if lib.stem == "libadamw_control_skip":
+                optim_controls[0] = optim_control_fns(lib)[0]
+            if lib.stem == "libadamw_control_wd":
+                optim_controls[1] = optim_control_fns(lib)[1]
             if lib.stem in ("libarena", "libwkv6", "libwkv6_backward",
-                            "librglru",
+                            "librglru", "libadamw",
                             "libflash_decode", "libflash_prefill_sm90",
                             "libflash_backward", "libflash_backward_sm90"):
                 for ln in _build.ptxas_report(lib):
                     say(f"build: ptxas {lib.stem[3:]}: {ln}")
-    for mod in (K, WK, RK):
+    for mod in (K, WK, RK, OK):
         mod._library()
     WK._backward_library()
     for n in FK.SOURCES:
@@ -7943,8 +8568,8 @@ def main() -> int:
                            for case, rec in bridge.items()}
 
     # the train path, the serving models' weights freed
-    train_rows, train_rec = phase_train(dev, card, err, control,
-                                        wkv6_control)
+    train_rows, train_rec, fleet_runs_ = phase_train(
+        dev, card, err, control, wkv6_control, optim_controls)
     rows += train_rows
     for r in rows:            # the recurrences' forward launches in training
         if r["name"] == "rglru":
@@ -7966,15 +8591,17 @@ def main() -> int:
     dry_procs = dryrun_start(ROOT / "chiprun_out" / "dryrun")
     try:
         return finish(dev, card, t_start, rows, chaos, dry_procs,
-                      dry_started)
+                      dry_started, fleet_runs_)
     finally:
+        fleet_runs_.cancel()
         for *_, p in dry_procs:
             if p.returncode is None:
                 p.kill()
                 p.wait()
 
 
-def finish(dev, card, t_start, rows, chaos, dry_procs, dry_started) -> int:
+def finish(dev, card, t_start, rows, chaos, dry_procs, dry_started,
+           fleet_runs_) -> int:
     """Phases 14, 13 and 15 and the last lines (``main``'s tail, while the
     dry-run's CLI processes run)."""
     # the sharded path at world size 1: each count from 0 in its run
@@ -7997,7 +8624,7 @@ def finish(dev, card, t_start, rows, chaos, dry_procs, dry_started) -> int:
 
     # the sharded fleet over llama3.2-1b's decode plans, its records
     # realized through the arena kernels; the real server's chaos corpus
-    fleet = phase_fleet(dev, card)
+    fleet = phase_fleet(dev, card, fleet_runs_)
     for r in rows:
         if r["name"] in ("arena_write", "arena_read"):
             r["fleet"] = dict(launches=fleet["launches"][r["name"][6:]],

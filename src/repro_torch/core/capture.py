@@ -19,7 +19,11 @@ capture's call returned, which every replay overwrites.
      in-place writes land) and its result is :attr:`CapturedCall.first`.
      It also does what must not happen inside a capture: building and
      loading the kernels' libraries, allocating the split-K decode's
-     counters, cuBLAS's first use;
+     counters, cuBLAS's first use.  With ``release=True`` the blocks
+     the warm-up freed are then given back to the card
+     (``torch.cuda.empty_cache``), so that a call whose temporaries are
+     large (a train step) does not hold them twice, once cached for the
+     general pool and once in the graph's;
   2. capture: ``fn()`` runs once more under ``torch.cuda.graph``, which
      launches nothing; its result, in the graph's private memory pool, is
      :attr:`CapturedCall.outputs`.  Every kernel wrapper counts its launch
@@ -27,7 +31,9 @@ capture's call returned, which every replay overwrites.
      :attr:`CapturedCall.launches` (launches per replay);
   3. :meth:`CapturedCall.replay`: one launch of the graph, which adds
      :attr:`launches` to the kernel modules' counts (``LAUNCHES``, and
-     ``rglru.kernel.ROUTES``) and one to :attr:`replays`.  So the counts
+     the route splits ``rglru.kernel.ROUTES`` and
+     ``flash_attention.kernel.BACKWARD_ROUTES``) and one to
+     :attr:`replays`.  So the counts
      stay the number of kernel launches that ran, captured or not.
 
 Since the warm-up has already made the first call, a caller uses
@@ -50,13 +56,16 @@ import torch
 
 from repro_torch.kernels.arena import kernel as _arena
 from repro_torch.kernels.flash_attention import kernel as _flash
+from repro_torch.kernels.optim import kernel as _optim
 from repro_torch.kernels.rglru import kernel as _rglru
 from repro_torch.kernels.rwkv6 import kernel as _rwkv6
 
-#: the kernel modules' launch counts (``rglru``'s by route as well); keys
-#: are unique across the ``LAUNCHES`` dicts
+#: the kernel modules' launch counts; keys are unique across them
 COUNTS = (_arena.LAUNCHES, _flash.LAUNCHES, _rwkv6.LAUNCHES,
-          _rglru.LAUNCHES, _rglru.ROUTES)
+          _optim.LAUNCHES, _rglru.LAUNCHES)
+#: counts that split a kernel's launches by route (the RG-LRU forward's,
+#: the flash backward's): kept true over replays, not launches of their own
+SPLITS = (_rglru.ROUTES, _flash.BACKWARD_ROUTES)
 
 
 class CapturedCall:
@@ -72,7 +81,8 @@ class CapturedCall:
       replays:  replays so far.
     """
 
-    def __init__(self, fn: Callable[[], Any], device):
+    def __init__(self, fn: Callable[[], Any], device, *,
+                 release: bool = False):
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(
@@ -84,8 +94,13 @@ class CapturedCall:
         with torch.cuda.stream(side):
             self.first = fn()
         main.wait_stream(side)
+        if release:
+            # the warm-up's freed blocks, cached for the general pool,
+            # would sit beside the graph's own pool: give them back
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
 
-        before = [dict(c) for c in COUNTS]
+        before = [dict(c) for c in COUNTS + SPLITS]
         self.graph = torch.cuda.CUDAGraph()
         self._deltas = []
         try:
@@ -93,11 +108,10 @@ class CapturedCall:
                 self.outputs = fn()
         finally:
             # the capture launched nothing: take its counts back, per replay
-            for c, b in zip(COUNTS, before):
+            for c, b in zip(COUNTS + SPLITS, before):
                 self._deltas.append({k: c[k] - b[k] for k in c})
                 c.update(b)
-        # ROUTES, last, splits rglru's launches by kernel: not launches
-        self.launches = {k: n for d in self._deltas[:-1]
+        self.launches = {k: n for d in self._deltas[:len(COUNTS)]
                          for k, n in d.items()}
         self.replays = 0
 
@@ -106,7 +120,7 @@ class CapturedCall:
         :attr:`outputs`, which it has overwritten."""
         self.graph.replay()
         self.replays += 1
-        for c, d in zip(COUNTS, self._deltas):
+        for c, d in zip(COUNTS + SPLITS, self._deltas):
             for k, n in d.items():
                 c[k] += n
         return self.outputs

@@ -11,6 +11,9 @@
                       cores for bf16, csrc/flash_backward.cu for f32)
   rwkv6            -- the RWKV-6 WKV recurrence (csrc/wkv6.cu)
   rglru            -- Griffin's RG-LRU recurrence (csrc/rglru.cu)
+  optim            -- the train step's global-norm clip and AdamW update,
+                      two multi-tensor kernels over every leaf
+                      (csrc/adamw.cu)
 
 ``_build`` compiles each ``csrc/*.cu`` with nvcc into its own library;
 ``_grad`` keeps every wrapper from returning, under autograd on the card,

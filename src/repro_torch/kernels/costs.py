@@ -151,6 +151,35 @@ def wkv6_backward_cost(B: int, T: int, H: int, N: int, esz: int, *,
     return flops, nbytes
 
 
+def sumsq_cost(numels, esizes) -> tuple[int, int]:
+    """One squared-sum launch over gradient leaves of ``numels`` elements
+    of ``esizes`` bytes: each element read once and one f32 written a
+    leaf; 2 f32 operations an element (the square and the sum)."""
+    return 2 * sum(numels), sum(n * e for n, e in zip(numels, esizes)) \
+        + 4 * len(numels)
+
+
+#: f32 operations of one parameter's AdamW update with the clip's scaling,
+#: as ``csrc/adamw.cu`` does them: the scaling 1; m 3 (two products and a
+#: sum); v 4 (three products and a sum); the denominator 3 (a division,
+#: the square root, + eps); the update 2 (two divisions); the weight
+#: decay 2 (a product and a sum); the new parameter 2 (a product and a
+#: difference)
+ADAMW_FLOPS_PER_PARAM = 17
+
+
+def adamw_update_cost(numels, g_esizes, p_esizes) -> tuple[int, int]:
+    """One clip-and-AdamW launch over leaves of ``numels`` elements: the
+    gradient read once (``g_esizes`` bytes an element), the parameter read
+    and written once (``p_esizes``), both f32 moments read and written
+    once: 22 B a bf16 parameter (g 2, p 2 + 2, m 4 + 4, v 4 + 4); the four
+    f32 scalars read once; :data:`ADAMW_FLOPS_PER_PARAM` operations a
+    parameter."""
+    nbytes = sum(n * (g + 2 * p + 16)
+                 for n, g, p in zip(numels, g_esizes, p_esizes))
+    return ADAMW_FLOPS_PER_PARAM * sum(numels), nbytes + 16
+
+
 #: the kernels' ``torch.library`` ops (``OpOverloadPacket``s of the
 #: ``repro_torch`` namespace) -> (the kernel's ``LAUNCHES`` key, its cost:
 #: ``cost(*op args) -> (flops, bytes, flop class)``, the class

@@ -1,0 +1,22 @@
+"""The train step's global-norm clip and AdamW update: the CUDA kernels
+and their plain PyTorch versions.
+
+ops.py    -- ``sumsq`` / ``global_norm`` / ``adamw_update`` dispatch (impl
+             in {auto, cuda, torch, ref}; no environment override)
+kernel.py -- the CUDA kernels (csrc/adamw.cu: ``sumsq_kernel`` and
+             ``adamw_update_kernel``, one launch each over every leaf):
+             build, ctypes binding, the leaf table, checked launches,
+             launch counts
+ref.py    -- the plain versions (``sumsq_torch``, ``adamw_update_torch``)
+             and the kernels' order in torch (``sumsq_chunked_torch``,
+             ``adamw_update_chunked_torch``)
+
+Used by ``repro_torch.launch.steps.make_train_step`` (the norm) and
+``repro_torch.optim.adamw.update`` (the clip's scaling and the update).
+"""
+
+from repro_torch.kernels.optim.kernel import LAUNCHES, reset_launches
+from repro_torch.kernels.optim.ops import adamw_update, global_norm, sumsq
+
+__all__ = ["LAUNCHES", "adamw_update", "global_norm", "reset_launches",
+           "sumsq"]

@@ -289,10 +289,12 @@ class CostMode(TorchDispatchMode):
 
     def _count(self, func, args, kwargs, out) -> None:
         outs = _tensors(out)
-        if not outs:
-            return                       # a metadata query
         packet = func._overloadpacket
         name = packet.__name__
+        if not outs and packet not in costs.KERNEL_OPS:
+            # a metadata query (a kernel op may write into its arguments
+            # alone, as the optimizer's update does)
+            return
         if func.namespace in _COLLECTIVE_NAMESPACES:
             if name == "wait_tensor":
                 return

@@ -1,6 +1,7 @@
 """Train and serving steps of the port.
 
   * ``make_train_step(model, opt, rules)``  (state, batch) -> (state, metrics)
+  * ``CapturedTrainStep(model, opt, **kw)``  the same in one CUDA graph
   * ``make_optimizer(cfg, **kw)``        the config's optimizer
   * ``make_prefill_step(model, rules)``  (params, cache, batch) -> (logits, cache)
   * ``make_decode_step(model, rules)``   (params, cache, tokens, t) -> (logits, cache)
@@ -41,6 +42,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.capture import CapturedCall
 from repro_torch.core.executor import resolve_device
 from repro_torch.kernels.flash_attention.kernel import check_pairs
+from repro_torch.kernels.optim.ops import global_norm, placed_like
 from repro_torch.models.params import (
     AbstractLeaf,
     abstract_params,
@@ -72,7 +74,11 @@ def make_train_step(model: Model, opt, rules=None, *, impl: str = "auto",
     (``model.loss_fn``; on the card the attention's gradient is the
     backward kernel), a global-norm clip (the norm in f32 over every
     gradient leaf in leaf order, each gradient scaled in its own dtype),
-    ``cosine_warmup`` of the optimizer's step, and ``opt.update``.
+    ``cosine_warmup`` of the optimizer's step, and ``opt.update``.  For
+    AdamW on the card the norm's squared sums are one launch of
+    ``sumsq_kernel`` and the scaling and the update one of
+    ``adamw_update_kernel`` (``kernels/optim``); ``impl="torch"`` and the
+    CPU take the plain ops, and Adafactor takes them everywhere.
 
     ``state`` is ``{"params", "opt"}``.  The update writes the new
     parameters and optimizer state into the given tensors (the
@@ -83,8 +89,9 @@ def make_train_step(model: Model, opt, rules=None, *, impl: str = "auto",
     nothing back to the host.
 
     Under ``rules`` the state is DTensors (``distribute_params`` of
-    ``model.defs`` and ``opt.state_defs``), the gradients come out with
-    the parameters' placements, each leaf's squared sum is a ``Partial``
+    ``model.defs`` and ``opt.state_defs``), the gradients are placed as
+    their parameters (``placed_like``: a ``Partial`` gradient is reduced
+    before the norm squares it), each leaf's squared sum is a ``Partial``
     sum over its shards and the norm their sum in leaf order, reduced
     across the mesh; the metrics are returned whole (plain tensors).
     Rules without a mesh raise here."""
@@ -100,20 +107,26 @@ def make_train_step(model: Model, opt, rules=None, *, impl: str = "auto",
                                           rules=rules)
             grads = torch.autograd.grad(loss, leaves)
         with sharded(rules):
+            if rules is not None:
+                # a gradient autograd hands back Partial (a parameter
+                # replicated over a mesh axis that shards the batch) is
+                # reduced once, here: the norm squares it, and the norm
+                # and the update read the same gradients
+                grads = placed_like(grads, leaves)
             metrics = {k: full(v.detach()) for k, v in metrics.items()}
-            # global-norm clip
-            gnorm = torch.sqrt(sum(
-                torch.sum(torch.square(g.to(torch.float32)))
-                for g in grads))
+            # global-norm clip: the norm over every leaf in leaf order; the
+            # optimizer's update scales each gradient in its own dtype
+            # first (AdamW on the card: the squared sums one launch, the
+            # scaling and the update another)
+            gnorm = global_norm(grads,
+                                impl=impl if opt.fused_clip else "torch")
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
-            for g in grads:              # autograd's own: scaled in place
-                g.mul_(scale.to(g.dtype))
             lr = cosine_warmup(state["opt"]["step"], peak_lr=peak_lr,
                                warmup=warmup, total=total_steps)
             new_params, new_opt = opt.update(
                 tree_unflatten(treedef, grads), state["opt"], params,
-                lr_scale=lr / opt.lr)
+                lr_scale=lr / opt.lr, clip_scale=scale, impl=impl)
         metrics.update(grad_norm=full(gnorm), lr=full(lr))
         return {"params": new_params, "opt": new_opt}, metrics
 
@@ -142,10 +155,83 @@ def make_decode_step(model: Model, rules=None, *, impl: str = "auto"):
 def _no_capture_under(rules) -> None:
     if rules is not None:
         raise NotImplementedError(
-            "a captured decode step under sharding rules is not ported "
-            "(ROADMAP A8): DTensor's redistributions are collectives and "
-            "host decisions the graph would freeze; decode eagerly under "
-            "rules")
+            "a captured step under sharding rules is not ported (ROADMAP "
+            "A8): DTensor's redistributions are collectives and host "
+            "decisions the graph would freeze; decode and train eagerly "
+            "under rules")
+
+
+class CapturedTrainStep:
+    """The train step captured in one CUDA graph: the counterpart of
+    ``repro``'s ``jax.jit(make_train_step(...), donate_argnums=(0,))``
+    (``src/repro/launch/train.py:65``), whose one trace serves every step.
+
+    Static tensors take the place of the traced and donated arguments:
+    :attr:`state` (the train state, updated in place by every step: the
+    parameters, the optimizer's moments and its ``step``, which the
+    schedule reads on the device), :attr:`batch` (``tokens``, and
+    ``frames`` for the encoder-decoder: each written by one copy a step)
+    and the metrics the capture returned (``loss``, ``lm_loss``, ...,
+    ``grad_norm``, ``lr``: 0-d tensors that every step overwrites, read by
+    the caller before the next call).
+
+    ``step(state, batch)`` returns ``(step.state, metrics)``.  The first
+    call adopts ``state`` as its own, copies the batch in and runs the
+    step eagerly (the capture's warm-up, which is that call's step), frees
+    the blocks the warm-up left in the allocator's cache, so that the
+    graph's pool holds one step's peak and not two, and captures the step
+    (:class:`~repro_torch.core.capture.CapturedCall`, which keeps the
+    kernels' launch counts true); every later call is one replay.  A call
+    handed a state whose leaves are not its own (``checkpoint.restore``
+    returns new tensors, and ``runtime/fault.py`` restores after a failed
+    step) copies them into its own leaves first.  The card only: raises on
+    the CPU, and under sharding ``rules`` (ROADMAP A8).
+    """
+
+    def __init__(self, model: Model, opt, rules=None, *, impl: str = "auto",
+                 device=None, **kw):
+        _no_capture_under(rules)
+        self.device = resolve_device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"a captured train step needs a CUDA device, "
+                             f"got {self.device}; train eagerly on the CPU")
+        self._step = make_train_step(model, opt, None, impl=impl, **kw)
+        self.state = None
+        self.batch = None
+        self.call: CapturedCall | None = None
+
+    def _write(self, batch) -> None:
+        if set(batch) != set(self.batch):
+            raise ValueError(f"a batch of {sorted(batch)}, the step was "
+                             f"captured with {sorted(self.batch)}")
+        for k, v in batch.items():
+            self.batch[k].copy_(torch.as_tensor(v))
+
+    def _adopt(self, state) -> None:
+        own, got = tree_leaves(self.state), tree_leaves(state)
+        if len(own) != len(got):
+            raise ValueError(f"a state of {len(got)} leaves, the step "
+                             f"holds {len(own)}")
+        with torch.no_grad():
+            for o, g in zip(own, got):
+                if o is not g:
+                    o.copy_(g)
+
+    def __call__(self, state, batch):
+        if self.call is None:
+            self.state = state
+            self.batch = {k: torch.empty(tuple(v.shape),
+                                         dtype=torch.as_tensor(v).dtype,
+                                         device=self.device)
+                          for k, v in batch.items()}
+            self._write(batch)
+            self.call = CapturedCall(
+                lambda: self._step(self.state, self.batch)[1], self.device,
+                release=True)
+            return self.state, self.call.first
+        self._adopt(state)
+        self._write(batch)
+        return self.state, self.call.replay()
 
 
 class CapturedDecodeStep:

@@ -31,7 +31,11 @@ state placed by ``distribute_params``: it needs a process group of those
 256 (512) ranks and raises a ``ValueError`` naming that world size
 otherwise, as ``repro``'s ``jax.make_mesh`` fails without the devices.
 ``--device`` is ``cuda`` unless ``cpu`` is asked for; without a card it
-raises.
+raises.  On the card without ``--mesh`` every step is one replay of the
+step captured in a CUDA graph (``launch/steps.py:CapturedTrainStep``, the
+counterpart of ``repro``'s ``jax.jit(step_fn, donate_argnums=(0,))``; its
+first step is the capture's warm-up); on the CPU and under ``--mesh`` the
+step runs eagerly.
 """
 
 from __future__ import annotations
@@ -48,7 +52,11 @@ from repro_torch.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.core.executor import resolve_device
 from repro_torch.data import DataPipeline
 from repro_torch.launch.mesh import make_production_mesh, rules_for_mesh
-from repro_torch.launch.steps import make_optimizer, make_train_step
+from repro_torch.launch.steps import (
+    CapturedTrainStep,
+    make_optimizer,
+    make_train_step,
+)
 from repro_torch.models.params import distribute_params, tree_leaves
 from repro_torch.models.zoo import build_model
 from repro_torch.runtime import FaultTolerantLoop
@@ -104,9 +112,13 @@ def main(argv=None) -> dict:
                                     device=device)
         rules = rules_for_mesh(mesh)
 
-    step_fn = make_train_step(model, opt, rules, peak_lr=args.lr,
-                              warmup=max(args.steps // 20, 10),
-                              total_steps=args.steps)
+    sched = dict(peak_lr=args.lr, warmup=max(args.steps // 20, 10),
+                 total_steps=args.steps)
+    # on the card one CUDA graph a step, as repro jits its step; eagerly
+    # on the CPU and under rules (ROADMAP A8)
+    captured = device.type == "cuda" and rules is None
+    step_fn = (CapturedTrainStep(model, opt, device=device, **sched)
+               if captured else make_train_step(model, opt, rules, **sched))
     pipe = DataPipeline(cfg=cfg, seq_len=args.seq, global_batch=args.batch,
                         seed=args.seed)
 
@@ -143,7 +155,9 @@ def main(argv=None) -> dict:
                      float(metrics["loss"]), tok_s)
 
     def run_step(state, batch):
-        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        if not captured:         # the captured step copies into its own
+            batch = {k: v.to(device) for k, v in batch.items()}
         return step_fn(state, batch)
 
     loop = FaultTolerantLoop(

@@ -259,8 +259,12 @@ def _lm(cfg: ArchConfig, defs, make_cache_defs, backbone, *,
         metrics = {"lm_loss": lm}
         loss = lm
         if aux_loss:
-            metrics["aux_loss"] = torch.as_tensor(
-                aux, dtype=torch.float32, device=tokens.device)
+            # made on the device (a model without experts sums no tensor):
+            # a host-to-device copy cannot be captured in a CUDA graph
+            metrics["aux_loss"] = (
+                aux.to(torch.float32) if torch.is_tensor(aux) else
+                torch.full((), float(aux), dtype=torch.float32,
+                           device=tokens.device))
             if cfg.n_experts:
                 loss = lm + 0.01 * aux
         if cfg.mtp:

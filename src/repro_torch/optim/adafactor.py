@@ -6,7 +6,11 @@ tensors.  No first moment.  The math is ``repro``'s (``vr``/``vc`` for
 >=2-D leaves, ``v`` for the rest, the update's RMS clipped at
 ``clip_threshold``); as in :mod:`repro_torch.optim.adamw`, ``update``
 writes parameters and moments into the given tensors, the counterpart of
-``repro``'s donated train state.
+``repro``'s donated train state; ``step`` advances in place too, so that
+a captured train step advances it on every replay.  Its update runs on
+plain torch ops on the card as well (the fused Adafactor kernel is ROADMAP
+B4's next item); the global-norm clip's scale (``clip_scale``) is applied
+to the gradients in place first.
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ class adafactor:
     eps: float = 1e-30
     clip_threshold: float = 1.0
     weight_decay: float = 0.0
+    #: the clip's norm and scaling stay plain torch ops for this optimizer
+    fused_clip = False
 
     def init(self, params):
         def st(p):
@@ -72,9 +78,16 @@ class adafactor:
                 "v": tree_map(st, param_defs, is_leaf=is_def)}
 
     @torch.no_grad()
-    def update(self, grads, state, params, lr_scale=1.0):
-        """One Adafactor step, in place; returns ``(params, state)``."""
-        step = state["step"] + 1
+    def update(self, grads, state, params, lr_scale=1.0, *,
+               clip_scale=None, impl: str = "auto"):
+        """One Adafactor step, in place, the gradients first scaled by
+        ``clip_scale`` (None: not scaled); returns ``(params, state)``.
+        ``impl`` is taken for the interface's sake: plain ops always."""
+        if clip_scale is not None:
+            for g in tree_leaves(grads):     # autograd's own: in place
+                g.mul_(clip_scale.to(g.dtype))
+        step = state["step"]
+        step.add_(1)
         t = step.to(f32)
         beta2 = 1.0 - t ** (-self.decay)
         lr = self.lr * lr_scale

@@ -8,9 +8,20 @@ counterpart of ``repro``'s ``jax.jit(step, donate_argnums=(0,))``, which
 lets XLA reuse the old state's buffers.  Nothing of the old state is kept,
 so a caller that needs it (a checkpoint, a comparison) copies it first.
 ``step`` is a 0-d int32 tensor, as in ``repro``, so that checkpoints of
-the two packages hold the same leaves.  Sharded state (ZeRO-3) is the same
-update on DTensors: the moments placed as their parameters
-(``models.params.distribute_params`` of ``state_defs``).
+the two packages hold the same leaves; it too advances in place, so that a
+captured train step (``launch/steps.py:CapturedTrainStep``) advances it on
+every replay.
+
+``update`` takes the global-norm clip's scale as well (``clip_scale``, a
+0-d f32 tensor: each gradient scaled in its own dtype first, as
+``repro``'s step does).  On the card the scaling and the update of every
+leaf are one launch of ``adamw_update_kernel`` (``kernels/optim``),
+bit-equal to the plain ops; on the CPU, or with ``impl="torch"``, the
+plain ops of ``kernels/optim/ref.py:adamw_update_torch``.
+
+Sharded state (ZeRO-3) is the same update on DTensors: the moments placed
+as their parameters (``models.params.distribute_params`` of
+``state_defs``); on the card the kernel updates each rank's shards.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels.optim.ops import adamw_update
 from repro_torch.models.params import ParamDef, is_def, tree_leaves, tree_map
 
 f32 = torch.float32
@@ -32,6 +44,10 @@ class adamw:
     b2: float = 0.95
     eps: float = 1e-8
     weight_decay: float = 0.1
+    #: the clip's scaling is part of this optimizer's update (one launch
+    #: with it on the card); ``make_train_step`` takes the norm through the
+    #: squared-sum kernel for such an optimizer
+    fused_clip = True
 
     def init(self, params):
         p0 = tree_leaves(params)[0]
@@ -52,23 +68,23 @@ class adamw:
         }
 
     @torch.no_grad()
-    def update(self, grads, state, params, lr_scale=1.0):
-        """One AdamW step, in place; returns ``(params, state)``, the given
-        tensors updated (``state["step"]`` a new 0-d tensor)."""
-        step = state["step"] + 1
+    def update(self, grads, state, params, lr_scale=1.0, *,
+               clip_scale=None, impl: str = "auto"):
+        """One AdamW step, in place, the gradients first scaled by
+        ``clip_scale`` (None: not scaled); returns ``(params, state)``, the
+        given tensors updated (``state["step"]`` advanced in place).
+        ``impl``: ``kernels/optim/ops.py``'s (the kernel on the card under
+        ``"auto"``)."""
+        step = state["step"]
+        step.add_(1)
         b1, b2 = self.b1, self.b2
         lr = self.lr * lr_scale
         t = step.to(f32)
         bc1 = 1.0 - torch.pow(b1, t)
         bc2 = 1.0 - torch.pow(b2, t)
-        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
-                              tree_leaves(state["v"]), tree_leaves(params)):
-            g = g.to(f32)
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * g * g)
-            del g
-            upd = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            pf = p.to(f32)
-            upd.add_(self.weight_decay * pf)
-            p.copy_(pf - lr * upd)
+        adamw_update(tree_leaves(grads), tree_leaves(params),
+                     tree_leaves(state["m"]), tree_leaves(state["v"]),
+                     scale=clip_scale, lr=lr, bc1=bc1, bc2=bc2, b1=b1,
+                     b2=b2, eps=self.eps, weight_decay=self.weight_decay,
+                     impl=impl)
         return params, {"step": step, "m": state["m"], "v": state["v"]}

@@ -66,10 +66,6 @@ class FaultTolerantLoop:
         self.max_retries = max_retries
         self.timer = StepTimer()
         self._stop = False
-        try:
-            signal.signal(signal.SIGTERM, self._on_sigterm)
-        except ValueError:
-            pass  # not on main thread (tests)
 
     def _on_sigterm(self, *_):
         log.warning("SIGTERM: checkpointing before exit")
@@ -77,6 +73,21 @@ class FaultTolerantLoop:
 
     def run(self, state, start_step: int, n_steps: int,
             on_metrics: Callable | None = None):
+        """Steps ``start_step`` to ``n_steps`` (SIGTERM handled while it
+        runs, the previous handler put back after it: a handler left
+        installed would keep this loop, its step and what the step holds
+        -- a captured step's graph and its memory pool -- alive)."""
+        try:
+            prev = signal.signal(signal.SIGTERM, self._on_sigterm)
+        except ValueError:
+            prev = None  # not on main thread (tests)
+        try:
+            return self._run(state, start_step, n_steps, on_metrics)
+        finally:
+            if prev is not None:
+                signal.signal(signal.SIGTERM, prev)
+
+    def _run(self, state, start_step, n_steps, on_metrics):
         step = start_step
         retries = 0
         it = self.batch_iter_factory(step)

@@ -796,16 +796,19 @@ def test_griffin_train_cell_is_applicable_on_a_mocked_card():
     assert ok == "True"
     # a device's step under remat "block": 8 groups (rec, rec, attn) run
     # their forward twice, the tail's 2 rec blocks once; one backward a
-    # layer
+    # layer; AdamW's norm and update one launch each over the local shards
     assert launches == str(sorted({"flash_prefill": 16, "flash_backward": 8,
-                                   "rglru": 34,
-                                   "rglru_backward": 18}.items()))
+                                   "rglru": 34, "rglru_backward": 18,
+                                   **OPTIM}.items()))
     assert kernels == str(sorted({"flash_prefill": 16,
                                   "flash_backward_sm90": 8,
                                   "rglru_staged": 34,
-                                  "rglru_backward": 18}.items()))
+                                  "rglru_backward": 18, **OPTIM}.items()))
 
 
+#: an AdamW step's optimizer kernels: the squared sums and the clip with
+#: the update, one launch each (``kernels/optim``)
+OPTIM = {"sumsq": 1, "adamw_update": 1}
 _MOCKED_RWKV6 = _MOCKED_GRIFFIN.replace('"recurrentgemma-2b"', '"rwkv6-7b"')
 _MOCKED_STARCODER2 = _MOCKED_GRIFFIN.replace('"recurrentgemma-2b"',
                                              '"starcoder2-7b"')
@@ -818,9 +821,10 @@ def test_starcoder2_train_cell_is_applicable_on_a_mocked_card():
     ok, launches, kernels = out.split(" | ")
     assert ok == "True"
     assert launches == str(sorted({"flash_prefill": 64,
-                                   "flash_backward": 32}.items()))
+                                   "flash_backward": 32, **OPTIM}.items()))
     assert kernels == str(sorted({"flash_prefill": 64,
-                                  "flash_backward_sm90": 32}.items()))
+                                  "flash_backward_sm90": 32,
+                                  **OPTIM}.items()))
 
 
 _MOCKED_SEAMLESS = _MOCKED_GRIFFIN.replace('"recurrentgemma-2b"',
@@ -836,13 +840,14 @@ def test_seamless_train_cell_is_applicable_on_a_mocked_card():
     sys.path.insert(0, str(ROOT))
     from chip_smoke import train_launches
     want = train_launches(configs.get("seamless-m4t-medium"))
-    assert want == {"flash_prefill": 72, "flash_backward": 36}
+    assert want == {"flash_prefill": 72, "flash_backward": 36, **OPTIM}
     out = _run(_MOCKED_SEAMLESS, timeout=240).strip().splitlines()[-1]
     ok, launches, kernels = out.split(" | ")
     assert ok == "True"
     assert launches == str(sorted(want.items()))
     assert kernels == str(sorted({"flash_prefill": 72,
-                                  "flash_backward_sm90": 36}.items()))
+                                  "flash_backward_sm90": 36,
+                                  **OPTIM}.items()))
 
 
 def test_rwkv6_train_cell_is_applicable_on_a_mocked_card():
@@ -851,7 +856,7 @@ def test_rwkv6_train_cell_is_applicable_on_a_mocked_card():
     assert ok == "True"
     # a device's step under remat "block": 32 layers run their WKV-6
     # forward twice, its backward once
-    want = str(sorted({"wkv6": 64, "wkv6_backward": 32}.items()))
+    want = str(sorted({"wkv6": 64, "wkv6_backward": 32, **OPTIM}.items()))
     assert launches == want and kernels == want
 
 

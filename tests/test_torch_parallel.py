@@ -647,6 +647,22 @@ def test_checkpoint_round_trip_2x2(mesh22):
     check_ckpt(mesh22)
 
 
+def test_optim_kernels_reduce_partial_gradients_2x2(mesh22):
+    # the optimizer kernels' route under rules, the kernels emulated on the
+    # CPU: gradients autograd hands back Partial (llama's replicated
+    # leaves, the batch sharded over "data") are reduced before their
+    # squares are summed, so grad_norm and the state match the unsharded
+    # plain steps; without that reduction the norm reads far off
+    r = mesh22["optim"]
+    assert r["partial_grads"] > 0, r
+    got, bad = r["reduced"], r["control"]
+    assert got["leaf_sumsq_rel"] <= LOSS_RTOL, got
+    assert got["grad_norm_rel"] <= LOSS_RTOL, got
+    assert got["param"] <= LEAF_TOL and got["opt"] <= LEAF_TOL, got
+    assert bad["leaf_sumsq_rel"] > 100 * LOSS_RTOL, bad
+    assert bad["grad_norm_rel"] > 10 * LOSS_RTOL, bad
+
+
 def test_cache_heads_sharded_2x2(mesh22):
     # llama's 2 KV heads divide the model axis: heads, not the sequence
     assert mesh22["serve"]["cache_specs"][0] == [

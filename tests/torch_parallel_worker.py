@@ -30,6 +30,17 @@ Readings (all in f32, ``impl="torch"``):
     differences (sums in another order) to a whole bf16 ulp now and then,
     enough to flip a token whose top-2 logits are within 1e-4;
   * ``cache_specs``: the placements of the served decode state;
+  * ``optim``: two train steps of smoke ``llama3.2-1b`` under rules with
+    the optimizer kernels' route taken (``kernels/optim/ops.py``) and the
+    kernels emulated on the CPU in their own order (``sumsq_chunked_torch``
+    and the plain update on each rank's local shards), against the
+    unsharded plain steps: ``grad_norm``'s relative error and the largest
+    parameter and optimizer-leaf errors, and each leaf's squared sum by
+    the kernels' route against the plain sum of the same DTensor
+    gradient (``leaf_sumsq_rel``); how many gradient leaves autograd
+    handed back ``Partial``; and the same readings with the reduction of
+    those gradients taken out (a control: the ranks' local squared sums
+    of Partial terms must read above the limits);
   * ``ckpt``: a sharded train state of smoke ``llama3.2-1b`` saved (every
     leaf whole) and restored with ``shardings=`` (each rank into its own
     directory): bit-equal, at the same placements, and a checkpoint
@@ -326,6 +337,83 @@ def launch(data: int, model_n: int, tmp: Path, *extra,
     return out
 
 
+def optim_check(rules, mesh) -> dict:
+    from repro_torch.kernels.optim import ops as OO
+    from repro_torch.kernels.optim import ref as OR
+    from repro_torch.launch import steps as ST
+
+    cfg = configs.smoke("llama3.2-1b")
+    model = build_model(cfg)
+    params = _params(model)
+    batch = _batch(cfg)
+    opt = make_optimizer(cfg)
+    ref_p = _clone(params)
+    ref_state = {"params": ref_p, "opt": opt.init(ref_p)}
+    ref_step = make_train_step(model, opt, None, impl="torch")
+    for _ in range(STEPS):
+        ref_state, ref_m = ref_step(ref_state, batch)
+
+    sp = distribute_params(_clone(params), model.defs, rules, mesh)
+    leaves = tree_leaves(sp)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = model.loss_fn(sp, batch, impl="torch", rules=rules)
+    with sharded(rules):
+        grads = torch.autograd.grad(loss, leaves)
+    n_partial = sum(any(pl.is_partial() for pl in g.placements)
+                    for g in grads)
+
+    def sumsq_cuda(grads):
+        return OR.sumsq_chunked_torch(grads)
+
+    def adamw_update_cuda(grads, params, ms, vs, **kw):
+        OR.adamw_update_torch([g.clone() for g in grads], params, ms, vs,
+                              **kw)
+
+    def run(reduce: bool) -> dict:
+        saved = (OO.use_kernels, OO._kernel.sumsq_cuda,
+                 OO._kernel.adamw_update_cuda, OO._whole_terms,
+                 ST.placed_like)
+        OO.use_kernels = lambda impl, leaf: True
+        OO._kernel.sumsq_cuda = sumsq_cuda
+        OO._kernel.adamw_update_cuda = adamw_update_cuda
+        if not reduce:
+            OO._whole_terms = lambda g: g
+            ST.placed_like = lambda grads, params: grads
+        try:
+            sums = OO.sumsq(list(grads), impl="torch")
+            plain = OR.sumsq_torch(grads)
+            leaf_rel = max(abs(float(_whole(a)) - float(_whole(b)))
+                           / abs(float(_whole(b)))
+                           for a, b in zip(sums, plain))
+            state = {"params": distribute_params(
+                         _clone(params), model.defs, rules, mesh),
+                     "opt": distribute_params(opt.init(_clone(params)),
+                                              opt.state_defs(model.defs),
+                                              rules, mesh)}
+            step = make_train_step(model, opt, rules, impl="torch")
+            for _ in range(STEPS):
+                state, m = step(state, batch)
+        finally:
+            (OO.use_kernels, OO._kernel.sumsq_cuda,
+             OO._kernel.adamw_update_cuda, OO._whole_terms,
+             ST.placed_like) = saved
+        return {
+            "leaf_sumsq_rel": leaf_rel,
+            "grad_norm_rel": abs(float(m["grad_norm"])
+                                 - float(ref_m["grad_norm"]))
+            / abs(float(ref_m["grad_norm"])),
+            "param": max(_rel(a, b) for a, b in zip(
+                tree_leaves(state["params"]),
+                tree_leaves(ref_state["params"]))),
+            "opt": max(_rel(a, b) for a, b in zip(
+                tree_leaves(state["opt"]), tree_leaves(ref_state["opt"]))),
+        }
+
+    return {"partial_grads": n_partial, "leaves": len(grads),
+            "reduced": run(True), "control": run(False)}
+
+
 def ckpt_check(rules, mesh, tmp: Path, rank: int) -> dict:
     from repro_torch.checkpoint import restore, save
     from repro_torch.launch.steps import out_shardings_for, state_specs
@@ -382,6 +470,7 @@ def main() -> None:
                                      corrupt=True)
     res["serve"] = serve_check(rules, mesh)
     res["ckpt"] = ckpt_check(rules, mesh, Path(out).parent, rank)
+    res["optim"] = optim_check(rules, mesh)
     if rank == 0:
         Path(out).write_text(json.dumps(res))
     dist.barrier()
