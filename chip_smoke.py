@@ -227,7 +227,25 @@ non-zero):
               emulated in torch too), the two controls
               (OPTIM_CONTROL_EDITS) above their limits in leaf 0 only;
               their times beside their bounds, plain versions and two
-              timing references.  Then llama3.2-1b's train step captured
+              timing references.  Then the Adafactor kernels
+              (``csrc/adafactor.cu``, ``check_adafactor_kernels``): the
+              three kernels on the ragged set (ADAFACTOR_RAGGED, 1-D to
+              4-D, f32 and bf16, every other leaf off 16-byte alignment)
+              and at deepseek-v3-671b's 31 full-width leaves over
+              ADAFACTOR_UPDATES updates: the moments within
+              ADAFACTOR_MOMENT_RTOL and each leaf's parameters within
+              ADAFACTOR_P_RTOL of the update of the plain version, bit-
+              equal to their order emulated in torch on the card and to a
+              second run; the split route that sharded leaves take (the
+              raw sums, then the moments from them: ``adafactor_sums``
+              twice) bit-equal to the fused one, its raw sums and moments
+              bit-equal to their order emulated on the card; the two
+              controls (ADAFACTOR_CONTROL_EDITS) above
+              their limits in leaf 0 only; their times beside their
+              bounds, the plain update, the norm and
+              ``torch.optim.Adafactor``; deepseek-v3-671b's step at
+              DEEPSEEK_CLI_LAYERS captured against eager
+              (ADAFACTOR_CAPTURED_STEPS each).  Then llama3.2-1b's train step captured
               in one CUDA graph (``captured_train_compare``:
               CAPTURED_STEPS captured steps bit-equal to as many eager
               ones in loss, grad_norm, lr and the final state, launches a
@@ -367,8 +385,9 @@ non-zero):
               and SDPA's backward.  Last the CLI block: every family's CLI
               run and its bit-equal resume (``cli_run_and_replay``, each
               step a replay of ``launch/steps.py:CapturedTrainStep``,
-              launches ``train_launches``' with one ``sumsq`` and one
-              ``adamw_update`` a step for every AdamW config), gathered
+              launches ``train_launches``' with one ``sumsq`` a step and
+              one ``adamw_update`` (AdamW) or one of each Adafactor kernel
+              (deepseek-v3-671b)), gathered
               from ``family_train`` (CLI_QUEUE) so that the fleet's host
               runs (phase 13, ``FleetRuns``) go beside it.
 
@@ -480,13 +499,18 @@ non-zero):
               rules and unsharded, both under deterministic algorithms:
               loss, grad_norm and every state leaf bit-equal, 32
               ``flash_prefill`` and 16 ``flash_backward`` launches a
-              step, ms per step of both; (c) granite-moe-3b-a800m with
+              step, ms per step of both; then the same for
+              deepseek-v3-671b at its CLI's depth (1 layer + MTP) under
+              Adafactor: under rules its moments take the split route
+              (``adafactor_sums`` twice a step: the raw sums, their
+              reduction, the moments), unsharded the fused one, the
+              states bit-equal; (c) granite-moe-3b-a800m with
               ``moe_impl="ep_shardmap"`` serves 2 requests of 8 + 8
               tokens under rules with the scatter form's tokens; (d)
               ``compressed_psum`` bit-equal to quantize-then-dequantize
               on a bf16 tensor of llama's largest leaf; the process group
-              destroyed at the end.  The flash, flash_backward and arena
-              JSON rows carry its launches (``parallel``).
+              destroyed at the end.  The flash, flash_backward, arena and
+              Adafactor JSON rows carry its launches (``parallel``).
 15. dryrun -- (run last) the dry-run (``launch/dryrun.py``): (a)
               llama3.2-1b's train step (batch 8 x seq 256, remat "block")
               and an eager decode step, full width, unsharded, on real
@@ -4493,7 +4517,7 @@ def bwd_tol(want, dtype) -> float:
                                 - 7)
 
 
-def train_launches(cfg, steps: int = 1) -> dict:
+def train_launches(cfg, steps: int = 1, rules: bool = False) -> dict:
     """The kernels' launches over ``steps`` train steps of ``cfg``: one
     forward an attention call, and one more where ``cfg.remat``
     recomputes each wrapped block in the backward ("block", "dots"); one
@@ -4509,13 +4533,19 @@ def train_launches(cfg, steps: int = 1) -> dict:
     the tail (the layers past the last whole group), whose forward runs
     once: at recurrentgemma-2b's 26 layers, 8 groups (rec, rec, attn) and
     2 rec layers, a step is 16 ``flash_prefill``, 8 ``flash_backward``,
-    2 x 16 + 2 = 34 ``rglru`` and 18 ``rglru_backward``.  An AdamW
-    config's step adds one ``sumsq`` (the clip's norm) and one
-    ``adamw_update`` (the clip's scaling and the update); Adafactor's
-    (deepseek-v3-671b) runs on plain ops and adds none."""
+    2 x 16 + 2 = 34 ``rglru`` and 18 ``rglru_backward``.  Every step adds
+    one ``sumsq`` (the clip's norm) and its optimizer's: AdamW one
+    ``adamw_update`` (the clip's scaling and the update), Adafactor
+    (deepseek-v3-671b) one each of ``adafactor_sums``, ``adafactor_rms``
+    and ``adafactor_update``, and under ``rules`` two of
+    ``adafactor_sums`` (the raw sums, then the moments from them once
+    reduced: ``ops.adafactor_kernels(split=True)``)."""
     again = 0 if cfg.remat in ("none", False) else 1
-    optim = ({"sumsq": steps, "adamw_update": steps}
-             if cfg.optimizer == "adamw" else {})
+    optim = {"sumsq": steps, **({"adamw_update": steps}
+                                if cfg.optimizer == "adamw" else
+                                {k: steps for k in ADAFACTOR_KERNELS})}
+    if rules and cfg.optimizer != "adamw":
+        optim["adafactor_sums"] *= 2
     if cfg.attn_free:
         return {"wkv6": (1 + again) * cfg.n_layers * steps,
                 "wkv6_backward": cfg.n_layers * steps, **optim}
@@ -4857,9 +4887,10 @@ def step_parts(model, opt, state, batch) -> dict:
     part's first op to its last op queued (no wait in between).  Returns
     {part: (device ms, host issue ms)}.  The parts are
     ``make_train_step``'s body, called one by one so that events can sit
-    between them.  The clip is the norm and the scale (AdamW's norm one
+    between them.  The clip is the norm and the scale (the norm one
     ``sumsq`` launch); the gradients' scaling is the optimizer's (AdamW:
-    one ``adamw_update`` launch with the update)."""
+    one ``adamw_update`` launch with the update; Adafactor: its three
+    kernels')."""
     from torch.profiler import record_function
 
     from repro_torch.kernels.optim.ops import global_norm
@@ -7041,9 +7072,12 @@ def mla_controls(control):
 # deepseek-v3-671b: its three dense layers and the MTP block (3.6 B
 # parameters, each MLA at 128 heads of (192, 128)) under its config's
 # Adafactor; its first MoE layer (layer 4: 256 experts of 3 x 7168 x 2048,
-# 11.3 B parameters) does not fit one card beside its gradient and
-# Adafactor's f32 temporaries; its CLI at one layer (with the MTP block),
-# whose checkpoint holds Adafactor's factored vr / vc.
+# 11.3 B parameters) did not fit one card beside its gradient and the plain
+# Adafactor's f32 temporaries; with the update fused a step at 4 layers
+# peaks at 70.85 GB allocated (tools/last_families_probe.py step
+# deepseek-v3-671b:4), which leaves this phase too little room, so it stays
+# at 3; its CLI at one layer (with the MTP block), whose checkpoint holds
+# Adafactor's factored vr / vc.
 SEAMLESS_CLI_LAYERS, DEEPSEEK_LAYERS, DEEPSEEK_CLI_LAYERS = 1, 3, 1
 LAST_STEPS, LAST_CKPT_EVERY, LAST_TIMED_STEPS = 3, 2, 2
 # Limits from the sound readings over seeds 0-2 (tools/
@@ -7127,18 +7161,20 @@ OPTIM_CONTROL_EDITS = {
     "adamw_control_skip": ("partials[c] = acc;",
                            "partials[c] = c == 0 ? 0.0f : acc;"),
 }
-# captured against eager train steps of llama3.2-1b at published width
-CAPTURED_STEPS = 4
+# captured against eager train steps of llama3.2-1b at published width,
+# and of deepseek-v3-671b (Adafactor) at its CLI's depth
+CAPTURED_STEPS, ADAFACTOR_CAPTURED_STEPS = 4, 3
 
 
-def build_optim_control(name: str) -> Path:
-    """A copy of ``csrc/adamw.cu`` with ``OPTIM_CONTROL_EDITS[name]``,
-    built by the repository's flags into a library of its own."""
+def build_optim_control(name: str, source: str = OPTIM_SOURCE,
+                        edits=OPTIM_CONTROL_EDITS) -> Path:
+    """A copy of ``source`` (``csrc/adamw.cu``) with ``edits[name]``, built
+    by the repository's flags into a library of its own."""
     from repro_torch.kernels import _build
-    text = (ROOT / OPTIM_SOURCE).read_text()
-    old, new = OPTIM_CONTROL_EDITS[name]
+    text = (ROOT / source).read_text()
+    old, new = edits[name]
     check(text.count(old) == 1, f"the optimizer control's edit {old!r} is "
-                                f"not in csrc/adamw.cu once")
+                                f"not in {source} once")
     src = ROOT / "build" / "chip_smoke_controls" / f"{name}.cu"
     src.parent.mkdir(parents=True, exist_ok=True)
     src.write_text(text.replace(old, new))
@@ -7425,9 +7461,450 @@ def time_optim_kernels(leaves, opt, card) -> dict:
     return out
 
 
-def captured_train_compare(dev, card) -> dict:
-    """llama3.2-1b's train step at published width (B 8 x S 256, remat
-    "block", AdamW), CAPTURED_STEPS steps captured in one CUDA graph
+# ------------------------------------------------ the Adafactor kernels
+
+ADAFACTOR_SOURCE = "src/repro_torch/csrc/adafactor.cu"
+ADAFACTOR_REPLACES = "src/repro/optim/adafactor.py:67"
+ADAFACTOR_NOTE = ("no TPU kernel: XLA's fusion of adafactor.update and the "
+                  "clip inside jax.jit (src/repro/optim/adafactor.py:67-98, "
+                  "src/repro/launch/steps.py:42-50)")
+ADAFACTOR_KERNELS = ("adafactor_sums", "adafactor_rms", "adafactor_update")
+# updates at deepseek-v3-671b's 31 full-width leaves (DEEPSEEK_LAYERS deep,
+# 4.29 G parameters, bf16), each from new seeded gradients and the state
+# the kernels left; the ragged set's leaves, in f32 and in bf16, every
+# other one at an address 1 element past 16-byte alignment: 1-D to 4-D,
+# a single row and a single column, rows longer than a tile (256), matrices
+# of several row tiles (128); leaf 0 factored, for the controls
+ADAFACTOR_UPDATES = 2
+ADAFACTOR_RAGGED = ((3, 700), (5,), (3, 5, 1031), (2, 3, 130, 300), (1, 1),
+                    (1, 257), (300, 1), (40000,), (129, 7))
+# the moments seeded far below (1 - beta2) g^2, so that each update's rms
+# exceeds clip_threshold and the clip bites (the clip control reads there)
+ADAFACTOR_MOMENT_SCALE = 1e-12
+# the limits against the plain version, whose sums run in another order:
+# each moment (vr, vc, v) relative, max over the leaf's elements; each
+# leaf's parameters ||p - p_plain|| / ||p_plain - p_before||, which in
+# bf16 is set by the rare elements whose rounding the sums' order flips (a
+# bf16 ulp each).  Readings over seeds 0-3 (tools/optim_probe.py
+# adafactor 1 2 3; H100 80GB HBM3 at 700 W): the ragged set moments
+# 2.94e-7-3.21e-7, parameters 1.31e-6-2.74e-6; deepseek-v3-671b's leaves
+# moments 1.57e-6-1.79e-6, parameters 5.05e-4-9.62e-4.  The controls read
+# 0.954-0.993 (skip) and 0.255-0.528 (clip)
+ADAFACTOR_MOMENT_RTOL = 1e-5
+ADAFACTOR_P_RTOL = 4e-3
+# the controls, each a library built from a one-line edit of
+# csrc/adafactor.cu: tile 0's column partials skipped (leaf 0's first 256
+# columns' vc); leaf 0's RMS clip dropped in the update
+ADAFACTOR_CONTROL_EDITS = {
+    "adafactor_control_skip": ("colpart[b * kTileCols + tid] = a;",
+                               "colpart[b * kTileCols + tid] = "
+                               "b == 0 ? 0.0f : a;"),
+    "adafactor_control_clip": (
+        "const float d = fmaxf(__fmul_rn(rms, inv_clip), 1.0f);",
+        "const float d = li == 0 ? 1.0f "
+        ": fmaxf(__fmul_rn(rms, inv_clip), 1.0f);"),
+}
+
+
+def build_adafactor_control(name: str) -> Path:
+    """A copy of ``csrc/adafactor.cu`` with
+    ``ADAFACTOR_CONTROL_EDITS[name]``, built into a library of its own."""
+    return build_optim_control(name, ADAFACTOR_SOURCE, ADAFACTOR_CONTROL_EDITS)
+
+
+@contextlib.contextmanager
+def adafactor_library(lib):
+    """The Adafactor wrappers launching ``lib``'s kernels (a control)."""
+    from repro_torch.kernels.optim import kernel as OK
+    saved = OK._adafactor_lib
+    OK._adafactor_lib = lib
+    try:
+        yield
+    finally:
+        OK._adafactor_lib = saved
+
+
+def seeded_adafactor(shapes, dtypes, dev, seed, offsets=None):
+    """(grads, params, vs) of these shapes from ``seed``: grads and params
+    in their dtypes (scales 1e-2, 2e-2), each leaf's Adafactor state in f32
+    (vr, vc or v; uniform below ADAFACTOR_MOMENT_SCALE), each tensor at
+    ``offsets[i]`` elements into a buffer of its own (default 0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def at(shape, dt, off, make):
+        n = math.prod(shape)
+        buf = torch.empty(n + off, dtype=dt, device=dev)
+        buf[off:] = make(n)
+        return buf[off:].view(shape)
+
+    grads, params, vs = [], [], []
+    for i, (shape, dt) in enumerate(zip(shapes, dtypes)):
+        off = offsets[i] if offsets else 0
+        grads.append(at(shape, dt, off, lambda n: torch.randn(
+            n, generator=gen, device=dev) * 1e-2))
+        params.append(at(shape, dt, off, lambda n: torch.randn(
+            n, generator=gen, device=dev) * 2e-2))
+        mom = lambda s: at(s, torch.float32, off, lambda n: torch.rand(  # noqa: E731
+            n, generator=gen, device=dev) * ADAFACTOR_MOMENT_SCALE)
+        shape = tuple(shape)
+        vs.append({"vr": mom(shape[:-1]), "vc": mom(shape[:-2] + shape[-1:])}
+                  if len(shape) >= 2 else {"v": mom(shape)})
+    return grads, params, vs
+
+
+def clone_vs(vs):
+    return [{k: t.clone() for k, t in v.items()} for v in vs]
+
+
+def adafactor_scalars(grads, opt, step: int, dev):
+    """(scale, lr, beta2) as the train step computes them at ``step`` (the
+    step after the update): the clip's scale from the norm by sumsq_kernel,
+    the schedule's lr at the step before, ``adafactor.update``'s beta2."""
+    from repro_torch.kernels.optim.ops import global_norm
+    from repro_torch.optim.schedule import cosine_warmup
+    scale = torch.clamp(1.0 / torch.clamp(global_norm(grads, impl="cuda"),
+                                          min=1e-9), max=1.0)
+    s = torch.tensor(step - 1, dtype=torch.int32, device=dev)
+    lr = opt.lr * (cosine_warmup(s, peak_lr=3e-4, warmup=10,
+                                 total=TRAIN_STEPS) / opt.lr)
+    beta2 = 1.0 - (s + 1).to(torch.float32) ** (-opt.decay)
+    return scale, lr, beta2
+
+
+def adafactor_readings(params, vs, pp, vp, before):
+    """Per leaf (moments, parameters): the moments' max relative error
+    against the plain version's (``vp``), the parameters' ||p - pp|| /
+    ||pp - before|| (0 where both are 0)."""
+    mom, par = [], []
+    for p, v, q, w, b in zip(params, vs, pp, vp, before):
+        mom.append(max(float(((v[k] - w[k]).abs() / w[k].abs()).max())
+                       for k in v))
+        d = float((p.float() - q.float()).norm())
+        step = float((q.float() - b.float()).norm())
+        par.append(0.0 if d == 0 else d / step if step else math.inf)
+    return mom, par
+
+
+def leaves_equal(params, vs, pp, vp) -> list:
+    """Per leaf: the parameters and every moment bit-equal."""
+    return [torch.equal(p, q) and all(torch.equal(v[k], w[k]) for k in v)
+            for p, v, q, w in zip(params, vs, pp, vp)]
+
+
+def adafactor_controls(label, controls, grads, params, vs, clones, before,
+                       kw) -> dict:
+    """Each control library's update from the state ``clones()`` gives (the
+    update's starting state) against the kernels' (``params``, ``vs``):
+    above its limit in leaf 0, every other leaf bit-equal."""
+    from repro_torch.kernels.optim import ops as OO
+    out = {}
+    for name, lib in controls.items():
+        pc, vc = clones()
+        with adafactor_library(lib):
+            OO.adafactor_update(grads, pc, vc, impl="cuda", **kw)
+        mom, par = adafactor_readings(pc, vc, params, vs, before)
+        same = leaves_equal(pc, vc, params, vs)
+        reading = mom[0] if name.endswith("skip") else par[0]
+        limit = (ADAFACTOR_MOMENT_RTOL if name.endswith("skip")
+                 else ADAFACTOR_P_RTOL)
+        check(reading > limit and not same[0] and all(same[1:]),
+              f"{label}: the control {name} reads {reading:.3e} in leaf 0 "
+              f"(limit {limit}); leaves off the kernels': "
+              f"{[i for i, s in enumerate(same) if not s]}, leaf 0 only "
+              f"expected")
+        out[name] = dict(leaf0=reading, limit=limit,
+                         leaves_off=[i for i, s in enumerate(same) if not s])
+        del pc, vc
+    return out
+
+
+def adafactor_split_sums(grads, vs, kw) -> bool:
+    """The split route's first two launches from the state ``vs`` (left
+    as it was): ``adafactor_sums_kernel``'s raw row and column sums, then
+    its finishing mode's moments and sums of vr, each bit-equal to its
+    order emulated on the card (``ref.adafactor_sums_emulated(fused=
+    False)``, ``ref.adafactor_finish_emulated``)."""
+    from repro_torch.kernels.optim import kernel as OK
+    from repro_torch.kernels.optim import ref as OR
+    one = dict(scale=kw["scale"], beta2=kw["beta2"], eps=kw["eps"])
+    sk, se = OR.flat_states(clone_vs(vs)), OR.flat_states(clone_vs(vs))
+    raw_k, _ = OK.adafactor_sums_cuda(grads, sk, fused=False, **one)
+    raw_e, _ = OR.adafactor_sums_emulated(grads, se, fused=False, **one)
+    vr_k = OK.adafactor_finish_cuda(raw_k, grads, sk, beta2=kw["beta2"])
+    vr_e = OR.adafactor_finish_emulated(raw_e, grads, se, beta2=kw["beta2"])
+    return (torch.equal(raw_k, raw_e) and torch.equal(vr_k, vr_e)
+            and all(torch.equal(a, b) for a, b in zip(sk, se)))
+
+
+def adafactor_check_set(label, shapes, dtypes, dev, opt, controls, seed,
+                        updates, offsets=None, emulate=True) -> tuple:
+    """The Adafactor kernels (``ops.adafactor_update(impl="cuda")``: three
+    launches) on one set of leaves over ``updates`` updates, each from new
+    seeded gradients, the clip's scale, lr and beta2 as the step computes
+    them (``adafactor_scalars``): per update, from the same state, a second
+    run bit-equal, the split route (``ops.adafactor_kernels(split=True)``:
+    four launches, the route of sharded leaves, here with nothing to
+    reduce) bit-equal, so within the plain version's limits as the fused
+    route is; at the first update its raw sums and moments bit-equal to
+    their order emulated on the card (``adafactor_split_sums``, with
+    ``emulate``); ``ref.adafactor_update_chunked_torch`` on the card
+    (``emulate``) bit-equal, and the plain version within
+    ADAFACTOR_MOMENT_RTOL (each moment) and ADAFACTOR_P_RTOL (each leaf's
+    parameters against the update's size); at the last update each control
+    too, from the same state: above its limit in leaf 0, every other leaf
+    bit-equal to the kernels'.  The plain version runs last (it scales the
+    gradients in place; no copy of them is held at deepseek's 8.6 GB).
+    Returns (its record, the leaves)."""
+    from repro_torch.kernels.optim import ops as OO
+    from repro_torch.kernels.optim import ref as OR
+    hyper = dict(eps=opt.eps, clip_threshold=opt.clip_threshold,
+                 weight_decay=opt.weight_decay)
+    _, params, vs = seeded_adafactor(shapes, dtypes, dev, seed, offsets)
+    n_leaves = len(shapes)
+    worst_m, worst_p = [0.0] * n_leaves, [0.0] * n_leaves
+    max_abs = {"moments": 0.0, "params": 0.0}
+    twice, emul, split = True, True, True
+    split_sums = None
+    clones = lambda: ([p.clone() for p in before], clone_vs(before_v))  # noqa: E731
+    for u in range(updates):
+        grads = seeded_adafactor(shapes, dtypes, dev, seed + 1 + u,
+                                 offsets)[0]
+        scale, lr, beta2 = adafactor_scalars(grads, opt, u + 3, dev)
+        kw = dict(scale=scale, lr=lr, beta2=beta2, **hyper)
+        before, before_v = [p.clone() for p in params], clone_vs(vs)
+        OO.adafactor_update(grads, params, vs, impl="cuda", **kw)
+        p2, v2 = clones()
+        OO.adafactor_update(grads, p2, v2, impl="cuda", **kw)
+        twice &= all(leaves_equal(params, vs, p2, v2))
+        del p2, v2
+        p2, v2 = clones()
+        OO.adafactor_kernels(grads, p2, v2, split=True, **kw)
+        same = leaves_equal(params, vs, p2, v2)
+        if not all(same):
+            split = False
+            say(f"optim: {label}: the Adafactor kernels' split route off "
+                f"the fused one in leaves "
+                f"{[i for i, s in enumerate(same) if not s]}")
+        del p2, v2
+        if emulate and u == 0:
+            split_sums = adafactor_split_sums(grads, before_v, kw)
+        if emulate:
+            pe, ve = clones()
+            OR.adafactor_update_chunked_torch(grads, pe, ve, **kw)
+            same = leaves_equal(params, vs, pe, ve)
+            if not all(same):
+                emul = False
+                say(f"optim: {label}: the Adafactor kernels off their order "
+                    f"emulated in leaves "
+                    f"{[i for i, s in enumerate(same) if not s]}")
+            del pe, ve
+        if u == updates - 1:
+            ctrl = adafactor_controls(label, controls, grads, params, vs,
+                                      clones, before, kw)
+        pp, vp = clones()
+        OR.adafactor_update_torch(grads, pp, vp, **kw)
+        mom, par = adafactor_readings(params, vs, pp, vp, before)
+        worst_m = [max(a, b) for a, b in zip(worst_m, mom)]
+        worst_p = [max(a, b) for a, b in zip(worst_p, par)]
+        max_abs["params"] = max(max_abs["params"], *(
+            float((p.float() - q.float()).abs().max())
+            for p, q in zip(params, pp)))
+        max_abs["moments"] = max(max_abs["moments"], *(
+            float((v[k] - w[k]).abs().max()) for v, w in zip(vs, vp)
+            for k in v))
+        del pp, vp
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(twice, f"{label}: two runs of the Adafactor kernels differ")
+    check(split, f"{label}: the Adafactor kernels' split route is not "
+                 f"bit-equal to the fused one")
+    check(split_sums is not False,
+          f"{label}: the split route's raw sums or moments are not "
+          f"bit-equal to their order emulated in torch")
+    check(emul, f"{label}: the Adafactor kernels are not bit-equal to their "
+                f"order emulated in torch")
+    check(max(worst_m) <= ADAFACTOR_MOMENT_RTOL
+          and max(worst_p) <= ADAFACTOR_P_RTOL,
+          f"{label}: the Adafactor kernels against the plain version read "
+          f"moments {max(worst_m):.3e} (limit {ADAFACTOR_MOMENT_RTOL}), "
+          f"parameters {max(worst_p):.3e} (limit {ADAFACTOR_P_RTOL})")
+    n = sum(math.prod(s) for s in shapes)
+    rec = dict(leaves=n_leaves, parameters=n, updates=updates,
+               two_runs_bit_equal=twice, split_bit_equal_to_fused=split,
+               moment_worst_rel=max(worst_m),
+               param_worst_rel=max(worst_p), moment_rel_by_leaf=worst_m,
+               param_rel_by_leaf=worst_p, max_abs_err=max_abs,
+               limits=dict(moments=ADAFACTOR_MOMENT_RTOL,
+                           params=ADAFACTOR_P_RTOL), controls=ctrl)
+    if emulate:
+        rec.update(emulation_bit_equal=emul,
+                   split_sums_bit_equal_to_emulation=split_sums)
+    say(f"optim: {label} ({n_leaves} leaves, {n} parameters, {updates} "
+        f"updates), the Adafactor kernels: two runs bit-equal, the split "
+        f"route (adafactor_sums twice) bit-equal to the fused one"
+        + ("; both bit-equal to their order emulated in torch on the card "
+           "(the split route's raw sums and moments too)"
+           if emulate else "")
+        + f"; against the plain version moments {max(worst_m):.3e} (limit "
+          f"{ADAFACTOR_MOMENT_RTOL}), parameters {max(worst_p):.3e} of the "
+          f"update (limit {ADAFACTOR_P_RTOL}); max abs {max_abs}; controls: "
+        + ", ".join(f"{k} {c['leaf0']:.3e} in leaf 0, leaves off "
+                    f"{c['leaves_off']}" for k, c in ctrl.items()))
+    del before, before_v
+    return rec, (grads, params, vs, scale, lr, beta2)
+
+
+def deepseek_leaf_shapes(layers: int = DEEPSEEK_LAYERS) -> list:
+    """deepseek-v3-671b's leaf shapes at published width, ``layers`` deep
+    (``cut_depth``; the MTP block's leaves too)."""
+    import repro_torch.configs as configs
+    from repro_torch.models.params import is_def, tree_leaves
+    from repro_torch.models.zoo import build_model
+    cfg = configs.cut_depth(configs.get(DEEPSEEK), layers)
+    return [tuple(d.shape) for d in tree_leaves(build_model(cfg).defs,
+                                                is_leaf=is_def)]
+
+
+def check_adafactor_kernels(dev, card, controls) -> dict:
+    """The Adafactor kernels against their plain version on the card
+    (``adafactor_check_set``): on the ragged set (ADAFACTOR_RAGGED in f32
+    and bf16, every other leaf off 16-byte alignment) and at
+    deepseek-v3-671b's 31 full-width leaves (bf16) over ADAFACTOR_UPDATES
+    updates, both with the order emulated on the card; then their times
+    there (``time_adafactor_kernels``)."""
+    from repro_torch.optim import adafactor
+    t0 = time.perf_counter()
+    opt = adafactor(lr=3e-4)
+    ragged = list(ADAFACTOR_RAGGED) * 2
+    dts = ([torch.float32] * len(ADAFACTOR_RAGGED)
+           + [torch.bfloat16] * len(ADAFACTOR_RAGGED))
+    rec = {"ragged": adafactor_check_set(
+        "the ragged set", ragged, dts, dev, opt, controls, SEED + 200, 2,
+        offsets=[i % 2 for i in range(len(ragged))])[0]}
+    shapes = deepseek_leaf_shapes()
+    rec["deepseek"], leaves = adafactor_check_set(
+        f"deepseek-v3-671b's leaves ({DEEPSEEK_LAYERS} layers + MTP)",
+        shapes, [torch.bfloat16] * len(shapes), dev, opt, controls,
+        SEED + 300, ADAFACTOR_UPDATES)
+    rec["times"] = time_adafactor_kernels(leaves, opt, card)
+    del leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    say(f"optim: the Adafactor kernels' checks and times took "
+        f"{rec['seconds']:.1f} s [{card}]")
+    return rec
+
+
+def time_adafactor_kernels(leaves, opt, card) -> dict:
+    """ms a launch of each Adafactor kernel at deepseek-v3-671b's leaves
+    (``event_us``) beside its own bound (the bytes it must move over 3.35
+    TB/s: ``costs.adafactor_*_cost``), the three together (one
+    ``ops.adafactor_update``; the split route's four, the cost of the
+    fourth launch) against the whole update's bound
+    (``costs.adafactor_cost``: 6 B a bf16 parameter), the plain update's
+    ms, the norm (``sumsq_kernel``, 2 B a parameter) and the plain clip's
+    norm, and one step of ``torch.optim.Adafactor(foreach=True)`` as a
+    timing reference only (its math is not ``repro``'s: no RMS clip of the
+    update, another schedule).  The clip's scale is 1 here (the same
+    launches and passes; the gradients stay as they are)."""
+    from repro_torch.kernels.optim import kernel as OK
+    from repro_torch.kernels.optim import ops as OO
+    from repro_torch.kernels.optim import ref as OR
+    grads, params, vs, _, lr, beta2 = leaves
+    dev = grads[0].device
+    scale = torch.tensor(1.0, device=dev)
+    hyper = dict(eps=opt.eps, clip_threshold=opt.clip_threshold,
+                 weight_decay=opt.weight_decay)
+    states = OR.flat_states(vs)
+    shapes = [tuple(g.shape) for g in grads]
+    es = [g.element_size() for g in grads]
+    ps = [p.element_size() for p in params]
+    _, vrsum = OK.adafactor_sums_cuda(grads, states, scale=scale,
+                                      beta2=beta2, eps=opt.eps)
+    u2sum = OK.adafactor_rms_cuda(grads, states, vrsum, scale=scale,
+                                  eps=opt.eps)
+    ms = lambda fn, reps=10: event_us(fn, reps) / 1e3  # noqa: E731
+    bound = lambda cost: cost[1] / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    out = {
+        "adafactor_sums": dict(
+            ms=ms(lambda: OK.adafactor_sums_cuda(
+                grads, states, scale=scale, beta2=beta2, eps=opt.eps)),
+            bound_ms=bound(costs.adafactor_sums_cost(shapes, es))),
+        "adafactor_rms": dict(
+            ms=ms(lambda: OK.adafactor_rms_cuda(
+                grads, states, vrsum, scale=scale, eps=opt.eps)),
+            bound_ms=bound(costs.adafactor_rms_cost(shapes, es))),
+        "adafactor_update": dict(
+            ms=ms(lambda: OK.adafactor_update_cuda(
+                grads, params, states, vrsum, u2sum, scale=scale, lr=lr,
+                **hyper)),
+            bound_ms=bound(costs.adafactor_update_cost(shapes, es, ps)))}
+    whole = dict(
+        ms=ms(lambda: OO.adafactor_update(grads, params, vs, scale=scale,
+                                          lr=lr, beta2=beta2, impl="cuda",
+                                          **hyper)),
+        split_ms=ms(lambda: OO.adafactor_kernels(
+            grads, params, vs, scale=scale, lr=lr, beta2=beta2, split=True,
+            **hyper)),
+        bound_ms=bound(costs.adafactor_cost(shapes, es, ps)),
+        plain_ms=ms(lambda: OR.adafactor_update_torch(
+            grads, params, vs, scale=scale, lr=lr, beta2=beta2, **hyper), 3))
+    gc.collect()
+    torch.cuda.empty_cache()
+    norm = dict(ms=ms(lambda: OK.sumsq_cuda(grads)),
+                bound_ms=bound(costs.sumsq_cost(
+                    [g.numel() for g in grads], es)),
+                plain_ms=ms(lambda: torch.sqrt(sum(OR.sumsq_torch(grads))),
+                            5))
+    try:
+        tp = [torch.nn.Parameter(p) for p in params]
+        for p, g in zip(tp, grads):
+            p.grad = g
+        ref_opt = torch.optim.Adafactor(tp, lr=3e-4, foreach=True)
+        whole["library_ms"] = ms(ref_opt.step, 3)
+        whole["library_note"] = ("timing reference only, not repro's math: "
+                                 "one step of torch.optim.Adafactor("
+                                 "foreach=True) (no RMS clip of the "
+                                 "update, its own schedule)")
+        del ref_opt, tp
+    except Exception as e:            # a reference only: say why it is none
+        whole["library_ms"] = None
+        whole["library_note"] = f"torch.optim.Adafactor failed: {e!r}"[:300]
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = sum(g.numel() for g in grads)
+    for r in (*out.values(), whole, norm):
+        r.update(bound_by="bytes", parameters=n,
+                 shape=f"deepseek-v3-671b's {len(grads)} leaves "
+                       f"({DEEPSEEK_LAYERS} layers + MTP), bf16")
+    for r in out.values():
+        r.update(plain_ms=whole["plain_ms"],
+                 library_ms=whole["library_ms"],
+                 library_note=whole["library_note"])
+    out["adafactor"] = whole
+    out["sumsq"] = norm
+    say("timing: the Adafactor kernels at deepseek-v3-671b's leaves "
+        f"({n} parameters, bf16): "
+        + "; ".join(f"{k} {out[k]['ms']:.3f} ms (bound "
+                    f"{out[k]['bound_ms']:.3f})" for k in ADAFACTOR_KERNELS)
+        + f"; the three (one ops.adafactor_update) {whole['ms']:.3f} ms "
+          f"(the split route's four {whole['split_ms']:.3f}) "
+          f"against the update's bound {whole['bound_ms']:.3f} ms, the "
+          f"plain update {whole['plain_ms']:.3f} ms, torch.optim.Adafactor("
+          f"foreach=True).step {whole['library_ms']} ms (timing reference "
+          f"only); the norm: sumsq {norm['ms']:.3f} ms (bound "
+          f"{norm['bound_ms']:.3f}), the plain clip's norm "
+          f"{norm['plain_ms']:.3f} ms [{card}]")
+    return out
+
+
+def captured_train_compare(dev, card, arch: str = "llama3.2-1b",
+                           layers: int | None = None,
+                           steps: int = CAPTURED_STEPS) -> dict:
+    """``arch``'s train step at published width, cut to ``layers`` (B 8 x
+    S 256, its config's remat and optimizer: llama3.2-1b "block" and AdamW,
+    deepseek-v3-671b Adafactor), ``steps`` steps captured in one CUDA graph
     (``CapturedTrainStep``: the warm-up and replays) against as many eager
     steps, from the same state and batches, under deterministic
     algorithms: each step's loss, grad_norm and lr bit-equal; the final
@@ -7447,7 +7924,9 @@ def captured_train_compare(dev, card) -> dict:
     from repro_torch.models.params import tree_map
     from repro_torch.models.zoo import build_model
     t0 = time.perf_counter()
-    cfg = configs.get("llama3.2-1b")
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = configs.cut_depth(cfg, layers)
     model = build_model(cfg)
     opt = make_optimizer(cfg, lr=3e-4)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -7457,7 +7936,7 @@ def captured_train_compare(dev, card) -> dict:
     pipe = DataPipeline(cfg=cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                         seed=SEED)
     batches = [{k: torch.from_numpy(v) for k, v in pipe.batch_at(i).items()}
-               for i in range(CAPTURED_STEPS)]
+               for i in range(steps)]
     kw = dict(peak_lr=3e-4, warmup=10, total_steps=TRAIN_STEPS)
     want = train_launches(cfg)
     rec = {}
@@ -7521,16 +8000,17 @@ def captured_train_compare(dev, card) -> dict:
     check(digests == digests_eager, "the captured steps' final parameters "
                                     "and optimizer state are not bit-equal "
                                     "to the eager steps'")
-    rec.update(steps=CAPTURED_STEPS, bit_equal=True,
+    rec.update(arch=arch, layers=cfg.n_layers, steps=steps, bit_equal=True,
                seconds=time.perf_counter() - t0)
-    say(f"train: llama3.2-1b at published width (B {TRAIN_BATCH} x S "
-        f"{TRAIN_SEQ}, remat {cfg.remat!r}, AdamW, deterministic "
-        f"algorithms): {CAPTURED_STEPS} captured steps (the warm-up and "
-        f"{CAPTURED_STEPS - 1} replays) bit-equal to {CAPTURED_STEPS} eager "
+    say(f"train: {arch} at published width, {cfg.n_layers} layers (B "
+        f"{TRAIN_BATCH} x S {TRAIN_SEQ}, remat {cfg.remat!r}, "
+        f"{type(opt).__name__}, deterministic "
+        f"algorithms): {steps} captured steps (the warm-up and "
+        f"{steps - 1} replays) bit-equal to {steps} eager "
         f"steps in loss, grad_norm and lr {e['metrics']} and in all "
         f"{len(digests)} leaves of the final state; launches a replay "
         f"{c['launches_a_replay']} = the eager step's; ms a step "
-        f"(median / min of steps 2-{CAPTURED_STEPS}) captured "
+        f"(median / min of steps 2-{steps}) captured "
         f"{c['ms_median']:.2f} / {c['ms_min']:.2f}, eager "
         f"{e['ms_median']:.2f} / {e['ms_min']:.2f} (first steps "
         f"{c['ms'][0]:.1f} captured incl. the capture, {e['ms'][0]:.1f} "
@@ -7545,8 +8025,8 @@ def captured_train_compare(dev, card) -> dict:
     return rec
 
 
-def phase_train(dev, card, err, control, wkv6_control, optim_controls
-                ) -> tuple[list, dict, FleetRuns]:
+def phase_train(dev, card, err, control, wkv6_control, optim_controls,
+                adafactor_controls) -> tuple[list, dict, FleetRuns]:
     """The train path: the backward kernels against their plain versions
     (llama3.2-1b's heads; the RG-LRU backward and Griffin's windowed (256,
     256) heads), one full-width llama3.2-1b step through the kernels
@@ -7576,6 +8056,15 @@ def phase_train(dev, card, err, control, wkv6_control, optim_controls
     CLI_QUEUE = []
     optim = check_optim_kernels(dev, card, optim_controls)
     part("the optimizer kernels' checks and times")
+    t_ada = time.perf_counter()
+    adafactor = check_adafactor_kernels(dev, card, adafactor_controls)
+    adafactor["captured"] = captured_train_compare(
+        dev, card, arch=DEEPSEEK, layers=DEEPSEEK_CLI_LAYERS,
+        steps=ADAFACTOR_CAPTURED_STEPS)
+    adafactor["block_seconds"] = time.perf_counter() - t_ada
+    say(f"train: the Adafactor block took {adafactor['block_seconds']:.1f} s"
+        f" [{card}]")
+    part("the Adafactor kernels and deepseek's captured step")
     captured = captured_train_compare(dev, card)
     part("llama's captured step")
     worst = check_flash_backward(dev)
@@ -7715,10 +8204,34 @@ def phase_train(dev, card, err, control, wkv6_control, optim_controls
            "and its weight decay applied before the update"),
         shape=t["shape"], errors={s: optim[s] for s in ("ragged", "llama")})
         for k, t in optim["times"].items()]
+    ds = last[DEEPSEEK]
+    at = adafactor["times"]
+    ada_rows = [dict(
+        name=k, route="cuda", source=ADAFACTOR_SOURCE,
+        replaces=ADAFACTOR_REPLACES, replaces_note=ADAFACTOR_NOTE,
+        launches=ds["cli"]["launches"][k],
+        launches_a_step=ds["step_launches"][k],
+        launches_a_replay=adafactor["captured"]["captured"][
+            "launches_a_replay"][k],
+        max_abs_err=max(adafactor[s]["max_abs_err"][
+            "moments" if k == "adafactor_sums" else "params"]
+            for s in ("ragged", "deepseek")),
+        ms=at[k]["ms"], plain_ms=at[k]["plain_ms"],
+        plain_note="the whole plain update (ref.adafactor_update_torch), "
+                   "which the three kernels replace together",
+        bound_ms=at[k]["bound_ms"], bound_by=at[k]["bound_by"],
+        library_ms=at[k]["library_ms"], library_note=at[k]["library_note"],
+        shape=at[k]["shape"], together=at["adafactor"],
+        errors={s: adafactor[s] for s in ("ragged", "deepseek")})
+        for k in ADAFACTOR_KERNELS]
+    for r in optim_rows:
+        if r["name"] == "sumsq":
+            r["deepseek"] = at["sumsq"]
+    rec["adafactor"] = adafactor
     rec["seconds"] = time.perf_counter() - t0
     say(f"train: phase done in {rec['seconds']:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f") [{card}]")
-    return [row, rg_row, wk_row, *optim_rows], rec, fleet
+    return [row, rg_row, wk_row, *optim_rows, *ada_rows], rec, fleet
 
 
 # ------------------------------------------------------------ 14. parallel
@@ -7885,12 +8398,16 @@ def par_serving(dev, card, rules, mesh) -> dict:
                 n_tokens=got["n_tokens"])
 
 
-def par_training(dev, card, rules, mesh) -> dict:
-    """(b) PAR_TRAIN_STEPS llama3.2-1b train steps (batch TRAIN_BATCH x
-    seq TRAIN_SEQ) under rules against the unsharded steps from the same
-    state, both under deterministic algorithms: loss, grad_norm and the
-    updated parameters bit-equal, the flash launches exactly
-    ``train_launches`` (32 forward, 16 backward a step, remat "block")."""
+def par_training(dev, card, rules, mesh, arch: str = "llama3.2-1b",
+                 layers: int | None = None) -> dict:
+    """(b) PAR_TRAIN_STEPS train steps of ``arch`` at published width, cut
+    to ``layers`` (batch TRAIN_BATCH x seq TRAIN_SEQ), under rules against
+    the unsharded steps from the same state, both under deterministic
+    algorithms: loss, grad_norm and the updated parameters and optimizer
+    state bit-equal, the launches exactly ``train_launches`` each
+    (llama3.2-1b: 32 forward, 16 backward a step, remat "block"; an
+    Adafactor config's moments in two launches under rules, the fused one
+    unsharded)."""
     import repro_torch.configs as configs
     from repro_torch.data import DataPipeline
     from repro_torch.launch.steps import make_optimizer, make_train_step
@@ -7901,7 +8418,9 @@ def par_training(dev, card, rules, mesh) -> dict:
     )
     from repro_torch.models.zoo import build_model
 
-    cfg = configs.get("llama3.2-1b")
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = configs.cut_depth(cfg, layers)
     model = build_model(cfg)
     opt = make_optimizer(cfg, lr=3e-4)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -7935,27 +8454,33 @@ def par_training(dev, card, rules, mesh) -> dict:
             launches[name] = {k: v for k, v in all_launches().items() if v}
             ms[name] = ms_
             out[name] = (m, state)
+            del state, step
+    del params, sh
     (m0, s0), (m1, s1) = out["unsharded"], out["rules"]
-    want = train_launches(cfg, PAR_TRAIN_STEPS)
-    say(f"parallel: train launches under rules {launches['rules']}, "
-        f"unsharded {launches['unsharded']}; ms/step {ms} [{card}]")
-    check(launches["rules"] == launches["unsharded"] == want,
-          f"train launches under rules {launches['rules']}, unsharded "
-          f"{launches['unsharded']}, the path needs {want}")
+    want = {"unsharded": train_launches(cfg, PAR_TRAIN_STEPS),
+            "rules": train_launches(cfg, PAR_TRAIN_STEPS, rules=True)}
+    say(f"parallel: {arch}'s train launches under rules {launches['rules']},"
+        f" unsharded {launches['unsharded']}; ms/step {ms} [{card}]")
+    check(launches == want,
+          f"{arch}'s train launches under rules {launches['rules']}, "
+          f"unsharded {launches['unsharded']}, the paths need {want}")
     for k in ("loss", "grad_norm", "lr"):
-        check(torch.equal(m0[k], m1[k]), f"train {k} under rules "
+        check(torch.equal(m0[k], m1[k]), f"{arch}'s train {k} under rules "
                                           f"{float(m1[k])} != {float(m0[k])}")
     same = all(torch.equal(a, b.full_tensor())
                for a, b in zip(tree_leaves(s0), tree_leaves(s1)))
-    check(same, "the train state after the steps under rules is not "
-                "bit-equal to the unsharded one")
-    say(f"parallel: {PAR_TRAIN_STEPS} llama3.2-1b train steps (batch "
+    check(same, f"{arch}'s train state after the steps under rules is not "
+                f"bit-equal to the unsharded one")
+    say(f"parallel: {PAR_TRAIN_STEPS} {arch} train steps ({cfg.n_layers} "
+        f"layers, {type(opt).__name__}, batch "
         f"{TRAIN_BATCH} x seq {TRAIN_SEQ}) under rules: loss "
         f"{float(m1['loss'])}, grad_norm {float(m1['grad_norm'])}, state "
         f"bit-equal to unsharded; launches {launches['rules']}; ms/step "
         f"{[round(x, 1) for x in ms['rules']]} under rules, "
         f"{[round(x, 1) for x in ms['unsharded']]} unsharded [{card}]")
-    return dict(launches=launches["rules"], ms_per_step=ms["rules"],
+    return dict(arch=arch, layers=cfg.n_layers, launches=launches["rules"],
+                launches_unsharded=launches["unsharded"],
+                ms_per_step=ms["rules"],
                 ms_per_step_unsharded=ms["unsharded"],
                 loss=float(m1["loss"]), grad_norm=float(m1["grad_norm"]))
 
@@ -8042,6 +8567,12 @@ def phase_parallel(dev, card) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         rec["train"] = par_training(dev, card, rules, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Adafactor's split route (the moments' raw sums, their reduction,
+        # the moments): deepseek-v3-671b at its CLI's depth
+        rec["train_adafactor"] = par_training(
+            dev, card, rules, mesh, arch=DEEPSEEK, layers=DEEPSEEK_CLI_LAYERS)
         gc.collect()
         torch.cuda.empty_cache()
         rec["ep"] = par_expert_parallel(dev, card, rules, mesh)
@@ -8395,7 +8926,7 @@ def main() -> int:
             "arena.cu", "flash_attention.cu", "flash_decode.cu",
             "flash_prefill_sm90.cu", "flash_backward.cu",
             "flash_backward_sm90.cu", "wkv6.cu", "wkv6_backward.cu",
-            "rglru.cu", "adamw.cu")):
+            "rglru.cu", "adamw.cu", "adafactor.cu")):
         say("FAIL: src/repro_torch not found beside chip_smoke.py; run it "
             "from the root of a checkout")
         return 2
@@ -8422,10 +8953,13 @@ def main() -> int:
 
     # one nvcc per source, all started together
     jobs = [K.build, WK.build, WK.build_backward, RK.build, OK.build,
-            build_rglru_control, build_wkv6_control] + [
+            OK.build_adafactor, build_rglru_control, build_wkv6_control] + [
         (lambda n=n: build_optim_control(n)) for n in OPTIM_CONTROL_EDITS
-    ] + [(lambda n=n: FK.build(n)) for n in FK.SOURCES]
+    ] + [(lambda n=n: build_adafactor_control(n))
+         for n in ADAFACTOR_CONTROL_EDITS
+         ] + [(lambda n=n: FK.build(n)) for n in FK.SOURCES]
     optim_controls = [None, None]
+    adafactor_controls = {}
     with ThreadPoolExecutor(len(jobs)) as ex:
         builds = [ex.submit(timed_build, fn) for fn in jobs]
         for fut in builds:
@@ -8439,14 +8973,17 @@ def main() -> int:
                 optim_controls[0] = optim_control_fns(lib)[0]
             if lib.stem == "libadamw_control_wd":
                 optim_controls[1] = optim_control_fns(lib)[1]
+            if lib.stem[3:] in ADAFACTOR_CONTROL_EDITS:
+                adafactor_controls[lib.stem[3:]] = OK.bind_adafactor(lib)
             if lib.stem in ("libarena", "libwkv6", "libwkv6_backward",
-                            "librglru", "libadamw",
+                            "librglru", "libadamw", "libadafactor",
                             "libflash_decode", "libflash_prefill_sm90",
                             "libflash_backward", "libflash_backward_sm90"):
                 for ln in _build.ptxas_report(lib):
                     say(f"build: ptxas {lib.stem[3:]}: {ln}")
     for mod in (K, WK, RK, OK):
         mod._library()
+    OK._adafactor_library()
     WK._backward_library()
     for n in FK.SOURCES:
         FK._library(n)
@@ -8569,7 +9106,8 @@ def main() -> int:
 
     # the train path, the serving models' weights freed
     train_rows, train_rec, fleet_runs_ = phase_train(
-        dev, card, err, control, wkv6_control, optim_controls)
+        dev, card, err, control, wkv6_control, optim_controls,
+        adafactor_controls)
     rows += train_rows
     for r in rows:            # the recurrences' forward launches in training
         if r["name"] == "rglru":
@@ -8619,6 +9157,10 @@ def finish(dev, card, t_start, rows, chaos, dry_procs, dry_started,
             if r["name"] == "flash_attention":
                 r["parallel"]["train_flash_prefill"] = \
                     par["train"]["launches"]["flash_prefill"]
+        if r["name"] in ADAFACTOR_KERNELS:
+            r["parallel"] = {
+                "deepseek-v3-671b train": par["train_adafactor"][
+                    "launches"][r["name"]]}
     say("parallel: " + json.dumps(par) + f" [{card}]")
     say(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 

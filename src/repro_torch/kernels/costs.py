@@ -14,6 +14,8 @@ The rates are NVIDIA's data sheet for the H100 SXM at its 700 W limit.
 
 from __future__ import annotations
 
+import math
+
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak, same sheet
 F32_FLOP_PER_S = 67e12             # f32 outside the tensor cores, same sheet
@@ -178,6 +180,91 @@ def adamw_update_cost(numels, g_esizes, p_esizes) -> tuple[int, int]:
     nbytes = sum(n * (g + 2 * p + 16)
                  for n, g, p in zip(numels, g_esizes, p_esizes))
     return ADAMW_FLOPS_PER_PARAM * sum(numels), nbytes + 16
+
+
+def _moments(shape) -> int:
+    """Adafactor's f32 state elements of a leaf: a factored leaf's vr and
+    vc (a row and a column a matrix of its last two dims), a 1-D one's v."""
+    n = _numel(shape)
+    if len(shape) < 2:
+        return n
+    return n // shape[-1] + n // shape[-2]
+
+
+def _numel(shape) -> int:
+    return math.prod(shape)
+
+
+def adafactor_cost(shapes, g_esizes, p_esizes) -> tuple[int, int]:
+    """The whole clip-and-Adafactor update (its three launches together),
+    the bound's count: the gradient read once, the parameter read and
+    written once, the f32 moments read and written once, the three f32
+    scalars (scale, beta2, lr) read once: 6 B a bf16 parameter and 8 B a
+    moment; the operations of the three kernels' passes
+    (:func:`adafactor_sums_cost`, :func:`adafactor_rms_cost`,
+    :func:`adafactor_update_cost`)."""
+    flops = (adafactor_sums_cost(shapes, g_esizes)[0]
+             + adafactor_rms_cost(shapes, g_esizes)[0]
+             + adafactor_update_cost(shapes, g_esizes, p_esizes)[0])
+    nbytes = sum(_numel(s) * (g + 2 * p) + 8 * _moments(s)
+                 for s, g, p in zip(shapes, g_esizes, p_esizes))
+    return flops, nbytes + 12
+
+
+def adafactor_sums_cost(shapes, g_esizes, *, fused: bool = True
+                        ) -> tuple[int, int]:
+    """One ``adafactor_sums`` launch: the gradient read once, the f32
+    moments read and written once (``fused``; else a 1-D leaf's v, and
+    each row's and column's sum of g2 written), each matrix's sum of vr
+    written; per element of a factored leaf 5 operations (the scaling, the
+    square, + eps, the row's and the column's sums), per moment 4 (the
+    mean's division, two products, a sum) and a vr its matrix's sum; per
+    element of a 1-D leaf 6 (the scaling, the square, + eps, the
+    moment's three)."""
+    flops = nbytes = 0
+    for s, g in zip(shapes, g_esizes):
+        n, mo = _numel(s), _moments(s)
+        nbytes += n * g
+        if len(s) < 2:
+            flops += 6 * n
+            nbytes += 8 * n
+            continue
+        flops += 5 * n + (5 * mo if fused else 0)
+        rows = n // s[-1]
+        nbytes += 8 * mo if fused else 4 * mo
+        nbytes += 4 * (rows // s[-2]) if fused else 0
+    return flops, nbytes + 4
+
+
+def adafactor_finish_cost(shapes) -> tuple[int, int]:
+    """One ``adafactor_finish`` launch (``adafactor_sums_kernel`` from
+    each row's and column's reduced sum): the sums read once, vr and vc
+    read and written once, each matrix's sum of vr written; 5 operations a
+    moment (the mean, two products, a sum; a vr its matrix's sum)."""
+    mo = sum(_moments(s) for s in shapes if len(s) >= 2)
+    mats = sum(_numel(s) // (s[-1] * s[-2]) for s in shapes if len(s) >= 2)
+    return 5 * mo, 12 * mo + 4 * mats + 4
+
+
+def adafactor_rms_cost(shapes, g_esizes) -> tuple[int, int]:
+    """One ``adafactor_rms`` launch: the gradient read once, the moments
+    read once, one f32 written a leaf; 5 operations an element (the
+    scaling, u's two products -- a 1-D leaf's reciprocal square root and
+    its product --, the square, the sum)."""
+    nbytes = sum(_numel(s) * g + 4 * _moments(s)
+                 for s, g in zip(shapes, g_esizes))
+    return 5 * sum(_numel(s) for s in shapes), nbytes + 4 * len(shapes)
+
+
+def adafactor_update_cost(shapes, g_esizes, p_esizes) -> tuple[int, int]:
+    """One ``adafactor_update`` launch: the gradient read once, the
+    parameter read and written once, the moments read once, the leaves'
+    sums of u u and the scalars read once; 8 operations an element (the
+    scaling, u's two, the clip's division, the weight decay's two, the
+    rate's product, the difference)."""
+    nbytes = sum(_numel(s) * (g + 2 * p) + 4 * _moments(s)
+                 for s, g, p in zip(shapes, g_esizes, p_esizes))
+    return 8 * sum(_numel(s) for s in shapes), nbytes + 4 * len(shapes) + 8
 
 
 #: the kernels' ``torch.library`` ops (``OpOverloadPacket``s of the

@@ -1,14 +1,17 @@
 """Public optimizer ops: impl dispatch.
 
-``sumsq(grads, impl=)``, ``global_norm(grads, impl=)`` and
-``adamw_update(grads, params, ms, vs, ..., impl=)``:
+``sumsq(grads, impl=)``, ``global_norm(grads, impl=)``,
+``adamw_update(grads, params, ms, vs, ..., impl=)`` and
+``adafactor_update(grads, params, vs, ..., impl=)``:
 
-  * ``"auto"``            -- the CUDA kernels (``csrc/adamw.cu``) for leaves
-                             on the card, ``"torch"`` for leaves on the CPU;
+  * ``"auto"``            -- the CUDA kernels (``csrc/adamw.cu``,
+                             ``csrc/adafactor.cu``) for leaves on the card,
+                             ``"torch"`` for leaves on the CPU;
   * ``"cuda"``            -- the CUDA kernels; raises for leaves on the CPU;
   * ``"torch"``/``"ref"`` -- the plain torch ops (``ref.sumsq_torch``,
-                             ``ref.adamw_update_torch``): the CPU path and
-                             the version the kernels are held against.
+                             ``ref.adamw_update_torch``,
+                             ``ref.adafactor_update_torch``): the CPU path
+                             and the version the kernels are held against.
 
 No environment variable changes the choice, and a CUDA leaf never falls
 back: a library that fails to build or load raises.
@@ -28,6 +31,16 @@ dimensions that shard the leaf and replicated over the rest -- the
 placements ``torch.sum`` of the squared DTensor gives -- so the norm's sum
 and square root reduce across ranks as the plain ops' do.  At world size
 1 that is the unsharded run's bits.
+
+Adafactor's sums are partial on a shard: a row's sum of g2 where the
+leaf's columns are sharded, a column's where its rows are, a matrix's sum
+of vr where its rows are, a leaf's sum of u u where any dimension is.  So
+under sharding its moments take two launches (the raw sums, then the
+moments from them: ``adafactor_sums_cuda(fused=False)``,
+``adafactor_finish_cuda``), and each partial sum is reduced across the
+mesh dimensions that shard it between launches (``_reduce_over``); the
+means divide by the whole leaf's counts.  Unsharded, a step is three
+launches.
 """
 
 from __future__ import annotations
@@ -36,7 +49,12 @@ import torch
 
 from repro_torch.kernels import _grad, _local
 from repro_torch.kernels.optim import kernel as _kernel
-from repro_torch.kernels.optim.ref import adamw_update_torch, sumsq_torch
+from repro_torch.kernels.optim.ref import (
+    adafactor_update_torch,
+    adamw_update_torch,
+    flat_states,
+    sumsq_torch,
+)
 
 IMPLS = ("auto", "cuda", "torch", "ref")
 
@@ -143,3 +161,98 @@ def adamw_update(grads, params, ms, vs, *, scale, lr, bc1, bc2, b1: float,
     _kernel.adamw_update_cuda(_dense(grads), loc(params), loc(ms), loc(vs),
                               scale=scalars[0], lr=scalars[1],
                               bc1=scalars[2], bc2=scalars[3], **kw)
+
+
+def _reduce_over(local, like, dims):
+    """``local`` (a rank's partial sums, a plain tensor) summed across the
+    mesh dimensions that shard the DTensor ``like`` along any of the
+    tensor dimensions ``dims`` (``Partial`` there, reduced to
+    ``Replicate``); as it is where none does."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(like, DTensor):
+        return local
+    nd = like.dim()
+    part = [p.is_shard() and p.dim % nd in dims for p in like.placements]
+    if not any(part):
+        return local
+    mesh = like.device_mesh
+    d = DTensor.from_local(local, mesh, [Partial() if q else Replicate()
+                                         for q in part], run_check=False)
+    return d.redistribute(mesh, [Replicate()] * len(part)).to_local()
+
+
+def adafactor_update(grads, params, vs, *, scale, lr, beta2, eps: float,
+                     clip_threshold: float, weight_decay: float,
+                     impl: str = "auto") -> None:
+    """The clip's scaling by ``scale`` (a 0-d f32 tensor, or None) and the
+    Adafactor update of every leaf (``vs``: ``{"vr", "vc"}`` or ``{"v"}`` a
+    leaf), in place: on the card three launches (``adafactor_sums_kernel``,
+    ``adafactor_rms_kernel``, ``adafactor_update_kernel``; the gradients
+    read, not written), under sharding four with the partial sums reduced
+    between them; the plain ops of ``ref.adafactor_update_torch`` otherwise
+    (which scale the gradients in place).  ``beta2``: a 0-d f32 tensor;
+    ``lr``: one, or a number."""
+    grads, params, vs = list(grads), list(params), list(vs)
+    kw = dict(eps=eps, clip_threshold=clip_threshold,
+              weight_decay=weight_decay)
+    if not use_kernels(impl, grads[0]):
+        adafactor_update_torch(grads, params, vs, scale=scale, lr=lr,
+                               beta2=beta2, **kw)
+        return
+    adafactor_kernels(grads, params, vs, scale=scale, lr=lr, beta2=beta2,
+                      split=_local.has_dtensor(*grads, *params), **kw)
+
+
+def adafactor_kernels(grads, params, vs, *, scale, lr, beta2, eps: float,
+                      clip_threshold: float, weight_decay: float,
+                      split: bool) -> None:
+    """:func:`adafactor_update`'s kernel route on the card.  ``split``: the
+    moments in two launches (the raw row and column sums, then the moments
+    from them), each partial sum reduced across the mesh dimensions that
+    shard its leaf between launches -- the route DTensor leaves take; on
+    plain tensors nothing is reduced and the route gives the fused one's
+    bits (``chip_smoke.adafactor_check_set`` holds it so on the card)."""
+    kw = dict(eps=eps, clip_threshold=clip_threshold,
+              weight_decay=weight_decay)
+    if _local.has_dtensor(*grads, *params):
+        grads = placed_like(grads, params)
+    states = flat_states(vs)
+    counts = _kernel.whole_counts([p.shape for p in params])
+    g, p, s = _dense(grads), [_local.local(t) for t in params], \
+        [_local.local(t) for t in states]
+    dev = p[0].device
+    if not isinstance(lr, torch.Tensor):
+        lr = torch.tensor(lr, dtype=torch.float32, device=dev)
+    scale, lr, beta2 = (None if t is None else _local.local(t)
+                        for t in (scale, lr, beta2))
+    if not split:
+        _, vrsum = _kernel.adafactor_sums_cuda(g, s, scale=scale,
+                                               beta2=beta2, eps=eps)
+        u2sum = _kernel.adafactor_rms_cuda(g, s, vrsum, scale=scale,
+                                           eps=eps)
+    else:
+        geos, _ = _kernel.adafactor_geometry([t.shape for t in g])
+        sums, _ = _kernel.adafactor_sums_cuda(g, s, scale=scale, beta2=beta2,
+                                              eps=eps, counts=counts,
+                                              fused=False)
+        for geo, like in zip(geos, params):
+            if geo.factored:            # rows over the columns' shards,
+                nd = like.dim()         # columns over the rows'
+                a, b = geo.sums, geo.sums + geo.m * geo.r
+                c = b + geo.m * geo.c
+                sums[a:b] = _reduce_over(sums[a:b], like, {nd - 1})
+                sums[b:c] = _reduce_over(sums[b:c], like, {nd - 2})
+        vrsum = _kernel.adafactor_finish_cuda(sums, g, s, beta2=beta2,
+                                              counts=counts)
+        for geo, like in zip(geos, params):
+            if geo.factored:
+                a = slice(geo.first_mat, geo.first_mat + geo.m)
+                vrsum[a] = _reduce_over(vrsum[a], like, {like.dim() - 2})
+        u2sum = _kernel.adafactor_rms_cuda(g, s, vrsum, scale=scale,
+                                           eps=eps, counts=counts)
+        u2sum = torch.stack([
+            _reduce_over(u2sum[i], like, set(range(like.dim())))
+            for i, like in enumerate(params)])
+    _kernel.adafactor_update_cuda(g, p, s, vrsum, u2sum, scale=scale, lr=lr,
+                                  counts=counts, **kw)

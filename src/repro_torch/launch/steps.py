@@ -74,11 +74,11 @@ def make_train_step(model: Model, opt, rules=None, *, impl: str = "auto",
     (``model.loss_fn``; on the card the attention's gradient is the
     backward kernel), a global-norm clip (the norm in f32 over every
     gradient leaf in leaf order, each gradient scaled in its own dtype),
-    ``cosine_warmup`` of the optimizer's step, and ``opt.update``.  For
-    AdamW on the card the norm's squared sums are one launch of
-    ``sumsq_kernel`` and the scaling and the update one of
-    ``adamw_update_kernel`` (``kernels/optim``); ``impl="torch"`` and the
-    CPU take the plain ops, and Adafactor takes them everywhere.
+    ``cosine_warmup`` of the optimizer's step, and ``opt.update``.  On the
+    card the norm's squared sums are one launch of ``sumsq_kernel`` and
+    the scaling and the update one of ``adamw_update_kernel`` (AdamW) or
+    three of ``csrc/adafactor.cu`` (Adafactor; ``kernels/optim``);
+    ``impl="torch"`` and the CPU take the plain ops.
 
     ``state`` is ``{"params", "opt"}``.  The update writes the new
     parameters and optimizer state into the given tensors (the
@@ -116,8 +116,8 @@ def make_train_step(model: Model, opt, rules=None, *, impl: str = "auto",
             metrics = {k: full(v.detach()) for k, v in metrics.items()}
             # global-norm clip: the norm over every leaf in leaf order; the
             # optimizer's update scales each gradient in its own dtype
-            # first (AdamW on the card: the squared sums one launch, the
-            # scaling and the update another)
+            # first (on the card: the squared sums one launch, the scaling
+            # and the update AdamW's one, Adafactor's three)
             gnorm = global_norm(grads,
                                 impl=impl if opt.fused_clip else "torch")
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9),

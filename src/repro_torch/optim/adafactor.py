@@ -7,10 +7,17 @@ tensors.  No first moment.  The math is ``repro``'s (``vr``/``vc`` for
 ``clip_threshold``); as in :mod:`repro_torch.optim.adamw`, ``update``
 writes parameters and moments into the given tensors, the counterpart of
 ``repro``'s donated train state; ``step`` advances in place too, so that
-a captured train step advances it on every replay.  Its update runs on
-plain torch ops on the card as well (the fused Adafactor kernel is ROADMAP
-B4's next item); the global-norm clip's scale (``clip_scale``) is applied
-to the gradients in place first.
+a captured train step advances it on every replay.
+
+``update`` takes the global-norm clip's scale as well (``clip_scale``, a
+0-d f32 tensor: each gradient scaled in its own dtype first, as
+``repro``'s step does).  On the card the scaling and the update of every
+leaf are three launches (``adafactor_sums_kernel``,
+``adafactor_rms_kernel``, ``adafactor_update_kernel`` of
+``csrc/adafactor.cu``, through ``kernels/optim``), within a limit of the
+plain ops (their sums in another order); on the CPU, or with
+``impl="torch"``, the plain ops of
+``kernels/optim/ref.py:adafactor_update_torch``.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels.optim.ops import adafactor_update
 from repro_torch.models.params import (
     ParamDef,
     is_def,
@@ -46,8 +54,10 @@ class adafactor:
     eps: float = 1e-30
     clip_threshold: float = 1.0
     weight_decay: float = 0.0
-    #: the clip's norm and scaling stay plain torch ops for this optimizer
-    fused_clip = False
+    #: the clip's scaling is part of this optimizer's update (on the card
+    #: in its kernels); ``make_train_step`` takes the norm through the
+    #: squared-sum kernel for such an optimizer
+    fused_clip = True
 
     def init(self, params):
         def st(p):
@@ -81,32 +91,18 @@ class adafactor:
     def update(self, grads, state, params, lr_scale=1.0, *,
                clip_scale=None, impl: str = "auto"):
         """One Adafactor step, in place, the gradients first scaled by
-        ``clip_scale`` (None: not scaled); returns ``(params, state)``.
-        ``impl`` is taken for the interface's sake: plain ops always."""
-        if clip_scale is not None:
-            for g in tree_leaves(grads):     # autograd's own: in place
-                g.mul_(clip_scale.to(g.dtype))
+        ``clip_scale`` (None: not scaled); returns ``(params, state)``, the
+        given tensors updated (``state["step"]`` advanced in place).
+        ``impl``: ``kernels/optim/ops.py``'s (the kernels on the card under
+        ``"auto"``)."""
         step = state["step"]
         step.add_(1)
         t = step.to(f32)
         beta2 = 1.0 - t ** (-self.decay)
         lr = self.lr * lr_scale
         flat_v = tree_flatten(state["v"], is_leaf=_is_vstate)[0]
-        for g, v, p in zip(tree_leaves(grads), flat_v, tree_leaves(params)):
-            g = g.to(f32)
-            g2 = g * g + self.eps
-            if _factored(p.shape):
-                v["vr"].copy_(beta2 * v["vr"] + (1 - beta2) * g2.mean(-1))
-                v["vc"].copy_(beta2 * v["vc"] + (1 - beta2) * g2.mean(-2))
-                denom = torch.clamp(v["vr"].mean(-1, keepdim=True),
-                                    min=self.eps)
-                u = (g * torch.rsqrt(v["vr"] / denom)[..., None]
-                     * torch.rsqrt(v["vc"])[..., None, :])
-            else:
-                v["v"].copy_(beta2 * v["v"] + (1 - beta2) * g2)
-                u = g * torch.rsqrt(v["v"])
-            rms = torch.sqrt(torch.mean(u * u) + self.eps)
-            u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
-            pf = p.to(f32)
-            p.copy_(pf - lr * (u + self.weight_decay * pf))
+        adafactor_update(tree_leaves(grads), tree_leaves(params), flat_v,
+                         scale=clip_scale, lr=lr, beta2=beta2, eps=self.eps,
+                         clip_threshold=self.clip_threshold,
+                         weight_decay=self.weight_decay, impl=impl)
         return params, {"step": step, "v": state["v"]}

@@ -663,6 +663,21 @@ def test_optim_kernels_reduce_partial_gradients_2x2(mesh22):
     assert bad["grad_norm_rel"] > 10 * LOSS_RTOL, bad
 
 
+def test_adafactor_kernels_reduce_partial_sums_2x2(mesh22):
+    # the Adafactor kernels' route under rules, the kernels emulated on the
+    # CPU in their own order: a shard's row, column and u u sums are
+    # partial, and reduced across the mesh between the launches, so two
+    # sharded steps match the unsharded plain steps within the chip's
+    # moment limit (chip_smoke.ADAFACTOR_MOMENT_RTOL, 1e-5; readings
+    # ~7e-7); without that reduction the moments read far off
+    r = mesh22["adafactor"]
+    got, bad = r["reduced"], r["control"]
+    assert got["sharded_leaves"] > 0, got
+    assert got["grad_norm_rel"] <= LOSS_RTOL, got
+    assert got["param"] <= 1e-5 and got["opt"] <= 1e-5, got
+    assert bad["opt"] > 1e3 * 1e-5, bad
+
+
 def test_cache_heads_sharded_2x2(mesh22):
     # llama's 2 KV heads divide the model axis: heads, not the sequence
     assert mesh22["serve"]["cache_specs"][0] == [

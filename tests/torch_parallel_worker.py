@@ -41,6 +41,17 @@ Readings (all in f32, ``impl="torch"``):
     handed back ``Partial``; and the same readings with the reduction of
     those gradients taken out (a control: the ranks' local squared sums
     of Partial terms must read above the limits);
+  * ``adafactor``: the same for Adafactor (smoke ``llama3.2-1b`` under
+    ``optim.adafactor``): two sharded train steps with its kernels' route
+    taken (``ops.adafactor_update``: the raw sums, their reduction across
+    the mesh, the moments, the sums of u u and their reduction, the
+    update) and the kernels emulated on the CPU in their own order
+    (``ref.adafactor_*_emulated`` on each rank's local shards), against the
+    unsharded plain steps: ``grad_norm``'s relative error and the largest
+    parameter and optimizer-leaf errors; how many leaves are sharded; and
+    the same readings with the cross-rank reduction of the partial sums
+    taken out (a control: a shard's row, column and u u sums alone must
+    read above the limits);
   * ``ckpt``: a sharded train state of smoke ``llama3.2-1b`` saved (every
     leaf whole) and restored with ``shardings=`` (each rank into its own
     directory): bit-equal, at the same placements, and a checkpoint
@@ -414,6 +425,66 @@ def optim_check(rules, mesh) -> dict:
             "reduced": run(True), "control": run(False)}
 
 
+def adafactor_check(rules, mesh) -> dict:
+    from repro_torch.kernels.optim import ops as OO
+    from repro_torch.kernels.optim import ref as OR
+    from repro_torch.optim import adafactor
+
+    cfg = configs.smoke("llama3.2-1b")
+    model = build_model(cfg)
+    params = _params(model)
+    batch = _batch(cfg)
+    opt = adafactor(lr=1e-2)
+    ref_p = _clone(params)
+    ref_state = {"params": ref_p, "opt": opt.init(ref_p)}
+    ref_step = make_train_step(model, opt, None, impl="torch")
+    for _ in range(STEPS):
+        ref_state, ref_m = ref_step(ref_state, batch)
+    K = OO._kernel
+    names = ("sumsq_cuda", "adafactor_sums_cuda", "adafactor_finish_cuda",
+             "adafactor_rms_cuda", "adafactor_update_cuda")
+    emulated = (lambda grads: OR.sumsq_chunked_torch(grads),
+                OR.adafactor_sums_emulated, OR.adafactor_finish_emulated,
+                OR.adafactor_rms_emulated, OR.adafactor_update_emulated)
+
+    def run(reduce: bool) -> dict:
+        saved = ([getattr(K, n) for n in names], OO.use_kernels,
+                 OO._reduce_over)
+        for n, f in zip(names, emulated):
+            setattr(K, n, f)
+        OO.use_kernels = lambda impl, leaf: True
+        if not reduce:
+            OO._reduce_over = lambda local, like, dims: local
+        try:
+            state = {"params": distribute_params(
+                         _clone(params), model.defs, rules, mesh),
+                     "opt": distribute_params(opt.init(_clone(params)),
+                                              opt.state_defs(model.defs),
+                                              rules, mesh)}
+            step = make_train_step(model, opt, rules, impl="torch")
+            for _ in range(STEPS):
+                state, m = step(state, batch)
+        finally:
+            for n, f in zip(names, saved[0]):
+                setattr(K, n, f)
+            OO.use_kernels, OO._reduce_over = saved[1:]
+        return {
+            "grad_norm_rel": abs(float(m["grad_norm"])
+                                 - float(ref_m["grad_norm"]))
+            / abs(float(ref_m["grad_norm"])),
+            "param": max(_rel(a, b) for a, b in zip(
+                tree_leaves(state["params"]),
+                tree_leaves(ref_state["params"]))),
+            "opt": max(_rel(a, b) for a, b in zip(
+                tree_leaves(state["opt"]), tree_leaves(ref_state["opt"]))),
+            "sharded_leaves": sum(
+                any(pl.is_shard() for pl in t.placements)
+                for t in tree_leaves(state["params"])),
+        }
+
+    return {"reduced": run(True), "control": run(False)}
+
+
 def ckpt_check(rules, mesh, tmp: Path, rank: int) -> dict:
     from repro_torch.checkpoint import restore, save
     from repro_torch.launch.steps import out_shardings_for, state_specs
@@ -471,6 +542,7 @@ def main() -> None:
     res["serve"] = serve_check(rules, mesh)
     res["ckpt"] = ckpt_check(rules, mesh, Path(out).parent, rank)
     res["optim"] = optim_check(rules, mesh)
+    res["adafactor"] = adafactor_check(rules, mesh)
     if rank == 0:
         Path(out).write_text(json.dumps(res))
     dist.barrier()
